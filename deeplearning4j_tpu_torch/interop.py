@@ -1,0 +1,27 @@
+"""Carry weights between the two packages as numpy.
+
+`params_from_numpy` takes a params tree as the JAX package holds it
+(`cg.params_tree` with every leaf turned into a numpy array: nested
+`{vertex: {name: array}}`) and returns the port's tree, name for name, for
+`ComputationGraph.init(params=...)`. The port checks names and shapes
+against its conf there, so both packages compute the same function."""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16: no numpy-native view
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def params_from_numpy(tree: Mapping[str, Mapping[str, object]]
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    return {str(v): {str(k): _tensor(a) for k, a in p.items()}
+            for v, p in tree.items()}

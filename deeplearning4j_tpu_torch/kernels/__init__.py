@@ -1,0 +1,70 @@
+"""The port's hand-written Hopper kernels and their plain PyTorch versions.
+
+Each kernel module holds a wrapper, the kernel's plain PyTorch version and
+a launch count. The wrapper picks by where its tensors lie, and by nothing
+else: a CPU tensor goes to the plain version (the CPU tests' path); a CUDA
+tensor launches the kernel, or the wrapper raises. No fallback, no switch.
+
+- `norm_act.layernorm_norm_act`             (csrc/norm_act.cu)
+- `flash_attention.flash_attention`         (csrc/flash_attention.cu)
+- `flash_attention.paged_decode_attention`  (csrc/paged_attention.cu)
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict
+
+KERNELS = ("layernorm_norm_act", "flash_attention", "paged_decode_attention")
+
+
+class Count:
+    """A thread-safe integer count (the decode loop launches from its own
+    thread while callers read)."""
+
+    def __init__(self):
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+
+# Kernel launches, counted where each wrapper launches its kernel and
+# nowhere else; plain-version calls, counted in the plain versions.
+launches: Dict[str, Count] = {name: Count() for name in KERNELS}
+plain_calls: Dict[str, Count] = {name: Count() for name in KERNELS}
+
+
+def reset_counts() -> None:
+    for c in (*launches.values(), *plain_calls.values()):
+        c.reset()
+
+
+def counts() -> Dict[str, Dict[str, int]]:
+    return {"launches": {n: c.value for n, c in launches.items()},
+            "plain_calls": {n: c.value for n, c in plain_calls.items()}}
+
+
+def placement(*tensors) -> str:
+    """'cpu' or 'cuda' for tensors that all lie on one device; raises for
+    mixed devices and for any other device type."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(
+                f"tensors on different devices: {dev} and {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"tensors on {dev}: the port runs its kernels on 'cuda' and "
+            "their plain versions on 'cpu'")
+    return dev.type

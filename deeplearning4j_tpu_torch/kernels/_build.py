@@ -1,0 +1,139 @@
+"""Build and load the hand-written Hopper kernels.
+
+`csrc/*.cu` compile with `nvcc -gencode arch=compute_90a,code=sm_90a` into
+one shared library with a plain C interface, bound with ctypes (pointers and
+the CUDA stream as `c_void_p`, so nothing is cut to 32 bits). The build runs
+at first use, never at import: one `nvcc -c` per source, all started
+together, then one link. The library lands in `build/kernels/` beside the
+package, named by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads what is there. Only the repository's
+sources and the CUDA toolkit are used.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "dl4j_layernorm_norm_act": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    "dl4j_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                                 _P],
+    "dl4j_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _F, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# What the last build did: command lines, seconds, ptxas resource lines.
+last_build: Dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "port's CUDA kernels are built from deeplearning4j_tpu_torch/kernels/"
+        "csrc at first use and need the CUDA toolkit")
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(force: bool) -> Path:
+    target = BUILD_DIR / f"libdl4j_kernels-{_digest()}.so"
+    if target.is_file() and not force:
+        last_build.update(cached=True, path=str(target))
+        return target
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, cmds, procs = [], [], []
+        for src in sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            cmds.append(cmd)
+            objs.append(obj)
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, p, log in zip(cmds, procs, logs):
+            if p.returncode:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                                   f"{' '.join(cmd)}\n{log}")
+        tmp_so = Path(tmp) / target.name
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                *map(str, objs), "-o", str(tmp_so)]
+        res = subprocess.run(link, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                               f"{' '.join(link)}\n{res.stdout}")
+        os.replace(tmp_so, target)  # atomic: a concurrent loader sees all or nothing
+    last_build.update(
+        cached=False, path=str(target), seconds=time.perf_counter() - t0,
+        commands=[" ".join(c) for c in cmds + [link]],
+        ptxas=[line.strip() for log in logs for line in log.splitlines()
+               if "registers" in line or "spill" in line])
+    return target
+
+
+def load(force: bool = False) -> ctypes.CDLL:
+    """The kernel library, built on first use (or anew with `force`)."""
+    global _lib
+    with _lock:
+        if _lib is None or force:
+            lib = ctypes.CDLL(str(_compile(force)))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.dl4j_error_string.argtypes = [ctypes.c_int]
+            lib.dl4j_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C entry point and raise on the CUDA error it returns (a
+    refused launch never runs, and a later synchronize does not report
+    it)."""
+    lib = load()
+    rc = getattr(lib, name)(*args)
+    if rc:
+        raise RuntimeError(
+            f"{name} failed: CUDA error {rc} "
+            f"({lib.dl4j_error_string(rc).decode()})")

@@ -1,0 +1,40 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel exposes one `extern "C"` entry that launches on the stream it
+// is given, allocates nothing, and returns `cudaGetLastError()` so the Python
+// wrapper (ctypes) can raise on a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace dl4j {
+
+// dtype codes shared with kernels/_build.py
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+
+// The JAX package's finite mask value (kernels/flash_attention.py `_NEG`).
+constexpr float kNeg = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+}  // namespace dl4j

@@ -1,0 +1,172 @@
+// Causal (or full) multi-head attention forward with an online f32 softmax.
+//
+// Replaces the TPU kernel `_flash_kernel_resident` with its
+// `_resident_softmax_loop` (deeplearning4j_tpu/kernels/flash_attention.py:99,55,
+// launched by `_flash_fwd_bhtd` :241 under `flash_attention` :289), and
+// computes the `o` of the streamed `_flash_stream_kernel` (:137) too.
+//
+// Bound on the H100 at the serving prefill (T = 1024, 8 heads, D = 64, bf16,
+// causal): ~1.07 GFLOP over 989 TFLOP/s is ~1.1 us and q, k, v, o are ~4.2 MB
+// over 3.35 TB/s is ~1.3 us, so bytes bound it, barely; the ridge is near.
+//
+// Design: one block per (batch*head, 64-row q tile). Each query row is owned
+// by G threads (G = next power of two >= D/16), each holding 16 of the row's
+// dims in registers, interleaved (thread g owns dims g, g+G, ...) so that the
+// G threads of a row read consecutive shared-memory words. K/V tiles of 64 keys
+// are staged in shared memory as f32 and reused by all 64 rows of the tile; the
+// loop over key tiles stops at the causal diagonal, so the upper triangle is
+// neither read nor computed. Scores are reduced across a row's G threads with
+// warp shuffles; softmax statistics and the accumulator stay in f32 registers,
+// with the JAX package's -1e30 mask. Any T is taken: rows and keys beyond T
+// are masked, so every prefill bucket runs this kernel. QK^T and PV run on the
+// CUDA cores; tensor cores (mma/wgmma) and TMA are later work.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBQ = 64;     // query rows per block
+constexpr int kBK = 64;     // keys per shared-memory tile
+constexpr int kChunk = 16;  // keys per online-softmax update
+constexpr int kDPT = 16;    // head dims per thread
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kBQ * G)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int seq, int heads,
+                 int dim, int causal, float scale) {
+  constexpr int DP = G * kDPT;  // padded head width in shared memory
+  extern __shared__ float smem[];
+  float* ks = smem;             // [kBK][DP]
+  float* vs = smem + kBK * DP;  // [kBK][DP]
+
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y % heads;
+  const int q0 = blockIdx.x * kBQ;
+  const int tid = threadIdx.x;
+  const int g = tid % G;
+  const int qpos = q0 + tid / G;
+  const size_t stride = static_cast<size_t>(heads) * dim;  // between positions
+  const size_t base = static_cast<size_t>(b) * seq * stride +
+                      static_cast<size_t>(h) * dim;
+
+  float qr[kDPT], acc[kDPT];
+#pragma unroll
+  for (int i = 0; i < kDPT; ++i) {
+    const int d = g + G * i;
+    qr[i] = (qpos < seq && d < dim)
+                ? dl4j::to_f32(q[base + qpos * stride + d]) * scale
+                : 0.f;
+    acc[i] = 0.f;
+  }
+  float m = dl4j::kNeg, l = 0.f;
+
+  const int q_last = min(q0 + kBQ, seq) - 1;
+  const int k_end = causal ? q_last + 1 : seq;  // keys [0, k_end) matter
+  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+    __syncthreads();  // the previous tile is fully consumed
+    for (int e = tid; e < kBK * DP; e += kBQ * G) {
+      const int j = e / DP, d = e % DP;
+      const int kp = k0 + j;
+      float kv = 0.f, vv = 0.f;
+      if (kp < seq && d < dim) {
+        const size_t off = base + kp * stride + d;
+        kv = dl4j::to_f32(k[off]);
+        vv = dl4j::to_f32(v[off]);
+      }
+      ks[e] = kv;
+      vs[e] = vv;
+    }
+    __syncthreads();
+    const int jn = min(kBK, k_end - k0);
+    for (int c = 0; c < jn; c += kChunk) {
+      float s[kChunk];
+      float mx = dl4j::kNeg;
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const float* kr = ks + (c + jj) * DP + g;
+        float part = 0.f;
+#pragma unroll
+        for (int i = 0; i < kDPT; ++i) part += qr[i] * kr[G * i];
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        const int kp = k0 + c + jj;
+        if (kp >= seq || (causal && kp > qpos)) part = dl4j::kNeg;
+        s[jj] = part;
+        mx = fmaxf(mx, part);
+      }
+      const float m_new = fmaxf(m, mx);
+      const float corr = expf(m - m_new);
+      l *= corr;
+#pragma unroll
+      for (int i = 0; i < kDPT; ++i) acc[i] *= corr;
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const float p = expf(s[jj] - m_new);
+        const float* vr = vs + (c + jj) * DP + g;
+        l += p;
+#pragma unroll
+        for (int i = 0; i < kDPT; ++i) acc[i] += p * vr[G * i];
+      }
+      m = m_new;
+    }
+  }
+
+  if (qpos < seq) {
+    const float lc = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < kDPT; ++i) {
+      const int d = g + G * i;
+      if (d < dim) o[base + qpos * stride + d] = dl4j::from_f32<T>(acc[i] / lc);
+    }
+  }
+}
+
+template <typename T, int G>
+int launch(const void* q, const void* k, const void* v, void* o, int batch,
+           int seq, int heads, int dim, int causal, float scale,
+           cudaStream_t stream) {
+  constexpr int DP = G * kDPT;
+  const int smem = 2 * kBK * DP * static_cast<int>(sizeof(float));
+  auto kernel = flash_fwd_kernel<T, G>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((seq + kBQ - 1) / kBQ, batch * heads);
+  kernel<<<grid, kBQ * G, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), seq, heads, dim, causal,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, int batch,
+             int seq, int heads, int dim, int causal, float scale,
+             cudaStream_t s) {
+  if (dim <= 16) return launch<T, 1>(q, k, v, o, batch, seq, heads, dim, causal, scale, s);
+  if (dim <= 32) return launch<T, 2>(q, k, v, o, batch, seq, heads, dim, causal, scale, s);
+  if (dim <= 64) return launch<T, 4>(q, k, v, o, batch, seq, heads, dim, causal, scale, s);
+  if (dim <= 128) return launch<T, 8>(q, k, v, o, batch, seq, heads, dim, causal, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// q, k, v, o: [batch, seq, heads, dim] contiguous, all of `dtype`; dim <= 128.
+extern "C" int dl4j_flash_attention_fwd(const void* q, const void* k,
+                                        const void* v, void* o, int batch,
+                                        int seq, int heads, int dim,
+                                        int causal, float scale, int dtype,
+                                        void* stream) {
+  if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == dl4j::kFloat32)
+    return dispatch<float>(q, k, v, o, batch, seq, heads, dim, causal, scale, s);
+  if (dtype == dl4j::kBFloat16)
+    return dispatch<__nv_bfloat16>(q, k, v, o, batch, seq, heads, dim, causal, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

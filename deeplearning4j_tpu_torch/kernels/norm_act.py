@@ -1,0 +1,72 @@
+"""LayerNorm + affine + activation (counterpart of
+`deeplearning4j_tpu/kernels/norm_act.py`).
+
+`layernorm_norm_act` launches the CUDA kernel of `csrc/norm_act.cu` for a
+CUDA tensor (it replaces the TPU kernel `_ln_kernel`, norm_act.py:101; the
+source note there says what bounds it and how) and calls `layernorm_plain`,
+an op-for-op copy of `layernorm_xla` (norm_act.py:83), for a CPU tensor.
+The kernel keeps the statistics in f32 and rounds once at the store, where
+the plain version (like JAX) rounds mu and var to the input dtype first, so
+the two agree to bf16 rounding in bf16 and to f32 roundoff in f32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deeplearning4j_tpu_torch import kernels
+from deeplearning4j_tpu_torch.kernels import _build
+from deeplearning4j_tpu_torch.nn import activations
+
+_ACT_CODES = {"identity": 0, "relu": 1, "tanh": 2, "sigmoid": 3}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_VECTORS = 8  # 16-byte loads per lane (csrc/norm_act.cu dispatch)
+
+
+def layernorm_plain(x, gamma, beta, eps, activation):
+    """The plain version: two-pass mean((x - mu)^2) variance, as the JAX
+    package's XLA path computes it."""
+    kernels.plain_calls["layernorm_norm_act"].add()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    out = out * gamma + beta
+    return activations.resolve(activation)(out)
+
+
+def layernorm_norm_act(x, gamma, beta, eps, activation):
+    """Per-row statistics over the last axis, normalize, affine, then
+    `activation` (identity/relu/tanh/sigmoid on the card). x: [..., F];
+    gamma, beta: [F] of x's dtype."""
+    if kernels.placement(x, gamma, beta) == "cpu":
+        return layernorm_plain(x, gamma, beta, eps, activation)
+    feats = x.shape[-1]
+    act = str(activation or "identity").lower()
+    if act not in _ACT_CODES:
+        raise ValueError(f"activation {activation!r} is not in the kernel's "
+                         f"set {sorted(_ACT_CODES)}")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"layernorm_norm_act takes float32 or bfloat16, "
+                        f"not {x.dtype}")
+    if gamma.dtype != x.dtype or beta.dtype != x.dtype:
+        raise TypeError("gamma and beta must have x's dtype")
+    if tuple(gamma.shape) != (feats,) or tuple(beta.shape) != (feats,):
+        raise ValueError(f"gamma/beta must be [{feats}]")
+    vec = 16 // x.element_size()
+    if feats % vec or feats > 32 * vec * _MAX_VECTORS:
+        raise ValueError(f"the kernel takes a feature width that is a "
+                         f"multiple of {vec} and at most "
+                         f"{32 * vec * _MAX_VECTORS}; got {feats}")
+    for t in (x, gamma, beta):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("x, gamma and beta must be contiguous and "
+                             "16-byte aligned")
+    y = torch.empty_like(x)
+    rows = x.numel() // feats
+    with torch.cuda.device(x.device):
+        _build.launch("dl4j_layernorm_norm_act", x.data_ptr(),
+                      gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), rows,
+                      feats, float(eps), _ACT_CODES[act], DTYPE_CODES[x.dtype],
+                      torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.launches["layernorm_norm_act"].add()
+    return y

@@ -1,0 +1,375 @@
+"""Model zoo, serving subset (counterpart of `deeplearning4j_tpu/models/zoo.py`):
+`transformer_lm`, token sampling, `generate_lm`, and the step-granular
+decode steppers the serving scheduler drives (dense per-slot KV caches, or
+a paged KV pool).
+
+Ids travel as int64 tensors: the reference feeds its steppers float32 ids,
+which a bf16 compute policy rounds (ids above 256 stop being exact); the
+port's integer ids reach the embedding gather untouched.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.models.kv_pool import KVPagePool
+from deeplearning4j_tpu_torch.nn import rnn_state as rnn_mod
+from deeplearning4j_tpu_torch.nn.conf.graph import (
+    ElementWiseVertex,
+    LayerVertex,
+)
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    DenseLayer,
+    EmbeddingLayer,
+    LayerNormalization,
+    PositionalEmbeddingLayer,
+    RnnOutputLayer,
+    SelfAttentionLayer,
+)
+from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+    ComputationGraphConfiguration,
+    GlobalConf,
+)
+from deeplearning4j_tpu_torch.nn.graph import to_numpy
+
+
+def transformer_lm(vocab_size: int, *, t: int = 64, d_model: int = 64,
+                   n_heads: int = 4, n_blocks: int = 2, seed: int = 123,
+                   dtype: str = "float32",
+                   decode_cache_length: Optional[int] = None
+                   ) -> ComputationGraphConfiguration:
+    """Decoder-only pre-LN transformer LM, the same graph (vertex names,
+    inputs, shapes, activations) as the reference's builder: embedding +
+    learned positions, `n_blocks` of x + Attn(LN(x)); x + FFN(LN(x)), a
+    final LN and a softmax output. `decode_cache_length=N` sizes every
+    attention layer's KV cache (and the positional table) for stateful
+    decode. `t` only sets the positional table's floor, as in the
+    reference."""
+    vertices: Dict[str, LayerVertex] = {}
+    inputs: Dict[str, List[str]] = {}
+
+    def add(name, vertex, *ins):
+        vertices[name] = vertex
+        inputs[name] = list(ins)
+
+    d = d_model
+    add("emb", LayerVertex(EmbeddingLayer(
+        n_in=vocab_size, n_out=d, has_bias=False, input_format="ids",
+        activation="identity")), "tokens")
+    add("pos", LayerVertex(PositionalEmbeddingLayer(
+        n_in=d, n_out=d, max_length=max(t, 16, decode_cache_length or 0),
+        stateful=decode_cache_length is not None)), "emb")
+    prev = "pos"
+    for i in range(n_blocks):
+        add(f"ln_a{i}", LayerVertex(LayerNormalization(n_in=d, n_out=d)), prev)
+        add(f"attn{i}", LayerVertex(SelfAttentionLayer(
+            n_in=d, n_out=d, n_heads=n_heads, causal=True,
+            decode_cache_length=decode_cache_length)), f"ln_a{i}")
+        add(f"res_a{i}", ElementWiseVertex(op="add"), prev, f"attn{i}")
+        add(f"ln_f{i}", LayerVertex(LayerNormalization(n_in=d, n_out=d)),
+            f"res_a{i}")
+        add(f"ff1_{i}", LayerVertex(DenseLayer(
+            n_in=d, n_out=4 * d, activation="relu")), f"ln_f{i}")
+        add(f"ffn{i}", LayerVertex(DenseLayer(
+            n_in=4 * d, n_out=d, activation="identity")), f"ff1_{i}")
+        add(f"res_f{i}", ElementWiseVertex(op="add"), f"res_a{i}", f"ffn{i}")
+        prev = f"res_f{i}"
+    add("ln_out", LayerVertex(LayerNormalization(n_in=d, n_out=d)), prev)
+    add("out", LayerVertex(RnnOutputLayer(
+        n_in=d, n_out=vocab_size, activation="softmax",
+        loss_function="mcxent")), "ln_out")
+    g = GlobalConf(seed=seed, dtype=dtype, weight_init="xavier")
+    for v in vertices.values():
+        # Unset per-layer fields inherit the global defaults at build time,
+        # as the reference's builder resolves them into its JSON.
+        layer = getattr(v, "layer", None)
+        if layer is not None:
+            for key in ("activation", "weight_init", "bias_init"):
+                if getattr(layer, key) is None:
+                    setattr(layer, key, getattr(g, key))
+    conf = ComputationGraphConfiguration(
+        global_conf=g, network_inputs=["tokens"], network_outputs=["out"],
+        vertices=vertices, vertex_inputs=inputs)
+    conf.validate()
+    return conf
+
+
+def _sample_token(probs, rng, temperature: float, top_k: int, top_p: float):
+    """Sample one id from a [V] distribution (greedy at temperature <= 0;
+    top-k / nucleus restrictions compose, applied before temperature;
+    excluded tokens are masked to -inf so re-tempering cannot re-admit
+    them). Same draws as the reference for the same `rng`."""
+    probs = np.asarray(probs, np.float64)
+    if temperature <= 0:
+        return int(probs.argmax())
+    if top_k:
+        kth = np.sort(probs)[-min(top_k, len(probs))]
+        probs = np.where(probs >= kth, probs, 0.0)
+    if top_p:
+        order = np.argsort(-probs)
+        csum = np.cumsum(probs[order]) - probs[order]
+        cut = order[csum >= top_p * probs.sum()]
+        probs = probs.copy()
+        probs[cut] = 0.0
+    logits = np.log(np.maximum(probs, 1e-12)) / temperature
+    logits[probs <= 0] = -np.inf
+    p = np.exp(logits - logits.max())
+    p /= p.sum()
+    return int(rng.choice(len(p), p=p))
+
+
+def decode_cache_capacity(cg) -> int:
+    """Smallest `decode_cache_length` across the attention layers: the
+    per-sequence step budget. Raises for a model without a KV cache."""
+    caps = [v.layer.decode_cache_length
+            for v in cg.layer_vertices.values()
+            if isinstance(v.layer, SelfAttentionLayer)]
+    if not caps or any(c is None for c in caps):
+        raise ValueError(
+            "model has no KV cache; build it with "
+            "transformer_lm(..., decode_cache_length=N)")
+    return min(caps)
+
+
+def generate_lm(cg, prompt_ids, n_steps: int, *, window: int,
+                temperature: float = 1.0, seed: int = 0,
+                use_cache: bool = False, top_k: int = 0,
+                top_p: float = 0.0) -> List[int]:
+    """Autoregressive sampling; returns prompt + generated ids.
+    `use_cache=False` re-reads the right-padded `window` each token;
+    `use_cache=True` primes the KV cache with the prompt and then takes
+    single-token `rnn_time_step`s."""
+    rng = np.random.RandomState(seed)
+    ids = [int(i) for i in prompt_ids]
+    if not ids:
+        raise ValueError("need at least one prompt token")
+
+    def pick(probs):
+        return _sample_token(probs, rng, temperature, top_k, top_p)
+
+    if use_cache:
+        cap = decode_cache_capacity(cg)
+        if len(ids) + n_steps > cap:
+            raise ValueError(
+                f"prompt ({len(ids)}) + n_steps ({n_steps}) exceeds the "
+                f"decode cache capacity {cap}")
+        if n_steps == 0:
+            return ids
+        cg.rnn_clear_previous_state()
+        out = cg.rnn_time_step(np.asarray(ids, np.int64)[None, :, None])[0]
+        ids.append(pick(out[0, -1]))
+        for _ in range(n_steps - 1):
+            out = cg.rnn_time_step(np.asarray([[[ids[-1]]]], np.int64))[0]
+            ids.append(pick(out[0, -1]))
+        return ids
+
+    for _ in range(n_steps):
+        ctx = ids[-window:]
+        x = np.zeros((1, window, 1), np.int64)
+        x[0, :len(ctx), 0] = ctx
+        out = cg.output_single(x)
+        ids.append(pick(out[0, len(ctx) - 1]))
+    return ids
+
+
+class DecodeStepper:
+    """Step-granular decode over a fixed bank of `slots` for a
+    `transformer_lm` graph: the seam the continuous-batching scheduler
+    drives. Per-slot KV caches and [slots] int32 cursors live in one
+    batched state overlay, so sequences at different depths advance in one
+    forward and a finished slot is recycled at the next step boundary.
+
+    - `prefill(ids, pad_to)`: one prompt through a fresh batch-1 forward,
+      right-padded to a bucket; returns the next-token distribution and the
+      slot's primed cache;
+    - `install(slot, slot_state, length)`: copy that cache into the bank;
+    - `step(tokens)`: advance every slot one token ([slots, V] out); free
+      slots ride along on a dummy token, masked by their own cursors;
+    - `clear(slot)`: retire a sequence.
+    """
+
+    def __init__(self, cg, slots: int):
+        if slots < 1:
+            raise ValueError("need at least one decode slot")
+        self.cg = cg
+        self.slots = int(slots)
+        self.capacity = decode_cache_capacity(cg)
+        self._declared = cg._declared_state()
+        self._state: Optional[Dict[str, Dict]] = None
+
+    @torch.inference_mode()
+    def prefill(self, ids, pad_to: Optional[int] = None):
+        """Returns `(probs [V], slot_state, length)`. Causal attention: the
+        distribution at the last real position never sees the pad tail,
+        whose cache rows sit beyond the rewound cursor."""
+        ids = [int(i) for i in ids]
+        n = len(ids)
+        if not n:
+            raise ValueError("need at least one prompt token")
+        pad_to = int(pad_to or n)
+        if pad_to < n:
+            raise ValueError(f"pad_to ({pad_to}) < prompt length ({n})")
+        if pad_to > self.capacity:
+            raise ValueError(
+                f"prompt bucket {pad_to} (prompt length {n}) exceeds the "
+                f"decode cache capacity {self.capacity}")
+        x = np.zeros((1, pad_to, 1), np.int64)
+        x[0, :n, 0] = ids
+        outs, new_state = self.cg.forward_state(
+            self.cg.state, [torch.as_tensor(x, device=self.cg.device)])
+        rnn = rnn_mod.split_rnn_state(new_state, self._declared)
+        # Rewind every scalar cursor from pad_to to the real length.
+        rnn = {layer: {k: (n if isinstance(v, int) else v)
+                       for k, v in s.items()}
+               for layer, s in rnn.items()}
+        return to_numpy(outs[0][0, n - 1]), rnn, n
+
+    def _zeros_like_slot(self, v):
+        if isinstance(v, int):
+            return torch.zeros(self.slots, dtype=torch.int32,
+                               device=self.cg.device)
+        return torch.zeros((self.slots,) + tuple(v.shape[1:]), dtype=v.dtype,
+                           device=self.cg.device)
+
+    def _alloc(self, template):
+        self._state = {layer: {k: self._zeros_like_slot(v)
+                               for k, v in s.items()}
+                       for layer, s in template.items()}
+
+    @torch.inference_mode()
+    def install(self, slot: int, slot_state, length: int) -> None:
+        if self._state is None:
+            self._alloc(slot_state)
+        for layer, s in slot_state.items():
+            dst = self._state[layer]
+            for k, v in s.items():
+                dst[k][slot] = length if isinstance(v, int) else v[0]
+
+    def _cursors(self):
+        for s in self._state.values():
+            for k, v in s.items():
+                if v.dim() == 1 and not v.is_floating_point():
+                    yield s, k
+
+    @torch.inference_mode()
+    def clear(self, slot: int) -> None:
+        """Cursor to 0: the next occupant writes from row 0 and stale rows
+        are never visible."""
+        if self._state is None:
+            return
+        for s, k in self._cursors():
+            s[k][slot] = 0
+
+    def _before_dispatch(self, t: int) -> None:
+        """Hook before every decode forward (the paged stepper allocates
+        and copies-on-write pool pages here)."""
+
+    def _dispatch(self, x):
+        state = rnn_mod.merge_rnn_state(self.cg.state, self._state)
+        outs, new_state = self.cg.forward_state(state, [x])
+        self._state = rnn_mod.split_rnn_state(new_state, self._declared)
+        out = to_numpy(outs[0])
+        return out if out.ndim == 3 else out[:, None, :]
+
+    @torch.inference_mode()
+    def step(self, tokens) -> np.ndarray:
+        """Advance every slot one token; `tokens` is [slots] ints (free
+        slots take any dummy). Returns [slots, V] distributions."""
+        if self._state is None:
+            raise RuntimeError("no sequence installed; call prefill/install")
+        x = torch.as_tensor(np.asarray(tokens, np.int64).reshape(
+            self.slots, 1, 1), device=self.cg.device)
+        self._before_dispatch(1)
+        return self._dispatch(x)[:, -1]
+
+
+class PagedDecodeStepper(DecodeStepper):
+    """`DecodeStepper` over a paged KV pool: every attention layer's bank
+    holds `k_pages`/`v_pages` ([pages, page_size, H, D]) plus the [slots]
+    cursors, and one int32 page table ([slots, pages_per_seq], kept by
+    the host pool) is shipped to the device before each step and shared by
+    all layers. `install` copies a prefilled prompt into fresh pages;
+    `install_shared` points a slot at resident pages (prefix-cache hit: no
+    forward, no KV writes); `_before_dispatch` advances the pool and does
+    the planned copy-on-write page copies, so the step's scatter never
+    collides."""
+
+    def __init__(self, cg, slots: int, page_size: int = 64,
+                 pages: Optional[int] = None):
+        super().__init__(cg, slots)
+        self.pool = KVPagePool(slots=self.slots, capacity=self.capacity,
+                               page_size=page_size, pages=pages)
+        self.page_size = self.pool.page_size
+        self._attn_layers: List[str] = []
+
+    def _alloc(self, template):
+        dev = self.cg.device
+        shape = (self.pool.num_pages, self.page_size)
+        self._state, self._attn_layers = {}, []
+        for layer, s in template.items():
+            if "k_cache" in s:
+                k = s["k_cache"]
+                self._state[layer] = {
+                    "k_pages": torch.zeros(shape + tuple(k.shape[2:]),
+                                           dtype=k.dtype, device=dev),
+                    "v_pages": torch.zeros(shape + tuple(k.shape[2:]),
+                                           dtype=k.dtype, device=dev),
+                    "kv_pos": torch.zeros(self.slots, dtype=torch.int32,
+                                          device=dev),
+                }
+                self._attn_layers.append(layer)
+            else:
+                self._state[layer] = {k: self._zeros_like_slot(v)
+                                      for k, v in s.items()}
+
+    @torch.inference_mode()
+    def install(self, slot: int, slot_state, length: int) -> None:
+        """Allocate pages for a prefilled prompt and copy its cache into
+        them; the tail page's rows beyond `length` hold prefill-pad
+        garbage, masked until overwritten."""
+        if self._state is None:
+            self._alloc(slot_state)
+        pages = self.pool.install_slot(slot, length)
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.cg.device)
+        page, npg = self.page_size, len(pages)
+        for layer, s in slot_state.items():
+            dst = self._state[layer]
+            if "k_cache" in s:
+                for src_k, dst_k in (("k_cache", "k_pages"),
+                                     ("v_cache", "v_pages")):
+                    src = s[src_k]
+                    dst[dst_k][idx] = src[0, :npg * page].reshape(
+                        (npg, page) + tuple(src.shape[2:]))
+                dst["kv_pos"][slot] = length
+            else:
+                for k, v in s.items():
+                    dst[k][slot] = length if isinstance(v, int) else v[0]
+
+    @torch.inference_mode()
+    def install_shared(self, slot: int, pages, length: int) -> None:
+        """Prefix-cache hit: point `slot` at resident pages (+1 ref each)
+        and set its cursors."""
+        if self._state is None:
+            raise RuntimeError(
+                "no paged state allocated yet; the first prompt must go "
+                "through prefill/install")
+        self.pool.install_shared(slot, pages, length)
+        for s, k in self._cursors():
+            s[k][slot] = length
+
+    def clear(self, slot: int) -> None:
+        self.pool.free_slot(slot)
+        super().clear(slot)
+
+    def _before_dispatch(self, t: int) -> None:
+        for src, dst in self.pool.plan_appends(t):
+            for layer in self._attn_layers:
+                s = self._state[layer]
+                s["k_pages"][dst] = s["k_pages"][src]
+                s["v_pages"][dst] = s["v_pages"][src]
+        table = torch.tensor(self.pool.table, device=self.cg.device)  # a copy
+        for layer in self._attn_layers:
+            self._state[layer]["page_table"] = table

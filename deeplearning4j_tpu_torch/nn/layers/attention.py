@@ -1,0 +1,97 @@
+"""Multi-head self-attention of the serving slice (counterpart of
+`deeplearning4j_tpu/nn/layers/attention.py::self_attention_apply`).
+
+Three paths, picked from the state the layer is given:
+
+1. `k_pages` in state (paged decode step): scatter the new k/v rows
+   through the per-slot page table into the pools, then read through
+   `paged_decode_attention`;
+2. `kv_pos` in state (dense cached decode step): write the new rows at the
+   cursor, then `cached_decode_attention` (the reference leaves this path
+   to XLA: it has no TPU kernel);
+3. otherwise (a full sequence: prefill, `output`): `flash_attention`, and
+   with `decode_cache_length` set, prime the cache as undeclared state.
+
+Unlike the reference's functional `.at[].set`, the decode paths write the
+KV pools and caches IN PLACE: the previous state is dead after a step, and
+a copy of every pool per layer per step is the bytes the step can least
+afford. Ring/Ulysses attention, masks and tensor parallelism are not in the
+port yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deeplearning4j_tpu_torch.kernels import flash_attention as _fa
+from deeplearning4j_tpu_torch.nn import activations
+
+
+def self_attention_apply(conf, params, state, x):
+    """x: [B, T, n_in] -> [B, T, n_out]."""
+    if conf.attention_impl != "auto":
+        raise ValueError(f"attention_impl {conf.attention_impl!r} is not in "
+                         "the port (it runs 'auto')")
+    b, t, _ = x.shape
+    heads = conf.n_heads
+    if conf.n_out % heads:
+        raise ValueError(f"SelfAttentionLayer n_out ({conf.n_out}) must be "
+                         f"divisible by n_heads ({heads})")
+    dh = conf.n_out // heads
+    q = (x @ params["Wq"] + params["qB"]).view(b, t, heads, dh)
+    k = (x @ params["Wk"]).view(b, t, heads, dh)
+    v = (x @ params["Wv"] + params["vB"]).view(b, t, heads, dh)
+    act = activations.resolve(conf.activation)
+
+    def project(o):
+        return act(o.reshape(b, t, conf.n_out) @ params["Wo"] + params["oB"])
+
+    cap = conf.decode_cache_length
+    if cap and "k_pages" in state:
+        pos = state["kv_pos"]                   # [B] int32 cursors
+        table = state["page_table"]             # [B, NP] int32
+        kp, vp = state["k_pages"], state["v_pages"]
+        page = kp.shape[1]
+        gpos = pos[:, None].long() + torch.arange(t, device=x.device)[None, :]
+        # Free slots' cursors grow unbounded; the clip keeps the gather
+        # legal, and their all-zero table rows land the writes on the
+        # reserved zero page, which is never read unmasked.
+        phys = torch.gather(table.long(), 1,
+                            (gpos // page).clamp(0, table.shape[1] - 1))
+        flat_phys, flat_off = phys.reshape(-1), (gpos % page).reshape(-1)
+        kp[flat_phys, flat_off] = k.reshape(b * t, heads, dh)
+        vp[flat_phys, flat_off] = v.reshape(b * t, heads, dh)
+        o = _fa.paged_decode_attention(q, kp, vp, table, pos, conf.causal)
+        return project(o), {"k_pages": kp, "v_pages": vp,
+                            "page_table": table, "kv_pos": pos + t}
+
+    if cap and "kv_pos" in state:
+        pos = state["kv_pos"]
+        kc, vc = state["k_cache"], state["v_cache"]
+        length = kc.shape[1]
+        if isinstance(pos, torch.Tensor):
+            # Per-slot cursors: each row lands at its own depth (start
+            # clamped so the rows fit, as dynamic_update_slice clamps).
+            rows = (pos.long().clamp(0, length - t)[:, None]
+                    + torch.arange(t, device=x.device)[None, :])
+            bidx = torch.arange(b, device=x.device)[:, None]
+            kc[bidx, rows] = k
+            vc[bidx, rows] = v
+        else:
+            s = min(max(int(pos), 0), length - t)
+            kc[:, s:s + t] = k
+            vc[:, s:s + t] = v
+        o = _fa.cached_decode_attention(q, kc, vc, pos, conf.causal)
+        return project(o), {"k_cache": kc, "v_cache": vc, "kv_pos": pos + t}
+
+    o = _fa.flash_attention(q, k, v, causal=conf.causal, scale=dh ** -0.5)
+    new_state = state
+    if cap and t <= cap:
+        # Prime the decode cache (undeclared state, kept only by the
+        # stateful paths). T > cap skips priming so a plain forward still
+        # runs on sequences longer than the cache.
+        pad = (0, 0, 0, 0, 0, cap - t)
+        new_state = {"k_cache": torch.nn.functional.pad(k, pad),
+                     "v_cache": torch.nn.functional.pad(v, pad),
+                     "kv_pos": t}
+    return project(o), new_state

@@ -1,0 +1,139 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: a CUDA kernel has no CPU mode, so these skip where
+`torch.cuda.is_available()` is false. On a machine with an H100 (the JAX
+package need not be installed there):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
+
+Tolerances, as rtol = atol (|got - want| <= tol + tol * |want|): f32 1e-4
+(f32 sums in another order, TF32 off for the plain version's matmuls);
+bf16 4e-2 (the plain version rounds its intermediates to bf16 where the
+kernels keep f32), as the JAX package's own parity matrix.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu_torch import kernels
+from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+from deeplearning4j_tpu_torch.kernels import norm_act
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the port's CUDA kernels have no "
+                    "CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(a, dtype, dev):
+    return torch.tensor(np.asarray(a, np.float32), dtype=dtype, device=dev)
+
+
+def _close(got, want, dtype):
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    excess = diff - (tol + tol * want.float().abs())
+    assert float(excess.max()) <= 0, (
+        f"max abs err {float(diff.max())}, rtol=atol={tol}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,feats", [(4, 512), (1024, 512), (7, 24),
+                                        (3, 1024)])
+@pytest.mark.parametrize("act", ["identity", "relu", "tanh", "sigmoid"])
+def test_layernorm_kernel_matches_plain(cuda, dtype, rows, feats, act):
+    rng = np.random.RandomState(0)
+    x = _t(rng.randn(rows, feats) * 2 + 0.5, dtype, cuda)
+    g = _t(rng.rand(feats) + 0.5, dtype, cuda)
+    b = _t(rng.randn(feats), dtype, cuda)
+    before = kernels.launches["layernorm_norm_act"].value
+    got = norm_act.layernorm_norm_act(x, g, b, 1e-5, act)
+    assert kernels.launches["layernorm_norm_act"].value == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, norm_act.layernorm_plain(x, g, b, 1e-5, act), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,causal", [
+    ((1, 1024, 8, 64), True),    # the serving prefill at its widest bucket
+    ((1, 8, 8, 64), True),       # the narrowest bucket
+    ((2, 37, 3, 8), True),       # ragged T, tiny D
+    ((2, 100, 2, 128), False),   # full attention, widest D
+    ((1, 70, 2, 24), True),      # D that is no power of two
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, shape, causal):
+    rng = np.random.RandomState(1)
+    q, k, v = (_t(rng.randn(*shape), dtype, cuda) for _ in range(3))
+    before = kernels.launches["flash_attention"].value
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert kernels.launches["flash_attention"].value == before + 1
+    want = fa.dense_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t", [1, 3])
+def test_paged_kernel_matches_plain_small(cuda, dtype, t):
+    # The JAX package's paged-kernel geometry: a pad tail, zero-page rows
+    # and an empty slot (tests/test_kernels.py).
+    rng = np.random.RandomState(9)
+    B, H, D, page, P = 3, 2, 8, 4, 7
+    q = _t(rng.randn(B, t, H, D), dtype, cuda)
+    kp = _t(rng.randn(P, page, H, D), dtype, cuda)
+    vp = _t(rng.randn(P, page, H, D), dtype, cuda)
+    table = torch.tensor([[1, 2, 3, 0], [4, 0, 0, 0], [0, 0, 0, 0]],
+                         dtype=torch.int32, device=cuda)
+    pos = torch.tensor([9, 2, 0], dtype=torch.int32, device=cuda)
+    for causal in (True, False):
+        got = fa.paged_decode_attention(q, kp, vp, table, pos, causal)
+        want = fa.paged_gather_dense(q, kp, vp, table, pos, causal)
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_matches_plain_serving_shape(cuda, dtype):
+    # 4 slots x 8 heads x 64 dims, 64-row pages, 16 pages per sequence, a
+    # 65-page pool; one slot near full depth, one free (all-zero table).
+    rng = np.random.RandomState(2)
+    B, H, D, page, NP, P = 4, 8, 64, 64, 16, 65
+    q = _t(rng.randn(B, 1, H, D), dtype, cuda)
+    kp = _t(rng.randn(P, page, H, D), dtype, cuda)
+    vp = _t(rng.randn(P, page, H, D), dtype, cuda)
+    perm = rng.permutation(np.arange(1, P))
+    table = np.zeros((B, NP), np.int32)
+    pos = np.asarray([1022, 300, 0, 40], np.int32)
+    for b in range(B):
+        n = -(-(int(pos[b]) + 1) // page) if b != 2 else 0
+        table[b, :n] = perm[b * NP: b * NP + n]
+    table = torch.tensor(table, device=cuda)
+    pos = torch.tensor(pos, device=cuda)
+    before = kernels.launches["paged_decode_attention"].value
+    got = fa.paged_decode_attention(q, kp, vp, table, pos, True)
+    assert kernels.launches["paged_decode_attention"].value == before + 1
+    want = fa.paged_gather_dense(q, kp, vp, table, pos, True)
+    _close(got, want, dtype)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(4, 10, device=cuda)  # 10 % 4 != 0: no 16-byte rows
+    g = torch.ones(10, device=cuda)
+    with pytest.raises(ValueError):
+        norm_act.layernorm_norm_act(x, g, g, 1e-5, "identity")
+    q = torch.zeros(1, 8, 2, 160, device=cuda)  # D > 128
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())

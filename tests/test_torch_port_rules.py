@@ -1,0 +1,95 @@
+"""Rules of the PyTorch port that no later slice may break quietly.
+
+- The port and `chip_smoke.py` import neither JAX nor the JAX package:
+  every port module imports in a fresh interpreter where `jax` and
+  `deeplearning4j_tpu` cannot be imported, and no source file names them
+  in an import statement.
+- Entry points run on the card unless the caller asks for the CPU: given
+  no device on a machine without a GPU they raise, never falling back.
+"""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import deeplearning4j_tpu_torch
+from deeplearning4j_tpu_torch.models import zoo
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.serving import InferenceServer
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "deeplearning4j_tpu_torch"
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [str(PORT)], prefix="deeplearning4j_tpu_torch."))
+
+
+def _forbidden_imports(path: Path):
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for n in names:
+            top = n.split(".")[0]
+            if top in ("jax", "jaxlib", "flax", "optax",
+                       "deeplearning4j_tpu"):
+                bad.append(f"{path.name}:{node.lineno} imports {n}")
+    return bad
+
+
+def test_every_port_module_imports_without_jax():
+    mods = _port_modules()
+    assert "deeplearning4j_tpu_torch.serving.server" in mods
+    code = (
+        "import sys\n"
+        "for blocked in ('jax', 'jaxlib', 'deeplearning4j_tpu'):\n"
+        "    sys.modules[blocked] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not [m for m in sys.modules if m.startswith('jax')\n"
+        "            and sys.modules[m] is not None]\n"
+        "print('ok', len(sys.modules))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_in_source(path):
+    assert _forbidden_imports(path) == []
+
+
+def test_importing_the_port_builds_nothing():
+    # Kernels build at first launch, never at import.
+    from deeplearning4j_tpu_torch.kernels import _build
+
+    assert _build._lib is None
+    assert deeplearning4j_tpu_torch.__doc__
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the no-GPU refusal is what is "
+                    "under test")
+    conf = zoo.transformer_lm(16, d_model=8, n_heads=2, n_blocks=1,
+                              decode_cache_length=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ComputationGraph(conf)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceServer()
+    with pytest.raises(ValueError, match="not supported"):
+        ComputationGraph(conf, device="meta")
