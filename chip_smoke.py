@@ -8,14 +8,16 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
 
 1. build    - nvcc builds every kernel of `deeplearning4j_tpu_torch/kernels/
               csrc` for sm_90a (one nvcc per source, all at once).
-2. kernels  - each hand-written kernel at the serving path's shapes, in bf16
-              and f32, against its plain PyTorch version on the card
-              (rtol = atol = 4e-2 in bf16, 1e-4 in f32 with TF32 off), timed
-              with CUDA events (median of 25 after 5 warm-up runs) beside
-              the plain version, the least time the card could take
-              (`bound_ms`) and one PyTorch library call where one computes
-              the same function (`library_ms`, a yardstick the port never
-              calls).
+2. kernels  - each hand-written kernel at its main path's shapes (serving:
+              the prefill and decode shapes; training: B=16, T=1024, 8
+              heads of 64, and the 24 layer vertices' Adam state), in bf16
+              and f32 (the update kernel takes f32 only), against its plain
+              PyTorch version on the card (rtol = atol = 4e-2 in bf16, 1e-4
+              in f32 with TF32 off), timed with CUDA events (median of 25
+              after 5 warm-up runs) beside the plain version, the least
+              time the card could take (`bound_ms`) and one PyTorch library
+              call where one computes the same function (`library_ms`, a
+              yardstick the port never calls).
 3. serve    - the widest `transformer_lm` the repo runs (V=8192, d=512, 8
               heads, 4 blocks, bf16 compute over f32 params, seeded random
               weights) behind the port's `InferenceServer` with paged KV
@@ -23,13 +25,29 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               `POST /generate`, one a repeated prompt that must hit the
               prefix cache. Every response is checked, and every kernel's
               launch count must match the work the scheduler did, with 0
-              calls of any plain version.
+              calls of any plain version and 0 launches of the training
+              kernels.
 4. parity   - the same weights on the CPU through the plain versions: the
               first-token distribution and 4 decode steps of one prompt
               agree with the card's within 4e-2.
-5. trace    - where one decode step's and one 1024-token prefill's time
-              goes: host wall time, kernel time on the card (torch.profiler),
-              the card's idle share and the top kernels.
+5. train    - the same model (no decode cache) trained with
+              `ComputationGraph.fit` at `bench.py:1116`'s batch: B=16,
+              T=1024, Adam, int64 ids whose next id is a fixed permutation
+              of the current one (learnable), int32 labels; 3 warm-up and
+              20 timed steps over 2 batches. Scores finite and falling (the
+              last 3 average at least 5% under the first), and per step
+              exactly 9 LayerNorm, 4 flash forward-with-lse, 4 dq, 4 dk/dv
+              and 24 fused-update launches, 0 inference-flash launches, 0
+              plain calls.
+6. train_parity - one `fit` step of the same model at B=2 on the card and
+              on the CPU (plain versions): scores within 4e-2 relative and,
+              per layer vertex, Adam's m (= 0.1 * grad) within 4e-2 of the
+              CPU's largest |m| there (a kernel wrapper that cut the
+              gradient would show here).
+7. trace    - where one decode step's, one 1024-token prefill's and one
+              training step's (forward, backward, update) time goes: host
+              wall time, kernel time on the card (torch.profiler), the
+              card's idle share and the top kernels.
 
 Then the card line, the `{"kernels": [...]}` line and, last, the result
 line. With no GPU, without the package beside it, or when any phase
@@ -53,14 +71,28 @@ TOL = {"bfloat16": 4e-2, "float32": 1e-4}
 VOCAB, D_MODEL, HEADS, BLOCKS, CACHE = 8192, 512, 8, 4, 1024
 SLOTS, PAGE = 4, 64
 ROOT = "deeplearning4j_tpu_torch/kernels/csrc/"
+TRAIN_B, WARMUP, TIMED = 16, 3, 20
+FA = "deeplearning4j_tpu/kernels/flash_attention.py:"
 KERNEL_INFO = {
     "layernorm_norm_act": (ROOT + "norm_act.cu",
                            "deeplearning4j_tpu/kernels/norm_act.py:101"),
-    "flash_attention": (ROOT + "flash_attention.cu",
-                        "deeplearning4j_tpu/kernels/flash_attention.py:99"),
-    "paged_decode_attention": (ROOT + "paged_attention.cu",
-                               "deeplearning4j_tpu/kernels/flash_attention.py:733"),
+    "flash_attention": (ROOT + "flash_attention.cu", FA + "99"),
+    "paged_decode_attention": (ROOT + "paged_attention.cu", FA + "733"),
+    "flash_attention_fwd_lse": (ROOT + "flash_attention.cu", FA + "376"),
+    "flash_attention_bwd_dq": (ROOT + "flash_attention_bwd.cu", FA + "386"),
+    "flash_attention_bwd_dkv": (ROOT + "flash_attention_bwd.cu", FA + "426"),
+    "fused_update": (ROOT + "fused_update.cu",
+                     "deeplearning4j_tpu/kernels/fused_update.py:109"),
 }
+SERVING_KERNELS = ("layernorm_norm_act", "flash_attention",
+                   "paged_decode_attention")
+# Launches per training step of the smoke model: 2 LayerNorms per block and
+# the final one; one attention per block; one update per layer vertex.
+TRAIN_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1,
+                  "flash_attention_fwd_lse": BLOCKS,
+                  "flash_attention_bwd_dq": BLOCKS,
+                  "flash_attention_bwd_dkv": BLOCKS,
+                  "fused_update": 2 + 5 * BLOCKS + 2}
 
 
 def card_line() -> str:
@@ -118,6 +150,11 @@ def device_ms(torch, fn, reps=20):
 
 
 def compare(got, want, dtype):
+    """Max abs error and whether every element is within rtol = atol =
+    TOL[dtype]; `got`/`want` are tensors or equal-length sequences."""
+    if isinstance(got, (tuple, list)):
+        res = [compare(g, w, dtype) for g, w in zip(got, want)]
+        return max(e for e, _ in res), all(ok for _, ok in res)
     diff = (got.float() - want.float()).abs()
     tol = TOL[dtype]
     ok = bool((diff <= tol + tol * want.float().abs()).all())
@@ -193,29 +230,140 @@ def kernel_cases(torch, dev, dtype_name):
     return cases
 
 
-def phase_kernels(card, torch, dev):
+def train_kernel_cases(torch, dev, dtype_name, conf):
+    """The training kernels at the train phase's shapes, in the same tuple
+    form as `kernel_cases`; a library entry that is a pair is timed as the
+    first call less the second (SDPA's backward: forward + backward less
+    the forward)."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import fused_update
+
+    dt = getattr(torch, dtype_name)
+    es = torch.tensor([], dtype=dt).element_size()
+    rng = np.random.RandomState(1)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.randn(*shape) * scale, dtype=dt, device=dev)
+
+    B, T, dh = TRAIN_B, CACHE, D_MODEL // HEADS
+    n, rows = B * T * HEADS * dh, B * HEADS * T
+    pairs = B * HEADS * T * (T + 1) // 2        # (q, k) pairs, causal half
+    scale = dh ** -0.5
+    shape = f"[{B},{T},{HEADS},{dh}] causal"
+    q, k, v, do = (t(B, T, HEADS, dh) for _ in range(4))
+    qh, kh, vh, doh = (a.transpose(1, 2).contiguous() for a in (q, k, v, do))
+    qg, kg, vg = (a.detach().requires_grad_(True) for a in (qh, kh, vh))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), doh)
+
+    o, lse = fa.dense_attention_lse(q, k, v, True)
+    drow = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, do, lse, drow, True, scale)
+    cases = [
+        ("flash_attention_fwd_lse", shape,
+         lambda: fa.flash_attention_fwd_lse(q, k, v, True),
+         lambda: fa.dense_attention_lse(q, k, v, True),
+         lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+         4 * n * es + 4 * rows, 4 * dh * pairs),
+        ("flash_attention_bwd_dq", shape,
+         lambda: fa.flash_attention_bwd_dq(*bwd),
+         lambda: fa.flash_bwd_dq_plain(*bwd), (sdpa_fwd_bwd, sdpa_fwd),
+         5 * n * es + 8 * rows, 6 * dh * pairs),
+        ("flash_attention_bwd_dkv", shape,
+         lambda: fa.flash_attention_bwd_dkv(*bwd),
+         lambda: fa.flash_bwd_dkv_plain(*bwd), (sdpa_fwd_bwd, sdpa_fwd),
+         6 * n * es + 8 * rows, 8 * dh * pairs),
+    ]
+    if dtype_name != "float32":
+        return cases
+    # Adam over the 24 layer vertices' f32 params, one dispatch each, as a
+    # training step runs it (lr 3e-3, step 5).
+    hyper, lr, step = (0.9, 0.999, 1e-8), 3e-3, 5
+    shapes = {name: v.layer.param_shapes() for name, v in conf.vertices.items()
+              if hasattr(v, "layer")}
+    grads = {v: {k: t(*s) for k, s in p.items()} for v, p in shapes.items()}
+    init = {v: {"m": {k: t(*s, scale=0.01) for k, s in p.items()},
+                "v": {k: t(*s, scale=0.01) ** 2 for k, s in p.items()}}
+            for v, p in shapes.items()}
+
+    def copy_state():
+        return {v: {f: {k: a.clone() for k, a in s.items()}
+                    for f, s in st.items()} for v, st in init.items()}
+
+    kstate, pstate, lstate = copy_state(), copy_state(), copy_state()
+
+    def run(update, state):
+        out = []
+        for v in shapes:
+            st, deltas = update(state[v], grads[v])
+            out += [*st["m"].values(), *st["v"].values(), *deltas.values()]
+        return out
+
+    fg = [a for p in grads.values() for a in p.values()]
+    fparams = [torch.zeros_like(a) for a in fg]
+    fm, fv = ([a for st in lstate.values() for a in st[f].values()]
+              for f in ("m", "v"))
+    steps = [torch.tensor(float(step + 1), device=dev) for _ in fg]
+    elems = sum(a.numel() for a in fg)
+    cases.append((
+        "fused_update", f"adam over {len(shapes)} layer vertices, "
+        f"{elems} f32 params",
+        lambda: run(lambda st, g: fused_update.dispatch(
+            "adam", st, g, lr, step, hyper), kstate),
+        lambda: run(lambda st, g: fused_update.adam_xla(
+            st, g, lr, step, *hyper), pstate),
+        lambda: torch._fused_adam_(
+            fparams, fg, fm, fv, [], steps, amsgrad=False, lr=lr,
+            beta1=hyper[0], beta2=hyper[1], weight_decay=0.0, eps=hyper[2],
+            maximize=False, grad_scale=None, found_inf=None),
+        24 * elems, 15 * elems))
+    return cases
+
+
+def _lib_ms(torch, lib):
+    """(event-timed ms, profiler ms) of a library yardstick, or Nones."""
+    if lib is None:
+        return None, None
+    if isinstance(lib, tuple):
+        full, part = lib
+        dev_full, dev_part = device_ms(torch, full), device_ms(torch, part)
+        return (time_ms(full) - time_ms(part),
+                None if None in (dev_full, dev_part) else dev_full - dev_part)
+    return time_ms(lib), device_ms(torch, lib)
+
+
+def phase_kernels(card, torch, dev, train_conf):
     rows = []
     for dtype in ("bfloat16", "float32"):
-        for name, shape, kern, plain, lib, nbytes, ops in kernel_cases(
-                torch, dev, dtype):
+        cases = (kernel_cases(torch, dev, dtype)
+                 + train_kernel_cases(torch, dev, dtype, train_conf))
+        for name, shape, kern, plain, lib, nbytes, ops in cases:
             got = kern()
             want = plain()
             torch.cuda.synchronize()
             err, ok = compare(got, want, dtype)
             bound_ms, bound_by = bound(nbytes, ops, dtype)
+            lib_ms, lib_dev_ms = _lib_ms(torch, lib)
             rows.append({
                 "name": name, "dtype": dtype, "shape": shape,
                 "max_abs_err": err, "tolerance": f"rtol=atol={TOL[dtype]}",
                 "ok": ok, "ms": time_ms(kern), "plain_ms": time_ms(plain),
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None if lib is None else time_ms(lib),
+                "library_ms": lib_ms,
                 # Kernel time alone (profiler): `ms` above is one call as
                 # the card's clock sees it, launch gaps included.
                 "device_ms": device_ms(torch, kern),
                 "plain_device_ms": device_ms(torch, plain),
-                "library_device_ms": (None if lib is None
-                                      else device_ms(torch, lib))})
+                "library_device_ms": lib_dev_ms})
             emit(card, phase="kernels", **rows[-1])
+            del got, want
+        del cases
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -293,9 +441,10 @@ def phase_serve(card, torch, kernels, cg):
         errors.append("the prefix-cache hit decoded other ids than the "
                       "fresh prefill of the same greedy prompt")
     pf, steps = stats["prefills"], stats["decode_steps"]
-    want = {"layernorm_norm_act": (2 * BLOCKS + 1) * (pf + steps),
-            "flash_attention": BLOCKS * pf,
-            "paged_decode_attention": BLOCKS * steps}
+    want = {name: 0 for name in KERNEL_INFO}  # training kernels: none
+    want.update({"layernorm_norm_act": (2 * BLOCKS + 1) * (pf + steps),
+                 "flash_attention": BLOCKS * pf,
+                 "paged_decode_attention": BLOCKS * steps})
     if stats["prefix_hits"] < 1:
         errors.append("no prefix-cache hit")
     if counts["launches"] != want:
@@ -303,7 +452,7 @@ def phase_serve(card, torch, kernels, cg):
     if any(counts["plain_calls"].values()):
         errors.append(f"plain versions ran on the card: "
                       f"{counts['plain_calls']}")
-    if any(v == 0 for v in counts["launches"].values()):
+    if any(counts["launches"][k] == 0 for k in SERVING_KERNELS):
         errors.append(f"a kernel never launched: {counts['launches']}")
     emit(card, phase="serve", ok=not errors, errors=errors,
          requests=len(bodies), completed=len(results), wall_s=wall,
@@ -349,10 +498,203 @@ def phase_parity(card, torch, cg, conf):
     return ok
 
 
-def phase_trace(card, torch, cg):
+def lm_batches(seed, b, t, n):
+    """n batches of a learnable id rule: each next id is a fixed
+    permutation of the current one, from a random first id per row.
+    Features are int64 ids [b, t, 1], labels int32 [b, t]."""
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(VOCAB)
+    out = []
+    for _ in range(n):
+        ids = np.empty((b, t + 1), np.int64)
+        ids[:, 0] = rng.randint(0, VOCAB, b)
+        for j in range(t):
+            ids[:, j + 1] = perm[ids[:, j]]
+        out.append((ids[:, :-1, None], ids[:, 1:].astype(np.int32)))
+    return out
+
+
+def phase_train(card, torch, kernels, conf, dev):
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    net = ComputationGraph(conf, device=dev).init()
+    # Batches staged on the card once, as a device-side input pipeline
+    # would hold them: a step then copies nothing from the host.
+    batches = [MultiDataSet([torch.as_tensor(x, device=dev)],
+                            [torch.as_tensor(y, device=dev)])
+               for x, y in lm_batches(17, TRAIN_B, CACHE, 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    scores, wall = [], []
+    for i in range(WARMUP + TIMED):
+        t0 = time.perf_counter()
+        net.fit(batches[i % 2])
+        scores.append(net.score_value)  # reads the loss: syncs the step
+        wall.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.counts()
+    steps = WARMUP + TIMED
+    errors = []
+    want = {name: 0 for name in KERNEL_INFO}
+    want.update({k: n * steps for k, n in TRAIN_LAUNCHES.items()})
+    if counts["launches"] != want:
+        errors.append(f"launches {counts['launches']} != expected {want}")
+    if any(counts["plain_calls"].values()):
+        errors.append(f"plain versions ran on the card: "
+                      f"{counts['plain_calls']}")
+    if not all(np.isfinite(scores)):
+        errors.append(f"non-finite score: {scores}")
+    last3 = float(np.mean(scores[-3:]))
+    if not last3 <= 0.95 * scores[0]:
+        errors.append(f"scores did not fall 5%: first {scores[0]}, mean of "
+                      f"the last 3 {last3}")
+    timed = wall[WARMUP:]
+    ms = statistics.mean(timed)
+    emit(card, phase="train", ok=not errors, errors=errors,
+         model=f"transformer_lm V={VOCAB} T={CACHE} d={D_MODEL} "
+               f"heads={HEADS} blocks={BLOCKS} mixed_bfloat16 Adam",
+         batch=TRAIN_B, tokens_per_step=TRAIN_B * CACHE, steps=steps,
+         scores=scores, first_score=scores[0], last3_mean=last3,
+         ms_per_step=ms, ms_per_step_median=statistics.median(timed),
+         ms_per_step_all=wall, tokens_per_s=TRAIN_B * CACHE / ms * 1e3,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         launches=counts["launches"], expected_launches=want,
+         plain_calls=counts["plain_calls"])
+    return not errors, counts["launches"], net, batches
+
+
+def _m_errors(got, want):
+    """Per layer vertex: max |m_got - m_want| over max |m_want| (Adam's m
+    after one step is 0.1 * grad)."""
+    out = {}
+    for name, st in want.opt_state.items():
+        ref = max(float(a.abs().max()) for a in st["m"].values())
+        err = max(float((got.opt_state[name]["m"][k].cpu() - a.cpu())
+                        .abs().max()) for k, a in st["m"].items())
+        out[name] = err / ref if ref else float("inf")
+    return out
+
+
+def phase_train_parity(card, torch, dev):
+    """One fit step at B=2 from the same seeded params, on the card and on
+    the CPU (plain versions), in f32 and in the smoke model's bf16.
+
+    f32 is the gate that catches a kernel wrapper that cut the gradient:
+    scores within 4e-2 relative and, per layer vertex, Adam's m within
+    4e-2 * max|m_cpu|. In bf16 the scores are held to 4e-2; the m of each
+    bf16 path is measured against the CPU's f32 m, and the card's may be
+    no further from it than 4e-2 or twice the CPU bf16 path's own
+    distance, whichever is larger (both paths round to bf16 at other
+    places, and the gradients of the layers deepest from the loss carry
+    the most rounding)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    (x, y), = lm_batches(23, 2, CACHE, 1)
+    t0 = time.perf_counter()
+    nets = {}
+    for dtype, short in (("bfloat16", "bf16"), ("float32", "f32")):
+        conf = zoo.transformer_lm(VOCAB, t=CACHE, d_model=D_MODEL,
+                                  n_heads=HEADS, n_blocks=BLOCKS, dtype=dtype)
+        for where, d in (("card", dev), ("cpu", "cpu")):
+            net = ComputationGraph(conf, device=d).init()  # same seed
+            net.fit(MultiDataSet([x], [y]))
+            nets[f"{where}_{short}"] = net
+    seconds = time.perf_counter() - t0
+    score = {k: n.score_value for k, n in nets.items()}
+
+    def rel(a, b):
+        return abs(score[a] - score[b]) / abs(score[b])
+
+    m_f32 = _m_errors(nets["card_f32"], nets["cpu_f32"])
+    m_bf16 = _m_errors(nets["card_bf16"], nets["cpu_bf16"])
+    card_vs_f32 = _m_errors(nets["card_bf16"], nets["cpu_f32"])
+    cpu_vs_f32 = _m_errors(nets["cpu_bf16"], nets["cpu_f32"])
+    errors = []
+    if not (rel("card_f32", "cpu_f32") <= 4e-2
+            and rel("card_bf16", "cpu_bf16") <= 4e-2):
+        errors.append(f"scores differ: {score}")
+    if max(m_f32.values()) > 4e-2:
+        errors.append(f"f32 m differs: {m_f32}")
+    over = {v: e for v, e in card_vs_f32.items()
+            if e > max(4e-2, 2 * cpu_vs_f32[v])}
+    if over:
+        errors.append(f"bf16 m of the card further from f32 than allowed: "
+                      f"{over}")
+    emit(card, phase="train_parity", ok=not errors, errors=errors, batch=2,
+         tolerance=4e-2, scores=score,
+         score_rel_diff={"f32": rel("card_f32", "cpu_f32"),
+                         "bf16": rel("card_bf16", "cpu_bf16")},
+         m_err_over_max_f32_card_vs_cpu=m_f32,
+         m_err_over_max_bf16_card_vs_cpu=m_bf16,
+         m_err_over_max_card_bf16_vs_cpu_f32=card_vs_f32,
+         m_err_over_max_cpu_bf16_vs_cpu_f32=cpu_vs_f32, seconds=seconds)
+    return not errors
+
+
+def _kernel_summary(torch, events, wall_ms, reps=1):
+    busy_ms = sum(e - s for _, s, e in events) / reps / 1e3
+    by_name = {}
+    for name, s, e in events:
+        n_us = by_name.setdefault(name[:90], [0, 0.0])
+        n_us[0] += 1
+        n_us[1] += e - s
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "kernels_per_call": len(events) / reps,
+            "top": [{"kernel": k, "per_call": c / reps,
+                     "ms_per_call": us / reps / 1e3}
+                    for k, (c, us) in top]}
+
+
+def trace_train_step(torch, net, batch):
+    """One fit step with its three parts (`_train_forward`,
+    `_train_backward`, `_train_update`) wrapped on the instance: each part
+    runs alone on the card (synchronized before and after) under its own
+    profiler, so its host wall time and kernel time are its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    parts = {}
+
+    def wrap(part, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            parts[part] = (wall, [
+                (e.name, e.time_range.start, e.time_range.end)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA])
+            return out
+        return run
+
+    names = (("_train_forward", "forward"), ("_train_backward", "backward"),
+             ("_train_update", "update"))
+    for attr, part in names:
+        setattr(net, attr, wrap(part, getattr(net, attr)))
+    try:
+        net.fit(batch)
+    finally:
+        for attr, _ in names:
+            delattr(net, attr)
+    out = {}
+    for part, (wall, ev) in parts.items():
+        out[part] = ({"wall_ms": wall, "device_ms": "not measured"}
+                     if not ev else _kernel_summary(torch, ev, wall))
+    return out
+
+
+def phase_trace(card, torch, cg, train_net, train_batch):
     """Where the time of one decode step (4 slots at depths 1000, 700, 300,
-    40) and of one 1024-token prefill goes: host wall time per call, kernel
-    time on the card, the card's idle share, and the top kernels."""
+    40), of one 1024-token prefill and of one training step's three parts
+    goes: host wall time per call, kernel time on the card, the card's idle
+    share, and the top kernels."""
     from deeplearning4j_tpu_torch.models.zoo import PagedDecodeStepper
     from deeplearning4j_tpu_torch.serving.scheduler import (
         prompt_bucket_ladder,
@@ -377,23 +719,10 @@ def phase_trace(card, torch, cg):
             fn()  # ends in a host copy of the distributions: synchronous
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps[what]
         ev = device_kernels(torch, fn, reps[what])
-        if ev is None:
-            out[what] = {"wall_ms": wall_ms, "device_ms": "not measured"}
-            continue
-        busy_ms = sum(e - s for _, s, e in ev) / reps[what] / 1e3
-        by_name = {}
-        for name, s, e in ev:
-            n_us = by_name.setdefault(name[:90], [0, 0.0])
-            n_us[0] += 1
-            n_us[1] += e - s
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-        out[what] = {
-            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": max(0.0, 1 - busy_ms / wall_ms),
-            "kernels_per_call": len(ev) / reps[what],
-            "top": [{"kernel": k, "per_call": c / reps[what],
-                     "ms_per_call": us / reps[what] / 1e3}
-                    for k, (c, us) in top]}
+        out[what] = ({"wall_ms": wall_ms, "device_ms": "not measured"}
+                     if ev is None
+                     else _kernel_summary(torch, ev, wall_ms, reps[what]))
+    out["train_step"] = trace_train_step(torch, train_net, train_batch)
     emit(card, phase="trace", **out)
 
 
@@ -424,7 +753,10 @@ def main() -> int:
     emit(card, phase="build", seconds=b["seconds"], commands=b["commands"],
          ptxas=b["ptxas"])
 
-    rows = phase_kernels(card, torch, dev)
+    train_conf = zoo.transformer_lm(VOCAB, t=CACHE, d_model=D_MODEL,
+                                    n_heads=HEADS, n_blocks=BLOCKS,
+                                    dtype="bfloat16")
+    rows = phase_kernels(card, torch, dev, train_conf)
     if not all(r["ok"] for r in rows):
         failed.append("kernels")
 
@@ -432,31 +764,43 @@ def main() -> int:
                               n_blocks=BLOCKS, dtype="bfloat16",
                               decode_cache_length=CACHE)
     cg = ComputationGraph(conf, device=dev).init()
-    ok, launches = phase_serve(card, torch, kernels, cg)
+    ok, serve_launches = phase_serve(card, torch, kernels, cg)
     if not ok:
         failed.append("serve")
     if not phase_parity(card, torch, cg, conf):
         failed.append("parity")
-    phase_trace(card, torch, cg)
+    ok, train_launches, train_net, batches = phase_train(
+        card, torch, kernels, train_conf, dev)
+    if not ok:
+        failed.append("train")
+    if not phase_train_parity(card, torch, dev):
+        failed.append("train_parity")
+    phase_trace(card, torch, cg, train_net, batches[0])
 
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
-    # The kernels line: each kernel at the shape most of its serving
-    # launches have (bf16), with this run's serving launch count.
+    # The kernels line: each kernel at the shape most of its main-path
+    # launches have (bf16; the update kernel's state is f32), with this
+    # run's launches on the two main paths, the serve phase's and the train
+    # phase's 23 steps (each counted from 0), summed and by path.
     main_shape = {"layernorm_norm_act": f"[4,{D_MODEL}]"}
+    main_dtype = {"fused_update": "float32"}
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        r = next(r for r in rows if r["name"] == name
-                 and r["dtype"] == "bfloat16"
+        dtype = main_dtype.get(name, "bfloat16")
+        r = next(r for r in rows if r["name"] == name and r["dtype"] == dtype
                  and r["shape"] == main_shape.get(name, r["shape"]))
         entries.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": serve_launches[name] + train_launches[name],
+            "launches_by_path": {"serve": serve_launches[name],
+                                 "train": train_launches[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"], "dtype": "bfloat16",
+            "device_ms": r["device_ms"], "dtype": dtype,
             "shape": r["shape"], "card": card})
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

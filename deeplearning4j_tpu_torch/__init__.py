@@ -8,6 +8,7 @@ hand for Hopper (`kernels/csrc/`), built at first use. Entry points run on
 the card unless the caller passes `device="cpu"`, where each kernel's plain
 PyTorch version runs instead.
 
-This slice serves `models.zoo.transformer_lm` over HTTP with paged-KV
-continuous batching: `serving.InferenceServer`.
+The port serves `models.zoo.transformer_lm` over HTTP with paged-KV
+continuous batching (`serving.InferenceServer`) and trains it with
+`nn.graph.ComputationGraph.fit`.
 """

@@ -25,3 +25,12 @@ def params_from_numpy(tree: Mapping[str, Mapping[str, object]]
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
     return {str(v): {str(k): _tensor(a) for k, a in p.items()}
             for v, p in tree.items()}
+
+
+def updater_state_from_numpy(opt_state: Mapping[str, object],
+                             iteration: int) -> Dict[str, object]:
+    tree = {str(v): ({str(f): {str(k): _tensor(a) for k, a in leaves.items()}
+                      for f, leaves in fields.items()}
+                     if isinstance(fields, Mapping) else {})
+            for v, fields in opt_state.items()}
+    return {"opt_state": tree, "iteration": int(iteration)}

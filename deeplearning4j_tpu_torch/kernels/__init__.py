@@ -8,6 +8,14 @@ tensor launches the kernel, or the wrapper raises. No fallback, no switch.
 - `norm_act.layernorm_norm_act`             (csrc/norm_act.cu)
 - `flash_attention.flash_attention`         (csrc/flash_attention.cu)
 - `flash_attention.paged_decode_attention`  (csrc/paged_attention.cu)
+- `flash_attention.flash_attention_fwd_lse` (csrc/flash_attention.cu)
+- `flash_attention.flash_attention_bwd`     (csrc/flash_attention_bwd.cu:
+  two kernels, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`)
+- `fused_update.dispatch`                   (csrc/fused_update.cu)
+
+Training reaches the kernels through `torch.autograd.Function`s
+(`flash_attention.FlashAttentionFn`, `norm_act.LayerNormFn`, see
+`_diff.py`); a kernel wrapper asked for a gradient outside them raises.
 """
 
 from __future__ import annotations
@@ -15,7 +23,9 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
-KERNELS = ("layernorm_norm_act", "flash_attention", "paged_decode_attention")
+KERNELS = ("layernorm_norm_act", "flash_attention", "paged_decode_attention",
+           "flash_attention_fwd_lse", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "fused_update")
 
 
 class Count:

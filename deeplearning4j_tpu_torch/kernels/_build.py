@@ -38,6 +38,13 @@ _SIGNATURES = {
                                  _P],
     "dl4j_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _F, _I, _P],
+    "dl4j_flash_attention_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _F, _I, _P],
+    "dl4j_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _F, _I, _P],
+    "dl4j_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _F, _I, _P],
+    "dl4j_fused_update": [_I, _I, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,23 @@
 // Causal (or full) multi-head attention forward with an online f32 softmax.
 //
-// Replaces the TPU kernel `_flash_kernel_resident` with its
-// `_resident_softmax_loop` (deeplearning4j_tpu/kernels/flash_attention.py:99,55,
-// launched by `_flash_fwd_bhtd` :241 under `flash_attention` :289), and
-// computes the `o` of the streamed `_flash_stream_kernel` (:137) too.
+// Two C entries share one kernel:
+// - `dl4j_flash_attention_fwd` replaces the TPU kernel `_flash_kernel_resident`
+//   with its `_resident_softmax_loop` (deeplearning4j_tpu/kernels/
+//   flash_attention.py:99,55, launched by `_flash_fwd_bhtd` :241 under
+//   `flash_attention` :289), and computes the `o` of the streamed
+//   `_flash_stream_kernel` (:137) too;
+// - `dl4j_flash_attention_fwd_lse` replaces the training forward
+//   `_flash_fwd_lse_kernel` (:376, launched by `_flash_fwd_lse_bhtd` :476
+//   from the custom_vjp's `_fwd` :305): the same pass, plus one f32 store of
+//   lse = m + log(l) per row ([B, H, T]) for the backward
+//   (csrc/flash_attention_bwd.cu).
 //
 // Bound on the H100 at the serving prefill (T = 1024, 8 heads, D = 64, bf16,
 // causal): ~1.07 GFLOP over 989 TFLOP/s is ~1.1 us and q, k, v, o are ~4.2 MB
 // over 3.35 TB/s is ~1.3 us, so bytes bound it, barely; the ridge is near.
+// At the training step (B*H = 128, T = 1024, D = 64, bf16, causal) the lse
+// forward is ~17 GFLOP (17 us at 989 TFLOP/s) against ~67 MB (20 us): bytes
+// again, by a hair. The lse store adds 4 bytes per row, 0.5 MB in all.
 //
 // Design: one block per (batch*head, 64-row q tile). Each query row is owned
 // by G threads (G = next power of two >= D/16), each holding 16 of the row's
@@ -33,8 +43,9 @@ constexpr int kDPT = 16;    // head dims per thread
 template <typename T, int G>
 __global__ void __launch_bounds__(kBQ * G)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int seq, int heads,
-                 int dim, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int seq, int heads, int dim,
+                 int causal, float scale) {
   constexpr int DP = G * kDPT;  // padded head width in shared memory
   extern __shared__ float smem[];
   float* ks = smem;             // [kBK][DP]
@@ -120,12 +131,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = g + G * i;
       if (d < dim) o[base + qpos * stride + d] = dl4j::from_f32<T>(acc[i] / lc);
     }
+    // lse rows are [B*H, T]: blockIdx.y is b * heads + h.
+    if (lse != nullptr && g == 0)
+      lse[static_cast<size_t>(blockIdx.y) * seq + qpos] = m + logf(lc);
   }
 }
 
 template <typename T, int G>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int seq, int heads, int dim, int causal, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int seq, int heads, int dim, int causal, float scale,
            cudaStream_t stream) {
   constexpr int DP = G * kDPT;
   const int smem = 2 * kBK * DP * static_cast<int>(sizeof(float));
@@ -138,19 +152,31 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   const dim3 grid((seq + kBQ - 1) / kBQ, batch * heads);
   kernel<<<grid, kBQ * G, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), seq, heads, dim, causal,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, seq, heads, dim,
+      causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int batch,
-             int seq, int heads, int dim, int causal, float scale,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int batch, int seq, int heads, int dim, int causal, float scale,
              cudaStream_t s) {
-  if (dim <= 16) return launch<T, 1>(q, k, v, o, batch, seq, heads, dim, causal, scale, s);
-  if (dim <= 32) return launch<T, 2>(q, k, v, o, batch, seq, heads, dim, causal, scale, s);
-  if (dim <= 64) return launch<T, 4>(q, k, v, o, batch, seq, heads, dim, causal, scale, s);
-  if (dim <= 128) return launch<T, 8>(q, k, v, o, batch, seq, heads, dim, causal, scale, s);
+  if (dim <= 16) return launch<T, 1>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
+  if (dim <= 32) return launch<T, 2>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
+  if (dim <= 64) return launch<T, 4>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
+  if (dim <= 128) return launch<T, 8>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int run(const void* q, const void* k, const void* v, void* o, float* lse,
+        int batch, int seq, int heads, int dim, int causal, float scale,
+        int dtype, void* stream) {
+  if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == dl4j::kFloat32)
+    return dispatch<float>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
+  if (dtype == dl4j::kBFloat16)
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -162,11 +188,17 @@ extern "C" int dl4j_flash_attention_fwd(const void* q, const void* k,
                                         int seq, int heads, int dim,
                                         int causal, float scale, int dtype,
                                         void* stream) {
-  if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == dl4j::kFloat32)
-    return dispatch<float>(q, k, v, o, batch, seq, heads, dim, causal, scale, s);
-  if (dtype == dl4j::kBFloat16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, batch, seq, heads, dim, causal, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, o, nullptr, batch, seq, heads, dim, causal, scale,
+             dtype, stream);
+}
+
+// As above, plus lse: [batch, heads, seq] float32, m + log(l) of each row's
+// scaled scores (the softmax normalizer the backward recomputes p from).
+extern "C" int dl4j_flash_attention_fwd_lse(const void* q, const void* k,
+                                            const void* v, void* o, void* lse,
+                                            int batch, int seq, int heads,
+                                            int dim, int causal, float scale,
+                                            int dtype, void* stream) {
+  return run(q, k, v, o, static_cast<float*>(lse), batch, seq, heads, dim,
+             causal, scale, dtype, stream);
 }

@@ -8,6 +8,12 @@ an op-for-op copy of `layernorm_xla` (norm_act.py:83), for a CPU tensor.
 The kernel keeps the statistics in f32 and rounds once at the store, where
 the plain version (like JAX) rounds mu and var to the input dtype first, so
 the two agree to bf16 rounding in bf16 and to f32 roundoff in f32.
+
+With autograd recording, `layernorm_norm_act` runs through `LayerNormFn`:
+the forward is the kernel (the plain version on the CPU) and the backward
+the VJP of `layernorm_xla`'s ops recomputed from the saved inputs, as the
+JAX package pairs its Pallas forward with the reference VJP
+(`_diff.py:19`, norm_act.py:176). That recompute is not a plain call.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch import kernels
-from deeplearning4j_tpu_torch.kernels import _build
+from deeplearning4j_tpu_torch.kernels import _build, _diff
 from deeplearning4j_tpu_torch.nn import activations
 
 _ACT_CODES = {"identity": 0, "relu": 1, "tanh": 2, "sigmoid": 3}
@@ -23,10 +29,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_VECTORS = 8  # 16-byte loads per lane (csrc/norm_act.cu dispatch)
 
 
-def layernorm_plain(x, gamma, beta, eps, activation):
-    """The plain version: two-pass mean((x - mu)^2) variance, as the JAX
-    package's XLA path computes it."""
-    kernels.plain_calls["layernorm_norm_act"].add()
+def _layernorm_ops(x, gamma, beta, eps, activation):
+    """`layernorm_xla`'s ops: two-pass mean((x - mu)^2) variance."""
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
     out = (x - mu) * torch.rsqrt(var + eps)
@@ -34,12 +38,43 @@ def layernorm_plain(x, gamma, beta, eps, activation):
     return activations.resolve(activation)(out)
 
 
+def layernorm_plain(x, gamma, beta, eps, activation):
+    """The plain version, as the JAX package's XLA path computes it."""
+    kernels.plain_calls["layernorm_norm_act"].add()
+    return _layernorm_ops(x, gamma, beta, eps, activation)
+
+
 def layernorm_norm_act(x, gamma, beta, eps, activation):
     """Per-row statistics over the last axis, normalize, affine, then
     `activation` (identity/relu/tanh/sigmoid on the card). x: [..., F];
-    gamma, beta: [F] of x's dtype."""
+    gamma, beta: [F] of x's dtype. Differentiable through `LayerNormFn`."""
+    if _diff.needs_grad(x, gamma, beta):
+        return LayerNormFn.apply(x, gamma, beta, eps, activation)
+    return _layernorm_forward(x, gamma, beta, eps, activation)
+
+
+class LayerNormFn(torch.autograd.Function):
+    """Kernel forward (plain version on the CPU), reference-VJP backward."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, activation):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps, ctx.activation = eps, activation
+        return _layernorm_forward(x, gamma, beta, eps, activation)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, gamma, beta = ctx.saved_tensors
+        grads = _diff.ref_vjp(
+            lambda a, g, b: _layernorm_ops(a, g, b, ctx.eps, ctx.activation),
+            (x, gamma, beta), ctx.needs_input_grad[:3], grad)
+        return (*grads, None, None)
+
+
+def _layernorm_forward(x, gamma, beta, eps, activation):
     if kernels.placement(x, gamma, beta) == "cpu":
         return layernorm_plain(x, gamma, beta, eps, activation)
+    _diff.refuse_grad("layernorm_norm_act", x, gamma, beta)
     feats = x.shape[-1]
     act = str(activation or "identity").lower()
     if act not in _ACT_CODES:

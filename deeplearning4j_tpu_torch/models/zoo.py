@@ -38,16 +38,16 @@ from deeplearning4j_tpu_torch.nn.graph import to_numpy
 
 def transformer_lm(vocab_size: int, *, t: int = 64, d_model: int = 64,
                    n_heads: int = 4, n_blocks: int = 2, seed: int = 123,
-                   dtype: str = "float32",
+                   lr: float = 3e-3, dtype: str = "float32",
                    decode_cache_length: Optional[int] = None
                    ) -> ComputationGraphConfiguration:
     """Decoder-only pre-LN transformer LM, the same graph (vertex names,
-    inputs, shapes, activations) as the reference's builder: embedding +
-    learned positions, `n_blocks` of x + Attn(LN(x)); x + FFN(LN(x)), a
-    final LN and a softmax output. `decode_cache_length=N` sizes every
-    attention layer's KV cache (and the positional table) for stateful
-    decode. `t` only sets the positional table's floor, as in the
-    reference."""
+    inputs, shapes, activations, Adam at `lr`) as the reference's builder:
+    embedding + learned positions, `n_blocks` of x + Attn(LN(x));
+    x + FFN(LN(x)), a final LN and a softmax mcxent output.
+    `decode_cache_length=N` sizes every attention layer's KV cache (and the
+    positional table) for stateful decode. `t` only sets the positional
+    table's floor, as in the reference."""
     vertices: Dict[str, LayerVertex] = {}
     inputs: Dict[str, List[str]] = {}
 
@@ -81,15 +81,14 @@ def transformer_lm(vocab_size: int, *, t: int = 64, d_model: int = 64,
     add("out", LayerVertex(RnnOutputLayer(
         n_in=d, n_out=vocab_size, activation="softmax",
         loss_function="mcxent")), "ln_out")
-    g = GlobalConf(seed=seed, dtype=dtype, weight_init="xavier")
+    g = GlobalConf(seed=seed, dtype=dtype, weight_init="xavier",
+                   learning_rate=lr, updater="adam")
     for v in vertices.values():
         # Unset per-layer fields inherit the global defaults at build time,
         # as the reference's builder resolves them into its JSON.
         layer = getattr(v, "layer", None)
         if layer is not None:
-            for key in ("activation", "weight_init", "bias_init"):
-                if getattr(layer, key) is None:
-                    setattr(layer, key, getattr(g, key))
+            g.inherit_into(layer)
     conf = ComputationGraphConfiguration(
         global_conf=g, network_inputs=["tokens"], network_outputs=["out"],
         vertices=vertices, vertex_inputs=inputs)

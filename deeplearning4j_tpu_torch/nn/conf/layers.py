@@ -1,7 +1,8 @@
-"""Layer configurations of the serving slice (counterpart of
-`deeplearning4j_tpu/nn/conf/layers.py`): the seven confs `transformer_lm`
-uses, with the reference's field names, defaults and `param_shapes()` order,
-so `from_dict` reads the reference's `to_json()` as it is."""
+"""Layer configurations (counterpart of `deeplearning4j_tpu/nn/conf/layers.py`):
+the seven confs `transformer_lm` uses, with the reference's field names
+(the training fields of `layers.py:82-100` included), defaults and
+`param_shapes()` order, so `from_dict` reads the reference's `to_json()` as
+it is."""
 
 from __future__ import annotations
 
@@ -36,17 +37,37 @@ def is_bias_param(name: str) -> bool:
 
 @dataclass
 class Layer:
-    """Base conf. Training-only fields of the reference's JSON (learning
-    rates, updaters, regularization, dropout) are read past: they do not
-    change inference."""
+    """Base conf: per-layer overrides of the global fields (None = inherit
+    the global value), the reference's names and meanings. `dropout` is a
+    retain probability (0, 1 and None disable it)."""
 
     name: Optional[str] = None
     activation: Any = None
     weight_init: Any = None
+    learning_rate: Optional[float] = None
+    bias_learning_rate: Optional[float] = None
+    l1: Optional[float] = None
+    l2: Optional[float] = None
+    dropout: Optional[float] = None
+    use_drop_connect: Optional[bool] = None
     bias_init: Optional[float] = None
+    updater: Any = None
+    momentum: Optional[float] = None
+    adam_mean_decay: Optional[float] = None
+    adam_var_decay: Optional[float] = None
+    rho: Optional[float] = None
+    rms_decay: Optional[float] = None
+    epsilon: Optional[float] = None
+    gradient_normalization: Any = None
+    gradient_normalization_threshold: Optional[float] = None
+    frozen: Optional[bool] = None
 
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
         return {}
+
+    def weight_param_keys(self):
+        """Params regularized by l1/l2 (biases never are)."""
+        return [k for k in self.param_shapes() if not is_bias_param(k)]
 
     def state_shapes(self) -> Dict[str, Tuple[int, ...]]:
         return {}

@@ -1,6 +1,7 @@
-"""Network configuration of the serving slice (counterpart of
+"""Network configuration (counterpart of
 `deeplearning4j_tpu/nn/conf/neural_net.py`): `ComputationGraphConfiguration`
-read from the reference's `to_json()`."""
+read from the reference's `to_json()`, with the global fields that
+inference and training read."""
 
 from __future__ import annotations
 
@@ -15,23 +16,72 @@ from deeplearning4j_tpu_torch.nn.conf.graph import (
 )
 
 
+# Per-layer fields that inherit the global value when unset (the
+# reference's `_INHERITED_FIELDS`, resolved into its JSON at build time).
+INHERITED_FIELDS = (
+    "activation", "weight_init", "learning_rate", "bias_learning_rate",
+    "l1", "l2", "dropout", "use_drop_connect", "bias_init", "updater",
+    "momentum", "adam_mean_decay", "adam_var_decay", "rho", "rms_decay",
+    "epsilon", "gradient_normalization", "gradient_normalization_threshold",
+)
+
+
 @dataclass
 class GlobalConf:
-    """The global fields inference reads; the reference's training fields
-    (updater, learning rates, ...) are read past."""
+    """The reference's global fields that inference and `fit` read, with
+    its defaults. Names are the reference's JSON values (lower-case
+    strings for its enums)."""
 
     seed: int = 12345
+    iterations: int = 1
+    optimization_algo: Any = "stochastic_gradient_descent"
+    learning_rate: float = 1e-1
+    bias_learning_rate: Optional[float] = None
+    lr_policy: Any = "none"
+    lr_policy_decay_rate: float = 0.0
+    lr_policy_power: float = 0.0
+    lr_policy_steps: float = 1.0
+    lr_schedule: Optional[Dict[int, float]] = None
+    max_num_iterations: int = 1
+    updater: Any = "sgd"
+    momentum: float = 0.9
+    adam_mean_decay: float = 0.9
+    adam_var_decay: float = 0.999
+    rho: float = 0.95
+    rms_decay: float = 0.95
+    epsilon: Optional[float] = None
     weight_init: Any = "xavier"
     bias_init: float = 0.0
     activation: Any = "sigmoid"
+    l1: float = 0.0
+    l2: float = 0.0
+    dropout: float = 0.0
+    use_drop_connect: bool = False
+    minimize: bool = True
+    gradient_normalization: Any = "none"
+    gradient_normalization_threshold: float = 1.0
     dtype: str = "float32"
     dtype_policy: Optional[Any] = None
+    superstep_k: int = 0
+
+    def inherit_into(self, layer) -> None:
+        """Fill the layer's unset fields from these globals, as the
+        reference's builder does (bias rate defaults to the layer's rate)."""
+        for f in INHERITED_FIELDS:
+            if getattr(layer, f, None) is None:
+                setattr(layer, f, getattr(self, f))
+        if layer.bias_learning_rate is None:
+            layer.bias_learning_rate = layer.learning_rate
 
     @staticmethod
     def from_dict(d: Optional[dict]) -> "GlobalConf":
         names = {f.name for f in dataclasses.fields(GlobalConf)}
-        return GlobalConf(**{k: v for k, v in (d or {}).items()
-                             if k in names})
+        g = GlobalConf(**{k: v for k, v in (d or {}).items()
+                          if k in names})
+        if g.lr_schedule:
+            g.lr_schedule = {int(k): float(v)
+                             for k, v in g.lr_schedule.items()}
+        return g
 
 
 @dataclass
@@ -41,6 +91,8 @@ class ComputationGraphConfiguration:
     network_outputs: List[str] = field(default_factory=list)
     vertices: Dict[str, GraphVertexConf] = field(default_factory=dict)
     vertex_inputs: Dict[str, List[str]] = field(default_factory=dict)
+    backprop_type: str = "standard"
+    tbptt_fwd_length: int = 20
 
     def validate(self) -> None:
         if not self.network_inputs or not self.network_outputs:
@@ -90,6 +142,8 @@ class ComputationGraphConfiguration:
             vertices={n: vertex_from_dict(v)
                       for n, v in d["vertices"].items()},
             vertex_inputs={n: list(v) for n, v in d["vertex_inputs"].items()},
+            backprop_type=str(d.get("backprop_type", "standard")).lower(),
+            tbptt_fwd_length=int(d.get("tbptt_fwd_length", 20)),
         )
         conf.validate()
         return conf

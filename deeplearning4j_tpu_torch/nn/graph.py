@@ -1,13 +1,24 @@
-"""ComputationGraph, inference subset (counterpart of
-`deeplearning4j_tpu/nn/graph.py:112-335,1110-1170`).
+"""ComputationGraph (counterpart of `deeplearning4j_tpu/nn/graph.py`):
+inference, and `fit` with the plain SGD-family step.
 
-The DAG is walked in the conf's topological order, eagerly, under
-`torch.inference_mode()`; there is no `fit` yet. Params live on the graph's
-device at the policy's param dtype (`params_tree`), and the graph keeps ONE
-copy at the compute dtype, built by `init`, that every forward reads: the
-reference casts at use inside its jitted program, where XLA fuses the cast,
-but an eager cast per forward would move the whole model (~86 MB at the
-served width in bf16) every decode step. The numbers are the same.
+The DAG is walked in the conf's topological order, eagerly. Params live on
+the graph's device at the policy's param dtype (`params_tree`, f32 leaf
+tensors that require grad).
+
+- Training (`fit`) casts the leaves to the compute dtype inside autograd
+  at each step, so gradients reach the f32 params as in the reference
+  (f32 params, bf16 compute under `mixed_bfloat16`); the updater then
+  changes the leaves in place, layer vertex by layer vertex, and the step
+  count stays on the host: a step issues no host sync.
+- Inference reads ONE copy at the compute dtype, built by `init`, dropped
+  by every training step and rebuilt at the next inference: an eager cast per forward would move
+  the whole model (~86 MB at the served width in bf16) every decode step,
+  where the reference casts inside its jitted program.
+
+What `fit` does not run yet raises NotImplementedError naming its ROADMAP
+item: dropout, solvers, truncated BPTT, superstep, frozen layers, feature
+masks (f16 loss scaling never gets this far: the port's dtype policies are
+float32 and mixed_bfloat16).
 """
 
 from __future__ import annotations
@@ -18,25 +29,39 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch._device import resolve_device
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.nn import activations
+from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn import params as params_mod
 from deeplearning4j_tpu_torch.nn import rnn_state as rnn_mod
 from deeplearning4j_tpu_torch.nn.conf.dtype_policy import resolve_policy
 from deeplearning4j_tpu_torch.nn.conf.graph import LayerVertex
+from deeplearning4j_tpu_torch.nn.conf.layers import is_bias_param
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.layers import OUTPUT_LAYER_TYPES, get_impl
+from deeplearning4j_tpu_torch.ops import grad_norm as grad_norm_mod
+from deeplearning4j_tpu_torch.ops import schedules as schedules_mod
+from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.cpu().numpy()
+    return t.detach().cpu().numpy()
+
+
+def _as_mds(data, labels=None) -> MultiDataSet:
+    if isinstance(data, MultiDataSet):
+        return data
+    if isinstance(data, DataSet):
+        return MultiDataSet.from_dataset(data)
+    return MultiDataSet(features=[data], labels=[labels])
 
 
 class ComputationGraph:
-    """DAG network engine, inference subset (see module docstring)."""
+    """DAG network engine (see module docstring)."""
 
     def __init__(self, conf: ComputationGraphConfiguration,
                  device="cuda"):
@@ -50,50 +75,103 @@ class ComputationGraph:
         self.params_tree: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self._compute_params = None
         self.state: Dict[str, Dict] = {}
+        self.opt_state: Optional[Dict[str, Dict]] = None
+        self.iteration = 0
+        self.epoch = 0
+        self._score: Optional[torch.Tensor] = None
         self._rnn_state: Dict[str, Dict] = {}
         self._rnn_pos = 0
 
-    def init(self, params=None) -> "ComputationGraph":
+    @property
+    def score_value(self) -> float:
+        """Loss of the most recent iteration. Reading it syncs with the
+        device; the training step itself never does."""
+        return float("nan") if self._score is None else float(self._score)
+
+    def init(self, params=None, updater_state=None) -> "ComputationGraph":
         """Fresh params from `conf.global_conf.seed` (an explicit
         `torch.Generator`, drawn on the CPU in sorted vertex order, then
         moved), or the given `{vertex: {name: tensor}}` tree (see
-        `interop.params_from_numpy`). Builds the compute-dtype copy."""
+        `interop.params_from_numpy`); fresh updater state, or the given one
+        (`interop.updater_state_from_numpy`)."""
+        g = self.conf.global_conf
         pol = self.dtype_policy
         layers = {n: v.layer for n, v in self.layer_vertices.items()}
         if params is None:
-            gen = torch.Generator().manual_seed(int(self.conf.global_conf.seed))
+            gen = torch.Generator().manual_seed(int(g.seed))
             params = {name: params_mod.init_layer_params(layers[name], gen)
                       for name in sorted(layers)}
         params_mod.check_params(layers, params)
-        self.params_tree = {
-            v: {k: a.to(self.device, pol.param_dtype)
-                if a.is_floating_point() else a.to(self.device)
-                for k, a in p.items()}
-            for v, p in params.items()}
-        self._compute_params = params_mod.cast_floating(self.params_tree,
-                                                        pol.compute_dtype)
-        # Declared (persistent) layer state: none of the slice's layers has
+        self.params_tree = params_mod.as_leaves(params, self.device,
+                                                pol.param_dtype)
+        self._compute_params = None
+        self._compute_copy()
+        # Declared (persistent) layer state: none of the port's layers has
         # any; the carried decode state is undeclared (nn/rnn_state.py).
         self.state = {}
+        self._updaters, self._schedules = {}, {}
+        for name, layer in layers.items():
+            def pick(field):
+                own = getattr(layer, field)
+                return own if own is not None else getattr(g, field)
+
+            self._updaters[name] = updaters_mod.create(
+                pick("updater"), momentum=pick("momentum"),
+                adam_mean_decay=pick("adam_mean_decay"),
+                adam_var_decay=pick("adam_var_decay"), rho=pick("rho"),
+                rms_decay=pick("rms_decay"), epsilon=pick("epsilon"))
+            self._schedules[name] = schedules_mod.make_schedule(
+                float(pick("learning_rate")), g.lr_policy,
+                g.lr_policy_decay_rate, g.lr_policy_power, g.lr_policy_steps,
+                g.max_num_iterations, g.lr_schedule)
+        with torch.no_grad():
+            self.opt_state = {name: self._updaters[name].init(
+                self.params_tree[name]) for name in layers}
+        if updater_state is not None:
+            self.set_updater_state(updater_state)
         self.rnn_clear_previous_state()
         return self
 
+    def set_updater_state(self, updater_state) -> None:
+        """Resume from `{"opt_state": {vertex: {field: {name: tensor}}},
+        "iteration": n}` (`interop.updater_state_from_numpy`): the tree
+        must match this graph's updaters field for field."""
+        tree = updater_state["opt_state"]
+        for name, own in self.opt_state.items():
+            got = tree.get(name, {})
+            want = {f: {k: tuple(t.shape) for k, t in s.items()}
+                    for f, s in own.items()}
+            have = {f: {k: tuple(t.shape) for k, t in s.items()}
+                    for f, s in got.items()}
+            if want != have:
+                raise ValueError(f"updater state of vertex {name!r}: want "
+                                 f"{want}, got {have}")
+            self.opt_state[name] = {
+                f: {k: t.detach().to(self.device, torch.float32, copy=True)
+                    for k, t in s.items()} for f, s in got.items()}
+        self.iteration = int(updater_state["iteration"])
+
     # --------------------------------------------------------------- forward
 
-    def _forward(self, state, inputs, keep_rnn_state: bool):
-        """Walk the DAG; returns (outputs after the output layers'
-        activation at the output dtype, new layer state)."""
-        if self._compute_params is None:
+    def _compute_copy(self):
+        if self.params_tree is None:
             raise RuntimeError("call init() first")
-        pol = self.dtype_policy
-        params = self._compute_params
+        if self._compute_params is None:
+            with torch.no_grad():
+                self._compute_params = params_mod.cast_floating(
+                    self.params_tree, self.dtype_policy.compute_dtype)
+        return self._compute_params
+
+    def _forward(self, params, state, inputs, keep_rnn_state: bool):
+        """Walk the DAG; returns (the output vertices' raw values at the
+        compute dtype, new layer state)."""
+        cdt = self.dtype_policy.compute_dtype
         values: Dict[str, torch.Tensor] = {}
         for i, name in enumerate(self.conf.network_inputs):
             x = torch.as_tensor(inputs[i], device=self.device)
             # Floats run at the compute dtype (ids included, as in the
             # reference); integer ids pass through untouched.
-            values[name] = (x.to(pol.compute_dtype) if x.is_floating_point()
-                            else x)
+            values[name] = x.to(cdt) if x.is_floating_point() else x
         new_state: Dict[str, Dict] = {}
         for name in self.topo_order:
             vertex = self.conf.vertices[name]
@@ -111,29 +189,218 @@ class ComputationGraph:
                 values[name] = out
             else:
                 values[name] = vertex.apply(ins)
-        outs = []
-        for n in self.conf.network_outputs:
-            o = values[n].to(pol.output_dtype)
+        return [values[n] for n in self.conf.network_outputs], new_state
+
+    def _finish(self, outs):
+        """Outputs at the output dtype, after the output layers'
+        activation."""
+        final = []
+        for n, o in zip(self.conf.network_outputs, outs):
+            o = o.to(self.dtype_policy.output_dtype)
             v = self.layer_vertices.get(n)
             if v is not None and type(v.layer).__name__ in OUTPUT_LAYER_TYPES:
                 o = activations.resolve(v.layer.activation)(o)
-            outs.append(o)
-        return outs, new_state
+            final.append(o)
+        return final
 
     def forward_state(self, state, inputs):
         """One stateful forward for the decode steppers: `inputs` are device
         tensors, `state` the merged layer state; returns (outputs, new
         state) on the device."""
         with torch.inference_mode():
-            return self._forward(state, inputs, keep_rnn_state=True)
+            outs, new_state = self._forward(self._compute_copy(), state,
+                                            inputs, keep_rnn_state=True)
+            return self._finish(outs), new_state
 
     def output(self, *inputs) -> List[np.ndarray]:
         with torch.inference_mode():
-            outs, _ = self._forward(self.state, inputs, keep_rnn_state=False)
-            return [to_numpy(o) for o in outs]
+            outs, _ = self._forward(self._compute_copy(), self.state, inputs,
+                                    keep_rnn_state=False)
+            return [to_numpy(o) for o in self._finish(outs)]
 
     def output_single(self, *inputs) -> np.ndarray:
         return self.output(*inputs)[0]
+
+    # ------------------------------------------------------------------ loss
+
+    def _l1_l2_penalty(self, params):
+        total = 0.0
+        for name, v in self.layer_vertices.items():
+            layer = v.layer
+            l1, l2 = float(layer.l1 or 0.0), float(layer.l2 or 0.0)
+            if (l1 == 0.0 and l2 == 0.0) or name not in params:
+                continue
+            for wk in layer.weight_param_keys():
+                if wk not in params[name]:
+                    continue
+                w = params[name][wk].float()
+                if l2:
+                    total = total + 0.5 * l2 * (w * w).sum()
+                if l1:
+                    total = total + l1 * w.abs().sum()
+        return total
+
+    def _loss_from_outputs(self, params, outs, labels, lmasks):
+        """Score of the raw outputs (reference `_loss_from_outputs`): each
+        output layer's loss in f32, summed over entries and divided by the
+        minibatch, plus the l1/l2 penalty over the first divisor."""
+        total = 0.0
+        for i, name in enumerate(self.conf.network_outputs):
+            v = self.layer_vertices.get(name)
+            if v is None or type(v.layer).__name__ not in OUTPUT_LAYER_TYPES:
+                raise ValueError(f"Network output {name!r} is not an output "
+                                 "layer")
+            layer = v.layer
+            lmask = lmasks[i] if lmasks is not None else None
+            eb = losses_mod.effective_batch_size(labels[i], lmask)
+            if i == 0:
+                eb0 = eb
+            total = total + losses_mod.score(
+                layer.loss_function, labels[i], outs[i].float(),
+                layer.activation, lmask, average=False) / eb
+        return total + self._l1_l2_penalty(params) / eb0
+
+    def _device_arrays(self, arrays):
+        if arrays is None or not any(a is not None for a in arrays):
+            return None
+        return [None if a is None else torch.as_tensor(a, device=self.device)
+                for a in arrays]
+
+    def score(self, data, labels=None) -> float:
+        """Loss of the current params on one batch (syncs)."""
+        mds = _as_mds(data, labels)
+        self._check_no_feature_masks(mds)
+        with torch.inference_mode():
+            outs, _ = self._forward(self._compute_copy(), self.state,
+                                    mds.features, keep_rnn_state=False)
+            return float(self._loss_from_outputs(
+                self.params_tree, outs, self._device_arrays(mds.labels),
+                self._device_arrays(mds.labels_masks)))
+
+    # ------------------------------------------------------------------- fit
+
+    def _check_trainable(self) -> None:
+        g = self.conf.global_conf
+
+        def refuse(what, item):
+            raise NotImplementedError(
+                f"fit: {what} is not in the port yet (ROADMAP A.{item})")
+
+        if str(g.optimization_algo).lower() != "stochastic_gradient_descent":
+            refuse(f"optimization_algo {g.optimization_algo!r} (solvers)", 10)
+        if str(self.conf.backprop_type).lower() == "truncatedbptt":
+            refuse("truncated BPTT", 8)
+        if int(g.superstep_k or 0) > 1:
+            refuse("superstep training", 10)
+        for name, v in self.layer_vertices.items():
+            rate = v.layer.dropout
+            if rate is not None and 0.0 < float(rate) < 1.0:
+                refuse(f"dropout={rate} on {name!r}", 4)
+            if v.layer.frozen:
+                refuse(f"frozen layer {name!r} (transfer learning)", 12)
+
+    @staticmethod
+    def _check_no_feature_masks(mds) -> None:
+        if mds.features_masks and any(m is not None
+                                      for m in mds.features_masks):
+            raise NotImplementedError(
+                "features masks (masked attention) are not in the port yet "
+                "(ROADMAP A.9)")
+
+    def fit(self, data, labels=None) -> "ComputationGraph":
+        """Train on a DataSet, a MultiDataSet or an iterable of those, or
+        on `features, labels` arrays (reference `ComputationGraph.fit`)."""
+        if self.params_tree is None:
+            self.init()
+        self._check_trainable()
+        if labels is not None or isinstance(data, (DataSet, MultiDataSet)):
+            items = [_as_mds(data, labels)]
+        else:
+            if hasattr(data, "reset"):
+                data.reset()
+            items = data
+        for item in items:
+            mds = _as_mds(item)
+            for _ in range(max(1, int(self.conf.global_conf.iterations))):
+                self._fit_one(mds)
+        self.epoch += 1
+        return self
+
+    def _fit_one(self, mds: MultiDataSet) -> None:
+        """One step in three parts (each a method, so a profiler can wrap
+        them on the instance): forward + loss, backward, update."""
+        self._check_no_feature_masks(mds)
+        loss, new_state = self._train_forward(mds)
+        grads = self._train_backward(loss)
+        self._train_update(grads)
+        for n, s in new_state.items():
+            self.state[n] = {**self.state.get(n, {}), **s}
+        self._score = loss.detach()
+        self.iteration += 1
+
+    def _train_forward(self, mds):
+        """The loss, recorded by autograd from the f32 leaves through their
+        compute-dtype cast."""
+        with torch.inference_mode(False), torch.enable_grad():
+            params = params_mod.cast_floating(self.params_tree,
+                                              self.dtype_policy.compute_dtype)
+            outs, new_state = self._forward(params, self.state, mds.features,
+                                            keep_rnn_state=False)
+            loss = self._loss_from_outputs(
+                self.params_tree, outs, self._device_arrays(mds.labels),
+                self._device_arrays(mds.labels_masks))
+        return loss, new_state
+
+    def _train_backward(self, loss):
+        """`{vertex: {name: grad}}` of every leaf that requires grad (zeros
+        for a leaf the loss does not reach, as jax.grad gives)."""
+        names = [(v, k) for v, p in self.params_tree.items()
+                 for k, t in p.items() if t.requires_grad]
+        leaves = [self.params_tree[v][k] for v, k in names]
+        with torch.inference_mode(False):
+            flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads: Dict[str, Dict[str, torch.Tensor]] = {}
+        for (v, k), leaf, gr in zip(names, leaves, flat):
+            grads.setdefault(v, {})[k] = (torch.zeros_like(leaf)
+                                          if gr is None else gr)
+        return grads
+
+    def _train_update(self, grads) -> None:
+        with torch.no_grad():
+            self._apply_updates(grads)
+        self._compute_params = None  # the inference copy is stale now
+
+    def _apply_updates(self, grads) -> None:
+        """Per layer vertex (reference `_train_step` :664-690): normalize,
+        schedule, update, bias-rate factor, then params -= sign * deltas."""
+        g = self.conf.global_conf
+        sign = 1.0 if g.minimize else -1.0
+        step = self.iteration
+        for name, v in self.layer_vertices.items():
+            layer = v.layer
+            lgrads = grads.get(name)
+            if not lgrads:
+                continue
+            lgrads = grad_norm_mod.normalize_layer_gradients(
+                lgrads, layer.gradient_normalization,
+                float(layer.gradient_normalization_threshold or 1.0))
+            lr = self._schedules[name](step)
+            st, deltas = self._updaters[name].update(self.opt_state[name],
+                                                     lgrads, lr, step)
+            base_lr = float(layer.learning_rate
+                            if layer.learning_rate is not None
+                            else g.learning_rate)
+            bias_lr = float(layer.bias_learning_rate
+                            if layer.bias_learning_rate is not None
+                            else base_lr)
+            if bias_lr != base_lr and base_lr != 0.0:
+                factor = bias_lr / base_lr
+                deltas = {k: (d * factor if is_bias_param(k) else d)
+                          for k, d in deltas.items()}
+            for k, p in self.params_tree[name].items():
+                if k in deltas:
+                    p.sub_(deltas[k]) if sign > 0 else p.add_(deltas[k])
+            self.opt_state[name] = st
 
     # ------------------------------------------------------------------ rnn
 
@@ -157,10 +424,11 @@ class ComputationGraph:
                                     for v in self.layer_vertices.values()))
         state = rnn_mod.merge_rnn_state(self.state, self._rnn_state)
         with torch.inference_mode():
-            outs, new_state = self._forward(state, arrs, keep_rnn_state=True)
+            outs, new_state = self._forward(self._compute_copy(), state,
+                                            arrs, keep_rnn_state=True)
             self._rnn_state = rnn_mod.split_rnn_state(new_state,
                                                       self._declared_state())
-            result = [to_numpy(o) for o in outs]
+            result = [to_numpy(o) for o in self._finish(outs)]
         return [o[:, 0] if squeeze and o.ndim == 3 else o for o in result]
 
     def rnn_clear_previous_state(self) -> None:

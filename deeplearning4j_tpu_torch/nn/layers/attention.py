@@ -9,8 +9,9 @@ Three paths, picked from the state the layer is given:
 2. `kv_pos` in state (dense cached decode step): write the new rows at the
    cursor, then `cached_decode_attention` (the reference leaves this path
    to XLA: it has no TPU kernel);
-3. otherwise (a full sequence: prefill, `output`): `flash_attention`, and
-   with `decode_cache_length` set, prime the cache as undeclared state.
+3. otherwise (a full sequence: prefill, `output`, training):
+   `flash_attention` (through `FlashAttentionFn` when autograd records),
+   and with `decode_cache_length` set, prime the cache as undeclared state.
 
 Unlike the reference's functional `.at[].set`, the decode paths write the
 KV pools and caches IN PLACE: the previous state is dead after a step, and

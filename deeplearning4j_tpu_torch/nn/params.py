@@ -1,7 +1,9 @@
 """Parameter initialization and checks (counterpart of
 `deeplearning4j_tpu/nn/params.py`): params are `{vertex: {name: tensor}}`
 with the reference's names and shapes (`W`, `b`, `P`, `gamma`, `beta`,
-`Wq`, `qB`, `Wk`, `Wv`, `vB`, `Wo`, `oB`)."""
+`Wq`, `qB`, `Wk`, `Wv`, `vB`, `Wo`, `oB`); the graph holds them as f32
+leaf tensors that require grad (`as_leaves`). Which of them l1/l2 reach is
+the layer conf's `weight_param_keys()`."""
 
 from __future__ import annotations
 
@@ -40,6 +42,17 @@ def init_layer_params(conf, generator: torch.Generator,
                                         scheme=conf.weight_init or "xavier",
                                         dtype=dtype)
     return params
+
+
+def as_leaves(tree, device, dtype):
+    """A `{vertex: {name: tensor}}` tree as the graph's own params: copies
+    on `device`, floating ones at `dtype` as leaf tensors that require grad
+    (the training step updates them in place, under no_grad)."""
+    return {v: {k: (a.detach().to(device, dtype, copy=True)
+                    .requires_grad_(True) if a.is_floating_point()
+                    else a.detach().to(device, copy=True))
+                for k, a in p.items()}
+            for v, p in tree.items()}
 
 
 def cast_floating(tree, dtype):

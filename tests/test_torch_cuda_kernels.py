@@ -137,3 +137,129 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fa.flash_attention(q, q, q)
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), q.half(), q.half())
+
+
+TRAIN_SHAPES = [
+    ((16, 1024, 8, 64), True),   # the training step of transformer_lm
+    ((2, 100, 3, 64), True),     # T no multiple of 64
+    ((2, 37, 2, 16), False),     # ragged T, full attention
+    ((1, 130, 2, 128), True),    # widest D
+    ((1, 70, 2, 24), False),     # D that is no power of two
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,causal", TRAIN_SHAPES)
+def test_flash_fwd_lse_kernel_matches_plain(cuda, dtype, shape, causal):
+    rng = np.random.RandomState(3)
+    q, k, v = (_t(rng.randn(*shape), dtype, cuda) for _ in range(3))
+    before = kernels.launches["flash_attention_fwd_lse"].value
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, causal)
+    assert kernels.launches["flash_attention_fwd_lse"].value == before + 1
+    want_o, want_lse = fa.dense_attention_lse(q, k, v, causal)
+    _close(o, want_o, dtype)
+    _close(lse, want_lse, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,causal", TRAIN_SHAPES)
+def test_flash_bwd_kernels_match_plain(cuda, dtype, shape, causal):
+    rng = np.random.RandomState(4)
+    q, k, v, do = (_t(rng.randn(*shape), dtype, cuda) for _ in range(4))
+    o, lse = fa.dense_attention_lse(q, k, v, causal)
+    drow = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    scale = shape[-1] ** -0.5
+    before = (kernels.launches["flash_attention_bwd_dq"].value,
+              kernels.launches["flash_attention_bwd_dkv"].value)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    assert (kernels.launches["flash_attention_bwd_dq"].value,
+            kernels.launches["flash_attention_bwd_dkv"].value) \
+        == (before[0] + 1, before[1] + 1)
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, drow, causal,
+                                              scale)
+    _close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, drow, causal, scale),
+           dtype)
+    _close(dk, want_dk, dtype)
+    _close(dv, want_dv, dtype)
+
+
+def test_flash_attention_fn_trains_through_the_kernels(cuda):
+    rng = np.random.RandomState(5)
+    q, k, v, g = (_t(rng.randn(2, 96, 2, 32), torch.float32, cuda)
+                  for _ in range(4))
+    ref = [a.detach().cpu().requires_grad_(True) for a in (q, k, v)]
+    ts = [a.requires_grad_(True) for a in (q, k, v)]
+    kernels.reset_counts()
+    got = torch.autograd.grad(fa.flash_attention(*ts), ts, g)
+    c = kernels.counts()
+    assert c["launches"]["flash_attention_fwd_lse"] == 1
+    assert c["launches"]["flash_attention_bwd_dq"] == 1
+    assert c["launches"]["flash_attention_bwd_dkv"] == 1
+    assert c["launches"]["flash_attention"] == 0
+    assert not any(c["plain_calls"].values())
+    want = torch.autograd.grad(fa.flash_attention(*ref), ref, g.cpu())
+    for a, b in zip(got, want):
+        _close(a, b.to(cuda), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_layernorm_fn_gradients_match_plain(cuda, dtype):
+    rng = np.random.RandomState(6)
+    x, g, b = (_t(a, dtype, cuda).requires_grad_(True) for a in
+               (rng.randn(64, 512), rng.rand(512) + 0.5, rng.randn(512)))
+    w = _t(rng.randn(64, 512), dtype, cuda)
+    kernels.reset_counts()
+    got = torch.autograd.grad(
+        norm_act.layernorm_norm_act(x, g, b, 1e-5, "relu"), (x, g, b), w)
+    assert kernels.counts()["launches"]["layernorm_norm_act"] == 1
+    want = torch.autograd.grad(norm_act.layernorm_plain(x, g, b, 1e-5,
+                                                        "relu"), (x, g, b), w)
+    for a, c in zip(got, want):
+        _close(a, c, dtype)
+
+
+def test_kernel_wrappers_refuse_to_cut_the_gradient(cuda):
+    q = torch.zeros(1, 8, 2, 8, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fa.flash_attention_fwd_lse(q, q, q)
+    x = torch.zeros(4, 8, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        norm_act._layernorm_forward(x, x[0], x[0], 1e-5, "identity")
+
+
+@pytest.mark.parametrize("kind", ["adam", "nesterovs", "rmsprop"])
+@pytest.mark.parametrize("step", [0, 5])
+def test_fused_update_kernel_matches_plain(cuda, kind, step):
+    from deeplearning4j_tpu_torch.kernels import fused_update
+
+    rng = np.random.RandomState(7)
+    shapes = {"W": (512, 2048), "b": (2048,), "g": (3, 1025), "z": (1,)}
+    for i in range(14):  # 18 tensors: more than one launch's 16
+        shapes[f"x{i}"] = (97 + i,)
+    fields = fused_update.FIELDS[kind]
+    hyper = {"adam": (0.9, 0.999, 1e-8), "nesterovs": (0.9,),
+             "rmsprop": (0.95, 1e-8)}[kind]
+
+    def tree(scale, positive=False):
+        return {k: _t(np.abs(a) if positive else a, torch.float32, cuda)
+                for k, a in ((k, rng.randn(*s) * scale)
+                             for k, s in shapes.items())}
+
+    grads = tree(1.0)
+    state = {f: tree(0.01, positive=(f != "m" and kind != "nesterovs"))
+             for f in fields}
+    plain_state = {f: {k: t.clone() for k, t in s.items()}
+                   for f, s in state.items()}
+    want_state, want_d = fused_update._PLAIN[kind](plain_state, grads, 3e-3,
+                                                   step, *hyper)
+    before = kernels.launches["fused_update"].value
+    got_state, got_d = fused_update.dispatch(kind, state, grads, 3e-3, step,
+                                             hyper)
+    assert kernels.launches["fused_update"].value == before + 2
+    for f in fields:
+        for k in shapes:
+            assert got_state[f][k] is state[f][k]  # updated in place
+            torch.testing.assert_close(got_state[f][k], want_state[f][k],
+                                       rtol=1e-5, atol=1e-6)
+    for k in shapes:
+        torch.testing.assert_close(got_d[k], want_d[k], rtol=1e-5, atol=1e-6)

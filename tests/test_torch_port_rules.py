@@ -49,7 +49,14 @@ def _forbidden_imports(path: Path):
 
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert "deeplearning4j_tpu_torch.serving.server" in mods
+    assert {"deeplearning4j_tpu_torch.serving.server",
+            "deeplearning4j_tpu_torch.kernels.fused_update",
+            "deeplearning4j_tpu_torch.kernels._diff",
+            "deeplearning4j_tpu_torch.ops.updaters",
+            "deeplearning4j_tpu_torch.ops.schedules",
+            "deeplearning4j_tpu_torch.ops.grad_norm",
+            "deeplearning4j_tpu_torch.nn.losses",
+            "deeplearning4j_tpu_torch.datasets.dataset"} <= set(mods)
     code = (
         "import sys\n"
         "for blocked in ('jax', 'jaxlib', 'deeplearning4j_tpu'):\n"
