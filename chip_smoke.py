@@ -44,13 +44,47 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               per layer vertex, Adam's m (= 0.1 * grad) within 4e-2 of the
               CPU's largest |m| there (a kernel wrapper that cut the
               gradient would show here).
-7. trace    - where one decode step's, one 1024-token prefill's and one
-              training step's (forward, backward, update) time goes: host
-              wall time, kernel time on the card (torch.profiler), the
-              card's idle share and the top kernels.
+7. resnet_kernels - BatchNorm apply (row 2) at T1's stem and widest
+              BatchNorms, the bottleneck block in training (row 11) at T2's
+              8 distinct block shapes and in inference (row 12) at I1's 8,
+              plus one int8 inference shape, in bf16 and f32, against their
+              plain versions on the card (rtol = atol = 6e-2 in bf16, a
+              bf16 block against its plain version run in f32 on the same
+              inputs; 1e-4 in f32 with TF32 off; the batch statistics too),
+              timed as the kernels phase times its kernels.
+8. resnet_train - ResNet-50 (`models/resnet.py`, 1000 classes, bf16
+              compute over f32 params, Nesterovs 0.9 at lr 0.1, l2 1e-4,
+              seeded random weights) trained with `ComputationGraph.fit` on
+              seeded learnable images (class templates plus noise, one-hot
+              labels over the 1000 outputs from 10 classes): T1, the per-layer graph at 224x224, B=256
+              (`bench.py:1589-1613`; halved until it fits); then T2, the
+              fused-block graph at 64x64, B=32 (`bench.py:1720-1753`); 3
+              warm-up and 10 timed steps each. Scores finite and falling
+              (the last 3 average under the first); per step exactly 53
+              BatchNorm and 107 update launches (T1), or 16 bottleneck, 1
+              BatchNorm and 19 update launches (T2); 0 plain calls.
+9. resnet_infer - `ComputationGraph.output` at B=32 on 224x224 images: I1,
+              the fused graph (T2's trained weights and running statistics)
+              through 16 inference blocks and 1 BatchNorm per call; I2, T1's
+              trained graph through 53 BatchNorms per call; 0 plain calls.
+10. resnet_parity - f32, B=16, 64x64, the same seeded params on the card
+              and on the CPU (plain versions), for both graphs: one `output`
+              (probabilities within 1e-3), then one `fit` step (scores
+              within 1e-3 relative, running statistics within rtol = atol =
+              1e-3, and the Nesterovs state, lr * grad after one step,
+              against a float64 CPU step's, per vertex over its largest
+              |v|: the card's median and largest error no more than twice
+              the CPU f32 step's, the largest allowed 4e-2 in any case; a
+              cut gradient is off by about 1).
+11. trace   - where one decode step's, one 1024-token prefill's, one LM
+              training step's and one T1 and one T2 step's (forward,
+              backward, update) time goes: host wall time, kernel time on
+              the card (torch.profiler), the card's idle share and the top
+              kernels.
 
-Then the card line, the `{"kernels": [...]}` line and, last, the result
-line. With no GPU, without the package beside it, or when any phase
+Then the card line, the `{"kernels": [...]}` line (each kernel with its
+launches on each main path: serve, LM train, T1, T2, I1, I2) and, last,
+the result line. With no GPU, without the package beside it, or when any phase
 fails, it exits non-zero and prints no result.
 """
 
@@ -73,6 +107,7 @@ SLOTS, PAGE = 4, 64
 ROOT = "deeplearning4j_tpu_torch/kernels/csrc/"
 TRAIN_B, WARMUP, TIMED = 16, 3, 20
 FA = "deeplearning4j_tpu/kernels/flash_attention.py:"
+BB = "deeplearning4j_tpu/kernels/bottleneck_block.py:"
 KERNEL_INFO = {
     "layernorm_norm_act": (ROOT + "norm_act.cu",
                            "deeplearning4j_tpu/kernels/norm_act.py:101"),
@@ -83,6 +118,10 @@ KERNEL_INFO = {
     "flash_attention_bwd_dkv": (ROOT + "flash_attention_bwd.cu", FA + "426"),
     "fused_update": (ROOT + "fused_update.cu",
                      "deeplearning4j_tpu/kernels/fused_update.py:109"),
+    "batchnorm_norm_act": (ROOT + "norm_act.cu",
+                           "deeplearning4j_tpu/kernels/norm_act.py:96"),
+    "bottleneck_train": (ROOT + "bottleneck_block.cu", BB + "229"),
+    "bottleneck_infer": (ROOT + "bottleneck_block.cu", BB + "261"),
 }
 SERVING_KERNELS = ("layernorm_norm_act", "flash_attention",
                    "paged_decode_attention")
@@ -93,6 +132,26 @@ TRAIN_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1,
                   "flash_attention_bwd_dq": BLOCKS,
                   "flash_attention_bwd_dkv": BLOCKS,
                   "fused_update": 2 + 5 * BLOCKS + 2}
+
+# ResNet-50: the paths T1, T2 (training) and I1, I2 (inference).
+RN_TOL = {"bfloat16": 6e-2, "float32": 1e-4}
+RN_CLASSES, RN_WARMUP, RN_TIMED, INFER_B = 1000, 3, 10, 32
+RN_LEARN_CLASSES = 10   # the classes the training batches draw from
+RN_PARITY_B = 16        # see phase_resnet_parity
+RN_PATHS = {  # image, fused blocks, batch
+    "t1": (224, False, 256), "t2": (64, True, 32),
+    "i1": (224, True, INFER_B), "i2": (224, False, INFER_B)}
+# Launches per training step or per output call: one BatchNorm per
+# BatchNormalization layer (53 unfused, the stem's when fused), one block
+# per BottleneckBlock (16), one update per layer vertex with params.
+RN_LAUNCHES = {
+    "t1": {"batchnorm_norm_act": 53, "fused_update": 107},
+    "t2": {"bottleneck_train": 16, "batchnorm_norm_act": 1,
+           "fused_update": 19},
+    "i1": {"bottleneck_infer": 16, "batchnorm_norm_act": 1},
+    "i2": {"batchnorm_norm_act": 53}}
+# The stages of ResNet-50: (filters, blocks, first stride).
+RN_STAGES = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
 
 
 def card_line() -> str:
@@ -149,14 +208,14 @@ def device_ms(torch, fn, reps=20):
     return None if ev is None else sum(e - s for _, s, e in ev) / reps / 1e3
 
 
-def compare(got, want, dtype):
+def compare(got, want, dtype, tols=TOL):
     """Max abs error and whether every element is within rtol = atol =
-    TOL[dtype]; `got`/`want` are tensors or equal-length sequences."""
+    tols[dtype]; `got`/`want` are tensors or equal-length sequences."""
     if isinstance(got, (tuple, list)):
-        res = [compare(g, w, dtype) for g, w in zip(got, want)]
+        res = [compare(g, w, dtype, tols) for g, w in zip(got, want)]
         return max(e for e, _ in res), all(ok for _, ok in res)
     diff = (got.float() - want.float()).abs()
-    tol = TOL[dtype]
+    tol = tols[dtype]
     ok = bool((diff <= tol + tol * want.float().abs()).all())
     return float(diff.max()), ok
 
@@ -690,11 +749,13 @@ def trace_train_step(torch, net, batch):
     return out
 
 
-def phase_trace(card, torch, cg, train_net, train_batch):
+def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
+                rn_batches):
     """Where the time of one decode step (4 slots at depths 1000, 700, 300,
-    40), of one 1024-token prefill and of one training step's three parts
-    goes: host wall time per call, kernel time on the card, the card's idle
-    share, and the top kernels."""
+    40), of one 1024-token prefill, and of the three parts of one LM
+    training step and of one T1 and one T2 ResNet step goes: host wall time
+    per call, kernel time on the card, the card's idle share, and the top
+    kernels."""
     from deeplearning4j_tpu_torch.models.zoo import PagedDecodeStepper
     from deeplearning4j_tpu_torch.serving.scheduler import (
         prompt_bucket_ladder,
@@ -723,7 +784,458 @@ def phase_trace(card, torch, cg, train_net, train_batch):
                      if ev is None
                      else _kernel_summary(torch, ev, wall_ms, reps[what]))
     out["train_step"] = trace_train_step(torch, train_net, train_batch)
+    for path in ("t1", "t2"):
+        out[f"resnet_{path}_step"] = trace_train_step(
+            torch, rn_nets[path], rn_batches[path][0])
     emit(card, phase="trace", **out)
+
+
+# ------------------------------------------------------------------ ResNet
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def rn_block_shapes(image):
+    """The distinct (H, Cin, F1, stride, project) of ResNet-50's 16
+    bottleneck blocks at `image` (after the stride-2 stem and pool): 8,
+    each stage's first block and then its identity blocks."""
+    h, cin, out = _ceil(_ceil(image, 2), 2), 64, []
+    for filters, blocks, first in RN_STAGES:
+        for bi in range(blocks):
+            stride = first if bi == 0 else 1
+            key = (h, cin, filters, stride, bi == 0)
+            if key not in out:
+                out.append(key)
+            h, cin = _ceil(h, stride), 4 * filters
+    return out
+
+
+def rn_block_case(torch, dev, dtype_name, b, shape, train, seed, int8=False):
+    """(label, kernel fn, plain fn, plain-in-f32 fn, bytes, ops) for one
+    bottleneck block. The plain-in-f32 fn runs the plain version on the
+    same inputs widened to f32 (bf16 values are exact in f32): the
+    precision of the TPU body, which keeps its intermediates in f32, and
+    of the kernel."""
+    from deeplearning4j_tpu_torch.kernels import bottleneck_block as bb
+
+    h, cin, f1, stride, project = shape
+    f3 = 4 * f1
+    dt = getattr(torch, dtype_name)
+    es = torch.tensor([], dtype=dt).element_size()
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*sh, scale=1.0, shift=0.0):
+        return (torch.randn(sh, generator=g, device=dev) * scale
+                + shift).to(dt)
+
+    names = ("a", "b", "c") + (("proj",) if project else ())
+    dims = {"a": (1, 1, cin, f1), "b": (3, 3, f1, f1), "c": (1, 1, f1, f3),
+            "proj": (1, 1, cin, f3)}
+    x = rnd(b, h, h, cin)
+    params, state = {}, {}
+    for n in names:
+        kh, kw, ci, f = dims[n]
+        w = torch.randn(dims[n], generator=g, device=dev) * (
+            2.0 / (kh * kw * ci)) ** 0.5
+        if int8:
+            scale = w.abs().reshape(-1, f).amax(0) / 127.0
+            params[f"W_{n}"] = torch.round(w / scale).to(torch.int8)
+            params[f"W_{n}__scale"] = scale
+        else:
+            params[f"W_{n}"] = w.to(dt)
+        params[f"gamma_{n}"] = rnd(f, scale=0.2, shift=1.0)
+        params[f"beta_{n}"] = rnd(f, scale=0.1)
+        state[f"mean_{n}"] = torch.randn(f, generator=g, device=dev) * 0.1
+        state[f"var_{n}"] = torch.rand(f, generator=g, device=dev) + 0.5
+    plain_params = params
+    if int8:
+        plain_params = {k: (bb._dequant(a, params[k + "__scale"], dt)
+                            if a.dtype == torch.int8 else a)
+                        for k, a in params.items()}
+    flat = [plain_params[f"{k}_{n}"] for n in names
+            for k in ("W", "gamma", "beta")]
+    kw = dict(stride=(stride, stride), project=project, eps=1e-5,
+              activation="relu", train=train)
+
+    def kern():
+        y, st = bb.bottleneck_forward(x, params, state, **kw)
+        return [y] + ([st[k] for k in bb.stat_keys(project)] if train else [])
+
+    def plain(x=x, flat=flat):
+        if train:
+            y, st = bb.bottleneck_train_plain(
+                x, *flat, stride=(stride, stride), eps=1e-5, act="relu")
+            return [y, *st]
+        return [bb.bottleneck_infer_plain(x, *flat, stats=state,
+                                          stride=(stride, stride), eps=1e-5,
+                                          act="relu")]
+
+    def plain_f32():
+        return plain(x.float(), [a.float() for a in flat])
+
+    ho = _ceil(h, stride)
+    m = b * ho * ho
+    w_elems = cin * f1 + 9 * f1 * f1 + f1 * f3 + (cin * f3 if project else 0)
+    n_bn = 2 * f1 + f3 + (f3 if project else 0)  # BatchNorm channels
+    # x and y once; the weights (int8 with f32 scales); gamma and beta at
+    # x's dtype; the f32 statistics, written (train) or read (inference).
+    nbytes = ((b * h * h * cin + m * f3) * es
+              + w_elems * (1 if int8 else es) + (n_bn * 4 if int8 else 0)
+              + n_bn * 2 * es + n_bn * 2 * 4)
+    # The convolutions' multiply-adds; ~5 operations per normalized
+    # element, 2 per output (add, act), 3 per element of the statistics.
+    ops = (2 * m * w_elems + 5 * m * n_bn + 2 * m * f3
+           + (3 * m * n_bn if train else 0))
+    label = (f"B={b} H={h} Cin={cin} F1={f1} s={stride} "
+             f"{'proj' if project else 'identity'}"
+             + (" int8" if int8 else ""))
+    return label, kern, plain, plain_f32, nbytes, ops
+
+
+def rn_bn_cases(torch, dev, dtype_name, b):
+    """BatchNorm apply at T1's stem (relu) and its widest BatchNorms
+    (identity: the library yardstick F.batch_norm applies)."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import norm_act
+
+    dt = getattr(torch, dtype_name)
+    es = torch.tensor([], dtype=dt).element_size()
+    g = torch.Generator(device=dev).manual_seed(31)
+    cases = []
+    for label, rows, ch, act in (
+            (f"stem [{b}*112*112,64] relu", b * 112 * 112, 64, "relu"),
+            (f"s0 c_bn [{b}*56*56,256]", b * 56 * 56, 256, "identity"),
+            (f"s3 c_bn [{b}*7*7,2048]", b * 7 * 7, 2048, "identity")):
+        x = (torch.randn(rows, ch, generator=g, device=dev) * 2 + 0.5).to(dt)
+        m = (torch.randn(ch, generator=g, device=dev) * 0.3).to(dt)
+        v = (torch.rand(ch, generator=g, device=dev) + 0.2).to(dt)
+        ga = (torch.rand(ch, generator=g, device=dev) + 0.5).to(dt)
+        be = torch.randn(ch, generator=g, device=dev).to(dt)
+        lib = None
+        if act == "identity":
+            stats = [a.float() for a in (m, v, ga, be)]
+
+            def lib(x=x, stats=stats):
+                return F.batch_norm(x, stats[0], stats[1], stats[2],
+                                    stats[3], training=False, eps=1e-5)
+        cases.append((
+            "batchnorm_norm_act", label,
+            lambda x=x, m=m, v=v, ga=ga, be=be, act=act:
+                norm_act.batchnorm_norm_act(x, m, v, ga, be, 1e-5, act),
+            lambda x=x, m=m, v=v, ga=ga, be=be, act=act:
+                norm_act.batchnorm_plain(x, m, v, ga, be, 1e-5, act),
+            lib, 2 * rows * ch * es + 4 * ch * es, 6 * rows * ch))
+    return cases
+
+
+def _safe_lib_ms(torch, lib):
+    """A yardstick call that the installed PyTorch refuses is recorded as
+    such: it is no part of the port."""
+    try:
+        return _lib_ms(torch, lib) + (None,)
+    except RuntimeError as e:
+        return None, None, f"{type(e).__name__}: {e}"[:200]
+
+
+def phase_resnet_kernels(card, torch, dev, t1_batch):
+    """BatchNorm apply is held to its plain version at the path's dtype.
+    A bottleneck block in bf16 is held to its plain version run in f32 on
+    the same inputs (`plain_f32`): the kernel, like the TPU body, keeps
+    every intermediate in f32 and rounds y once, where the plain version at
+    bf16 rounds each conv output and each statistic to bf16; the distance
+    to that one is printed beside (`max_abs_err_vs_plain_at_dtype`)."""
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        cases = [c + (None,) for c in rn_bn_cases(torch, dev, dtype,
+                                                   t1_batch)]
+        blocks = [("bottleneck_train", RN_PATHS["t2"][2], shape, True, 40 + i,
+                   False) for i, shape in enumerate(rn_block_shapes(64))]
+        blocks += [("bottleneck_infer", INFER_B, shape, False, 50 + i, False)
+                   for i, shape in enumerate(rn_block_shapes(224))]
+        if dtype == "bfloat16":
+            blocks.append(("bottleneck_infer", INFER_B,
+                           rn_block_shapes(224)[2], False, 60, True))
+        for name, b, shape, train, seed, int8 in blocks:
+            label, kern, plain, plain_f32, nb, ops = rn_block_case(
+                torch, dev, dtype, b, shape, train, seed, int8=int8)
+            cases.append((name, label, kern, plain, None, nb, ops,
+                          plain_f32 if dtype == "bfloat16" else None))
+        for name, shape, kern, plain, lib, nbytes, ops, plain_f32 in cases:
+            got = kern()
+            want = plain()
+            torch.cuda.synchronize()
+            err_dtype, ok = compare(got, want, dtype, RN_TOL)
+            err = err_dtype
+            if plain_f32 is not None:
+                ref = plain_f32()
+                torch.cuda.synchronize()
+                err, ok = compare(got, ref, dtype, RN_TOL)
+                del ref
+            del got, want
+            bound_ms, bound_by = bound(nbytes, ops, dtype)
+            lib_ms, lib_dev_ms, lib_error = _safe_lib_ms(torch, lib)
+            block = name.startswith("bottleneck")
+            reps = dict(reps=10, warmup=2) if block else {}
+            rows.append({
+                "name": name, "dtype": dtype, "shape": shape,
+                "max_abs_err": err,
+                "held_to": ("plain version in f32 on the same inputs"
+                            if plain_f32 is not None else
+                            f"plain version in {dtype}"),
+                "max_abs_err_vs_plain_at_dtype": err_dtype,
+                "tolerance": f"rtol=atol={RN_TOL[dtype]}", "ok": ok,
+                "ms": time_ms(kern, **reps), "plain_ms": time_ms(plain, **reps),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms, "library_error": lib_error,
+                "device_ms": device_ms(torch, kern, 5 if block else 20),
+                "plain_device_ms": device_ms(torch, plain,
+                                             5 if block else 20),
+                "library_device_ms": lib_dev_ms,
+                "cuda_launches_per_call": (
+                    {"bottleneck_train": 9 if "proj" in shape else 7,
+                     "bottleneck_infer": 5 if "proj" in shape else 4}
+                    .get(name, 1))})
+            emit(card, phase="resnet_kernels", **rows[-1])
+        del cases
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rn_batches(torch, dev, image, b, n, seed):
+    """n learnable batches on the card: each image is its class's template
+    (seeded noise images) plus noise at half its scale; one-hot f32 labels
+    over the 1000 outputs, drawn from a seeded RN_LEARN_CLASSES of them.
+    From random weights at lr 0.1 the reference's own score rises and
+    swings over the first 13 steps on labels spread over all 1000 classes;
+    over 10 classes, 13 steps show it fall. Made in bulk on the device."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    classes = torch.randperm(RN_CLASSES, generator=g,
+                             device=dev)[:RN_LEARN_CLASSES]
+    templates = torch.randn(RN_LEARN_CLASSES, image, image, 3, generator=g,
+                            device=dev)
+    eye = torch.eye(RN_CLASSES, device=dev)
+    out = []
+    for _ in range(n):
+        pick = torch.randint(0, RN_LEARN_CLASSES, (b,), generator=g,
+                             device=dev)
+        x = templates[pick] + 0.5 * torch.randn(b, image, image, 3,
+                                                generator=g, device=dev)
+        out.append(MultiDataSet([x], [eye[classes[pick]]]))
+    return out
+
+
+def _rn_net(torch, dev, path, **init):
+    from deeplearning4j_tpu_torch.models import resnet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    image, fused, _ = RN_PATHS[path]
+    conf = resnet.resnet50(n_classes=RN_CLASSES, image=image,
+                           dtype="bfloat16", fused_blocks=fused)
+    return ComputationGraph(conf, device=dev).init(**init)
+
+
+def _launch_errors(counts, path, n):
+    want = {name: 0 for name in KERNEL_INFO}
+    want.update({k: v * n for k, v in RN_LAUNCHES[path].items()})
+    errors = []
+    if counts["launches"] != want:
+        errors.append(f"launches {counts['launches']} != expected {want}")
+    if any(counts["plain_calls"].values()):
+        errors.append(f"plain versions ran on the card: "
+                      f"{counts['plain_calls']}")
+    return errors, want
+
+
+def phase_resnet_train(card, torch, kernels, dev, path):
+    """`path` "t1" or "t2": 3 warm-up and 10 timed `fit` steps over 2
+    batches; B halves while a step does not fit the card (the cut is
+    printed)."""
+    image, fused, batch = RN_PATHS[path]
+    cuts = []
+    while True:
+        net = _rn_net(torch, dev, path)
+        batches = rn_batches(torch, dev, image, batch, 2, 71)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        scores, wall = [], []
+        try:
+            for i in range(RN_WARMUP + RN_TIMED):
+                t0 = time.perf_counter()
+                net.fit(batches[i % 2])
+                scores.append(net.score_value)  # syncs the step
+                wall.append((time.perf_counter() - t0) * 1e3)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            if batch <= 8:
+                raise
+            cuts.append(f"B={batch} did not fit: {str(e)[:160]}")
+            del net, batches
+            torch.cuda.empty_cache()
+            batch //= 2
+    counts = kernels.counts()
+    steps = RN_WARMUP + RN_TIMED
+    errors, want = _launch_errors(counts, path, steps)
+    if not all(np.isfinite(scores)):
+        errors.append(f"non-finite score: {scores}")
+    last3 = float(np.mean(scores[-3:]))
+    if not last3 < scores[0]:
+        errors.append(f"scores did not fall: first {scores[0]}, mean of the "
+                      f"last 3 {last3}")
+    timed = wall[RN_WARMUP:]
+    ms = statistics.mean(timed)
+    emit(card, phase="resnet_train", path=path, ok=not errors, errors=errors,
+         model=f"resnet50 classes={RN_CLASSES} image={image} "
+               f"fused_blocks={fused} mixed_bfloat16 Nesterovs lr 0.1",
+         batch=batch, batch_cuts=cuts, steps=steps, scores=scores,
+         first_score=scores[0], last3_mean=last3, ms_per_step=ms,
+         ms_per_step_median=statistics.median(timed), ms_per_step_all=wall,
+         samples_per_s=batch / ms * 1e3,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         launches=counts["launches"], expected_launches=want,
+         plain_calls=counts["plain_calls"])
+    return not errors, counts["launches"], net, batches, batch
+
+
+def phase_resnet_infer(card, torch, kernels, path, net, x):
+    """3 warm-up and 10 timed `output` calls at B=32 (each ends in the
+    host copy of the probabilities)."""
+    kernels.reset_counts()
+    wall, outs = [], []
+    for _ in range(RN_WARMUP + RN_TIMED):
+        t0 = time.perf_counter()
+        outs.append(net.output(x)[0])
+        wall.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.counts()
+    calls = RN_WARMUP + RN_TIMED
+    errors, want = _launch_errors(counts, path, calls)
+    out = outs[-1]
+    if out.shape != (INFER_B, RN_CLASSES) or not np.isfinite(out).all():
+        errors.append(f"output {out.shape}, finite {np.isfinite(out).all()}")
+    elif np.abs(out.sum(-1) - 1).max() > 1e-3:
+        errors.append("probabilities do not sum to 1")
+    if not all(np.array_equal(o, out) for o in outs):
+        errors.append("repeated calls on the same input differ")
+    timed = wall[RN_WARMUP:]
+    ms = statistics.mean(timed)
+    emit(card, phase="resnet_infer", path=path, ok=not errors, errors=errors,
+         batch=INFER_B, image=RN_PATHS[path][0], fused=RN_PATHS[path][1],
+         calls=calls, ms_per_call=ms, ms_per_call_median=statistics.median(
+             timed), ms_per_call_all=wall, images_per_s=INFER_B / ms * 1e3,
+         launches=counts["launches"], expected_launches=want,
+         plain_calls=counts["plain_calls"])
+    return not errors, counts["launches"]
+
+
+def _v_errors(got, want):
+    """Per layer vertex with params: max |v_got - v_want| over max
+    |v_want| (Nesterovs' v after one step is -lr * grad)."""
+    out = {}
+    for name, st in want.opt_state.items():
+        if not st["v"]:
+            continue
+        ref = max(float(a.abs().max()) for a in st["v"].values())
+        err = max(float((got.opt_state[name]["v"][k].cpu() - a).abs().max())
+                  for k, a in st["v"].items())
+        out[name] = err / ref if ref else float("inf")
+    return out
+
+
+def phase_resnet_parity(card, torch, dev):
+    """f32, B=16, 64x64: the same seeded params on the card and on the CPU,
+    for the per-layer and the fused graph: one `output`, one `fit` step,
+    and the same step on the CPU in float64 as the reference for the
+    gradients.
+
+    A full-depth ResNet step from random weights is ill-conditioned in
+    f32: the BatchNorm batch statistics (single-pass, mean(x^2) - mean^2,
+    as the reference computes them) of deep features that are nearly alike
+    across the batch lose most of their digits, and the backward carries
+    that into every layer's gradient, so any two f32 implementations
+    disagree by more than 4e-2 of a vertex's largest gradient somewhere.
+    So each vertex's Nesterovs v (-lr * grad after one step) is measured
+    against the f64 step's, over the largest |v| there, for the card and
+    for the CPU's f32 step (the rounding floor): the card's median over
+    the vertices may not exceed twice the CPU's (plus 1e-3), nor its
+    largest max(4e-2, twice the CPU's largest). A cut gradient is off by
+    about 1. B=16 and not 4: at B=4 the floor itself is tens of percent."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models import resnet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    rng = np.random.RandomState(81)
+    b = RN_PARITY_B
+    x = rng.randn(b, 64, 64, 3).astype(np.float32)
+    y = np.eye(RN_CLASSES, dtype=np.float32)[rng.randint(0, RN_CLASSES, b)]
+    t0 = time.perf_counter()
+    errors, res = [], {}
+    for fused in (False, True):
+        def conf(dtype):
+            return resnet.resnet50(n_classes=RN_CLASSES, image=64, dtype=dtype,
+                                   fused_blocks=fused)
+
+        cpu = ComputationGraph(conf("float32"), device="cpu").init()
+        params = {v: {k: a.detach() for k, a in p.items()}
+                  for v, p in cpu.params_tree.items()}
+        card_net = ComputationGraph(conf("float32"), device=dev).init(
+            params=params)
+        cpu64 = ComputationGraph(conf("float64"), device="cpu").init(
+            params=params)
+        prob_diff = float(np.abs(card_net.output(x)[0]
+                                 - cpu.output(x)[0]).max())
+        for net in (cpu, card_net, cpu64):
+            net.fit(MultiDataSet([x], [y]))
+        score_rel = (abs(card_net.score_value - cpu.score_value)
+                     / abs(cpu.score_value))
+        stat_excess = max(
+            float(((card_net.state[v][k].cpu() - a).abs()
+                   - (1e-3 + 1e-3 * a.abs())).max())
+            for v, s in cpu.state.items() for k, a in s.items())
+        card_err = _v_errors(card_net, cpu64)
+        cpu_err = _v_errors(cpu, cpu64)
+        med_card = statistics.median(card_err.values())
+        med_cpu = statistics.median(cpu_err.values())
+        worst_card, worst_cpu = max(card_err.values()), max(cpu_err.values())
+        form = "fused" if fused else "unfused"
+        if prob_diff > 1e-3:
+            errors.append(f"{form}: output differs by {prob_diff}")
+        if score_rel > 1e-3:
+            errors.append(f"{form}: scores {card_net.score_value} (card) vs "
+                          f"{cpu.score_value} (CPU)")
+        if stat_excess > 0:
+            errors.append(f"{form}: running stats beyond rtol=atol=1e-3 by "
+                          f"{stat_excess}")
+        if med_card > 2 * med_cpu + 1e-3:
+            errors.append(f"{form}: the card's median Nesterovs v error "
+                          f"against the f64 step, {med_card}, exceeds twice "
+                          f"the CPU f32 step's, {med_cpu}")
+        if worst_card > max(4e-2, 2 * worst_cpu):
+            errors.append(f"{form}: the card's largest Nesterovs v error "
+                          f"against the f64 step, {worst_card}, exceeds "
+                          f"max(4e-2, twice the CPU f32 step's {worst_cpu})")
+        res[form] = {
+            "max_abs_prob_diff": prob_diff,
+            "score_card": card_net.score_value, "score_cpu": cpu.score_value,
+            "score_cpu_f64": cpu64.score_value, "score_rel_diff": score_rel,
+            "running_stat_excess_over_tol": stat_excess,
+            "vertices": len(card_err),
+            "card_v_err_vs_f64_median": med_card,
+            "cpu_f32_v_err_vs_f64_median": med_cpu,
+            "card_v_err_vs_f64_worst": worst_card,
+            "card_v_err_vs_f64_worst_vertex": max(card_err,
+                                                  key=card_err.get),
+            "cpu_f32_v_err_vs_f64_worst": worst_cpu,
+            "card_v_within_4e-2_of_f64": sum(e <= 4e-2
+                                             for e in card_err.values()),
+            "card_v_err_vs_cpu_f32_worst": max(
+                _v_errors(card_net, cpu).values())}
+    emit(card, phase="resnet_parity", ok=not errors, errors=errors, batch=b,
+         image=64, seconds=time.perf_counter() - t0, **res)
+    return not errors
 
 
 def main() -> int:
@@ -759,6 +1271,10 @@ def main() -> int:
     rows = phase_kernels(card, torch, dev, train_conf)
     if not all(r["ok"] for r in rows):
         failed.append("kernels")
+    rn_rows = phase_resnet_kernels(card, torch, dev, RN_PATHS["t1"][2])
+    if not all(r["ok"] for r in rn_rows):
+        failed.append("resnet_kernels")
+    rows += rn_rows
 
     conf = zoo.transformer_lm(VOCAB, t=CACHE, d_model=D_MODEL, n_heads=HEADS,
                               n_blocks=BLOCKS, dtype="bfloat16",
@@ -775,16 +1291,45 @@ def main() -> int:
         failed.append("train")
     if not phase_train_parity(card, torch, dev):
         failed.append("train_parity")
-    phase_trace(card, torch, cg, train_net, batches[0])
+
+    path_launches = {"serve": serve_launches, "train": train_launches}
+    nets, rn_batch = {}, {}
+    for path in ("t1", "t2"):
+        ok, path_launches[path], nets[path], rn_batch[path], _ = \
+            phase_resnet_train(card, torch, kernels, dev, path)
+        if not ok:
+            failed.append(f"resnet_train_{path}")
+    # I2 is T1's graph; I1 the fused graph at 224 with T2's weights and
+    # running statistics (the same shapes at any image size).
+    i1_net = _rn_net(torch, dev, "i1", params={
+        v: {k: a.detach() for k, a in p.items()}
+        for v, p in nets["t2"].params_tree.items()}, state=nets["t2"].state)
+    x224 = rn_batch["t1"][0].features[0][:INFER_B]
+    for path, net in (("i1", i1_net), ("i2", nets["t1"])):
+        ok, path_launches[path] = phase_resnet_infer(card, torch, kernels,
+                                                     path, net, x224)
+        if not ok:
+            failed.append(f"resnet_infer_{path}")
+    del i1_net, x224
+    if not phase_resnet_parity(card, torch, dev):
+        failed.append("resnet_parity")
+    phase_trace(card, torch, cg, train_net, batches[0], nets, rn_batch)
 
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     # The kernels line: each kernel at the shape most of its main-path
     # launches have (bf16; the update kernel's state is f32), with this
-    # run's launches on the two main paths, the serve phase's and the train
-    # phase's 23 steps (each counted from 0), summed and by path.
-    main_shape = {"layernorm_norm_act": f"[4,{D_MODEL}]"}
+    # run's launches on the six main paths (each counted from 0: the serve
+    # phase, the LM train phase's 23 steps, T1's and T2's 13 steps, I1's and
+    # I2's 13 calls), summed and by path.
+    main_shape = {
+        "layernorm_norm_act": f"[4,{D_MODEL}]",
+        "batchnorm_norm_act": f"s0 c_bn [{RN_PATHS['t1'][2]}*56*56,256]",
+        "bottleneck_train": f"B={RN_PATHS['t2'][2]} H=4 Cin=1024 F1=256 s=1 "
+                            "identity",
+        "bottleneck_infer": f"B={INFER_B} H=14 Cin=1024 F1=256 s=1 "
+                            "identity"}
     main_dtype = {"fused_update": "float32"}
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -794,9 +1339,9 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": serve_launches[name] + train_launches[name],
-            "launches_by_path": {"serve": serve_launches[name],
-                                 "train": train_launches[name]},
+            "launches": sum(c[name] for c in path_launches.values()),
+            "launches_by_path": {path: c[name]
+                                 for path, c in path_launches.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

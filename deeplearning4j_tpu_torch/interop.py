@@ -4,7 +4,10 @@
 (`cg.params_tree` with every leaf turned into a numpy array: nested
 `{vertex: {name: array}}`) and returns the port's tree, name for name, for
 `ComputationGraph.init(params=...)`. The port checks names and shapes
-against its conf there, so both packages compute the same function."""
+against its conf there, so both packages compute the same function.
+HWIO conv kernels travel as they are (the port keeps the layout).
+`state_from_numpy` carries declared layer state the same way (`cg.state`:
+the BatchNorm running means and variances) for `init(state=...)`."""
 
 from __future__ import annotations
 
@@ -25,6 +28,11 @@ def params_from_numpy(tree: Mapping[str, Mapping[str, object]]
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
     return {str(v): {str(k): _tensor(a) for k, a in p.items()}
             for v, p in tree.items()}
+
+
+def state_from_numpy(tree: Mapping[str, Mapping[str, object]]
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+    return params_from_numpy(tree)
 
 
 def updater_state_from_numpy(opt_state: Mapping[str, object],

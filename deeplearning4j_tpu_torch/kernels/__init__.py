@@ -6,16 +6,21 @@ else: a CPU tensor goes to the plain version (the CPU tests' path); a CUDA
 tensor launches the kernel, or the wrapper raises. No fallback, no switch.
 
 - `norm_act.layernorm_norm_act`             (csrc/norm_act.cu)
+- `norm_act.batchnorm_norm_act`             (csrc/norm_act.cu)
 - `flash_attention.flash_attention`         (csrc/flash_attention.cu)
 - `flash_attention.paged_decode_attention`  (csrc/paged_attention.cu)
 - `flash_attention.flash_attention_fwd_lse` (csrc/flash_attention.cu)
 - `flash_attention.flash_attention_bwd`     (csrc/flash_attention_bwd.cu:
   two kernels, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`)
 - `fused_update.dispatch`                   (csrc/fused_update.cu)
+- `bottleneck_block.bottleneck_forward`     (csrc/bottleneck_block.cu:
+  `bottleneck_train`, batch statistics, and `bottleneck_infer`, running
+  statistics; each counts one per wrapper call, of several CUDA launches)
 
 Training reaches the kernels through `torch.autograd.Function`s
-(`flash_attention.FlashAttentionFn`, `norm_act.LayerNormFn`, see
-`_diff.py`); a kernel wrapper asked for a gradient outside them raises.
+(`flash_attention.FlashAttentionFn`, `norm_act.LayerNormFn`,
+`norm_act.BatchNormFn`, `bottleneck_block.BottleneckFn`, see `_diff.py`);
+a kernel wrapper asked for a gradient outside them raises.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from typing import Dict
 
 KERNELS = ("layernorm_norm_act", "flash_attention", "paged_decode_attention",
            "flash_attention_fwd_lse", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv", "fused_update")
+           "flash_attention_bwd_dkv", "fused_update", "batchnorm_norm_act",
+           "bottleneck_train", "bottleneck_infer")
 
 
 class Count:

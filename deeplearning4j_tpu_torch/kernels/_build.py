@@ -45,6 +45,14 @@ _SIGNATURES = {
     "dl4j_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _F, _I, _P],
     "dl4j_fused_update": [_I, _I, _P, _P, _P, _P],
+    "dl4j_batchnorm_norm_act": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
+                                _P],
+    "dl4j_bottleneck_conv": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P, _P, _P, _P, _I, _F, _P, _I, _P, _I, _P, _P,
+                             _P, _P],
+    "dl4j_bottleneck_stats": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "dl4j_bottleneck_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _F, _I, _P, _P],
 }
 
 _lock = threading.Lock()

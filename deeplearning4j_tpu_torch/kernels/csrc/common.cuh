@@ -13,6 +13,7 @@ namespace dl4j {
 // dtype codes shared with kernels/_build.py
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kInt8 = 2;  // quantized weights (bottleneck_block.cu)
 
 // The JAX package's finite mask value (kernels/flash_attention.py `_NEG`).
 constexpr float kNeg = -1e30f;
@@ -29,6 +30,21 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as XLA's convert
+}
+
+// Activation codes shared with kernels/norm_act.py `_ACT_CODES`.
+constexpr int kIdentity = 0;
+constexpr int kRelu = 1;
+constexpr int kTanh = 2;
+constexpr int kSigmoid = 3;
+
+__device__ __forceinline__ float activate(float v, int act) {
+  switch (act) {
+    case kRelu: return fmaxf(v, 0.f);
+    case kTanh: return tanhf(v);
+    case kSigmoid: return 1.f / (1.f + expf(-v));
+    default: return v;
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

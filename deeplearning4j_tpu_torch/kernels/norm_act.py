@@ -1,5 +1,5 @@
-"""LayerNorm + affine + activation (counterpart of
-`deeplearning4j_tpu/kernels/norm_act.py`).
+"""LayerNorm and BatchNorm apply, each + affine + activation (counterpart
+of `deeplearning4j_tpu/kernels/norm_act.py`).
 
 `layernorm_norm_act` launches the CUDA kernel of `csrc/norm_act.cu` for a
 CUDA tensor (it replaces the TPU kernel `_ln_kernel`, norm_act.py:101; the
@@ -14,6 +14,18 @@ the forward is the kernel (the plain version on the CPU) and the backward
 the VJP of `layernorm_xla`'s ops recomputed from the saved inputs, as the
 JAX package pairs its Pallas forward with the reference VJP
 (`_diff.py:19`, norm_act.py:176). That recompute is not a plain call.
+
+`batchnorm_norm_act` is BatchNorm's seam (norm_act.py:140): normalize with
+given statistics, affine, activation. For a CUDA tensor it launches the
+kernel of `csrc/norm_act.cu` that replaces `_bn_kernel` (norm_act.py:96),
+with mean, var, gamma and beta cast to x's dtype as the Pallas path's
+`_vec` makes them (norm_act.py:126-129, :158-160); for a CPU tensor it
+calls `batchnorm_plain`, `batchnorm_xla` (norm_act.py:75-80) op for op,
+where torch promotes as JAX does (a bf16 x with f32 running stats computes
+in f32). With autograd recording it runs through `BatchNormFn`, whose
+backward is the VJP of the plain ops for all five tensor inputs: the batch
+statistics are computed from x inside the differentiated function
+(`nn/layers/normalization.py`), so the gradient flows through them too.
 """
 
 from __future__ import annotations
@@ -27,6 +39,111 @@ from deeplearning4j_tpu_torch.nn import activations
 _ACT_CODES = {"identity": 0, "relu": 1, "tanh": 2, "sigmoid": 3}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_VECTORS = 8  # 16-byte loads per lane (csrc/norm_act.cu dispatch)
+
+
+def _batchnorm_ops(x, mean, var, gamma, beta, eps, activation):
+    """`batchnorm_xla`'s ops (gamma and beta may be floats: the
+    `lock_gamma_beta` constants)."""
+    xhat = (x - mean) / torch.sqrt(var + eps)
+    out = gamma * xhat + beta
+    return activations.resolve(activation)(out)
+
+
+def batchnorm_plain(x, mean, var, gamma, beta, eps, activation):
+    """The plain version, as the JAX package's XLA path computes it."""
+    kernels.plain_calls["batchnorm_norm_act"].add()
+    return _batchnorm_ops(x, mean, var, gamma, beta, eps, activation)
+
+
+def batchnorm_norm_act(x, mean, var, gamma, beta, eps, activation):
+    """act(gamma * (x - mean) / sqrt(var + eps) + beta) over the last axis
+    (NHWC channels, or features). x: [..., C]; mean, var, gamma, beta: [C]
+    tensors (gamma and beta may be floats). Differentiable through
+    `BatchNormFn` in all five."""
+    if _diff.needs_grad(*_tensors(x, mean, var, gamma, beta)):
+        return BatchNormFn.apply(x, mean, var, gamma, beta, eps, activation)
+    return _batchnorm_forward(x, mean, var, gamma, beta, eps, activation)
+
+
+def _tensors(*args):
+    return [a for a in args if isinstance(a, torch.Tensor)]
+
+
+class BatchNormFn(torch.autograd.Function):
+    """Kernel forward (plain version on the CPU), reference-VJP backward
+    for x, mean, var, gamma and beta."""
+
+    @staticmethod
+    def forward(ctx, x, mean, var, gamma, beta, eps, activation):
+        ins = (x, mean, var, gamma, beta)
+        ctx.tensor_at = [i for i, a in enumerate(ins)
+                         if isinstance(a, torch.Tensor)]
+        ctx.consts = tuple(None if isinstance(a, torch.Tensor) else a
+                           for a in ins)
+        ctx.save_for_backward(*(ins[i] for i in ctx.tensor_at))
+        ctx.eps, ctx.activation = eps, activation
+        return _batchnorm_forward(x, mean, var, gamma, beta, eps, activation)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+
+        def ops(*ts):
+            ins = list(ctx.consts)
+            for i, t in zip(ctx.tensor_at, ts):
+                ins[i] = t
+            return _batchnorm_ops(*ins, ctx.eps, ctx.activation)
+
+        got = _diff.ref_vjp(ops, saved,
+                            [ctx.needs_input_grad[i] for i in ctx.tensor_at],
+                            grad)
+        grads = [None] * 5
+        for i, g in zip(ctx.tensor_at, got):
+            grads[i] = g
+        return (*grads, None, None)
+
+
+def _vec(v, feats, like):
+    """mean/var/gamma/beta as a contiguous [feats] vector at x's dtype
+    (`_vec`, norm_act.py:126): floats are broadcast."""
+    return torch.as_tensor(v, device=like.device).to(like.dtype).broadcast_to(
+        (feats,)).contiguous()
+
+
+def _batchnorm_forward(x, mean, var, gamma, beta, eps, activation):
+    if kernels.placement(*_tensors(x, mean, var, gamma, beta)) == "cpu":
+        return batchnorm_plain(x, mean, var, gamma, beta, eps, activation)
+    _diff.refuse_grad("batchnorm_norm_act",
+                      *_tensors(x, mean, var, gamma, beta))
+    feats = x.shape[-1]
+    act = _act_code(activation)
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"batchnorm_norm_act takes float32 or bfloat16, "
+                        f"not {x.dtype}")
+    vec = 16 // x.element_size()
+    if feats % vec:
+        raise ValueError(f"the kernel takes a channel count that is a "
+                         f"multiple of {vec}; got {feats}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and 16-byte aligned")
+    m, v, g, b = (_vec(a, feats, x) for a in (mean, var, gamma, beta))
+    y = torch.empty_like(x)
+    rows = x.numel() // feats
+    with torch.cuda.device(x.device):
+        _build.launch("dl4j_batchnorm_norm_act", x.data_ptr(), m.data_ptr(),
+                      v.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+                      rows, feats, float(eps), act, DTYPE_CODES[x.dtype],
+                      torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.launches["batchnorm_norm_act"].add()
+    return y
+
+
+def _act_code(activation) -> int:
+    act = str(activation or "identity").lower()
+    if act not in _ACT_CODES:
+        raise ValueError(f"activation {activation!r} is not in the kernel's "
+                         f"set {sorted(_ACT_CODES)}")
+    return _ACT_CODES[act]
 
 
 def _layernorm_ops(x, gamma, beta, eps, activation):
@@ -76,10 +193,7 @@ def _layernorm_forward(x, gamma, beta, eps, activation):
         return layernorm_plain(x, gamma, beta, eps, activation)
     _diff.refuse_grad("layernorm_norm_act", x, gamma, beta)
     feats = x.shape[-1]
-    act = str(activation or "identity").lower()
-    if act not in _ACT_CODES:
-        raise ValueError(f"activation {activation!r} is not in the kernel's "
-                         f"set {sorted(_ACT_CODES)}")
+    act = _act_code(activation)
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"layernorm_norm_act takes float32 or bfloat16, "
                         f"not {x.dtype}")
@@ -101,7 +215,7 @@ def _layernorm_forward(x, gamma, beta, eps, activation):
     with torch.cuda.device(x.device):
         _build.launch("dl4j_layernorm_norm_act", x.data_ptr(),
                       gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), rows,
-                      feats, float(eps), _ACT_CODES[act], DTYPE_CODES[x.dtype],
+                      feats, float(eps), act, DTYPE_CODES[x.dtype],
                       torch.cuda.current_stream(x.device).cuda_stream)
     kernels.launches["layernorm_norm_act"].add()
     return y

@@ -4,8 +4,8 @@ Answers what stored params are (`param_dtype`), what layer math runs in
 (`compute_dtype`) and what `output()` returns (`output_dtype`). The legacy
 `GlobalConf.dtype` string maps onto a preset as the reference maps it:
 "bfloat16" means bf16 compute over f32 params, i.e. `mixed_bfloat16`. The
-port has the two presets its serving slice runs; inference needs no loss
-scaling.
+port has the presets its slices run, and float64 for CPU references (the
+kernels take f32 and bf16); no preset needs loss scaling.
 """
 
 from __future__ import annotations
@@ -18,8 +18,10 @@ import torch
 _PRESETS = {
     "float32": (torch.float32, torch.float32, torch.float32),
     "mixed_bfloat16": (torch.float32, torch.bfloat16, torch.float32),
+    "float64": (torch.float64, torch.float64, torch.float64),
 }
-_ALIASES = {"f32": "float32", "fp32": "float32"}
+_ALIASES = {"f32": "float32", "fp32": "float32", "f64": "float64",
+            "double": "float64"}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,8 @@
 """Layer configurations (counterpart of `deeplearning4j_tpu/nn/conf/layers.py`):
-the seven confs `transformer_lm` uses, with the reference's field names
-(the training fields of `layers.py:82-100` included), defaults and
-`param_shapes()` order, so `from_dict` reads the reference's `to_json()` as
-it is."""
+the confs `transformer_lm` and `resnet50` use, with the reference's field
+names (the training fields of `layers.py:82-100` included), defaults,
+`param_shapes()` and `state_shapes()` order, so `from_dict` reads the
+reference's `to_json()` as it is."""
 
 from __future__ import annotations
 
@@ -26,6 +26,12 @@ def layer_from_dict(d: dict):
         raise ValueError(f"layer type {kind} is not in the port; it has "
                          f"{sorted(_LAYER_REGISTRY)}")
     return cls.from_dict(d)
+
+
+def _tuple2(v) -> Tuple[int, int]:
+    if isinstance(v, int):
+        return (v, v)
+    return tuple(int(a) for a in v)
 
 
 def is_bias_param(name: str) -> bool:
@@ -106,6 +112,15 @@ class RnnOutputLayer(FeedForwardLayer):
 
 @register_layer
 @dataclass
+class OutputLayer(FeedForwardLayer):
+    """Dense + loss output layer: its forward is the linear pre-activation;
+    the engine applies `activation` after the cast to the output dtype."""
+
+    loss_function: Any = "mcxent"
+
+
+@register_layer
+@dataclass
 class EmbeddingLayer(FeedForwardLayer):
     """Index -> vector lookup. The port reads `input_format="ids"` (what
     the transformer zoo pins)."""
@@ -166,3 +181,134 @@ class SelfAttentionLayer(FeedForwardLayer):
             "Wv": (self.n_in, self.n_out), "vB": (self.n_out,),
             "Wo": (self.n_out, self.n_out), "oB": (self.n_out,),
         }
+
+
+@register_layer
+@dataclass
+class ActivationLayer(Layer):
+    """Activation-only layer; n_in = n_out = the input's flat size."""
+
+    n_in: int = 0
+    n_out: int = 0
+
+
+@register_layer
+@dataclass
+class ConvolutionLayer(FeedForwardLayer):
+    """2-D convolution: n_in input channels, n_out filters; the kernel is
+    HWIO `[kh, kw, in, out]`, activations NHWC."""
+
+    kernel_size: Tuple[int, int] = (5, 5)
+    stride: Tuple[int, int] = (1, 1)
+    padding: Tuple[int, int] = (0, 0)
+    convolution_mode: Optional[Any] = None  # None: TRUNCATE
+    dilation: Tuple[int, int] = (1, 1)
+    has_bias: bool = True
+
+    def __post_init__(self):
+        self.kernel_size = _tuple2(self.kernel_size)
+        self.stride = _tuple2(self.stride)
+        self.padding = _tuple2(self.padding)
+        self.dilation = _tuple2(self.dilation)
+
+    def param_shapes(self):
+        kh, kw = self.kernel_size
+        shapes = {"W": (kh, kw, self.n_in, self.n_out)}
+        if self.has_bias:
+            shapes["b"] = (self.n_out,)
+        return shapes
+
+
+@register_layer
+@dataclass
+class SubsamplingLayer(Layer):
+    """Spatial pooling, no params."""
+
+    pooling_type: Any = "max"
+    kernel_size: Tuple[int, int] = (2, 2)
+    stride: Tuple[int, int] = (2, 2)
+    padding: Tuple[int, int] = (0, 0)
+    convolution_mode: Optional[Any] = None
+    pnorm: int = 2
+
+    def __post_init__(self):
+        self.kernel_size = _tuple2(self.kernel_size)
+        self.stride = _tuple2(self.stride)
+        self.padding = _tuple2(self.padding)
+
+
+@register_layer
+@dataclass
+class BatchNormalization(FeedForwardLayer):
+    """Batch normalization (decay 0.9, eps 1e-5, minibatch statistics in
+    training, optional locked gamma/beta constants); running mean and var
+    are declared state."""
+
+    decay: float = 0.9
+    eps: float = 1e-5
+    is_minibatch: bool = True
+    lock_gamma_beta: bool = False
+    gamma: float = 1.0
+    beta: float = 0.0
+
+    def param_shapes(self):
+        if self.lock_gamma_beta:
+            return {}
+        return {"gamma": (self.n_out,), "beta": (self.n_out,)}
+
+    def state_shapes(self):
+        return {"mean": (self.n_out,), "var": (self.n_out,)}
+
+
+@register_layer
+@dataclass
+class BottleneckBlock(FeedForwardLayer):
+    """The ResNet bottleneck as one layer: conv1x1 (stride) -> BN+act ->
+    conv3x3 SAME -> BN+act -> conv1x1 -> BN, plus the input or a projected
+    (conv1x1 stride + BN) shortcut, then act. `filters` is the squeeze
+    width; the output has `4 * filters` channels."""
+
+    filters: int = 64
+    stride: Tuple[int, int] = (1, 1)
+    project: bool = False
+    decay: float = 0.9
+    eps: float = 1e-5
+    is_minibatch: bool = True
+
+    def __post_init__(self):
+        self.stride = _tuple2(self.stride)
+
+    def branch_names(self) -> Tuple[str, ...]:
+        return ("a", "b", "c") + (("proj",) if self.project else ())
+
+    def param_shapes(self):
+        f1, f3 = self.filters, 4 * self.filters
+        shapes = {
+            "W_a": (1, 1, self.n_in, f1), "gamma_a": (f1,), "beta_a": (f1,),
+            "W_b": (3, 3, f1, f1), "gamma_b": (f1,), "beta_b": (f1,),
+            "W_c": (1, 1, f1, f3), "gamma_c": (f3,), "beta_c": (f3,),
+        }
+        if self.project:
+            shapes.update({"W_proj": (1, 1, self.n_in, f3),
+                           "gamma_proj": (f3,), "beta_proj": (f3,)})
+        return shapes
+
+    def state_shapes(self):
+        f1, f3 = self.filters, 4 * self.filters
+        shapes = {"mean_a": (f1,), "var_a": (f1,),
+                  "mean_b": (f1,), "var_b": (f1,),
+                  "mean_c": (f3,), "var_c": (f3,)}
+        if self.project:
+            shapes.update({"mean_proj": (f3,), "var_proj": (f3,)})
+        return shapes
+
+
+@register_layer
+@dataclass
+class GlobalPoolingLayer(Layer):
+    """Global pooling over time or space (the port reads the 4-D form)."""
+
+    pooling_type: Any = "max"
+    pooling_dimensions: Optional[Tuple[int, ...]] = None
+    collapse_dimensions: bool = True
+    pnorm: int = 2

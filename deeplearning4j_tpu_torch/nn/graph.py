@@ -14,11 +14,15 @@ tensors that require grad).
   by every training step and rebuilt at the next inference: an eager cast per forward would move
   the whole model (~86 MB at the served width in bf16) every decode step,
   where the reference casts inside its jitted program.
+- Declared layer state (the BatchNorm running statistics, `self.state`)
+  is kept at the param dtype and never cast to the compute dtype: `fit` runs the layers in training mode (batch
+  statistics) and keeps the new running statistics they return;
+  `output` and `score` read the running statistics.
 
 What `fit` does not run yet raises NotImplementedError naming its ROADMAP
 item: dropout, solvers, truncated BPTT, superstep, frozen layers, feature
 masks (f16 loss scaling never gets this far: the port's dtype policies are
-float32 and mixed_bfloat16).
+float32, mixed_bfloat16 and float64).
 """
 
 from __future__ import annotations
@@ -72,6 +76,10 @@ class ComputationGraph:
         self.layer_vertices = {name: v for name, v in conf.vertices.items()
                                if isinstance(v, LayerVertex)}
         self.dtype_policy = resolve_policy(conf.global_conf)
+        # The loss runs in f32, in f64 under a float64 policy (reference).
+        self._loss_dtype = (torch.float64
+                            if self.dtype_policy.param_dtype == torch.float64
+                            else torch.float32)
         self.params_tree: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self._compute_params = None
         self.state: Dict[str, Dict] = {}
@@ -88,11 +96,14 @@ class ComputationGraph:
         device; the training step itself never does."""
         return float("nan") if self._score is None else float(self._score)
 
-    def init(self, params=None, updater_state=None) -> "ComputationGraph":
+    def init(self, params=None, updater_state=None,
+             state=None) -> "ComputationGraph":
         """Fresh params from `conf.global_conf.seed` (an explicit
         `torch.Generator`, drawn on the CPU in sorted vertex order, then
         moved), or the given `{vertex: {name: tensor}}` tree (see
-        `interop.params_from_numpy`); fresh updater state, or the given one
+        `interop.params_from_numpy`); the declared layer state (BatchNorm
+        running statistics) fresh at the param dtype, or the given tree
+        (`interop.state_from_numpy`); fresh updater state, or the given one
         (`interop.updater_state_from_numpy`)."""
         g = self.conf.global_conf
         pol = self.dtype_policy
@@ -106,9 +117,18 @@ class ComputationGraph:
                                                 pol.param_dtype)
         self._compute_params = None
         self._compute_copy()
-        # Declared (persistent) layer state: none of the port's layers has
-        # any; the carried decode state is undeclared (nn/rnn_state.py).
-        self.state = {}
+        # Declared (persistent) layer state, at the param dtype (reference
+        # graph.py:181-185); the carried decode state is undeclared
+        # (nn/rnn_state.py).
+        declared = {n: layer for n, layer in layers.items()
+                    if layer.state_shapes()}
+        if state is None:
+            state = {n: params_mod.init_layer_state(layer)
+                     for n, layer in declared.items()}
+        params_mod.check_state(declared, state)
+        self.state = {n: {k: a.detach().to(self.device, pol.param_dtype,
+                                           copy=True)
+                          for k, a in state[n].items()} for n in declared}
         self._updaters, self._schedules = {}, {}
         for name, layer in layers.items():
             def pick(field):
@@ -147,7 +167,8 @@ class ComputationGraph:
                 raise ValueError(f"updater state of vertex {name!r}: want "
                                  f"{want}, got {have}")
             self.opt_state[name] = {
-                f: {k: t.detach().to(self.device, torch.float32, copy=True)
+                f: {k: t.detach().to(self.device,
+                                     self.dtype_policy.param_dtype, copy=True)
                     for k, t in s.items()} for f, s in got.items()}
         self.iteration = int(updater_state["iteration"])
 
@@ -162,9 +183,11 @@ class ComputationGraph:
                     self.params_tree, self.dtype_policy.compute_dtype)
         return self._compute_params
 
-    def _forward(self, params, state, inputs, keep_rnn_state: bool):
+    def _forward(self, params, state, inputs, keep_rnn_state: bool,
+                 train: bool = False):
         """Walk the DAG; returns (the output vertices' raw values at the
-        compute dtype, new layer state)."""
+        compute dtype, new layer state). `train` selects batch statistics
+        (and their running-stat update) over the running ones."""
         cdt = self.dtype_policy.compute_dtype
         values: Dict[str, torch.Tensor] = {}
         for i, name in enumerate(self.conf.network_inputs):
@@ -179,7 +202,8 @@ class ComputationGraph:
             if isinstance(vertex, LayerVertex):
                 layer = vertex.layer
                 out, lstate = get_impl(layer)(layer, params.get(name, {}),
-                                              state.get(name, {}), ins[0])
+                                              state.get(name, {}), ins[0],
+                                              train=train)
                 if lstate:
                     declared = set(layer.state_shapes())
                     keep = {k: v for k, v in lstate.items()
@@ -233,7 +257,7 @@ class ComputationGraph:
             for wk in layer.weight_param_keys():
                 if wk not in params[name]:
                     continue
-                w = params[name][wk].float()
+                w = params[name][wk].to(self._loss_dtype)
                 if l2:
                     total = total + 0.5 * l2 * (w * w).sum()
                 if l1:
@@ -242,8 +266,9 @@ class ComputationGraph:
 
     def _loss_from_outputs(self, params, outs, labels, lmasks):
         """Score of the raw outputs (reference `_loss_from_outputs`): each
-        output layer's loss in f32, summed over entries and divided by the
-        minibatch, plus the l1/l2 penalty over the first divisor."""
+        output layer's loss in the loss dtype, summed over entries and
+        divided by the minibatch, plus the l1/l2 penalty over the first
+        divisor."""
         total = 0.0
         for i, name in enumerate(self.conf.network_outputs):
             v = self.layer_vertices.get(name)
@@ -256,7 +281,7 @@ class ComputationGraph:
             if i == 0:
                 eb0 = eb
             total = total + losses_mod.score(
-                layer.loss_function, labels[i], outs[i].float(),
+                layer.loss_function, labels[i], outs[i].to(self._loss_dtype),
                 layer.activation, lmask, average=False) / eb
         return total + self._l1_l2_penalty(params) / eb0
 
@@ -340,12 +365,13 @@ class ComputationGraph:
 
     def _train_forward(self, mds):
         """The loss, recorded by autograd from the f32 leaves through their
-        compute-dtype cast."""
+        compute-dtype cast, and the new layer state (BatchNorm running
+        statistics, moved on detached batch statistics)."""
         with torch.inference_mode(False), torch.enable_grad():
             params = params_mod.cast_floating(self.params_tree,
                                               self.dtype_policy.compute_dtype)
             outs, new_state = self._forward(params, self.state, mds.features,
-                                            keep_rnn_state=False)
+                                            keep_rnn_state=False, train=True)
             loss = self._loss_from_outputs(
                 self.params_tree, outs, self._device_arrays(mds.labels),
                 self._device_arrays(mds.labels_masks))

@@ -1,9 +1,11 @@
-"""Feed-forward layers of the serving slice (counterpart of
+"""Feed-forward layers (counterpart of
 `deeplearning4j_tpu/nn/layers/feedforward.py`): dense, the output
-pre-activation, ids embedding, positional embedding. Dense ops act on the
-last axis, so [B, F] and [B, T, F] share the code.
+pre-activation (OutputLayer, RnnOutputLayer), the activation-only layer,
+ids embedding, positional embedding. Dense ops act on the last axis, so
+[B, F] and [B, T, F] share the code.
 
-Layer signature: `apply(conf, params, state, x) -> (out, new_state)`."""
+Layer signature: `apply(conf, params, state, x, train=False) ->
+(out, new_state)`."""
 
 from __future__ import annotations
 
@@ -12,21 +14,31 @@ import torch
 from deeplearning4j_tpu_torch.nn import activations
 
 
-def dense_apply(conf, params, state, x):
+def dense_apply(conf, params, state, x, train=False):
     out, state = preoutput(conf, params, state, x)
     return activations.resolve(conf.activation)(out), state
 
 
-def preoutput(conf, params, state, x):
+def activation_apply(conf, params, state, x, train=False):
+    return activations.resolve(conf.activation)(x), state
+
+
+def preoutput(conf, params, state, x, train=False):
     """Linear pre-activation of an output layer (the engine applies its
-    activation after the cast to the output dtype)."""
-    out = x @ params["W"]
+    activation after the cast to the output dtype). Mixed dtypes promote
+    as JAX's matmul does (a bf16-policy ResNet reaches its output layer in
+    f32 on the plain path: BatchNorm with f32 running statistics)."""
+    w = params["W"]
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    out = x @ w
     if "b" in params:
         out = out + params["b"]
     return out, state
 
 
-def embedding_apply(conf, params, state, x):
+def embedding_apply(conf, params, state, x, train=False):
     """Embedding gather over integer ids [B], [B, 1] or [B, T, 1]. Float ids
     truncate toward zero, as the reference's int32 cast does."""
     if conf.input_format != "ids":
@@ -42,7 +54,7 @@ def embedding_apply(conf, params, state, x):
     return activations.resolve(conf.activation)(out), state
 
 
-def positional_embedding_apply(conf, params, state, x):
+def positional_embedding_apply(conf, params, state, x, train=False):
     """x: [B, T, F] -> x + P[pos:pos+T].
 
     Stateless: always P[:T]. With `conf.stateful` the cursor rides

@@ -1,9 +1,11 @@
 """Parameter initialization and checks (counterpart of
 `deeplearning4j_tpu/nn/params.py`): params are `{vertex: {name: tensor}}`
 with the reference's names and shapes (`W`, `b`, `P`, `gamma`, `beta`,
-`Wq`, `qB`, `Wk`, `Wv`, `vB`, `Wo`, `oB`); the graph holds them as f32
-leaf tensors that require grad (`as_leaves`). Which of them l1/l2 reach is
-the layer conf's `weight_param_keys()`."""
+`Wq`, `qB`, `Wk`, `Wv`, `vB`, `Wo`, `oB`, the bottleneck's `W_a`,
+`gamma_a`, ...); the graph holds them as f32 leaf tensors that require
+grad (`as_leaves`). Which of them l1/l2 reach is the layer conf's
+`weight_param_keys()`. Declared layer state (the BatchNorm running stats)
+starts from `init_layer_state`."""
 
 from __future__ import annotations
 
@@ -12,13 +14,23 @@ from typing import Dict, Mapping
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.layers import (
+    BatchNormalization,
+    BottleneckBlock,
+    ConvolutionLayer,
     LayerNormalization,
     is_bias_param,
 )
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 
 
-def _fans(shape):
+def _fans(conf, name, shape):
+    """The reference's fans (`params.py:35-44`): an HWIO conv kernel has
+    fan_in = cin*kh*kw and fan_out = cout*kh*kw (the bottleneck's branch
+    kernels too); dense weights fan_in = shape[0], fan_out = shape[1]."""
+    if (isinstance(conf, ConvolutionLayer) and name == "W") or (
+            isinstance(conf, BottleneckBlock) and len(shape) == 4):
+        kh, kw, cin, cout = shape
+        return cin * kh * kw, cout * kh * kw
     if len(shape) >= 2:
         return shape[0], shape[1]
     return shape[0], shape[0]
@@ -26,22 +38,39 @@ def _fans(shape):
 
 def init_layer_params(conf, generator: torch.Generator,
                       dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """One layer's params from its conf: LayerNorm gamma=1/beta=0, biases
-    at `bias_init`, weights by the conf's scheme (fans as the reference's
-    dense convention: fan_in = shape[0], fan_out = shape[1])."""
+    """One layer's params from its conf (reference `init_layer_params`):
+    BatchNorm gamma/beta at the conf's constants, LayerNorm gamma=1/beta=0,
+    the bottleneck's gamma_* at ones, biases (beta_* included) at
+    `bias_init`, weights by the conf's scheme and `_fans`."""
     params: Dict[str, torch.Tensor] = {}
     bias_init = float(conf.bias_init or 0.0)
     for name, shape in conf.param_shapes().items():
-        if isinstance(conf, LayerNormalization):
+        if isinstance(conf, BatchNormalization):
+            params[name] = torch.full(
+                shape, conf.gamma if name == "gamma" else conf.beta,
+                dtype=dtype)
+        elif isinstance(conf, LayerNormalization):
             params[name] = (torch.ones(shape, dtype=dtype) if name == "gamma"
                             else torch.zeros(shape, dtype=dtype))
+        elif isinstance(conf, BottleneckBlock) and name.startswith("gamma_"):
+            params[name] = torch.ones(shape, dtype=dtype)
         elif is_bias_param(name):
             params[name] = torch.full(shape, bias_init, dtype=dtype)
         else:
-            params[name] = init_weights(generator, shape, *_fans(shape),
+            params[name] = init_weights(generator, shape,
+                                        *_fans(conf, name, shape),
                                         scheme=conf.weight_init or "xavier",
                                         dtype=dtype)
     return params
+
+
+def init_layer_state(conf, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Declared state at `dtype` (reference `params.py:181-190`): every
+    variance at ones, everything else (the means) at zeros."""
+    return {name: (torch.ones(shape, dtype=dtype)
+                   if name == "var" or name.startswith("var_")
+                   else torch.zeros(shape, dtype=dtype))
+            for name, shape in conf.state_shapes().items()}
 
 
 def as_leaves(tree, device, dtype):
@@ -74,3 +103,17 @@ def check_params(layers: Mapping[str, object], params: Mapping) -> None:
     extra = sorted(set(params) - set(layers))
     if extra:
         raise ValueError(f"params for unknown vertices {extra}")
+
+
+def check_state(layers: Mapping[str, object], state: Mapping) -> None:
+    """Raise unless `state` holds exactly each stateful layer's declared
+    names and shapes (`layers`: only the layers that declare state)."""
+    for vname, conf in layers.items():
+        want = {k: tuple(s) for k, s in conf.state_shapes().items()}
+        got = {k: tuple(a.shape) for k, a in state.get(vname, {}).items()}
+        if want != got:
+            raise ValueError(f"state of vertex {vname!r}: want {want}, "
+                             f"got {got}")
+    extra = sorted(set(state) - set(layers))
+    if extra:
+        raise ValueError(f"state for vertices that declare none: {extra}")

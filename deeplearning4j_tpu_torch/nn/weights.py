@@ -1,5 +1,5 @@
 """Weight initialization (counterpart of `deeplearning4j_tpu/nn/weights.py`)
-for the schemes the serving slice uses, drawn from an explicit
+for the schemes the ported models use, drawn from an explicit
 `torch.Generator`. The draws differ from JAX's threefry stream for the same
 seed; what matches is the distribution, and parity runs copy params."""
 
@@ -22,5 +22,9 @@ def init_weights(generator: torch.Generator, shape: tuple, fan_in: float,
         # Reference: normal * sqrt(2 / (fan_in + fan_out)).
         return (torch.randn(shape, generator=generator, dtype=dtype)
                 * math.sqrt(2.0 / (fan_in + fan_out)))
+    if scheme == "relu":
+        # Reference: normal * sqrt(2 / fan_in) (He init).
+        return (torch.randn(shape, generator=generator, dtype=dtype)
+                * math.sqrt(2.0 / fan_in))
     raise ValueError(f"weight init {scheme!r} is not in the port yet "
-                     "(it has zero, ones, xavier)")
+                     "(it has zero, ones, xavier, relu)")

@@ -9,7 +9,10 @@ package need not be installed there):
 Tolerances, as rtol = atol (|got - want| <= tol + tol * |want|): f32 1e-4
 (f32 sums in another order, TF32 off for the plain version's matmuls);
 bf16 4e-2 (the plain version rounds its intermediates to bf16 where the
-kernels keep f32), as the JAX package's own parity matrix.
+kernels keep f32), as the JAX package's own parity matrix. The ResNet
+kernels (BatchNorm apply, the bottleneck block) are held to 6e-2 in bf16,
+the JAX package's bottleneck tolerance (tests/test_bottleneck_block.py):
+the plain block rounds each conv output and its statistics to bf16.
 """
 
 import numpy as np
@@ -17,12 +20,14 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch import kernels
+from deeplearning4j_tpu_torch.kernels import bottleneck_block as bb
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
 from deeplearning4j_tpu_torch.kernels import norm_act
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
+RESNET_TOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -40,9 +45,9 @@ def _t(a, dtype, dev):
     return torch.tensor(np.asarray(a, np.float32), dtype=dtype, device=dev)
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, tols=TOL):
     torch.cuda.synchronize()
-    tol = TOL[dtype]
+    tol = tols[dtype]
     diff = (got.float() - want.float()).abs()
     excess = diff - (tol + tol * want.float().abs())
     assert float(excess.max()) <= 0, (
@@ -263,3 +268,169 @@ def test_fused_update_kernel_matches_plain(cuda, kind, step):
                                        rtol=1e-5, atol=1e-6)
     for k in shapes:
         torch.testing.assert_close(got_d[k], want_d[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,chans", [(2 * 112 * 112, 64), (7, 2048),
+                                        (3, 8), (64, 256)])
+@pytest.mark.parametrize("act", ["identity", "relu", "tanh", "sigmoid"])
+def test_batchnorm_kernel_matches_plain(cuda, dtype, rows, chans, act):
+    rng = np.random.RandomState(10)
+    x = _t(rng.randn(rows, chans) * 2 + 0.5, dtype, cuda)
+    m, g, b = (_t(rng.randn(chans), dtype, cuda) for _ in range(3))
+    v = _t(rng.rand(chans) + 0.2, dtype, cuda)
+    before = kernels.launches["batchnorm_norm_act"].value
+    got = norm_act.batchnorm_norm_act(x, m, v, g, b, 1e-5, act)
+    assert kernels.launches["batchnorm_norm_act"].value == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, norm_act.batchnorm_plain(x, m, v, g, b, 1e-5, act), dtype,
+           RESNET_TOL)
+
+
+def test_batchnorm_kernel_casts_running_stats_and_constants(cuda):
+    # Inference under mixed bf16: f32 running stats, bf16 x; the kernel
+    # casts the stats to bf16 (the Pallas path's `_vec`) where the plain
+    # version promotes to f32. lock_gamma_beta passes floats.
+    rng = np.random.RandomState(11)
+    x = _t(rng.randn(4, 6, 6, 64), torch.bfloat16, cuda)
+    m = _t(rng.randn(64) * 0.1, torch.float32, cuda)
+    v = _t(rng.rand(64) + 0.5, torch.float32, cuda)
+    got = norm_act.batchnorm_norm_act(x, m, v, 1.0, 0.0, 1e-5, "relu")
+    assert got.dtype == torch.bfloat16
+    want = norm_act.batchnorm_plain(x, m, v, 1.0, 0.0, 1e-5, "relu")
+    assert want.dtype == torch.float32
+    _close(got, want, torch.bfloat16, RESNET_TOL)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_batchnorm_fn_gradients_match_plain(cuda, dtype):
+    # The gradient reaches x through the batch statistics too.
+    rng = np.random.RandomState(12)
+    x, g, b = (_t(a, dtype, cuda).requires_grad_(True) for a in
+               (rng.randn(2, 8, 8, 64), rng.rand(64) + 0.5, rng.randn(64)))
+    w = _t(rng.randn(2, 8, 8, 64), dtype, cuda)
+
+    def run(fn):
+        mean = x.mean(dim=(0, 1, 2))
+        var = (x * x).mean(dim=(0, 1, 2)) - mean * mean
+        return torch.autograd.grad(fn(x, mean, var, g, b, 1e-5, "relu"),
+                                   (x, g, b), w)
+
+    kernels.reset_counts()
+    got = run(norm_act.batchnorm_norm_act)
+    assert kernels.counts()["launches"]["batchnorm_norm_act"] == 1
+    want = run(norm_act.batchnorm_plain)
+    for a, c in zip(got, want):
+        _close(a, c, dtype, RESNET_TOL)
+
+
+def _block(rng, b, h, cin, f1, project, dtype, dev, int8=False):
+    f3 = 4 * f1
+    x = _t(rng.randn(b, h, h, cin), dtype, dev)
+    params, state = {}, {}
+    dims = {"a": (1, 1, cin, f1), "b": (3, 3, f1, f1), "c": (1, 1, f1, f3)}
+    if project:
+        dims["proj"] = (1, 1, cin, f3)
+    for n, shape in dims.items():
+        w = rng.randn(*shape) * (2.0 / (shape[0] * shape[1] * shape[2])) ** .5
+        f = shape[-1]
+        if int8:
+            scale = np.abs(w).reshape(-1, f).max(0) / 127.0
+            params[f"W_{n}"] = torch.tensor(np.round(w / scale),
+                                            dtype=torch.int8, device=dev)
+            params[f"W_{n}__scale"] = _t(scale, torch.float32, dev)
+        else:
+            params[f"W_{n}"] = _t(w, dtype, dev)
+        params[f"gamma_{n}"] = _t(rng.rand(f) + 0.5, dtype, dev)
+        params[f"beta_{n}"] = _t(rng.randn(f) * 0.1, dtype, dev)
+        state[f"mean_{n}"] = _t(rng.randn(f) * 0.1, torch.float32, dev)
+        state[f"var_{n}"] = _t(rng.rand(f) + 0.5, torch.float32, dev)
+    return x, params, state
+
+
+BLOCK_SHAPES = [  # (B, H, Cin, F1, stride, project)
+    (2, 8, 16, 4, 1, True),
+    (2, 9, 16, 8, 2, True),      # odd H: SAME with stride 2
+    (2, 8, 32, 8, 1, False),
+    (4, 16, 64, 16, 2, True),
+    (8, 16, 256, 64, 1, False),  # T2's stage-0 identity block, B=8
+]
+
+
+def _plain_block(x, params, state, stride, project, train):
+    names = ("a", "b", "c") + (("proj",) if project else ())
+    flat = [t for n in names for t in (params[f"W_{n}"], params[f"gamma_{n}"],
+                                       params[f"beta_{n}"])]
+    if train:
+        y, stats = bb.bottleneck_train_plain(x, *flat, stride=stride,
+                                             eps=1e-5, act="relu")
+        return y, dict(zip(bb.stat_keys(project), stats))
+    return bb.bottleneck_infer_plain(x, *flat, stats=state, stride=stride,
+                                     eps=1e-5, act="relu"), None
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+@pytest.mark.parametrize("train", [True, False])
+def test_bottleneck_kernel_matches_plain(cuda, dtype, shape, train):
+    b, h, cin, f1, s, project = shape
+    x, params, state = _block(np.random.RandomState(13), b, h, cin, f1,
+                              project, dtype, cuda)
+    name = "bottleneck_train" if train else "bottleneck_infer"
+    before = kernels.launches[name].value
+    y, stats = bb.bottleneck_forward(x, params, state, stride=(s, s),
+                                     project=project, eps=1e-5,
+                                     activation="relu", train=train)
+    assert kernels.launches[name].value == before + 1
+    assert y.dtype == dtype and y.shape == (b, -(-h // s), -(-h // s), 4 * f1)
+    want_y, want_stats = _plain_block(x, params, state, (s, s), project,
+                                      train)
+    _close(y, want_y, dtype, RESNET_TOL)
+    if train:
+        assert set(stats) == set(bb.stat_keys(project))
+        for k in stats:
+            assert stats[k].dtype == torch.float32
+            _close(stats[k], want_stats[k], dtype, RESNET_TOL)
+
+
+def test_bottleneck_kernel_int8_matches_plain(cuda):
+    x, params, state = _block(np.random.RandomState(14), 2, 8, 64, 16, True,
+                              torch.bfloat16, cuda, int8=True)
+    before = kernels.launches["bottleneck_infer"].value
+    y, _ = bb.bottleneck_forward(x, params, state, stride=(2, 2),
+                                 project=True, eps=1e-5, activation="relu",
+                                 train=False)
+    assert kernels.launches["bottleneck_infer"].value == before + 1
+    deq = {k: (bb._dequant(a, params[k + "__scale"], x.dtype)
+               if a.dtype == torch.int8 else a) for k, a in params.items()}
+    want, _ = _plain_block(x, deq, state, (2, 2), True, False)
+    _close(y, want, torch.bfloat16, RESNET_TOL)
+    with pytest.raises(ValueError, match="int8"):
+        bb.bottleneck_forward(x, params, state, stride=(2, 2), project=True,
+                              eps=1e-5, activation="relu", train=True)
+
+
+def test_bottleneck_fn_gradients_match_plain(cuda):
+    # f32: the kernel forward with the plain composite's VJP, through the
+    # batch statistics, against autograd through the plain composite.
+    x, params, state = _block(np.random.RandomState(15), 2, 8, 16, 4, True,
+                              torch.float32, cuda)
+    leaves = [x] + [params[k] for k in sorted(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+    w = _t(np.random.RandomState(16).randn(2, 4, 4, 16), torch.float32, cuda)
+
+    def grads(fn):
+        y, _ = fn(x, params, state, (2, 2), True, True)
+        return torch.autograd.grad((y * w).sum(), leaves)
+
+    kernels.reset_counts()
+    got = grads(lambda *a: bb.bottleneck_forward(
+        a[0], a[1], a[2], stride=a[3], project=a[4], eps=1e-5,
+        activation="relu", train=a[5]))
+    c = kernels.counts()
+    assert c["launches"]["bottleneck_train"] == 1
+    assert not any(c["plain_calls"].values())
+    want = grads(_plain_block)
+    for a, b in zip(got, want):
+        _close(a, b, torch.float32, RESNET_TOL)

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import deeplearning4j_tpu_torch
-from deeplearning4j_tpu_torch.models import zoo
+from deeplearning4j_tpu_torch.models import resnet, zoo
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.serving import InferenceServer
 
@@ -56,7 +56,13 @@ def test_every_port_module_imports_without_jax():
             "deeplearning4j_tpu_torch.ops.schedules",
             "deeplearning4j_tpu_torch.ops.grad_norm",
             "deeplearning4j_tpu_torch.nn.losses",
-            "deeplearning4j_tpu_torch.datasets.dataset"} <= set(mods)
+            "deeplearning4j_tpu_torch.datasets.dataset",
+            "deeplearning4j_tpu_torch.kernels.bottleneck_block",
+            "deeplearning4j_tpu_torch.models.resnet",
+            "deeplearning4j_tpu_torch.nn.conf.enums",
+            "deeplearning4j_tpu_torch.nn.layers.bottleneck",
+            "deeplearning4j_tpu_torch.nn.layers.convolution",
+            "deeplearning4j_tpu_torch.nn.layers.pooling"} <= set(mods)
     code = (
         "import sys\n"
         "for blocked in ('jax', 'jaxlib', 'deeplearning4j_tpu'):\n"
@@ -96,6 +102,8 @@ def test_entry_points_default_to_the_card():
                               decode_cache_length=16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ComputationGraph(conf)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ComputationGraph(resnet.resnet50(n_classes=5, image=32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceServer()
     with pytest.raises(ValueError, match="not supported"):
