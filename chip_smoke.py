@@ -76,14 +76,41 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               |v|: the card's median and largest error no more than twice
               the CPU f32 step's, the largest allowed 4e-2 in any case; a
               cut gradient is off by about 1).
-11. trace   - where one decode step's, one 1024-token prefill's, one LM
-              training step's and one T1 and one T2 step's (forward,
-              backward, update) time goes: host wall time, kernel time on
-              the card (torch.profiler), the card's idle share and the top
-              kernels.
+11. rnn_kernels - the LSTM cell (row 10) at the char-RNN's shapes: B=32,
+              n=256 with peepholes (training), B=1 (sampling), n=200 (the
+              zoo's default width), and the masked and no-peephole variants,
+              in f32 (against its plain version at 1e-4, TF32 off) and bf16
+              (against the plain version run in f32 on the same inputs, at
+              4e-2), timed as the kernels phase times its kernels; the
+              library yardstick (`torch.mm` + aten `_thnn_fused_lstm_cell`)
+              computes the step without peepholes or mask.
+12. rnn_train - the char-RNN (`bench.py:798-840`: `char_rnn` V=77, 2
+              GravesLSTM layers of 256, f32, RMSProp lr 0.1, seeded random
+              weights) trained with `MultiLayerNetwork.fit` under truncated
+              BPTT: B=32 sequences of 100 characters whose next character is
+              a fixed permutation of the current one, chunks of 50; 3
+              warm-up and 10 timed calls over 2 batches. Scores finite and
+              falling; per call exactly 200 LSTM-cell and 6 update launches,
+              0 plain calls, 0 launches of other kernels.
+13. rnn_sample - greedy sampling with `rnn_time_step` after
+              `rnn_clear_previous_state`: 200 characters from one seed
+              character, then 200 steps of 32 streams; 2 cell launches per
+              call; the stateful outputs equal `output` over the sampled
+              sequence within 1e-4.
+14. rnn_parity - f32, B=4, T=100, the same seeded params on the card and on
+              the CPU (plain versions): `output` within 1e-3, one `fit`
+              call's score within 1e-3 relative, and per layer RMSProp's g2
+              within 4e-2 of the CPU's largest g2 (a cut gradient shows).
+15. trace   - where one decode step's, one 1024-token prefill's, one LM
+              training step's, one T1 and one T2 step's and one char-RNN
+              fit call's (forward, backward, update; the call's two chunks
+              summed) and one `rnn_time_step`'s time goes: host wall time,
+              kernel time on the card (torch.profiler), the card's idle
+              share and the top kernels.
 
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
-launches on each main path: serve, LM train, T1, T2, I1, I2) and, last,
+launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
+rnn_sample) and, last,
 the result line. With no GPU, without the package beside it, or when any phase
 fails, it exits non-zero and prints no result.
 """
@@ -122,6 +149,8 @@ KERNEL_INFO = {
                            "deeplearning4j_tpu/kernels/norm_act.py:96"),
     "bottleneck_train": (ROOT + "bottleneck_block.cu", BB + "229"),
     "bottleneck_infer": (ROOT + "bottleneck_block.cu", BB + "261"),
+    "lstm_cell": (ROOT + "lstm_cell.cu",
+                  "deeplearning4j_tpu/kernels/lstm_cell.py:119"),
 }
 SERVING_KERNELS = ("layernorm_norm_act", "flash_attention",
                    "paged_decode_attention")
@@ -152,6 +181,15 @@ RN_LAUNCHES = {
     "i2": {"batchnorm_norm_act": 53}}
 # The stages of ResNet-50: (filters, blocks, first stride).
 RN_STAGES = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
+
+# The char-RNN (`bench.py:798-840` char_rnn_fused_lstm): 2 GravesLSTM layers
+# of 256 over 77 characters, f32, RMSProp; B=32 sequences of 100 in tBPTT
+# chunks of 50. Per fit call: one cell per layer and step, one update per
+# layer (3 with the output layer) per chunk.
+RNN_V, RNN_H, RNN_LAYERS, RNN_B, RNN_T, RNN_CHUNK = 77, 256, 2, 32, 100, 50
+RNN_WARMUP, RNN_TIMED, RNN_SAMPLE, RNN_PARITY_B = 3, 10, 200, 4
+RNN_LAUNCHES = {"lstm_cell": RNN_LAYERS * RNN_T,
+                "fused_update": (RNN_LAYERS + 1) * (RNN_T // RNN_CHUNK)}
 
 
 def card_line() -> str:
@@ -710,10 +748,12 @@ def _kernel_summary(torch, events, wall_ms, reps=1):
 
 
 def trace_train_step(torch, net, batch):
-    """One fit step with its three parts (`_train_forward`,
+    """One fit call with its three parts (`_train_forward`,
     `_train_backward`, `_train_update`) wrapped on the instance: each part
     runs alone on the card (synchronized before and after) under its own
-    profiler, so its host wall time and kernel time are its own."""
+    profiler, so its host wall time and kernel time are its own; a part
+    that runs more than once in the call (a truncated-BPTT chunk each) is
+    summed over its runs."""
     from torch.profiler import ProfilerActivity, profile
 
     parts = {}
@@ -726,10 +766,11 @@ def trace_train_step(torch, net, batch):
                 out = fn(*args)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-            parts[part] = (wall, [
+            w0, ev0, n0 = parts.get(part, (0.0, [], 0))
+            parts[part] = (w0 + wall, ev0 + [
                 (e.name, e.time_range.start, e.time_range.end)
                 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA])
+                if e.device_type == torch.autograd.DeviceType.CUDA], n0 + 1)
             return out
         return run
 
@@ -743,19 +784,21 @@ def trace_train_step(torch, net, batch):
         for attr, _ in names:
             delattr(net, attr)
     out = {}
-    for part, (wall, ev) in parts.items():
+    for part, (wall, ev, runs) in parts.items():
         out[part] = ({"wall_ms": wall, "device_ms": "not measured"}
                      if not ev else _kernel_summary(torch, ev, wall))
+        out[part]["runs"] = runs
     return out
 
 
 def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
-                rn_batches):
+                rn_batches, rnn_net, rnn_batch):
     """Where the time of one decode step (4 slots at depths 1000, 700, 300,
-    40), of one 1024-token prefill, and of the three parts of one LM
-    training step and of one T1 and one T2 ResNet step goes: host wall time
-    per call, kernel time on the card, the card's idle share, and the top
-    kernels."""
+    40), of one 1024-token prefill, of the three parts of one LM training
+    step, of one T1 and one T2 ResNet step and of one char-RNN fit call
+    (two tBPTT chunks), and of one char-RNN `rnn_time_step` (one character,
+    one stream) goes: host wall time per call, kernel time on the card, the
+    card's idle share, and the top kernels."""
     from deeplearning4j_tpu_torch.models.zoo import PagedDecodeStepper
     from deeplearning4j_tpu_torch.serving.scheduler import (
         prompt_bucket_ladder,
@@ -769,9 +812,12 @@ def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
                                       pad_to=next(b for b in ladder if b >= n))
         st.install(slot, state, length)
     prompt = rng.randint(0, VOCAB, 1000).tolist()
-    reps = {"decode_step": 8, "prefill_1024": 3}
+    char = np.eye(RNN_V, dtype=np.float32)[[3]]
+    rnn_net.rnn_clear_previous_state()  # one stream from here on
+    reps = {"decode_step": 8, "prefill_1024": 3, "rnn_time_step": 20}
     calls = {"decode_step": lambda: st.step([1] * SLOTS),
-             "prefill_1024": lambda: st.prefill(prompt, pad_to=CACHE)}
+             "prefill_1024": lambda: st.prefill(prompt, pad_to=CACHE),
+             "rnn_time_step": lambda: rnn_net.rnn_time_step(char)}
     out = {}
     for what, fn in calls.items():
         torch.cuda.synchronize()
@@ -787,7 +833,282 @@ def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
     for path in ("t1", "t2"):
         out[f"resnet_{path}_step"] = trace_train_step(
             torch, rn_nets[path], rn_batches[path][0])
+    out["rnn_fit_call"] = trace_train_step(torch, rnn_net, rnn_batch)
     emit(card, phase="trace", **out)
+
+
+# ---------------------------------------------------------------- char-RNN
+
+
+def rnn_cell_cases(torch, dev, dtype_name):
+    """Row 10 at the char-RNN's shapes: (label, kernel fn, plain fn at the
+    dtype, plain fn in f32 on the same inputs, library fn or None, bytes,
+    ops). The train shape (B=32, n=256, peepholes, no mask), the sampling
+    shape (B=1) and the 32 streams of sampling, then n=200 (the zoo's
+    default) and the masked and no-peephole variants at B=32."""
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    dt = getattr(torch, dtype_name)
+    es = torch.tensor([], dtype=dt).element_size()
+    g = torch.Generator(device=dev).manual_seed(91)
+    cases = []
+    for b, n, peep, masked in ((RNN_B, RNN_H, True, False),
+                               (1, RNN_H, True, False),
+                               (RNN_B, 200, True, False),
+                               (RNN_B, RNN_H, True, True),
+                               (RNN_B, RNN_H, False, False)):
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device=dev)
+                    * scale).to(dt)
+
+        # xw_t as the scan hands it over: one time step of [b, T, 4n].
+        xw = rnd(b, RNN_CHUNK, 4 * n).unbind(1)[7]
+        h, c = rnd(b, n, scale=0.5), rnd(b, n)
+        rw = rnd(n, 4 * n, scale=n ** -0.5)
+        pw = rnd(3 * n, scale=0.3) if peep else None
+        m = ((torch.rand(b, generator=g, device=dev) < 0.7).to(dt)
+             if masked else None)
+        args = (xw, h, c, rw, pw, m)
+        f32 = tuple(None if a is None else a.float() for a in args)
+        lib = None
+        if not peep and not masked:
+            # PyTorch's LSTM cell (gate order i, f, g, o) on the same step:
+            # the recurrent product, then the fused gates. Columns reordered
+            # once, as a caller keeping that layout would hold them.
+            order = torch.cat([torch.arange(k * n, (k + 1) * n, device=dev)
+                               for k in (0, 1, 3, 2)])
+            rw_l, xw_l = rw[:, order].contiguous(), xw[:, order].contiguous()
+
+            def lib(h=h, c=c, rw_l=rw_l, xw_l=xw_l):
+                return torch.ops.aten._thnn_fused_lstm_cell(
+                    xw_l, torch.mm(h, rw_l), c)
+        label = (f"B={b} n={n}" + (" peephole" if peep else "")
+                 + (" masked" if masked else ""))
+        nbytes = (b * 4 * n + 2 * b * n + 4 * n * n + (3 * n if peep else 0)
+                  + (b if masked else 0) + 3 * b * n) * es
+        # The recurrent product's multiply-adds, ~25 operations per unit
+        # for the gates, peepholes and cell (transcendentals counted once).
+        ops = 2 * b * n * 4 * n + 25 * b * n
+        cases.append((
+            "lstm_cell", label,
+            lambda args=args: lc.lstm_cell(*args, "sigmoid", "tanh"),
+            lambda args=args: lc.lstm_cell_plain(*args, "sigmoid", "tanh"),
+            lambda f32=f32: lc.lstm_cell_plain(*f32, "sigmoid", "tanh"),
+            lib, nbytes, ops))
+    return cases
+
+
+def phase_rnn_kernels(card, torch, dev):
+    """f32 is held to the plain version at 1e-4 (TF32 off); bf16 to the
+    plain version run in f32 on the same inputs at 4e-2: the kernel, like
+    the TPU body, keeps z = xw + h @ RW and the gates in f32, where the
+    plain version in bf16 rounds z (its distance is printed beside)."""
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        for name, shape, kern, plain, plain_f32, lib, nbytes, ops in \
+                rnn_cell_cases(torch, dev, dtype):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err_dtype, ok = compare(got, want, dtype)
+            err = err_dtype
+            if dtype != "float32":
+                err, ok = compare(got, plain_f32(), dtype)
+            bound_ms, bound_by = bound(nbytes, ops, dtype)
+            lib_ms, lib_dev_ms, lib_error = _safe_lib_ms(torch, lib)
+            rows.append({
+                "name": name, "dtype": dtype, "shape": shape,
+                "max_abs_err": err,
+                "held_to": ("plain version in f32 on the same inputs"
+                            if dtype != "float32" else
+                            "plain version in float32"),
+                "max_abs_err_vs_plain_at_dtype": err_dtype,
+                "tolerance": f"rtol=atol={TOL[dtype]}", "ok": ok,
+                "ms": time_ms(kern), "plain_ms": time_ms(plain),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms, "library_error": lib_error,
+                "library_covers": (
+                    "torch.mm + aten._thnn_fused_lstm_cell: the same step "
+                    "without peepholes or mask" if lib else None),
+                "device_ms": device_ms(torch, kern),
+                "plain_device_ms": device_ms(torch, plain),
+                "library_device_ms": lib_dev_ms})
+            emit(card, phase="rnn_kernels", **rows[-1])
+    return rows
+
+
+def rnn_batches(torch, dev, b, t, n, seed):
+    """n learnable batches on the card: each next character is a fixed
+    permutation of the current one, from a random first character per
+    row; one-hot f32 features and labels [b, t, V]."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(RNN_V)
+    eye = torch.eye(RNN_V, device=dev)
+    out = []
+    for _ in range(n):
+        ids = np.empty((b, t + 1), np.int64)
+        ids[:, 0] = rng.randint(0, RNN_V, b)
+        for j in range(t):
+            ids[:, j + 1] = perm[ids[:, j]]
+        ids = torch.as_tensor(ids, device=dev)
+        out.append(DataSet(eye[ids[:, :-1]], eye[ids[:, 1:]]))
+    return out, perm
+
+
+def _rnn_conf():
+    from deeplearning4j_tpu_torch.models import zoo
+
+    return zoo.char_rnn(vocab_size=RNN_V, hidden=RNN_H, layers=RNN_LAYERS,
+                        tbptt_length=RNN_CHUNK)
+
+
+def _rnn_launch_errors(counts, per_call, calls):
+    want = {name: 0 for name in KERNEL_INFO}
+    want.update({k: v * calls for k, v in per_call.items()})
+    errors = []
+    if counts["launches"] != want:
+        errors.append(f"launches {counts['launches']} != expected {want}")
+    if any(counts["plain_calls"].values()):
+        errors.append(f"plain versions ran on the card: "
+                      f"{counts['plain_calls']}")
+    return errors, want
+
+
+def phase_rnn_train(card, torch, kernels, dev):
+    """The full-width char-RNN trained with `MultiLayerNetwork.fit` under
+    truncated BPTT: 3 warm-up and 10 timed calls over 2 batches."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    net = MultiLayerNetwork(_rnn_conf(), device=dev).init()
+    batches, perm = rnn_batches(torch, dev, RNN_B, RNN_T, 2, 19)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    scores, wall = [], []
+    for i in range(RNN_WARMUP + RNN_TIMED):
+        t0 = time.perf_counter()
+        net.fit(batches[i % 2])
+        scores.append(net.score_value)  # reads the loss: syncs the call
+        wall.append((time.perf_counter() - t0) * 1e3)
+    calls = RNN_WARMUP + RNN_TIMED
+    counts = kernels.counts()
+    errors, want = _rnn_launch_errors(counts, RNN_LAUNCHES, calls)
+    if not all(np.isfinite(scores)):
+        errors.append(f"non-finite score: {scores}")
+    last3 = float(np.mean(scores[-3:]))
+    if not last3 < scores[0]:
+        errors.append(f"scores did not fall: first {scores[0]}, mean of the "
+                      f"last 3 {last3}")
+    if net.iteration != calls:
+        errors.append(f"iteration {net.iteration} after {calls} sequences")
+    timed = wall[RNN_WARMUP:]
+    ms = statistics.mean(timed)
+    emit(card, phase="rnn_train", ok=not errors, errors=errors,
+         model=f"char_rnn V={RNN_V} hidden={RNN_H} layers={RNN_LAYERS} f32 "
+               f"RMSProp lr 0.1, tBPTT {RNN_CHUNK}",
+         batch=RNN_B, seq_len=RNN_T, calls=calls, scores=scores,
+         first_score=scores[0], last3_mean=last3, ms_per_call=ms,
+         ms_per_call_median=statistics.median(timed), ms_per_call_all=wall,
+         sequences_per_s=RNN_B / ms * 1e3,
+         characters_per_s=RNN_B * RNN_T / ms * 1e3,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         launches=counts["launches"], expected_launches=want,
+         plain_calls=counts["plain_calls"])
+    return not errors, counts["launches"], net, batches, perm
+
+
+def phase_rnn_sample(card, torch, kernels, net, perm):
+    """Greedy sampling through `rnn_time_step`, one character per call:
+    200 from one seed character, then 200 steps of 32 streams at once.
+    Each call launches 2 cells; the stateful outputs must equal `output`
+    over the whole sampled sequence (f32, 1e-4)."""
+    eye = np.eye(RNN_V, dtype=np.float32)
+    errors, res, launches = [], {}, {name: 0 for name in KERNEL_INFO}
+    for streams in (1, RNN_B):
+        seeds = np.arange(streams) * 5 % RNN_V
+        net.rnn_clear_previous_state()
+        kernels.reset_counts()
+        ids, probs, wall = [seeds], [], []
+        for _ in range(RNN_SAMPLE):
+            t0 = time.perf_counter()
+            p = net.rnn_time_step(eye[ids[-1]])  # [streams, V], on the host
+            wall.append((time.perf_counter() - t0) * 1e3)
+            probs.append(p)
+            ids.append(p.argmax(-1))
+        counts = kernels.counts()
+        errs, _ = _rnn_launch_errors(counts, {"lstm_cell": RNN_LAYERS},
+                                     RNN_SAMPLE)
+        errors += [f"{streams} streams: {e}" for e in errs]
+        for k, v in counts["launches"].items():
+            launches[k] += v
+        stepped = np.stack(probs, 1)
+        full = net.output(eye[np.stack(ids[:-1], 1)])
+        diff = float(np.abs(stepped - full).max())
+        if not diff <= 1e-4:
+            errors.append(f"{streams} streams: rnn_time_step differs from "
+                          f"output by {diff}")
+        follows = float(np.mean(np.stack(ids[1:], 1)
+                                == perm[np.stack(ids[:-1], 1)]))
+        ms = statistics.mean(wall[5:])
+        res[f"streams_{streams}"] = {
+            "calls": RNN_SAMPLE, "ms_per_character_step": ms,
+            "ms_per_step_median": statistics.median(wall[5:]),
+            "characters_per_s": streams / ms * 1e3,
+            "max_abs_diff_vs_output": diff,
+            "share_following_the_trained_rule": follows,
+            "first_ids": [int(i) for i in np.stack(ids, 1)[0, :24]],
+            "launches": counts["launches"]["lstm_cell"]}
+    emit(card, phase="rnn_sample", ok=not errors, errors=errors, **res)
+    return not errors, launches
+
+
+def _g2_errors(got, want):
+    """Per layer: max |g2_got - g2_want| over the layer's largest g2."""
+    out = {}
+    for name, st in want.opt_state.items():
+        ref = max(float(a.abs().max()) for a in st["g2"].values())
+        err = max(float((got.opt_state[name]["g2"][k].cpu() - a).abs().max())
+                  for k, a in st["g2"].items())
+        out[name] = err / ref if ref else float("inf")
+    return out
+
+
+def phase_rnn_parity(card, torch, dev):
+    """f32, B=4, T=100: the same seeded params on the card and on the CPU
+    (plain versions): `output` within 1e-3, one tBPTT `fit` call's score
+    within 1e-3 relative, and per layer RMSProp's g2 within 4e-2 of the
+    CPU's largest g2 there (a cut gradient shows as an error near 1)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    (ds,), _ = rnn_batches(torch, "cpu", RNN_PARITY_B, RNN_T, 1, 29)
+    x, y = ds.features.numpy(), ds.labels.numpy()
+    t0 = time.perf_counter()
+    cpu = MultiLayerNetwork(_rnn_conf(), device="cpu").init()
+    card_net = MultiLayerNetwork(_rnn_conf(), device=dev).init(params={
+        k: {n: a.detach() for n, a in p.items()}
+        for k, p in cpu.params_tree.items()})
+    prob_diff = float(np.abs(card_net.output(x) - cpu.output(x)).max())
+    for net in (cpu, card_net):
+        net.fit(DataSet(x, y))
+    score_rel = abs(card_net.score_value - cpu.score_value) / abs(
+        cpu.score_value)
+    g2 = _g2_errors(card_net, cpu)
+    errors = []
+    if prob_diff > 1e-3:
+        errors.append(f"output differs by {prob_diff}")
+    if score_rel > 1e-3:
+        errors.append(f"scores {card_net.score_value} (card) vs "
+                      f"{cpu.score_value} (CPU)")
+    if max(g2.values()) > 4e-2:
+        errors.append(f"g2 differs: {g2}")
+    emit(card, phase="rnn_parity", ok=not errors, errors=errors,
+         batch=RNN_PARITY_B, seq_len=RNN_T, max_abs_prob_diff=prob_diff,
+         score_card=card_net.score_value, score_cpu=cpu.score_value,
+         score_rel_diff=score_rel, g2_err_over_max=g2,
+         seconds=time.perf_counter() - t0)
+    return not errors
 
 
 # ------------------------------------------------------------------ ResNet
@@ -1313,24 +1634,43 @@ def main() -> int:
     del i1_net, x224
     if not phase_resnet_parity(card, torch, dev):
         failed.append("resnet_parity")
-    phase_trace(card, torch, cg, train_net, batches[0], nets, rn_batch)
+
+    rnn_rows = phase_rnn_kernels(card, torch, dev)
+    if not all(r["ok"] for r in rnn_rows):
+        failed.append("rnn_kernels")
+    rows += rnn_rows
+    ok, path_launches["rnn_train"], rnn_net, rnn_data, perm = \
+        phase_rnn_train(card, torch, kernels, dev)
+    if not ok:
+        failed.append("rnn_train")
+    ok, path_launches["rnn_sample"] = phase_rnn_sample(card, torch, kernels,
+                                                       rnn_net, perm)
+    if not ok:
+        failed.append("rnn_sample")
+    if not phase_rnn_parity(card, torch, dev):
+        failed.append("rnn_parity")
+    phase_trace(card, torch, cg, train_net, batches[0], nets, rn_batch,
+                rnn_net, rnn_data[0])
 
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     # The kernels line: each kernel at the shape most of its main-path
-    # launches have (bf16; the update kernel's state is f32), with this
-    # run's launches on the six main paths (each counted from 0: the serve
-    # phase, the LM train phase's 23 steps, T1's and T2's 13 steps, I1's and
-    # I2's 13 calls), summed and by path.
+    # launches have (bf16; the update kernel's state and the char-RNN are
+    # f32), with this run's launches on the eight main paths (each counted
+    # from 0: the serve phase, the LM train phase's 23 steps, T1's and T2's
+    # 13 steps, I1's and I2's 13 calls, the char-RNN's 13 fit calls and its
+    # 2 x 200 sampling calls), summed and by path. Row 10's library call
+    # covers the step without peepholes (at the same B and n).
     main_shape = {
         "layernorm_norm_act": f"[4,{D_MODEL}]",
         "batchnorm_norm_act": f"s0 c_bn [{RN_PATHS['t1'][2]}*56*56,256]",
         "bottleneck_train": f"B={RN_PATHS['t2'][2]} H=4 Cin=1024 F1=256 s=1 "
                             "identity",
         "bottleneck_infer": f"B={INFER_B} H=14 Cin=1024 F1=256 s=1 "
-                            "identity"}
-    main_dtype = {"fused_update": "float32"}
+                            "identity",
+        "lstm_cell": f"B={RNN_B} n={RNN_H} peephole"}
+    main_dtype = {"fused_update": "float32", "lstm_cell": "float32"}
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
         dtype = main_dtype.get(name, "bfloat16")
@@ -1347,6 +1687,11 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"], "dtype": dtype,
             "shape": r["shape"], "card": card})
+        if name == "lstm_cell":
+            entries[-1]["library_ms_without_peepholes"] = next(
+                r["library_ms"] for r in rows if r["name"] == name
+                and r["dtype"] == dtype
+                and r["shape"] == f"B={RNN_B} n={RNN_H}")
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,10 +16,13 @@ tensor launches the kernel, or the wrapper raises. No fallback, no switch.
 - `bottleneck_block.bottleneck_forward`     (csrc/bottleneck_block.cu:
   `bottleneck_train`, batch statistics, and `bottleneck_infer`, running
   statistics; each counts one per wrapper call, of several CUDA launches)
+- `lstm_cell.lstm_cell`                     (csrc/lstm_cell.cu: one LSTM
+  time step of one layer)
 
 Training reaches the kernels through `torch.autograd.Function`s
 (`flash_attention.FlashAttentionFn`, `norm_act.LayerNormFn`,
-`norm_act.BatchNormFn`, `bottleneck_block.BottleneckFn`, see `_diff.py`);
+`norm_act.BatchNormFn`, `bottleneck_block.BottleneckFn`,
+`lstm_cell.LSTMCellFn`, see `_diff.py`);
 a kernel wrapper asked for a gradient outside them raises.
 """
 
@@ -31,7 +34,7 @@ from typing import Dict
 KERNELS = ("layernorm_norm_act", "flash_attention", "paged_decode_attention",
            "flash_attention_fwd_lse", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "fused_update", "batchnorm_norm_act",
-           "bottleneck_train", "bottleneck_infer")
+           "bottleneck_train", "bottleneck_infer", "lstm_cell")
 
 
 class Count:

@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "dl4j_layernorm_norm_act": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
@@ -53,6 +54,8 @@ _SIGNATURES = {
     "dl4j_bottleneck_stats": [_P, _P, _I, _I, _I, _P, _P, _P],
     "dl4j_bottleneck_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _I, _F, _I, _P, _P],
+    "dl4j_lstm_cell": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _P],
 }
 
 _lock = threading.Lock()

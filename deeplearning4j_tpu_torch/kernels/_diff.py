@@ -8,8 +8,9 @@ through a `torch.autograd.Function`, and a kernel wrapper asked for a
 gradient outside one raises (`refuse_grad`).
 
 Flash attention hand-writes its backward (`FlashAttentionFn`). The simpler
-forward-only kernels pair their forward with the VJP of their reference
-ops (`ref_vjp`), as the JAX package's `pallas_fwd_ref_bwd` does: the
+forward-only kernels (LayerNorm, BatchNorm, the bottleneck block, the LSTM
+cell) pair their forward with the VJP of their reference ops (`ref_vjp`),
+as the JAX package's `pallas_fwd_ref_bwd` does: the
 backward recomputes the reference forward from the saved inputs and pulls
 the incoming gradient through it, so the gradient math is exactly the
 reference's and the forward value comes from the kernel.
@@ -37,8 +38,9 @@ def refuse_grad(name: str, *tensors) -> None:
 
 
 def ref_vjp(ref_fn: Callable, inputs: Sequence[torch.Tensor],
-            needs: Sequence[bool], grad_out: torch.Tensor):
-    """Gradients of `ref_fn(*inputs)` against `grad_out` for the inputs
+            needs: Sequence[bool], grad_out):
+    """Gradients of `ref_fn(*inputs)` against `grad_out` (a tensor, or a
+    tuple with one per output when `ref_fn` returns a tuple) for the inputs
     flagged in `needs` (None for the others), by recomputing `ref_fn` on
     detached copies under autograd."""
     with torch.enable_grad():

@@ -1,7 +1,7 @@
-"""Model zoo, serving subset (counterpart of `deeplearning4j_tpu/models/zoo.py`):
-`transformer_lm`, token sampling, `generate_lm`, and the step-granular
-decode steppers the serving scheduler drives (dense per-slot KV caches, or
-a paged KV pool).
+"""Model zoo (counterpart of `deeplearning4j_tpu/models/zoo.py`):
+`transformer_lm`, token sampling, `generate_lm`, the step-granular decode
+steppers the serving scheduler drives (dense per-slot KV caches, or a
+paged KV pool), and the GravesLSTM `char_rnn`.
 
 Ids travel as int64 tensors: the reference feeds its steppers float32 ids,
 which a bf16 compute policy rounds (ids above 256 stop being exact); the
@@ -21,9 +21,11 @@ from deeplearning4j_tpu_torch.nn.conf.graph import (
     ElementWiseVertex,
     LayerVertex,
 )
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     DenseLayer,
     EmbeddingLayer,
+    GravesLSTM,
     LayerNormalization,
     PositionalEmbeddingLayer,
     RnnOutputLayer,
@@ -32,8 +34,9 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
     GlobalConf,
+    MultiLayerConfiguration,
 )
-from deeplearning4j_tpu_torch.nn.graph import to_numpy
+from deeplearning4j_tpu_torch.nn.engine import to_numpy
 
 
 def transformer_lm(vocab_size: int, *, t: int = 64, d_model: int = 64,
@@ -94,6 +97,28 @@ def transformer_lm(vocab_size: int, *, t: int = 64, d_model: int = 64,
         vertices=vertices, vertex_inputs=inputs)
     conf.validate()
     return conf
+
+
+def char_rnn(vocab_size: int = 77, hidden: int = 200, layers: int = 2,
+             tbptt_length: int = 50, seed: int = 12345,
+             dtype: str = "float32") -> MultiLayerConfiguration:
+    """The reference's GravesLSTM character model (its example is
+    GravesLSTMCharModellingExample): `layers` GravesLSTMs of `hidden` units
+    (tanh cell, sigmoid gates, peepholes) and a softmax mcxent
+    RnnOutputLayer over `vocab_size`; RMSProp at lr 0.1 with rms_decay
+    0.95, l2 1e-3, xavier init; truncated BPTT in chunks of
+    `tbptt_length` steps."""
+    g = GlobalConf(seed=seed, learning_rate=0.1, updater="rmsprop",
+                   rms_decay=0.95, weight_init="xavier", l2=0.001,
+                   dtype=dtype)
+    stack = [GravesLSTM(n_out=hidden, activation="tanh")
+             for _ in range(layers)]
+    stack.append(RnnOutputLayer(n_out=vocab_size, activation="softmax",
+                                loss_function="mcxent"))
+    return MultiLayerConfiguration.build(
+        g, stack, InputType.recurrent(vocab_size),
+        backprop_type="truncatedbptt", tbptt_fwd_length=tbptt_length,
+        tbptt_back_length=tbptt_length)
 
 
 def _sample_token(probs, rng, temperature: float, top_k: int, top_p: float):

@@ -1,14 +1,19 @@
 """Layer configurations (counterpart of `deeplearning4j_tpu/nn/conf/layers.py`):
-the confs `transformer_lm` and `resnet50` use, with the reference's field
-names (the training fields of `layers.py:82-100` included), defaults,
-`param_shapes()` and `state_shapes()` order, so `from_dict` reads the
-reference's `to_json()` as it is."""
+the confs `transformer_lm`, `resnet50` and `char_rnn` use, and the other
+recurrent layers, with the reference's field names (the training fields of
+`layers.py:82-100` included), defaults, `param_shapes()` and
+`state_shapes()` order, so `from_dict` reads the reference's `to_json()` as
+it is. `set_n_in`, `get_output_type` and `default_preprocessor` are the
+shape inference of `MultiLayerConfiguration.build` for feed-forward and
+recurrent inputs."""
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
+
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
 _LAYER_REGISTRY: Dict[str, type] = {}
 
@@ -68,6 +73,17 @@ class Layer:
     gradient_normalization_threshold: Optional[float] = None
     frozen: Optional[bool] = None
 
+    def get_output_type(self, input_type: InputType) -> InputType:
+        return input_type
+
+    def set_n_in(self, input_type: InputType, override: bool) -> None:
+        """Infer n_in from the previous layer's output type (no-op here)."""
+
+    def default_preprocessor(self, input_type: InputType) -> Optional[str]:
+        """The reference's automatic preprocessor for this input, by class
+        name (None: the input fits as it is)."""
+        return None
+
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
         return {}
 
@@ -90,6 +106,16 @@ class Layer:
 class FeedForwardLayer(Layer):
     n_in: int = 0
     n_out: int = 0
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        if input_type.kind == "rnn":
+            return InputType.recurrent(self.n_out,
+                                       input_type.timeseries_length)
+        return InputType.feed_forward(self.n_out)
+
+    def set_n_in(self, input_type: InputType, override: bool) -> None:
+        if override or not self.n_in:
+            self.n_in = input_type.flat_size()
 
     def param_shapes(self):
         return {"W": (self.n_in, self.n_out), "b": (self.n_out,)}
@@ -312,3 +338,77 @@ class GlobalPoolingLayer(Layer):
     pooling_dimensions: Optional[Tuple[int, ...]] = None
     collapse_dimensions: bool = True
     pnorm: int = 2
+
+
+@dataclass
+class BaseRecurrentLayer(FeedForwardLayer):
+    """Recurrent layers: [b, t, n_in] -> [b, t, n_out]; a feed-forward input
+    needs the reference's FeedForwardToRnnPreProcessor."""
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, input_type.timeseries_length)
+
+    def default_preprocessor(self, input_type: InputType) -> Optional[str]:
+        return ("FeedForwardToRnnPreProcessor" if input_type.kind == "ff"
+                else None)
+
+
+@register_layer
+@dataclass
+class GravesLSTM(BaseRecurrentLayer):
+    """LSTM with Graves peepholes: `W` [n_in, 4n] (gate order i, f, o, g),
+    `RW` [n, 4n], `pW` [3n] (p_i, p_f, p_o), `b` [4n] whose forget block
+    [n, 2n) starts at `forget_gate_bias_init`."""
+
+    forget_gate_bias_init: float = 1.0
+    gate_activation: Any = "sigmoid"
+
+    def param_shapes(self):
+        return {"W": (self.n_in, 4 * self.n_out),
+                "RW": (self.n_out, 4 * self.n_out),
+                "pW": (3 * self.n_out,),
+                "b": (4 * self.n_out,)}
+
+
+@register_layer
+@dataclass
+class LSTM(BaseRecurrentLayer):
+    """LSTM without peepholes."""
+
+    forget_gate_bias_init: float = 1.0
+    gate_activation: Any = "sigmoid"
+
+    def param_shapes(self):
+        return {"W": (self.n_in, 4 * self.n_out),
+                "RW": (self.n_out, 4 * self.n_out),
+                "b": (4 * self.n_out,)}
+
+
+@register_layer
+@dataclass
+class GravesBidirectionalLSTM(BaseRecurrentLayer):
+    """Peephole LSTMs forward (`_f`) and backward (`_b`) in time; the
+    output is their sum."""
+
+    forget_gate_bias_init: float = 1.0
+    gate_activation: Any = "sigmoid"
+
+    def param_shapes(self):
+        shapes = {}
+        for s in ("_f", "_b"):
+            shapes.update({"W" + s: (self.n_in, 4 * self.n_out),
+                           "RW" + s: (self.n_out, 4 * self.n_out),
+                           "pW" + s: (3 * self.n_out,),
+                           "b" + s: (4 * self.n_out,)})
+        return shapes
+
+
+@register_layer
+@dataclass
+class SimpleRnn(BaseRecurrentLayer):
+    """h_t = act(x_t W + h_{t-1} RW + b)."""
+
+    def param_shapes(self):
+        return {"W": (self.n_in, self.n_out),
+                "RW": (self.n_out, self.n_out),
+                "b": (self.n_out,)}

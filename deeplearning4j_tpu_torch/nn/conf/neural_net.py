@@ -1,10 +1,14 @@
-"""Network configuration (counterpart of
+"""Network configurations (counterpart of
 `deeplearning4j_tpu/nn/conf/neural_net.py`): `ComputationGraphConfiguration`
-read from the reference's `to_json()`, with the global fields that
-inference and training read."""
+and `MultiLayerConfiguration`, read from the reference's `to_json()`, with
+the global fields that inference and training read.
+`MultiLayerConfiguration.build` is the list builder's `build()` for the
+zoo: globals inherited into the layers, then `n_in` inferred from an
+`InputType`, as `set_input_type` does."""
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 from dataclasses import dataclass, field
@@ -14,6 +18,8 @@ from deeplearning4j_tpu_torch.nn.conf.graph import (
     GraphVertexConf,
     vertex_from_dict,
 )
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.layers import Layer, layer_from_dict
 
 
 # Per-layer fields that inherit the global value when unset (the
@@ -151,3 +157,68 @@ class ComputationGraphConfiguration:
     @staticmethod
     def from_json(s: str) -> "ComputationGraphConfiguration":
         return ComputationGraphConfiguration.from_dict(json.loads(s))
+
+
+def _refuse_preprocessors(what) -> None:
+    raise NotImplementedError(
+        f"input preprocessors are not in the port yet ({what}; ROADMAP A.2)")
+
+
+@dataclass
+class MultiLayerConfiguration:
+    """A sequential network: layers `layer_0 ... layer_{n-1}` in order.
+    `backprop_type` is "standard" or "truncatedbptt" (chunks of
+    `tbptt_fwd_length` steps; the backward length is carried, and, as in
+    the reference engine, equal to the forward one in effect)."""
+
+    global_conf: GlobalConf = field(default_factory=GlobalConf)
+    layers: List[Layer] = field(default_factory=list)
+    backprop: bool = True
+    pretrain: bool = False
+    backprop_type: str = "standard"
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
+    input_type: Optional[InputType] = None
+
+    @staticmethod
+    def build(global_conf: GlobalConf, layers: List[Layer],
+              input_type: Optional[InputType] = None,
+              **fields) -> "MultiLayerConfiguration":
+        """The reference list builder's `build()`: each layer (a copy)
+        inherits the unset global fields; with `input_type`, each layer's
+        `n_in` is inferred from the previous layer's output type."""
+        layers = [copy.deepcopy(layer) for layer in layers]
+        for layer in layers:
+            global_conf.inherit_into(layer)
+        current = input_type
+        if current is not None:
+            for i, layer in enumerate(layers):
+                pre = layer.default_preprocessor(current)
+                if pre is not None:
+                    _refuse_preprocessors(f"layer {i} needs {pre}")
+                layer.set_n_in(current, override=True)
+                current = layer.get_output_type(current)
+        if "backprop_type" in fields:
+            fields["backprop_type"] = str(fields["backprop_type"]).lower()
+        return MultiLayerConfiguration(global_conf=global_conf, layers=layers,
+                                       input_type=input_type, **fields)
+
+    @staticmethod
+    def from_dict(d) -> "MultiLayerConfiguration":
+        if d.get("input_preprocessors"):
+            _refuse_preprocessors(
+                f"layers {sorted(d['input_preprocessors'])} have one")
+        return MultiLayerConfiguration(
+            global_conf=GlobalConf.from_dict(d.get("global_conf")),
+            layers=[layer_from_dict(layer) for layer in d["layers"]],
+            backprop=bool(d.get("backprop", True)),
+            pretrain=bool(d.get("pretrain", False)),
+            backprop_type=str(d.get("backprop_type", "standard")).lower(),
+            tbptt_fwd_length=int(d.get("tbptt_fwd_length", 20)),
+            tbptt_back_length=int(d.get("tbptt_back_length", 20)),
+            input_type=InputType.from_dict(d.get("input_type")),
+        )
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        return MultiLayerConfiguration.from_dict(json.loads(s))

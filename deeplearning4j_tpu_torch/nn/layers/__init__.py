@@ -1,6 +1,8 @@
 """Layer implementation registry (counterpart of
 `deeplearning4j_tpu/nn/layers/__init__.py`): layer-conf class name ->
-`apply(conf, params, state, x, train=False) -> (out, new_state)`."""
+`apply(conf, params, state, x, train=False, mask=None) -> (out,
+new_state)`, `mask` a [B, T] step mask that only the recurrent layers
+read."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
     feedforward,
     normalization,
     pooling,
+    recurrent,
 )
 
 LAYER_IMPLS = {
@@ -27,6 +30,10 @@ LAYER_IMPLS = {
     "SubsamplingLayer": convolution.subsampling_apply,
     "GlobalPoolingLayer": pooling.global_pooling_apply,
     "BottleneckBlock": bottleneck.bottleneck_apply,
+    "GravesLSTM": recurrent.graves_lstm_apply,
+    "LSTM": recurrent.standard_lstm_apply,
+    "GravesBidirectionalLSTM": recurrent.bidirectional_lstm_apply,
+    "SimpleRnn": recurrent.simple_rnn_apply,
 }
 
 # Layers whose forward emits a pre-activation (the reference's output-layer

@@ -28,7 +28,7 @@ from deeplearning4j_tpu_torch.kernels import flash_attention as _fa
 from deeplearning4j_tpu_torch.nn import activations
 
 
-def self_attention_apply(conf, params, state, x, train=False):
+def self_attention_apply(conf, params, state, x, train=False, mask=None):
     """x: [B, T, n_in] -> [B, T, n_out]."""
     if conf.attention_impl != "auto":
         raise ValueError(f"attention_impl {conf.attention_impl!r} is not in "

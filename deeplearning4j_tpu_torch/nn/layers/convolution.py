@@ -74,7 +74,7 @@ def conv2d_nhwc(x, w, stride, pads, dilation=(1, 1)):
     return _nhwc(y)
 
 
-def conv2d_apply(conf, params, state, x, train=False):
+def conv2d_apply(conf, params, state, x, train=False, mask=None):
     w = params["W"]
     pads = _pads(conf.convolution_mode, conf.padding, x.shape[1], x.shape[2],
                  w.shape[:2], conf.stride, conf.dilation)
@@ -84,7 +84,7 @@ def conv2d_apply(conf, params, state, x, train=False):
     return activations.resolve(conf.activation)(out), state
 
 
-def subsampling_apply(conf, params, state, x, train=False):
+def subsampling_apply(conf, params, state, x, train=False, mask=None):
     ptype = PoolingType.of(conf.pooling_type) or PoolingType.MAX
     kernel, stride = tuple(conf.kernel_size), tuple(conf.stride)
     pads = _pads(conf.convolution_mode, conf.padding, x.shape[1], x.shape[2],

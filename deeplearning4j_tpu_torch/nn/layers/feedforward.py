@@ -4,8 +4,9 @@ pre-activation (OutputLayer, RnnOutputLayer), the activation-only layer,
 ids embedding, positional embedding. Dense ops act on the last axis, so
 [B, F] and [B, T, F] share the code.
 
-Layer signature: `apply(conf, params, state, x, train=False) ->
-(out, new_state)`."""
+Layer signature: `apply(conf, params, state, x, train=False, mask=None)
+-> (out, new_state)`; `mask` is a [B, T] step mask, which only the
+recurrent layers read."""
 
 from __future__ import annotations
 
@@ -14,16 +15,16 @@ import torch
 from deeplearning4j_tpu_torch.nn import activations
 
 
-def dense_apply(conf, params, state, x, train=False):
+def dense_apply(conf, params, state, x, train=False, mask=None):
     out, state = preoutput(conf, params, state, x)
     return activations.resolve(conf.activation)(out), state
 
 
-def activation_apply(conf, params, state, x, train=False):
+def activation_apply(conf, params, state, x, train=False, mask=None):
     return activations.resolve(conf.activation)(x), state
 
 
-def preoutput(conf, params, state, x, train=False):
+def preoutput(conf, params, state, x, train=False, mask=None):
     """Linear pre-activation of an output layer (the engine applies its
     activation after the cast to the output dtype). Mixed dtypes promote
     as JAX's matmul does (a bf16-policy ResNet reaches its output layer in
@@ -38,7 +39,7 @@ def preoutput(conf, params, state, x, train=False):
     return out, state
 
 
-def embedding_apply(conf, params, state, x, train=False):
+def embedding_apply(conf, params, state, x, train=False, mask=None):
     """Embedding gather over integer ids [B], [B, 1] or [B, T, 1]. Float ids
     truncate toward zero, as the reference's int32 cast does."""
     if conf.input_format != "ids":
@@ -54,7 +55,7 @@ def embedding_apply(conf, params, state, x, train=False):
     return activations.resolve(conf.activation)(out), state
 
 
-def positional_embedding_apply(conf, params, state, x, train=False):
+def positional_embedding_apply(conf, params, state, x, train=False, mask=None):
     """x: [B, T, F] -> x + P[pos:pos+T].
 
     Stateless: always P[:T]. With `conf.stateful` the cursor rides

@@ -3,8 +3,9 @@
 statistics through the norm+act kernel; batch norm, the given or batch
 statistics through the BatchNorm apply kernel.
 
-Layer signature: `apply(conf, params, state, x, train=False) ->
-(out, new_state)`."""
+Layer signature: `apply(conf, params, state, x, train=False, mask=None)
+-> (out, new_state)`; `mask` is a [B, T] step mask, which only the
+recurrent layers read."""
 
 from __future__ import annotations
 
@@ -16,13 +17,13 @@ from deeplearning4j_tpu_torch.kernels.norm_act import (
 )
 
 
-def layernorm_apply(conf, params, state, x, train=False):
+def layernorm_apply(conf, params, state, x, train=False, mask=None):
     out = layernorm_norm_act(x, params["gamma"], params["beta"], conf.eps,
                              conf.activation)
     return out, state
 
 
-def batchnorm_apply(conf, params, state, x, train=False):
+def batchnorm_apply(conf, params, state, x, train=False, mask=None):
     """Reference `batchnorm_apply` (normalization.py:19-45): in training
     (with `is_minibatch`) single-pass batch statistics over every axis but
     the last, mean(x) and mean(x*x) - mean^2, computed inside autograd so

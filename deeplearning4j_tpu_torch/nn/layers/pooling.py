@@ -7,7 +7,7 @@ from __future__ import annotations
 from deeplearning4j_tpu_torch.nn.conf.enums import PoolingType
 
 
-def global_pooling_apply(conf, params, state, x, train=False):
+def global_pooling_apply(conf, params, state, x, train=False, mask=None):
     if x.dim() != 4:
         raise ValueError(f"GlobalPoolingLayer in the port takes [b, h, w, c] "
                          f"input, got {x.dim()}-D")

@@ -2,8 +2,9 @@
 
 Each loss takes the output layer's PRE-activation and its activation name,
 so softmax + mcxent lowers to a log-softmax (or, for sparse ids,
-logsumexp(z) - z[id]). Features on the last axis: [B, F] or [B, T, F];
-masks [B] or [B, T], 1 = keep. `score` sums every entry (every timestep
+logsumexp(z) - z[id]). Features on the last axis: [B, F] or [B, T, F]
+(one-hot or soft labels of the same shape, or integer ids without the
+last axis); masks [B] or [B, T], 1 = keep. `score` sums every entry (every timestep
 too) and divides by the minibatch size only, as the reference's
 `BaseOutputLayer.computeScore` does: a sequence's loss scales with its
 length.
@@ -123,10 +124,13 @@ def effective_batch_size(labels: torch.Tensor,
 
 
 def score(loss, labels, preout, activation="identity", mask=None,
-          average: bool = True) -> torch.Tensor:
+          average: bool = True, eb=None) -> torch.Tensor:
     """Scalar score: per-entry losses summed, divided by the minibatch size
-    (never by time length or the unmasked count)."""
+    (never by time length or the unmasked count). `eb` overrides the
+    divisor: a truncated-BPTT chunk divides by the rows of the whole
+    sequence (reference `multilayer.py:562-571`), so a row that one chunk
+    masks out entirely still counts."""
     total = compute_per_example(loss, labels, preout, activation, mask).sum()
     if not average:
         return total
-    return total / effective_batch_size(labels, mask)
+    return total / (effective_batch_size(labels, mask) if eb is None else eb)

@@ -1,0 +1,309 @@
+"""MultiLayerNetwork (counterpart of `deeplearning4j_tpu/nn/multilayer.py`):
+the sequential engine, layers `layer_0 ... layer_{n-1}` run in order,
+eagerly, with the engines' shared params, updaters and in-place update
+(`engine.py`).
+
+- `fit` takes one optimizer step per batch, or, for a truncated-BPTT conf
+  and a sequence longer than `tbptt_fwd_length`, one per chunk of that
+  many steps (reference `doTruncatedBPTT`, `multilayer.py:1096`): each chunk
+  is a whole forward, backward and update; the recurrent layers' h and c
+  carry into the next chunk detached, so the gradient stops at the chunk's
+  edge; every chunk of a sequence uses one step value and the iteration
+  advances once per sequence; the loss of every chunk divides by the rows
+  of the whole sequence; a shorter last chunk runs at its own length; the
+  score is the last chunk's; the carried state is dropped afterwards.
+- `rnn_time_step` keeps each recurrent layer's h and c across calls until
+  `rnn_clear_previous_state` (reference `rnnTimeStep`, :1232).
+- `params()` / `set_params()` are the reference's flat view: layer order,
+  then each layer's `param_shapes()` order.
+
+What `fit` does not run yet raises NotImplementedError naming its ROADMAP
+item: solvers and superstep (A.10), dropout (A.4), frozen layers (A.12),
+layerwise pretraining (A.9), f16 loss scaling (A.7) and input
+preprocessors (A.2, refused when the conf is read or built).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.nn import activations
+from deeplearning4j_tpu_torch.nn import losses as losses_mod
+from deeplearning4j_tpu_torch.nn import params as params_mod
+from deeplearning4j_tpu_torch.nn import rnn_state as rnn_mod
+from deeplearning4j_tpu_torch.nn.conf.neural_net import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.engine import NetworkEngine, to_numpy
+from deeplearning4j_tpu_torch.nn.layers import OUTPUT_LAYER_TYPES, get_impl
+
+
+def _as_dataset(data, labels=None) -> DataSet:
+    if isinstance(data, DataSet):
+        return data
+    if labels is None and isinstance(data, tuple) and len(data) == 2:
+        data, labels = data  # score((x, y)) / fit((x, y))
+    return DataSet(data, labels)
+
+
+def _refuse_loss_scaling(g) -> None:
+    pol = g.dtype_policy
+    name = str((pol.get("name") if isinstance(pol, dict) else pol) or g.dtype)
+    if "float16" in name and "bfloat16" not in name:
+        raise NotImplementedError(
+            f"dtype policy {name!r} trains with dynamic loss scaling, which "
+            "is not in the port yet (ROADMAP A.7)")
+
+
+class MultiLayerNetwork(NetworkEngine):
+    """Sequential network engine (see module docstring)."""
+
+    def __init__(self, conf: MultiLayerConfiguration, device="cuda"):
+        _refuse_loss_scaling(conf.global_conf)
+        self.conf = conf
+        self.layers = conf.layers
+        self.layer_keys = [f"layer_{i}" for i in range(len(conf.layers))]
+        super().__init__(conf.global_conf,
+                         dict(zip(self.layer_keys, self.layers)), device)
+
+    def init(self, params=None, state=None,
+             updater_state=None) -> "MultiLayerNetwork":
+        """Params, declared state and updater state, fresh (drawn layer by
+        layer in order) or given: see `NetworkEngine._init_engine`."""
+        self._init_engine(params, updater_state, state, self.layer_keys)
+        return self
+
+    # --------------------------------------------------------------- forward
+
+    def _forward(self, params, state, x, fmask, keep_rnn_state: bool,
+                 train: bool = False, collect: bool = False):
+        """Run the layers; returns (the last layer's raw output at the
+        compute dtype, new layer state, every layer's output when
+        `collect`). Declared state comes back always, the recurrent
+        layers' h and c only with `keep_rnn_state`."""
+        x = torch.as_tensor(x, device=self.device)
+        if x.is_floating_point():
+            x = x.to(self.dtype_policy.compute_dtype)
+        mask = (None if fmask is None
+                else torch.as_tensor(fmask, device=self.device))
+        new_state, acts = {}, []
+        for lk, layer in zip(self.layer_keys, self.layers):
+            x, lstate = get_impl(layer)(layer, params.get(lk, {}),
+                                        state.get(lk, {}), x, train=train,
+                                        mask=mask)
+            if lstate:
+                declared = set(layer.state_shapes())
+                keep = {k: v for k, v in lstate.items()
+                        if k in declared or keep_rnn_state}
+                if keep:
+                    new_state[lk] = keep
+            if collect:
+                acts.append(x)
+        return x, new_state, acts
+
+    def _finish(self, preout):
+        """The output at the output dtype, after the output layer's
+        activation."""
+        out = preout.to(self.dtype_policy.output_dtype)
+        last = self.layers[-1]
+        if type(last).__name__ in OUTPUT_LAYER_TYPES:
+            out = activations.resolve(last.activation)(out)
+        return out
+
+    def output(self, x, train: bool = False,
+               features_mask=None) -> np.ndarray:
+        """Inference forward (reference `output`, :1193)."""
+        with torch.inference_mode():
+            out, _, _ = self._forward(self._compute_copy(), self.state, x,
+                                      features_mask, keep_rnn_state=False,
+                                      train=train)
+            return to_numpy(self._finish(out))
+
+    def feed_forward(self, x, train: bool = False,
+                     features_mask=None) -> List[np.ndarray]:
+        """Every layer's output (reference `feedForward`); an output
+        layer's entry is its pre-activation."""
+        with torch.inference_mode():
+            _, _, acts = self._forward(self._compute_copy(), self.state, x,
+                                       features_mask, keep_rnn_state=False,
+                                       train=train, collect=True)
+            return [to_numpy(a) for a in acts]
+
+    def predict(self, x) -> np.ndarray:
+        return np.argmax(self.output(x), axis=-1)
+
+    # ------------------------------------------------------------------ loss
+
+    def _loss(self, params, preout, labels, lmask, eb=None):
+        """The output layer's loss in the loss dtype, summed over entries
+        and divided by `eb` (default: the minibatch rows), plus the l1/l2
+        penalty over the same divisor (reference `_loss_from_preout`)."""
+        layer = self.layers[-1]
+        if type(layer).__name__ not in OUTPUT_LAYER_TYPES:
+            raise ValueError(f"the last layer ({type(layer).__name__}) is "
+                             "not an output layer; it has no loss")
+        if eb is None:
+            eb = losses_mod.effective_batch_size(labels, lmask)
+        data_loss = losses_mod.score(
+            layer.loss_function, labels, preout.to(self._loss_dtype),
+            layer.activation, lmask, eb=eb)
+        return data_loss + self._l1_l2_penalty(params) / eb
+
+    def _batch(self, ds: DataSet):
+        """Features, labels and masks of one DataSet, on the device."""
+        return tuple(None if a is None else torch.as_tensor(
+            a, device=self.device) for a in (ds.features, ds.labels,
+                                             ds.features_mask,
+                                             ds.labels_mask))
+
+    def score(self, data, labels=None) -> float:
+        """Loss of the current params on one batch (syncs)."""
+        x, y, fmask, lmask = self._batch(_as_dataset(data, labels))
+        with torch.inference_mode():
+            preout, _, _ = self._forward(self._compute_copy(), self.state, x,
+                                         fmask, keep_rnn_state=False)
+            return float(self._loss(self.params_tree, preout, y, lmask))
+
+    # ------------------------------------------------------------------- fit
+
+    def fit(self, data, labels=None) -> "MultiLayerNetwork":
+        """Train on a DataSet, an iterable of DataSets, or `features,
+        labels` (reference `fit`, :775)."""
+        if self.params_tree is None:
+            self.init()
+        self._check_trainable(
+            (self.conf.pretrain, "layerwise pretraining (RBM, AE, VAE)", 9))
+        if labels is not None or isinstance(data, DataSet) or (
+                isinstance(data, tuple) and len(data) == 2
+                and not isinstance(data[0], DataSet)):
+            items = [_as_dataset(data, labels)]
+        else:
+            if hasattr(data, "reset"):
+                data.reset()
+            items = data
+        if self.conf.backprop:
+            for ds in items:
+                self._fit_dispatch(_as_dataset(ds))
+        self.epoch += 1
+        return self
+
+    def _fit_dispatch(self, ds: DataSet) -> None:
+        """Truncated BPTT for a sequence longer than a chunk, else one step
+        (reference `_fit_dispatch_inner`, :868)."""
+        tbptt = str(self.conf.backprop_type).lower() == "truncatedbptt"
+        for _ in range(max(1, int(self.conf.global_conf.iterations))):
+            if (tbptt and ds.features.ndim == 3
+                    and ds.features.shape[1] > self.conf.tbptt_fwd_length):
+                self._fit_tbptt(ds)
+            else:
+                x, y, fmask, lmask = self._batch(ds)
+                self._train_step(x, y, fmask, lmask, carry_rnn=False)
+                self.iteration += 1
+
+    def _train_step(self, x, y, fmask, lmask, carry_rnn: bool,
+                    eb=None) -> None:
+        """One step in three parts (each a method, so a profiler can wrap
+        them on the instance): forward + loss, backward, update. The new
+        layer state (running statistics; with `carry_rnn` the recurrent h
+        and c) is kept detached: a chunk's gradient ends at its edge."""
+        loss, new_state = self._train_forward(x, y, fmask, lmask, carry_rnn,
+                                              eb)
+        grads = self._train_backward(loss)
+        self._train_update(grads)
+        for lk, s in new_state.items():
+            self.state[lk] = {**self.state.get(lk, {}),
+                              **{k: v.detach() for k, v in s.items()}}
+        self._score = loss.detach()
+
+    def _train_forward(self, x, y, fmask, lmask, carry_rnn, eb):
+        """The loss, recorded by autograd from the f32 leaves through their
+        compute-dtype cast, and the new layer state."""
+        with torch.inference_mode(False), torch.enable_grad():
+            params = params_mod.cast_floating(self.params_tree,
+                                              self.dtype_policy.compute_dtype)
+            preout, new_state, _ = self._forward(
+                params, self.state, x, fmask, keep_rnn_state=carry_rnn,
+                train=True)
+            loss = self._loss(self.params_tree, preout, y, lmask, eb)
+        return loss, new_state
+
+    def _fit_tbptt(self, ds: DataSet) -> None:
+        """Truncated BPTT over one batch of sequences (see the module
+        docstring; reference `_fit_tbptt`, :1096)."""
+        if rnn_mod.decode_capacity(self.layers) is not None:
+            raise ValueError(
+                "truncated BPTT carries undeclared layer state across "
+                "chunks, which would thread attention KV caches into "
+                "training; unset decode_cache_length (it is an inference "
+                "feature) or use standard backprop")
+        x, y, fmask, lmask = self._batch(ds)
+        if y is None or not (y.dim() == 3 or (
+                y.dim() == 2 and not y.is_floating_point())):
+            raise ValueError(
+                "Truncated BPTT requires per-timestep labels: [b, t, c] "
+                "one-hot or [b, t] integer class ids")
+        fwd, t = int(self.conf.tbptt_fwd_length), x.shape[1]
+        eb = losses_mod.effective_batch_size(x, lmask)
+        saved_state = dict(self.state)  # the steps below add h and c
+        for start in range(0, t, fwd):
+            sl = slice(start, min(start + fwd, t))
+            self._train_step(
+                x[:, sl], y[:, sl], None if fmask is None else fmask[:, sl],
+                None if lmask is None else lmask[:, sl], carry_rnn=True,
+                eb=eb)
+        # Drop the carried h and c; keep declared state (running stats).
+        declared = self._declared_state()
+        kept = {lk: {k: v for k, v in s.items() if k in declared.get(lk, ())}
+                for lk, s in self.state.items()}
+        self.state = {lk: s for lk, s in kept.items() if s}
+        for lk, s in saved_state.items():
+            self.state.setdefault(lk, s)
+        self.iteration += 1
+
+    # ------------------------------------------------------------------ rnn
+
+    def rnn_time_step(self, x) -> np.ndarray:
+        """Stateful inference: [b, f] (one step, returned as [b, c]) or
+        [b, t, f]; the recurrent layers' h and c persist across calls."""
+        x = torch.as_tensor(x)
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[:, None, :]
+        self._rnn_pos = rnn_mod.check_decode_budget(
+            self._rnn_pos, x.shape[1], rnn_mod.decode_capacity(self.layers))
+        state = rnn_mod.merge_rnn_state(self.state, self._rnn_state)
+        with torch.inference_mode():
+            out, new_state, _ = self._forward(self._compute_copy(), state, x,
+                                              None, keep_rnn_state=True)
+            self._rnn_state = rnn_mod.split_rnn_state(new_state,
+                                                      self._declared_state())
+            out = to_numpy(self._finish(out))
+        return out[:, 0] if squeeze and out.ndim == 3 else out
+
+    # ------------------------------------------------------------- params io
+
+    def _param_orders(self):
+        return {lk: list(layer.param_shapes())
+                for lk, layer in zip(self.layer_keys, self.layers)}
+
+    def num_params(self) -> int:
+        return int(sum(np.prod(s) for layer in self.layers
+                       for s in layer.param_shapes().values()))
+
+    def params(self) -> np.ndarray:
+        """The flat 1-D param view (reference `Model.params()`)."""
+        return params_mod.flatten_params(self.params_tree, self.layer_keys,
+                                         self._param_orders())
+
+    def set_params(self, flat) -> None:
+        """Write a flat view (as `params()` gives it) into the params."""
+        new = params_mod.unflatten_params(flat, self.params_tree,
+                                          self.layer_keys,
+                                          self._param_orders())
+        with torch.no_grad():
+            for lk, p in new.items():
+                for k, a in p.items():
+                    self.params_tree[lk][k].copy_(a)
+        self._compute_params = None

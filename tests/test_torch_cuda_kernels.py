@@ -434,3 +434,146 @@ def test_bottleneck_fn_gradients_match_plain(cuda):
     want = grads(_plain_block)
     for a, b in zip(got, want):
         _close(a, b, torch.float32, RESNET_TOL)
+
+
+# ------------------------------------------------------------- LSTM cell
+
+
+def _cell_inputs(rng, b, n, peephole, masked, dtype, dev, t=3):
+    """One step's operands; xw_t is a time step of a [b, t, 4n] tensor, so
+    its rows are strided as the layer's scan hands them over."""
+    xw = _t(rng.randn(b, t, 4 * n), dtype, dev).unbind(1)[1]
+    h, c = (_t(rng.randn(b, n), dtype, dev) for _ in range(2))
+    rw = _t(rng.randn(n, 4 * n) * n ** -0.5, dtype, dev)
+    pw = _t(rng.randn(3 * n) * 0.3, dtype, dev) if peephole else None
+    m = _t(rng.rand(b) < 0.6, dtype, dev) if masked else None
+    return xw, h, c, rw, pw, m
+
+
+def _f32(args):
+    return [None if a is None else a.float() for a in args]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("peephole,masked", [
+    (True, False), (False, False), (True, True), (False, True)])
+@pytest.mark.parametrize("b,n", [(32, 256), (1, 256), (3, 200), (5, 7)])
+def test_lstm_cell_kernel_matches_plain(cuda, dtype, peephole, masked, b, n):
+    # bf16: against the plain version run in f32 on the same inputs (the
+    # kernel, like the TPU body, keeps z and the gates in f32).
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    args = _cell_inputs(np.random.RandomState(b + n), b, n, peephole, masked,
+                        dtype, cuda)
+    before = kernels.launches["lstm_cell"].value
+    got = lc.lstm_cell(*args, "sigmoid", "tanh")
+    assert kernels.launches["lstm_cell"].value == before + 1
+    want = lc.lstm_cell_plain(*_f32(args), "sigmoid", "tanh")
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (b, n)
+        _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", ["identity", "relu", "tanh", "sigmoid"])
+def test_lstm_cell_kernel_cell_activations(cuda, dtype, act):
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    args = _cell_inputs(np.random.RandomState(9), 4, 40, True, True, dtype,
+                        cuda)
+    got = lc.lstm_cell(*args, "sigmoid", act)
+    want = lc.lstm_cell_plain(*_f32(args), "sigmoid", act)
+    for g, w in zip(got, want):
+        _close(g, w, dtype)
+
+
+def test_lstm_cell_fn_gradients_match_plain(cuda):
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    rng = np.random.RandomState(10)
+    args = list(_cell_inputs(rng, 6, 24, True, True, torch.float32, cuda))
+    leaves = args[:5]
+    for a in leaves:
+        a.requires_grad_(True)
+    ws = [_t(rng.randn(6, 24), torch.float32, cuda) for _ in range(3)]
+
+    def grads(fn):
+        outs = fn(*args, "sigmoid", "tanh")
+        loss = sum((o * w).sum() for o, w in zip(outs, ws))
+        return torch.autograd.grad(loss, leaves)
+
+    kernels.reset_counts()
+    got = grads(lc.lstm_cell)
+    c = kernels.counts()
+    assert c["launches"]["lstm_cell"] == 1
+    assert not any(c["plain_calls"].values())
+    for a, b in zip(got, grads(lc.lstm_cell_plain)):
+        _close(a, b, torch.float32)
+
+
+def test_lstm_cell_wrapper_refuses(cuda):
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    xw, h, c, rw, pw, m = _cell_inputs(np.random.RandomState(11), 2, 8, True,
+                                       False, torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.19"):
+        lc.lstm_cell(xw, h, c, rw, pw, m, "hardsigmoid", "tanh")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.19"):
+        lc.lstm_cell(xw, h, c, rw, pw, m, "sigmoid", "softsign")
+    with pytest.raises(ValueError, match="RW"):
+        lc.lstm_cell(xw, h, c, rw[:, :8], pw, m)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        lc._cell_forward(xw, h, c, rw.requires_grad_(True), pw, m, "sigmoid",
+                         "tanh")
+
+
+def _char_rnn_pair(dev, dtype):
+    """A small char-RNN (V=11, 2 x 24 units, tBPTT 5) on the card and an
+    f32 one on the CPU with the same params, and one batch at T=12 (two
+    chunks of 5 and a 2-step remainder)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    cpu = MultiLayerNetwork(zoo.char_rnn(vocab_size=11, hidden=24,
+                                         tbptt_length=5),
+                            device="cpu").init()
+    card = MultiLayerNetwork(
+        zoo.char_rnn(vocab_size=11, hidden=24, tbptt_length=5, dtype=dtype),
+        device=dev).init(params={k: {n: a.detach() for n, a in p.items()}
+                                 for k, p in cpu.params_tree.items()})
+    ids = np.random.RandomState(12).randint(0, 11, (4, 13))
+    eye = np.eye(11, dtype=np.float32)
+    return card, cpu, DataSet(eye[ids[:, :-1]], eye[ids[:, 1:]])
+
+
+def test_char_rnn_fit_on_the_card_matches_the_cpu(cuda):
+    # f32: two tBPTT fit calls, every cell through the kernel (2 layers x
+    # 12 steps per call), the scores within 1e-3 relative, then `output`.
+    card, cpu, ds = _char_rnn_pair(cuda, "float32")
+    kernels.reset_counts()
+    for _ in range(2):
+        card.fit(ds)
+        cpu.fit(ds)
+        assert abs(card.score_value - cpu.score_value) <= 1e-3 * abs(
+            cpu.score_value)
+    c = kernels.counts()
+    assert c["launches"]["lstm_cell"] == 2 * 2 * 12
+    assert c["launches"]["fused_update"] == 2 * 3 * 3
+    np.testing.assert_allclose(card.output(ds.features),
+                               cpu.output(ds.features), atol=1e-3)
+
+
+def test_char_rnn_bf16_on_the_card(cuda):
+    # bf16 compute: `output` against the CPU's f32 net on the same params
+    # within 4e-2; then fit runs through the kernels to a finite score (a
+    # bf16 step's gradients differ from f32 by rounding, and RMSProp's
+    # normalized step turns that into visible parameter changes, so the
+    # trajectories are not compared).
+    card, cpu, ds = _char_rnn_pair(cuda, "bfloat16")
+    np.testing.assert_allclose(card.output(ds.features),
+                               cpu.output(ds.features), atol=4e-2)
+    kernels.reset_counts()
+    card.fit(ds)
+    assert np.isfinite(card.score_value)
+    assert kernels.counts()["launches"]["lstm_cell"] == 2 * 12

@@ -20,6 +20,7 @@ import torch
 import deeplearning4j_tpu_torch
 from deeplearning4j_tpu_torch.models import resnet, zoo
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.serving import InferenceServer
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,7 +63,12 @@ def test_every_port_module_imports_without_jax():
             "deeplearning4j_tpu_torch.nn.conf.enums",
             "deeplearning4j_tpu_torch.nn.layers.bottleneck",
             "deeplearning4j_tpu_torch.nn.layers.convolution",
-            "deeplearning4j_tpu_torch.nn.layers.pooling"} <= set(mods)
+            "deeplearning4j_tpu_torch.nn.layers.pooling",
+            "deeplearning4j_tpu_torch.kernels.lstm_cell",
+            "deeplearning4j_tpu_torch.nn.conf.inputs",
+            "deeplearning4j_tpu_torch.nn.engine",
+            "deeplearning4j_tpu_torch.nn.layers.recurrent",
+            "deeplearning4j_tpu_torch.nn.multilayer"} <= set(mods)
     code = (
         "import sys\n"
         "for blocked in ('jax', 'jaxlib', 'deeplearning4j_tpu'):\n"
@@ -106,5 +112,7 @@ def test_entry_points_default_to_the_card():
         ComputationGraph(resnet.resnet50(n_classes=5, image=32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceServer()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiLayerNetwork(zoo.char_rnn(vocab_size=11, hidden=8))
     with pytest.raises(ValueError, match="not supported"):
         ComputationGraph(conf, device="meta")
