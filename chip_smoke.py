@@ -101,16 +101,45 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               the CPU (plain versions): `output` within 1e-3, one `fit`
               call's score within 1e-3 relative, and per layer RMSProp's g2
               within 4e-2 of the CPU's largest g2 (a cut gradient shows).
-15. trace   - where one decode step's, one 1024-token prefill's, one LM
-              training step's, one T1 and one T2 step's and one char-RNN
-              fit call's (forward, backward, update; the call's two chunks
-              summed) and one `rnn_time_step`'s time goes: host wall time,
-              kernel time on the card (torch.profiler), the card's idle
-              share and the top kernels.
+15. long_kernels - the streamed flash forward (row 4) and backward (row
+              7: dq, dk/dv) at the long-context slice's shape ([1, 32768,
+              8, 64], causal) in bf16 and f32 against their plain versions
+              on the card (4e-2 / 1e-4 as above, the lse at 1e-4), and at a
+              ragged T (12,345, f32), timed beside the plain version, the
+              bound and causal SDPA (the forward; forward + backward less
+              the forward), and beside the resident kernels of the same
+              functions (rows 5, 6); each wrapper's workspace bytes. Row 13
+              (`bench.py:1045 stream_sum`): row 4 over the triangular and
+              the rectangular list at [1, 32768, 4, 64] bf16, o summed; the
+              rectangle's o equals the triangle's within 4e-2; tri_ms,
+              rect_ms and their ratio.
+16. long_train - the LM of phase 5 at T=32,768 (`transformer_lm(8192,
+              t=32768, ...)`, ~38M params), `fit` at B=1 with Adam on the
+              same learnable id rule, 2 warm-up and 5 timed steps over 2
+              batches: every attention past the resident K/V limit, so per
+              step exactly 4 streamed forwards, 4 dq, 4 dk/dv, 9 LayerNorm
+              and 24 update launches, none of rows 3, 5 and 6, 0 plain
+              calls; scores finite and falling; ms/step, tokens/s, peak
+              memory.
+17. long_output - 3 `output` calls of that net at B=1, T=32,768: 4
+              streamed forwards and 9 LayerNorms per call, 0 plain calls;
+              probabilities finite, summing to 1, equal across calls.
+18. long_parity - one f32 `fit` step at B=1, T=32,768 from the same seeded
+              params through the streamed rows 4/7 and through the
+              resident rows 5/6 (the port's `_RESIDENT_KV_LIMIT` raised for
+              that step and restored): scores within 1e-4 relative, Adam's
+              m per vertex within max(1e-3, twice the step's own rounding
+              floor) of the resident run's largest |m| (see the phase).
+19. trace   - where one decode step's, one 1024-token prefill's, one LM
+              training step's, one T1 and one T2 step's, one char-RNN fit
+              call's (forward, backward, update; the call's two chunks
+              summed), one `rnn_time_step`'s and one long-context training
+              step's time goes: host wall time, kernel time on the card
+              (torch.profiler), the card's idle share and the top kernels.
 
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
-rnn_sample) and, last,
+rnn_sample, long_train, long_output; row 13 on row 4's entry) and, last,
 the result line. With no GPU, without the package beside it, or when any phase
 fails, it exits non-zero and prints no result.
 """
@@ -151,6 +180,11 @@ KERNEL_INFO = {
     "bottleneck_infer": (ROOT + "bottleneck_block.cu", BB + "261"),
     "lstm_cell": (ROOT + "lstm_cell.cu",
                   "deeplearning4j_tpu/kernels/lstm_cell.py:119"),
+    "flash_attention_stream": (ROOT + "flash_attention_stream.cu", FA + "137"),
+    "flash_attention_bwd_dq_stream": (ROOT + "flash_attention_stream.cu",
+                                      FA + "551"),
+    "flash_attention_bwd_dkv_stream": (ROOT + "flash_attention_stream.cu",
+                                       FA + "595"),
 }
 SERVING_KERNELS = ("layernorm_norm_act", "flash_attention",
                    "paged_decode_attention")
@@ -190,6 +224,21 @@ RNN_V, RNN_H, RNN_LAYERS, RNN_B, RNN_T, RNN_CHUNK = 77, 256, 2, 32, 100, 50
 RNN_WARMUP, RNN_TIMED, RNN_SAMPLE, RNN_PARITY_B = 3, 10, 200, 4
 RNN_LAUNCHES = {"lstm_cell": RNN_LAYERS * RNN_T,
                 "fused_update": (RNN_LAYERS + 1) * (RNN_T // RNN_CHUNK)}
+
+# Long context: the same LM at T = 32,768, B = 1, where the K/V of
+# one (batch, head) outgrow the resident limit and every attention takes the
+# streamed rows 4 and 7. Row 13 (`bench.py:1033`) runs row 4 over the
+# triangular and the rectangular list at B*H = 4.
+LONG_T, LONG_B, LONG_WARMUP, LONG_TIMED = 32768, 1, 2, 5
+RAGGED_T = 12345            # over the f32 limit, no multiple of 64
+ROW13_HEADS = 4
+LSE_TOL = 1e-4
+LONG_REPS = dict(reps=3, warmup=1)
+LONG_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1,
+                 "flash_attention_stream": BLOCKS,
+                 "flash_attention_bwd_dq_stream": BLOCKS,
+                 "flash_attention_bwd_dkv_stream": BLOCKS,
+                 "fused_update": 2 + 5 * BLOCKS + 2}
 
 
 def card_line() -> str:
@@ -262,6 +311,21 @@ def bound(nbytes, ops, dtype):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def _launch_errors(counts, per_call, calls):
+    """Errors unless `counts` (from 0) hold exactly `calls` x `per_call`
+    launches, 0 of every other kernel, and no plain-version call; and the
+    launches expected."""
+    want = {name: 0 for name in KERNEL_INFO}
+    want.update({k: v * calls for k, v in per_call.items()})
+    errors = []
+    if counts["launches"] != want:
+        errors.append(f"launches {counts['launches']} != expected {want}")
+    if any(counts["plain_calls"].values()):
+        errors.append(f"plain versions ran on the card: "
+                      f"{counts['plain_calls']}")
+    return errors, want
 
 
 def kernel_cases(torch, dev, dtype_name):
@@ -422,16 +486,20 @@ def train_kernel_cases(torch, dev, dtype_name, conf):
     return cases
 
 
-def _lib_ms(torch, lib):
-    """(event-timed ms, profiler ms) of a library yardstick, or Nones."""
+def _lib_ms(torch, lib, reps=25, warmup=5):
+    """(event-timed ms, profiler ms) of a library yardstick, or Nones. Long
+    calls (few reps) are not profiled: see `phase_long_kernels`."""
     if lib is None:
         return None, None
+    kw = dict(reps=reps, warmup=warmup)
+    profiled = reps >= 20
     if isinstance(lib, tuple):
         full, part = lib
-        dev_full, dev_part = device_ms(torch, full), device_ms(torch, part)
-        return (time_ms(full) - time_ms(part),
-                None if None in (dev_full, dev_part) else dev_full - dev_part)
-    return time_ms(lib), device_ms(torch, lib)
+        dev = (device_ms(torch, full), device_ms(torch, part)) if profiled \
+            else (None, None)
+        return (time_ms(full, **kw) - time_ms(part, **kw),
+                None if None in dev else dev[0] - dev[1])
+    return time_ms(lib, **kw), device_ms(torch, lib) if profiled else None
 
 
 def phase_kernels(card, torch, dev, train_conf):
@@ -632,14 +700,7 @@ def phase_train(card, torch, kernels, conf, dev):
         wall.append((time.perf_counter() - t0) * 1e3)
     counts = kernels.counts()
     steps = WARMUP + TIMED
-    errors = []
-    want = {name: 0 for name in KERNEL_INFO}
-    want.update({k: n * steps for k, n in TRAIN_LAUNCHES.items()})
-    if counts["launches"] != want:
-        errors.append(f"launches {counts['launches']} != expected {want}")
-    if any(counts["plain_calls"].values()):
-        errors.append(f"plain versions ran on the card: "
-                      f"{counts['plain_calls']}")
+    errors, want = _launch_errors(counts, TRAIN_LAUNCHES, steps)
     if not all(np.isfinite(scores)):
         errors.append(f"non-finite score: {scores}")
     last3 = float(np.mean(scores[-3:]))
@@ -792,12 +853,13 @@ def trace_train_step(torch, net, batch):
 
 
 def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
-                rn_batches, rnn_net, rnn_batch):
+                rn_batches, rnn_net, rnn_batch, long_net, long_batch):
     """Where the time of one decode step (4 slots at depths 1000, 700, 300,
     40), of one 1024-token prefill, of the three parts of one LM training
-    step, of one T1 and one T2 ResNet step and of one char-RNN fit call
-    (two tBPTT chunks), and of one char-RNN `rnn_time_step` (one character,
-    one stream) goes: host wall time per call, kernel time on the card, the
+    step, of one T1 and one T2 ResNet step, of one char-RNN fit call (two
+    tBPTT chunks), of one char-RNN `rnn_time_step` (one character, one
+    stream) and of the three parts of one long-context training step (B=1,
+    T=32,768) goes: host wall time per call, kernel time on the card, the
     card's idle share, and the top kernels."""
     from deeplearning4j_tpu_torch.models.zoo import PagedDecodeStepper
     from deeplearning4j_tpu_torch.serving.scheduler import (
@@ -834,6 +896,7 @@ def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
         out[f"resnet_{path}_step"] = trace_train_step(
             torch, rn_nets[path], rn_batches[path][0])
     out["rnn_fit_call"] = trace_train_step(torch, rnn_net, rnn_batch)
+    out["long_train_step"] = trace_train_step(torch, long_net, long_batch)
     emit(card, phase="trace", **out)
 
 
@@ -963,18 +1026,6 @@ def _rnn_conf():
                         tbptt_length=RNN_CHUNK)
 
 
-def _rnn_launch_errors(counts, per_call, calls):
-    want = {name: 0 for name in KERNEL_INFO}
-    want.update({k: v * calls for k, v in per_call.items()})
-    errors = []
-    if counts["launches"] != want:
-        errors.append(f"launches {counts['launches']} != expected {want}")
-    if any(counts["plain_calls"].values()):
-        errors.append(f"plain versions ran on the card: "
-                      f"{counts['plain_calls']}")
-    return errors, want
-
-
 def phase_rnn_train(card, torch, kernels, dev):
     """The full-width char-RNN trained with `MultiLayerNetwork.fit` under
     truncated BPTT: 3 warm-up and 10 timed calls over 2 batches."""
@@ -993,7 +1044,7 @@ def phase_rnn_train(card, torch, kernels, dev):
         wall.append((time.perf_counter() - t0) * 1e3)
     calls = RNN_WARMUP + RNN_TIMED
     counts = kernels.counts()
-    errors, want = _rnn_launch_errors(counts, RNN_LAUNCHES, calls)
+    errors, want = _launch_errors(counts, RNN_LAUNCHES, calls)
     if not all(np.isfinite(scores)):
         errors.append(f"non-finite score: {scores}")
     last3 = float(np.mean(scores[-3:]))
@@ -1037,7 +1088,7 @@ def phase_rnn_sample(card, torch, kernels, net, perm):
             probs.append(p)
             ids.append(p.argmax(-1))
         counts = kernels.counts()
-        errs, _ = _rnn_launch_errors(counts, {"lstm_cell": RNN_LAYERS},
+        errs, _ = _launch_errors(counts, {"lstm_cell": RNN_LAYERS},
                                      RNN_SAMPLE)
         errors += [f"{streams} streams: {e}" for e in errs]
         for k, v in counts["launches"].items():
@@ -1251,11 +1302,11 @@ def rn_bn_cases(torch, dev, dtype_name, b):
     return cases
 
 
-def _safe_lib_ms(torch, lib):
+def _safe_lib_ms(torch, lib, **reps):
     """A yardstick call that the installed PyTorch refuses is recorded as
     such: it is no part of the port."""
     try:
-        return _lib_ms(torch, lib) + (None,)
+        return _lib_ms(torch, lib, **reps) + (None,)
     except RuntimeError as e:
         return None, None, f"{type(e).__name__}: {e}"[:200]
 
@@ -1359,18 +1410,6 @@ def _rn_net(torch, dev, path, **init):
     return ComputationGraph(conf, device=dev).init(**init)
 
 
-def _launch_errors(counts, path, n):
-    want = {name: 0 for name in KERNEL_INFO}
-    want.update({k: v * n for k, v in RN_LAUNCHES[path].items()})
-    errors = []
-    if counts["launches"] != want:
-        errors.append(f"launches {counts['launches']} != expected {want}")
-    if any(counts["plain_calls"].values()):
-        errors.append(f"plain versions ran on the card: "
-                      f"{counts['plain_calls']}")
-    return errors, want
-
-
 def phase_resnet_train(card, torch, kernels, dev, path):
     """`path` "t1" or "t2": 3 warm-up and 10 timed `fit` steps over 2
     batches; B halves while a step does not fit the card (the cut is
@@ -1400,7 +1439,7 @@ def phase_resnet_train(card, torch, kernels, dev, path):
             batch //= 2
     counts = kernels.counts()
     steps = RN_WARMUP + RN_TIMED
-    errors, want = _launch_errors(counts, path, steps)
+    errors, want = _launch_errors(counts, RN_LAUNCHES[path], steps)
     if not all(np.isfinite(scores)):
         errors.append(f"non-finite score: {scores}")
     last3 = float(np.mean(scores[-3:]))
@@ -1433,7 +1472,7 @@ def phase_resnet_infer(card, torch, kernels, path, net, x):
         wall.append((time.perf_counter() - t0) * 1e3)
     counts = kernels.counts()
     calls = RN_WARMUP + RN_TIMED
-    errors, want = _launch_errors(counts, path, calls)
+    errors, want = _launch_errors(counts, RN_LAUNCHES[path], calls)
     out = outs[-1]
     if out.shape != (INFER_B, RN_CLASSES) or not np.isfinite(out).all():
         errors.append(f"output {out.shape}, finite {np.isfinite(out).all()}")
@@ -1559,6 +1598,327 @@ def phase_resnet_parity(card, torch, dev):
     return not errors
 
 
+# ------------------------------------------------------------ long context
+
+
+def long_kernel_cases(torch, dev, dtype_name, t, heads):
+    """Rows 4 and 7 at [1, t, heads, 64], causal, in the tuple form of
+    `kernel_cases` (a library pair is timed as the first call less the
+    second: SDPA's backward is forward + backward less the forward), each
+    with the resident kernel of the same function (rows 5 and 6, one block
+    per 64-row tile) last: what the streamed schedule changes."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    dt = getattr(torch, dtype_name)
+    es = torch.tensor([], dtype=dt).element_size()
+    g = torch.Generator(device=dev).manual_seed(t)
+    dh = D_MODEL // HEADS
+    q, k, v, do = (torch.randn(1, t, heads, dh, generator=g,
+                               device=dev).to(dt) for _ in range(4))
+    if not fa.streamed(q):
+        raise AssertionError(f"T={t} {dtype_name} is under the resident "
+                             "limit: the streamed rows would not run")
+    scale = dh ** -0.5
+    n, rows = t * heads * dh, heads * t
+    pairs = heads * t * (t + 1) // 2            # (q, k) pairs, causal half
+    shape = f"[1,{t},{heads},{dh}] causal"
+    qh, kh, vh, doh = (a.transpose(1, 2).contiguous() for a in (q, k, v, do))
+    qg, kg, vg = (a.detach().requires_grad_(True) for a in (qh, kh, vh))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), doh)
+
+    o, lse = fa.flash_stream_fwd_plain(q, k, v, True, scale)
+    bwd = (q, k, v, do, lse, fa._drow(o, do), True, scale)
+    del o
+    return [
+        ("flash_attention_stream", shape,
+         lambda: fa.flash_attention_stream(q, k, v, True, scale),
+         lambda: fa.flash_stream_fwd_plain(q, k, v, True, scale),
+         lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+         4 * n * es + 4 * rows, 4 * dh * pairs,
+         lambda: fa.flash_attention_fwd_lse(q, k, v, True, scale)),
+        ("flash_attention_bwd_dq_stream", shape,
+         lambda: fa.flash_attention_bwd_dq_stream(*bwd),
+         lambda: fa.flash_stream_bwd_dq_plain(*bwd),
+         (sdpa_fwd_bwd, sdpa_fwd), 5 * n * es + 8 * rows, 6 * dh * pairs,
+         lambda: fa.flash_attention_bwd_dq(*bwd)),
+        ("flash_attention_bwd_dkv_stream", shape,
+         lambda: fa.flash_attention_bwd_dkv_stream(*bwd),
+         lambda: fa.flash_stream_bwd_dkv_plain(*bwd),
+         (sdpa_fwd_bwd, sdpa_fwd), 6 * n * es + 8 * rows, 8 * dh * pairs,
+         lambda: fa.flash_attention_bwd_dkv(*bwd)),
+    ]
+
+
+def _long_compare(name, got, want, dtype):
+    """o, dq, dk, dv at TOL[dtype]; the forward's lse (f32) at LSE_TOL."""
+    if name != "flash_attention_stream":
+        return compare(got, want, dtype)
+    err_o, ok_o = compare(got[0], want[0], dtype)
+    err_l, ok_l = compare(got[1], want[1], dtype,
+                          {dtype: LSE_TOL})
+    return max(err_o, err_l), ok_o and ok_l
+
+
+def phase_long_kernels(card, torch, dev):
+    """Rows 4 and 7 at the slice's shape ([1, 32768, 8, 64], causal) in
+    bf16 and f32, against their plain versions on the card (o, dq, dk, dv
+    at rtol = atol = 4e-2 in bf16 and 1e-4 in f32 with TF32 off; the lse
+    at 1e-4), timed beside the plain version, the bound and the library
+    call; the same at a ragged T (12,345, f32). Then row 13: row 4 over
+    the triangular and the rectangular list at B*H = 4 (bf16, inputs
+    randn * 0.5 as `bench.py:1089`): each o summed, the rectangle's o
+    against the triangle's at 4e-2, and the two times.
+
+    Times here are CUDA events only. torch.profiler, asked for a few of
+    these ~100 ms calls alone, returned none or some of their kernels on
+    an H100, with or without a 0.5 s pause inside the profile, while it
+    returned every kernel of the traced long-context step: the rows'
+    kernel times come from the trace phase."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    rows = []
+    for dtype, t in (("bfloat16", LONG_T), ("float32", LONG_T),
+                     ("float32", RAGGED_T)):
+        for name, shape, kern, plain, lib, nbytes, ops, resident in \
+                long_kernel_cases(torch, dev, dtype, t, HEADS):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err, ok = _long_compare(name, got, want, dtype)
+            del got, want
+            bound_ms, bound_by = bound(nbytes, ops, dtype)
+            lib_ms, lib_dev_ms, lib_error = _safe_lib_ms(torch, lib,
+                                                         **LONG_REPS)
+            rows.append({
+                "name": name, "dtype": dtype, "shape": shape,
+                "max_abs_err": err,
+                "tolerance": (f"rtol=atol={TOL[dtype]}"
+                              + (f", lse {LSE_TOL}" if name ==
+                                 "flash_attention_stream" else "")),
+                "ok": ok, "ms": time_ms(kern, **LONG_REPS),
+                "plain_ms": time_ms(plain, **LONG_REPS),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms, "library_error": lib_error,
+                "resident_ms": time_ms(resident, **LONG_REPS),
+                "device_ms": None, "library_device_ms": lib_dev_ms,
+                "workspace_bytes": fa.stream_workspace_bytes(
+                    1, t, HEADS, D_MODEL // HEADS)})
+            emit(card, phase="long_kernels", **rows[-1])
+        torch.cuda.empty_cache()
+
+    dh = D_MODEL // HEADS
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = ((torch.randn(1, LONG_T, ROW13_HEADS, dh, generator=g,
+                            device=dev) * 0.5).to(torch.bfloat16)
+               for _ in range(3))
+
+    def stream_sum(pairs):
+        return fa.flash_attention_stream(q, k, v, True, with_lse=False,
+                                         pairs=pairs).float().sum()
+
+    tri = fa.flash_attention_stream(q, k, v, True, with_lse=False)
+    rect = fa.flash_attention_stream(q, k, v, True, with_lse=False,
+                                     pairs="rectangle")
+    torch.cuda.synchronize()
+    err, ok = compare(rect, tri, "bfloat16")
+    del tri, rect
+    tri_ms = time_ms(lambda: stream_sum("triangle"), **LONG_REPS)
+    rect_ms = time_ms(lambda: stream_sum("rectangle"), **LONG_REPS)
+    tri_pairs = ROW13_HEADS * LONG_T * (LONG_T + 1) // 2
+    nbytes = 4 * ROW13_HEADS * LONG_T * dh * 2
+    row13 = {
+        "name": "stream_sum", "kernel": "flash_attention_stream",
+        "dtype": "bfloat16", "shape": f"[1,{LONG_T},{ROW13_HEADS},{dh}] "
+        "causal, triangular vs rectangular list",
+        "max_abs_err_rect_vs_tri": err, "tolerance": "rtol=atol=0.04",
+        "ok": ok, "tri_ms": tri_ms, "rect_ms": rect_ms,
+        "rect_over_tri": rect_ms / tri_ms,
+        "tri_bound_ms": bound(nbytes, 4 * dh * tri_pairs, "bfloat16")[0],
+        "rect_bound_ms": bound(nbytes, 4 * dh * ROW13_HEADS * LONG_T ** 2,
+                               "bfloat16")[0]}
+    emit(card, phase="long_kernels", **row13)
+    return rows, row13
+
+
+def _long_conf(dtype):
+    from deeplearning4j_tpu_torch.models import zoo
+
+    return zoo.transformer_lm(VOCAB, t=LONG_T, d_model=D_MODEL,
+                              n_heads=HEADS, n_blocks=BLOCKS, dtype=dtype)
+
+
+def _long_batches(torch, dev, seed, n):
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+
+    return [MultiDataSet([torch.as_tensor(x, device=dev)],
+                         [torch.as_tensor(y, device=dev)])
+            for x, y in lm_batches(seed, LONG_B, LONG_T, n)]
+
+
+def phase_long_train(card, torch, kernels, dev):
+    """`transformer_lm` (V=8192, d=512, 8 heads, 4 blocks, bf16 compute)
+    trained with `ComputationGraph.fit` at B=1, T=32,768: 2 warm-up and 5
+    timed steps over 2 seeded batches; per step exactly 4 streamed
+    forwards, 4 dq, 4 dk/dv, 9 LayerNorm and 24 update launches, none of
+    rows 3, 5 and 6, 0 plain calls."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    net = ComputationGraph(_long_conf("bfloat16"), device=dev).init()
+    batches = _long_batches(torch, dev, 43, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    scores, wall = [], []
+    for i in range(LONG_WARMUP + LONG_TIMED):
+        t0 = time.perf_counter()
+        net.fit(batches[i % 2])
+        scores.append(net.score_value)  # reads the loss: syncs the step
+        wall.append((time.perf_counter() - t0) * 1e3)
+    steps = LONG_WARMUP + LONG_TIMED
+    counts = kernels.counts()
+    errors, want = _launch_errors(counts, LONG_LAUNCHES, steps)
+    if not all(np.isfinite(scores)):
+        errors.append(f"non-finite score: {scores}")
+    last3 = float(np.mean(scores[-3:]))
+    if not last3 < scores[0]:
+        errors.append(f"scores did not fall: first {scores[0]}, mean of the "
+                      f"last 3 {last3}")
+    timed = wall[LONG_WARMUP:]
+    ms = statistics.mean(timed)
+    tokens = LONG_B * LONG_T
+    emit(card, phase="long_train", ok=not errors, errors=errors,
+         model=f"transformer_lm V={VOCAB} T={LONG_T} d={D_MODEL} "
+               f"heads={HEADS} blocks={BLOCKS} mixed_bfloat16 Adam",
+         params=sum(a.numel() for p in net.params_tree.values()
+                    for a in p.values()),
+         batch=LONG_B, tokens_per_step=tokens, steps=steps, scores=scores,
+         first_score=scores[0], last3_mean=last3, ms_per_step=ms,
+         ms_per_step_median=statistics.median(timed), ms_per_step_all=wall,
+         tokens_per_s=tokens / ms * 1e3,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         launches=counts["launches"], expected_launches=want,
+         plain_calls=counts["plain_calls"])
+    return not errors, counts["launches"], net, batches
+
+
+def phase_long_output(card, torch, kernels, net, x):
+    """3 `output` calls of the trained net at B=1, T=32,768 (each ends in
+    the host copy of [1, 32768, 8192] f32 probabilities): per call exactly
+    4 streamed forwards and 9 LayerNorms, 0 plain calls."""
+    calls = 3
+    kernels.reset_counts()
+    wall, outs = [], []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        outs.append(net.output(x)[0])
+        wall.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.counts()
+    errors, want = _launch_errors(
+        counts, {"layernorm_norm_act": 2 * BLOCKS + 1,
+                 "flash_attention_stream": BLOCKS}, calls)
+    out = outs[-1]
+    if out.shape != (LONG_B, LONG_T, VOCAB) or not np.isfinite(out).all():
+        errors.append(f"output {out.shape}, finite {np.isfinite(out).all()}")
+    elif np.abs(out.sum(-1) - 1).max() > 1e-2:
+        errors.append("probabilities do not sum to 1")
+    if not all(np.array_equal(o, out) for o in outs):
+        errors.append("repeated calls on the same input differ")
+    emit(card, phase="long_output", ok=not errors, errors=errors,
+         batch=LONG_B, seq_len=LONG_T, calls=calls,
+         ms_per_call=statistics.mean(wall[1:]), ms_per_call_all=wall,
+         tokens_per_s=LONG_B * LONG_T / statistics.mean(wall[1:]) * 1e3,
+         launches=counts["launches"], expected_launches=want,
+         plain_calls=counts["plain_calls"])
+    return not errors, counts["launches"]
+
+
+def phase_long_parity(card, torch, kernels, dev):
+    """One f32 `fit` step at B=1, T=32,768 from the same seeded params on
+    the card: through the streamed rows 4 and 7, and through the resident
+    rows 5 and 6 with the port's `_RESIDENT_KV_LIMIT` raised for that one
+    step (restored after, as the JAX package's tests patch theirs,
+    tests/test_flash_attention.py:62). Scores within 1e-4 relative.
+
+    Adam's m (0.1 * grad after one step) per layer vertex, over the
+    resident run's largest |m| there, within max(1e-3, twice the step's
+    rounding floor). The floor is what the same streamed step moves when
+    only the order of its partial sums changes (units of 32 and of 16
+    tiles instead of 64; the kernels are deterministic, so a repeat moves
+    nothing): at this T the relu layers and the sums over 32,768 tokens
+    carry f32 rounding to ~2e-3 of a vertex's largest m in the embeddings
+    and the first FFN layers (measured on an H100). A cut or mis-scaled
+    gradient is off by far more."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    conf = _long_conf("float32")
+    batch, = _long_batches(torch, dev, 47, 1)
+    t0 = time.perf_counter()
+    params = {v: {k: a.detach().clone() for k, a in p.items()}
+              for v, p in ComputationGraph(conf, device=dev).init()
+              .params_tree.items()}
+
+    def step(**patch):
+        net = ComputationGraph(conf, device=dev).init(params={
+            v: {k: a.clone() for k, a in p.items()}
+            for v, p in params.items()})
+        saved = {k: getattr(fa, k) for k in patch}
+        for k, val in patch.items():
+            setattr(fa, k, val)
+        try:
+            kernels.reset_counts()
+            net.fit(batch)
+            return net, kernels.counts()["launches"]
+        finally:
+            for k, val in saved.items():
+                setattr(fa, k, val)
+
+    streamed, c_stream = step()
+    resident, c_res = step(_RESIDENT_KV_LIMIT=1 << 62)
+    floor = {}
+    for units in (32, 16):
+        other, _ = step(_UNIT_TILES=units)
+        for v, e in _m_errors(other, streamed).items():
+            floor[v] = max(floor.get(v, 0.0), e)
+        del other
+    errors = []
+    names = {"streamed": ("flash_attention_stream",
+                          "flash_attention_bwd_dq_stream",
+                          "flash_attention_bwd_dkv_stream"),
+             "resident": ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv")}
+    for run, c, other in (("streamed", c_stream, "resident"),
+                          ("resident", c_res, "streamed")):
+        if [c[n] for n in names[run]] != [BLOCKS] * 3 or any(
+                c[n] for n in names[other]):
+            errors.append(f"{run} step launches {c}")
+    rel = (abs(streamed.score_value - resident.score_value)
+           / abs(resident.score_value))
+    m_err = _m_errors(streamed, resident)
+    over = {v: e for v, e in m_err.items() if e > max(1e-3, 2 * floor[v])}
+    if rel > 1e-4:
+        errors.append(f"scores {streamed.score_value} (streamed) vs "
+                      f"{resident.score_value} (resident)")
+    if over:
+        errors.append(f"Adam m differs beyond max(1e-3, twice the floor): "
+                      f"{over}")
+    emit(card, phase="long_parity", ok=not errors, errors=errors,
+         batch=LONG_B, seq_len=LONG_T, dtype="float32",
+         score_streamed=streamed.score_value,
+         score_resident=resident.score_value, score_rel_diff=rel,
+         m_err_over_max=m_err, rounding_floor=floor,
+         worst_m_err=max(m_err.values()),
+         worst_over_floor=max(e / max(1e-3, 2 * floor[v])
+                              for v, e in m_err.items()),
+         seconds=time.perf_counter() - t0)
+    return not errors
+
+
 def main() -> int:
     import torch
 
@@ -1649,19 +2009,36 @@ def main() -> int:
         failed.append("rnn_sample")
     if not phase_rnn_parity(card, torch, dev):
         failed.append("rnn_parity")
+
+    long_rows, row13 = phase_long_kernels(card, torch, dev)
+    if not (all(r["ok"] for r in long_rows) and row13["ok"]):
+        failed.append("long_kernels")
+    rows += long_rows
+    ok, path_launches["long_train"], long_net, long_batches = \
+        phase_long_train(card, torch, kernels, dev)
+    if not ok:
+        failed.append("long_train")
+    ok, path_launches["long_output"] = phase_long_output(
+        card, torch, kernels, long_net, long_batches[0].features[0])
+    if not ok:
+        failed.append("long_output")
+    if not phase_long_parity(card, torch, kernels, dev):
+        failed.append("long_parity")
     phase_trace(card, torch, cg, train_net, batches[0], nets, rn_batch,
-                rnn_net, rnn_data[0])
+                rnn_net, rnn_data[0], long_net, long_batches[0])
 
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     # The kernels line: each kernel at the shape most of its main-path
     # launches have (bf16; the update kernel's state and the char-RNN are
-    # f32), with this run's launches on the eight main paths (each counted
+    # f32), with this run's launches on the ten main paths (each counted
     # from 0: the serve phase, the LM train phase's 23 steps, T1's and T2's
     # 13 steps, I1's and I2's 13 calls, the char-RNN's 13 fit calls and its
-    # 2 x 200 sampling calls), summed and by path. Row 10's library call
-    # covers the step without peepholes (at the same B and n).
+    # 2 x 200 sampling calls, the long-context train phase's 7 steps and its
+    # 3 `output` calls), summed and by path. Row 10's library call covers
+    # the step without peepholes (at the same B and n); row 13 is row 4's
+    # kernel over two lists, carried on row 4's entry.
     main_shape = {
         "layernorm_norm_act": f"[4,{D_MODEL}]",
         "batchnorm_norm_act": f"s0 c_bn [{RN_PATHS['t1'][2]}*56*56,256]",
@@ -1669,7 +2046,9 @@ def main() -> int:
                             "identity",
         "bottleneck_infer": f"B={INFER_B} H=14 Cin=1024 F1=256 s=1 "
                             "identity",
-        "lstm_cell": f"B={RNN_B} n={RNN_H} peephole"}
+        "lstm_cell": f"B={RNN_B} n={RNN_H} peephole",
+        **{name: f"[1,{LONG_T},{HEADS},{D_MODEL // HEADS}] causal"
+           for name in LONG_LAUNCHES if name.endswith("_stream")}}
     main_dtype = {"fused_update": "float32", "lstm_cell": "float32"}
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1687,6 +2066,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"], "dtype": dtype,
             "shape": r["shape"], "card": card})
+        if name == "flash_attention_stream":
+            entries[-1]["row13_stream_sum"] = row13
         if name == "lstm_cell":
             entries[-1]["library_ms_without_peepholes"] = next(
                 r["library_ms"] for r in rows if r["name"] == name

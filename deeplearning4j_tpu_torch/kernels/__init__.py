@@ -18,6 +18,12 @@ tensor launches the kernel, or the wrapper raises. No fallback, no switch.
   statistics; each counts one per wrapper call, of several CUDA launches)
 - `lstm_cell.lstm_cell`                     (csrc/lstm_cell.cu: one LSTM
   time step of one layer)
+- `flash_attention.flash_attention_stream`  (csrc/flash_attention_stream.cu:
+  the streamed forward past the resident K/V limit, with or without lse)
+- `flash_attention.flash_attention_bwd_stream` (csrc/flash_attention_stream.cu:
+  two kernels, `flash_attention_bwd_dq_stream` and
+  `flash_attention_bwd_dkv_stream`; the streamed wrappers each count one
+  per call, of a unit kernel and a merge or sum kernel)
 
 Training reaches the kernels through `torch.autograd.Function`s
 (`flash_attention.FlashAttentionFn`, `norm_act.LayerNormFn`,
@@ -34,7 +40,9 @@ from typing import Dict
 KERNELS = ("layernorm_norm_act", "flash_attention", "paged_decode_attention",
            "flash_attention_fwd_lse", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "fused_update", "batchnorm_norm_act",
-           "bottleneck_train", "bottleneck_infer", "lstm_cell")
+           "bottleneck_train", "bottleneck_infer", "lstm_cell",
+           "flash_attention_stream", "flash_attention_bwd_dq_stream",
+           "flash_attention_bwd_dkv_stream")
 
 
 class Count:

@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_SCHED = [_P, _P, _P, _I, _P, _I]  # a visit list cut into units
 _SIGNATURES = {
     "dl4j_layernorm_norm_act": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "dl4j_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
@@ -56,6 +57,15 @@ _SIGNATURES = {
                              _I, _I, _F, _I, _P, _P],
     "dl4j_lstm_cell": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P],
+    # q, k, v, o, lse | pair_i, pair_j, units, n_units, merges, n_merges |
+    # partials | n_slots, batch, seq, heads, dim, causal | scale, dtype,
+    # stream.
+    "dl4j_flash_attention_stream_fwd": [_P] * 5 + _SCHED + [_P] * 2
+    + [_I] * 6 + [_F, _I, _P],
+    "dl4j_flash_attention_stream_bwd_dq": [_P] * 7 + _SCHED + [_P]
+    + [_I] * 6 + [_F, _I, _P],
+    "dl4j_flash_attention_stream_bwd_dkv": [_P] * 8 + _SCHED + [_P] * 2
+    + [_I] * 6 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()

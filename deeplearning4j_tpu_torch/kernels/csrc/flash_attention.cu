@@ -4,8 +4,9 @@
 // - `dl4j_flash_attention_fwd` replaces the TPU kernel `_flash_kernel_resident`
 //   with its `_resident_softmax_loop` (deeplearning4j_tpu/kernels/
 //   flash_attention.py:99,55, launched by `_flash_fwd_bhtd` :241 under
-//   `flash_attention` :289), and computes the `o` of the streamed
-//   `_flash_stream_kernel` (:137) too;
+//   `flash_attention` :289) while the K/V of one (batch, head) fit the
+//   JAX package's resident limit; past it the streamed `_flash_stream_kernel`
+//   (:137) has its own kernel, csrc/flash_attention_stream.cu;
 // - `dl4j_flash_attention_fwd_lse` replaces the training forward
 //   `_flash_fwd_lse_kernel` (:376, launched by `_flash_fwd_lse_bhtd` :476
 //   from the custom_vjp's `_fwd` :305): the same pass, plus one f32 store of

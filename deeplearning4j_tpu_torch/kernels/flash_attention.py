@@ -1,10 +1,10 @@
-"""Attention kernels of the serving path (counterpart of
+"""Attention kernels (counterpart of
 `deeplearning4j_tpu/kernels/flash_attention.py`).
 
-- `flash_attention` (prefill): the CUDA kernel of `csrc/flash_attention.cu`
-  for CUDA tensors, replacing the TPU kernel `_flash_kernel_resident`
-  (flash_attention.py:99); `dense_attention`, a copy of
-  `parallel/sequence.py::dense_attention`, for CPU tensors.
+- `flash_attention` (prefill, `output`): the CUDA kernel of
+  `csrc/flash_attention.cu` for CUDA tensors, replacing the TPU kernel
+  `_flash_kernel_resident` (flash_attention.py:99); `dense_attention`, the
+  framework's dense path (`parallel/sequence.py`), for CPU tensors.
 - `paged_decode_attention` (decode step): the CUDA kernel of
   `csrc/paged_attention.cu`, replacing `_paged_flash_kernel`
   (flash_attention.py:733); `paged_gather_dense`, a copy of
@@ -27,12 +27,36 @@ Training (the custom_vjp `_flash_attention_pallas`, flash_attention.py:271):
   recompute-from-lse formulas written densely.
 - `FlashAttentionFn` ties them together; `flash_attention` goes through it
   whenever autograd records and an input requires grad.
+
+Long context (csrc/flash_attention_stream.cu). Where the K/V of one
+(batch, head) outgrow `_RESIDENT_KV_LIMIT` (`streamed`: 2·T·D·itemsize >
+6 MiB, the JAX package's rule at :196, so T > 24,576 in bf16 and T >
+12,288 in f32 at D = 64), all three places the JAX package decides
+(`_flash_fwd_bhtd` :244, the custom_vjp's `_fwd` :314 and `_bwd` :333)
+take the streamed kernels instead, here as there, by shape and dtype alone:
+- `flash_attention_stream` (row 4, `_flash_stream_kernel` :137): (o, lse),
+  or o alone for the no-grad forward;
+- `flash_attention_bwd_dq_stream` and `flash_attention_bwd_dkv_stream`
+  (row 7, `_flash_bwd_dq_stream_kernel` :551 and
+  `_flash_bwd_dkv_stream_kernel` :595), D = rowsum(do * o) a torch
+  expression in f32 as at :648.
+They walk the (q tile, k tile) visit list of `pair_arrays` (a copy of
+`_pair_arrays` :113) at the port's 64-row tiles, cut into units of equal
+work (`stream_schedule`). Their plain versions walk the same list a tile
+row (or column) at a time with an exact softmax or recompute over the
+tiles it visits: B·H·64·T floats at most, never [T, T].
+One difference from the JAX package, on purpose: at a T that is no
+multiple of its 256-row block the JAX package falls back to dense XLA
+attention (:281, :308-312), which holds [T, T] at long T; the streamed
+kernels take any T and mask the ragged tile.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import kernels
@@ -74,6 +98,12 @@ def dense_attention(q, k, v, causal: bool = True,
     """Plain version of `flash_attention`: q/k/v [B, T, H, D] -> [B, T, H, D]
     through a materialized [T, T] softmax."""
     kernels.plain_calls["flash_attention"].add()
+    return dense(q, k, v, causal, scale)
+
+
+def dense(q, k, v, causal: bool = True, scale: Optional[float] = None):
+    """Dense attention, uncounted: the function itself, which
+    `parallel.sequence.dense_attention` offers as `impl="dense"`."""
     q_, k_, v_ = _bhtd(q, k, v)
     p = torch.softmax(_masked_scores(q_, k_, causal,
                                      _default_scale(q, scale)), dim=-1)
@@ -150,10 +180,14 @@ def flash_attention(q, k, v, causal: bool = True,
                     scale: Optional[float] = None):
     """Multi-head attention forward, q/k/v [B, T, H, D] -> [B, T, H, D]
     (the kernel takes any T and D <= 128). Differentiable through
-    `FlashAttentionFn` when autograd records."""
+    `FlashAttentionFn` when autograd records. Past the resident limit
+    (`streamed`) the streamed forward runs and its lse is dropped, as
+    `_flash_fwd_bhtd` (:259) drops it."""
     scale = _default_scale(q, scale)
     if _diff.needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, scale)
+    if streamed(q):
+        return flash_attention_stream(q, k, v, causal, scale, with_lse=False)
     if kernels.placement(q, k, v) == "cpu":
         return dense_attention(q, k, v, causal, scale)
     b, t, h, d = _check_qkv("flash_attention", q, k, v)
@@ -233,16 +267,21 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, drow, causal, scale):
     return dk, dv
 
 
+def _drow(o, do):
+    """D = rowsum(do * o) in f32 as [B, H, T], as the JAX package computes it
+    in XLA (flash_attention.py:502, :648)."""
+    if o.shape != do.shape:
+        raise ValueError(f"o must be {tuple(do.shape)}, got {tuple(o.shape)}")
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                         scale: Optional[float] = None):
     """Gradients (dq, dk, dv) of `flash_attention` from the forward's o and
-    lse and the incoming gradient do (all [B, T, H, D]; lse [B, H, T] f32).
-    D = rowsum(do * o) is computed here in f32, as the JAX package computes
-    it in XLA (flash_attention.py:502)."""
+    lse and the incoming gradient do (all [B, T, H, D]; lse [B, H, T] f32),
+    through the resident kernels (rows 5-6's backward)."""
     scale = _default_scale(q, scale)
-    if o.shape != q.shape:
-        raise ValueError(f"o must be {tuple(q.shape)}, got {tuple(o.shape)}")
-    drow = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    drow = _drow(o, do)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, drow, causal, scale)
     return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, drow, causal,
                                          scale))
@@ -250,12 +289,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
 
 class FlashAttentionFn(torch.autograd.Function):
     """The custom_vjp of `_flash_attention_pallas` (flash_attention.py:271):
-    forward with lse, backward from (q, k, v, o, lse). Each half picks the
-    kernel or its plain version by where the tensors lie."""
+    forward with lse, backward from (q, k, v, o, lse). The forward picks the
+    resident or the streamed kernels by `streamed` (as `_fwd` :314 does) and
+    the backward follows its choice (`_bwd` :333 applies the same rule);
+    each wrapper picks the kernel or its plain version by where the tensors
+    lie."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_attention_fwd_lse(q, k, v, causal, scale)
+        ctx.streamed = streamed(q)
+        fwd = flash_attention_stream if ctx.streamed else \
+            flash_attention_fwd_lse
+        o, lse = fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
@@ -263,9 +308,340 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         ctx.causal, ctx.scale)
+        bwd = flash_attention_bwd_stream if ctx.streamed else \
+            flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
+                         ctx.scale)
         return dq, dk, dv, None, None
+
+
+# ------------------------------------------------------------ streamed
+#
+# Rows 4 and 7. The TPU kernels walk a scalar-prefetched list of (q block,
+# k block) pairs, one pair per sequential grid step, carrying (acc, m, l)
+# or the dq / dk-dv sums in VMEM scratch along a row (or column) of the
+# list. A Hopper block cannot carry anything to the next block, and the
+# rows of a causal list run from 1 tile to T/64: so the list's runs are cut
+# into units of at most `_UNIT_TILES` tiles, one block each (split-K over
+# the triangle, as flash-decoding splits a long cache). A run of one unit
+# writes its output; a longer run writes partial sums to a workspace that a
+# second kernel combines (log-sum-exp form for the forward, plain sums for
+# the backward), in a fixed order and with no atomics.
+
+_RESIDENT_KV_LIMIT = 6 * 1024 * 1024  # the JAX package's, flash_attention.py:196
+_TILE = 64          # q rows and keys per tile (csrc/flash_attention_stream.cu)
+# Tiles per unit: 64 tiles of 64 keys. At the slice's shape (B*H = 8,
+# T = 32,768, causal) that is 2,304 units per (batch, head), 18,432 blocks
+# of 256 threads against ~2-3 resident blocks on each of the 132 SMs:
+# ~50 waves, so the last wave's idle tail is a few percent, while each
+# unit's fixed cost (its q tile, its partial sums) stays under 2% of its
+# work. Read at each call: the card tests lower it to make runs of several
+# units at small T, and chip_smoke.py's long_parity to reorder the sums.
+_UNIT_TILES = 64
+
+
+def streamed(q) -> bool:
+    """The JAX package's dispatch rule: the K/V of one (batch, head) of
+    `q`'s shape and dtype outgrow the resident limit."""
+    return 2 * q.shape[1] * q.shape[-1] * q.element_size() > \
+        _RESIDENT_KV_LIMIT
+
+
+@functools.lru_cache(maxsize=64)
+def pair_arrays(nq: int, nk: int, block_q: int, block_k: int, causal: bool,
+                order: str):
+    """The streamed (q-block i, k-block j) visit sequence (a copy of
+    `_pair_arrays`, flash_attention.py:113). Causal sequences cover only
+    the lower triangle. `order="row"` (i-major: forward, dq) or `"col"`
+    (j-major: dk/dv)."""
+    pairs = []
+    if order == "row":
+        for i in range(nq):
+            jm = min(nk - 1, ((i + 1) * block_q - 1) // block_k) \
+                if causal else nk - 1
+            pairs += [(i, j) for j in range(jm + 1)]
+    else:
+        for j in range(nk):
+            i0 = (j * block_k) // block_q if causal else 0
+            pairs += [(i, j) for i in range(i0, nq)]
+    i_idx = np.asarray([p[0] for p in pairs], np.int32)
+    j_idx = np.asarray([p[1] for p in pairs], np.int32)
+    return i_idx, j_idx
+
+
+def _list_is_triangle(causal, pairs):
+    """`pairs`: "triangle" (the causal list), "rectangle" (every pair,
+    masked in compute: row 13's comparison) or None (the one `causal`
+    calls for)."""
+    if pairs is None:
+        return bool(causal)
+    if pairs not in ("triangle", "rectangle"):
+        raise ValueError(f"pairs must be 'triangle' or 'rectangle', got "
+                         f"{pairs!r}")
+    if pairs == "triangle" and not causal:
+        raise ValueError("the triangular list leaves out keys that full "
+                         "(non-causal) attention needs")
+    return pairs == "triangle"
+
+
+def _runs(t, triangle, order):
+    """The list's runs at the port's tiles: (outer tile, first pair index,
+    pairs) per q tile ("row") or k tile ("col"), in list order."""
+    n = -(-t // _TILE)
+    i_idx, j_idx = pair_arrays(n, n, _TILE, _TILE, triangle, order)
+    outer = i_idx if order == "row" else j_idx
+    starts = np.flatnonzero(np.r_[True, outer[1:] != outer[:-1]])
+    counts = np.diff(np.r_[starts, len(outer)])
+    return i_idx, j_idx, outer[starts], starts, counts
+
+
+class Schedule(NamedTuple):
+    """A visit list cut into units (numpy int32 arrays)."""
+    pairs: np.ndarray   # [2, P]: q tile, k tile of each visit
+    units: np.ndarray   # [U, 3]: first pair, pairs, partial slot or -1
+    merges: np.ndarray  # [M, 3]: outer tile, first slot, slots
+    n_slots: int
+
+
+@functools.lru_cache(maxsize=64)
+def stream_schedule(t: int, triangle: bool, order: str,
+                    unit_tiles: int) -> Schedule:
+    """Cut each run of the visit list into ceil(run / unit_tiles) units of
+    near-equal length. A run of one unit writes the output itself (slot
+    -1); a longer run's units get consecutive partial slots and one merge
+    entry. Units are ordered longest first, so the last wave on the card
+    holds the shortest."""
+    if unit_tiles < 1:
+        raise ValueError(f"unit_tiles must be >= 1, got {unit_tiles}")
+    i_idx, j_idx, outer, starts, counts = _runs(t, triangle, order)
+    units, merges, slot = [], [], 0
+    for tile, first, run in zip(outer.tolist(), starts.tolist(),
+                                counts.tolist()):
+        parts = -(-run // unit_tiles)
+        if parts == 1:
+            units.append((first, run, -1))
+            continue
+        merges.append((tile, slot, parts))
+        edges = [first + run * u // parts for u in range(parts + 1)]
+        for u in range(parts):
+            units.append((edges[u], edges[u + 1] - edges[u], slot))
+            slot += 1
+    units = np.asarray(units, np.int32).reshape(-1, 3)
+    units = units[np.argsort(-units[:, 1], kind="stable")]
+    return Schedule(np.stack([i_idx, j_idx]), units,
+                    np.asarray(merges, np.int32).reshape(-1, 3), slot)
+
+
+@functools.lru_cache(maxsize=64)
+def _schedule_on(device, t, triangle, order, unit_tiles):
+    """`stream_schedule`'s arrays as int32 tensors on `device`, made once
+    per (shape, device)."""
+    sch = stream_schedule(t, triangle, order, unit_tiles)
+    return (*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+              for a in (sch.pairs, sch.units, sch.merges)), sch)
+
+
+def stream_workspace_bytes(b, t, h, d, causal=True, pairs=None):
+    """Bytes of the partial sums each streamed wrapper allocates: forward
+    (acc, m, l), dq, and dk + dv (f32)."""
+    tri = _list_is_triangle(causal, pairs)
+    row = stream_schedule(t, tri, "row", _UNIT_TILES).n_slots
+    col = stream_schedule(t, tri, "col", _UNIT_TILES).n_slots
+    per = b * h * _TILE * 4
+    return {"forward": row * per * (d + 2), "dq": row * per * d,
+            "dkv": 2 * col * per * d}
+
+
+def _causal_mask(s, r0, c0, causal):
+    """s [.., rows, keys] with rows from r0 and keys from c0: future keys at
+    the JAX package's -1e30."""
+    if not causal:
+        return s
+    qpos = torch.arange(r0, r0 + s.shape[-2], device=s.device)
+    kpos = torch.arange(c0, c0 + s.shape[-1], device=s.device)
+    return s.masked_fill(kpos[None, :] > qpos[:, None], _NEG)
+
+
+def _spans(t, triangle, order):
+    """Per run of the visit list: the outer tile's element range and the
+    contiguous element range of the tiles it visits."""
+    i_idx, j_idx, outer, starts, counts = _runs(t, triangle, order)
+    inner = j_idx if order == "row" else i_idx
+    for tile, first, run in zip(outer.tolist(), starts.tolist(),
+                                counts.tolist()):
+        lo, hi = int(inner[first]), int(inner[first + run - 1]) + 1
+        yield (tile * _TILE, min((tile + 1) * _TILE, t),
+               lo * _TILE, min(hi * _TILE, t))
+
+
+def flash_stream_fwd_plain(q, k, v, causal, scale, pairs=None):
+    """Plain version of row 4: a q tile at a time, an exact softmax over
+    the keys of the tiles its row of the list visits (masked keys weigh
+    exp(-1e30 - lse) = 0). Returns (o [B, T, H, D], lse [B, H, T] f32)."""
+    kernels.plain_calls["flash_attention_stream"].add()
+    triangle = _list_is_triangle(causal, pairs)
+    q_, k_, v_ = _bhtd(q, k, v)
+    o = torch.empty_like(q_)
+    lse = torch.empty(q_.shape[:3], dtype=q_.dtype, device=q.device)
+    for r0, r1, c0, c1 in _spans(q.shape[1], triangle, "row"):
+        s = _causal_mask(torch.einsum("bhqd,bhkd->bhqk", q_[:, :, r0:r1],
+                                      k_[:, :, c0:c1]) * scale,
+                         r0, c0, causal)
+        lse[:, :, r0:r1] = torch.logsumexp(s, dim=-1)
+        o[:, :, r0:r1] = torch.einsum(
+            "bhqk,bhkd->bhqd", torch.exp(s - lse[:, :, r0:r1, None]),
+            v_[:, :, c0:c1])
+    return o.transpose(1, 2).to(q.dtype), lse.float()
+
+
+def _stream_bwd_terms(q_, k_, v_, do_, lse, drow, r0, r1, c0, c1, causal,
+                      scale):
+    """p = exp(s - lse) and ds = p * (do v^T - D) over rows [r0, r1) and
+    keys [c0, c1)."""
+    s = _causal_mask(torch.einsum("bhqd,bhkd->bhqk", q_[:, :, r0:r1],
+                                  k_[:, :, c0:c1]) * scale, r0, c0, causal)
+    p = torch.exp(s - lse[:, :, r0:r1, None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do_[:, :, r0:r1], v_[:, :, c0:c1])
+    return p, p * (dp - drow[:, :, r0:r1, None])
+
+
+def flash_stream_bwd_dq_plain(q, k, v, do, lse, drow, causal, scale,
+                              pairs=None):
+    """Plain version of row 7's dq: a q tile at a time over the keys its
+    row of the list visits, dq = ds k * scale."""
+    kernels.plain_calls["flash_attention_bwd_dq_stream"].add()
+    triangle = _list_is_triangle(causal, pairs)
+    q_, k_, v_, do_ = _bhtd(q, k, v, do)
+    lse_, drow_ = lse.to(q_.dtype), drow.to(q_.dtype)
+    dq = torch.empty_like(q_)
+    for r0, r1, c0, c1 in _spans(q.shape[1], triangle, "row"):
+        _, ds = _stream_bwd_terms(q_, k_, v_, do_, lse_, drow_, r0, r1, c0,
+                                  c1, causal, scale)
+        dq[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", ds,
+                                       k_[:, :, c0:c1]) * scale
+    return dq.transpose(1, 2).to(q.dtype)
+
+
+def flash_stream_bwd_dkv_plain(q, k, v, do, lse, drow, causal, scale,
+                               pairs=None):
+    """Plain version of row 7's dk/dv: a k tile at a time over the queries
+    its column of the list visits, dk = ds^T q * scale, dv = p^T do."""
+    kernels.plain_calls["flash_attention_bwd_dkv_stream"].add()
+    triangle = _list_is_triangle(causal, pairs)
+    q_, k_, v_, do_ = _bhtd(q, k, v, do)
+    lse_, drow_ = lse.to(q_.dtype), drow.to(q_.dtype)
+    dk, dv = torch.empty_like(k_), torch.empty_like(v_)
+    for c0, c1, r0, r1 in _spans(q.shape[1], triangle, "col"):
+        p, ds = _stream_bwd_terms(q_, k_, v_, do_, lse_, drow_, r0, r1, c0,
+                                  c1, causal, scale)
+        dk[:, :, c0:c1] = torch.einsum("bhqk,bhqd->bhkd", ds,
+                                       q_[:, :, r0:r1]) * scale
+        dv[:, :, c0:c1] = torch.einsum("bhqk,bhqd->bhkd", p,
+                                       do_[:, :, r0:r1])
+    return (dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype))
+
+
+def _sched_args(sch_t):
+    pairs, units, merges, sch = sch_t
+    return (pairs.data_ptr(), pairs[1].data_ptr(), units.data_ptr(),
+            len(sch.units), merges.data_ptr(), len(sch.merges))
+
+
+def _partials(b, h, n_slots, *tail, device):
+    return torch.empty((b * h, n_slots, *tail), dtype=torch.float32,
+                       device=device)
+
+
+def flash_attention_stream(q, k, v, causal: bool = True,
+                           scale: Optional[float] = None, *,
+                           with_lse: bool = True, pairs=None):
+    """Row 4: the streamed forward over the visit list (`pairs`, see
+    `_list_is_triangle`), q/k/v [B, T, H, D], any T. Returns (o, lse
+    [B, H, T] f32), or o alone without `with_lse`. One launch is counted
+    per call, which issues the unit kernel and, when a run spans several
+    units, the merge kernel."""
+    scale = _default_scale(q, scale)
+    if kernels.placement(q, k, v) == "cpu":
+        o, lse = flash_stream_fwd_plain(q, k, v, causal, scale, pairs)
+        return (o, lse) if with_lse else o
+    b, t, h, d = _check_qkv("flash_attention_stream", q, k, v)
+    sch = _schedule_on(q.device, t, _list_is_triangle(causal, pairs), "row",
+                       _UNIT_TILES)
+    n_slots = sch[3].n_slots
+    o = torch.empty_like(q)
+    lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    acc = _partials(b, h, n_slots, _TILE, d, device=q.device)
+    ml = _partials(b, h, n_slots, 2, _TILE, device=q.device)
+    with torch.cuda.device(q.device):
+        _build.launch("dl4j_flash_attention_stream_fwd", q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      None if lse is None else lse.data_ptr(),
+                      *_sched_args(sch), acc.data_ptr(), ml.data_ptr(),
+                      n_slots, b, t, h, d, int(causal), float(scale),
+                      DTYPE_CODES[q.dtype], _stream(q))
+    kernels.launches["flash_attention_stream"].add()
+    return (o, lse) if with_lse else o
+
+
+def flash_attention_bwd_dq_stream(q, k, v, do, lse, drow, causal, scale, *,
+                                  pairs=None):
+    """Row 7's dq over the row-major list; drow = rowsum(do * o), [B, H, T]
+    f32 like lse. One launch is counted per call (the unit kernel, and the
+    sum kernel when a run spans several units)."""
+    if kernels.placement(q, k, v, do, lse, drow) == "cpu":
+        return flash_stream_bwd_dq_plain(q, k, v, do, lse, drow, causal,
+                                         scale, pairs)
+    b, t, h, d = _check_bwd("flash_attention_bwd_dq_stream", q, k, v, do,
+                            lse, drow)
+    sch = _schedule_on(q.device, t, _list_is_triangle(causal, pairs), "row",
+                       _UNIT_TILES)
+    dq = torch.empty_like(q)
+    part = _partials(b, h, sch[3].n_slots, _TILE, d, device=q.device)
+    with torch.cuda.device(q.device):
+        _build.launch("dl4j_flash_attention_stream_bwd_dq",
+                      *_bwd_args(q, k, v, do, lse, drow), dq.data_ptr(),
+                      *_sched_args(sch), part.data_ptr(), sch[3].n_slots, b,
+                      t, h, d, int(causal), float(scale),
+                      DTYPE_CODES[q.dtype], _stream(q))
+    kernels.launches["flash_attention_bwd_dq_stream"].add()
+    return dq
+
+
+def flash_attention_bwd_dkv_stream(q, k, v, do, lse, drow, causal, scale, *,
+                                   pairs=None):
+    """Row 7's (dk, dv) over the column-major list (see the dq half; one
+    launch counted per call, of the unit kernel and up to two sums)."""
+    if kernels.placement(q, k, v, do, lse, drow) == "cpu":
+        return flash_stream_bwd_dkv_plain(q, k, v, do, lse, drow, causal,
+                                          scale, pairs)
+    b, t, h, d = _check_bwd("flash_attention_bwd_dkv_stream", q, k, v, do,
+                            lse, drow)
+    sch = _schedule_on(q.device, t, _list_is_triangle(causal, pairs), "col",
+                       _UNIT_TILES)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part_dk, part_dv = (_partials(b, h, sch[3].n_slots, _TILE, d,
+                                  device=q.device) for _ in range(2))
+    with torch.cuda.device(q.device):
+        _build.launch("dl4j_flash_attention_stream_bwd_dkv",
+                      *_bwd_args(q, k, v, do, lse, drow), dk.data_ptr(),
+                      dv.data_ptr(), *_sched_args(sch), part_dk.data_ptr(),
+                      part_dv.data_ptr(), sch[3].n_slots, b, t, h, d,
+                      int(causal), float(scale), DTYPE_CODES[q.dtype],
+                      _stream(q))
+    kernels.launches["flash_attention_bwd_dkv_stream"].add()
+    return dk, dv
+
+
+def flash_attention_bwd_stream(q, k, v, o, lse, do, causal: bool = True,
+                               scale: Optional[float] = None):
+    """Row 7: (dq, dk, dv) of the streamed forward, D = rowsum(do * o) in
+    f32 first (flash_attention.py:648)."""
+    scale = _default_scale(q, scale)
+    drow = _drow(o, do)
+    dq = flash_attention_bwd_dq_stream(q, k, v, do, lse, drow, causal, scale)
+    return (dq, *flash_attention_bwd_dkv_stream(q, k, v, do, lse, drow,
+                                                causal, scale))
 
 
 def cached_decode_attention(q, kc, vc, pos, causal):

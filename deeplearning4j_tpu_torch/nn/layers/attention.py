@@ -10,14 +10,17 @@ Three paths, picked from the state the layer is given:
    cursor, then `cached_decode_attention` (the reference leaves this path
    to XLA: it has no TPU kernel);
 3. otherwise (a full sequence: prefill, `output`, training):
-   `flash_attention` (through `FlashAttentionFn` when autograd records),
-   and with `decode_cache_length` set, prime the cache as undeclared state.
+   `parallel.sequence.attention` with the layer's `attention_impl`:
+   "auto" is flash attention (through `FlashAttentionFn` when autograd
+   records; the streamed kernels past the resident K/V limit), "dense" the
+   dense path; with `decode_cache_length` set, prime the cache as
+   undeclared state.
 
 Unlike the reference's functional `.at[].set`, the decode paths write the
 KV pools and caches IN PLACE: the previous state is dead after a step, and
 a copy of every pool per layer per step is the bytes the step can least
-afford. Ring/Ulysses attention, masks and tensor parallelism are not in the
-port yet.
+afford. Ring/Ulysses attention ("ulysses" is refused), masks and tensor
+parallelism are not in the port yet.
 """
 
 from __future__ import annotations
@@ -26,13 +29,15 @@ import torch
 
 from deeplearning4j_tpu_torch.kernels import flash_attention as _fa
 from deeplearning4j_tpu_torch.nn import activations
+from deeplearning4j_tpu_torch.parallel import sequence as _seq
 
 
 def self_attention_apply(conf, params, state, x, train=False, mask=None):
     """x: [B, T, n_in] -> [B, T, n_out]."""
-    if conf.attention_impl != "auto":
+    if conf.attention_impl not in _seq.IMPLS:
         raise ValueError(f"attention_impl {conf.attention_impl!r} is not in "
-                         "the port (it runs 'auto')")
+                         f"the port (it runs {', '.join(_seq.IMPLS)}; ring "
+                         "and Ulysses need several cards, ROADMAP A.13)")
     b, t, _ = x.shape
     heads = conf.n_heads
     if conf.n_out % heads:
@@ -85,7 +90,8 @@ def self_attention_apply(conf, params, state, x, train=False, mask=None):
         o = _fa.cached_decode_attention(q, kc, vc, pos, conf.causal)
         return project(o), {"k_cache": kc, "v_cache": vc, "kv_pos": pos + t}
 
-    o = _fa.flash_attention(q, k, v, causal=conf.causal, scale=dh ** -0.5)
+    o = _seq.attention(q, k, v, causal=conf.causal, scale=dh ** -0.5,
+                       impl=conf.attention_impl)
     new_state = state
     if cap and t <= cap:
         # Prime the decode cache (undeclared state, kept only by the

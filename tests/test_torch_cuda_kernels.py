@@ -577,3 +577,164 @@ def test_char_rnn_bf16_on_the_card(cuda):
     card.fit(ds)
     assert np.isfinite(card.score_value)
     assert kernels.counts()["launches"]["lstm_cell"] == 2 * 12
+
+
+# ------------------------------------------------ streamed (rows 4 and 7)
+
+STREAM_SHAPES = [  # (shape, causal, unit_tiles): units of 1-3 tiles make
+    ((2, 320, 2, 64), True, 2),   # runs of several units at small T
+    ((1, 300, 3, 64), True, 3),   # ragged T
+    ((2, 37, 2, 16), False, 1),   # ragged T, full attention, one tile
+    ((1, 130, 2, 128), True, 1),  # widest D
+    ((1, 200, 2, 24), False, 2),  # D that is no power of two
+    ((1, 4096, 2, 64), True, 64),  # the slice's unit size: rows of 1-64 tiles
+]
+# Each shape with each list it takes: the triangle only under causal masking.
+STREAM_CASES = [(shape, causal, unit_tiles, pairs)
+                for shape, causal, unit_tiles in STREAM_SHAPES
+                for pairs in (("triangle", "rectangle") if causal
+                              else ("rectangle",))]
+STREAM_NAMES = ("flash_attention_stream", "flash_attention_bwd_dq_stream",
+                "flash_attention_bwd_dkv_stream")
+
+
+def _stream_case(rng, shape, dtype, dev):
+    q, k, v, do = (_t(rng.randn(*shape), dtype, dev) for _ in range(4))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,causal,unit_tiles,pairs", STREAM_CASES)
+def test_stream_fwd_kernel_matches_plain(cuda, monkeypatch, dtype, shape,
+                                         causal, unit_tiles, pairs):
+    monkeypatch.setattr(fa, "_UNIT_TILES", unit_tiles)
+    q, k, v, _ = _stream_case(np.random.RandomState(11), shape, dtype, cuda)
+    before = kernels.launches["flash_attention_stream"].value
+    o, lse = fa.flash_attention_stream(q, k, v, causal, pairs=pairs)
+    o_only = fa.flash_attention_stream(q, k, v, causal, pairs=pairs,
+                                       with_lse=False)
+    assert kernels.launches["flash_attention_stream"].value == before + 2
+    want_o, want_lse = fa.flash_stream_fwd_plain(q, k, v, causal,
+                                                 shape[-1] ** -0.5)
+    _close(o, want_o, dtype)
+    _close(lse, want_lse, torch.float32)
+    assert torch.equal(o_only, o)
+
+
+def test_stream_fwd_unit_above_the_diagonal_weighs_zero(cuda, monkeypatch):
+    # The rectangular list in units of one tile: every unit above the
+    # diagonal ends at m = -1e30 and its merge weight must be exactly 0;
+    # the result is then the triangle's, in f32 to the rounding of the
+    # merge.
+    monkeypatch.setattr(fa, "_UNIT_TILES", 1)
+    q, k, v, _ = _stream_case(np.random.RandomState(12), (1, 256, 2, 32),
+                              torch.float32, cuda)
+    tri, tri_lse = fa.flash_attention_stream(q, k, v, True)
+    rect, rect_lse = fa.flash_attention_stream(q, k, v, True,
+                                               pairs="rectangle")
+    _close(rect, tri, torch.float32)
+    _close(rect_lse, tri_lse, torch.float32)
+    assert torch.isfinite(rect).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,causal,unit_tiles,pairs", STREAM_CASES)
+def test_stream_bwd_kernels_match_plain(cuda, monkeypatch, dtype, shape,
+                                        causal, unit_tiles, pairs):
+    monkeypatch.setattr(fa, "_UNIT_TILES", unit_tiles)
+    q, k, v, do = _stream_case(np.random.RandomState(13), shape, dtype, cuda)
+    scale = shape[-1] ** -0.5
+    o, lse = fa.flash_stream_fwd_plain(q, k, v, causal, scale)
+    drow = fa._drow(o, do)
+    before = [kernels.launches[n].value for n in STREAM_NAMES[1:]]
+    dq = fa.flash_attention_bwd_dq_stream(q, k, v, do, lse, drow, causal,
+                                          scale, pairs=pairs)
+    dk, dv = fa.flash_attention_bwd_dkv_stream(q, k, v, do, lse, drow,
+                                               causal, scale, pairs=pairs)
+    assert [kernels.launches[n].value for n in STREAM_NAMES[1:]] == \
+        [b + 1 for b in before]
+    want_dk, want_dv = fa.flash_stream_bwd_dkv_plain(q, k, v, do, lse, drow,
+                                                     causal, scale)
+    _close(dq, fa.flash_stream_bwd_dq_plain(q, k, v, do, lse, drow, causal,
+                                            scale), dtype)
+    _close(dk, want_dk, dtype)
+    _close(dv, want_dv, dtype)
+
+
+def test_stream_kernels_are_deterministic(cuda, monkeypatch):
+    monkeypatch.setattr(fa, "_UNIT_TILES", 3)
+    q, k, v, do = _stream_case(np.random.RandomState(14), (1, 1000, 2, 64),
+                               torch.bfloat16, cuda)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_attention_stream(q, k, v, True)
+        runs.append((o, lse, *fa.flash_attention_bwd_stream(
+            q, k, v, o, lse, do, True)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_fn_streams_past_the_limit(cuda, monkeypatch):
+    monkeypatch.setattr(fa, "_RESIDENT_KV_LIMIT", 0)
+    rng = np.random.RandomState(15)
+    q, k, v, g = (_t(rng.randn(2, 200, 2, 32), torch.float32, cuda)
+                  for _ in range(4))
+    ref = [a.detach().cpu().requires_grad_(True) for a in (q, k, v)]
+    ts = [a.requires_grad_(True) for a in (q, k, v)]
+    kernels.reset_counts()
+    got = torch.autograd.grad(fa.flash_attention(*ts), ts, g)
+    with torch.no_grad():
+        fa.flash_attention(*ts)
+    c = kernels.counts()
+    assert [c["launches"][n] for n in STREAM_NAMES] == [2, 1, 1]
+    assert not any(c["launches"][n] for n in (
+        "flash_attention", "flash_attention_fwd_lse",
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
+    assert not any(c["plain_calls"].values())
+    want = torch.autograd.grad(fa.flash_attention(*ref), ref, g.cpu())
+    for a, b in zip(got, want):
+        _close(a, b.to(cuda), torch.float32)
+
+
+def test_stream_wrappers_refuse_to_cut_the_gradient(cuda):
+    q = torch.zeros(1, 8, 2, 8, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fa.flash_attention_stream(q, q, q)
+    with pytest.raises(ValueError):
+        z = torch.zeros(1, 8, 2, 160, device=cuda)  # D > 128
+        fa.flash_attention_stream(z, z, z)
+
+
+def test_long_context_lm_fits_on_the_card_as_on_the_cpu(cuda, monkeypatch):
+    # The slice at a small size, every attention streamed: one f32 step on
+    # the card and on the CPU from the same params. Adam's m (0.1 * grad)
+    # per vertex within 4e-2 of the CPU's largest |m|, as chip_smoke.py's
+    # train_parity holds an f32 step: two f32 implementations of a step
+    # through relu layers and sums over every token differ there by up to
+    # ~1e-2 (a cut gradient is off by about 1).
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    monkeypatch.setattr(fa, "_RESIDENT_KV_LIMIT", 0)
+    conf = zoo.transformer_lm(64, t=300, d_model=64, n_heads=2, n_blocks=2)
+    cpu = ComputationGraph(conf, device="cpu").init()
+    card = ComputationGraph(conf, device=cuda).init(params={
+        v: {k: a.detach() for k, a in p.items()}
+        for v, p in cpu.params_tree.items()})
+    rng = np.random.RandomState(16)
+    ids = rng.randint(0, 64, (2, 301))
+    batch = MultiDataSet([ids[:, :-1, None]], [ids[:, 1:].astype(np.int32)])
+    kernels.reset_counts()
+    card.fit(batch)
+    c = kernels.counts()
+    assert [c["launches"][n] for n in STREAM_NAMES] == [2, 2, 2]
+    assert not any(c["plain_calls"].values())
+    cpu.fit(batch)
+    assert abs(card.score_value - cpu.score_value) <= 1e-4 * abs(
+        cpu.score_value)
+    for name, st in cpu.opt_state.items():
+        for key, m in st["m"].items():
+            tol = 4e-2 * float(m.abs().max()) + 1e-12
+            assert float((card.opt_state[name]["m"][key].cpu() - m).abs()
+                         .max()) <= tol, (name, key)

@@ -1,0 +1,302 @@
+"""The port's streamed attention (rows 4 and 7: CPU, the plain versions
+behind `flash_attention_stream` and the streamed backward) against the JAX
+package's streamed Pallas kernels, run directly (`_flash_fwd_stream_bhtd`,
+`_flash_bwd_stream_bhtd`, so always streamed, in interpret mode), and the
+dispatch that picks them.
+
+Inputs come from one numpy RandomState and go to both packages; the JAX
+kernels take [BH, T, D] with lse [BH, T, 1], the port [B, T, H, D] with lse
+[B, H, T]. Tolerances: the forward rtol 2e-5, atol 2e-6 (the same f32
+softmax, sums in another order); the backward rtol 2e-4, atol 2e-5, the
+JAX package's own flash tolerances.
+
+The CUDA kernels split the list into units and merge their partials in
+log-sum-exp form; `_emulate_units` below replays that schedule with torch
+ops, so the unit cut and the merge weights are held here too (the kernels
+themselves are held to the plain versions on the card,
+`tests/test_torch_cuda_kernels.py`).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.kernels import flash_attention as jax_fa
+from deeplearning4j_tpu_torch import kernels
+from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+from deeplearning4j_tpu_torch.parallel import sequence
+
+FWD = dict(rtol=2e-5, atol=2e-6)
+BWD = dict(rtol=2e-4, atol=2e-5)
+STREAM = ("flash_attention_stream", "flash_attention_bwd_dq_stream",
+          "flash_attention_bwd_dkv_stream")
+RESIDENT = ("flash_attention", "flash_attention_fwd_lse",
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def _inputs(b, t, h, d, seed, n=4):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(b, t, h, d).astype(np.float32) for _ in range(n)]
+
+
+def _bhtd(a):
+    b, t, h, d = a.shape
+    return jnp.asarray(np.swapaxes(a, 1, 2).reshape(b * h, t, d))
+
+
+def _from_bhtd(a, b, h):
+    bh, t, d = a.shape
+    return np.swapaxes(np.asarray(a).reshape(b, h, t, d), 1, 2)
+
+
+@pytest.mark.parametrize("nq,nk,bq,bk", [(5, 5, 64, 64), (4, 8, 128, 64),
+                                         (8, 4, 64, 128), (1, 1, 256, 256),
+                                         (3, 3, 256, 256), (7, 2, 32, 96)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("order", ["row", "col"])
+def test_pair_arrays_equal_jax(nq, nk, bq, bk, causal, order):
+    got = fa.pair_arrays(nq, nk, bq, bk, causal, order)
+    want = jax_fa._pair_arrays(nq, nk, bq, bk, causal, order)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int32
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("t", [1, 64, 300, 4096])
+@pytest.mark.parametrize("pairs", ["triangle", "rectangle"])
+@pytest.mark.parametrize("order", ["row", "col"])
+@pytest.mark.parametrize("unit_tiles", [1, 3, 64])
+def test_schedule_covers_every_pair_once(t, pairs, order, unit_tiles):
+    sch = fa.stream_schedule(t, pairs == "triangle", order, unit_tiles)
+    n = -(-t // 64)
+    want = set(zip(*fa.pair_arrays(n, n, 64, 64, pairs == "triangle",
+                                   order)))
+    seen, slots = [], []
+    outer = sch.pairs[0] if order == "row" else sch.pairs[1]
+    for first, count, slot in sch.units.tolist():
+        assert 1 <= count <= unit_tiles
+        run = outer[first:first + count]
+        assert (run == run[0]).all(), "a unit crosses runs"
+        seen += list(zip(*sch.pairs[:, first:first + count].tolist()))
+        if slot >= 0:
+            slots.append(slot)
+    assert sorted(seen) == sorted(want) and len(seen) == len(want)
+    assert sorted(slots) == list(range(sch.n_slots))
+    counts = sch.units[:, 1]
+    assert (np.diff(counts) <= 0).all(), "units are not longest first"
+    # Each merge names its run's slots, consecutive, and its outer tile.
+    for tile, slot0, nslots in sch.merges.tolist():
+        units = sch.units[(sch.units[:, 2] >= slot0)
+                          & (sch.units[:, 2] < slot0 + nslots)]
+        assert len(units) == nslots > 1
+        assert (outer[units[:, 0]] == tile).all()
+        sizes = units[:, 1]
+        assert sizes.max() - sizes.min() <= 1, "units of a run are unequal"
+
+
+def test_schedule_at_the_slice_shape():
+    sch = fa.stream_schedule(32768, True, "row", fa._UNIT_TILES)
+    assert len(sch.pairs[0]) == 512 * 513 // 2
+    assert sch.units[:, 1].max() == 64 and len(sch.units) == 2304
+    ws = fa.stream_workspace_bytes(1, 32768, 8, 64)
+    assert ws == {"forward": 2240 * 8 * 64 * 4 * 66,
+                  "dq": 2240 * 8 * 64 * 4 * 64,
+                  "dkv": 2 * 2240 * 8 * 64 * 4 * 64}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_stream_forward_matches_jax_stream_kernel(causal):
+    b, t, h, d = 1, 320, 2, 16
+    q, k, v = _inputs(b, t, h, d, seed=1, n=3)
+    scale = d ** -0.5
+    jo, jlse = jax_fa._flash_fwd_stream_bhtd(_bhtd(q), _bhtd(k), _bhtd(v),
+                                             causal, scale, 64, 64)
+    kernels.reset_counts()
+    o, lse = fa.flash_attention_stream(*map(torch.tensor, (q, k, v)),
+                                       causal, scale)
+    assert kernels.counts()["plain_calls"]["flash_attention_stream"] == 1
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, h, t)
+    np.testing.assert_allclose(o.numpy(), _from_bhtd(jo, b, h), **FWD)
+    np.testing.assert_allclose(lse.numpy().reshape(b * h, t),
+                               np.asarray(jlse)[..., 0], **FWD)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_stream_backward_matches_jax_stream_kernels(causal):
+    b, t, h, d = 1, 320, 2, 16
+    q, k, v, do = _inputs(b, t, h, d, seed=2)
+    scale = d ** -0.5
+    jo, jlse = jax_fa._flash_fwd_stream_bhtd(_bhtd(q), _bhtd(k), _bhtd(v),
+                                             causal, scale, 64, 64)
+    want = jax_fa._flash_bwd_stream_bhtd(_bhtd(q), _bhtd(k), _bhtd(v),
+                                         _bhtd(do), jo, jlse, causal, scale,
+                                         64, 64)
+    tq, tk, tv, tdo = map(torch.tensor, (q, k, v, do))
+    o, lse = fa.flash_attention_stream(tq, tk, tv, causal, scale)
+    kernels.reset_counts()
+    got = fa.flash_attention_bwd_stream(tq, tk, tv, o, lse, tdo, causal,
+                                        scale)
+    plain = kernels.counts()["plain_calls"]
+    assert [plain[n] for n in STREAM] == [0, 1, 1]
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), _from_bhtd(w, b, h),
+                                   err_msg=f"d{name}", **BWD)
+
+
+def _emulate_units(q, k, v, causal, scale, pairs, unit_tiles):
+    """The CUDA forward's schedule replayed with torch ops: each unit's
+    online-softmax partial (acc, m, l) over its tiles, written out for a
+    run of one unit, else merged as the merge kernel merges them."""
+    b, t, h, d = q.shape
+    qt, kt, vt = (a.transpose(1, 2).double() for a in (q, k, v))
+    sch = fa.stream_schedule(t, pairs == "triangle", "row", unit_tiles)
+    o = torch.zeros_like(qt)
+    lse = torch.zeros(b, h, t, dtype=torch.float64)
+    parts = {}
+    for first, count, slot in sch.units.tolist():
+        r0 = int(sch.pairs[0, first]) * 64
+        rows = slice(r0, min(r0 + 64, t))
+        qpos = torch.arange(r0, min(r0 + 64, t))
+        m = torch.full((b, h, len(qpos)), fa._NEG, dtype=torch.float64)
+        acc, l_ = torch.zeros(b, h, len(qpos), d, dtype=torch.float64), 0
+        for p in range(first, first + count):
+            c0 = int(sch.pairs[1, p]) * 64
+            kpos = torch.arange(c0, min(c0 + 64, t))
+            s = torch.einsum("bhqd,bhkd->bhqk", qt[:, :, rows],
+                             kt[:, :, c0:c0 + 64]) * scale
+            if causal:
+                s = s.masked_fill(kpos[None, :] > qpos[:, None], fa._NEG)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            pw = torch.exp(s - m_new[..., None])
+            l_ = l_ * corr + pw.sum(-1)
+            acc = acc * corr[..., None] + pw @ vt[:, :, c0:c0 + 64]
+            m = m_new
+        if slot < 0:
+            o[:, :, rows] = acc / l_[..., None]
+            lse[:, :, rows] = m + torch.log(l_)
+        else:
+            parts[slot] = (rows, acc, m, l_)
+    weights = []
+    for tile, slot0, n in sch.merges.tolist():
+        rows = parts[slot0][0]
+        mx = torch.stack([parts[slot0 + s][2] for s in range(n)]).amax(0)
+        w = [torch.exp(parts[slot0 + s][2] - mx) for s in range(n)]
+        weights += w
+        big_l = sum(wi * parts[slot0 + s][3] for s, wi in enumerate(w))
+        acc = sum(wi[..., None] * parts[slot0 + s][1]
+                  for s, wi in enumerate(w))
+        o[:, :, rows] = acc / big_l[..., None]
+        lse[:, :, rows] = mx + torch.log(big_l)
+    return o.transpose(1, 2), lse, parts, weights
+
+
+@pytest.mark.parametrize("t", [300, 256])
+def test_rectangle_list_gives_the_triangle(t):
+    q, k, v = map(torch.tensor, _inputs(2, t, 2, 8, seed=3, n=3))
+    tri, tri_lse = fa.flash_attention_stream(q, k, v, True, 0.3)
+    rect, rect_lse = fa.flash_attention_stream(q, k, v, True, 0.3,
+                                               pairs="rectangle")
+    np.testing.assert_array_equal(rect.numpy(), tri.numpy())
+    np.testing.assert_array_equal(rect_lse.numpy(), tri_lse.numpy())
+    # The units' schedule: with the rectangular list cut into units of one
+    # tile, whole units lie above the diagonal; they end at m = -1e30 and
+    # the merge weighs them exactly 0.
+    for pairs in ("triangle", "rectangle"):
+        o, lse, parts, weights = _emulate_units(q, k, v, True, 0.3, pairs,
+                                                unit_tiles=1)
+        np.testing.assert_allclose(o.numpy(), tri.numpy(), **FWD)
+        np.testing.assert_allclose(lse.numpy(), tri_lse.numpy(), **FWD)
+        above = [s for s, (_, _, m, _) in parts.items()
+                 if bool((m == fa._NEG).all())]
+        assert bool(above) == (pairs == "rectangle")
+    zero = [w for w in weights if bool((w == 0).all())]
+    assert len(zero) == len(above) > 0
+
+
+def test_units_reproduce_the_plain_forward_without_mask():
+    q, k, v = map(torch.tensor, _inputs(1, 200, 3, 8, seed=4, n=3))
+    want, want_lse = fa.flash_attention_stream(q, k, v, False, 0.4)
+    o, lse, _, _ = _emulate_units(q, k, v, False, 0.4, "rectangle", 2)
+    np.testing.assert_allclose(o.numpy(), want.numpy(), **FWD)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **FWD)
+
+
+@pytest.mark.parametrize("dtype,t,itemsize", [
+    (torch.float32, 12288, 4), (torch.float32, 12289, 4),
+    (torch.bfloat16, 24576, 2), (torch.bfloat16, 24577, 2)])
+def test_dispatch_rule_equals_jax(dtype, t, itemsize):
+    q = torch.empty((1, t, 8, 64), dtype=dtype, device="meta")
+    assert fa._RESIDENT_KV_LIMIT == jax_fa._RESIDENT_KV_LIMIT
+    jax_streams = 2 * t * 64 * itemsize > jax_fa._RESIDENT_KV_LIMIT
+    assert fa.streamed(q) == jax_streams == (t % 2 == 1)
+
+
+def test_limit_routes_every_entry_to_the_streamed_rows(monkeypatch):
+    monkeypatch.setattr(fa, "_RESIDENT_KV_LIMIT", 0)
+    q, k, v, g = map(torch.tensor, _inputs(1, 96, 2, 8, seed=5))
+    kernels.reset_counts()
+    with torch.no_grad():
+        o = fa.flash_attention(q, k, v)
+    plain = kernels.counts()["plain_calls"]
+    assert [plain[n] for n in STREAM] == [1, 0, 0]
+    assert not any(plain[n] for n in RESIDENT)
+    assert isinstance(o, torch.Tensor)
+    for a in (q, k, v):
+        a.requires_grad_(True)
+    kernels.reset_counts()
+    out = fa.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    torch.autograd.grad(out, (q, k, v), g)
+    plain = kernels.counts()["plain_calls"]
+    assert [plain[n] for n in STREAM] == [1, 1, 1]
+    assert not any(plain[n] for n in RESIDENT)
+    assert not any(kernels.counts()["launches"].values())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_t_matches_dense_attention(monkeypatch, causal):
+    # T = 300 is no multiple of the 64-row tile (nor of JAX's 256 block,
+    # where the JAX package would go dense): the streamed rows mask the
+    # ragged tile.
+    monkeypatch.setattr(fa, "_RESIDENT_KV_LIMIT", 0)
+    q, k, v, g = map(torch.tensor, _inputs(2, 300, 2, 8, seed=6))
+    want = sequence.dense_attention(q, k, v, causal=causal, scale=0.35)
+    for a in (q, k, v):
+        a.requires_grad_(True)
+    kernels.reset_counts()
+    got = fa.flash_attention(q, k, v, causal, 0.35)
+    assert kernels.counts()["plain_calls"]["flash_attention_stream"] == 1
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               **FWD)
+    grads = torch.autograd.grad(got, (q, k, v), g)
+    wants = torch.autograd.grad(
+        sequence.dense_attention(q, k, v, causal=causal, scale=0.35),
+        (q, k, v), g)
+    for name, gt, wt in zip("qkv", grads, wants):
+        np.testing.assert_allclose(gt.numpy(), wt.numpy(),
+                                   err_msg=f"d{name}", **BWD)
+
+
+@pytest.mark.parametrize("t", [64, 130])
+def test_sequence_attention_dense_equals_auto(t):
+    q, k, v = map(torch.tensor, _inputs(2, t, 4, 8, seed=7, n=3))
+    kernels.reset_counts()
+    dense = sequence.attention(q, k, v, causal=True, impl="dense")
+    assert not any(kernels.counts()["plain_calls"].values())
+    auto = sequence.attention(q, k, v, causal=True, impl="auto")
+    assert kernels.counts()["plain_calls"]["flash_attention"] == 1
+    np.testing.assert_allclose(dense.numpy(), auto.numpy(), **FWD)
+    with pytest.raises(ValueError, match="several cards"):
+        sequence.attention(q, k, v, impl="ulysses")
+
+
+def test_stream_wrappers_refuse_lists_they_cannot_take():
+    q = torch.zeros(1, 8, 1, 4)
+    with pytest.raises(ValueError, match="non-causal"):
+        fa.flash_attention_stream(q, q, q, causal=False, pairs="triangle")
+    with pytest.raises(ValueError, match="'triangle' or 'rectangle'"):
+        fa.flash_attention_stream(q, q, q, pairs="diagonal")
+    with pytest.raises(ValueError, match="unit_tiles"):
+        fa.stream_schedule(64, True, "row", 0)
