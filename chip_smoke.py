@@ -7,7 +7,9 @@ Phases, each printing one JSON line that carries the card's name and power
 limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
 
 1. build    - nvcc builds every kernel of `deeplearning4j_tpu_torch/kernels/
-              csrc` for sm_90a (one nvcc per source, all at once).
+              csrc` for sm_90a (one nvcc per source, all at once), and
+              prints each kernel's `-Xptxas -v` lines (row 4's tensor-core
+              kernel, `stream_fwd_wgmma_kernel`, among them).
 2. kernels  - each hand-written kernel at its main path's shapes (serving:
               the prefill and decode shapes; training: B=16, T=1024, 8
               heads of 64, and the 24 layer vertices' Adam state), in bf16
@@ -104,26 +106,33 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
 15. long_kernels - the streamed flash forward (row 4) and backward (row
               7: dq, dk/dv) at the long-context slice's shape ([1, 32768,
               8, 64], causal) in bf16 and f32 against their plain versions
-              on the card (4e-2 / 1e-4 as above, the lse at 1e-4), and at a
-              ragged T (12,345, f32), timed beside the plain version, the
+              on the card (4e-2 / 1e-4 as above; row 4's o also row by
+              row, ||o - o_plain|| / ||o_plain|| within 1e-2 / 1e-4, and
+              its lse at 1e-4), and at
+              ragged T (12,345 f32; 24,577 bf16, one row into a new tile),
+              each row 4 with the form of its unit kernel (`variant`:
+              "wgmma" for bf16 at D = 64, else "cuda_cores"), timed beside
+              the plain version, the
               bound and causal SDPA (the forward; forward + backward less
               the forward), and beside the resident kernels of the same
               functions (rows 5, 6); each wrapper's workspace bytes. Row 13
               (`bench.py:1045 stream_sum`): row 4 over the triangular and
               the rectangular list at [1, 32768, 4, 64] bf16, o summed; the
-              rectangle's o equals the triangle's within 4e-2; tri_ms,
-              rect_ms and their ratio.
+              rectangle's o equals the triangle's within 4e-2 and row by
+              row within 1e-2, its lse within 1e-4; tri_ms, rect_ms and
+              their ratio.
 16. long_train - the LM of phase 5 at T=32,768 (`transformer_lm(8192,
               t=32768, ...)`, ~38M params), `fit` at B=1 with Adam on the
               same learnable id rule, 2 warm-up and 5 timed steps over 2
               batches: every attention past the resident K/V limit, so per
-              step exactly 4 streamed forwards, 4 dq, 4 dk/dv, 9 LayerNorm
-              and 24 update launches, none of rows 3, 5 and 6, 0 plain
-              calls; scores finite and falling; ms/step, tokens/s, peak
-              memory.
+              step exactly 4 streamed forwards (all 4 on the tensor-core
+              form), 4 dq, 4 dk/dv, 9 LayerNorm and 24 update launches,
+              none of rows 3, 5 and 6, 0 plain calls; scores finite and
+              falling; ms/step, tokens/s, peak memory.
 17. long_output - 3 `output` calls of that net at B=1, T=32,768: 4
-              streamed forwards and 9 LayerNorms per call, 0 plain calls;
-              probabilities finite, summing to 1, equal across calls.
+              streamed forwards (tensor-core form) and 9 LayerNorms per
+              call, 0 plain calls; probabilities finite, summing to 1,
+              equal across calls.
 18. long_parity - one f32 `fit` step at B=1, T=32,768 from the same seeded
               params through the streamed rows 4/7 and through the
               resident rows 5/6 (the port's `_RESIDENT_KV_LIMIT` raised for
@@ -135,7 +144,9 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               call's (forward, backward, update; the call's two chunks
               summed), one `rnn_time_step`'s and one long-context training
               step's time goes: host wall time, kernel time on the card
-              (torch.profiler), the card's idle share and the top kernels.
+              (torch.profiler), the card's idle share and the top kernels;
+              and, in one traced window after a long-context step, causal
+              SDPA at row 4's shape beside row 4 (device ms per call).
 
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
@@ -231,8 +242,15 @@ RNN_LAUNCHES = {"lstm_cell": RNN_LAYERS * RNN_T,
 # triangular and the rectangular list at B*H = 4.
 LONG_T, LONG_B, LONG_WARMUP, LONG_TIMED = 32768, 1, 2, 5
 RAGGED_T = 12345            # over the f32 limit, no multiple of 64
+RAGGED_BF16_T = 24577       # over the bf16 limit, one row into a new tile
 ROW13_HEADS = 4
 LSE_TOL = 1e-4
+# Row 4's o is also held row by row: the largest, over the (b, t, h) rows,
+# of ||o - o_plain|| / ||o_plain||. At T = 32,768 a row's |o| is about
+# sqrt(e / t), 0.01-0.03 past row 4,096, so rtol = atol = 4e-2 alone would
+# let a fault of several percent of a row pass. bf16's limit is about
+# twice the largest such error its rounding gives (PERF.md §6).
+ROW_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 LONG_REPS = dict(reps=3, warmup=1)
 LONG_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1,
                  "flash_attention_stream": BLOCKS,
@@ -305,6 +323,15 @@ def compare(got, want, dtype, tols=TOL):
     tol = tols[dtype]
     ok = bool((diff <= tol + tol * want.float().abs()).all())
     return float(diff.max()), ok
+
+
+def compare_rows(got, want, dtype):
+    """The largest relative error of a row of o ([..., D]),
+    ||got - want|| / ||want|| over its last dim, and whether it is within
+    ROW_TOL[dtype]."""
+    g, w = got.float(), want.float()
+    err = float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+    return err, err <= ROW_TOL[dtype]
 
 
 def bound(nbytes, ops, dtype):
@@ -852,6 +879,75 @@ def trace_train_step(torch, net, batch):
     return out
 
 
+def trace_long_attention(torch, net, batch, reps=3):
+    """Device time per call, at the long-context shape ([1, 32768, 8, 64]
+    bf16, causal), of causal SDPA's forward and of its forward + backward
+    (the yardsticks of rows 4 and 7), of row 4, and of row 13 (row 4 over
+    the triangular and the rectangular list at 4 heads), read inside one
+    profiler window that also holds a long-context fit step: profiled
+    alone, a few such calls came back with none or some of their kernels
+    (PERF.md §7). A spin kernel (`torch.cuda._sleep`) marks where each
+    group of calls starts. Returns ms per call by group, or "not
+    measured"."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, do = (torch.randn(1, LONG_T, HEADS, D_MODEL // HEADS,
+                               generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    qh, kh, vh, doh = (a.transpose(1, 2).contiguous() for a in (q, k, v, do))
+    qg, kg, vg = (a.detach().requires_grad_(True) for a in (qh, kh, vh))
+    q4, k4, v4 = (a[:, :, :ROW13_HEADS].contiguous() * 0.5
+                  for a in (q, k, v))
+    calls = {"sdpa_causal": lambda: F.scaled_dot_product_attention(
+                 qh, kh, vh, is_causal=True),
+             "sdpa_causal_fwd_bwd": lambda: torch.autograd.grad(
+                 F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+                 (qg, kg, vg), doh),
+             "row4": lambda: fa.flash_attention_stream(q, k, v, True),
+             "row13_triangle": lambda: fa.flash_attention_stream(
+                 q4, k4, v4, True, with_lse=False),
+             "row13_rectangle": lambda: fa.flash_attention_stream(
+                 q4, k4, v4, True, with_lse=False, pairs="rectangle")}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        net.fit(batch)
+        for fn in calls.values():
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    marks = [i for i, (_, _, n) in enumerate(ev) if "spin_kernel" in n]
+    if len(marks) != len(calls):
+        return {"device_ms": "not measured", "events": len(ev)}
+    out = {}
+    for (what, _), lo, hi in zip(calls.items(), marks,
+                                  marks[1:] + [len(ev)]):
+        by_name = {}
+        for s0, s1, name in ev[lo + 1:hi]:
+            by_name[name[:90]] = by_name.get(name[:90], 0.0) + (s1 - s0)
+        out[what] = {"device_ms_per_call": sum(by_name.values()) / reps
+                     / 1e3,
+                     "by_kernel_ms_per_call": {n: us / reps / 1e3
+                                               for n, us in by_name.items()}}
+    # Row 4 in the fit step: its unit kernels and their merges (the merge
+    # kernel serves row 4 alone).
+    units = [n for _, _, n in ev[:marks[0]] if "stream_fwd_wgmma" in n]
+    us = sum(s1 - s0 for s0, s1, n in ev[:marks[0]]
+             if "stream_fwd_wgmma" in n or "stream_merge_kernel" in n)
+    out["row4_in_fit_step"] = {
+        "launches": len(units),
+        "device_ms_per_launch": us / max(len(units), 1) / 1e3}
+    return out
+
+
 def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
                 rn_batches, rnn_net, rnn_batch, long_net, long_batch):
     """Where the time of one decode step (4 slots at depths 1000, 700, 300,
@@ -897,7 +993,9 @@ def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
             torch, rn_nets[path], rn_batches[path][0])
     out["rnn_fit_call"] = trace_train_step(torch, rnn_net, rnn_batch)
     out["long_train_step"] = trace_train_step(torch, long_net, long_batch)
+    out["long_attention"] = trace_long_attention(torch, long_net, long_batch)
     emit(card, phase="trace", **out)
+    return out
 
 
 # ---------------------------------------------------------------- char-RNN
@@ -1656,24 +1754,30 @@ def long_kernel_cases(torch, dev, dtype_name, t, heads):
 
 
 def _long_compare(name, got, want, dtype):
-    """o, dq, dk, dv at TOL[dtype]; the forward's lse (f32) at LSE_TOL."""
+    """o, dq, dk, dv at TOL[dtype]; the forward's o also row by row at
+    ROW_TOL[dtype] and its lse (f32) at LSE_TOL. Returns the largest
+    elementwise error, whether all held, and the forward's row error."""
     if name != "flash_attention_stream":
-        return compare(got, want, dtype)
+        return (*compare(got, want, dtype), None)
     err_o, ok_o = compare(got[0], want[0], dtype)
+    err_r, ok_r = compare_rows(got[0], want[0], dtype)
     err_l, ok_l = compare(got[1], want[1], dtype,
                           {dtype: LSE_TOL})
-    return max(err_o, err_l), ok_o and ok_l
+    return max(err_o, err_l), ok_o and ok_r and ok_l, err_r
 
 
 def phase_long_kernels(card, torch, dev):
     """Rows 4 and 7 at the slice's shape ([1, 32768, 8, 64], causal) in
     bf16 and f32, against their plain versions on the card (o, dq, dk, dv
     at rtol = atol = 4e-2 in bf16 and 1e-4 in f32 with TF32 off; the lse
-    at 1e-4), timed beside the plain version, the bound and the library
-    call; the same at a ragged T (12,345, f32). Then row 13: row 4 over
-    the triangular and the rectangular list at B*H = 4 (bf16, inputs
-    randn * 0.5 as `bench.py:1089`): each o summed, the rectangle's o
-    against the triangle's at 4e-2, and the two times.
+    at 1e-4; row 4's o also row by row at ROW_TOL), timed beside the plain
+    version, the bound and the library call; the same at ragged T (12,345
+    in f32, 24,577 in bf16). Each row 4 names the form of its unit kernel
+    (`fa.stream_fwd_variant`). Then row 13: row 4 over the triangular and
+    the rectangular list at B*H = 4 (bf16, inputs randn * 0.5 as
+    `bench.py:1089`): each o summed, the rectangle's o against the
+    triangle's at 4e-2 and row by row at ROW_TOL, its lse at LSE_TOL, and
+    the two times.
 
     Times here are CUDA events only. torch.profiler, asked for a few of
     these ~100 ms calls alone, returned none or some of their kernels on
@@ -1684,12 +1788,12 @@ def phase_long_kernels(card, torch, dev):
 
     rows = []
     for dtype, t in (("bfloat16", LONG_T), ("float32", LONG_T),
-                     ("float32", RAGGED_T)):
+                     ("float32", RAGGED_T), ("bfloat16", RAGGED_BF16_T)):
         for name, shape, kern, plain, lib, nbytes, ops, resident in \
                 long_kernel_cases(torch, dev, dtype, t, HEADS):
             got, want = kern(), plain()
             torch.cuda.synchronize()
-            err, ok = _long_compare(name, got, want, dtype)
+            err, ok, row_err = _long_compare(name, got, want, dtype)
             del got, want
             bound_ms, bound_by = bound(nbytes, ops, dtype)
             lib_ms, lib_dev_ms, lib_error = _safe_lib_ms(torch, lib,
@@ -1698,8 +1802,9 @@ def phase_long_kernels(card, torch, dev):
                 "name": name, "dtype": dtype, "shape": shape,
                 "max_abs_err": err,
                 "tolerance": (f"rtol=atol={TOL[dtype]}"
-                              + (f", lse {LSE_TOL}" if name ==
-                                 "flash_attention_stream" else "")),
+                              + (f", rows {ROW_TOL[dtype]}, lse {LSE_TOL}"
+                                 if name == "flash_attention_stream"
+                                 else "")),
                 "ok": ok, "ms": time_ms(kern, **LONG_REPS),
                 "plain_ms": time_ms(plain, **LONG_REPS),
                 "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1708,6 +1813,10 @@ def phase_long_kernels(card, torch, dev):
                 "device_ms": None, "library_device_ms": lib_dev_ms,
                 "workspace_bytes": fa.stream_workspace_bytes(
                     1, t, HEADS, D_MODEL // HEADS)})
+            if name == "flash_attention_stream":
+                rows[-1]["max_row_rel_err"] = row_err
+                rows[-1]["variant"] = fa.stream_fwd_variant(
+                    getattr(torch, dtype), D_MODEL // HEADS)
             emit(card, phase="long_kernels", **rows[-1])
         torch.cuda.empty_cache()
 
@@ -1721,12 +1830,22 @@ def phase_long_kernels(card, torch, dev):
         return fa.flash_attention_stream(q, k, v, True, with_lse=False,
                                          pairs=pairs).float().sum()
 
-    tri = fa.flash_attention_stream(q, k, v, True, with_lse=False)
-    rect = fa.flash_attention_stream(q, k, v, True, with_lse=False,
-                                     pairs="rectangle")
+    # The rectangle's units above the diagonal must weigh exactly 0: its o
+    # against the triangle's elementwise and row by row, its lse at
+    # LSE_TOL; and o without the lse (the timed form) equal to o with it.
+    tri, tri_lse = fa.flash_attention_stream(q, k, v, True)
+    rect, rect_lse = fa.flash_attention_stream(q, k, v, True,
+                                               pairs="rectangle")
+    rect_only = fa.flash_attention_stream(q, k, v, True, with_lse=False,
+                                          pairs="rectangle")
     torch.cuda.synchronize()
     err, ok = compare(rect, tri, "bfloat16")
-    del tri, rect
+    row_err, row_ok = compare_rows(rect, tri, "bfloat16")
+    lse_err, lse_ok = compare(rect_lse, tri_lse, "bfloat16",
+                              {"bfloat16": LSE_TOL})
+    same = bool(torch.equal(rect_only, rect))
+    ok = ok and row_ok and lse_ok and same
+    del tri, rect, tri_lse, rect_lse, rect_only
     tri_ms = time_ms(lambda: stream_sum("triangle"), **LONG_REPS)
     rect_ms = time_ms(lambda: stream_sum("rectangle"), **LONG_REPS)
     tri_pairs = ROW13_HEADS * LONG_T * (LONG_T + 1) // 2
@@ -1735,7 +1854,12 @@ def phase_long_kernels(card, torch, dev):
         "name": "stream_sum", "kernel": "flash_attention_stream",
         "dtype": "bfloat16", "shape": f"[1,{LONG_T},{ROW13_HEADS},{dh}] "
         "causal, triangular vs rectangular list",
-        "max_abs_err_rect_vs_tri": err, "tolerance": "rtol=atol=0.04",
+        "max_abs_err_rect_vs_tri": err,
+        "max_row_rel_err_rect_vs_tri": row_err,
+        "max_abs_err_lse_rect_vs_tri": lse_err,
+        "o_without_lse_equal": same,
+        "tolerance": (f"rtol=atol={TOL['bfloat16']}, rows "
+                      f"{ROW_TOL['bfloat16']}, lse {LSE_TOL}"),
         "ok": ok, "tri_ms": tri_ms, "rect_ms": rect_ms,
         "rect_over_tri": rect_ms / tri_ms,
         "tri_bound_ms": bound(nbytes, 4 * dh * tri_pairs, "bfloat16")[0],
@@ -1743,6 +1867,15 @@ def phase_long_kernels(card, torch, dev):
                                "bfloat16")[0]}
     emit(card, phase="long_kernels", **row13)
     return rows, row13
+
+
+def _variant_errors(counts, launches):
+    """Errors unless every row-4 launch of the run took the tensor-core
+    form (`launches` of them: bf16, D = 64)."""
+    want = {"wgmma": launches, "cuda_cores": 0}
+    got = counts["variants"]["flash_attention_stream"]
+    return [] if got == want else [
+        f"row 4 launches by form {got} != expected {want}"]
 
 
 def _long_conf(dtype):
@@ -1764,8 +1897,8 @@ def phase_long_train(card, torch, kernels, dev):
     """`transformer_lm` (V=8192, d=512, 8 heads, 4 blocks, bf16 compute)
     trained with `ComputationGraph.fit` at B=1, T=32,768: 2 warm-up and 5
     timed steps over 2 seeded batches; per step exactly 4 streamed
-    forwards, 4 dq, 4 dk/dv, 9 LayerNorm and 24 update launches, none of
-    rows 3, 5 and 6, 0 plain calls."""
+    forwards (all on the tensor-core form), 4 dq, 4 dk/dv, 9 LayerNorm and
+    24 update launches, none of rows 3, 5 and 6, 0 plain calls."""
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
     net = ComputationGraph(_long_conf("bfloat16"), device=dev).init()
@@ -1782,6 +1915,7 @@ def phase_long_train(card, torch, kernels, dev):
     steps = LONG_WARMUP + LONG_TIMED
     counts = kernels.counts()
     errors, want = _launch_errors(counts, LONG_LAUNCHES, steps)
+    errors += _variant_errors(counts, BLOCKS * steps)
     if not all(np.isfinite(scores)):
         errors.append(f"non-finite score: {scores}")
     last3 = float(np.mean(scores[-3:]))
@@ -1802,6 +1936,7 @@ def phase_long_train(card, torch, kernels, dev):
          tokens_per_s=tokens / ms * 1e3,
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          launches=counts["launches"], expected_launches=want,
+         row4_variants=counts["variants"]["flash_attention_stream"],
          plain_calls=counts["plain_calls"])
     return not errors, counts["launches"], net, batches
 
@@ -1809,7 +1944,8 @@ def phase_long_train(card, torch, kernels, dev):
 def phase_long_output(card, torch, kernels, net, x):
     """3 `output` calls of the trained net at B=1, T=32,768 (each ends in
     the host copy of [1, 32768, 8192] f32 probabilities): per call exactly
-    4 streamed forwards and 9 LayerNorms, 0 plain calls."""
+    4 streamed forwards, all on the tensor-core form, and 9 LayerNorms, 0
+    plain calls."""
     calls = 3
     kernels.reset_counts()
     wall, outs = [], []
@@ -1821,6 +1957,7 @@ def phase_long_output(card, torch, kernels, net, x):
     errors, want = _launch_errors(
         counts, {"layernorm_norm_act": 2 * BLOCKS + 1,
                  "flash_attention_stream": BLOCKS}, calls)
+    errors += _variant_errors(counts, BLOCKS * calls)
     out = outs[-1]
     if out.shape != (LONG_B, LONG_T, VOCAB) or not np.isfinite(out).all():
         errors.append(f"output {out.shape}, finite {np.isfinite(out).all()}")
@@ -1833,6 +1970,7 @@ def phase_long_output(card, torch, kernels, net, x):
          ms_per_call=statistics.mean(wall[1:]), ms_per_call_all=wall,
          tokens_per_s=LONG_B * LONG_T / statistics.mean(wall[1:]) * 1e3,
          launches=counts["launches"], expected_launches=want,
+         row4_variants=counts["variants"]["flash_attention_stream"],
          plain_calls=counts["plain_calls"])
     return not errors, counts["launches"]
 
@@ -2024,8 +2162,9 @@ def main() -> int:
         failed.append("long_output")
     if not phase_long_parity(card, torch, kernels, dev):
         failed.append("long_parity")
-    phase_trace(card, torch, cg, train_net, batches[0], nets, rn_batch,
-                rnn_net, rnn_data[0], long_net, long_batches[0])
+    trace = phase_trace(card, torch, cg, train_net, batches[0], nets,
+                        rn_batch, rnn_net, rnn_data[0], long_net,
+                        long_batches[0])
 
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
@@ -2050,6 +2189,9 @@ def main() -> int:
         **{name: f"[1,{LONG_T},{HEADS},{D_MODEL // HEADS}] causal"
            for name in LONG_LAUNCHES if name.endswith("_stream")}}
     main_dtype = {"fused_update": "float32", "lstm_cell": "float32"}
+    attn = trace["long_attention"]
+    sdpa_ms = {k: v["device_ms_per_call"] for k, v in attn.items()
+               if isinstance(v, dict) and "device_ms_per_call" in v}
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
         dtype = main_dtype.get(name, "bfloat16")
@@ -2067,7 +2209,30 @@ def main() -> int:
             "device_ms": r["device_ms"], "dtype": dtype,
             "shape": r["shape"], "card": card})
         if name == "flash_attention_stream":
+            # Device times from the traced window (unit kernel and merge
+            # per launch in an L1 fit step; causal SDPA per call).
+            if "row4" in attn:
+                entries[-1]["device_ms"] = \
+                    attn["row4_in_fit_step"]["device_ms_per_launch"]
+                entries[-1]["library_device_ms"] = sdpa_ms["sdpa_causal"]
+                row13.update(
+                    tri_device_ms=sdpa_ms["row13_triangle"],
+                    rect_device_ms=sdpa_ms["row13_rectangle"])
             entries[-1]["row13_stream_sum"] = row13
+            entries[-1]["variant"] = r["variant"]
+        elif name.endswith("_stream") and "row4" in attn:
+            # Row 7: its unit kernel per launch in the traced L1 step, and
+            # its yardstick, SDPA's backward (forward + backward less the
+            # forward), by device time.
+            unit = "stream_dq_kernel" if "_dq_" in name else \
+                "stream_dkv_kernel"
+            hit = [k for k in trace["long_train_step"]["backward"].get(
+                "top", []) if unit in k["kernel"]]
+            if hit:
+                entries[-1]["device_ms"] = \
+                    hit[0]["ms_per_call"] / hit[0]["per_call"]
+            entries[-1]["library_device_ms"] = (
+                sdpa_ms["sdpa_causal_fwd_bwd"] - sdpa_ms["sdpa_causal"])
         if name == "lstm_cell":
             entries[-1]["library_ms_without_peepholes"] = next(
                 r["library_ms"] for r in rows if r["name"] == name

@@ -19,7 +19,9 @@ tensor launches the kernel, or the wrapper raises. No fallback, no switch.
 - `lstm_cell.lstm_cell`                     (csrc/lstm_cell.cu: one LSTM
   time step of one layer)
 - `flash_attention.flash_attention_stream`  (csrc/flash_attention_stream.cu:
-  the streamed forward past the resident K/V limit, with or without lse)
+  the streamed forward past the resident K/V limit, with or without lse;
+  bf16 at D = 64 or 128 on the tensor cores, else on the CUDA cores, by
+  `stream_fwd_variant`, each form counted in `variant_launches`)
 - `flash_attention.flash_attention_bwd_stream` (csrc/flash_attention_stream.cu:
   two kernels, `flash_attention_bwd_dq_stream` and
   `flash_attention_bwd_dkv_stream`; the streamed wrappers each count one
@@ -70,16 +72,24 @@ class Count:
 # nowhere else; plain-version calls, counted in the plain versions.
 launches: Dict[str, Count] = {name: Count() for name in KERNELS}
 plain_calls: Dict[str, Count] = {name: Count() for name in KERNELS}
+# Launches of a kernel that has more than one form on the card, by form
+# (`flash_attention.stream_fwd_variant`); each also counts once in
+# `launches`.
+variant_launches: Dict[str, Dict[str, Count]] = {
+    "flash_attention_stream": {"wgmma": Count(), "cuda_cores": Count()}}
 
 
 def reset_counts() -> None:
-    for c in (*launches.values(), *plain_calls.values()):
+    for c in (*launches.values(), *plain_calls.values(),
+              *(c for v in variant_launches.values() for c in v.values())):
         c.reset()
 
 
 def counts() -> Dict[str, Dict[str, int]]:
     return {"launches": {n: c.value for n, c in launches.items()},
-            "plain_calls": {n: c.value for n, c in plain_calls.items()}}
+            "plain_calls": {n: c.value for n, c in plain_calls.items()},
+            "variants": {n: {k: c.value for k, c in v.items()}
+                         for n, v in variant_launches.items()}}
 
 
 def placement(*tensors) -> str:

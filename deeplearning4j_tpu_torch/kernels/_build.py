@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -59,9 +60,9 @@ _SIGNATURES = {
                        _P],
     # q, k, v, o, lse | pair_i, pair_j, units, n_units, merges, n_merges |
     # partials | n_slots, batch, seq, heads, dim, causal | scale, dtype,
-    # stream.
+    # variant, stream.
     "dl4j_flash_attention_stream_fwd": [_P] * 5 + _SCHED + [_P] * 2
-    + [_I] * 6 + [_F, _I, _P],
+    + [_I] * 6 + [_F, _I, _I, _P],
     "dl4j_flash_attention_stream_bwd_dq": [_P] * 7 + _SCHED + [_P]
     + [_I] * 6 + [_F, _I, _P],
     "dl4j_flash_attention_stream_bwd_dkv": [_P] * 8 + _SCHED + [_P] * 2
@@ -70,7 +71,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-# What the last build did: command lines, seconds, ptxas resource lines.
+# What the last build did: command lines, seconds, ptxas resource lines by
+# kernel.
 last_build: Dict[str, object] = {}
 
 
@@ -134,9 +136,24 @@ def _compile(force: bool) -> Path:
     last_build.update(
         cached=False, path=str(target), seconds=time.perf_counter() - t0,
         commands=[" ".join(c) for c in cmds + [link]],
-        ptxas=[line.strip() for log in logs for line in log.splitlines()
-               if "registers" in line or "spill" in line])
+        ptxas=_ptxas_by_kernel(logs))
     return target
+
+
+def _ptxas_by_kernel(logs) -> Dict[str, List[str]]:
+    """`-Xptxas -v`'s resource lines (registers, shared memory, spills)
+    under the (mangled) name of the kernel they describe."""
+    out: Dict[str, List[str]] = {}
+    for log in logs:
+        name = None
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)'?", line)
+            if m:
+                name = m.group(1)
+            elif name and ("registers" in line or "spill" in line):
+                out.setdefault(name, []).append(line.strip())
+    return out
 
 
 def load(force: bool = False) -> ctypes.CDLL:

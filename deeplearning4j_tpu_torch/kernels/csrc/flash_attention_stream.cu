@@ -40,17 +40,26 @@
 // diagonal ends with m = -1e30, whose merge weight exp(-1e30 - m_row) is
 // exactly 0 (every row's first unit holds key 0, so m_row is finite).
 //
-// Inside a unit the layout is the resident kernels': 64 rows a block, a row
-// owned by G threads (G = next power of two >= D/16) holding 16 dims each in
-// f32 registers, interleaved so the G threads of a row read consecutive
-// shared-memory words; the streamed 64-row tiles are staged in shared memory
-// as f32, row dot products reduce with warp shuffles. Any T is taken: rows
-// and keys past T are masked. The products run on the CUDA cores; mma/wgmma
-// and TMA are later work, as for the resident kernels.
+// Inside a unit, two forms of the same math, picked by the wrapper by dtype
+// and head width alone (kernels/flash_attention.py `stream_fwd_variant`):
+// - bf16 at D = 64 or 128, the slice's case: `stream_fwd_wgmma_kernel`,
+//   both products on the tensor cores (see its note below);
+// - f32, and bf16 at any other D (and the whole backward):
+//   `stream_fwd_kernel`, the resident kernels' CUDA-core layout: 64 rows a
+//   block, a row owned by G threads (G = next power of two >= D/16) holding
+//   16 dims each in f32 registers, interleaved so the G threads of a row read
+//   consecutive shared-memory words; the streamed 64-row tiles staged in
+//   shared memory as f32, row dot products reduced with warp shuffles.
+// Any T is taken: rows and keys past T are masked.
+
+#include <cstdio>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+namespace hopper = dl4j::hopper;
 
 constexpr int kTile = 64;   // q rows and keys per tile (flash_attention.py _TILE)
 constexpr int kChunk = 16;  // keys per online-softmax update
@@ -270,6 +279,265 @@ stream_merge_kernel(T* __restrict__ o, float* __restrict__ lse,
     lse[static_cast<size_t>(bh) * seq + qpos] = mx + logf(lc);
 }
 
+// ------------------------------------------------ forward on tensor cores
+//
+// `stream_fwd_wgmma_kernel`: the unit kernel above for bf16 at D = 64 or
+// 128, with both products on Hopper's tensor cores. It replaces the same
+// TPU kernel (`_flash_stream_kernel`, deeplearning4j_tpu/kernels/
+// flash_attention.py:137) and computes what `stream_fwd_kernel` computes,
+// writing the same outputs and the same partials (`part_row` layout), which
+// the same `stream_merge_kernel` combines; grid (units, batch * heads).
+//
+// Bound at the slice's shape ([1, 32768, 8, 64] bf16, causal): the two
+// products over the causal half, ~1.1e12 operations, 1.112 ms at 989
+// TFLOP/s (bf16 dense), against ~134 MB of traffic (0.04 ms): operations.
+// The CUDA-core kernel reached ~14 TFLOP/s there on an H100 (78.40 ms).
+//
+// Design (one consumer warpgroup, no warp specialisation):
+// - A block is one warpgroup (128 threads) and one 64-row q tile: wgmma
+//   takes 64 rows. Thread 0 issues every TMA load; several blocks per SM
+//   hide each other's latency.
+// - K and V come in by TMA through a ring of kStages (K, V) stages, one
+//   mbarrier each (arrive.expect_tx, try_wait.parity); Q once per unit.
+//   Each load is a box {64 dims, 1 head, 64 rows, 1 batch} of a 4-D tensor
+//   map over [B, T, H, D] with the 128-byte swizzle (two boxes per tile at
+//   D = 128): rows at or past T within a batch come in as zeros, and the
+//   kernel still masks those keys (a zero key scores 0, not -1e30).
+// - s = q k^T: wgmma m64n64k16, A (Q) and B (K, [64 keys][D], K-major)
+//   from shared memory, D / 16 k-steps, f32 accumulators (32 a thread);
+//   the scale is applied to s in f32 after the product.
+// - The online softmax runs in registers: a thread holds two rows of s,
+//   row maxima reduce over the 4 threads of a quad; m and l are f32, l sums
+//   the f32 p; masked scores are the JAX package's finite -1e30, so a unit
+//   wholly above the diagonal ends at m = -1e30 and weighs 0 in the merge.
+// - o += p v: wgmma m64nDk16 with A = p rounded to bf16 in registers (the
+//   s accumulator layout is the A fragment layout, 16 columns at a time)
+//   and B = the V tile, MN-major for this product (the transpose bit).
+// - A stage is refilled (tile i + kStages) once every thread has waited
+//   for the p v product that read it and passed a block barrier.
+//
+// ptxas (-Xptxas -v, sm_90a, nvcc 12.9): 96 registers at D = 64, 124 at
+// D = 128, no spills, no stack; shared memory is all dynamic, `WgTile`'s
+// kSmem: 58,400 bytes at D = 64 (3 stages), 82,968 at D = 128 (2 stages).
+// chip_smoke.py prints the ptxas lines in its build phase.
+// Later work: a producer warp with setmaxnreg, two consumer warpgroups in
+// ping-pong so softmax overlaps the other's products, and K/V stages
+// released per product instead of per tile (FlashAttention-3's schedule).
+
+constexpr int kWgThreads = 128;             // one warpgroup
+constexpr int kBoxBytes = kTile * 64 * 2;   // one TMA box: 64 rows x 128 B
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct WgTile {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kBytes = kBoxBytes * (D / 64);  // a Q, K or V tile
+  // Slack to align the tiles to 1024 bytes (the swizzle atom), the tiles,
+  // then one barrier per stage and one for Q.
+  static constexpr int kSmem =
+      1024 + kBytes * (1 + 2 * kStages) + 8 * (kStages + 1);
+};
+
+// Rows [t0, t0 + 64) of (batch b, head h): D / 64 boxes of 64 x 64.
+template <int D>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int t0, int h,
+                                          int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    hopper::tma_load_4d(dst + c * kBoxBytes, map, bar, c * 64, h, t0, b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        __nv_bfloat16* __restrict__ o,
+                        float* __restrict__ lse,
+                        const int* __restrict__ pair_i,
+                        const int* __restrict__ pair_j,
+                        const int* __restrict__ units,
+                        float* __restrict__ part_acc,
+                        float* __restrict__ part_ml, int n_slots, int seq,
+                        int heads, int causal, float scale) {
+  constexpr int S = WgTile<D>::kStages, TB = WgTile<D>::kBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = qs + TB;      // [S] K tiles
+  uint8_t* vs = ks + S * TB;  // [S] V tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + S * TB);  // [S], Q
+
+  const Unit u = load_unit(units);
+  const int bh = blockIdx.y;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = pair_i[u.first] * kTile;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int i = 0; i <= S; ++i) hopper::mbar_init(full + i, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(full + S, TB);
+    load_tile<D>(qs, &tq, full + S, q0, h, b);
+    for (int i = 0; i < S && i < u.count; ++i) {
+      const int k0 = pair_j[u.first + i] * kTile;
+      hopper::mbar_expect_tx(full + i, 2 * TB);
+      load_tile<D>(ks + i * TB, &tk, full + i, k0, h, b);
+      load_tile<D>(vs + i * TB, &tv, full + i, k0, h, b);
+    }
+  }
+
+  // This thread's rows of every accumulator (see hopper.cuh): row0 and
+  // row0 + 8; its columns 8 j + cq + {0, 1}.
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int qp[2] = {q0 + row0, q0 + row0 + 8};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {dl4j::kNeg, dl4j::kNeg}, l[2] = {0.f, 0.f};
+  hopper::mbar_wait(full + S, 0);
+
+  for (int i = 0; i < u.count; ++i) {
+    const int st = i % S;
+    const int k0 = pair_j[u.first + i] * kTile;
+    const uint8_t* kt = ks + st * TB;
+    const uint8_t* vt = vs + st * TB;
+    hopper::mbar_wait(full + st, (i / S) & 1);
+
+    float s[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      hopper::wgmma_m64n64k16_ss(s, hopper::sw128_desc(qs + off, 16, 1024),
+                                 hopper::sw128_desc(kt + off, 16, 1024),
+                                 kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(s);
+
+    // Scale and mask in f32; only a tile that crosses the diagonal or T
+    // needs the mask.
+    const bool edge = k0 + kTile > seq || (causal && k0 + kTile - 1 > q0);
+    float mx[2] = {dl4j::kNeg, dl4j::kNeg};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = s[4 * j + 2 * r + c] * scale;
+          if (edge) {
+            const int kp = k0 + 8 * j + cq + c;
+            if (kp >= seq || (causal && kp > qp[r])) x = dl4j::kNeg;
+          }
+          s[4 * j + 2 * r + c] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2f((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = exp2f((s[4 * j + 2 * r + c] - m[r]) * kLog2e);
+          s[4 * j + 2 * r + c] = p;
+          l[r] += p;  // this thread's columns; the quad sums at the end
+        }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        acc[4 * j + 2 * r] *= corr[r];
+        acc[4 * j + 2 * r + 1] *= corr[r];
+      }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = hopper::pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = hopper::sw128_desc(vt + kk * 16 * 128, kBoxBytes,
+                                             1024);
+      if constexpr (D == 64)
+        hopper::wgmma_m64n64k16_rs_tb(acc, pa[kk], dv);
+      else
+        hopper::wgmma_m64n128k16_rs_tb(acc, pa[kk], dv);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(acc);
+
+    __syncthreads();  // every thread is done with stage st
+    if (tid == 0 && i + S < u.count) {
+      const int kn = pair_j[u.first + i + S] * kTile;
+      hopper::mbar_expect_tx(full + st, 2 * TB);
+      load_tile<D>(ks + st * TB, &tk, full + st, kn, h, b);
+      load_tile<D>(vs + st * TB, &tv, full + st, kn, h, b);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const size_t stride = static_cast<size_t>(heads) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qp[r] >= seq) continue;
+    if (u.slot < 0) {
+      const float lc = fmaxf(l[r], 1e-30f), inv = 1.f / lc;
+      __nv_bfloat16* orow = o + (static_cast<size_t>(b) * seq + qp[r]) *
+                                    stride + static_cast<size_t>(h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                  acc[4 * j + 2 * r + 1] * inv);
+      if (lse != nullptr && cq == 0)
+        lse[static_cast<size_t>(bh) * seq + qp[r]] = m[r] + logf(lc);
+      continue;
+    }
+    float* prow = part_acc + part_row(bh, n_slots, u.slot, row0 + 8 * r, D);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(prow + 8 * j + cq) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    if (cq == 0) {
+      float* ml = part_ml + (static_cast<size_t>(bh) * n_slots + u.slot) *
+                                2 * kTile;
+      ml[row0 + 8 * r] = m[r];
+      ml[kTile + row0 + 8 * r] = l[r];
+    }
+  }
+}
+
 // --------------------------------------------------------------- backward
 
 // dq over the row-major list: a block holds 64 query rows (q, do, lse, D and
@@ -480,6 +748,17 @@ int prepare(Kernel kernel, int smem) {
 }
 
 template <typename T, int G>
+int launch_merge(void* o, float* lse, float* part_acc, float* part_ml,
+                 const Args& a) {
+  if (a.n_merges > 0)
+    stream_merge_kernel<T, G><<<dim3(a.n_merges, a.batch * a.heads),
+                                kTile * G, 0, a.stream>>>(
+        static_cast<T*>(o), lse, a.merges, part_acc, part_ml, a.n_slots,
+        a.seq, a.heads, a.dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int G>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, float* part_acc, float* part_ml, const Args& a) {
   constexpr int DP = G * kDPT;
@@ -493,12 +772,85 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
       a.units, part_acc, part_ml, a.n_slots, a.seq, a.heads, a.dim, a.causal,
       a.scale);
   if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  if (a.n_merges > 0)
-    stream_merge_kernel<T, G><<<dim3(a.n_merges, bh), kTile * G, 0,
-                                a.stream>>>(
-        static_cast<T*>(o), lse, a.merges, part_acc, part_ml, a.n_slots,
-        a.seq, a.heads, a.dim);
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge<T, G>(o, lse, part_acc, part_ml, a);
+}
+
+// The tensor-core unit kernel (bf16, D = 64 or 128).
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
+// library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over a contiguous bf16 [batch, seq, heads, dim] tensor: dims
+// innermost first, boxes of {64 dims, 1 head, 64 rows, 1 batch}, 128-byte
+// swizzle, zeros past each bound (rows >= seq within a batch too).
+int tile_map(CUtensorMap* map, const void* ptr, const Args& a) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t row = static_cast<cuuint64_t>(a.heads) * a.dim * 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(a.dim),
+                              static_cast<cuuint64_t>(a.heads),
+                              static_cast<cuuint64_t>(a.seq),
+                              static_cast<cuuint64_t>(a.batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(a.dim) * 2, row,
+                                 row * a.seq};
+  const cuuint32_t box[4] = {64, 1, kTile, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) {
+    std::fprintf(stderr, "cuTensorMapEncodeTiled failed: CUresult %d\n",
+                 static_cast<int>(r));
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+template <int D>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                     float* lse, float* part_acc, float* part_ml,
+                     const Args& a) {
+  CUtensorMap tq, tk, tv;
+  if (const int e = tile_map(&tq, q, a)) return e;
+  if (const int e = tile_map(&tk, k, a)) return e;
+  if (const int e = tile_map(&tv, v, a)) return e;
+  constexpr int smem = WgTile<D>::kSmem;
+  auto kernel = stream_fwd_wgmma_kernel<D>;
+  if (const int e = prepare(kernel, smem)) return e;
+  kernel<<<dim3(a.n_units, a.batch * a.heads), kWgThreads, smem,
+           a.stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
+                       a.pair_i, a.pair_j, a.units, part_acc, part_ml,
+                       a.n_slots, a.seq, a.heads, a.causal, a.scale);
+  if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  return launch_merge<__nv_bfloat16, D / 16>(o, lse, part_acc, part_ml, a);
 }
 
 template <typename T, int G>
@@ -617,17 +969,29 @@ Args make_args(const void* pair_i, const void* pair_j, const void* units,
 // lse: [batch, heads, seq] float32, or null (the no-grad forward). The visit
 // list: pair_i, pair_j (q tile, k tile of each visit); units [n_units, 3];
 // merges [n_merges, 3]. part_acc [batch*heads, n_slots, 64, dim] and part_ml
-// [batch*heads, n_slots, 2, 64], float32 scratch.
+// [batch*heads, n_slots, 2, 64], float32 scratch. `variant`: 1 launches the
+// tensor-core unit kernel (bf16, dim 64 or 128, q/k/v 16-byte aligned; any
+// other input is refused, never rerouted), 0 the CUDA-core one.
 extern "C" int dl4j_flash_attention_stream_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* pair_i, const void* pair_j, const void* units, int n_units,
     const void* merges, int n_merges, void* part_acc, void* part_ml,
     int n_slots, int batch, int seq, int heads, int dim, int causal,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, int variant, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || n_units <= 0) return 0;
   const Args a = make_args(pair_i, pair_j, units, n_units, merges, n_merges,
                            n_slots, batch, seq, heads, dim, causal, scale,
                            stream);
+  if (variant == 1) {
+    float *l = static_cast<float*>(lse), *pa = static_cast<float*>(part_acc),
+          *pm = static_cast<float*>(part_ml);
+    if (dtype != dl4j::kBFloat16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (dim == 64) return launch_fwd_wgmma<64>(q, k, v, o, l, pa, pm, a);
+    if (dim == 128) return launch_fwd_wgmma<128>(q, k, v, o, l, pa, pm, a);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, dim,
                   Fwd{q, k, v, o, static_cast<float*>(lse),
                       static_cast<float*>(part_acc),

@@ -35,7 +35,9 @@ Long context (csrc/flash_attention_stream.cu). Where the K/V of one
 (`_flash_fwd_bhtd` :244, the custom_vjp's `_fwd` :314 and `_bwd` :333)
 take the streamed kernels instead, here as there, by shape and dtype alone:
 - `flash_attention_stream` (row 4, `_flash_stream_kernel` :137): (o, lse),
-  or o alone for the no-grad forward;
+  or o alone for the no-grad forward; its unit kernel runs on the tensor
+  cores (wgmma, K/V by TMA) for bf16 at D = 64 or 128 and on the CUDA cores
+  otherwise (`stream_fwd_variant`);
 - `flash_attention_bwd_dq_stream` and `flash_attention_bwd_dkv_stream`
   (row 7, `_flash_bwd_dq_stream_kernel` :551 and
   `_flash_bwd_dkv_stream_kernel` :595), D = rowsum(do * o) a torch
@@ -170,6 +172,17 @@ def _check_qkv(name, q, k, v):
         raise ValueError(f"{name} kernel takes D <= {_MAX_DIM} and "
                          f"B*H <= 65535, got D={d}, B*H={b * h}")
     return b, t, h, d
+
+
+def _check_tma(name, *ts):
+    """TMA reads a tensor through a map over its contiguous layout
+    (`_check_cuda` refuses any other) from a 16-byte-aligned base: refuse
+    a misaligned one before a launch."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} (tensor cores) takes tensors at "
+                             f"16-byte-aligned addresses; got one at "
+                             f"{t.data_ptr():#x}")
 
 
 def _stream(t):
@@ -332,12 +345,29 @@ _RESIDENT_KV_LIMIT = 6 * 1024 * 1024  # the JAX package's, flash_attention.py:19
 _TILE = 64          # q rows and keys per tile (csrc/flash_attention_stream.cu)
 # Tiles per unit: 64 tiles of 64 keys. At the slice's shape (B*H = 8,
 # T = 32,768, causal) that is 2,304 units per (batch, head), 18,432 blocks
-# of 256 threads against ~2-3 resident blocks on each of the 132 SMs:
-# ~50 waves, so the last wave's idle tail is a few percent, while each
-# unit's fixed cost (its q tile, its partial sums) stays under 2% of its
-# work. Read at each call: the card tests lower it to make runs of several
-# units at small T, and chip_smoke.py's long_parity to reorder the sums.
+# in all: of 256 threads, ~2-3 resident on each of the 132 SMs, for the
+# CUDA-core kernels (the backward, the f32 forward); of one 128-thread
+# warpgroup and ~58 KB of shared memory, 3 per SM, for the bf16 forward on
+# the tensor cores. Either way tens of waves, so the last wave's idle tail
+# is a few percent, while each unit's fixed cost (its q tile, its partial
+# sums) stays under 2% of its work. Read at each call: the card tests lower
+# it to make runs of several units at small T, and chip_smoke.py's
+# long_parity to reorder the sums.
 _UNIT_TILES = 64
+
+
+# The forms of row 4's unit kernel (csrc/flash_attention_stream.cu) and
+# their codes in the C entry.
+_STREAM_FWD_VARIANTS = {"cuda_cores": 0, "wgmma": 1}
+
+
+def stream_fwd_variant(dtype, d: int) -> str:
+    """Which unit kernel row 4 launches, by dtype and head width alone:
+    "wgmma" (bf16 products on the tensor cores, K/V by TMA) for bf16 at D
+    = 64 or 128, "cuda_cores" for f32 and every other D. A dispatch by
+    shape, not a fallback: a wgmma launch that fails raises."""
+    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) \
+        else "cuda_cores"
 
 
 def streamed(q) -> bool:
@@ -558,13 +588,24 @@ def flash_attention_stream(q, k, v, causal: bool = True,
     """Row 4: the streamed forward over the visit list (`pairs`, see
     `_list_is_triangle`), q/k/v [B, T, H, D], any T. Returns (o, lse
     [B, H, T] f32), or o alone without `with_lse`. One launch is counted
-    per call, which issues the unit kernel and, when a run spans several
-    units, the merge kernel."""
+    per call, which issues the unit kernel (the form `stream_fwd_variant`
+    picks, counted in `kernels.variant_launches`) and, when a run spans
+    several units, the merge kernel.
+
+    The tensor-core form (bf16 at D = 64 or 128) reads q/k/v by TMA, and
+    so takes them contiguous and at 16-byte-aligned addresses: any other
+    (a view at an odd element offset) raises ValueError before a launch,
+    and is not handed to the CUDA-core form. The attention layer's q/k/v
+    are fresh projection outputs of PyTorch's caching allocator, whose
+    blocks are 512-byte aligned, so the layers never pass one."""
     scale = _default_scale(q, scale)
     if kernels.placement(q, k, v) == "cpu":
         o, lse = flash_stream_fwd_plain(q, k, v, causal, scale, pairs)
         return (o, lse) if with_lse else o
     b, t, h, d = _check_qkv("flash_attention_stream", q, k, v)
+    variant = stream_fwd_variant(q.dtype, d)
+    if variant == "wgmma":
+        _check_tma("flash_attention_stream", q, k, v)
     sch = _schedule_on(q.device, t, _list_is_triangle(causal, pairs), "row",
                        _UNIT_TILES)
     n_slots = sch[3].n_slots
@@ -579,8 +620,10 @@ def flash_attention_stream(q, k, v, causal: bool = True,
                       None if lse is None else lse.data_ptr(),
                       *_sched_args(sch), acc.data_ptr(), ml.data_ptr(),
                       n_slots, b, t, h, d, int(causal), float(scale),
-                      DTYPE_CODES[q.dtype], _stream(q))
+                      DTYPE_CODES[q.dtype], _STREAM_FWD_VARIANTS[variant],
+                      _stream(q))
     kernels.launches["flash_attention_stream"].add()
+    kernels.variant_launches["flash_attention_stream"][variant].add()
     return (o, lse) if with_lse else o
 
 

@@ -588,7 +588,11 @@ STREAM_SHAPES = [  # (shape, causal, unit_tiles): units of 1-3 tiles make
     ((1, 130, 2, 128), True, 1),  # widest D
     ((1, 200, 2, 24), False, 2),  # D that is no power of two
     ((1, 4096, 2, 64), True, 64),  # the slice's unit size: rows of 1-64 tiles
+    ((2, 200, 2, 64), True, 1),   # B >= 2, ragged T, units of one tile
+    ((2, 250, 3, 128), False, 2),  # B >= 2, widest D, ragged, full attention
 ]
+# In bf16, the shapes at D = 64 and 128 take row 4's tensor-core kernel
+# (`fa.stream_fwd_variant`), the others its CUDA-core kernel.
 # Each shape with each list it takes: the triangle only under causal masking.
 STREAM_CASES = [(shape, causal, unit_tiles, pairs)
                 for shape, causal, unit_tiles in STREAM_SHAPES
@@ -596,6 +600,20 @@ STREAM_CASES = [(shape, causal, unit_tiles, pairs)
                               else ("rectangle",))]
 STREAM_NAMES = ("flash_attention_stream", "flash_attention_bwd_dq_stream",
                 "flash_attention_bwd_dkv_stream")
+
+
+# Row 4's o is held row by row as well, ||o - o_plain|| / ||o_plain|| over
+# D: a row's |o| falls as 1/sqrt(keys), so rtol = atol = 4e-2 alone lets a
+# fault of several percent of a long row pass.
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _close_rows(got, want, dtype):
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    err = float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+    assert err <= ROW_TOL[dtype], (
+        f"max row error {err}, limit {ROW_TOL[dtype]}")
 
 
 def _stream_case(rng, shape, dtype, dev):
@@ -610,29 +628,38 @@ def test_stream_fwd_kernel_matches_plain(cuda, monkeypatch, dtype, shape,
     monkeypatch.setattr(fa, "_UNIT_TILES", unit_tiles)
     q, k, v, _ = _stream_case(np.random.RandomState(11), shape, dtype, cuda)
     before = kernels.launches["flash_attention_stream"].value
+    forms = kernels.counts()["variants"]["flash_attention_stream"]
     o, lse = fa.flash_attention_stream(q, k, v, causal, pairs=pairs)
     o_only = fa.flash_attention_stream(q, k, v, causal, pairs=pairs,
                                        with_lse=False)
     assert kernels.launches["flash_attention_stream"].value == before + 2
+    variant = fa.stream_fwd_variant(dtype, shape[-1])
+    forms[variant] += 2
+    assert kernels.counts()["variants"]["flash_attention_stream"] == forms
     want_o, want_lse = fa.flash_stream_fwd_plain(q, k, v, causal,
                                                  shape[-1] ** -0.5)
     _close(o, want_o, dtype)
+    _close_rows(o, want_o, dtype)
     _close(lse, want_lse, torch.float32)
     assert torch.equal(o_only, o)
 
 
-def test_stream_fwd_unit_above_the_diagonal_weighs_zero(cuda, monkeypatch):
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 32),
+                                     (torch.bfloat16, 64)])
+def test_stream_fwd_unit_above_the_diagonal_weighs_zero(cuda, monkeypatch,
+                                                        dtype, d):
     # The rectangular list in units of one tile: every unit above the
     # diagonal ends at m = -1e30 and its merge weight must be exactly 0;
-    # the result is then the triangle's, in f32 to the rounding of the
-    # merge.
+    # the result is then the triangle's, to the rounding of the merge (the
+    # lse, f32, at 1e-4 in both forms of the unit kernel).
     monkeypatch.setattr(fa, "_UNIT_TILES", 1)
-    q, k, v, _ = _stream_case(np.random.RandomState(12), (1, 256, 2, 32),
-                              torch.float32, cuda)
+    q, k, v, _ = _stream_case(np.random.RandomState(12), (1, 256, 2, d),
+                              dtype, cuda)
     tri, tri_lse = fa.flash_attention_stream(q, k, v, True)
     rect, rect_lse = fa.flash_attention_stream(q, k, v, True,
                                                pairs="rectangle")
-    _close(rect, tri, torch.float32)
+    _close(rect, tri, dtype)
+    _close_rows(rect, tri, dtype)
     _close(rect_lse, tri_lse, torch.float32)
     assert torch.isfinite(rect).all()
 
@@ -674,10 +701,15 @@ def test_stream_kernels_are_deterministic(cuda, monkeypatch):
         assert torch.equal(a, b)
 
 
-def test_flash_attention_fn_streams_past_the_limit(cuda, monkeypatch):
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 32),
+                                     (torch.bfloat16, 64)])
+def test_flash_attention_fn_streams_past_the_limit(cuda, monkeypatch, dtype,
+                                                   d):
+    # In bf16 at D = 64 the forward is the tensor-core kernel, and its lse
+    # feeds row 7's backward: the gradients hold it against the CPU's.
     monkeypatch.setattr(fa, "_RESIDENT_KV_LIMIT", 0)
     rng = np.random.RandomState(15)
-    q, k, v, g = (_t(rng.randn(2, 200, 2, 32), torch.float32, cuda)
+    q, k, v, g = (_t(rng.randn(2, 200, 2, d), dtype, cuda)
                   for _ in range(4))
     ref = [a.detach().cpu().requires_grad_(True) for a in (q, k, v)]
     ts = [a.requires_grad_(True) for a in (q, k, v)]
@@ -687,13 +719,15 @@ def test_flash_attention_fn_streams_past_the_limit(cuda, monkeypatch):
         fa.flash_attention(*ts)
     c = kernels.counts()
     assert [c["launches"][n] for n in STREAM_NAMES] == [2, 1, 1]
+    variant = fa.stream_fwd_variant(dtype, d)
+    assert c["variants"]["flash_attention_stream"][variant] == 2
     assert not any(c["launches"][n] for n in (
         "flash_attention", "flash_attention_fwd_lse",
         "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
     assert not any(c["plain_calls"].values())
     want = torch.autograd.grad(fa.flash_attention(*ref), ref, g.cpu())
     for a, b in zip(got, want):
-        _close(a, b.to(cuda), torch.float32)
+        _close(a, b.to(cuda), dtype)
 
 
 def test_stream_wrappers_refuse_to_cut_the_gradient(cuda):
@@ -703,6 +737,27 @@ def test_stream_wrappers_refuse_to_cut_the_gradient(cuda):
     with pytest.raises(ValueError):
         z = torch.zeros(1, 8, 2, 160, device=cuda)  # D > 128
         fa.flash_attention_stream(z, z, z)
+
+
+def test_stream_wgmma_refuses_what_tma_cannot_take(cuda):
+    # TMA reads through a map over a contiguous layout from a 16-byte
+    # aligned base: a bf16 D = 64 tensor that is neither raises before any
+    # launch, and nothing reroutes it to the CUDA-core kernel.
+    buf = torch.zeros(1 * 128 * 2 * 64 + 1, dtype=torch.bfloat16,
+                      device=cuda)
+    shifted = buf[1:].view(1, 128, 2, 64)  # contiguous, 2 bytes off
+    ok = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16, device=cuda)
+    strided = torch.zeros(1, 2, 128, 64, dtype=torch.bfloat16,
+                          device=cuda).transpose(1, 2)
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_stream(shifted, ok, ok)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_stream(ok, strided, ok)
+    c = kernels.counts()
+    assert c["launches"]["flash_attention_stream"] == 0
+    assert c["variants"]["flash_attention_stream"] == {"wgmma": 0,
+                                                       "cuda_cores": 0}
 
 
 def test_long_context_lm_fits_on_the_card_as_on_the_cpu(cuda, monkeypatch):

@@ -223,6 +223,26 @@ def test_units_reproduce_the_plain_forward_without_mask():
     np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **FWD)
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    *[(torch.float32, d, "cuda_cores") for d in (16, 24, 32, 64, 96, 128)],
+    *[(torch.bfloat16, d, "cuda_cores") for d in (16, 24, 32, 96)]])
+def test_stream_fwd_variant_by_dtype_and_width(dtype, d, want):
+    assert fa.stream_fwd_variant(dtype, d) == want
+
+
+def test_cpu_tensors_take_no_variant_of_the_kernel():
+    q, k, v = (torch.tensor(a).bfloat16()
+               for a in _inputs(1, 70, 2, 64, seed=6, n=3))
+    kernels.reset_counts()
+    fa.flash_attention_stream(q, k, v, True)
+    c = kernels.counts()
+    assert c["plain_calls"]["flash_attention_stream"] == 1
+    assert c["launches"]["flash_attention_stream"] == 0
+    assert c["variants"]["flash_attention_stream"] == {"wgmma": 0,
+                                                       "cuda_cores": 0}
+
+
 @pytest.mark.parametrize("dtype,t,itemsize", [
     (torch.float32, 12288, 4), (torch.float32, 12289, 4),
     (torch.bfloat16, 24576, 2), (torch.bfloat16, 24577, 2)])
