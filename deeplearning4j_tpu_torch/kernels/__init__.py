@@ -24,7 +24,8 @@ tensor launches the kernel, or the wrapper raises. No fallback, no switch.
   `stream_fwd_variant`, each form counted in `variant_launches`)
 - `flash_attention.flash_attention_bwd_stream` (csrc/flash_attention_stream.cu:
   two kernels, `flash_attention_bwd_dq_stream` and
-  `flash_attention_bwd_dkv_stream`; the streamed wrappers each count one
+  `flash_attention_bwd_dkv_stream`, each on the tensor cores or the CUDA
+  cores by `stream_bwd_variant`; the streamed wrappers each count one
   per call, of a unit kernel and a merge or sum kernel)
 
 Training reaches the kernels through `torch.autograd.Function`s
@@ -73,10 +74,12 @@ class Count:
 launches: Dict[str, Count] = {name: Count() for name in KERNELS}
 plain_calls: Dict[str, Count] = {name: Count() for name in KERNELS}
 # Launches of a kernel that has more than one form on the card, by form
-# (`flash_attention.stream_fwd_variant`); each also counts once in
-# `launches`.
+# (`flash_attention.stream_fwd_variant`, `stream_bwd_variant`); each also
+# counts once in `launches`.
 variant_launches: Dict[str, Dict[str, Count]] = {
-    "flash_attention_stream": {"wgmma": Count(), "cuda_cores": Count()}}
+    name: {"wgmma": Count(), "cuda_cores": Count()}
+    for name in ("flash_attention_stream", "flash_attention_bwd_dq_stream",
+                 "flash_attention_bwd_dkv_stream")}
 
 
 def reset_counts() -> None:

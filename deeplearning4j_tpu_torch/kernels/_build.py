@@ -64,9 +64,9 @@ _SIGNATURES = {
     "dl4j_flash_attention_stream_fwd": [_P] * 5 + _SCHED + [_P] * 2
     + [_I] * 6 + [_F, _I, _I, _P],
     "dl4j_flash_attention_stream_bwd_dq": [_P] * 7 + _SCHED + [_P]
-    + [_I] * 6 + [_F, _I, _P],
+    + [_I] * 6 + [_F, _I, _I, _P],
     "dl4j_flash_attention_stream_bwd_dkv": [_P] * 8 + _SCHED + [_P] * 2
-    + [_I] * 6 + [_F, _I, _P],
+    + [_I] * 6 + [_F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -17,7 +17,8 @@
 // Bound on the H100 at the long-context slice (B*H = 8, T = 32,768, D = 64,
 // bf16, causal): the forward is 2 products of T^2/2 * D per head, ~1.1e12
 // operations (1.1 ms at 989 TFLOP/s) against ~134 MB (0.04 ms); dq ~1.65e12
-// and dk/dv ~2.2e12: operations bound all three, by 30-50x.
+// (1.67 ms) and dk/dv ~2.2e12 (2.22 ms): operations bound all three, by
+// 30-50x, which is why their bf16 forms run on the tensor cores.
 //
 // What the schedule is about. On the TPU the grid runs in order on one core
 // and scratch (acc, m, l) is carried along a row of the list. Here blocks run
@@ -41,16 +42,21 @@
 // exactly 0 (every row's first unit holds key 0, so m_row is finite).
 //
 // Inside a unit, two forms of the same math, picked by the wrapper by dtype
-// and head width alone (kernels/flash_attention.py `stream_fwd_variant`):
+// and head width alone (kernels/flash_attention.py `stream_fwd_variant`,
+// `stream_bwd_variant`):
 // - bf16 at D = 64 or 128, the slice's case: `stream_fwd_wgmma_kernel`,
-//   both products on the tensor cores (see its note below);
-// - f32, and bf16 at any other D (and the whole backward):
-//   `stream_fwd_kernel`, the resident kernels' CUDA-core layout: 64 rows a
-//   block, a row owned by G threads (G = next power of two >= D/16) holding
-//   16 dims each in f32 registers, interleaved so the G threads of a row read
-//   consecutive shared-memory words; the streamed 64-row tiles staged in
-//   shared memory as f32, row dot products reduced with warp shuffles.
-// Any T is taken: rows and keys past T are masked.
+//   `stream_dq_wgmma_kernel` and `stream_dkv_wgmma_kernel`, every product
+//   on the tensor cores (see their notes below);
+// - f32, and bf16 at any other D: `stream_fwd_kernel`, `stream_dq_kernel`
+//   and `stream_dkv_kernel`, the resident kernels' CUDA-core layout: 64
+//   rows a block, a row owned by G threads (G = next power of two >= D/16)
+//   holding 16 dims each in f32 registers, interleaved so the G threads of
+//   a row read consecutive shared-memory words; the streamed 64-row tiles
+//   staged in shared memory as f32, row dot products reduced with warp
+//   shuffles.
+// Both forms write the same outputs and the same partials, which the same
+// merge and sum kernels combine. Any T is taken: rows and keys past T are
+// masked.
 
 #include <cstdio>
 
@@ -316,8 +322,8 @@ stream_merge_kernel(T* __restrict__ o, float* __restrict__ lse,
 // - A stage is refilled (tile i + kStages) once every thread has waited
 //   for the p v product that read it and passed a block barrier.
 //
-// ptxas (-Xptxas -v, sm_90a, nvcc 12.9): 96 registers at D = 64, 124 at
-// D = 128, no spills, no stack; shared memory is all dynamic, `WgTile`'s
+// ptxas (-Xptxas -v, sm_90a): 96 registers at D = 64, 128 at D = 128, no
+// spills, no stack; shared memory is all dynamic, `WgTile`'s
 // kSmem: 58,400 bytes at D = 64 (3 stages), 82,968 at D = 128 (2 stages).
 // chip_smoke.py prints the ptxas lines in its build phase.
 // Later work: a producer warp with setmaxnreg, two consumer warpgroups in
@@ -348,6 +354,55 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
     hopper::tma_load_4d(dst + c * kBoxBytes, map, bar, c * 64, h, t0, b);
 }
 
+// The first 1024-aligned byte (the swizzle atom) of dynamic shared memory.
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (hopper::smem_addr(p) & 1023)) & 1023);
+}
+
+// d = A B^T for two 64-row tiles of D dims in shared memory, both read
+// K-major: D / 16 wgmma k-steps (k-step kk at byte 32 * (kk % 4) of box
+// kk / 4), the first overwriting d.
+template <int D>
+__device__ __forceinline__ void wg_dot_rows(float (&d)[32], const uint8_t* a,
+                                            const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    hopper::wgmma_m64n64k16_ss(d, hopper::sw128_desc(a + off, 16, 1024),
+                               hopper::sw128_desc(b + off, 16, 1024),
+                               kk > 0);
+  }
+}
+
+// The 64 columns of an m64n64 f32 accumulator rounded to bf16 A fragments,
+// one per k16 step (the layout in hopper.cuh).
+__device__ __forceinline__ void pack_a(const float (&s)[32],
+                                       uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[kk][e] = hopper::pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+// acc += P B: P [64 x 64] as bf16 A fragments from registers, B a 64-row
+// tile of D dims read MN-major (the transpose bit; LBO one box between the
+// 64-wide halves at D = 128, SBO 1024, a k-step of 16 rows 2048 bytes).
+template <int D>
+__device__ __forceinline__ void wg_acc_tile(float (&acc)[D / 2],
+                                            const uint32_t (&pa)[4][4],
+                                            const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc =
+        hopper::sw128_desc(b + kk * 16 * 128, kBoxBytes, 1024);
+    if constexpr (D == 64)
+      hopper::wgmma_m64n64k16_rs_tb(acc, pa[kk], desc);
+    else
+      hopper::wgmma_m64n128k16_rs_tb(acc, pa[kk], desc);
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kWgThreads)
 stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -363,8 +418,7 @@ stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         int heads, int causal, float scale) {
   constexpr int S = WgTile<D>::kStages, TB = WgTile<D>::kBytes;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* qs =
-      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = align_1024(smem_raw);
   uint8_t* ks = qs + TB;      // [S] K tiles
   uint8_t* vs = ks + S * TB;  // [S] V tiles
   uint64_t* full = reinterpret_cast<uint64_t*>(vs + S * TB);  // [S], Q
@@ -415,13 +469,7 @@ stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int e = 0; e < 32; ++e) s[e] = 0.f;
     hopper::fence_regs(s);
     hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-      hopper::wgmma_m64n64k16_ss(s, hopper::sw128_desc(qs + off, 16, 1024),
-                                 hopper::sw128_desc(kt + off, 16, 1024),
-                                 kk > 0);
-    }
+    wg_dot_rows<D>(s, qs, kt);
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(s);
@@ -472,23 +520,11 @@ stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         acc[4 * j + 2 * r + 1] *= corr[r];
       }
     uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        pa[kk][e] = hopper::pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+    pack_a(s, pa);
 
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv = hopper::sw128_desc(vt + kk * 16 * 128, kBoxBytes,
-                                             1024);
-      if constexpr (D == 64)
-        hopper::wgmma_m64n64k16_rs_tb(acc, pa[kk], dv);
-      else
-        hopper::wgmma_m64n128k16_rs_tb(acc, pa[kk], dv);
-    }
+    wg_acc_tile<D>(acc, pa, vt);
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(acc);
@@ -722,6 +758,388 @@ stream_sum_kernel(T* __restrict__ out, const int* __restrict__ merges,
                   g, dim, mul, acc);
 }
 
+// ----------------------------------------------- backward on tensor cores
+//
+// `stream_dq_wgmma_kernel` and `stream_dkv_wgmma_kernel`: the two unit
+// kernels above for bf16 at D = 64 or 128 (`stream_bwd_variant`), every
+// product on Hopper's tensor cores. They replace the same
+// TPU kernels (`_flash_bwd_dq_stream_kernel`, `_flash_bwd_dkv_stream_kernel`,
+// deeplearning4j_tpu/kernels/flash_attention.py:551, :595), compute what
+// `stream_dq_kernel` and `stream_dkv_kernel` compute over the same units,
+// and write the same outputs and the same f32 partials (`part_row`
+// layout), which the same `stream_sum_kernel` adds up; grid (units, batch *
+// heads).
+//
+// Bound at the slice's shape ([1, 32768, 8, 64] bf16, causal): dq is three
+// products over the causal half (s, dp, ds k), ~1.65e12 operations, 1.668
+// ms at 989 TFLOP/s; dk/dv four (s^T, dp^T, p^T do, ds^T q), ~2.2e12, 2.224
+// ms; against ~170 MB of traffic (0.05 ms): operations. The CUDA-core
+// kernels reached 17-21 TFLOP/s there on an H100 (94.41 and 104.66 ms).
+//
+// Design: `stream_fwd_wgmma_kernel`'s, with two tiles held per unit.
+// - A block is one warpgroup and one 64-row tile of the unit's outer side:
+//   q rows for dq (Q and dO held), keys for dk/dv (K and V held), brought
+//   in once by TMA on their own barrier. The streamed side comes through a
+//   ring of kStages stages, each a pair of tiles on one mbarrier: (K, V)
+//   for dq, (Q, dO) for dk/dv. Boxes, map and swizzle as the forward's.
+// - dq, per tile: s = q k^T and dp = do v^T (SS, both K-major), one commit
+//   group; then in f32 registers p = exp2((s * scale - lse) * log2 e) and
+//   ds = p * (dp - D); then dq += ds k with ds rounded to bf16 as register
+//   A and the K tile read MN-major (the transpose bit), as the forward's
+//   p v. lse and D of the thread's two rows are loaded once per unit.
+// - dk/dv, per tile: s^T = k q^T (SS), then p^T; dv += p^T do (register A,
+//   the dO tile MN-major) in one commit group with dp^T = v do^T (SS);
+//   then ds^T = p^T * (dp^T - D) from the f32 p^T; then dk += ds^T q (the
+//   Q tile MN-major). Three commit groups: dp^T is not live while the lse
+//   of the tile is, and no group waits on more than two products. lse and
+//   D are indexed by column: each
+//   thread loads its 16 columns' values with plain loads (all warps read
+//   the same 64, from L1) at the top of the tile, before it waits for the
+//   stage.
+// - Masks: keys at or past T, queries at or past T, and key > query when
+//   causal give p = 0 exactly, as the CUDA-core kernels' `live` does; the
+//   test runs only on a tile that crosses the diagonal or T. TMA's zero
+//   rows past T are not relied on: a zero row scores 0, not a masked value.
+// - Every product sits between fence_regs / wgmma_fence and commit / wait,
+//   so the elementwise passes stay out of the asynchronous window. A stage
+//   is refilled (tile i + kStages) once every thread has waited for the
+//   last product that read it (ds k; ds^T q) and passed a block barrier.
+// - No atomics: dq, dk and dv come from registers of one block, or from
+//   partials summed in slot order; a run is bit-identical on a repeat.
+//
+// ptxas (-Xptxas -v, sm_90a, nvcc 12.9): dq
+// 122 registers at D = 64, 154 at D = 128; dk/dv 176 and 240; no spills,
+// no stack. Shared memory is all dynamic, `WgBwdTile`'s kSmem: 66,592
+// bytes at D = 64 (3 stages), 99,352 at D = 128 (2 stages). chip_smoke.py
+// prints the ptxas lines in its build phase.
+
+template <int D>
+struct WgBwdTile {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kBytes = kBoxBytes * (D / 64);  // one 64-row tile
+  // Slack to align the tiles to 1024 bytes, the two held tiles, kStages
+  // pairs of streamed tiles, one barrier per stage and one for the held.
+  static constexpr int kSmem =
+      1024 + kBytes * (2 + 2 * kStages) + 8 * (kStages + 1);
+};
+
+// This thread's two rows (t0 + row0 + 8 r) of an m64nD accumulator: times
+// `mul` as bf16 rows of a [B, T, H, D] tensor when the unit is its run
+// (slot < 0), else unscaled as f32 rows of partial slot `slot`; rows at or
+// past T are skipped.
+template <int D>
+__device__ __forceinline__ void store_acc(
+    const float (&acc)[D / 2], float mul, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part, int slot, int n_slots, int bh, int b, int h,
+    int heads, int seq, int t0, int row0, int cq) {
+  const size_t stride = static_cast<size_t>(heads) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = t0 + row0 + 8 * r;
+    if (t >= seq) continue;
+    if (slot < 0) {
+      __nv_bfloat16* row = out + (static_cast<size_t>(b) * seq + t) * stride +
+                           static_cast<size_t>(h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + cq) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul,
+                                  acc[4 * j + 2 * r + 1] * mul);
+      continue;
+    }
+    float* prow = part + part_row(bh, n_slots, slot, row0 + 8 * r, D);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(prow + 8 * j + cq) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ drow,
+                       __nv_bfloat16* __restrict__ dq,
+                       const int* __restrict__ pair_i,
+                       const int* __restrict__ pair_j,
+                       const int* __restrict__ units,
+                       float* __restrict__ part, int n_slots, int seq,
+                       int heads, int causal, float scale) {
+  constexpr int S = WgBwdTile<D>::kStages, TB = WgBwdTile<D>::kBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align_1024(smem_raw);
+  uint8_t* dos = qs + TB;
+  uint8_t* ks = dos + TB;     // [S] K tiles
+  uint8_t* vs = ks + S * TB;  // [S] V tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + S * TB);  // [S], Q+dO
+
+  const Unit u = load_unit(units);
+  const int bh = blockIdx.y;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = pair_i[u.first] * kTile;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int i = 0; i <= S; ++i) hopper::mbar_init(full + i, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(full + S, 2 * TB);
+    load_tile<D>(qs, &tq, full + S, q0, h, b);
+    load_tile<D>(dos, &tdo, full + S, q0, h, b);
+    for (int i = 0; i < S && i < u.count; ++i) {
+      const int k0 = pair_j[u.first + i] * kTile;
+      hopper::mbar_expect_tx(full + i, 2 * TB);
+      load_tile<D>(ks + i * TB, &tk, full + i, k0, h, b);
+      load_tile<D>(vs + i * TB, &tv, full + i, k0, h, b);
+    }
+  }
+
+  // This thread's rows (row0, row0 + 8) and columns (8 j + cq + {0, 1}) of
+  // every accumulator (hopper.cuh).
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int qp[2] = {q0 + row0, q0 + row0 + 8};
+  const float sl2 = scale * kLog2e;
+  float l2[2], dr[2];  // lse * log2 e and D of the two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool valid = qp[r] < seq;
+    const size_t at = static_cast<size_t>(bh) * seq + qp[r];
+    l2[r] = valid ? lse[at] * kLog2e : 0.f;
+    dr[r] = valid ? drow[at] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  hopper::mbar_wait(full + S, 0);
+
+  for (int i = 0; i < u.count; ++i) {
+    const int st = i % S;
+    const int k0 = pair_j[u.first + i] * kTile;
+    const uint8_t* kt = ks + st * TB;
+    const uint8_t* vt = vs + st * TB;
+    hopper::mbar_wait(full + st, (i / S) & 1);
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+    wg_dot_rows<D>(s, qs, kt);
+    wg_dot_rows<D>(dp, dos, vt);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+
+    // ds = p * (dp - D) in f32, into s; only a tile that crosses the
+    // diagonal or T needs the mask.
+    const bool edge = k0 + kTile > seq || q0 + kTile > seq ||
+                      (causal && k0 + kTile - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * r + c;
+          float p = exp2f(s[e] * sl2 - l2[r]);
+          if (edge) {
+            const int kp = k0 + 8 * j + cq + c;
+            if (kp >= seq || qp[r] >= seq || (causal && kp > qp[r])) p = 0.f;
+          }
+          s[e] = p * (dp[e] - dr[r]);
+        }
+    uint32_t da[4][4];
+    pack_a(s, da);
+
+    hopper::fence_frags(da);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+    wg_acc_tile<D>(acc, da, kt);  // dq += ds k
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(acc);
+    hopper::fence_frags(da);
+
+    __syncthreads();  // every thread is done with stage st
+    if (tid == 0 && i + S < u.count) {
+      const int kn = pair_j[u.first + i + S] * kTile;
+      hopper::mbar_expect_tx(full + st, 2 * TB);
+      load_tile<D>(ks + st * TB, &tk, full + st, kn, h, b);
+      load_tile<D>(vs + st * TB, &tv, full + st, kn, h, b);
+    }
+  }
+
+  store_acc<D>(acc, scale, dq, part, u.slot, n_slots, bh, b, h, heads, seq,
+               q0, row0, cq);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ drow,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv,
+                        const int* __restrict__ pair_i,
+                        const int* __restrict__ pair_j,
+                        const int* __restrict__ units,
+                        float* __restrict__ part_dk,
+                        float* __restrict__ part_dv, int n_slots, int seq,
+                        int heads, int causal, float scale) {
+  constexpr int S = WgBwdTile<D>::kStages, TB = WgBwdTile<D>::kBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align_1024(smem_raw);
+  uint8_t* vs = ks + TB;
+  uint8_t* qs = vs + TB;        // [S] Q tiles
+  uint8_t* dos = qs + S * TB;   // [S] dO tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(dos + S * TB);  // [S], K+V
+
+  const Unit u = load_unit(units);
+  const int bh = blockIdx.y;
+  const int b = bh / heads, h = bh % heads;
+  const int k0 = pair_j[u.first] * kTile;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int i = 0; i <= S; ++i) hopper::mbar_init(full + i, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(full + S, 2 * TB);
+    load_tile<D>(ks, &tk, full + S, k0, h, b);
+    load_tile<D>(vs, &tv, full + S, k0, h, b);
+    for (int i = 0; i < S && i < u.count; ++i) {
+      const int r0 = pair_i[u.first + i] * kTile;
+      hopper::mbar_expect_tx(full + i, 2 * TB);
+      load_tile<D>(qs + i * TB, &tq, full + i, r0, h, b);
+      load_tile<D>(dos + i * TB, &tdo, full + i, r0, h, b);
+    }
+  }
+
+  // Rows are keys (k0 + row0 + 8 r), columns queries (r0 + 8 j + cq + c).
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int kp[2] = {k0 + row0, k0 + row0 + 8};
+  const float sl2 = scale * kLog2e;
+  const float* lse_bh = lse + static_cast<size_t>(bh) * seq;
+  const float* drow_bh = drow + static_cast<size_t>(bh) * seq;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  hopper::mbar_wait(full + S, 0);
+
+  for (int i = 0; i < u.count; ++i) {
+    const int st = i % S;
+    const int r0 = pair_i[u.first + i] * kTile;
+    const uint8_t* qt = qs + st * TB;
+    const uint8_t* dot = dos + st * TB;
+    float l2[16], dd[16];  // lse * log2 e and D of this thread's columns
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qc = r0 + 8 * j + cq + c;
+        l2[2 * j + c] = qc < seq ? lse_bh[qc] * kLog2e : 0.f;
+        dd[2 * j + c] = qc < seq ? drow_bh[qc] : 0.f;
+      }
+    hopper::mbar_wait(full + st, (i / S) & 1);
+
+    float s[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+    wg_dot_rows<D>(s, ks, qt);  // s^T = k q^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(s);
+
+    const bool edge = r0 + kTile > seq || k0 + kTile > seq ||
+                      (causal && k0 + kTile - 1 > r0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * r + c;
+          float p = exp2f(s[e] * sl2 - l2[2 * j + c]);
+          if (edge) {
+            const int qc = r0 + 8 * j + cq + c;
+            if (qc >= seq || kp[r] >= seq || (causal && kp[r] > qc)) p = 0.f;
+          }
+          s[e] = p;
+        }
+    uint32_t pa[4][4];
+    pack_a(s, pa);
+
+    float dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dp[e] = 0.f;
+    hopper::fence_frags(pa);
+    hopper::fence_regs(dp);
+    hopper::fence_regs(dva);
+    hopper::wgmma_fence();
+    wg_acc_tile<D>(dva, pa, dot);  // dv += p^T do
+    wg_dot_rows<D>(dp, vs, dot);   // dp^T = v do^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(dp);
+    hopper::fence_regs(dva);
+    hopper::fence_frags(pa);
+
+    // ds^T = p^T * (dp^T - D), with p^T f32 still in s.
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * r + c;
+          dp[e] = s[e] * (dp[e] - dd[2 * j + c]);
+        }
+    uint32_t da[4][4];
+    pack_a(dp, da);
+
+    hopper::fence_frags(da);
+    hopper::fence_regs(dka);
+    hopper::wgmma_fence();
+    wg_acc_tile<D>(dka, da, qt);  // dk += ds^T q
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(dka);
+    hopper::fence_frags(da);
+
+    __syncthreads();  // every thread is done with stage st
+    if (tid == 0 && i + S < u.count) {
+      const int rn = pair_i[u.first + i + S] * kTile;
+      hopper::mbar_expect_tx(full + st, 2 * TB);
+      load_tile<D>(qs + st * TB, &tq, full + st, rn, h, b);
+      load_tile<D>(dos + st * TB, &tdo, full + st, rn, h, b);
+    }
+  }
+
+  store_acc<D>(dka, scale, dk, part_dk, u.slot, n_slots, bh, b, h, heads,
+               seq, k0, row0, cq);
+  store_acc<D>(dva, 1.f, dv, part_dv, u.slot, n_slots, bh, b, h, heads, seq,
+               k0, row0, cq);
+}
+
 // ----------------------------------------------------------------- launch
 
 // The arguments every entry shares.
@@ -899,6 +1317,57 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return launch_sum<T, G>(dv, part_dv, 1.f, a);
 }
 
+// The tensor-core unit kernels of the backward (bf16, D = 64 or 128), each
+// followed by the same sum kernels as the CUDA-core ones.
+
+int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+             const void* v, const void* dout, const Args& a) {
+  const void* ptrs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i)
+    if (const int e = tile_map(&m[i], ptrs[i], a)) return e;
+  return 0;
+}
+
+template <int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* drow,
+                    void* dq, float* part, const Args& a) {
+  CUtensorMap m[4];
+  if (const int e = bwd_maps(m, q, k, v, dout, a)) return e;
+  constexpr int smem = WgBwdTile<D>::kSmem;
+  auto kernel = stream_dq_wgmma_kernel<D>;
+  if (const int e = prepare(kernel, smem)) return e;
+  kernel<<<dim3(a.n_units, a.batch * a.heads), kWgThreads, smem,
+           a.stream>>>(m[0], m[1], m[2], m[3], lse, drow,
+                       static_cast<__nv_bfloat16*>(dq), a.pair_i, a.pair_j,
+                       a.units, part, a.n_slots, a.seq, a.heads, a.causal,
+                       a.scale);
+  if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  return launch_sum<__nv_bfloat16, D / 16>(dq, part, a.scale, a);
+}
+
+template <int D>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* drow,
+                     void* dk, void* dv, float* part_dk, float* part_dv,
+                     const Args& a) {
+  CUtensorMap m[4];
+  if (const int e = bwd_maps(m, q, k, v, dout, a)) return e;
+  constexpr int smem = WgBwdTile<D>::kSmem;
+  auto kernel = stream_dkv_wgmma_kernel<D>;
+  if (const int e = prepare(kernel, smem)) return e;
+  kernel<<<dim3(a.n_units, a.batch * a.heads), kWgThreads, smem,
+           a.stream>>>(m[0], m[1], m[2], m[3], lse, drow,
+                       static_cast<__nv_bfloat16*>(dk),
+                       static_cast<__nv_bfloat16*>(dv), a.pair_i, a.pair_j,
+                       a.units, part_dk, part_dv, a.n_slots, a.seq, a.heads,
+                       a.causal, a.scale);
+  if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  using T = __nv_bfloat16;
+  if (const int e = launch_sum<T, D / 16>(dk, part_dk, a.scale, a)) return e;
+  return launch_sum<T, D / 16>(dv, part_dv, 1.f, a);
+}
+
 // Calls `f.template run<T, G>()` for the dtype code and head width.
 template <typename F>
 int dispatch(int dtype, int dim, const F& f) {
@@ -1000,21 +1469,32 @@ extern "C" int dl4j_flash_attention_stream_fwd(
 
 // q, k, v, dout, dq as the forward's q; lse, drow: [batch, heads, seq]
 // float32; the row-major visit list; part [batch*heads, n_slots, 64, dim]
-// float32 scratch.
+// float32 scratch. `variant` as the forward's: 1 launches the tensor-core
+// unit kernel (bf16, dim 64 or 128, q/k/v/dout 16-byte aligned; any other
+// input is refused, never rerouted), 0 the CUDA-core one.
 extern "C" int dl4j_flash_attention_stream_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* drow, void* dq, const void* pair_i,
     const void* pair_j, const void* units, int n_units, const void* merges,
     int n_merges, void* part, int n_slots, int batch, int seq, int heads,
-    int dim, int causal, float scale, int dtype, void* stream) {
+    int dim, int causal, float scale, int dtype, int variant, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || n_units <= 0) return 0;
   const Args a = make_args(pair_i, pair_j, units, n_units, merges, n_merges,
                            n_slots, batch, seq, heads, dim, causal, scale,
                            stream);
-  return dispatch(dtype, dim,
-                  Dq{q, k, v, dout, static_cast<const float*>(lse),
-                     static_cast<const float*>(drow), dq,
-                     static_cast<float*>(part), a});
+  const float *l = static_cast<const float*>(lse),
+              *dr = static_cast<const float*>(drow);
+  float* pt = static_cast<float*>(part);
+  if (variant == 1) {
+    if (dtype != dl4j::kBFloat16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (dim == 64) return launch_dq_wgmma<64>(q, k, v, dout, l, dr, dq, pt, a);
+    if (dim == 128)
+      return launch_dq_wgmma<128>(q, k, v, dout, l, dr, dq, pt, a);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, dim, Dq{q, k, v, dout, l, dr, dq, pt, a});
 }
 
 // As the dq entry, over the column-major visit list; writes dk and dv, with
@@ -1025,14 +1505,23 @@ extern "C" int dl4j_flash_attention_stream_bwd_dkv(
     const void* pair_i, const void* pair_j, const void* units, int n_units,
     const void* merges, int n_merges, void* part_dk, void* part_dv,
     int n_slots, int batch, int seq, int heads, int dim, int causal,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, int variant, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || n_units <= 0) return 0;
   const Args a = make_args(pair_i, pair_j, units, n_units, merges, n_merges,
                            n_slots, batch, seq, heads, dim, causal, scale,
                            stream);
-  return dispatch(dtype, dim,
-                  Dkv{q, k, v, dout, static_cast<const float*>(lse),
-                      static_cast<const float*>(drow), dk, dv,
-                      static_cast<float*>(part_dk),
-                      static_cast<float*>(part_dv), a});
+  const float *l = static_cast<const float*>(lse),
+              *dr = static_cast<const float*>(drow);
+  float *pk = static_cast<float*>(part_dk), *pv = static_cast<float*>(part_dv);
+  if (variant == 1) {
+    if (dtype != dl4j::kBFloat16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (dim == 64)
+      return launch_dkv_wgmma<64>(q, k, v, dout, l, dr, dk, dv, pk, pv, a);
+    if (dim == 128)
+      return launch_dkv_wgmma<128>(q, k, v, dout, l, dr, dk, dv, pk, pv, a);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, dim, Dkv{q, k, v, dout, l, dr, dk, dv, pk, pv, a});
 }

@@ -108,6 +108,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The same for the bf16 A fragments of register-A products, which the
+// products read asynchronously until their wait: fenced after the wait,
+// they stay live (and unclobbered) through the whole window.
+template <int K>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
 // Two floats as the bf16 pair of one A-fragment register (lo: the lower
 // column).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -41,7 +41,8 @@ take the streamed kernels instead, here as there, by shape and dtype alone:
 - `flash_attention_bwd_dq_stream` and `flash_attention_bwd_dkv_stream`
   (row 7, `_flash_bwd_dq_stream_kernel` :551 and
   `_flash_bwd_dkv_stream_kernel` :595), D = rowsum(do * o) a torch
-  expression in f32 as at :648.
+  expression in f32 as at :648; their unit kernels, too, run on the
+  tensor cores for bf16 at D = 64 or 128 (`stream_bwd_variant`).
 They walk the (q tile, k tile) visit list of `pair_arrays` (a copy of
 `_pair_arrays` :113) at the port's 64-row tiles, cut into units of equal
 work (`stream_schedule`). Their plain versions walk the same list a tile
@@ -321,10 +322,13 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_stream if ctx.streamed else \
-            flash_attention_bwd
-        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
-                         ctx.scale)
+        do = do.contiguous()
+        bwd = flash_attention_bwd
+        if ctx.streamed:
+            bwd = flash_attention_bwd_stream
+            if do.data_ptr() % 16:  # see stream_bwd_variant: a fresh copy
+                do = do.clone()
+        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -346,19 +350,20 @@ _TILE = 64          # q rows and keys per tile (csrc/flash_attention_stream.cu)
 # Tiles per unit: 64 tiles of 64 keys. At the slice's shape (B*H = 8,
 # T = 32,768, causal) that is 2,304 units per (batch, head), 18,432 blocks
 # in all: of 256 threads, ~2-3 resident on each of the 132 SMs, for the
-# CUDA-core kernels (the backward, the f32 forward); of one 128-thread
-# warpgroup and ~58 KB of shared memory, 3 per SM, for the bf16 forward on
-# the tensor cores. Either way tens of waves, so the last wave's idle tail
-# is a few percent, while each unit's fixed cost (its q tile, its partial
-# sums) stays under 2% of its work. Read at each call: the card tests lower
-# it to make runs of several units at small T, and chip_smoke.py's
+# CUDA-core kernels (f32); of one 128-thread warpgroup for the bf16 kernels
+# on the tensor cores, 3 per SM for the forward (~58 KB of shared memory)
+# and dq (~66 KB), 2 for dk/dv (176 registers a thread; ptxas in PERF.md
+# §6). Either way tens of waves, so the last wave's idle tail is a few
+# percent, while each unit's fixed cost (its held tiles, its partial sums)
+# stays under 2% of its work. Read at each call: the card tests lower it
+# to make runs of several units at small T, and chip_smoke.py's
 # long_parity to reorder the sums.
 _UNIT_TILES = 64
 
 
-# The forms of row 4's unit kernel (csrc/flash_attention_stream.cu) and
-# their codes in the C entry.
-_STREAM_FWD_VARIANTS = {"cuda_cores": 0, "wgmma": 1}
+# The forms of rows 4 and 7's unit kernels (csrc/flash_attention_stream.cu)
+# and their codes in the C entries.
+_STREAM_VARIANTS = {"cuda_cores": 0, "wgmma": 1}
 
 
 def stream_fwd_variant(dtype, d: int) -> str:
@@ -366,6 +371,26 @@ def stream_fwd_variant(dtype, d: int) -> str:
     "wgmma" (bf16 products on the tensor cores, K/V by TMA) for bf16 at D
     = 64 or 128, "cuda_cores" for f32 and every other D. A dispatch by
     shape, not a fallback: a wgmma launch that fails raises."""
+    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) \
+        else "cuda_cores"
+
+
+def stream_bwd_variant(dtype, d: int) -> str:
+    """Which unit kernels row 7 launches (dq and dk/dv alike), by dtype
+    and head width alone: "wgmma" (every product on the tensor cores, the
+    streamed tiles by TMA) for bf16 at D = 64 or 128, "cuda_cores" for f32
+    and every other D. Both widths compile without spills (ptxas: dq 122
+    and 154 registers, dk/dv 176 and 240; PERF.md §6). A dispatch by shape,
+    not a fallback: a wgmma launch that fails raises.
+
+    The tensor-core form reads q, k, v and do by TMA, from contiguous
+    tensors at 16-byte-aligned addresses: the wrappers refuse any other
+    before a launch and never hand it to the CUDA-core form. An upstream op
+    may hand autograd a contiguous gradient at an odd address, so
+    `FlashAttentionFn.backward` gives the streamed backward a fresh copy of
+    do (the caching allocator's blocks are 512-byte aligned) when, and only
+    when, do.data_ptr() % 16 != 0. q, k and v are the forward's inputs,
+    which its own tensor-core form already took."""
     return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) \
         else "cuda_cores"
 
@@ -620,7 +645,7 @@ def flash_attention_stream(q, k, v, causal: bool = True,
                       None if lse is None else lse.data_ptr(),
                       *_sched_args(sch), acc.data_ptr(), ml.data_ptr(),
                       n_slots, b, t, h, d, int(causal), float(scale),
-                      DTYPE_CODES[q.dtype], _STREAM_FWD_VARIANTS[variant],
+                      DTYPE_CODES[q.dtype], _STREAM_VARIANTS[variant],
                       _stream(q))
     kernels.launches["flash_attention_stream"].add()
     kernels.variant_launches["flash_attention_stream"][variant].add()
@@ -630,13 +655,17 @@ def flash_attention_stream(q, k, v, causal: bool = True,
 def flash_attention_bwd_dq_stream(q, k, v, do, lse, drow, causal, scale, *,
                                   pairs=None):
     """Row 7's dq over the row-major list; drow = rowsum(do * o), [B, H, T]
-    f32 like lse. One launch is counted per call (the unit kernel, and the
-    sum kernel when a run spans several units)."""
+    f32 like lse. One launch is counted per call (the unit kernel, in the
+    form `stream_bwd_variant` picks, counted in `kernels.variant_launches`,
+    and the sum kernel when a run spans several units)."""
     if kernels.placement(q, k, v, do, lse, drow) == "cpu":
         return flash_stream_bwd_dq_plain(q, k, v, do, lse, drow, causal,
                                          scale, pairs)
-    b, t, h, d = _check_bwd("flash_attention_bwd_dq_stream", q, k, v, do,
-                            lse, drow)
+    name = "flash_attention_bwd_dq_stream"
+    b, t, h, d = _check_bwd(name, q, k, v, do, lse, drow)
+    variant = stream_bwd_variant(q.dtype, d)
+    if variant == "wgmma":
+        _check_tma(name, q, k, v, do)
     sch = _schedule_on(q.device, t, _list_is_triangle(causal, pairs), "row",
                        _UNIT_TILES)
     dq = torch.empty_like(q)
@@ -646,8 +675,10 @@ def flash_attention_bwd_dq_stream(q, k, v, do, lse, drow, causal, scale, *,
                       *_bwd_args(q, k, v, do, lse, drow), dq.data_ptr(),
                       *_sched_args(sch), part.data_ptr(), sch[3].n_slots, b,
                       t, h, d, int(causal), float(scale),
-                      DTYPE_CODES[q.dtype], _stream(q))
-    kernels.launches["flash_attention_bwd_dq_stream"].add()
+                      DTYPE_CODES[q.dtype], _STREAM_VARIANTS[variant],
+                      _stream(q))
+    kernels.launches[name].add()
+    kernels.variant_launches[name][variant].add()
     return dq
 
 
@@ -658,8 +689,11 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, drow, causal, scale, *,
     if kernels.placement(q, k, v, do, lse, drow) == "cpu":
         return flash_stream_bwd_dkv_plain(q, k, v, do, lse, drow, causal,
                                           scale, pairs)
-    b, t, h, d = _check_bwd("flash_attention_bwd_dkv_stream", q, k, v, do,
-                            lse, drow)
+    name = "flash_attention_bwd_dkv_stream"
+    b, t, h, d = _check_bwd(name, q, k, v, do, lse, drow)
+    variant = stream_bwd_variant(q.dtype, d)
+    if variant == "wgmma":
+        _check_tma(name, q, k, v, do)
     sch = _schedule_on(q.device, t, _list_is_triangle(causal, pairs), "col",
                        _UNIT_TILES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -671,8 +705,9 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, drow, causal, scale, *,
                       dv.data_ptr(), *_sched_args(sch), part_dk.data_ptr(),
                       part_dv.data_ptr(), sch[3].n_slots, b, t, h, d,
                       int(causal), float(scale), DTYPE_CODES[q.dtype],
-                      _stream(q))
-    kernels.launches["flash_attention_bwd_dkv_stream"].add()
+                      _STREAM_VARIANTS[variant], _stream(q))
+    kernels.launches[name].add()
+    kernels.variant_launches[name][variant].add()
     return dk, dv
 
 

@@ -243,6 +243,113 @@ def test_cpu_tensors_take_no_variant_of_the_kernel():
                                                        "cuda_cores": 0}
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    *[(torch.float32, d, "cuda_cores") for d in (16, 24, 32, 64, 96, 128)],
+    *[(torch.bfloat16, d, "cuda_cores") for d in (16, 24, 32, 96)]])
+def test_stream_bwd_variant_by_dtype_and_width(dtype, d, want):
+    assert fa.stream_bwd_variant(dtype, d) == want
+
+
+def test_cpu_tensors_take_no_variant_of_the_backward_kernels():
+    q, k, v, do = (torch.tensor(a).bfloat16()
+                   for a in _inputs(1, 70, 2, 64, seed=8))
+    o, lse = fa.flash_attention_stream(q, k, v, True)
+    kernels.reset_counts()
+    fa.flash_attention_bwd_stream(q, k, v, o, lse, do, True)
+    c = kernels.counts()
+    assert [c["plain_calls"][n] for n in STREAM] == [0, 1, 1]
+    assert not any(c["launches"].values())
+    for name in STREAM[1:]:
+        assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0}
+
+
+def bf16_operand_row_errors(t=4096, h=2, d=64, seed=11):
+    """The largest row error of dq, dk and dv that the tensor-core
+    backward's rounding alone gives: p and ds rounded to bf16 before the
+    products ds k, p^T do and ds^T q (f32 sums), the outputs to bf16, held
+    as the card checks hold them (each row over max(||row||, 0.1 x the
+    median row norm), dq from row 1) against the plain f32 formulas rounded
+    to bf16. One
+    causal [1, t, h, d] case from bf16 inputs, lse and D from the plain
+    forward."""
+    q, k, v, do = (torch.tensor(a).bfloat16()
+                   for a in _inputs(1, t, h, d, seed))
+    scale = d ** -0.5
+    o, lse = fa.flash_stream_fwd_plain(q, k, v, True, scale)
+    drow = fa._drow(o, do)
+    q_, k_, v_, do_ = fa._bhtd(q, k, v, do)
+
+    def rb(x):
+        return x.bfloat16().float()
+
+    out = {n: [torch.zeros_like(q_), torch.zeros_like(q_)]
+           for n in ("dq", "dk", "dv")}
+    for r0, r1, c0, c1 in fa._spans(t, True, "row"):
+        p, ds = fa._stream_bwd_terms(q_, k_, v_, do_, lse, drow, r0, r1,
+                                     c0, c1, True, scale)
+        for i, f in enumerate((lambda x: x, rb)):
+            out["dq"][i][:, :, r0:r1] = f(ds) @ k_[:, :, c0:c1] * scale
+            out["dk"][i][:, :, c0:c1] += \
+                f(ds).transpose(-1, -2) @ q_[:, :, r0:r1] * scale
+            out["dv"][i][:, :, c0:c1] += \
+                f(p).transpose(-1, -2) @ do_[:, :, r0:r1]
+    errors = {}
+    for name, (want, got) in out.items():
+        # dq's row 0 is 0 in exact arithmetic: held elementwise only.
+        rows = slice(1 if name == "dq" else 0, None)
+        want, got = rb(want[:, :, rows]), rb(got[:, :, rows])
+        norm = want.norm(dim=-1)
+        norm = norm.clamp(min=0.1 * float(norm.median()))
+        errors[name] = float(((got - want).norm(dim=-1) / norm).max())
+    return errors
+
+
+def test_bf16_operand_rounding_stays_under_half_the_row_limit():
+    # The card checks hold row 7's bf16 dq, dk and dv row by row within
+    # 1.2e-2 (chip_smoke.py BWD_ROW_TOL, tests/test_torch_cuda_kernels.py):
+    # about twice what the tensor-core form's rounding gives, so a fault of
+    # a few percent of a row shows while the rounding passes.
+    errors = bf16_operand_row_errors()
+    assert all(1e-3 < e < 6e-3 for e in errors.values()), errors
+
+
+@pytest.mark.parametrize("offset,copied", [(0, False), (1, True),
+                                           (8, False)])
+def test_flash_attention_fn_copies_only_a_misaligned_do(monkeypatch, offset,
+                                                        copied):
+    # The streamed backward's tensor-core form refuses a `do` that is not
+    # 16-byte aligned: FlashAttentionFn hands it an aligned one, copying
+    # only when the incoming gradient sits at an odd address (a bf16 view
+    # one element in: 2 bytes off; eight elements in: 16 bytes, aligned).
+    monkeypatch.setattr(fa, "_RESIDENT_KV_LIMIT", 0)
+    shape = (1, 64, 2, 64)
+    q, k, v = (torch.tensor(a).bfloat16().requires_grad_(True)
+               for a in _inputs(*shape, seed=9, n=3))
+    buf = torch.tensor(_inputs(1, 1, 1, 64 * 64 * 2 + offset, seed=10,
+                               n=1)[0].ravel()).bfloat16()
+    g = buf[offset:].view(shape)
+    assert g.is_contiguous() and (g.data_ptr() % 16 == 0) != copied
+    seen = []
+    real = fa.flash_attention_bwd_stream
+
+    def spy(q_, k_, v_, o_, lse_, do_, causal, scale):
+        seen.append(do_)
+        return real(q_, k_, v_, o_, lse_, do_, causal, scale)
+
+    monkeypatch.setattr(fa, "flash_attention_bwd_stream", spy)
+    out = fa.flash_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    do, = seen
+    assert do.data_ptr() % 16 == 0 and do.is_contiguous()
+    assert (do.data_ptr() != g.data_ptr()) == copied
+    assert torch.equal(do, g)
+    want = torch.autograd.grad(fa.flash_attention(q, k, v), (q, k, v),
+                               g.clone())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dtype,t,itemsize", [
     (torch.float32, 12288, 4), (torch.float32, 12289, 4),
     (torch.bfloat16, 24576, 2), (torch.bfloat16, 24577, 2)])
