@@ -9,9 +9,10 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
 1. build    - nvcc builds every kernel of `deeplearning4j_tpu_torch/kernels/
               csrc` for sm_90a (one nvcc per source, all at once), and
               prints each kernel's `-Xptxas -v` lines, and apart those of
-              the tensor-core kernels of rows 4 and 7
-              (`stream_fwd_wgmma_kernel`, `stream_dq_wgmma_kernel`,
-              `stream_dkv_wgmma_kernel`: registers, shared memory, spills).
+              the tensor-core kernels (`stream_fwd_wgmma_kernel`,
+              `stream_dq_wgmma_kernel`, `stream_dkv_wgmma_kernel`:
+              registers, shared memory, spills), by schedule: `<D, list>`
+              for rows 4 and 7, `<D, rows>` for rows 3, 5 and 6.
 2. kernels  - each hand-written kernel at its main path's shapes (serving:
               the prefill and decode shapes; training: B=16, T=1024, 8
               heads of 64, and the 24 layer vertices' Adam state), in bf16
@@ -21,7 +22,10 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               after 5 warm-up runs) beside the plain version, the least
               time the card could take (`bound_ms`) and one PyTorch library
               call where one computes the same function (`library_ms`, a
-              yardstick the port never calls).
+              yardstick the port never calls). The flash rows 3, 5 and 6
+              are also held row by row (o at 1e-2 / 1e-4 of its norm, lse at
+              1e-4; dq from row 1, dk, dv at 1.2e-2 / 1e-4 of max(norm, 0.1
+              x the median row norm)) and name their form (`variant`).
 3. serve    - the widest `transformer_lm` the repo runs (V=8192, d=512, 8
               heads, 4 blocks, bf16 compute over f32 params, seeded random
               weights) behind the port's `InferenceServer` with paged KV
@@ -30,10 +34,11 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               prefix cache. Every response is checked, and every kernel's
               launch count must match the work the scheduler did, with 0
               calls of any plain version and 0 launches of the training
-              kernels.
+              kernels; every prefill's row 3 on the tensor-core form.
 4. parity   - the same weights on the CPU through the plain versions: the
               first-token distribution and 4 decode steps of one prompt
-              agree with the card's within 4e-2.
+              agree with the card's within 4e-2 (the card's prefill on row
+              3's tensor-core form).
 5. train    - the same model (no decode cache) trained with
               `ComputationGraph.fit` at `bench.py:1116`'s batch: B=16,
               T=1024, Adam, int64 ids whose next id is a fixed permutation
@@ -41,13 +46,14 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               20 timed steps over 2 batches. Scores finite and falling (the
               last 3 average at least 5% under the first), and per step
               exactly 9 LayerNorm, 4 flash forward-with-lse, 4 dq, 4 dk/dv
-              and 24 fused-update launches, 0 inference-flash launches, 0
-              plain calls.
+              (all 12 on the tensor-core form) and 24 fused-update
+              launches, 0 inference-flash launches, 0 plain calls.
 6. train_parity - one `fit` step of the same model at B=2 on the card and
               on the CPU (plain versions): scores within 4e-2 relative and,
               per layer vertex, Adam's m (= 0.1 * grad) within 4e-2 of the
               CPU's largest |m| there (a kernel wrapper that cut the
-              gradient would show here).
+              gradient would show here). The bf16 card step runs rows 5
+              and 6 on the tensor cores, the f32 one on the CUDA cores.
 7. resnet_kernels - BatchNorm apply (row 2) at T1's stem and widest
               BatchNorms, the bottleneck block in training (row 11) at T2's
               8 distinct block shapes and in inference (row 12) at I1's 8,
@@ -119,7 +125,8 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               the plain version, the
               bound and causal SDPA (the forward; forward + backward less
               the forward), and beside the resident kernels of the same
-              functions (rows 5, 6); each wrapper's workspace bytes. Row 13
+              functions (rows 5, 6, with their form, `resident_variant`);
+              each wrapper's workspace bytes. Row 13
               (`bench.py:1045 stream_sum`): row 4 over the triangular and
               the rectangular list at [1, 32768, 4, 64] bf16, o summed; the
               rectangle's o equals the triangle's within 4e-2 and row by
@@ -150,7 +157,8 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               step's time goes: host wall time, kernel time on the card
               (torch.profiler), the card's idle share and the top kernels;
               and, in one traced window after a long-context step, causal
-              SDPA at row 4's shape beside row 4 (device ms per call).
+              SDPA at row 4's shape beside row 4 (device ms per call);
+              every row 3, 5 and 6 launch there on the tensor-core form.
 
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
@@ -160,6 +168,7 @@ fails, it exits non-zero and prints no result.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -179,6 +188,11 @@ ROOT = "deeplearning4j_tpu_torch/kernels/csrc/"
 TRAIN_B, WARMUP, TIMED = 16, 3, 20
 FA = "deeplearning4j_tpu/kernels/flash_attention.py:"
 BB = "deeplearning4j_tpu/kernels/bottleneck_block.py:"
+# Each kernel's C entry and the TPU kernel it replaces. The bf16 forms of
+# rows 3, 5 and 6 at D = 64 / 128 are the tile kernels of
+# TENSOR_CORE_SOURCE over their rows schedule, reached from those entries
+# (the kernels line names that file too).
+TENSOR_CORE_SOURCE = ROOT + "flash_attention_stream.cu"
 KERNEL_INFO = {
     "layernorm_norm_act": (ROOT + "norm_act.cu",
                            "deeplearning4j_tpu/kernels/norm_act.py:101"),
@@ -210,6 +224,8 @@ TRAIN_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1,
                   "flash_attention_bwd_dq": BLOCKS,
                   "flash_attention_bwd_dkv": BLOCKS,
                   "fused_update": 2 + 5 * BLOCKS + 2}
+TRAIN_FLASH = ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
 
 # ResNet-50: the paths T1, T2 (training) and I1, I2 (inference).
 RN_TOL = {"bfloat16": 6e-2, "float32": 1e-4}
@@ -268,6 +284,12 @@ ROW_FLOOR = 0.1
 STREAM_UNITS = {"flash_attention_stream": "fwd",
                 "flash_attention_bwd_dq_stream": "dq",
                 "flash_attention_bwd_dkv_stream": "dkv"}
+# The resident rows 3, 5 and 6, whose bf16 form at D = 64 is the same
+# tensor-core kernels over one block per whole row (or column) of tiles
+# (`stream_<unit>_wgmma_kernel<64, rows>`); `variant_launches` counts their
+# forms too.
+RESIDENT_ROWS = ("flash_attention", "flash_attention_fwd_lse",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 LONG_REPS = dict(reps=3, warmup=1)
 LONG_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1,
                  "flash_attention_stream": BLOCKS,
@@ -352,6 +374,19 @@ def compare_rows(got, want, dtype, tols=ROW_TOL, floor=None):
         norm = norm.clamp(min=floor * float(norm.median()))
     err = float(((g - w).norm(dim=-1) / norm).max())
     return err, err <= tols[dtype]
+
+
+def tensor_core_ptxas(ptxas):
+    """The tensor-core kernels' ptxas lines by readable name:
+    `stream_<unit>_wgmma_kernel<D, list>` (rows 4 and 7) or `<D, rows>`
+    (rows 3, 5 and 6), from `_build.last_build["ptxas"]` (mangled names)."""
+    out = {}
+    for name, lines in ptxas.items():
+        m = re.search(r"(stream_[a-z]+_wgmma_kernel)ILi(\d+)ELb([01])E", name)
+        if m:
+            sched = "rows" if m.group(3) == "1" else "list"
+            out[f"{m.group(1)}<{m.group(2)}, {sched}>"] = lines
+    return out
 
 
 def bound(nbytes, ops, dtype):
@@ -550,6 +585,12 @@ def _lib_ms(torch, lib, reps=25, warmup=5):
 
 
 def phase_kernels(card, torch, dev, train_conf):
+    """Each kernel against its plain version at its main path's shapes. The
+    flash rows 3, 5 and 6 are also held row by row (`flash_compare`) and
+    name the form of their kernel (`variant`: "wgmma" for bf16 at D = 64,
+    "cuda_cores" for f32)."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
     rows = []
     for dtype in ("bfloat16", "float32"):
         cases = (kernel_cases(torch, dev, dtype)
@@ -558,12 +599,20 @@ def phase_kernels(card, torch, dev, train_conf):
             got = kern()
             want = plain()
             torch.cuda.synchronize()
-            err, ok = compare(got, want, dtype)
+            extra, tol = {}, f"rtol=atol={TOL[dtype]}"
+            if name in RESIDENT_ROWS:
+                err, ok, row_err = flash_compare(name, got, want, dtype)
+                tol = flash_tolerance(name, dtype)
+                extra = {"max_row_rel_err": row_err,
+                         "variant": fa.resident_variant(
+                             getattr(torch, dtype), D_MODEL // HEADS)}
+            else:
+                err, ok = compare(got, want, dtype)
             bound_ms, bound_by = bound(nbytes, ops, dtype)
             lib_ms, lib_dev_ms = _lib_ms(torch, lib)
             rows.append({
                 "name": name, "dtype": dtype, "shape": shape,
-                "max_abs_err": err, "tolerance": f"rtol=atol={TOL[dtype]}",
+                "max_abs_err": err, "tolerance": tol, **extra,
                 "ok": ok, "ms": time_ms(kern), "plain_ms": time_ms(plain),
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms,
@@ -666,10 +715,12 @@ def phase_serve(card, torch, kernels, cg):
                       f"{counts['plain_calls']}")
     if any(counts["launches"][k] == 0 for k in SERVING_KERNELS):
         errors.append(f"a kernel never launched: {counts['launches']}")
+    errors += _variant_errors(counts, {"flash_attention": BLOCKS * pf})
     emit(card, phase="serve", ok=not errors, errors=errors,
          requests=len(bodies), completed=len(results), wall_s=wall,
          prefills=pf, prefix_hits=stats["prefix_hits"], decode_steps=steps,
          launches=counts["launches"], plain_calls=counts["plain_calls"],
+         variants=counts["variants"]["flash_attention"],
          expected_launches=want,
          ttft_s={"median": statistics.median(ttft) if ttft else None,
                  "max": ttft[-1] if ttft else None, "all": ttft},
@@ -683,6 +734,7 @@ def phase_serve(card, torch, kernels, cg):
 
 
 def phase_parity(card, torch, cg, conf):
+    from deeplearning4j_tpu_torch import kernels
     from deeplearning4j_tpu_torch.models.zoo import PagedDecodeStepper
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
@@ -690,6 +742,7 @@ def phase_parity(card, torch, cg, conf):
         v: {k: a.cpu() for k, a in p.items()}
         for v, p in cg.params_tree.items()})
     prompt = np.random.RandomState(3).randint(0, VOCAB, 300).tolist()
+    kernels.reset_counts()
     steppers = [PagedDecodeStepper(net, SLOTS, page_size=PAGE)
                 for net in (cg, cpu)]
     probs = []
@@ -704,10 +757,15 @@ def phase_parity(card, torch, cg, conf):
         probs = [st.step([tok] + [0] * (SLOTS - 1))[0] for st in steppers]
         diffs.append(float(np.abs(probs[0] - probs[1]).max()))
         agree.append(int(probs[0].argmax()) == int(probs[1].argmax()))
-    ok = max(diffs) <= 4e-2 and all(np.isfinite(diffs))
-    emit(card, phase="parity", ok=ok, tolerance=4e-2,
-         max_abs_prob_diff=diffs, argmax_agrees=agree, prompt_len=300)
-    return ok
+    # The card's one prefill: row 3 once per block, on the tensor cores.
+    counts = kernels.counts()
+    errors = _variant_errors(counts, {"flash_attention": BLOCKS})
+    if not (max(diffs) <= 4e-2 and all(np.isfinite(diffs))):
+        errors.append(f"probabilities differ: {diffs}")
+    emit(card, phase="parity", ok=not errors, errors=errors, tolerance=4e-2,
+         max_abs_prob_diff=diffs, argmax_agrees=agree, prompt_len=300,
+         variants=counts["variants"]["flash_attention"])
+    return not errors
 
 
 def lm_batches(seed, b, t, n):
@@ -748,6 +806,8 @@ def phase_train(card, torch, kernels, conf, dev):
     counts = kernels.counts()
     steps = WARMUP + TIMED
     errors, want = _launch_errors(counts, TRAIN_LAUNCHES, steps)
+    errors += _variant_errors(counts, {name: BLOCKS * steps
+                                       for name in TRAIN_FLASH})
     if not all(np.isfinite(scores)):
         errors.append(f"non-finite score: {scores}")
     last3 = float(np.mean(scores[-3:]))
@@ -765,6 +825,7 @@ def phase_train(card, torch, kernels, conf, dev):
          ms_per_step_all=wall, tokens_per_s=TRAIN_B * CACHE / ms * 1e3,
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          launches=counts["launches"], expected_launches=want,
+         variants={k: counts["variants"][k] for k in TRAIN_FLASH},
          plain_calls=counts["plain_calls"])
     return not errors, counts["launches"], net, batches
 
@@ -793,20 +854,31 @@ def phase_train_parity(card, torch, dev):
     distance, whichever is larger (both paths round to bf16 at other
     places, and the gradients of the layers deepest from the loss carry
     the most rounding)."""
+    from deeplearning4j_tpu_torch import kernels
     from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
     from deeplearning4j_tpu_torch.models import zoo
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
     (x, y), = lm_batches(23, 2, CACHE, 1)
     t0 = time.perf_counter()
-    nets = {}
+    nets, errors, forms = {}, [], {}
     for dtype, short in (("bfloat16", "bf16"), ("float32", "f32")):
         conf = zoo.transformer_lm(VOCAB, t=CACHE, d_model=D_MODEL,
                                   n_heads=HEADS, n_blocks=BLOCKS, dtype=dtype)
+        kernels.reset_counts()
         for where, d in (("card", dev), ("cpu", "cpu")):
             net = ComputationGraph(conf, device=d).init()  # same seed
             net.fit(MultiDataSet([x], [y]))
             nets[f"{where}_{short}"] = net
+        # The card's step (the CPU's runs plain versions): rows 5 and 6 on
+        # the tensor cores in bf16, on the CUDA cores in f32.
+        forms[short] = {n: kernels.counts()["variants"][n]
+                        for n in TRAIN_FLASH}
+        form = "wgmma" if short == "bf16" else "cuda_cores"
+        want = {"wgmma": 0, "cuda_cores": 0, form: BLOCKS}
+        if any(f != want for f in forms[short].values()):
+            errors.append(f"{short} card step launches by form "
+                          f"{forms[short]}, want {want} each")
     seconds = time.perf_counter() - t0
     score = {k: n.score_value for k, n in nets.items()}
 
@@ -817,7 +889,6 @@ def phase_train_parity(card, torch, dev):
     m_bf16 = _m_errors(nets["card_bf16"], nets["cpu_bf16"])
     card_vs_f32 = _m_errors(nets["card_bf16"], nets["cpu_f32"])
     cpu_vs_f32 = _m_errors(nets["cpu_bf16"], nets["cpu_f32"])
-    errors = []
     if not (rel("card_f32", "cpu_f32") <= 4e-2
             and rel("card_bf16", "cpu_bf16") <= 4e-2):
         errors.append(f"scores differ: {score}")
@@ -835,7 +906,8 @@ def phase_train_parity(card, torch, dev):
          m_err_over_max_f32_card_vs_cpu=m_f32,
          m_err_over_max_bf16_card_vs_cpu=m_bf16,
          m_err_over_max_card_bf16_vs_cpu_f32=card_vs_f32,
-         m_err_over_max_cpu_bf16_vs_cpu_f32=cpu_vs_f32, seconds=seconds)
+         m_err_over_max_cpu_bf16_vs_cpu_f32=cpu_vs_f32, variants=forms,
+         seconds=seconds)
     return not errors
 
 
@@ -982,6 +1054,9 @@ def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
         prompt_bucket_ladder,
     )
 
+    from deeplearning4j_tpu_torch import kernels
+
+    kernels.reset_counts()
     rng = np.random.RandomState(5)
     ladder = prompt_bucket_ladder(CACHE)
     st = PagedDecodeStepper(cg, SLOTS, page_size=PAGE)
@@ -1014,8 +1089,16 @@ def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
     out["rnn_fit_call"] = trace_train_step(torch, rnn_net, rnn_batch)
     out["long_train_step"] = trace_train_step(torch, long_net, long_batch)
     out["long_attention"] = trace_long_attention(torch, long_net, long_batch)
-    emit(card, phase="trace", **out)
-    return out
+    # Every row 3, 5 and 6 launch of the traced prefills and LM step took
+    # the tensor-core form.
+    counts = kernels.counts()
+    launched = {n: counts["launches"][n] for n in RESIDENT_ROWS}
+    errors = _variant_errors(counts, launched)
+    if not all(launched.values()):
+        errors.append(f"a resident flash row never launched: {launched}")
+    emit(card, phase="trace", ok=not errors, errors=errors,
+         variants={n: counts["variants"][n] for n in RESIDENT_ROWS}, **out)
+    return out, not errors
 
 
 # ---------------------------------------------------------------- char-RNN
@@ -1773,13 +1856,18 @@ def long_kernel_cases(torch, dev, dtype_name, t, heads):
     ]
 
 
-def _long_compare(name, got, want, dtype):
-    """o, dq, dk, dv at TOL[dtype]; the forward's o also row by row at
-    ROW_TOL[dtype] and its lse (f32) at LSE_TOL; dq, dk and dv row by row
-    at BWD_ROW_TOL[dtype] over the ROW_FLOOR'd norm, dq from row 1 (all
-    these cases are causal). Returns the largest elementwise error, whether
-    all held, and the largest row error."""
-    if name != "flash_attention_stream":
+FLASH_FORWARDS = ("flash_attention", "flash_attention_fwd_lse",
+                  "flash_attention_stream")
+
+
+def flash_compare(name, got, want, dtype):
+    """A flash row (3-7) against its plain version: o, dq, dk, dv at
+    TOL[dtype]; a forward's o also row by row at ROW_TOL[dtype] and its lse
+    (f32), where it has one, at LSE_TOL; dq, dk and dv row by row at
+    BWD_ROW_TOL[dtype] over the ROW_FLOOR'd norm, dq from row 1 (all these
+    cases are causal). Returns the largest elementwise error, whether all
+    held, and the largest row error."""
+    if name not in FLASH_FORWARDS:
         err, ok = compare(got, want, dtype)
         got, want = (got, want) if isinstance(got, tuple) else \
             ((got[:, 1:],), (want[:, 1:],))
@@ -1787,11 +1875,21 @@ def _long_compare(name, got, want, dtype):
                 for g, w in zip(got, want)]
         return (err, ok and all(r_ok for _, r_ok in rows),
                 max(e for e, _ in rows))
+    if not isinstance(got, tuple):  # row 3: o alone
+        got, want = (got,), (want,)
     err_o, ok_o = compare(got[0], want[0], dtype)
     err_r, ok_r = compare_rows(got[0], want[0], dtype)
-    err_l, ok_l = compare(got[1], want[1], dtype,
-                          {dtype: LSE_TOL})
+    err_l, ok_l = compare(got[1], want[1], dtype, {dtype: LSE_TOL}) \
+        if len(got) > 1 else (0.0, True)
     return max(err_o, err_l), ok_o and ok_r and ok_l, err_r
+
+
+def flash_tolerance(name, dtype):
+    if name not in FLASH_FORWARDS:
+        return (f"rtol=atol={TOL[dtype]}, rows {BWD_ROW_TOL[dtype]} over "
+                f"max(norm, {ROW_FLOOR} x median)")
+    lse = f", lse {LSE_TOL}" if name != "flash_attention" else ""
+    return f"rtol=atol={TOL[dtype]}, rows {ROW_TOL[dtype]}{lse}"
 
 
 def phase_long_kernels(card, torch, dev):
@@ -1821,7 +1919,7 @@ def phase_long_kernels(card, torch, dev):
                 long_kernel_cases(torch, dev, dtype, t, HEADS):
             got, want = kern(), plain()
             torch.cuda.synchronize()
-            err, ok, row_err = _long_compare(name, got, want, dtype)
+            err, ok, row_err = flash_compare(name, got, want, dtype)
             extra = {}
             if name == "flash_attention_bwd_dq_stream":
                 # Row 0, held elementwise only: its largest error over the
@@ -1837,24 +1935,20 @@ def phase_long_kernels(card, torch, dev):
             rows.append({
                 "name": name, "dtype": dtype, "shape": shape,
                 "max_abs_err": err,
-                "tolerance": (f"rtol=atol={TOL[dtype]}"
-                              + (f", rows {ROW_TOL[dtype]}, lse {LSE_TOL}"
-                                 if name == "flash_attention_stream"
-                                 else f", rows {BWD_ROW_TOL[dtype]} over "
-                                 f"max(norm, {ROW_FLOOR} x median)")),
+                "tolerance": flash_tolerance(name, dtype),
                 "ok": ok, "ms": time_ms(kern, **LONG_REPS),
                 "plain_ms": time_ms(plain, **LONG_REPS),
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms, "library_error": lib_error,
                 "resident_ms": time_ms(resident, **LONG_REPS),
+                "resident_variant": fa.resident_variant(
+                    getattr(torch, dtype), D_MODEL // HEADS),
                 "device_ms": None, "library_device_ms": lib_dev_ms,
                 "workspace_bytes": fa.stream_workspace_bytes(
                     1, t, HEADS, D_MODEL // HEADS)})
             rows[-1].update(max_row_rel_err=row_err, **extra)
-            rows[-1]["variant"] = (
-                fa.stream_fwd_variant if name == "flash_attention_stream"
-                else fa.stream_bwd_variant)(getattr(torch, dtype),
-                                            D_MODEL // HEADS)
+            rows[-1]["variant"] = fa.flash_variant(getattr(torch, dtype),
+                                                   D_MODEL // HEADS)
             emit(card, phase="long_kernels", **rows[-1])
         torch.cuda.empty_cache()
 
@@ -1908,8 +2002,8 @@ def phase_long_kernels(card, torch, dev):
 
 
 def _variant_errors(counts, launches):
-    """Errors unless every launch of each streamed row in `launches`
-    ({name: n}; bf16, D = 64) took the tensor-core form."""
+    """Errors unless every launch of each flash row in `launches` ({name:
+    n}; bf16, D = 64) took the tensor-core form."""
     errors = []
     for name, n in launches.items():
         want = {"wgmma": n, "cuda_cores": 0}
@@ -2125,8 +2219,8 @@ def main() -> int:
     b = _build.last_build
     emit(card, phase="build", seconds=b["seconds"], commands=b["commands"],
          ptxas=b["ptxas"])
-    emit(card, phase="build", tensor_core_ptxas={
-        k: v for k, v in b["ptxas"].items() if "_wgmma_kernel" in k})
+    emit(card, phase="build",
+         tensor_core_ptxas=tensor_core_ptxas(b["ptxas"]))
 
     train_conf = zoo.transformer_lm(VOCAB, t=CACHE, d_model=D_MODEL,
                                     n_heads=HEADS, n_blocks=BLOCKS,
@@ -2206,9 +2300,11 @@ def main() -> int:
         failed.append("long_output")
     if not phase_long_parity(card, torch, kernels, dev):
         failed.append("long_parity")
-    trace = phase_trace(card, torch, cg, train_net, batches[0], nets,
-                        rn_batch, rnn_net, rnn_data[0], long_net,
-                        long_batches[0])
+    trace, ok = phase_trace(card, torch, cg, train_net, batches[0], nets,
+                            rn_batch, rnn_net, rnn_data[0], long_net,
+                            long_batches[0])
+    if not ok:
+        failed.append("trace")
 
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
@@ -2252,8 +2348,10 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"], "dtype": dtype,
             "shape": r["shape"], "card": card})
-        if name in STREAM_UNITS:
+        if name in STREAM_UNITS or name in RESIDENT_ROWS:
             entries[-1]["variant"] = r["variant"]
+        if name in RESIDENT_ROWS:
+            entries[-1]["tensor_core_source"] = TENSOR_CORE_SOURCE
         if name == "flash_attention_stream":
             # Device times from the traced window (unit kernel and merge
             # per launch in an L1 fit step; causal SDPA per call).

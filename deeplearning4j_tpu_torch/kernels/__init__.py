@@ -12,6 +12,10 @@ tensor launches the kernel, or the wrapper raises. No fallback, no switch.
 - `flash_attention.flash_attention_fwd_lse` (csrc/flash_attention.cu)
 - `flash_attention.flash_attention_bwd`     (csrc/flash_attention_bwd.cu:
   two kernels, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`)
+  These four run bf16 at D = 64 or 128 on the tensor cores (the tile
+  kernels of csrc/flash_attention_stream.cu over one block per whole row
+  of tiles), all else on the CUDA cores, by `flash_variant`, each form
+  counted in `variant_launches`.
 - `fused_update.dispatch`                   (csrc/fused_update.cu)
 - `bottleneck_block.bottleneck_forward`     (csrc/bottleneck_block.cu:
   `bottleneck_train`, batch statistics, and `bottleneck_infer`, running
@@ -21,11 +25,11 @@ tensor launches the kernel, or the wrapper raises. No fallback, no switch.
 - `flash_attention.flash_attention_stream`  (csrc/flash_attention_stream.cu:
   the streamed forward past the resident K/V limit, with or without lse;
   bf16 at D = 64 or 128 on the tensor cores, else on the CUDA cores, by
-  `stream_fwd_variant`, each form counted in `variant_launches`)
+  `flash_variant`, each form counted in `variant_launches`)
 - `flash_attention.flash_attention_bwd_stream` (csrc/flash_attention_stream.cu:
   two kernels, `flash_attention_bwd_dq_stream` and
   `flash_attention_bwd_dkv_stream`, each on the tensor cores or the CUDA
-  cores by `stream_bwd_variant`; the streamed wrappers each count one
+  cores by `flash_variant`; the streamed wrappers each count one
   per call, of a unit kernel and a merge or sum kernel)
 
 Training reaches the kernels through `torch.autograd.Function`s
@@ -74,11 +78,13 @@ class Count:
 launches: Dict[str, Count] = {name: Count() for name in KERNELS}
 plain_calls: Dict[str, Count] = {name: Count() for name in KERNELS}
 # Launches of a kernel that has more than one form on the card, by form
-# (`flash_attention.stream_fwd_variant`, `stream_bwd_variant`); each also
-# counts once in `launches`.
+# (`flash_attention.flash_variant`): the flash rows 3-7. Each also counts
+# once in `launches`.
 variant_launches: Dict[str, Dict[str, Count]] = {
     name: {"wgmma": Count(), "cuda_cores": Count()}
-    for name in ("flash_attention_stream", "flash_attention_bwd_dq_stream",
+    for name in ("flash_attention", "flash_attention_fwd_lse",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "flash_attention_stream", "flash_attention_bwd_dq_stream",
                  "flash_attention_bwd_dkv_stream")}
 
 

@@ -37,16 +37,17 @@ _F = ctypes.c_float
 _SCHED = [_P, _P, _P, _I, _P, _I]  # a visit list cut into units
 _SIGNATURES = {
     "dl4j_layernorm_norm_act": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # ... | dtype, variant (0 CUDA cores, 1 tensor cores), stream.
     "dl4j_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                                 _P],
+                                 _I, _P],
     "dl4j_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _F, _I, _P],
     "dl4j_flash_attention_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _F, _I, _P],
+                                     _F, _I, _I, _P],
     "dl4j_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _F, _I, _P],
+                                    _I, _I, _F, _I, _I, _P],
     "dl4j_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _I, _I, _F, _I, _P],
+                                     _I, _I, _I, _F, _I, _I, _P],
     "dl4j_fused_update": [_I, _I, _P, _P, _P, _P],
     "dl4j_batchnorm_norm_act": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
                                 _P],

@@ -1,6 +1,6 @@
 // Causal (or full) multi-head attention forward with an online f32 softmax.
 //
-// Two C entries share one kernel:
+// Two C entries share one kernel, in both of its forms (below):
 // - `dl4j_flash_attention_fwd` replaces the TPU kernel `_flash_kernel_resident`
 //   with its `_resident_softmax_loop` (deeplearning4j_tpu/kernels/
 //   flash_attention.py:99,55, launched by `_flash_fwd_bhtd` :241 under
@@ -20,19 +20,40 @@
 // forward is ~17 GFLOP (17 us at 989 TFLOP/s) against ~67 MB (20 us): bytes
 // again, by a hair. The lse store adds 4 bytes per row, 0.5 MB in all.
 //
-// Design: one block per (batch*head, 64-row q tile). Each query row is owned
-// by G threads (G = next power of two >= D/16), each holding 16 of the row's
-// dims in registers, interleaved (thread g owns dims g, g+G, ...) so that the
-// G threads of a row read consecutive shared-memory words. K/V tiles of 64 keys
-// are staged in shared memory as f32 and reused by all 64 rows of the tile; the
-// loop over key tiles stops at the causal diagonal, so the upper triangle is
-// neither read nor computed. Scores are reduced across a row's G threads with
-// warp shuffles; softmax statistics and the accumulator stay in f32 registers,
-// with the JAX package's -1e30 mask. Any T is taken: rows and keys beyond T
-// are masked, so every prefill bucket runs this kernel. QK^T and PV run on the
-// CUDA cores; tensor cores (mma/wgmma) and TMA are later work.
+// Design: two forms of the same math, picked by the wrapper by dtype and
+// head width alone (kernels/flash_attention.py `resident_variant`):
+// - bf16 at D = 64 or 128, every main path's case: row 4's tensor-core
+//   tile kernel, `stream_fwd_wgmma_kernel` (csrc/flash_attention_stream.cu,
+//   reached through flash_wgmma.cuh), over its rows schedule: one
+//   warpgroup per (batch*head, 64-row q tile), the longest (causal) rows
+//   issued first; Q held in 128-byte-swizzled shared memory; K/V brought in
+//   by TMA through a 3-stage (D = 64) or 2-stage (D = 128) mbarrier ring
+//   from a 4-D map (D, H, T, B) that keeps the batches apart; s = q k^T and
+//   o += p v on wgmma (m64n64k16; p v m64n128k16 at D = 128), p rounded to
+//   bf16 as register A; the
+//   online softmax in f32 registers with exp2f; keys at or past T, and key
+//   > query when causal, set to -1e30 by the kernel (TMA's zero rows would
+//   score 0). A block is its whole row: o and lse go out from registers,
+//   with no workspace and no merge, one launch per call, and no atomics.
+//   That moves the products from the CUDA cores to the tensor cores, where
+//   the ~17 GFLOP of the training shape take ~17 us, and overlaps the K/V
+//   loads with the products; K and V are read once per q tile, from L2
+//   (33.5 MB of them at the training shape, under its 50 MB).
+// - f32, and bf16 at any other D: `flash_fwd_kernel` below, on the CUDA
+//   cores. Each query row is owned by G threads (G = next power of two >=
+//   D/16), each holding 16 of the row's dims in registers, interleaved
+//   (thread g owns dims g, g+G, ...) so that the G threads of a row read
+//   consecutive shared-memory words. K/V tiles of 64 keys are staged in
+//   shared memory as f32 and reused by all 64 rows of the tile; the loop
+//   over key tiles stops at the causal diagonal, so the upper triangle is
+//   neither read nor computed. Scores are reduced across a row's G threads
+//   with warp shuffles; softmax statistics and the accumulator stay in f32
+//   registers, with the JAX package's -1e30 mask.
+// Both forms take any T: rows and keys beyond T are masked, so every
+// prefill bucket (T = 8 .. 1024) runs them.
 
 #include "common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -171,8 +192,15 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 int run(const void* q, const void* k, const void* v, void* o, float* lse,
         int batch, int seq, int heads, int dim, int causal, float scale,
-        int dtype, void* stream) {
+        int dtype, int variant, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+  if (variant == 1) {
+    if (dtype != dl4j::kBFloat16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return dl4j::flash::rows_fwd_wgmma(q, k, v, o, lse, batch, seq, heads,
+                                       dim, causal, scale, stream);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dl4j::kFloat32)
     return dispatch<float>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
@@ -184,13 +212,16 @@ int run(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // q, k, v, o: [batch, seq, heads, dim] contiguous, all of `dtype`; dim <= 128.
+// `variant`: 1 launches the tensor-core form (bf16, dim 64 or 128, q/k/v
+// 16-byte aligned; any other input is refused, never rerouted), 0 the
+// CUDA-core kernel.
 extern "C" int dl4j_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, int batch,
                                         int seq, int heads, int dim,
                                         int causal, float scale, int dtype,
-                                        void* stream) {
+                                        int variant, void* stream) {
   return run(q, k, v, o, nullptr, batch, seq, heads, dim, causal, scale,
-             dtype, stream);
+             dtype, variant, stream);
 }
 
 // As above, plus lse: [batch, heads, seq] float32, m + log(l) of each row's
@@ -199,7 +230,8 @@ extern "C" int dl4j_flash_attention_fwd_lse(const void* q, const void* k,
                                             const void* v, void* o, void* lse,
                                             int batch, int seq, int heads,
                                             int dim, int causal, float scale,
-                                            int dtype, void* stream) {
+                                            int dtype, int variant,
+                                            void* stream) {
   return run(q, k, v, o, static_cast<float*>(lse), batch, seq, heads, dim,
-             causal, scale, dtype, stream);
+             causal, scale, dtype, variant, stream);
 }

@@ -17,23 +17,43 @@
 // ~100-230 MB of reads and writes (q, k, v, o, do, lse, D in; dq, dk, dv
 // out), ~30-70 us: operations bound it on tensor cores.
 //
-// Design: both kernels follow the forward's layout (csrc/flash_attention.cu):
-// one block per (batch*head, 64-row tile), a row owned by G threads (G = next
-// power of two >= D/16), each holding 16 of its dims in f32 registers,
-// interleaved so the G threads of a row read consecutive shared-memory words;
-// row dot products reduce with warp shuffles.
-// - dq: a block holds its 64 query rows (q, do, dq, lse, D in registers) and
-//   streams 64-key K/V tiles through shared memory up to the causal diagonal.
-// - dk/dv: a block holds its 64 key rows (k, v, dk, dv in registers) and
-//   streams 64-row Q/dO tiles (with their lse and D) from the diagonal on, so
-//   the upper triangle is neither read nor computed.
-// Each output element is owned by one thread and written once: no atomics, so
-// runs are deterministic. Sums are f32; dq, dk and dv are rounded to the input
-// dtype once, at the store. Any T is taken (the ragged edge is masked). The
-// products run on the CUDA cores: mma/wgmma and TMA are later work, so the
-// kernels sit far above the operations bound.
+// Design: two forms of each kernel, picked by the wrapper by dtype and head
+// width alone (kernels/flash_attention.py `resident_variant`, one rule for
+// both):
+// - bf16 at D = 64 or 128, the training step's case: row 7's tensor-core
+//   tile kernels, `stream_dq_wgmma_kernel` and `stream_dkv_wgmma_kernel`
+//   (csrc/flash_attention_stream.cu, reached through flash_wgmma.cuh),
+//   over their rows schedule: one warpgroup per (batch*head, 64-row tile),
+//   the longest causal runs issued first. dq holds its q tile's Q and dO in
+//   128-byte-swizzled shared memory and streams (K, V) from tile 0 to the
+//   diagonal; dk/dv holds K and V and streams (Q, dO) from the diagonal to
+//   the last tile; the streamed pair comes by TMA through a 3-stage (D =
+//   64) or 2-stage (D = 128) mbarrier ring. Every product (s, dp, ds k;
+//   s^T, dp^T, p^T do, ds^T q) is a wgmma m64n64k16, p and ds rounded to
+//   bf16 as register A; p = exp2 of the scaled scores less lse in f32
+//   registers, set to 0 by the kernel for keys or queries at or past T and
+//   for key > query when causal. A block is its whole run: dq, or dk and
+//   dv, go out from registers, with no workspace and no sum kernel, one
+//   launch per call, and no atomics. That takes the ~60 GFLOP of the
+//   training shape to the tensor cores (61 us at 989 TFLOP/s).
+// - f32, and bf16 at any other D: the CUDA-core kernels below, which follow
+//   the forward's layout (csrc/flash_attention.cu): one block per
+//   (batch*head, 64-row tile), a row owned by G threads (G = next power of
+//   two >= D/16), each holding 16 of its dims in f32 registers, interleaved
+//   so the G threads of a row read consecutive shared-memory words; row
+//   dot products reduce with warp shuffles. dq holds its 64 query rows (q,
+//   do, dq, lse, D in registers) and streams 64-key K/V tiles through
+//   shared memory up to the causal diagonal; dk/dv holds its 64 key rows
+//   (k, v, dk, dv in registers) and streams 64-row Q/dO tiles (with their
+//   lse and D) from the diagonal on, so the upper triangle is neither read
+//   nor computed.
+// In both, each output element is owned by one thread and written once: no
+// atomics, so runs are deterministic. Sums are f32; dq, dk and dv are
+// rounded to the input dtype once, at the store. Any T is taken (the ragged
+// edge is masked).
 
 #include "common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -298,18 +318,27 @@ int dispatch_dkv(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // q, k, v, dout, dq: [batch, seq, heads, dim] contiguous, all of `dtype`;
-// lse, drow: [batch, heads, seq] float32; dim <= 128.
+// lse, drow: [batch, heads, seq] float32; dim <= 128. `variant`: 1 launches
+// the tensor-core form (bf16, dim 64 or 128, q/k/v/dout 16-byte aligned;
+// any other input is refused, never rerouted), 0 the CUDA-core kernel.
 extern "C" int dl4j_flash_attention_bwd_dq(const void* q, const void* k,
                                            const void* v, const void* dout,
                                            const void* lse, const void* drow,
                                            void* dq, int batch, int seq,
                                            int heads, int dim, int causal,
                                            float scale, int dtype,
-                                           void* stream) {
+                                           int variant, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(drow);
+  if (variant == 1) {
+    if (dtype != dl4j::kBFloat16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return dl4j::flash::rows_dq_wgmma(q, k, v, dout, l, d, dq, batch, seq,
+                                      heads, dim, causal, scale, stream);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dl4j::kFloat32)
     return dispatch_dq<float>(q, k, v, dout, l, d, dq, batch, seq, heads, dim, causal, scale, s);
   if (dtype == dl4j::kBFloat16)
@@ -324,11 +353,18 @@ extern "C" int dl4j_flash_attention_bwd_dkv(const void* q, const void* k,
                                             void* dk, void* dv, int batch,
                                             int seq, int heads, int dim,
                                             int causal, float scale, int dtype,
-                                            void* stream) {
+                                            int variant, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(drow);
+  if (variant == 1) {
+    if (dtype != dl4j::kBFloat16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return dl4j::flash::rows_dkv_wgmma(q, k, v, dout, l, d, dk, dv, batch,
+                                       seq, heads, dim, causal, scale, stream);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dl4j::kFloat32)
     return dispatch_dkv<float>(q, k, v, dout, l, d, dk, dv, batch, seq, heads, dim, causal, scale, s);
   if (dtype == dl4j::kBFloat16)

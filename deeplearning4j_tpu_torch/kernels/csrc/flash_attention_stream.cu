@@ -57,10 +57,20 @@
 // Both forms write the same outputs and the same partials, which the same
 // merge and sum kernels combine. Any T is taken: rows and keys past T are
 // masked.
+//
+// The three tensor-core kernels also run the resident rows 3, 5 and 6
+// (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu, through
+// flash_wgmma.cuh) in bf16 at D = 64 or 128: the same tile loops over a
+// second schedule, picked at compile time (`block_work`'s kRows): a block
+// per whole run (q tile or k tile), longest first, writing its output from
+// registers; no list, no partials, no merge or sum kernel. Rows 4 and 7
+// instantiate the list schedule, whose code is what it was before the rows
+// schedule was added.
 
 #include <cstdio>
 
 #include "common.cuh"
+#include "flash_wgmma.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -80,6 +90,59 @@ struct Unit {
 __device__ __forceinline__ Unit load_unit(const int* __restrict__ units) {
   const int* u = units + 3 * blockIdx.x;
   return {u[0], u[1], u[2]};
+}
+
+// A tensor-core block's share of the work: its (batch, head), the 64-row
+// tile it holds (q rows for the forward and dq, keys for dk/dv), where its
+// streamed tiles start and how many there are, and where its output goes
+// (a partial slot, or -1: the output itself).
+struct Work {
+  int bh, held, first, count, slot;
+};
+
+// The two schedules of the tensor-core kernels (template flag kRows).
+// - List (rows 4, 7): unit blockIdx.x of the visit list of (batch, head)
+//   blockIdx.y; the held tile is held_of[first] (pair_i of a row-major
+//   list, pair_j of a column-major one), streamed tile i streamed_of[first
+//   + i] (`step_tile`).
+// - Rows (rows 3, 5, 6; csrc/flash_attention.cu, csrc/flash_attention_bwd.cu):
+//   no list, no partials. Block (x, y) is the whole run of rank y of (batch,
+//   head) x, rank 0 the longest; blocks issue x fastest, so every (batch,
+//   head)'s longest run starts before any shorter one. A row (forward, dq:
+//   kColumns false) is q tile n - 1 - y over k tiles 0 .. its diagonal, all
+//   n when not causal; a column (dk/dv) is k tile y over q tiles from its
+//   diagonal (0 when not causal) to n - 1. The tile and the count are fixed
+//   here, before any loop.
+template <bool kRows, bool kColumns>
+__device__ __forceinline__ Work block_work(const int* __restrict__ units,
+                                           const int* __restrict__ held_of,
+                                           int seq, int causal) {
+  if constexpr (kRows) {
+    const int n = (seq + kTile - 1) / kTile;
+    const int rank = blockIdx.y;
+    const int bh = blockIdx.x;
+    if constexpr (kColumns) {
+      const int first = causal ? rank : 0;
+      return {bh, rank, first, n - first, -1};
+    } else {
+      const int held = n - 1 - rank;
+      return {bh, held, 0, causal ? held + 1 : n, -1};
+    }
+  } else {
+    const Unit u = load_unit(units);
+    const int bh = blockIdx.y;
+    return {bh, held_of[u.first], u.first, u.count, u.slot};
+  }
+}
+
+// The tile that step i of a block streams in.
+template <bool kRows>
+__device__ __forceinline__ int step_tile(const int* __restrict__ streamed_of,
+                                         const Work& w, int i) {
+  if constexpr (kRows)
+    return w.first + i;
+  else
+    return streamed_of[w.first + i];
 }
 
 template <int G>
@@ -293,6 +356,9 @@ stream_merge_kernel(T* __restrict__ o, float* __restrict__ lse,
 // flash_attention.py:137) and computes what `stream_fwd_kernel` computes,
 // writing the same outputs and the same partials (`part_row` layout), which
 // the same `stream_merge_kernel` combines; grid (units, batch * heads).
+// Over the rows schedule (kRows) it is rows 3 and 5 on the tensor cores:
+// grid (batch * heads, q tiles), a block per whole q-tile row, o and lse
+// (or o alone) written directly.
 //
 // Bound at the slice's shape ([1, 32768, 8, 64] bf16, causal): the two
 // products over the causal half, ~1.1e12 operations, 1.112 ms at 989
@@ -323,9 +389,9 @@ stream_merge_kernel(T* __restrict__ o, float* __restrict__ lse,
 //   for the p v product that read it and passed a block barrier.
 //
 // ptxas (-Xptxas -v, sm_90a): 96 registers at D = 64, 128 at D = 128, no
-// spills, no stack; shared memory is all dynamic, `WgTile`'s
-// kSmem: 58,400 bytes at D = 64 (3 stages), 82,968 at D = 128 (2 stages).
-// chip_smoke.py prints the ptxas lines in its build phase.
+// spills, no stack, over either schedule; shared memory is all dynamic,
+// `WgTile`'s kSmem: 58,400 bytes at D = 64 (3 stages), 82,968 at D = 128
+// (2 stages). chip_smoke.py prints the ptxas lines in its build phase.
 // Later work: a producer warp with setmaxnreg, two consumer warpgroups in
 // ping-pong so softmax overlaps the other's products, and K/V stages
 // released per product instead of per tile (FlashAttention-3's schedule).
@@ -403,7 +469,7 @@ __device__ __forceinline__ void wg_acc_tile(float (&acc)[D / 2],
   }
 }
 
-template <int D>
+template <int D, bool kRows>
 __global__ void __launch_bounds__(kWgThreads)
 stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -423,10 +489,10 @@ stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* vs = ks + S * TB;  // [S] V tiles
   uint64_t* full = reinterpret_cast<uint64_t*>(vs + S * TB);  // [S], Q
 
-  const Unit u = load_unit(units);
-  const int bh = blockIdx.y;
+  const Work u = block_work<kRows, false>(units, pair_i, seq, causal);
+  const int bh = u.bh;
   const int b = bh / heads, h = bh % heads;
-  const int q0 = pair_i[u.first] * kTile;
+  const int q0 = u.held * kTile;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -438,7 +504,7 @@ stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::mbar_expect_tx(full + S, TB);
     load_tile<D>(qs, &tq, full + S, q0, h, b);
     for (int i = 0; i < S && i < u.count; ++i) {
-      const int k0 = pair_j[u.first + i] * kTile;
+      const int k0 = step_tile<kRows>(pair_j, u, i) * kTile;
       hopper::mbar_expect_tx(full + i, 2 * TB);
       load_tile<D>(ks + i * TB, &tk, full + i, k0, h, b);
       load_tile<D>(vs + i * TB, &tv, full + i, k0, h, b);
@@ -459,7 +525,7 @@ stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   for (int i = 0; i < u.count; ++i) {
     const int st = i % S;
-    const int k0 = pair_j[u.first + i] * kTile;
+    const int k0 = step_tile<kRows>(pair_j, u, i) * kTile;
     const uint8_t* kt = ks + st * TB;
     const uint8_t* vt = vs + st * TB;
     hopper::mbar_wait(full + st, (i / S) & 1);
@@ -531,7 +597,7 @@ stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     __syncthreads();  // every thread is done with stage st
     if (tid == 0 && i + S < u.count) {
-      const int kn = pair_j[u.first + i + S] * kTile;
+      const int kn = step_tile<kRows>(pair_j, u, i + S) * kTile;
       hopper::mbar_expect_tx(full + st, 2 * TB);
       load_tile<D>(ks + st * TB, &tk, full + st, kn, h, b);
       load_tile<D>(vs + st * TB, &tv, full + st, kn, h, b);
@@ -768,7 +834,9 @@ stream_sum_kernel(T* __restrict__ out, const int* __restrict__ merges,
 // `stream_dq_kernel` and `stream_dkv_kernel` compute over the same units,
 // and write the same outputs and the same f32 partials (`part_row`
 // layout), which the same `stream_sum_kernel` adds up; grid (units, batch *
-// heads).
+// heads). Over the rows schedule (kRows) they are row 6 on the tensor
+// cores: grid (batch * heads, tiles), a block per whole q-tile row (dq) or
+// k-tile column (dk/dv), written directly.
 //
 // Bound at the slice's shape ([1, 32768, 8, 64] bf16, causal): dq is three
 // products over the causal half (s, dp, ds k), ~1.65e12 operations, 1.668
@@ -808,8 +876,9 @@ stream_sum_kernel(T* __restrict__ out, const int* __restrict__ merges,
 //   partials summed in slot order; a run is bit-identical on a repeat.
 //
 // ptxas (-Xptxas -v, sm_90a, nvcc 12.9): dq
-// 122 registers at D = 64, 154 at D = 128; dk/dv 176 and 240; no spills,
-// no stack. Shared memory is all dynamic, `WgBwdTile`'s kSmem: 66,592
+// 122 registers at D = 64, 154 at D = 128, over either schedule; dk/dv 176
+// and 240 over the list, 176 and 244 over the rows; no spills, no stack.
+// Shared memory is all dynamic, `WgBwdTile`'s kSmem: 66,592
 // bytes at D = 64 (3 stages), 99,352 at D = 128 (2 stages). chip_smoke.py
 // prints the ptxas lines in its build phase.
 
@@ -855,7 +924,7 @@ __device__ __forceinline__ void store_acc(
   }
 }
 
-template <int D>
+template <int D, bool kRows>
 __global__ void __launch_bounds__(kWgThreads)
 stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -877,10 +946,10 @@ stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* vs = ks + S * TB;  // [S] V tiles
   uint64_t* full = reinterpret_cast<uint64_t*>(vs + S * TB);  // [S], Q+dO
 
-  const Unit u = load_unit(units);
-  const int bh = blockIdx.y;
+  const Work u = block_work<kRows, false>(units, pair_i, seq, causal);
+  const int bh = u.bh;
   const int b = bh / heads, h = bh % heads;
-  const int q0 = pair_i[u.first] * kTile;
+  const int q0 = u.held * kTile;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -893,7 +962,7 @@ stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     load_tile<D>(qs, &tq, full + S, q0, h, b);
     load_tile<D>(dos, &tdo, full + S, q0, h, b);
     for (int i = 0; i < S && i < u.count; ++i) {
-      const int k0 = pair_j[u.first + i] * kTile;
+      const int k0 = step_tile<kRows>(pair_j, u, i) * kTile;
       hopper::mbar_expect_tx(full + i, 2 * TB);
       load_tile<D>(ks + i * TB, &tk, full + i, k0, h, b);
       load_tile<D>(vs + i * TB, &tv, full + i, k0, h, b);
@@ -922,7 +991,7 @@ stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   for (int i = 0; i < u.count; ++i) {
     const int st = i % S;
-    const int k0 = pair_j[u.first + i] * kTile;
+    const int k0 = step_tile<kRows>(pair_j, u, i) * kTile;
     const uint8_t* kt = ks + st * TB;
     const uint8_t* vt = vs + st * TB;
     hopper::mbar_wait(full + st, (i / S) & 1);
@@ -972,7 +1041,7 @@ stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     __syncthreads();  // every thread is done with stage st
     if (tid == 0 && i + S < u.count) {
-      const int kn = pair_j[u.first + i + S] * kTile;
+      const int kn = step_tile<kRows>(pair_j, u, i + S) * kTile;
       hopper::mbar_expect_tx(full + st, 2 * TB);
       load_tile<D>(ks + st * TB, &tk, full + st, kn, h, b);
       load_tile<D>(vs + st * TB, &tv, full + st, kn, h, b);
@@ -983,7 +1052,7 @@ stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                q0, row0, cq);
 }
 
-template <int D>
+template <int D, bool kRows>
 __global__ void __launch_bounds__(kWgThreads)
 stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -1007,10 +1076,10 @@ stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* dos = qs + S * TB;   // [S] dO tiles
   uint64_t* full = reinterpret_cast<uint64_t*>(dos + S * TB);  // [S], K+V
 
-  const Unit u = load_unit(units);
-  const int bh = blockIdx.y;
+  const Work u = block_work<kRows, true>(units, pair_j, seq, causal);
+  const int bh = u.bh;
   const int b = bh / heads, h = bh % heads;
-  const int k0 = pair_j[u.first] * kTile;
+  const int k0 = u.held * kTile;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -1023,7 +1092,7 @@ stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     load_tile<D>(ks, &tk, full + S, k0, h, b);
     load_tile<D>(vs, &tv, full + S, k0, h, b);
     for (int i = 0; i < S && i < u.count; ++i) {
-      const int r0 = pair_i[u.first + i] * kTile;
+      const int r0 = step_tile<kRows>(pair_i, u, i) * kTile;
       hopper::mbar_expect_tx(full + i, 2 * TB);
       load_tile<D>(qs + i * TB, &tq, full + i, r0, h, b);
       load_tile<D>(dos + i * TB, &tdo, full + i, r0, h, b);
@@ -1045,7 +1114,7 @@ stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   for (int i = 0; i < u.count; ++i) {
     const int st = i % S;
-    const int r0 = pair_i[u.first + i] * kTile;
+    const int r0 = step_tile<kRows>(pair_i, u, i) * kTile;
     const uint8_t* qt = qs + st * TB;
     const uint8_t* dot = dos + st * TB;
     float l2[16], dd[16];  // lse * log2 e and D of this thread's columns
@@ -1127,7 +1196,7 @@ stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     __syncthreads();  // every thread is done with stage st
     if (tid == 0 && i + S < u.count) {
-      const int rn = pair_i[u.first + i + S] * kTile;
+      const int rn = step_tile<kRows>(pair_i, u, i + S) * kTile;
       hopper::mbar_expect_tx(full + st, 2 * TB);
       load_tile<D>(qs + st * TB, &tq, full + st, rn, h, b);
       load_tile<D>(dos + st * TB, &tdo, full + st, rn, h, b);
@@ -1252,7 +1321,17 @@ int tile_map(CUtensorMap* map, const void* ptr, const Args& a) {
   return 0;
 }
 
-template <int D>
+// The grid of a tensor-core kernel: (units, batch * heads) over the list,
+// (batch * heads, tiles) over the rows (`block_work`).
+template <bool kRows>
+dim3 wg_grid(const Args& a) {
+  if constexpr (kRows)
+    return dim3(a.batch * a.heads, (a.seq + kTile - 1) / kTile);
+  else
+    return dim3(a.n_units, a.batch * a.heads);
+}
+
+template <int D, bool kRows>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                      float* lse, float* part_acc, float* part_ml,
                      const Args& a) {
@@ -1261,9 +1340,9 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
   if (const int e = tile_map(&tk, k, a)) return e;
   if (const int e = tile_map(&tv, v, a)) return e;
   constexpr int smem = WgTile<D>::kSmem;
-  auto kernel = stream_fwd_wgmma_kernel<D>;
+  auto kernel = stream_fwd_wgmma_kernel<D, kRows>;
   if (const int e = prepare(kernel, smem)) return e;
-  kernel<<<dim3(a.n_units, a.batch * a.heads), kWgThreads, smem,
+  kernel<<<wg_grid<kRows>(a), kWgThreads, smem,
            a.stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
                        a.pair_i, a.pair_j, a.units, part_acc, part_ml,
                        a.n_slots, a.seq, a.heads, a.causal, a.scale);
@@ -1328,16 +1407,16 @@ int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
   return 0;
 }
 
-template <int D>
+template <int D, bool kRows>
 int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* drow,
                     void* dq, float* part, const Args& a) {
   CUtensorMap m[4];
   if (const int e = bwd_maps(m, q, k, v, dout, a)) return e;
   constexpr int smem = WgBwdTile<D>::kSmem;
-  auto kernel = stream_dq_wgmma_kernel<D>;
+  auto kernel = stream_dq_wgmma_kernel<D, kRows>;
   if (const int e = prepare(kernel, smem)) return e;
-  kernel<<<dim3(a.n_units, a.batch * a.heads), kWgThreads, smem,
+  kernel<<<wg_grid<kRows>(a), kWgThreads, smem,
            a.stream>>>(m[0], m[1], m[2], m[3], lse, drow,
                        static_cast<__nv_bfloat16*>(dq), a.pair_i, a.pair_j,
                        a.units, part, a.n_slots, a.seq, a.heads, a.causal,
@@ -1346,7 +1425,7 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
   return launch_sum<__nv_bfloat16, D / 16>(dq, part, a.scale, a);
 }
 
-template <int D>
+template <int D, bool kRows>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* drow,
                      void* dk, void* dv, float* part_dk, float* part_dv,
@@ -1354,9 +1433,9 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   CUtensorMap m[4];
   if (const int e = bwd_maps(m, q, k, v, dout, a)) return e;
   constexpr int smem = WgBwdTile<D>::kSmem;
-  auto kernel = stream_dkv_wgmma_kernel<D>;
+  auto kernel = stream_dkv_wgmma_kernel<D, kRows>;
   if (const int e = prepare(kernel, smem)) return e;
-  kernel<<<dim3(a.n_units, a.batch * a.heads), kWgThreads, smem,
+  kernel<<<wg_grid<kRows>(a), kWgThreads, smem,
            a.stream>>>(m[0], m[1], m[2], m[3], lse, drow,
                        static_cast<__nv_bfloat16*>(dk),
                        static_cast<__nv_bfloat16*>(dv), a.pair_i, a.pair_j,
@@ -1432,7 +1511,67 @@ Args make_args(const void* pair_i, const void* pair_j, const void* units,
           static_cast<cudaStream_t>(stream)};
 }
 
+// The rows schedule's arguments: no list, no partials.
+Args rows_args(int batch, int seq, int heads, int dim, int causal,
+               float scale, void* stream) {
+  return make_args(nullptr, nullptr, nullptr, 0, nullptr, 0, 0, batch, seq,
+                   heads, dim, causal, scale, stream);
+}
+
+// The rows grid's y is the rank: at most 65,535 tiles (T < 4,194,304).
+bool rows_fit(const Args& a) { return (a.seq + kTile - 1) / kTile <= 65535; }
+
 }  // namespace
+
+// The tensor-core forms of the resident rows 3, 5 and 6 (flash_wgmma.cuh):
+// the kernels above over the rows schedule, one launch each.
+namespace dl4j {
+namespace flash {
+
+int rows_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int batch, int seq, int heads, int dim,
+                   int causal, float scale, void* stream) {
+  const Args a = rows_args(batch, seq, heads, dim, causal, scale, stream);
+  if (!rows_fit(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dim == 64)
+    return launch_fwd_wgmma<64, true>(q, k, v, o, lse, nullptr, nullptr, a);
+  if (dim == 128)
+    return launch_fwd_wgmma<128, true>(q, k, v, o, lse, nullptr, nullptr, a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int rows_dq_wgmma(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* drow,
+                  void* dq, int batch, int seq, int heads, int dim,
+                  int causal, float scale, void* stream) {
+  const Args a = rows_args(batch, seq, heads, dim, causal, scale, stream);
+  if (!rows_fit(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dim == 64)
+    return launch_dq_wgmma<64, true>(q, k, v, dout, lse, drow, dq, nullptr,
+                                     a);
+  if (dim == 128)
+    return launch_dq_wgmma<128, true>(q, k, v, dout, lse, drow, dq, nullptr,
+                                      a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int rows_dkv_wgmma(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* drow,
+                   void* dk, void* dv, int batch, int seq, int heads,
+                   int dim, int causal, float scale, void* stream) {
+  const Args a = rows_args(batch, seq, heads, dim, causal, scale, stream);
+  if (!rows_fit(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dim == 64)
+    return launch_dkv_wgmma<64, true>(q, k, v, dout, lse, drow, dk, dv,
+                                      nullptr, nullptr, a);
+  if (dim == 128)
+    return launch_dkv_wgmma<128, true>(q, k, v, dout, lse, drow, dk, dv,
+                                       nullptr, nullptr, a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace flash
+}  // namespace dl4j
 
 // q, k, v, o: [batch, seq, heads, dim] contiguous, all of `dtype`; dim <= 128.
 // lse: [batch, heads, seq] float32, or null (the no-grad forward). The visit
@@ -1456,8 +1595,10 @@ extern "C" int dl4j_flash_attention_stream_fwd(
           *pm = static_cast<float*>(part_ml);
     if (dtype != dl4j::kBFloat16)
       return static_cast<int>(cudaErrorInvalidValue);
-    if (dim == 64) return launch_fwd_wgmma<64>(q, k, v, o, l, pa, pm, a);
-    if (dim == 128) return launch_fwd_wgmma<128>(q, k, v, o, l, pa, pm, a);
+    if (dim == 64)
+      return launch_fwd_wgmma<64, false>(q, k, v, o, l, pa, pm, a);
+    if (dim == 128)
+      return launch_fwd_wgmma<128, false>(q, k, v, o, l, pa, pm, a);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -1488,9 +1629,10 @@ extern "C" int dl4j_flash_attention_stream_bwd_dq(
   if (variant == 1) {
     if (dtype != dl4j::kBFloat16)
       return static_cast<int>(cudaErrorInvalidValue);
-    if (dim == 64) return launch_dq_wgmma<64>(q, k, v, dout, l, dr, dq, pt, a);
+    if (dim == 64)
+      return launch_dq_wgmma<64, false>(q, k, v, dout, l, dr, dq, pt, a);
     if (dim == 128)
-      return launch_dq_wgmma<128>(q, k, v, dout, l, dr, dq, pt, a);
+      return launch_dq_wgmma<128, false>(q, k, v, dout, l, dr, dq, pt, a);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -1517,9 +1659,11 @@ extern "C" int dl4j_flash_attention_stream_bwd_dkv(
     if (dtype != dl4j::kBFloat16)
       return static_cast<int>(cudaErrorInvalidValue);
     if (dim == 64)
-      return launch_dkv_wgmma<64>(q, k, v, dout, l, dr, dk, dv, pk, pv, a);
+      return launch_dkv_wgmma<64, false>(q, k, v, dout, l, dr, dk, dv, pk, pv,
+                                         a);
     if (dim == 128)
-      return launch_dkv_wgmma<128>(q, k, v, dout, l, dr, dk, dv, pk, pv, a);
+      return launch_dkv_wgmma<128, false>(q, k, v, dout, l, dr, dk, dv, pk,
+                                          pv, a);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);

@@ -28,6 +28,14 @@ Training (the custom_vjp `_flash_attention_pallas`, flash_attention.py:271):
 - `FlashAttentionFn` ties them together; `flash_attention` goes through it
   whenever autograd records and an input requires grad.
 
+Every flash row has two forms on the card, picked by dtype and head width
+alone (`flash_variant`) and counted by form in `kernels.variant_launches`:
+bf16 at D = 64 or 128 on the tensor cores (wgmma, the streamed tiles by
+TMA), f32 and every other D on the CUDA cores. The resident rows' (3, 5,
+6) tensor-core form is the streamed rows' tile kernels over a schedule of
+one block per whole row or column of tiles (csrc/flash_attention_stream.cu
+`block_work`): one launch, no workspace.
+
 Long context (csrc/flash_attention_stream.cu). Where the K/V of one
 (batch, head) outgrow `_RESIDENT_KV_LIMIT` (`streamed`: 2·T·D·itemsize >
 6 MiB, the JAX package's rule at :196, so T > 24,576 in bf16 and T >
@@ -37,12 +45,12 @@ take the streamed kernels instead, here as there, by shape and dtype alone:
 - `flash_attention_stream` (row 4, `_flash_stream_kernel` :137): (o, lse),
   or o alone for the no-grad forward; its unit kernel runs on the tensor
   cores (wgmma, K/V by TMA) for bf16 at D = 64 or 128 and on the CUDA cores
-  otherwise (`stream_fwd_variant`);
+  otherwise (`flash_variant`);
 - `flash_attention_bwd_dq_stream` and `flash_attention_bwd_dkv_stream`
   (row 7, `_flash_bwd_dq_stream_kernel` :551 and
   `_flash_bwd_dkv_stream_kernel` :595), D = rowsum(do * o) a torch
   expression in f32 as at :648; their unit kernels, too, run on the
-  tensor cores for bf16 at D = 64 or 128 (`stream_bwd_variant`).
+  tensor cores for bf16 at D = 64 or 128 (`flash_variant`).
 They walk the (q tile, k tile) visit list of `pair_arrays` (a copy of
 `_pair_arrays` :113) at the port's 64-row tiles, cut into units of equal
 work (`stream_schedule`). Their plain versions walk the same list a tile
@@ -190,6 +198,47 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# The two forms of every flash row's kernel and their codes in the C entries.
+_VARIANTS = {"cuda_cores": 0, "wgmma": 1}
+
+
+def flash_variant(dtype, d: int) -> str:
+    """Which form of its kernel a flash row launches, by dtype and head
+    width alone: "wgmma" (every product on the tensor cores, the streamed
+    tiles by TMA) for bf16 at D = 64 or 128, "cuda_cores" for f32 and every
+    other D. One rule for the resident rows 3, 5 and 6 and the streamed
+    rows 4 and 7 (whose tile kernels the resident rows' form shares). A
+    dispatch by shape, not a fallback: a wgmma launch that fails raises.
+
+    The tensor-core form reads q, k, v (and do) by TMA, from contiguous
+    tensors at 16-byte-aligned addresses: the wrappers refuse any other
+    before a launch and never hand it to the CUDA-core form. An upstream op
+    may hand autograd a contiguous gradient at an odd address, so
+    `FlashAttentionFn.backward` gives the backward a fresh copy of do (the
+    caching allocator's blocks are 512-byte aligned) when, and only when,
+    do.data_ptr() % 16 != 0. q, k and v are the forward's inputs, which
+    its own tensor-core form already took."""
+    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) \
+        else "cuda_cores"
+
+
+resident_variant = stream_fwd_variant = stream_bwd_variant = flash_variant
+
+
+def _variant(name, d, *ts):
+    """The form `name` launches for `ts` (q first), refusing before the
+    launch what the tensor-core form cannot read."""
+    variant = flash_variant(ts[0].dtype, d)
+    if variant == "wgmma":
+        _check_tma(name, *ts)
+    return variant
+
+
+def _counted(name, variant):
+    kernels.launches[name].add()
+    kernels.variant_launches[name][variant].add()
+
+
 def flash_attention(q, k, v, causal: bool = True,
                     scale: Optional[float] = None):
     """Multi-head attention forward, q/k/v [B, T, H, D] -> [B, T, H, D]
@@ -205,30 +254,35 @@ def flash_attention(q, k, v, causal: bool = True,
     if kernels.placement(q, k, v) == "cpu":
         return dense_attention(q, k, v, causal, scale)
     b, t, h, d = _check_qkv("flash_attention", q, k, v)
+    variant = _variant("flash_attention", d, q, k, v)
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _build.launch("dl4j_flash_attention_fwd", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), o.data_ptr(), b, t, h, d, int(causal),
-                      float(scale), DTYPE_CODES[q.dtype], _stream(q))
-    kernels.launches["flash_attention"].add()
+                      float(scale), DTYPE_CODES[q.dtype], _VARIANTS[variant],
+                      _stream(q))
+    _counted("flash_attention", variant)
     return o
 
 
 def flash_attention_fwd_lse(q, k, v, causal: bool = True,
                             scale: Optional[float] = None):
-    """Training forward: (o [B, T, H, D], lse [B, H, T] f32)."""
+    """Training forward: (o [B, T, H, D], lse [B, H, T] f32). One launch,
+    in the form `flash_variant` picks."""
     scale = _default_scale(q, scale)
     if kernels.placement(q, k, v) == "cpu":
         return dense_attention_lse(q, k, v, causal, scale)
-    b, t, h, d = _check_qkv("flash_attention_fwd_lse", q, k, v)
+    name = "flash_attention_fwd_lse"
+    b, t, h, d = _check_qkv(name, q, k, v)
+    variant = _variant(name, d, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _build.launch("dl4j_flash_attention_fwd_lse", q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       lse.data_ptr(), b, t, h, d, int(causal), float(scale),
-                      DTYPE_CODES[q.dtype], _stream(q))
-    kernels.launches["flash_attention_fwd_lse"].add()
+                      DTYPE_CODES[q.dtype], _VARIANTS[variant], _stream(q))
+    _counted(name, variant)
     return o, lse
 
 
@@ -252,17 +306,20 @@ def _bwd_args(q, k, v, do, lse, drow):
 
 def flash_attention_bwd_dq(q, k, v, do, lse, drow, causal, scale):
     """dq from the recompute-from-lse formulas; drow = rowsum(do * o),
-    [B, H, T] f32 like lse."""
+    [B, H, T] f32 like lse. One launch, in the form `flash_variant`
+    picks."""
     if kernels.placement(q, k, v, do, lse, drow) == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, drow, causal, scale)
-    b, t, h, d = _check_bwd("flash_attention_bwd_dq", q, k, v, do, lse, drow)
+    name = "flash_attention_bwd_dq"
+    b, t, h, d = _check_bwd(name, q, k, v, do, lse, drow)
+    variant = _variant(name, d, q, k, v, do)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _build.launch("dl4j_flash_attention_bwd_dq",
                       *_bwd_args(q, k, v, do, lse, drow), dq.data_ptr(), b, t,
                       h, d, int(causal), float(scale), DTYPE_CODES[q.dtype],
-                      _stream(q))
-    kernels.launches["flash_attention_bwd_dq"].add()
+                      _VARIANTS[variant], _stream(q))
+    _counted(name, variant)
     return dq
 
 
@@ -270,14 +327,16 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, drow, causal, scale):
     """(dk, dv) from the recompute-from-lse formulas (see the dq half)."""
     if kernels.placement(q, k, v, do, lse, drow) == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, drow, causal, scale)
-    b, t, h, d = _check_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, drow)
+    name = "flash_attention_bwd_dkv"
+    b, t, h, d = _check_bwd(name, q, k, v, do, lse, drow)
+    variant = _variant(name, d, q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         _build.launch("dl4j_flash_attention_bwd_dkv",
                       *_bwd_args(q, k, v, do, lse, drow), dk.data_ptr(),
                       dv.data_ptr(), b, t, h, d, int(causal), float(scale),
-                      DTYPE_CODES[q.dtype], _stream(q))
-    kernels.launches["flash_attention_bwd_dkv"].add()
+                      DTYPE_CODES[q.dtype], _VARIANTS[variant], _stream(q))
+    _counted(name, variant)
     return dk, dv
 
 
@@ -323,11 +382,10 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        bwd = flash_attention_bwd
-        if ctx.streamed:
-            bwd = flash_attention_bwd_stream
-            if do.data_ptr() % 16:  # see stream_bwd_variant: a fresh copy
-                do = do.clone()
+        if do.data_ptr() % 16:  # see flash_variant: a fresh, aligned copy
+            do = do.clone()
+        bwd = flash_attention_bwd_stream if ctx.streamed else \
+            flash_attention_bwd
         dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 
@@ -359,40 +417,6 @@ _TILE = 64          # q rows and keys per tile (csrc/flash_attention_stream.cu)
 # to make runs of several units at small T, and chip_smoke.py's
 # long_parity to reorder the sums.
 _UNIT_TILES = 64
-
-
-# The forms of rows 4 and 7's unit kernels (csrc/flash_attention_stream.cu)
-# and their codes in the C entries.
-_STREAM_VARIANTS = {"cuda_cores": 0, "wgmma": 1}
-
-
-def stream_fwd_variant(dtype, d: int) -> str:
-    """Which unit kernel row 4 launches, by dtype and head width alone:
-    "wgmma" (bf16 products on the tensor cores, K/V by TMA) for bf16 at D
-    = 64 or 128, "cuda_cores" for f32 and every other D. A dispatch by
-    shape, not a fallback: a wgmma launch that fails raises."""
-    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) \
-        else "cuda_cores"
-
-
-def stream_bwd_variant(dtype, d: int) -> str:
-    """Which unit kernels row 7 launches (dq and dk/dv alike), by dtype
-    and head width alone: "wgmma" (every product on the tensor cores, the
-    streamed tiles by TMA) for bf16 at D = 64 or 128, "cuda_cores" for f32
-    and every other D. Both widths compile without spills (ptxas: dq 122
-    and 154 registers, dk/dv 176 and 240; PERF.md §6). A dispatch by shape,
-    not a fallback: a wgmma launch that fails raises.
-
-    The tensor-core form reads q, k, v and do by TMA, from contiguous
-    tensors at 16-byte-aligned addresses: the wrappers refuse any other
-    before a launch and never hand it to the CUDA-core form. An upstream op
-    may hand autograd a contiguous gradient at an odd address, so
-    `FlashAttentionFn.backward` gives the streamed backward a fresh copy of
-    do (the caching allocator's blocks are 512-byte aligned) when, and only
-    when, do.data_ptr() % 16 != 0. q, k and v are the forward's inputs,
-    which its own tensor-core form already took."""
-    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) \
-        else "cuda_cores"
 
 
 def streamed(q) -> bool:
@@ -613,7 +637,7 @@ def flash_attention_stream(q, k, v, causal: bool = True,
     """Row 4: the streamed forward over the visit list (`pairs`, see
     `_list_is_triangle`), q/k/v [B, T, H, D], any T. Returns (o, lse
     [B, H, T] f32), or o alone without `with_lse`. One launch is counted
-    per call, which issues the unit kernel (the form `stream_fwd_variant`
+    per call, which issues the unit kernel (the form `flash_variant`
     picks, counted in `kernels.variant_launches`) and, when a run spans
     several units, the merge kernel.
 
@@ -628,9 +652,7 @@ def flash_attention_stream(q, k, v, causal: bool = True,
         o, lse = flash_stream_fwd_plain(q, k, v, causal, scale, pairs)
         return (o, lse) if with_lse else o
     b, t, h, d = _check_qkv("flash_attention_stream", q, k, v)
-    variant = stream_fwd_variant(q.dtype, d)
-    if variant == "wgmma":
-        _check_tma("flash_attention_stream", q, k, v)
+    variant = _variant("flash_attention_stream", d, q, k, v)
     sch = _schedule_on(q.device, t, _list_is_triangle(causal, pairs), "row",
                        _UNIT_TILES)
     n_slots = sch[3].n_slots
@@ -645,10 +667,8 @@ def flash_attention_stream(q, k, v, causal: bool = True,
                       None if lse is None else lse.data_ptr(),
                       *_sched_args(sch), acc.data_ptr(), ml.data_ptr(),
                       n_slots, b, t, h, d, int(causal), float(scale),
-                      DTYPE_CODES[q.dtype], _STREAM_VARIANTS[variant],
-                      _stream(q))
-    kernels.launches["flash_attention_stream"].add()
-    kernels.variant_launches["flash_attention_stream"][variant].add()
+                      DTYPE_CODES[q.dtype], _VARIANTS[variant], _stream(q))
+    _counted("flash_attention_stream", variant)
     return (o, lse) if with_lse else o
 
 
@@ -656,16 +676,14 @@ def flash_attention_bwd_dq_stream(q, k, v, do, lse, drow, causal, scale, *,
                                   pairs=None):
     """Row 7's dq over the row-major list; drow = rowsum(do * o), [B, H, T]
     f32 like lse. One launch is counted per call (the unit kernel, in the
-    form `stream_bwd_variant` picks, counted in `kernels.variant_launches`,
+    form `flash_variant` picks, counted in `kernels.variant_launches`,
     and the sum kernel when a run spans several units)."""
     if kernels.placement(q, k, v, do, lse, drow) == "cpu":
         return flash_stream_bwd_dq_plain(q, k, v, do, lse, drow, causal,
                                          scale, pairs)
     name = "flash_attention_bwd_dq_stream"
     b, t, h, d = _check_bwd(name, q, k, v, do, lse, drow)
-    variant = stream_bwd_variant(q.dtype, d)
-    if variant == "wgmma":
-        _check_tma(name, q, k, v, do)
+    variant = _variant(name, d, q, k, v, do)
     sch = _schedule_on(q.device, t, _list_is_triangle(causal, pairs), "row",
                        _UNIT_TILES)
     dq = torch.empty_like(q)
@@ -675,10 +693,8 @@ def flash_attention_bwd_dq_stream(q, k, v, do, lse, drow, causal, scale, *,
                       *_bwd_args(q, k, v, do, lse, drow), dq.data_ptr(),
                       *_sched_args(sch), part.data_ptr(), sch[3].n_slots, b,
                       t, h, d, int(causal), float(scale),
-                      DTYPE_CODES[q.dtype], _STREAM_VARIANTS[variant],
-                      _stream(q))
-    kernels.launches[name].add()
-    kernels.variant_launches[name][variant].add()
+                      DTYPE_CODES[q.dtype], _VARIANTS[variant], _stream(q))
+    _counted(name, variant)
     return dq
 
 
@@ -691,9 +707,7 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, drow, causal, scale, *,
                                           scale, pairs)
     name = "flash_attention_bwd_dkv_stream"
     b, t, h, d = _check_bwd(name, q, k, v, do, lse, drow)
-    variant = stream_bwd_variant(q.dtype, d)
-    if variant == "wgmma":
-        _check_tma(name, q, k, v, do)
+    variant = _variant(name, d, q, k, v, do)
     sch = _schedule_on(q.device, t, _list_is_triangle(causal, pairs), "col",
                        _UNIT_TILES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -705,9 +719,8 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, drow, causal, scale, *,
                       dv.data_ptr(), *_sched_args(sch), part_dk.data_ptr(),
                       part_dv.data_ptr(), sch[3].n_slots, b, t, h, d,
                       int(causal), float(scale), DTYPE_CODES[q.dtype],
-                      _STREAM_VARIANTS[variant], _stream(q))
-    kernels.launches[name].add()
-    kernels.variant_launches[name][variant].add()
+                      _VARIANTS[variant], _stream(q))
+    _counted(name, variant)
     return dk, dv
 
 

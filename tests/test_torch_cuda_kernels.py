@@ -876,3 +876,164 @@ def test_long_context_lm_fits_on_the_card_as_on_the_cpu(cuda, monkeypatch):
             tol = 4e-2 * float(m.abs().max()) + 1e-12
             assert float((card.opt_state[name]["m"][key].cpu() - m).abs()
                          .max()) <= tol, (name, key)
+
+
+# ------------------------------- resident rows 3, 5, 6 on the tensor cores
+
+RESIDENT_NAMES = ("flash_attention", "flash_attention_fwd_lse",
+                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# bf16 at D = 64 and 128 takes the tensor-core form (`fa.resident_variant`):
+# less than one tile (T = 1, and 40 as a prompt suffix after a prefix-cache
+# hit), one tile, one row into a second, and the training step's T less 24
+# and whole; B = 16 is the training step's batch.
+RESIDENT_T = [1, 40, 64, 65, 1000, 1024]
+WGMMA_ONCE = {"wgmma": 1, "cuda_cores": 0}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b", [1, 2, 16])
+@pytest.mark.parametrize("t", RESIDENT_T)
+def test_resident_fwd_wgmma_matches_plain(cuda, t, b, d, causal):
+    q, k, v, _ = _stream_case(np.random.RandomState(31), (b, t, 2, d),
+                              torch.bfloat16, cuda)
+    kernels.reset_counts()
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, causal)
+    o_only = fa.flash_attention(q, k, v, causal)
+    c = kernels.counts()
+    for name in RESIDENT_NAMES[:2]:
+        assert c["launches"][name] == 1
+        assert c["variants"][name] == WGMMA_ONCE
+    want_o, want_lse = fa.dense_attention_lse(q, k, v, causal)
+    _close_rows(o, want_o, torch.bfloat16)
+    _close(lse, want_lse, torch.float32)
+    _close(o, want_o, torch.bfloat16)
+    assert torch.equal(o_only, o)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b", [1, 2, 16])
+@pytest.mark.parametrize("t", RESIDENT_T)
+def test_resident_bwd_wgmma_matches_plain(cuda, t, b, d, causal):
+    q, k, v, do = _stream_case(np.random.RandomState(32), (b, t, 2, d),
+                               torch.bfloat16, cuda)
+    scale = d ** -0.5
+    o, lse = fa.dense_attention_lse(q, k, v, causal)
+    drow = fa._drow(o, do)
+    kernels.reset_counts()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, drow, causal, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, drow, causal,
+                                        scale)
+    c = kernels.counts()
+    for name in RESIDENT_NAMES[2:]:
+        assert c["launches"][name] == 1
+        assert c["variants"][name] == WGMMA_ONCE
+    want_dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, drow, causal, scale)
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, drow,
+                                              causal, scale)
+    # A query that sees one key has ds = p (dp - D) with D = dp: its dq
+    # row is 0 in exact arithmetic (the causal row 0), and at T = 1 so is
+    # the one dk row. Those rows are held elementwise only.
+    held = [(dv, want_dv)]
+    if t > 1:
+        rows = slice(1 if causal else 0, None)
+        held += [(dq[:, rows], want_dq[:, rows]), (dk, want_dk)]
+    for got, want in held:
+        _close_rows(got, want, torch.bfloat16, BWD_ROW_TOL, ROW_FLOOR)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_resident_wgmma_kernels_are_deterministic(cuda, d):
+    q, k, v, do = _stream_case(np.random.RandomState(33), (2, 1000, 2, d),
+                               torch.bfloat16, cuda)
+    kernels.reset_counts()
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, True)
+        runs.append((fa.flash_attention(q, k, v), o, lse,
+                     *fa.flash_attention_bwd(q, k, v, o, lse, do, True)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    forms = kernels.counts()["variants"]
+    assert all(forms[n] == {"wgmma": 2, "cuda_cores": 0}
+               for n in RESIDENT_NAMES)
+
+
+def test_resident_wgmma_refuses_what_tma_cannot_take(cuda):
+    # The tensor-core form reads q, k, v (and do) by TMA: any of them at an
+    # address that is not 16-byte aligned raises before a launch, and
+    # nothing reroutes it to the CUDA-core kernels.
+    shape = (2, 100, 2, 64)
+    buf = torch.zeros(int(np.prod(shape)) + 1, dtype=torch.bfloat16,
+                      device=cuda)
+    shifted = buf[1:].view(shape)
+    ok = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros(2, 2, 100, device=cuda)
+    kernels.reset_counts()
+    for i in range(3):
+        args = [ok] * 3
+        args[i] = shifted
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(*args)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention_fwd_lse(*args)
+    for i in range(4):
+        args = [ok] * 4
+        args[i] = shifted
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention_bwd_dq(*args, lse, lse, True, 0.125)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention_bwd_dkv(*args, lse, lse, True, 0.125)
+    c = kernels.counts()
+    for name in RESIDENT_NAMES:
+        assert c["launches"][name] == 0
+        assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_fn_trains_through_the_resident_wgmma_form(cuda, d):
+    # The training seam in bf16: forward with lse, dq and dk/dv all on the
+    # tensor-core form, the gradients held against the CPU's plain path.
+    rng = np.random.RandomState(34)
+    q, k, v, g = (_t(rng.randn(2, 300, 2, d), torch.bfloat16, cuda)
+                  for _ in range(4))
+    ref = [a.detach().cpu().requires_grad_(True) for a in (q, k, v)]
+    ts = [a.requires_grad_(True) for a in (q, k, v)]
+    kernels.reset_counts()
+    got = torch.autograd.grad(fa.flash_attention(*ts), ts, g)
+    with torch.no_grad():
+        fa.flash_attention(*ts)
+    c = kernels.counts()
+    for name in RESIDENT_NAMES:
+        assert c["launches"][name] == 1
+        assert c["variants"][name] == WGMMA_ONCE
+    assert not any(c["launches"][n] for n in STREAM_NAMES)
+    assert not any(c["plain_calls"].values())
+    want = torch.autograd.grad(fa.flash_attention(*ref), ref, g.cpu())
+    for a, b in zip(got, want):
+        _close(a, b.to(cuda), torch.bfloat16)
+
+
+def test_flash_attention_fn_copies_a_misaligned_do_when_resident(cuda):
+    # An incoming gradient at an odd address reaches the resident
+    # tensor-core backward as an aligned copy, and gives the aligned
+    # gradient's result.
+    shape = (2, 200, 2, 64)
+    rng = np.random.RandomState(35)
+    q, k, v = (_t(rng.randn(*shape), torch.bfloat16, cuda)
+               .requires_grad_(True) for _ in range(3))
+    buf = _t(rng.randn(int(np.prod(shape)) + 1), torch.bfloat16, cuda)
+    g = buf[1:].view(shape)
+    assert g.data_ptr() % 16
+    kernels.reset_counts()
+    got = torch.autograd.grad(fa.flash_attention(q, k, v), (q, k, v), g)
+    want = torch.autograd.grad(fa.flash_attention(q, k, v), (q, k, v),
+                               g.clone())
+    c = kernels.counts()
+    for name in RESIDENT_NAMES[2:]:
+        assert c["variants"][name] == {"wgmma": 2, "cuda_cores": 0}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
