@@ -15,14 +15,19 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               for rows 4 and 7, `<D, rows>` for rows 3, 5 and 6.
 2. kernels  - each hand-written kernel at its main path's shapes (serving:
               the prefill and decode shapes; training: B=16, T=1024, 8
-              heads of 64, and the 24 layer vertices' Adam state), in bf16
+              heads of 64, the LM step's 16,384 LayerNorm rows, and the 24
+              layer vertices' 66 tensors of Adam params and state, one
+              `apply_step` as the step runs it and one `dispatch` per
+              vertex in the deltas mode), in bf16
               and f32 (the update kernel takes f32 only), against its plain
               PyTorch version on the card (rtol = atol = 4e-2 in bf16, 1e-4
               in f32 with TF32 off), timed with CUDA events (median of 25
               after 5 warm-up runs) beside the plain version, the least
               time the card could take (`bound_ms`) and one PyTorch library
               call where one computes the same function (`library_ms`, a
-              yardstick the port never calls). The flash rows 3, 5 and 6
+              yardstick the port never calls), and the host time a call
+              costs its caller (`host_ms`, 50 calls back to back; the
+              library call's too). The flash rows 3, 5 and 6
               are also held row by row (o at 1e-2 / 1e-4 of its norm, lse at
               1e-4; dq from row 1, dk, dv at 1.2e-2 / 1e-4 of max(norm, 0.1
               x the median row norm)) and name their form (`variant`).
@@ -46,8 +51,8 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               20 timed steps over 2 batches. Scores finite and falling (the
               last 3 average at least 5% under the first), and per step
               exactly 9 LayerNorm, 4 flash forward-with-lse, 4 dq, 4 dk/dv
-              (all 12 on the tensor-core form) and 24 fused-update
-              launches, 0 inference-flash launches, 0 plain calls.
+              (all 12 on the tensor-core form) and 1 fused-update launch
+              (all 66 tensors), 0 inference-flash launches, 0 plain calls.
 6. train_parity - one `fit` step of the same model at B=2 on the card and
               on the CPU (plain versions): scores within 4e-2 relative and,
               per layer vertex, Adam's m (= 0.1 * grad) within 4e-2 of the
@@ -71,8 +76,9 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               fused-block graph at 64x64, B=32 (`bench.py:1720-1753`); 3
               warm-up and 10 timed steps each. Scores finite and falling
               (the last 3 average under the first); per step exactly 53
-              BatchNorm and 107 update launches (T1), or 16 bottleneck, 1
-              BatchNorm and 19 update launches (T2); 0 plain calls.
+              BatchNorm and 1 update launch (T1, 161 tensors), or 16
+              bottleneck, 1 BatchNorm and 1 update launch (T2); 0 plain
+              calls.
 9. resnet_infer - `ComputationGraph.output` at B=32 on 224x224 images: I1,
               the fused graph (T2's trained weights and running statistics)
               through 16 inference blocks and 1 BatchNorm per call; I2, T1's
@@ -100,7 +106,8 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               BPTT: B=32 sequences of 100 characters whose next character is
               a fixed permutation of the current one, chunks of 50; 3
               warm-up and 10 timed calls over 2 batches. Scores finite and
-              falling; per call exactly 200 LSTM-cell and 6 update launches,
+              falling; per call exactly 200 LSTM-cell and 2 update launches
+              (one per chunk),
               0 plain calls, 0 launches of other kernels.
 13. rnn_sample - greedy sampling with `rnn_time_step` after
               `rnn_clear_previous_state`: 200 characters from one seed
@@ -137,7 +144,7 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               same learnable id rule, 2 warm-up and 5 timed steps over 2
               batches: every attention past the resident K/V limit, so per
               step exactly 4 streamed forwards, 4 dq, 4 dk/dv (all 12 on
-              the tensor-core form), 9 LayerNorm and 24 update launches,
+              the tensor-core form), 9 LayerNorm and 1 update launch,
               none of rows 3, 5 and 6, 0 plain calls; scores finite and
               falling; ms/step, tokens/s, peak memory.
 17. long_output - 3 `output` calls of that net at B=1, T=32,768: 4
@@ -158,7 +165,10 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               (torch.profiler), the card's idle share and the top kernels;
               and, in one traced window after a long-context step, causal
               SDPA at row 4's shape beside row 4 (device ms per call);
-              every row 3, 5 and 6 launch there on the tensor-core form.
+              every row 3, 5 and 6 launch there on the tensor-core form;
+              each traced step's update part runs no `sub`, `add` or `mul`
+              op on the host (no pass over deltas; its one launch per
+              update is held by the phases' launch counts).
 
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
@@ -167,6 +177,7 @@ the result line. With no GPU, without the package beside it, or when any phase
 fails, it exits non-zero and prints no result.
 """
 
+import itertools
 import json
 import re
 import statistics
@@ -181,6 +192,9 @@ import numpy as np
 PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16; f32 w/o TF32
 TOL = {"bfloat16": 4e-2, "float32": 1e-4}
+# Copies of the input that row 1's timed calls at the LM step's shape
+# take in turn, so that none is still in the L2 (50 MB) at its next read.
+L2_COPIES = 8
 
 VOCAB, D_MODEL, HEADS, BLOCKS, CACHE = 8192, 512, 8, 4, 1024
 SLOTS, PAGE = 4, 64
@@ -218,12 +232,13 @@ KERNEL_INFO = {
 SERVING_KERNELS = ("layernorm_norm_act", "flash_attention",
                    "paged_decode_attention")
 # Launches per training step of the smoke model: 2 LayerNorms per block and
-# the final one; one attention per block; one update per layer vertex.
+# the final one; one attention per block; one update for all 24 layer
+# vertices' 66 tensors (the kernel's table holds 256).
 TRAIN_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1,
                   "flash_attention_fwd_lse": BLOCKS,
                   "flash_attention_bwd_dq": BLOCKS,
                   "flash_attention_bwd_dkv": BLOCKS,
-                  "fused_update": 2 + 5 * BLOCKS + 2}
+                  "fused_update": 1}
 TRAIN_FLASH = ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkv")
 
@@ -237,11 +252,12 @@ RN_PATHS = {  # image, fused blocks, batch
     "i1": (224, True, INFER_B), "i2": (224, False, INFER_B)}
 # Launches per training step or per output call: one BatchNorm per
 # BatchNormalization layer (53 unfused, the stem's when fused), one block
-# per BottleneckBlock (16), one update per layer vertex with params.
+# per BottleneckBlock (16), one update for every param tensor of the step
+# (161 in both graphs).
 RN_LAUNCHES = {
-    "t1": {"batchnorm_norm_act": 53, "fused_update": 107},
+    "t1": {"batchnorm_norm_act": 53, "fused_update": 1},
     "t2": {"bottleneck_train": 16, "batchnorm_norm_act": 1,
-           "fused_update": 19},
+           "fused_update": 1},
     "i1": {"bottleneck_infer": 16, "batchnorm_norm_act": 1},
     "i2": {"batchnorm_norm_act": 53}}
 # The stages of ResNet-50: (filters, blocks, first stride).
@@ -249,12 +265,12 @@ RN_STAGES = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
 
 # The char-RNN (`bench.py:798-840` char_rnn_fused_lstm): 2 GravesLSTM layers
 # of 256 over 77 characters, f32, RMSProp; B=32 sequences of 100 in tBPTT
-# chunks of 50. Per fit call: one cell per layer and step, one update per
-# layer (3 with the output layer) per chunk.
+# chunks of 50. Per fit call: one cell per layer and step, one update (all
+# 3 layers) per chunk.
 RNN_V, RNN_H, RNN_LAYERS, RNN_B, RNN_T, RNN_CHUNK = 77, 256, 2, 32, 100, 50
 RNN_WARMUP, RNN_TIMED, RNN_SAMPLE, RNN_PARITY_B = 3, 10, 200, 4
 RNN_LAUNCHES = {"lstm_cell": RNN_LAYERS * RNN_T,
-                "fused_update": (RNN_LAYERS + 1) * (RNN_T // RNN_CHUNK)}
+                "fused_update": RNN_T // RNN_CHUNK}
 
 # Long context: the same LM at T = 32,768, B = 1, where the K/V of
 # one (batch, head) outgrow the resident limit and every attention takes the
@@ -295,7 +311,7 @@ LONG_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1,
                  "flash_attention_stream": BLOCKS,
                  "flash_attention_bwd_dq_stream": BLOCKS,
                  "flash_attention_bwd_dkv_stream": BLOCKS,
-                 "fused_update": 2 + 5 * BLOCKS + 2}
+                 "fused_update": 1}
 
 
 def card_line() -> str:
@@ -326,6 +342,22 @@ def time_ms(fn, reps=25, warmup=5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(fn, calls=50) -> float:
+    """Host time per call of `fn` over `calls` back-to-back calls, the card
+    left to run behind them (warmed up, synchronized after): what a
+    wrapper's Python and launch cost the caller's thread."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
 
 
 def device_kernels(torch, fn, reps):
@@ -426,16 +458,27 @@ def kernel_cases(torch, dev, dtype_name):
                             device=dev)
 
     cases = []
-    for rows in (4, 1024):  # a decode step's 4 slots; the widest prefill
+    # A decode step's 4 slots; the widest prefill; an LM training step's
+    # B * T = 16,384 rows. There x and the output (33.6 MB in bf16) would
+    # stay in the card's 50 MB L2 from one timed call to the next, where the
+    # step reads x from HBM: so each call takes the next of L2_COPIES
+    # copies of x (the kernel, its plain version and the library alike),
+    # 134 MB of inputs between two reads of one copy.
+    for rows in (4, 1024, TRAIN_B * CACHE):
         x = t(rows, D_MODEL, scale=2.0, shift=0.5)
+        xs = [x] + [x.clone() for _ in range(
+            L2_COPIES - 1 if rows == TRAIN_B * CACHE else 0)]
         g, b = t(D_MODEL, scale=0.3, shift=1.0), t(D_MODEL)
+        label = f"[{rows},{D_MODEL}]" + (
+            f", {len(xs)} copies of x in turn" if len(xs) > 1 else "")
         cases.append((
-            "layernorm_norm_act", f"[{rows},{D_MODEL}]",
-            lambda x=x, g=g, b=b: norm_act.layernorm_norm_act(
-                x, g, b, 1e-5, "identity"),
-            lambda x=x, g=g, b=b: norm_act.layernorm_plain(
-                x, g, b, 1e-5, "identity"),
-            lambda x=x, g=g, b=b: F.layer_norm(x, (D_MODEL,), g, b, 1e-5),
+            "layernorm_norm_act", label,
+            lambda c=itertools.cycle(xs), g=g, b=b:
+                norm_act.layernorm_norm_act(next(c), g, b, 1e-5, "identity"),
+            lambda c=itertools.cycle(xs), g=g, b=b: norm_act.layernorm_plain(
+                next(c), g, b, 1e-5, "identity"),
+            lambda c=itertools.cycle(xs), g=g, b=b: F.layer_norm(
+                next(c), (D_MODEL,), g, b, 1e-5),
             (2 * rows * D_MODEL + 2 * D_MODEL) * es, 8 * rows * D_MODEL))
 
     T, dh = CACHE, D_MODEL // HEADS
@@ -524,21 +567,50 @@ def train_kernel_cases(torch, dev, dtype_name, conf):
     ]
     if dtype_name != "float32":
         return cases
-    # Adam over the 24 layer vertices' f32 params, one dispatch each, as a
-    # training step runs it (lr 3e-3, step 5).
+    # Adam over the 24 layer vertices' f32 params and state (lr 3e-3, step
+    # 5): the step's `apply_step`, one launch over all 66 tensors that
+    # writes params and state, beside its plain version (per vertex
+    # `adam_xla`, then `sub_`) and `torch._fused_adam_` over the same
+    # lists; then `dispatch` per vertex, the kernel's deltas mode.
     hyper, lr, step = (0.9, 0.999, 1e-8), 3e-3, 5
-    shapes = {name: v.layer.param_shapes() for name, v in conf.vertices.items()
-              if hasattr(v, "layer")}
+    shapes = lm_update_shapes(conf)
+    params0 = {v: {k: t(*s) for k, s in p.items()} for v, p in shapes.items()}
     grads = {v: {k: t(*s) for k, s in p.items()} for v, p in shapes.items()}
     init = {v: {"m": {k: t(*s, scale=0.01) for k, s in p.items()},
                 "v": {k: t(*s, scale=0.01) ** 2 for k, s in p.items()}}
             for v, p in shapes.items()}
 
-    def copy_state():
-        return {v: {f: {k: a.clone() for k, a in s.items()}
-                    for f, s in st.items()} for v, st in init.items()}
+    def copy(tree):
+        return {v: {f: ({k: a.clone() for k, a in s.items()}
+                        if isinstance(s, dict) else s.clone())
+                    for f, s in st.items()} for v, st in tree.items()}
 
-    kstate, pstate, lstate = copy_state(), copy_state(), copy_state()
+    kp, kst, pp, pst, lp, lst = (copy(params0), copy(init), copy(params0),
+                                 copy(init), copy(params0), copy(init))
+
+    tables = {}
+
+    def apply_kernel():  # as the engine calls it: items built per step,
+        # the packed table kept from step to step
+        states = fused_update.apply_step("adam", hyper, [
+            fused_update.UpdateItem(kp[v], kst[v], grads[v], lr)
+            for v in shapes], step, 1.0, tables)
+        kst.update(zip(shapes, states))
+        return [a for v in shapes for a in (*kp[v].values(),
+                                            *kst[v]["m"].values(),
+                                            *kst[v]["v"].values())]
+
+    def apply_plain():
+        out = []
+        for v in shapes:
+            pst[v], d = fused_update.adam_xla(pst[v], grads[v], lr, step,
+                                              *hyper)
+            fused_update.apply_deltas(pp[v], d, None, 1.0)
+            out += [*pp[v].values(), *pst[v]["m"].values(),
+                    *pst[v]["v"].values()]
+        return out
+
+    dstate, dplain = copy(init), copy(init)
 
     def run(update, state):
         out = []
@@ -548,24 +620,41 @@ def train_kernel_cases(torch, dev, dtype_name, conf):
         return out
 
     fg = [a for p in grads.values() for a in p.values()]
-    fparams = [torch.zeros_like(a) for a in fg]
-    fm, fv = ([a for st in lstate.values() for a in st[f].values()]
+    fparams = [a for p in lp.values() for a in p.values()]
+    fm, fv = ([a for st in lst.values() for a in st[f].values()]
               for f in ("m", "v"))
     steps = [torch.tensor(float(step + 1), device=dev) for _ in fg]
     elems = sum(a.numel() for a in fg)
-    cases.append((
-        "fused_update", f"adam over {len(shapes)} layer vertices, "
-        f"{elems} f32 params",
-        lambda: run(lambda st, g: fused_update.dispatch(
-            "adam", st, g, lr, step, hyper), kstate),
-        lambda: run(lambda st, g: fused_update.adam_xla(
-            st, g, lr, step, *hyper), pstate),
-        lambda: torch._fused_adam_(
-            fparams, fg, fm, fv, [], steps, amsgrad=False, lr=lr,
-            beta1=hyper[0], beta2=hyper[1], weight_decay=0.0, eps=hyper[2],
-            maximize=False, grad_scale=None, found_inf=None),
-        24 * elems, 15 * elems))
+    cases += [
+        ("fused_update", lm_update_label(shapes),
+         apply_kernel, apply_plain,
+         lambda: torch._fused_adam_(
+             fparams, fg, fm, fv, [], steps, amsgrad=False, lr=lr,
+             beta1=hyper[0], beta2=hyper[1], weight_decay=0.0, eps=hyper[2],
+             maximize=False, grad_scale=None, found_inf=None),
+         28 * elems, 15 * elems),
+        ("fused_update", f"adam dispatch per layer vertex (deltas mode), "
+         f"{len(shapes)} launches, {elems} f32 params",
+         lambda: run(lambda st, g: fused_update.dispatch(
+             "adam", st, g, lr, step, hyper), dstate),
+         lambda: run(lambda st, g: fused_update.adam_xla(
+             st, g, lr, step, *hyper), dplain),
+         None, 24 * elems, 15 * elems)]
     return cases
+
+
+def lm_update_shapes(conf):
+    """{vertex: {param: shape}} of the LM's layer vertices."""
+    return {name: v.layer.param_shapes() for name, v in conf.vertices.items()
+            if hasattr(v, "layer") and v.layer.param_shapes()}
+
+
+def lm_update_label(shapes):
+    """The kernels phase's shape label of the step's update."""
+    n = sum(len(p) for p in shapes.values())
+    elems = sum(int(np.prod(s)) for p in shapes.values() for s in p.values())
+    return (f"adam apply_step over {len(shapes)} layer vertices "
+            f"({n} tensors), {elems} f32 params")
 
 
 def _lib_ms(torch, lib, reps=25, warmup=5):
@@ -616,6 +705,10 @@ def phase_kernels(card, torch, dev, train_conf):
                 "ok": ok, "ms": time_ms(kern), "plain_ms": time_ms(plain),
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms,
+                # The wrapper's host time per call (launch path).
+                "host_ms": host_ms(kern),
+                "library_host_ms": None if lib is None or isinstance(
+                    lib, tuple) else host_ms(lib),
                 # Kernel time alone (profiler): `ms` above is one call as
                 # the card's clock sees it, launch gaps included.
                 "device_ms": device_ms(torch, kern),
@@ -933,24 +1026,35 @@ def trace_train_step(torch, net, batch):
     runs alone on the card (synchronized before and after) under its own
     profiler, so its host wall time and kernel time are its own; a part
     that runs more than once in the call (a truncated-BPTT chunk each) is
-    summed over its runs."""
+    summed over its runs. The update part also records the PyTorch ops it
+    ran on the host (`aten_ops`), which show a `sub_`/`add_` pass whether
+    or not its one short kernel reaches the device trace (PERF.md §7)."""
     from torch.profiler import ProfilerActivity, profile
 
-    parts = {}
+    parts, update_ops = {}, {}
 
     def wrap(part, fn):
+        acts = [ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if part == "update" else [])
+
         def run(*args):
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profile(activities=acts) as prof:
                 t0 = time.perf_counter()
                 out = fn(*args)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
             w0, ev0, n0 = parts.get(part, (0.0, [], 0))
+            events = prof.events()
             parts[part] = (w0 + wall, ev0 + [
                 (e.name, e.time_range.start, e.time_range.end)
-                for e in prof.events()
+                for e in events
                 if e.device_type == torch.autograd.DeviceType.CUDA], n0 + 1)
+            if part == "update":
+                for e in events:
+                    if (e.device_type == torch.autograd.DeviceType.CPU
+                            and e.name.startswith("aten::")):
+                        update_ops[e.name] = update_ops.get(e.name, 0) + 1
             return out
         return run
 
@@ -968,7 +1072,18 @@ def trace_train_step(torch, net, batch):
         out[part] = ({"wall_ms": wall, "device_ms": "not measured"}
                      if not ev else _kernel_summary(torch, ev, wall))
         out[part]["runs"] = runs
+    out["update"]["aten_ops"] = update_ops
     return out
+
+
+def _update_errors(step_trace, what):
+    """Errors unless a traced step's update part ran no `sub_`/`add_`/`mul`
+    op on the host: no pass over deltas. The one launch per update is held
+    by the phases' launch counts."""
+    passes = {n: c for n, c in step_trace["update"]["aten_ops"].items()
+              if n.split("::")[1].rstrip("_") in ("sub", "add", "mul")}
+    return ([f"{what}: the update ran elementwise ops: {passes}"]
+            if passes else [])
 
 
 def trace_long_attention(torch, net, batch, reps=3):
@@ -1096,6 +1211,9 @@ def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
     errors = _variant_errors(counts, launched)
     if not all(launched.values()):
         errors.append(f"a resident flash row never launched: {launched}")
+    for what in ("train_step", "resnet_t1_step", "resnet_t2_step",
+                 "rnn_fit_call", "long_train_step"):
+        errors += _update_errors(out[what], what)
     emit(card, phase="trace", ok=not errors, errors=errors,
          variants={n: counts["variants"][n] for n in RESIDENT_ROWS}, **out)
     return out, not errors
@@ -2034,7 +2152,7 @@ def phase_long_train(card, torch, kernels, dev):
     trained with `ComputationGraph.fit` at B=1, T=32,768: 2 warm-up and 5
     timed steps over 2 seeded batches; per step exactly 4 streamed
     forwards (all on the tensor-core form), 4 dq, 4 dk/dv, 9 LayerNorm and
-    24 update launches, none of rows 3, 5 and 6, 0 plain calls."""
+    1 update launch, none of rows 3, 5 and 6, 0 plain calls."""
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
     net = ComputationGraph(_long_conf("bfloat16"), device=dev).init()
@@ -2328,6 +2446,7 @@ def main() -> int:
         "lstm_cell": f"B={RNN_B} n={RNN_H} peephole",
         **{name: f"[1,{LONG_T},{HEADS},{D_MODEL // HEADS}] causal"
            for name in LONG_LAUNCHES if name.endswith("_stream")}}
+    main_shape["fused_update"] = lm_update_label(lm_update_shapes(train_conf))
     main_dtype = {"fused_update": "float32", "lstm_cell": "float32"}
     attn = trace["long_attention"]
     sdpa_ms = {k: v["device_ms_per_call"] for k, v in attn.items()
@@ -2346,7 +2465,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"], "dtype": dtype,
+            "device_ms": r["device_ms"], "host_ms": r.get("host_ms"),
+            "dtype": dtype,
             "shape": r["shape"], "card": card})
         if name in STREAM_UNITS or name in RESIDENT_ROWS:
             entries[-1]["variant"] = r["variant"]

@@ -16,7 +16,10 @@ tensor launches the kernel, or the wrapper raises. No fallback, no switch.
   kernels of csrc/flash_attention_stream.cu over one block per whole row
   of tiles), all else on the CUDA cores, by `flash_variant`, each form
   counted in `variant_launches`.
-- `fused_update.dispatch`                   (csrc/fused_update.cu)
+- `fused_update.apply_step`                 (csrc/fused_update.cu: the
+  training step's update, params and state in place, one launch per step;
+  `fused_update.dispatch`, the per-layer seam that returns deltas, is the
+  same kernel in its deltas mode)
 - `bottleneck_block.bottleneck_forward`     (csrc/bottleneck_block.cu:
   `bottleneck_train`, batch statistics, and `bottleneck_infer`, running
   statistics; each counts one per wrapper call, of several CUDA launches)
@@ -41,6 +44,7 @@ a kernel wrapper asked for a gradient outside them raises.
 
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Dict
 
@@ -53,24 +57,30 @@ KERNELS = ("layernorm_norm_act", "flash_attention", "paged_decode_attention",
 
 
 class Count:
-    """A thread-safe integer count (the decode loop launches from its own
-    thread while callers read)."""
+    """An integer count that threads may add to (the decode loop launches
+    from its own thread while callers read). `add` is one `next()` on an
+    `itertools.count`, which the interpreter runs as one step, so adds from
+    several threads are never lost and take no lock. An `itertools.count`
+    has no read that leaves it as it is, so `value` takes one `next()` too
+    and subtracts the reads made before it; readers alone take the lock."""
 
     def __init__(self):
-        self._n = 0
         self._lock = threading.Lock()
+        self.reset()
 
     def add(self) -> None:
-        with self._lock:
-            self._n += 1
+        next(self._c)
 
     @property
     def value(self) -> int:
-        return self._n
+        with self._lock:
+            n = next(self._c) - self._reads
+            self._reads += 1
+            return n
 
     def reset(self) -> None:
         with self._lock:
-            self._n = 0
+            self._c, self._reads = itertools.count(), 0
 
 
 # Kernel launches, counted where each wrapper launches its kernel and

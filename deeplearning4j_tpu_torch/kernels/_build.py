@@ -12,6 +12,7 @@ sources and the CUDA toolkit are used.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -48,7 +51,9 @@ _SIGNATURES = {
                                     _I, _I, _F, _I, _I, _P],
     "dl4j_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _F, _I, _I, _P],
-    "dl4j_fused_update": [_I, _I, _P, _P, _P, _P],
+    # kind, mode, count | ptrs, sizes, lrs, factors, scalars, stream.
+    "dl4j_fused_update": [_I, _I, _I] + [_P] * 6,
+    "dl4j_fused_update_capacity": [],
     "dl4j_batchnorm_norm_act": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
                                 _P],
     "dl4j_bottleneck_conv": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -72,6 +77,9 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# Each entry point's bound function object, filled at the first launch.
+_fns: Dict[str, ctypes._CFuncPtr] = {}
+_NO_GUARD = contextlib.nullcontext()
 # What the last build did: command lines, seconds, ptxas resource lines by
 # kernel.
 last_build: Dict[str, object] = {}
@@ -160,6 +168,9 @@ def _ptxas_by_kernel(logs) -> Dict[str, List[str]]:
 def load(force: bool = False) -> ctypes.CDLL:
     """The kernel library, built on first use (or anew with `force`)."""
     global _lib
+    lib = _lib
+    if lib is not None and not force:
+        return lib
     with _lock:
         if _lib is None or force:
             lib = ctypes.CDLL(str(_compile(force)))
@@ -169,6 +180,7 @@ def load(force: bool = False) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.dl4j_error_string.argtypes = [ctypes.c_int]
             lib.dl4j_error_string.restype = ctypes.c_char_p
+            _fns.clear()
             _lib = lib
         return _lib
 
@@ -176,10 +188,27 @@ def load(force: bool = False) -> ctypes.CDLL:
 def launch(name: str, *args) -> None:
     """Call one C entry point and raise on the CUDA error it returns (a
     refused launch never runs, and a later synchronize does not report
-    it)."""
-    lib = load()
-    rc = getattr(lib, name)(*args)
+    it). The entry is bound once; later calls take no lock."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns.setdefault(name, getattr(load(), name))
+    rc = fn(*args)
     if rc:
         raise RuntimeError(
             f"{name} failed: CUDA error {rc} "
-            f"({lib.dl4j_error_string(rc).decode()})")
+            f"({_lib.dl4j_error_string(rc).decode()})")
+
+
+def on_device(index: int):
+    """`torch.cuda.device(index)` where `index` is not the current device,
+    else a context that does nothing (switching costs two device sets)."""
+    if index == torch.cuda.current_device():
+        return _NO_GUARD
+    return torch.cuda.device(index)
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on card `index`, without
+    building a `torch.cuda.Stream`. `_cuda_getCurrentRawStream` is private
+    to PyTorch (Triton's launcher reads the stream the same way)."""
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -39,6 +39,12 @@ from deeplearning4j_tpu_torch.nn import activations
 _ACT_CODES = {"identity": 0, "relu": 1, "tanh": 2, "sigmoid": 3}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_VECTORS = 8  # 16-byte loads per lane (csrc/norm_act.cu dispatch)
+_ACT_BY_KEY = {}  # activation as callers pass it -> its code
+# LayerNorm per dtype: (code, elements per 16-byte vector, widest F).
+_LN_DTYPES = {dt: (code, 16 // torch.tensor([], dtype=dt).element_size(),
+                   32 * (16 // torch.tensor([], dtype=dt).element_size())
+                   * _MAX_VECTORS)
+              for dt, code in DTYPE_CODES.items()}
 
 
 def _batchnorm_ops(x, mean, var, gamma, beta, eps, activation):
@@ -139,10 +145,20 @@ def _batchnorm_forward(x, mean, var, gamma, beta, eps, activation):
 
 
 def _act_code(activation) -> int:
+    """The kernel's code for `activation`, cached by the value the caller
+    passes (a layer passes the same string at every call)."""
+    try:
+        return _ACT_BY_KEY[activation]
+    except (KeyError, TypeError):  # not seen yet, or unhashable
+        pass
     act = str(activation or "identity").lower()
     if act not in _ACT_CODES:
         raise ValueError(f"activation {activation!r} is not in the kernel's "
                          f"set {sorted(_ACT_CODES)}")
+    try:
+        _ACT_BY_KEY[activation] = _ACT_CODES[act]
+    except TypeError:
+        pass
     return _ACT_CODES[act]
 
 
@@ -189,33 +205,43 @@ class LayerNormFn(torch.autograd.Function):
 
 
 def _layernorm_forward(x, gamma, beta, eps, activation):
-    if kernels.placement(x, gamma, beta) == "cpu":
-        return layernorm_plain(x, gamma, beta, eps, activation)
-    _diff.refuse_grad("layernorm_norm_act", x, gamma, beta)
-    feats = x.shape[-1]
+    """The kernel for CUDA tensors, the plain version for CPU ones. The
+    launch path is kept short, since a decode step makes 9 of these calls
+    on [slots, F]: device, gradient and shape checks in one pass, the
+    device switched only when it is not current, the raw stream handle."""
+    idx = x.get_device()
+    if not (x.is_cuda and gamma.get_device() == idx
+            and beta.get_device() == idx):
+        if kernels.placement(x, gamma, beta) == "cpu":  # else it raised
+            return layernorm_plain(x, gamma, beta, eps, activation)
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        _diff.refuse_grad("layernorm_norm_act", x, gamma, beta)
     act = _act_code(activation)
-    if x.dtype not in DTYPE_CODES:
+    dt = x.dtype
+    if dt not in _LN_DTYPES:
         raise TypeError(f"layernorm_norm_act takes float32 or bfloat16, "
-                        f"not {x.dtype}")
-    if gamma.dtype != x.dtype or beta.dtype != x.dtype:
+                        f"not {dt}")
+    code, vec, widest = _LN_DTYPES[dt]
+    if gamma.dtype != dt or beta.dtype != dt:
         raise TypeError("gamma and beta must have x's dtype")
-    if tuple(gamma.shape) != (feats,) or tuple(beta.shape) != (feats,):
+    feats = x.shape[-1]
+    if gamma.shape != (feats,) or beta.shape != (feats,):
         raise ValueError(f"gamma/beta must be [{feats}]")
-    vec = 16 // x.element_size()
-    if feats % vec or feats > 32 * vec * _MAX_VECTORS:
+    if feats % vec or feats > widest:
         raise ValueError(f"the kernel takes a feature width that is a "
-                         f"multiple of {vec} and at most "
-                         f"{32 * vec * _MAX_VECTORS}; got {feats}")
-    for t in (x, gamma, beta):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("x, gamma and beta must be contiguous and "
-                             "16-byte aligned")
+                         f"multiple of {vec} and at most {widest}; got "
+                         f"{feats}")
+    xp, gp, bp = x.data_ptr(), gamma.data_ptr(), beta.data_ptr()
+    if ((xp | gp | bp) % 16 or not (x.is_contiguous()
+                                    and gamma.is_contiguous()
+                                    and beta.is_contiguous())):
+        raise ValueError("x, gamma and beta must be contiguous and "
+                         "16-byte aligned")
     y = torch.empty_like(x)
-    rows = x.numel() // feats
-    with torch.cuda.device(x.device):
-        _build.launch("dl4j_layernorm_norm_act", x.data_ptr(),
-                      gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), rows,
-                      feats, float(eps), act, DTYPE_CODES[x.dtype],
-                      torch.cuda.current_stream(x.device).cuda_stream)
+    with _build.on_device(idx):
+        _build.launch("dl4j_layernorm_norm_act", xp, gp, bp, y.data_ptr(),
+                      x.numel() // feats, feats, float(eps), act, code,
+                      _build.current_stream(idx))
     kernels.launches["layernorm_norm_act"].add()
     return y

@@ -12,8 +12,10 @@ to its conf, in the engine's update order.
   (`params_tree`, f32 leaf tensors that require grad). Training casts the
   leaves to the compute dtype inside autograd at each step, so gradients
   reach the f32 params as in the reference (f32 params, bf16 compute under
-  `mixed_bfloat16`); the updater then changes the leaves in place, layer by
-  layer, and the step count stays on the host: a step issues no host sync.
+  `mixed_bfloat16`); the updater then changes the leaves in place (on the
+  card one fused-update launch for all the Adam, Nesterovs or RMSProp
+  layers of a step), and the step count stays on the host: a step issues
+  no host sync.
 - Inference reads ONE copy at the compute dtype, built by `init`, dropped
   by every training step and rebuilt at the next inference: an eager cast
   per forward would move the whole model every decode step, where the
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch._device import resolve_device
+from deeplearning4j_tpu_torch.kernels import fused_update
 from deeplearning4j_tpu_torch.nn import params as params_mod
 from deeplearning4j_tpu_torch.nn.conf.dtype_policy import resolve_policy
 from deeplearning4j_tpu_torch.nn.conf.layers import is_bias_param
@@ -63,6 +66,10 @@ class NetworkEngine:
         self._score: Optional[torch.Tensor] = None
         self._rnn_state: Dict[str, Dict] = {}
         self._rnn_pos = 0
+        # The fused update's packed kernel arguments per (kind, hyper)
+        # group, reused while the params and state stay the same tensors
+        # (`fused_update.apply_step`); emptied where they are replaced.
+        self._update_tables: Dict[tuple, object] = {}
 
     @property
     def score_value(self) -> float:
@@ -88,6 +95,7 @@ class NetworkEngine:
         params_mod.check_params(layers, params)
         self.params_tree = params_mod.as_leaves(params, self.device,
                                                 pol.param_dtype)
+        self._update_tables.clear()
         self._compute_params = None
         self._compute_copy()
         # Declared (persistent) layer state, at the param dtype; the carried
@@ -141,6 +149,7 @@ class NetworkEngine:
                 f: {k: t.detach().to(self.device,
                                      self.dtype_policy.param_dtype, copy=True)
                     for k, t in s.items()} for f, s in got.items()}
+        self._update_tables.clear()
         self.iteration = int(updater_state["iteration"])
 
     def _compute_copy(self):
@@ -211,12 +220,17 @@ class NetworkEngine:
 
     def _apply_updates(self, grads) -> None:
         """Per layer (reference `_train_step`): normalize, schedule, update,
-        bias-rate factor, then params -= sign * deltas, in place. The step
-        is `self.iteration`, which a truncated-BPTT sequence advances once,
-        after its last chunk."""
+        bias-rate factor, then params -= sign * deltas, in place. Layers
+        whose updater has a fused body (Adam, Nesterovs, RMSProp) are
+        gathered by (kind, hyper) and updated together by one
+        `fused_update.apply_step` each (on the card one kernel launch over
+        all their tensors, which writes the params too); the others take
+        their updater's deltas here. The step is `self.iteration`, which a
+        truncated-BPTT sequence advances once, after its last chunk."""
         g = self._global
         sign = 1.0 if g.minimize else -1.0
         step = self.iteration
+        groups: Dict[tuple, list] = {}
         for name, layer in self._layer_confs.items():
             lgrads = grads.get(name)
             if not lgrads:
@@ -225,22 +239,34 @@ class NetworkEngine:
                 lgrads, layer.gradient_normalization,
                 float(layer.gradient_normalization_threshold or 1.0))
             lr = self._schedules[name](step)
-            st, deltas = self._updaters[name].update(self.opt_state[name],
-                                                     lgrads, lr, step)
             base_lr = float(layer.learning_rate
                             if layer.learning_rate is not None
                             else g.learning_rate)
             bias_lr = float(layer.bias_learning_rate
                             if layer.bias_learning_rate is not None
                             else base_lr)
+            factors = None
             if bias_lr != base_lr and base_lr != 0.0:
                 factor = bias_lr / base_lr
-                deltas = {k: (d * factor if is_bias_param(k) else d)
-                          for k, d in deltas.items()}
-            for k, p in self.params_tree[name].items():
-                if k in deltas:
-                    p.sub_(deltas[k]) if sign > 0 else p.add_(deltas[k])
+                factors = {k: factor for k in lgrads if is_bias_param(k)}
+            updater = self._updaters[name]
+            if updater.fused is not None:
+                groups.setdefault(updater.fused, []).append(
+                    (name, fused_update.UpdateItem(
+                        self.params_tree[name], self.opt_state[name], lgrads,
+                        lr, factors)))
+                continue
+            st, deltas = updater.update(self.opt_state[name], lgrads, lr,
+                                        step)
+            fused_update.apply_deltas(self.params_tree[name], deltas,
+                                      factors, sign)
             self.opt_state[name] = st
+        for (kind, hyper), members in groups.items():
+            states = fused_update.apply_step(
+                kind, hyper, [item for _, item in members], step, sign,
+                self._update_tables)
+            for (name, _), st in zip(members, states):
+                self.opt_state[name] = st
 
     def _declared_state(self):
         return {name: tuple(layer.state_shapes())

@@ -8,13 +8,15 @@ host float and `step` the host iteration count, so a step needs no sync.
 
 Adam, Nesterovs and RMSProp go through the fused-update seam
 (`kernels/fused_update.py`: the CUDA kernel on the card, which updates the
-state in place; the reference's XLA bodies on the CPU). The other five are
-the reference's per-leaf expressions in torch ops.
+state in place; the reference's XLA bodies on the CPU), and name their
+`(kind, hyper)` in `fused`, by which the training engine updates all their
+layers at once (`fused_update.apply_step`). The other five are the
+reference's per-leaf expressions in torch ops.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +31,9 @@ class GradientUpdater(NamedTuple):
     name: str
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, Any], tuple]
+    # (kind, hyper) of the updaters with a fused-update body: the engine
+    # updates all the layers of one such pair with one `apply_step`.
+    fused: Optional[Tuple[str, tuple]] = None
 
 
 def _zeros_like(params):
@@ -57,7 +62,7 @@ def _fused_updater(kind, fields, hyper) -> GradientUpdater:
     def update(state, grads, lr, step):
         return _fused.dispatch(kind, state, grads, lr, step, hyper)
 
-    return GradientUpdater(kind, init, update)
+    return GradientUpdater(kind, init, update, (kind, tuple(hyper)))
 
 
 def nesterovs(momentum: float = 0.9) -> GradientUpdater:

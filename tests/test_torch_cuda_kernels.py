@@ -239,7 +239,7 @@ def test_fused_update_kernel_matches_plain(cuda, kind, step):
 
     rng = np.random.RandomState(7)
     shapes = {"W": (512, 2048), "b": (2048,), "g": (3, 1025), "z": (1,)}
-    for i in range(14):  # 18 tensors: more than one launch's 16
+    for i in range(14):  # 18 tensors: one launch (the table holds 256)
         shapes[f"x{i}"] = (97 + i,)
     fields = fused_update.FIELDS[kind]
     hyper = {"adam": (0.9, 0.999, 1e-8), "nesterovs": (0.9,),
@@ -260,7 +260,7 @@ def test_fused_update_kernel_matches_plain(cuda, kind, step):
     before = kernels.launches["fused_update"].value
     got_state, got_d = fused_update.dispatch(kind, state, grads, 3e-3, step,
                                              hyper)
-    assert kernels.launches["fused_update"].value == before + 2
+    assert kernels.launches["fused_update"].value == before + 1
     for f in fields:
         for k in shapes:
             assert got_state[f][k] is state[f][k]  # updated in place
@@ -268,6 +268,304 @@ def test_fused_update_kernel_matches_plain(cuda, kind, step):
                                        rtol=1e-5, atol=1e-6)
     for k in shapes:
         torch.testing.assert_close(got_d[k], want_d[k], rtol=1e-5, atol=1e-6)
+
+
+UPDATE_HYPER = {"adam": (0.9, 0.999, 1e-8), "nesterovs": (0.9,),
+                "rmsprop": (0.95, 1e-8)}
+
+
+def _update_layers(rng, kind, dev, sizes, misaligned=()):
+    """Two layers of f32 params, state and grads of the given sizes, each
+    name in `misaligned` a view 4 bytes into a larger tensor (contiguous,
+    not 16-byte aligned)."""
+    from deeplearning4j_tpu_torch.kernels import fused_update
+
+    def t(name, n, scale, positive=False):
+        a = rng.randn(n + 1) * scale
+        a = torch.tensor(np.abs(a) if positive else a, dtype=torch.float32,
+                         device=dev)
+        return a[1:] if name in misaligned else a[:n].clone()
+
+    out = []
+    for _ in range(2):
+        params = {k: t(k, n, 1.0) for k, n in sizes.items()}
+        grads = {k: t(k, n, 1.0) for k, n in sizes.items()}
+        state = {f: {k: t(k, n, 0.1 if f == "m" or kind == "nesterovs"
+                          else 0.01, positive=f in ("v", "g2")
+                          and kind != "nesterovs")
+                     for k, n in sizes.items()}
+                 for f in fused_update.FIELDS[kind]}
+        out.append((params, state, grads))
+    return out
+
+
+def _clone_tree(tree, device=None):
+    """A copy of nested dicts / tuples / lists of tensors (on `device`)."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone_tree(v, device) for v in tree)
+    return tree.to(device or tree.device, copy=True)
+
+
+def _dispatch_factor_sub(kind, layers, lrs, factors, step, sign):
+    """The per-layer card path `apply_step` replaces: `dispatch` (the
+    kernel's deltas mode), `d * factor`, then `sub_` / `add_`."""
+    from deeplearning4j_tpu_torch.kernels import fused_update
+
+    for (params, state, grads), lr, fac in zip(layers, lrs, factors):
+        _, deltas = fused_update.dispatch(kind, state, grads, lr, step,
+                                          UPDATE_HYPER[kind])
+        for k, p in params.items():
+            d = deltas[k] * fac[k] if fac and k in fac else deltas[k]
+            p.sub_(d) if sign > 0 else p.add_(d)
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("kind", ["adam", "nesterovs", "rmsprop"])
+def test_apply_step_is_bit_identical_to_dispatch_factor_sub(cuda, kind,
+                                                            sign):
+    # Tensors of 1, 3, 1025 and 512 x 2048 elements (the vector path, its
+    # scalar tail, a tail alone) and a misaligned view (the scalar path),
+    # two layers at different lr, one with bias-rate factors; 3 steps, one
+    # launch each; equal bit for bit to the per-layer path.
+    from deeplearning4j_tpu_torch.kernels import fused_update
+
+    sizes = {"one": 1, "b": 3, "g": 1025, "W": 512 * 2048, "view": 1031}
+    layers = _update_layers(np.random.RandomState(11), kind, cuda, sizes,
+                            misaligned=("view",))
+    assert layers[0][0]["view"].data_ptr() % 16
+    ref = _clone_tree(layers)
+    lrs = (3e-3, 7e-4)
+    factors = (None, {"b": 2.5, "view": 0.5, "one": 3.0})
+    for step in range(3):
+        before = kernels.launches["fused_update"].value
+        fused_update.apply_step(kind, UPDATE_HYPER[kind], [
+            fused_update.UpdateItem(p, s, g, lr, fac)
+            for (p, s, g), lr, fac in zip(layers, lrs, factors)], step, sign)
+        assert kernels.launches["fused_update"].value == before + 1
+        _dispatch_factor_sub(kind, ref, lrs, factors, step, sign)
+        torch.cuda.synchronize()
+        for (p, s, _), (rp, rs, _) in zip(layers, ref):
+            for k in sizes:
+                assert torch.equal(p[k], rp[k]), (step, k)
+                for f in s:
+                    assert torch.equal(s[f][k], rs[f][k]), (step, f, k)
+
+
+def test_apply_step_reuses_its_table_until_a_param_moves(cuda):
+    # With a `tables` dict (as the engine keeps one), a step after the first
+    # reuses the packed table and renews only grads, lrs and factors; a
+    # param given new storage, or a new state tensor, makes it pack anew.
+    # Every step equals the per-layer path bit for bit.
+    from deeplearning4j_tpu_torch.kernels import fused_update
+
+    sizes = {"b": 3, "g": 1025, "W": 512 * 2048, "view": 1031}
+    layers = _update_layers(np.random.RandomState(16), "adam", cuda, sizes,
+                            misaligned=("view",))
+    ref = _clone_tree(layers)
+    lrs, factors = [3e-3, 7e-4], (None, {"b": 2.5})
+    rng = np.random.RandomState(17)
+    tables, seen = {}, []
+    for step in range(5):
+        if step == 3:  # new storage for a param, on both sides
+            for p, _, _ in (layers[1], ref[1]):
+                p["W"].set_(p["W"].clone())
+        if step == 4:  # a new tensor for a state field
+            layers[0][1]["v"]["g"] = layers[0][1]["v"]["g"].clone()
+        grads = [{k: torch.tensor(rng.randn(n), dtype=torch.float32,
+                                  device=cuda) for k, n in sizes.items()}
+                 for _ in layers]
+        lrs[1] *= 0.5
+        before = kernels.launches["fused_update"].value
+        fused_update.apply_step("adam", UPDATE_HYPER["adam"], [
+            fused_update.UpdateItem(p, s, g, lr, fac)
+            for (p, s, _), g, lr, fac in zip(layers, grads, lrs, factors)],
+            step, 1.0, tables)
+        assert kernels.launches["fused_update"].value == before + 1
+        seen.append(tables[("adam", UPDATE_HYPER["adam"])])
+        _dispatch_factor_sub("adam", [(p, s, g) for (p, s, _), g in
+                                      zip(ref, grads)], lrs, factors, step,
+                             1.0)
+        torch.cuda.synchronize()
+        for (p, s, _), (rp, rs, _) in zip(layers, ref):
+            for k in sizes:
+                assert torch.equal(p[k], rp[k]), (step, k)
+                for f in s:
+                    assert torch.equal(s[f][k], rs[f][k]), (step, f, k)
+    assert seen[1] is seen[0] and seen[2] is seen[0]
+    assert seen[3] is not seen[2] and seen[4] is not seen[3]
+    # A grad the kernel cannot take is refused on a reused table too.
+    bad = dict(grads[0], g=grads[0]["g"].to(torch.bfloat16))
+    before = kernels.launches["fused_update"].value
+    with pytest.raises(TypeError, match="float32"):
+        fused_update.apply_step("adam", UPDATE_HYPER["adam"], [
+            fused_update.UpdateItem(*layers[0][:2], bad, 1e-3),
+            fused_update.UpdateItem(*layers[1][:2], grads[1], 1e-3)],
+            5, 1.0, tables)
+    assert kernels.launches["fused_update"].value == before
+
+
+def test_apply_step_launches_again_past_the_table_and_matches_plain(cuda):
+    # 300 tensors: the table holds 256, so two launches; the result equals
+    # the per-layer card path bit for bit and the plain version (rtol 1e-5).
+    from deeplearning4j_tpu_torch.kernels import _build, fused_update
+
+    assert (_build.load().dl4j_fused_update_capacity()
+            == fused_update._MAX_TENSORS == 256)
+    sizes = {f"t{i}": 1 + (i * 37) % 301 for i in range(150)}
+    layers = _update_layers(np.random.RandomState(12), "adam", cuda, sizes)
+    ref, cpu = _clone_tree(layers), _clone_tree(layers, "cpu")
+    kernels.reset_counts()
+    items = [fused_update.UpdateItem(p, s, g, 1e-3) for p, s, g in layers]
+    fused_update.apply_step("adam", UPDATE_HYPER["adam"], items, 2, 1.0)
+    assert kernels.counts()["launches"]["fused_update"] == 2
+    _dispatch_factor_sub("adam", ref, (1e-3, 1e-3), (None, None), 2, 1.0)
+    cpu_states = fused_update.apply_step("adam", UPDATE_HYPER["adam"], [
+        fused_update.UpdateItem(p, s, g, 1e-3) for p, s, g in cpu], 2, 1.0)
+    torch.cuda.synchronize()
+    for (p, s, _), (rp, _, _), (cp, _, _), cs in zip(layers, ref, cpu,
+                                                      cpu_states):
+        for k in sizes:
+            assert torch.equal(p[k], rp[k]), k
+            torch.testing.assert_close(p[k].cpu(), cp[k], rtol=1e-5,
+                                       atol=1e-6)
+            for f in s:
+                torch.testing.assert_close(s[f][k].cpu(), cs[f][k],
+                                           rtol=1e-5, atol=1e-6)
+
+
+def test_apply_step_bumps_the_version_counter(cuda):
+    # The kernel writes through raw pointers; a graph that saved a param
+    # before the update must fail at backward as it would after `sub_`.
+    from deeplearning4j_tpu_torch.kernels import fused_update
+
+    (params, state, grads), _ = _update_layers(
+        np.random.RandomState(13), "adam", cuda, {"W": 1024, "b": 8})
+    w = params["W"].requires_grad_(True)
+    loss = (w * w).sum()  # saves w
+    versions = {k: t._version for k, t in
+                [("W", w), ("m", state["m"]["W"]), ("v", state["v"]["W"])]}
+    with torch.no_grad():
+        fused_update.apply_step("adam", UPDATE_HYPER["adam"], [
+            fused_update.UpdateItem(params, state, grads, 1e-3)], 0, 1.0)
+    assert w._version > versions["W"]
+    assert state["m"]["W"]._version > versions["m"]
+    assert state["v"]["W"]._version > versions["v"]
+    with pytest.raises(RuntimeError, match="modified by an inplace"):
+        loss.backward()
+
+
+def test_apply_step_refuses_what_the_kernel_does_not_take(cuda):
+    from deeplearning4j_tpu_torch.kernels import fused_update
+
+    (params, state, grads), _ = _update_layers(
+        np.random.RandomState(14), "rmsprop", cuda, {"W": 64, "b": 64})
+
+    def step(**swap):
+        g = dict(grads, **swap)
+        fused_update.apply_step("rmsprop", UPDATE_HYPER["rmsprop"], [
+            fused_update.UpdateItem(params, state, g, 1e-3)], 0, 1.0)
+
+    kernels.reset_counts()
+    with pytest.raises(TypeError, match="float32"):
+        step(W=grads["W"].to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        step(W=torch.zeros(128, device=cuda)[::2])
+    with pytest.raises(ValueError, match="lies on"):
+        step(b=torch.zeros(64))  # the second grad on the CPU
+    # A layer wholly on the CPU ahead of one on the card: the first grad
+    # picks the CPU path, which must refuse the card layer, not run the
+    # plain version on it.
+    (cp, cs, cg), _ = _update_layers(np.random.RandomState(14), "rmsprop",
+                                     "cpu", {"W": 64, "b": 64})
+    with pytest.raises(ValueError, match="devices"):
+        fused_update.apply_step("rmsprop", UPDATE_HYPER["rmsprop"], [
+            fused_update.UpdateItem(cp, cs, cg, 1e-3),
+            fused_update.UpdateItem(params, state, grads, 1e-3)], 0, 1.0)
+    c = kernels.counts()
+    assert c["launches"]["fused_update"] == 0
+    assert c["plain_calls"]["fused_update"] == 0
+
+
+def test_engine_update_on_the_card_equals_the_per_layer_path(cuda):
+    # A small LM whose layers mix Adam, Nesterovs, RMSProp and sgd, rates,
+    # bias rates and a schedule, maximizing: one launch per fused group a
+    # step, params and state equal bit for bit to the per-layer card path
+    # (`dispatch`, factor, `sub_`/`add_`) from the same grads.
+    from deeplearning4j_tpu_torch.kernels import fused_update
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.conf.layers import is_bias_param
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    conf = zoo.transformer_lm(64, t=32, d_model=32, n_heads=4, n_blocks=1)
+    for name, upd, lr, bias_lr in (("attn0", None, None, 0.009),
+                                   ("ff1_0", "nesterovs", 0.02, 0.01),
+                                   ("ffn0", "nesterovs", 0.02, 0.02),
+                                   ("ln_f0", "sgd", 0.05, 0.05),
+                                   ("out", "rmsprop", 0.004, 0.002)):
+        layer = conf.vertices[name].layer
+        layer.updater = upd or layer.updater
+        layer.learning_rate = lr or layer.learning_rate
+        layer.bias_learning_rate = bias_lr
+    conf.global_conf.minimize = False
+    conf.global_conf.lr_policy = "exponential"
+    conf.global_conf.lr_policy_decay_rate = 0.9
+    nets = [ComputationGraph(conf, device=cuda).init() for _ in range(2)]
+    rng = np.random.RandomState(15)
+    for step in range(3):
+        grads = {v: {k: torch.tensor(rng.randn(*p.shape), dtype=p.dtype,
+                                     device=cuda) for k, p in ps.items()}
+                 for v, ps in nets[0].params_tree.items()}
+        kernels.reset_counts()
+        nets[0]._train_update(grads)
+        assert kernels.counts()["launches"]["fused_update"] == 3
+        ref = nets[1]
+        with torch.no_grad():
+            for name, layer in ref._layer_confs.items():
+                lr = ref._schedules[name](ref.iteration)
+                st, d = ref._updaters[name].update(
+                    ref.opt_state[name], grads[name], lr, ref.iteration)
+                base = float(layer.learning_rate)
+                fac = (None if layer.bias_learning_rate == base else
+                       {k: layer.bias_learning_rate / base
+                        for k in d if is_bias_param(k)})
+                fused_update.apply_deltas(ref.params_tree[name], d, fac,
+                                          -1.0)
+                ref.opt_state[name] = st
+        for net in nets:
+            net.iteration += 1
+    torch.cuda.synchronize()
+    for v, ps in nets[1].params_tree.items():
+        for k, p in ps.items():
+            assert torch.equal(nets[0].params_tree[v][k], p), (v, k)
+        for f, s in nets[1].opt_state[v].items():
+            for k, a in s.items():
+                assert torch.equal(nets[0].opt_state[v][f][k], a), (v, f, k)
+
+
+def test_launch_counts_from_two_threads_add_up(cuda):
+    # Two threads launch LayerNorm at once (as the decode thread does
+    # beside a caller): every launch is counted.
+    import threading
+
+    x = torch.randn(4, 512, device=cuda, dtype=torch.bfloat16)
+    g = torch.ones(512, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(512, device=cuda, dtype=torch.bfloat16)
+    kernels.reset_counts()
+
+    def work():
+        for _ in range(300):
+            norm_act.layernorm_norm_act(x, g, b, 1e-5, "identity")
+
+    threads = [threading.Thread(target=work) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert kernels.counts()["launches"]["layernorm_norm_act"] == 600
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -559,7 +857,8 @@ def test_char_rnn_fit_on_the_card_matches_the_cpu(cuda):
             cpu.score_value)
     c = kernels.counts()
     assert c["launches"]["lstm_cell"] == 2 * 2 * 12
-    assert c["launches"]["fused_update"] == 2 * 3 * 3
+    # One update launch per chunk (5, 5 and 2 steps) for all three layers.
+    assert c["launches"]["fused_update"] == 2 * 3
     np.testing.assert_allclose(card.output(ds.features),
                                cpu.output(ds.features), atol=1e-3)
 
