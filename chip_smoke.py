@@ -66,7 +66,12 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               plain versions on the card (rtol = atol = 6e-2 in bf16, a
               bf16 block against its plain version run in f32 on the same
               inputs; 1e-4 in f32 with TF32 off; the batch statistics too),
-              timed as the kernels phase times its kernels.
+              timed as the kernels phase times its kernels. Each block row
+              names the form its call took (`variant`: every bf16 block but
+              the int8 one on the tensor cores, or the row fails), its
+              convolutions' TFLOP/s over its device time, and the device
+              time of cuDNN's bf16 channels_last convolutions of the same
+              block alone (a reference point, not the library column).
 8. resnet_train - ResNet-50 (`models/resnet.py`, 1000 classes, bf16
               compute over f32 params, Nesterovs 0.9 at lr 0.1, l2 1e-4,
               seeded random weights) trained with `ComputationGraph.fit` on
@@ -77,11 +82,12 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               warm-up and 10 timed steps each. Scores finite and falling
               (the last 3 average under the first); per step exactly 53
               BatchNorm and 1 update launch (T1, 161 tensors), or 16
-              bottleneck, 1 BatchNorm and 1 update launch (T2); 0 plain
-              calls.
+              bottleneck (all 16 on the tensor-core form), 1 BatchNorm and
+              1 update launch (T2); 0 plain calls.
 9. resnet_infer - `ComputationGraph.output` at B=32 on 224x224 images: I1,
               the fused graph (T2's trained weights and running statistics)
-              through 16 inference blocks and 1 BatchNorm per call; I2, T1's
+              through 16 inference blocks (all on the tensor-core form) and
+              1 BatchNorm per call; I2, T1's
               trained graph through 53 BatchNorms per call; 0 plain calls.
 10. resnet_parity - f32, B=16, 64x64, the same seeded params on the card
               and on the CPU (plain versions), for both graphs: one `output`
@@ -262,6 +268,9 @@ RN_LAUNCHES = {
     "i2": {"batchnorm_norm_act": 53}}
 # The stages of ResNet-50: (filters, blocks, first stride).
 RN_STAGES = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
+# The fused paths' block rows, every launch of which takes the tensor-core
+# form (bf16, widths that are multiples of 64).
+RN_BLOCK_FORMS = {"t2": ("bottleneck_train",), "i1": ("bottleneck_infer",)}
 
 # The char-RNN (`bench.py:798-840` char_rnn_fused_lstm): 2 GravesLSTM layers
 # of 256 over 77 characters, f32, RMSProp; B=32 sequences of 100 in tBPTT
@@ -1504,11 +1513,18 @@ def rn_block_shapes(image):
 
 
 def rn_block_case(torch, dev, dtype_name, b, shape, train, seed, int8=False):
-    """(label, kernel fn, plain fn, plain-in-f32 fn, bytes, ops) for one
-    bottleneck block. The plain-in-f32 fn runs the plain version on the
-    same inputs widened to f32 (bf16 values are exact in f32): the
-    precision of the TPU body, which keeps its intermediates in f32, and
-    of the kernel."""
+    """(label, kernel fn, plain fn, plain-in-f32 fn, bytes, ops, extra)
+    for one bottleneck block. The plain-in-f32 fn runs the plain version on
+    the same inputs widened to f32 (bf16 values are exact in f32): the
+    precision of the TPU body, which keeps its intermediates in f32, and of
+    the kernel. `extra`: the convolutions' operations (`conv_ops`), the
+    bytes this design moves at least (`design_bytes`: the bound's bytes
+    plus each f32 intermediate, a, h, c and the projection, written once
+    and read once) and `cudnn`, a fn (bf16, not int8) that runs the block's
+    convolutions alone, channels_last, each on the one before's output: a
+    reference point for the kernel's convolutions, not a library call for
+    the block's function."""
+    import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import bottleneck_block as bb
 
     h, cin, f1, stride, project = shape
@@ -1582,7 +1598,21 @@ def rn_block_case(torch, dev, dtype_name, b, shape, train, seed, int8=False):
     label = (f"B={b} H={h} Cin={cin} F1={f1} s={stride} "
              f"{'proj' if project else 'identity'}"
              + (" int8" if int8 else ""))
-    return label, kern, plain, plain_f32, nbytes, ops
+    cudnn = None
+    if dtype_name == "bfloat16" and not int8:
+        xc = x.permute(0, 3, 1, 2)  # NHWC storage: channels_last already
+        wc = {n: params[f"W_{n}"].permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last) for n in names}
+
+        def cudnn():
+            a = F.conv2d(xc, wc["a"], stride=stride)
+            c = F.conv2d(F.conv2d(a, wc["b"], padding=1), wc["c"])
+            return [c] + ([F.conv2d(xc, wc["proj"], stride=stride)]
+                          if project else [])
+    inter = m * (2 * f1 + f3 + (f3 if project else 0)) * 4
+    return label, kern, plain, plain_f32, nbytes, ops, dict(
+        conv_ops=2 * m * w_elems, design_bytes=nbytes + 2 * inter,
+        cudnn=cudnn)
 
 
 def rn_bn_cases(torch, dev, dtype_name, b):
@@ -1636,11 +1666,18 @@ def phase_resnet_kernels(card, torch, dev, t1_batch):
     the same inputs (`plain_f32`): the kernel, like the TPU body, keeps
     every intermediate in f32 and rounds y once, where the plain version at
     bf16 rounds each conv output and each statistic to bf16; the distance
-    to that one is printed beside (`max_abs_err_vs_plain_at_dtype`)."""
+    to that one is printed beside (`max_abs_err_vs_plain_at_dtype`). Each
+    block row names the form its call took (`variant`: every bf16 block
+    but the int8 one on the tensor cores, or the row fails), its
+    convolutions' rate over its device time (`conv_tflop_s`) and, as a
+    reference point, the device time of cuDNN's bf16 channels_last
+    convolutions of the same block alone."""
+    from deeplearning4j_tpu_torch import kernels
+
     rows = []
     for dtype in ("bfloat16", "float32"):
-        cases = [c + (None,) for c in rn_bn_cases(torch, dev, dtype,
-                                                   t1_batch)]
+        cases = [c + (None, None) for c in rn_bn_cases(torch, dev, dtype,
+                                                        t1_batch)]
         blocks = [("bottleneck_train", RN_PATHS["t2"][2], shape, True, 40 + i,
                    False) for i, shape in enumerate(rn_block_shapes(64))]
         blocks += [("bottleneck_infer", INFER_B, shape, False, 50 + i, False)
@@ -1649,12 +1686,17 @@ def phase_resnet_kernels(card, torch, dev, t1_batch):
             blocks.append(("bottleneck_infer", INFER_B,
                            rn_block_shapes(224)[2], False, 60, True))
         for name, b, shape, train, seed, int8 in blocks:
-            label, kern, plain, plain_f32, nb, ops = rn_block_case(
+            label, kern, plain, plain_f32, nb, ops, extra = rn_block_case(
                 torch, dev, dtype, b, shape, train, seed, int8=int8)
+            extra["form"] = ("wgmma" if dtype == "bfloat16" and not int8
+                             else "cuda_cores")
             cases.append((name, label, kern, plain, None, nb, ops,
-                          plain_f32 if dtype == "bfloat16" else None))
-        for name, shape, kern, plain, lib, nbytes, ops, plain_f32 in cases:
+                          plain_f32 if dtype == "bfloat16" else None, extra))
+        for (name, shape, kern, plain, lib, nbytes, ops, plain_f32,
+             extra) in cases:
+            kernels.reset_counts()
             got = kern()
+            forms = kernels.counts()["variants"].get(name)
             want = plain()
             torch.cuda.synchronize()
             err_dtype, ok = compare(got, want, dtype, RN_TOL)
@@ -1688,6 +1730,30 @@ def phase_resnet_kernels(card, torch, dev, t1_batch):
                     {"bottleneck_train": 9 if "proj" in shape else 7,
                      "bottleneck_infer": 5 if "proj" in shape else 4}
                     .get(name, 1))})
+            if extra is not None:
+                expected, cudnn = extra["form"], extra["cudnn"]
+                variant = next((k for k, n in forms.items() if n), None)
+                dev_ms = rows[-1]["device_ms"]
+                rows[-1].update(
+                    variant=variant, expected_variant=expected,
+                    conv_tflop_s=(extra["conv_ops"] / dev_ms / 1e9 if dev_ms
+                                  else "not measured"),
+                    design_bytes=extra["design_bytes"],
+                    design_byte_floor_ms=(extra["design_bytes"]
+                                          / PEAK_BYTES_S * 1e3),
+                    cudnn_convs_alone_device_ms=(
+                        device_ms(torch, cudnn, 5) if cudnn else None),
+                    cudnn_convs_alone_note=(
+                        "cuDNN bf16 channels_last convolutions of the same "
+                        "block, the convolutions alone (no BatchNorm, "
+                        "statistics or tail): a reference point, not this "
+                        "row's library column"))
+                if forms != {k: int(k == expected)
+                             for k in ("wgmma", "cuda_cores")}:
+                    rows[-1]["ok"] = False
+                    rows[-1]["form_error"] = (f"block launches by form "
+                                              f"{forms}, expected one "
+                                              f"{expected}")
             emit(card, phase="resnet_kernels", **rows[-1])
         del cases
         torch.cuda.empty_cache()
@@ -1759,6 +1825,8 @@ def phase_resnet_train(card, torch, kernels, dev, path):
     counts = kernels.counts()
     steps = RN_WARMUP + RN_TIMED
     errors, want = _launch_errors(counts, RN_LAUNCHES[path], steps)
+    errors += _variant_errors(counts, {
+        n: want[n] for n in RN_BLOCK_FORMS.get(path, ())})
     if not all(np.isfinite(scores)):
         errors.append(f"non-finite score: {scores}")
     last3 = float(np.mean(scores[-3:]))
@@ -1776,7 +1844,9 @@ def phase_resnet_train(card, torch, kernels, dev, path):
          samples_per_s=batch / ms * 1e3,
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          launches=counts["launches"], expected_launches=want,
-         plain_calls=counts["plain_calls"])
+         plain_calls=counts["plain_calls"],
+         block_forms={n: counts["variants"][n] for n in RN_BLOCK_FORMS.get(
+             path, ())})
     return not errors, counts["launches"], net, batches, batch
 
 
@@ -1792,6 +1862,8 @@ def phase_resnet_infer(card, torch, kernels, path, net, x):
     counts = kernels.counts()
     calls = RN_WARMUP + RN_TIMED
     errors, want = _launch_errors(counts, RN_LAUNCHES[path], calls)
+    errors += _variant_errors(counts, {
+        n: want[n] for n in RN_BLOCK_FORMS.get(path, ())})
     out = outs[-1]
     if out.shape != (INFER_B, RN_CLASSES) or not np.isfinite(out).all():
         errors.append(f"output {out.shape}, finite {np.isfinite(out).all()}")
@@ -1806,7 +1878,9 @@ def phase_resnet_infer(card, torch, kernels, path, net, x):
          calls=calls, ms_per_call=ms, ms_per_call_median=statistics.median(
              timed), ms_per_call_all=wall, images_per_s=INFER_B / ms * 1e3,
          launches=counts["launches"], expected_launches=want,
-         plain_calls=counts["plain_calls"])
+         plain_calls=counts["plain_calls"],
+         block_forms={n: counts["variants"][n] for n in RN_BLOCK_FORMS.get(
+             path, ())})
     return not errors, counts["launches"]
 
 
@@ -2120,8 +2194,9 @@ def phase_long_kernels(card, torch, dev):
 
 
 def _variant_errors(counts, launches):
-    """Errors unless every launch of each flash row in `launches` ({name:
-    n}; bf16, D = 64) took the tensor-core form."""
+    """Errors unless every launch of each kernel in `launches` ({name: n};
+    a flash row in bf16 at D = 64, a bottleneck row of a fused path) took
+    the tensor-core form."""
     errors = []
     for name, n in launches.items():
         want = {"wgmma": n, "cuda_cores": 0}
@@ -2472,6 +2547,10 @@ def main() -> int:
             entries[-1]["variant"] = r["variant"]
         if name in RESIDENT_ROWS:
             entries[-1]["tensor_core_source"] = TENSOR_CORE_SOURCE
+        if name.startswith("bottleneck"):
+            entries[-1].update({k: r[k] for k in (
+                "variant", "conv_tflop_s", "design_byte_floor_ms",
+                "cudnn_convs_alone_device_ms")})
         if name == "flash_attention_stream":
             # Device times from the traced window (unit kernel and merge
             # per launch in an L1 fit step; causal SDPA per call).

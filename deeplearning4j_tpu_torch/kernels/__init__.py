@@ -22,7 +22,10 @@ tensor launches the kernel, or the wrapper raises. No fallback, no switch.
   same kernel in its deltas mode)
 - `bottleneck_block.bottleneck_forward`     (csrc/bottleneck_block.cu:
   `bottleneck_train`, batch statistics, and `bottleneck_infer`, running
-  statistics; each counts one per wrapper call, of several CUDA launches)
+  statistics; each counts one per wrapper call, of several CUDA launches;
+  bf16 at widths that are multiples of 64 on the tensor cores, all else on
+  the CUDA cores, by `bottleneck_variant`, each form counted in
+  `variant_launches`)
 - `lstm_cell.lstm_cell`                     (csrc/lstm_cell.cu: one LSTM
   time step of one layer)
 - `flash_attention.flash_attention_stream`  (csrc/flash_attention_stream.cu:
@@ -88,14 +91,16 @@ class Count:
 launches: Dict[str, Count] = {name: Count() for name in KERNELS}
 plain_calls: Dict[str, Count] = {name: Count() for name in KERNELS}
 # Launches of a kernel that has more than one form on the card, by form
-# (`flash_attention.flash_variant`): the flash rows 3-7. Each also counts
-# once in `launches`.
+# (`flash_attention.flash_variant`, `bottleneck_block.bottleneck_variant`):
+# the flash rows 3-7 and the bottleneck rows 11-12. Each also counts once
+# in `launches`.
 variant_launches: Dict[str, Dict[str, Count]] = {
     name: {"wgmma": Count(), "cuda_cores": Count()}
     for name in ("flash_attention", "flash_attention_fwd_lse",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                  "flash_attention_stream", "flash_attention_bwd_dq_stream",
-                 "flash_attention_bwd_dkv_stream")}
+                 "flash_attention_bwd_dkv_stream", "bottleneck_train",
+                 "bottleneck_infer")}
 
 
 def reset_counts() -> None:

@@ -56,9 +56,10 @@ _SIGNATURES = {
     "dl4j_fused_update_capacity": [],
     "dl4j_batchnorm_norm_act": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
                                 _P],
+    # ... | out, psum, psq, variant (0 CUDA cores, 1 tensor cores), stream.
     "dl4j_bottleneck_conv": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P, _P, _P, _P, _I, _F, _P, _I, _P, _I, _P, _P,
-                             _P, _P],
+                             _P, _I, _P],
     "dl4j_bottleneck_stats": [_P, _P, _I, _I, _I, _P, _P, _P],
     "dl4j_bottleneck_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _I, _F, _I, _P, _P],

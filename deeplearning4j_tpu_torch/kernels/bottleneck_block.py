@@ -8,16 +8,30 @@ projected (conv1x1 stride + BN) shortcut, then act.
 which replace `_train_body` (:229, batch statistics emitted as f32 side
 outputs) and `_infer_body` (:261, running statistics, optional int8
 weights); the source note there says what bounds them and how. Each call
-counts one in `launches["bottleneck_train"]` or `["bottleneck_infer"]`; one
-call is 9 CUDA launches (train, projecting), 7 (train, identity), 5 or 4
-(inference). For CPU tensors it calls `bottleneck_train_plain` or
+counts one in `launches["bottleneck_train"]` or `["bottleneck_infer"]`,
+and one in `variant_launches[...]` under the form its convolutions took;
+one call is 9 CUDA launches (train, projecting), 7 (train, identity), 5 or
+4 (inference), in either form.
+
+The form is a rule on dtypes and widths (`bottleneck_variant`), not a
+fallback: bf16 x and bf16 weights with Cin, F1 and F3 multiples of 64 (every
+ResNet-50 block) multiply on the tensor cores (wgmma, W by TMA, the
+BatchNorm prologue in registers), bound by the bf16 rate and the f32
+intermediates' bytes; f32, int8 weights and other widths keep the f32
+CUDA-core GEMM, bound by the 67 TFLOP/s f32 rate. A launch of either form
+that fails raises, and an operand that is not contiguous and 16-byte
+aligned is refused before any launch.
+
+For CPU tensors it calls `bottleneck_train_plain` or
 `bottleneck_infer_plain`, `xla_train` and `xla_infer` (:128-176) op for op:
 `F.conv2d` for the convolutions, the single-pass batch statistics, and
 BatchNorm through `norm_act`'s plain ops.
 
 The plain versions compute at x's dtype as XLA does (a bf16 conv output is
 rounded to bf16 before its statistics); the kernels keep the intermediates
-in f32 as the TPU body does, so the two agree to bf16 rounding in bf16.
+in f32 as the TPU body does (the tensor-core form rounds each conv's
+normalized input to bf16, as the MXU does at default precision), so the
+two agree to bf16 rounding in bf16.
 
 With autograd recording, training runs through `BottleneckFn`: the forward
 is the kernel sequence (the plain version on the CPU), the backward the VJP
@@ -144,6 +158,16 @@ def _f32(v):
     return v.detach().to(torch.float32).contiguous()
 
 
+def _f32_all(vs):
+    """`_f32` of each of `vs` (1-D), in one cast where any is not f32: a
+    bf16 block's 6 or 8 gamma and beta vectors cost one concatenation and
+    one conversion instead of a conversion each."""
+    if all(v.dtype == torch.float32 and v.is_contiguous() for v in vs):
+        return [v.detach() for v in vs]
+    flat = torch.cat([v.detach().reshape(-1) for v in vs]).to(torch.float32)
+    return list(flat.split([v.numel() for v in vs]))
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -156,11 +180,11 @@ def _aligned(*ts):
 
 
 def _launch_conv(stream, inp, w, wscale, ks, stride, pad, pro, eps, act,
-                 with_stats):
+                 with_stats, variant):
     """One implicit-GEMM conv of `inp` (NHWC) with w ([ks*ks*Cin, F] as
-    HWIO lies), raw f32 out [B, Ho, Wo, F]; `pro` the previous branch's
-    (mean, var, gamma, beta) f32 or None; returns (out, psum, psq), the
-    partial sums when `with_stats`."""
+    HWIO lies), raw f32 out [B, Ho, Wo, F], in the form `variant`; `pro`
+    the previous branch's (mean, var, gamma, beta) f32 or None; returns
+    (out, psum, psq), the partial sums when `with_stats`."""
     b, h, wd, c = inp.shape
     n_out = w.shape[-1]
     ho, wo = -(-h // stride[0]), -(-wd // stride[1])
@@ -177,7 +201,7 @@ def _launch_conv(stream, inp, w, wscale, ks, stride, pad, pro, eps, act,
         "dl4j_bottleneck_conv", inp.data_ptr(), DTYPE_CODES[inp.dtype], b, h,
         wd, c, ho, wo, ks, stride[0], stride[1], pad, *map(_ptr, pro), act,
         float(eps), w.data_ptr(), _W_CODES[w.dtype], _ptr(wscale), n_out,
-        out.data_ptr(), _ptr(psum), _ptr(psq), stream)
+        out.data_ptr(), _ptr(psum), _ptr(psq), _VARIANTS[variant], stream)
     return out.view(b, ho, wo, n_out), psum, psq
 
 
@@ -211,6 +235,21 @@ def _check(x, ws, stride, project):
                          f"F3={f3}")
 
 
+# The two forms of the block's convolutions and their codes in the C entry.
+_VARIANTS = {"cuda_cores": 0, "wgmma": 1}
+
+
+def bottleneck_variant(x_dtype, w_dtype, cin: int, f1: int, f3: int) -> str:
+    """Which form of its convolutions a block launches: "wgmma" (bf16
+    products on the tensor cores) when x and every W are bf16 (`w_dtype`
+    the dtype they share; None when they differ) and Cin, F1 and F3 are
+    multiples of 64, else "cuda_cores" (f32 products; f32, int8 weights,
+    other widths). A dispatch by dtype and width, not a fallback."""
+    wide = cin % 64 == 0 and f1 % 64 == 0 and f3 % 64 == 0
+    return ("wgmma" if x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16
+            and wide else "cuda_cores")
+
+
 def _kernel_block(x, flat, scales, running, stride, eps, act, train):
     """The kernel sequence on CUDA tensors: flat is (W, gamma, beta) per
     branch; scales {branch: int8 dequant scale} or None; running the
@@ -221,7 +260,13 @@ def _kernel_block(x, flat, scales, running, stride, eps, act, train):
     _check(x, ws, stride, project)
     _aligned(x)
     act_code = _act_code(act)
+    w_dtypes = {w.dtype for w in ws.values()}
+    variant = bottleneck_variant(
+        x.dtype, w_dtypes.pop() if len(w_dtypes) == 1 else None, x.shape[3],
+        ws["a"].shape[-1], ws["c"].shape[-1])
     stats = []
+    affine = _f32_all([flat[3 * i + j] for i in range(len(names))
+                       for j in (1, 2)])
 
     def branch(i, inp, ks, strd, pad, pro):
         """Conv i of the block; returns its raw output and its BatchNorm's
@@ -229,14 +274,15 @@ def _kernel_block(x, flat, scales, running, stride, eps, act, train):
         n = names[i]
         scale = None if scales is None else _f32(scales[n])
         out, psum, psq = _launch_conv(stream, inp, ws[n], scale, ks, strd,
-                                      pad, pro, eps, act_code, train)
+                                      pad, pro, eps, act_code, train,
+                                      variant)
         if train:
             mean, var = _launch_stats(stream, psum, psq,
                                       out.numel() // out.shape[-1])
             stats.extend((mean, var))
         else:
             mean, var = _f32(running[f"mean_{n}"]), _f32(running[f"var_{n}"])
-        return out, (mean, var, _f32(flat[3 * i + 1]), _f32(flat[3 * i + 2]))
+        return out, (mean, var, affine[2 * i], affine[2 * i + 1])
 
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -251,7 +297,9 @@ def _kernel_block(x, flat, scales, running, stride, eps, act, train):
                       _ptr(p), *map(_ptr, npj), x.data_ptr(),
                       DTYPE_CODES[x.dtype], c.numel() // c.shape[-1],
                       c.shape[-1], float(eps), act_code, y.data_ptr(), stream)
-    kernels.launches["bottleneck_train" if train else "bottleneck_infer"].add()
+    name = "bottleneck_train" if train else "bottleneck_infer"
+    kernels.launches[name].add()
+    kernels.variant_launches[name][variant].add()
     return y, (tuple(stats) if train else None)
 
 

@@ -420,11 +420,6 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
     hopper::tma_load_4d(dst + c * kBoxBytes, map, bar, c * 64, h, t0, b);
 }
 
-// The first 1024-aligned byte (the swizzle atom) of dynamic shared memory.
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024 - (hopper::smem_addr(p) & 1023)) & 1023);
-}
-
 // d = A B^T for two 64-row tiles of D dims in shared memory, both read
 // K-major: D / 16 wgmma k-steps (k-step kk at byte 32 * (kk % 4) of box
 // kk / 4), the first overwriting d.
@@ -484,7 +479,7 @@ stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         int heads, int causal, float scale) {
   constexpr int S = WgTile<D>::kStages, TB = WgTile<D>::kBytes;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* qs = align_1024(smem_raw);
+  uint8_t* qs = hopper::align_1024(smem_raw);
   uint8_t* ks = qs + TB;      // [S] K tiles
   uint8_t* vs = ks + S * TB;  // [S] V tiles
   uint64_t* full = reinterpret_cast<uint64_t*>(vs + S * TB);  // [S], Q
@@ -940,7 +935,7 @@ stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        int heads, int causal, float scale) {
   constexpr int S = WgBwdTile<D>::kStages, TB = WgBwdTile<D>::kBytes;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* qs = align_1024(smem_raw);
+  uint8_t* qs = hopper::align_1024(smem_raw);
   uint8_t* dos = qs + TB;
   uint8_t* ks = dos + TB;     // [S] K tiles
   uint8_t* vs = ks + S * TB;  // [S] V tiles
@@ -1070,7 +1065,7 @@ stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         int heads, int causal, float scale) {
   constexpr int S = WgBwdTile<D>::kStages, TB = WgBwdTile<D>::kBytes;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* ks = align_1024(smem_raw);
+  uint8_t* ks = hopper::align_1024(smem_raw);
   uint8_t* vs = ks + TB;
   uint8_t* qs = vs + TB;        // [S] Q tiles
   uint8_t* dos = qs + S * TB;   // [S] dO tiles
@@ -1264,40 +1259,13 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
 
 // The tensor-core unit kernel (bf16, D = 64 or 128).
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
-// library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A 4-D map over a contiguous bf16 [batch, seq, heads, dim] tensor: dims
 // innermost first, boxes of {64 dims, 1 head, 64 rows, 1 batch}, 128-byte
 // swizzle, zeros past each bound (rows >= seq within a batch too).
 int tile_map(CUtensorMap* map, const void* ptr, const Args& a) {
   if (reinterpret_cast<uintptr_t>(ptr) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const EncodeTiled encode = encode_tiled();
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t row = static_cast<cuuint64_t>(a.heads) * a.dim * 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(a.dim),

@@ -1,13 +1,15 @@
 // Hopper building blocks for the port's tensor-core kernels: TMA tile loads
 // completing on an mbarrier, the wgmma shared-memory descriptor of a tile
 // that TMA wrote with the 128-byte swizzle, and the bf16 wgmma products the
-// flash tiles need. Every helper is one PTX instruction or a fixed group of
-// them (PTX ISA 8.0, sm_90a); the layouts they assume are stated where they
-// are defined.
+// flash tiles and the bottleneck convolutions need. Every device helper is
+// one PTX instruction or a fixed group of them (PTX ISA 8.0, sm_90a); the
+// layouts they assume are stated where they are defined. On the host,
+// `encode_tiled` finds the driver's tensor-map encoder.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the type only: nothing here links libcuda)
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -16,6 +18,11 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-aligned byte (the swizzle atom) of dynamic shared memory.
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
 // ------------------------------------------------------------- mbarrier
@@ -71,6 +78,46 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(smem_addr(bar))
       : "memory");
+}
+
+// One box of a 2-D tensor map into shared memory at `dst`, completing on
+// `bar`; c0 is the innermost coordinate.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
+// library needs no -lcuda; nullptr where the driver has none.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
 // ---------------------------------------------------------------- wgmma

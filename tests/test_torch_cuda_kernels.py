@@ -734,6 +734,167 @@ def test_bottleneck_fn_gradients_match_plain(cuda):
         _close(a, b, torch.float32, RESNET_TOL)
 
 
+# ------------------------------------- the block on the tensor cores (wgmma)
+
+
+def _resnet50_block_shapes(image):
+    """The distinct (H, Cin, F1, stride, project) of ResNet-50's 16 blocks
+    at `image` (after the stride-2 stem and the stride-2 pool)."""
+    h, cin, out = -(-(-(-image // 2)) // 2), 64, []
+    for filters, blocks, first in ((64, 3, 1), (128, 4, 2), (256, 6, 2),
+                                   (512, 3, 2)):
+        for i in range(blocks):
+            stride = first if i == 0 else 1
+            key = (h, cin, filters, stride, i == 0)
+            if key not in out:
+                out.append(key)
+            h, cin = -(-h // stride), 4 * filters
+    return out
+
+
+def _wgmma_block(x, params, state, stride, project, train,
+                 activation="relu"):
+    """The block in bf16 on the tensor-core form (counted), and its plain
+    version run in f32 on the same inputs (bf16 values are exact in f32)."""
+    name = "bottleneck_train" if train else "bottleneck_infer"
+    kernels.reset_counts()
+    y, stats = bb.bottleneck_forward(x, params, state, stride=stride,
+                                     project=project, eps=1e-5,
+                                     activation=activation, train=train)
+    counts = kernels.counts()
+    assert counts["launches"][name] == 1
+    assert counts["variants"][name] == {"wgmma": 1, "cuda_cores": 0}
+    names = ("a", "b", "c") + (("proj",) if project else ())
+    flat = [params[f"{k}_{n}"].float() for n in names
+            for k in ("W", "gamma", "beta")]
+    if train:
+        want = bb.bottleneck_train_plain(x.float(), *flat, stride=stride,
+                                         eps=1e-5, act=activation)
+        return (y, stats), (want[0], dict(zip(bb.stat_keys(project),
+                                              want[1])))
+    want = bb.bottleneck_infer_plain(x.float(), *flat, stats=state,
+                                     stride=stride, eps=1e-5, act=activation)
+    return (y, None), (want, None)
+
+
+def _close_block(got, want):
+    (y, stats), (want_y, want_stats) = got, want
+    assert y.dtype == torch.bfloat16 and y.shape == want_y.shape
+    _close(y, want_y, torch.bfloat16, RESNET_TOL)
+    if stats is not None:
+        assert set(stats) == set(want_stats)
+        for k in stats:
+            assert stats[k].dtype == torch.float32
+            _close(stats[k], want_stats[k], torch.bfloat16, RESNET_TOL)
+
+
+@pytest.mark.parametrize("image,train", [(224, False), (64, True)])
+@pytest.mark.parametrize("index", range(8))
+def test_bottleneck_wgmma_matches_plain_in_f32_at_every_resnet50_shape(
+        cuda, image, train, index):
+    # I1's 8 block shapes (inference at 224) and T2's (training at 64), B=2.
+    h, cin, f1, s, project = _resnet50_block_shapes(image)[index]
+    x, params, state = _block(np.random.RandomState(40 + index), 2, h, cin,
+                              f1, project, torch.bfloat16, cuda)
+    _close_block(*_wgmma_block(x, params, state, (s, s), project, train))
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("b,h,cin,f1,s,project", [
+    (3, 7, 256, 64, 1, False),   # M = 147: a last tile of 19 rows
+    (3, 7, 256, 64, 2, True),    # M = 48: one tile, 16 rows past M
+    (1, 9, 128, 128, 2, True),   # M = 25, odd H under stride 2, N = 512
+])
+def test_bottleneck_wgmma_ragged_m(cuda, train, b, h, cin, f1, s, project):
+    x, params, state = _block(np.random.RandomState(50), b, h, cin, f1,
+                              project, torch.bfloat16, cuda)
+    _close_block(*_wgmma_block(x, params, state, (s, s), project, train))
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("activation", ["relu", "identity"])
+def test_bottleneck_wgmma_pads_the_normalized_activation(cuda, train,
+                                                         activation):
+    # act(BN(0)) is far from 0 (means below 0, betas at 1): a tap outside
+    # the image must read 0 after the prologue, not BN(0). At H = 4 most
+    # of the 3x3 conv's outputs read a padded tap.
+    x, params, state = _block(np.random.RandomState(51), 2, 4, 256, 64,
+                              False, torch.bfloat16, cuda)
+    for n in ("a", "b"):
+        params[f"beta_{n}"] = torch.ones_like(params[f"beta_{n}"])
+        state[f"mean_{n}"] = torch.full_like(state[f"mean_{n}"], -1.5)
+    got, want = _wgmma_block(x, params, state, (1, 1), False, train,
+                             activation)
+    _close_block(got, want)
+    # The same block with BN(0) where the padding is: off by far more.
+    a = bb._conv(x.float(), params["W_a"].float(), (1, 1))
+    mean_a = a.mean(dim=(0, 1, 2)) if train else state["mean_a"]
+    bn0 = (params["beta_a"].float() - params["gamma_a"].float() * mean_a
+           / torch.sqrt((a.var(dim=(0, 1, 2), unbiased=False) if train
+                         else state["var_a"]) + 1e-5))
+    assert float(bn0.abs().min()) > 0.25
+
+
+def test_bottleneck_wgmma_statistics_are_bitwise_repeatable(cuda):
+    x, params, state = _block(np.random.RandomState(52), 4, 16, 256, 64,
+                              True, torch.bfloat16, cuda)
+    runs = [bb.bottleneck_forward(x, params, state, stride=(2, 2),
+                                  project=True, eps=1e-5, activation="relu",
+                                  train=True) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k in bb.stat_keys(True):
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
+
+
+@pytest.mark.parametrize("dtype,int8,cin,f1,want", [
+    (torch.bfloat16, False, 256, 64, "wgmma"),
+    (torch.float32, False, 256, 64, "cuda_cores"),
+    (torch.bfloat16, True, 256, 64, "cuda_cores"),
+    (torch.bfloat16, False, 64, 16, "cuda_cores"),   # F1 not a multiple of 64
+])
+def test_bottleneck_variant_launches_count_each_form(cuda, dtype, int8, cin,
+                                                     f1, want):
+    x, params, state = _block(np.random.RandomState(53), 2, 8, cin, f1, True,
+                              dtype, cuda, int8=int8)
+    for train in ([False] if int8 else [True, False]):
+        name = "bottleneck_train" if train else "bottleneck_infer"
+        kernels.reset_counts()
+        bb.bottleneck_forward(x, params, state, stride=(2, 2), project=True,
+                              eps=1e-5, activation="relu", train=train)
+        counts = kernels.counts()
+        assert counts["launches"][name] == 1
+        assert counts["variants"][name] == {
+            k: int(k == want) for k in ("wgmma", "cuda_cores")}
+        assert not any(counts["plain_calls"].values())
+
+
+def test_bottleneck_wgmma_refuses_what_it_cannot_take(cuda):
+    x, params, state = _block(np.random.RandomState(54), 2, 8, 256, 64,
+                              False, torch.bfloat16, cuda)
+    # A misaligned x: refused before any launch, never handed to the
+    # CUDA-core form.
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bb.bottleneck_forward(shifted, params, state, stride=(1, 1),
+                              project=False, eps=1e-5, activation="relu",
+                              train=False)
+    counts = kernels.counts()
+    assert not any(counts["launches"].values())
+    assert counts["variants"]["bottleneck_infer"] == {"wgmma": 0,
+                                                      "cuda_cores": 0}
+    # The C entry's tensor-core form refuses an operand it cannot read (f32
+    # x with no prologue, int8 weights): an error, not the other form.
+    stream = torch.cuda.current_stream().cuda_stream
+    w = params["W_a"].reshape(256, 64)
+    for inp, wt in ((x.float(), w), (x, w.to(torch.int8))):
+        with pytest.raises(RuntimeError, match="dl4j_bottleneck_conv"):
+            bb._launch_conv(stream, inp, wt, None, 1, (1, 1), 0, None, 1e-5,
+                            0, False, "wgmma")
+
+
 # ------------------------------------------------------------- LSTM cell
 
 
