@@ -27,7 +27,12 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               call where one computes the same function (`library_ms`, a
               yardstick the port never calls), and the host time a call
               costs its caller (`host_ms`, 50 calls back to back; the
-              library call's too). The flash rows 3, 5 and 6
+              library call's too), and the bound over the device time
+              (`bound_share_by_device`). The paged decode attention (row
+              8) runs at two cursors: the slots mid-generation and every
+              slot at 1023 (beside the latter, SDPA over the same keys
+              gathered beforehand into a dense cache, a reference point
+              that omits the gather). The flash rows 3, 5 and 6
               are also held row by row (o at 1e-2 / 1e-4 of its norm, lse at
               1e-4; dq from row 1, dk, dv at 1.2e-2 / 1e-4 of max(norm, 0.1
               x the median row norm)) and name their form (`variant`).
@@ -103,9 +108,10 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               zoo's default width), and the masked and no-peephole variants,
               in f32 (against its plain version at 1e-4, TF32 off) and bf16
               (against the plain version run in f32 on the same inputs, at
-              4e-2), timed as the kernels phase times its kernels; the
-              library yardstick (`torch.mm` + aten `_thnn_fused_lstm_cell`)
-              computes the step without peepholes or mask.
+              4e-2), timed as the kernels phase times its kernels (its
+              host time and bound share too); the library yardstick
+              (`torch.mm` + aten `_thnn_fused_lstm_cell`) computes the step
+              without peepholes or mask.
 12. rnn_train - the char-RNN (`bench.py:798-840`: `char_rnn` V=77, 2
               GravesLSTM layers of 256, f32, RMSProp lr 0.1, seeded random
               weights) trained with `MultiLayerNetwork.fit` under truncated
@@ -430,6 +436,11 @@ def tensor_core_ptxas(ptxas):
     return out
 
 
+def bound_share(bound_ms, dev_ms):
+    """The bound over the measured device time (1 = at the bound)."""
+    return None if not dev_ms else bound_ms / dev_ms
+
+
 def bound(nbytes, ops, dtype):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -501,27 +512,46 @@ def kernel_cases(torch, dev, dtype_name):
         4 * T * HEADS * dh * es, 4 * dh * HEADS * T * (T + 1) // 2))
 
     n_pages, pool = CACHE // PAGE, SLOTS * (CACHE // PAGE) + 1
-    pos = np.asarray([1000, 700, 330, 40], np.int32)  # slots mid-generation
-    perm = rng.permutation(np.arange(1, pool))
-    table = np.zeros((SLOTS, n_pages), np.int32)
-    for s in range(SLOTS):
-        n = -(-(int(pos[s]) + 1) // PAGE)
-        table[s, :n] = perm[s * n_pages: s * n_pages + n]
-    qd = t(SLOTS, 1, HEADS, dh)
     kp, vp = t(pool, PAGE, HEADS, dh), t(pool, PAGE, HEADS, dh)
-    table_t = torch.tensor(table, device=dev)
-    pos_t = torch.tensor(pos, device=dev)
-    keys = int(np.minimum(pos + 1, n_pages * PAGE).sum())
-    cases.append((
-        "paged_decode_attention",
-        f"q[{SLOTS},1,{HEADS},{dh}] pool[{pool},{PAGE},{HEADS},{dh}] "
-        f"pos={pos.tolist()}",
-        lambda: fa.paged_decode_attention(qd, kp, vp, table_t, pos_t, True),
-        lambda: fa.paged_gather_dense(qd, kp, vp, table_t, pos_t, True),
-        None,
-        2 * keys * HEADS * dh * es + 2 * SLOTS * HEADS * dh * es
-        + table.nbytes + pos.nbytes,
-        4 * dh * HEADS * keys))
+    qd = t(SLOTS, 1, HEADS, dh)
+    # Slots mid-generation, then every slot at the end of its cache (8.4
+    # MB of K and V in bf16). Beside the second, a reference point that is
+    # not the library column (it omits the gather): SDPA over the same
+    # keys gathered into a dense [slots, heads, 1024, 64] cache beforehand,
+    # every key visible to the decode query as the causal limit gives.
+    for pos in (np.asarray([1000, 700, 330, 40], np.int32),
+                np.full(SLOTS, CACHE - 1, np.int32)):
+        perm = rng.permutation(np.arange(1, pool))
+        table = np.zeros((SLOTS, n_pages), np.int32)
+        for s in range(SLOTS):
+            n = -(-(int(pos[s]) + 1) // PAGE)
+            table[s, :n] = perm[s * n_pages: s * n_pages + n]
+        table_t = torch.tensor(table, device=dev)
+        pos_t = torch.tensor(pos, device=dev)
+        keys = int(np.minimum(pos + 1, n_pages * PAGE).sum())
+        ref = ()
+        if (pos == CACHE - 1).all():
+            idx = table_t.long()
+            kc, vc = (a[idx].reshape(SLOTS, CACHE, HEADS, dh)
+                      .transpose(1, 2).contiguous() for a in (kp, vp))
+            qc = qd.transpose(1, 2).contiguous()
+            ref = (("F.scaled_dot_product_attention over the pre-gathered "
+                    f"dense cache [{SLOTS},{HEADS},{CACHE},{dh}], no mask "
+                    "(every key visible), the gather not counted",
+                    lambda qc=qc, kc=kc, vc=vc:
+                        F.scaled_dot_product_attention(qc, kc, vc)),)
+        cases.append((
+            "paged_decode_attention",
+            f"q[{SLOTS},1,{HEADS},{dh}] pool[{pool},{PAGE},{HEADS},{dh}] "
+            f"pos={pos.tolist()}",
+            lambda table_t=table_t, pos_t=pos_t:
+                fa.paged_decode_attention(qd, kp, vp, table_t, pos_t, True),
+            lambda table_t=table_t, pos_t=pos_t:
+                fa.paged_gather_dense(qd, kp, vp, table_t, pos_t, True),
+            None,
+            2 * keys * HEADS * dh * es + 2 * SLOTS * HEADS * dh * es
+            + table.nbytes + pos.nbytes,
+            4 * dh * HEADS * keys, *ref))
     return cases
 
 
@@ -693,7 +723,7 @@ def phase_kernels(card, torch, dev, train_conf):
     for dtype in ("bfloat16", "float32"):
         cases = (kernel_cases(torch, dev, dtype)
                  + train_kernel_cases(torch, dev, dtype, train_conf))
-        for name, shape, kern, plain, lib, nbytes, ops in cases:
+        for name, shape, kern, plain, lib, nbytes, ops, *ref in cases:
             got = kern()
             want = plain()
             torch.cuda.synchronize()
@@ -708,6 +738,11 @@ def phase_kernels(card, torch, dev, train_conf):
                 err, ok = compare(got, want, dtype)
             bound_ms, bound_by = bound(nbytes, ops, dtype)
             lib_ms, lib_dev_ms = _lib_ms(torch, lib)
+            dev_ms = device_ms(torch, kern)
+            if ref:  # a reference point beside the row, not its library
+                label, fn = ref[0]
+                extra.update(reference=label, reference_ms=time_ms(fn),
+                             reference_device_ms=device_ms(torch, fn))
             rows.append({
                 "name": name, "dtype": dtype, "shape": shape,
                 "max_abs_err": err, "tolerance": tol, **extra,
@@ -720,7 +755,8 @@ def phase_kernels(card, torch, dev, train_conf):
                     lib, tuple) else host_ms(lib),
                 # Kernel time alone (profiler): `ms` above is one call as
                 # the card's clock sees it, launch gaps included.
-                "device_ms": device_ms(torch, kern),
+                "device_ms": dev_ms,
+                "bound_share_by_device": bound_share(bound_ms, dev_ms),
                 "plain_device_ms": device_ms(torch, plain),
                 "library_device_ms": lib_dev_ms})
             emit(card, phase="kernels", **rows[-1])
@@ -1306,6 +1342,7 @@ def phase_rnn_kernels(card, torch, dev):
                 err, ok = compare(got, plain_f32(), dtype)
             bound_ms, bound_by = bound(nbytes, ops, dtype)
             lib_ms, lib_dev_ms, lib_error = _safe_lib_ms(torch, lib)
+            dev_ms = device_ms(torch, kern)
             rows.append({
                 "name": name, "dtype": dtype, "shape": shape,
                 "max_abs_err": err,
@@ -1320,7 +1357,11 @@ def phase_rnn_kernels(card, torch, dev):
                 "library_covers": (
                     "torch.mm + aten._thnn_fused_lstm_cell: the same step "
                     "without peepholes or mask" if lib else None),
-                "device_ms": device_ms(torch, kern),
+                # The wrapper's host time per call (launch path).
+                "host_ms": host_ms(kern),
+                "library_host_ms": None if lib is None else host_ms(lib),
+                "device_ms": dev_ms,
+                "bound_share_by_device": bound_share(bound_ms, dev_ms),
                 "plain_device_ms": device_ms(torch, plain),
                 "library_device_ms": lib_dev_ms})
             emit(card, phase="rnn_kernels", **rows[-1])

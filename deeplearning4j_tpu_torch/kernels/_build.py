@@ -43,8 +43,9 @@ _SIGNATURES = {
     # ... | dtype, variant (0 CUDA cores, 1 tensor cores), stream.
     "dl4j_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                  _I, _P],
-    "dl4j_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _I, _F, _I, _P],
+    # q, k, v, table, pos, o, partials, counters, params (the shape, plan,
+    # mask, dtype and scale: `flash_attention._PagedParams`), stream.
+    "dl4j_paged_decode_attention": [_P] * 10,
     "dl4j_flash_attention_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _F, _I, _I, _P],
     "dl4j_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -63,8 +64,9 @@ _SIGNATURES = {
     "dl4j_bottleneck_stats": [_P, _P, _I, _I, _I, _P, _P, _P],
     "dl4j_bottleneck_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _I, _F, _I, _P, _P],
-    "dl4j_lstm_cell": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _P],
+    # xw, h, c, rw, pw, m, h_out, c_out, out, params (xw_stride, b, n,
+    # act, dtype: `lstm_cell._CellParams`), stream.
+    "dl4j_lstm_cell": [_P] * 11,
     # q, k, v, o, lse | pair_i, pair_j, units, n_units, merges, n_merges |
     # partials | n_slots, batch, seq, heads, dim, causal | scale, dtype,
     # variant, stream.

@@ -7,8 +7,10 @@
   framework's dense path (`parallel/sequence.py`), for CPU tensors.
 - `paged_decode_attention` (decode step): the CUDA kernel of
   `csrc/paged_attention.cu`, replacing `_paged_flash_kernel`
-  (flash_attention.py:733); `paged_gather_dense`, a copy of
-  `_paged_gather_dense` + `_cached_decode_attention`, for CPU tensors.
+  (flash_attention.py:733), split over the key axis by the static
+  `paged_split_plan` and merged in one launch; `paged_gather_dense`, a
+  copy of `_paged_gather_dense` + `_cached_decode_attention`, for CPU
+  tensors.
 
 Both kernels take the JAX package's [B, T, H, D] layout as it comes out of
 the Q/K/V projections: no transpose is materialized. Each source file's
@@ -64,6 +66,7 @@ kernels take any T and mask the ragged tile.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional
 
@@ -777,13 +780,77 @@ def paged_gather_dense(q, k_pages, v_pages, page_table, pos, causal):
     return cached_decode_attention(q, kc, vc, pos, causal)
 
 
-def paged_decode_attention(q, k_pages, v_pages, page_table, pos, causal):
-    """Decode attention through the paged KV pool. q: [B, T, H, D] (T <= 8
-    on the card); k_pages/v_pages: [P, page, H, D]; page_table: [B, NP]
-    int32 (0 = the zero page); pos: [B] int32 cursors."""
-    if kernels.placement(q, k_pages, v_pages, page_table, pos) == "cpu":
-        return paged_gather_dense(q, k_pages, v_pages, page_table, pos,
-                                  causal)
+class PagedPlan(NamedTuple):
+    """The paged decode kernel's static cut of the key axis: splits of
+    `pages_per_split` whole logical pages (the last may be shorter),
+    `n_splits` of them, each read in tiles of `tile` key rows."""
+    pages_per_split: int
+    n_splits: int
+    tile: int
+
+
+# Blocks the paged decode grid aims at (splits x heads x slots), per SM:
+# enough that a decode step's whole read is in flight at once.
+_PAGED_BLOCKS_PER_SM = 4
+# The fewest keys a split holds where the table has that many.
+_PAGED_MIN_SPLIT_KEYS = 32
+
+
+def paged_tile_rows(d: int, itemsize: int) -> int:
+    """Key rows of one tile of csrc/paged_attention.cu: 64 where a head
+    row (D rounded up to 16 bytes) takes at most 128 bytes, 32 to 256, else
+    16, so that two stages of K and V stay under 37 KB of shared memory."""
+    chunk = 16 // itemsize
+    row = -(-d // chunk) * chunk * itemsize
+    return 64 if row <= 128 else 32 if row <= 256 else 16
+
+
+@functools.lru_cache(maxsize=256)
+def paged_split_plan(batch: int, heads: int, n_pages: int, page: int,
+                     d: int, itemsize: int, sms: int = 132) -> PagedPlan:
+    """The split of the key axis the wrapper hands the paged kernel, from
+    static quantities alone (never from `pos`, which lies on the card):
+    the fewest splits that give `_PAGED_BLOCKS_PER_SM` x `sms` blocks,
+    at most one a page and at least `_PAGED_MIN_SPLIT_KEYS` keys a split,
+    balanced to whole pages. At the serving shape (4 slots, 8 heads, 16
+    pages of 64) that is one page a split: 512 blocks."""
+    want = -(-_PAGED_BLOCKS_PER_SM * sms // (batch * heads))
+    splits = max(1, min(n_pages, want,
+                        n_pages * page // _PAGED_MIN_SPLIT_KEYS))
+    per = -(-n_pages // splits)
+    return PagedPlan(per, -(-n_pages // per), paged_tile_rows(d, itemsize))
+
+
+class _PagedParams(ctypes.Structure):
+    """The paged kernel's scalars (csrc/paged_attention.cu `PagedParams`),
+    built once per shape and handed over by address: one pointer in place
+    of twelve ctypes conversions a call."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "batch", "nq", "heads", "dim", "page", "n_pages", "pages_per_split",
+        "n_splits", "tile", "causal", "dtype")] + [("scale", ctypes.c_float)]
+
+
+_sm_counts = {}
+# (shapes, dtypes, causal, device index, stream) of a call whose checks
+# passed -> what `_paged_setup` returns: the scalars and the workspace.
+_paged_launches = {}
+
+
+def _sm_count(idx: int) -> int:
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = _sm_counts[idx] = \
+            torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
+
+
+def _paged_setup(q, k_pages, v_pages, page_table, pos, causal, idx):
+    """The checks that depend on shapes and dtypes alone (raising as the
+    kernel cannot take them), then the launch's scalars and its workspace:
+    f32 partials (m, l, acc) for every split, and one int32 counter a
+    (slot, head), zeroed here once and left at 0 by every launch. A
+    workspace serves one (shape, stream): launches on one stream run in
+    turn, so they never share it at once."""
     if q.dim() != 4 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError(f"want q [B, T, H, D] and pools [P, page, H, D]; "
                          f"got {tuple(q.shape)}, {tuple(k_pages.shape)}, "
@@ -795,24 +862,64 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, causal):
     if page_table.dim() != 2 or page_table.shape[0] != b:
         raise ValueError(f"page_table must be [{b}, NP], got "
                          f"{tuple(page_table.shape)}")
-    if tuple(pos.shape) != (b,):
+    if pos.shape != (b,):
         raise ValueError(f"pos must be [{b}], got {tuple(pos.shape)}")
     if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError("page_table and pos must be int32")
     _check_cuda("paged_decode_attention", (q, k_pages, v_pages), q.dtype)
-    _diff.refuse_grad("paged_decode_attention", q, k_pages, v_pages)
-    if not (page_table.is_contiguous() and pos.is_contiguous()):
-        raise ValueError("page_table and pos must be contiguous")
     if t > _MAX_QUERIES or d > _MAX_DIM:
         raise ValueError(f"paged kernel takes T <= {_MAX_QUERIES} and "
                          f"D <= {_MAX_DIM}; got T={t}, D={d}")
+    page, n_pages = k_pages.shape[1], page_table.shape[1]
+    plan = paged_split_plan(b, h, n_pages, page, d, q.element_size(),
+                            _sm_count(idx))
+    params = _PagedParams(b, t, h, d, page, n_pages, plan.pages_per_split,
+                          plan.n_splits, plan.tile, int(causal),
+                          DTYPE_CODES[q.dtype], d ** -0.5)
+    part = torch.empty(b * h * plan.n_splits * t * (d + 2),
+                       dtype=torch.float32, device=q.device)
+    cnt = torch.zeros(b * h, dtype=torch.int32, device=q.device)
+    return (params, part, cnt, ctypes.addressof(params), part.data_ptr(),
+            cnt.data_ptr())
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, pos, causal):
+    """Decode attention through the paged KV pool. q: [B, T, H, D] (T <= 8
+    on the card); k_pages/v_pages: [P, page, H, D]; page_table: [B, NP]
+    int32 (0 = the zero page); pos: [B] int32 cursors. On the card one
+    launch of the split kernel (`paged_split_plan`); nothing here reads
+    `pos` or the table on the host. A decode step makes one call a block,
+    so the launch path is kept short: the checks that depend on shapes and
+    dtypes run once per shape, the scalars go over as one block."""
+    idx = q.get_device()
+    if not (idx >= 0 and k_pages.get_device() == idx
+            and v_pages.get_device() == idx
+            and page_table.get_device() == idx and pos.get_device() == idx):
+        if kernels.placement(q, k_pages, v_pages, page_table, pos) == "cpu":
+            return paged_gather_dense(q, k_pages, v_pages, page_table, pos,
+                                      causal)
+    stream = _build.current_stream(idx)
+    key = (q.shape, k_pages.shape, v_pages.shape, page_table.shape,
+           pos.shape, q.dtype, k_pages.dtype, v_pages.dtype,
+           page_table.dtype, pos.dtype, bool(causal), idx, stream)
+    setup = _paged_launches.get(key)
+    if setup is None:
+        setup = _paged_launches[key] = _paged_setup(
+            q, k_pages, v_pages, page_table, pos, causal, idx)
+    params, part, cnt = setup[3:]
+    if not (q.is_contiguous() and k_pages.is_contiguous()
+            and v_pages.is_contiguous()):
+        raise ValueError("paged_decode_attention takes contiguous tensors")
+    if not (page_table.is_contiguous() and pos.is_contiguous()):
+        raise ValueError("page_table and pos must be contiguous")
+    if torch.is_grad_enabled() and (q.requires_grad or k_pages.requires_grad
+                                    or v_pages.requires_grad):
+        _diff.refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with _build.on_device(idx):
         _build.launch("dl4j_paged_decode_attention", q.data_ptr(),
                       k_pages.data_ptr(), v_pages.data_ptr(),
                       page_table.data_ptr(), pos.data_ptr(), o.data_ptr(),
-                      b, t, h, d, k_pages.shape[1], page_table.shape[1],
-                      int(causal), float(d ** -0.5), DTYPE_CODES[q.dtype],
-                      _stream(q))
+                      part, cnt, params, stream)
     kernels.launches["paged_decode_attention"].add()
     return o

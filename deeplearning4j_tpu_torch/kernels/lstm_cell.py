@@ -10,7 +10,8 @@ step mask at x's dtype or None.
   the TPU kernel `_cell_kernel` (lstm_cell.py:119, reached through
   `pallas_cell` :182 and `resolve_cell` :199): the recurrent product is the
   kernel's own (accumulated in f32, as `preferred_element_type` does), the
-  gates run in registers, and h, c and out are stored in the operand dtype.
+  gates run in registers, and h, c and out are stored in the operand dtype
+  (without a mask out is h itself, as in the plain version).
   The gates must be sigmoid and the cell activation one of identity, relu,
   tanh, sigmoid (`_CELL_ACTS` :37); another raises (ROADMAP A.19).
 - A CPU tensor calls `lstm_cell_plain`, `xla_cell` (:86) transcribed op for
@@ -27,6 +28,8 @@ is no backward kernel, as there is none in the JAX package.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -83,11 +86,16 @@ def lstm_cell(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation="sigmoid",
     h_prev, c_prev [b, n], RW [n, 4n], pW [3n] or None, m_t [b] or None.
     Returns (h, c, out), each [b, n]. Differentiable through `LSTMCellFn`
     in xw_t, h_prev, c_prev, RW and pW."""
-    if _diff.needs_grad(*_tensors(xw_t, h_prev, c_prev, RW, pW)):
+    if torch.is_grad_enabled() and (
+            xw_t.requires_grad or h_prev.requires_grad
+            or c_prev.requires_grad or RW.requires_grad
+            or (pW is not None and pW.requires_grad)):
         return LSTMCellFn.apply(xw_t, h_prev, c_prev, RW, pW, m_t,
                                 gate_activation, activation)
-    return _cell_forward(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation,
-                         activation)
+    # No input but the mask can require a gradient here.
+    run = _cell_run if m_t is None else _cell_forward
+    return run(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation,
+               activation)
 
 
 def _tensors(*args):
@@ -121,11 +129,95 @@ class LSTMCellFn(torch.autograd.Function):
 
 def _cell_forward(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation,
                   activation):
-    ts = _tensors(xw_t, h_prev, c_prev, RW, pW, m_t)
-    if kernels.placement(*ts) == "cpu":
-        return lstm_cell_plain(xw_t, h_prev, c_prev, RW, pW, m_t,
-                               gate_activation, activation)
-    _diff.refuse_grad("lstm_cell", *ts)
+    """The kernel for CUDA tensors, the plain version for CPU ones; a
+    CUDA call whose input requires a gradient under autograd raises (the
+    output would cut it: `LSTMCellFn` is the way)."""
+    if torch.is_grad_enabled() and h_prev.get_device() >= 0 and (
+            xw_t.requires_grad or h_prev.requires_grad
+            or c_prev.requires_grad or RW.requires_grad
+            or (pW is not None and pW.requires_grad)
+            or (m_t is not None and m_t.requires_grad)):
+        _diff.refuse_grad("lstm_cell", *_tensors(xw_t, h_prev, c_prev, RW,
+                                                 pW, m_t))
+    return _cell_run(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation,
+                     activation)
+
+
+class _CellParams(ctypes.Structure):
+    """The kernel's scalars (csrc/lstm_cell.cu `CellParams`), built once
+    per shape and handed over by address."""
+    _fields_ = [("xw_stride", ctypes.c_longlong)] + [
+        (name, ctypes.c_int) for name in ("b", "n", "act", "dtype")]
+
+
+# (shapes, dtypes, xw_t's row stride, activations, device index) of a call
+# whose checks passed -> (_CellParams, its address).
+_launches = {}
+
+
+def _cell_run(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation,
+              activation):
+    """One step on the card, or the plain version for CPU tensors. The
+    launch path is kept short, since the scan makes one call per step and
+    layer: the checks that depend on shapes, dtypes and activations run
+    once per shape (`_setup`), only the layout is checked each call, and
+    the scalars go over as one block."""
+    idx = h_prev.get_device()
+    if not (idx >= 0 and xw_t.get_device() == idx
+            and c_prev.get_device() == idx and RW.get_device() == idx
+            and (pW is None or pW.get_device() == idx)
+            and (m_t is None or m_t.get_device() == idx)):
+        ts = _tensors(xw_t, h_prev, c_prev, RW, pW, m_t)
+        if kernels.placement(*ts) == "cpu":  # else it raised
+            return lstm_cell_plain(xw_t, h_prev, c_prev, RW, pW, m_t,
+                                   gate_activation, activation)
+    if m_t is not None:
+        m_t = m_t.to(xw_t.dtype).contiguous()
+    key = (xw_t.shape, xw_t.stride(0), h_prev.shape, c_prev.shape, RW.shape,
+           xw_t.dtype, h_prev.dtype, c_prev.dtype, RW.dtype,
+           None if pW is None else (pW.shape, pW.dtype),
+           None if m_t is None else m_t.shape, gate_activation, activation,
+           idx)
+    setup = _launches.get(key)
+    if setup is None:
+        setup = _launches[key] = _setup(xw_t, h_prev, c_prev, RW, pW, m_t,
+                                        gate_activation, activation)
+    _, params = setup
+    if not (h_prev.is_contiguous() and c_prev.is_contiguous()
+            and RW.is_contiguous() and xw_t.stride(1) == 1
+            and (pW is None or pW.is_contiguous())):
+        _refuse(xw_t, h_prev, c_prev, RW, pW, m_t)
+    h, c = torch.empty_like(h_prev), torch.empty_like(h_prev)
+    out = h if m_t is None else torch.empty_like(h_prev)  # as the plain ops
+    with _build.on_device(idx):
+        _build.launch(
+            "dl4j_lstm_cell", xw_t.data_ptr(), h_prev.data_ptr(),
+            c_prev.data_ptr(), RW.data_ptr(),
+            None if pW is None else pW.data_ptr(),
+            None if m_t is None else m_t.data_ptr(), h.data_ptr(),
+            c.data_ptr(), None if m_t is None else out.data_ptr(), params,
+            _build.current_stream(idx))
+    kernels.launches["lstm_cell"].add()
+    return h, c, out
+
+
+def _setup(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation, activation):
+    """The checks that depend on shapes, dtypes and activations alone
+    (raising as the kernel cannot take them), then the launch's scalars."""
+    act = _act_code(gate_activation, activation)
+    dt = xw_t.dtype
+    code = DTYPE_CODES.get(dt)
+    if code is None:
+        raise TypeError(f"lstm_cell takes float32 or bfloat16, not {dt}")
+    b, n = h_prev.shape
+    _refuse(xw_t, h_prev, c_prev, RW, pW, m_t, layout=False)
+    params = _CellParams(xw_t.stride(0), b, n, act, code)
+    return params, ctypes.addressof(params)
+
+
+def _act_code(gate_activation, activation):
+    """The cell activation's code for the kernel; raises for gates other
+    than sigmoid or a cell activation the kernel lacks."""
     gate = str(gate_activation or "identity").lower()
     act = str(activation or "identity").lower()
     if gate not in GATE_ACTS or act not in CELL_ACT_CODES:
@@ -133,35 +225,25 @@ def _cell_forward(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation,
             f"lstm_cell: the CUDA kernel takes sigmoid gates and a cell "
             f"activation in {sorted(CELL_ACT_CODES)}; got gate "
             f"{gate_activation!r}, cell {activation!r} (ROADMAP A.19)")
+    return CELL_ACT_CODES[act]
+
+
+def _refuse(xw_t, h_prev, c_prev, RW, pW, m_t, layout=True):
+    """Raise for the first operand the kernel cannot take: its shape and
+    dtype, then (with `layout`) its layout."""
     dt = xw_t.dtype
-    if dt not in DTYPE_CODES:
-        raise TypeError(f"lstm_cell takes float32 or bfloat16, not {dt}")
     b, n = h_prev.shape
-    want = {"xw_t": (xw_t, (b, 4 * n)), "c_prev": (c_prev, (b, n)),
-            "RW": (RW, (n, 4 * n))}
+    want = [("h_prev", h_prev, (b, n)), ("xw_t", xw_t, (b, 4 * n)),
+            ("c_prev", c_prev, (b, n)), ("RW", RW, (n, 4 * n))]
     if pW is not None:
-        want["pW"] = (pW, (3 * n,))
+        want.append(("pW", pW, (3 * n,)))
     if m_t is not None:
-        m_t = m_t.to(dt).contiguous()
-        want["m_t"] = (m_t, (b,))
-    for name, (t, shape) in {"h_prev": (h_prev, (b, n)), **want}.items():
+        want.append(("m_t", m_t, (b,)))
+    for name, t, shape in want:
         if tuple(t.shape) != shape or t.dtype != dt:
             raise ValueError(f"lstm_cell: {name} is {tuple(t.shape)} "
                              f"{t.dtype}, want {shape} {dt}")
-        if name != "xw_t" and not t.is_contiguous():
+        if layout and name != "xw_t" and not t.is_contiguous():
             raise ValueError(f"lstm_cell: {name} must be contiguous")
-    if xw_t.stride(1) != 1:
+    if layout:
         raise ValueError("lstm_cell: xw_t's rows must be contiguous")
-    h, c, out = (torch.empty((b, n), dtype=dt, device=h_prev.device)
-                 for _ in range(3))
-    with torch.cuda.device(xw_t.device):
-        _build.launch(
-            "dl4j_lstm_cell", xw_t.data_ptr(), xw_t.stride(0),
-            h_prev.data_ptr(), c_prev.data_ptr(), RW.data_ptr(),
-            None if pW is None else pW.data_ptr(),
-            None if m_t is None else m_t.data_ptr(), h.data_ptr(),
-            c.data_ptr(), out.data_ptr(), b, n, CELL_ACT_CODES[act],
-            DTYPE_CODES[dt],
-            torch.cuda.current_stream(xw_t.device).cuda_stream)
-    kernels.launches["lstm_cell"].add()
-    return h, c, out

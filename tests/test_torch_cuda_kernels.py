@@ -132,6 +132,104 @@ def test_paged_kernel_matches_plain_serving_shape(cuda, dtype):
     _close(got, want, dtype)
 
 
+def _paged_case(rng, dtype, dev, pos, b=4, h=8, d=64, page=64, n_pages=16,
+                t=1, free=()):
+    """A pool of b * n_pages + 1 pages (page 0 the zero page), each slot's
+    pages below its cursor drawn at random from it, slots in `free` with an
+    all-zero table; q [b, t, h, d]."""
+    pool = b * n_pages + 1
+    q = _t(rng.randn(b, t, h, d), dtype, dev)
+    kp = _t(rng.randn(pool, page, h, d), dtype, dev)
+    vp = _t(rng.randn(pool, page, h, d), dtype, dev)
+    perm = rng.permutation(np.arange(1, pool))
+    table = np.zeros((b, n_pages), np.int32)
+    for s in range(b):
+        n = min(n_pages, -(-(int(pos[s]) + t) // page))
+        if s not in free:
+            table[s, :n] = perm[s * n_pages: s * n_pages + n]
+    return (q, kp, vp, torch.tensor(table, device=dev),
+            torch.tensor(np.asarray(pos, np.int32), device=dev))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pos", [[0, 0, 0, 0], [63, 0, 5, 1], [64, 63, 0, 2],
+                                 [65, 1, 64, 63], [1023, 40, 0, 700],
+                                 [1023] * 4])
+def test_paged_split_kernel_over_a_pos_sweep(cuda, dtype, pos):
+    # The serving shape (4 slots x 8 heads x 64, pages of 64, one page a
+    # split): cursors at 0, page - 1, page, page + 1 and 1023, all slots at
+    # 1023; the third slot of the mixed rows is free (all-zero table).
+    free = () if pos == [1023] * 4 else (2,)
+    args = _paged_case(np.random.RandomState(sum(pos)), dtype, cuda, pos,
+                       free=free)
+    plan = fa.paged_split_plan(4, 8, 16, 64, 64, args[0].element_size(),
+                               fa._sm_count(args[0].get_device()))
+    assert plan.pages_per_split == 1 and plan.n_splits == 16
+    for causal in (True, False):
+        got = fa.paged_decode_attention(*args, causal)
+        _close(got, fa.paged_gather_dense(*args, causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [8, 64, 128])
+@pytest.mark.parametrize("t", range(1, 9))
+def test_paged_split_kernel_query_widths_and_head_dims(cuda, dtype, d, t):
+    # 16-key pages, 8 a row: a multi-split row near the end of its table
+    # (cursor + t past it for t > 2), one in its second page, a free slot.
+    args = _paged_case(np.random.RandomState(10 * t + d), dtype, cuda,
+                       [122, 17, 0], b=3, h=2, d=d, page=16, n_pages=8, t=t,
+                       free=(2,))
+    for causal in (True, False):
+        got = fa.paged_decode_attention(*args, causal)
+        assert got.shape == args[0].shape and got.dtype == dtype
+        _close(got, fa.paged_gather_dense(*args, causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,offset", [(6, 0), (12, 0), (64, 1), (8, 1)])
+def test_paged_split_kernel_copies_unaligned_rows_by_element(cuda, dtype, d,
+                                                            offset):
+    # Rows that are no multiple of 16 bytes, or pools at an address that
+    # is not, take the element-by-element copy.
+    rng = np.random.RandomState(d + offset)
+    q, kp, vp, table, pos = _paged_case(rng, dtype, cuda, [70, 5, 33], b=3,
+                                        h=3, d=d, page=8, n_pages=12, t=2)
+    if offset:
+        kp, vp = (torch.cat([a.new_zeros(offset), a.flatten()])[offset:]
+                  .view(a.shape) for a in (kp, vp))
+        assert kp.data_ptr() % 16 and kp.is_contiguous()
+    for causal in (True, False):
+        got = fa.paged_decode_attention(q, kp, vp, table, pos, causal)
+        _close(got, fa.paged_gather_dense(q, kp, vp, table, pos, causal),
+               dtype)
+
+
+def test_paged_split_kernel_is_bitwise_repeatable(cuda):
+    args = _paged_case(np.random.RandomState(4), torch.bfloat16, cuda,
+                       [1000, 700, 330, 40])
+    first = fa.paged_decode_attention(*args, True)
+    for _ in range(3):
+        assert torch.equal(fa.paged_decode_attention(*args, True), first)
+
+
+def test_paged_wrapper_never_syncs_the_host(cuda):
+    # Neither pos nor the table is read on the host: the wrapper (workspace
+    # included, on a fresh stream) runs under the sync debug mode "error".
+    args = _paged_case(np.random.RandomState(5), torch.bfloat16, cuda,
+                       [1000, 700, 330, 40])
+    fa.paged_decode_attention(*args, True)  # builds and binds first
+    stream = torch.cuda.Stream()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(stream):
+            got = fa.paged_decode_attention(*args, True)
+            got = fa.paged_decode_attention(*args, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.current_stream().wait_stream(stream)
+    _close(got, fa.paged_gather_dense(*args, True), torch.bfloat16)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(4, 10, device=cuda)  # 10 % 4 != 0: no 16-byte rows
     g = torch.ones(10, device=cuda)
@@ -984,6 +1082,37 @@ def test_lstm_cell_wrapper_refuses(cuda):
     with pytest.raises(RuntimeError, match="no gradient"):
         lc._cell_forward(xw, h, c, rw.requires_grad_(True), pw, m, "sigmoid",
                          "tanh")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [7, 200, 256, 512])
+@pytest.mark.parametrize("b", [1, 3, 32, 64])
+def test_lstm_cell_kernel_over_rows_and_widths(cuda, dtype, b, n):
+    # Rows below, at and past one block's 32, widths that are no multiple
+    # of 16 bytes (7), of the 128-wide stage (200) and of several stages
+    # (512); xw_t strided as the scan hands it over; masked at odd b.
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    args = _cell_inputs(np.random.RandomState(b * n), b, n, True, b % 2 == 1,
+                        dtype, cuda, t=5)
+    assert args[0].stride(0) == 5 * 4 * n
+    got = lc.lstm_cell(*args, "sigmoid", "tanh")
+    want = lc.lstm_cell_plain(*_f32(args), "sigmoid", "tanh")
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (b, n)
+        _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lstm_cell_kernel_is_bitwise_repeatable(cuda, dtype):
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    args = _cell_inputs(np.random.RandomState(13), 32, 256, True, False,
+                        dtype, cuda)
+    first = lc.lstm_cell(*args, "sigmoid", "tanh")
+    for _ in range(3):
+        for g, f in zip(lc.lstm_cell(*args, "sigmoid", "tanh"), first):
+            assert torch.equal(g, f)
 
 
 def _char_rnn_pair(dev, dtype):

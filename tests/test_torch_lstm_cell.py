@@ -187,9 +187,8 @@ def test_kernel_wrapper_passes_the_c_entry_its_signature(monkeypatch):
 
     monkeypatch.setattr(_build, "launch", fake_launch)
     monkeypatch.setattr(kernels, "placement", lambda *ts: "cuda")
-    monkeypatch.setattr(torch.cuda, "device", lambda d: torch.no_grad())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(_build, "on_device", lambda i: torch.no_grad())
+    monkeypatch.setattr(_build, "current_stream", lambda i: 0)
     b, n, t = 3, 5, 4
     xw = torch.zeros(b, t, 4 * n).unbind(1)[2]
     h, c = torch.zeros(b, n), torch.zeros(b, n)
@@ -199,11 +198,17 @@ def test_kernel_wrapper_passes_the_c_entry_its_signature(monkeypatch):
     assert [tuple(o.shape) for o in out] == [(b, n)] * 3
     assert kernels.launches["lstm_cell"].value == before + 1
     (args,) = calls
-    assert args[1] == t * 4 * n and args[6] is None and args[5] is not None
-    assert args[10:14] == (b, n, lc.CELL_ACT_CODES["relu"],
-                           lc.DTYPE_CODES[torch.float32])
-    lc.lstm_cell(xw, h, c, rw, None, torch.ones(b), "sigmoid", "tanh")
-    assert calls[1][5] is None and calls[1][6] is not None
+    assert args[5] is None and args[4] is not None
+    # Without a mask out is h, as in the plain version: no out pointer.
+    assert out[2] is out[0] and args[8] is None
+    params = lc._CellParams.from_address(args[9])
+    assert (params.xw_stride, params.b, params.n, params.act,
+            params.dtype) == (t * 4 * n, b, n, lc.CELL_ACT_CODES["relu"],
+                              lc.DTYPE_CODES[torch.float32])
+    masked = lc.lstm_cell(xw, h, c, rw, None, torch.ones(b), "sigmoid",
+                          "tanh")
+    assert calls[1][4] is None and calls[1][5] is not None
+    assert masked[2] is not masked[0] and calls[1][8] is not None
     with pytest.raises(NotImplementedError, match="ROADMAP A.19"):
         lc.lstm_cell(xw, h, c, rw, pw, None, "hardsigmoid", "tanh")
     with pytest.raises(ValueError, match="pW"):

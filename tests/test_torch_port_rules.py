@@ -1,6 +1,7 @@
 """Rules of the PyTorch port that no later slice may break quietly.
 
-- The port and `chip_smoke.py` import neither JAX nor the JAX package:
+- The port, `chip_smoke.py` and `chip_ab.py` import neither JAX nor the
+  JAX package:
   every port module imports in a fresh interpreter where `jax` and
   `deeplearning4j_tpu` cannot be imported, and no source file names them
   in an import statement.
@@ -86,7 +87,7 @@ def test_every_port_module_imports_without_jax():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     assert _forbidden_imports(path) == []
