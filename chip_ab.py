@@ -15,7 +15,13 @@ The paths, at `chip_smoke.py`'s shapes and seeds:
 - rnn_fit: `MultiLayerNetwork.fit` of the char-RNN (`char_rnn(77, hidden=
   256)`, f32, RMSProp) at B=32 x 100 characters in tBPTT chunks of 50,
   synchronized wall per call;
-- rnn_char: one `rnn_time_step` of that net, one stream, per character.
+- rnn_char: one `rnn_time_step` of that net, one stream, per character;
+- lm_train: `ComputationGraph.fit` of that LM without a decode cache at
+  B=16 x T=1024 (Adam, int64 ids, int32 labels), synchronized wall per
+  step;
+- lenet_fit: `MultiLayerNetwork.fit` of `zoo.lenet_mnist()` on one
+  B=128 batch of the synthetic MNIST images (host numpy, copied inside
+  `fit`), synchronized wall per step; left out for a tree without it.
 
 `--against DIR` runs 2 x `--pairs` processes, this tree and DIR in turn
 (this, DIR, DIR, this, ...), each one of the runs above, and prints every
@@ -39,8 +45,11 @@ VOCAB, D_MODEL, HEADS, BLOCKS, CACHE = 8192, 512, 8, 4, 1024
 SLOTS, PAGE = 4, 64
 DEPTHS = (1000, 700, 300, 40)
 RNN_V, RNN_H, RNN_B, RNN_T, RNN_CHUNK = 77, 256, 32, 100, 50
-REPS = {"decode_step": 20, "rnn_fit": 5, "rnn_char": 100}
-WARMUP = {"decode_step": 3, "rnn_fit": 2, "rnn_char": 5}
+TRAIN_B, MNIST_B = 16, 128
+REPS = {"decode_step": 20, "rnn_fit": 5, "rnn_char": 100, "lm_train": 10,
+        "lenet_fit": 50}
+WARMUP = {"decode_step": 3, "rnn_fit": 2, "rnn_char": 5, "lm_train": 3,
+          "lenet_fit": 20}
 
 
 def card_line() -> str:
@@ -112,6 +121,27 @@ def run_tree() -> dict:
     char = np.eye(RNN_V, dtype=np.float32)[[3]]
     out["rnn_char"] = timed(torch, lambda: net.rnn_time_step(char),
                             WARMUP["rnn_char"], REPS["rnn_char"])
+    del net, batch
+
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+
+    lm = ComputationGraph(zoo.transformer_lm(
+        VOCAB, t=CACHE, d_model=D_MODEL, n_heads=HEADS, n_blocks=BLOCKS,
+        dtype="bfloat16"), device=dev).init()
+    ids = torch.as_tensor(rng.randint(0, VOCAB, (TRAIN_B, CACHE + 1)),
+                          device=dev)
+    mds = MultiDataSet([ids[:, :-1, None]], [ids[:, 1:].to(torch.int32)])
+    out["lm_train"] = timed(torch, lambda: lm.fit(mds), WARMUP["lm_train"],
+                            REPS["lm_train"])
+    del lm, mds
+
+    if hasattr(zoo, "lenet_mnist"):
+        from deeplearning4j_tpu_torch.datasets.builtin import load_mnist
+
+        lenet = MultiLayerNetwork(zoo.lenet_mnist(), device=dev).init()
+        ds = load_mnist(train=True, num_examples=MNIST_B)
+        out["lenet_fit"] = timed(torch, lambda: lenet.fit(ds),
+                                 WARMUP["lenet_fit"], REPS["lenet_fit"])
     return out
 
 
@@ -157,7 +187,7 @@ def main() -> int:
                           statistics.median(r[path]) for r in rs),
                       "run_medians": [statistics.median(r[path])
                                       for r in rs]}
-               for path in REPS}
+               for path in REPS if all(path in r for r in rs)}
         for tree, rs in runs.items()}
     print(json.dumps({"order": order, "card": card, "summary": summary}),
           flush=True)

@@ -18,7 +18,8 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               heads of 64, the LM step's 16,384 LayerNorm rows, and the 24
               layer vertices' 66 tensors of Adam params and state, one
               `apply_step` as the step runs it and one `dispatch` per
-              vertex in the deltas mode), in bf16
+              vertex in the deltas mode; LeNet's 8 tensors of Nesterovs
+              params and velocity, one `apply_step`), in bf16
               and f32 (the update kernel takes f32 only), against its plain
               PyTorch version on the card (rtol = atol = 4e-2 in bf16, 1e-4
               in f32 with TF32 off), timed with CUDA events (median of 25
@@ -130,7 +131,34 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               the CPU (plain versions): `output` within 1e-3, one `fit`
               call's score within 1e-3 relative, and per layer RMSProp's g2
               within 4e-2 of the CPU's largest g2 (a cut gradient shows).
-15. long_kernels - the streamed flash forward (row 4) and backward (row
+15. lenet_train - LeNet (`zoo.lenet_mnist`, the dl4j-examples
+              LenetMnistExample: conv 5x5x20, max-pool, conv 5x5x50,
+              max-pool, dense 500, softmax 10; f32, Nesterovs 0.9 at lr
+              0.01, l2 5e-4, 431,080 seeded random params) as the example
+              runs it: listeners set (score every 100 iterations,
+              `PerformanceListener(100, sync=True)`, every score
+              collected, a clock synchronizing at each iteration), one
+              `fit` epoch of `MnistDataSetIterator(128)` over the 60,000
+              synthetic training images (469 steps, the last of 96; each
+              batch copied from the host inside `fit`), then `evaluate` on
+              the 10,000 test images. Per step exactly 1 update launch (all
+              8 tensors), nothing else, 0 plain calls; the listener fired at
+              iterations 1..469; scores finite, the last 50 under the first
+              50 on average; the confusion total 10,000 and accuracy >=
+              0.95; ms/step (median after 20 steps), images/s, peak memory.
+16. lenet_parity - LeNet from one seeded numpy params tree on the card and
+              on the CPU (plain versions), 3 `fit` steps at B=128: per step
+              scores within 1e-4 relative, params and the Nesterovs velocity
+              within rtol 2e-4, atol 1e-5; `output` on 256 test images within
+              1e-4; then lenet_train's trained net and a CPU net with its
+              params: `evaluate` counts over the 10,000 test images equal,
+              once the CPU's smallest top-1 / top-2 margin exceeds 1e-4 (a
+              near-tie fails).
+17. mlp_train - the MNIST MLP (`zoo.mlp_mnist`: dense 1000 relu, softmax
+              10; Nesterovs 0.9 at lr 0.006, 795,010 params) as lenet_train
+              runs LeNet, on flat images: 1 update launch a step (4
+              tensors), 0 plain calls, accuracy >= 0.95.
+18. long_kernels - the streamed flash forward (row 4) and backward (row
               7: dq, dk/dv) at the long-context slice's shape ([1, 32768,
               8, 64], causal) in bf16 and f32 against their plain versions
               on the card (4e-2 / 1e-4 as above; row 4's o also row by
@@ -151,7 +179,7 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               rectangle's o equals the triangle's within 4e-2 and row by
               row within 1e-2, its lse within 1e-4; tri_ms, rect_ms and
               their ratio.
-16. long_train - the LM of phase 5 at T=32,768 (`transformer_lm(8192,
+19. long_train - the LM of phase 5 at T=32,768 (`transformer_lm(8192,
               t=32768, ...)`, ~38M params), `fit` at B=1 with Adam on the
               same learnable id rule, 2 warm-up and 5 timed steps over 2
               batches: every attention past the resident K/V limit, so per
@@ -159,22 +187,24 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               the tensor-core form), 9 LayerNorm and 1 update launch,
               none of rows 3, 5 and 6, 0 plain calls; scores finite and
               falling; ms/step, tokens/s, peak memory.
-17. long_output - 3 `output` calls of that net at B=1, T=32,768: 4
+20. long_output - 3 `output` calls of that net at B=1, T=32,768: 4
               streamed forwards (tensor-core form) and 9 LayerNorms per
               call, 0 plain calls; probabilities finite, summing to 1,
               equal across calls.
-18. long_parity - one f32 `fit` step at B=1, T=32,768 from the same seeded
+21. long_parity - one f32 `fit` step at B=1, T=32,768 from the same seeded
               params through the streamed rows 4/7 and through the
               resident rows 5/6 (the port's `_RESIDENT_KV_LIMIT` raised for
               that step and restored): scores within 1e-4 relative, Adam's
               m per vertex within max(1e-3, twice the step's own rounding
               floor) of the resident run's largest |m| (see the phase).
-19. trace   - where one decode step's, one 1024-token prefill's, one LM
+22. trace   - where one decode step's, one 1024-token prefill's, one LM
               training step's, one T1 and one T2 step's, one char-RNN fit
               call's (forward, backward, update; the call's two chunks
-              summed), one `rnn_time_step`'s and one long-context training
-              step's time goes: host wall time, kernel time on the card
-              (torch.profiler), the card's idle share and the top kernels;
+              summed), one `rnn_time_step`'s, one LeNet and one MLP fit
+              call's at B=128 (whole, and by part) and one long-context
+              training step's time goes: host wall time, kernel time on
+              the card (torch.profiler), the card's idle share and the top
+              kernels;
               and, in one traced window after a long-context step, causal
               SDPA at row 4's shape beside row 4 (device ms per call);
               every row 3, 5 and 6 launch there on the tensor-core form;
@@ -184,7 +214,8 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
 
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
-rnn_sample, long_train, long_output; row 13 on row 4's entry) and, last,
+rnn_sample, lenet_train, mlp_train, long_train, long_output; row 13 on
+row 4's entry; row 9 also with its time at LeNet's update) and, last,
 the result line. With no GPU, without the package beside it, or when any phase
 fails, it exits non-zero and prints no result.
 """
@@ -286,6 +317,20 @@ RNN_V, RNN_H, RNN_LAYERS, RNN_B, RNN_T, RNN_CHUNK = 77, 256, 2, 32, 100, 50
 RNN_WARMUP, RNN_TIMED, RNN_SAMPLE, RNN_PARITY_B = 3, 10, 200, 4
 RNN_LAUNCHES = {"lstm_cell": RNN_LAYERS * RNN_T,
                 "fused_update": RNN_T // RNN_CHUNK}
+
+# LeNet and the MNIST MLP (`deeplearning4j_tpu/models/zoo.py:32-61`; the
+# dl4j-examples LenetMnistExample and MLPMnistSingleLayerExample): f32,
+# Nesterovs 0.9, B=128, one `fit` epoch over the 60,000 synthetic training
+# images (469 steps, the last of 96), then `evaluate` on the 10,000 test
+# images. Per step one update launch for all the layers' tensors (LeNet 8,
+# the MLP 4).
+MNIST_B, MNIST_WARMUP, MNIST_TRAIN_N, MNIST_TEST_N = 128, 20, 60000, 10000
+MNIST_STEPS = -(-MNIST_TRAIN_N // MNIST_B)
+MNIST_LAUNCHES = {"fused_update": 1}
+MNIST_ACCURACY = 0.95
+LENET_PARITY_STEPS, LENET_PARITY_EVAL = 3, 256
+LENET_PARAM_TOL = dict(rtol=2e-4, atol=1e-5)
+NEAR_TIE = 1e-4
 
 # Long context: the same LM at T = 32,768, B = 1, where the K/V of
 # one (batch, head) outgrow the resident limit and every attention takes the
@@ -679,7 +724,77 @@ def train_kernel_cases(torch, dev, dtype_name, conf):
          lambda: run(lambda st, g: fused_update.adam_xla(
              st, g, lr, step, *hyper), dplain),
          None, 24 * elems, 15 * elems)]
-    return cases
+    return cases + [lenet_update_case(torch, dev)]
+
+
+def lenet_update_case(torch, dev):
+    """Row 9 at LeNet's update: Nesterovs 0.9 over its 4 layers' 8 f32
+    tensors (431,080 params; lr 0.01, step 5), one `apply_step` as `fit`
+    runs it, beside its plain version (per layer `nesterovs_xla`, then
+    `sub_`) and `torch._fused_sgd_` with Nesterov momentum over the same
+    lists (the same update with the velocity scaled by -1 / lr). Bytes: p,
+    g and v read, p and v written, 20 B a param."""
+    from deeplearning4j_tpu_torch.kernels import fused_update
+    from deeplearning4j_tpu_torch.models import zoo
+
+    rng = np.random.RandomState(3)
+    hyper, lr, step = (0.9,), 0.01, 5
+    shapes = {f"layer_{i}": layer.param_shapes()
+              for i, layer in enumerate(zoo.lenet_mnist().layers)
+              if layer.param_shapes()}
+
+    def tree(scale):
+        return {v: {k: torch.tensor(rng.randn(*s) * scale,
+                                    dtype=torch.float32, device=dev)
+                    for k, s in p.items()} for v, p in shapes.items()}
+
+    params0, grads, vel0 = tree(0.05), tree(0.01), tree(1e-4)
+
+    def copy(t):
+        return {v: {k: a.clone() for k, a in p.items()} for v, p in t.items()}
+
+    kp, kv, pp, pv, lp, lv = (copy(params0), copy(vel0), copy(params0),
+                              copy(vel0), copy(params0), copy(vel0))
+    kst = {v: {"v": kv[v]} for v in shapes}
+    tables = {}
+
+    def apply_kernel():
+        states = fused_update.apply_step("nesterovs", hyper, [
+            fused_update.UpdateItem(kp[v], kst[v], grads[v], lr)
+            for v in shapes], step, 1.0, tables)
+        kst.update(zip(shapes, states))
+        return [a for v in shapes for a in (*kp[v].values(),
+                                            *kst[v]["v"].values())]
+
+    pst = {v: {"v": pv[v]} for v in shapes}
+
+    def apply_plain():
+        out = []
+        for v in shapes:
+            pst[v], d = fused_update.nesterovs_xla(pst[v], grads[v], lr, step,
+                                                   *hyper)
+            fused_update.apply_deltas(pp[v], d, None, 1.0)
+            out += [*pp[v].values(), *pst[v]["v"].values()]
+        return out
+
+    fparams, fg, fbuf = ([a for p in t.values() for a in p.values()]
+                         for t in (lp, grads, lv))
+    lib = None
+    if hasattr(torch, "_fused_sgd_"):
+        def lib():
+            torch._fused_sgd_(fparams, fg, fbuf, weight_decay=0.0,
+                              momentum=hyper[0], lr=lr, dampening=0.0,
+                              nesterov=True, maximize=False,
+                              is_first_step=False)
+    elems = sum(a.numel() for a in fg)
+    return ("fused_update", lenet_update_label(shapes, elems), apply_kernel,
+            apply_plain, lib, 20 * elems, 7 * elems)
+
+
+def lenet_update_label(shapes, elems):
+    n = sum(len(p) for p in shapes.values())
+    return (f"nesterovs apply_step over LeNet's {len(shapes)} layers "
+            f"({n} tensors), {elems} f32 params")
 
 
 def lm_update_shapes(conf):
@@ -1201,14 +1316,17 @@ def trace_long_attention(torch, net, batch, reps=3):
 
 
 def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
-                rn_batches, rnn_net, rnn_batch, long_net, long_batch):
+                rn_batches, rnn_net, rnn_batch, long_net, long_batch,
+                mnist):
     """Where the time of one decode step (4 slots at depths 1000, 700, 300,
     40), of one 1024-token prefill, of the three parts of one LM training
     step, of one T1 and one T2 ResNet step, of one char-RNN fit call (two
     tBPTT chunks), of one char-RNN `rnn_time_step` (one character, one
-    stream) and of the three parts of one long-context training step (B=1,
-    T=32,768) goes: host wall time per call, kernel time on the card, the
-    card's idle share, and the top kernels."""
+    stream), of one LeNet and one MLP `fit` call at B=128 (whole, its host
+    copy of the batch included, and by part; `mnist`: {model: (net,
+    DataSet)}) and of the three parts of one long-context training step
+    (B=1, T=32,768) goes: host wall time per call, kernel time on the card,
+    the card's idle share, and the top kernels."""
     from deeplearning4j_tpu_torch.models.zoo import PagedDecodeStepper
     from deeplearning4j_tpu_torch.serving.scheduler import (
         prompt_bucket_ladder,
@@ -1231,6 +1349,11 @@ def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
     calls = {"decode_step": lambda: st.step([1] * SLOTS),
              "prefill_1024": lambda: st.prefill(prompt, pad_to=CACHE),
              "rnn_time_step": lambda: rnn_net.rnn_time_step(char)}
+    for model, (net, ds) in mnist.items():
+        # Reading the score waits for the step.
+        reps[f"{model}_fit_call"] = 20
+        calls[f"{model}_fit_call"] = (
+            lambda net=net, ds=ds: net.fit(ds).score_value)
     out = {}
     for what, fn in calls.items():
         torch.cuda.synchronize()
@@ -1247,6 +1370,8 @@ def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
         out[f"resnet_{path}_step"] = trace_train_step(
             torch, rn_nets[path], rn_batches[path][0])
     out["rnn_fit_call"] = trace_train_step(torch, rnn_net, rnn_batch)
+    for model, (net, ds) in mnist.items():
+        out[f"{model}_fit_step"] = trace_train_step(torch, net, ds)
     out["long_train_step"] = trace_train_step(torch, long_net, long_batch)
     out["long_attention"] = trace_long_attention(torch, long_net, long_batch)
     # Every row 3, 5 and 6 launch of the traced prefills and LM step took
@@ -1257,7 +1382,8 @@ def phase_trace(card, torch, cg, train_net, train_batch, rn_nets,
     if not all(launched.values()):
         errors.append(f"a resident flash row never launched: {launched}")
     for what in ("train_step", "resnet_t1_step", "resnet_t2_step",
-                 "rnn_fit_call", "long_train_step"):
+                 "rnn_fit_call", "long_train_step",
+                 *(f"{model}_fit_step" for model in mnist)):
         errors += _update_errors(out[what], what)
     emit(card, phase="trace", ok=not errors, errors=errors,
          variants={n: counts["variants"][n] for n in RESIDENT_ROWS}, **out)
@@ -1527,6 +1653,218 @@ def phase_rnn_parity(card, torch, dev):
          batch=RNN_PARITY_B, seq_len=RNN_T, max_abs_prob_diff=prob_diff,
          score_card=card_net.score_value, score_cpu=cpu.score_value,
          score_rel_diff=score_rel, g2_err_over_max=g2,
+         seconds=time.perf_counter() - t0)
+    return not errors
+
+
+# ------------------------------------------------------------ LeNet, MLP
+
+
+def _mnist_conf(model):
+    from deeplearning4j_tpu_torch.models import zoo
+
+    return zoo.lenet_mnist() if model == "lenet" else zoo.mlp_mnist()
+
+
+def phase_mnist_train(card, torch, kernels, dev, model):
+    """LeNet (`model` "lenet") or the MLP ("mlp") at full width, seeded
+    random weights, as the examples run it: `set_listeners` (score every
+    100 iterations, `PerformanceListener(100, sync=True)`, every score
+    collected, and a clock that synchronizes and reads the time at each
+    iteration), one `fit` epoch of `MnistDataSetIterator(128)` (each batch
+    copied from host numpy to the card inside `fit`), then `evaluate` on
+    the test set. Exactly one update launch a step and nothing else, 0
+    plain calls; the listener fired at iterations 1..469; scores finite,
+    the mean of the last 50 under that of the first 50; 10,000 test images
+    counted, accuracy >= 0.95."""
+    from deeplearning4j_tpu_torch.datasets.builtin import (
+        MnistDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import listeners as ls
+
+    class StepClock(ls.IterationListener):
+        def __init__(self):
+            self.marks = []
+
+        def on_epoch_start(self, model):
+            torch.cuda.synchronize(dev)
+            self.marks.append(time.perf_counter())
+
+        def iteration_done(self, model, iteration):
+            torch.cuda.synchronize(dev)
+            self.marks.append(time.perf_counter())
+
+    flat = model == "mlp"
+    t0 = time.perf_counter()
+    train = MnistDataSetIterator(MNIST_B, train=True, flat=flat)
+    test = MnistDataSetIterator(MNIST_B, train=False, flat=flat)
+    data_s = time.perf_counter() - t0
+    net = MultiLayerNetwork(_mnist_conf(model), device=dev).init()
+    log, clock = [], StepClock()
+    scores = ls.CollectScoresIterationListener(1)
+    net.set_listeners(ls.ScoreIterationListener(100, out=log.append),
+                      ls.PerformanceListener(100, sync=True, out=log.append),
+                      scores, clock)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    net.fit(train)
+    epoch_s = time.perf_counter() - t0
+    counts = kernels.counts()
+    errors, want = _launch_errors(counts, MNIST_LAUNCHES, MNIST_STEPS)
+    iters = [i for i, _ in scores.scores]
+    if iters != list(range(1, MNIST_STEPS + 1)):
+        errors.append(f"listener iterations {iters[:3]}..{iters[-3:]} "
+                      f"({len(iters)}), not 1..{MNIST_STEPS}")
+    vals = [s for _, s in scores.scores]
+    first50, last50 = (float(np.mean(vals[:50])), float(np.mean(vals[-50:])))
+    if not all(np.isfinite(vals)):
+        errors.append("non-finite score")
+    if not last50 < first50:
+        errors.append(f"scores did not fall: first 50 {first50}, last 50 "
+                      f"{last50}")
+    if (net.iteration, net.epoch) != (MNIST_STEPS, 1):
+        errors.append(f"iteration {net.iteration}, epoch {net.epoch}")
+    step_ms = [(b - a) * 1e3 for a, b in zip(clock.marks, clock.marks[1:])]
+    timed = step_ms[MNIST_WARMUP:]
+    ms = statistics.median(timed)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    ev = net.evaluate(test)
+    eval_s = time.perf_counter() - t0
+    total = int(ev.confusion.matrix.sum())
+    if total != MNIST_TEST_N:
+        errors.append(f"confusion total {total} != {MNIST_TEST_N}")
+    if not ev.accuracy() >= MNIST_ACCURACY:
+        errors.append(f"accuracy {ev.accuracy()} < {MNIST_ACCURACY}")
+    first = next(iter(train))
+    emit(card, phase=f"{model}_train", ok=not errors, errors=errors,
+         model=(f"{model}_mnist f32, Nesterovs 0.9 lr "
+                f"{net.layers[0].learning_rate}, "
+                f"{net.num_params()} params"),
+         batch=MNIST_B, steps=MNIST_STEPS,
+         last_batch=MNIST_TRAIN_N - (MNIST_STEPS - 1) * MNIST_B,
+         ms_per_step_median=ms, ms_per_step_mean=statistics.mean(timed),
+         ms_per_step_p90=float(np.percentile(timed, 90)),
+         images_per_s=MNIST_B / ms * 1e3,
+         epoch_s=epoch_s, epoch_images_per_s=MNIST_TRAIN_N / epoch_s,
+         host_to_device_bytes_per_batch=int(first.features.nbytes
+                                            + first.labels.nbytes),
+         max_memory_allocated_bytes=peak,
+         # the earlier phases' tensors still held are in both
+         peak_over_start_bytes=peak - start_bytes, data_build_s=data_s,
+         first_score=vals[0], first50_mean=first50, last50_mean=last50,
+         accuracy=ev.accuracy(), precision=ev.precision(),
+         recall=ev.recall(), f1=ev.f1(), confusion_total=total,
+         evaluate_s=eval_s, listener_log=log[:3] + log[-2:],
+         launches=counts["launches"], expected_launches=want,
+         plain_calls=counts["plain_calls"])
+    return not errors, counts["launches"], (net, first)
+
+
+def _lenet_params(torch):
+    """LeNet's params from one seeded numpy draw: weights N(0, 2 / (fan in
+    + fan out)) (xavier; HWIO kernels' fans over the taps), biases
+    N(0, 0.01^2)."""
+    rng = np.random.RandomState(41)
+    out = {}
+    for i, layer in enumerate(_mnist_conf("lenet").layers):
+        p = {}
+        for k, s in layer.param_shapes().items():
+            if len(s) == 1:
+                a = rng.randn(*s) * 0.01
+            else:
+                taps = int(np.prod(s[:-2]))
+                a = rng.randn(*s) * (2.0 / (taps * (s[-2] + s[-1]))) ** 0.5
+            p[k] = torch.tensor(a, dtype=torch.float32)
+        out[f"layer_{i}"] = p
+    return out
+
+
+def _tree_errors(got, want, tol):
+    """Names whose tensors differ beyond rtol / atol, with the largest
+    excess |got - want| - (atol + rtol |want|) of each."""
+    bad = {}
+    for lk, p in want.items():
+        for k, a in p.items():
+            g = got[lk][k].detach().cpu()
+            excess = float(((g - a.detach()).abs() - tol["atol"]
+                            - tol["rtol"] * a.detach().abs()).max())
+            if excess > 0:
+                bad[f"{lk}/{k}"] = excess
+    return bad
+
+
+def phase_lenet_parity(card, torch, dev, trained):
+    """f32, B=128: LeNet from one seeded numpy params tree on the card and
+    on the CPU (plain versions), 3 `fit` steps on the first 384 training
+    images: per step the scores within 1e-4 relative, the params and the
+    Nesterovs velocity within rtol 2e-4, atol 1e-5; then `output` on 256
+    test images within 1e-4. Three steps from random weights leave the
+    outputs near uniform, where top-1 / top-2 near-ties are certain (the
+    smallest margin over 256 images is ~1e-7 to ~1e-4), so `evaluate` is
+    held on lenet_train's trained net (`trained`) and a CPU net with its
+    params: counts over the 10,000 test images equal, once the CPU's
+    smallest top-1 / top-2 margin exceeds 1e-4 (a near-tie fails)."""
+    from deeplearning4j_tpu_torch.datasets.builtin import load_mnist
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    t0 = time.perf_counter()
+    params = _lenet_params(torch)
+    cpu = MultiLayerNetwork(_mnist_conf("lenet"), device="cpu").init(
+        params=params)
+    card_net = MultiLayerNetwork(_mnist_conf("lenet"), device=dev).init(
+        params=params)
+    train = load_mnist(train=True, num_examples=LENET_PARITY_STEPS * MNIST_B)
+    errors, steps = [], []
+    for i, ds in enumerate(train.batch_by(MNIST_B)):
+        for net in (cpu, card_net):
+            net.fit(ds)
+        rel = abs(card_net.score_value - cpu.score_value) / abs(
+            cpu.score_value)
+        bad_p = _tree_errors(card_net.params_tree, cpu.params_tree,
+                             LENET_PARAM_TOL)
+        bad_v = _tree_errors(
+            {k: s["v"] for k, s in card_net.opt_state.items()},
+            {k: s["v"] for k, s in cpu.opt_state.items() if s["v"]},
+            LENET_PARAM_TOL)
+        steps.append({"score_card": card_net.score_value,
+                      "score_cpu": cpu.score_value, "score_rel_diff": rel,
+                      "params_over_tol": bad_p, "velocity_over_tol": bad_v})
+        if rel > 1e-4 or bad_p or bad_v:
+            errors.append(f"step {i}: {steps[-1]}")
+    test = load_mnist(train=False, num_examples=LENET_PARITY_EVAL)
+    prob_diff = float(np.abs(card_net.output(test.features)
+                             - cpu.output(test.features)).max())
+    if prob_diff > 1e-4:
+        errors.append(f"output differs by {prob_diff}")
+    test = DataSet(*(lambda d: (d.features, d.labels))(
+        load_mnist(train=False)))
+    trained_cpu = MultiLayerNetwork(_mnist_conf("lenet"), device="cpu").init(
+        params={k: {n: a.detach() for n, a in p.items()}
+                for k, p in trained.params_tree.items()})
+    want = trained_cpu.output(test.features)
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    margin = float((top2[:, 1] - top2[:, 0]).min())
+    trained_diff = float(np.abs(trained.output(test.features) - want).max())
+    counts_equal = None
+    if margin <= NEAR_TIE:
+        errors.append(f"near-tie: smallest top-1 / top-2 margin {margin}")
+    else:
+        ev_card, ev_cpu = trained.evaluate(test), trained_cpu.evaluate(test)
+        counts_equal = bool(np.array_equal(ev_card.confusion.matrix,
+                                           ev_cpu.confusion.matrix))
+        if not counts_equal:
+            errors.append("evaluate counts differ")
+    emit(card, phase="lenet_parity", ok=not errors, errors=errors,
+         batch=MNIST_B, steps=steps, max_abs_prob_diff=prob_diff,
+         output_images=LENET_PARITY_EVAL, eval_images=MNIST_TEST_N,
+         trained_max_abs_prob_diff=trained_diff, min_top2_margin=margin,
+         evaluate_counts_equal=counts_equal,
          seconds=time.perf_counter() - t0)
     return not errors
 
@@ -2519,6 +2857,15 @@ def main() -> int:
         failed.append("rnn_sample")
     if not phase_rnn_parity(card, torch, dev):
         failed.append("rnn_parity")
+    mnist = {}
+    for model in ("lenet", "mlp"):
+        ok, path_launches[f"{model}_train"], mnist[model] = \
+            phase_mnist_train(card, torch, kernels, dev, model)
+        if not ok:
+            failed.append(f"{model}_train")
+        if model == "lenet" and not phase_lenet_parity(card, torch, dev,
+                                                       mnist[model][0]):
+            failed.append("lenet_parity")
 
     long_rows, row13 = phase_long_kernels(card, torch, dev)
     if not (all(r["ok"] for r in long_rows) and row13["ok"]):
@@ -2536,7 +2883,7 @@ def main() -> int:
         failed.append("long_parity")
     trace, ok = phase_trace(card, torch, cg, train_net, batches[0], nets,
                             rn_batch, rnn_net, rnn_data[0], long_net,
-                            long_batches[0])
+                            long_batches[0], mnist)
     if not ok:
         failed.append("trace")
 
@@ -2545,11 +2892,12 @@ def main() -> int:
         return 1
     # The kernels line: each kernel at the shape most of its main-path
     # launches have (bf16; the update kernel's state and the char-RNN are
-    # f32), with this run's launches on the ten main paths (each counted
+    # f32), with this run's launches on the twelve main paths (each counted
     # from 0: the serve phase, the LM train phase's 23 steps, T1's and T2's
     # 13 steps, I1's and I2's 13 calls, the char-RNN's 13 fit calls and its
-    # 2 x 200 sampling calls, the long-context train phase's 7 steps and its
-    # 3 `output` calls), summed and by path. Row 10's library call covers
+    # 2 x 200 sampling calls, LeNet's and the MLP's 469 steps each, the
+    # long-context train phase's 7 steps and its 3 `output` calls), summed
+    # and by path. Row 10's library call covers
     # the step without peepholes (at the same B and n); row 13 is row 4's
     # kernel over two lists, carried on row 4's entry.
     main_shape = {
@@ -2616,6 +2964,14 @@ def main() -> int:
                     hit[0]["ms_per_call"] / hit[0]["per_call"]
             entries[-1]["library_device_ms"] = (
                 sdpa_ms["sdpa_causal_fwd_bwd"] - sdpa_ms["sdpa_causal"])
+        if name == "fused_update":
+            # Row 9 at LeNet's update (Nesterovs, one launch a step there).
+            lenet = next(r for r in rows if r["name"] == name
+                         and r["shape"].startswith("nesterovs"))
+            entries[-1]["lenet_nesterovs"] = {k: lenet[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "device_ms", "host_ms",
+                "bound_share_by_device", "library_device_ms")}
         if name == "lstm_cell":
             entries[-1]["library_ms_without_peepholes"] = next(
                 r["library_ms"] for r in rows if r["name"] == name

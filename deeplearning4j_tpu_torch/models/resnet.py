@@ -15,7 +15,6 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
-from deeplearning4j_tpu_torch.nn.conf.enums import ConvolutionMode
 from deeplearning4j_tpu_torch.nn.conf.graph import (
     ElementWiseVertex,
     LayerVertex,
@@ -28,19 +27,12 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     GlobalPoolingLayer,
     OutputLayer,
     SubsamplingLayer,
+    conv_out_hw,
 )
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
     GlobalConf,
 )
-
-
-def _out_hw(h, w, kernel, stride, padding, mode) -> Tuple[int, int]:
-    if (ConvolutionMode.of(mode) or ConvolutionMode.TRUNCATE) \
-            == ConvolutionMode.SAME:
-        return -(-h // stride[0]), -(-w // stride[1])
-    return ((h + 2 * padding[0] - kernel[0]) // stride[0] + 1,
-            (w + 2 * padding[1] - kernel[1]) // stride[1] + 1)
 
 
 class GraphBuilder:
@@ -63,8 +55,7 @@ class GraphBuilder:
             if isinstance(layer, ConvolutionLayer):
                 layer.n_in = c
                 c = layer.n_out
-            h, w = _out_hw(h, w, layer.kernel_size, layer.stride,
-                           layer.padding, layer.convolution_mode)
+            h, w = conv_out_hw(layer, h, w)
             shape = (h, w, c)
         elif isinstance(layer, BatchNormalization):
             layer.n_in = layer.n_out = shape[-1]

@@ -1,7 +1,8 @@
 """Model zoo (counterpart of `deeplearning4j_tpu/models/zoo.py`):
 `transformer_lm`, token sampling, `generate_lm`, the step-granular decode
 steppers the serving scheduler drives (dense per-slot KV caches, or a
-paged KV pool), and the GravesLSTM `char_rnn`.
+paged KV pool), the GravesLSTM `char_rnn`, and the MNIST models
+`mlp_mnist` and `lenet_mnist`.
 
 Ids travel as int64 tensors: the reference feeds its steppers float32 ids,
 which a bf16 compute policy rounds (ids above 256 stop being exact); the
@@ -23,13 +24,16 @@ from deeplearning4j_tpu_torch.nn.conf.graph import (
 )
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
+    ConvolutionLayer,
     DenseLayer,
     EmbeddingLayer,
     GravesLSTM,
     LayerNormalization,
+    OutputLayer,
     PositionalEmbeddingLayer,
     RnnOutputLayer,
     SelfAttentionLayer,
+    SubsamplingLayer,
 )
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
@@ -119,6 +123,44 @@ def char_rnn(vocab_size: int = 77, hidden: int = 200, layers: int = 2,
         g, stack, InputType.recurrent(vocab_size),
         backprop_type="truncatedbptt", tbptt_fwd_length=tbptt_length,
         tbptt_back_length=tbptt_length)
+
+
+def mlp_mnist(seed: int = 123, lr: float = 0.006) -> MultiLayerConfiguration:
+    """The reference's two-layer MLP on flat 28x28 images: dense 1000
+    relu, softmax 10 (negative log-likelihood); Nesterovs 0.9 at `lr`, l2
+    1e-4, xavier init."""
+    g = GlobalConf(seed=seed, learning_rate=lr, updater="nesterovs",
+                   momentum=0.9, weight_init="xavier", l2=1e-4)
+    return MultiLayerConfiguration.build(g, [
+        DenseLayer(n_out=1000, activation="relu"),
+        OutputLayer(n_out=10, activation="softmax",
+                    loss_function="negativeloglikelihood"),
+    ], InputType.feed_forward(784))
+
+
+def lenet_mnist(seed: int = 123, lr: float = 0.01,
+                dtype: str = "float32") -> MultiLayerConfiguration:
+    """The reference's LeNet (dl4j-examples LenetMnistExample) on 28x28x1
+    NHWC images: conv 5x5x20, max-pool 2x2, conv 5x5x50, max-pool 2x2 (the
+    builder puts a CnnToFeedForward preprocessor before the dense layer),
+    dense 500 relu, softmax 10; Nesterovs 0.9 at `lr`, l2 5e-4, xavier
+    init, identity activations by default."""
+    g = GlobalConf(seed=seed, learning_rate=lr, updater="nesterovs",
+                   momentum=0.9, weight_init="xavier", l2=5e-4,
+                   activation="identity", dtype=dtype)
+    return MultiLayerConfiguration.build(g, [
+        ConvolutionLayer(kernel_size=(5, 5), stride=(1, 1), n_out=20,
+                         activation="identity"),
+        SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                         stride=(2, 2)),
+        ConvolutionLayer(kernel_size=(5, 5), stride=(1, 1), n_out=50,
+                         activation="identity"),
+        SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                         stride=(2, 2)),
+        DenseLayer(n_out=500, activation="relu"),
+        OutputLayer(n_out=10, activation="softmax",
+                    loss_function="negativeloglikelihood"),
+    ], InputType.convolutional(28, 28, 1))
 
 
 def _sample_token(probs, rng, temperature: float, top_k: int, top_p: float):

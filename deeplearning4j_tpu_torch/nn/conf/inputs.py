@@ -1,8 +1,9 @@
 """Input types for shape inference (counterpart of
-`deeplearning4j_tpu/nn/conf/inputs.py`): the feed-forward `[batch, size]`
-and recurrent `[batch, time, size]` kinds that `MultiLayerConfiguration.
-build` infers `n_in` from. The convolutional kinds come with the
-preprocessors (ROADMAP A.2)."""
+`deeplearning4j_tpu/nn/conf/inputs.py`): feed-forward `[batch, size]`,
+recurrent `[batch, time, size]`, convolutional NHWC `[batch, h, w, c]` and
+its flat form `cnnflat` (`[batch, h * w * c]`, h, w and c carried), from
+which `MultiLayerConfiguration.build` infers each layer's `n_in` and the
+preprocessors it inserts between layer families."""
 
 from __future__ import annotations
 
@@ -12,9 +13,12 @@ from typing import Optional
 
 @dataclass(frozen=True)
 class InputType:
-    kind: str = "ff"  # ff | rnn
-    size: int = 0
+    kind: str = "ff"  # ff | rnn | cnn | cnnflat
+    size: int = 0  # ff / rnn feature size (cnnflat: h * w * c)
     timeseries_length: Optional[int] = None  # rnn (None = variable)
+    height: int = 0
+    width: int = 0
+    channels: int = 0
 
     @staticmethod
     def feed_forward(size: int) -> "InputType":
@@ -26,17 +30,41 @@ class InputType:
         return InputType(kind="rnn", size=size,
                          timeseries_length=timeseries_length)
 
+    @staticmethod
+    def convolutional(height: int, width: int, channels: int) -> "InputType":
+        return InputType(kind="cnn", height=height, width=width,
+                         channels=channels)
+
+    @staticmethod
+    def convolutional_flat(height: int, width: int,
+                           channels: int) -> "InputType":
+        return InputType(kind="cnnflat", height=height, width=width,
+                         channels=channels, size=height * width * channels)
+
     def flat_size(self) -> int:
-        return self.size
+        if self.kind in ("ff", "rnn"):
+            return self.size
+        return self.height * self.width * self.channels
+
+    def to_dict(self) -> dict:
+        d = {"kind": self.kind}
+        if self.kind in ("ff", "rnn"):
+            d["size"] = self.size
+        if self.kind == "rnn" and self.timeseries_length is not None:
+            d["timeseries_length"] = self.timeseries_length
+        if self.kind in ("cnn", "cnnflat"):
+            d.update(height=self.height, width=self.width,
+                     channels=self.channels)
+        return d
 
     @staticmethod
     def from_dict(d) -> Optional["InputType"]:
         if d is None:
             return None
         kind = d.get("kind", "ff")
-        if kind not in ("ff", "rnn"):
-            raise NotImplementedError(
-                f"input type {kind!r} is not in the port yet: it comes with "
-                "the cnn preprocessors (ROADMAP A.2)")
+        if kind not in ("ff", "rnn", "cnn", "cnnflat"):
+            raise ValueError(f"unknown input type kind {kind!r}")
         return InputType(kind=kind, size=d.get("size", 0),
-                         timeseries_length=d.get("timeseries_length"))
+                         timeseries_length=d.get("timeseries_length"),
+                         height=d.get("height", 0), width=d.get("width", 0),
+                         channels=d.get("channels", 0))

@@ -4,8 +4,10 @@ recurrent layers, with the reference's field names (the training fields of
 `layers.py:82-100` included), defaults, `param_shapes()` and
 `state_shapes()` order, so `from_dict` reads the reference's `to_json()` as
 it is. `set_n_in`, `get_output_type` and `default_preprocessor` are the
-shape inference of `MultiLayerConfiguration.build` for feed-forward and
-recurrent inputs."""
+shape inference of `MultiLayerConfiguration.build` (the reference's
+`layers.py:112-120, 179-199, 361-375, 402-411`): feed-forward, recurrent
+and convolutional input types, output sizes under TRUNCATE, STRICT and
+SAME, and the preprocessor a layer asks for between layer families."""
 
 from __future__ import annotations
 
@@ -13,7 +15,15 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+from deeplearning4j_tpu_torch.nn.conf.enums import ConvolutionMode
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    CnnToFeedForwardPreProcessor,
+    CnnToRnnPreProcessor,
+    FeedForwardToCnnPreProcessor,
+    FeedForwardToRnnPreProcessor,
+    InputPreProcessor,
+)
 
 _LAYER_REGISTRY: Dict[str, type] = {}
 
@@ -79,9 +89,10 @@ class Layer:
     def set_n_in(self, input_type: InputType, override: bool) -> None:
         """Infer n_in from the previous layer's output type (no-op here)."""
 
-    def default_preprocessor(self, input_type: InputType) -> Optional[str]:
-        """The reference's automatic preprocessor for this input, by class
-        name (None: the input fits as it is)."""
+    def default_preprocessor(
+            self, input_type: InputType) -> Optional[InputPreProcessor]:
+        """The reference's automatic preprocessor for this input (None: the
+        input fits as it is)."""
         return None
 
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
@@ -117,8 +128,59 @@ class FeedForwardLayer(Layer):
         if override or not self.n_in:
             self.n_in = input_type.flat_size()
 
+    def default_preprocessor(self, input_type: InputType):
+        if input_type.kind == "cnn":
+            return CnnToFeedForwardPreProcessor(
+                input_type.height, input_type.width, input_type.channels)
+        return None
+
     def param_shapes(self):
         return {"W": (self.n_in, self.n_out), "b": (self.n_out,)}
+
+
+def conv_out_hw(layer, h: int, w: int) -> Tuple[int, int]:
+    """A convolution's or pooling's output size: ceil(n / s) under SAME;
+    (n + 2p - k) // s + 1 under TRUNCATE, and under STRICT only where that
+    division is exact."""
+    mode = (ConvolutionMode.of(layer.convolution_mode)
+            or ConvolutionMode.TRUNCATE)
+    (kh, kw), (sh, sw), (ph, pw) = (layer.kernel_size, layer.stride,
+                                    layer.padding)
+    if mode == ConvolutionMode.SAME:
+        return -(-h // sh), -(-w // sw)
+    if mode == ConvolutionMode.STRICT and (
+            (h + 2 * ph - kh) % sh or (w + 2 * pw - kw) % sw):
+        raise ValueError(
+            f"ConvolutionMode.STRICT: input {h}x{w} with kernel "
+            f"{layer.kernel_size}, stride {layer.stride}, padding "
+            f"{layer.padding} does not tile exactly (use TRUNCATE or SAME)")
+    return (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+
+
+def _same_size(layer, input_type: InputType) -> InputType:
+    return input_type
+
+
+def _set_n_in_flat(layer, input_type: InputType, override: bool) -> None:
+    layer.n_in = layer.n_out = input_type.flat_size()
+
+
+@dataclass
+class BaseRecurrentLayer(FeedForwardLayer):
+    """Recurrent layers: [b, t, n_in] -> [b, t, n_out]; a feed-forward or
+    convolutional input gets the reference's FeedForwardToRnn or CnnToRnn
+    preprocessor."""
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, input_type.timeseries_length)
+
+    def default_preprocessor(self, input_type: InputType):
+        if input_type.kind == "ff":
+            return FeedForwardToRnnPreProcessor()
+        if input_type.kind == "cnn":
+            return CnnToRnnPreProcessor(input_type.height, input_type.width,
+                                        input_type.channels)
+        return None
 
 
 @register_layer
@@ -134,6 +196,14 @@ class RnnOutputLayer(FeedForwardLayer):
     the engine applies `activation` after the cast to the output dtype."""
 
     loss_function: Any = "mcxent"
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, input_type.timeseries_length)
+
+    def default_preprocessor(self, input_type: InputType):
+        if input_type.kind == "ff":
+            return FeedForwardToRnnPreProcessor()
+        return None
 
 
 @register_layer
@@ -169,6 +239,9 @@ class LayerNormalization(FeedForwardLayer):
     eps: float = 1e-5
     activation: Any = "identity"
 
+    get_output_type = _same_size
+    set_n_in = _set_n_in_flat
+
     def param_shapes(self):
         return {"gamma": (self.n_out,), "beta": (self.n_out,)}
 
@@ -183,13 +256,16 @@ class PositionalEmbeddingLayer(FeedForwardLayer):
     stateful: bool = False
     activation: Any = "identity"
 
+    get_output_type = _same_size
+    set_n_in = _set_n_in_flat
+
     def param_shapes(self):
         return {"P": (self.max_length, self.n_out)}
 
 
 @register_layer
 @dataclass
-class SelfAttentionLayer(FeedForwardLayer):
+class SelfAttentionLayer(BaseRecurrentLayer):
     """Multi-head self-attention; `decode_cache_length` sizes the KV cache
     of stateful decode."""
 
@@ -217,6 +293,8 @@ class ActivationLayer(Layer):
     n_in: int = 0
     n_out: int = 0
 
+    set_n_in = _set_n_in_flat
+
 
 @register_layer
 @dataclass
@@ -236,6 +314,21 @@ class ConvolutionLayer(FeedForwardLayer):
         self.stride = _tuple2(self.stride)
         self.padding = _tuple2(self.padding)
         self.dilation = _tuple2(self.dilation)
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        return InputType.convolutional(
+            *conv_out_hw(self, input_type.height, input_type.width),
+            self.n_out)
+
+    def set_n_in(self, input_type: InputType, override: bool) -> None:
+        if override or not self.n_in:
+            self.n_in = input_type.channels
+
+    def default_preprocessor(self, input_type: InputType):
+        if input_type.kind == "cnnflat":
+            return FeedForwardToCnnPreProcessor(
+                input_type.height, input_type.width, input_type.channels)
+        return None
 
     def param_shapes(self):
         kh, kw = self.kernel_size
@@ -262,6 +355,11 @@ class SubsamplingLayer(Layer):
         self.stride = _tuple2(self.stride)
         self.padding = _tuple2(self.padding)
 
+    def get_output_type(self, input_type: InputType) -> InputType:
+        return InputType.convolutional(
+            *conv_out_hw(self, input_type.height, input_type.width),
+            input_type.channels)
+
 
 @register_layer
 @dataclass
@@ -276,6 +374,17 @@ class BatchNormalization(FeedForwardLayer):
     lock_gamma_beta: bool = False
     gamma: float = 1.0
     beta: float = 0.0
+
+    get_output_type = _same_size
+
+    def set_n_in(self, input_type: InputType, override: bool) -> None:
+        if override or not self.n_out:
+            self.n_in = self.n_out = (
+                input_type.flat_size() if input_type.kind in ("ff", "rnn")
+                else input_type.channels)
+
+    def default_preprocessor(self, input_type: InputType):
+        return None
 
     def param_shapes(self):
         if self.lock_gamma_beta:
@@ -306,6 +415,20 @@ class BottleneckBlock(FeedForwardLayer):
 
     def branch_names(self) -> Tuple[str, ...]:
         return ("a", "b", "c") + (("proj",) if self.project else ())
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        sh, sw = self.stride
+        return InputType.convolutional(-(-input_type.height // sh),
+                                       -(-input_type.width // sw),
+                                       4 * self.filters)
+
+    def set_n_in(self, input_type: InputType, override: bool) -> None:
+        if override or not self.n_in:
+            self.n_in = input_type.channels
+        self.n_out = 4 * self.filters
+
+    def default_preprocessor(self, input_type: InputType):
+        return None  # NHWC in and out: never flattened
 
     def param_shapes(self):
         f1, f3 = self.filters, 4 * self.filters
@@ -339,18 +462,12 @@ class GlobalPoolingLayer(Layer):
     collapse_dimensions: bool = True
     pnorm: int = 2
 
-
-@dataclass
-class BaseRecurrentLayer(FeedForwardLayer):
-    """Recurrent layers: [b, t, n_in] -> [b, t, n_out]; a feed-forward input
-    needs the reference's FeedForwardToRnnPreProcessor."""
-
     def get_output_type(self, input_type: InputType) -> InputType:
-        return InputType.recurrent(self.n_out, input_type.timeseries_length)
-
-    def default_preprocessor(self, input_type: InputType) -> Optional[str]:
-        return ("FeedForwardToRnnPreProcessor" if input_type.kind == "ff"
-                else None)
+        if input_type.kind == "rnn":
+            return InputType.feed_forward(input_type.size)
+        if input_type.kind == "cnn":
+            return InputType.feed_forward(input_type.channels)
+        return input_type
 
 
 @register_layer

@@ -3,8 +3,9 @@
 and `MultiLayerConfiguration`, read from the reference's `to_json()`, with
 the global fields that inference and training read.
 `MultiLayerConfiguration.build` is the list builder's `build()` for the
-zoo: globals inherited into the layers, then `n_in` inferred from an
-`InputType`, as `set_input_type` does."""
+zoo: globals inherited into the layers, then, from an `InputType`, each
+layer's `n_in` and the input preprocessors between layer families, as
+`set_input_type` does."""
 
 from __future__ import annotations
 
@@ -20,6 +21,10 @@ from deeplearning4j_tpu_torch.nn.conf.graph import (
 )
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import Layer, layer_from_dict
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    InputPreProcessor,
+    preprocessor_from_dict,
+)
 
 
 # Per-layer fields that inherit the global value when unset (the
@@ -69,15 +74,19 @@ class GlobalConf:
     dtype: str = "float32"
     dtype_policy: Optional[Any] = None
     superstep_k: int = 0
+    convolution_mode: Any = "truncate"
 
     def inherit_into(self, layer) -> None:
         """Fill the layer's unset fields from these globals, as the
-        reference's builder does (bias rate defaults to the layer's rate)."""
+        reference's builder does (bias rate defaults to the layer's rate;
+        a convolution or pooling layer's unset mode is the global one)."""
         for f in INHERITED_FIELDS:
             if getattr(layer, f, None) is None:
                 setattr(layer, f, getattr(self, f))
         if layer.bias_learning_rate is None:
             layer.bias_learning_rate = layer.learning_rate
+        if getattr(layer, "convolution_mode", "absent") is None:
+            layer.convolution_mode = self.convolution_mode
 
     @staticmethod
     def from_dict(d: Optional[dict]) -> "GlobalConf":
@@ -159,20 +168,18 @@ class ComputationGraphConfiguration:
         return ComputationGraphConfiguration.from_dict(json.loads(s))
 
 
-def _refuse_preprocessors(what) -> None:
-    raise NotImplementedError(
-        f"input preprocessors are not in the port yet ({what}; ROADMAP A.2)")
-
-
 @dataclass
 class MultiLayerConfiguration:
-    """A sequential network: layers `layer_0 ... layer_{n-1}` in order.
-    `backprop_type` is "standard" or "truncatedbptt" (chunks of
-    `tbptt_fwd_length` steps; the backward length is carried, and, as in
-    the reference engine, equal to the forward one in effect)."""
+    """A sequential network: layers `layer_0 ... layer_{n-1}` in order,
+    `input_preprocessors[i]` run before layer i. `backprop_type` is
+    "standard" or "truncatedbptt" (chunks of `tbptt_fwd_length` steps; the
+    backward length is carried, and, as in the reference engine, equal to
+    the forward one in effect)."""
 
     global_conf: GlobalConf = field(default_factory=GlobalConf)
     layers: List[Layer] = field(default_factory=list)
+    input_preprocessors: Dict[int, InputPreProcessor] = field(
+        default_factory=dict)
     backprop: bool = True
     pretrain: bool = False
     backprop_type: str = "standard"
@@ -183,34 +190,43 @@ class MultiLayerConfiguration:
     @staticmethod
     def build(global_conf: GlobalConf, layers: List[Layer],
               input_type: Optional[InputType] = None,
-              **fields) -> "MultiLayerConfiguration":
-        """The reference list builder's `build()`: each layer (a copy)
-        inherits the unset global fields; with `input_type`, each layer's
-        `n_in` is inferred from the previous layer's output type."""
+              input_preprocessors: Optional[Dict[int, InputPreProcessor]]
+              = None, **fields) -> "MultiLayerConfiguration":
+        """The reference list builder's `build()` (`neural_net.py:262-301`):
+        each layer (a copy) inherits the unset global fields; with
+        `input_type`, each layer i without an explicit preprocessor gets
+        the one its `default_preprocessor` asks for, the preprocessor's
+        output type sizes the layer's `n_in`, and the layer's output type
+        feeds layer i + 1."""
         layers = [copy.deepcopy(layer) for layer in layers]
         for layer in layers:
             global_conf.inherit_into(layer)
+        pre = dict(input_preprocessors or {})
         current = input_type
         if current is not None:
             for i, layer in enumerate(layers):
-                pre = layer.default_preprocessor(current)
-                if pre is not None:
-                    _refuse_preprocessors(f"layer {i} needs {pre}")
+                if i not in pre:
+                    auto = layer.default_preprocessor(current)
+                    if auto is not None:
+                        pre[i] = auto
+                if i in pre:
+                    current = pre[i].get_output_type(current)
                 layer.set_n_in(current, override=True)
                 current = layer.get_output_type(current)
         if "backprop_type" in fields:
             fields["backprop_type"] = str(fields["backprop_type"]).lower()
         return MultiLayerConfiguration(global_conf=global_conf, layers=layers,
+                                       input_preprocessors=pre,
                                        input_type=input_type, **fields)
 
     @staticmethod
     def from_dict(d) -> "MultiLayerConfiguration":
-        if d.get("input_preprocessors"):
-            _refuse_preprocessors(
-                f"layers {sorted(d['input_preprocessors'])} have one")
         return MultiLayerConfiguration(
             global_conf=GlobalConf.from_dict(d.get("global_conf")),
             layers=[layer_from_dict(layer) for layer in d["layers"]],
+            input_preprocessors={
+                int(k): preprocessor_from_dict(v)
+                for k, v in (d.get("input_preprocessors") or {}).items()},
             backprop=bool(d.get("backprop", True)),
             pretrain=bool(d.get("pretrain", False)),
             backprop_type=str(d.get("backprop_type", "standard")).lower(),

@@ -1,8 +1,13 @@
 """MultiLayerNetwork (counterpart of `deeplearning4j_tpu/nn/multilayer.py`):
 the sequential engine, layers `layer_0 ... layer_{n-1}` run in order,
-eagerly, with the engines' shared params, updaters and in-place update
-(`engine.py`).
+eagerly, each after its input preprocessor if the conf has one, with the
+engines' shared params, updaters and in-place update (`engine.py`).
 
+- `fit` takes a DataSet, `features, labels`, or an iterable of DataSets (a
+  `DataSetIterator` is reset first), one pass. Listeners
+  (`set_listeners`) get `on_epoch_start`, then `iteration_done(net,
+  iteration)` after every iteration (a step, or a whole truncated-BPTT
+  sequence), then `on_epoch_end` (reference `:797-831, 1093`).
 - `fit` takes one optimizer step per batch, or, for a truncated-BPTT conf
   and a sequence longer than `tbptt_fwd_length`, one per chunk of that
   many steps (reference `doTruncatedBPTT`, `multilayer.py:1096`): each chunk
@@ -16,21 +21,28 @@ eagerly, with the engines' shared params, updaters and in-place update
   `rnn_clear_previous_state` (reference `rnnTimeStep`, :1232).
 - `params()` / `set_params()` are the reference's flat view: layer order,
   then each layer's `param_shapes()` order.
+- `evaluate` runs `output` over an iterator into an `Evaluation`;
+  `updater_state_flat()` / `set_updater_state_flat()` are the flat
+  updater view in the reference's leaf order (its `tree_leaves`: every
+  dict's keys sorted, at every level), which the model zip stores.
 
 What `fit` does not run yet raises NotImplementedError naming its ROADMAP
 item: solvers and superstep (A.10), dropout (A.4), frozen layers (A.12),
-layerwise pretraining (A.9), f16 loss scaling (A.7) and input
-preprocessors (A.2, refused when the conf is read or built).
+layerwise pretraining (A.9) and f16 loss scaling (A.7). Inference ignores
+dropout, as the reference's does.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import List
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.iterators import maybe_reset
+from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn import params as params_mod
@@ -65,6 +77,7 @@ class MultiLayerNetwork(NetworkEngine):
         self.conf = conf
         self.layers = conf.layers
         self.layer_keys = [f"layer_{i}" for i in range(len(conf.layers))]
+        self.listeners: List = []
         super().__init__(conf.global_conf,
                          dict(zip(self.layer_keys, self.layers)), device)
 
@@ -89,7 +102,10 @@ class MultiLayerNetwork(NetworkEngine):
         mask = (None if fmask is None
                 else torch.as_tensor(fmask, device=self.device))
         new_state, acts = {}, []
-        for lk, layer in zip(self.layer_keys, self.layers):
+        pre = self.conf.input_preprocessors
+        for i, (lk, layer) in enumerate(zip(self.layer_keys, self.layers)):
+            if i in pre:
+                x, mask = pre[i](x, mask)
             x, lstate = get_impl(layer)(layer, params.get(lk, {}),
                                         state.get(lk, {}), x, train=train,
                                         mask=mask)
@@ -168,9 +184,13 @@ class MultiLayerNetwork(NetworkEngine):
 
     # ------------------------------------------------------------------- fit
 
+    def set_listeners(self, *listeners) -> "MultiLayerNetwork":
+        self.listeners = list(listeners)
+        return self
+
     def fit(self, data, labels=None) -> "MultiLayerNetwork":
         """Train on a DataSet, an iterable of DataSets, or `features,
-        labels` (reference `fit`, :775)."""
+        labels`: one pass (reference `fit`, :775)."""
         if self.params_tree is None:
             self.init()
         self._check_trainable(
@@ -180,14 +200,22 @@ class MultiLayerNetwork(NetworkEngine):
                 and not isinstance(data[0], DataSet)):
             items = [_as_dataset(data, labels)]
         else:
-            if hasattr(data, "reset"):
-                data.reset()
             items = data
+        maybe_reset(items)
+        for listener in self.listeners:
+            listener.on_epoch_start(self)
         if self.conf.backprop:
             for ds in items:
                 self._fit_dispatch(_as_dataset(ds))
         self.epoch += 1
+        for listener in self.listeners:
+            listener.on_epoch_end(self)
         return self
+
+    def _iteration_done(self) -> None:
+        self.iteration += 1
+        for listener in self.listeners:
+            listener.iteration_done(self, self.iteration)
 
     def _fit_dispatch(self, ds: DataSet) -> None:
         """Truncated BPTT for a sequence longer than a chunk, else one step
@@ -200,7 +228,7 @@ class MultiLayerNetwork(NetworkEngine):
             else:
                 x, y, fmask, lmask = self._batch(ds)
                 self._train_step(x, y, fmask, lmask, carry_rnn=False)
-                self.iteration += 1
+                self._iteration_done()
 
     def _train_step(self, x, y, fmask, lmask, carry_rnn: bool,
                     eb=None) -> None:
@@ -260,7 +288,7 @@ class MultiLayerNetwork(NetworkEngine):
         self.state = {lk: s for lk, s in kept.items() if s}
         for lk, s in saved_state.items():
             self.state.setdefault(lk, s)
-        self.iteration += 1
+        self._iteration_done()
 
     # ------------------------------------------------------------------ rnn
 
@@ -281,6 +309,20 @@ class MultiLayerNetwork(NetworkEngine):
                                                       self._declared_state())
             out = to_numpy(self._finish(out))
         return out[:, 0] if squeeze and out.ndim == 3 else out
+
+    # ------------------------------------------------------------ eval misc
+
+    def evaluate(self, iterator, top_n: int = 1) -> Evaluation:
+        """Classification evaluation of `output` over a DataSet or an
+        iterable of them (reference `evaluate`, :1259)."""
+        ev = Evaluation(top_n=top_n)
+        maybe_reset(iterator)
+        if isinstance(iterator, DataSet):
+            iterator = [iterator]
+        for ds in iterator:
+            out = self.output(ds.features, features_mask=ds.features_mask)
+            ev.eval(ds.labels, out, mask=ds.labels_mask)
+        return ev
 
     # ------------------------------------------------------------- params io
 
@@ -307,3 +349,60 @@ class MultiLayerNetwork(NetworkEngine):
                 for k, a in p.items():
                     self.params_tree[lk][k].copy_(a)
         self._compute_params = None
+
+    def _updater_leaves(self) -> List[torch.Tensor]:
+        """The updater state's tensors in the reference's leaf order."""
+        def walk(tree):
+            if isinstance(tree, dict):
+                for k in sorted(tree):
+                    yield from walk(tree[k])
+            else:
+                yield tree
+
+        return list(walk(self.opt_state or {}))
+
+    def updater_state_flat(self) -> np.ndarray:
+        """The flat updater view (reference `updater_state_flat`: layer
+        keys, state fields and param names each sorted)."""
+        leaves = self._updater_leaves()
+        if not leaves:
+            return np.zeros((0,), np.float32)
+        return torch.cat([t.detach().cpu().reshape(-1)
+                          for t in leaves]).numpy()
+
+    def set_updater_state_flat(self, flat) -> None:
+        """Write a flat updater view, as `updater_state_flat` gives it, into
+        the updater state (in place)."""
+        leaves = self._updater_leaves()
+        flat = torch.as_tensor(np.asarray(flat))
+        want = sum(t.numel() for t in leaves)
+        if flat.numel() != want:
+            raise ValueError(f"flat updater state length {flat.numel()} != "
+                             f"expected {want}")
+        pos = 0
+        with torch.no_grad():
+            for t in leaves:
+                n = t.numel()
+                t.copy_(flat[pos:pos + n].reshape(t.shape))
+                pos += n
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A deep copy on the same device: params, layer state and updater
+        state copied, never shared (reference `clone`, :1321)."""
+        net = MultiLayerNetwork(copy.deepcopy(self.conf), device=self.device)
+        if self.params_tree is not None:
+            # init copies every tensor it is given.
+            net.init(params=self.params_tree, state=self.state,
+                     updater_state={"opt_state": self.opt_state,
+                                    "iteration": self.iteration})
+            net.epoch = self.epoch
+        return net
+
+    def summary(self) -> str:
+        lines = ["=" * 70, f"{'Layer':<28}{'Type':<24}{'Params':>10}",
+                 "-" * 70]
+        for lk, layer in zip(self.layer_keys, self.layers):
+            n = int(sum(np.prod(s) for s in layer.param_shapes().values()))
+            lines.append(f"{lk:<28}{type(layer).__name__:<24}{n:>10}")
+        lines += ["-" * 70, f"Total params: {self.num_params()}", "=" * 70]
+        return "\n".join(lines)

@@ -1168,6 +1168,43 @@ def test_char_rnn_bf16_on_the_card(cuda):
     assert kernels.counts()["launches"]["lstm_cell"] == 2 * 12
 
 
+def test_lenet_fit_step_on_the_card_matches_the_cpu(cuda):
+    # f32 LeNet at B=32 from the same params: one `fit` step on each
+    # device; the card's step is one update launch (all 8 tensors) and no
+    # plain call; scores within 1e-4 relative, params and the Nesterovs
+    # velocity within rtol 2e-4, atol 1e-5 (chip_smoke's lenet_parity),
+    # then `output` within 1e-4.
+    from deeplearning4j_tpu_torch.datasets.builtin import load_mnist
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    cpu = MultiLayerNetwork(zoo.lenet_mnist(), device="cpu").init()
+    card = MultiLayerNetwork(zoo.lenet_mnist(), device=cuda).init(
+        params={k: {n: a.detach() for n, a in p.items()}
+                for k, p in cpu.params_tree.items()})
+    ds = load_mnist(train=True, num_examples=32)
+    kernels.reset_counts()
+    card.fit(ds)
+    c = kernels.counts()
+    assert c["launches"]["fused_update"] == 1
+    assert sum(c["launches"].values()) == 1
+    assert not any(c["plain_calls"].values())
+    cpu.fit(ds)
+    assert abs(card.score_value - cpu.score_value) <= 1e-4 * abs(
+        cpu.score_value)
+    for lk, p in cpu.params_tree.items():
+        for k, a in p.items():
+            np.testing.assert_allclose(
+                card.params_tree[lk][k].detach().cpu().numpy(),
+                a.detach().numpy(), rtol=2e-4, atol=1e-5, err_msg=lk + k)
+            np.testing.assert_allclose(
+                card.opt_state[lk]["v"][k].cpu().numpy(),
+                cpu.opt_state[lk]["v"][k].numpy(), rtol=2e-4, atol=1e-5,
+                err_msg=lk + k)
+    x = load_mnist(train=False, num_examples=64).features
+    np.testing.assert_allclose(card.output(x), cpu.output(x), atol=1e-4)
+
+
 # ------------------------------------------------ streamed (rows 4 and 7)
 
 STREAM_SHAPES = [  # (shape, causal, unit_tiles): units of 1-3 tiles make

@@ -23,6 +23,7 @@ from deeplearning4j_tpu_torch.models import resnet, zoo
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.serving import InferenceServer
+from deeplearning4j_tpu_torch.util.model_serializer import load_model
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "deeplearning4j_tpu_torch"
@@ -69,7 +70,13 @@ def test_every_port_module_imports_without_jax():
             "deeplearning4j_tpu_torch.nn.conf.inputs",
             "deeplearning4j_tpu_torch.nn.engine",
             "deeplearning4j_tpu_torch.nn.layers.recurrent",
-            "deeplearning4j_tpu_torch.nn.multilayer"} <= set(mods)
+            "deeplearning4j_tpu_torch.nn.multilayer",
+            "deeplearning4j_tpu_torch.nn.conf.preprocessors",
+            "deeplearning4j_tpu_torch.optimize.listeners",
+            "deeplearning4j_tpu_torch.eval.evaluation",
+            "deeplearning4j_tpu_torch.datasets.iterators",
+            "deeplearning4j_tpu_torch.datasets.builtin",
+            "deeplearning4j_tpu_torch.util.model_serializer"} <= set(mods)
     code = (
         "import sys\n"
         "for blocked in ('jax', 'jaxlib', 'deeplearning4j_tpu'):\n"
@@ -115,5 +122,9 @@ def test_entry_points_default_to_the_card():
         InferenceServer()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MultiLayerNetwork(zoo.char_rnn(vocab_size=11, hidden=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiLayerNetwork(zoo.lenet_mnist())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model(ROOT / "tests" / "fixtures" / "golden_model_v1.zip")
     with pytest.raises(ValueError, match="not supported"):
         ComputationGraph(conf, device="meta")

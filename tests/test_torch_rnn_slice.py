@@ -138,12 +138,18 @@ def test_recurrent_confs_match_the_reference(cls):
 
 
 def test_preprocessors_and_cnn_inputs_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        MultiLayerConfiguration.from_json(jax_zoo.lenet_mnist().to_json())
-    with pytest.raises(NotImplementedError, match="FeedForwardToRnn.*A.2"):
-        MultiLayerConfiguration.build(
-            GlobalConf(), [layers.GravesLSTM(n_out=4)],
-            InputType.feed_forward(3))
+    # Refused until the LeNet slice; now read and inserted as the
+    # reference does (tests/test_torch_lenet_slice.py holds them to it).
+    lenet = MultiLayerConfiguration.from_json(jax_zoo.lenet_mnist().to_json())
+    assert sorted(lenet.input_preprocessors) == [4]
+    assert lenet.input_type == InputType.convolutional(28, 28, 1)
+    conf = MultiLayerConfiguration.build(
+        GlobalConf(), [layers.GravesLSTM(n_out=4)], InputType.feed_forward(3))
+    assert type(conf.input_preprocessors[0]).__name__ == \
+        "FeedForwardToRnnPreProcessor"
+    assert conf.layers[0].n_in == 3
+    with pytest.raises(ValueError, match="unknown input type"):
+        InputType.from_dict({"kind": "cnn3d"})
     conf = MultiLayerConfiguration.build(
         GlobalConf(l2=0.5), [layers.DenseLayer(n_out=4),
                              layers.OutputLayer(n_out=2)],
