@@ -197,7 +197,29 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               that step and restored): scores within 1e-4 relative, Adam's
               m per vertex within max(1e-3, twice the step's own rounding
               floor) of the resident run's largest |m| (see the phase).
-22. trace   - where one decode step's, one 1024-token prefill's, one LM
+22. dsl     - the config DSL and the model zip on the card. (a) T2's
+              ResNet-50 (built by `graph_builder()`, trained by
+              resnet_train) and lenet_train's LeNet: `save_model`, then
+              `load_model(device="cuda")`; params, updater state and
+              BatchNorm state bit for bit the trained net's, `output` on
+              the B=32 (LeNet: 128) batch equal to the trained net's (or,
+              if a kernel on the path is not deterministic, within the gap
+              between two calls of the trained net, printed), then one
+              further `fit` step on each: scores within 1e-6 relative;
+              save and load seconds and zip bytes. (b) The multi-input
+              graph of `examples/csv_graph_multi_io.py` (inputs of 4 and 3
+              features, dense 16 relu on each, merged, a softmax mcxent
+              and an mse head; Adam lr 0.05, seed 7) on 20 seeded
+              synthetic batches of 16, on the card and on the CPU from the
+              same params: scores within 1e-5 relative at every step, one
+              update launch a step. (c) A graph holding all 14 vertex
+              kinds at width 64 (B=32, T=16): `output` on the card within
+              1e-5 of the CPU's, one `fit` step's score within 1e-5
+              relative and each layer vertex's Adam m within 1e-5 of the
+              CPU's largest |m| there. Launches (from 0, card windows
+              only): 48 inference blocks, 32 training blocks, 5
+              BatchNorms and 25 updates, 0 plain calls.
+23. trace   - where one decode step's, one 1024-token prefill's, one LM
               training step's, one T1 and one T2 step's, one char-RNN fit
               call's (forward, backward, update; the call's two chunks
               summed), one `rnn_time_step`'s, one LeNet and one MLP fit
@@ -214,7 +236,7 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
 
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
-rnn_sample, lenet_train, mlp_train, long_train, long_output; row 13 on
+rnn_sample, lenet_train, mlp_train, dsl, long_train, long_output; row 13 on
 row 4's entry; row 9 also with its time at LeNet's update) and, last,
 the result line. With no GPU, without the package beside it, or when any phase
 fails, it exits non-zero and prints no result.
@@ -222,6 +244,7 @@ fails, it exits non-zero and prints no result.
 
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -331,6 +354,22 @@ MNIST_ACCURACY = 0.95
 LENET_PARITY_STEPS, LENET_PARITY_EVAL = 3, 256
 LENET_PARAM_TOL = dict(rtol=2e-4, atol=1e-5)
 NEAR_TIE = 1e-4
+
+# The config DSL and the model zip (the dsl phase): zips under the
+# checkout's build directory; the multi-input graph's 20 steps of 16; the
+# all-vertex graph at width 64, B=32, T=16. Launches per card window.
+DSL_DIR = os.path.join("build", "dsl")
+DSL_MULTI_STEPS, DSL_MULTI_B, DSL_SCORE_TOL = 20, 16, 1e-5
+DSL_WIDTH, DSL_B, DSL_T, DSL_CLASSES = 64, 32, 16, 10
+DSL_REFIT_TOL = 1e-6
+DSL_LAUNCHES = {
+    # 3 `output` calls (16 blocks + the stem's BatchNorm each) and 2 fit
+    # steps (16 blocks, 1 BatchNorm, 1 update each).
+    "t2": {"bottleneck_infer": 48, "bottleneck_train": 32,
+           "batchnorm_norm_act": 5, "fused_update": 2},
+    "lenet": {"fused_update": 2},
+    "multi_io": {"fused_update": DSL_MULTI_STEPS},
+    "vertices": {"fused_update": 1}}
 
 # Long context: the same LM at T = 32,768, B = 1, where the K/V of
 # one (batch, head) outgrow the resident limit and every attention takes the
@@ -1869,6 +1908,281 @@ def phase_lenet_parity(card, torch, dev, trained):
     return not errors
 
 
+# --------------------------------------------------------------- the DSL
+
+
+def _first(out):
+    """A graph's first output, or a MultiLayerNetwork's output."""
+    return out[0] if isinstance(out, list) else out
+
+
+def _card_window(kernels, want, fn):
+    """Run `fn` with the counts from 0; (its result, the launches, errors
+    unless they are exactly `want` with no plain call)."""
+    kernels.reset_counts()
+    result = fn()
+    counts = kernels.counts()
+    errors, _ = _launch_errors(counts, want, 1)
+    return result, counts["launches"], errors
+
+
+def _zip_round_trip(torch, kernels, dev, name, net, x, batch):
+    """`save_model`, `load_model` on the card, and the checks of the dsl
+    phase's part (a)."""
+    from deeplearning4j_tpu_torch.util import model_serializer as ms
+
+    os.makedirs(DSL_DIR, exist_ok=True)
+    path = os.path.join(DSL_DIR, f"{name}.zip")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms.save_model(net, path)
+    save_s = time.perf_counter() - t0
+    zip_bytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    loaded = ms.load_model(path, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    errors = []
+    if not np.array_equal(loaded.params(), net.params()):
+        errors.append("params differ")
+    if not np.array_equal(loaded.updater_state_flat(),
+                          net.updater_state_flat()):
+        errors.append("updater state differs")
+    if set(loaded.state) != set(net.state) or not all(
+            torch.equal(loaded.state[lk][k], v)
+            for lk, sub in net.state.items() for k, v in sub.items()):
+        errors.append("layer state differs")
+    if (loaded.iteration, loaded.epoch) != (net.iteration, net.epoch):
+        errors.append(f"counters {loaded.iteration, loaded.epoch} != "
+                      f"{net.iteration, net.epoch}")
+
+    def drive():
+        outs = [_first(n.output(x)) for n in (net, net, loaded)]
+        scores = []
+        for n in (net, loaded):
+            n.fit(batch)
+            scores.append(n.score_value)
+        return outs, scores
+
+    (outs, scores), launches, errs = _card_window(
+        kernels, DSL_LAUNCHES[name], drive)
+    errors += errs
+    self_gap = float(np.abs(outs[0] - outs[1]).max())
+    loaded_gap = float(np.abs(outs[2] - outs[0]).max())
+    if loaded_gap > self_gap:
+        errors.append(f"reloaded output off by {loaded_gap}, beyond the "
+                      f"trained net's own gap {self_gap}")
+    rel = abs(scores[1] - scores[0]) / abs(scores[0])
+    if not rel <= DSL_REFIT_TOL:
+        errors.append(f"further step scores {scores} differ by {rel}")
+    report = dict(save_s=save_s, load_s=load_s, zip_bytes=zip_bytes,
+                  num_params=net.num_params(),
+                  output_bitwise_equal=loaded_gap == 0.0,
+                  output_max_abs_diff=loaded_gap,
+                  trained_self_gap=self_gap, further_step_scores=scores,
+                  further_step_rel_diff=rel)
+    del loaded
+    torch.cuda.empty_cache()
+    return errors, launches, report
+
+
+def _multi_io_conf():
+    """`examples/csv_graph_multi_io.py`'s graph through the port's
+    builder."""
+    from deeplearning4j_tpu_torch.nn.conf.graph import MergeVertex
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        DenseLayer,
+        OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+        NeuralNetConfiguration,
+    )
+
+    return (NeuralNetConfiguration.builder()
+            .seed(7).learning_rate(0.05).updater("adam")
+            .graph_builder()
+            .add_inputs("ina", "inb")
+            .add_layer("da", DenseLayer(n_out=16, activation="relu"), "ina")
+            .add_layer("db", DenseLayer(n_out=16, activation="relu"), "inb")
+            .add_vertex("m", MergeVertex(), "da", "db")
+            .add_layer("cls", OutputLayer(n_out=3, activation="softmax",
+                                          loss_function="mcxent"), "m")
+            .add_layer("reg", OutputLayer(n_out=2, activation="identity",
+                                          loss_function="mse"), "m")
+            .set_outputs("cls", "reg")
+            .set_input_types(InputType.feed_forward(4),
+                             InputType.feed_forward(3))
+            .build())
+
+
+def _vertex_graph_conf():
+    """Every vertex kind in one graph at width DSL_WIDTH: inputs "seq"
+    [b, t, w] and "vec" [b, w]; a dense layer on each, the vector copied
+    along time and added to the sequence, reversed, its last step merged
+    with the vector, subset, the five elementwise ops, scale, shift, L2
+    normalization, a stack of two and its halves, their L2 distance, a
+    preprocessor vertex to NHWC and a dense layer the builder gives a
+    CnnToFeedForward preprocessor, merged into a softmax head (the CPU
+    tests hold the same graph at width 8 to the JAX package)."""
+    from deeplearning4j_tpu_torch.nn.conf import graph as G
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        DenseLayer,
+        OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+        FeedForwardToCnnPreProcessor,
+    )
+
+    w = DSL_WIDTH
+    gb = (NeuralNetConfiguration.builder().seed(5).learning_rate(0.05)
+          .updater("adam").weight_init("xavier")
+          .graph_builder().add_inputs("seq", "vec"))
+    gb.add_layer("d_seq", DenseLayer(n_out=w, activation="tanh"), "seq")
+    gb.add_layer("d_vec", DenseLayer(n_out=w, activation="tanh"), "vec")
+    gb.add_vertex("dup", G.DuplicateToTimeSeriesVertex(input_name="seq"),
+                  "d_vec")
+    gb.add_vertex("seqsum", G.ElementWiseVertex(op="add"), "d_seq", "dup")
+    gb.add_vertex("rev", G.ReverseTimeSeriesVertex(), "seqsum")
+    gb.add_vertex("last", G.LastTimeStepVertex(), "rev")
+    gb.add_vertex("merge", G.MergeVertex(), "last", "d_vec")
+    gb.add_vertex("sub", G.SubsetVertex(from_index=w // 2,
+                                        to_index=w // 2 + w - 1), "merge")
+    gb.add_vertex("e_add", G.ElementWiseVertex(op="add"), "sub", "d_vec",
+                  "last")
+    gb.add_vertex("e_sub", G.ElementWiseVertex(op="subtract"), "e_add",
+                  "d_vec")
+    gb.add_vertex("e_prod", G.ElementWiseVertex(op="product"), "e_sub",
+                  "last")
+    gb.add_vertex("e_avg", G.ElementWiseVertex(op="average"), "e_prod", "sub")
+    gb.add_vertex("e_max", G.ElementWiseVertex(op="max"), "e_avg", "d_vec")
+    gb.add_vertex("scale", G.ScaleVertex(scale_factor=0.5), "e_max")
+    gb.add_vertex("shift", G.ShiftVertex(shift_factor=0.1), "scale")
+    gb.add_vertex("l2n", G.L2NormalizeVertex(), "shift")
+    gb.add_vertex("stack", G.StackVertex(), "l2n", "sub")
+    gb.add_vertex("un0", G.UnstackVertex(from_index=0, stack_size=2), "stack")
+    gb.add_vertex("un1", G.UnstackVertex(from_index=1, stack_size=2), "stack")
+    gb.add_vertex("l2", G.L2Vertex(), "un0", "un1")
+    gb.add_vertex("cnn", G.PreprocessorVertex(
+        preprocessor=FeedForwardToCnnPreProcessor(2, 2, w // 4)), "un1")
+    gb.add_layer("d_cnn", DenseLayer(n_out=w, activation="relu"), "cnn")
+    gb.add_vertex("head", G.MergeVertex(), "l2", "d_cnn", "un0")
+    gb.add_layer("out", OutputLayer(n_out=DSL_CLASSES, activation="softmax",
+                                    loss_function="mcxent"), "head")
+    return (gb.set_outputs("out")
+            .set_input_types(InputType.recurrent(w, DSL_T),
+                             InputType.feed_forward(w))
+            .build())
+
+
+def _card_and_cpu(torch, dev, conf_fn):
+    """One net on the card from the conf's seed, and one on the CPU with
+    a copy of its params."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    card_net = ComputationGraph(conf_fn(), device=dev).init()
+    cpu_net = ComputationGraph(conf_fn(), device="cpu").init(params={
+        v: {k: t.detach().cpu() for k, t in p.items()}
+        for v, p in card_net.params_tree.items()})
+    return card_net, cpu_net
+
+
+def phase_dsl(card, torch, kernels, dev, t2_net, t2_batch, lenet_net,
+              lenet_batch):
+    """The dsl phase (see the module docstring): (a) the zip round trips
+    of T2 and LeNet, (b) the multi-input graph card vs CPU, (c) the
+    all-vertex graph card vs CPU."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+
+    t0 = time.perf_counter()
+    errors, parts = [], {}
+    launches = {name: 0 for name in KERNEL_INFO}
+
+    def add(part, part_errors, part_launches):
+        errors.extend(f"{part}: {e}" for e in part_errors)
+        for k, v in part_launches.items():
+            launches[k] += v
+
+    for name, net, x, batch in (
+            ("t2", t2_net, t2_batch.features[0], t2_batch),
+            ("lenet", lenet_net, lenet_batch.features, lenet_batch)):
+        errs, got, parts[name] = _zip_round_trip(torch, kernels, dev, name,
+                                                 net, x, batch)
+        add(name, errs, got)
+
+    card_net, cpu_net = _card_and_cpu(torch, dev, _multi_io_conf)
+    rng = np.random.RandomState(7)
+    batches = []
+    for _ in range(DSL_MULTI_STEPS):
+        b = DSL_MULTI_B
+        batches.append(MultiDataSet(
+            [rng.rand(b, 4).astype(np.float32),
+             rng.rand(b, 3).astype(np.float32)],
+            [np.eye(3, dtype=np.float32)[rng.randint(0, 3, b)],
+             rng.rand(b, 2).astype(np.float32)]))
+
+    def steps(net):
+        out = []
+        for mds in batches:
+            net.fit(mds)
+            out.append(net.score_value)
+        return out
+
+    card_scores, got, errs = _card_window(kernels, DSL_LAUNCHES["multi_io"],
+                                          lambda: steps(card_net))
+    add("multi_io", errs, got)
+    cpu_scores = steps(cpu_net)
+    rels = [abs(a - b) / abs(b) for a, b in zip(card_scores, cpu_scores)]
+    if not max(rels) <= DSL_SCORE_TOL:
+        errors.append(f"multi_io: scores differ by up to {max(rels)}")
+    parts["multi_io"] = dict(steps=DSL_MULTI_STEPS, batch=DSL_MULTI_B,
+                             card_scores=card_scores, cpu_scores=cpu_scores,
+                             max_rel_diff=max(rels))
+
+    card_net, cpu_net = _card_and_cpu(torch, dev, _vertex_graph_conf)
+    rng = np.random.RandomState(9)
+    seq = rng.randn(DSL_B, DSL_T, DSL_WIDTH).astype(np.float32)
+    vec = rng.randn(DSL_B, DSL_WIDTH).astype(np.float32)
+    y = np.eye(DSL_CLASSES, dtype=np.float32)[rng.randint(0, DSL_CLASSES,
+                                                          DSL_B)]
+    mds = MultiDataSet([seq, vec], [y])
+
+    def vertex_step():
+        out = card_net.output(seq, vec)[0]
+        card_net.fit(mds)
+        return out
+
+    card_out, got, errs = _card_window(kernels, DSL_LAUNCHES["vertices"],
+                                       vertex_step)
+    add("vertices", errs, got)
+    out_diff = float(np.abs(card_out - cpu_net.output(seq, vec)[0]).max())
+    cpu_net.fit(mds)
+    rel = (abs(card_net.score_value - cpu_net.score_value)
+           / abs(cpu_net.score_value))
+    m_err = _m_errors(card_net, cpu_net)
+    if not out_diff <= DSL_SCORE_TOL:
+        errors.append(f"vertices: output differs by {out_diff}")
+    if not rel <= DSL_SCORE_TOL:
+        errors.append(f"vertices: step scores differ by {rel}")
+    if not max(m_err.values()) <= DSL_SCORE_TOL:
+        errors.append(f"vertices: Adam m differs: {m_err}")
+    kinds = sorted({type(v).__name__ for v in card_net.conf.vertices.values()})
+    if len(kinds) != 14:
+        errors.append(f"vertices: {len(kinds)} kinds, not 14: {kinds}")
+    parts["vertices"] = dict(width=DSL_WIDTH, batch=DSL_B, seq_len=DSL_T,
+                             kinds=kinds, output_max_abs_diff=out_diff,
+                             score_rel_diff=rel, m_err_over_max=m_err)
+    del card_net, cpu_net
+    emit(card, phase="dsl", ok=not errors, errors=errors, **parts,
+         launches=launches, seconds=time.perf_counter() - t0)
+    return not errors, launches
+
+
 # ------------------------------------------------------------------ ResNet
 
 
@@ -2866,6 +3180,11 @@ def main() -> int:
         if model == "lenet" and not phase_lenet_parity(card, torch, dev,
                                                        mnist[model][0]):
             failed.append("lenet_parity")
+    ok, path_launches["dsl"] = phase_dsl(
+        card, torch, kernels, dev, nets["t2"], rn_batch["t2"][0],
+        *mnist["lenet"])
+    if not ok:
+        failed.append("dsl")
 
     long_rows, row13 = phase_long_kernels(card, torch, dev)
     if not (all(r["ok"] for r in long_rows) and row13["ok"]):
@@ -2892,11 +3211,12 @@ def main() -> int:
         return 1
     # The kernels line: each kernel at the shape most of its main-path
     # launches have (bf16; the update kernel's state and the char-RNN are
-    # f32), with this run's launches on the twelve main paths (each counted
-    # from 0: the serve phase, the LM train phase's 23 steps, T1's and T2's
-    # 13 steps, I1's and I2's 13 calls, the char-RNN's 13 fit calls and its
-    # 2 x 200 sampling calls, LeNet's and the MLP's 469 steps each, the
-    # long-context train phase's 7 steps and its 3 `output` calls), summed
+    # f32), with this run's launches on the thirteen main paths (each
+    # counted from 0: the serve phase, the LM train phase's 23 steps, T1's
+    # and T2's 13 steps, I1's and I2's 13 calls, the char-RNN's 13 fit calls
+    # and its 2 x 200 sampling calls, LeNet's and the MLP's 469 steps each,
+    # the dsl phase's card windows, the long-context train phase's 7 steps
+    # and its 3 `output` calls), summed
     # and by path. Row 10's library call covers
     # the step without peepholes (at the same B and n); row 13 is row 4's
     # kernel over two lists, carried on row 4's entry.

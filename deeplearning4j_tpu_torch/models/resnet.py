@@ -1,24 +1,15 @@
 """ResNet-50 as a ComputationGraph (counterpart of
-`deeplearning4j_tpu/models/resnet.py`): the same vertices, inputs,
-`n_in`/`n_out` and fields as the reference builder, for both forms of the
-bottleneck: five vertices per block (`_bottleneck`: conv/BN pairs, an
-elementwise add and a relu) or one fused `BottleneckBlock` layer
-(`_bottleneck_fused`).
-
-The reference builds through its GraphBuilder, which sizes each layer from
-the input types; `GraphBuilder` here does the same for the layers these
-helpers add (NHWC shapes carried vertex to vertex, TF-style SAME or
-TRUNCATE output sizes), so the helpers keep the reference's signatures.
-"""
+`deeplearning4j_tpu/models/resnet.py`), built through the graph builder
+as the reference builds it, in both forms of the bottleneck: five
+vertices per block (`_bottleneck`: conv/BN pairs, an elementwise add and a
+relu) or one fused `BottleneckBlock` layer (`_bottleneck_fused`). The
+builder sizes each layer from the input type (NHWC, TF-style SAME or
+TRUNCATE output sizes)."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
-
-from deeplearning4j_tpu_torch.nn.conf.graph import (
-    ElementWiseVertex,
-    LayerVertex,
-)
+from deeplearning4j_tpu_torch.nn.conf.graph import ElementWiseVertex
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     ActivationLayer,
     BatchNormalization,
@@ -27,75 +18,11 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     GlobalPoolingLayer,
     OutputLayer,
     SubsamplingLayer,
-    conv_out_hw,
 )
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
-    GlobalConf,
+    NeuralNetConfiguration,
 )
-
-
-class GraphBuilder:
-    """The slice of the reference's GraphBuilder the ResNet helpers use:
-    `add_layer` sizes the layer from its input's shape ((h, w, c) for
-    images, (n,) for features) and fills unset fields from the globals."""
-
-    def __init__(self, global_conf: GlobalConf,
-                 inputs: Dict[str, Tuple[int, ...]]):
-        self.global_conf = global_conf
-        self.inputs = list(inputs)
-        self.shapes: Dict[str, Tuple[int, ...]] = dict(inputs)
-        self.vertices: Dict[str, object] = {}
-        self.vertex_inputs: Dict[str, List[str]] = {}
-
-    def add_layer(self, name, layer, inp):
-        shape = self.shapes[inp]
-        if isinstance(layer, (ConvolutionLayer, SubsamplingLayer)):
-            h, w, c = shape
-            if isinstance(layer, ConvolutionLayer):
-                layer.n_in = c
-                c = layer.n_out
-            h, w = conv_out_hw(layer, h, w)
-            shape = (h, w, c)
-        elif isinstance(layer, BatchNormalization):
-            layer.n_in = layer.n_out = shape[-1]
-        elif isinstance(layer, BottleneckBlock):
-            h, w, c = shape
-            layer.n_in, layer.n_out = c, 4 * layer.filters
-            shape = (-(-h // layer.stride[0]), -(-w // layer.stride[1]),
-                     layer.n_out)
-        elif isinstance(layer, ActivationLayer):
-            n = 1
-            for d in shape:
-                n *= d
-            layer.n_in = layer.n_out = n
-        elif isinstance(layer, GlobalPoolingLayer):
-            shape = (shape[-1],)
-        elif isinstance(layer, OutputLayer):
-            layer.n_in = shape[-1]
-            shape = (layer.n_out,)
-        else:
-            raise ValueError(f"GraphBuilder has no shape rule for "
-                             f"{type(layer).__name__}")
-        self.global_conf.inherit_into(layer)
-        self.vertices[name] = LayerVertex(layer)
-        self.vertex_inputs[name] = [inp]
-        self.shapes[name] = shape
-        return self
-
-    def add_vertex(self, name, vertex, *inputs):
-        self.vertices[name] = vertex
-        self.vertex_inputs[name] = list(inputs)
-        self.shapes[name] = self.shapes[inputs[0]]
-        return self
-
-    def build(self, outputs) -> ComputationGraphConfiguration:
-        conf = ComputationGraphConfiguration(
-            global_conf=self.global_conf, network_inputs=self.inputs,
-            network_outputs=list(outputs), vertices=self.vertices,
-            vertex_inputs=self.vertex_inputs)
-        conf.validate()
-        return conf
 
 
 def _conv_bn(b, name, inp, n_out, kernel, stride, activation="relu",
@@ -145,9 +72,11 @@ def resnet50(n_classes: int = 1000, image: int = 224, channels: int = 3,
     init, l2 1e-4; stem 7x7/2 conv + BN + 3x3/2 max pool, four stages of
     (3, 4, 6, 3) bottlenecks at (64, 128, 256, 512) filters, global average
     pool, softmax output. `dtype="bfloat16"` is `mixed_bfloat16`."""
-    g = GlobalConf(seed=seed, learning_rate=lr, updater="nesterovs",
-                   momentum=0.9, weight_init="relu", l2=1e-4, dtype=dtype)
-    b = GraphBuilder(g, {"input": (image, image, channels)})
+    b = (NeuralNetConfiguration.builder()
+         .seed(seed).learning_rate(lr).updater("nesterovs").momentum(0.9)
+         .weight_init("relu").l2(1e-4).dtype(dtype)
+         .graph_builder()
+         .add_inputs("input"))
     x = _conv_bn(b, "stem", "input", 64, (7, 7), (2, 2))
     b.add_layer("stem_pool",
                 SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
@@ -166,4 +95,6 @@ def resnet50(n_classes: int = 1000, image: int = 224, channels: int = 3,
                 OutputLayer(n_out=n_classes, activation="softmax",
                             loss_function="mcxent", weight_init="xavier"),
                 "avgpool")
-    return b.build(["fc"])
+    return (b.set_outputs("fc")
+            .set_input_types(InputType.convolutional(image, image, channels))
+            .build())

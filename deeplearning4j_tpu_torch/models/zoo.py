@@ -1,8 +1,11 @@
-"""Model zoo (counterpart of `deeplearning4j_tpu/models/zoo.py`):
-`transformer_lm`, token sampling, `generate_lm`, the step-granular decode
-steppers the serving scheduler drives (dense per-slot KV caches, or a
-paged KV pool), the GravesLSTM `char_rnn`, and the MNIST models
-`mlp_mnist` and `lenet_mnist`.
+"""Model zoo (counterpart of `deeplearning4j_tpu/models/zoo.py`), every
+conf built through the config DSL as the reference builds it:
+`transformer_lm` (its MoE form a conf only: ROADMAP A.9), the GravesLSTM
+`char_rnn`, the MNIST models `mlp_mnist` and `lenet_mnist`, `vgg16`,
+`alexnet` (a conf only: LRN and dropout are ROADMAP A.4) and
+`transformer_classifier` (masks: A.9); token sampling, `generate_lm`, and the
+step-granular decode steppers the serving scheduler drives (dense
+per-slot KV caches, or a paged KV pool).
 
 Ids travel as int64 tensors: the reference feeds its steppers float32 ids,
 which a bf16 compute policy rounds (ids above 256 stop being exact); the
@@ -18,17 +21,17 @@ import torch
 
 from deeplearning4j_tpu_torch.models.kv_pool import KVPagePool
 from deeplearning4j_tpu_torch.nn import rnn_state as rnn_mod
-from deeplearning4j_tpu_torch.nn.conf.graph import (
-    ElementWiseVertex,
-    LayerVertex,
-)
+from deeplearning4j_tpu_torch.nn.conf.graph import ElementWiseVertex
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     ConvolutionLayer,
     DenseLayer,
     EmbeddingLayer,
+    GlobalPoolingLayer,
     GravesLSTM,
     LayerNormalization,
+    LocalResponseNormalization,
+    MoELayer,
     OutputLayer,
     PositionalEmbeddingLayer,
     RnnOutputLayer,
@@ -37,70 +40,99 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
 )
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
-    GlobalConf,
     MultiLayerConfiguration,
+    NeuralNetConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.engine import to_numpy
 
 
+def _add_transformer_block(gb, prev, i, d_model, n_heads, *, causal,
+                           moe=False, n_experts=4,
+                           decode_cache_length=None):
+    """One pre-LN block, x + Attn(LN(x)); x + FFN(LN(x)), with the
+    reference's vertex names. The FFN is a DenseLayer pair, or a MoELayer
+    when `moe` (a conf only in the port: ROADMAP A.9)."""
+    gb.add_layer(f"ln_a{i}", LayerNormalization(), prev)
+    gb.add_layer(f"attn{i}", SelfAttentionLayer(
+        n_out=d_model, n_heads=n_heads, causal=causal,
+        decode_cache_length=decode_cache_length), f"ln_a{i}")
+    gb.add_vertex(f"res_a{i}", ElementWiseVertex(op="add"), prev, f"attn{i}")
+    gb.add_layer(f"ln_f{i}", LayerNormalization(), f"res_a{i}")
+    if moe:
+        gb.add_layer(f"ffn{i}", MoELayer(
+            n_out=d_model, n_experts=n_experts, expert_hidden=4 * d_model,
+            top_k=2, router_jitter=1e-2), f"ln_f{i}")
+    else:
+        gb.add_layer(f"ff1_{i}", DenseLayer(n_out=4 * d_model,
+                                            activation="relu"), f"ln_f{i}")
+        gb.add_layer(f"ffn{i}", DenseLayer(n_out=d_model,
+                                           activation="identity"),
+                     f"ff1_{i}")
+    gb.add_vertex(f"res_f{i}", ElementWiseVertex(op="add"), f"res_a{i}",
+                  f"ffn{i}")
+    return f"res_f{i}"
+
+
+def _transformer_start(d_model, seed, lr, dtype, max_length,
+                       stateful=False):
+    return (NeuralNetConfiguration.builder()
+            .seed(seed).learning_rate(lr).updater("adam").dtype(dtype)
+            .weight_init("xavier")
+            .graph_builder()
+            .add_inputs("tokens")
+            .add_layer("emb", EmbeddingLayer(
+                n_out=d_model, has_bias=False, input_format="ids",
+                activation="identity"), "tokens")
+            .add_layer("pos", PositionalEmbeddingLayer(
+                max_length=max_length, stateful=stateful), "emb"))
+
+
 def transformer_lm(vocab_size: int, *, t: int = 64, d_model: int = 64,
-                   n_heads: int = 4, n_blocks: int = 2, seed: int = 123,
-                   lr: float = 3e-3, dtype: str = "float32",
+                   n_heads: int = 4, n_blocks: int = 2, moe: bool = False,
+                   n_experts: int = 4, seed: int = 123, lr: float = 3e-3,
+                   dtype: str = "float32",
                    decode_cache_length: Optional[int] = None
                    ) -> ComputationGraphConfiguration:
-    """Decoder-only pre-LN transformer LM, the same graph (vertex names,
-    inputs, shapes, activations, Adam at `lr`) as the reference's builder:
-    embedding + learned positions, `n_blocks` of x + Attn(LN(x));
-    x + FFN(LN(x)), a final LN and a softmax mcxent output.
-    `decode_cache_length=N` sizes every attention layer's KV cache (and the
-    positional table) for stateful decode. `t` only sets the positional
-    table's floor, as in the reference."""
-    vertices: Dict[str, LayerVertex] = {}
-    inputs: Dict[str, List[str]] = {}
-
-    def add(name, vertex, *ins):
-        vertices[name] = vertex
-        inputs[name] = list(ins)
-
-    d = d_model
-    add("emb", LayerVertex(EmbeddingLayer(
-        n_in=vocab_size, n_out=d, has_bias=False, input_format="ids",
-        activation="identity")), "tokens")
-    add("pos", LayerVertex(PositionalEmbeddingLayer(
-        n_in=d, n_out=d, max_length=max(t, 16, decode_cache_length or 0),
-        stateful=decode_cache_length is not None)), "emb")
+    """Decoder-only pre-LN transformer LM, built through the graph builder
+    as the reference builds it: embedding + learned positions, `n_blocks`
+    of x + Attn(LN(x)); x + FFN(LN(x)), a final LN and a softmax mcxent
+    output; Adam at `lr`. `decode_cache_length=N` sizes every attention
+    layer's KV cache (and the positional table) for stateful decode. `t`
+    only sets the positional table's floor and the input type."""
+    gb = _transformer_start(d_model, seed, lr, dtype,
+                            max(t, 16, decode_cache_length or 0),
+                            stateful=decode_cache_length is not None)
     prev = "pos"
     for i in range(n_blocks):
-        add(f"ln_a{i}", LayerVertex(LayerNormalization(n_in=d, n_out=d)), prev)
-        add(f"attn{i}", LayerVertex(SelfAttentionLayer(
-            n_in=d, n_out=d, n_heads=n_heads, causal=True,
-            decode_cache_length=decode_cache_length)), f"ln_a{i}")
-        add(f"res_a{i}", ElementWiseVertex(op="add"), prev, f"attn{i}")
-        add(f"ln_f{i}", LayerVertex(LayerNormalization(n_in=d, n_out=d)),
-            f"res_a{i}")
-        add(f"ff1_{i}", LayerVertex(DenseLayer(
-            n_in=d, n_out=4 * d, activation="relu")), f"ln_f{i}")
-        add(f"ffn{i}", LayerVertex(DenseLayer(
-            n_in=4 * d, n_out=d, activation="identity")), f"ff1_{i}")
-        add(f"res_f{i}", ElementWiseVertex(op="add"), f"res_a{i}", f"ffn{i}")
-        prev = f"res_f{i}"
-    add("ln_out", LayerVertex(LayerNormalization(n_in=d, n_out=d)), prev)
-    add("out", LayerVertex(RnnOutputLayer(
-        n_in=d, n_out=vocab_size, activation="softmax",
-        loss_function="mcxent")), "ln_out")
-    g = GlobalConf(seed=seed, dtype=dtype, weight_init="xavier",
-                   learning_rate=lr, updater="adam")
-    for v in vertices.values():
-        # Unset per-layer fields inherit the global defaults at build time,
-        # as the reference's builder resolves them into its JSON.
-        layer = getattr(v, "layer", None)
-        if layer is not None:
-            g.inherit_into(layer)
-    conf = ComputationGraphConfiguration(
-        global_conf=g, network_inputs=["tokens"], network_outputs=["out"],
-        vertices=vertices, vertex_inputs=inputs)
-    conf.validate()
-    return conf
+        prev = _add_transformer_block(
+            gb, prev, i, d_model, n_heads, causal=True, moe=moe,
+            n_experts=n_experts, decode_cache_length=decode_cache_length)
+    gb.add_layer("ln_out", LayerNormalization(), prev)
+    gb.add_layer("out", RnnOutputLayer(n_out=vocab_size, activation="softmax",
+                                       loss_function="mcxent"), "ln_out")
+    return (gb.set_outputs("out")
+            .set_input_types(InputType.recurrent(vocab_size, t)).build())
+
+
+def transformer_classifier(vocab_size: int, n_classes: int, *, t: int = 64,
+                           d_model: int = 64, n_heads: int = 4,
+                           n_blocks: int = 2, seed: int = 123,
+                           lr: float = 3e-3, dtype: str = "float32"
+                           ) -> ComputationGraphConfiguration:
+    """The LM's bidirectional sibling: non-causal blocks, mean pooling over
+    time, a softmax mcxent head. It runs on unmasked sequences; ragged
+    ones, pooled and attended under their masks, are ROADMAP A.9."""
+    gb = _transformer_start(d_model, seed, lr, dtype, max(t, 16))
+    prev = "pos"
+    for i in range(n_blocks):
+        prev = _add_transformer_block(gb, prev, i, d_model, n_heads,
+                                      causal=False)
+    gb.add_layer("ln_out", LayerNormalization(), prev)
+    gb.add_layer("pool", GlobalPoolingLayer(pooling_type="avg"), "ln_out")
+    gb.add_layer("out", OutputLayer(n_out=n_classes, activation="softmax",
+                                    loss_function="mcxent"), "pool")
+    return (gb.set_outputs("out")
+            .set_input_types(InputType.recurrent(vocab_size, t)).build())
 
 
 def char_rnn(vocab_size: int = 77, hidden: int = 200, layers: int = 2,
@@ -112,30 +144,33 @@ def char_rnn(vocab_size: int = 77, hidden: int = 200, layers: int = 2,
     RnnOutputLayer over `vocab_size`; RMSProp at lr 0.1 with rms_decay
     0.95, l2 1e-3, xavier init; truncated BPTT in chunks of
     `tbptt_length` steps."""
-    g = GlobalConf(seed=seed, learning_rate=0.1, updater="rmsprop",
-                   rms_decay=0.95, weight_init="xavier", l2=0.001,
-                   dtype=dtype)
-    stack = [GravesLSTM(n_out=hidden, activation="tanh")
-             for _ in range(layers)]
-    stack.append(RnnOutputLayer(n_out=vocab_size, activation="softmax",
-                                loss_function="mcxent"))
-    return MultiLayerConfiguration.build(
-        g, stack, InputType.recurrent(vocab_size),
-        backprop_type="truncatedbptt", tbptt_fwd_length=tbptt_length,
-        tbptt_back_length=tbptt_length)
+    builder = (NeuralNetConfiguration.builder()
+               .seed(seed).learning_rate(0.1).updater("rmsprop")
+               .rms_decay(0.95).weight_init("xavier").l2(0.001).dtype(dtype)
+               .list())
+    for _ in range(layers):
+        builder.layer(GravesLSTM(n_out=hidden, activation="tanh"))
+    builder.layer(RnnOutputLayer(n_out=vocab_size, activation="softmax",
+                                 loss_function="mcxent"))
+    return (builder.backprop_type("truncatedbptt")
+            .t_bptt_forward_length(tbptt_length)
+            .t_bptt_backward_length(tbptt_length)
+            .set_input_type(InputType.recurrent(vocab_size)).build())
 
 
 def mlp_mnist(seed: int = 123, lr: float = 0.006) -> MultiLayerConfiguration:
     """The reference's two-layer MLP on flat 28x28 images: dense 1000
     relu, softmax 10 (negative log-likelihood); Nesterovs 0.9 at `lr`, l2
     1e-4, xavier init."""
-    g = GlobalConf(seed=seed, learning_rate=lr, updater="nesterovs",
-                   momentum=0.9, weight_init="xavier", l2=1e-4)
-    return MultiLayerConfiguration.build(g, [
-        DenseLayer(n_out=1000, activation="relu"),
-        OutputLayer(n_out=10, activation="softmax",
-                    loss_function="negativeloglikelihood"),
-    ], InputType.feed_forward(784))
+    return (NeuralNetConfiguration.builder()
+            .seed(seed).learning_rate(lr).updater("nesterovs").momentum(0.9)
+            .weight_init("xavier").l2(1e-4)
+            .list()
+            .layer(DenseLayer(n_out=1000, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss_function="negativeloglikelihood"))
+            .set_input_type(InputType.feed_forward(784))
+            .build())
 
 
 def lenet_mnist(seed: int = 123, lr: float = 0.01,
@@ -145,22 +180,82 @@ def lenet_mnist(seed: int = 123, lr: float = 0.01,
     builder puts a CnnToFeedForward preprocessor before the dense layer),
     dense 500 relu, softmax 10; Nesterovs 0.9 at `lr`, l2 5e-4, xavier
     init, identity activations by default."""
-    g = GlobalConf(seed=seed, learning_rate=lr, updater="nesterovs",
-                   momentum=0.9, weight_init="xavier", l2=5e-4,
-                   activation="identity", dtype=dtype)
-    return MultiLayerConfiguration.build(g, [
-        ConvolutionLayer(kernel_size=(5, 5), stride=(1, 1), n_out=20,
-                         activation="identity"),
-        SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
-                         stride=(2, 2)),
-        ConvolutionLayer(kernel_size=(5, 5), stride=(1, 1), n_out=50,
-                         activation="identity"),
-        SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
-                         stride=(2, 2)),
-        DenseLayer(n_out=500, activation="relu"),
-        OutputLayer(n_out=10, activation="softmax",
-                    loss_function="negativeloglikelihood"),
-    ], InputType.convolutional(28, 28, 1))
+    return (NeuralNetConfiguration.builder()
+            .seed(seed).learning_rate(lr).updater("nesterovs").momentum(0.9)
+            .weight_init("xavier").l2(5e-4).activation("identity")
+            .dtype(dtype)
+            .list()
+            .layer(ConvolutionLayer(kernel_size=(5, 5), stride=(1, 1),
+                                    n_out=20, activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(ConvolutionLayer(kernel_size=(5, 5), stride=(1, 1),
+                                    n_out=50, activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss_function="negativeloglikelihood"))
+            .set_input_type(InputType.convolutional(28, 28, 1))
+            .build())
+
+
+def vgg16(n_classes: int = 1000, seed: int = 123,
+          dtype: str = "bfloat16") -> MultiLayerConfiguration:
+    """VGG-16 as the reference configures it (the Keras VGG16 it imports):
+    13 3x3 SAME relu convolutions in 5 blocks with 2x2 max pools, two dense
+    4096 relu, softmax; Nesterovs 0.9 at lr 0.01, relu init. Its layers
+    all run; its `output` against the reference's is ROADMAP A.4's."""
+    b = (NeuralNetConfiguration.builder()
+         .seed(seed).learning_rate(0.01).updater("nesterovs").momentum(0.9)
+         .weight_init("relu").dtype(dtype)
+         .list())
+    for n, reps in ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3)):
+        for _ in range(reps):
+            b.layer(ConvolutionLayer(kernel_size=(3, 3), stride=(1, 1),
+                                     convolution_mode="same", n_out=n,
+                                     activation="relu"))
+        b.layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                 stride=(2, 2)))
+    b.layer(DenseLayer(n_out=4096, activation="relu"))
+    b.layer(DenseLayer(n_out=4096, activation="relu"))
+    b.layer(OutputLayer(n_out=n_classes, activation="softmax",
+                        loss_function="mcxent"))
+    return b.set_input_type(InputType.convolutional(224, 224, 3)).build()
+
+
+def alexnet(n_classes: int = 1000, seed: int = 123, image: int = 224,
+            dtype: str = "bfloat16") -> MultiLayerConfiguration:
+    """AlexNet as the reference configures it: conv 11x11/4 + LRN + pool,
+    conv 5x5 + LRN + pool, three 3x3 convs, pool, two dense 4096 with
+    dropout 0.5, softmax. A conf only: LRN and dropout are ROADMAP A.4."""
+    conv = ConvolutionLayer
+    pool = dict(pooling_type="max", kernel_size=(3, 3), stride=(2, 2))
+    return (NeuralNetConfiguration.builder()
+            .seed(seed).learning_rate(0.01).updater("nesterovs")
+            .momentum(0.9).weight_init("xavier").l2(5e-4).dtype(dtype)
+            .list()
+            .layer(conv(kernel_size=(11, 11), stride=(4, 4), n_out=96,
+                        activation="relu", convolution_mode="truncate"))
+            .layer(LocalResponseNormalization())
+            .layer(SubsamplingLayer(**pool))
+            .layer(conv(kernel_size=(5, 5), stride=(1, 1), n_out=256,
+                        activation="relu", convolution_mode="same"))
+            .layer(LocalResponseNormalization())
+            .layer(SubsamplingLayer(**pool))
+            .layer(conv(kernel_size=(3, 3), stride=(1, 1), n_out=384,
+                        activation="relu", convolution_mode="same"))
+            .layer(conv(kernel_size=(3, 3), stride=(1, 1), n_out=384,
+                        activation="relu", convolution_mode="same"))
+            .layer(conv(kernel_size=(3, 3), stride=(1, 1), n_out=256,
+                        activation="relu", convolution_mode="same"))
+            .layer(SubsamplingLayer(**pool))
+            .layer(DenseLayer(n_out=4096, activation="relu", dropout=0.5))
+            .layer(DenseLayer(n_out=4096, activation="relu", dropout=0.5))
+            .layer(OutputLayer(n_out=n_classes, activation="softmax",
+                               loss_function="negativeloglikelihood"))
+            .set_input_type(InputType.convolutional(image, image, 3))
+            .build())
 
 
 def _sample_token(probs, rng, temperature: float, top_k: int, top_p: float):

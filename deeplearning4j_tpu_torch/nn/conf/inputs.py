@@ -7,6 +7,7 @@ preprocessors it inserts between layer families."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -64,6 +65,10 @@ class InputType:
         kind = d.get("kind", "ff")
         if kind not in ("ff", "rnn", "cnn", "cnnflat"):
             raise ValueError(f"unknown input type kind {kind!r}")
+        unknown = sorted(set(d) - {f.name for f in
+                                   dataclasses.fields(InputType)})
+        if unknown:
+            raise ValueError(f"InputType has no fields {unknown}")
         return InputType(kind=kind, size=d.get("size", 0),
                          timeseries_length=d.get("timeseries_length"),
                          height=d.get("height", 0), width=d.get("width", 0),

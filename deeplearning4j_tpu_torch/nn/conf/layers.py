@@ -1,13 +1,19 @@
 """Layer configurations (counterpart of `deeplearning4j_tpu/nn/conf/layers.py`):
-the confs `transformer_lm`, `resnet50` and `char_rnn` use, and the other
-recurrent layers, with the reference's field names (the training fields of
-`layers.py:82-100` included), defaults, `param_shapes()` and
-`state_shapes()` order, so `from_dict` reads the reference's `to_json()` as
-it is. `set_n_in`, `get_output_type` and `default_preprocessor` are the
-shape inference of `MultiLayerConfiguration.build` (the reference's
+every layer conf of the reference, with its field names, defaults,
+`param_shapes()` and `state_shapes()` order. `to_dict` writes what the
+reference writes (no None fields, tuples as lists, `@class`), and
+`from_dict` reads it back keeping every key: a key the class does not have
+raises ValueError naming it. `set_n_in`, `get_output_type` and
+`default_preprocessor` are the builders' shape inference (the reference's
 `layers.py:112-120, 179-199, 361-375, 402-411`): feed-forward, recurrent
 and convolutional input types, output sizes under TRUNCATE, STRICT and
-SAME, and the preprocessor a layer asks for between layer families."""
+SAME, and the preprocessor a layer asks for between layer families.
+
+Nine confs are confs only here: `BaseOutputLayer`, `LossLayer`,
+`CenterLossOutputLayer`, `DropoutLayer`, `LocalResponseNormalization`,
+`MoELayer`, `AutoEncoder`, `RBM` and `VariationalAutoencoder` build, size
+and serialize, and a network that holds one is refused at construction
+(`nn/layers/__init__.py` `check_supported`)."""
 
 from __future__ import annotations
 
@@ -15,7 +21,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
-from deeplearning4j_tpu_torch.nn.conf.enums import ConvolutionMode
+from deeplearning4j_tpu_torch.nn.conf.distributions import Distribution
+from deeplearning4j_tpu_torch.nn.conf.enums import ConvolutionMode, plain
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor,
@@ -46,7 +53,14 @@ def layer_from_dict(d: dict):
 def _tuple2(v) -> Tuple[int, int]:
     if isinstance(v, int):
         return (v, v)
-    return tuple(int(a) for a in v)
+    t = tuple(int(a) for a in v)
+    return (t[0], t[0]) if len(t) == 1 else t
+
+
+# Fields the reference keeps as tuples; JSON brings them back as lists.
+_TUPLE_FIELDS = ("kernel_size", "stride", "padding", "dilation",
+                 "pooling_dimensions", "encoder_layer_sizes",
+                 "decoder_layer_sizes")
 
 
 def is_bias_param(name: str) -> bool:
@@ -65,6 +79,7 @@ class Layer:
     name: Optional[str] = None
     activation: Any = None
     weight_init: Any = None
+    dist: Optional[Distribution] = None
     learning_rate: Optional[float] = None
     bias_learning_rate: Optional[float] = None
     l1: Optional[float] = None
@@ -81,7 +96,11 @@ class Layer:
     epsilon: Optional[float] = None
     gradient_normalization: Any = None
     gradient_normalization_threshold: Optional[float] = None
+    # Transfer learning and LoRA (ROADMAP A.12): carried, refused by the
+    # engines.
     frozen: Optional[bool] = None
+    lora_rank: Optional[int] = None
+    lora_alpha: Optional[float] = None
 
     def get_output_type(self, input_type: InputType) -> InputType:
         return input_type
@@ -105,12 +124,32 @@ class Layer:
     def state_shapes(self) -> Dict[str, Tuple[int, ...]]:
         return {}
 
+    def to_dict(self) -> dict:
+        d: Dict[str, Any] = {"@class": type(self).__name__}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if v is None:
+                continue
+            if isinstance(v, Distribution):
+                v = v.to_dict()
+            elif isinstance(v, tuple):
+                v = list(v)
+            d[f.name] = plain(v)
+        return d
+
     @classmethod
     def from_dict(cls, d: dict):
-        if d.get("lora_rank"):
-            raise ValueError("LoRA adapters are not in the port yet")
+        kwargs = dict(d)
         names = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in d.items() if k in names})
+        unknown = sorted(set(kwargs) - names)
+        if unknown:
+            raise ValueError(f"{cls.__name__} has no fields {unknown}")
+        if isinstance(kwargs.get("dist"), dict):
+            kwargs["dist"] = Distribution.from_dict(kwargs["dist"])
+        for key in _TUPLE_FIELDS:
+            if isinstance(kwargs.get(key), list):
+                kwargs[key] = tuple(kwargs[key])
+        return cls(**kwargs)
 
 
 @dataclass
@@ -165,6 +204,7 @@ def _set_n_in_flat(layer, input_type: InputType, override: bool) -> None:
     layer.n_in = layer.n_out = input_type.flat_size()
 
 
+@register_layer
 @dataclass
 class BaseRecurrentLayer(FeedForwardLayer):
     """Recurrent layers: [b, t, n_in] -> [b, t, n_out]; a feed-forward or
@@ -191,11 +231,23 @@ class DenseLayer(FeedForwardLayer):
 
 @register_layer
 @dataclass
-class RnnOutputLayer(FeedForwardLayer):
-    """Per-timestep output layer: its forward is the linear pre-activation;
-    the engine applies `activation` after the cast to the output dtype."""
+class BaseOutputLayer(FeedForwardLayer):
+    """Dense + loss: the output layers' base, a conf of its own in the
+    reference."""
 
     loss_function: Any = "mcxent"
+
+    def to_dict(self) -> dict:
+        d = super().to_dict()
+        d["loss_function"] = str(plain(self.loss_function))
+        return d
+
+
+@register_layer
+@dataclass
+class RnnOutputLayer(BaseOutputLayer):
+    """Per-timestep output layer: its forward is the linear pre-activation;
+    the engine applies `activation` after the cast to the output dtype."""
 
     def get_output_type(self, input_type: InputType) -> InputType:
         return InputType.recurrent(self.n_out, input_type.timeseries_length)
@@ -208,11 +260,46 @@ class RnnOutputLayer(FeedForwardLayer):
 
 @register_layer
 @dataclass
-class OutputLayer(FeedForwardLayer):
+class OutputLayer(BaseOutputLayer):
     """Dense + loss output layer: its forward is the linear pre-activation;
     the engine applies `activation` after the cast to the output dtype."""
 
-    loss_function: Any = "mcxent"
+
+@register_layer
+@dataclass
+class LossLayer(BaseOutputLayer):
+    """Loss only, no params."""
+
+    get_output_type = _same_size
+    set_n_in = _set_n_in_flat
+
+    def param_shapes(self):
+        return {}
+
+
+@register_layer
+@dataclass
+class CenterLossOutputLayer(BaseOutputLayer):
+    """Output layer with center loss: per-class feature centers as state,
+    moved at rate `alpha`; `lambda_` weighs the center term."""
+
+    alpha: float = 0.05
+    lambda_: float = 2e-4
+
+    def state_shapes(self):
+        return {"centers": (self.n_out, self.n_in)}
+
+
+@register_layer
+@dataclass
+class DropoutLayer(FeedForwardLayer):
+    """Dropout only, no params."""
+
+    get_output_type = _same_size
+    set_n_in = _set_n_in_flat
+
+    def param_shapes(self):
+        return {}
 
 
 @register_layer
@@ -529,3 +616,128 @@ class SimpleRnn(BaseRecurrentLayer):
         return {"W": (self.n_in, self.n_out),
                 "RW": (self.n_out, self.n_out),
                 "b": (self.n_out,)}
+
+
+@register_layer
+@dataclass
+class LocalResponseNormalization(Layer):
+    """Cross-channel LRN (k=2, n=5, alpha=1e-4, beta=0.75), no params."""
+
+    k: float = 2.0
+    n: float = 5.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+
+@register_layer
+@dataclass
+class MoELayer(FeedForwardLayer):
+    """Mixture-of-experts FFN: `n_experts` experts of `expert_hidden`
+    units (0: 4 * n_in at build time), top-k routing with capacity."""
+
+    n_experts: int = 4
+    expert_hidden: int = 0
+    capacity_factor: float = 1.25
+    top_k: int = 2
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 1e-2
+    activation: Any = "identity"
+
+    def set_n_in(self, input_type: InputType, override: bool) -> None:
+        super().set_n_in(input_type, override)
+        if not self.expert_hidden:
+            self.expert_hidden = 4 * self.n_in
+
+    def param_shapes(self):
+        e, h = self.n_experts, self.expert_hidden or 4 * self.n_in
+        return {"gate_w": (self.n_in, e),
+                "w1": (e, self.n_in, h), "b_1": (e, h),
+                "w2": (e, h, self.n_out), "b_2": (e, self.n_out)}
+
+
+@register_layer
+@dataclass
+class AutoEncoder(FeedForwardLayer):
+    """Denoising autoencoder, pretrainable."""
+
+    corruption_level: float = 0.3
+    sparsity: float = 0.0
+    loss_function: Any = "reconstruction_crossentropy"
+
+    def param_shapes(self):
+        return {"W": (self.n_in, self.n_out), "b": (self.n_out,),
+                "vb": (self.n_in,)}
+
+
+@register_layer
+@dataclass
+class RBM(FeedForwardLayer):
+    """Restricted Boltzmann machine (CD-k), pretrainable."""
+
+    visible_unit: str = "binary"
+    hidden_unit: str = "binary"
+    k: int = 1
+    sparsity: float = 0.0
+    loss_function: Any = "reconstruction_crossentropy"
+
+    def param_shapes(self):
+        return {"W": (self.n_in, self.n_out), "b": (self.n_out,),
+                "vb": (self.n_in,)}
+
+
+def _is_loss_wrapper(dist) -> bool:
+    return (isinstance(dist, (list, tuple)) and len(dist) in (2, 3)
+            and isinstance(dist[0], str) and dist[0] == "loss")
+
+
+def dist_input_size(dist, data_size: int) -> int:
+    """The decoder's output width for `data_size` features under a VAE
+    reconstruction distribution (reference `layers/variational.py:41`)."""
+    if _is_loss_wrapper(dist):
+        return data_size
+    if isinstance(dist, (list, tuple)):
+        if sum(size for _, size in dist) != data_size:
+            raise ValueError(
+                "composite reconstruction distribution sizes "
+                f"{[s for _, s in dist]} must sum to the data size "
+                f"{data_size}")
+        return sum(dist_input_size(name, size) for name, size in dist)
+    if dist == "gaussian":
+        return 2 * data_size
+    if dist in ("bernoulli", "exponential"):
+        return data_size
+    raise ValueError(f"unknown reconstruction distribution {dist!r}")
+
+
+@register_layer
+@dataclass
+class VariationalAutoencoder(FeedForwardLayer):
+    """VAE: encoder and decoder MLP stacks, n_out = latent size, a
+    reconstruction distribution; pretrainable."""
+
+    encoder_layer_sizes: Tuple[int, ...] = (100,)
+    decoder_layer_sizes: Tuple[int, ...] = (100,)
+    reconstruction_distribution: Any = "gaussian"
+    pzx_activation: Any = "identity"
+    num_samples: int = 1
+
+    def param_shapes(self):
+        shapes: Dict[str, Tuple[int, ...]] = {}
+        prev = self.n_in
+        for i, size in enumerate(self.encoder_layer_sizes):
+            shapes[f"eW{i}"] = (prev, size)
+            shapes[f"eb{i}"] = (size,)
+            prev = size
+        shapes["pZXMeanW"] = (prev, self.n_out)
+        shapes["pZXMeanB"] = (self.n_out,)
+        shapes["pZXLogStd2W"] = (prev, self.n_out)
+        shapes["pZXLogStd2B"] = (self.n_out,)
+        prev = self.n_out
+        for i, size in enumerate(self.decoder_layer_sizes):
+            shapes[f"dW{i}"] = (prev, size)
+            shapes[f"db{i}"] = (size,)
+            prev = size
+        size = dist_input_size(self.reconstruction_distribution, self.n_in)
+        shapes["pXZW"] = (prev, size)
+        shapes["pXZB"] = (size,)
+        return shapes

@@ -11,14 +11,20 @@ row-major, the order a dense layer's `W` rows follow after it, and
 reference's note). Dense layers act on the last axis, so the Rnn <->
 FeedForward pair leaves the data as it is.
 
-The reference's uint8 wire policy (`preprocessors.py:223-264`) is not
-here: the port's engines take ids as integer tensors as they come.
+The uint8 wire policy (reference `preprocessors.py:223-264`) decides what
+a uint8 network input means from the layers it feeds: image bytes scaled
+0-255 to 0-1 on the device for value consumers, ids cast (unscaled) for an
+ids-format `EmbeddingLayer`, refused when both kinds read it. Integer ids
+of any other dtype pass through untouched.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
+
+import torch
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
@@ -42,6 +48,9 @@ def preprocessor_from_dict(d):
     if cls is None:
         raise ValueError(f"unknown preprocessor {kind!r}; the port has "
                          f"{sorted(_PREPROCESSOR_REGISTRY)}")
+    unknown = sorted(set(d) - {f.name for f in dataclasses.fields(cls)})
+    if unknown:
+        raise ValueError(f"{kind} has no fields {unknown}")
     if isinstance(d.get("target_shape"), list):
         d["target_shape"] = tuple(d["target_shape"])
     return cls(**d)
@@ -199,3 +208,46 @@ class ComposableInputPreProcessor(InputPreProcessor):
 
 _PREPROCESSOR_REGISTRY["ComposableInputPreProcessor"] = \
     ComposableInputPreProcessor
+
+
+# ------------------------------------------------------------------------
+# uint8 network-input policy (reference `preprocessors.py:223-264`).
+
+UINT8_SCALE = "scale"          # image bytes: to the compute dtype, / 255
+UINT8_IDS = "ids"              # embedding ids: cast to int64, not scaled
+UINT8_AMBIGUOUS = "ambiguous"  # ids and values: refused if uint8 arrives
+
+
+def _consumes_ids(layer) -> bool:
+    return (type(layer).__name__ == "EmbeddingLayer"
+            and getattr(layer, "input_format", "auto") != "onehot")
+
+
+def resolve_uint8_policy(consumers) -> str:
+    """What a uint8 network input means, from the layers it feeds directly
+    (None for a vertex that is not a layer: a value consumer)."""
+    kinds = {UINT8_IDS if layer is not None and _consumes_ids(layer)
+             else UINT8_SCALE for layer in consumers}
+    if len(kinds) > 1:
+        return UINT8_AMBIGUOUS
+    return kinds.pop() if kinds else UINT8_SCALE
+
+
+def apply_uint8_policy(x: torch.Tensor, policy: str,
+                       compute_dtype: torch.dtype) -> torch.Tensor:
+    """One network input as the forward reads it: uint8 by `policy`,
+    floats at the compute dtype, integer ids as they are."""
+    if x.dtype == torch.uint8:
+        if policy == UINT8_IDS:
+            return x.long()
+        if policy == UINT8_AMBIGUOUS:
+            raise ValueError(
+                "uint8 network input is ambiguous: it feeds both an "
+                "ids-format EmbeddingLayer (wants raw ids) and a value "
+                "consumer (wants /255 image scaling). Feed ids as "
+                "int32/int64 or split the input so each consumer gets its "
+                "own.")
+        return x.to(compute_dtype) / 255.0
+    if x.is_floating_point():
+        return x.to(compute_dtype)
+    return x

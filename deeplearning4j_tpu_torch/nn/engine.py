@@ -17,14 +17,24 @@ to its conf, in the engine's update order.
   layers of a step), and the step count stays on the host: a step issues
   no host sync.
 - Inference reads ONE copy at the compute dtype, built by `init`, dropped
-  by every training step and rebuilt at the next inference: an eager cast
-  per forward would move the whole model every decode step, where the
-  reference casts inside its jitted program.
+  by every training step and by `set_params`, and rebuilt at the next
+  inference: an eager cast per forward would move the whole model every
+  decode step, where the reference casts inside its jitted program.
+- `params()` / `set_params()` are the reference's flat view: the layers in
+  the engine's `_param_layer_order()` (MultiLayerNetwork: layer order; the
+  graph: its layer vertices in topological order), then each layer's
+  `param_shapes()` order. `updater_state_flat()` /
+  `set_updater_state_flat()` are the flat updater view in the reference's
+  leaf order (its `tree_leaves`: every dict's keys sorted, at every
+  level). The model zip stores both.
+- Construction refuses a layer the port holds as a conf only
+  (`nn/layers/__init__.py` `check_supported`), naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import copy
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -34,6 +44,7 @@ from deeplearning4j_tpu_torch.kernels import fused_update
 from deeplearning4j_tpu_torch.nn import params as params_mod
 from deeplearning4j_tpu_torch.nn.conf.dtype_policy import resolve_policy
 from deeplearning4j_tpu_torch.nn.conf.layers import is_bias_param
+from deeplearning4j_tpu_torch.nn.layers import check_supported
 from deeplearning4j_tpu_torch.ops import grad_norm as grad_norm_mod
 from deeplearning4j_tpu_torch.ops import schedules as schedules_mod
 from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
@@ -49,6 +60,8 @@ class NetworkEngine:
     """Base of the engines (see module docstring)."""
 
     def __init__(self, global_conf, layer_confs, device):
+        for name, layer in layer_confs.items():
+            check_supported(name, layer)
         self.device = resolve_device(device)
         self._global = global_conf
         self._layer_confs = layer_confs
@@ -267,6 +280,85 @@ class NetworkEngine:
                 self._update_tables)
             for (name, _), st in zip(members, states):
                 self.opt_state[name] = st
+
+    # ------------------------------------------------------------ flat views
+
+    def _param_layer_order(self) -> List[str]:
+        raise NotImplementedError
+
+    def _param_orders(self):
+        return {k: list(layer.param_shapes())
+                for k, layer in self._layer_confs.items()}
+
+    def num_params(self) -> int:
+        return int(sum(np.prod(s) for layer in self._layer_confs.values()
+                       for s in layer.param_shapes().values()))
+
+    def params(self) -> np.ndarray:
+        """The flat 1-D param view (reference `Model.params()`)."""
+        return params_mod.flatten_params(self.params_tree,
+                                         self._param_layer_order(),
+                                         self._param_orders())
+
+    def set_params(self, flat) -> None:
+        """Write a flat view (as `params()` gives it) into the params, in
+        place; the inference copy is rebuilt at the next inference."""
+        new = params_mod.unflatten_params(flat, self.params_tree,
+                                          self._param_layer_order(),
+                                          self._param_orders())
+        with torch.no_grad():
+            for lk, p in new.items():
+                for k, a in p.items():
+                    self.params_tree[lk][k].copy_(a)
+        self._compute_params = None
+
+    def _updater_leaves(self) -> List[torch.Tensor]:
+        """The updater state's tensors in the reference's leaf order."""
+        def walk(tree):
+            if isinstance(tree, dict):
+                for k in sorted(tree):
+                    yield from walk(tree[k])
+            else:
+                yield tree
+
+        return list(walk(self.opt_state or {}))
+
+    def updater_state_flat(self) -> np.ndarray:
+        """The flat updater view (reference `updater_state_flat`: layer
+        keys, state fields and param names each sorted)."""
+        leaves = self._updater_leaves()
+        if not leaves:
+            return np.zeros((0,), np.float32)
+        return torch.cat([t.detach().cpu().reshape(-1)
+                          for t in leaves]).numpy()
+
+    def set_updater_state_flat(self, flat) -> None:
+        """Write a flat updater view, as `updater_state_flat` gives it, into
+        the updater state (in place)."""
+        leaves = self._updater_leaves()
+        flat = torch.as_tensor(np.asarray(flat))
+        want = sum(t.numel() for t in leaves)
+        if flat.numel() != want:
+            raise ValueError(f"flat updater state length {flat.numel()} != "
+                             f"expected {want}")
+        pos = 0
+        with torch.no_grad():
+            for t in leaves:
+                n = t.numel()
+                t.copy_(flat[pos:pos + n].reshape(t.shape))
+                pos += n
+
+    def clone(self):
+        """A deep copy on the same device: params, layer state and updater
+        state copied, never shared (reference `clone`)."""
+        net = type(self)(copy.deepcopy(self.conf), device=self.device)
+        if self.params_tree is not None:
+            # init copies every tensor it is given.
+            net.init(params=self.params_tree, state=self.state,
+                     updater_state={"opt_state": self.opt_state,
+                                    "iteration": self.iteration})
+            net.epoch = self.epoch
+        return net
 
     def _declared_state(self):
         return {name: tuple(layer.state_shapes())

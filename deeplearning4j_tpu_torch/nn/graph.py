@@ -1,9 +1,14 @@
 """ComputationGraph (counterpart of `deeplearning4j_tpu/nn/graph.py`):
 inference, and `fit` with the plain SGD-family step.
 
-The DAG is walked in the conf's topological order, eagerly. Params, their
-inference copy, the updaters and the in-place update are the engines'
-shared machinery (`engine.py`).
+The DAG is walked in the conf's topological order, eagerly: a layer vertex
+runs its input preprocessor, then its layer; every other vertex is its
+conf's `apply` (`DuplicateToTimeSeriesVertex` takes its length from the
+sequence `input_name` names). A uint8 network input is read by the wire
+policy of the layers it feeds (`nn/conf/preprocessors.py`). Params, their
+inference copy, the updaters, the in-place update and the flat views
+(`params()` over the layer vertices in topological order) are the
+engines' shared machinery (`engine.py`).
 
 - Declared layer state (the BatchNorm running statistics, `self.state`)
   is kept at the param dtype and never cast to the compute dtype: `fit`
@@ -29,7 +34,11 @@ from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn import params as params_mod
 from deeplearning4j_tpu_torch.nn import rnn_state as rnn_mod
-from deeplearning4j_tpu_torch.nn.conf.graph import LayerVertex
+from deeplearning4j_tpu_torch.nn.conf import preprocessors as pre_mod
+from deeplearning4j_tpu_torch.nn.conf.graph import (
+    DuplicateToTimeSeriesVertex,
+    LayerVertex,
+)
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
 )
@@ -58,6 +67,12 @@ class ComputationGraph(NetworkEngine):
         super().__init__(conf.global_conf,
                          {n: v.layer for n, v in self.layer_vertices.items()},
                          device)
+        # Each network input's uint8 policy, voted by the vertices it feeds.
+        self._uint8_policies = {
+            name: pre_mod.resolve_uint8_policy(
+                getattr(conf.vertices[v], "layer", None)
+                for v, ins in conf.vertex_inputs.items() if name in ins)
+            for name in conf.network_inputs}
 
     def init(self, params=None, updater_state=None,
              state=None) -> "ComputationGraph":
@@ -77,18 +92,21 @@ class ComputationGraph(NetworkEngine):
         cdt = self.dtype_policy.compute_dtype
         values: Dict[str, torch.Tensor] = {}
         for i, name in enumerate(self.conf.network_inputs):
-            x = torch.as_tensor(inputs[i], device=self.device)
             # Floats run at the compute dtype (ids included, as in the
             # reference); integer ids pass through untouched.
-            values[name] = x.to(cdt) if x.is_floating_point() else x
+            values[name] = pre_mod.apply_uint8_policy(
+                torch.as_tensor(inputs[i], device=self.device),
+                self._uint8_policies[name], cdt)
         new_state: Dict[str, Dict] = {}
         for name in self.topo_order:
             vertex = self.conf.vertices[name]
             ins = [values[n] for n in self.conf.vertex_inputs[name]]
             if isinstance(vertex, LayerVertex):
-                layer = vertex.layer
+                layer, x = vertex.layer, ins[0]
+                if vertex.preprocessor is not None:
+                    x, _ = vertex.preprocessor(x)
                 out, lstate = get_impl(layer)(layer, params.get(name, {}),
-                                              state.get(name, {}), ins[0],
+                                              state.get(name, {}), x,
                                               train=train)
                 if lstate:
                     declared = set(layer.state_shapes())
@@ -97,6 +115,9 @@ class ComputationGraph(NetworkEngine):
                     if keep:
                         new_state[name] = keep
                 values[name] = out
+            elif isinstance(vertex, DuplicateToTimeSeriesVertex):
+                values[name] = vertex.apply(
+                    ins, time_steps=values[vertex.input_name].shape[1])
             else:
                 values[name] = vertex.apply(ins)
         return [values[n] for n in self.conf.network_outputs], new_state
@@ -230,6 +251,14 @@ class ComputationGraph(NetworkEngine):
                 self.params_tree, outs, self._device_arrays(mds.labels),
                 self._device_arrays(mds.labels_masks))
         return loss, new_state
+
+    # ------------------------------------------------------------- params io
+
+    def _param_layer_order(self):
+        """The reference's `_param_vertex_order`: layer vertices in
+        topological order."""
+        return [n for n in self.topo_order if n in self.layer_vertices]
+
 
     # ------------------------------------------------------------------ rnn
 

@@ -2,7 +2,11 @@
 `deeplearning4j_tpu/nn/layers/__init__.py`): layer-conf class name ->
 `apply(conf, params, state, x, train=False, mask=None) -> (out,
 new_state)`, `mask` a [B, T] step mask that only the recurrent layers
-read."""
+read.
+
+`check_supported` is what an engine asks of each layer when it is
+constructed: a layer the port holds as a conf only, or a LoRA adapter,
+raises NotImplementedError naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -41,10 +45,32 @@ LAYER_IMPLS = {
 OUTPUT_LAYER_TYPES = {"OutputLayer", "RnnOutputLayer"}
 
 
+# Layer confs whose forward pass is still to port, by ROADMAP item.
+CONF_ONLY = {
+    "DropoutLayer": "A.4", "LocalResponseNormalization": "A.4",
+    "MoELayer": "A.9", "VariationalAutoencoder": "A.9", "RBM": "A.9",
+    "AutoEncoder": "A.9", "CenterLossOutputLayer": "A.9", "LossLayer": "A.9",
+}
+
+
+def check_supported(key: str, conf) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for a layer the
+    port cannot run yet."""
+    kind = type(conf).__name__
+    if kind in CONF_ONLY:
+        raise NotImplementedError(
+            f"layer {key!r} ({kind}): its forward pass is not in the port "
+            f"yet (ROADMAP {CONF_ONLY[kind]})")
+    if kind not in LAYER_IMPLS:
+        # BaseOutputLayer, BaseRecurrentLayer: bases that no engine of
+        # either package runs.
+        raise NotImplementedError(
+            f"layer {key!r} ({kind}) is a base conf with no forward pass")
+    if getattr(conf, "lora_rank", None):
+        raise NotImplementedError(
+            f"layer {key!r}: LoRA adapters (lora_rank={conf.lora_rank}) are "
+            "not in the port yet (ROADMAP A.12)")
+
+
 def get_impl(conf):
-    name = type(conf).__name__
-    impl = LAYER_IMPLS.get(name)
-    if impl is None:
-        raise ValueError(f"No implementation registered for layer type "
-                         f"{name}")
-    return impl
+    return LAYER_IMPLS[type(conf).__name__]

@@ -1,6 +1,7 @@
 """Global pooling (counterpart of `deeplearning4j_tpu/nn/layers/pooling.py`
-`global_pooling_apply`), the 4-D branch: [B, H, W, C] -> [B, C] over space.
-Sequence pooling with masks is not in the port yet."""
+`global_pooling_apply`): [B, H, W, C] -> [B, C] over space, [B, T, F] ->
+[B, F] over time. Sequence pooling under a mask is not in the port yet
+(ROADMAP A.4)."""
 
 from __future__ import annotations
 
@@ -8,11 +9,14 @@ from deeplearning4j_tpu_torch.nn.conf.enums import PoolingType
 
 
 def global_pooling_apply(conf, params, state, x, train=False, mask=None):
-    if x.dim() != 4:
-        raise ValueError(f"GlobalPoolingLayer in the port takes [b, h, w, c] "
-                         f"input, got {x.dim()}-D")
+    if x.dim() == 3 and mask is not None:
+        raise NotImplementedError("GlobalPoolingLayer under a mask is not in "
+                                  "the port yet (ROADMAP A.4)")
+    if x.dim() not in (3, 4):
+        raise ValueError(f"GlobalPoolingLayer takes [b, t, f] or "
+                         f"[b, h, w, c] input, got {x.dim()}-D")
     ptype = PoolingType.of(conf.pooling_type) or PoolingType.MAX
-    axes = (1, 2)
+    axes = (1,) if x.dim() == 3 else (1, 2)
     if ptype == PoolingType.MAX:
         out = x.amax(dim=axes)
     elif ptype == PoolingType.SUM:

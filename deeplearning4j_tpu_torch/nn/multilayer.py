@@ -34,7 +34,6 @@ dropout, as the reference's does.
 
 from __future__ import annotations
 
-import copy
 from typing import List
 
 import numpy as np
@@ -47,6 +46,7 @@ from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn import params as params_mod
 from deeplearning4j_tpu_torch.nn import rnn_state as rnn_mod
+from deeplearning4j_tpu_torch.nn.conf import preprocessors as pre_mod
 from deeplearning4j_tpu_torch.nn.conf.neural_net import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.engine import NetworkEngine, to_numpy
 from deeplearning4j_tpu_torch.nn.layers import OUTPUT_LAYER_TYPES, get_impl
@@ -60,26 +60,17 @@ def _as_dataset(data, labels=None) -> DataSet:
     return DataSet(data, labels)
 
 
-def _refuse_loss_scaling(g) -> None:
-    pol = g.dtype_policy
-    name = str((pol.get("name") if isinstance(pol, dict) else pol) or g.dtype)
-    if "float16" in name and "bfloat16" not in name:
-        raise NotImplementedError(
-            f"dtype policy {name!r} trains with dynamic loss scaling, which "
-            "is not in the port yet (ROADMAP A.7)")
-
-
 class MultiLayerNetwork(NetworkEngine):
     """Sequential network engine (see module docstring)."""
 
     def __init__(self, conf: MultiLayerConfiguration, device="cuda"):
-        _refuse_loss_scaling(conf.global_conf)
         self.conf = conf
         self.layers = conf.layers
         self.layer_keys = [f"layer_{i}" for i in range(len(conf.layers))]
         self.listeners: List = []
         super().__init__(conf.global_conf,
                          dict(zip(self.layer_keys, self.layers)), device)
+        self._uint8_policy = pre_mod.resolve_uint8_policy(self.layers[:1])
 
     def init(self, params=None, state=None,
              updater_state=None) -> "MultiLayerNetwork":
@@ -96,9 +87,9 @@ class MultiLayerNetwork(NetworkEngine):
         compute dtype, new layer state, every layer's output when
         `collect`). Declared state comes back always, the recurrent
         layers' h and c only with `keep_rnn_state`."""
-        x = torch.as_tensor(x, device=self.device)
-        if x.is_floating_point():
-            x = x.to(self.dtype_policy.compute_dtype)
+        x = pre_mod.apply_uint8_policy(
+            torch.as_tensor(x, device=self.device), self._uint8_policy,
+            self.dtype_policy.compute_dtype)
         mask = (None if fmask is None
                 else torch.as_tensor(fmask, device=self.device))
         new_state, acts = {}, []
@@ -326,77 +317,8 @@ class MultiLayerNetwork(NetworkEngine):
 
     # ------------------------------------------------------------- params io
 
-    def _param_orders(self):
-        return {lk: list(layer.param_shapes())
-                for lk, layer in zip(self.layer_keys, self.layers)}
-
-    def num_params(self) -> int:
-        return int(sum(np.prod(s) for layer in self.layers
-                       for s in layer.param_shapes().values()))
-
-    def params(self) -> np.ndarray:
-        """The flat 1-D param view (reference `Model.params()`)."""
-        return params_mod.flatten_params(self.params_tree, self.layer_keys,
-                                         self._param_orders())
-
-    def set_params(self, flat) -> None:
-        """Write a flat view (as `params()` gives it) into the params."""
-        new = params_mod.unflatten_params(flat, self.params_tree,
-                                          self.layer_keys,
-                                          self._param_orders())
-        with torch.no_grad():
-            for lk, p in new.items():
-                for k, a in p.items():
-                    self.params_tree[lk][k].copy_(a)
-        self._compute_params = None
-
-    def _updater_leaves(self) -> List[torch.Tensor]:
-        """The updater state's tensors in the reference's leaf order."""
-        def walk(tree):
-            if isinstance(tree, dict):
-                for k in sorted(tree):
-                    yield from walk(tree[k])
-            else:
-                yield tree
-
-        return list(walk(self.opt_state or {}))
-
-    def updater_state_flat(self) -> np.ndarray:
-        """The flat updater view (reference `updater_state_flat`: layer
-        keys, state fields and param names each sorted)."""
-        leaves = self._updater_leaves()
-        if not leaves:
-            return np.zeros((0,), np.float32)
-        return torch.cat([t.detach().cpu().reshape(-1)
-                          for t in leaves]).numpy()
-
-    def set_updater_state_flat(self, flat) -> None:
-        """Write a flat updater view, as `updater_state_flat` gives it, into
-        the updater state (in place)."""
-        leaves = self._updater_leaves()
-        flat = torch.as_tensor(np.asarray(flat))
-        want = sum(t.numel() for t in leaves)
-        if flat.numel() != want:
-            raise ValueError(f"flat updater state length {flat.numel()} != "
-                             f"expected {want}")
-        pos = 0
-        with torch.no_grad():
-            for t in leaves:
-                n = t.numel()
-                t.copy_(flat[pos:pos + n].reshape(t.shape))
-                pos += n
-
-    def clone(self) -> "MultiLayerNetwork":
-        """A deep copy on the same device: params, layer state and updater
-        state copied, never shared (reference `clone`, :1321)."""
-        net = MultiLayerNetwork(copy.deepcopy(self.conf), device=self.device)
-        if self.params_tree is not None:
-            # init copies every tensor it is given.
-            net.init(params=self.params_tree, state=self.state,
-                     updater_state={"opt_state": self.opt_state,
-                                    "iteration": self.iteration})
-            net.epoch = self.epoch
-        return net
+    def _param_layer_order(self):
+        return self.layer_keys
 
     def summary(self) -> str:
         lines = ["=" * 70, f"{'Layer':<28}{'Type':<24}{'Params':>10}",

@@ -56,8 +56,8 @@ def init_layer_params(conf, generator: torch.Generator,
     BatchNorm gamma/beta at the conf's constants, LayerNorm gamma=1/beta=0,
     the bottleneck's gamma_* at ones, biases (beta_* included) at
     `bias_init` with an LSTM's forget block [n, 2n) at
-    `forget_gate_bias_init`, peepholes at zero, weights by the conf's
-    scheme and `_fans`."""
+    `forget_gate_bias_init`, peepholes at zero, weights by the layer's
+    own `weight_init` (its `dist` for "distribution") and `_fans`."""
     params: Dict[str, torch.Tensor] = {}
     bias_init = float(conf.bias_init or 0.0)
     for name, shape in conf.param_shapes().items():
@@ -81,7 +81,7 @@ def init_layer_params(conf, generator: torch.Generator,
             params[name] = init_weights(generator, shape,
                                         *_fans(conf, name, shape),
                                         scheme=conf.weight_init or "xavier",
-                                        dtype=dtype)
+                                        distribution=conf.dist, dtype=dtype)
     return params
 
 

@@ -51,6 +51,7 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     GlobalConf,
     MultiLayerConfiguration,
 )
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.optimize import listeners
 from deeplearning4j_tpu_torch.util import model_serializer
@@ -757,18 +758,56 @@ def test_load_model_of_a_reference_zip_after_two_steps(tmp_path, model):
 
 
 def test_save_model_raises_and_writes_nothing(tmp_path):
-    _, pnet = _nets("mlp")
+    # A net without params is refused before the zip is opened.
     path = tmp_path / "model.zip"
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        model_serializer.save_model(pnet, str(path))
+    with pytest.raises(RuntimeError, match="init"):
+        model_serializer.save_model(
+            MultiLayerNetwork(zoo.mlp_mnist(), device="cpu"), str(path))
     assert not path.exists()
 
 
+@pytest.mark.parametrize("model", ["lenet", "bn"])
+def test_save_model_writes_a_zip_the_reference_loads(tmp_path, model):
+    # Two port steps, then the port's zip: the reference reads params,
+    # updater state, running statistics and counters, and computes the
+    # same output within 1e-6.
+    if model == "lenet":
+        _, pnet = _nets("lenet")
+        x, y = _mnist("lenet", seed=8)
+    else:
+        pnet = MultiLayerNetwork(MultiLayerConfiguration.from_json(
+            _bn_conf().to_json()), device="cpu").init()
+        rng = np.random.RandomState(8)
+        x = rng.rand(B, 64).astype(np.float32)
+        y = np.eye(3, dtype=np.float32)[rng.randint(0, 3, B)]
+    for _ in range(2):
+        pnet.fit(DataSet(x, y))
+    path = str(tmp_path / "model.zip")
+    model_serializer.save_model(pnet, path)
+    jnet = jax_serializer.load_model(path)
+    assert (jnet.iteration, jnet.epoch) == (2, 2)
+    np.testing.assert_array_equal(np.asarray(jnet.params()), pnet.params())
+    np.testing.assert_array_equal(np.asarray(jnet.updater_state_flat()),
+                                  pnet.updater_state_flat())
+    if model == "bn":
+        _assert_trees(pnet.state, _np_tree(jnet.state), "running stats",
+                      EXACT)
+    np.testing.assert_allclose(np.asarray(jnet.output(x)), pnet.output(x),
+                               rtol=1e-6, atol=1e-6)
+
+
 def test_load_model_refuses_a_graph_zip(tmp_path):
+    # A graph zip whose coefficients do not fit its configuration.
+    net = ComputationGraph(zoo.transformer_lm(16, t=8, d_model=8, n_heads=2,
+                                              n_blocks=1),
+                           device="cpu").init()
     path = str(tmp_path / "graph.zip")
-    with zipfile.ZipFile(path, "w") as z:
-        z.writestr("manifest.json", json.dumps(
-            {"format": "deeplearning4j_tpu/model-zip", "version": 1,
-             "engine": "ComputationGraph"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        model_serializer.load_model(path, device="cpu")
+    model_serializer.save_model(net, path)
+    cut = str(tmp_path / "cut.zip")
+    with zipfile.ZipFile(path) as src, zipfile.ZipFile(cut, "w") as dst:
+        for name in src.namelist():
+            data = src.read(name)
+            dst.writestr(name, data[:-8] if name == "coefficients.bin"
+                         else data)
+    with pytest.raises(ValueError, match="flat param length"):
+        model_serializer.load_model(cut, device="cpu")

@@ -76,7 +76,13 @@ def test_every_port_module_imports_without_jax():
             "deeplearning4j_tpu_torch.eval.evaluation",
             "deeplearning4j_tpu_torch.datasets.iterators",
             "deeplearning4j_tpu_torch.datasets.builtin",
-            "deeplearning4j_tpu_torch.util.model_serializer"} <= set(mods)
+            "deeplearning4j_tpu_torch.util.model_serializer",
+            "deeplearning4j_tpu_torch.nn.conf.distributions",
+            "deeplearning4j_tpu_torch.nn.conf.neural_net",
+            "deeplearning4j_tpu_torch.nn.conf.graph",
+            "deeplearning4j_tpu_torch.nn.conf.dtype_policy",
+            "deeplearning4j_tpu_torch.nn.weights",
+            "deeplearning4j_tpu_torch.nn.graph"} <= set(mods)
     code = (
         "import sys\n"
         "for blocked in ('jax', 'jaxlib', 'deeplearning4j_tpu'):\n"

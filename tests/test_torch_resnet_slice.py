@@ -51,9 +51,10 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     OutputLayer,
     SubsamplingLayer,
 )
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType as PortInputType
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
-    GlobalConf,
+    NeuralNetConfiguration as PortNeuralNetConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.layers import convolution, pooling
@@ -202,9 +203,9 @@ def _jax_small(fused, dtype="float32"):
 
 
 def _port_small(fused, dtype="float32"):
-    g = GlobalConf(seed=7, learning_rate=0.1, updater="nesterovs",
-                   momentum=0.9, weight_init="relu", l2=1e-4, dtype=dtype)
-    b = resnet.GraphBuilder(g, {"input": (IMAGE, IMAGE, 3)})
+    b = (PortNeuralNetConfiguration.builder().seed(7).learning_rate(0.1)
+         .updater("nesterovs").momentum(0.9).weight_init("relu")
+         .l2(1e-4).dtype(dtype).graph_builder().add_inputs("input"))
     x = resnet._conv_bn(b, "stem", "input", 8, (7, 7), (2, 2))
     b.add_layer("stem_pool", SubsamplingLayer(
         pooling_type="max", kernel_size=(3, 3), stride=(2, 2),
@@ -216,7 +217,9 @@ def _port_small(fused, dtype="float32"):
     b.add_layer("fc", OutputLayer(n_out=CLASSES, activation="softmax",
                                   loss_function="mcxent",
                                   weight_init="xavier"), "avgpool")
-    return b.build(["fc"])
+    return (b.set_outputs("fc")
+            .set_input_types(PortInputType.convolutional(IMAGE, IMAGE, 3))
+            .build())
 
 
 def _batches():
