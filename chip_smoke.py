@@ -219,7 +219,43 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               CPU's largest |m| there. Launches (from 0, card windows
               only): 48 inference blocks, 32 training blocks, 5
               BatchNorms and 25 updates, 0 plain calls.
-23. trace   - where one decode step's, one 1024-token prefill's, one LM
+23. ckpt    - persistence and recovery on the card (build/ckpt, removed
+              after). (a) The train phase's LM at full width from its seed,
+              `fit` step by step over 2 batches at B=16, T=1024: twice
+              uninterrupted to step 15 (the first under a
+              `CheckpointManager`, async saves every 5 steps; its steps
+              timed, those with a write in flight against the train phase's
+              median); the two runs must be equal bit for bit. A child
+              process (`chip_smoke.py --ckpt-child DIR`) trains the same
+              run under a manager (`save_every` 5), a sharded
+              `CheckpointListener` and a `FailureDetectionListener`, and
+              is SIGKILLed while its step-10 save is being written (it
+              holds that write after its first chunk). The parent
+              `restore()`s the newest committed step (5; the `.tmp` is
+              ignored) onto a net built on the card and trains to step 15
+              as one `fit` epoch under a sharded listener and the watchdog:
+              params, Adam state and scores equal the uninterrupted run's
+              bit for bit. Then one param times NaN and 2 steps: the
+              watchdog rolls back once, in place, to step 15 (the state
+              equal to the uninterrupted run's), and 2 more steps have
+              finite scores and move the restored params. Snapshot ms on
+              the training thread, write s, checkpoint bytes, restore s.
+              (b) T2 (resnet_train's fused graph, B=32, 64x64) from its seed
+              for 8 steps as one `fit` epoch under a zip
+              `CheckpointListener` every 4 steps; twice, equal bit for bit;
+              `load_checkpoint` of the step-4 zip plus 4 steps equals the
+              uninterrupted run, BatchNorm running statistics included;
+              snapshot ms and write s beside the dsl phase's measured
+              12.4-14.0 s synchronous `save_model`. (c) LeNet under
+              `EarlyStoppingTrainer` for 2 epochs of `MnistDataSetIterator
+              (128)`, scored by `DataSetLossCalculator` on the test set,
+              the best model saved by `LocalFileModelSaver` in both formats:
+              each reloads on the card with `output` equal bit for bit to
+              the saved net's. Launches (card windows only): per LM step 9
+              LayerNorm, 4 each of rows 5 and 6's three kernels, 1 update;
+              per T2 step 16 blocks, 1 BatchNorm, 1 update; per LeNet step
+              1 update; 0 plain calls.
+24. trace   - where one decode step's, one 1024-token prefill's, one LM
               training step's, one T1 and one T2 step's, one char-RNN fit
               call's (forward, backward, update; the call's two chunks
               summed), one `rnn_time_step`'s, one LeNet and one MLP fit
@@ -236,16 +272,17 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
 
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
-rnn_sample, lenet_train, mlp_train, dsl, long_train, long_output; row 13 on
-row 4's entry; row 9 also with its time at LeNet's update) and, last,
-the result line. With no GPU, without the package beside it, or when any phase
-fails, it exits non-zero and prints no result.
+rnn_sample, lenet_train, mlp_train, dsl, ckpt, long_train, long_output;
+row 13 on row 4's entry; row 9 also with its time at LeNet's update) and,
+last, the result line. With no GPU, without the package beside it, or when
+any phase fails, it exits non-zero and prints no result.
 """
 
 import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -370,6 +407,23 @@ DSL_LAUNCHES = {
     "lenet": {"fused_update": 2},
     "multi_io": {"fused_update": DSL_MULTI_STEPS},
     "vertices": {"fused_update": 1}}
+
+# Persistence and recovery (the ckpt phase), under the checkout's build
+# directory. LM: checkpoints every 5 steps; the child is killed while its
+# second save (step 10) is being written; the parent resumes from step 5
+# to step 15, then poisons a param and runs 2 steps (the watchdog rolls
+# back once) and 2 more. T2: a zip every 4 steps, 8 steps, resumed from
+# step 4. M1: early stopping over 2 epochs. Launches per card window.
+CKPT_DIR = os.path.join("build", "ckpt")
+CKPT_EVERY, CKPT_KILL, CKPT_STEPS, CKPT_POISONED = 5, 10, 15, 2
+CKPT_CHILD_FLAG = "--ckpt-child"
+CKPT_CHILD_TIMEOUT_S = 300
+CKPT_T2_EVERY, CKPT_T2_STEPS = 4, 8
+CKPT_ES_EPOCHS = 2
+# T2's synchronous `save_model` on the training thread as the dsl phase
+# measured it (H100 80GB HBM3, 700 W), set beside this phase's off-thread
+# zip write.
+CKPT_T2_SYNC_SAVE_S = (12.4, 14.0)
 
 # Long context: the same LM at T = 32,768, B = 1, where the K/V of
 # one (batch, head) outgrow the resident limit and every attention takes the
@@ -1119,7 +1173,8 @@ def phase_train(card, torch, kernels, conf, dev):
          launches=counts["launches"], expected_launches=want,
          variants={k: counts["variants"][k] for k in TRAIN_FLASH},
          plain_calls=counts["plain_calls"])
-    return not errors, counts["launches"], net, batches
+    return (not errors, counts["launches"], net, batches,
+            statistics.median(timed))
 
 
 def _m_errors(got, want):
@@ -2183,6 +2238,501 @@ def phase_dsl(card, torch, kernels, dev, t2_net, t2_batch, lenet_net,
     return not errors, launches
 
 
+# ---------------------------------------------------------- persistence
+
+
+def _score_clock(torch):
+    """A listener that reads each iteration's score (a sync) and the
+    time."""
+    from deeplearning4j_tpu_torch.optimize.listeners import IterationListener
+
+    class Clock(IterationListener):
+        def __init__(self):
+            self.scores, self.marks = [], []
+
+        def start(self):
+            torch.cuda.synchronize()
+            self.marks.append(time.perf_counter())
+
+        def iteration_done(self, model, iteration):
+            self.scores.append(model.score_value)
+            self.marks.append(time.perf_counter())
+
+        def step_ms(self):
+            return [(b - a) * 1e3 for a, b in zip(self.marks,
+                                                  self.marks[1:])]
+
+    return Clock()
+
+
+def _ckpt_lm_batches(torch, dev):
+    """The ckpt phase's LM batches, staged on the card: step k (from 1)
+    takes batch (k - 1) % 2, in the parent and in the child alike."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+
+    return [MultiDataSet([torch.as_tensor(x, device=dev)],
+                         [torch.as_tensor(y, device=dev)])
+            for x, y in lm_batches(23, TRAIN_B, CACHE, 2)]
+
+
+def _ckpt_lm_net(dev):
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    conf = zoo.transformer_lm(VOCAB, t=CACHE, d_model=D_MODEL, n_heads=HEADS,
+                              n_blocks=BLOCKS, dtype="bfloat16")
+    return ComputationGraph(conf, device=dev).init()
+
+
+def _manager_hook(mgr):
+    """A listener that gives the manager its cadence (`maybe_save`)."""
+    from deeplearning4j_tpu_torch.optimize.listeners import IterationListener
+
+    class Hook(IterationListener):
+        def iteration_done(self, model, iteration):
+            mgr.maybe_save(model)
+
+    return Hook()
+
+
+def ckpt_child(directory: str) -> int:
+    """The ckpt phase's child (`chip_smoke.py --ckpt-child DIR`): the LM
+    from its seed under a CheckpointManager (`save_every` 5, async) on
+    `DIR/manager`, a sharded CheckpointListener on `DIR/listener` and the
+    failure watchdog. Once the first chunk of the manager's step-10 save is
+    on disk it prints `writing <step>` and holds that write there, so the
+    parent's SIGKILL lands mid-write; training goes on until the kill."""
+    import torch
+
+    from deeplearning4j_tpu_torch.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.checkpoint import array_store
+    from deeplearning4j_tpu_torch.util.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.util.failure import FailureDetectionListener
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mgr_dir = os.path.join(directory, "manager")
+    held = os.path.join(mgr_dir, f"step_{CKPT_KILL:08d}.tmp")
+    write = array_store._fsync_write
+
+    def fsync_write(path, data):
+        n = write(path, data)
+        if path.startswith(held):
+            print(f"writing {CKPT_KILL}", flush=True)
+            threading.Event().wait()  # until the kill
+        return n
+
+    array_store._fsync_write = fsync_write
+    net = _ckpt_lm_net(dev)
+    batches = _ckpt_lm_batches(torch, dev)
+    mgr = CheckpointManager(mgr_dir, save_every=CKPT_EVERY, async_save=True,
+                            device=dev)
+    ckpts = CheckpointListener(os.path.join(directory, "listener"),
+                               frequency=CKPT_EVERY, format="sharded")
+    net.set_listeners(ckpts, FailureDetectionListener(ckpts,
+                                                      check_frequency=1),
+                      _manager_hook(mgr))
+    print("training", flush=True)
+    for k in range(1, CKPT_STEPS + 1):
+        net.fit(batches[(k - 1) % 2])
+    print("not killed", flush=True)
+    return 3
+
+
+def _run_child(directory):
+    """Start the child, SIGKILL it when it says it is writing, and return
+    (its output, the seconds from start to kill, whether it was killed
+    mid-write)."""
+    import signal
+
+    out_path = os.path.join(directory, "child.log")
+    with open(out_path, "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), CKPT_CHILD_FLAG,
+             directory], stdout=subprocess.PIPE, stderr=log, text=True)
+    t0 = time.perf_counter()
+    lines, killed = [], False
+    timer = threading.Timer(CKPT_CHILD_TIMEOUT_S, child.kill)
+    timer.start()
+    try:
+        for line in child.stdout:
+            lines.append(line.strip())
+            if line.startswith(f"writing {CKPT_KILL}"):
+                os.kill(child.pid, signal.SIGKILL)
+                killed = True
+                break
+    finally:
+        timer.cancel()
+        child.kill()
+        child.wait()
+        child.stdout.close()
+    seconds = time.perf_counter() - t0
+    with open(out_path) as f:
+        lines += f.read().splitlines()[-20:]
+    return lines, seconds, killed
+
+
+def _same_tensors(torch, a, b):
+    """Names of the leaves of two {vertex: {...: tensor}} trees that are
+    not equal bit for bit."""
+    from deeplearning4j_tpu_torch.checkpoint.store import _flat_items
+
+    fa, fb = dict(_flat_items(a, "")), dict(_flat_items(b, ""))
+    if set(fa) != set(fb):
+        return ["keys differ"]
+    return [k for k in fa if not torch.equal(fa[k], fb[k])]
+
+
+def _net_diff(torch, a, b):
+    """Params, updater state and layer state of `b` that differ from
+    `a`'s, bit for bit, and the counters if they differ."""
+    out = {f"params{k}": 1 for k in _same_tensors(torch, a.params_tree,
+                                                   b.params_tree)}
+    out.update({f"updater{k}": 1 for k in _same_tensors(torch, a.opt_state,
+                                                         b.opt_state)})
+    out.update({f"state{k}": 1 for k in _same_tensors(torch, a.state,
+                                                       b.state)})
+    if a.iteration != b.iteration:
+        out["iteration"] = (a.iteration, b.iteration)
+    return sorted(out)
+
+
+def _ckpt_lm(torch, kernels, dev, train_ms):
+    """Part (a) of the ckpt phase: the LM child killed mid-write, resumed
+    in the parent, held to two uninterrupted runs; then the rollback."""
+    from deeplearning4j_tpu_torch.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.util.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.util.failure import FailureDetectionListener
+
+    root = os.path.join(CKPT_DIR, "lm")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.empty_cache()  # room for the child's net
+    errors, report, launches = [], {}, {name: 0 for name in KERNEL_INFO}
+    batches = _ckpt_lm_batches(torch, dev)
+
+    def window(fn, steps):
+        _, got, errs = _card_window(kernels, {
+            k: v * steps for k, v in TRAIN_LAUNCHES.items()}, fn)
+        errors.extend(errs)
+        for k, v in got.items():
+            launches[k] += v
+
+    # Two uninterrupted runs, the first under a manager (async saves every
+    # 5 steps): its steps while a write is in flight are timed.
+    runs, walls, in_flight = [], [], []
+    ref_mgr = CheckpointManager(os.path.join(root, "uninterrupted"),
+                                save_every=CKPT_EVERY, device=dev)
+    for r in range(2):
+        net = _ckpt_lm_net(dev)
+        if r == 0:
+            net.set_listeners(_manager_hook(ref_mgr))
+        scores = []
+
+        def run():
+            for k in range(1, CKPT_STEPS + 1):
+                busy = ref_mgr._writes.busy()
+                t0 = time.perf_counter()
+                net.fit(batches[(k - 1) % 2])
+                scores.append(net.score_value)  # syncs the step
+                if r == 0:
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    in_flight.append(busy)
+
+        window(run, CKPT_STEPS)
+        runs.append((net, scores))
+    ref_mgr.flush()
+    (ref, ref_scores), (twin, twin_scores) = runs
+    runs_equal = not _net_diff(torch, ref, twin) and ref_scores == twin_scores
+    if not runs_equal:
+        errors.append(f"two uninterrupted runs differ: "
+                      f"{_net_diff(torch, ref, twin)[:8]}")
+    del twin, runs
+    busy_ms = [w for w, b in zip(walls, in_flight) if b]
+    report.update(
+        uninterrupted_runs_equal=runs_equal, scores=ref_scores,
+        snapshot_ms=ref_mgr.timings["checkpoint.snapshot"] * 1e3,
+        write_s=ref_mgr.timings["checkpoint.write"],
+        checkpoint_bytes=ref_mgr.stats["dl4j_checkpoint_bytes_written_total"]
+        // ref_mgr.stats["dl4j_checkpoint_saves_total"],
+        step_ms_all=walls, steps_with_write_in_flight=sum(in_flight),
+        step_ms_with_write_in_flight_median=(
+            statistics.median(busy_ms) if busy_ms else None),
+        train_phase_step_ms_median=train_ms)
+    if not busy_ms:
+        errors.append("no step ran with a write in flight")
+
+    # The child, killed while its step-10 save is being written.
+    lines, child_s, killed = _run_child(root)
+    mgr = CheckpointManager(os.path.join(root, "manager"), device=dev)
+    held = mgr.step_path(CKPT_KILL)
+    on_disk = sorted(os.listdir(mgr.directory))
+    report.update(child_seconds=child_s, child_killed_mid_write=killed,
+                  child_output=lines[-6:], manager_dir=on_disk)
+    if not killed:
+        errors.append(f"child not killed mid-write: {lines[-6:]}")
+    if not os.path.isdir(held + ".tmp") or os.path.isdir(held) \
+            or mgr.latest() != CKPT_EVERY:
+        errors.append(f"after the kill: {on_disk}, latest {mgr.latest()}")
+
+    # The resume: the newest committed step, onto a net built on the card.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = mgr.restore()
+    torch.cuda.synchronize()
+    report.update(restore_s=time.perf_counter() - t0,
+                  restored_step=net.iteration)
+    if net.iteration != CKPT_EVERY:
+        errors.append(f"restored step {net.iteration}")
+    ckpts = CheckpointListener(os.path.join(root, "parent_listener"),
+                               frequency=CKPT_EVERY, format="sharded")
+    watchdog = FailureDetectionListener(ckpts, check_frequency=1)
+    clock = _score_clock(torch)
+    net.set_listeners(ckpts, watchdog, clock)
+
+    def resume():
+        # One `fit` epoch: the listener's writes overlap the next steps.
+        clock.start()
+        net.fit([batches[(k - 1) % 2]
+                 for k in range(net.iteration + 1, CKPT_STEPS + 1)])
+
+    window(resume, CKPT_STEPS - CKPT_EVERY)
+    resumed = clock.scores
+    report.update(resumed_step_ms=clock.step_ms(),
+                  listener_snapshot_ms=(
+                      ckpts.timings["checkpoint.snapshot"] * 1e3),
+                  listener_write_s=ckpts.timings["checkpoint.write"])
+    diff = _net_diff(torch, ref, net)
+    report.update(resumed_scores=resumed, resume_bitwise_equal=not diff
+                  and resumed == ref_scores[CKPT_EVERY:])
+    if not report["resume_bitwise_equal"]:
+        errors.append(f"resume differs from the uninterrupted run: "
+                      f"{diff[:8]}, scores {resumed} vs "
+                      f"{ref_scores[CKPT_EVERY:]}")
+
+    # The rollback: one param times NaN, 2 steps (the watchdog reads the
+    # previous step's score: it rolls back at the second), 2 more.
+    first = next(iter(net.params_tree.values()))
+    leaf = next(iter(first.values()))
+    with torch.no_grad():
+        leaf.mul_(float("nan"))
+    after = []
+
+    def rollback():
+        for k in range(CKPT_POISONED + 2):
+            net.fit(batches[k % 2])
+            after.append(net.score_value)
+            if k == CKPT_POISONED - 1:
+                after.append(_net_diff(torch, ref, net))
+                restored = leaf.detach().clone()
+        after.append(not torch.equal(leaf, restored))
+
+    net.set_listeners(ckpts, watchdog)
+    window(rollback, CKPT_POISONED + 2)
+    moved = after.pop()
+    at_rollback = after.pop(CKPT_POISONED)
+    log = watchdog.recovery_log
+    report.update(recoveries=watchdog.recoveries, rollback_log=[
+        {k: v for k, v in e.items() if k != "dropped_checkpoints"}
+        for e in log], scores_around_rollback=after,
+        rollback_restored_the_step_15_state=not at_rollback,
+        step_after_rollback_moved_params=moved)
+    if watchdog.recoveries != 1 or log[0]["restored_iteration"] != \
+            CKPT_STEPS:
+        errors.append(f"rollback: {watchdog.recoveries} recoveries, "
+                      f"{log}")
+    if at_rollback or not moved:
+        errors.append(f"rollback state differs {at_rollback[:8]} or the "
+                      f"next step left the params ({moved})")
+    if not all(np.isfinite(after[CKPT_POISONED:])):
+        errors.append(f"scores after the rollback: {after}")
+    del net, ref
+    torch.cuda.empty_cache()
+    return errors, launches, report
+
+
+def _ckpt_t2(torch, kernels, dev):
+    """Part (b): T2 under a zip CheckpointListener every 4 steps for 8,
+    resumed from the step-4 zip and held to the uninterrupted run (and
+    that run to a second one)."""
+    from deeplearning4j_tpu_torch.util.checkpoint import (
+        CheckpointListener,
+        load_checkpoint,
+    )
+
+    root = os.path.join(CKPT_DIR, "t2")
+    shutil.rmtree(root, ignore_errors=True)
+    image, _, batch = RN_PATHS["t2"]
+    batches = rn_batches(torch, dev, image, batch, 2, 71)
+    errors, launches = [], {name: 0 for name in KERNEL_INFO}
+
+    def window(fn, steps):
+        _, got, errs = _card_window(kernels, {
+            k: v * steps for k, v in RN_LAUNCHES["t2"].items()}, fn)
+        errors.extend(errs)
+        for k, v in got.items():
+            launches[k] += v
+
+    def steps(net, first, last):
+        """Steps first..last as one `fit` epoch; their scores and wall
+        times (ms, from the previous step's end)."""
+        clock = _score_clock(torch)
+        net.set_listeners(*net.listeners, clock)
+        clock.start()
+        net.fit([batches[(k - 1) % 2] for k in range(first, last + 1)])
+        net.set_listeners(*net.listeners[:-1])
+        return clock.scores, clock.step_ms()
+
+    ref = _rn_net(torch, dev, "t2")
+    ckpts = CheckpointListener(root, frequency=CKPT_T2_EVERY, keep_last=2)
+    ref.set_listeners(ckpts)
+    t0 = time.perf_counter()
+    out = []
+    window(lambda: out.append(steps(ref, 1, CKPT_T2_STEPS)), CKPT_T2_STEPS)
+    epoch_s = time.perf_counter() - t0
+    (ref_scores, ref_ms), = out
+    snapshot_ms = ckpts.timings["checkpoint.snapshot"] * 1e3
+    write_s = ckpts.timings["checkpoint.write"]
+    twin = _rn_net(torch, dev, "t2")
+    window(lambda: out.append(steps(twin, 1, CKPT_T2_STEPS)), CKPT_T2_STEPS)
+    twin_scores = out[-1][0]
+    runs_equal = not _net_diff(torch, ref, twin) and ref_scores == twin_scores
+    if not runs_equal:
+        errors.append(f"two uninterrupted runs differ: "
+                      f"{_net_diff(torch, ref, twin)[:8]}")
+    del twin
+    path = ckpts.saved_paths[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = load_checkpoint(path, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    window(lambda: out.append(steps(net, net.iteration + 1, CKPT_T2_STEPS)),
+           CKPT_T2_STEPS - CKPT_T2_EVERY)
+    resumed = out[-1][0]
+    diff = _net_diff(torch, ref, net)
+    equal = not diff and resumed == ref_scores[CKPT_T2_EVERY:]
+    if not equal:
+        errors.append(f"zip resume differs: {diff[:8]}, scores {resumed} vs "
+                      f"{ref_scores[CKPT_T2_EVERY:]}")
+    bn = sum(len(s) for s in ref.state.values())
+    report = dict(
+        checkpoints=[os.path.basename(p) for p in ckpts.saved_paths],
+        zip_bytes=os.path.getsize(path), snapshot_ms=snapshot_ms,
+        write_s=write_s, epoch_s=epoch_s, step_ms_all=ref_ms,
+        sync_save_model_s_dsl_phase=list(CKPT_T2_SYNC_SAVE_S), load_s=load_s,
+        resumed_from_step=CKPT_T2_EVERY, uninterrupted_runs_equal=runs_equal,
+        resume_bitwise_equal=equal, batchnorm_state_tensors=bn,
+        scores=ref_scores, resumed_scores=resumed)
+    del net, ref
+    torch.cuda.empty_cache()
+    return errors, launches, report
+
+
+def _ckpt_m1(torch, kernels, dev):
+    """Part (c): LeNet under early stopping over 2 epochs, its best model
+    saved in both formats and reloaded on the card."""
+    from deeplearning4j_tpu_torch.datasets.builtin import (
+        MnistDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator,
+        EarlyStoppingConfiguration,
+        EarlyStoppingTrainer,
+        LocalFileModelSaver,
+        MaxEpochsTerminationCondition,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    root = os.path.join(CKPT_DIR, "m1")
+    shutil.rmtree(root, ignore_errors=True)
+    savers = {fmt: LocalFileModelSaver(os.path.join(root, fmt), format=fmt,
+                                       device=dev)
+              for fmt in ("zip", "sharded")}
+    test = MnistDataSetIterator(MNIST_B, train=False)
+    probe = next(iter(test)).features
+    saved = {}
+
+    class BothFormats:
+        """Saves through both savers and keeps `output` of what it saved
+        on one test batch (twice: the card's own repeatability)."""
+
+        def save_best_model(self, net, score):
+            for saver in savers.values():
+                saver.save_best_model(net, score)
+            saved["outputs"] = [net.output(probe), net.output(probe)]
+            saved["epoch"] = net.epoch
+
+        def save_latest_model(self, net, score):
+            for saver in savers.values():
+                saver.save_latest_model(net, score)
+
+        def get_best_model(self):
+            return savers["zip"].get_best_model()
+
+    net = MultiLayerNetwork(_mnist_conf("lenet"), device=dev).init()
+    cfg = (EarlyStoppingConfiguration.builder()
+           .score_calculator(DataSetLossCalculator(test))
+           .model_saver(BothFormats())
+           .epoch_termination_conditions(
+               MaxEpochsTerminationCondition(CKPT_ES_EPOCHS))
+           .build())
+    trainer = EarlyStoppingTrainer(cfg, net, MnistDataSetIterator(MNIST_B))
+    t0 = time.perf_counter()
+    result, got, errors = _card_window(
+        kernels, {k: v * CKPT_ES_EPOCHS * MNIST_STEPS
+                  for k, v in MNIST_LAUNCHES.items()}, trainer.fit)
+    fit_s = time.perf_counter() - t0
+    want = saved["outputs"][0]
+    self_gap = float(np.abs(saved["outputs"][1] - want).max())
+    reloads = {}
+    for fmt, saver in savers.items():
+        best = saver.get_best_model()
+        out = best.output(probe)
+        reloads[fmt] = dict(equal=bool(np.array_equal(out, want)),
+                            max_abs_diff=float(np.abs(out - want).max()),
+                            iteration=best.iteration)
+        if not reloads[fmt]["equal"]:
+            errors.append(f"best model ({fmt}) reloads with output off by "
+                          f"{reloads[fmt]['max_abs_diff']}")
+    if (result.total_epochs, result.termination_details) != (
+            CKPT_ES_EPOCHS, "MaxEpochsTerminationCondition"):
+        errors.append(f"result {result.total_epochs} epochs, "
+                      f"{result.termination_details}")
+    scores = list(result.score_vs_epoch.values())
+    if not all(np.isfinite(scores)):
+        errors.append(f"scores {scores}")
+    report = dict(epochs=result.total_epochs,
+                  termination=result.termination_details,
+                  score_vs_epoch=result.score_vs_epoch,
+                  best_model_epoch=result.best_model_epoch,
+                  best_model_score=result.best_model_score, fit_s=fit_s,
+                  output_self_gap=self_gap, reloads=reloads)
+    return errors, got, report
+
+
+def phase_ckpt(card, torch, kernels, dev, train_ms):
+    """The ckpt phase (see the module docstring): (a) the LM killed,
+    resumed and rolled back, (b) T2's zip resume, (c) M1 under early
+    stopping; launches in the card windows, 0 plain calls."""
+    t0 = time.perf_counter()
+    errors, parts = [], {}
+    launches = {name: 0 for name in KERNEL_INFO}
+    for name, part in (("lm", lambda: _ckpt_lm(torch, kernels, dev,
+                                               train_ms)),
+                       ("t2", lambda: _ckpt_t2(torch, kernels, dev)),
+                       ("m1", lambda: _ckpt_m1(torch, kernels, dev))):
+        errs, got, parts[name] = part()
+        errors.extend(f"{name}: {e}" for e in errs)
+        for k, v in got.items():
+            launches[k] += v
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    emit(card, phase="ckpt", ok=not errors, errors=errors, **parts,
+         launches=launches, seconds=time.perf_counter() - t0)
+    return not errors, launches
+
+
 # ------------------------------------------------------------------ ResNet
 
 
@@ -3128,7 +3678,7 @@ def main() -> int:
         failed.append("serve")
     if not phase_parity(card, torch, cg, conf):
         failed.append("parity")
-    ok, train_launches, train_net, batches = phase_train(
+    ok, train_launches, train_net, batches, train_ms = phase_train(
         card, torch, kernels, train_conf, dev)
     if not ok:
         failed.append("train")
@@ -3185,6 +3735,10 @@ def main() -> int:
         *mnist["lenet"])
     if not ok:
         failed.append("dsl")
+    ok, path_launches["ckpt"] = phase_ckpt(card, torch, kernels, dev,
+                                           train_ms)
+    if not ok:
+        failed.append("ckpt")
 
     long_rows, row13 = phase_long_kernels(card, torch, dev)
     if not (all(r["ok"] for r in long_rows) and row13["ok"]):
@@ -3215,7 +3769,8 @@ def main() -> int:
     # counted from 0: the serve phase, the LM train phase's 23 steps, T1's
     # and T2's 13 steps, I1's and I2's 13 calls, the char-RNN's 13 fit calls
     # and its 2 x 200 sampling calls, LeNet's and the MLP's 469 steps each,
-    # the dsl phase's card windows, the long-context train phase's 7 steps
+    # the dsl and ckpt phases' card windows, the long-context train phase's
+    # 7 steps
     # and its 3 `output` calls), summed
     # and by path. Row 10's library call covers
     # the step without peepholes (at the same B and n); row 13 is row 4's
@@ -3306,4 +3861,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [CKPT_CHILD_FLAG]:
+        sys.exit(ckpt_child(sys.argv[2]))
     sys.exit(main())

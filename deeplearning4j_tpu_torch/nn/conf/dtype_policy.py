@@ -82,6 +82,11 @@ class DtypePolicy:
             return bool(self.dynamic_loss_scale)
         return _PRESETS[self.name][3]
 
+    @property
+    def is_default(self) -> bool:
+        """Full f32 with no knob set: a checkpoint's meta omits it."""
+        return self == DtypePolicy()
+
     def to_dict(self) -> dict:
         d: dict = {"name": self.name}
         for f in dataclasses.fields(self):
@@ -123,16 +128,20 @@ class Precision:
     output_dtype: torch.dtype
 
 
-def resolve_policy(global_conf) -> Precision:
-    """An explicit `dtype_policy` wins; else the legacy `dtype` string.
-    Raises NotImplementedError for a policy the port does not run."""
+def conf_policy(global_conf) -> DtypePolicy:
+    """The conf's policy: an explicit `dtype_policy` wins; else the legacy
+    `dtype` string."""
     explicit = getattr(global_conf, "dtype_policy", None)
     if explicit is not None:
-        pol = DtypePolicy.of(explicit)
-    else:
-        legacy = str(getattr(global_conf, "dtype", "float32"))
-        pol = DtypePolicy("mixed_bfloat16" if legacy == "bfloat16"
-                          else legacy)
+        return DtypePolicy.of(explicit)
+    legacy = str(getattr(global_conf, "dtype", "float32"))
+    return DtypePolicy("mixed_bfloat16" if legacy == "bfloat16" else legacy)
+
+
+def resolve_policy(global_conf) -> Precision:
+    """The dtypes of `conf_policy`. Raises NotImplementedError for a policy
+    the port does not run."""
+    pol = conf_policy(global_conf)
     param, compute, output = pol.resolved()
     if pol.uses_loss_scaling or "float16" in (param, compute, output):
         raise NotImplementedError(

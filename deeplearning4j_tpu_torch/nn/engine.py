@@ -29,6 +29,15 @@ to its conf, in the engine's update order.
   level). The model zip stores both.
 - Construction refuses a layer the port holds as a conf only
   (`nn/layers/__init__.py` `check_supported`), naming its ROADMAP item.
+- Listeners (`set_listeners`) get `on_epoch_start(net)`, then
+  `iteration_done(net, iteration)` after every iteration, then
+  `on_epoch_end(net)` (`optimize/listeners.py`); both engines call them
+  where the reference's do.
+- `_train_rng` is the reference's train-time RNG continuation, a
+  `uint32[2]` key that `init` sets to its `PRNGKey(seed ^ 0x5EED)`
+  (`prng_key`). The port draws nothing at train time (dropout is refused,
+  A.4), so it never advances the key: checkpoints carry it as they found
+  it.
 """
 
 from __future__ import annotations
@@ -48,6 +57,15 @@ from deeplearning4j_tpu_torch.nn.layers import check_supported
 from deeplearning4j_tpu_torch.ops import grad_norm as grad_norm_mod
 from deeplearning4j_tpu_torch.ops import schedules as schedules_mod
 from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """`jax.random.PRNGKey(seed)` (the default threefry key, as the
+    reference's tests make it with 64-bit ints on): the seed's high and low
+    32 bits."""
+    seed = int(seed)
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                    np.uint32)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -79,6 +97,7 @@ class NetworkEngine:
         self._score: Optional[torch.Tensor] = None
         self._rnn_state: Dict[str, Dict] = {}
         self._rnn_pos = 0
+        self.listeners: List = []
         # The fused update's packed kernel arguments per (kind, hyper)
         # group, reused while the params and state stay the same tensors
         # (`fused_update.apply_step`); emptied where they are replaced.
@@ -142,7 +161,17 @@ class NetworkEngine:
                 self.params_tree[name]) for name in layers}
         if updater_state is not None:
             self.set_updater_state(updater_state)
+        self._train_rng = prng_key(int(g.seed) ^ 0x5EED)
         self.rnn_clear_previous_state()
+
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def _iteration_done(self) -> None:
+        self.iteration += 1
+        for listener in self.listeners:
+            listener.iteration_done(self, self.iteration)
 
     def set_updater_state(self, updater_state) -> None:
         """Resume from `{"opt_state": {key: {field: {name: tensor}}},
@@ -358,6 +387,7 @@ class NetworkEngine:
                      updater_state={"opt_state": self.opt_state,
                                     "iteration": self.iteration})
             net.epoch = self.epoch
+            net._train_rng = self._train_rng.copy()
         return net
 
     def _declared_state(self):

@@ -10,6 +10,10 @@ inference copy, the updaters, the in-place update and the flat views
 (`params()` over the layer vertices in topological order) are the
 engines' shared machinery (`engine.py`).
 
+- `fit` calls the listeners (`set_listeners`) as the reference's does:
+  `on_epoch_start`, `iteration_done(net, iteration)` after every step
+  (`iterations` steps a batch), `on_epoch_end` (reference `:758-805`,
+  `:1103-1106`).
 - Declared layer state (the BatchNorm running statistics, `self.state`)
   is kept at the param dtype and never cast to the compute dtype: `fit`
   runs the layers in training mode (batch statistics) and keeps the new
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.datasets.iterators import maybe_reset
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn import params as params_mod
@@ -216,14 +221,17 @@ class ComputationGraph(NetworkEngine):
         if labels is not None or isinstance(data, (DataSet, MultiDataSet)):
             items = [_as_mds(data, labels)]
         else:
-            if hasattr(data, "reset"):
-                data.reset()
             items = data
+        maybe_reset(items)
+        for listener in self.listeners:
+            listener.on_epoch_start(self)
         for item in items:
             mds = _as_mds(item)
             for _ in range(max(1, int(self.conf.global_conf.iterations))):
                 self._fit_one(mds)
         self.epoch += 1
+        for listener in self.listeners:
+            listener.on_epoch_end(self)
         return self
 
     def _fit_one(self, mds: MultiDataSet) -> None:
@@ -236,7 +244,7 @@ class ComputationGraph(NetworkEngine):
         for n, s in new_state.items():
             self.state[n] = {**self.state.get(n, {}), **s}
         self._score = loss.detach()
-        self.iteration += 1
+        self._iteration_done()
 
     def _train_forward(self, mds):
         """The loss, recorded by autograd from the f32 leaves through their

@@ -67,7 +67,6 @@ class MultiLayerNetwork(NetworkEngine):
         self.conf = conf
         self.layers = conf.layers
         self.layer_keys = [f"layer_{i}" for i in range(len(conf.layers))]
-        self.listeners: List = []
         super().__init__(conf.global_conf,
                          dict(zip(self.layer_keys, self.layers)), device)
         self._uint8_policy = pre_mod.resolve_uint8_policy(self.layers[:1])
@@ -175,10 +174,6 @@ class MultiLayerNetwork(NetworkEngine):
 
     # ------------------------------------------------------------------- fit
 
-    def set_listeners(self, *listeners) -> "MultiLayerNetwork":
-        self.listeners = list(listeners)
-        return self
-
     def fit(self, data, labels=None) -> "MultiLayerNetwork":
         """Train on a DataSet, an iterable of DataSets, or `features,
         labels`: one pass (reference `fit`, :775)."""
@@ -202,11 +197,6 @@ class MultiLayerNetwork(NetworkEngine):
         for listener in self.listeners:
             listener.on_epoch_end(self)
         return self
-
-    def _iteration_done(self) -> None:
-        self.iteration += 1
-        for listener in self.listeners:
-            listener.iteration_done(self, self.iteration)
 
     def _fit_dispatch(self, ds: DataSet) -> None:
         """Truncated BPTT for a sequence longer than a chunk, else one step

@@ -1,8 +1,9 @@
 """Training listeners (counterpart of
 `deeplearning4j_tpu/optimize/listeners.py`): the reference's
-IterationListener / TrainingListener hooks. `MultiLayerNetwork.fit` calls
+IterationListener / TrainingListener hooks. Both engines' `fit` call
 `on_epoch_start(net)`, `iteration_done(net, iteration)` after every
-iteration, and `on_epoch_end(net)`.
+iteration, and `on_epoch_end(net)`. The checkpoint and failure listeners
+are in `util/checkpoint.py` and `util/failure.py`.
 
 Reading `net.score_value` waits for the step that made it: a listener that
 reads it every iteration holds the card to the host's pace.

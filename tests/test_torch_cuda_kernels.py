@@ -1663,3 +1663,66 @@ def test_flash_attention_fn_copies_a_misaligned_do_when_resident(cuda):
         assert c["variants"][name] == {"wgmma": 2, "cuda_cores": 0}
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_lm_resumes_bit_for_bit_and_rolls_back_in_place(cuda, tmp_path):
+    # A small LM (bf16 compute, D = 64: rows 1, 5, 6 and 9 on the card)
+    # resumed from a sharded checkpoint equals its uninterrupted run bit
+    # for bit; a rollback restores in place, and the step after it moves
+    # the restored params.
+    from deeplearning4j_tpu_torch.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.util.failure import (
+        FailureDetectionListener,
+    )
+
+    conf = lambda: zoo.transformer_lm(256, t=128, d_model=128, n_heads=2,
+                                      n_blocks=2, dtype="bfloat16")
+    rng = np.random.RandomState(5)
+    batches = []
+    for _ in range(2):
+        ids = rng.randint(0, 256, (4, 129))
+        batches.append(MultiDataSet(
+            [torch.as_tensor(ids[:, :-1, None], device=cuda)],
+            [torch.as_tensor(ids[:, 1:].astype(np.int32), device=cuda)]))
+    ref = ComputationGraph(conf(), device=cuda).init()
+    mgr = CheckpointManager(str(tmp_path / "m"), save_every=3, device=cuda)
+    for k in range(6):
+        ref.fit(batches[k % 2])
+        mgr.maybe_save(ref)
+    mgr.flush()
+    kernels.reset_counts()
+    net = mgr.restore(step=3)
+    assert net.device.type == "cuda" and net.iteration == 3
+    for k in range(3, 6):
+        net.fit(batches[k % 2])
+    assert kernels.counts()["launches"]["fused_update"] == 3
+    assert not any(kernels.counts()["plain_calls"].values())
+    for (v, p) in ref.params_tree.items():
+        for k, t in p.items():
+            assert torch.equal(net.params_tree[v][k], t), (v, k)
+    assert ref.updater_state_flat().tobytes() == \
+        net.updater_state_flat().tobytes()
+    assert net.score_value == ref.score_value
+
+    ckpts = CheckpointListener(str(tmp_path / "l"), frequency=2,
+                               format="sharded")
+    watchdog = FailureDetectionListener(ckpts, check_frequency=1)
+    net.set_listeners(ckpts, watchdog)
+    net.fit(batches[0])  # iteration 7
+    net.fit(batches[1])  # iteration 8: saved
+    leaf = net.params_tree["emb"]["W"]
+    with torch.no_grad():
+        leaf.mul_(float("nan"))
+    net.fit(batches[0])
+    net.fit(batches[1])
+    assert watchdog.recoveries == 1 and net.iteration == 8
+    assert net.params_tree["emb"]["W"] is leaf
+    assert bool(leaf.isfinite().all())
+    restored = leaf.detach().clone()
+    net.fit(batches[0])
+    assert not torch.equal(leaf, restored)
+    assert np.isfinite(net.score_value)

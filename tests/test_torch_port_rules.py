@@ -1,15 +1,17 @@
 """Rules of the PyTorch port that no later slice may break quietly.
 
-- The port, `chip_smoke.py` and `chip_ab.py` import neither JAX nor the
-  JAX package:
-  every port module imports in a fresh interpreter where `jax` and
-  `deeplearning4j_tpu` cannot be imported, and no source file names them
-  in an import statement.
+- The port, `chip_smoke.py` and `chip_ab.py` import neither JAX, nor
+  `ml_dtypes`, nor the JAX package: every port module imports in a fresh
+  interpreter where `jax`, `ml_dtypes` and `deeplearning4j_tpu` cannot be
+  imported, and no source file names them in an import statement; in such
+  an interpreter the port reads a bf16 leaf of a checkpoint the reference
+  wrote.
 - Entry points run on the card unless the caller asks for the CPU: given
   no device on a machine without a GPU they raise, never falling back.
 """
 
 import ast
+import json
 import pkgutil
 import subprocess
 import sys
@@ -44,7 +46,7 @@ def _forbidden_imports(path: Path):
             names = [node.module]
         for n in names:
             top = n.split(".")[0]
-            if top in ("jax", "jaxlib", "flax", "optax",
+            if top in ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
                        "deeplearning4j_tpu"):
                 bad.append(f"{path.name}:{node.lineno} imports {n}")
     return bad
@@ -82,21 +84,70 @@ def test_every_port_module_imports_without_jax():
             "deeplearning4j_tpu_torch.nn.conf.graph",
             "deeplearning4j_tpu_torch.nn.conf.dtype_policy",
             "deeplearning4j_tpu_torch.nn.weights",
-            "deeplearning4j_tpu_torch.nn.graph"} <= set(mods)
+            "deeplearning4j_tpu_torch.nn.graph",
+            "deeplearning4j_tpu_torch.util.retry",
+            "deeplearning4j_tpu_torch.util.checkpoint",
+            "deeplearning4j_tpu_torch.util.failure",
+            "deeplearning4j_tpu_torch.checkpoint",
+            "deeplearning4j_tpu_torch.checkpoint.array_store",
+            "deeplearning4j_tpu_torch.checkpoint.store",
+            "deeplearning4j_tpu_torch.checkpoint.manager",
+            "deeplearning4j_tpu_torch.checkpoint.legacy",
+            "deeplearning4j_tpu_torch.earlystopping",
+            "deeplearning4j_tpu_torch.earlystopping.config",
+            "deeplearning4j_tpu_torch.earlystopping.scorecalc",
+            "deeplearning4j_tpu_torch.earlystopping.termination",
+            "deeplearning4j_tpu_torch.earlystopping.saver",
+            "deeplearning4j_tpu_torch.earlystopping.trainer"} <= set(mods)
     code = (
         "import sys\n"
-        "for blocked in ('jax', 'jaxlib', 'deeplearning4j_tpu'):\n"
+        "for blocked in ('jax', 'jaxlib', 'ml_dtypes', "
+        "'deeplearning4j_tpu'):\n"
         "    sys.modules[blocked] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not [m for m in sys.modules if m.startswith('jax')\n"
-        "            and sys.modules[m] is not None]\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax', "
+        "'ml_dtypes')) and sys.modules[m] is not None]\n"
         "print('ok', len(sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_reads_a_reference_bf16_leaf_without_ml_dtypes(tmp_path):
+    # The reference writes bf16 through ml_dtypes; the port reads the same
+    # bytes as raw <u2 viewed as torch.bfloat16, with ml_dtypes blocked.
+    import jax.numpy as jnp
+    import numpy as np
+
+    from deeplearning4j_tpu.checkpoint import array_store as jax_as
+
+    x = jnp.asarray(np.linspace(-3, 3, 24, dtype=np.float32).reshape(4, 6),
+                    jnp.bfloat16)
+    (tmp_path / "chunks").mkdir()
+    entry = jax_as.write_leaf(str(tmp_path), 0, "params/l/W",
+                              list(jax_as.leaf_chunks(x)), x.shape,
+                              str(x.dtype), {})
+    assert entry["dtype"] == "bfloat16"
+    want = np.asarray(x.astype(jnp.float32)).tolist()
+    code = (
+        "import sys, json\n"
+        "for blocked in ('jax', 'jaxlib', 'ml_dtypes', "
+        "'deeplearning4j_tpu'):\n"
+        "    sys.modules[blocked] = None\n"
+        "import torch\n"
+        "from deeplearning4j_tpu_torch.checkpoint import array_store\n"
+        f"entry = json.loads({json.dumps(json.dumps(entry))})\n"
+        f"arr = array_store.read_full({str(tmp_path)!r}, entry)\n"
+        "t = array_store.to_tensor(arr, entry['dtype'])\n"
+        "assert t.dtype == torch.bfloat16, t.dtype\n"
+        "print(json.dumps(t.float().tolist()))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout) == want
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
