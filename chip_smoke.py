@@ -33,10 +33,16 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               8) runs at two cursors: the slots mid-generation and every
               slot at 1023 (beside the latter, SDPA over the same keys
               gathered beforehand into a dense cache, a reference point
-              that omits the gather). The flash rows 3, 5 and 6
-              are also held row by row (o at 1e-2 / 1e-4 of its norm, lse at
-              1e-4; dq from row 1, dk, dv at 1.2e-2 / 1e-4 of max(norm, 0.1
-              x the median row norm)) and name their form (`variant`).
+              that omits the gather); then with SPEC_K + 1 = 5 query rows
+              (the speculative verify) at the first cursors, and over the
+              long server's 512 pages a slot (a pool of 2,049 pages) at
+              cursors 29,990-30,016 with 1 and 5 query rows; every row 8
+              case is also held row by row (o at 1e-2 / 1e-4 of its norm:
+              past a few hundred keys |o| is below 4e-2). The flash rows
+              3, 5 and 6 are also held row by row (o at 1e-2 / 1e-4 of its
+              norm, lse at 1e-4; dq from row 1, dk, dv at 1.2e-2 / 1e-4 of
+              max(norm, 0.1 x the median row norm)) and name their form
+              (`variant`).
 3. serve    - the widest `transformer_lm` the repo runs (V=8192, d=512, 8
               heads, 4 blocks, bf16 compute over f32 params, seeded random
               weights) behind the port's `InferenceServer` with paged KV
@@ -68,7 +74,9 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
 7. resnet_kernels - BatchNorm apply (row 2) at T1's stem and widest
               BatchNorms, the bottleneck block in training (row 11) at T2's
               8 distinct block shapes and in inference (row 12) at I1's 8,
-              plus one int8 inference shape, in bf16 and f32, against their
+              plus one int8 inference shape, and in bf16 also row 12 at
+              I1's 8 shapes and row 2 at I1's stem at B=1 (the smallest
+              /predict bucket), in bf16 and f32, against their
               plain versions on the card (rtol = atol = 6e-2 in bf16, a
               bf16 block against its plain version run in f32 on the same
               inputs; 1e-4 in f32 with TF32 off; the batch statistics too),
@@ -255,7 +263,57 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               LayerNorm, 4 each of rows 5 and 6's three kernels, 1 update;
               per T2 step 16 blocks, 1 BatchNorm, 1 update; per LeNet step
               1 update; 0 plain calls.
-24. trace   - where one decode step's, one 1024-token prefill's, one LM
+24. serving - the serving tier on the card, from disk (build/serving,
+              removed after). (a) The serving LM (phase 3's seeded weights,
+              the output projection times SERVE_LOGIT_SCALE so that greedy
+              decoding has margins to compare) saved as a
+              `CheckpointManager` root, I1 (resnet_train's T2 weights at
+              224) as a sharded checkpoint and lenet_train's LeNet as a
+              zip; `InferenceServer.from_checkpoint(..., warmup=True,
+              kv_cache="paged", draft=<a twin of the LM>, spec_k=4)` plus
+              `add_model("resnet", path=...)` and `add_model("lenet",
+              path=...)`: during warmup `/healthz` reads "warming" and
+              `/predict` answers 503 with Retry-After; warmup's launches
+              exactly its work (every batch bucket of each model, every
+              prompt bucket of the LM and its draft, one step, the 4
+              verify widths). (b) `/predict` to ResNet-50 with 1, 3, 8,
+              17, 32 and 40 rows (1 and 3 over HTTP) and to LeNet with 1
+              and 128 (over HTTP), each response row by row against
+              `output` of the same rows at B=32 (6e-2 bf16, 1e-4 f32), 16
+              row-12 and 1 row-2 launches a ResNet batch, then a second,
+              warm call in process, timed. (c) Eight greedy and two
+              sampled (0.8, top_k 40, seeded) `/generate` at once, the
+              300-token prompt twice (a prefix-cache hit), while ResNet-50
+              answers the (b) sizes in process (its batcher's thread and
+              the decode thread launching on one card at once; each
+              response against `output` again); launches exactly the work
+              (target and draft prefills, verifies with 5 query rows,
+              draft steps, 16 + 1 a ResNet batch; row 3 on the tensor
+              cores); greedy ids against a non-speculative scheduler on the
+              same net, token for token up to the first position where
+              its top-two probabilities lie within 4e-2; accepted
+              speculative tokens > 0. (d) The same traffic to a
+              drain-mode model over the same net: ids equal. (e) One
+              scrape: every ported family, `dl4j_requests_total` moved by
+              exactly the requests sent, `?format=json&names=` narrowed;
+              TTFT, the speculative round's time, the inter-token gap and
+              the acceptance rate. 0 plain calls, no training kernel. The
+              phase's wall seconds (`phase_s`).
+25. long_serve - the LM at T = 32,768 (`decode_cache_length=32768`,
+              the output projection times SERVE_LOGIT_SCALE) behind a
+              paged server, 4 slots: one prompt of 30,000 seeded ids, 16
+              greedy tokens. The prefill pads to the 32,768 bucket: 4
+              row-4 launches, no row 3; each decode step 4 row-8 launches
+              at cursors past 30,000; TTFT, the step's ms and the peak
+              memory. Then the first-token distribution and 4 decode
+              steps through the kernels against the same weights through
+              the plain versions on the card (`plain_versions()`):
+              probabilities at 4e-2, and logits (centered log-probs)
+              within LONG_LOGIT_TOL of their norm; the same logit check
+              must fail with a planted fault, the first block's attention
+              zeroed in row 4 (the first distribution) or in row 8 (the
+              4 steps). The phase's wall seconds (`phase_s`).
+26. trace   - where one decode step's, one 1024-token prefill's, one LM
               training step's, one T1 and one T2 step's, one char-RNN fit
               call's (forward, backward, update; the call's two chunks
               summed), one `rnn_time_step`'s, one LeNet and one MLP fit
@@ -272,12 +330,15 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
 
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
-rnn_sample, lenet_train, mlp_train, dsl, ckpt, long_train, long_output;
+rnn_sample, lenet_train, mlp_train, dsl, ckpt, serving, long_serve,
+long_train, long_output; row 8's, row 12's and row 2's serving shapes
+under `serving_shapes`;
 row 13 on row 4's entry; row 9 also with its time at LeNet's update) and,
 last, the result line. With no GPU, without the package beside it, or when
 any phase fails, it exits non-zero and prints no result.
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -288,6 +349,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -460,6 +522,40 @@ STREAM_UNITS = {"flash_attention_stream": "fwd",
 RESIDENT_ROWS = ("flash_attention", "flash_attention_fwd_lse",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 LONG_REPS = dict(reps=3, warmup=1)
+# The serving tier (the serving and long_serve phases): the serving LM
+# behind a paged server with a twin draft proposing SPEC_K tokens a round
+# (a verify feeds SPEC_K + 1 query rows to row 8, whose limit is 8),
+# ResNet-50's I1 graph and LeNet behind /predict (batch buckets 1-32),
+# all three read from disk under the checkout's build directory. Greedy
+# speculative ids are held to a non-speculative run up to its first
+# near-tie: top-two probabilities within SPEC_TIE. The long server holds
+# the LM at T = 32,768 and answers one 30,000-token prompt.
+SPEC_K, SPEC_TIE = 4, 4e-2
+# The serving LM's output projection is its seeded weights times this,
+# so that its next-token distribution has margins a greedy comparison can
+# read (unscaled, a random LM over 8,192 ids is near uniform: every
+# top-two gap is ~1e-5).
+SERVE_LOGIT_SCALE = 10.0
+SERVE_DIR = os.path.join("build", "serving")
+SERVE_RN_ROWS = (1, 3, 8, 17, 32, 40)
+SERVE_RN_HTTP_ROWS = (1, 3)
+SERVE_LENET_ROWS = (1, 128)
+SERVE_TIMEOUT_S = 600
+# (prompt length, new tokens): the 300-token prompt twice (a prefix-cache
+# hit; the first is sent alone until it is prefilled). Every request ends
+# more than SPEC_K tokens short of the 1,024-token cache, so every verify
+# feeds SPEC_K + 1 rows whatever else is in flight (the clamp near the
+# capacity is held on the CPU).
+SERVE_GREEDY = ((40, 16), (300, 20), (700, 24), (990, 24), (41, 18),
+                (301, 16), (701, 20), (300, 20))
+SERVE_SAMPLED = ((45, 18, 11), (200, 16, 12))  # (length, new tokens, seed)
+LONG_POS = [29990, 30000, 30008, 30016]
+LONG_PROMPT, LONG_NEW, LONG_PARITY_STEPS = 30000, 16, 4
+# The long server's kernel run against its plain run: each distribution's
+# centered log-probabilities (its logits) within LONG_LOGIT_TOL of their
+# norm. A planted fault (the first block's attention zeroed) must exceed
+# it; PERF.md §6 has the readings it was set from.
+LONG_LOGIT_TOL = 0.1
 LONG_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1,
                  "flash_attention_stream": BLOCKS,
                  "flash_attention_bwd_dq_stream": BLOCKS,
@@ -690,7 +786,50 @@ def kernel_cases(torch, dev, dtype_name):
             2 * keys * HEADS * dh * es + 2 * SLOTS * HEADS * dh * es
             + table.nbytes + pos.nbytes,
             4 * dh * HEADS * keys, *ref))
+    # The speculative verify (q of SPEC_K + 1 rows at the mid-generation
+    # cursors) and the long server's cache (512 pages a slot, cursors past
+    # 29,000) by 1 and SPEC_K + 1 query rows.
+    for t, n_pg, pos in ((SPEC_K + 1, n_pages, [1000, 700, 330, 40]),
+                         (1, LONG_T // PAGE, LONG_POS),
+                         (SPEC_K + 1, LONG_T // PAGE, LONG_POS)):
+        cases.append(paged_case(torch, dev, dt, t, n_pg, pos,
+                                seed=t * 1000 + n_pg))
     return cases
+
+
+def paged_case(torch, dev, dt, t, n_pages, pos, seed):
+    """Row 8 at q [SLOTS, t, HEADS, 64] over a pool of SLOTS x n_pages + 1
+    pages (drawn on the card), each slot's pages below its cursor + t at
+    random from it, in the `kernel_cases` tuple form. Causal: query row j
+    of a slot sees its cursor + 1 + j keys."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    dh = D_MODEL // HEADS
+    es = torch.tensor([], dtype=dt).element_size()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pool = SLOTS * n_pages + 1
+    kp, vp = (torch.randn(pool, PAGE, HEADS, dh, generator=g,
+                          device=dev).to(dt) for _ in range(2))
+    qd = torch.randn(SLOTS, t, HEADS, dh, generator=g, device=dev).to(dt)
+    perm = np.random.RandomState(seed).permutation(np.arange(1, pool))
+    table = np.zeros((SLOTS, n_pages), np.int32)
+    for s in range(SLOTS):
+        n = -(-(pos[s] + t) // PAGE)
+        table[s, :n] = perm[s * n_pages: s * n_pages + n]
+    table_t = torch.tensor(table, device=dev)
+    pos_t = torch.tensor(np.asarray(pos, np.int32), device=dev)
+    keys = sum(p + t for p in pos)
+    visible = sum(p + 1 + j for p in pos for j in range(t))
+    return ("paged_decode_attention",
+            f"q[{SLOTS},{t},{HEADS},{dh}] pool[{pool},{PAGE},{HEADS},{dh}] "
+            f"pos={list(pos)}",
+            lambda: fa.paged_decode_attention(qd, kp, vp, table_t, pos_t,
+                                              True),
+            lambda: fa.paged_gather_dense(qd, kp, vp, table_t, pos_t, True),
+            None,
+            2 * keys * HEADS * dh * es + 2 * SLOTS * t * HEADS * dh * es
+            + table.nbytes + 4 * SLOTS,
+            4 * dh * HEADS * visible)
 
 
 def train_kernel_cases(torch, dev, dtype_name, conf):
@@ -924,7 +1063,7 @@ def phase_kernels(card, torch, dev, train_conf):
     """Each kernel against its plain version at its main path's shapes. The
     flash rows 3, 5 and 6 are also held row by row (`flash_compare`) and
     name the form of their kernel (`variant`: "wgmma" for bf16 at D = 64,
-    "cuda_cores" for f32)."""
+    "cuda_cores" for f32); row 8 is held row by row too (ROW_TOL)."""
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
 
     rows = []
@@ -942,6 +1081,15 @@ def phase_kernels(card, torch, dev, train_conf):
                 extra = {"max_row_rel_err": row_err,
                          "variant": fa.resident_variant(
                              getattr(torch, dtype), D_MODEL // HEADS)}
+            elif name == "paged_decode_attention":
+                # Past a few hundred keys a row's |o| is ~sqrt(e / keys),
+                # under TOL: the rows hold it (a zero or a wrong page
+                # is off by ~1 of the row's norm).
+                err, ok = compare(got, want, dtype)
+                row_err, row_ok = compare_rows(got, want, dtype)
+                ok = ok and row_ok
+                tol += f", rows {ROW_TOL[dtype]}"
+                extra = {"max_row_rel_err": row_err}
             else:
                 err, ok = compare(got, want, dtype)
             bound_ms, bound_by = bound(nbytes, ops, dtype)
@@ -2928,6 +3076,11 @@ def phase_resnet_kernels(card, torch, dev, t1_batch):
         if dtype == "bfloat16":
             blocks.append(("bottleneck_infer", INFER_B,
                            rn_block_shapes(224)[2], False, 60, True))
+            # The smallest /predict bucket: I1's stem and 8 blocks at B=1.
+            cases += [c + (None, None)
+                      for c in rn_bn_cases(torch, dev, dtype, 1)[:1]]
+            blocks += [("bottleneck_infer", 1, shape, False, 80 + i, False)
+                       for i, shape in enumerate(rn_block_shapes(224))]
         for name, b, shape, train, seed, int8 in blocks:
             label, kern, plain, plain_f32, nb, ops, extra = rn_block_case(
                 torch, dev, dtype, b, shape, train, seed, int8=int8)
@@ -3629,6 +3782,662 @@ def phase_long_parity(card, torch, kernels, dev):
     return not errors
 
 
+def _http(url, route, body=None, timeout=SERVE_TIMEOUT_S):
+    """(status, headers, parsed JSON or text) of a GET, or of a POST of
+    `body`; an HTTP error status is returned, not raised."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + route, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, headers, raw = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        code, headers, raw = e.code, e.headers, e.read()
+    ctype = headers.get("Content-Type", "")
+    return code, headers, (json.loads(raw) if "json" in ctype
+                           else raw.decode())
+
+
+def _requests_total(doc):
+    """{(model, route, outcome): count} from a JSON scrape."""
+    fam = doc.get("dl4j_requests_total", {"series": []})
+    return {(r["labels"]["model"], r["labels"]["route"],
+             r["labels"]["outcome"]): r["value"] for r in fam["series"]}
+
+
+def _add_counts(total, counts):
+    for k, v in counts["launches"].items():
+        total[k] = total.get(k, 0) + v
+
+
+def _lm_expected(stats):
+    """An LM scheduler's launches for the work its stats count: 9 LayerNorms
+    a forward (target prefill or verify, draft prefill or step), 4 flash
+    forwards a prefill (target or draft), 4 paged attentions a verify."""
+    fwd = (stats["prefills"] + stats["decode_steps"]
+           + stats["draft_prefills"] + stats["draft_steps"])
+    return {"layernorm_norm_act": (2 * BLOCKS + 1) * fwd,
+            "flash_attention": BLOCKS * (stats["prefills"]
+                                         + stats["draft_prefills"]),
+            "paged_decode_attention": BLOCKS * stats["decode_steps"]}
+
+
+def _check_window(counts, want):
+    """Errors unless the window's launches are exactly `want` (0 for every
+    other kernel, training kernels included) with no plain-version call;
+    every flash launch on the tensor-core form."""
+    errors, _ = _launch_errors(counts, want, 1)
+    errors += _variant_errors(counts, {
+        "flash_attention": want.get("flash_attention", 0)})
+    return errors
+
+
+def _serving_traffic(seed):
+    """Eight greedy and two sampled /generate bodies (SERVE_GREEDY,
+    SERVE_SAMPLED): one prompt of each length, so the two greedy bodies of
+    one length (the second) are a prefix-cache hit."""
+    rng = np.random.RandomState(seed)
+    p = {n: rng.randint(0, VOCAB, n).tolist()
+         for n in sorted({n for n, _ in SERVE_GREEDY}
+                         | {n for n, _, _ in SERVE_SAMPLED})}
+    bodies = [{"prompt_ids": p[n], "n_steps": k, "temperature": 0}
+              for n, k in SERVE_GREEDY]
+    bodies += [{"prompt_ids": p[n], "n_steps": k, "temperature": 0.8,
+                "top_k": 40, "seed": sd} for n, k, sd in SERVE_SAMPLED]
+    return bodies
+
+
+def _send_generates(url, sched, bodies, model):
+    """POST every body (the second first, alone until it is prefilled, then
+    the rest at once); (ids by index, errors, wall seconds)."""
+    results, errors = {}, []
+
+    def send(i):
+        code, _, doc = _http(url, "/generate", dict(bodies[i], model=model))
+        if code == 200:
+            results[i] = doc["ids"]
+        else:
+            errors.append(f"{model} request {i}: HTTP {code} {doc}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(bodies))]
+    threads[1].start()
+    while (sched.stats["prefills"] + sched.stats["prefix_hits"] < 1
+           and time.perf_counter() - t0 < 120 and not errors):
+        time.sleep(0.005)
+    for i, th in enumerate(threads):
+        if i != 1:
+            th.start()
+    for th in threads:
+        th.join(timeout=SERVE_TIMEOUT_S)
+    return results, errors, time.perf_counter() - t0
+
+
+def _plain_greedy(torch, net, bodies):
+    """The greedy bodies through a non-speculative scheduler on the same
+    net: (ids, per-request top-1 minus top-2 probability at each generated
+    position)."""
+    from deeplearning4j_tpu_torch.serving.scheduler import (
+        GenerationScheduler)
+
+    sched = GenerationScheduler(net, model_name="lm_non_speculative",
+                                slots=SLOTS, kv="paged", page_size=PAGE)
+    gaps, real = {}, sched._sample
+
+    def sample(req, probs):
+        top = np.sort(np.asarray(probs, np.float64))[-2:]
+        gaps.setdefault(tuple(req.prompt), []).append(float(top[1] - top[0]))
+        return real(req, probs)
+
+    sched._sample = sample
+    sched.start()
+    out = {}
+    try:
+        threads = [threading.Thread(target=lambda i=i, b=b: out.__setitem__(
+            i, sched.generate(b["prompt_ids"], b["n_steps"],
+                              timeout_s=SERVE_TIMEOUT_S, temperature=0.0)))
+                   for i, b in enumerate(bodies)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=SERVE_TIMEOUT_S)
+    finally:
+        sched.stop()
+    return out, gaps
+
+
+def _spec_against_plain(bodies, spec, plain, gaps):
+    """Per greedy request: the first generated position where the
+    speculative ids leave the non-speculative ones, and the first where
+    the latter's top-two probabilities lie within SPEC_TIE; an error where
+    the ids part before such a near-tie."""
+    rows, errors = [], []
+    for i, b in enumerate(bodies):
+        n0 = len(b["prompt_ids"])
+        got, want = spec.get(i), plain.get(i)
+        if got is None or want is None:
+            errors.append(f"request {i}: no ids to compare")
+            continue
+        tie = next((j for j, g in enumerate(gaps[tuple(b["prompt_ids"])])
+                    if g < SPEC_TIE), None)
+        diff = next((j for j, (a, c) in enumerate(zip(got[n0:], want[n0:]))
+                     if a != c), None)
+        rows.append({"request": i, "first_difference": diff,
+                     "first_near_tie": tie,
+                     "min_top2_gap": min(gaps[tuple(b["prompt_ids"])])})
+        if diff is not None and (tie is None or diff < tie):
+            errors.append(f"request {i}: speculative ids leave the "
+                          f"non-speculative ones at {diff}, before any "
+                          f"near-tie ({tie})")
+    return rows, errors
+
+
+def phase_serving(card, torch, kernels, dev, cg, t2_net, lenet_net):
+    """The serving tier on the card, from disk (see the docstring, phase
+    serving): (a) warmup, (b) /predict, (c) /generate, (d) drain, (e) the
+    scrape."""
+    from deeplearning4j_tpu_torch.checkpoint import store
+    from deeplearning4j_tpu_torch.checkpoint.manager import CheckpointManager
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    from deeplearning4j_tpu_torch.serving import metrics as serving_metrics
+    from deeplearning4j_tpu_torch.util import model_serializer
+
+    t_phase = time.perf_counter()
+    errors, out, total = [], {}, {}
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    os.makedirs(SERVE_DIR)
+    paths = {"lm": os.path.join(SERVE_DIR, "lm"),
+             "resnet": os.path.join(SERVE_DIR, "resnet"),
+             "lenet": os.path.join(SERVE_DIR, "lenet.zip")}
+    t0 = time.perf_counter()
+    # The serving LM's seeded weights with the output projection scaled by
+    # SERVE_LOGIT_SCALE, saved as a manager root, and its twin draft.
+    params = {v: {k: a.detach().clone() for k, a in p.items()}
+              for v, p in cg.params_tree.items()}
+    params["out"]["W"].mul_(SERVE_LOGIT_SCALE)
+    lm_net = ComputationGraph(cg.conf, device=dev).init(params=params)
+    CheckpointManager(paths["lm"], async_save=False, device=dev).save(lm_net)
+    del lm_net
+    i1 = _rn_net(torch, dev, "i1", params={
+        v: {k: a.detach() for k, a in p.items()}
+        for v, p in t2_net.params_tree.items()}, state=t2_net.state)
+    store.save_checkpoint(i1, paths["resnet"])
+    del i1
+    model_serializer.save_model(lenet_net, paths["lenet"])
+    twin = ComputationGraph(cg.conf, device=dev).init(params=params)
+    out["write_s"] = time.perf_counter() - t0
+    server = InferenceServer.from_checkpoint(
+        paths["lm"], device=dev, warmup=True, kv_cache="paged",
+        kv_page_size=PAGE, decode_slots=SLOTS, draft=twin, spec_k=SPEC_K,
+        default_model="lm")
+    server.add_model("resnet", path=paths["resnet"])
+    server.add_model("lenet", path=paths["lenet"])
+    out["load_s"] = time.perf_counter() - t0 - out["write_s"]
+    try:
+        # (a) Warmup: the port opens at once; /healthz reads "warming" and
+        # /predict answers 503 + Retry-After until every model is warm.
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        server.start()
+        code, _, health = _http(server.url, "/healthz")
+        x1 = np.zeros((1, 28, 28, 1), np.float32).tolist()
+        pcode, pheaders, _ = _http(server.url, "/predict",
+                                   {"data": x1, "model": "lenet"})
+        if health.get("status") != "warming":
+            errors.append(f"/healthz during warmup: {health}")
+        if pcode != 503 or pheaders.get("Retry-After") != "1":
+            errors.append(f"/predict during warmup: HTTP {pcode}, "
+                          f"Retry-After {pheaders.get('Retry-After')}")
+        server.wait_ready(timeout=SERVE_TIMEOUT_S)
+        out["warmup_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        _add_counts(total, counts)
+        lm = server.get(None)
+        sched = lm.scheduler
+        nb = len(lm.batcher.buckets)
+        np_ = len(sched.prompt_buckets)
+        rn_buckets = len(server.get("resnet").batcher.buckets)
+        # The LM's batch buckets (a forward each), its prompt buckets
+        # (target and draft prefills), one step, the SPEC_K verify widths
+        # and the draft's step; ResNet's batch buckets.
+        want = {"layernorm_norm_act": (2 * BLOCKS + 1) * (
+                    nb + 2 * np_ + 1 + SPEC_K + 1),
+                "flash_attention": BLOCKS * (nb + 2 * np_),
+                "paged_decode_attention": BLOCKS * (1 + SPEC_K),
+                "bottleneck_infer": 16 * rn_buckets,
+                "batchnorm_norm_act": rn_buckets}
+        errors += [f"warmup: {e}" for e in _check_window(counts, want)]
+        health = _http(server.url, "/healthz")[2]
+        if health != {"status": "ready", "models": {
+                "lm": "ready", "resnet": "ready", "lenet": "ready"}}:
+            errors.append(f"/healthz after warmup: {health}")
+        out["warmup_launches"] = counts["launches"]
+        before = _requests_total(_http(
+            server.url, "/metrics?format=json&names=dl4j_requests_total")[2])
+        sent = {}
+
+        # (b) /predict: ResNet-50 (I1) and LeNet, each response row by row
+        # against `output` of the same rows at B = 32 on the card.
+        def reference(net, x):
+            rows = []
+            for i in range(0, len(x), INFER_B):
+                chunk = x[i:i + INFER_B]
+                pad = np.zeros((INFER_B - len(chunk),) + x.shape[1:],
+                               np.float32)
+                rows.append(_first(net.output(np.concatenate([chunk, pad])))
+                            [:len(chunk)])
+            return np.concatenate(rows)
+
+        predict, refs = [], {}
+        for model, rows_list, x, dtype in (
+                ("resnet", SERVE_RN_ROWS, np.random.RandomState(21).randn(
+                    max(SERVE_RN_ROWS), RN_PATHS["i1"][0], RN_PATHS["i1"][0],
+                    3).astype(np.float32),
+                 "bfloat16"),
+                ("lenet", SERVE_LENET_ROWS, np.random.RandomState(22).rand(
+                    max(SERVE_LENET_ROWS), 28, 28, 1).astype(np.float32),
+                 "float32")):
+            served = server.get(model)
+            ref = reference(served.net, x)
+            refs[model] = (x, ref)
+            per_batch = ({"bottleneck_infer": 16, "batchnorm_norm_act": 1}
+                         if model == "resnet" else {})
+            for n in rows_list:
+                http = model == "lenet" or n in SERVE_RN_HTTP_ROWS
+                row = {"model": model, "rows": n}
+                # The checked call (over HTTP where `http`), then a second,
+                # warm one in process, timed.
+                for call in ("checked", "timed"):
+                    b0 = served.batcher.stats["batches"]
+                    kernels.reset_counts()
+                    t0 = time.perf_counter()
+                    if http and call == "checked":
+                        code, _, doc = _http(server.url, "/predict", {
+                            "data": x[:n].tolist(), "model": model})
+                        got = (np.asarray(doc["predictions"], np.float32)
+                               if code == 200 else None)
+                        if code != 200:
+                            errors.append(f"/predict {model} {n}: HTTP "
+                                          f"{code} {doc}")
+                    else:
+                        got = server.predict(x[:n], model=model)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    counts = kernels.counts()
+                    _add_counts(total, counts)
+                    sent[(model, "predict", "ok")] = sent.get(
+                        (model, "predict", "ok"), 0) + int(got is not None)
+                    batches = served.batcher.stats["batches"] - b0
+                    want = {k: v * batches for k, v in per_batch.items()}
+                    errors += [f"/predict {model} {n}: {e}"
+                               for e in _launch_errors(counts, want, 1)[0]]
+                    err, ok = (None, False) if got is None else compare(
+                        torch.as_tensor(got), torch.as_tensor(ref[:n]),
+                        dtype, RN_TOL)
+                    if not ok:
+                        errors.append(f"/predict {model} {n} ({call}): rows "
+                                      f"differ from output ({err})")
+                    if call == "checked":
+                        row.update(max_abs_err=err, ok=ok, batches=batches,
+                                   padded_to=[served.batcher._bucket_for(
+                                       min(INFER_B, n - i))
+                                       for i in range(0, n, INFER_B)])
+                        if http:
+                            row["http_ms"] = ms
+                    else:
+                        row["ms"] = ms
+                predict.append(row)
+        out["predict"] = predict
+
+        # (c) /generate: eight greedy and two sampled requests at once,
+        # while ResNet-50 answers /predict in process: the batcher's thread
+        # (rows 12, 2) and the decode thread (rows 1, 3, 8) launch on one
+        # card at the same time.
+        bodies = _serving_traffic(31)
+        rn = server.get("resnet")
+        x_rn, ref_rn = refs["resnet"]
+        side = []
+
+        def predict_alongside():
+            for n in SERVE_RN_ROWS:
+                side.append((n, server.predict(x_rn[:n], model="resnet")))
+
+        kernels.reset_counts()
+        stats0, b0 = dict(sched.stats), rn.batcher.stats["batches"]
+        along = threading.Thread(target=predict_alongside)
+        along.start()
+        results, gen_errors, wall = _send_generates(server.url, sched,
+                                                    bodies, "lm")
+        along.join(timeout=SERVE_TIMEOUT_S)
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        _add_counts(total, counts)
+        errors += gen_errors
+        stats = {k: sched.stats[k] - stats0[k] for k in stats0}
+        rn_batches = rn.batcher.stats["batches"] - b0
+        errors += [f"/generate with /predict alongside: {e}" for e in
+                   _check_window(counts, dict(
+                       _lm_expected(stats), bottleneck_infer=16 * rn_batches,
+                       batchnorm_norm_act=rn_batches))]
+        if len(side) != len(SERVE_RN_ROWS):
+            errors.append(f"/predict alongside /generate answered "
+                          f"{len(side)} of {len(SERVE_RN_ROWS)}")
+        for n, got in side:
+            err, ok = compare(torch.as_tensor(got),
+                              torch.as_tensor(ref_rn[:n]), "bfloat16", RN_TOL)
+            if not ok:
+                errors.append(f"/predict {n} alongside /generate: rows "
+                              f"differ from output ({err})")
+        sent[("resnet", "predict", "ok")] += len(side)
+        if stats["prefix_hits"] < 1:
+            errors.append("no prefix-cache hit")
+        if results.get(1) != results.get(7):
+            errors.append("the prefix-cache hit decoded other ids than the "
+                          "fresh prefill of the same greedy prompt")
+        for i, b in enumerate(bodies):
+            ids = results.get(i)
+            if ids is not None and (
+                    len(ids) != len(b["prompt_ids"]) + b["n_steps"]
+                    or ids[:len(b["prompt_ids"])] != b["prompt_ids"]
+                    or not all(0 <= t < VOCAB for t in ids)):
+                errors.append(f"request {i}: malformed ids")
+        sent[("lm", "generate", "ok")] = len(results)
+        greedy = [b for b in bodies if b["temperature"] == 0]
+        plain, gaps = _plain_greedy(torch, server.net, greedy)
+        spec_rows, spec_errors = _spec_against_plain(greedy, results, plain,
+                                                     gaps)
+        errors += spec_errors
+        acc, rej = stats["spec_accepted"], stats["spec_rejected"]
+        if acc <= 0:
+            errors.append("the twin draft accepted no token")
+        out["generate"] = dict(
+            requests=len(bodies), completed=len(results), wall_s=wall,
+            stats=stats, launches=counts["launches"],
+            expected_launches=_lm_expected(stats),
+            tokens_per_s=stats["decode_tokens"] / wall if wall else None,
+            acceptance_rate=acc / (acc + rej) if acc + rej else None,
+            predict_alongside=dict(requests=len(side), batches=rn_batches),
+            speculative_vs_plain=spec_rows,
+            decode_step_ms_median=None)
+
+        # (d) The same traffic on a drain-mode scheduler over the same net.
+        server.add_model("lm_drain", net=server.net, scheduler_mode="drain",
+                         draft=twin, spec_k=SPEC_K)
+        dsched = server.get("lm_drain").scheduler
+        kernels.reset_counts()
+        dresults, d_errors, dwall = _send_generates(server.url, dsched,
+                                                    bodies, "lm_drain")
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        _add_counts(total, counts)
+        errors += d_errors
+        dstats = dict(dsched.stats)
+        errors += [f"drain: {e}" for e in
+                   _check_window(counts, _lm_expected(dstats))]
+        if dresults != results:
+            errors.append("drain-mode ids differ from continuous mode's: "
+                          + str([i for i in results
+                                 if dresults.get(i) != results[i]]))
+        sent[("lm_drain", "generate", "ok")] = len(dresults)
+        out["drain"] = dict(completed=len(dresults), wall_s=dwall,
+                            stats=dstats, launches=counts["launches"])
+
+        # (e) One scrape.
+        code, headers, scrape = _http(server.url, "/metrics")
+        missing = [f for f in serving_metrics.FAMILIES
+                   if f"# TYPE {f} " not in scrape]
+        if code != 200 or missing:
+            errors.append(f"/metrics HTTP {code}, families missing: "
+                          f"{missing}")
+        if ('dl4j_speculative_tokens_total{model="lm",'
+                'outcome="accepted"} 0' in scrape):
+            errors.append("no accepted speculative token in the scrape")
+        names = "dl4j_requests_total,dl4j_serving_ttft_seconds,"\
+                "dl4j_serving_decode_step_seconds,dl4j_serving_itl_seconds"
+        code, headers, doc = _http(server.url,
+                                   f"/metrics?format=json&names={names}")
+        if set(doc) != set(names.split(",")):
+            errors.append(f"?names= gave the families {sorted(doc)}")
+        after = _requests_total(doc)
+        delta = {k: after.get(k, 0) - before.get(k, 0)
+                 for k in set(after) | set(before)}
+        delta = {k: v for k, v in delta.items() if v}
+        if delta != sent:
+            errors.append(f"dl4j_requests_total moved by {delta}, "
+                          f"requests sent {sent}")
+
+        def summary(name, model="lm"):
+            return next(r["summary"] for r in doc[name]["series"]
+                        if r["labels"]["model"] == model)
+
+        ttft = list(sched.ttft_s)
+        out["metrics"] = {
+            "ttft_s_exact": {"p50": float(np.percentile(ttft, 50)),
+                             "p99": float(np.percentile(ttft, 99))},
+            "ttft_s_histogram": summary("dl4j_serving_ttft_seconds"),
+            "decode_step_s_histogram": summary(
+                "dl4j_serving_decode_step_seconds"),
+            "itl_s_histogram": summary("dl4j_serving_itl_seconds"),
+            "requests_total_delta": {"|".join(k): v
+                                     for k, v in delta.items()}}
+        out["generate"]["decode_step_ms_median"] = 1e3 * out["metrics"][
+            "decode_step_s_histogram"].get("p50", float("nan"))
+        out["generate"]["decode_step_ms_mean"] = (
+            1e3 * stats["decode_seconds"] / max(1, stats["decode_steps"]))
+    finally:
+        server.stop()
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(card, phase="serving", ok=not errors, errors=errors,
+         spec_k=SPEC_K, slots=SLOTS, page=PAGE, **out,
+         launches=total, plain_calls=kernels.counts()["plain_calls"])
+    return not errors, total
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The serving LM's kernel wrappers swapped for their plain versions
+    while the block runs (the long_serve reference only; restored after):
+    LayerNorm, the streamed flash forward and the paged decode attention."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import norm_act
+    from deeplearning4j_tpu_torch.nn.layers import normalization
+
+    saved = (normalization.layernorm_norm_act, fa.flash_attention_stream,
+             fa.paged_decode_attention)
+
+    def stream_plain(q, k, v, causal=True, scale=None, *, with_lse=True,
+                     pairs=None):
+        o, lse = fa.flash_stream_fwd_plain(q, k, v, causal,
+                                           fa._default_scale(q, scale),
+                                           pairs)
+        return (o, lse) if with_lse else o
+
+    normalization.layernorm_norm_act = norm_act.layernorm_plain
+    fa.flash_attention_stream = stream_plain
+    fa.paged_decode_attention = fa.paged_gather_dense
+    try:
+        yield
+    finally:
+        (normalization.layernorm_norm_act, fa.flash_attention_stream,
+         fa.paged_decode_attention) = saved
+
+
+@contextlib.contextmanager
+def planted_fault(torch, kernel):
+    """A planted fault for the long_serve parity's own check: the first
+    block's attention output zeroed in every forward, in the prefill's row
+    4 (`kernel="stream"`) or in the decode's row 8 (`"paged"`); the other
+    blocks and kernels run as they are. Restored after the block."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    attr = {"stream": "flash_attention_stream",
+            "paged": "paged_decode_attention"}[kernel]
+    saved, calls = getattr(fa, attr), [0]
+
+    def zero_first_block(*args, **kw):
+        out = saved(*args, **kw)
+        first = calls[0] % BLOCKS == 0
+        calls[0] += 1
+        if not first:
+            return out
+        if isinstance(out, tuple):
+            return (torch.zeros_like(out[0]),) + tuple(out[1:])
+        return torch.zeros_like(out)
+
+    setattr(fa, attr, zero_first_block)
+    try:
+        yield
+    finally:
+        setattr(fa, attr, saved)
+
+
+def logit_rel_err(got, want):
+    """||c_got - c_want|| / ||c_want||, c a distribution's log-probabilities
+    less their mean (its logits up to a constant): the error relative to
+    the logits' spread, which a near-uniform distribution does not hide."""
+    def centered(p):
+        lp = np.log(np.maximum(np.asarray(p, np.float64), 1e-30))
+        return lp - lp.mean()
+
+    g, w = centered(got), centered(want)
+    return float(np.linalg.norm(g - w) / np.linalg.norm(w))
+
+
+def phase_long_serve(card, torch, kernels, dev):
+    """The LM at T = 32,768 behind a paged server (4 slots, pages of 64),
+    its output projection times SERVE_LOGIT_SCALE: one prompt of 30,000
+    seeded ids, 16 greedy tokens. Then its first-token distribution and
+    LONG_PARITY_STEPS decode steps through the kernels against the same
+    weights through the plain versions on the card: probabilities within
+    4e-2 and logits within LONG_LOGIT_TOL of their spread; and the same
+    comparison must fail (above LONG_LOGIT_TOL) with a planted fault, the
+    first block's attention zeroed in the prefill (row 4; the first
+    distribution) or in the decode (row 8; the 4 steps)."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.models.zoo import PagedDecodeStepper
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    t_phase = time.perf_counter()
+    errors, out = [], {}
+    conf = zoo.transformer_lm(VOCAB, t=LONG_T, d_model=D_MODEL,
+                              n_heads=HEADS, n_blocks=BLOCKS,
+                              dtype="bfloat16", decode_cache_length=LONG_T)
+    params = {v: {k: a.detach().clone() for k, a in p.items()}
+              for v, p in ComputationGraph(conf, device=dev).init()
+              .params_tree.items()}
+    params["out"]["W"].mul_(SERVE_LOGIT_SCALE)
+    net = ComputationGraph(conf, device=dev).init(params=params)
+    del params
+    prompt = np.random.RandomState(41).randint(0, VOCAB,
+                                               LONG_PROMPT).tolist()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = InferenceServer(net, device=dev, kv_cache="paged",
+                             kv_page_size=PAGE, decode_slots=SLOTS).start()
+    try:
+        sched = server.get(None).scheduler
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        code, _, doc = _http(server.url, "/generate", {
+            "prompt_ids": prompt, "n_steps": LONG_NEW, "temperature": 0})
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        stats = dict(sched.stats)
+        ttft = list(sched.ttft_s)
+        pages = sched.stepper.pool.num_pages
+    finally:
+        server.stop()
+    peak = torch.cuda.max_memory_allocated()
+    if code != 200:
+        errors.append(f"/generate: HTTP {code} {str(doc)[:300]}")
+    else:
+        ids = doc["ids"]
+        if (len(ids) != LONG_PROMPT + LONG_NEW or ids[:LONG_PROMPT] != prompt
+                or not all(0 <= t < VOCAB for t in ids)):
+            errors.append("malformed ids")
+    steps = stats["decode_steps"]
+    # The prefill pads to the 32,768 bucket: row 4 once a block, row 3
+    # never; a decode step is row 8 once a block, at cursors past 30,000.
+    want = {"layernorm_norm_act": (2 * BLOCKS + 1) * (1 + steps),
+            "flash_attention_stream": BLOCKS,
+            "paged_decode_attention": BLOCKS * steps}
+    errors += _launch_errors(counts, want, 1)[0]
+    errors += _variant_errors(counts, {"flash_attention_stream": BLOCKS})
+    if steps != LONG_NEW - 1 or stats["prefills"] != 1:
+        errors.append(f"scheduler stats {stats}")
+    out.update(prompt=LONG_PROMPT, new_tokens=LONG_NEW, wall_s=wall,
+               ttft_s=ttft[0] if ttft else None,
+               decode_step_ms=1e3 * stats["decode_seconds"] / max(1, steps),
+               decode_steps=steps, pool_pages=pages,
+               prompt_bucket=LONG_T, launches=counts["launches"],
+               expected_launches=want,
+               max_memory_allocated_bytes=peak)
+
+    # The same weights through the kernels and through the plain versions,
+    # both fed the kernel run's greedy tokens.
+    def run(feed):
+        st = PagedDecodeStepper(net, SLOTS, page_size=PAGE)
+        probs, state, n = st.prefill(prompt, pad_to=LONG_T)
+        st.install(0, state, n)
+        seq = [probs]
+        for j in range(LONG_PARITY_STEPS):
+            tok = int(seq[j].argmax()) if feed is None else feed[j]
+            seq.append(st.step([tok] + [0] * (SLOTS - 1))[0])
+        return seq
+
+    served_launches = counts["launches"]
+    seq_kernel = run(None)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with plain_versions():
+        seq_plain = run([int(p.argmax()) for p in seq_kernel[:-1]])
+    plain_s = time.perf_counter() - t0
+    counts = kernels.counts()
+    if any(counts["launches"].values()) or not counts["plain_calls"][
+            "flash_attention_stream"]:
+        errors.append(f"the plain run launched kernels: {counts}")
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(seq_kernel,
+                                                        seq_plain)]
+    logit_errs = [logit_rel_err(a, b) for a, b in zip(seq_kernel, seq_plain)]
+    agree = [int(a.argmax()) == int(b.argmax())
+             for a, b in zip(seq_kernel, seq_plain)]
+    if not (all(np.isfinite(diffs)) and max(diffs) <= 4e-2):
+        errors.append(f"kernel and plain probabilities differ: {diffs}")
+    if not (all(np.isfinite(logit_errs))
+            and max(logit_errs) <= LONG_LOGIT_TOL):
+        errors.append(f"kernel and plain logits differ: {logit_errs} "
+                      f"(limit {LONG_LOGIT_TOL} of their spread)")
+    # The check's own reach: each planted fault must fail it where its
+    # kernel decides the distribution (row 4 the prefill's, row 8 the
+    # decode steps').
+    fault_errs = {}
+    for kernel, judged in (("stream", slice(0, 1)),
+                           ("paged", slice(1, None))):
+        with planted_fault(torch, kernel):
+            seq_fault = run([int(p.argmax()) for p in seq_kernel[:-1]])
+        fault_errs[kernel] = [logit_rel_err(a, b)
+                              for a, b in zip(seq_fault, seq_plain)]
+        if not min(fault_errs[kernel][judged]) > LONG_LOGIT_TOL:
+            errors.append(f"a planted fault in {kernel} passes the logit "
+                          f"check: {fault_errs[kernel]}")
+        del seq_fault
+    out.update(parity_tolerance=4e-2, max_abs_prob_diff=diffs,
+               logit_tolerance=LONG_LOGIT_TOL, logit_rel_err=logit_errs,
+               planted_fault_logit_rel_err=fault_errs,
+               argmax_agrees=agree, plain_run_s=plain_s,
+               phase_s=time.perf_counter() - t_phase)
+    del net, seq_kernel, seq_plain
+    torch.cuda.empty_cache()
+    emit(card, phase="long_serve", ok=not errors, errors=errors, **out)
+    return not errors, served_launches
+
+
 def main() -> int:
     import torch
 
@@ -3739,6 +4548,14 @@ def main() -> int:
                                            train_ms)
     if not ok:
         failed.append("ckpt")
+    ok, path_launches["serving"] = phase_serving(
+        card, torch, kernels, dev, cg, nets["t2"], mnist["lenet"][0])
+    if not ok:
+        failed.append("serving")
+    ok, path_launches["long_serve"] = phase_long_serve(card, torch, kernels,
+                                                       dev)
+    if not ok:
+        failed.append("long_serve")
 
     long_rows, row13 = phase_long_kernels(card, torch, dev)
     if not (all(r["ok"] for r in long_rows) and row13["ok"]):
@@ -3765,16 +4582,15 @@ def main() -> int:
         return 1
     # The kernels line: each kernel at the shape most of its main-path
     # launches have (bf16; the update kernel's state and the char-RNN are
-    # f32), with this run's launches on the thirteen main paths (each
-    # counted from 0: the serve phase, the LM train phase's 23 steps, T1's
-    # and T2's 13 steps, I1's and I2's 13 calls, the char-RNN's 13 fit calls
-    # and its 2 x 200 sampling calls, LeNet's and the MLP's 469 steps each,
-    # the dsl and ckpt phases' card windows, the long-context train phase's
-    # 7 steps
-    # and its 3 `output` calls), summed
-    # and by path. Row 10's library call covers
-    # the step without peepholes (at the same B and n); row 13 is row 4's
-    # kernel over two lists, carried on row 4's entry.
+    # f32), with this run's launches on the main paths (each counted from
+    # 0: the serve phase, the LM train phase's 23 steps, T1's and T2's 13
+    # steps, I1's and I2's 13 calls, the char-RNN's 13 fit calls and its
+    # 2 x 200 sampling calls, LeNet's and the MLP's 469 steps each, the
+    # dsl, ckpt and serving phases' card windows, the long server's
+    # request, the long-context train phase's 7 steps and its 3 `output`
+    # calls), summed and by path. Row 10's library call covers the step
+    # without peepholes (at the same B and n); row 13 is row 4's kernel
+    # over two lists, carried on row 4's entry.
     main_shape = {
         "layernorm_norm_act": f"[4,{D_MODEL}]",
         "batchnorm_norm_act": f"s0 c_bn [{RN_PATHS['t1'][2]}*56*56,256]",
@@ -3847,6 +4663,24 @@ def main() -> int:
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "device_ms", "host_ms",
                 "bound_share_by_device", "library_device_ms")}
+        # The serving tier's new shapes: row 8 with the verify's query
+        # rows and over the long server's 512 pages a slot; rows 12 and 2
+        # at the smallest /predict bucket.
+        keep = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "device_ms", "host_ms",
+                "bound_share_by_device", "variant")
+        new_shape = {
+            "paged_decode_attention":
+                lambda r: f",{SPEC_K + 1},{HEADS}," in r["shape"]
+                or f"pool[{SLOTS * LONG_T // PAGE + 1}," in r["shape"],
+            "bottleneck_infer": lambda r: r["shape"].startswith("B=1 "),
+            "batchnorm_norm_act": lambda r: r["shape"].startswith(
+                "stem [1*")}.get(name)
+        if new_shape is not None:
+            entries[-1]["serving_shapes"] = [
+                {k: r[k] for k in keep if k in r} for r in rows
+                if r["name"] == name and r["dtype"] == "bfloat16"
+                and new_shape(r)]
         if name == "lstm_cell":
             entries[-1]["library_ms_without_peepholes"] = next(
                 r["library_ms"] for r in rows if r["name"] == name

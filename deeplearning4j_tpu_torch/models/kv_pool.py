@@ -16,8 +16,9 @@ Invariants:
   there and never corrupt a live page. It is never allocated or freed.
 - a page in any slot's WRITE RANGE has refcount 1 at dispatch time:
   `plan_appends` copies-on-write every shared page an append would touch.
-  Garbage rows (pad tails, CoW'd tails) sit at key positions >= the
-  cursor, where the attention mask gives them weight exactly 0.
+  Garbage rows (pad tails, CoW'd tails, rejected speculative tokens) sit
+  at key positions >= the cursor, where the attention mask gives them
+  weight exactly 0.
 - `PrefixCache` holds +1 ref on every page of an admitted prompt, so a
   cached prefix survives its slot's retirement; a hit re-refs the pages and
   replays the stored next-token distribution.
@@ -26,6 +27,7 @@ Invariants:
 from __future__ import annotations
 
 import collections
+import contextlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -72,6 +74,35 @@ class KVPagePool:
     @property
     def free_count(self) -> int:
         return len(self._free)
+
+    def counts(self) -> Dict[str, int]:
+        """Page states for the `dl4j_kv_pages` gauges: free, used
+        (refcount 1) and shared (refcount >= 2). Page 0 is none of them."""
+        return {
+            "free": len(self._free),
+            "used": int(np.count_nonzero(self._ref == 1)),
+            "shared": int(np.count_nonzero(self._ref >= 2)),
+        }
+
+    def tracked(self) -> Tuple[int, ...]:
+        return tuple(sorted(self._seq))
+
+    def length_of(self, slot: int) -> int:
+        return self._len.get(slot, 0)
+
+    @contextlib.contextmanager
+    def free_list_kept(self):
+        """Run the block, then put the free list back in its order (a
+        block that allocates and frees again, as a warmup does, leaves the
+        pool as it found it). Raises RuntimeError if the block left a page
+        allocated that was free before it, or freed one that was not."""
+        before = list(self._free)
+        yield
+        if sorted(self._free) != sorted(before):
+            raise RuntimeError(
+                f"the pool's free pages changed: {len(before)} before, "
+                f"{len(self._free)} after")
+        self._free[:] = before
 
     def pages_of(self, slot: int) -> Tuple[int, ...]:
         return tuple(self._seq.get(slot, ()))
@@ -142,6 +173,22 @@ class KVPagePool:
         self.table[slot, :] = 0
         if pages:
             self.unref(pages)
+
+    def rewind(self, slot: int, length: int) -> None:
+        """Truncate a slot to `length` tokens (a speculative rejection):
+        pages wholly beyond the new length are unref'd. No-op for an
+        untracked slot."""
+        if slot not in self._seq:
+            return
+        length = int(length)
+        keep = -(-length // self.page_size)
+        pages = self._seq[slot]
+        drop = pages[keep:]
+        if drop:
+            self._seq[slot] = pages[:keep]
+            self.table[slot, keep:len(pages)] = 0
+            self.unref(drop)
+        self._len[slot] = length
 
     def plan_appends(self, t: int) -> List[Tuple[int, int]]:
         """Advance every tracked slot by `t` tokens, allocating pages the
@@ -226,3 +273,7 @@ class PrefixCache:
         _, (pages, _, _) = self._entries.popitem(last=False)
         self.pool.unref(pages)
         return True
+
+    def clear(self) -> None:
+        while self.evict_one():
+            pass

@@ -3,9 +3,10 @@ conf built through the config DSL as the reference builds it:
 `transformer_lm` (its MoE form a conf only: ROADMAP A.9), the GravesLSTM
 `char_rnn`, the MNIST models `mlp_mnist` and `lenet_mnist`, `vgg16`,
 `alexnet` (a conf only: LRN and dropout are ROADMAP A.4) and
-`transformer_classifier` (masks: A.9); token sampling, `generate_lm`, and the
-step-granular decode steppers the serving scheduler drives (dense
-per-slot KV caches, or a paged KV pool).
+`transformer_classifier` (masks: A.9); token sampling (one sequence or a
+batch), `generate_lm`, `generate_lm_batch`, and the step-granular decode
+steppers the serving scheduler drives (dense per-slot KV caches, or a paged
+KV pool), with the speculative verify step `step_k` and `rewind_all`.
 
 Ids travel as int64 tensors: the reference feeds its steppers float32 ids,
 which a bf16 compute policy rounds (ids above 256 stop being exact); the
@@ -282,6 +283,25 @@ def _sample_token(probs, rng, temperature: float, top_k: int, top_p: float):
     return int(rng.choice(len(p), p=p))
 
 
+def _sample_tokens(probs, rng, temperature: float, top_k: int):
+    """Batched `_sample_token`: [B, V] probabilities -> [B] ids, one rng
+    draw per row in row order (a Python loop over rows draws the same), so
+    seeded generations are reproducible. Excluded tokens are masked to
+    -inf as on the single-sequence path."""
+    probs = np.asarray(probs, np.float64)
+    if temperature <= 0:
+        return probs.argmax(-1)
+    if top_k:
+        kth = np.sort(probs, axis=-1)[:, -min(top_k, probs.shape[-1])]
+        probs = np.where(probs >= kth[:, None], probs, 0.0)
+    logits = np.log(np.maximum(probs, 1e-12)) / temperature
+    logits[probs <= 0] = -np.inf
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return np.asarray([rng.choice(p.shape[-1], p=p[i])
+                       for i in range(p.shape[0])])
+
+
 def decode_cache_capacity(cg) -> int:
     """Smallest `decode_cache_length` across the attention layers: the
     per-sequence step budget. Raises for a model without a KV cache."""
@@ -336,6 +356,36 @@ def generate_lm(cg, prompt_ids, n_steps: int, *, window: int,
     return ids
 
 
+def generate_lm_batch(cg, prompts, n_steps: int, *, temperature: float = 1.0,
+                      seed: int = 0, top_k: int = 0) -> np.ndarray:
+    """KV-cached batched generation: `prompts` is [B, Tp] (equal-length
+    int prompts) and every sequence decodes in the same single-token
+    `rnn_time_step`s, int64 ids throughout. Returns [B, Tp + n_steps] ids.
+    Needs `decode_cache_length >= Tp + n_steps`."""
+    rng = np.random.RandomState(seed)
+    prompts = np.asarray(prompts, np.int64)
+    if prompts.ndim != 2 or prompts.shape[1] < 1:
+        raise ValueError("prompts must be [B, Tp] with Tp >= 1")
+    tp = prompts.shape[1]
+    try:
+        cap = decode_cache_capacity(cg)
+    except ValueError:
+        raise ValueError("generate_lm_batch needs decode_cache_length")
+    if tp + n_steps > cap:
+        raise ValueError(
+            f"Tp ({tp}) + n_steps ({n_steps}) exceeds the decode cache "
+            f"capacity {cap}")
+    out = [prompts]
+    cg.rnn_clear_previous_state()
+    step_out = cg.rnn_time_step(prompts[:, :, None])[0]  # [B, Tp, V]
+    for _ in range(n_steps):
+        nxt = np.asarray(_sample_tokens(step_out[:, -1], rng, temperature,
+                                        top_k), np.int64)
+        out.append(nxt[:, None])
+        step_out = cg.rnn_time_step(nxt[:, None, None])[0]  # [B, 1, V]
+    return np.concatenate(out, axis=1)
+
+
 class DecodeStepper:
     """Step-granular decode over a fixed bank of `slots` for a
     `transformer_lm` graph: the seam the continuous-batching scheduler
@@ -349,6 +399,10 @@ class DecodeStepper:
     - `install(slot, slot_state, length)`: copy that cache into the bank;
     - `step(tokens)`: advance every slot one token ([slots, V] out); free
       slots ride along on a dummy token, masked by their own cursors;
+    - `step_k(tokens)`: advance every slot T tokens in one forward (the
+      speculative verify shape), [slots, T, V] out;
+    - `rewind_all(lengths)`: set every slot's cursors at once (the
+      truncation after a verify);
     - `clear(slot)`: retire a sequence.
     """
 
@@ -424,6 +478,10 @@ class DecodeStepper:
         for s, k in self._cursors():
             s[k][slot] = 0
 
+    def warm_page_copies(self) -> None:
+        """Run the page-maintenance ops before traffic. The dense stepper
+        has none; the paged stepper copies page 0 onto itself."""
+
     def _before_dispatch(self, t: int) -> None:
         """Hook before every decode forward (the paged stepper allocates
         and copies-on-write pool pages here)."""
@@ -445,6 +503,36 @@ class DecodeStepper:
             self.slots, 1, 1), device=self.cg.device)
         self._before_dispatch(1)
         return self._dispatch(x)[:, -1]
+
+    @torch.inference_mode()
+    def step_k(self, tokens) -> np.ndarray:
+        """Advance every slot T tokens in one forward: `tokens` is
+        [slots, T] ints and the result [slots, T, V], row j the
+        distribution after tokens[:, :j+1]. Rows a verify rejects are
+        dropped by `rewind_all`; their cache rows sit beyond the rewound
+        cursor, masked until overwritten. On the card the attention is the
+        paged kernel with T query rows (T <= 8)."""
+        if self._state is None:
+            raise RuntimeError("no sequence installed; call prefill/install")
+        tok = np.asarray(tokens)
+        if tok.ndim != 2 or tok.shape[0] != self.slots:
+            raise ValueError(
+                f"tokens must be [slots={self.slots}, T]; got {tok.shape}")
+        x = torch.as_tensor(tok.astype(np.int64)[:, :, None],
+                            device=self.cg.device)
+        self._before_dispatch(tok.shape[1])
+        return self._dispatch(x)
+
+    @torch.inference_mode()
+    def rewind_all(self, lengths) -> None:
+        """Set every slot's cursors (KV and positional) to
+        `lengths[slot]`: the truncation after a speculative verify."""
+        if self._state is None:
+            return
+        cur = torch.as_tensor(np.asarray(lengths, np.int32).reshape(
+            self.slots), device=self.cg.device)
+        for s, k in self._cursors():
+            s[k].copy_(cur)
 
 
 class PagedDecodeStepper(DecodeStepper):
@@ -524,6 +612,22 @@ class PagedDecodeStepper(DecodeStepper):
     def clear(self, slot: int) -> None:
         self.pool.free_slot(slot)
         super().clear(slot)
+
+    @torch.inference_mode()
+    def warm_page_copies(self) -> None:
+        """The copy-on-write page copy of `_before_dispatch`, as a page-0
+        self-copy."""
+        if self._state is None:
+            return
+        for layer in self._attn_layers:
+            s = self._state[layer]
+            s["k_pages"][0] = s["k_pages"][0]
+            s["v_pages"][0] = s["v_pages"][0]
+
+    def rewind_all(self, lengths) -> None:
+        for slot, n in enumerate(np.asarray(lengths).reshape(self.slots)):
+            self.pool.rewind(slot, int(n))
+        super().rewind_all(lengths)
 
     def _before_dispatch(self, t: int) -> None:
         for src, dst in self.pool.plan_appends(t):

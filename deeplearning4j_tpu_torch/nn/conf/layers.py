@@ -305,8 +305,9 @@ class DropoutLayer(FeedForwardLayer):
 @register_layer
 @dataclass
 class EmbeddingLayer(FeedForwardLayer):
-    """Index -> vector lookup. The port reads `input_format="ids"` (what
-    the transformer zoo pins)."""
+    """Index -> vector lookup. `input_format`: "ids", "onehot" (taken by
+    argmax), or "auto" (one-hot for a float input whose last dim is
+    `n_in`, else ids), as the reference reads them."""
 
     has_bias: bool = True
     input_format: str = "auto"

@@ -40,15 +40,20 @@ def preoutput(conf, params, state, x, train=False, mask=None):
 
 
 def embedding_apply(conf, params, state, x, train=False, mask=None):
-    """Embedding gather over integer ids [B], [B, 1] or [B, T, 1]. Float ids
-    truncate toward zero, as the reference's int32 cast does."""
-    if conf.input_format != "ids":
-        raise ValueError(f"EmbeddingLayer input_format "
-                         f"{conf.input_format!r} is not in the port (it "
-                         "reads 'ids')")
-    idx = x.long()
-    if idx.dim() >= 2 and idx.shape[-1] == 1:
-        idx = idx[..., 0]
+    """Embedding gather (reference `embedding_apply`, feedforward.py:42-63).
+    Integer ids [B], [B, 1] or [B, T, 1]; float ids truncate toward zero,
+    as the reference's int32 cast does. One-hot rows [..., n_in] are taken
+    by their argmax: always under `input_format="onehot"`, and under
+    "auto" for a float input whose last dim is `n_in`."""
+    fmt = conf.input_format or "auto"
+    onehot = (fmt == "onehot" if fmt != "auto"
+              else x.is_floating_point() and x.shape[-1] == conf.n_in)
+    if onehot:
+        idx = torch.argmax(x, dim=-1)
+    else:
+        idx = x.long()
+        if idx.dim() >= 2 and idx.shape[-1] == 1:
+            idx = idx[..., 0]
     out = params["W"][idx]
     if "b" in params:
         out = out + params["b"]

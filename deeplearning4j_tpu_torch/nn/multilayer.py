@@ -29,7 +29,9 @@ engines' shared params, updaters and in-place update (`engine.py`).
 What `fit` does not run yet raises NotImplementedError naming its ROADMAP
 item: solvers and superstep (A.10), dropout (A.4), frozen layers (A.12),
 layerwise pretraining (A.9) and f16 loss scaling (A.7). Inference ignores
-dropout, as the reference's does.
+dropout, as the reference's does; `output` and `feed_forward` with
+`train=True`, where the reference draws dropout, refuse a net with a
+dropout or DropConnect rate in (0, 1) as `fit` does (A.4).
 """
 
 from __future__ import annotations
@@ -118,9 +120,23 @@ class MultiLayerNetwork(NetworkEngine):
             out = activations.resolve(last.activation)(out)
         return out
 
+    def _check_train_forward(self, train: bool) -> None:
+        """A train-mode forward draws dropout (and DropConnect) in the
+        reference (`nn/layers/common.py:10-44`); the port has no dropout
+        yet, so it refuses such a net rather than run it without."""
+        if not train:
+            return
+        for name, layer in zip(self.layer_keys, self.layers):
+            rate = layer.dropout
+            if rate is not None and 0.0 < float(rate) < 1.0:
+                raise NotImplementedError(
+                    f"train=True: dropout={rate} on {name!r} is not in the "
+                    "port yet (ROADMAP A.4)")
+
     def output(self, x, train: bool = False,
                features_mask=None) -> np.ndarray:
         """Inference forward (reference `output`, :1193)."""
+        self._check_train_forward(train)
         with torch.inference_mode():
             out, _, _ = self._forward(self._compute_copy(), self.state, x,
                                       features_mask, keep_rnn_state=False,
@@ -131,6 +147,7 @@ class MultiLayerNetwork(NetworkEngine):
                      features_mask=None) -> List[np.ndarray]:
         """Every layer's output (reference `feedForward`); an output
         layer's entry is its pre-activation."""
+        self._check_train_forward(train)
         with torch.inference_mode():
             _, _, acts = self._forward(self._compute_copy(), self.state, x,
                                        features_mask, keep_rnn_state=False,

@@ -1,6 +1,7 @@
 """Typed serving errors (a copy of `deeplearning4j_tpu/serving/errors.py`,
 trimmed to the statuses the port's routes can return): each failure mode
-maps to exactly one HTTP status."""
+maps to exactly one HTTP status. `ReplicaDrainingError` comes with the
+fleets (ROADMAP A.13)."""
 
 from __future__ import annotations
 
@@ -26,6 +27,24 @@ class InputValidationError(ServingError):
 
 class ModelNotFoundError(ServingError):
     status = 404
+
+
+class ModelNotReadyError(ServingError):
+    """The model is still warming ("warming": callers retry rather than
+    wait behind the kernels' first launches), or its warmup failed
+    ("failed": no retry helps, and the response has no `Retry-After`)."""
+
+    status = 503
+    retry_after = 1
+
+    def __init__(self, message: str, state: str = "warming"):
+        super().__init__(message)
+        self.state = state
+        if state != "warming":
+            self.retry_after = None
+
+    def payload(self) -> dict:
+        return {"error": str(self), "status": self.state}
 
 
 class ServerOverloadedError(ServingError):

@@ -1726,3 +1726,68 @@ def test_lm_resumes_bit_for_bit_and_rolls_back_in_place(cuda, tmp_path):
     net.fit(batches[0])
     assert not torch.equal(leaf, restored)
     assert np.isfinite(net.score_value)
+
+
+# ---------------------------------------------------------- serving tier
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,n_pages,pos", [
+    (5, 16, [1000, 700, 330, 40]),            # the speculative verify shape
+    (1, 512, [29990, 30000, 30008, 30016]),   # a 32,768-token cache
+    (5, 512, [29990, 30000, 30008, 30016]),
+])
+def test_paged_split_kernel_verify_rows_and_long_cursors(cuda, dtype, t,
+                                                         n_pages, pos):
+    # q [4, t, 8, 64] over 64-key pages: t = spec_k + 1 query rows, causal
+    # among themselves; and 512 pages a slot from a pool of 2,049 (the
+    # long server's), at cursors past 29,000. Past a few hundred keys a
+    # row's |o| is below the elementwise limit, so rows are held too.
+    args = _paged_case(np.random.RandomState(t + n_pages), dtype, cuda, pos,
+                       n_pages=n_pages, t=t)
+    plan = fa.paged_split_plan(4, 8, n_pages, 64, 64,
+                               args[0].element_size(),
+                               fa._sm_count(args[0].get_device()))
+    assert plan.n_splits * plan.pages_per_split >= n_pages
+    for causal in (True, False):
+        got = fa.paged_decode_attention(*args, causal)
+        want = fa.paged_gather_dense(*args, causal)
+        assert got.shape == (4, t, 8, 64)
+        _close(got, want, dtype)
+        _close_rows(got, want, dtype)
+
+
+@pytest.mark.parametrize("index", range(8))
+def test_bottleneck_wgmma_at_batch_one_every_i1_shape(cuda, index):
+    # I1's 8 block shapes at B = 1 (the smallest /predict bucket): the last
+    # stage has M = 49 output rows, less than one 64-row tile.
+    h, cin, f1, s, project = _resnet50_block_shapes(224)[index]
+    x, params, state = _block(np.random.RandomState(70 + index), 1, h, cin,
+                              f1, project, torch.bfloat16, cuda)
+    _close_block(*_wgmma_block(x, params, state, (s, s), project, False))
+
+
+def test_resnet50_predict_of_three_rows_equals_output(cuda):
+    # /predict pads 3 rows to the bucket of 4 and runs I1's fused graph
+    # through rows 12 and 2; each row equals `output` of the same 3 rows.
+    from deeplearning4j_tpu_torch.models import resnet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    net = ComputationGraph(resnet.resnet50(image=224, dtype="bfloat16",
+                                           fused_blocks=True),
+                           device=cuda).init()
+    x = np.random.RandomState(0).randn(3, 224, 224, 3).astype(np.float32)
+    want = net.output(x)[0]
+    server = InferenceServer(net, device=cuda, max_batch_size=4).start()
+    try:
+        kernels.reset_counts()
+        got = server.predict(x)
+        counts = kernels.counts()
+    finally:
+        server.stop()
+    assert counts["launches"]["bottleneck_infer"] == 16
+    assert counts["launches"]["batchnorm_norm_act"] == 1
+    assert not any(counts["plain_calls"].values())
+    _close(torch.as_tensor(got), torch.as_tensor(want), torch.bfloat16,
+           RESNET_TOL)

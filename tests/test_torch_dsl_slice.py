@@ -708,6 +708,65 @@ def test_construction_refuses_a_conf_only_layer(layer, item):
         ComputationGraph(g, device="cpu")
 
 
+@pytest.mark.parametrize("drop", [dict(dropout=0.5),
+                                  dict(dropout=0.8, use_drop_connect=True)],
+                         ids=["dropout", "drop_connect"])
+def test_train_mode_forward_refuses_dropout(drop):
+    # The reference draws inverted dropout (or DropConnect) in a train-mode
+    # forward; the port has no dropout yet (A.4), so it refuses such a net
+    # rather than run it without, and a dropout-free net runs as before.
+    def conf(**kw):
+        return (neural_net.NeuralNetConfiguration.builder().seed(3).list()
+                .layer(layers.DenseLayer(n_out=8, activation="tanh", **kw))
+                .layer(layers.OutputLayer(n_out=3, activation="softmax"))
+                .set_input_type(inputs.InputType.feed_forward(5)).build())
+
+    x = np.random.RandomState(0).randn(4, 5).astype(np.float32)
+    net = MultiLayerNetwork(conf(**drop), device="cpu").init()
+    assert net.output(x).shape == (4, 3)
+    for call in (lambda: net.output(x, train=True),
+                 lambda: net.feed_forward(x, train=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+            call()
+    plain = MultiLayerNetwork(conf(), device="cpu").init()
+    np.testing.assert_array_equal(plain.output(x, train=True),
+                                  plain.output(x))
+    assert len(plain.feed_forward(x, train=True)) == 2
+
+
+@pytest.mark.parametrize("form", ["ids_b", "ids_b1", "ids_bt1", "onehot",
+                                  "onehot_format"])
+def test_embedding_reads_the_reference_input_formats(form):
+    # "auto" (the conf's default) gathers integer ids and takes a float
+    # input whose last dim is n_in as one-hot, as the reference does.
+    from deeplearning4j_tpu.nn.layers.feedforward import (
+        embedding_apply as jax_embedding)
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+        embedding_apply)
+
+    rng = np.random.RandomState(5)
+    n_in, n_out, b, t = 10, 4, 3, 6
+    fmt = "onehot" if form == "onehot_format" else "auto"
+    conf = layers.EmbeddingLayer(n_in=n_in, n_out=n_out, input_format=fmt)
+    jconf = jax_layers.EmbeddingLayer(n_in=n_in, n_out=n_out,
+                                      input_format=fmt)
+    assert conf.input_format == jconf.input_format == fmt
+    params = {"W": rng.randn(n_in, n_out).astype(np.float32),
+              "b": rng.randn(n_out).astype(np.float32)}
+    ids = rng.randint(0, n_in, (b, t))
+    x = {"ids_b": ids[:, 0], "ids_b1": ids[:, :1], "ids_bt1": ids[..., None],
+         "onehot": np.eye(n_in, dtype=np.float32)[ids[:, 0]],
+         "onehot_format": np.eye(n_in, dtype=np.float32)[ids]}[form]
+    want, _, _ = jax_embedding(jconf, {k: jnp.asarray(v)
+                                       for k, v in params.items()}, {},
+                               jnp.asarray(x))
+    got, _ = embedding_apply(conf, interop.params_from_numpy(
+        {"l": params})["l"], {}, torch.from_numpy(np.asarray(x)))
+    assert got.shape == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("name", ["vgg16", "alexnet",
                                   "transformer_classifier",
                                   "transformer_lm_moe"])
