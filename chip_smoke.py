@@ -42,7 +42,9 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               3, 5 and 6 are also held row by row (o at 1e-2 / 1e-4 of its
               norm, lse at 1e-4; dq from row 1, dk, dv at 1.2e-2 / 1e-4 of
               max(norm, 0.1 x the median row norm)) and name their form
-              (`variant`).
+              (`variant`). Rows 5 and 6 run causal (the LM's step) and
+              non-causal (the transformer classifier's unmasked step) at
+              [16, 1024, 8, 64].
 3. serve    - the widest `transformer_lm` the repo runs (V=8192, d=512, 8
               heads, 4 blocks, bf16 compute over f32 params, seeded random
               weights) behind the port's `InferenceServer` with paged KV
@@ -313,7 +315,59 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               must fail with a planted fault, the first block's attention
               zeroed in row 4 (the first distribution) or in row 8 (the
               4 steps). The phase's wall seconds (`phase_s`).
-26. trace   - where one decode step's, one 1024-token prefill's, one LM
+26. layers  - the rest of the layers. (a) AlexNet (`zoo.alexnet`: conv
+              11x11/4 + LRN + pool, conv 5x5 + LRN + pool, three 3x3
+              convs, pool, dense 4096 x2 with dropout 0.5 (retain),
+              softmax; 1000 classes at 224, bf16 compute, Nesterovs 0.9 at
+              lr 0.01, l2 5e-4, seeded random weights) trained with
+              `MultiLayerNetwork.fit` at B=128 on rn_batches' learnable
+              images, 3 warm-up and 10 timed steps: scores finite and
+              falling (the last 3 average under the first), per step
+              exactly 1 update launch (16 tensors), 0 plain calls; ms a
+              step, images/s, peak memory. After step 5 a
+              `CheckpointManager` save, the key and a train-mode `output`
+              of 16 images (outside the walls). (b) `output` at B=128:
+              inference twice bit for bit equal, train-mode different, no
+              launch. (c) Dropout at AlexNet's two dense inputs, [128,
+              6400] and [128, 4096], retain 0.5, from the engine's next
+              subkey: kept share within 0.5 +- 0.005, kept values exactly
+              2, the same key the same mask, the next step's key another,
+              the two layers' masks uncorrelated (|r| <= 0.01), the masks
+              on the card. (d) LRN at [128,54,54,96] and [128,26,26,256]
+              against the same function on the CPU (f32, 1e-4); its bf16
+              time. (e) AlexNet f32 at B=4 from the same params on the
+              card and on the CPU: `output` within 1e-3; one `fit` step
+              with the same keep masks on both sides and on a float64
+              CPU step (the draw function swapped for one that draws on
+              the CPU and moves the mask): scores within 1e-3 relative,
+              the Nesterovs v held to the f64 step as resnet_parity holds
+              it. (f) The net restored from the step-5 checkpoint: its
+              key equal to the saved one, its train-mode `output` of the
+              same 16 images equal bit for bit. (g) VGG-16
+              (`zoo.vgg16`, 1000 classes, bf16, Nesterovs 0.9 at lr 0.01,
+              relu init): `output` at B=32 (finite probabilities), then
+              `fit` at B=128, 3 + 10 steps, 1 update launch a step (32
+              tensors); the first score finite, the rest reported (from
+              this random init at this lr the reference diverges too);
+              f32 `output` at B=2 card against CPU within 1e-3. The
+              phase's wall seconds (`phase_s`).
+27. masked  - features masks. `zoo.transformer_classifier` at the LM's
+              widths (V=8192, d=512, 8 heads, 4 blocks, 8 classes, bf16,
+              Adam at the zoo's lr) on B=16 ragged sequences of 128-1024
+              int64 ids padded to 1024 (about half of each sequence its
+              class's marker id), int32 labels and a features mask, 3
+              warm-up and 20 timed steps: scores finite and falling; per
+              step exactly 9 LayerNorm and 1 update launch and no flash
+              row (a masked batch runs the dense masked attention, as the
+              reference routes it), 0 plain calls; ms a step, sequences
+              and real tokens a second, peak memory. Then an unmasked
+              step at T=1024 (after one that warms its path): 4 launches
+              each of rows 5, 6 dq and 6 dk/dv, non-causal, all on the
+              tensor cores. Padded ids changed leave the masked `output`
+              equal bit for bit; `evaluate` under the mask gives an
+              accuracy; f32 masked `output` at B=2, T=256 card against
+              CPU within 1e-3. The phase's wall seconds.
+28. trace   - where one decode step's, one 1024-token prefill's, one LM
               training step's, one T1 and one T2 step's, one char-RNN fit
               call's (forward, backward, update; the call's two chunks
               summed), one `rnn_time_step`'s, one LeNet and one MLP fit
@@ -331,8 +385,9 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
 rnn_sample, lenet_train, mlp_train, dsl, ckpt, serving, long_serve,
-long_train, long_output; row 8's, row 12's and row 2's serving shapes
-under `serving_shapes`;
+long_train, long_output, alexnet_train, vgg16_train, masked_train,
+unmasked_step; row 8's, row 12's and row 2's serving shapes under
+`serving_shapes`; rows 5 and 6 non-causal under `non_causal_shapes`;
 row 13 on row 4's entry; row 9 also with its time at LeNet's update) and,
 last, the result line. With no GPU, without the package beside it, or when
 any phase fails, it exits non-zero and prints no result.
@@ -486,6 +541,34 @@ CKPT_ES_EPOCHS = 2
 # measured it (H100 80GB HBM3, 700 W), set beside this phase's off-thread
 # zip write.
 CKPT_T2_SYNC_SAVE_S = (12.4, 14.0)
+
+# The rest of the layers (the layers phase): AlexNet (`zoo.alexnet`) and
+# VGG-16 (`zoo.vgg16`) at 224, 1000 classes, bf16 compute over f32 params,
+# Nesterovs; B=128 (`bench.py:946`'s batch), 3 warm-up and 10 timed steps
+# each on rn_batches' learnable images. Per step one update launch for all
+# the layers' tensors (AlexNet 16, VGG-16 32); dropout, LRN, the
+# convolutions (cuDNN) and the pools have no kernel of the port (the JAX
+# package has no Pallas kernel for them).
+LAYERS_B, LAYERS_IMAGE = 128, 224
+LAYERS_LAUNCHES = {"fused_update": 1}
+ALEX_DENSE = (10, 11)                  # AlexNet's two dense layers (dropout)
+ALEX_DROP_SHAPES = ((LAYERS_B, 6400), (LAYERS_B, 4096))  # their inputs
+ALEX_LRN_SHAPES = ((LAYERS_B, 54, 54, 96), (LAYERS_B, 26, 26, 256))
+KEEP_TOL, CORR_TOL = 0.005, 0.01
+ALEX_PARITY_B, VGG_PARITY_B, VGG_OUTPUT_B, PARITY_TOL = 4, 2, 32, 1e-3
+ALEX_SAVE_STEP, ALEX_PROBE_B = 5, 16
+LAYERS_DIR = os.path.join("build", "layers")
+
+# Features masks (the masked phase): `zoo.transformer_classifier` at the
+# LM's widths (V=8192, d=512, 8 heads, 4 blocks; `bench.py:1116`), 8
+# classes, bf16, Adam at the zoo's lr; B=16 ragged sequences of 128-1024
+# ids padded to T=1024 under a features mask; 3 warm-up and 20 timed
+# steps. A masked step runs the dense masked attention (plain PyTorch, as
+# the reference routes a masked batch to XLA): 9 LayerNorms and 1 update,
+# no flash row. One unmasked step adds rows 5 and 6 non-causal, 4 each.
+MASK_CLASSES, MASK_MIN_T = 8, 128
+MASK_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1, "fused_update": 1}
+MASK_PARITY_B, MASK_PARITY_T = 2, 256
 
 # Long context: the same LM at T = 32,768, B = 1, where the K/V of
 # one (batch, head) outgrow the resident limit and every attention takes the
@@ -850,37 +933,48 @@ def train_kernel_cases(torch, dev, dtype_name, conf):
 
     B, T, dh = TRAIN_B, CACHE, D_MODEL // HEADS
     n, rows = B * T * HEADS * dh, B * HEADS * T
-    pairs = B * HEADS * T * (T + 1) // 2        # (q, k) pairs, causal half
     scale = dh ** -0.5
-    shape = f"[{B},{T},{HEADS},{dh}] causal"
     q, k, v, do = (t(B, T, HEADS, dh) for _ in range(4))
     qh, kh, vh, doh = (a.transpose(1, 2).contiguous() for a in (q, k, v, do))
     qg, kg, vg = (a.detach().requires_grad_(True) for a in (qh, kh, vh))
+    cases = []
+    # The LM's causal step, then the transformer classifier's unmasked
+    # (non-causal) step at the same shape (the masked phase).
+    for causal in (True, False):
+        # (q, k) pairs: the causal half, or all of them.
+        pairs = B * HEADS * (T * (T + 1) // 2 if causal else T * T)
+        shape = f"[{B},{T},{HEADS},{dh}] " + ("causal" if causal
+                                              else "non-causal")
 
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        def sdpa_fwd(causal=causal):
+            return F.scaled_dot_product_attention(qg, kg, vg,
+                                                  is_causal=causal)
 
-    def sdpa_fwd_bwd():
-        return torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), doh)
+        def sdpa_fwd_bwd(sdpa_fwd=sdpa_fwd):
+            return torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), doh)
 
-    o, lse = fa.dense_attention_lse(q, k, v, True)
-    drow = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    bwd = (q, k, v, do, lse, drow, True, scale)
-    cases = [
-        ("flash_attention_fwd_lse", shape,
-         lambda: fa.flash_attention_fwd_lse(q, k, v, True),
-         lambda: fa.dense_attention_lse(q, k, v, True),
-         lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
-         4 * n * es + 4 * rows, 4 * dh * pairs),
-        ("flash_attention_bwd_dq", shape,
-         lambda: fa.flash_attention_bwd_dq(*bwd),
-         lambda: fa.flash_bwd_dq_plain(*bwd), (sdpa_fwd_bwd, sdpa_fwd),
-         5 * n * es + 8 * rows, 6 * dh * pairs),
-        ("flash_attention_bwd_dkv", shape,
-         lambda: fa.flash_attention_bwd_dkv(*bwd),
-         lambda: fa.flash_bwd_dkv_plain(*bwd), (sdpa_fwd_bwd, sdpa_fwd),
-         6 * n * es + 8 * rows, 8 * dh * pairs),
-    ]
+        o, lse = fa.dense_attention_lse(q, k, v, causal)
+        drow = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = (q, k, v, do, lse, drow, causal, scale)
+        cases += [
+            ("flash_attention_fwd_lse", shape,
+             lambda causal=causal: fa.flash_attention_fwd_lse(q, k, v,
+                                                              causal),
+             lambda causal=causal: fa.dense_attention_lse(q, k, v, causal),
+             lambda causal=causal: F.scaled_dot_product_attention(
+                 qh, kh, vh, is_causal=causal),
+             4 * n * es + 4 * rows, 4 * dh * pairs),
+            ("flash_attention_bwd_dq", shape,
+             lambda bwd=bwd: fa.flash_attention_bwd_dq(*bwd),
+             lambda bwd=bwd: fa.flash_bwd_dq_plain(*bwd),
+             (sdpa_fwd_bwd, sdpa_fwd),
+             5 * n * es + 8 * rows, 6 * dh * pairs),
+            ("flash_attention_bwd_dkv", shape,
+             lambda bwd=bwd: fa.flash_attention_bwd_dkv(*bwd),
+             lambda bwd=bwd: fa.flash_bwd_dkv_plain(*bwd),
+             (sdpa_fwd_bwd, sdpa_fwd),
+             6 * n * es + 8 * rows, 8 * dh * pairs),
+        ]
     if dtype_name != "float32":
         return cases
     # Adam over the 24 layer vertices' f32 params and state (lr 3e-3, step
@@ -3452,8 +3546,8 @@ def flash_compare(name, got, want, dtype):
     """A flash row (3-7) against its plain version: o, dq, dk, dv at
     TOL[dtype]; a forward's o also row by row at ROW_TOL[dtype] and its lse
     (f32), where it has one, at LSE_TOL; dq, dk and dv row by row at
-    BWD_ROW_TOL[dtype] over the ROW_FLOOR'd norm, dq from row 1 (all these
-    cases are causal). Returns the largest elementwise error, whether all
+    BWD_ROW_TOL[dtype] over the ROW_FLOOR'd norm, dq from row 1 (a causal
+    row 0 is ~0). Returns the largest elementwise error, whether all
     held, and the largest row error."""
     if name not in FLASH_FORWARDS:
         err, ok = compare(got, want, dtype)
@@ -4236,6 +4330,457 @@ def phase_serving(card, torch, kernels, dev, cg, t2_net, lenet_net):
     return not errors, total
 
 
+# ------------------------------------------------- layers and features masks
+
+
+def _image_batches(torch, dev, b, n, seed):
+    """rn_batches' learnable images at 224 as DataSets (MultiLayerNetwork)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    return [DataSet(m.features[0], m.labels[0])
+            for m in rn_batches(torch, dev, LAYERS_IMAGE, b, n, seed)]
+
+
+def _fit_steps(net, batches, steps, after=None):
+    """`steps` synchronized `fit` calls over `batches` in turn: (scores,
+    wall ms per call); `after(i)` runs after call i (1-based), outside the
+    walls."""
+    scores, wall = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        net.fit(batches[i % len(batches)])
+        scores.append(net.score_value)  # syncs the step
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if after is not None:
+            after(i + 1)
+    return scores, wall
+
+
+def _step_report(scores, wall, warmup, batch, gate_trajectory=True):
+    """Errors and numbers of a training run: scores finite and falling
+    (the last 3 average under the first); without `gate_trajectory` only
+    the first score's finiteness is gated and the rest reported."""
+    errors = []
+    finite = int(np.isfinite(scores).sum())
+    if not np.isfinite(scores[0]) or (gate_trajectory
+                                      and finite < len(scores)):
+        errors.append(f"non-finite score: {scores}")
+    last3 = float(np.mean(scores[-3:]))
+    fell = last3 < scores[0]
+    if gate_trajectory and not fell:
+        errors.append(f"scores did not fall: first {scores[0]}, mean of the "
+                      f"last 3 {last3}")
+    timed = wall[warmup:]
+    ms = statistics.mean(timed)
+    return errors, dict(
+        batch=batch, steps=len(scores), scores=scores, first_score=scores[0],
+        finite_scores=finite, last3_mean=last3, score_fell=fell,
+        ms_per_step=ms,
+        ms_per_step_median=statistics.median(timed), ms_per_step_all=wall,
+        samples_per_s=batch / ms * 1e3)
+
+
+def _drop_checks(torch, dev, train_key):
+    """Dropout on the card at AlexNet's two dense inputs, retain 0.5, from
+    the subkey the engine's next step would take from `train_key`: kept
+    share, kept values exactly 1/retain, the same key's mask again, the
+    step after's key another mask, the two layers' masks uncorrelated; the
+    draw's time."""
+    from deeplearning4j_tpu_torch.nn import prng
+    from deeplearning4j_tpu_torch.nn.layers import common
+
+    errors, rows, kept = [], [], []
+    step_key, after = prng.split(train_key)[::-1]
+    next_key = prng.split(after)[1]
+    for idx, shape in zip(ALEX_DENSE, ALEX_DROP_SHAPES):
+        x = torch.ones(shape, device=dev)
+        key = prng.LayerKey(step_key, idx)
+        out = common.inverted_dropout(x, 0.5, key, True)
+        keep = out != 0
+        share = float(keep.float().mean())
+        exact = bool((out[keep] == 2.0).all())
+        again = torch.equal(common.inverted_dropout(x, 0.5, key, True), out)
+        moved = not torch.equal(common.draw_keep(
+            prng.LayerKey(next_key, idx), 0.5, shape, x.device), keep)
+        rows.append(dict(shape=list(shape), layer=idx, kept_share=share,
+                         kept_exactly_1_over_retain=exact,
+                         same_key_same_mask=again,
+                         next_key_new_mask=moved, on_card=keep.is_cuda,
+                         ms=time_ms(lambda: common.inverted_dropout(
+                             x, 0.5, key, True))))
+        if not (abs(share - 0.5) <= KEEP_TOL and exact and again and moved
+                and keep.is_cuda):
+            errors.append(f"dropout at {list(shape)}: {rows[-1]}")
+        kept.append(keep.float().flatten())
+    n = min(k.numel() for k in kept)
+    a, b = (k[:n] for k in kept)
+    corr = float(((a - a.mean()) * (b - b.mean())).mean()
+                 / (a.std() * b.std()))
+    if abs(corr) > CORR_TOL:
+        errors.append(f"the two layers' masks correlate: {corr}")
+    return errors, {"draws": rows, "layer_mask_correlation": corr}
+
+
+def _lrn_checks(torch, dev):
+    """LRN at AlexNet's two shapes on the card against the same function on
+    the CPU (f32, 1e-4); its bf16 time on the card."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        LocalResponseNormalization)
+    from deeplearning4j_tpu_torch.nn.layers.convolution import lrn_apply
+
+    conf = LocalResponseNormalization()
+    errors, rows = [], []
+    for i, shape in enumerate(ALEX_LRN_SHAPES):
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(i)) * 3
+        want, _ = lrn_apply(conf, {}, {}, x)
+        got, _ = lrn_apply(conf, {}, {}, x.to(dev))
+        err, ok = compare(got.cpu(), want, "float32")
+        xb = x.to(dev, torch.bfloat16)
+        rows.append(dict(shape=list(shape), max_abs_err=err, ok=ok,
+                         tolerance=f"rtol=atol={TOL['float32']}",
+                         bf16_ms=time_ms(lambda: lrn_apply(conf, {}, {}, xb))))
+        if not ok:
+            errors.append(f"LRN at {list(shape)}: card vs CPU {err}")
+    return errors, rows
+
+
+def _alex_parity(torch, dev):
+    """AlexNet f32 at B=4: the same params on the card and on the CPU;
+    `output` probabilities; one `fit` step with the same keep masks on
+    every side (drawn on the CPU, moved to the net's device), its score
+    and the Nesterovs state against a float64 CPU step's, as
+    phase_resnet_parity holds it."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.layers import common
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    def conf(dtype):
+        return zoo.alexnet(n_classes=RN_CLASSES, image=LAYERS_IMAGE,
+                           dtype=dtype)
+
+    rng = np.random.RandomState(92)
+    b = ALEX_PARITY_B
+    x = rng.rand(b, LAYERS_IMAGE, LAYERS_IMAGE, 3).astype(np.float32)
+    y = np.eye(RN_CLASSES, dtype=np.float32)[rng.randint(0, RN_CLASSES, b)]
+    cpu = MultiLayerNetwork(conf("float32"), device="cpu").init()
+    params = {k: {n: a.detach() for n, a in p.items()}
+              for k, p in cpu.params_tree.items()}
+    card_net = MultiLayerNetwork(conf("float32"), device=dev).init(
+        params=params)
+    cpu64 = MultiLayerNetwork(conf("float64"), device="cpu").init(
+        params=params)
+    prob_diff = float(np.abs(card_net.output(x) - cpu.output(x)).max())
+    draw = common.draw_keep
+    common.draw_keep = (lambda key, retain, shape, device:
+                        draw(key, retain, shape, "cpu").to(device))
+    try:
+        for net in (cpu, card_net, cpu64):
+            net.fit(DataSet(x, y))
+    finally:
+        common.draw_keep = draw
+    score_rel = (abs(card_net.score_value - cpu.score_value)
+                 / abs(cpu.score_value))
+    card_err, cpu_err = _v_errors(card_net, cpu64), _v_errors(cpu, cpu64)
+    med_card = statistics.median(card_err.values())
+    med_cpu = statistics.median(cpu_err.values())
+    worst_card, worst_cpu = max(card_err.values()), max(cpu_err.values())
+    errors = []
+    if prob_diff > PARITY_TOL:
+        errors.append(f"AlexNet output differs by {prob_diff}")
+    if score_rel > PARITY_TOL:
+        errors.append(f"AlexNet scores {card_net.score_value} (card) vs "
+                      f"{cpu.score_value} (CPU)")
+    if med_card > 2 * med_cpu + 1e-3:
+        errors.append(f"AlexNet: the card's median Nesterovs v error against "
+                      f"the f64 step, {med_card}, exceeds twice the CPU f32 "
+                      f"step's, {med_cpu}")
+    if worst_card > max(4e-2, 2 * worst_cpu):
+        errors.append(f"AlexNet: the card's largest Nesterovs v error "
+                      f"against the f64 step, {worst_card}, exceeds "
+                      f"max(4e-2, twice the CPU f32 step's {worst_cpu})")
+    return errors, {
+        "batch": b, "max_abs_prob_diff": prob_diff,
+        "score_card": card_net.score_value, "score_cpu": cpu.score_value,
+        "score_cpu_f64": cpu64.score_value, "score_rel_diff": score_rel,
+        "layers_with_params": len(card_err),
+        "card_v_err_vs_f64_median": med_card,
+        "cpu_f32_v_err_vs_f64_median": med_cpu,
+        "card_v_err_vs_f64_worst": worst_card,
+        "cpu_f32_v_err_vs_f64_worst": worst_cpu,
+        "card_v_err_vs_cpu_f32_worst": max(_v_errors(card_net,
+                                                     cpu).values())}
+
+
+def phase_layers(card, torch, kernels, dev):
+    """The rest of the layers on the card: AlexNet trained, its `output`,
+    dropout draws, LRN, parity with the CPU, a resume from a checkpoint;
+    VGG-16 trained and its `output` (see the module docstring)."""
+    from deeplearning4j_tpu_torch.checkpoint.manager import CheckpointManager
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(LAYERS_DIR, ignore_errors=True)
+    steps = RN_WARMUP + RN_TIMED
+    errors, launches = [], {}
+
+    # (a) AlexNet fit; after step 5 a checkpoint, its key and a train-mode
+    # output of a probe batch (outside the walls).
+    net = MultiLayerNetwork(zoo.alexnet(
+        n_classes=RN_CLASSES, image=LAYERS_IMAGE, dtype="bfloat16"),
+        device=dev).init()
+    batches = _image_batches(torch, dev, LAYERS_B, 2, 91)
+    probe = batches[1].features[:ALEX_PROBE_B]
+    mgr = CheckpointManager(LAYERS_DIR, async_save=False, device=dev)
+    saved = {}
+
+    def at_step(i):
+        if i == ALEX_SAVE_STEP:
+            mgr.save(net)
+            saved.update(key=net._train_rng.copy(),
+                         out=net.output(probe, train=True))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    scores, wall = _fit_steps(net, batches, steps, at_step)
+    counts = kernels.counts()
+    launches["alexnet_train"] = counts["launches"]
+    errs, want = _launch_errors(counts, LAYERS_LAUNCHES, steps)
+    e2, alex = _step_report(scores, wall, RN_WARMUP, LAYERS_B)
+    errors += errs + e2
+    alex.update(max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                launches=counts["launches"], expected_launches=want,
+                plain_calls=counts["plain_calls"])
+
+    # (b) `output` at B=128: inference twice bit for bit, train-mode not.
+    x = batches[0].features
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    o1 = net.output(x)
+    out_ms = (time.perf_counter() - t0) * 1e3
+    o2, o3 = net.output(x), net.output(x, train=True)
+    counts = kernels.counts()
+    errs, _ = _launch_errors(counts, {}, 0)
+    errors += errs
+    if o1.shape != (LAYERS_B, RN_CLASSES) or not np.isfinite(o1).all():
+        errors.append(f"AlexNet output {o1.shape}, finite "
+                      f"{np.isfinite(o1).all()}")
+    if not np.array_equal(o1, o2):
+        errors.append("AlexNet inference output differs between two calls")
+    if np.array_equal(o1, o3):
+        errors.append("AlexNet train-mode output equals the inference one")
+    alex.update(output_ms=out_ms, output_repeat_equal=np.array_equal(o1, o2),
+                train_output_differs=not np.array_equal(o1, o3))
+
+    # (c) dropout draws, (d) LRN, (e) parity, (f) the resume.
+    errs, drops = _drop_checks(torch, dev, net._train_rng)
+    errors += errs
+    errs, lrn = _lrn_checks(torch, dev)
+    errors += errs
+    errs, parity = _alex_parity(torch, dev)
+    errors += errs
+    back = mgr.restore()
+    key_ok = np.array_equal(back._train_rng, saved["key"])
+    out_ok = np.array_equal(back.output(probe, train=True), saved["out"])
+    if not (key_ok and out_ok and back.iteration == ALEX_SAVE_STEP):
+        errors.append(f"AlexNet resume: key equal {key_ok}, train-mode "
+                      f"output equal {out_ok}, iteration {back.iteration}")
+    resume = dict(step=ALEX_SAVE_STEP, key_equal=key_ok,
+                  train_output_equal_bit_for_bit=out_ok,
+                  checkpoint_bytes=sum(
+                      os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(LAYERS_DIR) for f in fs))
+    del net, back, batches, probe, x, o1, o2, o3
+    shutil.rmtree(LAYERS_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (g) VGG-16: `output` at B=32 from its init, then fit. Its scores past
+    # the first are reported, not gated: from the zoo's random relu init at
+    # its lr 0.01, the reference's own VGG-16 diverges within a few steps
+    # on such batches (PERF.md, PR 17). Then f32 parity with the CPU at
+    # B=2.
+    vgg = MultiLayerNetwork(zoo.vgg16(n_classes=RN_CLASSES,
+                                      dtype="bfloat16"), device=dev).init()
+    vb = _image_batches(torch, dev, LAYERS_B, 2, 93)
+    xo = vb[0].features[:VGG_OUTPUT_B]
+    vgg.output(xo)
+    t0 = time.perf_counter()
+    out = vgg.output(xo)
+    vgg_output_ms = (time.perf_counter() - t0) * 1e3
+    if not (out.shape == (VGG_OUTPUT_B, RN_CLASSES) and np.isfinite(out).all()
+            and np.abs(out.sum(-1) - 1).max() < 1e-3):
+        errors.append(f"VGG-16 output {out.shape} not finite probabilities")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    scores, wall = _fit_steps(vgg, vb, steps)
+    counts = kernels.counts()
+    launches["vgg16_train"] = counts["launches"]
+    errs, want = _launch_errors(counts, LAYERS_LAUNCHES, steps)
+    e2, vgg_res = _step_report(scores, wall, RN_WARMUP, LAYERS_B,
+                               gate_trajectory=False)
+    errors += errs + e2
+    vgg_res.update(
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        launches=counts["launches"], expected_launches=want,
+        plain_calls=counts["plain_calls"], output_ms=vgg_output_ms,
+        output_batch=VGG_OUTPUT_B)
+    del vgg, vb, xo
+    torch.cuda.empty_cache()
+    cpu = MultiLayerNetwork(zoo.vgg16(n_classes=RN_CLASSES, dtype="float32"),
+                            device="cpu").init()
+    card_net = MultiLayerNetwork(zoo.vgg16(n_classes=RN_CLASSES,
+                                           dtype="float32"), device=dev).init(
+        params={k: {n: a.detach() for n, a in p.items()}
+                for k, p in cpu.params_tree.items()})
+    xp = np.random.RandomState(94).rand(VGG_PARITY_B, LAYERS_IMAGE,
+                                        LAYERS_IMAGE, 3).astype(np.float32)
+    diff = float(np.abs(card_net.output(xp) - cpu.output(xp)).max())
+    if diff > PARITY_TOL:
+        errors.append(f"VGG-16 f32 output card vs CPU differs by {diff}")
+    vgg_res["parity_f32_b2_max_abs_prob_diff"] = diff
+    del cpu, card_net
+    torch.cuda.empty_cache()
+    emit(card, phase="layers", ok=not errors, errors=errors,
+         alexnet=dict(model=f"alexnet classes={RN_CLASSES} "
+                      f"image={LAYERS_IMAGE} mixed_bfloat16 Nesterovs lr "
+                      "0.01, dropout 0.5 (retain)", **alex),
+         dropout=drops, lrn=lrn, alexnet_parity=parity,
+         alexnet_resume=resume,
+         vgg16=dict(model=f"vgg16 classes={RN_CLASSES} mixed_bfloat16 "
+                    "Nesterovs lr 0.01", **vgg_res),
+         phase_s=time.perf_counter() - t_phase)
+    return not errors, launches
+
+
+def mask_batches(torch, dev, n, seed, ragged=True):
+    """n batches of TRAIN_B sequences of int64 ids, padded (id 0) to t =
+    CACHE from lengths drawn in [MASK_MIN_T, t] (all t when not `ragged`,
+    and then no mask): about half of a sequence's ids are its class's own
+    id, the rest uniform over the vocabulary (`examples/text_classifier.py`'s
+    class-marker tokens); int32 labels; a [b, t] f32 features mask. Made on
+    the device."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+
+    b, t = TRAIN_B, CACHE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.arange(t, device=dev)[None, :]
+    out = []
+    for _ in range(n):
+        cls = torch.randint(0, MASK_CLASSES, (b,), generator=g, device=dev)
+        lens = (torch.randint(MASK_MIN_T, t + 1, (b,), generator=g,
+                              device=dev) if ragged
+                else torch.full((b,), t, device=dev))
+        ids = torch.randint(0, VOCAB, (b, t), generator=g, device=dev)
+        marker = torch.rand(b, t, generator=g, device=dev) < 0.5
+        ids = torch.where(marker, cls[:, None], ids)
+        real = pos < lens[:, None]
+        ids = torch.where(real, ids, 0)
+        out.append(MultiDataSet([ids], [cls.int()], features_masks=(
+            [real.float()] if ragged else None)))
+    return out
+
+
+def phase_masked(card, torch, kernels, dev):
+    """The transformer classifier under features masks on the card: masked
+    training, one unmasked step through rows 5 and 6 non-causal, padding
+    that does not leak, masked `output` against the CPU, masked
+    `evaluate` (see the module docstring)."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    t_phase = time.perf_counter()
+
+    def conf(dtype):
+        return zoo.transformer_classifier(
+            VOCAB, MASK_CLASSES, t=CACHE, d_model=D_MODEL, n_heads=HEADS,
+            n_blocks=BLOCKS, dtype=dtype)
+
+    errors, launches = [], {}
+    net = ComputationGraph(conf("bfloat16"), device=dev).init()
+    batches = mask_batches(torch, dev, 2, 101)
+    steps = WARMUP + TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    scores, wall = _fit_steps(net, batches, steps)
+    counts = kernels.counts()
+    launches["masked_train"] = counts["launches"]
+    errs, want = _launch_errors(counts, MASK_LAUNCHES, steps)
+    e2, train = _step_report(scores, wall, WARMUP, TRAIN_B)
+    errors += errs + e2
+    real = float(sum(float(m.features_masks[0].sum()) for m in batches)
+                 / len(batches))
+    train.update(real_tokens_per_batch=real,
+                 real_tokens_per_s=real / train["ms_per_step"] * 1e3,
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 launches=counts["launches"], expected_launches=want,
+                 plain_calls=counts["plain_calls"])
+
+    # An unmasked step (after one to warm its path up): rows 5 and 6
+    # non-causal, on the tensor cores.
+    full = mask_batches(torch, dev, 1, 103, ragged=False)[0]
+    net.fit(full)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    net.fit(full)
+    unmasked_score = net.score_value  # syncs the step
+    unmasked_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.counts()
+    launches["unmasked_step"] = counts["launches"]
+    per_step = {**MASK_LAUNCHES, **{n: BLOCKS for n in TRAIN_FLASH}}
+    errs, want_u = _launch_errors(counts, per_step, 1)
+    errors += errs + _variant_errors(counts, {n: BLOCKS for n in TRAIN_FLASH})
+    if not np.isfinite(unmasked_score):
+        errors.append(f"unmasked step score {unmasked_score}")
+
+    # Padding does not leak; masked `evaluate`.
+    mds = batches[0]
+    ids, mask = mds.features[0], mds.features_masks[0]
+    other = torch.where(mask > 0, ids, (ids + 7) % VOCAB)
+    out = net.output(ids, features_masks=[mask])[0]
+    leak = not np.array_equal(out, net.output(other,
+                                              features_masks=[mask])[0])
+    if leak or not np.isfinite(out).all():
+        errors.append(f"padded ids changed the masked output: {leak}")
+    accuracy = net.evaluate(mds).accuracy()
+    if not 0.0 <= accuracy <= 1.0:
+        errors.append(f"masked evaluate accuracy {accuracy}")
+    del net, batches, full, mds, ids, mask, other
+    torch.cuda.empty_cache()
+
+    # Masked `output`, f32, B=2, T=256: the card against the CPU.
+    cpu = ComputationGraph(conf("float32"), device="cpu").init()
+    card_net = ComputationGraph(conf("float32"), device=dev).init(params={
+        v: {k: a.detach() for k, a in p.items()}
+        for v, p in cpu.params_tree.items()})
+    rng = np.random.RandomState(104)
+    pids = rng.randint(0, VOCAB, (MASK_PARITY_B, MASK_PARITY_T))
+    pmask = np.ones((MASK_PARITY_B, MASK_PARITY_T), np.float32)
+    pmask[1, MASK_PARITY_T // 3:] = 0.0
+    diff = float(np.abs(card_net.output(pids, features_masks=[pmask])[0]
+                        - cpu.output(pids, features_masks=[pmask])[0]).max())
+    if diff > PARITY_TOL:
+        errors.append(f"masked output card vs CPU differs by {diff}")
+    del cpu, card_net
+    emit(card, phase="masked", ok=not errors, errors=errors,
+         model=f"transformer_classifier V={VOCAB} classes={MASK_CLASSES} "
+               f"d={D_MODEL} heads={HEADS} blocks={BLOCKS} mixed_bfloat16 "
+               f"Adam; B={TRAIN_B} ragged {MASK_MIN_T}-{CACHE}",
+         train=train, unmasked_step=dict(
+             ms=unmasked_ms, score=unmasked_score,
+             launches=counts["launches"],
+             expected_launches=want_u,
+             flash_forms={n: counts["variants"][n] for n in TRAIN_FLASH}),
+         padding_leaks=leak, evaluate_accuracy=accuracy,
+         parity_f32_max_abs_prob_diff=diff,
+         phase_s=time.perf_counter() - t_phase)
+    return not errors, launches
+
+
 @contextlib.contextmanager
 def plain_versions():
     """The serving LM's kernel wrappers swapped for their plain versions
@@ -4571,6 +5116,14 @@ def main() -> int:
         failed.append("long_output")
     if not phase_long_parity(card, torch, kernels, dev):
         failed.append("long_parity")
+    ok, layer_launches = phase_layers(card, torch, kernels, dev)
+    if not ok:
+        failed.append("layers")
+    path_launches.update(layer_launches)
+    ok, mask_launches = phase_masked(card, torch, kernels, dev)
+    if not ok:
+        failed.append("masked")
+    path_launches.update(mask_launches)
     trace, ok = phase_trace(card, torch, cg, train_net, batches[0], nets,
                             rn_batch, rnn_net, rnn_data[0], long_net,
                             long_batches[0], mnist)
@@ -4588,7 +5141,9 @@ def main() -> int:
     # 2 x 200 sampling calls, LeNet's and the MLP's 469 steps each, the
     # dsl, ckpt and serving phases' card windows, the long server's
     # request, the long-context train phase's 7 steps and its 3 `output`
-    # calls), summed and by path. Row 10's library call covers the step
+    # calls, AlexNet's and VGG-16's 13 steps each, the classifier's 23
+    # masked steps and its counted unmasked step), summed and by path.
+    # Row 10's library call covers the step
     # without peepholes (at the same B and n); row 13 is row 4's kernel
     # over two lists, carried on row 4's entry.
     main_shape = {
@@ -4681,7 +5236,19 @@ def main() -> int:
                 {k: r[k] for k in keep if k in r} for r in rows
                 if r["name"] == name and r["dtype"] == "bfloat16"
                 and new_shape(r)]
+        if name in TRAIN_FLASH:
+            # The classifier's unmasked step: the same shape non-causal.
+            entries[-1]["non_causal_shapes"] = [
+                {k: r[k] for k in ("dtype", "max_row_rel_err", *keep)
+                 if k in r} for r in rows
+                if r["name"] == name and r["shape"].endswith("non-causal")]
         if name == "lstm_cell":
+            # Per launch in the traced char-RNN fit call (R1's shape).
+            hit = [k for k in trace["rnn_fit_call"]["forward"].get("top", [])
+                   if "lstm_cell" in k["kernel"]]
+            if hit:
+                entries[-1]["device_ms_in_fit_call"] = (
+                    hit[0]["ms_per_call"] / hit[0]["per_call"])
             entries[-1]["library_ms_without_peepholes"] = next(
                 r["library_ms"] for r in rows if r["name"] == name
                 and r["dtype"] == dtype

@@ -2,8 +2,8 @@
 conf built through the config DSL as the reference builds it:
 `transformer_lm` (its MoE form a conf only: ROADMAP A.9), the GravesLSTM
 `char_rnn`, the MNIST models `mlp_mnist` and `lenet_mnist`, `vgg16`,
-`alexnet` (a conf only: LRN and dropout are ROADMAP A.4) and
-`transformer_classifier` (masks: A.9); token sampling (one sequence or a
+`alexnet` (LRN, dropout 0.5) and `transformer_classifier` (ragged batches
+under features masks); token sampling (one sequence or a
 batch), `generate_lm`, `generate_lm_batch`, and the step-granular decode
 steppers the serving scheduler drives (dense per-slot KV caches, or a paged
 KV pool), with the speculative verify step `step_k` and `rewind_all`.
@@ -121,8 +121,9 @@ def transformer_classifier(vocab_size: int, n_classes: int, *, t: int = 64,
                            lr: float = 3e-3, dtype: str = "float32"
                            ) -> ComputationGraphConfiguration:
     """The LM's bidirectional sibling: non-causal blocks, mean pooling over
-    time, a softmax mcxent head. It runs on unmasked sequences; ragged
-    ones, pooled and attended under their masks, are ROADMAP A.9."""
+    time, a softmax mcxent head. Ragged batches run under a features mask:
+    attention leaves the padded keys out, pooling the padded steps
+    (`examples/text_classifier.py`)."""
     gb = _transformer_start(d_model, seed, lr, dtype, max(t, 16))
     prev = "pos"
     for i in range(n_blocks):
@@ -205,8 +206,7 @@ def vgg16(n_classes: int = 1000, seed: int = 123,
           dtype: str = "bfloat16") -> MultiLayerConfiguration:
     """VGG-16 as the reference configures it (the Keras VGG16 it imports):
     13 3x3 SAME relu convolutions in 5 blocks with 2x2 max pools, two dense
-    4096 relu, softmax; Nesterovs 0.9 at lr 0.01, relu init. Its layers
-    all run; its `output` against the reference's is ROADMAP A.4's."""
+    4096 relu, softmax; Nesterovs 0.9 at lr 0.01, relu init."""
     b = (NeuralNetConfiguration.builder()
          .seed(seed).learning_rate(0.01).updater("nesterovs").momentum(0.9)
          .weight_init("relu").dtype(dtype)
@@ -229,7 +229,7 @@ def alexnet(n_classes: int = 1000, seed: int = 123, image: int = 224,
             dtype: str = "bfloat16") -> MultiLayerConfiguration:
     """AlexNet as the reference configures it: conv 11x11/4 + LRN + pool,
     conv 5x5 + LRN + pool, three 3x3 convs, pool, two dense 4096 with
-    dropout 0.5, softmax. A conf only: LRN and dropout are ROADMAP A.4."""
+    dropout 0.5 (retain), softmax; Nesterovs 0.9 at lr 0.01, l2 5e-4."""
     conv = ConvolutionLayer
     pool = dict(pooling_type="max", kernel_size=(3, 3), stride=(2, 2))
     return (NeuralNetConfiguration.builder()

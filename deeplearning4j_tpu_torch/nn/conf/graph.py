@@ -4,12 +4,12 @@ optional input preprocessor) and the 13 vertices that are plain functions
 of their inputs: Merge, ElementWise (add, subtract, product, average,
 max), Subset, Stack, Unstack, Scale, Shift, L2, L2Normalize, Preprocessor,
 LastTimeStep, DuplicateToTimeSeries and ReverseTimeSeries. `apply` is a
-plain torch function; autograd gives its gradient. Activations are
+plain torch function of its inputs and their [b, t] features masks (the
+engine's, `nn/graph.py`); autograd gives its gradient. Activations are
 feature-last (NHWC images, [batch, time, features] sequences), so Merge,
-Subset and the feature reductions act on the last axes.
-
-Feature masks are not in the port (ROADMAP A.9): `LastTimeStep` takes the
-last step and `ReverseTimeSeries` reverses every step."""
+Subset and the feature reductions act on the last axes. Under a mask,
+`LastTimeStep` takes each example's last unmasked step and
+`ReverseTimeSeries` reverses each example's unmasked prefix in place."""
 
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ def vertex_from_dict(d: dict):
 
 @dataclass
 class GraphVertexConf:
-    def apply(self, inputs):
+    def apply(self, inputs, masks=None):
         raise NotImplementedError
 
     def get_output_type(self, *input_types: InputType) -> InputType:
@@ -102,7 +102,7 @@ class MergeVertex(GraphVertexConf):
     """Concatenation on the feature (last) axis: the channels of NHWC
     images."""
 
-    def apply(self, inputs):
+    def apply(self, inputs, masks=None):
         return torch.cat(inputs, dim=-1)
 
     def get_output_type(self, *input_types):
@@ -133,7 +133,7 @@ class ElementWiseVertex(GraphVertexConf):
             raise ValueError(f"ElementWiseVertex op {self.op!r} is not one "
                              f"of {_ELEMENTWISE_OPS}")
 
-    def apply(self, inputs):
+    def apply(self, inputs, masks=None):
         op = self.op.lower()
         out = inputs[0]
         if op == "subtract":
@@ -161,7 +161,7 @@ class SubsetVertex(GraphVertexConf):
     from_index: int = 0
     to_index: int = 0
 
-    def apply(self, inputs):
+    def apply(self, inputs, masks=None):
         return inputs[0][..., self.from_index:self.to_index + 1]
 
     def get_output_type(self, *input_types):
@@ -179,7 +179,7 @@ class SubsetVertex(GraphVertexConf):
 class StackVertex(GraphVertexConf):
     """The inputs stacked on the batch axis."""
 
-    def apply(self, inputs):
+    def apply(self, inputs, masks=None):
         return torch.cat(inputs, dim=0)
 
 
@@ -191,7 +191,7 @@ class UnstackVertex(GraphVertexConf):
     from_index: int = 0
     stack_size: int = 1
 
-    def apply(self, inputs):
+    def apply(self, inputs, masks=None):
         x = inputs[0]
         step = x.shape[0] // self.stack_size
         return x[self.from_index * step:(self.from_index + 1) * step]
@@ -202,7 +202,7 @@ class UnstackVertex(GraphVertexConf):
 class ScaleVertex(GraphVertexConf):
     scale_factor: float = 1.0
 
-    def apply(self, inputs):
+    def apply(self, inputs, masks=None):
         return inputs[0] * self.scale_factor
 
 
@@ -211,7 +211,7 @@ class ScaleVertex(GraphVertexConf):
 class ShiftVertex(GraphVertexConf):
     shift_factor: float = 0.0
 
-    def apply(self, inputs):
+    def apply(self, inputs, masks=None):
         return inputs[0] + self.shift_factor
 
 
@@ -223,7 +223,7 @@ class L2Vertex(GraphVertexConf):
 
     eps: float = 1e-8
 
-    def apply(self, inputs):
+    def apply(self, inputs, masks=None):
         a, b = inputs
         d2 = ((a - b) ** 2).sum(dim=tuple(range(1, a.dim())))
         return torch.sqrt(torch.clamp(d2, min=self.eps))[:, None]
@@ -239,7 +239,7 @@ class L2NormalizeVertex(GraphVertexConf):
 
     eps: float = 1e-8
 
-    def apply(self, inputs):
+    def apply(self, inputs, masks=None):
         x = inputs[0]
         norm = torch.sqrt((x ** 2).sum(dim=tuple(range(1, x.dim())),
                                        keepdim=True))
@@ -253,8 +253,8 @@ class PreprocessorVertex(GraphVertexConf):
 
     preprocessor: Optional[InputPreProcessor] = None
 
-    def apply(self, inputs):
-        return self.preprocessor(inputs[0])[0]
+    def apply(self, inputs, masks=None):
+        return self.preprocessor(inputs[0], masks[0] if masks else None)[0]
 
     def get_output_type(self, *input_types):
         return self.preprocessor.get_output_type(input_types[0])
@@ -267,12 +267,19 @@ class PreprocessorVertex(GraphVertexConf):
 @register_vertex
 @dataclass
 class LastTimeStepVertex(GraphVertexConf):
-    """[b, t, f] -> [b, f], the last step."""
+    """[b, t, f] -> [b, f], the last step, or under a mask each example's
+    last unmasked one (step 0 if none is); the engine passes the mask of
+    `mask_array_input` when it is set."""
 
     mask_array_input: Optional[str] = None
 
-    def apply(self, inputs):
-        return inputs[0][:, -1, :]
+    def apply(self, inputs, masks=None):
+        x = inputs[0]
+        mask = masks[0] if masks else None
+        if mask is None:
+            return x[:, -1, :]
+        idx = (mask.sum(dim=1).long() - 1).clamp_min(0)
+        return x[torch.arange(x.shape[0], device=x.device), idx]
 
     def get_output_type(self, *input_types):
         return InputType.feed_forward(input_types[0].size)
@@ -286,7 +293,7 @@ class DuplicateToTimeSeriesVertex(GraphVertexConf):
 
     input_name: Optional[str] = None
 
-    def apply(self, inputs, time_steps: int = 1):
+    def apply(self, inputs, masks=None, time_steps: int = 1):
         x = inputs[0]
         return x[:, None, :].expand(x.shape[0], time_steps, x.shape[1])
 
@@ -297,9 +304,17 @@ class DuplicateToTimeSeriesVertex(GraphVertexConf):
 @register_vertex
 @dataclass
 class ReverseTimeSeriesVertex(GraphVertexConf):
-    """The time axis reversed."""
+    """The time axis reversed; under a mask only each example's unmasked
+    prefix [0, len), the padding staying at the tail."""
 
     mask_array_input: Optional[str] = None
 
-    def apply(self, inputs):
-        return torch.flip(inputs[0], dims=(1,))
+    def apply(self, inputs, masks=None):
+        x = inputs[0]
+        mask = masks[0] if masks else None
+        if mask is None:
+            return torch.flip(x, dims=(1,))
+        lengths = mask.sum(dim=1).long()[:, None]            # [b, 1]
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        src = torch.where(pos < lengths, lengths - 1 - pos, pos)
+        return torch.gather(x, 1, src[..., None].expand(-1, -1, x.shape[2]))

@@ -9,11 +9,11 @@ raises ValueError naming it. `set_n_in`, `get_output_type` and
 and convolutional input types, output sizes under TRUNCATE, STRICT and
 SAME, and the preprocessor a layer asks for between layer families.
 
-Nine confs are confs only here: `BaseOutputLayer`, `LossLayer`,
-`CenterLossOutputLayer`, `DropoutLayer`, `LocalResponseNormalization`,
-`MoELayer`, `AutoEncoder`, `RBM` and `VariationalAutoencoder` build, size
-and serialize, and a network that holds one is refused at construction
-(`nn/layers/__init__.py` `check_supported`)."""
+Seven confs are confs only here: `BaseOutputLayer`, `LossLayer`,
+`CenterLossOutputLayer`, `MoELayer`, `AutoEncoder`, `RBM` and
+`VariationalAutoencoder` build, size and serialize, and a network that
+holds one is refused at construction (`nn/layers/__init__.py`
+`check_supported`)."""
 
 from __future__ import annotations
 

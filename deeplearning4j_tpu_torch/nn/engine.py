@@ -34,10 +34,15 @@ to its conf, in the engine's update order.
   `on_epoch_end(net)` (`optimize/listeners.py`); both engines call them
   where the reference's do.
 - `_train_rng` is the reference's train-time RNG continuation, a
-  `uint32[2]` key that `init` sets to its `PRNGKey(seed ^ 0x5EED)`
-  (`prng_key`). The port draws nothing at train time (dropout is refused,
-  A.4), so it never advances the key: checkpoints carry it as they found
-  it.
+  `uint32[2]` threefry key that `init` sets to its `PRNGKey(seed ^
+  0x5EED)` (`nn/prng.py`). `_next_rng` advances it where the reference's
+  does, `key, sub = split(key)`: once per `fit` step (per tBPTT chunk),
+  once per train-mode `output` or `feed_forward`. The forward gives each
+  layer `LayerKey(sub, index)`, the reference's `fold_in(sub, index)`,
+  from which its dropout draws are seeded (`nn/layers/common.py`). So a
+  checkpoint's `rng` means the same in both packages, and a run resumed
+  from one draws the masks of the uninterrupted run; the masks themselves
+  are not JAX's.
 """
 
 from __future__ import annotations
@@ -54,18 +59,10 @@ from deeplearning4j_tpu_torch.nn import params as params_mod
 from deeplearning4j_tpu_torch.nn.conf.dtype_policy import resolve_policy
 from deeplearning4j_tpu_torch.nn.conf.layers import is_bias_param
 from deeplearning4j_tpu_torch.nn.layers import check_supported
+from deeplearning4j_tpu_torch.nn.prng import prng_key, split
 from deeplearning4j_tpu_torch.ops import grad_norm as grad_norm_mod
 from deeplearning4j_tpu_torch.ops import schedules as schedules_mod
 from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
-
-
-def prng_key(seed: int) -> np.ndarray:
-    """`jax.random.PRNGKey(seed)` (the default threefry key, as the
-    reference's tests make it with 64-bit ints on): the seed's high and low
-    32 bits."""
-    seed = int(seed)
-    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
-                    np.uint32)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -231,9 +228,6 @@ class NetworkEngine:
             (int(g.superstep_k or 0) > 1, "superstep training", 10),
             *refused]
         for name, layer in self._layer_confs.items():
-            rate = layer.dropout
-            checks.append((rate is not None and 0.0 < float(rate) < 1.0,
-                           f"dropout={rate} on {name!r}", 4))
             checks.append((bool(layer.frozen),
                            f"frozen layer {name!r} (transfer learning)", 12))
         for cond, what, item in checks:
@@ -241,9 +235,18 @@ class NetworkEngine:
                 raise NotImplementedError(
                     f"fit: {what} is not in the port yet (ROADMAP A.{item})")
 
+    def _next_rng(self) -> np.ndarray:
+        """Advance the train key, `key, sub = split(key)`; the subkey seeds
+        one train-mode forward's draws."""
+        self._train_rng, sub = split(self._train_rng)
+        return sub
+
     def _train_backward(self, loss):
         """`{key: {name: grad}}` of every leaf that requires grad (zeros
-        for a leaf the loss does not reach, as jax.grad gives)."""
+        for a leaf the loss does not reach, as jax.grad gives), each
+        contiguous as the update kernel takes it: a convolution's kernel
+        gradient comes back through the HWIO permute in whatever layout
+        cuDNN or the CPU wrote it, and is copied only then."""
         names = [(v, k) for v, p in self.params_tree.items()
                  for k, t in p.items() if t.requires_grad]
         leaves = [self.params_tree[v][k] for v, k in names]
@@ -252,7 +255,7 @@ class NetworkEngine:
         grads: Dict[str, Dict[str, torch.Tensor]] = {}
         for (v, k), leaf, gr in zip(names, leaves, flat):
             grads.setdefault(v, {})[k] = (torch.zeros_like(leaf)
-                                          if gr is None else gr)
+                                          if gr is None else gr.contiguous())
         return grads
 
     def _train_update(self, grads) -> None:

@@ -20,21 +20,35 @@ engines' shared machinery (`engine.py`).
   running statistics they return; `output` and `score` read the running
   statistics.
 
+- Features masks (`MultiDataSet.features_masks`, `output(...,
+  features_masks=)`, one per network input, `_as_mask_list`) travel
+  with the values: through a vertex's preprocessor, layers
+  (`nn/layers/__init__.py` `mask_after`: global pooling consumes one) and
+  vertices as the reference's `_forward_fn` carries them (`LastTimeStep`
+  reads its `mask_array_input`'s mask or its input's and emits none,
+  `DuplicateToTimeSeries` takes its `input_name`'s, every other vertex
+  its first input's). An output's mask is its loss mask where the labels
+  bring none.
+- Dropout and DropConnect draw in `fit` (a new key per step) and in
+  `output(train=True)`, the vertex at topological position i drawing from
+  `LayerKey(key, i)` (`engine.py`).
+
 What `fit` does not run yet raises NotImplementedError naming its ROADMAP
-item: dropout, solvers, truncated BPTT, superstep, frozen layers, feature
-masks (f16 loss scaling never gets this far: the port's dtype policies are
-float32, mixed_bfloat16 and float64).
+item: solvers, truncated BPTT, superstep, frozen layers (f16 loss scaling
+never gets this far: the port's dtype policies are float32,
+mixed_bfloat16 and float64).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterators import maybe_reset
+from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn import params as params_mod
@@ -42,13 +56,19 @@ from deeplearning4j_tpu_torch.nn import rnn_state as rnn_mod
 from deeplearning4j_tpu_torch.nn.conf import preprocessors as pre_mod
 from deeplearning4j_tpu_torch.nn.conf.graph import (
     DuplicateToTimeSeriesVertex,
+    LastTimeStepVertex,
     LayerVertex,
 )
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.engine import NetworkEngine, to_numpy
-from deeplearning4j_tpu_torch.nn.layers import OUTPUT_LAYER_TYPES, get_impl
+from deeplearning4j_tpu_torch.nn.layers import (
+    OUTPUT_LAYER_TYPES,
+    get_impl,
+    mask_after,
+)
+from deeplearning4j_tpu_torch.nn.prng import LayerKey
 
 
 def _as_mds(data, labels=None) -> MultiDataSet:
@@ -57,6 +77,14 @@ def _as_mds(data, labels=None) -> MultiDataSet:
     if isinstance(data, DataSet):
         return MultiDataSet.from_dataset(data)
     return MultiDataSet(features=[data], labels=[labels])
+
+
+def _as_mask_list(masks):
+    """None when no entry is present, else the list with its None entries
+    (reference `_as_mask_list`, graph.py:104-109)."""
+    if masks is None or not any(m is not None for m in masks):
+        return None
+    return list(masks)
 
 
 class ComputationGraph(NetworkEngine):
@@ -90,29 +118,38 @@ class ComputationGraph(NetworkEngine):
     # --------------------------------------------------------------- forward
 
     def _forward(self, params, state, inputs, keep_rnn_state: bool,
-                 train: bool = False):
+                 train: bool = False, fmasks=None, key=None):
         """Walk the DAG; returns (the output vertices' raw values at the
-        compute dtype, new layer state). `train` selects batch statistics
-        (and their running-stat update) over the running ones."""
+        compute dtype, new layer state, the outputs' masks). `train`
+        selects batch statistics (and their running-stat update) over the
+        running ones; `key` (a train forward's subkey) gives the vertex at
+        topological position i its draws' `LayerKey(key, i)`."""
         cdt = self.dtype_policy.compute_dtype
         values: Dict[str, torch.Tensor] = {}
+        masks: Dict[str, Optional[torch.Tensor]] = {}
         for i, name in enumerate(self.conf.network_inputs):
             # Floats run at the compute dtype (ids included, as in the
             # reference); integer ids pass through untouched.
             values[name] = pre_mod.apply_uint8_policy(
                 torch.as_tensor(inputs[i], device=self.device),
                 self._uint8_policies[name], cdt)
+            masks[name] = (None if fmasks is None or fmasks[i] is None
+                           else torch.as_tensor(fmasks[i],
+                                                device=self.device))
         new_state: Dict[str, Dict] = {}
-        for name in self.topo_order:
+        for vi, name in enumerate(self.topo_order):
             vertex = self.conf.vertices[name]
-            ins = [values[n] for n in self.conf.vertex_inputs[name]]
+            in_names = self.conf.vertex_inputs[name]
+            ins = [values[n] for n in in_names]
+            in_masks = [masks[n] for n in in_names]
             if isinstance(vertex, LayerVertex):
-                layer, x = vertex.layer, ins[0]
+                layer, x, mask = vertex.layer, ins[0], in_masks[0]
                 if vertex.preprocessor is not None:
-                    x, _ = vertex.preprocessor(x)
-                out, lstate = get_impl(layer)(layer, params.get(name, {}),
-                                              state.get(name, {}), x,
-                                              train=train)
+                    x, mask = vertex.preprocessor(x, mask)
+                out, lstate = get_impl(layer)(
+                    layer, params.get(name, {}), state.get(name, {}), x,
+                    train=train, mask=mask,
+                    rng=None if key is None else LayerKey(key, vi))
                 if lstate:
                     declared = set(layer.state_shapes())
                     keep = {k: v for k, v in lstate.items()
@@ -120,12 +157,22 @@ class ComputationGraph(NetworkEngine):
                     if keep:
                         new_state[name] = keep
                 values[name] = out
+                masks[name] = mask_after(layer, mask)
             elif isinstance(vertex, DuplicateToTimeSeriesVertex):
                 values[name] = vertex.apply(
                     ins, time_steps=values[vertex.input_name].shape[1])
+                masks[name] = masks.get(vertex.input_name)
+            elif isinstance(vertex, LastTimeStepVertex):
+                m = (masks.get(vertex.mask_array_input)
+                     if vertex.mask_array_input else in_masks[0])
+                values[name] = vertex.apply(ins, [m])
+                masks[name] = None
             else:
-                values[name] = vertex.apply(ins)
-        return [values[n] for n in self.conf.network_outputs], new_state
+                values[name] = vertex.apply(ins, in_masks)
+                masks[name] = in_masks[0] if in_masks else None
+        outs = self.conf.network_outputs
+        return ([values[n] for n in outs], new_state,
+                [masks.get(n) for n in outs])
 
     def _finish(self, outs):
         """Outputs at the output dtype, after the output layers'
@@ -144,26 +191,34 @@ class ComputationGraph(NetworkEngine):
         tensors, `state` the merged layer state; returns (outputs, new
         state) on the device."""
         with torch.inference_mode():
-            outs, new_state = self._forward(self._compute_copy(), state,
-                                            inputs, keep_rnn_state=True)
+            outs, new_state, _ = self._forward(self._compute_copy(), state,
+                                               inputs, keep_rnn_state=True)
             return self._finish(outs), new_state
 
-    def output(self, *inputs) -> List[np.ndarray]:
+    def output(self, *inputs, train: bool = False,
+               features_masks=None) -> List[np.ndarray]:
+        """Forward (reference `output`, graph.py:1110); `train=True` runs
+        the layers in training mode, dropout drawn from a new key."""
+        key = self._next_rng() if train else None
         with torch.inference_mode():
-            outs, _ = self._forward(self._compute_copy(), self.state, inputs,
-                                    keep_rnn_state=False)
+            outs, _, _ = self._forward(self._compute_copy(), self.state,
+                                       inputs, keep_rnn_state=False,
+                                       train=train,
+                                       fmasks=_as_mask_list(features_masks),
+                                       key=key)
             return [to_numpy(o) for o in self._finish(outs)]
 
-    def output_single(self, *inputs) -> np.ndarray:
-        return self.output(*inputs)[0]
+    def output_single(self, *inputs, **kw) -> np.ndarray:
+        return self.output(*inputs, **kw)[0]
 
     # ------------------------------------------------------------------ loss
 
-    def _loss_from_outputs(self, params, outs, labels, lmasks):
+    def _loss_from_outputs(self, params, outs, labels, lmasks, omasks):
         """Score of the raw outputs (reference `_loss_from_outputs`): each
         output layer's loss in the loss dtype, summed over entries and
         divided by the minibatch, plus the l1/l2 penalty over the first
-        divisor."""
+        divisor. A sequence output with no labels mask takes its features
+        mask as the loss mask."""
         total = 0.0
         for i, name in enumerate(self.conf.network_outputs):
             v = self.layer_vertices.get(name)
@@ -172,6 +227,8 @@ class ComputationGraph(NetworkEngine):
                                  "layer")
             layer = v.layer
             lmask = lmasks[i] if lmasks is not None else None
+            if lmask is None and omasks[i] is not None and outs[i].dim() == 3:
+                lmask = omasks[i]
             eb = losses_mod.effective_batch_size(labels[i], lmask)
             if i == 0:
                 eb0 = eb
@@ -189,13 +246,30 @@ class ComputationGraph(NetworkEngine):
     def score(self, data, labels=None) -> float:
         """Loss of the current params on one batch (syncs)."""
         mds = _as_mds(data, labels)
-        self._check_no_feature_masks(mds)
         with torch.inference_mode():
-            outs, _ = self._forward(self._compute_copy(), self.state,
-                                    mds.features, keep_rnn_state=False)
+            outs, _, omasks = self._forward(
+                self._compute_copy(), self.state, mds.features,
+                keep_rnn_state=False,
+                fmasks=_as_mask_list(mds.features_masks))
             return float(self._loss_from_outputs(
                 self.params_tree, outs, self._device_arrays(mds.labels),
-                self._device_arrays(mds.labels_masks)))
+                self._device_arrays(mds.labels_masks), omasks))
+
+    def evaluate(self, iterator, top_n: int = 1) -> Evaluation:
+        """Classification evaluation of the first output over a DataSet,
+        a MultiDataSet or an iterable of them, under their features and
+        labels masks (reference `evaluate`, graph.py:1184)."""
+        ev = Evaluation(top_n=top_n)
+        maybe_reset(iterator)
+        if isinstance(iterator, (DataSet, MultiDataSet)):
+            iterator = [iterator]
+        for item in iterator:
+            mds = _as_mds(item)
+            out = self.output(*mds.features,
+                              features_masks=mds.features_masks)[0]
+            lmask = mds.labels_masks[0] if mds.labels_masks else None
+            ev.eval(mds.labels[0], out, mask=lmask)
+        return ev
 
     # ------------------------------------------------------------------- fit
 
@@ -203,14 +277,6 @@ class ComputationGraph(NetworkEngine):
         super()._check_trainable(
             (str(self.conf.backprop_type).lower() == "truncatedbptt",
              "truncated BPTT on ComputationGraph", 18))
-
-    @staticmethod
-    def _check_no_feature_masks(mds) -> None:
-        if mds.features_masks and any(m is not None
-                                      for m in mds.features_masks):
-            raise NotImplementedError(
-                "features masks (masked attention) are not in the port yet "
-                "(ROADMAP A.9)")
 
     def fit(self, data, labels=None) -> "ComputationGraph":
         """Train on a DataSet, a MultiDataSet or an iterable of those, or
@@ -237,7 +303,6 @@ class ComputationGraph(NetworkEngine):
     def _fit_one(self, mds: MultiDataSet) -> None:
         """One step in three parts (each a method, so a profiler can wrap
         them on the instance): forward + loss, backward, update."""
-        self._check_no_feature_masks(mds)
         loss, new_state = self._train_forward(mds)
         grads = self._train_backward(loss)
         self._train_update(grads)
@@ -253,11 +318,13 @@ class ComputationGraph(NetworkEngine):
         with torch.inference_mode(False), torch.enable_grad():
             params = params_mod.cast_floating(self.params_tree,
                                               self.dtype_policy.compute_dtype)
-            outs, new_state = self._forward(params, self.state, mds.features,
-                                            keep_rnn_state=False, train=True)
+            outs, new_state, omasks = self._forward(
+                params, self.state, mds.features, keep_rnn_state=False,
+                train=True, fmasks=_as_mask_list(mds.features_masks),
+                key=self._next_rng())
             loss = self._loss_from_outputs(
                 self.params_tree, outs, self._device_arrays(mds.labels),
-                self._device_arrays(mds.labels_masks))
+                self._device_arrays(mds.labels_masks), omasks)
         return loss, new_state
 
     # ------------------------------------------------------------- params io
@@ -286,8 +353,8 @@ class ComputationGraph(NetworkEngine):
                                     for v in self.layer_vertices.values()))
         state = rnn_mod.merge_rnn_state(self.state, self._rnn_state)
         with torch.inference_mode():
-            outs, new_state = self._forward(self._compute_copy(), state,
-                                            arrs, keep_rnn_state=True)
+            outs, new_state, _ = self._forward(self._compute_copy(), state,
+                                               arrs, keep_rnn_state=True)
             self._rnn_state = rnn_mod.split_rnn_state(new_state,
                                                       self._declared_state())
             result = [to_numpy(o) for o in self._finish(outs)]

@@ -1,8 +1,14 @@
 """Layer implementation registry (counterpart of
 `deeplearning4j_tpu/nn/layers/__init__.py`): layer-conf class name ->
-`apply(conf, params, state, x, train=False, mask=None) -> (out,
-new_state)`, `mask` a [B, T] step mask that only the recurrent layers
-read.
+`apply(conf, params, state, x, train=False, mask=None, rng=None) -> (out,
+new_state)`. `mask` is a [B, T] features mask, read by the recurrent
+layers, attention and global pooling; `rng` the layer's `LayerKey`
+(`nn/prng.py`) in a train-mode forward, else None.
+
+The reference's layers return `(out, state, out_mask)`; here the rule for
+the mask a layer hands on is one function both engines call,
+`mask_after`: global pooling consumes it, every other layer passes it
+through.
 
 `check_supported` is what an engine asks of each layer when it is
 constructed: a layer the port holds as a conf only, or a LoRA adapter,
@@ -25,6 +31,7 @@ LAYER_IMPLS = {
     "OutputLayer": feedforward.preoutput,
     "RnnOutputLayer": feedforward.preoutput,
     "ActivationLayer": feedforward.activation_apply,
+    "DropoutLayer": feedforward.dropout_apply,
     "EmbeddingLayer": feedforward.embedding_apply,
     "PositionalEmbeddingLayer": feedforward.positional_embedding_apply,
     "LayerNormalization": normalization.layernorm_apply,
@@ -32,6 +39,7 @@ LAYER_IMPLS = {
     "SelfAttentionLayer": attention.self_attention_apply,
     "ConvolutionLayer": convolution.conv2d_apply,
     "SubsamplingLayer": convolution.subsampling_apply,
+    "LocalResponseNormalization": convolution.lrn_apply,
     "GlobalPoolingLayer": pooling.global_pooling_apply,
     "BottleneckBlock": bottleneck.bottleneck_apply,
     "GravesLSTM": recurrent.graves_lstm_apply,
@@ -45,9 +53,11 @@ LAYER_IMPLS = {
 OUTPUT_LAYER_TYPES = {"OutputLayer", "RnnOutputLayer"}
 
 
+# Layers that consume the features mask (`mask_after`).
+MASK_CONSUMERS = {"GlobalPoolingLayer"}
+
 # Layer confs whose forward pass is still to port, by ROADMAP item.
 CONF_ONLY = {
-    "DropoutLayer": "A.4", "LocalResponseNormalization": "A.4",
     "MoELayer": "A.9", "VariationalAutoencoder": "A.9", "RBM": "A.9",
     "AutoEncoder": "A.9", "CenterLossOutputLayer": "A.9", "LossLayer": "A.9",
 }
@@ -74,3 +84,8 @@ def check_supported(key: str, conf) -> None:
 
 def get_impl(conf):
     return LAYER_IMPLS[type(conf).__name__]
+
+
+def mask_after(conf, mask):
+    """The features mask a layer hands to the next one."""
+    return None if type(conf).__name__ in MASK_CONSUMERS else mask

@@ -12,7 +12,8 @@ import torch
 from deeplearning4j_tpu_torch.kernels import bottleneck_block as _kernel
 
 
-def bottleneck_apply(conf, params, state, x, train=False, mask=None):
+def bottleneck_apply(conf, params, state, x, train=False, mask=None,
+                     rng=None):
     out, stats = _kernel.bottleneck_forward(
         x, params, state, stride=conf.stride, project=conf.project,
         eps=conf.eps, activation=conf.activation,

@@ -1,6 +1,7 @@
 """Convolution and pooling (counterpart of
-`deeplearning4j_tpu/nn/layers/convolution.py`): `conv2d_apply` and
-`subsampling_apply` on NHWC activations with HWIO kernels.
+`deeplearning4j_tpu/nn/layers/convolution.py`): `conv2d_apply` (input
+dropout or DropConnect on the kernel at train time, `common.py`),
+`subsampling_apply` and `lrn_apply` on NHWC activations with HWIO kernels.
 
 The reference's single `lax.conv_general_dilated` becomes `F.conv2d` (a
 library convolution outside any TPU kernel, as the JAX package leaves it to
@@ -25,6 +26,10 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn.conf.enums import ConvolutionMode, PoolingType
+from deeplearning4j_tpu_torch.nn.layers.common import (
+    layer_input_dropout,
+    maybe_drop_connect,
+)
 
 
 def same_pads(size: int, k: int, s: int, d: int = 1):
@@ -74,8 +79,11 @@ def conv2d_nhwc(x, w, stride, pads, dilation=(1, 1)):
     return _nhwc(y)
 
 
-def conv2d_apply(conf, params, state, x, train=False, mask=None):
-    w = params["W"]
+def conv2d_apply(conf, params, state, x, train=False, mask=None, rng=None):
+    x = layer_input_dropout(conf, x, rng, train)
+    # DropConnect on the compute-dtype kernel, then the cast to x's dtype,
+    # in the reference's order (convolution.py:37).
+    w = maybe_drop_connect(conf, params["W"], rng, train)
     pads = _pads(conf.convolution_mode, conf.padding, x.shape[1], x.shape[2],
                  w.shape[:2], conf.stride, conf.dilation)
     out = conv2d_nhwc(x, w.to(x.dtype), conf.stride, pads, conf.dilation)
@@ -84,7 +92,8 @@ def conv2d_apply(conf, params, state, x, train=False, mask=None):
     return activations.resolve(conf.activation)(out), state
 
 
-def subsampling_apply(conf, params, state, x, train=False, mask=None):
+def subsampling_apply(conf, params, state, x, train=False, mask=None,
+                      rng=None):
     ptype = PoolingType.of(conf.pooling_type) or PoolingType.MAX
     kernel, stride = tuple(conf.kernel_size), tuple(conf.stride)
     pads = _pads(conf.convolution_mode, conf.padding, x.shape[1], x.shape[2],
@@ -104,3 +113,19 @@ def subsampling_apply(conf, params, state, x, train=False, mask=None):
     else:
         raise ValueError(f"Unsupported pooling type: {conf.pooling_type}")
     return _nhwc(y), state
+
+
+def lrn_apply(conf, params, state, x, train=False, mask=None, rng=None):
+    """Cross-channel local response normalization (reference `lrn_apply`,
+    convolution.py:83-95): x / (k + alpha * S)^beta, S the sum of x^2 over
+    a window of n channels (the last axis), zero-padded (n // 2, (n - 1) //
+    2). Alpha is NOT divided by n, and the window pads as the reference's
+    reduce_window does, so this is not `F.local_response_norm`. Plain
+    PyTorch in x's dtype: the JAX package has no kernel for it either."""
+    n = int(conf.n)
+    sq = F.pad(x * x, ((n // 2), (n - 1) // 2))
+    c = x.shape[-1]
+    window = sq[..., 0:c]
+    for j in range(1, n):
+        window = window + sq[..., j:j + c]
+    return x / (conf.k + conf.alpha * window) ** conf.beta, state

@@ -1,35 +1,49 @@
 """Feed-forward layers (counterpart of
 `deeplearning4j_tpu/nn/layers/feedforward.py`): dense, the output
 pre-activation (OutputLayer, RnnOutputLayer), the activation-only layer,
-ids embedding, positional embedding. Dense ops act on the last axis, so
-[B, F] and [B, T, F] share the code.
+`DropoutLayer`, ids embedding, positional embedding. Dense ops act on the
+last axis, so [B, F] and [B, T, F] share the code. Dense and the output
+layers take input dropout or DropConnect on W at train time
+(`common.py`); the embeddings draw nothing, as in the reference.
 
-Layer signature: `apply(conf, params, state, x, train=False, mask=None)
--> (out, new_state)`; `mask` is a [B, T] step mask, which only the
-recurrent layers read."""
+Layer signature: see `nn/layers/__init__.py`."""
 
 from __future__ import annotations
 
 import torch
 
 from deeplearning4j_tpu_torch.nn import activations
+from deeplearning4j_tpu_torch.nn.layers.common import (
+    inverted_dropout,
+    layer_input_dropout,
+    maybe_drop_connect,
+)
 
 
-def dense_apply(conf, params, state, x, train=False, mask=None):
-    out, state = preoutput(conf, params, state, x)
+def dense_apply(conf, params, state, x, train=False, mask=None, rng=None):
+    out, state = preoutput(conf, params, state, x, train, mask, rng)
     return activations.resolve(conf.activation)(out), state
 
 
-def activation_apply(conf, params, state, x, train=False, mask=None):
+def activation_apply(conf, params, state, x, train=False, mask=None,
+                     rng=None):
     return activations.resolve(conf.activation)(x), state
 
 
-def preoutput(conf, params, state, x, train=False, mask=None):
+def dropout_apply(conf, params, state, x, train=False, mask=None, rng=None):
+    """`DropoutLayer`: inverted dropout at its retain rate, at train
+    time."""
+    return inverted_dropout(x, conf.dropout, rng, train), state
+
+
+def preoutput(conf, params, state, x, train=False, mask=None, rng=None):
     """Linear pre-activation of an output layer (the engine applies its
-    activation after the cast to the output dtype). Mixed dtypes promote
-    as JAX's matmul does (a bf16-policy ResNet reaches its output layer in
-    f32 on the plain path: BatchNorm with f32 running statistics)."""
-    w = params["W"]
+    activation after the cast to the output dtype), after input dropout
+    or with DropConnect on W. Mixed dtypes promote as JAX's matmul does (a
+    bf16-policy ResNet reaches its output layer in f32 on the plain path:
+    BatchNorm with f32 running statistics)."""
+    x = layer_input_dropout(conf, x, rng, train)
+    w = maybe_drop_connect(conf, params["W"], rng, train)
     if w.dtype != x.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
@@ -39,7 +53,8 @@ def preoutput(conf, params, state, x, train=False, mask=None):
     return out, state
 
 
-def embedding_apply(conf, params, state, x, train=False, mask=None):
+def embedding_apply(conf, params, state, x, train=False, mask=None,
+                    rng=None):
     """Embedding gather (reference `embedding_apply`, feedforward.py:42-63).
     Integer ids [B], [B, 1] or [B, T, 1]; float ids truncate toward zero,
     as the reference's int32 cast does. One-hot rows [..., n_in] are taken
@@ -60,7 +75,8 @@ def embedding_apply(conf, params, state, x, train=False, mask=None):
     return activations.resolve(conf.activation)(out), state
 
 
-def positional_embedding_apply(conf, params, state, x, train=False, mask=None):
+def positional_embedding_apply(conf, params, state, x, train=False,
+                               mask=None, rng=None):
     """x: [B, T, F] -> x + P[pos:pos+T].
 
     Stateless: always P[:T]. With `conf.stateful` the cursor rides

@@ -1,11 +1,10 @@
 """Normalization layers (counterpart of
 `deeplearning4j_tpu/nn/layers/normalization.py`): layer norm, per-row
 statistics through the norm+act kernel; batch norm, the given or batch
-statistics through the BatchNorm apply kernel.
+statistics through the BatchNorm apply kernel. Layer norm takes input
+dropout at train time (`common.py`), as the reference's does.
 
-Layer signature: `apply(conf, params, state, x, train=False, mask=None)
--> (out, new_state)`; `mask` is a [B, T] step mask, which only the
-recurrent layers read."""
+Layer signature: see `nn/layers/__init__.py`."""
 
 from __future__ import annotations
 
@@ -15,15 +14,19 @@ from deeplearning4j_tpu_torch.kernels.norm_act import (
     batchnorm_norm_act,
     layernorm_norm_act,
 )
+from deeplearning4j_tpu_torch.nn.layers.common import layer_input_dropout
 
 
-def layernorm_apply(conf, params, state, x, train=False, mask=None):
+def layernorm_apply(conf, params, state, x, train=False, mask=None,
+                    rng=None):
+    x = layer_input_dropout(conf, x, rng, train)
     out = layernorm_norm_act(x, params["gamma"], params["beta"], conf.eps,
                              conf.activation)
     return out, state
 
 
-def batchnorm_apply(conf, params, state, x, train=False, mask=None):
+def batchnorm_apply(conf, params, state, x, train=False, mask=None,
+                    rng=None):
     """Reference `batchnorm_apply` (normalization.py:19-45): in training
     (with `is_minibatch`) single-pass batch statistics over every axis but
     the last, mean(x) and mean(x*x) - mean^2, computed inside autograd so

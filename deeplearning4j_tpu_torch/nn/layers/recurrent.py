@@ -13,6 +13,12 @@ in the JAX package); then a Python loop over time calls the cell
 (`kernels/lstm_cell.py`: the CUDA kernel on the card, one launch per step)
 where the JAX package runs `lax.scan`. A step mask is cast to x's dtype,
 as the Pallas cell takes it, so the carry keeps x's dtype.
+
+At train time each layer takes input dropout, or DropConnect on its input
+weights W only, never on RW or pW (reference recurrent.py:82-89, 106-109;
+`common.py`); W enters only through `x @ W` before the loop, so the cell
+kernel's inputs do not change. The bidirectional layer splits its key
+between the two directions' W.
 """
 
 from __future__ import annotations
@@ -21,6 +27,10 @@ import torch
 
 from deeplearning4j_tpu_torch.kernels import lstm_cell as _cell
 from deeplearning4j_tpu_torch.nn import activations
+from deeplearning4j_tpu_torch.nn.layers.common import (
+    layer_input_dropout,
+    maybe_drop_connect,
+)
 
 
 def _lstm_scan(conf, params, x, mask, h0, c0, peephole: bool,
@@ -45,11 +55,14 @@ def _zeros_state(x, n_out):
             torch.zeros(x.shape[0], n_out, dtype=x.dtype, device=x.device))
 
 
-def lstm_apply(conf, params, state, x, train=False, mask=None,
+def lstm_apply(conf, params, state, x, train=False, mask=None, rng=None,
                peephole=True):
     """GravesLSTM / LSTM forward. `state` holding h and c seeds the scan
     (`rnn_time_step` and the chunks of truncated BPTT); the new h and c
     come back as the layer's undeclared state."""
+    x = layer_input_dropout(conf, x, rng, train)
+    params = {**params, "W": maybe_drop_connect(conf, params["W"], rng,
+                                                train)}
     if state and "h" in state:
         h0, c0 = state["h"], state["c"]
     else:
@@ -58,17 +71,28 @@ def lstm_apply(conf, params, state, x, train=False, mask=None,
     return outs, {"h": hT, "c": cT}
 
 
-def graves_lstm_apply(conf, params, state, x, train=False, mask=None):
-    return lstm_apply(conf, params, state, x, train, mask, peephole=True)
+def graves_lstm_apply(conf, params, state, x, train=False, mask=None,
+                      rng=None):
+    return lstm_apply(conf, params, state, x, train, mask, rng,
+                      peephole=True)
 
 
-def standard_lstm_apply(conf, params, state, x, train=False, mask=None):
-    return lstm_apply(conf, params, state, x, train, mask, peephole=False)
+def standard_lstm_apply(conf, params, state, x, train=False, mask=None,
+                        rng=None):
+    return lstm_apply(conf, params, state, x, train, mask, rng,
+                      peephole=False)
 
 
-def bidirectional_lstm_apply(conf, params, state, x, train=False, mask=None):
+def bidirectional_lstm_apply(conf, params, state, x, train=False, mask=None,
+                             rng=None):
     """Both directions from zero state (no carried state, as in the
     reference); the output is their sum."""
+    x = layer_input_dropout(conf, x, rng, train)
+    if rng is not None and conf.use_drop_connect:
+        r_f, r_b = rng.split()
+        params = {**params,
+                  "W_f": maybe_drop_connect(conf, params["W_f"], r_f, train),
+                  "W_b": maybe_drop_connect(conf, params["W_b"], r_b, train)}
     h0, c0 = _zeros_state(x, conf.n_out)
     fwd, _ = _lstm_scan(conf, params, x, mask, h0, c0, True, suffix="_f")
     bwd, _ = _lstm_scan(conf, params, x, mask, h0, c0, True, reverse=True,
@@ -76,16 +100,18 @@ def bidirectional_lstm_apply(conf, params, state, x, train=False, mask=None):
     return fwd + bwd, state
 
 
-def simple_rnn_apply(conf, params, state, x, train=False, mask=None):
+def simple_rnn_apply(conf, params, state, x, train=False, mask=None,
+                     rng=None):
     """h_t = act(x_t W + b + h_{t-1} RW), masked steps carrying h; plain
     PyTorch (the JAX package has no kernel for it)."""
+    x = layer_input_dropout(conf, x, rng, train)
     act = activations.resolve(conf.activation)
     if state and "h" in state:
         h = state["h"]
     else:
         h = torch.zeros(x.shape[0], conf.n_out, dtype=x.dtype,
                         device=x.device)
-    xw = x @ params["W"] + params["b"]
+    xw = x @ maybe_drop_connect(conf, params["W"], rng, train) + params["b"]
     ms = mask.to(x.dtype).unbind(1) if mask is not None else None
     outs = []
     for s, xw_t in enumerate(xw.unbind(1)):

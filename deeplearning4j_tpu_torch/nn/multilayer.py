@@ -26,12 +26,15 @@ engines' shared params, updaters and in-place update (`engine.py`).
   updater view in the reference's leaf order (its `tree_leaves`: every
   dict's keys sorted, at every level), which the model zip stores.
 
+- Dropout and DropConnect draw in `fit` (a new key per step, per tBPTT
+  chunk) and in `output` / `feed_forward` with `train=True` (a new key
+  per call), as the reference's do (`engine.py`, `nn/layers/common.py`);
+  inference draws nothing. A features mask reaches every layer, and global
+  pooling consumes it (`nn/layers/__init__.py` `mask_after`).
+
 What `fit` does not run yet raises NotImplementedError naming its ROADMAP
-item: solvers and superstep (A.10), dropout (A.4), frozen layers (A.12),
-layerwise pretraining (A.9) and f16 loss scaling (A.7). Inference ignores
-dropout, as the reference's does; `output` and `feed_forward` with
-`train=True`, where the reference draws dropout, refuse a net with a
-dropout or DropConnect rate in (0, 1) as `fit` does (A.4).
+item: solvers and superstep (A.10), frozen layers (A.12), layerwise
+pretraining (A.9) and f16 loss scaling (A.7).
 """
 
 from __future__ import annotations
@@ -51,7 +54,12 @@ from deeplearning4j_tpu_torch.nn import rnn_state as rnn_mod
 from deeplearning4j_tpu_torch.nn.conf import preprocessors as pre_mod
 from deeplearning4j_tpu_torch.nn.conf.neural_net import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.engine import NetworkEngine, to_numpy
-from deeplearning4j_tpu_torch.nn.layers import OUTPUT_LAYER_TYPES, get_impl
+from deeplearning4j_tpu_torch.nn.layers import (
+    OUTPUT_LAYER_TYPES,
+    get_impl,
+    mask_after,
+)
+from deeplearning4j_tpu_torch.nn.prng import LayerKey
 
 
 def _as_dataset(data, labels=None) -> DataSet:
@@ -83,11 +91,12 @@ class MultiLayerNetwork(NetworkEngine):
     # --------------------------------------------------------------- forward
 
     def _forward(self, params, state, x, fmask, keep_rnn_state: bool,
-                 train: bool = False, collect: bool = False):
+                 train: bool = False, collect: bool = False, key=None):
         """Run the layers; returns (the last layer's raw output at the
         compute dtype, new layer state, every layer's output when
         `collect`). Declared state comes back always, the recurrent
-        layers' h and c only with `keep_rnn_state`."""
+        layers' h and c only with `keep_rnn_state`. `key` (a train
+        forward's subkey) gives layer i its draws' `LayerKey(key, i)`."""
         x = pre_mod.apply_uint8_policy(
             torch.as_tensor(x, device=self.device), self._uint8_policy,
             self.dtype_policy.compute_dtype)
@@ -98,9 +107,10 @@ class MultiLayerNetwork(NetworkEngine):
         for i, (lk, layer) in enumerate(zip(self.layer_keys, self.layers)):
             if i in pre:
                 x, mask = pre[i](x, mask)
-            x, lstate = get_impl(layer)(layer, params.get(lk, {}),
-                                        state.get(lk, {}), x, train=train,
-                                        mask=mask)
+            x, lstate = get_impl(layer)(
+                layer, params.get(lk, {}), state.get(lk, {}), x, train=train,
+                mask=mask, rng=None if key is None else LayerKey(key, i))
+            mask = mask_after(layer, mask)
             if lstate:
                 declared = set(layer.state_shapes())
                 keep = {k: v for k, v in lstate.items()
@@ -120,38 +130,26 @@ class MultiLayerNetwork(NetworkEngine):
             out = activations.resolve(last.activation)(out)
         return out
 
-    def _check_train_forward(self, train: bool) -> None:
-        """A train-mode forward draws dropout (and DropConnect) in the
-        reference (`nn/layers/common.py:10-44`); the port has no dropout
-        yet, so it refuses such a net rather than run it without."""
-        if not train:
-            return
-        for name, layer in zip(self.layer_keys, self.layers):
-            rate = layer.dropout
-            if rate is not None and 0.0 < float(rate) < 1.0:
-                raise NotImplementedError(
-                    f"train=True: dropout={rate} on {name!r} is not in the "
-                    "port yet (ROADMAP A.4)")
-
     def output(self, x, train: bool = False,
                features_mask=None) -> np.ndarray:
-        """Inference forward (reference `output`, :1193)."""
-        self._check_train_forward(train)
+        """Forward (reference `output`, :1193); `train=True` runs the
+        layers in training mode, dropout drawn from a new key."""
+        key = self._next_rng() if train else None
         with torch.inference_mode():
             out, _, _ = self._forward(self._compute_copy(), self.state, x,
                                       features_mask, keep_rnn_state=False,
-                                      train=train)
+                                      train=train, key=key)
             return to_numpy(self._finish(out))
 
     def feed_forward(self, x, train: bool = False,
                      features_mask=None) -> List[np.ndarray]:
         """Every layer's output (reference `feedForward`); an output
         layer's entry is its pre-activation."""
-        self._check_train_forward(train)
+        key = self._next_rng() if train else None
         with torch.inference_mode():
             _, _, acts = self._forward(self._compute_copy(), self.state, x,
                                        features_mask, keep_rnn_state=False,
-                                       train=train, collect=True)
+                                       train=train, collect=True, key=key)
             return [to_numpy(a) for a in acts]
 
     def predict(self, x) -> np.ndarray:
@@ -251,7 +249,7 @@ class MultiLayerNetwork(NetworkEngine):
                                               self.dtype_policy.compute_dtype)
             preout, new_state, _ = self._forward(
                 params, self.state, x, fmask, keep_rnn_state=carry_rnn,
-                train=True)
+                train=True, key=self._next_rng())
             loss = self._loss(self.params_tree, preout, y, lmask, eb)
         return loss, new_state
 

@@ -795,10 +795,16 @@ def test_golden_fixtures_load(name):
     np.testing.assert_allclose(net.output(x), np.asarray(exp["output"]),
                                rtol=1e-5, atol=1e-6)
     if name == "golden_checkpoint_v1.zip":
-        # The checkpoint trains with dropout: the port loads it, and its
-        # fit refuses (no RNG-stream parity is sought).
-        with pytest.raises(NotImplementedError, match=r"A\.4"):
-            net.fit(x, np.eye(3, dtype=np.float32)[r.randint(0, 3, 12)])
+        # The checkpoint trains with dropout 0.8: the port's fit draws from
+        # the checkpoint's key, advanced as jax.random.split advances it
+        # (the masks themselves are not JAX's: no RNG-stream parity).
+        key = net._train_rng.copy()
+        before = net.params()
+        net.fit(x, np.eye(3, dtype=np.float32)[r.randint(0, 3, 12)])
+        assert net.iteration == 6 and np.isfinite(net.score_value)
+        assert not np.array_equal(net.params(), before)
+        np.testing.assert_array_equal(
+            net._train_rng, np.asarray(jax.random.split(key)[0]))
 
 
 # ----------------------------------------------- listeners and the RNG key
@@ -877,10 +883,18 @@ def test_prng_key_is_the_references(seed):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_init_sets_the_references_train_rng(kind):
+    # `init` sets the reference's key, and each fit step advances it as the
+    # reference's does (`key, sub = split(key)`), so the two chains agree
+    # after the same fits.
     jnet, pnet = _ref_net(kind), _port_net(kind)
     np.testing.assert_array_equal(pnet._train_rng,
                                   np.asarray(jnet._train_rng))
-    _fit(pnet, kind, 0)
-    np.testing.assert_array_equal(pnet._train_rng,
-                                  np.asarray(jnet._train_rng))
+    for step in range(2):
+        _fit(pnet, kind, step)
+        _fit(jnet, kind, step)
+        np.testing.assert_array_equal(pnet._train_rng, np.asarray(
+            jnet._clock[1] if jnet._clock is not None
+            else jnet._train_rng))
+    assert not np.array_equal(pnet._train_rng, engine.prng_key(
+        int(pnet.conf.global_conf.seed) ^ 0x5EED))
     np.testing.assert_array_equal(pnet.clone()._train_rng, pnet._train_rng)

@@ -1791,3 +1791,103 @@ def test_resnet50_predict_of_three_rows_equals_output(cuda):
     assert not any(counts["plain_calls"].values())
     _close(torch.as_tensor(got), torch.as_tensor(want), torch.bfloat16,
            RESNET_TOL)
+
+
+# ------------------------------- the rest of the layers and the masks
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_training_rows_non_causal_at_the_classifier_shape(cuda, dtype):
+    # Rows 5 and 6 at the transformer classifier's unmasked step, [16,
+    # 1024, 8, 64] non-causal: bf16 on the tensor cores, f32 on the CUDA
+    # cores, held elementwise and row by row as the causal rows are.
+    q, k, v, do = _stream_case(np.random.RandomState(40), (16, 1024, 8, 64),
+                               dtype, cuda)
+    scale = 64 ** -0.5
+    want_o, want_lse = fa.dense_attention_lse(q, k, v, False)
+    drow = fa._drow(want_o, do)
+    kernels.reset_counts()
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, False)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, drow, False, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, drow, False, scale)
+    c = kernels.counts()
+    form = "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
+    for name in RESIDENT_NAMES[1:]:
+        assert c["launches"][name] == 1
+        assert c["variants"][name][form] == 1
+    _close(o, want_o, dtype)
+    _close_rows(o, want_o, dtype)
+    _close(lse, want_lse, torch.float32)
+    want_dq = fa.flash_bwd_dq_plain(q, k, v, do, want_lse, drow, False,
+                                    scale)
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, do, want_lse, drow,
+                                              False, scale)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        _close(got, want, dtype)
+        _close_rows(got, want, dtype, BWD_ROW_TOL, ROW_FLOOR)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((8, 54, 54, 96), {}),                       # AlexNet's first LRN
+    ((8, 26, 26, 256), {}),                      # and its second
+    ((3, 5, 7, 11), dict(n=4.0, alpha=1e-2, beta=0.5, k=1.0)),
+])
+def test_lrn_on_the_card_matches_the_cpu(cuda, shape, kw):
+    # LRN is plain PyTorch (the JAX package has no kernel for it): the
+    # card's result holds to the CPU's in f32.
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        LocalResponseNormalization)
+    from deeplearning4j_tpu_torch.nn.layers.convolution import lrn_apply
+
+    conf = LocalResponseNormalization(**kw)
+    x = torch.tensor(np.random.RandomState(41).randn(*shape) * 3,
+                     dtype=torch.float32)
+    want, _ = lrn_apply(conf, {}, {}, x)
+    got, _ = lrn_apply(conf, {}, {}, x.to(cuda))
+    assert got.is_cuda
+    _close(got.cpu(), want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_masked_attention_on_the_card_matches_the_cpu(cuda, dtype, causal):
+    # The masked dense attention (plain PyTorch, f32 at least, as the
+    # reference's XLA path) on the card against the CPU, a fully masked
+    # row included (zeros).
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        _masked_dense_attention)
+
+    rng = np.random.RandomState(42)
+    q, k, v = (torch.tensor(rng.randn(4, 256, 8, 64), dtype=dtype)
+               for _ in range(3))
+    mask = torch.tensor(rng.rand(4, 256) < 0.7, dtype=torch.float32)
+    mask[2] = 0.0
+    want = _masked_dense_attention(q, k, v, mask, causal, 0.125)
+    got = _masked_dense_attention(*(a.to(cuda) for a in (q, k, v)),
+                                  mask.to(cuda), causal, 0.125)
+    assert got.is_cuda and got.dtype == dtype
+    assert not got[2].any()
+    _close(got.cpu(), want, dtype)
+
+
+def test_dropout_draws_on_a_cuda_generator(cuda):
+    # The draw function on a card tensor draws on the card (a CUDA
+    # generator seeded from the layer's key): keep share, scaling, the same
+    # key the same mask, another key another, uncorrelated.
+    from deeplearning4j_tpu_torch.nn import prng
+    from deeplearning4j_tpu_torch.nn.layers import common
+
+    x = torch.ones(128, 6400, device=cuda)
+    key = prng.LayerKey(prng.prng_key(7), 0)
+    out = common.inverted_dropout(x, 0.5, key, True)
+    assert out.is_cuda
+    kept = out != 0
+    assert abs(float(kept.float().mean()) - 0.5) < 0.005
+    assert bool((out[kept] == 2.0).all())
+    assert torch.equal(common.inverted_dropout(x, 0.5, key, True), out)
+    other = common.draw_keep(prng.LayerKey(prng.prng_key(7), 1), 0.5,
+                             x.shape, x.device)
+    assert other.is_cuda and not torch.equal(other, kept)
+    a, b = kept.float().flatten(), other.float().flatten()
+    corr = float(((a - a.mean()) * (b - b.mean())).mean()
+                 / (a.std() * b.std()))
+    assert abs(corr) < 0.01

@@ -14,9 +14,11 @@ construction.
 - Train parity: each fuzz stack the port runs is built through the port's
   builder, given the reference's params, and takes one `fit` step on one
   seeded batch; score, params and updater state within rtol 2e-4, atol
-  1e-6 (f32: sums in another order). The stacks holding a `DropoutLayer`
-  or `MoELayer` raise NotImplementedError at construction, naming A.4 or
-  A.9.
+  1e-6 (f32: sums in another order). A stack holding a `DropoutLayer`
+  trains under the reference's own dropout masks (the port's draw
+  function swapped for `jax.random.bernoulli` at the reference's keys);
+  one holding a `MoELayer` raises NotImplementedError at construction,
+  naming A.9.
 - Vertices: each vertex's `apply` against the reference's, output and
   gradient (one seeded cotangent) within 1e-6 in f32; `MergeVertex` on an
   NHWC input, `ElementWiseVertex` in all five ops, `L2Vertex` at equal
@@ -68,6 +70,7 @@ from deeplearning4j_tpu_torch.nn.conf import layers
 from deeplearning4j_tpu_torch.nn.conf import neural_net
 from deeplearning4j_tpu_torch.nn.conf import preprocessors
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.layers import common
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
 import test_config_fuzz as fuzz
@@ -102,6 +105,13 @@ def _np_tree(tree):
     # np.array copies: the JAX step donates its buffers.
     return {k: {n: np.array(a) for n, a in p.items()}
             for k, p in tree.items() if isinstance(p, dict)}
+
+
+def jax_draw(key, retain, shape, device):
+    """The reference's dropout mask for the layer `key` names (swapped in
+    for the port's `common.draw_keep`)."""
+    keep = jax.random.bernoulli(jnp.asarray(key.words), retain, tuple(shape))
+    return torch.from_numpy(np.array(keep)).to(device)
 
 
 def _assert_json_parity(port_conf, jax_conf, port_cls, jax_cls):
@@ -312,14 +322,13 @@ def _assert_step(pnet, jnet):
 
 
 @pytest.mark.parametrize("i", range(12))
-def test_fuzz_stack_trains_as_the_reference(i):
+def test_fuzz_stack_trains_as_the_reference(i, monkeypatch):
     pconf, rnn, kind = _fuzz_stack_conf(i, PORT)
-    kinds = {type(x).__name__ for x in pconf.layers}
-    if kinds & {"DropoutLayer", "MoELayer"}:
-        item = "A.4" if "DropoutLayer" in kinds else "A.9"
-        with pytest.raises(NotImplementedError, match=item):
+    if "MoELayer" in {type(x).__name__ for x in pconf.layers}:
+        with pytest.raises(NotImplementedError, match="A.9"):
             MultiLayerNetwork(pconf, device="cpu")
         return
+    monkeypatch.setattr(common, "draw_keep", jax_draw)
     jnet = JaxMLN(_fuzz_stack_conf(i, JAX)[0]).init()
     pnet = MultiLayerNetwork(pconf, device="cpu").init(
         params=interop.params_from_numpy(_np_tree(jnet.params_tree)),
@@ -681,26 +690,58 @@ def test_unknown_keys_raise_and_none_is_dropped():
 
 
 @pytest.mark.parametrize("layer,item", [
-    (lambda: layers.DropoutLayer(dropout=0.5), "A.4"),
-    (lambda: layers.LocalResponseNormalization(), "A.4"),
-    (lambda: layers.MoELayer(n_out=8, n_experts=2), "A.9"),
-    (lambda: layers.VariationalAutoencoder(n_out=4), "A.9"),
-    (lambda: layers.RBM(n_out=4), "A.9"),
-    (lambda: layers.AutoEncoder(n_out=4), "A.9"),
-    (lambda: layers.CenterLossOutputLayer(n_out=3), "A.9"),
-    (lambda: layers.LossLayer(), "A.9"),
-    (lambda: layers.DenseLayer(n_out=8, lora_rank=2), "A.12"),
+    (lambda m: m.DropoutLayer(dropout=0.5), None),
+    (lambda m: m.LocalResponseNormalization(), None),
+    (lambda m: m.MoELayer(n_out=8, n_experts=2), "A.9"),
+    (lambda m: m.VariationalAutoencoder(n_out=4), "A.9"),
+    (lambda m: m.RBM(n_out=4), "A.9"),
+    (lambda m: m.AutoEncoder(n_out=4), "A.9"),
+    (lambda m: m.CenterLossOutputLayer(n_out=3), "A.9"),
+    (lambda m: m.LossLayer(), "A.9"),
+    (lambda m: m.DenseLayer(n_out=8, lora_rank=2), "A.12"),
 ], ids=["dropout", "lrn", "moe", "vae", "rbm", "ae", "center_loss",
         "loss_layer", "lora"])
-def test_construction_refuses_a_conf_only_layer(layer, item):
+def test_construction_refuses_a_conf_only_layer(layer, item, monkeypatch):
+    # A layer still held as a conf only raises, naming its ROADMAP item; a
+    # layer this port runs (item None: DropoutLayer and LRN, A.4's) builds
+    # in both engines and runs as the reference's, the dropout under the
+    # reference's own masks.
+    if item is None:
+        monkeypatch.setattr(common, "draw_keep", jax_draw)
+
+        def conf(ns):
+            return (ns.NN.NeuralNetConfiguration.builder().seed(2).list()
+                    .layer(ns.L.ConvolutionLayer(n_out=6, kernel_size=(3, 3),
+                                                 activation="relu"))
+                    .layer(layer(ns.L))
+                    .layer(ns.L.OutputLayer(n_out=3))
+                    .set_input_type(ns.I.convolutional(6, 6, 2)).build())
+
+        jnet = JaxMLN(conf(JAX)).init()
+        pnet = MultiLayerNetwork(conf(PORT), device="cpu").init(
+            params=interop.params_from_numpy(_np_tree(jnet.params_tree)))
+        x = np.random.RandomState(1).randn(3, 6, 6, 2).astype(np.float32)
+        for train in (False, True):
+            np.testing.assert_allclose(
+                pnet.output(x, train=train),
+                np.asarray(jnet.output(x, train=train)), **F32)
+        g = (PORT.NN.NeuralNetConfiguration.builder().graph_builder()
+             .add_inputs("in").add_layer("x", layer(layers), "in")
+             .add_layer("out", layers.OutputLayer(n_out=3), "x")
+             .set_outputs("out")
+             .set_input_types(inputs.InputType.convolutional(4, 4, 8))
+             .build())
+        assert ComputationGraph(g, device="cpu").init().output(
+            np.ones((2, 4, 4, 8), np.float32))[0].shape == (2, 3)
+        return
     conf = (neural_net.NeuralNetConfiguration.builder().list()
-            .layer(layers.DenseLayer(n_out=8)).layer(layer())
+            .layer(layers.DenseLayer(n_out=8)).layer(layer(layers))
             .layer(layers.OutputLayer(n_out=3))
             .set_input_type(inputs.InputType.feed_forward(8)).build())
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         MultiLayerNetwork(conf, device="cpu")
     g = (neural_net.NeuralNetConfiguration.builder().graph_builder()
-         .add_inputs("in").add_layer("x", layer(), "in")
+         .add_inputs("in").add_layer("x", layer(layers), "in")
          .add_layer("out", layers.OutputLayer(n_out=3), "x")
          .set_outputs("out")
          .set_input_types(inputs.InputType.feed_forward(8)).build())
@@ -711,24 +752,36 @@ def test_construction_refuses_a_conf_only_layer(layer, item):
 @pytest.mark.parametrize("drop", [dict(dropout=0.5),
                                   dict(dropout=0.8, use_drop_connect=True)],
                          ids=["dropout", "drop_connect"])
-def test_train_mode_forward_refuses_dropout(drop):
-    # The reference draws inverted dropout (or DropConnect) in a train-mode
-    # forward; the port has no dropout yet (A.4), so it refuses such a net
-    # rather than run it without, and a dropout-free net runs as before.
-    def conf(**kw):
-        return (neural_net.NeuralNetConfiguration.builder().seed(3).list()
-                .layer(layers.DenseLayer(n_out=8, activation="tanh", **kw))
-                .layer(layers.OutputLayer(n_out=3, activation="softmax"))
-                .set_input_type(inputs.InputType.feed_forward(5)).build())
+def test_train_mode_forward_refuses_dropout(drop, monkeypatch):
+    # A train-mode forward draws inverted dropout (or DropConnect), as the
+    # reference's does: under the reference's own masks `output` and
+    # `feed_forward` with `train=True` equal its, each from a new key; the
+    # inference forward draws nothing, and a dropout-free net's train-mode
+    # forward is its inference forward.
+    monkeypatch.setattr(common, "draw_keep", jax_draw)
+
+    def conf(ns, **kw):
+        return (ns.NN.NeuralNetConfiguration.builder().seed(3).list()
+                .layer(ns.L.DenseLayer(n_out=8, activation="tanh", **kw))
+                .layer(ns.L.OutputLayer(n_out=3, activation="softmax"))
+                .set_input_type(ns.I.feed_forward(5)).build())
 
     x = np.random.RandomState(0).randn(4, 5).astype(np.float32)
-    net = MultiLayerNetwork(conf(**drop), device="cpu").init()
-    assert net.output(x).shape == (4, 3)
-    for call in (lambda: net.output(x, train=True),
-                 lambda: net.feed_forward(x, train=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            call()
-    plain = MultiLayerNetwork(conf(), device="cpu").init()
+    jnet = JaxMLN(conf(JAX, **drop)).init()
+    net = MultiLayerNetwork(conf(PORT, **drop), device="cpu").init(
+        params=interop.params_from_numpy(_np_tree(jnet.params_tree)))
+    infer = net.output(x)
+    np.testing.assert_allclose(infer, np.asarray(jnet.output(x)), **F32)
+    got = net.output(x, train=True)
+    np.testing.assert_allclose(got, np.asarray(jnet.output(x, train=True)),
+                               **F32)
+    assert not np.allclose(got, infer)
+    acts = net.feed_forward(x, train=True)
+    for a, w in zip(acts, jnet.feed_forward(x, train=True)):
+        np.testing.assert_allclose(a, np.asarray(w), **F32)
+    np.testing.assert_array_equal(net._train_rng,
+                                  np.asarray(jnet._train_rng))
+    plain = MultiLayerNetwork(conf(PORT), device="cpu").init()
     np.testing.assert_array_equal(plain.output(x, train=True),
                                   plain.output(x))
     assert len(plain.feed_forward(x, train=True)) == 2
@@ -771,24 +824,41 @@ def test_embedding_reads_the_reference_input_formats(form):
                                   "transformer_classifier",
                                   "transformer_lm_moe"])
 def test_conf_only_zoo_models(name):
+    # VGG-16 (at its fixed 224, B=1) and AlexNet (at 67, B=2) run `output`
+    # from the reference's params and match it, f32 (ROADMAP A.4's "done
+    # when"); the classifier runs under a features mask; the MoE LM is
+    # still a conf only (A.9).
+    if name in ("vgg16", "alexnet"):
+        def conf(m):
+            if name == "vgg16":
+                return m.vgg16(n_classes=10, dtype="float32")
+            return m.alexnet(n_classes=10, image=67, dtype="float32")
+
+        jnet = JaxMLN(conf(jax_zoo)).init()
+        pnet = MultiLayerNetwork(conf(zoo), device="cpu").init(
+            params=interop.params_from_numpy(_np_tree(jnet.params_tree)))
+        assert pnet.num_params() == sum(
+            int(np.prod(s)) for layer in conf(jax_zoo).layers
+            for s in layer.param_shapes().values())
+        b, size = (1, 224) if name == "vgg16" else (2, 67)
+        x = np.random.RandomState(5).rand(b, size, size, 3).astype(
+            np.float32)
+        np.testing.assert_allclose(pnet.output(x), np.asarray(
+            jnet.output(x)), rtol=1e-4, atol=1e-6)
+        return
     conf = ZOO[name](zoo)
     engine = (ComputationGraph if isinstance(
         conf, neural_net.ComputationGraphConfiguration)
         else MultiLayerNetwork)
-    if name == "vgg16":
-        # No conf-only layer: it constructs (its forward is ROADMAP A.4's).
-        want = sum(int(np.prod(s)) for layer in ZOO[name](jax_zoo).layers
-                   for s in layer.param_shapes().values())
-        assert engine(conf, device="cpu").num_params() == want
-        return
     if name == "transformer_classifier":
         net = engine(conf, device="cpu").init()
         x = np.zeros((2, 32, 1), np.int64)
-        out = net.output(x)[0]
+        mask = np.ones((2, 32), np.float32)
+        mask[1, 5:] = 0.0
+        out = net.output(x, features_masks=[mask])[0]
         assert out.shape == (2, 3)
         return
-    with pytest.raises(NotImplementedError,
-                       match="A.4" if name == "alexnet" else "A.9"):
+    with pytest.raises(NotImplementedError, match="A.9"):
         engine(conf, device="cpu")
 
 

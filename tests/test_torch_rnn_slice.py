@@ -22,6 +22,7 @@ hold the gradients themselves to the tighter tolerance.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,13 +38,14 @@ from deeplearning4j_tpu_torch import interop, kernels
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.models import zoo
 from deeplearning4j_tpu_torch.nn import params as params_mod
+from deeplearning4j_tpu_torch.nn import prng
 from deeplearning4j_tpu_torch.nn.conf import layers
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     GlobalConf,
     MultiLayerConfiguration,
 )
-from deeplearning4j_tpu_torch.nn.layers import recurrent
+from deeplearning4j_tpu_torch.nn.layers import common, recurrent
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
 FWD = dict(rtol=1e-5, atol=1e-5)
@@ -393,12 +395,30 @@ def test_lstm_init_statistics():
         assert not bi["pW" + s].any()
 
 
-def test_fit_refuses_what_the_port_lacks():
-    conf = zoo.char_rnn(vocab_size=V, hidden=8)
-    conf.layers[0].dropout = 0.5
+def test_fit_refuses_what_the_port_lacks(monkeypatch):
+    # Dropout now trains: under truncated BPTT each chunk draws from a new
+    # key, as the reference's scan does; under the reference's own masks
+    # (the port's draw function swapped) the chunks equal its.
+    monkeypatch.setattr(common, "draw_keep", lambda key, retain, shape,
+                        device: torch.from_numpy(np.array(
+                            jax.random.bernoulli(jnp.asarray(key.words),
+                                                 retain, tuple(shape)))))
+    jnet, pnet = _nets()
+    for net in (jnet, pnet):
+        net.conf.layers[0].dropout = 0.5
+        net.conf.layers[1].dropout = 0.7
+        net.conf.layers[1].use_drop_connect = True
+    key0 = pnet._train_rng.copy()
     x, y = _batch(8)
-    with pytest.raises(NotImplementedError, match="dropout.*ROADMAP A.4"):
-        MultiLayerNetwork(conf, device="cpu").fit(DataSet(x, y))
+    jnet.fit(JaxDataSet(x, y))
+    pnet.fit(DataSet(x, y))
+    np.testing.assert_allclose(pnet.score_value, jnet.score_value, **F32)
+    _assert_trees(pnet.params_tree, _np_tree(jnet.params_tree), "params")
+    key = key0
+    for _ in range(-(-T // CHUNK)):
+        key = prng.split(key)[0]
+    np.testing.assert_array_equal(pnet._train_rng, key)
+    x, y = _batch(8)
     conf = zoo.char_rnn(vocab_size=V, hidden=8)
     conf.global_conf.optimization_algo = "lbfgs"
     with pytest.raises(NotImplementedError, match="solvers.*A.10"):

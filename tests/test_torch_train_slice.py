@@ -24,6 +24,7 @@ from deeplearning4j_tpu.nn.graph import ComputationGraph as JaxGraph
 from deeplearning4j_tpu_torch import interop, kernels
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.models import zoo
+from deeplearning4j_tpu_torch.nn import prng
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
 )
@@ -167,13 +168,17 @@ def test_bf16_fit_scores_match_jax_and_refresh_the_compute_copy():
 
 
 def test_fit_refuses_what_it_does_not_run():
+    # Dropout trains now (one step, one key advanced); solvers and graph
+    # truncated BPTT are still refused, and a refused fit takes no step.
     conf = zoo.transformer_lm(V, t=16, d_model=D, n_heads=H, n_blocks=1)
     conf.vertices["ff1_0"].layer.dropout = 0.5
     net = ComputationGraph(conf, device="cpu").init()
     x = np.zeros((1, 16, 1), np.float32)
     y = np.zeros((1, 16), np.int32)
-    with pytest.raises(NotImplementedError, match="dropout.*ROADMAP A.4"):
-        net.fit(x, y)
+    key = net._train_rng.copy()
+    net.fit(x, y)
+    assert net.iteration == 1 and np.isfinite(net.score_value)
+    np.testing.assert_array_equal(net._train_rng, prng.split(key)[0])
     conf.vertices["ff1_0"].layer.dropout = 0.0
     conf.global_conf.optimization_algo = "lbfgs"
     with pytest.raises(NotImplementedError, match="solvers"):
@@ -182,7 +187,7 @@ def test_fit_refuses_what_it_does_not_run():
     conf.backprop_type = "truncatedbptt"
     with pytest.raises(NotImplementedError, match="truncated BPTT"):
         net.fit(x, y)
-    assert net.iteration == 0
+    assert net.iteration == 1
 
 
 def test_port_zoo_trains_and_scores():
