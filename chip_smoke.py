@@ -367,7 +367,45 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               equal bit for bit; `evaluate` under the mask gives an
               accuracy; f32 masked `output` at B=2, T=256 card against
               CPU within 1e-3. The phase's wall seconds.
-28. trace   - where one decode step's, one 1024-token prefill's, one LM
+28. moe     - `zoo.transformer_lm(moe=True)` at the LM's widths (V=8192,
+              T=1024, d=512, 8 heads, 4 blocks, each FFN a top-2 MoE of 4
+              experts of 2,048, router jitter 1e-2, bf16 compute over f32
+              params, Adam lr 3e-3) trained at B=16 on lm_batches, 3
+              warm-up and 10 timed steps: scores finite and falling; per
+              step exactly the dense LM's launches (9 LayerNorm, 4 each of
+              rows 5, 6 dq, 6 dk/dv on the tensor cores, 1 update), 0
+              plain calls; ms a step, tokens/s, peak memory. `output` on
+              one batch (9 LayerNorm, 4 row 3; wall and the forward alone)
+              with each layer's routing: aux loss, kept load per expert,
+              first choices, dropped share. 16 cached greedy tokens after
+              a 40-id prompt from the decode-cache twin of the trained
+              params (output projection x SERVE_LOGIT_SCALE), equal to the
+              CPU's ids (9 LayerNorm a call, 4 row 3 for the prompt). The
+              MoE layer that dropped the most, alone, on the tokens it got
+              in `output`, card against CPU (one jitter draw shared):
+              routing identical, y, aux, gates and gradients within
+              MOE_GRAD_TOL of their largest value, less the w1 / b1
+              columns and x rows downstream of a ReLU kink the two
+              devices' f32 sums put on either side of 0 (counted, at most
+              MOE_FLIP_SHARE); its forward + backward and its six f32
+              expert matmuls timed. One f32 step at 1 block, B=2, card
+              against CPU with the draws shared: scores within 1e-3, Adam
+              state within 4e-2, at most MOE_FLIP_SHARE of the params a
+              step apart. The phase's wall seconds.
+29. pretrain - f32 on MnistDataSetIterator(128), one epoch each: the VAE
+              (pretrain only), the AutoEncoder + RBM + output stack
+              (pretrained, then backprop), LeNet with a
+              CenterLossOutputLayer, an MLP ending in a LossLayer. Each
+              net's first `fit` call card against CPU with the draws made
+              on the CPU (scores and every updater and declared state
+              tensor within 1e-3); then the epoch on the card: exactly one
+              update launch a step (pretraining steps included), 0 plain
+              calls, every pass's objective falling (the last 50 steps'
+              mean under the first 50's; an RBM's CD-k surrogate only
+              reported), accuracy on the 10,000 test images (LeNet's >=
+              0.95), the centers moved; ms a step, peak memory. The
+              phase's wall seconds.
+30. trace   - where one decode step's, one 1024-token prefill's, one LM
               training step's, one T1 and one T2 step's, one char-RNN fit
               call's (forward, backward, update; the call's two chunks
               summed), one `rnn_time_step`'s, one LeNet and one MLP fit
@@ -386,7 +424,9 @@ Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
 rnn_sample, lenet_train, mlp_train, dsl, ckpt, serving, long_serve,
 long_train, long_output, alexnet_train, vgg16_train, masked_train,
-unmasked_step; row 8's, row 12's and row 2's serving shapes under
+unmasked_step, moe_train, moe_output, moe_decode, pretrain_vae,
+pretrain_ae_rbm, pretrain_lenet_center_loss, pretrain_mlp_loss_layer;
+row 8's, row 12's and row 2's serving shapes under
 `serving_shapes`; rows 5 and 6 non-causal under `non_causal_shapes`;
 row 13 on row 4's entry; row 9 also with its time at LeNet's update) and,
 last, the result line. With no GPU, without the package beside it, or when
@@ -569,6 +609,41 @@ LAYERS_DIR = os.path.join("build", "layers")
 MASK_CLASSES, MASK_MIN_T = 8, 128
 MASK_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1, "fused_update": 1}
 MASK_PARITY_B, MASK_PARITY_T = 2, 256
+
+# The MoE LM (the moe phase): `transformer_lm(moe=True)` at the LM cell's
+# widths (V=8192, T=1024, d=512, 8 heads, 4 blocks; `bench.py:1116`), 4
+# experts of 4 * d = 2,048, top-2, router jitter 1e-2 (the zoo's), bf16
+# compute over f32 params, Adam lr 3e-3; B=16, 3 warm-up and 10 timed
+# steps on lm_batches. A step launches what the dense LM's does (rows 1,
+# 5, 6, 9); the router and the f32 expert FFN are plain PyTorch, as the
+# reference computes them outside Pallas. `output` on one batch: rows 1
+# and 3. Cached greedy decode of MOE_NEW tokens after a MOE_PROMPT-token
+# prompt: row 3 for the prompt, row 1 at every call.
+MOE_EXPERTS, MOE_TIMED, MOE_PROMPT, MOE_NEW, MOE_PARITY_B = 4, 10, 40, 16, 2
+MOE_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1, "fused_update": 1,
+                **{n: BLOCKS for n in TRAIN_FLASH}}
+MOE_OUTPUT_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1,
+                       "flash_attention": BLOCKS}
+MOE_DECODE_LAUNCHES = {"layernorm_norm_act": (2 * BLOCKS + 1) * MOE_NEW,
+                       "flash_attention": BLOCKS}
+MOE_GRAD_TOL = 1e-4     # the MoE layer card vs CPU, over the largest value
+MOE_FLIP_SHARE = 1e-3   # params a first normalised step may send the
+                        # other way (a gradient that is rounding noise)
+
+# Layerwise pretraining and the last layers (the pretrain phase), f32 on
+# the synthetic MNIST at B=128, one epoch each: the VAE of dl4j-examples'
+# VariationalAutoEncoderExample (784 -> 256, 256 -> 2 -> 256, 256,
+# Bernoulli, leaky relu, RMSProp decay 0.95, l2 1e-4, pretrain only) at lr
+# PRETRAIN_VAE_LR, not the example's 1e-2: there the reference's own VAE
+# reaches a NaN ELBO at its second step on this data (RMSProp's first
+# step is lr * g / sqrt(0.05 g^2), about 4.5 lr on every param), and the
+# port's the same from the same params;
+# 784-500-250-10 (an AutoEncoder at corruption 0.3, an RBM at k=1, an
+# OutputLayer; Adam, pretrained then backprop); LeNet with a
+# CenterLossOutputLayer (alpha 0.1, lambda 2e-4); an MLP ending in a
+# LossLayer (Adam). One update launch (row 9) a step, pretraining steps
+# included.
+PRETRAIN_VAE_LR, PRETRAIN_STACK_LR = 1e-3, 1e-3
 
 # Long context: the same LM at T = 32,768, B = 1, where the K/V of
 # one (batch, head) outgrow the resident limit and every attention takes the
@@ -4782,6 +4857,546 @@ def phase_masked(card, torch, kernels, dev):
 
 
 @contextlib.contextmanager
+def cpu_draws(torch):
+    """The port's random draws (`nn/layers/common.py`) made the same on
+    every device while the block runs: each draws on the CPU from its key
+    and moves the draw to the device asked for, so a card step and a CPU
+    step see the same noise (restored after)."""
+    from deeplearning4j_tpu_torch.nn.layers import common
+
+    was = {k: getattr(common, k) for k in (
+        "draw_keep", "draw_uniform", "draw_normal", "draw_bernoulli")}
+    common.draw_keep = (lambda key, retain, shape, device:
+                        was["draw_keep"](key, retain, shape, "cpu")
+                        .to(device))
+    common.draw_uniform = (lambda key, lo, hi, shape, dtype, device:
+                           was["draw_uniform"](key, lo, hi, shape, dtype,
+                                               "cpu").to(device))
+    common.draw_normal = (lambda key, shape, dtype, device:
+                          was["draw_normal"](key, shape, dtype, "cpu")
+                          .to(device))
+    common.draw_bernoulli = (lambda key, p, shape, device:
+                             was["draw_bernoulli"](
+                                 key, p.cpu() if isinstance(p, torch.Tensor)
+                                 else p, shape, "cpu").to(device))
+    try:
+        yield
+    finally:
+        for k, f in was.items():
+            setattr(common, k, f)
+
+
+@contextlib.contextmanager
+def moe_routing(torch):
+    """While the block runs, every MoE layer's forward also appends its
+    `Routing` (`parallel/expert.py` `route` on the layer's own tokens, the
+    router input as the layer sees it without jitter) to the yielded
+    list, with the layer's aux loss and its tokens; restored after."""
+    from deeplearning4j_tpu_torch.nn import layers as impls
+    from deeplearning4j_tpu_torch.parallel import expert
+
+    seen = []
+    layer = impls.LAYER_IMPLS["MoELayer"]
+
+    def spy(conf, params, state, x, **kw):
+        out, st = layer(conf, params, state, x, **kw)
+        tokens = x.reshape(-1, x.shape[-1])
+        acc = torch.promote_types(tokens.dtype, torch.float32)
+        seen.append((expert.route(params["gate_w"], tokens.to(acc),
+                                  capacity_factor=conf.capacity_factor,
+                                  top_k=conf.top_k),
+                     float(st["_aux_loss"]) / conf.aux_loss_weight, tokens))
+        return out, st
+
+    impls.LAYER_IMPLS["MoELayer"] = spy
+    try:
+        yield seen
+    finally:
+        impls.LAYER_IMPLS["MoELayer"] = layer
+
+
+def _routing_report(torch, seen, n_experts):
+    """Per MoE layer: aux loss, the assignments each expert kept (first and
+    second choices), each expert's first choices, the share of assignments
+    dropped, the capacity."""
+    rows = []
+    for r, aux, _ in seen:
+        kept = torch.bincount(r.expert[r.keep], minlength=n_experts)
+        rows.append(dict(
+            aux_loss=aux, capacity=r.capacity,
+            tokens=int(r.expert.shape[1]),
+            expert_load_kept=kept.tolist(),
+            first_choices=torch.bincount(
+                r.expert[0], minlength=n_experts).tolist(),
+            dropped_share=1.0 - float(r.keep.float().mean())))
+    return rows
+
+
+def _rel_max(got, want):
+    """max |got - want| over max |want|."""
+    want = want.detach().float().cpu()
+    den = float(want.abs().max()) or 1.0
+    return float((got.detach().float().cpu() - want).abs().max()) / den
+
+
+def _moe_layer_parity(torch, dev, net, name, tokens):
+    """The MoE FFN `name` of the trained net alone, at the cell's N = B * T
+    tokens, card against CPU on the same inputs: the bf16 tokens it was
+    handed in the `output` call (held in f32, as the layer upcasts them),
+    its params rounded to bf16 (as the engine casts them) and held in f32,
+    one jitter draw made on the card and copied. Expert choices, kept
+    slots and drops must be identical (asserted). y (before its bf16
+    cast), the aux loss, the gates and the gradients of sum(y * dy) + aux
+    are held at MOE_GRAD_TOL of their largest value, except the entries
+    downstream of a ReLU kink that the two devices' f32 sums put on either
+    side of 0 (a pre-activation within rounding of 0 passes its whole
+    gradient on one side and none on the other): the w1 and b1 columns of
+    such an expert unit and the x rows of such a token are left out,
+    counted and limited to MOE_FLIP_SHARE. Times the layer's forward +
+    backward on the card and its six expert matmuls alone."""
+    from deeplearning4j_tpu_torch.nn.layers import common
+    from deeplearning4j_tpu_torch.nn.prng import LayerKey, prng_key
+    from deeplearning4j_tpu_torch.parallel import expert
+
+    conf = net.layer_vertices[name].layer
+    x = tokens.float().cpu()
+    n = x.shape[0]
+    dy = torch.randn(n, D_MODEL, generator=torch.Generator().manual_seed(61))
+    names = {"gate_w": "gate_w", "w1": "w1", "b1": "b_1", "w2": "w2",
+             "b2": "b_2"}
+    p = {k: net.params_tree[name][v].detach().bfloat16().float().cpu()
+         for k, v in names.items()}
+    key = LayerKey(prng_key(62), 0)
+    noise = common.draw_uniform(key, 1.0 - conf.router_jitter,
+                                1.0 + conf.router_jitter, x.shape,
+                                torch.float32, dev).cpu()
+
+    def run(device):
+        px = {k: a.to(device, copy=True).requires_grad_(True)
+              for k, a in p.items()}
+        xx = x.to(device, copy=True).requires_grad_(True)
+        routing = []
+        was = common.draw_uniform
+        common.draw_uniform = (lambda k, lo, hi, shape, dtype, d:
+                               noise.to(d, dtype))
+        try:
+            y, aux = expert.moe_ffn(
+                px, xx, capacity_factor=conf.capacity_factor,
+                top_k=conf.top_k, rng=key, jitter_eps=conf.router_jitter,
+                return_aux=True, routing=routing)
+        finally:
+            common.draw_uniform = was
+        ((y * dy.to(device)).sum() + aux).backward()
+        r = routing[0]
+        with torch.no_grad():
+            # The first expert matmul's pre-activations, as the FFN forms
+            # them (its dispatch, rows past the buffer for the dropped).
+            e, c = px["w1"].shape[0], r.capacity
+            rows = torch.where(r.keep, r.slot, e * c).reshape(-1)
+            xin = xx.new_zeros(e * c + 1, xx.shape[1]).index_copy(
+                0, rows, xx.repeat(r.slot.shape[0], 1))[:e * c]
+            live = torch.bmm(xin.view(e, c, -1), px["w1"]) + px[
+                "b1"][:, None, :] > 0
+        return (y, aux, r, xx.grad, {k: a.grad for k, a in px.items()},
+                live.cpu())
+
+    card_out, cpu_out = run(dev), run("cpu")
+    rc, rp = card_out[2], cpu_out[2]
+    same = {f: bool(torch.equal(getattr(rc, f).cpu(), getattr(rp, f)))
+            for f in ("expert", "slot", "keep")}
+    errors = [f"routing differs card vs CPU: {same}"] if not all(
+        same.values()) else []
+    flips = card_out[5] != cpu_out[5]                       # [E, C, H]
+    unit_ok = ~flips.any(1)                                 # [E, H]
+    slot_flip = flips.any(2).reshape(-1)                    # [E * C]
+    token_ok = ~(slot_flip[rp.slot] & rp.keep).any(0)       # [N]
+    err = {"y": _rel_max(card_out[0], cpu_out[0]),
+           "aux": _rel_max(card_out[1], cpu_out[1]),
+           "gate": _rel_max(rc.gate, rp.gate),
+           "dx": _rel_max(card_out[3].cpu()[token_ok], cpu_out[3][token_ok]),
+           "dw1": _rel_max(card_out[4]["w1"].cpu().transpose(1, 2)[unit_ok],
+                           cpu_out[4]["w1"].transpose(1, 2)[unit_ok]),
+           "db1": _rel_max(card_out[4]["b1"].cpu()[unit_ok],
+                           cpu_out[4]["b1"][unit_ok]),
+           **{f"d{k}": _rel_max(card_out[4][k], cpu_out[4][k])
+              for k in ("gate_w", "w2", "b2")}}
+    over = {k: v for k, v in err.items() if not v <= MOE_GRAD_TOL}
+    if over:
+        errors.append(f"MoE layer card vs CPU beyond {MOE_GRAD_TOL}: {over}")
+    kink = dict(flipped_pre_activations=int(flips.sum()),
+                pre_activations=flips.numel(),
+                units_left_out=int((~unit_ok).sum()),
+                units=unit_ok.numel(),
+                token_rows_left_out=int((~token_ok).sum()))
+    if (kink["units_left_out"] > MOE_FLIP_SHARE * kink["units"]
+            or kink["token_rows_left_out"] > MOE_FLIP_SHARE * n):
+        errors.append(f"too many ReLU kinks apart: {kink}")
+    err_all = {"dx": _rel_max(card_out[3], cpu_out[3]),
+               "dw1": _rel_max(card_out[4]["w1"], cpu_out[4]["w1"]),
+               "db1": _rel_max(card_out[4]["b1"], cpu_out[4]["b1"])}
+
+    # The layer's forward + backward on the card, and its two expert
+    # matmuls (forward and the two gradients of each) alone.
+    px = {k: a.to(dev, copy=True).requires_grad_(True)
+          for k, a in p.items()}
+    xx = x.to(dev, copy=True).requires_grad_(True)
+    dyd = dy.to(dev)
+
+    def layer_step():
+        y = expert.moe_ffn(px, xx, capacity_factor=conf.capacity_factor,
+                           top_k=conf.top_k)
+        torch.autograd.grad((y * dyd).sum(), [xx, *px.values()])
+
+    c = rc.capacity
+    e, h = p["w1"].shape[0], p["w1"].shape[2]
+    a1 = torch.randn(e, c, D_MODEL, device=dev)
+    w1, w2 = p["w1"].to(dev), p["w2"].to(dev)
+
+    def matmuls():
+        hh = torch.bmm(a1, w1)                      # h = in @ w1
+        torch.bmm(hh, w2)                           # out = h @ w2
+        dh = torch.bmm(a1, w2.transpose(1, 2))      # d h
+        torch.bmm(hh.transpose(1, 2), a1)           # d w2
+        torch.bmm(dh, w1.transpose(1, 2))           # d in
+        torch.bmm(a1.transpose(1, 2), dh)           # d w1
+
+    step_ms = time_ms(layer_step, reps=10, warmup=2)
+    mm_ms = time_ms(matmuls, reps=10, warmup=2)
+    flops = 6 * 2 * e * c * D_MODEL * h
+    return errors, dict(
+        layer=name, tokens=n, capacity=c, routing_identical=same,
+        dropped_share=1.0 - float(rp.keep.float().mean()),
+        rel_err=err, rel_err_kinks_included=err_all, relu_kinks=kink,
+        tolerance=MOE_GRAD_TOL,
+        layer_fwd_bwd_ms=step_ms, expert_matmuls_ms=mm_ms,
+        expert_matmul_tflop=flops / 1e12,
+        expert_matmul_tflop_s=flops / (mm_ms * 1e-3) / 1e12,
+        expert_share_of_layer=mm_ms / step_ms)
+
+
+def _moe_conf(dtype, n_blocks=None, cache=None):
+    from deeplearning4j_tpu_torch.models import zoo
+
+    return zoo.transformer_lm(VOCAB, t=CACHE, d_model=D_MODEL, n_heads=HEADS,
+                              n_blocks=n_blocks or BLOCKS, moe=True,
+                              n_experts=MOE_EXPERTS, dtype=dtype,
+                              decode_cache_length=cache)
+
+
+def phase_moe(card, torch, kernels, dev):
+    """The MoE LM on the card (see the module docstring): training at full
+    width, the routing it learned, `output`, cached greedy decode against
+    the CPU, the MoE layer alone card against CPU, one f32 step card
+    against CPU."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    t_phase = time.perf_counter()
+    errors, launches = [], {}
+    net = ComputationGraph(_moe_conf("bfloat16"), device=dev).init()
+    batches = [MultiDataSet([torch.as_tensor(x, device=dev)],
+                            [torch.as_tensor(y, device=dev)])
+               for x, y in lm_batches(17, TRAIN_B, CACHE, 2)]
+    steps = WARMUP + MOE_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    scores, wall = _fit_steps(net, batches, steps)
+    counts = kernels.counts()
+    launches["moe_train"] = counts["launches"]
+    errs, want = _launch_errors(counts, MOE_LAUNCHES, steps)
+    errors += errs + _variant_errors(counts, {n: BLOCKS * steps
+                                              for n in TRAIN_FLASH})
+    e2, train = _step_report(scores, wall, WARMUP, TRAIN_B)
+    errors += e2
+    train.update(tokens_per_step=TRAIN_B * CACHE,
+                 tokens_per_s=TRAIN_B * CACHE / train["ms_per_step"] * 1e3,
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 launches=counts["launches"], expected_launches=want,
+                 plain_calls=counts["plain_calls"])
+    del train["samples_per_s"]
+
+    # `output` on one batch, each MoE layer's routing recorded.
+    x = batches[0].features[0]
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with moe_routing(torch) as seen:
+        t0 = time.perf_counter()
+        probs = net.output(x)[0]
+        output_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.counts()
+    launches["moe_output"] = counts["launches"]
+    errs, want_out = _launch_errors(counts, MOE_OUTPUT_LAUNCHES, 1)
+    errors += errs
+    with torch.inference_mode():  # the forward alone, no host copy
+        forward_ms = time_ms(lambda: net._forward(
+            net._compute_copy(), net.state, [x], keep_rnn_state=False),
+            reps=5, warmup=1)
+    if probs.shape != (TRAIN_B, CACHE, VOCAB) or not np.isfinite(
+            probs).all():
+        errors.append(f"output {probs.shape}, finite "
+                      f"{bool(np.isfinite(probs).all())}")
+    routing = _routing_report(torch, seen, MOE_EXPERTS)
+    if len(routing) != BLOCKS:
+        errors.append(f"{len(routing)} MoE layers routed, not {BLOCKS}")
+
+    # Cached greedy decode: the decode-cache twin of the trained params,
+    # the output projection x SERVE_LOGIT_SCALE (so greedy has margins), on
+    # the card and on the CPU.
+    params = {v: {k: a.detach() * (SERVE_LOGIT_SCALE if v == "out" else 1)
+                  for k, a in p.items()}
+              for v, p in net.params_tree.items()}
+    dec = ComputationGraph(_moe_conf("bfloat16", cache=CACHE),
+                           device=dev).init(params=params)
+    cpu_dec = ComputationGraph(_moe_conf("bfloat16", cache=CACHE),
+                               device="cpu").init(params=params)
+    prompt = [int(i) for i in lm_batches(64, 1, MOE_PROMPT, 1)[0][0][0, :, 0]]
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    ids = zoo.generate_lm(dec, prompt, MOE_NEW, window=CACHE,
+                          temperature=0.0, use_cache=True)
+    decode_s = time.perf_counter() - t0
+    counts = kernels.counts()
+    launches["moe_decode"] = counts["launches"]
+    errs, want_dec = _launch_errors(counts, MOE_DECODE_LAUNCHES, 1)
+    errors += errs
+    cpu_ids = zoo.generate_lm(cpu_dec, prompt, MOE_NEW, window=CACHE,
+                              temperature=0.0, use_cache=True)
+    if ids != cpu_ids:
+        errors.append(f"greedy ids differ: card {ids[len(prompt):]}, CPU "
+                      f"{cpu_ids[len(prompt):]}")
+    del dec, cpu_dec, params, probs
+    torch.cuda.empty_cache()
+
+    # The layer that dropped the most tokens, alone, card vs CPU.
+    worst = max(range(len(routing)),
+                key=lambda i: routing[i]["dropped_share"])
+    errs, layer = _moe_layer_parity(torch, dev, net, f"ffn{worst}",
+                                    seen[worst][2])
+    errors += errs
+    del net, batches, x, seen
+    torch.cuda.empty_cache()
+    # One f32 step at 1 block, B=2, card vs CPU (Adam's m and v held as
+    # train_parity holds m, at 4e-2 of their largest value).
+    (x, y), = lm_batches(63, MOE_PARITY_B, CACHE, 1)
+    errs, step = _step_parity(torch, dev, ComputationGraph,
+                              _moe_conf("float32", 1),
+                              MultiDataSet([x], [y]), 4e-2)
+    errors += errs
+    emit(card, phase="moe", ok=not errors, errors=errors,
+         model=f"transformer_lm(moe=True) V={VOCAB} T={CACHE} d={D_MODEL} "
+               f"heads={HEADS} blocks={BLOCKS} experts={MOE_EXPERTS}x"
+               f"{4 * D_MODEL} top-2 jitter 1e-2 mixed_bfloat16 Adam",
+         train=train, output=dict(ms=output_ms, forward_ms=forward_ms,
+                                  launches=launches["moe_output"],
+                                  expected_launches=want_out),
+         routing_by_layer=routing,
+         decode=dict(prompt=len(prompt), new_tokens=MOE_NEW,
+                     ids=ids[len(prompt):], cpu_ids=cpu_ids[len(prompt):],
+                     seconds=decode_s, launches=launches["moe_decode"],
+                     expected_launches=want_dec),
+         layer_parity=layer, f32_step_parity=step,
+         phase_s=time.perf_counter() - t_phase)
+    return not errors, launches
+
+
+def _pretrain_confs():
+    """The pretrain phase's four nets (f32, MNIST), by name: (conf, whether
+    its input is flat)."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+        NeuralNetConfiguration,
+    )
+
+    flat = InputType.feed_forward(784)
+    vae = (NeuralNetConfiguration.builder().seed(12345)
+           .learning_rate(PRETRAIN_VAE_LR)
+           .updater("rmsprop").rms_decay(0.95).weight_init("xavier")
+           .l2(1e-4).list()
+           .layer(L.VariationalAutoencoder(
+               n_out=2, encoder_layer_sizes=(256, 256),
+               decoder_layer_sizes=(256, 256), activation="leakyrelu",
+               pzx_activation="identity",
+               reconstruction_distribution="bernoulli"))
+           .pretrain(True).backprop(False).set_input_type(flat).build())
+    stack = (NeuralNetConfiguration.builder().seed(123).learning_rate(
+        PRETRAIN_STACK_LR).updater("adam").weight_init("xavier").list()
+             .layer(L.AutoEncoder(n_out=500, corruption_level=0.3,
+                                  activation="sigmoid"))
+             .layer(L.RBM(n_out=250, visible_unit="binary",
+                          hidden_unit="binary", k=1))
+             .layer(L.OutputLayer(n_out=10, activation="softmax",
+                                  loss_function="mcxent"))
+             .pretrain(True).backprop(True).set_input_type(flat).build())
+    center = (NeuralNetConfiguration.builder().seed(123).learning_rate(0.01)
+              .updater("nesterovs").momentum(0.9).weight_init("xavier")
+              .l2(5e-4).activation("identity").list()
+              .layer(L.ConvolutionLayer(kernel_size=(5, 5), n_out=20))
+              .layer(L.SubsamplingLayer(pooling_type="max",
+                                        kernel_size=(2, 2), stride=(2, 2)))
+              .layer(L.ConvolutionLayer(kernel_size=(5, 5), n_out=50))
+              .layer(L.SubsamplingLayer(pooling_type="max",
+                                        kernel_size=(2, 2), stride=(2, 2)))
+              .layer(L.DenseLayer(n_out=500, activation="relu"))
+              .layer(L.CenterLossOutputLayer(
+                  n_out=10, activation="softmax",
+                  loss_function="negativeloglikelihood", alpha=0.1,
+                  lambda_=2e-4))
+              .set_input_type(InputType.convolutional(28, 28, 1)).build())
+    loss = (NeuralNetConfiguration.builder().seed(123).learning_rate(
+        PRETRAIN_STACK_LR).updater("adam").weight_init("xavier").list()
+            .layer(L.DenseLayer(n_out=256, activation="relu"))
+            .layer(L.DenseLayer(n_out=10, activation="identity"))
+            .layer(L.LossLayer(activation="softmax", loss_function="mcxent"))
+            .set_input_type(flat).build())
+    return {"vae": (vae, True), "ae_rbm": (stack, True),
+            "lenet_center_loss": (center, False), "mlp_loss_layer": (loss, True)}
+
+
+def _step_parity(torch, dev, engine, conf, batch, state_tol):
+    """One `fit` call of `conf` (pretraining steps included where the conf
+    says so) on `batch` with an `engine` class, card against CPU from the
+    same params, the draws made on the CPU for both (`cpu_draws`): scores
+    within PARITY_TOL relative; every updater state tensor and declared
+    state tensor (the centers) within `state_tol` of its largest value;
+    and at most MOE_FLIP_SHARE of the params more than 1e-3 lr apart (a
+    normalised updater's first step is about lr * sign(g), so a gradient
+    that is rounding noise may step the other way)."""
+    cpu = engine(conf, device="cpu").init()
+    card_net = engine(conf, device=dev).init(params={
+        k: {n: a.detach() for n, a in p.items()}
+        for k, p in cpu.params_tree.items()})
+    before = cpu.params()
+    with cpu_draws(torch):
+        for net in (cpu, card_net):
+            net.fit(batch)
+    score_rel = (abs(card_net.score_value - cpu.score_value)
+                 / abs(cpu.score_value))
+    state_err = {f"{lk}/{f}": max(_rel_max(card_net.opt_state[lk][f][k], a)
+                                  for k, a in s.items())
+                 for lk, st in cpu.opt_state.items() for f, s in st.items()
+                 if s}
+    state_err.update({f"{lk}/{k}": _rel_max(card_net.state[lk][k], a)
+                      for lk, st in cpu.state.items() for k, a in st.items()})
+    lr = float(cpu._global.learning_rate)
+    step_diff = np.abs(card_net.params() - cpu.params())
+    flip_share = float(np.mean(step_diff > 1e-3 * lr))
+    errors = []
+    if not score_rel <= PARITY_TOL:
+        errors.append(f"first step scores {card_net.score_value} (card) vs "
+                      f"{cpu.score_value} (CPU)")
+    over = {k: v for k, v in state_err.items() if not v <= state_tol}
+    if over:
+        errors.append(f"first step state beyond {state_tol}: {over}")
+    if flip_share > MOE_FLIP_SHARE:
+        errors.append(f"first step: {flip_share} of the params stepped "
+                      f"differently (> {MOE_FLIP_SHARE})")
+    return errors, dict(
+        iterations=card_net.iteration, score_card=card_net.score_value,
+        score_cpu=cpu.score_value, score_rel_diff=score_rel,
+        state_rel_err=state_err, state_tolerance=state_tol,
+        max_param_diff=float(step_diff.max()),
+        params_moved=float(np.abs(cpu.params() - before).max()),
+        share_of_params_stepping_differently=flip_share, lr=lr)
+
+
+def phase_pretrain(card, torch, kernels, dev):
+    """Layerwise pretraining and the last layers on MNIST (see the module
+    docstring): each net's first `fit` call card against CPU, then one
+    epoch on the card with its launches counted; the VAE's ELBO, the
+    stack's and the LossLayer MLP's accuracy, LeNet's accuracy and its
+    moved centers."""
+    from deeplearning4j_tpu_torch.datasets.builtin import (
+        MnistDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import listeners as ls
+
+    t_phase = time.perf_counter()
+    errors, launches, report = [], {}, {}
+    data = {flat: (MnistDataSetIterator(MNIST_B, train=True, flat=flat),
+                   MnistDataSetIterator(MNIST_B, train=False, flat=flat))
+            for flat in (True, False)}
+    for name, (conf, flat) in _pretrain_confs().items():
+        train, test = data[flat]
+        first = next(iter(train))
+        errs, parity = _step_parity(
+            torch, dev, MultiLayerNetwork, conf,
+            DataSet(np.asarray(first.features), np.asarray(first.labels)),
+            PARITY_TOL)
+        errors += [f"{name}: {e}" for e in errs]
+        net = MultiLayerNetwork(conf, device=dev).init()
+        scores = ls.CollectScoresIterationListener(1)
+        net.set_listeners(scores)
+        n_pre = sum(type(x).__name__ in ("VariationalAutoencoder",
+                                         "AutoEncoder", "RBM")
+                    for x in conf.layers)
+        steps = MNIST_STEPS * (n_pre + int(conf.backprop))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        net.fit(train)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        counts = kernels.counts()
+        launches[f"pretrain_{name}"] = counts["launches"]
+        errs, want = _launch_errors(counts, {"fused_update": 1}, steps)
+        vals = [s for _, s in scores.scores]
+        if net.iteration != steps or len(vals) != steps:
+            errs.append(f"{net.iteration} iterations, {len(vals)} scores, "
+                        f"not {steps}")
+        if not all(np.isfinite(vals)):
+            errs.append("non-finite score")
+        # Each pass (a layer's pretraining, or backprop) must lower its
+        # objective, the mean of its last 50 steps under its first 50's;
+        # but an RBM's CD-k surrogate (a free-energy gap, no bound of
+        # anything) is only reported.
+        kinds = [type(x).__name__ for x in conf.layers
+                 if type(x).__name__ in ("VariationalAutoencoder",
+                                         "AutoEncoder", "RBM")]
+        kinds += ["backprop"] if conf.backprop else []
+        passes = []
+        for i, kind in enumerate(kinds):
+            part = vals[i * MNIST_STEPS:(i + 1) * MNIST_STEPS]
+            first50, last50 = (float(np.mean(part[:50])),
+                               float(np.mean(part[-50:])))
+            passes.append(dict(objective=kind, first50_mean=first50,
+                               last50_mean=last50))
+            if kind != "RBM" and not last50 < first50:
+                errs.append(f"{kind} pass: scores did not fall ({first50} "
+                            f"-> {last50})")
+        row = dict(params=net.num_params(), steps=steps,
+                   pretrain_passes=n_pre, backprop=bool(conf.backprop),
+                   epoch_s=epoch_s, ms_per_step=epoch_s * 1e3 / steps,
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                   first_score=vals[0], last_score=vals[-1], passes=passes,
+                   launches=counts["launches"], expected_launches=want,
+                   first_step_parity=parity)
+        if conf.backprop:
+            row["accuracy"] = net.evaluate(test).accuracy()
+        if name == "lenet_center_loss":
+            centers = net.state[net.layer_keys[-1]]["centers"]
+            row["centers_abs_mean"] = float(centers.abs().mean())
+            if not row["accuracy"] >= MNIST_ACCURACY:
+                errs.append(f"accuracy {row['accuracy']} < {MNIST_ACCURACY}")
+            if not float(centers.abs().max()) > 0:
+                errs.append("the centers did not move")
+        errors += [f"{name}: {e}" for e in errs]
+        report[name] = row
+        del net
+        torch.cuda.empty_cache()
+    emit(card, phase="pretrain", ok=not errors, errors=errors,
+         batch=MNIST_B, train_images=MNIST_TRAIN_N, nets=report,
+         phase_s=time.perf_counter() - t_phase)
+    return not errors, launches
+
+
+@contextlib.contextmanager
 def plain_versions():
     """The serving LM's kernel wrappers swapped for their plain versions
     while the block runs (the long_serve reference only; restored after):
@@ -5124,6 +5739,14 @@ def main() -> int:
     if not ok:
         failed.append("masked")
     path_launches.update(mask_launches)
+    ok, moe_launches = phase_moe(card, torch, kernels, dev)
+    if not ok:
+        failed.append("moe")
+    path_launches.update(moe_launches)
+    ok, pretrain_launches = phase_pretrain(card, torch, kernels, dev)
+    if not ok:
+        failed.append("pretrain")
+    path_launches.update(pretrain_launches)
     trace, ok = phase_trace(card, torch, cg, train_net, batches[0], nets,
                             rn_batch, rnn_net, rnn_data[0], long_net,
                             long_batches[0], mnist)
@@ -5142,7 +5765,9 @@ def main() -> int:
     # dsl, ckpt and serving phases' card windows, the long server's
     # request, the long-context train phase's 7 steps and its 3 `output`
     # calls, AlexNet's and VGG-16's 13 steps each, the classifier's 23
-    # masked steps and its counted unmasked step), summed and by path.
+    # masked steps and its counted unmasked step, the MoE LM's 13 steps,
+    # its `output` and its cached decode, the four pretrain nets' epochs),
+    # summed and by path.
     # Row 10's library call covers the step
     # without peepholes (at the same B and n); row 13 is row 4's kernel
     # over two lists, carried on row 4's entry.

@@ -1,6 +1,6 @@
 """Model zoo (counterpart of `deeplearning4j_tpu/models/zoo.py`), every
 conf built through the config DSL as the reference builds it:
-`transformer_lm` (its MoE form a conf only: ROADMAP A.9), the GravesLSTM
+`transformer_lm` (dense or with MoE FFNs), the GravesLSTM
 `char_rnn`, the MNIST models `mlp_mnist` and `lenet_mnist`, `vgg16`,
 `alexnet` (LRN, dropout 0.5) and `transformer_classifier` (ragged batches
 under features masks); token sampling (one sequence or a
@@ -52,7 +52,8 @@ def _add_transformer_block(gb, prev, i, d_model, n_heads, *, causal,
                            decode_cache_length=None):
     """One pre-LN block, x + Attn(LN(x)); x + FFN(LN(x)), with the
     reference's vertex names. The FFN is a DenseLayer pair, or a MoELayer
-    when `moe` (a conf only in the port: ROADMAP A.9)."""
+    when `moe` (top-2 of `n_experts` experts of 4 * d_model, jitter
+    1e-2)."""
     gb.add_layer(f"ln_a{i}", LayerNormalization(), prev)
     gb.add_layer(f"attn{i}", SelfAttentionLayer(
         n_out=d_model, n_heads=n_heads, causal=causal,

@@ -27,8 +27,13 @@ to its conf, in the engine's update order.
   `set_updater_state_flat()` are the flat updater view in the reference's
   leaf order (its `tree_leaves`: every dict's keys sorted, at every
   level). The model zip stores both.
-- Construction refuses a layer the port holds as a conf only
-  (`nn/layers/__init__.py` `check_supported`), naming its ROADMAP item.
+- Construction refuses a base conf with no forward pass and a LoRA
+  adapter (`nn/layers/__init__.py` `check_supported`), the adapter naming
+  its ROADMAP item.
+- The objective's extra terms are shared: an MoE layer's `_aux_loss`
+  state entry leaves the state and joins the loss (`take_aux_loss`), and
+  a `CenterLossOutputLayer` adds its center term and moves its class
+  centers (`center_loss`).
 - Listeners (`set_listeners`) get `on_epoch_start(net)`, then
   `iteration_done(net, iteration)` after every iteration, then
   `on_epoch_end(net)` (`optimize/listeners.py`); both engines call them
@@ -69,6 +74,46 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.detach().cpu().numpy()
+
+
+def take_aux_loss(lstate, aux):
+    """A layer's new state less its `_aux_loss` entry (an MoE layer's
+    weighted load-balance loss), which is never kept as state; when `aux`
+    is a dict the entry is added to `aux["aux_loss"]` (the reference sums
+    them in layer, or topological, order)."""
+    if not lstate or "_aux_loss" not in lstate:
+        return lstate
+    lstate = dict(lstate)
+    term = lstate.pop("_aux_loss")
+    if aux is not None:
+        aux["aux_loss"] = aux.get("aux_loss", 0.0) + term
+    return lstate
+
+
+def center_loss(layer, feats, centers, labels, lmask, eb, loss_dtype):
+    """A `CenterLossOutputLayer`'s term and its new centers (reference
+    `multilayer.py:573-593`): with c the centers of each row's class (int
+    labels, or the argmax of one-hot ones) and w each row's labels-mask
+    weight (1 without a mask), the term 0.5 * lambda * sum_i w_i *
+    ||feats_i - c_i||^2 / eb, differentiated through the layer's input
+    `feats`; the centers move by alpha * sum_class(w * (c - feats)) / (1 +
+    sum_class(w)), a state update outside autograd (`index_add_`)."""
+    feats = feats.to(loss_dtype)
+    b = labels.shape[0]
+    cls = (labels.argmax(-1) if labels.is_floating_point()
+           else labels.long())
+    c = centers[cls]
+    w = (torch.ones(b, dtype=loss_dtype, device=feats.device)
+         if lmask is None else lmask.reshape(b, -1)[:, 0].to(loss_dtype))
+    term = 0.5 * layer.lambda_ * (w * ((feats - c) ** 2).sum(-1)).sum() / eb
+    with torch.no_grad():
+        num = torch.zeros(layer.n_out, feats.shape[-1], dtype=loss_dtype,
+                          device=feats.device).index_add_(
+            0, cls, (c - feats) * w[:, None])
+        cnt = torch.zeros(layer.n_out, dtype=torch.float32,
+                          device=feats.device).index_add_(0, cls, w.float())
+        new = centers - layer.alpha * num / (1.0 + cnt)[:, None]
+    return term, new
 
 
 class NetworkEngine:

@@ -32,6 +32,10 @@ engines' shared machinery (`engine.py`).
 - Dropout and DropConnect draw in `fit` (a new key per step) and in
   `output(train=True)`, the vertex at topological position i drawing from
   `LayerKey(key, i)` (`engine.py`).
+- The loss adds each `CenterLossOutputLayer` output's center term (and a
+  training step moves its centers) and the MoE vertices' load-balance
+  terms, summed in topological order, undivided by the batch
+  (`engine.py` `take_aux_loss`, `center_loss`).
 
 What `fit` does not run yet raises NotImplementedError naming its ROADMAP
 item: solvers, truncated BPTT, superstep, frozen layers (f16 loss scaling
@@ -62,7 +66,12 @@ from deeplearning4j_tpu_torch.nn.conf.graph import (
 from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
 )
-from deeplearning4j_tpu_torch.nn.engine import NetworkEngine, to_numpy
+from deeplearning4j_tpu_torch.nn.engine import (
+    NetworkEngine,
+    center_loss,
+    take_aux_loss,
+    to_numpy,
+)
 from deeplearning4j_tpu_torch.nn.layers import (
     OUTPUT_LAYER_TYPES,
     get_impl,
@@ -118,12 +127,14 @@ class ComputationGraph(NetworkEngine):
     # --------------------------------------------------------------- forward
 
     def _forward(self, params, state, inputs, keep_rnn_state: bool,
-                 train: bool = False, fmasks=None, key=None):
+                 train: bool = False, fmasks=None, key=None, aux=None):
         """Walk the DAG; returns (the output vertices' raw values at the
         compute dtype, new layer state, the outputs' masks). `train`
         selects batch statistics (and their running-stat update) over the
         running ones; `key` (a train forward's subkey) gives the vertex at
-        topological position i its draws' `LayerKey(key, i)`."""
+        topological position i its draws' `LayerKey(key, i)`. A dict as
+        `aux` collects the MoE vertices' `aux_loss` and each center-loss
+        vertex's input and centers (by `name:` suffixed keys)."""
         cdt = self.dtype_policy.compute_dtype
         values: Dict[str, torch.Tensor] = {}
         masks: Dict[str, Optional[torch.Tensor]] = {}
@@ -146,10 +157,16 @@ class ComputationGraph(NetworkEngine):
                 layer, x, mask = vertex.layer, ins[0], in_masks[0]
                 if vertex.preprocessor is not None:
                     x, mask = vertex.preprocessor(x, mask)
+                if aux is not None and type(layer).__name__ == \
+                        "CenterLossOutputLayer":
+                    aux[f"center_loss_input:{name}"] = x
+                    aux[f"centers:{name}"] = state.get(name, {}).get(
+                        "centers")
                 out, lstate = get_impl(layer)(
                     layer, params.get(name, {}), state.get(name, {}), x,
                     train=train, mask=mask,
                     rng=None if key is None else LayerKey(key, vi))
+                lstate = take_aux_loss(lstate, aux)
                 if lstate:
                     declared = set(layer.state_shapes())
                     keep = {k: v for k, v in lstate.items()
@@ -213,13 +230,16 @@ class ComputationGraph(NetworkEngine):
 
     # ------------------------------------------------------------------ loss
 
-    def _loss_from_outputs(self, params, outs, labels, lmasks, omasks):
+    def _loss_from_outputs(self, params, outs, labels, lmasks, omasks,
+                           aux):
         """Score of the raw outputs (reference `_loss_from_outputs`): each
         output layer's loss in the loss dtype, summed over entries and
-        divided by the minibatch, plus the l1/l2 penalty over the first
-        divisor. A sequence output with no labels mask takes its features
-        mask as the loss mask."""
-        total = 0.0
+        divided by the minibatch (a center-loss output's center term over
+        the same divisor), the MoE vertices' `aux_loss` undivided, plus
+        the l1/l2 penalty over the first divisor; and the state the step
+        moves (the centers). A sequence output with no labels mask takes
+        its features mask as the loss mask."""
+        total, extra = 0.0, {}
         for i, name in enumerate(self.conf.network_outputs):
             v = self.layer_vertices.get(name)
             if v is None or type(v.layer).__name__ not in OUTPUT_LAYER_TYPES:
@@ -235,7 +255,16 @@ class ComputationGraph(NetworkEngine):
             total = total + losses_mod.score(
                 layer.loss_function, labels[i], outs[i].to(self._loss_dtype),
                 layer.activation, lmask, average=False) / eb
-        return total + self._l1_l2_penalty(params) / eb0
+            if f"center_loss_input:{name}" in aux:
+                term, centers = center_loss(
+                    layer, aux[f"center_loss_input:{name}"],
+                    aux[f"centers:{name}"], labels[i], lmask, eb,
+                    self._loss_dtype)
+                total = total + term
+                extra[name] = {"centers": centers}
+        if "aux_loss" in aux:
+            total = total + aux["aux_loss"]
+        return total + self._l1_l2_penalty(params) / eb0, extra
 
     def _device_arrays(self, arrays):
         if arrays is None or not any(a is not None for a in arrays):
@@ -246,14 +275,15 @@ class ComputationGraph(NetworkEngine):
     def score(self, data, labels=None) -> float:
         """Loss of the current params on one batch (syncs)."""
         mds = _as_mds(data, labels)
+        aux = {}
         with torch.inference_mode():
             outs, _, omasks = self._forward(
                 self._compute_copy(), self.state, mds.features,
                 keep_rnn_state=False,
-                fmasks=_as_mask_list(mds.features_masks))
+                fmasks=_as_mask_list(mds.features_masks), aux=aux)
             return float(self._loss_from_outputs(
                 self.params_tree, outs, self._device_arrays(mds.labels),
-                self._device_arrays(mds.labels_masks), omasks))
+                self._device_arrays(mds.labels_masks), omasks, aux)[0])
 
     def evaluate(self, iterator, top_n: int = 1) -> Evaluation:
         """Classification evaluation of the first output over a DataSet,
@@ -318,13 +348,16 @@ class ComputationGraph(NetworkEngine):
         with torch.inference_mode(False), torch.enable_grad():
             params = params_mod.cast_floating(self.params_tree,
                                               self.dtype_policy.compute_dtype)
+            aux = {}
             outs, new_state, omasks = self._forward(
                 params, self.state, mds.features, keep_rnn_state=False,
                 train=True, fmasks=_as_mask_list(mds.features_masks),
-                key=self._next_rng())
-            loss = self._loss_from_outputs(
+                key=self._next_rng(), aux=aux)
+            loss, extra = self._loss_from_outputs(
                 self.params_tree, outs, self._device_arrays(mds.labels),
-                self._device_arrays(mds.labels_masks), omasks)
+                self._device_arrays(mds.labels_masks), omasks, aux)
+        for name, s in extra.items():
+            new_state.setdefault(name, {}).update(s)
         return loss, new_state
 
     # ------------------------------------------------------------- params io

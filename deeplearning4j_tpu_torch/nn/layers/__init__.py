@@ -10,9 +10,13 @@ the mask a layer hands on is one function both engines call,
 `mask_after`: global pooling consumes it, every other layer passes it
 through.
 
+`PRETRAIN_LOSSES` are the layerwise-pretraining objectives,
+`loss(conf, params, x, key)`, of the pretrainable layers (VAE,
+AutoEncoder, RBM; `MultiLayerNetwork.pretrain`).
+
 `check_supported` is what an engine asks of each layer when it is
-constructed: a layer the port holds as a conf only, or a LoRA adapter,
-raises NotImplementedError naming its ROADMAP item."""
+constructed: a base conf with no forward pass, or a LoRA adapter, raises
+NotImplementedError, the adapter naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -21,15 +25,19 @@ from deeplearning4j_tpu_torch.nn.layers import (
     bottleneck,
     convolution,
     feedforward,
+    moe,
     normalization,
     pooling,
     recurrent,
+    variational,
 )
 
 LAYER_IMPLS = {
     "DenseLayer": feedforward.dense_apply,
     "OutputLayer": feedforward.preoutput,
     "RnnOutputLayer": feedforward.preoutput,
+    "CenterLossOutputLayer": feedforward.preoutput,
+    "LossLayer": feedforward.loss_layer_apply,
     "ActivationLayer": feedforward.activation_apply,
     "DropoutLayer": feedforward.dropout_apply,
     "EmbeddingLayer": feedforward.embedding_apply,
@@ -46,31 +54,33 @@ LAYER_IMPLS = {
     "LSTM": recurrent.standard_lstm_apply,
     "GravesBidirectionalLSTM": recurrent.bidirectional_lstm_apply,
     "SimpleRnn": recurrent.simple_rnn_apply,
+    "AutoEncoder": feedforward.autoencoder_apply,
+    "RBM": feedforward.rbm_apply,
+    "MoELayer": moe.moe_apply,
+    "VariationalAutoencoder": variational.vae_apply,
 }
 
 # Layers whose forward emits a pre-activation (the reference's output-layer
 # family); the engine applies their activation.
-OUTPUT_LAYER_TYPES = {"OutputLayer", "RnnOutputLayer"}
+OUTPUT_LAYER_TYPES = {"OutputLayer", "RnnOutputLayer", "LossLayer",
+                      "CenterLossOutputLayer"}
+
+# Layerwise pretraining objectives (reference `PRETRAIN_LOSSES`).
+PRETRAIN_LOSSES = {
+    "VariationalAutoencoder": variational.vae_pretrain_loss,
+    "AutoEncoder": feedforward.autoencoder_pretrain_loss,
+    "RBM": feedforward.rbm_pretrain_loss,
+}
 
 
 # Layers that consume the features mask (`mask_after`).
 MASK_CONSUMERS = {"GlobalPoolingLayer"}
 
-# Layer confs whose forward pass is still to port, by ROADMAP item.
-CONF_ONLY = {
-    "MoELayer": "A.9", "VariationalAutoencoder": "A.9", "RBM": "A.9",
-    "AutoEncoder": "A.9", "CenterLossOutputLayer": "A.9", "LossLayer": "A.9",
-}
-
 
 def check_supported(key: str, conf) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for a layer the
-    port cannot run yet."""
+    """Raise NotImplementedError for a layer the port cannot run (a LoRA
+    adapter naming its ROADMAP item)."""
     kind = type(conf).__name__
-    if kind in CONF_ONLY:
-        raise NotImplementedError(
-            f"layer {key!r} ({kind}): its forward pass is not in the port "
-            f"yet (ROADMAP {CONF_ONLY[kind]})")
     if kind not in LAYER_IMPLS:
         # BaseOutputLayer, BaseRecurrentLayer: bases that no engine of
         # either package runs.

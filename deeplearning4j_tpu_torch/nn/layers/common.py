@@ -7,20 +7,39 @@ kept with that probability and scaled by 1/retain; None, 0 and 1 disable
 it. It is not `F.dropout`'s drop probability. Kept values are `x / retain`
 in x's dtype (bf16 under `mixed_bfloat16`, as the reference divides).
 
-Every Bernoulli draw of the port goes through `draw_keep`, from the
-layer's `LayerKey` (`nn/prng.py`): a `torch.Generator` on the tensor's
-device, seeded on the host from the reference's key for that layer, so a
-draw needs no host sync and a card tensor's mask is drawn on the card. The
-masks differ from JAX's (threefry's own stream is not sought); a test or a
-card check that needs the reference's masks swaps `draw_keep`. The JAX
-package has no kernel for dropout: it is plain PyTorch on both devices.
+Every random draw of the port goes through one of four functions, each
+from the key the reference draws at: `draw_keep` (dropout and DropConnect
+masks, from the layer's `LayerKey`, `nn/prng.py`), `draw_uniform` (the MoE
+router's jitter), `draw_normal` (the VAE's epsilon, `fold_in(key, s)`) and
+`draw_bernoulli` (the RBM's Gibbs samples, `fold_in(key, 2k)` and
+`fold_in(key, 2k + 1)`, and the AutoEncoder's corruption). Each makes a
+`torch.Generator` on the tensor's device, seeded on the host from the
+key's words, so a draw needs no host sync and a card tensor's draw is made
+on the card. The draws differ from JAX's (threefry's own stream is not
+sought); a test or a card check that needs the reference's draws swaps the
+function. The JAX package has no kernel for any of them: they are plain
+PyTorch on both devices.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+
+
+def key_words(key) -> np.ndarray:
+    """A key's uint32[2] words: a `LayerKey`'s, or a raw key's (the
+    pretraining step's subkey, and what `fold_in` makes of it)."""
+    return key.words if hasattr(key, "words") else np.asarray(key, np.uint32)
+
+
+def _generator(key, device) -> torch.Generator:
+    w0, w1 = (int(w) for w in key_words(key))
+    gen = torch.Generator(device=device)
+    gen.manual_seed((w0 << 32) | w1)
+    return gen
 
 
 def draw_keep(key, retain: float, shape, device) -> torch.Tensor:
@@ -28,9 +47,33 @@ def draw_keep(key, retain: float, shape, device) -> torch.Tensor:
     `retain` (the reference's `jax.random.bernoulli(key, retain, shape)`):
     uniform [0, 1) floats from a generator seeded by `key`, below
     `retain`."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(key.seed())
-    return torch.rand(tuple(shape), generator=gen, device=device) < retain
+    return torch.rand(tuple(shape), generator=_generator(key, device),
+                      device=device) < retain
+
+
+def draw_uniform(key, low: float, high: float, shape, dtype,
+                 device) -> torch.Tensor:
+    """Uniform in [low, high) of `shape` and `dtype` (the reference's
+    `jax.random.uniform(key, shape, dtype, low, high)`)."""
+    u = torch.rand(tuple(shape), generator=_generator(key, device),
+                   dtype=dtype, device=device)
+    return low + (high - low) * u
+
+
+def draw_normal(key, shape, dtype, device) -> torch.Tensor:
+    """Standard normal of `shape` and `dtype` (the reference's
+    `jax.random.normal(key, shape, dtype)`)."""
+    return torch.randn(tuple(shape), generator=_generator(key, device),
+                       dtype=dtype, device=device)
+
+
+def draw_bernoulli(key, p, shape, device) -> torch.Tensor:
+    """A bool tensor of `shape`, each entry True with probability `p`, a
+    float or a tensor of `shape` (the reference's
+    `jax.random.bernoulli(key, p, shape)`)."""
+    dtype = p.dtype if isinstance(p, torch.Tensor) else torch.float32
+    return torch.rand(tuple(shape), generator=_generator(key, device),
+                      dtype=dtype, device=device) < p
 
 
 def _active(retain) -> bool:

@@ -31,10 +31,28 @@ engines' shared params, updaters and in-place update (`engine.py`).
   per call), as the reference's do (`engine.py`, `nn/layers/common.py`);
   inference draws nothing. A features mask reaches every layer, and global
   pooling consumes it (`nn/layers/__init__.py` `mask_after`).
+- The loss adds a `CenterLossOutputLayer`'s center term, and the MoE
+  layers' load-balance terms undivided by the batch (`engine.py`
+  `take_aux_loss`, `center_loss`); a training step also moves the
+  layer's class centers.
+- `pretrain(iterator, epochs)` is layerwise pretraining (reference `:999-
+  1062`): for each pretrainable layer in order (AutoEncoder, RBM, VAE:
+  `PRETRAIN_LOSSES`), `epochs` passes over the data, one step a batch:
+  the stack below it run in inference mode and its input preprocessor,
+  then the layer's own objective from a new subkey of the train key
+  (`_next_rng`, so the key and the iteration carry on into `fit`), its
+  gradient, and its own updater and learning-rate schedule at the
+  iteration's step, with no l1/l2, no gradient normalization and no
+  bias-rate factor (the fused updaters in one `apply_step`, row 9 on the
+  card). Listeners get `iteration_done` after every step. `fit` runs it
+  first when the conf says `pretrain`, and its backprop pass only when
+  the conf says `backprop`. (The reference also refuses pretraining under
+  low-precision params or loss scaling; the port refuses those policies
+  when the network is built, ROADMAP A.7.)
 
 What `fit` does not run yet raises NotImplementedError naming its ROADMAP
-item: solvers and superstep (A.10), frozen layers (A.12), layerwise
-pretraining (A.9) and f16 loss scaling (A.7).
+item: solvers and superstep (A.10), frozen layers (A.12) and f16 loss
+scaling (A.7).
 """
 
 from __future__ import annotations
@@ -47,15 +65,22 @@ import torch
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterators import maybe_reset
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+from deeplearning4j_tpu_torch.kernels import fused_update
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn import params as params_mod
 from deeplearning4j_tpu_torch.nn import rnn_state as rnn_mod
 from deeplearning4j_tpu_torch.nn.conf import preprocessors as pre_mod
 from deeplearning4j_tpu_torch.nn.conf.neural_net import MultiLayerConfiguration
-from deeplearning4j_tpu_torch.nn.engine import NetworkEngine, to_numpy
+from deeplearning4j_tpu_torch.nn.engine import (
+    NetworkEngine,
+    center_loss,
+    take_aux_loss,
+    to_numpy,
+)
 from deeplearning4j_tpu_torch.nn.layers import (
     OUTPUT_LAYER_TYPES,
+    PRETRAIN_LOSSES,
     get_impl,
     mask_after,
 )
@@ -91,12 +116,16 @@ class MultiLayerNetwork(NetworkEngine):
     # --------------------------------------------------------------- forward
 
     def _forward(self, params, state, x, fmask, keep_rnn_state: bool,
-                 train: bool = False, collect: bool = False, key=None):
-        """Run the layers; returns (the last layer's raw output at the
-        compute dtype, new layer state, every layer's output when
-        `collect`). Declared state comes back always, the recurrent
-        layers' h and c only with `keep_rnn_state`. `key` (a train
-        forward's subkey) gives layer i its draws' `LayerKey(key, i)`."""
+                 train: bool = False, collect: bool = False, key=None,
+                 upto=None, aux=None):
+        """Run the layers (the first `upto` of them if given); returns
+        (the last layer's raw output at the compute dtype, new layer
+        state, every layer's output when `collect`). Declared state comes
+        back always, the recurrent layers' h and c only with
+        `keep_rnn_state`. `key` (a train forward's subkey) gives layer i
+        its draws' `LayerKey(key, i)`. A dict as `aux` collects what the
+        loss needs beside the output: the MoE layers' `aux_loss`, a
+        center-loss layer's input and centers."""
         x = pre_mod.apply_uint8_policy(
             torch.as_tensor(x, device=self.device), self._uint8_policy,
             self.dtype_policy.compute_dtype)
@@ -104,12 +133,19 @@ class MultiLayerNetwork(NetworkEngine):
                 else torch.as_tensor(fmask, device=self.device))
         new_state, acts = {}, []
         pre = self.conf.input_preprocessors
-        for i, (lk, layer) in enumerate(zip(self.layer_keys, self.layers)):
+        n = len(self.layers) if upto is None else upto
+        for i, (lk, layer) in enumerate(zip(self.layer_keys[:n],
+                                            self.layers[:n])):
             if i in pre:
                 x, mask = pre[i](x, mask)
+            if aux is not None and type(layer).__name__ == \
+                    "CenterLossOutputLayer":
+                aux["center_loss_input"] = x
+                aux["centers"] = state.get(lk, {}).get("centers")
             x, lstate = get_impl(layer)(
                 layer, params.get(lk, {}), state.get(lk, {}), x, train=train,
                 mask=mask, rng=None if key is None else LayerKey(key, i))
+            lstate = take_aux_loss(lstate, aux)
             mask = mask_after(layer, mask)
             if lstate:
                 declared = set(layer.state_shapes())
@@ -157,10 +193,12 @@ class MultiLayerNetwork(NetworkEngine):
 
     # ------------------------------------------------------------------ loss
 
-    def _loss(self, params, preout, labels, lmask, eb=None):
+    def _loss(self, params, preout, labels, lmask, aux, eb=None):
         """The output layer's loss in the loss dtype, summed over entries
-        and divided by `eb` (default: the minibatch rows), plus the l1/l2
-        penalty over the same divisor (reference `_loss_from_preout`)."""
+        and divided by `eb` (default: the minibatch rows), a center-loss
+        layer's center term over the same divisor, the MoE layers'
+        `aux_loss` undivided, plus the l1/l2 penalty over `eb` (reference
+        `_loss_from_preout`); and the state the step moves (the centers)."""
         layer = self.layers[-1]
         if type(layer).__name__ not in OUTPUT_LAYER_TYPES:
             raise ValueError(f"the last layer ({type(layer).__name__}) is "
@@ -170,7 +208,16 @@ class MultiLayerNetwork(NetworkEngine):
         data_loss = losses_mod.score(
             layer.loss_function, labels, preout.to(self._loss_dtype),
             layer.activation, lmask, eb=eb)
-        return data_loss + self._l1_l2_penalty(params) / eb
+        extra = {}
+        if type(layer).__name__ == "CenterLossOutputLayer":
+            term, centers = center_loss(
+                layer, aux["center_loss_input"], aux["centers"], labels,
+                lmask, eb, self._loss_dtype)
+            data_loss = data_loss + term
+            extra[self.layer_keys[-1]] = {"centers": centers}
+        if "aux_loss" in aux:
+            data_loss = data_loss + aux["aux_loss"]
+        return data_loss + self._l1_l2_penalty(params) / eb, extra
 
     def _batch(self, ds: DataSet):
         """Features, labels and masks of one DataSet, on the device."""
@@ -182,10 +229,13 @@ class MultiLayerNetwork(NetworkEngine):
     def score(self, data, labels=None) -> float:
         """Loss of the current params on one batch (syncs)."""
         x, y, fmask, lmask = self._batch(_as_dataset(data, labels))
+        aux = {}
         with torch.inference_mode():
             preout, _, _ = self._forward(self._compute_copy(), self.state, x,
-                                         fmask, keep_rnn_state=False)
-            return float(self._loss(self.params_tree, preout, y, lmask))
+                                         fmask, keep_rnn_state=False,
+                                         aux=aux)
+            return float(self._loss(self.params_tree, preout, y, lmask,
+                                    aux)[0])
 
     # ------------------------------------------------------------------- fit
 
@@ -194,8 +244,7 @@ class MultiLayerNetwork(NetworkEngine):
         labels`: one pass (reference `fit`, :775)."""
         if self.params_tree is None:
             self.init()
-        self._check_trainable(
-            (self.conf.pretrain, "layerwise pretraining (RBM, AE, VAE)", 9))
+        self._check_trainable()
         if labels is not None or isinstance(data, DataSet) or (
                 isinstance(data, tuple) and len(data) == 2
                 and not isinstance(data[0], DataSet)):
@@ -203,6 +252,12 @@ class MultiLayerNetwork(NetworkEngine):
         else:
             items = data
         maybe_reset(items)
+        if self.conf.pretrain:
+            if not hasattr(items, "reset") and not isinstance(
+                    items, (list, tuple)):
+                items = list(items)  # both passes read a one-shot iterable
+            self.pretrain(items)
+            maybe_reset(items)
         for listener in self.listeners:
             listener.on_epoch_start(self)
         if self.conf.backprop:
@@ -247,10 +302,14 @@ class MultiLayerNetwork(NetworkEngine):
         with torch.inference_mode(False), torch.enable_grad():
             params = params_mod.cast_floating(self.params_tree,
                                               self.dtype_policy.compute_dtype)
+            aux = {}
             preout, new_state, _ = self._forward(
                 params, self.state, x, fmask, keep_rnn_state=carry_rnn,
-                train=True, key=self._next_rng())
-            loss = self._loss(self.params_tree, preout, y, lmask, eb)
+                train=True, key=self._next_rng(), aux=aux)
+            loss, extra = self._loss(self.params_tree, preout, y, lmask, aux,
+                                     eb)
+        for lk, s in extra.items():
+            new_state.setdefault(lk, {}).update(s)
         return loss, new_state
 
     def _fit_tbptt(self, ds: DataSet) -> None:
@@ -284,6 +343,68 @@ class MultiLayerNetwork(NetworkEngine):
         self.state = {lk: s for lk, s in kept.items() if s}
         for lk, s in saved_state.items():
             self.state.setdefault(lk, s)
+        self._iteration_done()
+
+    # ------------------------------------------------------------- pretrain
+
+    def pretrain(self, iterator, epochs: int = 1) -> "MultiLayerNetwork":
+        """Layerwise unsupervised pretraining of the AutoEncoder, RBM and
+        VAE layers (see the module docstring; reference `pretrain`)."""
+        if self.params_tree is None:
+            self.init()
+        if isinstance(iterator, DataSet):
+            iterator = [iterator]
+        elif not hasattr(iterator, "reset") and not isinstance(
+                iterator, (list, tuple)):
+            iterator = list(iterator)  # every layer and epoch reads it
+        for i, layer in enumerate(self.layers):
+            loss_impl = PRETRAIN_LOSSES.get(type(layer).__name__)
+            if loss_impl is None:
+                continue
+            for _ in range(max(1, epochs)):
+                maybe_reset(iterator)
+                for ds in iterator:
+                    self._pretrain_step(i, layer, loss_impl,
+                                        _as_dataset(ds).features)
+        return self
+
+    def _pretrain_step(self, i: int, layer, loss_impl, x) -> None:
+        """One step of layer i's own objective (reference
+        `_pretrain_step`)."""
+        lk = self.layer_keys[i]
+        params = self.params_tree[lk]
+        key = self._next_rng()
+        with torch.no_grad():
+            h, _, _ = self._forward(self._compute_copy(), self.state, x, None,
+                                    keep_rnn_state=False, upto=i)
+            prep = self.conf.input_preprocessors.get(i)
+            if prep is not None:
+                h, _ = prep(h, None)
+            # The objective reads the stored params (bf16 activations
+            # promote to them, as in the reference).
+            h = h.to(self.dtype_policy.param_dtype)
+        with torch.inference_mode(False), torch.enable_grad():
+            loss = loss_impl(layer, params, h, key)
+            names = list(params)
+            flat = torch.autograd.grad(loss, [params[k] for k in names],
+                                       allow_unused=True)
+        grads = {k: (torch.zeros_like(params[k]) if g is None
+                     else g.contiguous()) for k, g in zip(names, flat)}
+        step = self.iteration
+        lr = self._schedules[lk](step)
+        updater = self._updaters[lk]
+        with torch.no_grad():
+            if updater.fused is not None:
+                kind, hyper = updater.fused
+                self.opt_state[lk], = fused_update.apply_step(
+                    kind, hyper, [fused_update.UpdateItem(
+                        params, self.opt_state[lk], grads, lr)], step, 1.0)
+            else:
+                self.opt_state[lk], deltas = updater.update(
+                    self.opt_state[lk], grads, lr, step)
+                fused_update.apply_deltas(params, deltas, None, 1.0)
+        self._compute_params = None  # the inference copy is stale now
+        self._score = loss.detach()
         self._iteration_done()
 
     # ------------------------------------------------------------------ rnn

@@ -25,6 +25,8 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     GravesBidirectionalLSTM,
     GravesLSTM,
     LayerNormalization,
+    MoELayer,
+    VariationalAutoencoder,
     is_bias_param,
 )
 
@@ -33,13 +35,19 @@ from deeplearning4j_tpu_torch.nn.weights import init_weights
 
 
 def _fans(conf, name, shape):
-    """The reference's fans (`params.py:35-44`): an HWIO conv kernel has
-    fan_in = cin*kh*kw and fan_out = cout*kh*kw (the bottleneck's branch
-    kernels too); dense weights fan_in = shape[0], fan_out = shape[1]."""
+    """The reference's fans (`params.py:35-52, 95-100`): an HWIO conv
+    kernel has fan_in = cin*kh*kw and fan_out = cout*kh*kw (the
+    bottleneck's branch kernels too); an MoE expert table [E, in, out] the
+    per-expert matmul's in and out, not the stacked axis; the VAE's and
+    dense weights fan_in = shape[0], fan_out = shape[1]."""
     if (isinstance(conf, ConvolutionLayer) and name == "W") or (
             isinstance(conf, BottleneckBlock) and len(shape) == 4):
         kh, kw, cin, cout = shape
         return cin * kh * kw, cout * kh * kw
+    if isinstance(conf, MoELayer) and len(shape) == 3:
+        return shape[1], shape[2]
+    if isinstance(conf, VariationalAutoencoder):
+        return shape[0], shape[1]
     if isinstance(conf, _LSTMS):
         # The reference inits the packed LSTM blocks with fans n_in (or
         # n_out for RW) and n_out, not the 4x packed width.

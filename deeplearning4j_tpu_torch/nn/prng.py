@@ -81,8 +81,3 @@ class LayerKey:
         for p in self.path:
             key = split(key)[p]
         return key
-
-    def seed(self) -> int:
-        """The key as one 64-bit seed."""
-        w0, w1 = _words(self.words)
-        return (w0 << 32) | w1

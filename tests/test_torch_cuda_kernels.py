@@ -1891,3 +1891,192 @@ def test_dropout_draws_on_a_cuda_generator(cuda):
     corr = float(((a - a.mean()) * (b - b.mean())).mean()
                  / (a.std() * b.std()))
     assert abs(corr) < 0.01
+
+
+@pytest.fixture
+def shared_draws(monkeypatch):
+    """The port's draws made on the CPU and moved, so the card and the CPU
+    see the same noise."""
+    from deeplearning4j_tpu_torch.nn.layers import common
+
+    was = {k: getattr(common, k) for k in (
+        "draw_keep", "draw_uniform", "draw_normal", "draw_bernoulli")}
+    monkeypatch.setattr(common, "draw_keep", lambda key, r, shape, d: was[
+        "draw_keep"](key, r, shape, "cpu").to(d))
+    monkeypatch.setattr(common, "draw_uniform", lambda key, lo, hi, shape,
+                        dt, d: was["draw_uniform"](key, lo, hi, shape, dt,
+                                                   "cpu").to(d))
+    monkeypatch.setattr(common, "draw_normal", lambda key, shape, dt, d: was[
+        "draw_normal"](key, shape, dt, "cpu").to(d))
+    monkeypatch.setattr(common, "draw_bernoulli", lambda key, p, shape, d: was[
+        "draw_bernoulli"](key, p.cpu() if isinstance(p, torch.Tensor) else p,
+                          shape, "cpu").to(d))
+
+
+def _rel_close(got, want, tol=1e-4):
+    want = want.detach().float().cpu()
+    err = float((got.detach().float().cpu() - want).abs().max())
+    assert err <= tol * float(want.abs().max()), (err, tol)
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, shared_draws, top_k):
+    # The MoE FFN (plain PyTorch on both devices, f32 inside, as the
+    # reference's XLA path): the same routing exactly (choices, slots,
+    # kept), y and the gradients within 1e-4 of their largest value, under
+    # capacity pressure and jitter.
+    from deeplearning4j_tpu_torch.nn import prng
+    from deeplearning4j_tpu_torch.parallel import expert
+
+    rng = np.random.RandomState(43)
+    p = {"gate_w": rng.randn(64, 4), "w1": rng.randn(4, 64, 256) * 0.1,
+         "b1": rng.randn(4, 256) * 0.1, "w2": rng.randn(4, 256, 64) * 0.1,
+         "b2": rng.randn(4, 64) * 0.1}
+    x = rng.randn(4096, 64)
+    dy = torch.tensor(rng.randn(4096, 64), dtype=torch.float32)
+    key = prng.LayerKey(prng.prng_key(5), 1)
+    out = {}
+    for dev in ("cpu", cuda):
+        px = {k: torch.tensor(v, dtype=torch.float32, device=dev,
+                              requires_grad=True) for k, v in p.items()}
+        xx = torch.tensor(x, dtype=torch.float32, device=dev,
+                          requires_grad=True)
+        routing = []
+        y, aux = expert.moe_ffn(px, xx, capacity_factor=0.9, top_k=top_k,
+                                rng=key, jitter_eps=0.05, return_aux=True,
+                                routing=routing)
+        ((y * dy.to(dev)).sum() + aux).backward()
+        out[str(dev)] = (y, aux, routing[0], xx.grad,
+                         {k: a.grad for k, a in px.items()})
+    (yc, ac, rc, dxc, gc), (yp, ap, rp, dxp, gp) = out["cuda"], out["cpu"]
+    assert yc.is_cuda
+    for f in ("expert", "slot", "keep"):
+        assert torch.equal(getattr(rc, f).cpu(), getattr(rp, f)), f
+    assert not bool(rp.keep.all())  # capacity pressure drops tokens
+    for got, want in ((yc, yp), (ac, ap), (rc.gate, rp.gate), (dxc, dxp),
+                      *((gc[k], gp[k]) for k in p)):
+        _rel_close(got, want)
+
+
+def test_moe_lm_step_launches_what_the_dense_lm_step_does(cuda):
+    # A bf16 MoE LM step on the card: 2 * blocks + 1 LayerNorm, blocks
+    # each of rows 5, 6 dq and 6 dk/dv (tensor cores), one update launch,
+    # no plain version; the score finite.
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    net = ComputationGraph(zoo.transformer_lm(
+        256, t=128, d_model=128, n_heads=2, n_blocks=2, moe=True,
+        dtype="bfloat16"), device=cuda).init()
+    ids = torch.randint(0, 256, (2, 129), device=cuda)
+    batch = MultiDataSet([ids[:, :-1, None]], [ids[:, 1:].int()])
+    net.fit(batch)
+    kernels.reset_counts()
+    net.fit(batch)
+    torch.cuda.synchronize()
+    got = kernels.counts()
+    want = {n: 0 for n in kernels.KERNELS}
+    want.update(layernorm_norm_act=5, flash_attention_fwd_lse=2,
+                flash_attention_bwd_dq=2, flash_attention_bwd_dkv=2,
+                fused_update=1)
+    assert got["launches"] == want
+    assert not any(got["plain_calls"].values())
+    assert np.isfinite(net.score_value)
+
+
+def _pretrain_net_conf(kind):
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+        NeuralNetConfiguration)
+
+    b = (NeuralNetConfiguration.builder().seed(3).learning_rate(1e-3)
+         .updater("rmsprop" if kind == "vae" else "adam").list())
+    if kind == "vae":
+        b = b.layer(L.VariationalAutoencoder(
+            n_out=2, encoder_layer_sizes=(64, 64), decoder_layer_sizes=(64,),
+            reconstruction_distribution="bernoulli", activation="leakyrelu"))
+    elif kind == "ae_rbm":
+        b = (b.layer(L.AutoEncoder(n_out=48, corruption_level=0.3,
+                                   activation="sigmoid"))
+             .layer(L.RBM(n_out=32, k=1)))
+    else:
+        b = b.layer(L.DenseLayer(n_out=32, activation="tanh"))
+    last = (L.CenterLossOutputLayer(n_out=10, activation="softmax",
+                                    loss_function="mcxent", alpha=0.3)
+            if kind == "center_loss" else
+            L.LossLayer(activation="softmax", loss_function="mcxent")
+            if kind == "loss_layer" else
+            L.OutputLayer(n_out=10, activation="softmax",
+                          loss_function="mcxent"))
+    if kind == "loss_layer":
+        b = b.layer(L.DenseLayer(n_out=10))
+    return (b.layer(last).pretrain(kind in ("vae", "ae_rbm"))
+            .backprop(kind != "vae")
+            .set_input_type(InputType.feed_forward(100)).build())
+
+
+@pytest.mark.parametrize("kind", ["vae", "ae_rbm", "center_loss",
+                                  "loss_layer"])
+def test_pretrain_and_last_layers_on_the_card_match_the_cpu(cuda,
+                                                            shared_draws,
+                                                            kind):
+    # One `fit` call (pretraining steps first where the conf says so) from
+    # the same params with the same draws: one update launch a step, no
+    # plain version; scores, updater state and declared state (the
+    # centers) within 1e-3 of their largest value (f32; the normalised
+    # updaters' first step is about lr * sign(g)).
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    rng = np.random.RandomState(44)
+    x = (rng.rand(32, 100) > 0.5).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, 32)]
+    conf = _pretrain_net_conf(kind)
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    card = MultiLayerNetwork(conf, device=cuda).init(params={
+        k: {n: a.detach() for n, a in p.items()}
+        for k, p in cpu.params_tree.items()})
+    cpu.fit(DataSet(x, y))
+    kernels.reset_counts()
+    card.fit(DataSet(x, y))
+    torch.cuda.synchronize()
+    got = kernels.counts()
+    assert got["launches"]["fused_update"] == card.iteration > 0
+    assert not any(got["plain_calls"].values())
+    assert card.iteration == cpu.iteration
+    np.testing.assert_allclose(card.score_value, cpu.score_value, rtol=1e-3)
+    for lk, st in cpu.opt_state.items():
+        for f, s in st.items():
+            for k, a in s.items():
+                _rel_close(card.opt_state[lk][f][k], a, 1e-3)
+    for lk, st in cpu.state.items():
+        for k, a in st.items():
+            _rel_close(card.state[lk][k], a, 1e-3)
+            assert a.abs().max() > 0  # the centers moved
+
+
+def test_the_new_draws_on_a_cuda_generator(cuda):
+    # The jitter, epsilon and Gibbs draws on a card tensor are made on the
+    # card from the key: the same key the same draw, another key another,
+    # the distributions as named.
+    from deeplearning4j_tpu_torch.nn import prng
+    from deeplearning4j_tpu_torch.nn.layers import common
+
+    k1, k2 = prng.split(prng.prng_key(9))
+    n = 1 << 20
+    u = common.draw_uniform(prng.LayerKey(k1, 2), 0.99, 1.01, (n,),
+                            torch.float32, cuda)
+    assert u.is_cuda and float(u.min()) >= 0.99 and float(u.max()) < 1.01
+    assert torch.equal(u, common.draw_uniform(prng.LayerKey(k1, 2), 0.99,
+                                              1.01, (n,), torch.float32,
+                                              cuda))
+    z = common.draw_normal(k1, (n,), torch.float32, cuda)
+    assert z.is_cuda and abs(float(z.mean())) < 0.01
+    assert abs(float(z.std()) - 1.0) < 0.01
+    assert not torch.equal(z, common.draw_normal(k2, (n,), torch.float32,
+                                                 cuda))
+    p = torch.full((n,), 0.3, device=cuda)
+    b = common.draw_bernoulli(prng.fold_in(k1, 1), p, (n,), cuda)
+    assert b.is_cuda and abs(float(b.float().mean()) - 0.3) < 0.005

@@ -17,8 +17,8 @@ construction.
   1e-6 (f32: sums in another order). A stack holding a `DropoutLayer`
   trains under the reference's own dropout masks (the port's draw
   function swapped for `jax.random.bernoulli` at the reference's keys);
-  one holding a `MoELayer` raises NotImplementedError at construction,
-  naming A.9.
+  one holding a `MoELayer` trains with the reference's routing (its
+  jitter's `draw_uniform` swapped for `jax.random.uniform` too).
 - Vertices: each vertex's `apply` against the reference's, output and
   gradient (one seeded cotangent) within 1e-6 in f32; `MergeVertex` on an
   NHWC input, `ElementWiseVertex` in all five ops, `L2Vertex` at equal
@@ -112,6 +112,14 @@ def jax_draw(key, retain, shape, device):
     for the port's `common.draw_keep`)."""
     keep = jax.random.bernoulli(jnp.asarray(key.words), retain, tuple(shape))
     return torch.from_numpy(np.array(keep)).to(device)
+
+
+def jax_uniform(key, low, high, shape, dtype, device):
+    """The reference's MoE router jitter for the layer `key` names (swapped
+    in for the port's `common.draw_uniform`); f32 nets only."""
+    u = jax.random.uniform(jnp.asarray(common.key_words(key)), tuple(shape),
+                           jnp.float32, low, high)
+    return torch.from_numpy(np.array(u)).to(device, dtype)
 
 
 def _assert_json_parity(port_conf, jax_conf, port_cls, jax_cls):
@@ -324,11 +332,8 @@ def _assert_step(pnet, jnet):
 @pytest.mark.parametrize("i", range(12))
 def test_fuzz_stack_trains_as_the_reference(i, monkeypatch):
     pconf, rnn, kind = _fuzz_stack_conf(i, PORT)
-    if "MoELayer" in {type(x).__name__ for x in pconf.layers}:
-        with pytest.raises(NotImplementedError, match="A.9"):
-            MultiLayerNetwork(pconf, device="cpu")
-        return
     monkeypatch.setattr(common, "draw_keep", jax_draw)
+    monkeypatch.setattr(common, "draw_uniform", jax_uniform)
     jnet = JaxMLN(_fuzz_stack_conf(i, JAX)[0]).init()
     pnet = MultiLayerNetwork(pconf, device="cpu").init(
         params=interop.params_from_numpy(_np_tree(jnet.params_tree)),
@@ -692,22 +697,31 @@ def test_unknown_keys_raise_and_none_is_dropped():
 @pytest.mark.parametrize("layer,item", [
     (lambda m: m.DropoutLayer(dropout=0.5), None),
     (lambda m: m.LocalResponseNormalization(), None),
-    (lambda m: m.MoELayer(n_out=8, n_experts=2), "A.9"),
-    (lambda m: m.VariationalAutoencoder(n_out=4), "A.9"),
-    (lambda m: m.RBM(n_out=4), "A.9"),
-    (lambda m: m.AutoEncoder(n_out=4), "A.9"),
-    (lambda m: m.CenterLossOutputLayer(n_out=3), "A.9"),
-    (lambda m: m.LossLayer(), "A.9"),
+    (lambda m: m.MoELayer(n_out=8, n_experts=2, router_jitter=0.1), None),
+    (lambda m: m.VariationalAutoencoder(n_out=4), None),
+    (lambda m: m.RBM(n_out=4), None),
+    (lambda m: m.AutoEncoder(n_out=4), None),
+    (lambda m: m.CenterLossOutputLayer(n_out=3), None),
+    (lambda m: m.LossLayer(), None),
     (lambda m: m.DenseLayer(n_out=8, lora_rank=2), "A.12"),
 ], ids=["dropout", "lrn", "moe", "vae", "rbm", "ae", "center_loss",
         "loss_layer", "lora"])
 def test_construction_refuses_a_conf_only_layer(layer, item, monkeypatch):
-    # A layer still held as a conf only raises, naming its ROADMAP item; a
-    # layer this port runs (item None: DropoutLayer and LRN, A.4's) builds
-    # in both engines and runs as the reference's, the dropout under the
-    # reference's own masks.
+    # No layer conf is held as a conf only any more: each layer (item
+    # None) builds in both engines and runs as the reference's, the
+    # dropout under the reference's own masks and the MoE under its
+    # jitter. DropoutLayer and LRN (A.4's) after a convolution; MoE, VAE,
+    # RBM, AutoEncoder (A.9's) between dense layers, CenterLossOutputLayer
+    # and LossLayer (A.9's) as the output, each also taking one `fit` step
+    # (score, params, updater state, the centers). A LoRA adapter still
+    # raises, naming its ROADMAP item.
     if item is None:
         monkeypatch.setattr(common, "draw_keep", jax_draw)
+        monkeypatch.setattr(common, "draw_uniform", jax_uniform)
+        if type(layer(layers)).__name__ not in ("DropoutLayer",
+                                                "LocalResponseNormalization"):
+            _a9_layer_runs_as_the_reference(layer)
+            return
 
         def conf(ns):
             return (ns.NN.NeuralNetConfiguration.builder().seed(2).list()
@@ -747,6 +761,65 @@ def test_construction_refuses_a_conf_only_layer(layer, item, monkeypatch):
          .set_input_types(inputs.InputType.feed_forward(8)).build())
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ComputationGraph(g, device="cpu")
+
+
+def _a9_layer_runs_as_the_reference(layer):
+    """An A.9 layer in both engines against the reference: a dense layer,
+    the layer, then an OutputLayer unless the layer is an output layer
+    itself; `output`, one Adam `fit` step, the declared state."""
+    is_output = type(layer(layers)).__name__ in ("CenterLossOutputLayer",
+                                                 "LossLayer")
+    width = 3 if is_output else 8
+
+    def body(ns, add):
+        add("h", ns.L.DenseLayer(n_out=width, activation="tanh"))
+        add("x", layer(ns.L))
+        if not is_output:
+            add("out", ns.L.OutputLayer(n_out=3, activation="softmax",
+                                        loss_function="mcxent"))
+
+    def mln(ns):
+        b = (ns.NN.NeuralNetConfiguration.builder().seed(2).updater("adam")
+             .learning_rate(0.01).list())
+        body(ns, lambda name, lay: b.layer(lay))
+        return b.set_input_type(ns.I.feed_forward(6)).build()
+
+    def cg(ns):
+        gb = (ns.NN.NeuralNetConfiguration.builder().seed(2).updater("adam")
+              .learning_rate(0.01).graph_builder().add_inputs("in"))
+        prev = ["in"]
+
+        def add(name, lay):
+            gb.add_layer(name, lay, prev[0])
+            prev[0] = name
+
+        body(ns, add)
+        return (gb.set_outputs(prev[0])
+                .set_input_types(ns.I.feed_forward(6)).build())
+
+    rng = np.random.RandomState(6)
+    x = rng.randn(5, 6).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.randint(0, 3, 5)]
+    for mk, graph in ((mln, False), (cg, True)):
+        jnet = (JaxGraph if graph else JaxMLN)(mk(JAX)).init()
+        pnet = (ComputationGraph if graph else MultiLayerNetwork)(
+            mk(PORT), device="cpu").init(
+            params=interop.params_from_numpy(_np_tree(jnet.params_tree)),
+            state=interop.state_from_numpy(_np_tree(jnet.state)))
+        first = (lambda o: o[0]) if graph else (lambda o: o)
+        np.testing.assert_allclose(first(pnet.output(x)),
+                                   np.asarray(first(jnet.output(x))), **F32)
+        if graph:
+            jnet.fit(JaxMDS(features=[x], labels=[y]))
+            pnet.fit(MultiDataSet([x], [y]))
+        else:
+            jnet.fit(JaxDataSet(x, y))
+            pnet.fit(DataSet(x, y))
+        _assert_step(pnet, jnet)
+        for name, st in pnet.state.items():
+            for k, a in st.items():
+                np.testing.assert_allclose(
+                    a.numpy(), np.asarray(jnet.state[name][k]), **F32)
 
 
 @pytest.mark.parametrize("drop", [dict(dropout=0.5),
@@ -826,8 +899,8 @@ def test_embedding_reads_the_reference_input_formats(form):
 def test_conf_only_zoo_models(name):
     # VGG-16 (at its fixed 224, B=1) and AlexNet (at 67, B=2) run `output`
     # from the reference's params and match it, f32 (ROADMAP A.4's "done
-    # when"); the classifier runs under a features mask; the MoE LM is
-    # still a conf only (A.9).
+    # when"); the classifier runs under a features mask; the MoE LM runs
+    # `output` from the reference's params and matches it, f32 (A.9's).
     if name in ("vgg16", "alexnet"):
         def conf(m):
             if name == "vgg16":
@@ -858,8 +931,13 @@ def test_conf_only_zoo_models(name):
         out = net.output(x, features_masks=[mask])[0]
         assert out.shape == (2, 3)
         return
-    with pytest.raises(NotImplementedError, match="A.9"):
-        engine(conf, device="cpu")
+    jnet = JaxGraph(ZOO[name](jax_zoo)).init()
+    net = engine(conf, device="cpu").init(
+        params=interop.params_from_numpy(_np_tree(jnet.params_tree)))
+    ids = np.random.RandomState(5).randint(0, 64, (2, 32, 1))
+    np.testing.assert_allclose(
+        net.output(ids.astype(np.int64))[0],
+        np.asarray(jnet.output(ids.astype(np.float32))[0]), **F32)
 
 
 def test_dtype_policy_round_trips_and_refuses_what_the_port_lacks():

@@ -98,7 +98,12 @@ def test_every_port_module_imports_without_jax():
             "deeplearning4j_tpu_torch.earlystopping.scorecalc",
             "deeplearning4j_tpu_torch.earlystopping.termination",
             "deeplearning4j_tpu_torch.earlystopping.saver",
-            "deeplearning4j_tpu_torch.earlystopping.trainer"} <= set(mods)
+            "deeplearning4j_tpu_torch.earlystopping.trainer",
+            "deeplearning4j_tpu_torch.parallel.expert",
+            "deeplearning4j_tpu_torch.nn.layers.moe",
+            "deeplearning4j_tpu_torch.nn.layers.variational",
+            "deeplearning4j_tpu_torch.nn.layers.common",
+            "deeplearning4j_tpu_torch.nn.prng"} <= set(mods)
     code = (
         "import sys\n"
         "for blocked in ('jax', 'jaxlib', 'ml_dtypes', "

@@ -423,10 +423,17 @@ def test_fit_refuses_what_the_port_lacks(monkeypatch):
     conf.global_conf.optimization_algo = "lbfgs"
     with pytest.raises(NotImplementedError, match="solvers.*A.10"):
         MultiLayerNetwork(conf, device="cpu").fit(DataSet(x, y))
+    # Layerwise pretraining is in: a char-RNN has no pretrainable layer,
+    # so with `pretrain` set its fit is the plain fit.
+    plain = MultiLayerNetwork(zoo.char_rnn(vocab_size=V, hidden=8),
+                              device="cpu").init()
     conf = zoo.char_rnn(vocab_size=V, hidden=8)
     conf.pretrain = True
-    with pytest.raises(NotImplementedError, match="pretraining.*A.9"):
-        MultiLayerNetwork(conf, device="cpu").fit(DataSet(x, y))
+    pre = MultiLayerNetwork(conf, device="cpu").init()
+    plain.fit(DataSet(x, y))
+    pre.fit(DataSet(x, y))
+    np.testing.assert_array_equal(pre.params(), plain.params())
+    assert pre.iteration == plain.iteration == 1
     conf = zoo.char_rnn(vocab_size=V, hidden=8, dtype="float16")
     with pytest.raises(NotImplementedError, match="loss scaling.*A.7"):
         MultiLayerNetwork(conf, device="cpu")
