@@ -11,8 +11,9 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               prints each kernel's `-Xptxas -v` lines, and apart those of
               the tensor-core kernels (`stream_fwd_wgmma_kernel`,
               `stream_dq_wgmma_kernel`, `stream_dkv_wgmma_kernel`:
-              registers, shared memory, spills), by schedule: `<D, list>`
-              for rows 4 and 7, `<D, rows>` for rows 3, 5 and 6.
+              registers, shared memory, spills), by schedule and element
+              type: `<D, list, bf16>` for rows 4 and 7, `<D, rows, bf16>`
+              and `<D, rows, f16>` for rows 3, 5 and 6.
 2. kernels  - each hand-written kernel at its main path's shapes (serving:
               the prefill and decode shapes; training: B=16, T=1024, 8
               heads of 64, the LM step's 16,384 LayerNorm rows, and the 24
@@ -76,15 +77,16 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
 7. resnet_kernels - BatchNorm apply (row 2) at T1's stem and widest
               BatchNorms, the bottleneck block in training (row 11) at T2's
               8 distinct block shapes and in inference (row 12) at I1's 8,
-              plus one int8 inference shape, and in bf16 also row 12 at
-              I1's 8 shapes and row 2 at I1's stem at B=1 (the smallest
-              /predict bucket), in bf16 and f32, against their
-              plain versions on the card (rtol = atol = 6e-2 in bf16, a
+              and in bf16 also row 12's int8 form at I1's 8 shapes at B=32
+              (Q1's), and row 12 at I1's 8 shapes and row 2 at I1's stem
+              at B=1 (the smallest /predict bucket), in bf16 and f32,
+              against their plain versions on the card (rtol = atol =
+              6e-2 in bf16, a
               bf16 block against its plain version run in f32 on the same
               inputs; 1e-4 in f32 with TF32 off; the batch statistics too),
               timed as the kernels phase times its kernels. Each block row
               names the form its call took (`variant`: every bf16 block but
-              the int8 one on the tensor cores, or the row fails), its
+              the int8 ones on the tensor cores, or the row fails), its
               convolutions' TFLOP/s over its device time, and the device
               time of cuDNN's bf16 channels_last convolutions of the same
               block alone (a reference point, not the library column).
@@ -405,7 +407,52 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               reported), accuracy on the 10,000 test images (LeNet's >=
               0.95), the centers moved; ms a step, peak memory. The
               phase's wall seconds.
-30. trace   - where one decode step's, one 1024-token prefill's, one LM
+30. precision_kernels (run right after kernels) - the f16 forms of rows
+              1 (the LM step's 16,384 rows), 3 (the prefill's [1, 1024, 8,
+              64] causal), 5 and 6 ([16, 1024, 8, 64] causal) against
+              their plain versions on the card at rtol = atol = 1e-2, held
+              row by row as bf16 is (1e-2), timed beside the bound at 989
+              TFLOP/s and F.layer_norm / SDPA in f16; row 9 at the LM's 66
+              tensors with its skip flag set (nothing written, bit for
+              bit) and clear (the no-flag f32 result, bit for bit), and in
+              its low-precision mode (bf16 and f16 stored params beside
+              the f32 masters: masters bit for bit the f32 mode's, stored
+              params their cast), timed beside its 30 B a param bound.
+31. precision - P2a: the LM (the train phase's model) under
+              mixed_float16 (f32 params, f16 compute, dynamic loss
+              scaling), 3 + 10 steps: per step the train phase's launches
+              (flash rows in f16 on the tensor cores, row 9 with the skip
+              flag), 0 plain calls, scores falling, the loss scale and
+              good count read once after the steps; one forced-overflow
+              step (scale 2^100: params and Adam state bit-equal, the
+              scale halved); the first step at 1 block, B=2, card against
+              the CPU's plain run (score within 1e-3, the same skip
+              decision); ms a step, tokens/s, peak memory, and one more
+              step traced by part (forward, backward, update); then
+              `output` at B=16 (rows 1 and 3 in f16); then P2a's first 8
+              steps twice from the same seed, through the kernels and
+              through their plain versions (LayerNorm, training attention
+              f32 inside): the same steps skipped, and the gradient leaves
+              non-finite at the first skip. P2b: the same under bfloat16
+              (bf16 params, f32 masters; row 9 writes both): stored params
+              equal to their masters' cast after every step, the same
+              launches, the first-step parity. Q1: ResNet-50's I1 graph
+              (its own init, each block's last BatchNorm scale at 0.2,
+              running statistics from a calibration batch: logits neither
+              saturated nor one class) saved, quantized to int8
+              (`quantize_checkpoint`), restored with net=None: `output` at
+              B=32 with 16 row 12 launches in the int8 form and row 2 for
+              the stem a call, 0 plain calls, against the f32
+              checkpoint's `output` (top-1 agreement at least 0.75) and
+              the CPU's plain int8 path on 4 rows (probabilities 4e-2,
+              logits 1e-2 row-relative, and a planted 5% scale fault in
+              one block that the logits check must catch); checkpoint
+              and params bytes; ms
+              a call beside the f32 graph's; one `/predict` batch of 32
+              from `add_model(path=...)` equal to `output` bit for bit, one
+              row over HTTP, and the `dl4j_serving_model_dtype` sample
+              ("int8").
+32. trace   - where one decode step's, one 1024-token prefill's, one LM
               training step's, one T1 and one T2 step's, one char-RNN fit
               call's (forward, backward, update; the call's two chunks
               summed), one `rnn_time_step`'s, one LeNet and one MLP fit
@@ -425,7 +472,10 @@ launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
 rnn_sample, lenet_train, mlp_train, dsl, ckpt, serving, long_serve,
 long_train, long_output, alexnet_train, vgg16_train, masked_train,
 unmasked_step, moe_train, moe_output, moe_decode, pretrain_vae,
-pretrain_ae_rbm, pretrain_lenet_center_loss, pretrain_mlp_loss_layer;
+pretrain_ae_rbm, pretrain_lenet_center_loss, pretrain_mlp_loss_layer,
+f16_train, f16_output, bf16_train, int8_output, int8_predict; the f16 form
+of rows 1, 3, 5 and 6 under `f16`, row 9's skip flag and low-precision
+mode under `precision_modes`;
 row 8's, row 12's and row 2's serving shapes under
 `serving_shapes`; rows 5 and 6 non-causal under `non_causal_shapes`;
 row 13 on row 4's entry; row 9 also with its time at LeNet's update) and,
@@ -450,8 +500,9 @@ import urllib.request
 import numpy as np
 
 PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
-PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16; f32 w/o TF32
-TOL = {"bfloat16": 4e-2, "float32": 1e-4}
+PEAK_OPS_S = {"bfloat16": 989e12, "float16": 989e12,  # dense, tensor cores
+              "float32": 67e12}                      # f32 without TF32
+TOL = {"bfloat16": 4e-2, "float16": 1e-2, "float32": 1e-4}
 # Copies of the input that row 1's timed calls at the LM step's shape
 # take in turn, so that none is still in the L2 (50 MB) at its next read.
 L2_COPIES = 8
@@ -659,14 +710,14 @@ LSE_TOL = 1e-4
 # sqrt(e / t), 0.01-0.03 past row 4,096, so rtol = atol = 4e-2 alone would
 # let a fault of several percent of a row pass. bf16's limit is about
 # twice the largest such error its rounding gives (PERF.md §6).
-ROW_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+ROW_TOL = {"bfloat16": 1e-2, "float16": 1e-2, "float32": 1e-4}
 # Row 7's dq, dk and dv are held row by row too, each row's error over
 # max(||w_row||, ROW_FLOOR x the median row norm). The causal dq row 0 (one
 # key: ds = p (dp - D) with D = dp) is 0 in exact arithmetic and rounding
 # noise in f32 (~6e-6 in the plain version itself against a float64 run,
 # on an H100): it is held elementwise only. bf16's limit is about twice the
 # largest error its rounding of p and ds to bf16 gives (PERF.md §6).
-BWD_ROW_TOL = {"bfloat16": 1.2e-2, "float32": 1e-4}
+BWD_ROW_TOL = {"bfloat16": 1.2e-2, "float16": 1e-2, "float32": 1e-4}
 ROW_FLOOR = 0.1
 # The streamed rows 4 and 7 by their unit kernels (`stream_<unit>_kernel`,
 # `stream_<unit>_wgmma_kernel`), whose forms `variant_launches` counts.
@@ -817,14 +868,17 @@ def compare_rows(got, want, dtype, tols=ROW_TOL, floor=None):
 
 def tensor_core_ptxas(ptxas):
     """The tensor-core kernels' ptxas lines by readable name:
-    `stream_<unit>_wgmma_kernel<D, list>` (rows 4 and 7) or `<D, rows>`
-    (rows 3, 5 and 6), from `_build.last_build["ptxas"]` (mangled names)."""
+    `stream_<unit>_wgmma_kernel<D, list, bf16>` (rows 4 and 7) or `<D,
+    rows, bf16 | f16>` (rows 3, 5 and 6), from
+    `_build.last_build["ptxas"]` (mangled names)."""
     out = {}
     for name, lines in ptxas.items():
-        m = re.search(r"(stream_[a-z]+_wgmma_kernel)ILi(\d+)ELb([01])E", name)
+        m = re.search(r"(stream_[a-z]+_wgmma_kernel)ILi(\d+)ELb([01])E\d+"
+                      r"(__half|__nv_bfloat16)E", name)
         if m:
             sched = "rows" if m.group(3) == "1" else "list"
-            out[f"{m.group(1)}<{m.group(2)}, {sched}>"] = lines
+            elem = "f16" if m.group(4) == "__half" else "bf16"
+            out[f"{m.group(1)}<{m.group(2)}, {sched}, {elem}>"] = lines
     return out
 
 
@@ -1233,62 +1287,71 @@ def phase_kernels(card, torch, dev, train_conf):
     flash rows 3, 5 and 6 are also held row by row (`flash_compare`) and
     name the form of their kernel (`variant`: "wgmma" for bf16 at D = 64,
     "cuda_cores" for f32); row 8 is held row by row too (ROW_TOL)."""
-    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
-
     rows = []
     for dtype in ("bfloat16", "float32"):
         cases = (kernel_cases(torch, dev, dtype)
                  + train_kernel_cases(torch, dev, dtype, train_conf))
-        for name, shape, kern, plain, lib, nbytes, ops, *ref in cases:
-            got = kern()
-            want = plain()
-            torch.cuda.synchronize()
-            extra, tol = {}, f"rtol=atol={TOL[dtype]}"
-            if name in RESIDENT_ROWS:
-                err, ok, row_err = flash_compare(name, got, want, dtype)
-                tol = flash_tolerance(name, dtype)
-                extra = {"max_row_rel_err": row_err,
-                         "variant": fa.resident_variant(
-                             getattr(torch, dtype), D_MODEL // HEADS)}
-            elif name == "paged_decode_attention":
-                # Past a few hundred keys a row's |o| is ~sqrt(e / keys),
-                # under TOL: the rows hold it (a zero or a wrong page
-                # is off by ~1 of the row's norm).
-                err, ok = compare(got, want, dtype)
-                row_err, row_ok = compare_rows(got, want, dtype)
-                ok = ok and row_ok
-                tol += f", rows {ROW_TOL[dtype]}"
-                extra = {"max_row_rel_err": row_err}
-            else:
-                err, ok = compare(got, want, dtype)
-            bound_ms, bound_by = bound(nbytes, ops, dtype)
-            lib_ms, lib_dev_ms = _lib_ms(torch, lib)
-            dev_ms = device_ms(torch, kern)
-            if ref:  # a reference point beside the row, not its library
-                label, fn = ref[0]
-                extra.update(reference=label, reference_ms=time_ms(fn),
-                             reference_device_ms=device_ms(torch, fn))
-            rows.append({
-                "name": name, "dtype": dtype, "shape": shape,
-                "max_abs_err": err, "tolerance": tol, **extra,
-                "ok": ok, "ms": time_ms(kern), "plain_ms": time_ms(plain),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms,
-                # The wrapper's host time per call (launch path).
-                "host_ms": host_ms(kern),
-                "library_host_ms": None if lib is None or isinstance(
-                    lib, tuple) else host_ms(lib),
-                # Kernel time alone (profiler): `ms` above is one call as
-                # the card's clock sees it, launch gaps included.
-                "device_ms": dev_ms,
-                "bound_share_by_device": bound_share(bound_ms, dev_ms),
-                "plain_device_ms": device_ms(torch, plain),
-                "library_device_ms": lib_dev_ms})
-            emit(card, phase="kernels", **rows[-1])
-            del got, want
+        for case in cases:
+            rows.append(kernel_row(card, torch, case, dtype))
         del cases
         torch.cuda.empty_cache()
     return rows
+
+
+def kernel_row(card, torch, case, dtype, phase="kernels"):
+    """One kernel case (`kernel_cases`' tuple form) against its plain
+    version, timed beside its bound and library call; emitted under
+    `phase` and returned."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    name, shape, kern, plain, lib, nbytes, ops, *ref = case
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    extra, tol = {}, f"rtol=atol={TOL[dtype]}"
+    if name in RESIDENT_ROWS:
+        err, ok, row_err = flash_compare(name, got, want, dtype)
+        tol = flash_tolerance(name, dtype)
+        extra = {"max_row_rel_err": row_err,
+                 "variant": fa.resident_variant(
+                     getattr(torch, dtype), D_MODEL // HEADS)}
+    elif name == "paged_decode_attention":
+        # Past a few hundred keys a row's |o| is ~sqrt(e / keys),
+        # under TOL: the rows hold it (a zero or a wrong page
+        # is off by ~1 of the row's norm).
+        err, ok = compare(got, want, dtype)
+        row_err, row_ok = compare_rows(got, want, dtype)
+        ok = ok and row_ok
+        tol += f", rows {ROW_TOL[dtype]}"
+        extra = {"max_row_rel_err": row_err}
+    else:
+        err, ok = compare(got, want, dtype)
+    del got, want
+    bound_ms, bound_by = bound(nbytes, ops, dtype)
+    lib_ms, lib_dev_ms = _lib_ms(torch, lib)
+    dev_ms = device_ms(torch, kern)
+    if ref:  # a reference point beside the row, not its library
+        label, fn = ref[0]
+        extra.update(reference=label, reference_ms=time_ms(fn),
+                     reference_device_ms=device_ms(torch, fn))
+    row = {
+        "name": name, "dtype": dtype, "shape": shape,
+        "max_abs_err": err, "tolerance": tol, **extra,
+        "ok": ok, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms,
+        # The wrapper's host time per call (launch path).
+        "host_ms": host_ms(kern),
+        "library_host_ms": None if lib is None or isinstance(
+            lib, tuple) else host_ms(lib),
+        # Kernel time alone (profiler): `ms` above is one call as
+        # the card's clock sees it, launch gaps included.
+        "device_ms": dev_ms,
+        "bound_share_by_device": bound_share(bound_ms, dev_ms),
+        "plain_device_ms": device_ms(torch, plain),
+        "library_device_ms": lib_dev_ms}
+    emit(card, phase=phase, **row)
+    return row
 
 
 def post(url, body, timeout=300):
@@ -3228,7 +3291,7 @@ def phase_resnet_kernels(card, torch, dev, t1_batch):
     bf16 rounds each conv output and each statistic to bf16; the distance
     to that one is printed beside (`max_abs_err_vs_plain_at_dtype`). Each
     block row names the form its call took (`variant`: every bf16 block
-    but the int8 one on the tensor cores, or the row fails), its
+    but the int8 ones on the tensor cores, or the row fails), its
     convolutions' rate over its device time (`conv_tflop_s`) and, as a
     reference point, the device time of cuDNN's bf16 channels_last
     convolutions of the same block alone."""
@@ -3243,8 +3306,9 @@ def phase_resnet_kernels(card, torch, dev, t1_batch):
         blocks += [("bottleneck_infer", INFER_B, shape, False, 50 + i, False)
                    for i, shape in enumerate(rn_block_shapes(224))]
         if dtype == "bfloat16":
-            blocks.append(("bottleneck_infer", INFER_B,
-                           rn_block_shapes(224)[2], False, 60, True))
+            # Row 12's int8 form (Q1's) at each of I1's distinct shapes.
+            blocks += [("bottleneck_infer", INFER_B, shape, False, 60 + i,
+                        True) for i, shape in enumerate(rn_block_shapes(224))]
             # The smallest /predict bucket: I1's stem and 8 blocks at B=1.
             cases += [c + (None, None)
                       for c in rn_bn_cases(torch, dev, dtype, 1)[:1]]
@@ -5396,17 +5460,734 @@ def phase_pretrain(card, torch, kernels, dev):
     return not errors, launches
 
 
+# ------------------------------------------------------------- precision
+#
+# The precision slice (see the docstring, phases precision_kernels and
+# precision): the f16 forms of rows 1, 3, 5 and 6, row 9's skip flag and
+# low-precision write, the LM trained under mixed_float16 (P2a) and
+# bfloat16 (P2b), and ResNet-50's I1 graph from an int8 checkpoint (Q1).
+
+PREC_DIR = os.path.join("build", "precision")
+PREC_SKIP_SCALE = 2.0 ** 100   # a forced overflow: f16 grads go non-finite
+PREC_PARITY_TOL = 1e-3         # first step card vs CPU, score relative
+PREC_INT8_TOL = 4e-2           # int8 output, card vs the CPU's plain path
+PREC_INT8_CPU_B = 4            # rows the CPU's plain int8 output runs
+# Q1's int8 logits, card vs the CPU's plain int8 path, the largest row's
+# ||card - cpu|| / ||cpu||: the bf16 activations round at other places on
+# the two (5.7e-3 on `_q1_net`'s weights, H100 80GB HBM3 at 700 W), while
+# one block's scale 2% off reads 1.5e-2 there (PERF.md §6).
+PREC_INT8_LOGIT_TOL = 1e-2
+# The planted fault the logits check must catch: one block's int8 scale
+# off by 5% (the first block's W_a, every channel).
+PREC_INT8_FAULT = ("s0_b0_block", "W_a__scale", 1.05)
+# Q1's weights: I1's own init with each block's last BatchNorm scale at
+# this share, running statistics from one calibration batch (`_q1_net`).
+Q1_GAMMA_C = 0.2
+Q1_MAX_PROB = 0.5              # the f32 graph's softmax stays under this
+Q1_TOP1 = 0.75                 # int8 top-1 agreement with the f32 graph
+# P2a's first steps, the kernels against their plain versions.
+PREC_DIAG_STEPS = 8
+# The precision paths' kernels line entries: the f16 forms of these rows.
+PREC_F16_ROWS = ("layernorm_norm_act", "flash_attention",
+                 "flash_attention_fwd_lse", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+Q1_LAUNCHES = {"bottleneck_infer": 16, "batchnorm_norm_act": 1}
+
+
+def precision_kernel_cases(torch, dev, conf):
+    """The f16 forms at the LM's shapes, in `kernel_cases`' tuple form:
+    row 1 at the step's 16,384 rows (x from HBM: each call takes the next
+    of L2_COPIES copies, as in bf16), row 3 at the prefill's [1, 1024, 8,
+    64] causal and at f16 `output`'s [16, 1024, 8, 64] causal, rows 5 and
+    6 at the step's [16, 1024, 8, 64] causal."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import norm_act
+
+    dt, es = torch.float16, 2
+    rng = np.random.RandomState(0)
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.tensor(rng.randn(*shape) * scale + shift, dtype=dt,
+                            device=dev)
+
+    rows = TRAIN_B * CACHE
+    xs = [t(rows, D_MODEL, scale=2.0, shift=0.5)]
+    xs += [xs[0].clone() for _ in range(L2_COPIES - 1)]
+    g, b = t(D_MODEL, scale=0.3, shift=1.0), t(D_MODEL)
+    T, dh = CACHE, D_MODEL // HEADS
+    q, k, v = (t(1, T, HEADS, dh) for _ in range(3))
+    qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    bq, bk, bv = (t(TRAIN_B, T, HEADS, dh) for _ in range(3))
+    bqh, bkh, bvh = (a.transpose(1, 2).contiguous() for a in (bq, bk, bv))
+    cases = [
+        ("layernorm_norm_act",
+         f"[{rows},{D_MODEL}], {len(xs)} copies of x in turn",
+         lambda c=itertools.cycle(xs): norm_act.layernorm_norm_act(
+             next(c), g, b, 1e-5, "identity"),
+         lambda c=itertools.cycle(xs): norm_act.layernorm_plain(
+             next(c), g, b, 1e-5, "identity"),
+         lambda c=itertools.cycle(xs): F.layer_norm(
+             next(c), (D_MODEL,), g, b, 1e-5),
+         (2 * rows * D_MODEL + 2 * D_MODEL) * es, 8 * rows * D_MODEL),
+        ("flash_attention", f"[1,{T},{HEADS},{dh}] causal",
+         lambda: fa.flash_attention(q, k, v, causal=True),
+         lambda: fa.dense_attention(q, k, v, causal=True),
+         lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+         4 * T * HEADS * dh * es, 4 * dh * HEADS * T * (T + 1) // 2),
+        ("flash_attention", f"[{TRAIN_B},{T},{HEADS},{dh}] causal",
+         lambda: fa.flash_attention(bq, bk, bv, causal=True),
+         lambda: fa.dense_attention(bq, bk, bv, causal=True),
+         lambda: F.scaled_dot_product_attention(bqh, bkh, bvh,
+                                                is_causal=True),
+         4 * TRAIN_B * T * HEADS * dh * es,
+         4 * dh * TRAIN_B * HEADS * T * (T + 1) // 2)]
+    train = [c for c in train_kernel_cases(torch, dev, "float16", conf)
+             if c[1].endswith(" causal")]
+    return cases + train
+
+
+def _update_tree(torch, dev, shapes, rng, lp=None):
+    """Adam's params (or f32 masters), state, grads and, with `lp`, the
+    stored copies, seeded, over the LM's layer vertices."""
+    def t(s, scale=1.0):
+        return torch.tensor(rng.randn(*s) * scale, dtype=torch.float32,
+                            device=dev)
+
+    params = {v: {k: t(s) for k, s in p.items()} for v, p in shapes.items()}
+    state = {v: {"m": {k: t(s, 0.01) for k, s in p.items()},
+                 "v": {k: t(s, 0.01) ** 2 for k, s in p.items()}}
+             for v, p in shapes.items()}
+    grads = {v: {k: t(s) for k, s in p.items()} for v, p in shapes.items()}
+    low = (None if lp is None else
+           {v: {k: a.to(lp) for k, a in p.items()} for v, p in params.items()})
+    return params, state, grads, low
+
+
+def _flat_update(tree):
+    params, state, _, low = tree
+    out = [a for p in params.values() for a in p.values()]
+    out += [a for st in state.values() for f in ("m", "v")
+            for a in st[f].values()]
+    if low is not None:
+        out += [a for p in low.values() for a in p.values()]
+    return out
+
+
+def precision_update_rows(card, torch, dev, conf):
+    """Row 9's precision forms at the LM's 66 tensors (Adam, lr 3e-3, step
+    5): the skip flag set (nothing written, bit for bit) and clear (the
+    f32 result of no flag, bit for bit), and the low-precision mode in
+    bf16 and f16 (masters bit for bit the f32 mode's, stored params their
+    cast), timed beside its plain version and its 30 B a param bound."""
+    from deeplearning4j_tpu_torch.kernels import fused_update
+
+    hyper, lr, step = (0.9, 0.999, 1e-8), 3e-3, 5
+    shapes = lm_update_shapes(conf)
+    elems = sum(int(np.prod(s)) for p in shapes.values() for s in p.values())
+    n_t = sum(len(p) for p in shapes.values())
+
+    def apply(tree, skip=None, tables=None):
+        params, state, grads, low = tree
+        kw = {} if skip is None else {"skip": skip}
+        fused_update.apply_step("adam", hyper, [
+            fused_update.UpdateItem(params[v], state[v], grads[v], lr, None,
+                                    None if low is None else low[v])
+            for v in shapes], step, 1.0, tables, **kw)
+        return _flat_update(tree)
+
+    def fresh(lp=None):
+        return _update_tree(torch, dev, shapes, np.random.RandomState(7), lp)
+
+    rows, errors = [], []
+    flag = {v: torch.tensor(v, dtype=torch.int32, device=dev) for v in (0, 1)}
+    plain_f32 = apply(fresh())
+    torch.cuda.synchronize()
+    # The flag set: every output tensor keeps its bits.
+    held = fresh(torch.bfloat16)
+    before = [a.clone() for a in _flat_update(held)]
+    after = apply(held, flag[1])
+    torch.cuda.synchronize()
+    set_ok = all(torch.equal(a, b) for a, b in zip(after, before))
+    # The flag clear: the no-flag f32 result, bit for bit.
+    clear_ok = all(torch.equal(a, b) for a, b in
+                   zip(apply(fresh(), flag[0]), plain_f32))
+    torch.cuda.synchronize()
+    for what, ok in (("flag set writes nothing", set_ok),
+                     ("flag clear equals no flag", clear_ok)):
+        if not ok:
+            errors.append(f"row 9 {what}: not bit for bit")
+    for lp in (torch.bfloat16, torch.float16):
+        name = str(lp).replace("torch.", "")
+        tree = fresh(lp)
+        got = apply(tree)
+        torch.cuda.synchronize()
+        n = len(plain_f32)
+        masters_ok = all(torch.equal(a, b) for a, b in
+                         zip(got[:n], plain_f32))
+        lowp_ok = all(torch.equal(low, master.to(lp)) for low, master in
+                      zip(got[n:], got[:n // 3]))
+        if not (masters_ok and lowp_ok):
+            errors.append(f"row 9 low-precision {name}: masters bit for bit "
+                          f"{masters_ok}, stored = cast {lowp_ok}")
+        ptree = fresh(lp)
+
+        def plain(ptree=ptree, lp=lp):
+            params, state, grads, low = ptree
+            for v in shapes:
+                state[v], d = fused_update.adam_xla(state[v], grads[v], lr,
+                                                    step, *hyper)
+                fused_update.apply_deltas(params[v], d, None, 1.0)
+                for k in params[v]:
+                    low[v][k].copy_(params[v][k])
+            return _flat_update(ptree)
+
+        tables = {}
+        ktree = fresh(lp)
+        kern = lambda ktree=ktree, tables=tables: apply(ktree, None, tables)
+        nbytes = 30 * elems  # p, m, v, g read; p, m, v written; 2 B stored
+        bound_ms, bound_by = bound(nbytes, 15 * elems, "float32")
+        dev_ms = device_ms(torch, kern)
+        rows.append({
+            "name": "fused_update", "dtype": "float32", "ok": masters_ok
+            and lowp_ok, "shape": f"adam apply_step over {len(shapes)} layer "
+            f"vertices ({n_t} tensors), {elems} f32 masters + {name} "
+            "stored params", "max_abs_err": 0.0,
+            "tolerance": "bit for bit (masters against the f32 mode, stored "
+                         "params against the masters' cast)",
+            "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_ms": dev_ms,
+            "bound_share_by_device": bound_share(bound_ms, dev_ms),
+            "host_ms": host_ms(kern), "mode": f"low_precision_{name}"})
+        emit(card, phase="precision_kernels", **rows[-1])
+    stree = fresh()
+    skip_kern = lambda: apply(stree, flag[1], {})
+    dev_ms = device_ms(torch, skip_kern)
+    rows.append({
+        "name": "fused_update", "dtype": "float32", "ok": set_ok
+        and clear_ok, "mode": "skip_flag", "shape": lm_update_label(shapes),
+        "max_abs_err": 0.0, "tolerance": "bit for bit",
+        "flag_set_writes_nothing": set_ok,
+        "flag_clear_equals_no_flag": clear_ok,
+        # The flag set: one launch that reads the flag and writes nothing.
+        "ms": time_ms(skip_kern), "device_ms": dev_ms, "plain_ms": None,
+        "bound_ms": 4 / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+        "library_ms": None})
+    emit(card, phase="precision_kernels", **rows[-1])
+    return rows, errors
+
+
+def phase_precision_kernels(card, torch, dev, conf):
+    """Rows 1, 3, 5 and 6 in f16 (rtol = atol = 1e-2, held row by row as
+    in bf16) and row 9's precision forms."""
+    rows = [kernel_row(card, torch, case, "float16", "precision_kernels")
+            for case in precision_kernel_cases(torch, dev, conf)]
+    torch.cuda.empty_cache()
+    upd, errors = precision_update_rows(card, torch, dev, conf)
+    return rows + upd, errors
+
+
+def _lm_policy_conf(policy, n_blocks=BLOCKS):
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.conf.dtype_policy import DtypePolicy
+
+    conf = zoo.transformer_lm(VOCAB, t=CACHE, d_model=D_MODEL,
+                              n_heads=HEADS, n_blocks=n_blocks,
+                              dtype="bfloat16")
+    conf.global_conf.dtype_policy = DtypePolicy.of(policy)
+    return conf
+
+
+def _masters_are_cast(torch, net):
+    """Whether every stored param equals its f32 master's cast, bit for
+    bit (True where the policy keeps no masters)."""
+    master = net.opt_state.get("_master")
+    if master is None:
+        return True
+    return all(torch.equal(master[v][k].to(t.dtype), t.detach())
+               for v, p in net.params_tree.items() for k, t in p.items())
+
+
+def _first_step_parity(torch, dev, policy):
+    """One `fit` step at 1 block, B=2, on the card and on the CPU (plain
+    versions) from the same seeded params: the scores' relative distance,
+    the loss-scale pairs (the skip decision), and the masters' cast."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    (x, y), = lm_batches(23, 2, CACHE, 1)
+    conf = _lm_policy_conf(policy, n_blocks=1)
+    nets = {}
+    t0 = time.perf_counter()
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        net = ComputationGraph(conf, device=d).init()  # the same seed
+        net.fit(MultiDataSet([x], [y]))
+        nets[where] = net
+    seconds = time.perf_counter() - t0
+    card, cpu = nets["card"], nets["cpu"]
+    rel = abs(card.score_value - cpu.score_value) / abs(cpu.score_value)
+    ls = {w: [float(t) for t in n.opt_state["_ls"]]
+          for w, n in nets.items() if "_ls" in n.opt_state}
+    return {"score_card": card.score_value, "score_cpu": cpu.score_value,
+            "score_rel_diff": rel, "loss_scale": ls or None,
+            "masters_are_cast": {w: _masters_are_cast(torch, n)
+                                 for w, n in nets.items()},
+            "seconds": seconds}
+
+
+def _skip_diagnosis(card, torch, dev, policy):
+    """P2a's skipped steps, its kernels against their plain versions
+    (`plain_versions`: LayerNorm and the training attention, f32 inside):
+    the same seeded net and batches, PREC_DIAG_STEPS `fit` steps each, the
+    loss scale read before and after each step, and the gradient leaves
+    that were non-finite (`_train_backward`'s unscaled f32 grads; named at
+    the first and the last skipped step, where the fewest are). The two
+    runs must skip the same steps, each skip with non-finite leaves: a step
+    that the f16 kernels skip and their plain versions do not is an
+    overflow in the f16 forms."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    batches = [MultiDataSet([torch.as_tensor(x, device=dev)],
+                            [torch.as_tensor(y, device=dev)])
+               for x, y in lm_batches(17, TRAIN_B, CACHE, 2)]
+    runs, errors = {}, []
+    for label, versions in (("kernels", contextlib.nullcontext),
+                            ("plain", plain_versions)):
+        net = ComputationGraph(_lm_policy_conf(policy), device=dev).init()
+        bad, real = [], net._train_backward
+
+        def record(loss, real=real, bad=bad):
+            grads, finite = real(loss)
+            bad.append([f"{v}/{k}" for v, p in grads.items()
+                        for k, g in p.items()
+                        if not bool(torch.isfinite(g).all())])
+            return grads, finite
+
+        net._train_backward = record
+        steps = []
+        try:
+            with versions():
+                for i in range(PREC_DIAG_STEPS):
+                    before = float(net.opt_state["_ls"][0])
+                    net.fit(batches[i % 2])
+                    after = float(net.opt_state["_ls"][0])
+                    steps.append({"scale": before, "skipped": after < before,
+                                  "score": net.score_value,
+                                  "nonfinite_leaves": len(bad[-1])})
+        finally:
+            del net._train_backward
+        if any(st["skipped"] != (st["nonfinite_leaves"] > 0)
+               for st in steps):
+            errors.append(f"{label}: a skip without non-finite leaves, or "
+                          f"the reverse: {steps}")
+        skipped = [i for i, st in enumerate(steps) if st["skipped"]]
+        runs[label] = {"steps": steps, "leaves": sum(
+            t.requires_grad for p in net.params_tree.values()
+            for t in p.values()),
+            "first_skip_nonfinite": bad[skipped[0]] if skipped else None,
+            "last_skip_nonfinite": bad[skipped[-1]] if skipped else None}
+        del net
+        torch.cuda.empty_cache()
+    skips = {k: [st["skipped"] for st in r["steps"]] for k, r in runs.items()}
+    if skips["kernels"] != skips["plain"]:
+        errors.append(f"the kernels and their plain versions skip different "
+                      f"steps: {skips}")
+    emit(card, phase="precision", path="f16_skips", ok=not errors,
+         errors=errors, policy=policy, **runs)
+    return not errors
+
+
+def _precision_train(card, torch, kernels, dev, policy, label):
+    """The LM under `policy` at the LM cell's widths: 3 + 10 `fit` steps
+    over 2 batches on the card; per step the train phase's launches on the
+    tensor-core form and 0 plain calls; scores falling; under low-precision
+    params the stored params equal their masters' cast after every step;
+    one more step traced by part; then (loss scaling) one forced-overflow
+    step, and the first step at 1
+    block against the CPU."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    net = ComputationGraph(_lm_policy_conf(policy), device=dev).init()
+    batches = [MultiDataSet([torch.as_tensor(x, device=dev)],
+                            [torch.as_tensor(y, device=dev)])
+               for x, y in lm_batches(17, TRAIN_B, CACHE, 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    scores, wall, cast_ok = [], [], True
+    steps = WARMUP + 10
+    for i in range(steps):
+        t0 = time.perf_counter()
+        net.fit(batches[i % 2])
+        scores.append(net.score_value)  # reads the loss: syncs the step
+        wall.append((time.perf_counter() - t0) * 1e3)
+        cast_ok = cast_ok and _masters_are_cast(torch, net)
+    counts = kernels.counts()
+    peak = torch.cuda.max_memory_allocated()
+    # The scale pair, read once, after the steps.
+    ls = ([float(t) for t in net.opt_state["_ls"]]
+          if "_ls" in net.opt_state else None)
+    # One more step, its forward, backward and update traced apart.
+    trace = trace_train_step(torch, net, batches[0])
+    errors, want = _launch_errors(counts, TRAIN_LAUNCHES, steps)
+    errors += _variant_errors(counts, {name: BLOCKS * steps
+                                       for name in TRAIN_FLASH})
+    if not cast_ok:
+        errors.append("stored params differ from their masters' cast")
+    finite = [s for s in scores if np.isfinite(s)]
+    if len(finite) != len(scores):
+        errors.append(f"non-finite score: {scores}")
+    elif not np.mean(scores[-3:]) < scores[0]:
+        errors.append(f"scores did not fall: {scores}")
+    out = {"ok": None, "errors": errors, "policy": policy, "steps": steps,
+           "scores": scores, "ms_per_step": statistics.mean(wall[WARMUP:]),
+           "ms_per_step_median": statistics.median(wall[WARMUP:]),
+           "ms_per_step_all": wall,
+           "tokens_per_s": TRAIN_B * CACHE / statistics.mean(
+               wall[WARMUP:]) * 1e3,
+           "max_memory_allocated_bytes": peak, "trace": trace,
+           "launches": counts["launches"], "expected_launches": want,
+           "variants": {k: counts["variants"][k] for k in TRAIN_FLASH},
+           "plain_calls": counts["plain_calls"],
+           "param_dtype": str(next(t for p in net.params_tree.values()
+                                   for t in p.values()).dtype)}
+    launches = dict(counts["launches"])
+    if ls is not None:
+        scale, good = ls
+        out.update(loss_scale=scale, good_steps=good,
+                   skipped_steps=steps - good)
+        # One forced overflow: params, masters and Adam state keep their
+        # bits, the scale halves.
+        def leaves():
+            return ([t.detach() for p in net.params_tree.values()
+                     for t in p.values()]
+                    + [t for v, st in net.opt_state.items() if v != "_ls"
+                       for fs in st.values() for t in fs.values()])
+
+        snap = [t.clone() for t in leaves()]
+        net.opt_state["_ls"][0].fill_(PREC_SKIP_SCALE)
+        kernels.reset_counts()
+        net.fit(batches[0])
+        torch.cuda.synchronize()
+        kept = all(torch.equal(a, b) for a, b in zip(leaves(), snap))
+        new_scale, new_good = (float(t) for t in net.opt_state["_ls"])
+        if not (kept and new_scale == PREC_SKIP_SCALE / 2 and new_good == 0):
+            errors.append(f"forced overflow: kept {kept}, scale {new_scale},"
+                          f" good {new_good}")
+        out["forced_overflow"] = {"bit_equal": kept, "scale": new_scale,
+                                  "good": new_good,
+                                  "launches": kernels.counts()["launches"]}
+        for k, v in kernels.counts()["launches"].items():
+            launches[k] += v
+    parity = _first_step_parity(torch, dev, policy)
+    if not parity["score_rel_diff"] <= PREC_PARITY_TOL:
+        errors.append(f"first step card vs CPU: score {parity}")
+    if parity["loss_scale"] and parity["loss_scale"]["card"] != \
+            parity["loss_scale"]["cpu"]:
+        errors.append(f"first step card vs CPU: skip decisions differ "
+                      f"{parity['loss_scale']}")
+    if not all(parity["masters_are_cast"].values()):
+        errors.append("first step: stored params differ from the masters' "
+                      "cast")
+    out["first_step_parity"] = parity
+    out["ok"] = not errors
+    emit(card, phase="precision", path=label, **out)
+    return not errors, launches, net, batches
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _params_bytes(store, path):
+    """Bytes of a checkpoint's params leaves (index sizes)."""
+    index = store.read_index(path)
+    return sum(int(np.prod(e["shape"])) * np.dtype(
+        "<u2" if e["dtype"] == "bfloat16" else e["dtype"]).itemsize
+        for k, e in index["leaves"].items() if k.startswith("params/"))
+
+
+def _q1_net(torch, dev):
+    """Q1's f32 graph: I1's own init (the fused form at 224) with each
+    block's last BatchNorm scale (`gamma_c`) at Q1_GAMMA_C, as a zero-γ
+    init starts a residual branch small, and its running statistics set to
+    one seeded calibration batch's (one train-mode forward at decay 0).
+    Random BatchNorm nets are chaotic at init: with the init's statistics
+    the logits reach ~1e3 and every row takes one class; calibrated at full
+    gamma_c a 2% scale error in the first block moves them by half. These
+    weights give logits of a few units at most, more than one class over
+    the rows and a check that sees a fault of a few percent (PERF.md
+    §6)."""
+    net = _rn_net(torch, dev, "i1")
+    image = RN_PATHS["i1"][0]
+    with torch.no_grad():
+        for p in net.params_tree.values():
+            if "gamma_c" in p:
+                p["gamma_c"].mul_(Q1_GAMMA_C)
+        net._compute_params = None
+        cal = torch.tensor(np.random.RandomState(7).randn(
+            INFER_B, image, image, 3), dtype=torch.float32, device=dev)
+        decays = {k: c.decay for k, c in net._layer_confs.items()
+                  if hasattr(c, "decay")}
+        for k in decays:
+            net._layer_confs[k].decay = 0.0
+        try:
+            _, new_state, _ = net._forward(
+                net._compute_copy(), net.state, [cal], keep_rnn_state=False,
+                train=True, key=net._next_rng(), aux={})
+        finally:
+            for k, d in decays.items():
+                net._layer_confs[k].decay = d
+        net._keep_state(new_state, None)
+    net._compute_params = None
+    return net
+
+
+def _precision_int8(card, torch, kernels, dev):
+    """Q1: ResNet-50's I1 graph (`_q1_net`'s weights) saved with the
+    sharded store, quantized (`quantize_checkpoint`), restored with
+    net=None and run through `output` (16 row 12 launches in the int8 form,
+    row 2 for the stem a call, 0 plain calls) against the f32 checkpoint's
+    `output` (top-1 agreement, the logits' distance) and the CPU's plain
+    int8 path (probabilities within 4e-2, logits within
+    PREC_INT8_LOGIT_TOL, and a planted fault that the logits check must
+    catch); then one `/predict` batch from `add_model(path=...)`."""
+    from deeplearning4j_tpu_torch.checkpoint import quantize, store
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    errors, out, launches = [], {}, {}
+    shutil.rmtree(PREC_DIR, ignore_errors=True)
+    os.makedirs(PREC_DIR)
+    fpath, qpath = (os.path.join(PREC_DIR, n) for n in ("f32", "int8"))
+    i1 = _q1_net(torch, dev)
+    t0 = time.perf_counter()
+    store.save_checkpoint(i1, fpath)
+    out["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quantize.quantize_checkpoint(fpath, qpath)
+    out["quantize_s"] = time.perf_counter() - t0
+    out["checkpoint_bytes"] = {"f32": _dir_bytes(fpath),
+                               "int8": _dir_bytes(qpath)}
+    out["params_bytes"] = {"f32": _params_bytes(store, fpath),
+                           "int8": _params_bytes(store, qpath)}
+    t0 = time.perf_counter()
+    qnet = store.restore_checkpoint(qpath, device=dev)
+    out["restore_s"] = time.perf_counter() - t0
+    blk = qnet.params_tree["s0_b0_block"]
+    if blk["W_a"].dtype != torch.int8 or "W_a__scale" not in blk:
+        errors.append(f"restored block params: {sorted(blk)}")
+    x = np.random.RandomState(31).randn(INFER_B, RN_PATHS["i1"][0],
+                                        RN_PATHS["i1"][0], 3).astype(
+        np.float32)
+
+    def timed(net):
+        wall, outs = [], []
+        for _ in range(RN_WARMUP + RN_TIMED):
+            t0 = time.perf_counter()
+            outs.append(net.output(x)[0])
+            wall.append((time.perf_counter() - t0) * 1e3)
+        return outs, wall[RN_WARMUP:]
+
+    kernels.reset_counts()
+    qouts, qwall = timed(qnet)
+    counts = kernels.counts()
+    calls = RN_WARMUP + RN_TIMED
+    e, want = _launch_errors(counts, Q1_LAUNCHES, calls)
+    errors += e
+    forms = counts["variants"]["bottleneck_infer"]
+    if forms != {"wgmma": 0, "cuda_cores": 16 * calls}:
+        errors.append(f"row 12 forms {forms}: the int8 form is the CUDA-core "
+                      "one")
+    launches["int8_output"] = counts["launches"]
+    got = qouts[-1]
+    if not all(np.array_equal(o, got) for o in qouts):
+        errors.append("repeated int8 calls differ")
+    if got.shape != (INFER_B, RN_CLASSES) or not np.isfinite(got).all():
+        errors.append(f"int8 output {got.shape}")
+    fouts, fwall = timed(i1)
+    ref = fouts[-1]
+    top1 = float(np.mean(got.argmax(-1) == ref.argmax(-1)))
+    classes = len(set(ref.argmax(-1).tolist()))
+    max_prob = float(ref.max())
+    if not (max_prob < Q1_MAX_PROB and classes > 1):
+        errors.append(f"the f32 graph's output is saturated (largest "
+                      f"probability {max_prob}, {classes} classes): the "
+                      "comparisons below would not see a fault")
+    if not top1 >= Q1_TOP1:
+        errors.append(f"int8 top-1 agreement with f32 {top1} < {Q1_TOP1}")
+
+    def logits(net, xs):
+        """The output layer's pre-softmax values."""
+        with torch.inference_mode():
+            return net._forward(net._compute_copy(), net.state, [xs],
+                                keep_rnn_state=False)[0][0].float().cpu()
+
+    def rel(a, b):
+        return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+
+    q_logits, f_logits = logits(qnet, x), logits(i1, x)
+    # The CPU's plain int8 path on the first rows.
+    cpu = store.restore_checkpoint(qpath, device="cpu")
+    t0 = time.perf_counter()
+    cpu_out = cpu.output(x[:PREC_INT8_CPU_B])[0]
+    cpu_s = time.perf_counter() - t0
+    cpu_logits = logits(cpu, x[:PREC_INT8_CPU_B])
+    cpu_err = float(np.abs(cpu_out - got[:PREC_INT8_CPU_B]).max())
+    if not cpu_err <= PREC_INT8_TOL:
+        errors.append(f"int8 output card vs CPU: {cpu_err}")
+    cpu_logit_err = rel(q_logits[:PREC_INT8_CPU_B], cpu_logits)
+    if not cpu_logit_err <= PREC_INT8_LOGIT_TOL:
+        errors.append(f"int8 logits card vs CPU: {cpu_logit_err} > "
+                      f"{PREC_INT8_LOGIT_TOL}")
+    # The planted fault, on the card's restored net (restored after).
+    vertex, leaf, factor = PREC_INT8_FAULT
+    scale = qnet.params_tree[vertex][leaf]
+    kept = scale.clone()
+    with torch.no_grad():
+        scale.mul_(factor)
+    qnet._compute_params = None
+    fault_err = rel(logits(qnet, x[:PREC_INT8_CPU_B]), cpu_logits)
+    with torch.no_grad():
+        scale.copy_(kept)
+    qnet._compute_params = None
+    if not fault_err > PREC_INT8_LOGIT_TOL:
+        errors.append(f"the planted fault {PREC_INT8_FAULT} reads "
+                      f"{fault_err}, within {PREC_INT8_LOGIT_TOL}: the "
+                      "logits check is blind")
+    out.update(ms_per_call=statistics.mean(qwall),
+               ms_per_call_median=statistics.median(qwall),
+               ms_per_call_all=qwall,
+               f32_ms_per_call=statistics.mean(fwall),
+               f32_ms_per_call_median=statistics.median(fwall),
+               gamma_c_share=Q1_GAMMA_C,
+               top1_agreement_with_f32=top1, f32_classes=classes,
+               f32_max_probability=max_prob,
+               max_abs_diff_from_f32=float(np.abs(got - ref).max()),
+               logits_max_row_rel_diff_from_f32=rel(q_logits, f_logits),
+               cpu_logits_max_row_rel_err=cpu_logit_err,
+               cpu_logits_tolerance=PREC_INT8_LOGIT_TOL,
+               planted_fault={"leaf": f"{vertex}/{leaf}", "factor": factor,
+                              "cpu_logits_max_row_rel_err": fault_err},
+               logits_max_abs=float(f_logits.abs().max()),
+               logits_std=float(f_logits.std(-1).mean()),
+               cpu_rows=PREC_INT8_CPU_B, cpu_max_abs_err=cpu_err,
+               cpu_seconds=cpu_s, launches=counts["launches"],
+               expected_launches=want, forms=forms,
+               plain_calls=counts["plain_calls"])
+    del cpu, i1
+    # /predict from the checkpoint on disk.
+    server = InferenceServer(None, device=dev)
+    server.add_model("resnet_int8", path=qpath)
+    try:
+        server.start()
+        kernels.reset_counts()
+        pred = server.predict(x, model="resnet_int8")
+        counts = kernels.counts()
+        launches["int8_predict"] = counts["launches"]
+        e, _ = _launch_errors(counts, Q1_LAUNCHES, 1)
+        errors += [f"/predict: {m}" for m in e]
+        same = np.array_equal(np.asarray(pred, np.float32), got)
+        code, _, doc = _http(server.url, "/predict", {
+            "data": x[:1].tolist(), "model": "resnet_int8"})
+        one = qnet.output(x[:1])[0]
+        http_same = code == 200 and np.array_equal(
+            np.asarray(doc["predictions"], np.float32), one)
+        scrape = _http(server.url, "/metrics?format=json&names="
+                       "dl4j_serving_model_dtype")[2]
+        sample = [r for r in scrape.get("dl4j_serving_model_dtype", {}).get(
+            "series", []) if r["labels"].get("model") == "resnet_int8"]
+        if not same:
+            errors.append("/predict of 32 rows differs from output")
+        if not http_same:
+            errors.append(f"HTTP /predict of 1 row differs from output "
+                          f"(HTTP {code})")
+        if [r["labels"].get("dtype") for r in sample] != ["int8"]:
+            errors.append(f"dl4j_serving_model_dtype: {sample}")
+        out.update(predict_equals_output=same,
+                   http_predict_equals_output=http_same,
+                   model_dtype_sample=sample,
+                   predict_launches=counts["launches"])
+    finally:
+        server.stop()
+    shutil.rmtree(PREC_DIR, ignore_errors=True)
+    emit(card, phase="precision", path="int8", ok=not errors, errors=errors,
+         model=f"resnet50 I1 (fused, {RN_PATHS['i1'][0]}, B={INFER_B}) from "
+               "an int8 post-training-quantized checkpoint", **out)
+    return not errors, launches
+
+
+def phase_precision(card, torch, kernels, dev, bf16_train_ms):
+    """P2a (mixed_float16), its `output` at B=16, P2b (bfloat16) and Q1
+    (int8); the launches of each path for the kernels line."""
+    t0 = time.perf_counter()
+    ok_all, launches = True, {}
+    ok, launches["f16_train"], net, batches = _precision_train(
+        card, torch, kernels, dev, "mixed_float16", "f16_train")
+    ok_all &= ok
+    # `output` at B=16 through rows 1 and 3 in f16.
+    kernels.reset_counts()
+    ids = batches[0].features[0]
+    t1 = time.perf_counter()
+    probs = net.output(ids)[0]
+    ms = (time.perf_counter() - t1) * 1e3
+    counts = kernels.counts()
+    want = {"layernorm_norm_act": 2 * BLOCKS + 1, "flash_attention": BLOCKS}
+    errors, _ = _launch_errors(counts, want, 1)
+    errors += _variant_errors(counts, {"flash_attention": BLOCKS})
+    if probs.shape != (TRAIN_B, CACHE, VOCAB) or not np.isfinite(
+            probs).all():
+        errors.append(f"output {probs.shape}")
+    elif np.abs(probs.sum(-1) - 1).max() > 1e-2:
+        errors.append("probabilities do not sum to 1")
+    launches["f16_output"] = counts["launches"]
+    emit(card, phase="precision", path="f16_output", ok=not errors,
+         errors=errors, batch=TRAIN_B, ms_per_call=ms,
+         launches=counts["launches"], variants=counts["variants"][
+             "flash_attention"], output_dtype=str(probs.dtype))
+    ok_all &= not errors
+    f16_peak = torch.cuda.max_memory_allocated()
+    del net, batches, probs
+    torch.cuda.empty_cache()
+    ok_all &= _skip_diagnosis(card, torch, dev, "mixed_float16")
+    ok, launches["bf16_train"], net, _ = _precision_train(
+        card, torch, kernels, dev, "bfloat16", "bf16_train")
+    ok_all &= ok
+    del net
+    torch.cuda.empty_cache()
+    ok, q_launches = _precision_int8(card, torch, kernels, dev)
+    ok_all &= ok
+    launches.update(q_launches)
+    emit(card, phase="precision", path="summary", ok=bool(ok_all),
+         mixed_bfloat16_train_ms_per_step=bf16_train_ms,
+         f16_peak_bytes_after_output=f16_peak,
+         seconds=time.perf_counter() - t0)
+    return bool(ok_all), launches
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """The serving LM's kernel wrappers swapped for their plain versions
-    while the block runs (the long_serve reference only; restored after):
-    LayerNorm, the streamed flash forward and the paged decode attention."""
+    """The LM's kernel wrappers swapped for their plain versions while the
+    block runs (references only; restored after): LayerNorm (row 1), the
+    resident training attention (rows 5 and 6: the forward with lse and
+    both backward halves, f32 inside), the streamed flash forward (row 4)
+    and the paged decode attention (row 8)."""
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import norm_act
     from deeplearning4j_tpu_torch.nn.layers import normalization
 
-    saved = (normalization.layernorm_norm_act, fa.flash_attention_stream,
-             fa.paged_decode_attention)
+    names = ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv", "flash_attention_stream",
+             "paged_decode_attention")
+    saved = (normalization.layernorm_norm_act,
+             *(getattr(fa, n) for n in names))
+
+    def fwd_lse_plain(q, k, v, causal=True, scale=None):
+        return fa.dense_attention_lse(q, k, v, causal,
+                                      fa._default_scale(q, scale))
 
     def stream_plain(q, k, v, causal=True, scale=None, *, with_lse=True,
                      pairs=None):
@@ -5416,13 +6197,16 @@ def plain_versions():
         return (o, lse) if with_lse else o
 
     normalization.layernorm_norm_act = norm_act.layernorm_plain
-    fa.flash_attention_stream = stream_plain
-    fa.paged_decode_attention = fa.paged_gather_dense
+    for n, f in zip(names, (fwd_lse_plain, fa.flash_bwd_dq_plain,
+                            fa.flash_bwd_dkv_plain, stream_plain,
+                            fa.paged_gather_dense)):
+        setattr(fa, n, f)
     try:
         yield
     finally:
-        (normalization.layernorm_norm_act, fa.flash_attention_stream,
-         fa.paged_decode_attention) = saved
+        normalization.layernorm_norm_act = saved[0]
+        for n, f in zip(names, saved[1:]):
+            setattr(fa, n, f)
 
 
 @contextlib.contextmanager
@@ -5633,6 +6417,10 @@ def main() -> int:
     rows = phase_kernels(card, torch, dev, train_conf)
     if not all(r["ok"] for r in rows):
         failed.append("kernels")
+    prec_rows, prec_errors = phase_precision_kernels(card, torch, dev,
+                                                     train_conf)
+    if prec_errors or not all(r["ok"] for r in prec_rows):
+        failed.append("precision_kernels")
     rn_rows = phase_resnet_kernels(card, torch, dev, RN_PATHS["t1"][2])
     if not all(r["ok"] for r in rn_rows):
         failed.append("resnet_kernels")
@@ -5747,6 +6535,10 @@ def main() -> int:
     if not ok:
         failed.append("pretrain")
     path_launches.update(pretrain_launches)
+    ok, prec_launches = phase_precision(card, torch, kernels, dev, train_ms)
+    if not ok:
+        failed.append("precision")
+    path_launches.update(prec_launches)
     trace, ok = phase_trace(card, torch, cg, train_net, batches[0], nets,
                             rn_batch, rnn_net, rnn_data[0], long_net,
                             long_batches[0], mnist)
@@ -5766,8 +6558,9 @@ def main() -> int:
     # request, the long-context train phase's 7 steps and its 3 `output`
     # calls, AlexNet's and VGG-16's 13 steps each, the classifier's 23
     # masked steps and its counted unmasked step, the MoE LM's 13 steps,
-    # its `output` and its cached decode, the four pretrain nets' epochs),
-    # summed and by path.
+    # its `output` and its cached decode, the four pretrain nets' epochs,
+    # the precision phase's f16 and bf16 steps, its f16 `output`, its 13
+    # int8 `output` calls and its /predict batch), summed and by path.
     # Row 10's library call covers the step
     # without peepholes (at the same B and n); row 13 is row 4's kernel
     # over two lists, carried on row 4's entry.
@@ -5867,6 +6660,20 @@ def main() -> int:
                 {k: r[k] for k in ("dtype", "max_row_rel_err", *keep)
                  if k in r} for r in rows
                 if r["name"] == name and r["shape"].endswith("non-causal")]
+        if name in PREC_F16_ROWS:
+            # The f16 form at the LM's shape (the precision paths').
+            f16 = next(p for p in prec_rows if p["name"] == name)
+            entries[-1]["f16"] = {k: f16[k] for k in (
+                "shape", "max_abs_err", "max_row_rel_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "device_ms",
+                "library_device_ms", "bound_share_by_device", "variant")
+                if k in f16}
+        if name == "fused_update":
+            entries[-1]["precision_modes"] = [
+                {k: p[k] for k in ("mode", "shape", "ok", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "device_ms")}
+                for p in prec_rows if p.get("mode")]
         if name == "lstm_cell":
             # Per launch in the traced char-RNN fit call (R1's shape).
             hit = [k for k in trace["rnn_fit_call"]["forward"].get("top", [])

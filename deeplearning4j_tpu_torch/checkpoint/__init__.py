@@ -10,8 +10,10 @@ in three layers:
   committed steps only.
 
 `legacy.load_any` opens this format or a model zip; `legacy.migrate_zip`
-converts a zip. The reference's `adapters` (LoRA deltas, ROADMAP A.12) and
-`quantize` (int8, A.7) are not in the port yet.
+converts a zip; `quantize` writes the int8 serving checkpoint of a
+committed one (`python -m deeplearning4j_tpu_torch.checkpoint.quantize
+<src> <dst>`). The reference's `adapters` (LoRA deltas, ROADMAP A.12) are
+not in the port yet.
 """
 
 from deeplearning4j_tpu_torch.checkpoint.array_store import (

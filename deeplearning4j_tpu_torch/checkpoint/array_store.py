@@ -68,7 +68,9 @@ def resolve_dtype(s: str) -> np.dtype:
 
 def to_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
     """A CPU tensor of the chunk data `arr` read for dtype name `dtype`."""
-    arr = np.ascontiguousarray(arr)
+    # ascontiguousarray makes a 0-d array 1-d: keep the leaf's shape (the
+    # loss-scale pair's leaves are scalars).
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if dtype == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)

@@ -30,8 +30,18 @@ disk, so any thread can run it.
 existing tensors (`copy_`): autograd leaves, the fused update's packed
 tables and every outside reference stay valid. With `net=None` it builds
 the engine from the checkpoint's own conf on `device`, its params from
-the checkpoint. A mesh or a `ParallelContext` (ROADMAP A.13) and a
-quantized checkpoint (A.7) are refused.
+the checkpoint. A mesh or a `ParallelContext` (ROADMAP A.13) is refused.
+
+Precision policies: the updater tree carries the f32 masters
+(`updater/_master/<vertex>/<name>`) and the loss-scale pair
+(`updater/_ls/0`, `updater/_ls/1`) as the reference's tree-flatten names
+them, so they save and restore like any leaf. A leaf's dtype must be the
+target's (`_check_leaf_dtype`, the reference's contract: f32 <-> f64 only
+converts). A post-training-quantized checkpoint (`checkpoint/
+quantize.py`, `meta["quantization"]`) has int8 leaves with `__scale`
+companions that no conf's params declare: its params tree is assembled
+from the index with the stored dtypes (`_assemble_params_from_index`),
+its BatchNorm state restored, and it has no updater state.
 """
 
 from __future__ import annotations
@@ -312,6 +322,50 @@ def _check_policy_match(meta: dict, net, path: str) -> None:
             "config.")
 
 
+def _assemble_params_from_index(index: dict, base: str, device):
+    """The params tree taken from the index (reference
+    `_assemble_params_from_index`, store.py:343), each leaf at its stored
+    dtype on `device`: int8 weights stay int8 (that is the serving
+    saving), and the forward dequantizes them at use."""
+    params: Dict[str, Any] = {}
+    for key, entry in index["leaves"].items():
+        if not key.startswith(_PARAMS + "/"):
+            continue
+        node = params
+        parts = key.split("/")[1:]
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = to_tensor(read_full(base, entry),
+                                    str(entry["dtype"])).to(device)
+    return params
+
+
+def _restore_quantized(meta, index, path, net, device):
+    """A quantized checkpoint into `net` (or a net built from its conf):
+    params from the index, BatchNorm state, counters."""
+    if net is None:
+        from deeplearning4j_tpu_torch.util.model_serializer import (
+            engine_classes,
+        )
+
+        engines = engine_classes()
+        if meta.get("engine") not in engines:
+            raise CheckpointError(f"unknown engine {meta.get('engine')!r} "
+                                  f"in {path}/{META}")
+        conf_cls, net_cls = engines[meta["engine"]]
+        net = net_cls(conf_cls.from_json(meta["conf_json"]), device=device)
+    if net.params_tree is None:
+        net.init()
+    net.params_tree = _assemble_params_from_index(index, path, net.device)
+    net._update_tables.clear()
+    net._compute_params = None
+    if net.state:
+        _restore_tree(net.state, _STATE, index, path)
+    net.iteration = int(meta.get("iteration", 0))
+    net.epoch = int(meta.get("epoch", 0))
+    return net
+
+
 def restore_checkpoint(path: str, net=None, mesh=None, context=None,
                        load_updater: bool = True, device="cuda"):
     """Restore a committed checkpoint: params, updater state (unless
@@ -329,13 +383,12 @@ def restore_checkpoint(path: str, net=None, mesh=None, context=None,
     path = str(path)
     verify_checkpoint(path)
     meta = read_meta(path)
-    if meta.get("quantization"):
-        raise NotImplementedError(
-            f"{path} is a quantized checkpoint (int8 leaves with __scale "
-            "companions): not in the port yet (ROADMAP A.7)")
     index = read_index(path)
     if net is not None:
         _check_policy_match(meta, net, path)
+    if meta.get("quantization"):
+        return _restore_quantized(meta, index, path, net, device)
+    if net is not None:
         if net.params_tree is None:
             net.init()
         _restore_tree(net.params_tree, _PARAMS, index, path)

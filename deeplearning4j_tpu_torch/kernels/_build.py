@@ -52,8 +52,9 @@ _SIGNATURES = {
                                     _I, _I, _F, _I, _I, _P],
     "dl4j_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _F, _I, _I, _P],
-    # kind, mode, count | ptrs, sizes, lrs, factors, scalars, stream.
-    "dl4j_fused_update": [_I, _I, _I] + [_P] * 6,
+    # kind, mode, count | ptrs, sizes, lrs, factors, scalars | lp_dtype |
+    # skip, stream.
+    "dl4j_fused_update": [_I, _I, _I] + [_P] * 5 + [_I, _P, _P],
     "dl4j_fused_update_capacity": [],
     "dl4j_batchnorm_norm_act": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
                                 _P],

@@ -216,9 +216,11 @@ def _launch_stats(stream, psum, psq, rows):
 
 
 def _check(x, ws, stride, project):
-    if x.dtype not in DTYPE_CODES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"bottleneck_block takes float32 or bfloat16 "
-                        f"activations, not {x.dtype}")
+                        f"activations on the card, not {x.dtype} (f16 "
+                        f"compute through rows 11 and 12 is not in the port "
+                        f"yet: ROADMAP A.7)")
     if x.dim() != 4:
         raise ValueError(f"bottleneck_block takes NHWC x, got {x.shape}")
     cin, f1, f3 = x.shape[3], ws["a"].shape[-1], ws["c"].shape[-1]

@@ -6,6 +6,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace dl4j {
@@ -14,6 +15,7 @@ namespace dl4j {
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 constexpr int kInt8 = 2;  // quantized weights (bottleneck_block.cu)
+constexpr int kFloat16 = 3;
 
 // The JAX package's finite mask value (kernels/flash_attention.py `_NEG`).
 constexpr float kNeg = -1e30f;
@@ -22,6 +24,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -30,6 +33,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as XLA's convert
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);  // round to nearest even, as XLA's convert
 }
 
 // Activation codes shared with kernels/norm_act.py `_ACT_CODES`.

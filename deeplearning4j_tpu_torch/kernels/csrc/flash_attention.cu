@@ -20,6 +20,11 @@
 // forward is ~17 GFLOP (17 us at 989 TFLOP/s) against ~67 MB (20 us): bytes
 // again, by a hair. The lse store adds 4 bytes per row, 0.5 MB in all.
 //
+// f16 (the mixed_float16 and float16 policies) takes the same two forms as
+// bf16: the tensor-core kernel instantiated at `__half` (wgmma's
+// `.f32.f16.f16` products of the same m64nNk16 shapes, p in [0, 1] rounded
+// to f16), the CUDA-core kernel at `__half`.
+//
 // Design: two forms of the same math, picked by the wrapper by dtype and
 // head width alone (kernels/flash_attention.py `resident_variant`):
 // - bf16 at D = 64 or 128, every main path's case: row 4's tensor-core
@@ -194,27 +199,26 @@ int run(const void* q, const void* k, const void* v, void* o, float* lse,
         int batch, int seq, int heads, int dim, int causal, float scale,
         int dtype, int variant, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-  if (variant == 1) {
-    if (dtype != dl4j::kBFloat16)
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 1)
     return dl4j::flash::rows_fwd_wgmma(q, k, v, o, lse, batch, seq, heads,
-                                       dim, causal, scale, stream);
-  }
+                                       dim, causal, scale, dtype, stream);
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dl4j::kFloat32)
     return dispatch<float>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
   if (dtype == dl4j::kBFloat16)
     return dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
+  if (dtype == dl4j::kFloat16)
+    return dispatch<__half>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q, k, v, o: [batch, seq, heads, dim] contiguous, all of `dtype`; dim <= 128.
-// `variant`: 1 launches the tensor-core form (bf16, dim 64 or 128, q/k/v
-// 16-byte aligned; any other input is refused, never rerouted), 0 the
-// CUDA-core kernel.
+// `variant`: 1 launches the tensor-core form (bf16 or f16, dim 64 or 128,
+// q/k/v 16-byte aligned; any other input is refused, never rerouted), 0 the
+// CUDA-core kernel (f32, bf16, f16).
 extern "C" int dl4j_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, int batch,
                                         int seq, int heads, int dim,

@@ -47,6 +47,20 @@
 //   (k, v, dk, dv in registers) and streams 64-row Q/dO tiles (with their
 //   lse and D) from the diagonal on, so the upper triangle is neither read
 //   nor computed.
+// f16 (the mixed_float16 and float16 policies) takes both forms too, the
+// tensor-core kernels at `__half`. There f16's range (largest value 65,504)
+// is the hazard the reference's f32 bodies do not have: the CUDA-core kernel
+// keeps ds in f32 registers, but the tensor-core form rounds each dS tile to
+// the element type as register A, and under a loss scale of 2^15 a dS tile
+// can pass 65,504 where the f32 one does not. So in f16 each row of each dS
+// tile is first multiplied by a power of two that puts its largest value
+// below 2^14, and the f32 accumulator row it adds into is held at the same
+// power and brought back at the store (`f16_row_scale`, csrc/
+// flash_attention_stream.cu). Powers of two are exact, so this costs no
+// precision, and it keeps 11 bits of each value relative to its row's
+// largest, where bf16's tiles keep 8 at any magnitude; dS staying in f32 on
+// the CUDA cores instead would give up the tensor cores for the ds products.
+//
 // In both, each output element is owned by one thread and written once: no
 // atomics, so runs are deterministic. Sums are f32; dq, dk and dv are
 // rounded to the input dtype once, at the store. Any T is taken (the ragged
@@ -319,8 +333,9 @@ int dispatch_dkv(const void* q, const void* k, const void* v, const void* o,
 
 // q, k, v, dout, dq: [batch, seq, heads, dim] contiguous, all of `dtype`;
 // lse, drow: [batch, heads, seq] float32; dim <= 128. `variant`: 1 launches
-// the tensor-core form (bf16, dim 64 or 128, q/k/v/dout 16-byte aligned;
-// any other input is refused, never rerouted), 0 the CUDA-core kernel.
+// the tensor-core form (bf16 or f16, dim 64 or 128, q/k/v/dout 16-byte
+// aligned; any other input is refused, never rerouted), 0 the CUDA-core
+// kernel (f32, bf16, f16).
 extern "C" int dl4j_flash_attention_bwd_dq(const void* q, const void* k,
                                            const void* v, const void* dout,
                                            const void* lse, const void* drow,
@@ -332,10 +347,9 @@ extern "C" int dl4j_flash_attention_bwd_dq(const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(drow);
   if (variant == 1) {
-    if (dtype != dl4j::kBFloat16)
-      return static_cast<int>(cudaErrorInvalidValue);
     return dl4j::flash::rows_dq_wgmma(q, k, v, dout, l, d, dq, batch, seq,
-                                      heads, dim, causal, scale, stream);
+                                      heads, dim, causal, scale, dtype,
+                                      stream);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -343,6 +357,8 @@ extern "C" int dl4j_flash_attention_bwd_dq(const void* q, const void* k,
     return dispatch_dq<float>(q, k, v, dout, l, d, dq, batch, seq, heads, dim, causal, scale, s);
   if (dtype == dl4j::kBFloat16)
     return dispatch_dq<__nv_bfloat16>(q, k, v, dout, l, d, dq, batch, seq, heads, dim, causal, scale, s);
+  if (dtype == dl4j::kFloat16)
+    return dispatch_dq<__half>(q, k, v, dout, l, d, dq, batch, seq, heads, dim, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -358,10 +374,9 @@ extern "C" int dl4j_flash_attention_bwd_dkv(const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(drow);
   if (variant == 1) {
-    if (dtype != dl4j::kBFloat16)
-      return static_cast<int>(cudaErrorInvalidValue);
     return dl4j::flash::rows_dkv_wgmma(q, k, v, dout, l, d, dk, dv, batch,
-                                       seq, heads, dim, causal, scale, stream);
+                                       seq, heads, dim, causal, scale, dtype,
+                                       stream);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -369,5 +384,7 @@ extern "C" int dl4j_flash_attention_bwd_dkv(const void* q, const void* k,
     return dispatch_dkv<float>(q, k, v, dout, l, d, dk, dv, batch, seq, heads, dim, causal, scale, s);
   if (dtype == dl4j::kBFloat16)
     return dispatch_dkv<__nv_bfloat16>(q, k, v, dout, l, d, dk, dv, batch, seq, heads, dim, causal, scale, s);
+  if (dtype == dl4j::kFloat16)
+    return dispatch_dkv<__half>(q, k, v, dout, l, d, dk, dv, batch, seq, heads, dim, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

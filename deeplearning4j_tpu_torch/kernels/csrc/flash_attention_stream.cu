@@ -65,7 +65,10 @@
 // per whole run (q tile or k tile), longest first, writing its output from
 // registers; no list, no partials, no merge or sum kernel. Rows 4 and 7
 // instantiate the list schedule, whose code is what it was before the rows
-// schedule was added.
+// schedule was added. The element type E is a template parameter too:
+// bf16 everywhere, and f16 over the rows schedule (rows 3, 5 and 6 under
+// the f16 policies), where the f16 backward holds each dS row at a power of
+// two (`f16_row_scale`, with the backward below).
 
 #include <cstdio>
 
@@ -423,33 +426,34 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
 // d = A B^T for two 64-row tiles of D dims in shared memory, both read
 // K-major: D / 16 wgmma k-steps (k-step kk at byte 32 * (kk % 4) of box
 // kk / 4), the first overwriting d.
-template <int D>
+template <int D, typename E>
 __device__ __forceinline__ void wg_dot_rows(float (&d)[32], const uint8_t* a,
                                             const uint8_t* b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    hopper::wgmma_m64n64k16_ss(d, hopper::sw128_desc(a + off, 16, 1024),
-                               hopper::sw128_desc(b + off, 16, 1024),
-                               kk > 0);
+    hopper::wgmma_m64n64k16_ss<E>(d, hopper::sw128_desc(a + off, 16, 1024),
+                                  hopper::sw128_desc(b + off, 16, 1024),
+                                  kk > 0);
   }
 }
 
-// The 64 columns of an m64n64 f32 accumulator rounded to bf16 A fragments,
-// one per k16 step (the layout in hopper.cuh).
+// The 64 columns of an m64n64 f32 accumulator rounded to E (bf16 or f16) A
+// fragments, one per k16 step (the layout in hopper.cuh).
+template <typename E>
 __device__ __forceinline__ void pack_a(const float (&s)[32],
                                        uint32_t (&pa)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      pa[kk][e] = hopper::pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+      pa[kk][e] = hopper::pack2<E>(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 }
 
-// acc += P B: P [64 x 64] as bf16 A fragments from registers, B a 64-row
+// acc += P B: P [64 x 64] as E A fragments from registers, B a 64-row
 // tile of D dims read MN-major (the transpose bit; LBO one box between the
 // 64-wide halves at D = 128, SBO 1024, a k-step of 16 rows 2048 bytes).
-template <int D>
+template <int D, typename E>
 __device__ __forceinline__ void wg_acc_tile(float (&acc)[D / 2],
                                             const uint32_t (&pa)[4][4],
                                             const uint8_t* b) {
@@ -458,18 +462,73 @@ __device__ __forceinline__ void wg_acc_tile(float (&acc)[D / 2],
     const uint64_t desc =
         hopper::sw128_desc(b + kk * 16 * 128, kBoxBytes, 1024);
     if constexpr (D == 64)
-      hopper::wgmma_m64n64k16_rs_tb(acc, pa[kk], desc);
+      hopper::wgmma_m64n64k16_rs_tb<E>(acc, pa[kk], desc);
     else
-      hopper::wgmma_m64n128k16_rs_tb(acc, pa[kk], desc);
+      hopper::wgmma_m64n128k16_rs_tb<E>(acc, pa[kk], desc);
   }
 }
 
-template <int D, bool kRows>
+template <typename E>
+constexpr bool kIsHalf = std::is_same_v<E, __half>;
+
+// 2^k for k in [-126, 127], exactly.
+__device__ __forceinline__ float pow2i(int k) {
+  return __int_as_float((k + 127) << 23);
+}
+
+// The f16 forms' guard on f16's range (largest value 65,504): before a dS
+// tile (this thread's two rows of an m64n64 f32 tile `t`) is rounded to f16
+// as register A, each row is multiplied by a power of two 2^ex[r] that puts
+// the row's largest |dS| below 2^14, and the row of the f32 accumulator
+// `acc` it adds into is brought to the same power first (`acc` holds its row
+// times 2^ex[r]; the store undoes it). ex[r] only falls (a later tile with
+// smaller values keeps the power of the larger ones), so `acc` is only ever
+// multiplied by 2^-n: no f32 overflow, and the products of powers of two are
+// exact. A row max is reduced over the quad that holds the row. Non-finite
+// values leave the power as it is: the gradient is then non-finite, as the
+// reference's f32 one is.
+template <int N>
+__device__ __forceinline__ void f16_row_scale(float (&t)[32], int (&ex)[2],
+                                              float (&acc)[N]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mx = fmaxf(mx, fmaxf(fabsf(t[4 * j + 2 * r]), fabsf(t[4 * j + 2 * r + 1])));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    int e = ex[r];
+    if (mx > 0.f && mx <= 3.0e38f) {
+      int m;
+      frexpf(mx, &m);  // mx = f 2^m, f in [0.5, 1): mx 2^(14 - m) < 2^14
+      e = min(e, max(-126, min(126, 14 - m)));
+    }
+    if (e != ex[r]) {
+      const int down = e - ex[r];  // < 0
+      const float f = down < -126 ? 0.f : pow2i(down);
+#pragma unroll
+      for (int j = 0; j < N / 4; ++j) {
+        acc[4 * j + 2 * r] *= f;
+        acc[4 * j + 2 * r + 1] *= f;
+      }
+      ex[r] = e;
+    }
+    const float up = pow2i(min(e, 126));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      t[4 * j + 2 * r] *= up;
+      t[4 * j + 2 * r + 1] *= up;
+    }
+  }
+}
+
+template <int D, bool kRows, typename E>
 __global__ void __launch_bounds__(kWgThreads)
 stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
-                        __nv_bfloat16* __restrict__ o,
+                        E* __restrict__ o,
                         float* __restrict__ lse,
                         const int* __restrict__ pair_i,
                         const int* __restrict__ pair_j,
@@ -530,7 +589,7 @@ stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int e = 0; e < 32; ++e) s[e] = 0.f;
     hopper::fence_regs(s);
     hopper::wgmma_fence();
-    wg_dot_rows<D>(s, qs, kt);
+    wg_dot_rows<D, E>(s, qs, kt);
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(s);
@@ -581,11 +640,11 @@ stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         acc[4 * j + 2 * r + 1] *= corr[r];
       }
     uint32_t pa[4][4];
-    pack_a(s, pa);
+    pack_a<E>(s, pa);  // p in [0, 1]: in range in bf16 and f16
 
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
-    wg_acc_tile<D>(acc, pa, vt);
+    wg_acc_tile<D, E>(acc, pa, vt);
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(acc);
@@ -610,13 +669,13 @@ stream_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (qp[r] >= seq) continue;
     if (u.slot < 0) {
       const float lc = fmaxf(l[r], 1e-30f), inv = 1.f / lc;
-      __nv_bfloat16* orow = o + (static_cast<size_t>(b) * seq + qp[r]) *
-                                    stride + static_cast<size_t>(h) * D;
+      E* orow = o + (static_cast<size_t>(b) * seq + qp[r]) * stride +
+                static_cast<size_t>(h) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
-                                  acc[4 * j + 2 * r + 1] * inv);
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + cq) =
+            hopper::pack2<E>(acc[4 * j + 2 * r] * inv,
+                             acc[4 * j + 2 * r + 1] * inv);
       if (lse != nullptr && cq == 0)
         lse[static_cast<size_t>(bh) * seq + qp[r]] = m[r] + logf(lc);
       continue;
@@ -873,6 +932,8 @@ stream_sum_kernel(T* __restrict__ out, const int* __restrict__ merges,
 // ptxas (-Xptxas -v, sm_90a, nvcc 12.9): dq
 // 122 registers at D = 64, 154 at D = 128, over either schedule; dk/dv 176
 // and 240 over the list, 176 and 244 over the rows; no spills, no stack.
+// The f16 instantiations over the rows (rows 3, 5, 6): forward 96 / 128,
+// dq 122 / 154, dk/dv 178 / 242 registers at D = 64 / 128, no spills.
 // Shared memory is all dynamic, `WgBwdTile`'s kSmem: 66,592
 // bytes at D = 64 (3 stages), 99,352 at D = 128 (2 stages). chip_smoke.py
 // prints the ptxas lines in its build phase.
@@ -888,38 +949,49 @@ struct WgBwdTile {
 };
 
 // This thread's two rows (t0 + row0 + 8 r) of an m64nD accumulator: times
-// `mul` as bf16 rows of a [B, T, H, D] tensor when the unit is its run
+// `mul` as E rows of a [B, T, H, D] tensor when the unit is its run
 // (slot < 0), else unscaled as f32 rows of partial slot `slot`; rows at or
-// past T are skipped.
-template <int D>
+// past T are skipped. In f16, `ex` is the power of two each row was held at
+// (`f16_row_scale`), taken out here; bf16 has none.
+template <int D, typename E>
 __device__ __forceinline__ void store_acc(
-    const float (&acc)[D / 2], float mul, __nv_bfloat16* __restrict__ out,
+    const float (&acc)[D / 2], float mul, E* __restrict__ out,
     float* __restrict__ part, int slot, int n_slots, int bh, int b, int h,
-    int heads, int seq, int t0, int row0, int cq) {
+    int heads, int seq, int t0, int row0, int cq, const int (&ex)[2]) {
   const size_t stride = static_cast<size_t>(heads) * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = t0 + row0 + 8 * r;
     if (t >= seq) continue;
+    float m = mul, unit = 1.f;
+    if constexpr (kIsHalf<E>) {
+      unit = pow2i(-min(ex[r], 126));  // 2^-ex, exact
+      m = mul * unit;
+    }
     if (slot < 0) {
-      __nv_bfloat16* row = out + (static_cast<size_t>(b) * seq + t) * stride +
-                           static_cast<size_t>(h) * D;
+      E* row = out + (static_cast<size_t>(b) * seq + t) * stride +
+               static_cast<size_t>(h) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + cq) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul,
-                                  acc[4 * j + 2 * r + 1] * mul);
+        *reinterpret_cast<uint32_t*>(row + 8 * j + cq) =
+            hopper::pack2<E>(acc[4 * j + 2 * r] * m,
+                             acc[4 * j + 2 * r + 1] * m);
       continue;
     }
     float* prow = part + part_row(bh, n_slots, slot, row0 + 8 * r, D);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(prow + 8 * j + cq) =
-          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      if constexpr (kIsHalf<E>)
+        *reinterpret_cast<float2*>(prow + 8 * j + cq) = make_float2(
+            acc[4 * j + 2 * r] * unit, acc[4 * j + 2 * r + 1] * unit);
+      else
+        *reinterpret_cast<float2*>(prow + 8 * j + cq) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
   }
 }
 
-template <int D, bool kRows>
+template <int D, bool kRows, typename E>
 __global__ void __launch_bounds__(kWgThreads)
 stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -927,7 +999,7 @@ stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tdo,
                        const float* __restrict__ lse,
                        const float* __restrict__ drow,
-                       __nv_bfloat16* __restrict__ dq,
+                       E* __restrict__ dq,
                        const int* __restrict__ pair_i,
                        const int* __restrict__ pair_j,
                        const int* __restrict__ units,
@@ -982,6 +1054,7 @@ stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  int ex[2] = {127, 127};  // f16: the power acc's rows are held at
   hopper::mbar_wait(full + S, 0);
 
   for (int i = 0; i < u.count; ++i) {
@@ -997,8 +1070,8 @@ stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::fence_regs(s);
     hopper::fence_regs(dp);
     hopper::wgmma_fence();
-    wg_dot_rows<D>(s, qs, kt);
-    wg_dot_rows<D>(dp, dos, vt);
+    wg_dot_rows<D, E>(s, qs, kt);
+    wg_dot_rows<D, E>(dp, dos, vt);
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(s);
@@ -1022,13 +1095,14 @@ stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           }
           s[e] = p * (dp[e] - dr[r]);
         }
+    if constexpr (kIsHalf<E>) f16_row_scale(s, ex, acc);
     uint32_t da[4][4];
-    pack_a(s, da);
+    pack_a<E>(s, da);
 
     hopper::fence_frags(da);
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
-    wg_acc_tile<D>(acc, da, kt);  // dq += ds k
+    wg_acc_tile<D, E>(acc, da, kt);  // dq += ds k
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(acc);
@@ -1043,11 +1117,11 @@ stream_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
 
-  store_acc<D>(acc, scale, dq, part, u.slot, n_slots, bh, b, h, heads, seq,
-               q0, row0, cq);
+  store_acc<D, E>(acc, scale, dq, part, u.slot, n_slots, bh, b, h, heads,
+                  seq, q0, row0, cq, ex);
 }
 
-template <int D, bool kRows>
+template <int D, bool kRows, typename E>
 __global__ void __launch_bounds__(kWgThreads)
 stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -1055,8 +1129,7 @@ stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tdo,
                         const float* __restrict__ lse,
                         const float* __restrict__ drow,
-                        __nv_bfloat16* __restrict__ dk,
-                        __nv_bfloat16* __restrict__ dv,
+                        E* __restrict__ dk, E* __restrict__ dv,
                         const int* __restrict__ pair_i,
                         const int* __restrict__ pair_j,
                         const int* __restrict__ units,
@@ -1105,6 +1178,8 @@ stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   float dka[D / 2], dva[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  int ex[2] = {127, 127};  // f16: the power dka's rows are held at
+  const int ex_one[2] = {0, 0};  // dva: p^T in [0, 1] needs none
   hopper::mbar_wait(full + S, 0);
 
   for (int i = 0; i < u.count; ++i) {
@@ -1128,7 +1203,7 @@ stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int e = 0; e < 32; ++e) s[e] = 0.f;
     hopper::fence_regs(s);
     hopper::wgmma_fence();
-    wg_dot_rows<D>(s, ks, qt);  // s^T = k q^T
+    wg_dot_rows<D, E>(s, ks, qt);  // s^T = k q^T
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(s);
@@ -1150,7 +1225,7 @@ stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           s[e] = p;
         }
     uint32_t pa[4][4];
-    pack_a(s, pa);
+    pack_a<E>(s, pa);
 
     float dp[32];
 #pragma unroll
@@ -1159,8 +1234,8 @@ stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::fence_regs(dp);
     hopper::fence_regs(dva);
     hopper::wgmma_fence();
-    wg_acc_tile<D>(dva, pa, dot);  // dv += p^T do
-    wg_dot_rows<D>(dp, vs, dot);   // dp^T = v do^T
+    wg_acc_tile<D, E>(dva, pa, dot);  // dv += p^T do
+    wg_dot_rows<D, E>(dp, vs, dot);   // dp^T = v do^T
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(dp);
@@ -1177,13 +1252,14 @@ stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           const int e = 4 * j + 2 * r + c;
           dp[e] = s[e] * (dp[e] - dd[2 * j + c]);
         }
+    if constexpr (kIsHalf<E>) f16_row_scale(dp, ex, dka);
     uint32_t da[4][4];
-    pack_a(dp, da);
+    pack_a<E>(dp, da);
 
     hopper::fence_frags(da);
     hopper::fence_regs(dka);
     hopper::wgmma_fence();
-    wg_acc_tile<D>(dka, da, qt);  // dk += ds^T q
+    wg_acc_tile<D, E>(dka, da, qt);  // dk += ds^T q
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(dka);
@@ -1198,10 +1274,10 @@ stream_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
 
-  store_acc<D>(dka, scale, dk, part_dk, u.slot, n_slots, bh, b, h, heads,
-               seq, k0, row0, cq);
-  store_acc<D>(dva, 1.f, dv, part_dv, u.slot, n_slots, bh, b, h, heads, seq,
-               k0, row0, cq);
+  store_acc<D, E>(dka, scale, dk, part_dk, u.slot, n_slots, bh, b, h, heads,
+                  seq, k0, row0, cq, ex);
+  store_acc<D, E>(dva, 1.f, dv, part_dv, u.slot, n_slots, bh, b, h, heads,
+                  seq, k0, row0, cq, ex_one);
 }
 
 // ----------------------------------------------------------------- launch
@@ -1262,7 +1338,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
 // A 4-D map over a contiguous bf16 [batch, seq, heads, dim] tensor: dims
 // innermost first, boxes of {64 dims, 1 head, 64 rows, 1 batch}, 128-byte
 // swizzle, zeros past each bound (rows >= seq within a batch too).
-int tile_map(CUtensorMap* map, const void* ptr, const Args& a) {
+int tile_map(CUtensorMap* map, const void* ptr, const Args& a,
+             CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   if (reinterpret_cast<uintptr_t>(ptr) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const hopper::EncodeTiled encode = hopper::encode_tiled();
@@ -1277,7 +1354,7 @@ int tile_map(CUtensorMap* map, const void* ptr, const Args& a) {
   const cuuint32_t box[4] = {64, 1, kTile, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      map, type, 4, const_cast<void*>(ptr), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1299,23 +1376,29 @@ dim3 wg_grid(const Args& a) {
     return dim3(a.n_units, a.batch * a.heads);
 }
 
-template <int D, bool kRows>
+// The tensor map's element type for E.
+template <typename E>
+constexpr CUtensorMapDataType kMapType =
+    kIsHalf<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+template <int D, bool kRows, typename E = __nv_bfloat16>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                      float* lse, float* part_acc, float* part_ml,
                      const Args& a) {
   CUtensorMap tq, tk, tv;
-  if (const int e = tile_map(&tq, q, a)) return e;
-  if (const int e = tile_map(&tk, k, a)) return e;
-  if (const int e = tile_map(&tv, v, a)) return e;
+  if (const int e = tile_map(&tq, q, a, kMapType<E>)) return e;
+  if (const int e = tile_map(&tk, k, a, kMapType<E>)) return e;
+  if (const int e = tile_map(&tv, v, a, kMapType<E>)) return e;
   constexpr int smem = WgTile<D>::kSmem;
-  auto kernel = stream_fwd_wgmma_kernel<D, kRows>;
+  auto kernel = stream_fwd_wgmma_kernel<D, kRows, E>;
   if (const int e = prepare(kernel, smem)) return e;
   kernel<<<wg_grid<kRows>(a), kWgThreads, smem,
-           a.stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
+           a.stream>>>(tq, tk, tv, static_cast<E*>(o), lse,
                        a.pair_i, a.pair_j, a.units, part_acc, part_ml,
                        a.n_slots, a.seq, a.heads, a.causal, a.scale);
   if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  return launch_merge<__nv_bfloat16, D / 16>(o, lse, part_acc, part_ml, a);
+  return launch_merge<E, D / 16>(o, lse, part_acc, part_ml, a);
 }
 
 template <typename T, int G>
@@ -1368,51 +1451,50 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // followed by the same sum kernels as the CUDA-core ones.
 
 int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
-             const void* v, const void* dout, const Args& a) {
+             const void* v, const void* dout, const Args& a,
+             CUtensorMapDataType type) {
   const void* ptrs[4] = {q, k, v, dout};
   for (int i = 0; i < 4; ++i)
-    if (const int e = tile_map(&m[i], ptrs[i], a)) return e;
+    if (const int e = tile_map(&m[i], ptrs[i], a, type)) return e;
   return 0;
 }
 
-template <int D, bool kRows>
+template <int D, bool kRows, typename E = __nv_bfloat16>
 int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* drow,
                     void* dq, float* part, const Args& a) {
   CUtensorMap m[4];
-  if (const int e = bwd_maps(m, q, k, v, dout, a)) return e;
+  if (const int e = bwd_maps(m, q, k, v, dout, a, kMapType<E>)) return e;
   constexpr int smem = WgBwdTile<D>::kSmem;
-  auto kernel = stream_dq_wgmma_kernel<D, kRows>;
+  auto kernel = stream_dq_wgmma_kernel<D, kRows, E>;
   if (const int e = prepare(kernel, smem)) return e;
   kernel<<<wg_grid<kRows>(a), kWgThreads, smem,
            a.stream>>>(m[0], m[1], m[2], m[3], lse, drow,
-                       static_cast<__nv_bfloat16*>(dq), a.pair_i, a.pair_j,
+                       static_cast<E*>(dq), a.pair_i, a.pair_j,
                        a.units, part, a.n_slots, a.seq, a.heads, a.causal,
                        a.scale);
   if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  return launch_sum<__nv_bfloat16, D / 16>(dq, part, a.scale, a);
+  return launch_sum<E, D / 16>(dq, part, a.scale, a);
 }
 
-template <int D, bool kRows>
+template <int D, bool kRows, typename E = __nv_bfloat16>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* drow,
                      void* dk, void* dv, float* part_dk, float* part_dv,
                      const Args& a) {
   CUtensorMap m[4];
-  if (const int e = bwd_maps(m, q, k, v, dout, a)) return e;
+  if (const int e = bwd_maps(m, q, k, v, dout, a, kMapType<E>)) return e;
   constexpr int smem = WgBwdTile<D>::kSmem;
-  auto kernel = stream_dkv_wgmma_kernel<D, kRows>;
+  auto kernel = stream_dkv_wgmma_kernel<D, kRows, E>;
   if (const int e = prepare(kernel, smem)) return e;
   kernel<<<wg_grid<kRows>(a), kWgThreads, smem,
            a.stream>>>(m[0], m[1], m[2], m[3], lse, drow,
-                       static_cast<__nv_bfloat16*>(dk),
-                       static_cast<__nv_bfloat16*>(dv), a.pair_i, a.pair_j,
-                       a.units, part_dk, part_dv, a.n_slots, a.seq, a.heads,
-                       a.causal, a.scale);
+                       static_cast<E*>(dk), static_cast<E*>(dv), a.pair_i,
+                       a.pair_j, a.units, part_dk, part_dv, a.n_slots, a.seq,
+                       a.heads, a.causal, a.scale);
   if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  using T = __nv_bfloat16;
-  if (const int e = launch_sum<T, D / 16>(dk, part_dk, a.scale, a)) return e;
-  return launch_sum<T, D / 16>(dv, part_dv, 1.f, a);
+  if (const int e = launch_sum<E, D / 16>(dk, part_dk, a.scale, a)) return e;
+  return launch_sum<E, D / 16>(dv, part_dv, 1.f, a);
 }
 
 // Calls `f.template run<T, G>()` for the dtype code and head width.
@@ -1489,6 +1571,56 @@ Args rows_args(int batch, int seq, int heads, int dim, int causal,
 // The rows grid's y is the rank: at most 65,535 tiles (T < 4,194,304).
 bool rows_fit(const Args& a) { return (a.seq + kTile - 1) / kTile <= 65535; }
 
+// The tensor-core forms over the rows schedule, by element type and width.
+struct RowsFwd {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  const Args& a;
+  template <int D, typename E>
+  int run() const {
+    return launch_fwd_wgmma<D, true, E>(q, k, v, o, lse, nullptr, nullptr, a);
+  }
+};
+
+struct RowsDq {
+  const void *q, *k, *v, *dout;
+  const float *lse, *drow;
+  void* dq;
+  const Args& a;
+  template <int D, typename E>
+  int run() const {
+    return launch_dq_wgmma<D, true, E>(q, k, v, dout, lse, drow, dq, nullptr,
+                                       a);
+  }
+};
+
+struct RowsDkv {
+  const void *q, *k, *v, *dout;
+  const float *lse, *drow;
+  void *dk, *dv;
+  const Args& a;
+  template <int D, typename E>
+  int run() const {
+    return launch_dkv_wgmma<D, true, E>(q, k, v, dout, lse, drow, dk, dv,
+                                        nullptr, nullptr, a);
+  }
+};
+
+// Calls `f.template run<D, E>()` for the dtype code (bf16 or f16) and the
+// head width (64 or 128).
+template <typename F>
+int rows_dispatch(int dtype, int dim, const F& f) {
+  if (dtype == dl4j::kBFloat16) {
+    if (dim == 64) return f.template run<64, __nv_bfloat16>();
+    if (dim == 128) return f.template run<128, __nv_bfloat16>();
+  } else if (dtype == dl4j::kFloat16) {
+    if (dim == 64) return f.template run<64, __half>();
+    if (dim == 128) return f.template run<128, __half>();
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // The tensor-core forms of the resident rows 3, 5 and 6 (flash_wgmma.cuh):
@@ -1498,44 +1630,30 @@ namespace flash {
 
 int rows_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                    float* lse, int batch, int seq, int heads, int dim,
-                   int causal, float scale, void* stream) {
+                   int causal, float scale, int dtype, void* stream) {
   const Args a = rows_args(batch, seq, heads, dim, causal, scale, stream);
   if (!rows_fit(a)) return static_cast<int>(cudaErrorInvalidValue);
-  if (dim == 64)
-    return launch_fwd_wgmma<64, true>(q, k, v, o, lse, nullptr, nullptr, a);
-  if (dim == 128)
-    return launch_fwd_wgmma<128, true>(q, k, v, o, lse, nullptr, nullptr, a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return rows_dispatch(dtype, dim, RowsFwd{q, k, v, o, lse, a});
 }
 
 int rows_dq_wgmma(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* drow,
                   void* dq, int batch, int seq, int heads, int dim,
-                  int causal, float scale, void* stream) {
+                  int causal, float scale, int dtype, void* stream) {
   const Args a = rows_args(batch, seq, heads, dim, causal, scale, stream);
   if (!rows_fit(a)) return static_cast<int>(cudaErrorInvalidValue);
-  if (dim == 64)
-    return launch_dq_wgmma<64, true>(q, k, v, dout, lse, drow, dq, nullptr,
-                                     a);
-  if (dim == 128)
-    return launch_dq_wgmma<128, true>(q, k, v, dout, lse, drow, dq, nullptr,
-                                      a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return rows_dispatch(dtype, dim, RowsDq{q, k, v, dout, lse, drow, dq, a});
 }
 
 int rows_dkv_wgmma(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* drow,
                    void* dk, void* dv, int batch, int seq, int heads,
-                   int dim, int causal, float scale, void* stream) {
+                   int dim, int causal, float scale, int dtype,
+                   void* stream) {
   const Args a = rows_args(batch, seq, heads, dim, causal, scale, stream);
   if (!rows_fit(a)) return static_cast<int>(cudaErrorInvalidValue);
-  if (dim == 64)
-    return launch_dkv_wgmma<64, true>(q, k, v, dout, lse, drow, dk, dv,
-                                      nullptr, nullptr, a);
-  if (dim == 128)
-    return launch_dkv_wgmma<128, true>(q, k, v, dout, lse, drow, dk, dv,
-                                       nullptr, nullptr, a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return rows_dispatch(dtype, dim,
+                       RowsDkv{q, k, v, dout, lse, drow, dk, dv, a});
 }
 
 }  // namespace flash

@@ -32,13 +32,28 @@
 // Against the plain PyTorch bodies the pinned FMAs move f32 rounding by an ulp
 // (tolerance rtol 1e-5).
 //
+// Two additions serve the precision policies (nn/engine.py):
+// - A skip flag: a pointer to one device int. Where it is set, the launch
+//   writes nothing, so params, masters and state keep their old bits, as
+//   the reference's `jnp.where(finite, new, old)` keeps them when a
+//   loss-scaled step's gradients are not finite. A null pointer is no flag.
+//   Every block reads the flag before it loads anything; the host never
+//   reads it, so the skip costs no sync.
+// - Low-precision params (template LP, apply modes only): each entry may
+//   carry the stored bf16 or f16 param beside its f32 master (`out`). The
+//   kernel updates the master in f32 exactly as without it and writes both
+//   the master and its round-to-nearest-even cast (the cast PyTorch's
+//   `copy_` and XLA's convert make).
+// With no flag and LP = 0 the arithmetic and the stores are what they were.
+//
 // Bound on the H100: bytes. Adam reads p, g, m, v and writes p, m, v: 28
 // bytes per f32 element for ~15 flops. At the transformer_lm training step
 // (21,529,600 params in 66 tensors) that is 602.8 MB, 0.1800 ms at 3.35
-// TB/s. Nesterovs and RMSProp move 20 bytes per element.
+// TB/s. Nesterovs and RMSProp move 20 bytes per element. With a bf16 or f16
+// copy written too, Adam moves 30 bytes per element (0.1928 ms at the LM).
 //
 // Design, for a pure byte stream:
-// - The tensor table is one kernel parameter (`Table`, 13.4 KB at
+// - The tensor table is one kernel parameter (`Table`, 15.5 KB at
 //   kMaxTensors = 256): CUDA 12.1+ takes kernel parameters up to 32,764
 //   bytes, so the launch carries it and no device table or upload exists.
 //   It is `__grid_constant__`, read in place, never copied per thread.
@@ -55,6 +70,8 @@
 //   elements, so its vectors stay aligned; the last chunk's numel % 4 tail
 //   runs scalar. A tensor with a misaligned pointer (a view) runs the scalar
 //   loop, in the kernel: never the plain version.
+
+#include <cuda_fp16.h>
 
 #include <cstdint>
 
@@ -76,16 +93,23 @@ constexpr int kDeltas = 0;  // d -> out (dispatch)
 constexpr int kSub = 1;     // out -= d (apply_step, minimize)
 constexpr int kAdd = 2;     // out += d (apply_step, maximize)
 
+// The stored copy's type (dl4j dtype codes): none, bf16, f16.
+constexpr int kLpNone = 0;
+constexpr int kLpBf16 = dl4j::kBFloat16;
+constexpr int kLpF16 = dl4j::kFloat16;
+
 struct Table {
   float* out[kMaxTensors];     // params (apply) or deltas (kDeltas)
   const float* g[kMaxTensors];
   float* s0[kMaxTensors];      // adam m, nesterovs v, rmsprop g2
   float* s1[kMaxTensors];      // adam v (null otherwise)
+  uint16_t* lp[kMaxTensors];   // the stored bf16/f16 params (LP != 0)
   int64_t n[kMaxTensors];
   float lr[kMaxTensors];       // the tensor's layer's scheduled lr, in f32
   float factor[kMaxTensors];   // bias-rate factor, 1 for most tensors
   int first_chunk[kMaxTensors + 1];
   int count;
+  const int* skip;             // the skip flag, or null
   // c[0] bc1, c[1] bc2, then the kind's constants:
   //   adam      c[2..6] = beta1, 1 - beta1, beta2, 1 - beta2, eps
   //   nesterovs c[2..3] = momentum, 1 + momentum
@@ -149,11 +173,19 @@ __device__ __forceinline__ void update4(const float4& g, float4& a, float4& b,
   p.w = update<KIND, MODE>(g.w, a.w, b.w, p.w, lr, factor, c);
 }
 
-template <int KIND, int MODE>
+// The bits of x's round-to-nearest-even cast to the stored type.
+template <int LP>
+__device__ __forceinline__ uint32_t lp_bits(float x) {
+  if constexpr (LP == kLpBf16) return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  else return __half_as_ushort(__float2half_rn(x));
+}
+
+template <int KIND, int MODE, int LP>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 fused_update_kernel(const __grid_constant__ Table t) {
   constexpr bool kTwo = KIND == kAdam;  // a second state tensor
   constexpr bool kReadOut = MODE != kDeltas;
+  if (t.skip != nullptr && *t.skip != 0) return;  // a skipped step
   const int chunks = t.first_chunk[t.count];
   for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
     int lo = 0, hi = t.count - 1;  // the last i with first_chunk[i] <= chunk
@@ -168,12 +200,14 @@ fused_update_kernel(const __grid_constant__ Table t) {
     const float* g = t.g[i] + start;
     float* s0 = t.s0[i] + start;
     float* s1 = kTwo ? t.s1[i] + start : nullptr;
+    uint16_t* lp = LP != kLpNone ? t.lp[i] + start : nullptr;
     const float lr = t.lr[i];
     const float factor = t.factor[i];
     const uintptr_t bits = reinterpret_cast<uintptr_t>(out) |
                            reinterpret_cast<uintptr_t>(g) |
                            reinterpret_cast<uintptr_t>(s0) |
-                           reinterpret_cast<uintptr_t>(s1);
+                           reinterpret_cast<uintptr_t>(s1) |
+                           reinterpret_cast<uintptr_t>(lp);
     int64_t scalar_from = 0;
     if ((bits & 15) == 0) {
       const int nv = static_cast<int>(len >> 2);
@@ -201,6 +235,10 @@ fused_update_kernel(const __grid_constant__ Table t) {
             a4[j] = av[u];
             if (kTwo) b4[j] = bv[u];
             out4[j] = pv[u];
+            if constexpr (LP != kLpNone)
+              reinterpret_cast<uint2*>(lp)[j] = make_uint2(
+                  lp_bits<LP>(pv[u].x) | lp_bits<LP>(pv[u].y) << 16,
+                  lp_bits<LP>(pv[u].z) | lp_bits<LP>(pv[u].w) << 16);
           }
         }
       }
@@ -214,18 +252,30 @@ fused_update_kernel(const __grid_constant__ Table t) {
       s0[j] = a;
       if (kTwo) s1[j] = b;
       out[j] = r;
+      if constexpr (LP != kLpNone) lp[j] = static_cast<uint16_t>(lp_bits<LP>(r));
     }
   }
 }
 
-template <int KIND>
-cudaError_t launch_kind(int mode, int blocks, const Table& t, cudaStream_t s) {
-  if (mode == kDeltas)
-    fused_update_kernel<KIND, kDeltas><<<blocks, kThreads, 0, s>>>(t);
-  else if (mode == kSub)
-    fused_update_kernel<KIND, kSub><<<blocks, kThreads, 0, s>>>(t);
+template <int KIND, int MODE>
+void launch_lp(int lp, int blocks, const Table& t, cudaStream_t s) {
+  if (lp == kLpBf16)
+    fused_update_kernel<KIND, MODE, kLpBf16><<<blocks, kThreads, 0, s>>>(t);
+  else if (lp == kLpF16)
+    fused_update_kernel<KIND, MODE, kLpF16><<<blocks, kThreads, 0, s>>>(t);
   else
-    fused_update_kernel<KIND, kAdd><<<blocks, kThreads, 0, s>>>(t);
+    fused_update_kernel<KIND, MODE, kLpNone><<<blocks, kThreads, 0, s>>>(t);
+}
+
+template <int KIND>
+cudaError_t launch_kind(int mode, int lp, int blocks, const Table& t,
+                        cudaStream_t s) {
+  if (mode == kDeltas)
+    fused_update_kernel<KIND, kDeltas, kLpNone><<<blocks, kThreads, 0, s>>>(t);
+  else if (mode == kSub)
+    launch_lp<KIND, kSub>(lp, blocks, t, s);
+  else
+    launch_lp<KIND, kAdd>(lp, blocks, t, s);
   return cudaGetLastError();
 }
 
@@ -245,23 +295,29 @@ int sm_count() {
 extern "C" int dl4j_fused_update_capacity() { return kMaxTensors; }
 
 // One launch over `count` (<= kMaxTensors) f32 tensors. `ptrs` is a host
-// array of 4 * count device pointers in blocks of `count`: out (params, or
-// deltas in kDeltas mode), g, s0, s1 (null unless Adam); `sizes` count
-// int64 element counts; `lrs` and `factors` count floats; `scalars` 8
-// floats, Table::c. `mode`: 0 deltas, 1 p -= d, 2 p += d.
+// array of 5 * count device pointers in blocks of `count`: out (params or
+// f32 masters, or deltas in kDeltas mode), g, s0, s1 (null unless Adam),
+// lp (the stored bf16/f16 params; null unless `lp_dtype` names one);
+// `sizes` count int64 element counts; `lrs` and `factors` count floats;
+// `scalars` 8 floats, Table::c. `mode`: 0 deltas, 1 p -= d, 2 p += d.
+// `lp_dtype`: 0 none, else the dtype code of the stored copies (apply
+// modes only). `skip`: a device int (nonzero: write nothing), or null.
 extern "C" int dl4j_fused_update(int kind, int mode, int count,
                                  const void* ptrs, const void* sizes,
                                  const void* lrs, const void* factors,
-                                 const void* scalars, void* stream) {
+                                 const void* scalars, int lp_dtype,
+                                 const void* skip, void* stream) {
   if (count <= 0) return 0;
   if (count > kMaxTensors || kind < kAdam || kind > kRmsprop ||
-      mode < kDeltas || mode > kAdd)
+      mode < kDeltas || mode > kAdd ||
+      (lp_dtype != kLpNone && (mode == kDeltas ||
+                               (lp_dtype != kLpBf16 && lp_dtype != kLpF16))))
     return static_cast<int>(cudaErrorInvalidValue);
   void* const* p = static_cast<void* const*>(ptrs);
   const int64_t* n = static_cast<const int64_t*>(sizes);
   const float* lr = static_cast<const float*>(lrs);
   const float* fa = static_cast<const float*>(factors);
-  static thread_local Table t;  // 13.4 KB: off the caller's stack
+  static thread_local Table t;  // 15.5 KB: off the caller's stack
   t.count = count;
   int64_t chunks = 0;
   for (int i = 0; i < count; ++i) {
@@ -270,6 +326,9 @@ extern "C" int dl4j_fused_update(int kind, int mode, int count,
     t.g[i] = static_cast<const float*>(p[count + i]);
     t.s0[i] = static_cast<float*>(p[2 * count + i]);
     t.s1[i] = static_cast<float*>(p[3 * count + i]);
+    t.lp[i] = static_cast<uint16_t*>(p[4 * count + i]);
+    if (lp_dtype != kLpNone && t.lp[i] == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
     t.n[i] = n[i];
     t.lr[i] = lr[i];
     t.factor[i] = fa[i];
@@ -278,14 +337,17 @@ extern "C" int dl4j_fused_update(int kind, int mode, int count,
     if (chunks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   }
   t.first_chunk[count] = static_cast<int>(chunks);
+  t.skip = static_cast<const int*>(skip);
   const float* c = static_cast<const float*>(scalars);
   for (int i = 0; i < 8; ++i) t.c[i] = c[i];
   const int blocks = static_cast<int>(
       chunks < static_cast<int64_t>(sm_count()) * kBlocksPerSm
           ? chunks : static_cast<int64_t>(sm_count()) * kBlocksPerSm);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == kAdam) return static_cast<int>(launch_kind<kAdam>(mode, blocks, t, s));
+  if (kind == kAdam)
+    return static_cast<int>(launch_kind<kAdam>(mode, lp_dtype, blocks, t, s));
   if (kind == kNesterovs)
-    return static_cast<int>(launch_kind<kNesterovs>(mode, blocks, t, s));
-  return static_cast<int>(launch_kind<kRmsprop>(mode, blocks, t, s));
+    return static_cast<int>(
+        launch_kind<kNesterovs>(mode, lp_dtype, blocks, t, s));
+  return static_cast<int>(launch_kind<kRmsprop>(mode, lp_dtype, blocks, t, s));
 }

@@ -16,7 +16,10 @@
 // the two-pass variance of `layernorm_xla` (mean((x-mu)^2), not E[x^2]-E[x]^2)
 // costs no second read. Mean and variance accumulate in f32 through warp
 // shuffles; nothing touches shared memory and no block-level barrier exists.
-// The output is rounded to the input dtype once, at the store.
+// The output is rounded to the input dtype once, at the store. f16 (the
+// mixed_float16 and float16 policies) is the same template at `__half`, 8
+// values a vector as bf16; its statistics stay in f32, so f16's narrow range
+// matters only at the store.
 //
 // BatchNorm apply replaces the TPU kernel `_bn_kernel`
 // (deeplearning4j_tpu/kernels/norm_act.py:96, reached through
@@ -199,6 +202,8 @@ extern "C" int dl4j_layernorm_norm_act(const void* x, const void* gamma,
     return launch<float>(x, gamma, beta, y, rows, feats, eps, act, s);
   if (dtype == dl4j::kBFloat16)
     return launch<__nv_bfloat16>(x, gamma, beta, y, rows, feats, eps, act, s);
+  if (dtype == dl4j::kFloat16)
+    return launch<__half>(x, gamma, beta, y, rows, feats, eps, act, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -33,7 +33,11 @@ Training (the custom_vjp `_flash_attention_pallas`, flash_attention.py:271):
 Every flash row has two forms on the card, picked by dtype and head width
 alone (`flash_variant`) and counted by form in `kernels.variant_launches`:
 bf16 at D = 64 or 128 on the tensor cores (wgmma, the streamed tiles by
-TMA), f32 and every other D on the CUDA cores. The resident rows' (3, 5,
+TMA), f32 and every other D on the CUDA cores. Rows 3, 5 and 6 take f16 in
+both forms (the mixed_float16 and float16 policies; the dS tiles of the
+f16 backward are held at a power of two per row so f16's range does not
+cut them, csrc/flash_attention_bwd.cu); the streamed rows and the paged
+decode refuse f16 on the card (ROADMAP A.7). The resident rows' (3, 5,
 6) tensor-core form is the streamed rows' tile kernels over a schedule of
 one block per whole row or column of tiles (csrc/flash_attention_stream.cu
 `block_work`): one launch, no workspace.
@@ -162,9 +166,20 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, drow, causal, scale):
     return (dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype))
 
 
+# The rows whose kernels take f16 (rows 3, 5 and 6); the streamed rows 4
+# and 7 and the paged decode (row 8) wait in f16 (ROADMAP A.7).
+_F16_ROWS = ("flash_attention", "flash_attention_fwd_lse",
+             "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
 def _check_cuda(name, ts, dtype):
     if dtype not in DTYPE_CODES:
-        raise TypeError(f"{name} takes float32 or bfloat16, not {dtype}")
+        raise TypeError(f"{name} takes float32, bfloat16 or float16, not "
+                        f"{dtype}")
+    if dtype == torch.float16 and name not in _F16_ROWS:
+        raise TypeError(f"{name} takes float32 or bfloat16 on the card; f16 "
+                        "compute through it is not in the port yet (ROADMAP "
+                        "A.7)")
     for t in ts:
         if t.dtype != dtype:
             raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
@@ -208,8 +223,8 @@ _VARIANTS = {"cuda_cores": 0, "wgmma": 1}
 def flash_variant(dtype, d: int) -> str:
     """Which form of its kernel a flash row launches, by dtype and head
     width alone: "wgmma" (every product on the tensor cores, the streamed
-    tiles by TMA) for bf16 at D = 64 or 128, "cuda_cores" for f32 and every
-    other D. One rule for the resident rows 3, 5 and 6 and the streamed
+    tiles by TMA) for bf16 or f16 at D = 64 or 128, "cuda_cores" for f32
+    and every other D (f16 reaches only rows 3, 5 and 6, `_check_cuda`). One rule for the resident rows 3, 5 and 6 and the streamed
     rows 4 and 7 (whose tile kernels the resident rows' form shares). A
     dispatch by shape, not a fallback: a wgmma launch that fails raises.
 
@@ -221,8 +236,8 @@ def flash_variant(dtype, d: int) -> str:
     caching allocator's blocks are 512-byte aligned) when, and only when,
     do.data_ptr() % 16 != 0. q, k and v are the forward's inputs, which
     its own tensor-core form already took."""
-    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) \
-        else "cuda_cores"
+    return "wgmma" if dtype in (torch.bfloat16, torch.float16) \
+        and d in (64, 128) else "cuda_cores"
 
 
 resident_variant = stream_fwd_variant = stream_bwd_variant = flash_variant

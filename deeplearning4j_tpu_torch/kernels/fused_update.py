@@ -28,6 +28,17 @@ fused_update.py:109,121,129), for `adam`, `nesterovs` and `rmsprop`:
   the JAX package's XLA bodies (fused_update.py:77-103) transcribed op for
   op; they return new tensors.
 
+For the precision policies `apply_step` takes two more things:
+- `skip`, a device int32 scalar (nonzero: the step's loss-scaled gradients
+  were not all finite). On the card the launch reads it and writes
+  nothing; on the CPU the plain version computes the step and selects the
+  old values back (`torch.where`), as the reference's `jnp.where(finite,
+  new, old)` does. The host never reads it.
+- `UpdateItem.lowp`, the stored bf16 or f16 params of an item whose
+  `params` are their f32 masters: the kernel writes the master and its
+  round-to-nearest-even cast in the same launch, the plain version copies
+  the updated master into them.
+
 On the card the apply mode equals the deltas mode followed by `d * factor`
 and `p.sub_(d)` bit for bit (the kernel's note says how). Both take lr,
 bc1 = 1 - beta1^t and bc2 = 1 - beta2^t as f32 values, computed on the
@@ -54,18 +65,22 @@ FIELDS = {"adam": ("m", "v"), "nesterovs": ("v",), "rmsprop": ("g2",)}
 _KIND_CODES = {"adam": 0, "nesterovs": 1, "rmsprop": 2}
 _DELTAS, _SUB, _ADD = 0, 1, 2  # csrc/fused_update.cu modes
 _MAX_TENSORS = 256  # csrc/fused_update.cu kMaxTensors
+# The stored copies' dtype codes (csrc/common.cuh).
+_LP_CODES = {torch.bfloat16: 1, torch.float16: 3}
 
 
 class UpdateItem(NamedTuple):
     """One layer vertex's share of `apply_step`: `params`, `grads` and each
     state field's tensors by param name (the grads' names are updated);
     its scheduled `lr`; `factors`, the bias-rate factor of each param name
-    that has one (absent: 1)."""
+    that has one (absent: 1); `lowp`, the stored bf16 or f16 params when
+    `params` are their f32 masters (None otherwise)."""
     params: Dict[str, torch.Tensor]
     state: Dict[str, Dict[str, torch.Tensor]]
     grads: Dict[str, torch.Tensor]
     lr: float
     factors: Optional[Dict[str, float]] = None
+    lowp: Optional[Dict[str, torch.Tensor]] = None
 
 
 def scalars(lr, step, kind, hyper):
@@ -146,10 +161,14 @@ def _kernel_scalars(kind, step, hyper):
 def _refuse(mode, k, tensors, n, idx):
     """Raise for the first of an entry's tensors the kernel cannot take."""
     for what, t in zip(("param" if mode else "delta", "grad", "state",
-                        "state"), tensors):
+                        "state", "stored param"), tensors):
         if t is None:
             continue
-        if t.dtype != torch.float32:
+        if what == "stored param":
+            if t.dtype not in _LP_CODES:
+                raise TypeError(f"fused_update writes bfloat16 or float16 "
+                                f"stored params; {k!r} has {t.dtype}")
+        elif t.dtype != torch.float32:
             raise TypeError(f"fused_update takes float32 params, state and "
                             f"grads; {what} of {k!r} has {t.dtype}")
         if t.get_device() != idx:
@@ -175,16 +194,17 @@ def _grads_ok(grads, sizes, idx) -> bool:
 class _Table:
     """The kernel's arguments over one list of tensors, checked and packed
     by `_pack`: `kept`, the tensors the kernel writes (every out, then
-    every s0, then every s1), and their addresses; the element count per
-    entry; then, over the entries with elements (`live`: their indices,
-    None when that is all), the addresses of out, s0, s1 (0 for none) and
-    grad, the size, lr and factor. `apply_step` reuses a group's table
-    from step to step while its params and state are the kept tensors at
-    the kept addresses, and renews only the grads, lrs and factors
-    (`_regrad`)."""
+    every s0, then every s1, then every stored low-precision param), and
+    their addresses; the element count per entry; then, over the entries
+    with elements (`live`: their indices, None when that is all), the
+    addresses of out, s0, s1, lp (0 for none) and grad, the size, lr and
+    factor; `lp_code`, the stored params' dtype code (0: none).
+    `apply_step` reuses a group's table from step to step while its params
+    and state are the kept tensors at the kept addresses, and renews only
+    the grads, lrs and factors (`_regrad`)."""
 
     __slots__ = ("idx", "kept", "addrs", "numels", "live", "outs", "s0s",
-                 "s1s", "sizes", "gs", "lrs", "facs")
+                 "s1s", "lps", "lp_code", "sizes", "gs", "lrs", "facs")
 
     def _select(self, per_entry):
         live = self.live
@@ -192,12 +212,24 @@ class _Table:
 
 
 def _pack(mode, entries) -> _Table:
-    """Check every entry, `(out, grad, s0, s1 or None, lr, factor, name)`,
-    and pack it into a `_Table` (on the grads' card)."""
+    """Check every entry, `(out, grad, s0, s1 or None, lr, factor, name,
+    the stored low-precision param or None)`, and pack it into a `_Table`
+    (on the grads' card)."""
     f32 = torch.float32
     t = _Table()
     t.idx = idx = entries[0][1].get_device()
-    for out, g, s0, s1, lr, factor, k in entries:
+    lp0 = entries[0][7]
+    for out, g, s0, s1, lr, factor, k, lp in entries:
+        if (lp is None) != (lp0 is None) or (lp is not None and (
+                lp.dtype != lp0.dtype or lp.dtype not in _LP_CODES
+                or lp.get_device() != idx
+                or not lp.is_contiguous() or lp.numel() != g.numel())):
+            if lp is not None:
+                _refuse(mode, k, (None, None, None, None, lp), g.numel(),
+                        idx)
+            raise ValueError(f"fused_update: the stored params of {k!r} "
+                             "must match the group's (one dtype, on the "
+                             "grads' card, contiguous, the grad's size)")
         # What the kernel's pointers need, in one condition (the cheap
         # path; `_refuse` names the tensor at fault): f32 on the grads'
         # card, contiguous, the grad's element count.
@@ -210,16 +242,22 @@ def _pack(mode, entries) -> _Table:
                 and g.is_contiguous() and s0.is_contiguous()
                 and out.numel() == n and s0.numel() == n):
             _refuse(mode, k, (out, g, s0, s1), n, idx)
+    t.lp_code = 0 if lp0 is None else _LP_CODES[lp0.dtype]
     t.numels = [e[1].numel() for e in entries]
     t.live = (None if all(t.numels) else
               [i for i, n in enumerate(t.numels) if n])
     t.kept = [e[0] for e in entries] + [e[2] for e in entries]
     if entries[0][3] is not None:
         t.kept += [e[3] for e in entries]
+    if lp0 is not None:
+        t.kept += [e[7] for e in entries]
     t.addrs = list(map(_ptr, t.kept))
     n = len(entries)
     t.outs, t.s0s = t._select(t.addrs[:n]), t._select(t.addrs[n:2 * n])
-    t.s1s = t._select(t.addrs[2 * n:] or [0] * n)
+    s1_at = 2 * n if entries[0][3] is not None else None
+    t.s1s = t._select(t.addrs[s1_at:s1_at + n] if s1_at else [0] * n)
+    t.lps = t._select([_ptr(e[7]) for e in entries] if lp0 is not None
+                      else [0] * n)
     t.sizes = t._select(t.numels)
     t.gs = t._select([_ptr(e[1]) for e in entries])
     t.lrs = t._select([e[4] for e in entries])
@@ -235,6 +273,8 @@ def _regrad(t, kind, items) -> bool:
     now = [it.params[k] for it in items for k in it.grads]
     for f in FIELDS[kind]:
         now += [it.state[f][k] for it in items for k in it.grads]
+    if items[0].lowp is not None:
+        now += [it.lowp[k] for it in items for k in it.grads]
     if (len(now) != len(t.kept) or not all(map(operator.is_, now, t.kept))
             or list(map(_ptr, now)) != t.addrs):
         return False
@@ -250,11 +290,11 @@ def _regrad(t, kind, items) -> bool:
     return True
 
 
-def _run(kind, hyper, step, mode, table) -> None:
+def _run(kind, hyper, step, mode, table, skip=None) -> None:
     """Launch the kernel over `table`'s entries in slices of
     `_MAX_TENSORS` and bump the version counter of every tensor it wrote.
     The lrs and factors are rounded to f32 by the arrays, as `np.float32`
-    rounds them."""
+    rounds them. `skip`: the device int32 flag, or None."""
     t = table
     if t.sizes:
         sc = _kernel_scalars(kind, step, hyper)
@@ -264,30 +304,42 @@ def _run(kind, hyper, step, mode, table) -> None:
             for i in range(0, len(t.sizes), _MAX_TENSORS):
                 j = i + _MAX_TENSORS
                 ptrs = array.array("Q", t.outs[i:j] + t.gs[i:j] + t.s0s[i:j]
-                                   + t.s1s[i:j])
+                                   + t.s1s[i:j] + t.lps[i:j])
                 size = array.array("q", t.sizes[i:j])
                 lr = array.array("f", t.lrs[i:j])
                 fac = array.array("f", t.facs[i:j])
                 _build.launch("dl4j_fused_update", code, mode, len(size),
                               ptrs.buffer_info()[0], size.buffer_info()[0],
                               lr.buffer_info()[0], fac.buffer_info()[0],
-                              sc.buffer_info()[0], stream)
+                              sc.buffer_info()[0], t.lp_code,
+                              None if skip is None else skip.data_ptr(),
+                              stream)
                 kernels.launches["fused_update"].add()
     torch.autograd.graph.increment_version(t.kept)
 
 
 def _item_tensors(kind, it):
-    """An item's grads and the params and state of their names."""
+    """An item's grads and the params, state and stored params of their
+    names."""
     fields = [it.state[f] for f in FIELDS[kind]]
     for k, g in it.grads.items():
         yield g
         yield it.params[k]
         for s in fields:
             yield s[k]
+        if it.lowp is not None:
+            yield it.lowp[k]
+
+
+def _check_skip(skip, idx) -> None:
+    if skip is not None and (skip.dtype != torch.int32 or skip.numel() != 1
+                             or skip.get_device() != idx):
+        raise ValueError("fused_update: the skip flag must be one int32 on "
+                         f"the grads' card (cuda:{idx})")
 
 
 def apply_step(kind, hyper, items: List[UpdateItem], step, sign,
-               tables: Optional[dict] = None) -> list:
+               tables: Optional[dict] = None, skip=None) -> list:
     """Update state and params of every item in place (see the module
     docstring); `hyper` is the kind's positional hyperparameter tuple,
     `step` the host iteration count, `sign` +1 to minimize, -1 to
@@ -296,8 +348,9 @@ def apply_step(kind, hyper, items: List[UpdateItem], step, sign,
     each (kind, hyper) group between steps (`_Table`): a step whose params
     and state are the packed tensors then checks and packs only its grads.
     Returns each item's new state: on the card the same tensors, on the
-    CPU the plain versions' new ones. Tensors on more than one device
-    raise, whichever item comes first."""
+    CPU the plain versions' new ones (the old ones, selected back, where
+    `skip` is set). Tensors on more than one device raise, whichever item
+    comes first."""
     if kind not in KINDS:
         raise ValueError(f"fused_update has no {kind!r} body; it has {KINDS}")
     first = next((g for it in items for g in it.grads.values()), None)
@@ -305,12 +358,24 @@ def apply_step(kind, hyper, items: List[UpdateItem], step, sign,
         return [it.state for it in items]
     if kernels.placement(first) == "cpu":
         kernels.placement(*(t for it in items for t in _item_tensors(kind,
-                                                                     it)))
+                                                                     it)),
+                          *([] if skip is None else [skip]))
+        keep = None if skip is None else skip == 0
         out = []
         for it in items:
             kernels.plain_calls["fused_update"].add()
             st, deltas = _PLAIN[kind](it.state, it.grads, it.lr, step, *hyper)
+            old = None if keep is None else {k: it.params[k].clone()
+                                             for k in deltas}
             apply_deltas(it.params, deltas, it.factors, sign)
+            if keep is not None:
+                for k in deltas:
+                    it.params[k].copy_(torch.where(keep, it.params[k], old[k]))
+                st = {f: {k: torch.where(keep, v, it.state[f][k])
+                          for k, v in fs.items()} for f, fs in st.items()}
+            if it.lowp is not None:
+                for k in deltas:
+                    it.lowp[k].copy_(it.params[k])
             out.append(st)
         return out
     mode = _SUB if sign > 0 else _ADD
@@ -325,11 +390,13 @@ def apply_step(kind, hyper, items: List[UpdateItem], step, sign,
             for k, g in it.grads.items():
                 entries.append((it.params[k], g, s0[k],
                                 None if s1 is None else s1[k], it.lr,
-                                factors.get(k, 1.0), k))
+                                factors.get(k, 1.0), k,
+                                None if it.lowp is None else it.lowp[k]))
         table = _pack(mode, entries)
         if tables is not None:
             tables[key] = table
-    _run(kind, hyper, step, mode, table)
+    _check_skip(skip, table.idx)
+    _run(kind, hyper, step, mode, table, skip)
     return [it.state for it in items]
 
 
@@ -351,5 +418,5 @@ def dispatch(kind, state, grads, lr, step, hyper):
     deltas = {k: torch.empty_like(g) for k, g in grads.items()}
     _run(kind, hyper, step, _DELTAS, _pack(_DELTAS, [
         (deltas[k], g, state[f0][k], None if s1 is None else s1[k], lr, 1.0,
-         k) for k, g in grads.items()]))
+         k, None) for k, g in grads.items()]))
     return state, deltas

@@ -208,7 +208,9 @@ def _setup(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation, activation):
     dt = xw_t.dtype
     code = DTYPE_CODES.get(dt)
     if code is None:
-        raise TypeError(f"lstm_cell takes float32 or bfloat16, not {dt}")
+        raise TypeError(f"lstm_cell takes float32 or bfloat16 on the card, "
+                        f"not {dt} (f16 compute through row 10 is not in "
+                        f"the port yet: ROADMAP A.7)")
     b, n = h_prev.shape
     _refuse(xw_t, h_prev, c_prev, RW, pW, m_t, layout=False)
     params = _CellParams(xw_t.stride(0), b, n, act, code)

@@ -7,7 +7,9 @@ source note there says what bounds it and how) and calls `layernorm_plain`,
 an op-for-op copy of `layernorm_xla` (norm_act.py:83), for a CPU tensor.
 The kernel keeps the statistics in f32 and rounds once at the store, where
 the plain version (like JAX) rounds mu and var to the input dtype first, so
-the two agree to bf16 rounding in bf16 and to f32 roundoff in f32.
+the two agree to bf16 (f16) rounding in bf16 (f16) and to f32 roundoff in
+f32. The kernel takes f32, bf16 and f16 (the JAX package sends f16 to XLA,
+whose ops the plain version copies).
 
 With autograd recording, `layernorm_norm_act` runs through `LayerNormFn`:
 the forward is the kernel (the plain version on the CPU) and the backward
@@ -37,7 +39,8 @@ from deeplearning4j_tpu_torch.kernels import _build, _diff
 from deeplearning4j_tpu_torch.nn import activations
 
 _ACT_CODES = {"identity": 0, "relu": 1, "tanh": 2, "sigmoid": 3}
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/common.cuh's dtype codes (2 is int8, the bottleneck's weights).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
 _MAX_VECTORS = 8  # 16-byte loads per lane (csrc/norm_act.cu dispatch)
 _ACT_BY_KEY = {}  # activation as callers pass it -> its code
 # LayerNorm per dtype: (code, elements per 16-byte vector, widest F).
@@ -123,9 +126,10 @@ def _batchnorm_forward(x, mean, var, gamma, beta, eps, activation):
                       *_tensors(x, mean, var, gamma, beta))
     feats = x.shape[-1]
     act = _act_code(activation)
-    if x.dtype not in DTYPE_CODES:
-        raise TypeError(f"batchnorm_norm_act takes float32 or bfloat16, "
-                        f"not {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"batchnorm_norm_act takes float32 or bfloat16 on "
+                        f"the card, not {x.dtype} (f16 compute through row 2 "
+                        f"is not in the port yet: ROADMAP A.7)")
     vec = 16 // x.element_size()
     if feats % vec:
         raise ValueError(f"the kernel takes a channel count that is a "
@@ -220,8 +224,8 @@ def _layernorm_forward(x, gamma, beta, eps, activation):
     act = _act_code(activation)
     dt = x.dtype
     if dt not in _LN_DTYPES:
-        raise TypeError(f"layernorm_norm_act takes float32 or bfloat16, "
-                        f"not {dt}")
+        raise TypeError(f"layernorm_norm_act takes float32, bfloat16 or "
+                        f"float16, not {dt}")
     code, vec, widest = _LN_DTYPES[dt]
     if gamma.dtype != dt or beta.dtype != dt:
         raise TypeError("gamma and beta must have x's dtype")

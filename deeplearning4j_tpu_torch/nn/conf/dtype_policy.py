@@ -6,14 +6,17 @@ numbers, so a conf that holds one round-trips through JSON (`to_dict`
 writes the name and every field off its default).
 
 `resolve_policy` turns a conf's globals into what the engines run:
-`Precision`, the stored params' dtype (`param_dtype`), the dtype layer
-math runs in (`compute_dtype`) and the dtype `output()` returns
-(`output_dtype`). The legacy `GlobalConf.dtype` string maps onto a preset
-as the reference maps it: "bfloat16" means bf16 compute over f32 params,
-i.e. `mixed_bfloat16`. The port runs float32, mixed_bfloat16 and float64
-(the CPU reference; the kernels take f32 and bf16). The f16 presets train
-with dynamic loss scaling and the bf16-param preset keeps f32 master
-copies: an engine given either raises NotImplementedError (ROADMAP A.7).
+`Precision`: the stored params' dtype (`param_dtype`), the dtype layer
+math runs in (`compute_dtype`), the dtype `output()` returns
+(`output_dtype`), whether the optimizer keeps f32 master copies
+(`low_precision_params`: params stored in bf16 or f16, the masters at
+`opt_state["_master"]`), whether the loss is scaled (`loss_scaling`, the
+on-device `(scale, good)` pair at `opt_state["_ls"]`, with its four
+knobs) and the host-to-device dtype of a batch (`transfer_dtype`). Every
+preset and override of the reference resolves. The legacy
+`GlobalConf.dtype` string maps onto a preset as the reference maps it:
+"bfloat16" means bf16 compute over f32 params (`mixed_bfloat16`),
+"float64" is float64, and every other string is the float32 default.
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ _PRESETS = {
 }
 
 _TORCH = {"float32": torch.float32, "float64": torch.float64,
-          "bfloat16": torch.bfloat16}
-_RUNS = ("float32", "mixed_bfloat16", "float64")
+          "bfloat16": torch.bfloat16, "float16": torch.float16}
+_LOW_PRECISION = ("bfloat16", "float16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +78,11 @@ class DtypePolicy:
         p, c, o, _ = _PRESETS[self.name]
         return (self.param_dtype or p, self.compute_dtype or c,
                 self.output_dtype or o)
+
+    @property
+    def low_precision_params(self) -> bool:
+        """Params stored below f32: the optimizer keeps f32 masters."""
+        return self.resolved()[0] in _LOW_PRECISION
 
     @property
     def uses_loss_scaling(self) -> bool:
@@ -120,37 +128,64 @@ class DtypePolicy:
 
 @dataclasses.dataclass(frozen=True)
 class Precision:
-    """The dtypes an engine runs at, resolved from a policy."""
+    """What an engine runs at, resolved from a policy (see the module
+    docstring). `state_dtype` is the updater state's and the declared
+    layer state's: f32 under low-precision params (the masters' dtype,
+    as the reference initializes them), else the param dtype."""
 
     name: str
     param_dtype: torch.dtype
     compute_dtype: torch.dtype
     output_dtype: torch.dtype
+    low_precision_params: bool = False
+    loss_scaling: bool = False
+    initial_loss_scale: float = 2.0 ** 15
+    growth_interval: int = 2000
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    transfer_dtype: Optional[torch.dtype] = None
+
+    @property
+    def state_dtype(self) -> torch.dtype:
+        return torch.float32 if self.low_precision_params \
+            else self.param_dtype
+
+
+def _dtype(name: str) -> torch.dtype:
+    canonical = _CANONICAL.get(str(name))
+    if canonical not in _TORCH:
+        raise ValueError(f"unknown dtype {name!r} in a dtype policy; "
+                         f"dtypes: {sorted(_TORCH)}")
+    return _TORCH[canonical]
 
 
 def conf_policy(global_conf) -> DtypePolicy:
     """The conf's policy: an explicit `dtype_policy` wins; else the legacy
-    `dtype` string."""
+    `dtype` string, by the reference's mapping (`resolve_policy` there):
+    "bfloat16" is mixed_bfloat16, "float64" float64, anything else the
+    float32 default."""
     explicit = getattr(global_conf, "dtype_policy", None)
     if explicit is not None:
         return DtypePolicy.of(explicit)
-    legacy = str(getattr(global_conf, "dtype", "float32"))
-    return DtypePolicy("mixed_bfloat16" if legacy == "bfloat16" else legacy)
+    legacy = getattr(global_conf, "dtype", "float32")
+    if legacy == "bfloat16":
+        return DtypePolicy("mixed_bfloat16")
+    if legacy == "float64":
+        return DtypePolicy("float64")
+    return DtypePolicy()
 
 
 def resolve_policy(global_conf) -> Precision:
-    """The dtypes of `conf_policy`. Raises NotImplementedError for a policy
-    the port does not run."""
+    """The `Precision` of `conf_policy`."""
     pol = conf_policy(global_conf)
     param, compute, output = pol.resolved()
-    if pol.uses_loss_scaling or "float16" in (param, compute, output):
-        raise NotImplementedError(
-            f"dtype policy {pol.name!r} trains with dynamic loss scaling, "
-            "which is not in the port yet (ROADMAP A.7)")
-    if pol.name not in _RUNS or (param, compute, output) != \
-            _PRESETS[pol.name][:3] or pol.transfer_dtype is not None:
-        raise NotImplementedError(
-            f"dtype policy {pol.to_dict()} (bf16 params with f32 master "
-            "copies, dtype overrides, a transfer dtype) is not in the port "
-            "yet (ROADMAP A.7)")
-    return Precision(pol.name, _TORCH[param], _TORCH[compute], _TORCH[output])
+    return Precision(
+        pol.name, _dtype(param), _dtype(compute), _dtype(output),
+        low_precision_params=pol.low_precision_params,
+        loss_scaling=pol.uses_loss_scaling,
+        initial_loss_scale=float(pol.initial_loss_scale),
+        growth_interval=int(pol.loss_scale_growth_interval),
+        growth_factor=float(pol.loss_scale_growth_factor),
+        backoff_factor=float(pol.loss_scale_backoff_factor),
+        transfer_dtype=(None if pol.transfer_dtype is None
+                        else _dtype(pol.transfer_dtype)))

@@ -9,13 +9,27 @@ update.
 to its conf, in the engine's update order.
 
 - Params live on the engine's device at the policy's param dtype
-  (`params_tree`, f32 leaf tensors that require grad). Training casts the
-  leaves to the compute dtype inside autograd at each step, so gradients
-  reach the f32 params as in the reference (f32 params, bf16 compute under
-  `mixed_bfloat16`); the updater then changes the leaves in place (on the
-  card one fused-update launch for all the Adam, Nesterovs or RMSProp
-  layers of a step), and the step count stays on the host: a step issues
-  no host sync.
+  (`params_tree`, leaf tensors that require grad). Training casts the
+  leaves to the compute dtype inside autograd at each step
+  (`params.prep_params`), so gradients reach the stored params as in the
+  reference; the updater then changes the leaves in place (on the card
+  one fused-update launch for all the Adam, Nesterovs or RMSProp layers
+  of a step), and the step count stays on the host: a step issues no host
+  sync.
+- Precision policies (`nn/conf/dtype_policy.py`, reference `graph.py:
+  164-226, 607-760`). Under params stored in bf16 or f16 the updater
+  works on f32 master copies, `opt_state["_master"]` (`{vertex: {name:
+  f32}}`, drawn or given at f32 and stored at the param dtype as their
+  cast), with f32 updater and layer state; each step updates the master
+  and writes its cast into the stored params (on the card in the same
+  launch). Under dynamic loss scaling the backward runs on `loss *
+  scale`, the gradients come back as `astype(f32) / scale`, one device
+  bool says whether all of them are finite, and a step whose gradients
+  are not leaves params, masters, updater and layer state as they were
+  (a device select; the fused update's skip flag on the card) while the
+  scale backs off; `loss_scale_growth_interval` finite steps in a row
+  grow it. `(scale, good)` is `opt_state["_ls"]`, two f32 device
+  scalars updated by device ops: no step reads them back.
 - Inference reads ONE copy at the compute dtype, built by `init`, dropped
   by every training step and by `set_params`, and rebuilt at the next
   inference: an eager cast per forward would move the whole model every
@@ -29,7 +43,8 @@ to its conf, in the engine's update order.
   level). The model zip stores both.
 - Construction refuses a base conf with no forward pass and a LoRA
   adapter (`nn/layers/__init__.py` `check_supported`), the adapter naming
-  its ROADMAP item.
+  its ROADMAP item. Post-training int8 params (`checkpoint/quantize.py`:
+  a weight with a `__scale` companion) serve only: `fit` refuses them.
 - The objective's extra terms are shared: an MoE layer's `_aux_loss`
   state entry leaves the state and joins the loss (`take_aux_loss`), and
   a `CenterLossOutputLayer` adds its center term and moves its class
@@ -68,6 +83,10 @@ from deeplearning4j_tpu_torch.nn.prng import prng_key, split
 from deeplearning4j_tpu_torch.ops import grad_norm as grad_norm_mod
 from deeplearning4j_tpu_torch.ops import schedules as schedules_mod
 from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
+
+# `opt_state` keys that are no vertex: the f32 masters and the loss-scale
+# pair (reference `multilayer.py:107`).
+RESERVED_OPT_KEYS = ("_master", "_ls")
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -167,6 +186,11 @@ class NetworkEngine:
             params = {name: params_mod.init_layer_params(layers[name], gen)
                       for name in draw_order}
         params_mod.check_params(layers, params)
+        # Low-precision params keep f32 masters: the given (or drawn)
+        # values at f32, the stored params their cast (reference init).
+        master = (params_mod.as_leaves(params, self.device, torch.float32,
+                                       grad=False)
+                  if pol.low_precision_params else None)
         self.params_tree = params_mod.as_leaves(params, self.device,
                                                 pol.param_dtype)
         self._update_tables.clear()
@@ -180,7 +204,7 @@ class NetworkEngine:
             state = {n: params_mod.init_layer_state(layer)
                      for n, layer in declared.items()}
         params_mod.check_state(declared, state)
-        self.state = {n: {k: a.detach().to(self.device, pol.param_dtype,
+        self.state = {n: {k: a.detach().to(self.device, pol.state_dtype,
                                            copy=True)
                           for k, a in state[n].items()} for n in declared}
         self._updaters, self._schedules = {}, {}
@@ -198,9 +222,17 @@ class NetworkEngine:
                 float(pick("learning_rate")), g.lr_policy,
                 g.lr_policy_decay_rate, g.lr_policy_power, g.lr_policy_steps,
                 g.max_num_iterations, g.lr_schedule)
+        base = self.params_tree if master is None else master
         with torch.no_grad():
-            self.opt_state = {name: self._updaters[name].init(
-                self.params_tree[name]) for name in layers}
+            self.opt_state = {name: self._updaters[name].init(base[name])
+                              for name in layers}
+        # The reserved keys (never vertex names, reference graph.py:218).
+        if master is not None:
+            self.opt_state["_master"] = master
+        if pol.loss_scaling:
+            self.opt_state["_ls"] = tuple(
+                torch.tensor(v, dtype=torch.float32, device=self.device)
+                for v in (pol.initial_loss_scale, 0.0))
         if updater_state is not None:
             self.set_updater_state(updater_state)
         self._train_rng = prng_key(int(g.seed) ^ 0x5EED)
@@ -220,7 +252,13 @@ class NetworkEngine:
         "iteration": n}` (`interop.updater_state_from_numpy`): the tree
         must match this engine's updaters field for field."""
         tree = updater_state["opt_state"]
+        sdt = self.dtype_policy.state_dtype
+        for name in RESERVED_OPT_KEYS:
+            if name in tree and name in self.opt_state:
+                self._set_reserved(name, tree[name])
         for name, own in self.opt_state.items():
+            if name in RESERVED_OPT_KEYS:
+                continue
             got = tree.get(name, {})
             want = {f: {k: tuple(t.shape) for k, t in s.items()}
                     for f, s in own.items()}
@@ -230,20 +268,44 @@ class NetworkEngine:
                 raise ValueError(f"updater state of {name!r}: want "
                                  f"{want}, got {have}")
             self.opt_state[name] = {
-                f: {k: t.detach().to(self.device,
-                                     self.dtype_policy.param_dtype, copy=True)
+                f: {k: t.detach().to(self.device, sdt, copy=True)
                     for k, t in s.items()} for f, s in got.items()}
         self._update_tables.clear()
         self.iteration = int(updater_state["iteration"])
+
+    def _set_reserved(self, key, value) -> None:
+        """`opt_state[key]` for a reserved key from a given tree: the
+        masters `{vertex: {name: tensor}}` or the `(scale, good)` pair."""
+        if key == "_ls":
+            self.opt_state["_ls"] = tuple(
+                torch.as_tensor(v).detach().to(self.device, torch.float32,
+                                               copy=True).reshape(())
+                for v in value)
+            return
+        own = self.opt_state["_master"]
+        for v, p in own.items():
+            for k, t in p.items():
+                got = value[v][k]
+                if tuple(got.shape) != tuple(t.shape):
+                    raise ValueError(f"master of {v}/{k}: want "
+                                     f"{tuple(t.shape)}, got "
+                                     f"{tuple(got.shape)}")
+                own[v][k] = torch.as_tensor(got).detach().to(
+                    self.device, torch.float32, copy=True)
 
     def _compute_copy(self):
         if self.params_tree is None:
             raise RuntimeError("call init() first")
         if self._compute_params is None:
             with torch.no_grad():
-                self._compute_params = params_mod.cast_floating(
-                    self.params_tree, self.dtype_policy.compute_dtype)
+                self._compute_params = self._prep(self.params_tree)
         return self._compute_params
+
+    def _prep(self, params):
+        """The params as the forward reads them: cast, or dequantized, to
+        the compute dtype (`params.prep_layer_params`)."""
+        return params_mod.prep_params(params, self.dtype_policy.compute_dtype,
+                                      self._layer_confs)
 
     def _l1_l2_penalty(self, params):
         total = 0.0
@@ -272,6 +334,12 @@ class NetworkEngine:
              f"optimization_algo {g.optimization_algo!r} (solvers)", 10),
             (int(g.superstep_k or 0) > 1, "superstep training", 10),
             *refused]
+        if self.params_tree is not None and params_mod.is_quantized(
+                self.params_tree):
+            raise ValueError(
+                "fit: these params are post-training-quantized int8 "
+                "(checkpoint/quantize.py), a serving artifact; train the "
+                "float checkpoint they came from")
         for name, layer in self._layer_confs.items():
             checks.append((bool(layer.frozen),
                            f"frozen layer {name!r} (transfer learning)", 12))
@@ -279,6 +347,17 @@ class NetworkEngine:
             if cond:
                 raise NotImplementedError(
                     f"fit: {what} is not in the port yet (ROADMAP A.{item})")
+
+    def _check_sgd_only_policy(self, what: str) -> None:
+        """The reference's refusal (`multilayer.py:909-915`): masters and
+        loss scaling belong to the SGD train step."""
+        pol = self.dtype_policy
+        if pol.low_precision_params or pol.loss_scaling:
+            raise ValueError(
+                f"{what} does not support dtype policy {pol.name!r}: "
+                "low-precision param storage (f32 master copies) and "
+                "dynamic loss scaling are SGD-train-step features; use a "
+                "float32 / float64 / mixed_bfloat16 policy here")
 
     def _next_rng(self) -> np.ndarray:
         """Advance the train key, `key, sub = split(key)`; the subkey seeds
@@ -291,35 +370,92 @@ class NetworkEngine:
         for a leaf the loss does not reach, as jax.grad gives), each
         contiguous as the update kernel takes it: a convolution's kernel
         gradient comes back through the HWIO permute in whatever layout
-        cuDNN or the CPU wrote it, and is copied only then."""
+        cuDNN or the CPU wrote it, and is copied only then; and, under
+        loss scaling, a device bool "every gradient is finite" (None
+        otherwise). Under loss scaling the backward runs on `loss * scale`
+        and the gradients come back as `astype(f32) / scale`; under
+        low-precision params they come back as f32. Returns `(grads,
+        finite)`."""
+        pol = self.dtype_policy
         names = [(v, k) for v, p in self.params_tree.items()
                  for k, t in p.items() if t.requires_grad]
         leaves = [self.params_tree[v][k] for v, k in names]
+        scale = self.opt_state["_ls"][0] if pol.loss_scaling else None
+        finite = None
+        if scale is not None:
+            loss = loss * scale.to(loss.dtype)
         with torch.inference_mode(False):
             flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+        flat = [torch.zeros_like(leaf) if gr is None else gr.contiguous()
+                for leaf, gr in zip(leaves, flat)]
+        if scale is not None:
+            flat = [gr.to(torch.float32) / scale for gr in flat]
+            finite = torch.stack(
+                [torch.isfinite(gr).all() for gr in flat]).all()
+        elif pol.low_precision_params:
+            flat = [gr.to(torch.float32) for gr in flat]
         grads: Dict[str, Dict[str, torch.Tensor]] = {}
-        for (v, k), leaf, gr in zip(names, leaves, flat):
-            grads.setdefault(v, {})[k] = (torch.zeros_like(leaf)
-                                          if gr is None else gr.contiguous())
-        return grads
+        for (v, k), gr in zip(names, flat):
+            grads.setdefault(v, {})[k] = gr
+        return grads, finite
 
-    def _train_update(self, grads) -> None:
+    def _train_update(self, grads, finite) -> None:
         with torch.no_grad():
-            self._apply_updates(grads)
+            self._apply_updates(grads, finite)
+            if finite is not None:
+                self._update_loss_scale(finite)
         self._compute_params = None  # the inference copy is stale now
 
-    def _apply_updates(self, grads) -> None:
+    def _update_loss_scale(self, fin) -> None:
+        """The scale's backoff and growth after a step whose gradients were
+        all finite or not (`fin`, a device bool), as device ops, in place
+        (reference graph.py:719-727)."""
+        pol = self.dtype_policy
+        scale, good = self.opt_state["_ls"]
+        new_good = torch.where(fin, good + 1.0, torch.zeros_like(good))
+        grow = new_good >= float(pol.growth_interval)
+        new_scale = torch.where(
+            fin, torch.where(grow, scale * pol.growth_factor, scale),
+            scale * pol.backoff_factor)
+        good.copy_(torch.where(grow, torch.zeros_like(good), new_good))
+        scale.copy_(new_scale)
+
+    def _keep_state(self, new_state, fin, detach: bool = False) -> None:
+        """Merge a step's new layer state into `self.state`; under loss
+        scaling (`fin` the step's finite bool, None without) an entry the
+        state already had keeps its old value when the step is skipped
+        (reference graph.py:709-714)."""
+        for n, s in new_state.items():
+            old = self.state.get(n, {})
+            upd = {}
+            for k, v in s.items():
+                if detach:
+                    v = v.detach()
+                if fin is not None and k in old:
+                    v = torch.where(fin, v, old[k])
+                upd[k] = v
+            self.state[n] = {**old, **upd}
+
+    def _apply_updates(self, grads, fin) -> None:
         """Per layer (reference `_train_step`): normalize, schedule, update,
         bias-rate factor, then params -= sign * deltas, in place. Layers
         whose updater has a fused body (Adam, Nesterovs, RMSProp) are
         gathered by (kind, hyper) and updated together by one
         `fused_update.apply_step` each (on the card one kernel launch over
         all their tensors, which writes the params too); the others take
-        their updater's deltas here. The step is `self.iteration`, which a
-        truncated-BPTT sequence advances once, after its last chunk."""
+        their updater's deltas here. Under loss scaling (`fin` the step's
+        finite bool, None without) a skipped step writes nothing: a device
+        select here, the fused update's skip flag there. The step is
+        `self.iteration`, which a truncated-BPTT sequence advances once,
+        after its last chunk."""
         g = self._global
         sign = 1.0 if g.minimize else -1.0
         step = self.iteration
+        lowp = self.dtype_policy.low_precision_params
+        # Under low-precision params the update runs on the f32 masters,
+        # and the stored params take their cast.
+        base = self.opt_state["_master"] if lowp else self.params_tree
+        skip = None if fin is None else (~fin).to(torch.int32)
         groups: Dict[tuple, list] = {}
         for name, layer in self._layer_confs.items():
             lgrads = grads.get(name)
@@ -343,18 +479,29 @@ class NetworkEngine:
             if updater.fused is not None:
                 groups.setdefault(updater.fused, []).append(
                     (name, fused_update.UpdateItem(
-                        self.params_tree[name], self.opt_state[name], lgrads,
-                        lr, factors)))
+                        base[name], self.opt_state[name], lgrads, lr,
+                        factors, self.params_tree[name] if lowp else None)))
                 continue
-            st, deltas = updater.update(self.opt_state[name], lgrads, lr,
-                                        step)
-            fused_update.apply_deltas(self.params_tree[name], deltas,
-                                      factors, sign)
+            old = self.opt_state[name]
+            st, deltas = updater.update(old, lgrads, lr, step)
+            params = base[name]
+            before = ({k: p.clone() for k, p in params.items()}
+                      if fin is not None else None)
+            fused_update.apply_deltas(params, deltas, factors, sign)
+            if fin is not None:
+                for k, p in params.items():
+                    p.copy_(torch.where(fin, p, before[k]))
+                st = {f: {k: torch.where(fin, t, old[f][k])
+                          for k, t in fs.items()} for f, fs in st.items()}
+            if lowp:
+                for k, p in params.items():
+                    self.params_tree[name][k].copy_(p)
             self.opt_state[name] = st
         for (kind, hyper), members in groups.items():
             states = fused_update.apply_step(
                 kind, hyper, [item for _, item in members], step, sign,
-                self._update_tables)
+                self._update_tables,
+                **({} if skip is None else {"skip": skip}))
             for (name, _), st in zip(members, states):
                 self.opt_state[name] = st
 
@@ -383,10 +530,15 @@ class NetworkEngine:
         new = params_mod.unflatten_params(flat, self.params_tree,
                                           self._param_layer_order(),
                                           self._param_orders())
+        master = self.opt_state.get("_master") if self.opt_state else None
         with torch.no_grad():
             for lk, p in new.items():
                 for k, a in p.items():
                     self.params_tree[lk][k].copy_(a)
+                    if master is not None:
+                        # The masters follow a view set from outside
+                        # (reference multilayer.py:1300-1304).
+                        master[lk][k].copy_(self.params_tree[lk][k])
         self._compute_params = None
 
     def _updater_leaves(self) -> List[torch.Tensor]:
@@ -395,6 +547,9 @@ class NetworkEngine:
             if isinstance(tree, dict):
                 for k in sorted(tree):
                     yield from walk(tree[k])
+            elif isinstance(tree, (tuple, list)):
+                for t in tree:
+                    yield from walk(t)
             else:
                 yield tree
 

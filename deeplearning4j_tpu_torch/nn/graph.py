@@ -37,10 +37,16 @@ engines' shared machinery (`engine.py`).
   terms, summed in topological order, undivided by the batch
   (`engine.py` `take_aux_loss`, `center_loss`).
 
+- Every precision policy trains (`engine.py`: f32 masters under bf16 or
+  f16 params, dynamic loss scaling); a policy's `transfer_dtype` casts a
+  batch's floating features and labels on the host before they reach the
+  device (`datasets/staging.py`, reference `_fit_dispatch`). The forward
+  reads the params cast, or an int8 checkpoint's dequantized, to the
+  compute dtype (`params.prep_layer_params`), and `output` returns the
+  output dtype.
+
 What `fit` does not run yet raises NotImplementedError naming its ROADMAP
-item: solvers, truncated BPTT, superstep, frozen layers (f16 loss scaling
-never gets this far: the port's dtype policies are float32,
-mixed_bfloat16 and float64).
+item: solvers, truncated BPTT, superstep, frozen layers.
 """
 
 from __future__ import annotations
@@ -52,10 +58,10 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterators import maybe_reset
+from deeplearning4j_tpu_torch.datasets.staging import transfer_cast
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn import losses as losses_mod
-from deeplearning4j_tpu_torch.nn import params as params_mod
 from deeplearning4j_tpu_torch.nn import rnn_state as rnn_mod
 from deeplearning4j_tpu_torch.nn.conf import preprocessors as pre_mod
 from deeplearning4j_tpu_torch.nn.conf.graph import (
@@ -321,8 +327,9 @@ class ComputationGraph(NetworkEngine):
         maybe_reset(items)
         for listener in self.listeners:
             listener.on_epoch_start(self)
+        tdt = self.dtype_policy.transfer_dtype
         for item in items:
-            mds = _as_mds(item)
+            mds = transfer_cast(_as_mds(item), tdt)
             for _ in range(max(1, int(self.conf.global_conf.iterations))):
                 self._fit_one(mds)
         self.epoch += 1
@@ -334,20 +341,18 @@ class ComputationGraph(NetworkEngine):
         """One step in three parts (each a method, so a profiler can wrap
         them on the instance): forward + loss, backward, update."""
         loss, new_state = self._train_forward(mds)
-        grads = self._train_backward(loss)
-        self._train_update(grads)
-        for n, s in new_state.items():
-            self.state[n] = {**self.state.get(n, {}), **s}
+        grads, finite = self._train_backward(loss)
+        self._train_update(grads, finite)
+        self._keep_state(new_state, finite)
         self._score = loss.detach()
         self._iteration_done()
 
     def _train_forward(self, mds):
-        """The loss, recorded by autograd from the f32 leaves through their
-        compute-dtype cast, and the new layer state (BatchNorm running
+        """The loss, recorded by autograd from the stored leaves through
+        their compute-dtype cast, and the new layer state (BatchNorm running
         statistics, moved on detached batch statistics)."""
         with torch.inference_mode(False), torch.enable_grad():
-            params = params_mod.cast_floating(self.params_tree,
-                                              self.dtype_policy.compute_dtype)
+            params = self._prep(self.params_tree)
             aux = {}
             outs, new_state, omasks = self._forward(
                 params, self.state, mds.features, keep_rnn_state=False,

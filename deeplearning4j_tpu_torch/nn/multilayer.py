@@ -46,13 +46,17 @@ engines' shared params, updaters and in-place update (`engine.py`).
   bias-rate factor (the fused updaters in one `apply_step`, row 9 on the
   card). Listeners get `iteration_done` after every step. `fit` runs it
   first when the conf says `pretrain`, and its backprop pass only when
-  the conf says `backprop`. (The reference also refuses pretraining under
-  low-precision params or loss scaling; the port refuses those policies
-  when the network is built, ROADMAP A.7.)
+  the conf says `backprop`. Pretraining under low-precision params or
+  loss scaling raises the reference's ValueError
+  (`_check_sgd_only_policy`).
+- Every precision policy trains (`engine.py`); under loss scaling a
+  truncated-BPTT sequence scales, skips and updates the scale once per
+  chunk, as the reference's `_train_step` runs per chunk, and a skipped
+  chunk keeps the h and c it started from. A policy's `transfer_dtype`
+  casts a batch on the host first (`datasets/staging.py`).
 
 What `fit` does not run yet raises NotImplementedError naming its ROADMAP
-item: solvers and superstep (A.10), frozen layers (A.12) and f16 loss
-scaling (A.7).
+item: solvers and superstep (A.10) and frozen layers (A.12).
 """
 
 from __future__ import annotations
@@ -64,11 +68,11 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterators import maybe_reset
+from deeplearning4j_tpu_torch.datasets.staging import transfer_cast
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.kernels import fused_update
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn import losses as losses_mod
-from deeplearning4j_tpu_torch.nn import params as params_mod
 from deeplearning4j_tpu_torch.nn import rnn_state as rnn_mod
 from deeplearning4j_tpu_torch.nn.conf import preprocessors as pre_mod
 from deeplearning4j_tpu_torch.nn.conf.neural_net import MultiLayerConfiguration
@@ -261,8 +265,9 @@ class MultiLayerNetwork(NetworkEngine):
         for listener in self.listeners:
             listener.on_epoch_start(self)
         if self.conf.backprop:
+            tdt = self.dtype_policy.transfer_dtype
             for ds in items:
-                self._fit_dispatch(_as_dataset(ds))
+                self._fit_dispatch(transfer_cast(_as_dataset(ds), tdt))
         self.epoch += 1
         for listener in self.listeners:
             listener.on_epoch_end(self)
@@ -289,19 +294,16 @@ class MultiLayerNetwork(NetworkEngine):
         and c) is kept detached: a chunk's gradient ends at its edge."""
         loss, new_state = self._train_forward(x, y, fmask, lmask, carry_rnn,
                                               eb)
-        grads = self._train_backward(loss)
-        self._train_update(grads)
-        for lk, s in new_state.items():
-            self.state[lk] = {**self.state.get(lk, {}),
-                              **{k: v.detach() for k, v in s.items()}}
+        grads, finite = self._train_backward(loss)
+        self._train_update(grads, finite)
+        self._keep_state(new_state, finite, detach=True)
         self._score = loss.detach()
 
     def _train_forward(self, x, y, fmask, lmask, carry_rnn, eb):
-        """The loss, recorded by autograd from the f32 leaves through their
-        compute-dtype cast, and the new layer state."""
+        """The loss, recorded by autograd from the stored leaves through
+        their compute-dtype cast, and the new layer state."""
         with torch.inference_mode(False), torch.enable_grad():
-            params = params_mod.cast_floating(self.params_tree,
-                                              self.dtype_policy.compute_dtype)
+            params = self._prep(self.params_tree)
             aux = {}
             preout, new_state, _ = self._forward(
                 params, self.state, x, fmask, keep_rnn_state=carry_rnn,
@@ -350,6 +352,7 @@ class MultiLayerNetwork(NetworkEngine):
     def pretrain(self, iterator, epochs: int = 1) -> "MultiLayerNetwork":
         """Layerwise unsupervised pretraining of the AutoEncoder, RBM and
         VAE layers (see the module docstring; reference `pretrain`)."""
+        self._check_sgd_only_policy("layerwise pretraining")
         if self.params_tree is None:
             self.init()
         if isinstance(iterator, DataSet):

@@ -102,30 +102,85 @@ def init_layer_state(conf, dtype=torch.float32) -> Dict[str, torch.Tensor]:
             for name, shape in conf.state_shapes().items()}
 
 
-def as_leaves(tree, device, dtype):
+def as_leaves(tree, device, dtype, grad: bool = True):
     """A `{vertex: {name: tensor}}` tree as the graph's own params: copies
     on `device`, floating ones at `dtype` as leaf tensors that require grad
-    (the training step updates them in place, under no_grad)."""
+    (the training step updates them in place, under no_grad) unless `grad`
+    is False (the f32 masters)."""
     return {v: {k: (a.detach().to(device, dtype, copy=True)
-                    .requires_grad_(True) if a.is_floating_point()
+                    .requires_grad_(grad) if a.is_floating_point()
                     else a.detach().to(device, copy=True))
                 for k, a in p.items()}
             for v, p in tree.items()}
 
 
 def cast_floating(tree, dtype):
-    """Cast every floating tensor of a `{vertex: {name: tensor}}` tree."""
+    """Cast every floating tensor of a `{vertex: {name: tensor}}` tree,
+    leaving integer ones (ids, quantized weights) as they are."""
     return {v: {k: (a.to(dtype) if a.is_floating_point() else a)
                 for k, a in p.items()}
             for v, p in tree.items()}
 
 
+SCALE_SUFFIX = "__scale"
+
+
+def prep_layer_params(lparams, compute_dtype, layer=None):
+    """One layer's params as its forward reads them (reference
+    `prep_layer_params`, less LoRA): floating leaves cast to the compute
+    dtype; an integer leaf with a `<name>__scale` companion (post-training
+    int8, `checkpoint/quantize.py`) dequantized as `q * scale` at the
+    compute dtype, the companion consumed. A `BottleneckBlock` keeps its
+    int8 weights and their scales as they are: row 12's kernel
+    dequantizes them at the load (`kernels/bottleneck_block.py`)."""
+    if isinstance(layer, BottleneckBlock):
+        return {k: (a.to(compute_dtype) if a.is_floating_point()
+                    and not k.endswith(SCALE_SUFFIX) else a)
+                for k, a in lparams.items()}
+    out = {}
+    for k, a in lparams.items():
+        if k.endswith(SCALE_SUFFIX):
+            continue
+        scale = lparams.get(k + SCALE_SUFFIX)
+        if scale is not None and not a.is_floating_point():
+            out[k] = a.to(compute_dtype) * scale.to(compute_dtype)
+        elif a.is_floating_point():
+            out[k] = a.to(compute_dtype)
+        else:
+            out[k] = a
+    return out
+
+
+def prep_params(tree, compute_dtype, layers):
+    """`prep_layer_params` over a `{vertex: {name: tensor}}` tree; `layers`
+    maps each vertex to its conf."""
+    return {v: prep_layer_params(p, compute_dtype, layers.get(v))
+            for v, p in tree.items()}
+
+
+def is_quantized(tree) -> bool:
+    """Whether a params tree holds post-training int8 weights (a leaf with
+    a `__scale` companion)."""
+    return any(k.endswith(SCALE_SUFFIX) for p in tree.values() for k in p)
+
+
 def check_params(layers: Mapping[str, object], params: Mapping) -> None:
     """Raise unless `params` holds exactly each layer's declared names and
-    shapes."""
+    shapes, and beside an integer (post-training int8) weight at most its
+    `<name>__scale` companion of one value per output channel."""
     for vname, conf in layers.items():
         want = {k: tuple(s) for k, s in conf.param_shapes().items()}
-        got = {k: tuple(a.shape) for k, a in params.get(vname, {}).items()}
+        tree = params.get(vname, {})
+        got = {k: tuple(a.shape) for k, a in tree.items()
+               if not k.endswith(SCALE_SUFFIX)}
+        for k, a in tree.items():
+            base = tree.get(k[:-len(SCALE_SUFFIX)]) if k.endswith(
+                SCALE_SUFFIX) else None
+            if k.endswith(SCALE_SUFFIX) and (
+                    base is None or base.is_floating_point()
+                    or tuple(a.shape) != tuple(base.shape[-1:])):
+                raise ValueError(f"params of vertex {vname!r}: {k!r} is no "
+                                 "int8 weight's per-channel scale")
         if want != got:
             raise ValueError(f"params of vertex {vname!r}: want {want}, "
                              f"got {got}")
@@ -154,6 +209,8 @@ def flatten_params(params, layer_keys: List[str],
     each layer's param order, C order within a param."""
     chunks = [params[lk][pn].detach().cpu().reshape(-1)
               for lk in layer_keys for pn in param_orders[lk]]
+    if any(c.dtype == torch.bfloat16 for c in chunks):  # numpy has no bf16
+        chunks = [c.float() for c in chunks]
     if not chunks:
         return np.zeros((0,), np.float32)
     return torch.cat(chunks).numpy()

@@ -12,9 +12,8 @@ their listener (`util/checkpoint.py`), rollback on divergence
   zip listener, the sharded listener and the manager; a reference run and
   a port run continued from one checkpoint agree at rtol 2e-4 after 3
   steps (the training tolerance of the other slices).
-- The store's refusals (corruption, dtype and policy guards, a mesh: A.13,
-  a quantized checkpoint: A.7) and the failure listener's rollback are
-  held to the port itself; the golden fixtures load as the reference
+- The store's refusals (corruption, dtype and policy guards, a mesh:
+  A.13) and the failure listener's rollback are held to the port itself; the golden fixtures load as the reference
   recorded them.
 
 Small sizes: the LM at V=64, T=32, d=32, 2 blocks; a ResNet graph of one
@@ -635,8 +634,15 @@ def test_bf16_param_policy_is_refused(tmp_path):
     np.testing.assert_array_equal(got.float().numpy(), want)
     with pytest.raises(CheckpointError, match="dtype policy 'bfloat16'"):
         restore_checkpoint(path, net=_port_net("mlp"))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        restore_checkpoint(path, device="cpu")
+    # With net=None the port builds the bfloat16 net from the checkpoint's
+    # conf: bf16 params, the reference's f32 masters and its Adam state.
+    back = restore_checkpoint(path, device="cpu")
+    assert back.params_tree["layer_0"]["W"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        back.params_tree["layer_0"]["W"].detach().float().numpy(), want)
+    np.testing.assert_array_equal(
+        back.opt_state["_master"]["layer_0"]["W"].numpy(),
+        np.asarray(jnet.opt_state["_master"]["layer_0"]["W"]))
 
 
 def test_mesh_context_and_quantized_refusals(tmp_path):
@@ -653,9 +659,15 @@ def test_mesh_context_and_quantized_refusals(tmp_path):
         CheckpointManager(str(tmp_path / "m"), model_axis="model")
     with pytest.raises(NotImplementedError, match="A.13"):
         ckpt.load_checkpoint(str(tmp_path / "x.zip"), mesh=object())
+    # A quantized checkpoint restores (precision policies): int8 weights
+    # with their scales, no updater state.
     q = jax_quantize.quantize_checkpoint(path, str(tmp_path / "q"))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        restore_checkpoint(q, device="cpu")
+    back = restore_checkpoint(q, device="cpu")
+    assert back.params_tree["layer_0"]["W"].dtype == torch.int8
+    np.testing.assert_array_equal(
+        back.params_tree["layer_0"]["W__scale"].numpy(),
+        np.asarray(jax_quantize.quantize_array(
+            np.asarray(jnet.params_tree["layer_0"]["W"]))[1]))
 
 
 # ------------------------------------------------------- failure recovery

@@ -953,14 +953,25 @@ def test_dtype_policy_round_trips_and_refuses_what_the_port_lacks():
             .set_input_type(inputs.InputType.feed_forward(4)).build())
     assert json.loads(conf.to_json()) == json.loads(
         jax_nn.MultiLayerConfiguration.from_json(conf.to_json()).to_json())
-    with pytest.raises(NotImplementedError, match="loss scaling.*A.7"):
-        MultiLayerNetwork(conf, device="cpu")
+    # Loss scaling and master copies are in (precision policies); what is
+    # left refused names A.10.
+    half = MultiLayerNetwork(conf, device="cpu").init()
+    assert half.dtype_policy.loss_scaling
+    assert half.dtype_policy.compute_dtype == torch.float16
+    assert [float(t) for t in half.opt_state["_ls"]] == [2.0 ** 15, 0.0]
     conf.global_conf.dtype_policy = dtype_policy.DtypePolicy("bfloat16")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        MultiLayerNetwork(conf, device="cpu")
+    low = MultiLayerNetwork(conf, device="cpu").init()
+    assert low.params_tree["layer_0"]["W"].dtype == torch.bfloat16
+    assert low.opt_state["_master"]["layer_0"]["W"].dtype == torch.float32
+    assert torch.equal(low.opt_state["_master"]["layer_0"]["W"].to(
+        torch.bfloat16), low.params_tree["layer_0"]["W"].detach())
     conf.global_conf.dtype_policy = dtype_policy.DtypePolicy("mixed_bfloat16")
     assert MultiLayerNetwork(conf, device="cpu").dtype_policy.compute_dtype \
         == torch.bfloat16
+    conf.global_conf.superstep_k = 4
+    with pytest.raises(NotImplementedError, match="A.10"):
+        MultiLayerNetwork(conf, device="cpu").init().fit(
+            np.zeros((2, 4), np.float32), np.eye(3, dtype=np.float32)[:2])
 
 
 def test_enums_read_any_case_as_plain_strings():

@@ -443,7 +443,7 @@ def test_the_update_gets_contiguous_kernel_gradients():
     x = torch.randn(2, 6, 6, 3)
     y = torch.eye(3)[[0, 2]]
     loss, _ = net._train_forward(x, y, None, None, False, None)
-    grads = net._train_backward(loss)
+    grads, _ = net._train_backward(loss)
     assert all(g.is_contiguous() for p in grads.values() for g in p.values())
     w = net.params_tree["layer_0"]["W"]
     raw, = torch.autograd.grad(net._train_forward(x, y, None, None, False,

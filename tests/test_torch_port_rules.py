@@ -103,7 +103,9 @@ def test_every_port_module_imports_without_jax():
             "deeplearning4j_tpu_torch.nn.layers.moe",
             "deeplearning4j_tpu_torch.nn.layers.variational",
             "deeplearning4j_tpu_torch.nn.layers.common",
-            "deeplearning4j_tpu_torch.nn.prng"} <= set(mods)
+            "deeplearning4j_tpu_torch.nn.prng",
+            "deeplearning4j_tpu_torch.checkpoint.quantize",
+            "deeplearning4j_tpu_torch.datasets.staging"} <= set(mods)
     code = (
         "import sys\n"
         "for blocked in ('jax', 'jaxlib', 'ml_dtypes', "

@@ -434,6 +434,13 @@ def test_fit_refuses_what_the_port_lacks(monkeypatch):
     pre.fit(DataSet(x, y))
     np.testing.assert_array_equal(pre.params(), plain.params())
     assert pre.iteration == plain.iteration == 1
+    # The legacy dtype string "float16" is the float32 default, as in the
+    # reference (its resolve_policy maps only "bfloat16" and "float64").
     conf = zoo.char_rnn(vocab_size=V, hidden=8, dtype="float16")
-    with pytest.raises(NotImplementedError, match="loss scaling.*A.7"):
-        MultiLayerNetwork(conf, device="cpu")
+    half = MultiLayerNetwork(conf, device="cpu")
+    assert half.dtype_policy.name == "float32"
+    assert not half.dtype_policy.loss_scaling
+    half.init(params=plain.params_tree)
+    half.fit(DataSet(x, y))
+    assert half.params_tree["layer_0"]["W"].dtype == torch.float32
+    assert set(half.opt_state) == set(half.layer_keys)

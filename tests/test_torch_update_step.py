@@ -179,7 +179,7 @@ def _packed(kind, layers):
     card's: `_pack` and `_regrad` check and pack, and launch nothing)."""
     f0 = fused_update.FIELDS[kind][0]
     entries = [(p[k], g, s[f0][k], s["v"][k] if kind == "adam" else None,
-                1e-3, 1.0, k)
+                1e-3, 1.0, k, None)
                for p, s, g in layers for k, g in g.items()]
     return fused_update._pack(fused_update._SUB, entries)
 
@@ -352,7 +352,7 @@ def test_engine_groups_fused_layers_and_equals_the_per_layer_loop(
                      for k, p in ps.items()}
                  for v, ps in nets[0].params_tree.items()}
         kernels.reset_counts()
-        nets[0]._train_update(grads)
+        nets[0]._train_update(grads, None)
         # emb, pos, ln_a0, attn0, ln_out: Adam; ff1_0, ffn0: Nesterovs;
         # out: RMSProp; ln_f0: sgd, updated in the loop.
         assert calls == [("adam", 5, step, -1.0), ("nesterovs", 2, step, -1.0),
