@@ -452,7 +452,70 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               from `add_model(path=...)` equal to `output` bit for bit, one
               row over HTTP, and the `dl4j_serving_model_dtype` sample
               ("int8").
-32. trace   - where one decode step's, one 1024-token prefill's, one LM
+32. graph_tbptt - G1: dl4j-examples' CompGraphLSTMExample built with the
+              port's graph builder (77 one-hot symbols; GravesLSTMs
+              `first` and `second` of 200, the second fed by the input and
+              the first, the RnnOutputLayer by both, each pair through a
+              MergeVertex, as DL4J's builder inserts one; RMSProp lr 0.1,
+              decay 0.95, l2 1e-3, xavier, tBPTT 50/50), `fit` on B=32
+              sequences of 1,000 characters of the char-RNN's learnable
+              rule (20 chunks a call), 1 warm-up and 3 timed calls: per call
+              2,000 LSTM-cell and 20 update launches, 0 plain calls, the
+              carries dropped after each sequence, scores falling; greedy
+              sampling of 100 characters through the graph's
+              `rnn_time_step` with 1 and 32 streams (2 cell launches a
+              call, the stepped outputs equal to `output` within 1e-4); a
+              3-chunk `fit` at B=4 card against CPU (`rnn_fit_parity`:
+              `output` 1e-3, score 1e-3; RMSProp's g2 against a CPU float64
+              call's within twice the CPU f32 call's error, 4e-2 at
+              least: at lr 0.1 a third chunk parts f32 from float64 by
+              ~8e-2 on the CPU itself).
+33. lstm_acts - R3: row 10 under each of the 16 elementwise activations
+              as gate (cell tanh) and as cell activation (sigmoid gates), in
+              f32, bf16 and f16, at B=32, n=256 with peepholes and a mask,
+              each held to the plain version in f32 on the same inputs
+              rounded to the dtype (1e-4 / 4e-2 / 1e-2; a value past f16's
+              range must be the same inf) and timed; then the char-RNN with
+              hard-sigmoid gates (a Keras import's) trained 3 + 10 calls
+              (200 cell and 2 update launches a call, scores falling) and
+              its first call card against CPU at B=4.
+34. f16_rnn - P6: the char-RNN under mixed_float16 (the policy set
+              explicitly: `.dtype("float16")` is float32, as in the
+              reference), B=32 x 100, tBPTT 50, 3 + 10 calls: 200 f16 cell
+              and 2 update launches a call, scores falling, each chunk's
+              skip decision; then row 10 in f16 at the rnn_kernels shapes.
+35. f16_resnet_kernels - rows 2, 11 and 12 in f16 at the resnet_kernels
+              shapes (row 12's int8 form with f16 x too), each block on the
+              form it must take (f16 weights: tensor cores; int8: CUDA
+              cores), held to the plain version in f32 on the same inputs
+              at 1e-2; then f16_resnet - P3: T2 under mixed_float16 (64 px,
+              B=32, 13 steps: 16 f16 tensor-core blocks, 1 BatchNorm and 1
+              update launch a step; the steps skipped and the final
+              scale), its first step at B=4 card against CPU (score within
+              1e-2, the same skip decision); I1's `output` at 224, B=32, on
+              Q1's weights under mixed_float16 and the int8 checkpoint of
+              that net (16 blocks on the tensor cores, or 16 int8 blocks on
+              the CUDA cores with f16 x, and 1 BatchNorm a call), each with
+              its logits on 4 rows against the CPU's within 1e-2
+              row-relative and a planted 5% fault in the first block's W_a
+              (its scale when int8) beyond it.
+36. f16_serve_kernels - row 8 in f16 at the kernels phase's shapes; then
+              f16_serve - P4: the LM under mixed_float16 (f16 pages) behind
+              the paged server (4 slots, 64-token pages, a twin draft), the
+              serving phase's 10 /generate bodies at once: the launches of
+              the counted work, every prefill's row 3 on the tensor cores,
+              0 plain calls, greedy ids held to a non-speculative run up to
+              its first near-tie.
+37. f16_long - P5: rows 4 and 7 in f16 at [1, 32768, 8, 64] causal as
+              long_kernels holds bf16; L1's LM under mixed_float16: 3 `fit`
+              steps (LONG_LAUNCHES a step, the streamed rows on the tensor
+              cores; the steps skipped) and one `output`; then that LM with
+              a decode cache, output projection x10: one 30,000-token
+              prompt's first distribution (row 4 in f16) and 4 decode steps
+              (row 8 in f16 over 512 pages a slot) against the plain
+              versions, within LONG_LOGIT_TOL, with planted faults in rows
+              4 and 8 that must exceed it (`stepper_parity`).
+38. trace   - where one decode step's, one 1024-token prefill's, one LM
               training step's, one T1 and one T2 step's, one char-RNN fit
               call's (forward, backward, update; the call's two chunks
               summed), one `rnn_time_step`'s, one LeNet and one MLP fit
@@ -473,9 +536,12 @@ rnn_sample, lenet_train, mlp_train, dsl, ckpt, serving, long_serve,
 long_train, long_output, alexnet_train, vgg16_train, masked_train,
 unmasked_step, moe_train, moe_output, moe_decode, pretrain_vae,
 pretrain_ae_rbm, pretrain_lenet_center_loss, pretrain_mlp_loss_layer,
-f16_train, f16_output, bf16_train, int8_output, int8_predict; the f16 form
-of rows 1, 3, 5 and 6 under `f16`, row 9's skip flag and low-precision
-mode under `precision_modes`;
+f16_train, f16_output, bf16_train, int8_output, int8_predict,
+graph_tbptt, graph_sample, lstm_acts_train, f16_rnn_train, f16_t2, f16_i1,
+f16_int8, f16_serve, f16_long_train, f16_long_output; the f16 form of
+rows 1-8 and 10-12 under `f16`, row 10's 16 activations under
+`activations`, row 9's skip flag and low-precision mode under
+`precision_modes`;
 row 8's, row 12's and row 2's serving shapes under
 `serving_shapes`; rows 5 and 6 non-causal under `non_causal_shapes`;
 row 13 on row 4's entry; row 9 also with its time at LeNet's update) and,
@@ -554,7 +620,7 @@ TRAIN_FLASH = ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkv")
 
 # ResNet-50: the paths T1, T2 (training) and I1, I2 (inference).
-RN_TOL = {"bfloat16": 6e-2, "float32": 1e-4}
+RN_TOL = {"bfloat16": 6e-2, "float16": 1e-2, "float32": 1e-4}
 RN_CLASSES, RN_WARMUP, RN_TIMED, INFER_B = 1000, 3, 10, 32
 RN_LEARN_CLASSES = 10   # the classes the training batches draw from
 RN_PARITY_B = 16        # see phase_resnet_parity
@@ -1925,13 +1991,15 @@ def rnn_cell_cases(torch, dev, dtype_name):
     return cases
 
 
-def phase_rnn_kernels(card, torch, dev):
-    """f32 is held to the plain version at 1e-4 (TF32 off); bf16 to the
-    plain version run in f32 on the same inputs at 4e-2: the kernel, like
-    the TPU body, keeps z = xw + h @ RW and the gates in f32, where the
-    plain version in bf16 rounds z (its distance is printed beside)."""
+def phase_rnn_kernels(card, torch, dev, dtypes=("float32", "bfloat16"),
+                      phase="rnn_kernels"):
+    """f32 is held to the plain version at 1e-4 (TF32 off); bf16 (f16) to
+    the plain version run in f32 on the same inputs at 4e-2 (1e-2): the
+    kernel, like the TPU body, keeps z = xw + h @ RW and the gates in f32,
+    where the plain version in bf16 rounds z (its distance is printed
+    beside)."""
     rows = []
-    for dtype in ("float32", "bfloat16"):
+    for dtype in dtypes:
         for name, shape, kern, plain, plain_f32, lib, nbytes, ops in \
                 rnn_cell_cases(torch, dev, dtype):
             got, want = kern(), plain()
@@ -1964,7 +2032,7 @@ def phase_rnn_kernels(card, torch, dev):
                 "bound_share_by_device": bound_share(bound_ms, dev_ms),
                 "plain_device_ms": device_ms(torch, plain),
                 "library_device_ms": lib_dev_ms})
-            emit(card, phase="rnn_kernels", **rows[-1])
+            emit(card, phase=phase, **rows[-1])
     return rows
 
 
@@ -2043,42 +2111,15 @@ def phase_rnn_sample(card, torch, kernels, net, perm):
     200 from one seed character, then 200 steps of 32 streams at once.
     Each call launches 2 cells; the stateful outputs must equal `output`
     over the whole sampled sequence (f32, 1e-4)."""
-    eye = np.eye(RNN_V, dtype=np.float32)
     errors, res, launches = [], {}, {name: 0 for name in KERNEL_INFO}
     for streams in (1, RNN_B):
-        seeds = np.arange(streams) * 5 % RNN_V
-        net.rnn_clear_previous_state()
-        kernels.reset_counts()
-        ids, probs, wall = [seeds], [], []
-        for _ in range(RNN_SAMPLE):
-            t0 = time.perf_counter()
-            p = net.rnn_time_step(eye[ids[-1]])  # [streams, V], on the host
-            wall.append((time.perf_counter() - t0) * 1e3)
-            probs.append(p)
-            ids.append(p.argmax(-1))
-        counts = kernels.counts()
-        errs, _ = _launch_errors(counts, {"lstm_cell": RNN_LAYERS},
-                                     RNN_SAMPLE)
+        errs, report, got = _sample_check(torch, kernels, net, perm, streams,
+                                          RNN_SAMPLE,
+                                          {"lstm_cell": RNN_LAYERS})
         errors += [f"{streams} streams: {e}" for e in errs]
-        for k, v in counts["launches"].items():
+        for k, v in got.items():
             launches[k] += v
-        stepped = np.stack(probs, 1)
-        full = net.output(eye[np.stack(ids[:-1], 1)])
-        diff = float(np.abs(stepped - full).max())
-        if not diff <= 1e-4:
-            errors.append(f"{streams} streams: rnn_time_step differs from "
-                          f"output by {diff}")
-        follows = float(np.mean(np.stack(ids[1:], 1)
-                                == perm[np.stack(ids[:-1], 1)]))
-        ms = statistics.mean(wall[5:])
-        res[f"streams_{streams}"] = {
-            "calls": RNN_SAMPLE, "ms_per_character_step": ms,
-            "ms_per_step_median": statistics.median(wall[5:]),
-            "characters_per_s": streams / ms * 1e3,
-            "max_abs_diff_vs_output": diff,
-            "share_following_the_trained_rule": follows,
-            "first_ids": [int(i) for i in np.stack(ids, 1)[0, :24]],
-            "launches": counts["launches"]["lstm_cell"]}
+        res[f"streams_{streams}"] = report
     emit(card, phase="rnn_sample", ok=not errors, errors=errors, **res)
     return not errors, launches
 
@@ -2094,40 +2135,73 @@ def _g2_errors(got, want):
     return out
 
 
-def phase_rnn_parity(card, torch, dev):
-    """f32, B=4, T=100: the same seeded params on the card and on the CPU
-    (plain versions): `output` within 1e-3, one tBPTT `fit` call's score
-    within 1e-3 relative, and per layer RMSProp's g2 within 4e-2 of the
-    CPU's largest g2 there (a cut gradient shows as an error near 1)."""
+def rnn_fit_parity(torch, dev, engine, conf_fn, b, t, reference64=False):
+    """One tBPTT `fit` call of B=b sequences of t characters from the same
+    seeded params on the card and on the CPU (plain versions): `output`
+    within 1e-3, the score within 1e-3 relative, and per layer RMSProp's
+    g2 within 4e-2 of the CPU's largest g2 there (a cut gradient shows as
+    an error near 1). With `reference64` the g2 are held instead to a CPU
+    float64 call's: the card's error within twice the CPU f32 call's, 4e-2
+    allowed in any case (RMSProp at lr 0.1 moves every param by ~4.5 lr
+    along the sign of its gradient, so past two chunks a near-zero
+    gradient's rounding already parts f32 from float64 by more than 4e-2 on
+    the CPU). `engine` is MultiLayerNetwork or ComputationGraph; returns
+    (errors, report)."""
     from deeplearning4j_tpu_torch.datasets.dataset import DataSet
-    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.conf.dtype_policy import DtypePolicy
 
-    (ds,), _ = rnn_batches(torch, "cpu", RNN_PARITY_B, RNN_T, 1, 29)
+    (ds,), _ = rnn_batches(torch, "cpu", b, t, 1, 29)
     x, y = ds.features.numpy(), ds.labels.numpy()
+    data = (DataSet(x, y) if engine.__name__ == "MultiLayerNetwork"
+            else MultiDataSet([x], [y]))
     t0 = time.perf_counter()
-    cpu = MultiLayerNetwork(_rnn_conf(), device="cpu").init()
-    card_net = MultiLayerNetwork(_rnn_conf(), device=dev).init(params={
-        k: {n: a.detach() for n, a in p.items()}
-        for k, p in cpu.params_tree.items()})
-    prob_diff = float(np.abs(card_net.output(x) - cpu.output(x)).max())
+    cpu = engine(conf_fn(), device="cpu").init()
+    start = {k: {n: a.detach().clone() for n, a in p.items()}
+             for k, p in cpu.params_tree.items()}
+    card_net = engine(conf_fn(), device=dev).init(params=start)
+    prob_diff = float(np.abs(_first(card_net.output(x))
+                             - _first(cpu.output(x))).max())
     for net in (cpu, card_net):
-        net.fit(DataSet(x, y))
+        net.fit(data)
     score_rel = abs(card_net.score_value - cpu.score_value) / abs(
         cpu.score_value)
-    g2 = _g2_errors(card_net, cpu)
-    errors = []
+    errors, extra = [], {}
     if prob_diff > 1e-3:
         errors.append(f"output differs by {prob_diff}")
     if score_rel > 1e-3:
         errors.append(f"scores {card_net.score_value} (card) vs "
                       f"{cpu.score_value} (CPU)")
-    if max(g2.values()) > 4e-2:
-        errors.append(f"g2 differs: {g2}")
-    emit(card, phase="rnn_parity", ok=not errors, errors=errors,
-         batch=RNN_PARITY_B, seq_len=RNN_T, max_abs_prob_diff=prob_diff,
-         score_card=card_net.score_value, score_cpu=cpu.score_value,
-         score_rel_diff=score_rel, g2_err_over_max=g2,
-         seconds=time.perf_counter() - t0)
+    if reference64:
+        conf = conf_fn()
+        conf.global_conf.dtype_policy = DtypePolicy.of("float64")
+        ref = engine(conf, device="cpu").init(params={
+            k: {n: a.double() for n, a in p.items()}
+            for k, p in start.items()})
+        ref.fit(data)
+        g2, floor = _g2_errors(card_net, ref), _g2_errors(cpu, ref)
+        limit = {k: max(4e-2, 2 * v) for k, v in floor.items()}
+        if any(g2[k] > limit[k] for k in g2):
+            errors.append(f"g2 against float64 {g2}, limits {limit}")
+        extra = {"g2_cpu_f32_err_over_max": floor, "g2_limits": limit}
+    else:
+        g2 = _g2_errors(card_net, cpu)
+        if max(g2.values()) > 4e-2:
+            errors.append(f"g2 differs: {g2}")
+    return errors, dict(
+        batch=b, seq_len=t, max_abs_prob_diff=prob_diff,
+        score_card=card_net.score_value, score_cpu=cpu.score_value,
+        score_rel_diff=score_rel, g2_err_over_max=g2, **extra,
+        seconds=time.perf_counter() - t0)
+
+
+def phase_rnn_parity(card, torch, dev):
+    """f32, B=4, T=100: `rnn_fit_parity` of the char-RNN."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    errors, report = rnn_fit_parity(torch, dev, MultiLayerNetwork,
+                                    _rnn_conf, RNN_PARITY_B, RNN_T)
+    emit(card, phase="rnn_parity", ok=not errors, errors=errors, **report)
     return not errors
 
 
@@ -3222,7 +3296,7 @@ def rn_block_case(torch, dev, dtype_name, b, shape, train, seed, int8=False):
              f"{'proj' if project else 'identity'}"
              + (" int8" if int8 else ""))
     cudnn = None
-    if dtype_name == "bfloat16" and not int8:
+    if dtype_name != "float32" and not int8:
         xc = x.permute(0, 3, 1, 2)  # NHWC storage: channels_last already
         wc = {n: params[f"W_{n}"].permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last) for n in names}
@@ -3283,7 +3357,9 @@ def _safe_lib_ms(torch, lib, **reps):
         return None, None, f"{type(e).__name__}: {e}"[:200]
 
 
-def phase_resnet_kernels(card, torch, dev, t1_batch):
+def phase_resnet_kernels(card, torch, dev, t1_batch,
+                         dtypes=("bfloat16", "float32"),
+                         phase="resnet_kernels"):
     """BatchNorm apply is held to its plain version at the path's dtype.
     A bottleneck block in bf16 is held to its plain version run in f32 on
     the same inputs (`plain_f32`): the kernel, like the TPU body, keeps
@@ -3298,17 +3374,18 @@ def phase_resnet_kernels(card, torch, dev, t1_batch):
     from deeplearning4j_tpu_torch import kernels
 
     rows = []
-    for dtype in ("bfloat16", "float32"):
+    for dtype in dtypes:
         cases = [c + (None, None) for c in rn_bn_cases(torch, dev, dtype,
                                                         t1_batch)]
         blocks = [("bottleneck_train", RN_PATHS["t2"][2], shape, True, 40 + i,
                    False) for i, shape in enumerate(rn_block_shapes(64))]
         blocks += [("bottleneck_infer", INFER_B, shape, False, 50 + i, False)
                    for i, shape in enumerate(rn_block_shapes(224))]
-        if dtype == "bfloat16":
+        if dtype != "float32":
             # Row 12's int8 form (Q1's) at each of I1's distinct shapes.
             blocks += [("bottleneck_infer", INFER_B, shape, False, 60 + i,
                         True) for i, shape in enumerate(rn_block_shapes(224))]
+        if dtype == "bfloat16":
             # The smallest /predict bucket: I1's stem and 8 blocks at B=1.
             cases += [c + (None, None)
                       for c in rn_bn_cases(torch, dev, dtype, 1)[:1]]
@@ -3317,10 +3394,10 @@ def phase_resnet_kernels(card, torch, dev, t1_batch):
         for name, b, shape, train, seed, int8 in blocks:
             label, kern, plain, plain_f32, nb, ops, extra = rn_block_case(
                 torch, dev, dtype, b, shape, train, seed, int8=int8)
-            extra["form"] = ("wgmma" if dtype == "bfloat16" and not int8
+            extra["form"] = ("wgmma" if dtype != "float32" and not int8
                              else "cuda_cores")
             cases.append((name, label, kern, plain, None, nb, ops,
-                          plain_f32 if dtype == "bfloat16" else None, extra))
+                          plain_f32 if dtype != "float32" else None, extra))
         for (name, shape, kern, plain, lib, nbytes, ops, plain_f32,
              extra) in cases:
             kernels.reset_counts()
@@ -3373,8 +3450,8 @@ def phase_resnet_kernels(card, torch, dev, t1_batch):
                     cudnn_convs_alone_device_ms=(
                         device_ms(torch, cudnn, 5) if cudnn else None),
                     cudnn_convs_alone_note=(
-                        "cuDNN bf16 channels_last convolutions of the same "
-                        "block, the convolutions alone (no BatchNorm, "
+                        f"cuDNN {dtype} channels_last convolutions of the "
+                        "same block, the convolutions alone (no BatchNorm, "
                         "statistics or tail): a reference point, not this "
                         "row's library column"))
                 if forms != {k: int(k == expected)
@@ -3383,7 +3460,7 @@ def phase_resnet_kernels(card, torch, dev, t1_batch):
                     rows[-1]["form_error"] = (f"block launches by form "
                                               f"{forms}, expected one "
                                               f"{expected}")
-            emit(card, phase="resnet_kernels", **rows[-1])
+            emit(card, phase=phase, **rows[-1])
         del cases
         torch.cuda.empty_cache()
     return rows
@@ -3414,14 +3491,18 @@ def rn_batches(torch, dev, image, b, n, seed):
     return out
 
 
-def _rn_net(torch, dev, path, **init):
+def _rn_conf(path):
     from deeplearning4j_tpu_torch.models import resnet
-    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
     image, fused, _ = RN_PATHS[path]
-    conf = resnet.resnet50(n_classes=RN_CLASSES, image=image,
+    return resnet.resnet50(n_classes=RN_CLASSES, image=image,
                            dtype="bfloat16", fused_blocks=fused)
-    return ComputationGraph(conf, device=dev).init(**init)
+
+
+def _rn_net(torch, dev, path, **init):
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    return ComputationGraph(_rn_conf(path), device=dev).init(**init)
 
 
 def phase_resnet_train(card, torch, kernels, dev, path):
@@ -3713,29 +3794,15 @@ def flash_tolerance(name, dtype):
     return f"rtol=atol={TOL[dtype]}, rows {ROW_TOL[dtype]}{lse}"
 
 
-def phase_long_kernels(card, torch, dev):
-    """Rows 4 and 7 at the slice's shape ([1, 32768, 8, 64], causal) in
-    bf16 and f32, against their plain versions on the card (o, dq, dk, dv
-    at rtol = atol = 4e-2 in bf16 and 1e-4 in f32 with TF32 off; the lse
-    at 1e-4; row 4's o also row by row at ROW_TOL), timed beside the plain
-    version, the bound and the library call; the same at ragged T (12,345
-    in f32, 24,577 in bf16). Each row 4 names the form of its unit kernel
-    (`fa.stream_fwd_variant`). Then row 13: row 4 over the triangular and
-    the rectangular list at B*H = 4 (bf16, inputs randn * 0.5 as
-    `bench.py:1089`): each o summed, the rectangle's o against the
-    triangle's at 4e-2 and row by row at ROW_TOL, its lse at LSE_TOL, and
-    the two times.
-
-    Times here are CUDA events only. torch.profiler, asked for a few of
-    these ~100 ms calls alone, returned none or some of their kernels on
-    an H100, with or without a 0.5 s pause inside the profile, while it
-    returned every kernel of the traced long-context step: the rows'
-    kernel times come from the trace phase."""
+def long_kernel_rows(card, torch, dev, specs, phase):
+    """Rows 4 and 7 at [1, t, 8, 64] causal for each (dtype, t) of
+    `specs`, each held to its plain version (`flash_compare`) and timed
+    beside it, the bound, the library call and the resident kernel of the
+    same function; emitted under `phase` and returned."""
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
 
     rows = []
-    for dtype, t in (("bfloat16", LONG_T), ("float32", LONG_T),
-                     ("float32", RAGGED_T), ("bfloat16", RAGGED_BF16_T)):
+    for dtype, t in specs:
         for name, shape, kern, plain, lib, nbytes, ops, resident in \
                 long_kernel_cases(torch, dev, dtype, t, HEADS):
             got, want = kern(), plain()
@@ -3770,9 +3837,34 @@ def phase_long_kernels(card, torch, dev):
             rows[-1].update(max_row_rel_err=row_err, **extra)
             rows[-1]["variant"] = fa.flash_variant(getattr(torch, dtype),
                                                    D_MODEL // HEADS)
-            emit(card, phase="long_kernels", **rows[-1])
+            emit(card, phase=phase, **rows[-1])
         torch.cuda.empty_cache()
+    return rows
 
+
+def phase_long_kernels(card, torch, dev):
+    """Rows 4 and 7 at the slice's shape ([1, 32768, 8, 64], causal) in
+    bf16 and f32, against their plain versions on the card (o, dq, dk, dv
+    at rtol = atol = 4e-2 in bf16 and 1e-4 in f32 with TF32 off; the lse
+    at 1e-4; row 4's o also row by row at ROW_TOL), timed beside the plain
+    version, the bound and the library call; the same at ragged T (12,345
+    in f32, 24,577 in bf16). Each row 4 names the form of its unit kernel
+    (`fa.stream_fwd_variant`). Then row 13: row 4 over the triangular and
+    the rectangular list at B*H = 4 (bf16, inputs randn * 0.5 as
+    `bench.py:1089`): each o summed, the rectangle's o against the
+    triangle's at 4e-2 and row by row at ROW_TOL, its lse at LSE_TOL, and
+    the two times.
+
+    Times here are CUDA events only. torch.profiler, asked for a few of
+    these ~100 ms calls alone, returned none or some of their kernels on
+    an H100, with or without a 0.5 s pause inside the profile, while it
+    returned every kernel of the traced long-context step: the rows'
+    kernel times come from the trace phase."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    rows = long_kernel_rows(card, torch, dev, (
+        ("bfloat16", LONG_T), ("float32", LONG_T), ("float32", RAGGED_T),
+        ("bfloat16", RAGGED_BF16_T)), "long_kernels")
     dh = D_MODEL // HEADS
     g = torch.Generator(device=dev).manual_seed(13)
     q, k, v = ((torch.randn(1, LONG_T, ROW13_HEADS, dh, generator=g,
@@ -6020,26 +6112,17 @@ def _precision_int8(card, torch, kernels, dev):
     if not top1 >= Q1_TOP1:
         errors.append(f"int8 top-1 agreement with f32 {top1} < {Q1_TOP1}")
 
-    def logits(net, xs):
-        """The output layer's pre-softmax values."""
-        with torch.inference_mode():
-            return net._forward(net._compute_copy(), net.state, [xs],
-                                keep_rnn_state=False)[0][0].float().cpu()
-
-    def rel(a, b):
-        return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
-
-    q_logits, f_logits = logits(qnet, x), logits(i1, x)
+    q_logits, f_logits = _logits(torch, qnet, x), _logits(torch, i1, x)
     # The CPU's plain int8 path on the first rows.
     cpu = store.restore_checkpoint(qpath, device="cpu")
     t0 = time.perf_counter()
     cpu_out = cpu.output(x[:PREC_INT8_CPU_B])[0]
     cpu_s = time.perf_counter() - t0
-    cpu_logits = logits(cpu, x[:PREC_INT8_CPU_B])
+    cpu_logits = _logits(torch, cpu, x[:PREC_INT8_CPU_B])
     cpu_err = float(np.abs(cpu_out - got[:PREC_INT8_CPU_B]).max())
     if not cpu_err <= PREC_INT8_TOL:
         errors.append(f"int8 output card vs CPU: {cpu_err}")
-    cpu_logit_err = rel(q_logits[:PREC_INT8_CPU_B], cpu_logits)
+    cpu_logit_err = _row_rel(q_logits[:PREC_INT8_CPU_B], cpu_logits)
     if not cpu_logit_err <= PREC_INT8_LOGIT_TOL:
         errors.append(f"int8 logits card vs CPU: {cpu_logit_err} > "
                       f"{PREC_INT8_LOGIT_TOL}")
@@ -6050,7 +6133,8 @@ def _precision_int8(card, torch, kernels, dev):
     with torch.no_grad():
         scale.mul_(factor)
     qnet._compute_params = None
-    fault_err = rel(logits(qnet, x[:PREC_INT8_CPU_B]), cpu_logits)
+    fault_err = _row_rel(_logits(torch, qnet, x[:PREC_INT8_CPU_B]),
+                         cpu_logits)
     with torch.no_grad():
         scale.copy_(kept)
     qnet._compute_params = None
@@ -6067,7 +6151,8 @@ def _precision_int8(card, torch, kernels, dev):
                top1_agreement_with_f32=top1, f32_classes=classes,
                f32_max_probability=max_prob,
                max_abs_diff_from_f32=float(np.abs(got - ref).max()),
-               logits_max_row_rel_diff_from_f32=rel(q_logits, f_logits),
+               logits_max_row_rel_diff_from_f32=_row_rel(q_logits,
+                                                         f_logits),
                cpu_logits_max_row_rel_err=cpu_logit_err,
                cpu_logits_tolerance=PREC_INT8_LOGIT_TOL,
                planted_fault={"leaf": f"{vertex}/{leaf}", "factor": factor,
@@ -6250,6 +6335,72 @@ def logit_rel_err(got, want):
     return float(np.linalg.norm(g - w) / np.linalg.norm(w))
 
 
+def stepper_parity(torch, kernels, net, prompt, pad_to, steps):
+    """A long-context LM's first-token distribution (its prefill padded to
+    `pad_to`, past the resident limit: row 4) and `steps` decode steps
+    (row 8) through the kernels against the same weights through the plain
+    versions on the card, both fed the kernel run's greedy tokens:
+    probabilities within 4e-2 and logits within LONG_LOGIT_TOL of their
+    spread; and the same comparison must fail (above LONG_LOGIT_TOL) with a
+    planted fault, the first block's attention zeroed in the prefill (the
+    first distribution) or in the decode (the steps). Returns (errors,
+    report)."""
+    from deeplearning4j_tpu_torch.models.zoo import PagedDecodeStepper
+
+    errors = []
+
+    def run(feed):
+        st = PagedDecodeStepper(net, SLOTS, page_size=PAGE)
+        probs, state, n = st.prefill(prompt, pad_to=pad_to)
+        st.install(0, state, n)
+        seq = [probs]
+        for j in range(steps):
+            tok = int(seq[j].argmax()) if feed is None else feed[j]
+            seq.append(st.step([tok] + [0] * (SLOTS - 1))[0])
+        return seq
+
+    seq_kernel = run(None)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with plain_versions():
+        seq_plain = run([int(p.argmax()) for p in seq_kernel[:-1]])
+    plain_s = time.perf_counter() - t0
+    counts = kernels.counts()
+    if any(counts["launches"].values()) or not counts["plain_calls"][
+            "flash_attention_stream"]:
+        errors.append(f"the plain run launched kernels: {counts}")
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(seq_kernel,
+                                                        seq_plain)]
+    logit_errs = [logit_rel_err(a, b) for a, b in zip(seq_kernel, seq_plain)]
+    agree = [int(a.argmax()) == int(b.argmax())
+             for a, b in zip(seq_kernel, seq_plain)]
+    if not (all(np.isfinite(diffs)) and max(diffs) <= 4e-2):
+        errors.append(f"kernel and plain probabilities differ: {diffs}")
+    if not (all(np.isfinite(logit_errs))
+            and max(logit_errs) <= LONG_LOGIT_TOL):
+        errors.append(f"kernel and plain logits differ: {logit_errs} "
+                      f"(limit {LONG_LOGIT_TOL} of their spread)")
+    # The check's own reach: each planted fault must fail it where its
+    # kernel decides the distribution (row 4 the prefill's, row 8 the
+    # decode steps').
+    fault_errs = {}
+    for kernel, judged in (("stream", slice(0, 1)),
+                           ("paged", slice(1, None))):
+        with planted_fault(torch, kernel):
+            seq_fault = run([int(p.argmax()) for p in seq_kernel[:-1]])
+        fault_errs[kernel] = [logit_rel_err(a, b)
+                              for a, b in zip(seq_fault, seq_plain)]
+        if not min(fault_errs[kernel][judged]) > LONG_LOGIT_TOL:
+            errors.append(f"a planted fault in {kernel} passes the logit "
+                          f"check: {fault_errs[kernel]}")
+        del seq_fault
+    return errors, dict(
+        parity_tolerance=4e-2, max_abs_prob_diff=diffs,
+        logit_tolerance=LONG_LOGIT_TOL, logit_rel_err=logit_errs,
+        planted_fault_logit_rel_err=fault_errs, argmax_agrees=agree,
+        plain_run_s=plain_s)
+
+
 def phase_long_serve(card, torch, kernels, dev):
     """The LM at T = 32,768 behind a paged server (4 slots, pages of 64),
     its output projection times SERVE_LOGIT_SCALE: one prompt of 30,000
@@ -6323,63 +6474,681 @@ def phase_long_serve(card, torch, kernels, dev):
                expected_launches=want,
                max_memory_allocated_bytes=peak)
 
-    # The same weights through the kernels and through the plain versions,
-    # both fed the kernel run's greedy tokens.
-    def run(feed):
-        st = PagedDecodeStepper(net, SLOTS, page_size=PAGE)
-        probs, state, n = st.prefill(prompt, pad_to=LONG_T)
-        st.install(0, state, n)
-        seq = [probs]
-        for j in range(LONG_PARITY_STEPS):
-            tok = int(seq[j].argmax()) if feed is None else feed[j]
-            seq.append(st.step([tok] + [0] * (SLOTS - 1))[0])
-        return seq
-
     served_launches = counts["launches"]
-    seq_kernel = run(None)
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    with plain_versions():
-        seq_plain = run([int(p.argmax()) for p in seq_kernel[:-1]])
-    plain_s = time.perf_counter() - t0
-    counts = kernels.counts()
-    if any(counts["launches"].values()) or not counts["plain_calls"][
-            "flash_attention_stream"]:
-        errors.append(f"the plain run launched kernels: {counts}")
-    diffs = [float(np.abs(a - b).max()) for a, b in zip(seq_kernel,
-                                                        seq_plain)]
-    logit_errs = [logit_rel_err(a, b) for a, b in zip(seq_kernel, seq_plain)]
-    agree = [int(a.argmax()) == int(b.argmax())
-             for a, b in zip(seq_kernel, seq_plain)]
-    if not (all(np.isfinite(diffs)) and max(diffs) <= 4e-2):
-        errors.append(f"kernel and plain probabilities differ: {diffs}")
-    if not (all(np.isfinite(logit_errs))
-            and max(logit_errs) <= LONG_LOGIT_TOL):
-        errors.append(f"kernel and plain logits differ: {logit_errs} "
-                      f"(limit {LONG_LOGIT_TOL} of their spread)")
-    # The check's own reach: each planted fault must fail it where its
-    # kernel decides the distribution (row 4 the prefill's, row 8 the
-    # decode steps').
-    fault_errs = {}
-    for kernel, judged in (("stream", slice(0, 1)),
-                           ("paged", slice(1, None))):
-        with planted_fault(torch, kernel):
-            seq_fault = run([int(p.argmax()) for p in seq_kernel[:-1]])
-        fault_errs[kernel] = [logit_rel_err(a, b)
-                              for a, b in zip(seq_fault, seq_plain)]
-        if not min(fault_errs[kernel][judged]) > LONG_LOGIT_TOL:
-            errors.append(f"a planted fault in {kernel} passes the logit "
-                          f"check: {fault_errs[kernel]}")
-        del seq_fault
-    out.update(parity_tolerance=4e-2, max_abs_prob_diff=diffs,
-               logit_tolerance=LONG_LOGIT_TOL, logit_rel_err=logit_errs,
-               planted_fault_logit_rel_err=fault_errs,
-               argmax_agrees=agree, plain_run_s=plain_s,
-               phase_s=time.perf_counter() - t_phase)
-    del net, seq_kernel, seq_plain
+    parity_errors, parity = stepper_parity(torch, kernels, net, prompt,
+                                           LONG_T, LONG_PARITY_STEPS)
+    errors += parity_errors
+    out.update(**parity, phase_s=time.perf_counter() - t_phase)
+    del net
     torch.cuda.empty_cache()
     emit(card, phase="long_serve", ok=not errors, errors=errors, **out)
     return not errors, served_launches
+
+
+# ------------------------- graph tBPTT, the LSTM activations, f16 on the card
+
+# G1: dl4j-examples' CompGraphLSTMExample, its character model built with the
+# port's graph builder: 77 one-hot symbols; `first`, a GravesLSTM of 200
+# (tanh) fed by the input; `second`, the same fed by the input and `first`;
+# `out`, an RnnOutputLayer (softmax, mcxent) fed by both; each pair through
+# a MergeVertex (a layer vertex reads only its first input in both
+# packages, where DL4J's builder inserts the merge). RMSProp lr 0.1
+# (decay 0.95), l2 1e-3, xavier, truncated BPTT 50 / 50; B=32 sequences of
+# 1,000 characters (the example's length: 20 chunks a call) of the
+# char-RNN's learnable rule. Per call: one cell per layer and step, one
+# update (all 3 layers) per chunk.
+G1_V, G1_H, G1_B, G1_T, G1_CHUNK = 77, 200, 32, 1000, 50
+G1_WARMUP, G1_TIMED, G1_SAMPLE, G1_PARITY_B, G1_PARITY_T = 1, 3, 100, 4, 150
+G1_LAUNCHES = {"lstm_cell": 2 * G1_T, "fused_update": G1_T // G1_CHUNK}
+# Every elementwise activation of nn/activations.py, each a gate and a
+# cell activation of row 10 (softmax, not elementwise, is refused).
+LSTM_ACTS = ("identity", "relu", "tanh", "sigmoid", "leakyrelu", "elu",
+             "cube", "softplus", "softsign", "rationaltanh", "rectifiedtanh",
+             "hardsigmoid", "hardtanh", "selu", "gelu", "swish")
+# f16 logits, card against the CPU's plain run (both f16 compute; the
+# kernels keep f32 where the plain ops round each result), row-relative:
+# f16's unit roundoff is 2^-11, 8x finer than bf16's, under whose rounding
+# Q1's int8 logits read 5.7e-3 against the same limit (PERF.md §6).
+F16_LOGIT_TOL = 1e-2
+F16_PARITY_TOL = 1e-2   # a ResNet f16 first step's score, card vs CPU
+F16_RN_CPU_B = 4        # rows the CPU's f16 ResNet runs
+# A planted fault the f16 logits check must see: the first block's W_a
+# scaled by 1.05 on the card (Q1's scale fault, on float weights).
+F16_RN_FAULT = ("s0_b0_block", "W_a", 1.05)
+
+
+def _char_graph_conf(n=G1_H, vocab=G1_V, fwd=G1_CHUNK):
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.graph import MergeVertex
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+        NeuralNetConfiguration)
+
+    gb = (NeuralNetConfiguration.builder().seed(12345).learning_rate(0.1)
+          .updater("rmsprop").rms_decay(0.95).l2(0.001).regularization(True)
+          .weight_init("xavier").graph_builder()
+          .add_inputs("input")
+          .add_layer("first", L.GravesLSTM(n_out=n, activation="tanh"),
+                     "input")
+          .add_vertex("first_in", MergeVertex(), "input", "first")
+          .add_layer("second", L.GravesLSTM(n_out=n, activation="tanh"),
+                     "first_in")
+          .add_vertex("out_in", MergeVertex(), "first", "second")
+          .add_layer("out", L.RnnOutputLayer(n_out=vocab,
+                                             activation="softmax",
+                                             loss_function="mcxent"),
+                     "out_in")
+          .set_outputs("out")
+          .backprop_type("truncatedbptt").t_bptt_forward_length(fwd)
+          .t_bptt_backward_length(fwd))
+    gb.set_input_types(InputType.recurrent(vocab))
+    return gb.build()
+
+
+def _sample_check(torch, kernels, net, perm, streams, steps, per_step):
+    """Greedy sampling of `streams` sequences for `steps` characters, one
+    `rnn_time_step` a character after `rnn_clear_previous_state`: the
+    launches (`per_step` a call, 0 plain calls) and the stepped outputs
+    against `output` over the sampled sequence (f32, 1e-4). Returns
+    (errors, report, launches)."""
+    eye = np.eye(RNN_V, dtype=np.float32)
+    seeds = np.arange(streams) * 5 % RNN_V
+    net.rnn_clear_previous_state()
+    kernels.reset_counts()
+    ids, probs, wall = [seeds], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        p = _first(net.rnn_time_step(eye[ids[-1]]))  # [streams, V]
+        wall.append((time.perf_counter() - t0) * 1e3)
+        probs.append(p)
+        ids.append(p.argmax(-1))
+    counts = kernels.counts()
+    errors, _ = _launch_errors(counts, per_step, steps)
+    stepped = np.stack(probs, 1)
+    full = _first(net.output(eye[np.stack(ids[:-1], 1)]))
+    diff = float(np.abs(stepped - full).max())
+    if not diff <= 1e-4:
+        errors.append(f"rnn_time_step differs from output by {diff}")
+    follows = float(np.mean(np.stack(ids[1:], 1)
+                            == perm[np.stack(ids[:-1], 1)]))
+    ms = statistics.mean(wall[5:])
+    return errors, {
+        "calls": steps, "ms_per_character_step": ms,
+        "ms_per_step_median": statistics.median(wall[5:]),
+        "characters_per_s": streams / ms * 1e3,
+        "max_abs_diff_vs_output": diff,
+        "share_following_the_trained_rule": follows,
+        "first_ids": [int(i) for i in np.stack(ids, 1)[0, :24]],
+        "launches": counts["launches"]["lstm_cell"]}, counts["launches"]
+
+
+def _fit_calls(torch, net, batches, calls, record_finite=False):
+    """`calls` fit calls over `batches` in turn: (scores, wall ms each,
+    and, with `record_finite`, each step's finite flag, read after the
+    calls: one device bool per step or tBPTT chunk)."""
+    flags = []
+    if record_finite:
+        real = net._train_update
+
+        def update(grads, finite):
+            flags.append(finite)
+            return real(grads, finite)
+
+        net._train_update = update
+    scores, wall = [], []
+    try:
+        for i in range(calls):
+            t0 = time.perf_counter()
+            net.fit(batches[i % len(batches)])
+            scores.append(net.score_value)  # reads the loss: syncs
+            wall.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        if record_finite:
+            del net._train_update
+    return scores, wall, [bool(f) for f in flags]
+
+
+def _falling(scores):
+    """Errors unless every score is finite and the last 3 average under
+    the first."""
+    if not all(np.isfinite(scores)):
+        return [f"non-finite score: {scores}"]
+    if not float(np.mean(scores[-3:])) < scores[0]:
+        return [f"scores did not fall: {scores}"]
+    return []
+
+
+def phase_graph_tbptt(card, torch, kernels, dev):
+    """G1 (see the docstring): 1 warm-up and 3 timed `fit` calls of 20
+    tBPTT chunks each; greedy sampling through the graph's `rnn_time_step`
+    with 1 and 32 streams; one 3-chunk `fit` at B=4 card against CPU
+    (`rnn_fit_parity`, its g2 held to a float64 call's)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    t_phase = time.perf_counter()
+    net = ComputationGraph(_char_graph_conf(), device=dev).init()
+    data, perm = rnn_batches(torch, dev, G1_B, G1_T, 2, 59)
+    batches = [MultiDataSet([d.features], [d.labels]) for d in data]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    calls = G1_WARMUP + G1_TIMED
+    scores, wall, _ = _fit_calls(torch, net, batches, calls)
+    counts = kernels.counts()
+    errors, want = _launch_errors(counts, G1_LAUNCHES, calls)
+    errors += _falling(scores)
+    if net.iteration != calls or net.state:
+        errors.append(f"iteration {net.iteration} after {calls} sequences, "
+                      f"state left {sorted(net.state)}")
+    launches = {"graph_tbptt": counts["launches"]}
+    timed = wall[G1_WARMUP:]
+    ms = statistics.mean(timed)
+    out = dict(
+        model=f"CompGraphLSTMExample V={G1_V}, 2 GravesLSTM of {G1_H}, "
+              f"f32 RMSProp lr 0.1, tBPTT {G1_CHUNK}",
+        batch=G1_B, seq_len=G1_T, chunks_per_call=G1_T // G1_CHUNK,
+        calls=calls, scores=scores, ms_per_call=ms, ms_per_call_all=wall,
+        characters_per_s=G1_B * G1_T / ms * 1e3,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        launches=counts["launches"], expected_launches=want,
+        plain_calls=counts["plain_calls"])
+    sample_launches = {name: 0 for name in KERNEL_INFO}
+    for streams in (1, G1_B):
+        errs, report, got = _sample_check(torch, kernels, net, perm, streams,
+                                          G1_SAMPLE, {"lstm_cell": 2})
+        errors += [f"{streams} streams: {e}" for e in errs]
+        out[f"sample_streams_{streams}"] = report
+        for k, v in got.items():
+            sample_launches[k] += v
+    launches["graph_sample"] = sample_launches
+    errs, parity = rnn_fit_parity(
+        torch, dev, ComputationGraph, _char_graph_conf, G1_PARITY_B,
+        G1_PARITY_T, reference64=True)
+    errors += [f"parity: {e}" for e in errs]
+    out.update(parity=parity, phase_s=time.perf_counter() - t_phase)
+    emit(card, phase="graph_tbptt", ok=not errors, errors=errors, **out)
+    return not errors, launches
+
+
+def compare_in_range(torch, got, want, dtype):
+    """`compare` against the f32 results rounded to `dtype` first: a value
+    past the dtype's range (f16's 65,504: h under cube gates) reads inf in
+    both and must be the same inf there; the rest is held at TOL."""
+    dt = getattr(torch, dtype)
+    want = [w.to(dt) for w in want]
+    big = [torch.isinf(w) for w in want]
+    same = all(torch.equal(torch.isinf(g), b) and torch.equal(g[b], w[b])
+               for g, w, b in zip(got, want, big))
+    err, ok = compare([g[~b] for g, b in zip(got, big)],
+                      [w[~b] for w, b in zip(want, big)], dtype)
+    return err, ok and same
+
+
+def lstm_act_case(torch, dev, dtype_name, gate, act, seed):
+    """Row 10 at the char-RNN's training shape (B=32, n=256) with
+    peepholes and a mask, under `gate` and `act`: (kernel fn, plain fn in
+    f32 on the same inputs)."""
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, n = RNN_B, RNN_H
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    xw = rnd(b, RNN_CHUNK, 4 * n).unbind(1)[1]
+    args = (xw, rnd(b, n, scale=0.5), rnd(b, n), rnd(n, 4 * n, scale=n ** -0.5),
+            rnd(3 * n, scale=0.3),
+            (torch.rand(b, generator=g, device=dev) < 0.7).to(dt))
+    f32 = tuple(a.float() for a in args)
+    return (lambda: lc.lstm_cell(*args, gate, act),
+            lambda: lc.lstm_cell_plain(*f32, gate, act))
+
+
+def phase_lstm_acts(card, torch, kernels, dev):
+    """R3: row 10 under each of the 16 elementwise activations as the gate
+    activation (cell tanh) and as the cell activation (sigmoid gates), in
+    f32, bf16 and f16, at B=32, n=256 with peepholes and a mask, each held
+    to the plain version in f32 on the same inputs (1e-4 / 4e-2 / 1e-2)
+    and timed; then the char-RNN with hard-sigmoid gates (a Keras import's)
+    trained: 3 + 10 calls, 200 cell and 2 update launches a call, scores
+    falling, and its first call card against CPU at B=4."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    t_phase = time.perf_counter()
+    errors, cases = [], []
+    for dtype in ("float32", "bfloat16", "float16"):
+        for i, name in enumerate(LSTM_ACTS):
+            for role in ("gate", "cell"):
+                gate, act = ((name, "tanh") if role == "gate"
+                             else ("sigmoid", name))
+                kern, plain = lstm_act_case(torch, dev, dtype, gate, act,
+                                            100 + i)
+                kernels.reset_counts()
+                got = kern()
+                launched = kernels.counts()["launches"]["lstm_cell"]
+                err, ok = compare_in_range(torch, got, plain(), dtype)
+                cases.append({"dtype": dtype, "name": name, "role": role,
+                              "max_abs_err": err, "ok": ok and launched == 1,
+                              "ms": time_ms(kern, reps=10, warmup=2)})
+                if not cases[-1]["ok"]:
+                    errors.append(f"{dtype} {role} {name}: error {err}, "
+                                  f"{launched} launches")
+    emit(card, phase="lstm_acts", path="kernel", ok=not errors,
+         errors=errors, shape=f"B={RNN_B} n={RNN_H} peephole masked",
+         held_to="plain version in f32 on the same inputs",
+         tolerance={d: TOL[d] for d in ("float32", "bfloat16", "float16")},
+         cases=cases)
+
+    def conf_fn():
+        conf = _rnn_conf()
+        for layer in conf.layers[:RNN_LAYERS]:
+            layer.gate_activation = "hardsigmoid"
+        return conf
+
+    train_errors = []
+    net = MultiLayerNetwork(conf_fn(), device=dev).init()
+    batches, _ = rnn_batches(torch, dev, RNN_B, RNN_T, 2, 19)
+    kernels.reset_counts()
+    calls = RNN_WARMUP + RNN_TIMED
+    scores, wall, _ = _fit_calls(torch, net, batches, calls)
+    counts = kernels.counts()
+    e, want = _launch_errors(counts, RNN_LAUNCHES, calls)
+    train_errors += e + _falling(scores)
+    e, parity = rnn_fit_parity(torch, dev, MultiLayerNetwork, conf_fn,
+                               RNN_PARITY_B, RNN_T)
+    train_errors += [f"parity: {m}" for m in e]
+    emit(card, phase="lstm_acts", path="hardsigmoid_train",
+         ok=not train_errors, errors=train_errors,
+         model=f"char_rnn V={RNN_V} hidden={RNN_H} f32, hardsigmoid gates",
+         batch=RNN_B, seq_len=RNN_T, calls=calls, scores=scores,
+         ms_per_call=statistics.mean(wall[RNN_WARMUP:]),
+         ms_per_call_all=wall, launches=counts["launches"],
+         expected_launches=want, plain_calls=counts["plain_calls"],
+         parity=parity, phase_s=time.perf_counter() - t_phase)
+    return not (errors or train_errors), {
+        "lstm_acts_train": counts["launches"]}, cases
+
+
+def _policy_net(torch, dev, conf, policy, **init):
+    from deeplearning4j_tpu_torch.nn.conf.dtype_policy import DtypePolicy
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    conf.global_conf.dtype_policy = DtypePolicy.of(policy)
+    return ComputationGraph(conf, device=dev).init(**init)
+
+
+def _logits(torch, net, x):
+    """The output layer's pre-softmax values, f32 on the host."""
+    with torch.inference_mode():
+        return net._forward(net._compute_copy(), net.state, [x],
+                            keep_rnn_state=False)[0][0].float().cpu()
+
+
+def _row_rel(a, b):
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+
+
+def _f16_rn_output(torch, kernels, net, cpu, x, want, label):
+    """`output` of an f16 I1 graph at B=32 on the card (3 + 10 calls):
+    the launches `want` a call, 0 plain calls; its logits on the first
+    F16_RN_CPU_B rows against the CPU net's within F16_LOGIT_TOL, and the
+    planted fault F16_RN_FAULT (on the card net, put back after) beyond
+    it. Returns (errors, report, launches of the calls)."""
+    errors = []
+    calls = RN_WARMUP + RN_TIMED
+    kernels.reset_counts()
+    wall, outs = [], []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        outs.append(net.output(x)[0])
+        wall.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.counts()
+    e, expected = _launch_errors(counts, want, calls)
+    errors += e
+    got = outs[-1]
+    if got.shape != (INFER_B, RN_CLASSES) or not np.isfinite(got).all():
+        errors.append(f"{label} output {got.shape}")
+    if not all(np.array_equal(o, got) for o in outs):
+        errors.append(f"{label}: repeated calls differ")
+    xc = x[:F16_RN_CPU_B]
+    t0 = time.perf_counter()
+    ref = _logits(torch, cpu, xc)
+    cpu_s = time.perf_counter() - t0
+    err = _row_rel(_logits(torch, net, xc), ref)
+    if not err <= F16_LOGIT_TOL:
+        errors.append(f"{label} logits card vs CPU {err} > {F16_LOGIT_TOL}")
+    vertex, leaf, factor = F16_RN_FAULT
+    if net.params_tree[vertex][leaf].dtype == torch.int8:
+        leaf += "__scale"  # an int8 tree: the weights' scale
+    w = net.params_tree[vertex][leaf]
+    kept = w.detach().clone()
+    with torch.no_grad():
+        w.mul_(factor)
+    net._compute_params = None
+    fault = _row_rel(_logits(torch, net, xc), ref)
+    with torch.no_grad():
+        w.copy_(kept)
+    net._compute_params = None
+    if not fault > F16_LOGIT_TOL:
+        errors.append(f"{label}: the planted fault reads {fault}, within "
+                      f"{F16_LOGIT_TOL}: the logits check is blind")
+    return errors, dict(
+        ms_per_call=statistics.mean(wall[RN_WARMUP:]),
+        ms_per_call_median=statistics.median(wall[RN_WARMUP:]),
+        ms_per_call_all=wall, cpu_rows=F16_RN_CPU_B,
+        cpu_logits_max_row_rel_err=err, logits_tolerance=F16_LOGIT_TOL,
+        planted_fault={"leaf": f"{vertex}/{leaf}", "factor": factor,
+                       "cpu_logits_max_row_rel_err": fault},
+        cpu_seconds=cpu_s, launches=counts["launches"],
+        expected_launches=expected, forms=counts["variants"][
+            "bottleneck_infer"]), counts["launches"]
+
+
+def phase_f16_resnet(card, torch, kernels, dev):
+    """P3: ResNet-50 under mixed_float16 through rows 11, 12, 2 and 9 in
+    f16: T2's fused graph at 64 px, B=32, 13 steps (16 f16 tensor-core
+    blocks, 1 BatchNorm, 1 update a step; the steps skipped and the final
+    scale), its first step at B=4 card against CPU (score within
+    F16_PARITY_TOL, the same skip decision); then I1's `output` at 224,
+    B=32, on Q1's weights (16 f16 tensor-core blocks, 1 BatchNorm a call)
+    and the same weights saved, quantized and restored (an int8 checkpoint
+    served under mixed_float16: 16 int8 blocks on the CUDA cores with f16
+    x), each with its logits against the CPU's and a planted fault."""
+    from deeplearning4j_tpu_torch.checkpoint import quantize, store
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    t_phase = time.perf_counter()
+    launches, ok_all = {}, True
+    # T2 under mixed_float16.
+    net = _policy_net(torch, dev, _rn_conf("t2"), "mixed_float16")
+    image, _, b = RN_PATHS["t2"]
+    batches = rn_batches(torch, dev, image, b, 2, 71)
+    kernels.reset_counts()
+    calls = RN_WARMUP + RN_TIMED
+    scores, wall, finite = _fit_calls(torch, net, batches, calls,
+                                      record_finite=True)
+    counts = kernels.counts()
+    errors, want = _launch_errors(counts, RN_LAUNCHES["t2"], calls)
+    errors += _variant_errors(counts, {"bottleneck_train": 16 * calls})
+    errors += _falling(scores)
+    scale, good = (float(t) for t in net.opt_state["_ls"])
+    launches["f16_t2"] = counts["launches"]
+    # The first step at B=4, card against CPU, from one seeded init.
+    small = [rn_batches(torch, "cpu", image, F16_RN_CPU_B, 1, 73)[0]]
+    first = {}
+    t0 = time.perf_counter()
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        n = _policy_net(torch, d, _rn_conf("t2"), "mixed_float16")
+        n.fit(small[0])
+        first[where] = (n.score_value, [float(t) for t in n.opt_state["_ls"]])
+    parity_s = time.perf_counter() - t0
+    rel = abs(first["card"][0] - first["cpu"][0]) / abs(first["cpu"][0])
+    if not rel <= F16_PARITY_TOL:
+        errors.append(f"first step card vs CPU: {first}")
+    if first["card"][1] != first["cpu"][1]:
+        errors.append(f"first step: skip decisions differ {first}")
+    emit(card, phase="f16_resnet", path="f16_t2", ok=not errors,
+         errors=errors, model="resnet50 T2 (fused, 64 px) mixed_float16",
+         batch=b, steps=calls, scores=scores,
+         ms_per_step=statistics.mean(wall[RN_WARMUP:]),
+         ms_per_step_median=statistics.median(wall[RN_WARMUP:]),
+         ms_per_step_all=wall, finite_steps=finite,
+         skipped_steps=finite.count(False), loss_scale=scale,
+         good_steps=good, launches=counts["launches"],
+         expected_launches=want, variants=counts["variants"],
+         plain_calls=counts["plain_calls"],
+         first_step={"score_card": first["card"][0],
+                     "score_cpu": first["cpu"][0], "score_rel_diff": rel,
+                     "loss_scale": {k: v[1] for k, v in first.items()},
+                     "batch": F16_RN_CPU_B, "seconds": parity_s})
+    ok_all &= not errors
+    del net, batches
+    torch.cuda.empty_cache()
+
+    # I1 and Q1 on Q1's weights, under mixed_float16.
+    q1 = _q1_net(torch, dev)
+    params = {v: {k: a.detach() for k, a in p.items()}
+              for v, p in q1.params_tree.items()}
+    i1 = _policy_net(torch, dev, _rn_conf("i1"), "mixed_float16",
+                     params=params, state=q1.state)
+    cpu = _policy_net(torch, "cpu", _rn_conf("i1"), "mixed_float16",
+                      params=params, state=q1.state)
+    del q1
+    x = np.random.RandomState(31).randn(INFER_B, RN_PATHS["i1"][0],
+                                        RN_PATHS["i1"][0], 3).astype(
+        np.float32)
+    errors, report, launches["f16_i1"] = _f16_rn_output(
+        torch, kernels, i1, cpu, x, Q1_LAUNCHES, "I1 f16")
+    errors += _variant_errors(
+        {"variants": {"bottleneck_infer": report["forms"]}},
+        {"bottleneck_infer": 16 * (RN_WARMUP + RN_TIMED)})
+    emit(card, phase="f16_resnet", path="f16_i1", ok=not errors,
+         errors=errors, model="resnet50 I1 (fused, 224 px) mixed_float16, "
+         "Q1's weights", batch=INFER_B, **report)
+    ok_all &= not errors
+    shutil.rmtree(PREC_DIR, ignore_errors=True)
+    os.makedirs(PREC_DIR)
+    fpath, qpath = (os.path.join(PREC_DIR, n) for n in ("f16", "int8"))
+    store.save_checkpoint(i1, fpath)
+    quantize.quantize_checkpoint(fpath, qpath)
+    qnet = store.restore_checkpoint(qpath, device=dev)
+    qcpu = store.restore_checkpoint(qpath, device="cpu")
+    errors, report, launches["f16_int8"] = _f16_rn_output(
+        torch, kernels, qnet, qcpu, x, Q1_LAUNCHES, "Q1 int8 under f16")
+    if report["forms"] != {"wgmma": 0,
+                           "cuda_cores": 16 * (RN_WARMUP + RN_TIMED)}:
+        errors.append(f"int8 blocks by form {report['forms']}")
+    if qnet.dtype_policy.compute_dtype != torch.float16:
+        errors.append(f"restored policy {qnet.dtype_policy.name}")
+    emit(card, phase="f16_resnet", path="f16_int8", ok=not errors,
+         errors=errors, model="resnet50 I1 from an int8 checkpoint of the "
+         "mixed_float16 net", batch=INFER_B,
+         params_dtype=str(qnet.params_tree["s0_b0_block"]["W_a"].dtype),
+         **report)
+    ok_all &= not errors
+    shutil.rmtree(PREC_DIR, ignore_errors=True)
+    del i1, cpu, qnet, qcpu
+    torch.cuda.empty_cache()
+    emit(card, phase="f16_resnet", path="summary", ok=bool(ok_all),
+         phase_s=time.perf_counter() - t_phase)
+    return bool(ok_all), launches
+
+
+def phase_f16_serve(card, torch, kernels, dev):
+    """P4: the LM cell's transformer_lm under mixed_float16 (f16 pages)
+    behind the paged InferenceServer (4 slots, 64-token pages, a twin draft
+    proposing SPEC_K tokens), 10 /generate requests at once (8 greedy, 2
+    sampled): the launches of the work the scheduler counted (rows 1, 3
+    and 8 in f16, row 3 on the tensor cores), 0 plain calls, and the
+    greedy ids held to a non-speculative run on the same net up to its
+    first near-tie, as the serving phase holds the bf16 LM."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.conf.dtype_policy import DtypePolicy
+
+    t_phase = time.perf_counter()
+    conf = zoo.transformer_lm(VOCAB, t=CACHE, d_model=D_MODEL,
+                              n_heads=HEADS, n_blocks=BLOCKS,
+                              dtype="bfloat16", decode_cache_length=CACHE)
+    conf.global_conf.dtype_policy = DtypePolicy.of("mixed_float16")
+    params = {v: {k: a.detach().clone() for k, a in p.items()}
+              for v, p in ComputationGraph(conf, device=dev).init()
+              .params_tree.items()}
+    params["out"]["W"].mul_(SERVE_LOGIT_SCALE)
+    net = ComputationGraph(conf, device=dev).init(params=params)
+    twin = ComputationGraph(conf, device=dev).init(params=params)
+    errors, out = [], {}
+    bodies = _serving_traffic(23)
+    server = InferenceServer(net, device=dev, kv_cache="paged",
+                             kv_page_size=PAGE, decode_slots=SLOTS,
+                             draft=twin, spec_k=SPEC_K).start()
+    try:
+        sched = server.get(None).scheduler
+        kernels.reset_counts()
+        results, errs, wall = _send_generates(server.url, sched, bodies,
+                                              None)
+        errors += errs
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        stats = dict(sched.stats)
+        pages = {str(s["k_pages"].dtype) for s in
+                 sched.stepper._state.values() if "k_pages" in s}
+    finally:
+        server.stop()
+    if len(results) != len(bodies):
+        errors.append(f"{len(results)} of {len(bodies)} requests answered")
+    if pages != {"torch.float16"}:
+        errors.append(f"KV pages {pages}")
+    want = _lm_expected(stats)
+    errors += _check_window(counts, want)
+    greedy = [bd for bd in bodies if bd["temperature"] == 0]
+    plain, gaps = _plain_greedy(torch, net, greedy)
+    rows, errs = _spec_against_plain(greedy, results, plain, gaps)
+    errors += errs
+    if not stats["spec_accepted"]:
+        errors.append(f"no speculative token accepted: {stats}")
+    out.update(requests=len(bodies), wall_s=wall, stats=stats,
+               kv_page_dtype=sorted(pages), launches=counts["launches"],
+               expected_launches=want, variants=counts["variants"][
+                   "flash_attention"], greedy_vs_non_speculative=rows,
+               phase_s=time.perf_counter() - t_phase)
+    emit(card, phase="f16_serve", ok=not errors, errors=errors, **out)
+    del net, twin
+    torch.cuda.empty_cache()
+    return not errors, {"f16_serve": counts["launches"]}
+
+
+def phase_f16_long(card, torch, kernels, dev):
+    """P5: rows 4 and 7 in f16 at [1, 32768, 8, 64] causal held to their
+    plain versions as long_kernels holds bf16; L1's LM under
+    mixed_float16: 3 `fit` steps (the streamed rows in f16 on the tensor
+    cores, 9 LayerNorms, 1 update a step; the steps skipped) and one
+    `output`; then the same LM with a decode cache, output projection x10:
+    one 30,000-token prompt's first distribution (row 4 in f16) and
+    LONG_PARITY_STEPS decode steps (row 8 in f16 over 512 pages a slot)
+    against the plain versions, planted faults in both (`stepper_parity`)."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    t_phase = time.perf_counter()
+    rows = long_kernel_rows(card, torch, dev, (("float16", LONG_T),),
+                            "f16_long_kernels")
+    errors = [f"{r['name']}: max error {r['max_abs_err']}, rows "
+              f"{r['max_row_rel_err']}" for r in rows if not r["ok"]]
+    launches = {}
+    net = _policy_net(torch, dev, _long_conf("bfloat16"), "mixed_float16")
+    batches = _long_batches(torch, dev, 43, 2)
+    kernels.reset_counts()
+    steps = 3
+    scores, wall, finite = _fit_calls(torch, net, batches, steps,
+                                      record_finite=True)
+    counts = kernels.counts()
+    e, want = _launch_errors(counts, LONG_LAUNCHES, steps)
+    errors += e + _variant_errors(counts, {name: BLOCKS * steps
+                                           for name in STREAM_UNITS})
+    if not all(np.isfinite(scores)):
+        errors.append(f"non-finite score: {scores}")
+    launches["f16_long_train"] = counts["launches"]
+    # One more step traced by part: rows 4 and 7's f16 unit kernels' device
+    # time per launch inside the step (the f16 rows' `device_ms`).
+    trace = trace_train_step(torch, net, batches[0])
+    for r in rows:
+        unit = f"stream_{STREAM_UNITS[r['name']]}_wgmma_kernel"
+        part = ("forward" if r["name"] == "flash_attention_stream"
+                else "backward")
+        hit = [k for k in trace[part].get("top", []) if unit in k["kernel"]]
+        if hit:
+            r["device_ms"] = hit[0]["ms_per_call"] / hit[0]["per_call"]
+            r["bound_share_by_device"] = bound_share(r["bound_ms"],
+                                                     r["device_ms"])
+    train = dict(steps=steps, scores=scores, ms_per_step_all=wall,
+                 finite_steps=finite, loss_scale=[
+                     float(t) for t in net.opt_state["_ls"]],
+                 launches=counts["launches"], expected_launches=want,
+                 plain_calls=counts["plain_calls"])
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    probs = net.output(batches[0].features[0])[0]
+    out_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.counts()
+    e, _ = _launch_errors(counts, {"layernorm_norm_act": 2 * BLOCKS + 1,
+                                   "flash_attention_stream": BLOCKS}, 1)
+    errors += e + _variant_errors(counts, {"flash_attention_stream": BLOCKS})
+    if probs.shape != (LONG_B, LONG_T, VOCAB) or not np.isfinite(
+            probs).all():
+        errors.append(f"output {probs.shape}")
+    elif np.abs(probs.sum(-1) - 1).max() > 1e-2:
+        errors.append("probabilities do not sum to 1")
+    launches["f16_long_output"] = counts["launches"]
+    del net, batches, probs
+    torch.cuda.empty_cache()
+    conf = zoo.transformer_lm(VOCAB, t=LONG_T, d_model=D_MODEL,
+                              n_heads=HEADS, n_blocks=BLOCKS,
+                              dtype="bfloat16", decode_cache_length=LONG_T)
+    net = _policy_net(torch, dev, conf, "mixed_float16")
+    with torch.no_grad():
+        net.params_tree["out"]["W"].mul_(SERVE_LOGIT_SCALE)
+    net._compute_params = None
+    prompt = np.random.RandomState(41).randint(0, VOCAB,
+                                               LONG_PROMPT).tolist()
+    e, parity = stepper_parity(torch, kernels, net, prompt, LONG_T,
+                               LONG_PARITY_STEPS)
+    errors += e
+    del net
+    torch.cuda.empty_cache()
+    emit(card, phase="f16_long", ok=not errors, errors=errors,
+         model=f"transformer_lm V={VOCAB} T={LONG_T} d={D_MODEL} "
+               f"heads={HEADS} blocks={BLOCKS} mixed_float16 Adam",
+         batch=LONG_B, train=train, trace=trace, output_ms=out_ms,
+         parity=parity, f16_rows_device_ms={
+             r["name"]: r["device_ms"] for r in rows},
+         phase_s=time.perf_counter() - t_phase)
+    return not errors, rows, launches
+
+
+def phase_f16_rnn(card, torch, kernels, dev):
+    """P6: the char-RNN (R1) under mixed_float16, set as a policy (the
+    legacy `dtype="float16"` string is float32, as in the reference):
+    B=32 x 100, tBPTT 50, 3 + 10 calls; per call 200 f16 cell and 2
+    update launches, 0 plain calls; the skip decision of every chunk; then
+    row 10 in f16 at R1's shapes (`phase_rnn_kernels`)."""
+    from deeplearning4j_tpu_torch.nn.conf.dtype_policy import DtypePolicy
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    t_phase = time.perf_counter()
+    conf = _rnn_conf()
+    conf.global_conf.dtype_policy = DtypePolicy.of("mixed_float16")
+    net = MultiLayerNetwork(conf, device=dev).init()
+    batches, _ = rnn_batches(torch, dev, RNN_B, RNN_T, 2, 19)
+    kernels.reset_counts()
+    calls = RNN_WARMUP + RNN_TIMED
+    scores, wall, finite = _fit_calls(torch, net, batches, calls,
+                                      record_finite=True)
+    counts = kernels.counts()
+    errors, want = _launch_errors(counts, RNN_LAUNCHES, calls)
+    errors += _falling(scores)
+    if net.dtype_policy.compute_dtype != torch.float16:
+        errors.append(f"policy {net.dtype_policy.name}")
+    chunks = RNN_T // RNN_CHUNK
+    emit(card, phase="f16_rnn", path="train", ok=not errors, errors=errors,
+         model=f"char_rnn V={RNN_V} hidden={RNN_H} mixed_float16 RMSProp",
+         batch=RNN_B, seq_len=RNN_T, calls=calls, scores=scores,
+         ms_per_call=statistics.mean(wall[RNN_WARMUP:]),
+         ms_per_call_all=wall,
+         finite_by_call=[finite[i:i + chunks]
+                         for i in range(0, len(finite), chunks)],
+         skipped_chunks=finite.count(False),
+         loss_scale=[float(t) for t in net.opt_state["_ls"]],
+         launches=counts["launches"], expected_launches=want,
+         plain_calls=counts["plain_calls"],
+         phase_s=time.perf_counter() - t_phase)
+    rows = phase_rnn_kernels(card, torch, dev, ("float16",), "f16_rnn")
+    ok = not errors and all(r["ok"] for r in rows)
+    return ok, rows, {"f16_rnn_train": counts["launches"]}
 
 
 def main() -> int:
@@ -6539,6 +7308,43 @@ def main() -> int:
     if not ok:
         failed.append("precision")
     path_launches.update(prec_launches)
+    ok, graph_launches = phase_graph_tbptt(card, torch, kernels, dev)
+    if not ok:
+        failed.append("graph_tbptt")
+    path_launches.update(graph_launches)
+    ok, act_launches, act_cases = phase_lstm_acts(card, torch, kernels, dev)
+    if not ok:
+        failed.append("lstm_acts")
+    path_launches.update(act_launches)
+    ok, f16_rows, f16_launches = phase_f16_rnn(card, torch, kernels, dev)
+    if not ok:
+        failed.append("f16_rnn")
+    path_launches.update(f16_launches)
+    rows_f16 = phase_resnet_kernels(card, torch, dev, RN_PATHS["t1"][2],
+                                    ("float16",), "f16_resnet_kernels")
+    if not all(r["ok"] for r in rows_f16):
+        failed.append("f16_resnet_kernels")
+    f16_rows += rows_f16
+    ok, f16_launches = phase_f16_resnet(card, torch, kernels, dev)
+    if not ok:
+        failed.append("f16_resnet")
+    path_launches.update(f16_launches)
+    rows_f16 = [kernel_row(card, torch, c, "float16", "f16_serve_kernels")
+                for c in kernel_cases(torch, dev, "float16")
+                if c[0] == "paged_decode_attention"]
+    torch.cuda.empty_cache()
+    if not all(r["ok"] for r in rows_f16):
+        failed.append("f16_serve_kernels")
+    f16_rows += rows_f16
+    ok, f16_launches = phase_f16_serve(card, torch, kernels, dev)
+    if not ok:
+        failed.append("f16_serve")
+    path_launches.update(f16_launches)
+    ok, rows_f16, f16_launches = phase_f16_long(card, torch, kernels, dev)
+    if not ok:
+        failed.append("f16_long")
+    f16_rows += rows_f16
+    path_launches.update(f16_launches)
     trace, ok = phase_trace(card, torch, cg, train_net, batches[0], nets,
                             rn_batch, rnn_net, rnn_data[0], long_net,
                             long_batches[0], mnist)
@@ -6660,9 +7466,14 @@ def main() -> int:
                 {k: r[k] for k in ("dtype", "max_row_rel_err", *keep)
                  if k in r} for r in rows
                 if r["name"] == name and r["shape"].endswith("non-causal")]
-        if name in PREC_F16_ROWS:
-            # The f16 form at the LM's shape (the precision paths').
-            f16 = next(p for p in prec_rows if p["name"] == name)
+        if name in PREC_F16_ROWS or any(r["name"] == name for r in f16_rows):
+            # The f16 form at the LM's shape (the precision paths'), or at
+            # the main shape of its f16 path (rows 2, 4, 7, 8, 10, 11, 12).
+            f16 = next((p for p in prec_rows if p["name"] == name), None)
+            if f16 is None:
+                mine = [p for p in f16_rows if p["name"] == name]
+                f16 = next((p for p in mine if p["shape"] == main_shape.get(
+                    name)), mine[0])
             entries[-1]["f16"] = {k: f16[k] for k in (
                 "shape", "max_abs_err", "max_row_rel_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "device_ms",
@@ -6675,6 +7486,16 @@ def main() -> int:
                                    "device_ms")}
                 for p in prec_rows if p.get("mode")]
         if name == "lstm_cell":
+            # The 16 elementwise activations as gate and as cell (R3).
+            entries[-1]["activations"] = {
+                d: {"cases": sum(c["dtype"] == d for c in act_cases),
+                    "max_abs_err": max(c["max_abs_err"] for c in act_cases
+                                       if c["dtype"] == d),
+                    "ms_range": [min(c["ms"] for c in act_cases
+                                     if c["dtype"] == d),
+                                 max(c["ms"] for c in act_cases
+                                     if c["dtype"] == d)]}
+                for d in ("float32", "bfloat16", "float16")}
             # Per launch in the traced char-RNN fit call (R1's shape).
             hit = [k for k in trace["rnn_fit_call"]["forward"].get("top", [])
                    if "lstm_cell" in k["kernel"]]

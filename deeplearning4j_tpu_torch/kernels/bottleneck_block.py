@@ -14,11 +14,13 @@ one call is 9 CUDA launches (train, projecting), 7 (train, identity), 5 or
 4 (inference), in either form.
 
 The form is a rule on dtypes and widths (`bottleneck_variant`), not a
-fallback: bf16 x and bf16 weights with Cin, F1 and F3 multiples of 64 (every
-ResNet-50 block) multiply on the tensor cores (wgmma, W by TMA, the
-BatchNorm prologue in registers), bound by the bf16 rate and the f32
-intermediates' bytes; f32, int8 weights and other widths keep the f32
-CUDA-core GEMM, bound by the 67 TFLOP/s f32 rate. A launch of either form
+fallback: bf16 (or f16) x with weights of the same type and Cin, F1 and F3
+multiples of 64 (every ResNet-50 block) multiply on the tensor cores
+(wgmma, W by TMA, the BatchNorm prologue in registers), bound by the
+bf16/f16 rate and the f32 intermediates' bytes; f32, int8 weights (f16 x
+with int8 weights: an int8 checkpoint served under mixed_float16) and
+other widths keep the f32 CUDA-core GEMM, bound by the 67 TFLOP/s f32
+rate. A launch of either form
 that fails raises, and an operand that is not contiguous and 16-byte
 aligned is refused before any launch.
 
@@ -30,8 +32,9 @@ BatchNorm through `norm_act`'s plain ops.
 The plain versions compute at x's dtype as XLA does (a bf16 conv output is
 rounded to bf16 before its statistics); the kernels keep the intermediates
 in f32 as the TPU body does (the tensor-core form rounds each conv's
-normalized input to bf16, as the MXU does at default precision), so the
-two agree to bf16 rounding in bf16.
+normalized input to bf16 or f16, as the MXU does at default precision), so
+the two agree to bf16 (f16) rounding in bf16 (f16). The JAX package sends
+f16 to XLA (:64-73), whose ops the plain version copies.
 
 With autograd recording, training runs through `BottleneckFn`: the forward
 is the kernel sequence (the plain version on the CPU), the backward the VJP
@@ -69,7 +72,8 @@ from deeplearning4j_tpu_torch.nn.layers.convolution import (
 _BRANCHES = ("a", "b", "c")
 _STAT_KEYS = ("mean_a", "var_a", "mean_b", "var_b", "mean_c", "var_c")
 _STAT_KEYS_PROJ = _STAT_KEYS + ("mean_proj", "var_proj")
-_W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+            torch.float16: 3}
 _BM = 64  # output rows per conv block (csrc/bottleneck_block.cu kBM)
 
 
@@ -216,11 +220,9 @@ def _launch_stats(stream, psum, psq, rows):
 
 
 def _check(x, ws, stride, project):
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"bottleneck_block takes float32 or bfloat16 "
-                        f"activations on the card, not {x.dtype} (f16 "
-                        f"compute through rows 11 and 12 is not in the port "
-                        f"yet: ROADMAP A.7)")
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"bottleneck_block takes float32, bfloat16 or "
+                        f"float16 activations on the card, not {x.dtype}")
     if x.dim() != 4:
         raise ValueError(f"bottleneck_block takes NHWC x, got {x.shape}")
     cin, f1, f3 = x.shape[3], ws["a"].shape[-1], ws["c"].shape[-1]
@@ -229,8 +231,8 @@ def _check(x, ws, stride, project):
                          f"multiples of 4; got Cin={cin}, F1={f1}, F3={f3}")
     for n, w in ws.items():
         if w.dtype not in _W_CODES:
-            raise TypeError(f"W_{n}: the kernel takes float32, bfloat16 or "
-                            f"int8 weights, not {w.dtype}")
+            raise TypeError(f"W_{n}: the kernel takes float32, bfloat16, "
+                            f"float16 or int8 weights, not {w.dtype}")
     if not project and (tuple(stride) != (1, 1) or cin != f3):
         raise ValueError("the identity shortcut needs stride 1 and "
                          f"Cin == 4 * filters; got {stride}, Cin={cin}, "
@@ -242,14 +244,15 @@ _VARIANTS = {"cuda_cores": 0, "wgmma": 1}
 
 
 def bottleneck_variant(x_dtype, w_dtype, cin: int, f1: int, f3: int) -> str:
-    """Which form of its convolutions a block launches: "wgmma" (bf16
-    products on the tensor cores) when x and every W are bf16 (`w_dtype`
-    the dtype they share; None when they differ) and Cin, F1 and F3 are
-    multiples of 64, else "cuda_cores" (f32 products; f32, int8 weights,
-    other widths). A dispatch by dtype and width, not a fallback."""
+    """Which form of its convolutions a block launches: "wgmma" (bf16 or
+    f16 products on the tensor cores) when x and every W share bf16 or f16
+    (`w_dtype` the dtype the W share; None when they differ) and Cin, F1
+    and F3 are multiples of 64, else "cuda_cores" (f32 products; f32, int8
+    weights, mixed dtypes, other widths). A dispatch by dtype and width, not
+    a fallback."""
     wide = cin % 64 == 0 and f1 % 64 == 0 and f3 % 64 == 0
-    return ("wgmma" if x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16
-            and wide else "cuda_cores")
+    return ("wgmma" if x_dtype in (torch.bfloat16, torch.float16)
+            and w_dtype == x_dtype and wide else "cuda_cores")
 
 
 def _kernel_block(x, flat, scales, running, stride, eps, act, train):

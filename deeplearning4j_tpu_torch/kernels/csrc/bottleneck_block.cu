@@ -34,7 +34,8 @@
 // for ~105 MB. Operations bound the block at full width, so its bf16 form
 // multiplies on the tensor cores:
 //
-// - `conv_wgmma_kernel` (bf16 x and weights; Cin, F1 and F3 multiples of
+// - `conv_wgmma_kernel` (bf16 or f16 x and weights, the products in their
+//   type E, `.f32.bf16.bf16` or `.f32.f16.f16`; Cin, F1 and F3 multiples of
 //   64; every ResNet-50 block): one warpgroup owns 64 output rows and BN =
 //   64 or 128 output channels, and K advances in chunks of 64 channels of
 //   one tap (C % 64 == 0: a chunk never straddles two taps).
@@ -43,12 +44,12 @@
 //     wgmma MN-major (the transpose bit), as the flash kernels read V.
 //   * A, the activations, from registers: each thread loads the elements of
 //     its m64nNk16 A fragment (2 rows x 16 channels a chunk) straight from
-//     device memory (x in bf16 for convs a and proj; the raw f32 a or h for
+//     device memory (x in E for convs a and proj; the raw f32 a or h for
 //     convs b and c), applies the previous branch's BatchNorm + act in f32
 //     (`norm4`'s expression with 1 / sqrt(var + eps) * gamma folded into
 //     one scale per channel, in a shared-memory table), then zeroes the
 //     SAME padding and the rows past M (after the prologue: act(BN(0)) is
-//     not 0), rounds to bf16 (as the MXU rounds at default precision) and
+//     not 0), rounds to E (as the MXU rounds at default precision) and
 //     packs. While the current chunk's four wgmma run, the next chunk is
 //     converted into a second fragment set, and the chunk three on is
 //     loaded (two raw sets in turn: a load has two steps to land). The
@@ -61,7 +62,9 @@
 //   * Parallelism at small M is accepted: T2's stages 3 and 4 (M = 512 and
 //     128) give 8-32 blocks on 132 SMs. Split-K is later work.
 // - `conv_gemm_kernel` (f32, int8 weights, other widths): the CUDA cores in
-//   f32 (bf16 inputs widened at the load, as the TPU body's `_f32`), so its
+//   f32 (bf16 and f16 inputs widened at the load, as the TPU body's `_f32`;
+//   f16 x with int8 weights is an int8 checkpoint served under
+//   mixed_float16), so its
 //   ceiling is the 67 TFLOP/s f32 rate. Tiles: 64x64 outputs per block of
 //   256 threads, each thread 4x4, K in steps of 16 through shared memory.
 //
@@ -99,6 +102,13 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   for (int j = 0; j < 4; ++j) v[j] = __bfloat162float(e[j]);
 }
 
+__device__ __forceinline__ void load4(const __half* p, float (&v)[4]) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const __half* e = reinterpret_cast<const __half*>(&r);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = __half2float(e[j]);
+}
+
 __device__ __forceinline__ void load4(const int8_t* p, float (&v)[4]) {
   const int r = *reinterpret_cast<const int*>(p);
   const int8_t* e = reinterpret_cast<const int8_t*>(&r);
@@ -115,6 +125,14 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&r);
 #pragma unroll
   for (int j = 0; j < 4; ++j) e[j] = __float2bfloat16(v[j]);
+  *reinterpret_cast<uint2*>(p) = r;
+}
+
+__device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
+  uint2 r;
+  __half* e = reinterpret_cast<__half*>(&r);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) e[j] = __float2half_rn(v[j]);
   *reinterpret_cast<uint2*>(p) = r;
 }
 
@@ -339,13 +357,13 @@ __device__ __forceinline__ void load_a(RawA<TIn>& raw, const RowA (&rows)[2],
 
 // The chunk as the four k16 A fragments (hopper.cuh's layout: fragment kk,
 // register 2 h + r holds row r, channels 16 kk + 8 h + 2 q + {0, 1}, so
-// pair j = 2 kk + h). bf16 x goes as it is (a zero stands for a tap outside
-// the image); f32 a or h first takes the BatchNorm + act of the previous
-// branch, then the padding and the rows past M are zeroed, then it is
-// rounded to bf16. ACT is the activation's code (a template parameter: a
+// pair j = 2 kk + h). x in E (bf16 or f16) goes as it is (a zero stands for
+// a tap outside the image); f32 a or h first takes the BatchNorm + act of
+// the previous branch, then the padding and the rows past M are zeroed,
+// then it is rounded to E. ACT is the activation's code (a template parameter: a
 // switch on a runtime code, expanded for each of the 32 elements, made the
 // loop too large for the instruction cache).
-template <typename TIn, int ACT>
+template <typename TIn, typename E, int ACT>
 __device__ __forceinline__ void to_frags(const RawA<TIn>& raw,
                                          uint32_t (&pa)[4][4],
                                          const float* pro, const ConvParams& p,
@@ -364,7 +382,7 @@ __device__ __forceinline__ void to_frags(const RawA<TIn>& raw,
         const float lo = dl4j::activate(fmaf(v.x - mu.x, sc.x, be.x), ACT);
         const float hi = dl4j::activate(fmaf(v.y - mu.y, sc.y, be.y), ACT);
         pa[j / 2][2 * (j % 2) + r] =
-            raw.ok[r] ? hopper::pack_bf16(lo, hi) : 0u;
+            raw.ok[r] ? hopper::pack2<E>(lo, hi) : 0u;
       } else {
         pa[j / 2][2 * (j % 2) + r] = raw.v[r][j];
       }
@@ -374,7 +392,7 @@ __device__ __forceinline__ void to_frags(const RawA<TIn>& raw,
 // acc += A B for one chunk: A the four register fragments, B the stage's
 // 64 x BN W tile read MN-major (LBO one box between 64-wide column blocks,
 // SBO 1024, a k16 step 16 rows = 2048 bytes on).
-template <int BN>
+template <int BN, typename E>
 __device__ __forceinline__ void wg_chunk(float (&acc)[BN / 2],
                                          const uint32_t (&pa)[4][4],
                                          const uint8_t* b) {
@@ -383,18 +401,18 @@ __device__ __forceinline__ void wg_chunk(float (&acc)[BN / 2],
     const uint64_t desc =
         hopper::sw128_desc(b + kk * 16 * 128, kBoxBytes, 1024);
     if constexpr (BN == 64)
-      hopper::wgmma_m64n64k16_rs_tb(acc, pa[kk], desc);
+      hopper::wgmma_m64n64k16_rs_tb<E>(acc, pa[kk], desc);
     else
-      hopper::wgmma_m64n128k16_rs_tb(acc, pa[kk], desc);
+      hopper::wgmma_m64n128k16_rs_tb<E>(acc, pa[kk], desc);
   }
 }
 
-// One convolution on the tensor cores. TIn = bf16: x, no prologue (convs a
-// and proj); TIn = float: the raw a or h with the prologue (convs b and c)
-// and its activation ACT. Block i: column tile i % (N / BN), row tile
+// One convolution on the tensor cores, its products in E (bf16 or f16, as
+// the weights). TIn = E: x, no prologue (convs a and proj); TIn = float: the
+// raw a or h with the prologue (convs b and c) and its activation ACT. Block i: column tile i % (N / BN), row tile
 // i / (N / BN), so the column tiles of one row tile run side by side and
 // share its A in the L2.
-template <typename TIn, int BN, int ACT>
+template <typename TIn, typename E, int BN, int ACT>
 __global__ void __launch_bounds__(kWgThreads)
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap tw, const ConvParams p) {
   constexpr bool kPro = std::is_same<TIn, float>::value;
@@ -457,7 +475,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tw, const ConvParams p) {
   RawA<TIn> ra, rb;
   uint32_t fa[4][4], fb[4][4];
   load_a(ra, rows, p, 0, q);
-  to_frags<TIn, ACT>(ra, fa, pro, p, 0, q);
+  to_frags<TIn, E, ACT>(ra, fa, pro, p, 0, q);
   if (chunks > 1) load_a(ra, rows, p, 1, q);
   if (chunks > 2) load_a(rb, rows, p, 2, q);
 
@@ -470,10 +488,10 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tw, const ConvParams p) {
     hopper::mbar_wait(full + st, (i / kStages) & 1);
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
-    wg_chunk<BN>(acc, cur, ring + st * SB);
+    wg_chunk<BN, E>(acc, cur, ring + st * SB);
     hopper::wgmma_commit();
     if (i + 1 < chunks) {
-      to_frags<TIn, ACT>(raw, next, pro, p, i + 1, q);
+      to_frags<TIn, E, ACT>(raw, next, pro, p, i + 1, q);
       if (i + 3 < chunks) load_a(raw, rows, p, i + 3, q);
     }
     hopper::wgmma_wait_all();
@@ -613,12 +631,14 @@ template <typename TIn>
 int run_conv_w(const ConvParams& p, int w_dtype, cudaStream_t stream) {
   if (w_dtype == dl4j::kFloat32) return run_conv<TIn, float>(p, stream);
   if (w_dtype == dl4j::kBFloat16) return run_conv<TIn, __nv_bfloat16>(p, stream);
+  if (w_dtype == dl4j::kFloat16) return run_conv<TIn, __half>(p, stream);
   if (w_dtype == dl4j::kInt8) return run_conv<TIn, int8_t>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// A 2-D map over W [K, N] bf16 (row pitch N * 2 bytes): boxes of 64
-// columns (128 bytes) x 64 rows, 128-byte swizzle.
+// A 2-D map over W [K, N] in E (bf16 or f16; row pitch N * 2 bytes): boxes
+// of 64 columns (128 bytes) x 64 rows, 128-byte swizzle.
+template <typename E>
 int w_map(CUtensorMap* map, const ConvParams& p) {
   const hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -628,7 +648,10 @@ int w_map(CUtensorMap* map, const ConvParams& p) {
   const cuuint32_t box[2] = {64, kChunk};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p.w), dims,
+      map,
+      std::is_same<E, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(p.w), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -640,12 +663,12 @@ int w_map(CUtensorMap* map, const ConvParams& p) {
   return 0;
 }
 
-template <typename TIn, int BN, int ACT = dl4j::kIdentity>
+template <typename TIn, typename E, int BN, int ACT = dl4j::kIdentity>
 int run_conv_wgmma(const ConvParams& p, int m_tiles, cudaStream_t stream) {
   CUtensorMap tw;
-  if (const int e = w_map(&tw, p)) return e;
+  if (const int e = w_map<E>(&tw, p)) return e;
   const int smem = wg_smem<BN>(p.C, std::is_same<TIn, float>::value);
-  auto kernel = conv_wgmma_kernel<TIn, BN, ACT>;
+  auto kernel = conv_wgmma_kernel<TIn, E, BN, ACT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -656,18 +679,20 @@ int run_conv_wgmma(const ConvParams& p, int m_tiles, cudaStream_t stream) {
 }
 
 // Convs b and c: the prologue's activation as a template argument.
-template <int BN>
+template <typename E, int BN>
 int run_conv_wgmma_pro(const ConvParams& p, int m_tiles,
                        cudaStream_t stream) {
   switch (p.pact) {
     case dl4j::kIdentity:
-      return run_conv_wgmma<float, BN, dl4j::kIdentity>(p, m_tiles, stream);
+      return run_conv_wgmma<float, E, BN, dl4j::kIdentity>(p, m_tiles,
+                                                           stream);
     case dl4j::kRelu:
-      return run_conv_wgmma<float, BN, dl4j::kRelu>(p, m_tiles, stream);
+      return run_conv_wgmma<float, E, BN, dl4j::kRelu>(p, m_tiles, stream);
     case dl4j::kTanh:
-      return run_conv_wgmma<float, BN, dl4j::kTanh>(p, m_tiles, stream);
+      return run_conv_wgmma<float, E, BN, dl4j::kTanh>(p, m_tiles, stream);
     case dl4j::kSigmoid:
-      return run_conv_wgmma<float, BN, dl4j::kSigmoid>(p, m_tiles, stream);
+      return run_conv_wgmma<float, E, BN, dl4j::kSigmoid>(p, m_tiles,
+                                                          stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -677,17 +702,17 @@ bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-// The tensor-core form takes bf16 x without a prologue (convs a, proj) or
-// the raw f32 conv output with one (convs b, c), bf16 weights, C and N
-// multiples of 64 and 16-byte-aligned operands; anything else is refused.
-// N tiles of 128 (half the re-reads of A) where that still gives a block
-// to every SM, else of 64.
-int run_wgmma(const ConvParams& p, int in_dtype, int w_dtype,
-              cudaStream_t stream) {
+// The tensor-core form takes bf16 or f16 weights (the products' type E) with
+// x in E without a prologue (convs a, proj) or the raw f32 conv output with
+// one (convs b, c), C and N multiples of 64 and 16-byte-aligned operands;
+// anything else is refused. N tiles of 128 (half the re-reads of A) where
+// that still gives a block to every SM, else of 64.
+template <typename E>
+int run_wgmma_e(const ConvParams& p, int in_dtype, int e_dtype,
+                cudaStream_t stream) {
   const bool pro = p.pm != nullptr;
-  if (w_dtype != dl4j::kBFloat16 || p.wscale != nullptr || p.C % kChunk ||
-      p.N % 64 || (pro ? in_dtype != dl4j::kFloat32
-                       : in_dtype != dl4j::kBFloat16))
+  if (p.wscale != nullptr || p.C % kChunk || p.N % 64 ||
+      (pro ? in_dtype != dl4j::kFloat32 : in_dtype != e_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[] = {p.in, p.w, p.out, p.psum, p.psq,
                         p.pm, p.pv, p.pg, p.pb};
@@ -701,17 +726,26 @@ int run_wgmma(const ConvParams& p, int in_dtype, int w_dtype,
   const int m_tiles = (p.M + 63) / 64;
   const bool wide = p.N % 128 == 0 && m_tiles * (p.N / 128) >= sms;
   if (pro)
-    return wide ? run_conv_wgmma_pro<128>(p, m_tiles, stream)
-                : run_conv_wgmma_pro<64>(p, m_tiles, stream);
-  return wide ? run_conv_wgmma<__nv_bfloat16, 128>(p, m_tiles, stream)
-              : run_conv_wgmma<__nv_bfloat16, 64>(p, m_tiles, stream);
+    return wide ? run_conv_wgmma_pro<E, 128>(p, m_tiles, stream)
+                : run_conv_wgmma_pro<E, 64>(p, m_tiles, stream);
+  return wide ? run_conv_wgmma<E, E, 128>(p, m_tiles, stream)
+              : run_conv_wgmma<E, E, 64>(p, m_tiles, stream);
+}
+
+int run_wgmma(const ConvParams& p, int in_dtype, int w_dtype,
+              cudaStream_t stream) {
+  if (w_dtype == dl4j::kBFloat16)
+    return run_wgmma_e<__nv_bfloat16>(p, in_dtype, w_dtype, stream);
+  if (w_dtype == dl4j::kFloat16)
+    return run_wgmma_e<__half>(p, in_dtype, w_dtype, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // One implicit-GEMM convolution of the block (see the header). `in`: NHWC
-// [B, H, W, C] of `in_dtype` (f32 or bf16); `w`: [ks*ks*C, N] of `w_dtype`
-// (f32, bf16, or int8 with `wscale` [N] f32); `out`: [B*Ho*Wo, N] f32;
+// [B, H, W, C] of `in_dtype` (f32, bf16 or f16); `w`: [ks*ks*C, N] of
+// `w_dtype` (f32, bf16, f16, or int8 with `wscale` [N] f32); `out`: [B*Ho*Wo, N] f32;
 // pro_*: f32 [C] or all null; psum/psq: f32 [ceil(M/64), N] or null. C and N
 // multiples of 4, every pointer 16-byte aligned (checked by the wrapper).
 // `variant` 1: the tensor-core form (`run_wgmma` says what it takes); 0: the
@@ -747,6 +781,7 @@ extern "C" int dl4j_bottleneck_conv(
   if (in_dtype == dl4j::kFloat32) return run_conv_w<float>(p, w_dtype, s);
   if (in_dtype == dl4j::kBFloat16)
     return run_conv_w<__nv_bfloat16>(p, w_dtype, s);
+  if (in_dtype == dl4j::kFloat16) return run_conv_w<__half>(p, w_dtype, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -794,6 +829,8 @@ extern "C" int dl4j_bottleneck_tail(
     tail_kernel<float><<<grid, kThreads, 0, s>>>(t);
   else if (x_dtype == dl4j::kBFloat16)
     tail_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(t);
+  else if (x_dtype == dl4j::kFloat16)
+    tail_kernel<__half><<<grid, kThreads, 0, s>>>(t);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -44,10 +44,10 @@
 // Inside a unit, two forms of the same math, picked by the wrapper by dtype
 // and head width alone (kernels/flash_attention.py `stream_fwd_variant`,
 // `stream_bwd_variant`):
-// - bf16 at D = 64 or 128, the slice's case: `stream_fwd_wgmma_kernel`,
+// - bf16 or f16 at D = 64 or 128, the slice's case: `stream_fwd_wgmma_kernel`,
 //   `stream_dq_wgmma_kernel` and `stream_dkv_wgmma_kernel`, every product
 //   on the tensor cores (see their notes below);
-// - f32, and bf16 at any other D: `stream_fwd_kernel`, `stream_dq_kernel`
+// - f32, and bf16 or f16 at any other D: `stream_fwd_kernel`, `stream_dq_kernel`
 //   and `stream_dkv_kernel`, the resident kernels' CUDA-core layout: 64
 //   rows a block, a row owned by G threads (G = next power of two >= D/16)
 //   holding 16 dims each in f32 registers, interleaved so the G threads of
@@ -65,10 +65,11 @@
 // per whole run (q tile or k tile), longest first, writing its output from
 // registers; no list, no partials, no merge or sum kernel. Rows 4 and 7
 // instantiate the list schedule, whose code is what it was before the rows
-// schedule was added. The element type E is a template parameter too:
-// bf16 everywhere, and f16 over the rows schedule (rows 3, 5 and 6 under
-// the f16 policies), where the f16 backward holds each dS row at a power of
-// two (`f16_row_scale`, with the backward below).
+// schedule was added. The element type E is a template parameter too, bf16
+// or f16 (the f16 policies) over both schedules; the f16 backward holds each
+// dS row at a power of two (`f16_row_scale`, with the backward below), and
+// over the list it takes that power out of each partial before the f32
+// workspace, so the merge and the sums are the bf16 ones.
 
 #include <cstdio>
 
@@ -1510,6 +1511,11 @@ int dispatch(int dtype, int dim, const F& f) {
     if (dim <= 32) return f.template run<__nv_bfloat16, 2>();
     if (dim <= 64) return f.template run<__nv_bfloat16, 4>();
     if (dim <= 128) return f.template run<__nv_bfloat16, 8>();
+  } else if (dtype == dl4j::kFloat16) {
+    if (dim <= 16) return f.template run<__half, 1>();
+    if (dim <= 32) return f.template run<__half, 2>();
+    if (dim <= 64) return f.template run<__half, 4>();
+    if (dim <= 128) return f.template run<__half, 8>();
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1607,6 +1613,46 @@ struct RowsDkv {
   }
 };
 
+// The tensor-core forms over the visit list (rows 4 and 7), by element type
+// and width: partials in the f32 workspace, then the merge or the sums.
+struct ListFwd {
+  const void *q, *k, *v;
+  void* o;
+  float *lse, *part_acc, *part_ml;
+  const Args& a;
+  template <int D, typename E>
+  int run() const {
+    return launch_fwd_wgmma<D, false, E>(q, k, v, o, lse, part_acc, part_ml,
+                                         a);
+  }
+};
+
+struct ListDq {
+  const void *q, *k, *v, *dout;
+  const float *lse, *drow;
+  void* dq;
+  float* part;
+  const Args& a;
+  template <int D, typename E>
+  int run() const {
+    return launch_dq_wgmma<D, false, E>(q, k, v, dout, lse, drow, dq, part,
+                                        a);
+  }
+};
+
+struct ListDkv {
+  const void *q, *k, *v, *dout;
+  const float *lse, *drow;
+  void *dk, *dv;
+  float *part_dk, *part_dv;
+  const Args& a;
+  template <int D, typename E>
+  int run() const {
+    return launch_dkv_wgmma<D, false, E>(q, k, v, dout, lse, drow, dk, dv,
+                                         part_dk, part_dv, a);
+  }
+};
+
 // Calls `f.template run<D, E>()` for the dtype code (bf16 or f16) and the
 // head width (64 or 128).
 template <typename F>
@@ -1664,8 +1710,9 @@ int rows_dkv_wgmma(const void* q, const void* k, const void* v,
 // list: pair_i, pair_j (q tile, k tile of each visit); units [n_units, 3];
 // merges [n_merges, 3]. part_acc [batch*heads, n_slots, 64, dim] and part_ml
 // [batch*heads, n_slots, 2, 64], float32 scratch. `variant`: 1 launches the
-// tensor-core unit kernel (bf16, dim 64 or 128, q/k/v 16-byte aligned; any
-// other input is refused, never rerouted), 0 the CUDA-core one.
+// tensor-core unit kernel (bf16 or f16, dim 64 or 128, q/k/v 16-byte
+// aligned; any other input is refused, never rerouted), 0 the CUDA-core one
+// (f32, bf16 or f16, dim <= 128).
 extern "C" int dl4j_flash_attention_stream_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* pair_i, const void* pair_j, const void* units, int n_units,
@@ -1676,17 +1723,11 @@ extern "C" int dl4j_flash_attention_stream_fwd(
   const Args a = make_args(pair_i, pair_j, units, n_units, merges, n_merges,
                            n_slots, batch, seq, heads, dim, causal, scale,
                            stream);
-  if (variant == 1) {
-    float *l = static_cast<float*>(lse), *pa = static_cast<float*>(part_acc),
-          *pm = static_cast<float*>(part_ml);
-    if (dtype != dl4j::kBFloat16)
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (dim == 64)
-      return launch_fwd_wgmma<64, false>(q, k, v, o, l, pa, pm, a);
-    if (dim == 128)
-      return launch_fwd_wgmma<128, false>(q, k, v, o, l, pa, pm, a);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (variant == 1)
+    return rows_dispatch(dtype, dim,
+                         ListFwd{q, k, v, o, static_cast<float*>(lse),
+                                 static_cast<float*>(part_acc),
+                                 static_cast<float*>(part_ml), a});
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, dim,
                   Fwd{q, k, v, o, static_cast<float*>(lse),
@@ -1697,8 +1738,8 @@ extern "C" int dl4j_flash_attention_stream_fwd(
 // q, k, v, dout, dq as the forward's q; lse, drow: [batch, heads, seq]
 // float32; the row-major visit list; part [batch*heads, n_slots, 64, dim]
 // float32 scratch. `variant` as the forward's: 1 launches the tensor-core
-// unit kernel (bf16, dim 64 or 128, q/k/v/dout 16-byte aligned; any other
-// input is refused, never rerouted), 0 the CUDA-core one.
+// unit kernel (bf16 or f16, dim 64 or 128, q/k/v/dout 16-byte aligned; any
+// other input is refused, never rerouted), 0 the CUDA-core one.
 extern "C" int dl4j_flash_attention_stream_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* drow, void* dq, const void* pair_i,
@@ -1712,15 +1753,9 @@ extern "C" int dl4j_flash_attention_stream_bwd_dq(
   const float *l = static_cast<const float*>(lse),
               *dr = static_cast<const float*>(drow);
   float* pt = static_cast<float*>(part);
-  if (variant == 1) {
-    if (dtype != dl4j::kBFloat16)
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (dim == 64)
-      return launch_dq_wgmma<64, false>(q, k, v, dout, l, dr, dq, pt, a);
-    if (dim == 128)
-      return launch_dq_wgmma<128, false>(q, k, v, dout, l, dr, dq, pt, a);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (variant == 1)
+    return rows_dispatch(dtype, dim,
+                         ListDq{q, k, v, dout, l, dr, dq, pt, a});
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, dim, Dq{q, k, v, dout, l, dr, dq, pt, a});
 }
@@ -1741,17 +1776,9 @@ extern "C" int dl4j_flash_attention_stream_bwd_dkv(
   const float *l = static_cast<const float*>(lse),
               *dr = static_cast<const float*>(drow);
   float *pk = static_cast<float*>(part_dk), *pv = static_cast<float*>(part_dv);
-  if (variant == 1) {
-    if (dtype != dl4j::kBFloat16)
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (dim == 64)
-      return launch_dkv_wgmma<64, false>(q, k, v, dout, l, dr, dk, dv, pk, pv,
-                                         a);
-    if (dim == 128)
-      return launch_dkv_wgmma<128, false>(q, k, v, dout, l, dr, dk, dv, pk,
-                                          pv, a);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (variant == 1)
+    return rows_dispatch(dtype, dim,
+                         ListDkv{q, k, v, dout, l, dr, dk, dv, pk, pv, a});
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(dtype, dim, Dkv{q, k, v, dout, l, dr, dk, dv, pk, pv, a});
 }

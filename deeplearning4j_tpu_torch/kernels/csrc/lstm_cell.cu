@@ -9,14 +9,20 @@
 //
 //   z   = xw_t + h_prev @ RW                 (f32 accumulation)
 //   zi += c_prev * p_i ; zf += c_prev * p_f  (peephole variants)
-//   c   = sigmoid(zf) * c_prev + sigmoid(zi) * act(zg)
+//   c   = gate(zf) * c_prev + gate(zi) * act(zg)
 //   zo += c * p_o                            (the new c: Graves)
-//   h   = sigmoid(zo) * act(c)
+//   h   = gate(zo) * act(c)
 //   masked: h = m h + (1-m) h_prev ; c = m c + (1-m) c_prev ; out = m h
 //
-// h, c and out are written in the operand dtype, so under a bf16 policy the
-// carried c is rounded to bf16 every step, as the TPU body's
-// `co[...] = c.astype(co.dtype)` does; z never goes to device memory.
+// `gate` and `act` are any of the 16 elementwise activations of
+// nn/activations.py (`cell_act` below, the formulas of its registry; the
+// TPU kernel takes sigmoid gates and four cell activations and sends the
+// rest to XLA). Softmax reduces across the hidden units, which this kernel
+// spreads over its blocks, so the wrapper refuses it.
+//
+// h, c and out are written in the operand dtype (f32, bf16 or f16), so under
+// a bf16 or f16 policy the carried c is rounded to it every step, as the TPU
+// body's `co[...] = c.astype(co.dtype)` does; z never goes to device memory.
 // Without a mask out is h, and the wrapper returns h for it (as the plain
 // version does): only a masked step writes out.
 //
@@ -65,6 +71,41 @@ __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
+// The elementwise activations by code (kernels/lstm_cell.py `ACT_CODES`),
+// each the formula of nn/activations.py's registry: leakyrelu's slope 0.01,
+// elu's alpha 1, softplus linear past 20 (torch's threshold), ND4J's
+// rationaltanh, hardsigmoid clamp(0.2 x + 0.5, 0, 1), selu's constants and
+// gelu's tanh approximation.
+__device__ __forceinline__ float cell_act(float v, int code) {
+  switch (code) {
+    case 1: return fmaxf(v, 0.f);                            // relu
+    case 2: return tanhf(v);                                 // tanh
+    case 3: return sigmoid(v);                               // sigmoid
+    case 4: return v > 0.f ? v : 0.01f * v;                  // leakyrelu
+    case 5: return v > 0.f ? v : expm1f(v);                  // elu
+    case 6: return v * v * v;                                // cube
+    case 7: return v > 20.f ? v : log1pf(expf(v));           // softplus
+    case 8: return v / (1.f + fabsf(v));                     // softsign
+    case 9: {                                                // rationaltanh
+      const float y = 2.f * v / 3.f, a = fabsf(y), y2 = y * y;
+      const float r = 1.f - 1.f / (1.f + a + y2 + 1.41645f * (y2 * y2));
+      return 1.7159f * copysignf(r, y);
+    }
+    case 10: return fmaxf(tanhf(v), 0.f);                    // rectifiedtanh
+    case 11: return fminf(fmaxf(0.2f * v + 0.5f, 0.f), 1.f);  // hardsigmoid
+    case 12: return fminf(fmaxf(v, -1.f), 1.f);              // hardtanh
+    case 13:                                                 // selu
+      return 1.0507009873554805f *
+             (v > 0.f ? v : 1.6732632423543772f * expm1f(v));
+    case 14: {                                               // gelu (tanh)
+      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+      return 0.5f * v * (1.f + tanhf(k * (v + 0.044715f * v * v * v)));
+    }
+    case 15: return v * sigmoid(v);                          // swish
+    default: return v;                                       // identity
+  }
+}
+
 // Four consecutive values of a shared-memory row as floats.
 __device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -72,6 +113,16 @@ __device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
   f[1] = v.y;
   f[2] = v.z;
   f[3] = v.w;
+}
+
+__device__ __forceinline__ void load4(const __half* p, float (&f)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const __half2* h2 = reinterpret_cast<const __half2*>(&v);
+  const float2 a = __half22float2(h2[0]), b = __half22float2(h2[1]);
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = b.x;
+  f[3] = b.y;
 }
 
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
@@ -99,7 +150,7 @@ lstm_cell_kernel(const T* __restrict__ xw, long long xw_stride,
                  const T* __restrict__ rw, const T* __restrict__ pw,
                  const T* __restrict__ mask, T* __restrict__ h_out,
                  T* __restrict__ c_out, T* __restrict__ out, int b, int n,
-                 int act, int vec) {
+                 int act, int gate, int vec) {
   constexpr int kChunk = 16 / sizeof(T);  // h elements in 16 bytes
   __shared__ __align__(16) unsigned char raw[2 * sizeof(Stage<T>)];
   Stage<T>* stage = reinterpret_cast<Stage<T>*>(raw);
@@ -233,11 +284,11 @@ lstm_cell_kernel(const T* __restrict__ xw, long long xw_stride,
     zi += cp * pi;
     zf += cp * pf;
   }
-  const float i = sigmoid(zi), f = sigmoid(zf);
-  const float g = dl4j::activate(zg, act);
+  const float i = cell_act(zi, gate), f = cell_act(zf, gate);
+  const float g = cell_act(zg, act);
   float cn = f * cp + i * g;
   if (PEEP) zo += cn * po;
-  float h = sigmoid(zo) * dl4j::activate(cn, act);
+  float h = cell_act(zo, gate) * cell_act(cn, act);
   const size_t at = static_cast<size_t>(r0 + er) * n + j;
   if (MASKED) {
     h = mk * h + (1.f - mk) * hp;
@@ -251,7 +302,7 @@ lstm_cell_kernel(const T* __restrict__ xw, long long xw_stride,
 template <typename T>
 int launch(const void* xw, long long xw_stride, const void* h, const void* c,
            const void* rw, const void* pw, const void* m, void* h_out,
-           void* c_out, void* out, int b, int n, int act,
+           void* c_out, void* out, int b, int n, int act, int gate,
            cudaStream_t stream) {
   constexpr int kChunk = 16 / sizeof(T);
   const int vec = n % kChunk == 0 &&
@@ -269,7 +320,7 @@ int launch(const void* xw, long long xw_stride, const void* h, const void* c,
   T* oo = static_cast<T*>(out);
 #define DL4J_LSTM_LAUNCH(PEEP, MASKED)                                      \
   lstm_cell_kernel<T, PEEP, MASKED><<<grid, kThreads, 0, stream>>>(         \
-      xp, xw_stride, hp, cp, rp, pp, mp, ho, co, oo, b, n, act, vec)
+      xp, xw_stride, hp, cp, rp, pp, mp, ho, co, oo, b, n, act, gate, vec)
   if (pw && m)
     DL4J_LSTM_LAUNCH(true, true);
   else if (pw)
@@ -288,16 +339,16 @@ int launch(const void* xw, long long xw_stride, const void* h, const void* c,
 // (`lstm_cell._CellParams`, the same fields in the same order).
 struct CellParams {
   long long xw_stride;
-  int b, n, act, dtype;
+  int b, n, act, gate, dtype;
 };
 
 // xw: [b, 4n] rows `xw_stride` elements apart (a time step of [b, t, 4n]);
 // h, c, h_out, c_out, out: [b, n] contiguous (out read only with m); rw:
 // [n, 4n] contiguous; pw: [3n] (p_i, p_f, p_o) or null; m: [b] or null;
-// all of `dtype`. `act` is the
-// cell activation's code (common.cuh); the gates are sigmoid. `params`
-// (host memory) holds xw_stride, b, n, act and dtype. Shapes and dtypes are
-// checked by the Python wrapper.
+// all of `dtype` (f32, bf16 or f16). `act` and `gate` are the cell and gate
+// activations' codes (`cell_act`). `params` (host memory) holds xw_stride,
+// b, n, act, gate and dtype. Shapes and dtypes are checked by the Python
+// wrapper.
 extern "C" int dl4j_lstm_cell(const void* xw, const void* h, const void* c,
                               const void* rw, const void* pw, const void* m,
                               void* h_out, void* c_out, void* out,
@@ -307,11 +358,16 @@ extern "C" int dl4j_lstm_cell(const void* xw, const void* h, const void* c,
   if ((p.b + kRows - 1) / kRows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.act < 0 || p.act > 15 || p.gate < 0 || p.gate > 15)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (p.dtype == dl4j::kFloat32)
     return launch<float>(xw, p.xw_stride, h, c, rw, pw, m, h_out, c_out, out,
-                         p.b, p.n, p.act, s);
+                         p.b, p.n, p.act, p.gate, s);
   if (p.dtype == dl4j::kBFloat16)
     return launch<__nv_bfloat16>(xw, p.xw_stride, h, c, rw, pw, m, h_out,
-                                 c_out, out, p.b, p.n, p.act, s);
+                                 c_out, out, p.b, p.n, p.act, p.gate, s);
+  if (p.dtype == dl4j::kFloat16)
+    return launch<__half>(xw, p.xw_stride, h, c, rw, pw, m, h_out, c_out,
+                          out, p.b, p.n, p.act, p.gate, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,7 +34,10 @@
 // against rows*C). The math runs in f32 in the reference's order ((x - mean)
 // / sqrt(var + eps), then gamma * . + beta) and rounds once at the store;
 // the Pallas body computes at x's dtype, so in bf16 the two differ by bf16
-// rounding.
+// rounding. f16 x (the mixed_float16 and float16 policies; the JAX package
+// sends them to XLA, norm_act.py:38-44) is the same template at `__half`, 8
+// channels a vector, with the four vectors in f32 (two 16-byte loads each):
+// the statistics and the affine never round to f16, only y does.
 
 #include "common.cuh"
 
@@ -137,41 +140,49 @@ int launch(const void* x, const void* g, const void* b, void* y, int rows,
 
 constexpr int kBnThreads = 256;
 
-template <typename T>
+// N consecutive values of a [C] vector of S as floats, 16 bytes a load.
+template <typename S, int N>
+__device__ __forceinline__ void load_vec(const S* p, float (&f)[N]) {
+  constexpr int kPer = 16 / sizeof(S);
+#pragma unroll
+  for (int q = 0; q < N / kPer; ++q) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p + q * kPer);
+    const S* v = reinterpret_cast<const S*>(&r);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) f[q * kPer + j] = dl4j::to_f32(v[j]);
+  }
+}
+
+// x and y of T; mean, var, gamma and beta of S (T itself, or f32 for f16 x).
+template <typename T, typename S>
 __global__ void __launch_bounds__(kBnThreads)
-batchnorm_kernel(const T* __restrict__ x, const T* __restrict__ mean,
-                 const T* __restrict__ var, const T* __restrict__ gamma,
-                 const T* __restrict__ beta, T* __restrict__ y,
+batchnorm_kernel(const T* __restrict__ x, const S* __restrict__ mean,
+                 const S* __restrict__ var, const S* __restrict__ gamma,
+                 const S* __restrict__ beta, T* __restrict__ y,
                  size_t n_vec, int feats, float eps, int act) {
   constexpr int VEC = 16 / sizeof(T);
   for (size_t i = static_cast<size_t>(blockIdx.x) * kBnThreads + threadIdx.x;
        i < n_vec; i += static_cast<size_t>(gridDim.x) * kBnThreads) {
     const size_t e = i * VEC;
     const int c = static_cast<int>(e % feats);
-    const uint4 xr = *reinterpret_cast<const uint4*>(x + e);
-    const uint4 mr = *reinterpret_cast<const uint4*>(mean + c);
-    const uint4 vr = *reinterpret_cast<const uint4*>(var + c);
-    const uint4 gr = *reinterpret_cast<const uint4*>(gamma + c);
-    const uint4 br = *reinterpret_cast<const uint4*>(beta + c);
-    const T* xv = reinterpret_cast<const T*>(&xr);
-    const T* mv = reinterpret_cast<const T*>(&mr);
-    const T* vv = reinterpret_cast<const T*>(&vr);
-    const T* gv = reinterpret_cast<const T*>(&gr);
-    const T* bv = reinterpret_cast<const T*>(&br);
+    float xv[VEC], mv[VEC], vv[VEC], gv[VEC], bv[VEC];
+    load_vec<T, VEC>(x + e, xv);
+    load_vec<S, VEC>(mean + c, mv);
+    load_vec<S, VEC>(var + c, vv);
+    load_vec<S, VEC>(gamma + c, gv);
+    load_vec<S, VEC>(beta + c, bv);
     uint4 out;
     T* o = reinterpret_cast<T*>(&out);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      const float xhat = (dl4j::to_f32(xv[j]) - dl4j::to_f32(mv[j])) /
-                         sqrtf(dl4j::to_f32(vv[j]) + eps);
-      o[j] = dl4j::from_f32<T>(activate(
-          dl4j::to_f32(gv[j]) * xhat + dl4j::to_f32(bv[j]), act));
+      const float xhat = (xv[j] - mv[j]) / sqrtf(vv[j] + eps);
+      o[j] = dl4j::from_f32<T>(activate(gv[j] * xhat + bv[j], act));
     }
     *reinterpret_cast<uint4*>(y + e) = out;
   }
 }
 
-template <typename T>
+template <typename T, typename S = T>
 int launch_bn(const void* x, const void* m, const void* v, const void* g,
               const void* b, void* y, int rows, int feats, float eps, int act,
               cudaStream_t stream) {
@@ -180,10 +191,10 @@ int launch_bn(const void* x, const void* m, const void* v, const void* g,
   // Enough blocks to fill the card several times over; the loop strides.
   const size_t want = (n_vec + kBnThreads - 1) / kBnThreads;
   const int grid = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  batchnorm_kernel<T><<<grid, kBnThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(m),
-      static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<const T*>(b), static_cast<T*>(y), n_vec, feats, eps, act);
+  batchnorm_kernel<T, S><<<grid, kBnThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(m),
+      static_cast<const S*>(v), static_cast<const S*>(g),
+      static_cast<const S*>(b), static_cast<T*>(y), n_vec, feats, eps, act);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -207,9 +218,9 @@ extern "C" int dl4j_layernorm_norm_act(const void* x, const void* gamma,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x, y: [rows, feats] contiguous; mean, var, gamma, beta: [feats]; all of
-// `dtype`, all 16-byte aligned, feats a multiple of 16 / sizeof(dtype)
-// (checked by the Python wrapper).
+// x, y: [rows, feats] contiguous of `dtype`; mean, var, gamma, beta: [feats]
+// of `dtype`, or f32 when `dtype` is f16; all 16-byte aligned, feats a
+// multiple of 16 / sizeof(dtype) (checked by the Python wrapper).
 extern "C" int dl4j_batchnorm_norm_act(const void* x, const void* mean,
                                        const void* var, const void* gamma,
                                        const void* beta, void* y, int rows,
@@ -222,6 +233,9 @@ extern "C" int dl4j_batchnorm_norm_act(const void* x, const void* mean,
                             act, s);
   if (dtype == dl4j::kBFloat16)
     return launch_bn<__nv_bfloat16>(x, mean, var, gamma, beta, y, rows, feats,
+                                    eps, act, s);
+  if (dtype == dl4j::kFloat16)
+    return launch_bn<__half, float>(x, mean, var, gamma, beta, y, rows, feats,
                                     eps, act, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -40,6 +40,10 @@
 // -1e30, l = 0, acc = 0 for it and merges with weight exp(-1e30 - M) = 0
 // (split 0 always holds key 0, so M is a real score from the first split
 // on). A row whose visible keys lie in one split writes o directly.
+//
+// f32, bf16 and f16 pools (the f16 one a mixed_float16 LM's KV cache) are
+// instantiations of one template: the pages are read at their type and
+// widened at the load, and the softmax and the merge stay in f32.
 
 #include <cstdint>
 
@@ -71,6 +75,17 @@ __device__ __forceinline__ void load_chunk(const float* p, float (&f)[4]) {
   f[1] = v.y;
   f[2] = v.z;
   f[3] = v.w;
+}
+
+__device__ __forceinline__ void load_chunk(const __half* p, float (&f)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __half2* h2 = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __half22float2(h2[j]);
+    f[2 * j] = x.x;
+    f[2 * j + 1] = x.y;
+  }
 }
 
 __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
@@ -372,6 +387,8 @@ extern "C" int dl4j_paged_decode_attention(
   if (p.dtype == dl4j::kBFloat16)
     return launch<__nv_bfloat16>(q, k_pages, v_pages, tp, pp, o, part, cnt,
                                  p, s);
+  if (p.dtype == dl4j::kFloat16)
+    return launch<__half>(q, k_pages, v_pages, tp, pp, o, part, cnt, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -32,15 +32,16 @@ Training (the custom_vjp `_flash_attention_pallas`, flash_attention.py:271):
 
 Every flash row has two forms on the card, picked by dtype and head width
 alone (`flash_variant`) and counted by form in `kernels.variant_launches`:
-bf16 at D = 64 or 128 on the tensor cores (wgmma, the streamed tiles by
-TMA), f32 and every other D on the CUDA cores. Rows 3, 5 and 6 take f16 in
-both forms (the mixed_float16 and float16 policies; the dS tiles of the
-f16 backward are held at a power of two per row so f16's range does not
-cut them, csrc/flash_attention_bwd.cu); the streamed rows and the paged
-decode refuse f16 on the card (ROADMAP A.7). The resident rows' (3, 5,
-6) tensor-core form is the streamed rows' tile kernels over a schedule of
-one block per whole row or column of tiles (csrc/flash_attention_stream.cu
-`block_work`): one launch, no workspace.
+bf16 or f16 at D = 64 or 128 on the tensor cores (wgmma, the streamed
+tiles by TMA), f32 and every other D on the CUDA cores. Every row takes
+f16 (the mixed_float16 and float16 policies; the JAX package sends f16 to
+XLA): the dS tiles of the f16 backward, resident or streamed, are held at
+a power of two per row so f16's range does not cut them
+(csrc/flash_attention_bwd.cu, csrc/flash_attention_stream.cu), and the
+paged decode reads f16 pages with its softmax and merge in f32. The
+resident rows' (3, 5, 6) tensor-core form is the streamed rows' tile
+kernels over a schedule of one block per whole row or column of tiles
+(csrc/flash_attention_stream.cu `block_work`): one launch, no workspace.
 
 Long context (csrc/flash_attention_stream.cu). Where the K/V of one
 (batch, head) outgrow `_RESIDENT_KV_LIMIT` (`streamed`: 2·T·D·itemsize >
@@ -50,13 +51,13 @@ Long context (csrc/flash_attention_stream.cu). Where the K/V of one
 take the streamed kernels instead, here as there, by shape and dtype alone:
 - `flash_attention_stream` (row 4, `_flash_stream_kernel` :137): (o, lse),
   or o alone for the no-grad forward; its unit kernel runs on the tensor
-  cores (wgmma, K/V by TMA) for bf16 at D = 64 or 128 and on the CUDA cores
-  otherwise (`flash_variant`);
+  cores (wgmma, K/V by TMA) for bf16 or f16 at D = 64 or 128 and on the
+  CUDA cores otherwise (`flash_variant`);
 - `flash_attention_bwd_dq_stream` and `flash_attention_bwd_dkv_stream`
   (row 7, `_flash_bwd_dq_stream_kernel` :551 and
   `_flash_bwd_dkv_stream_kernel` :595), D = rowsum(do * o) a torch
   expression in f32 as at :648; their unit kernels, too, run on the
-  tensor cores for bf16 at D = 64 or 128 (`flash_variant`).
+  tensor cores for bf16 or f16 at D = 64 or 128 (`flash_variant`).
 They walk the (q tile, k tile) visit list of `pair_arrays` (a copy of
 `_pair_arrays` :113) at the port's 64-row tiles, cut into units of equal
 work (`stream_schedule`). Their plain versions walk the same list a tile
@@ -166,20 +167,10 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, drow, causal, scale):
     return (dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype))
 
 
-# The rows whose kernels take f16 (rows 3, 5 and 6); the streamed rows 4
-# and 7 and the paged decode (row 8) wait in f16 (ROADMAP A.7).
-_F16_ROWS = ("flash_attention", "flash_attention_fwd_lse",
-             "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-
-
 def _check_cuda(name, ts, dtype):
     if dtype not in DTYPE_CODES:
         raise TypeError(f"{name} takes float32, bfloat16 or float16, not "
                         f"{dtype}")
-    if dtype == torch.float16 and name not in _F16_ROWS:
-        raise TypeError(f"{name} takes float32 or bfloat16 on the card; f16 "
-                        "compute through it is not in the port yet (ROADMAP "
-                        "A.7)")
     for t in ts:
         if t.dtype != dtype:
             raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
@@ -224,8 +215,9 @@ def flash_variant(dtype, d: int) -> str:
     """Which form of its kernel a flash row launches, by dtype and head
     width alone: "wgmma" (every product on the tensor cores, the streamed
     tiles by TMA) for bf16 or f16 at D = 64 or 128, "cuda_cores" for f32
-    and every other D (f16 reaches only rows 3, 5 and 6, `_check_cuda`). One rule for the resident rows 3, 5 and 6 and the streamed
-    rows 4 and 7 (whose tile kernels the resident rows' form shares). A
+    and every other D. One rule for the resident rows 3, 5 and 6 and the
+    streamed rows 4 and 7 (whose tile kernels the resident rows' form
+    shares). A
     dispatch by shape, not a fallback: a wgmma launch that fails raises.
 
     The tensor-core form reads q, k, v (and do) by TMA, from contiguous

@@ -11,9 +11,13 @@ step mask at x's dtype or None.
   `pallas_cell` :182 and `resolve_cell` :199): the recurrent product is the
   kernel's own (accumulated in f32, as `preferred_element_type` does), the
   gates run in registers, and h, c and out are stored in the operand dtype
-  (without a mask out is h itself, as in the plain version).
-  The gates must be sigmoid and the cell activation one of identity, relu,
-  tanh, sigmoid (`_CELL_ACTS` :37); another raises (ROADMAP A.19).
+  (without a mask out is h itself, as in the plain version). It takes
+  f32, bf16 and f16, and every elementwise activation of
+  `nn/activations.py` (16 names, `ACT_CODES`) as the gate activation and
+  as the cell activation, where the TPU kernel takes sigmoid gates and
+  four cell activations (`_CELL_ACTS` :37) and sends the rest to XLA.
+  Softmax, which reduces across the hidden units the kernel spreads over
+  its blocks, raises (ROADMAP A.19).
 - A CPU tensor calls `lstm_cell_plain`, `xla_cell` (:86) transcribed op for
   op, with `_lstm_scan`'s split of pW (recurrent.py:48). In bf16 it rounds
   z = xw_t + h_prev @ RW to bf16, as XLA does, where the kernel keeps z in
@@ -37,9 +41,14 @@ from deeplearning4j_tpu_torch import kernels
 from deeplearning4j_tpu_torch.kernels import _build, _diff
 from deeplearning4j_tpu_torch.nn import activations
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-GATE_ACTS = ("sigmoid",)
-CELL_ACT_CODES = {"identity": 0, "relu": 1, "tanh": 2, "sigmoid": 3}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
+# The kernel's activation codes (csrc/lstm_cell.cu `cell_act`): every
+# elementwise name of nn/activations.py, as a gate and as the cell
+# activation.
+ACT_CODES = {name: i for i, name in enumerate((
+    "identity", "relu", "tanh", "sigmoid", "leakyrelu", "elu", "cube",
+    "softplus", "softsign", "rationaltanh", "rectifiedtanh", "hardsigmoid",
+    "hardtanh", "selu", "gelu", "swish"))}
 
 
 def _cell_ops(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation,
@@ -147,7 +156,7 @@ class _CellParams(ctypes.Structure):
     """The kernel's scalars (csrc/lstm_cell.cu `CellParams`), built once
     per shape and handed over by address."""
     _fields_ = [("xw_stride", ctypes.c_longlong)] + [
-        (name, ctypes.c_int) for name in ("b", "n", "act", "dtype")]
+        (name, ctypes.c_int) for name in ("b", "n", "act", "gate", "dtype")]
 
 
 # (shapes, dtypes, xw_t's row stride, activations, device index) of a call
@@ -204,30 +213,31 @@ def _cell_run(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation,
 def _setup(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation, activation):
     """The checks that depend on shapes, dtypes and activations alone
     (raising as the kernel cannot take them), then the launch's scalars."""
-    act = _act_code(gate_activation, activation)
+    gate = _act_code(gate_activation, "gate")
+    act = _act_code(activation, "cell")
     dt = xw_t.dtype
     code = DTYPE_CODES.get(dt)
     if code is None:
-        raise TypeError(f"lstm_cell takes float32 or bfloat16 on the card, "
-                        f"not {dt} (f16 compute through row 10 is not in "
-                        f"the port yet: ROADMAP A.7)")
+        raise TypeError(f"lstm_cell takes float32, bfloat16 or float16 on "
+                        f"the card, not {dt}")
     b, n = h_prev.shape
     _refuse(xw_t, h_prev, c_prev, RW, pW, m_t, layout=False)
-    params = _CellParams(xw_t.stride(0), b, n, act, code)
+    params = _CellParams(xw_t.stride(0), b, n, act, gate, code)
     return params, ctypes.addressof(params)
 
 
-def _act_code(gate_activation, activation):
-    """The cell activation's code for the kernel; raises for gates other
-    than sigmoid or a cell activation the kernel lacks."""
-    gate = str(gate_activation or "identity").lower()
-    act = str(activation or "identity").lower()
-    if gate not in GATE_ACTS or act not in CELL_ACT_CODES:
+def _act_code(activation, role):
+    """The kernel's code for a gate or cell activation (None = identity);
+    softmax, which is not elementwise, raises."""
+    name = str(activation or "identity").lower()
+    if name not in ACT_CODES:
+        activations.resolve(name)  # an unknown name raises ValueError
         raise NotImplementedError(
-            f"lstm_cell: the CUDA kernel takes sigmoid gates and a cell "
-            f"activation in {sorted(CELL_ACT_CODES)}; got gate "
-            f"{gate_activation!r}, cell {activation!r} (ROADMAP A.19)")
-    return CELL_ACT_CODES[act]
+            f"lstm_cell: the CUDA kernel takes the elementwise activations "
+            f"{sorted(ACT_CODES)} as {role} activation, not "
+            f"{activation!r}: it reduces across the hidden units "
+            f"(ROADMAP A.19)")
+    return ACT_CODES[name]
 
 
 def _refuse(xw_t, h_prev, c_prev, RW, pW, m_t, layout=True):

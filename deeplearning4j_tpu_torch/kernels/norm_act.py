@@ -21,7 +21,9 @@ JAX package pairs its Pallas forward with the reference VJP
 given statistics, affine, activation. For a CUDA tensor it launches the
 kernel of `csrc/norm_act.cu` that replaces `_bn_kernel` (norm_act.py:96),
 with mean, var, gamma and beta cast to x's dtype as the Pallas path's
-`_vec` makes them (norm_act.py:126-129, :158-160); for a CPU tensor it
+`_vec` makes them (norm_act.py:126-129, :158-160), or, for an f16 x (which
+the JAX package sends to XLA, :38-44), kept in f32: an f16 BatchNorm rounds
+only y; for a CPU tensor it
 calls `batchnorm_plain`, `batchnorm_xla` (norm_act.py:75-80) op for op,
 where torch promotes as JAX does (a bf16 x with f32 running stats computes
 in f32). With autograd recording it runs through `BatchNormFn`, whose
@@ -112,10 +114,10 @@ class BatchNormFn(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def _vec(v, feats, like):
-    """mean/var/gamma/beta as a contiguous [feats] vector at x's dtype
+def _vec(v, feats, like, dtype):
+    """mean/var/gamma/beta as a contiguous [feats] vector at `dtype`
     (`_vec`, norm_act.py:126): floats are broadcast."""
-    return torch.as_tensor(v, device=like.device).to(like.dtype).broadcast_to(
+    return torch.as_tensor(v, device=like.device).to(dtype).broadcast_to(
         (feats,)).contiguous()
 
 
@@ -126,17 +128,17 @@ def _batchnorm_forward(x, mean, var, gamma, beta, eps, activation):
                       *_tensors(x, mean, var, gamma, beta))
     feats = x.shape[-1]
     act = _act_code(activation)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"batchnorm_norm_act takes float32 or bfloat16 on "
-                        f"the card, not {x.dtype} (f16 compute through row 2 "
-                        f"is not in the port yet: ROADMAP A.7)")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"batchnorm_norm_act takes float32, bfloat16 or "
+                        f"float16 on the card, not {x.dtype}")
     vec = 16 // x.element_size()
     if feats % vec:
         raise ValueError(f"the kernel takes a channel count that is a "
                          f"multiple of {vec}; got {feats}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous and 16-byte aligned")
-    m, v, g, b = (_vec(a, feats, x) for a in (mean, var, gamma, beta))
+    sdt = torch.float32 if x.dtype == torch.float16 else x.dtype
+    m, v, g, b = (_vec(a, feats, x, sdt) for a in (mean, var, gamma, beta))
     y = torch.empty_like(x)
     rows = x.numel() // feats
     with torch.cuda.device(x.device):

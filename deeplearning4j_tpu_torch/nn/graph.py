@@ -45,8 +45,21 @@ engines' shared machinery (`engine.py`).
   compute dtype (`params.prep_layer_params`), and `output` returns the
   output dtype.
 
+- Truncated BPTT (`backprop_type="truncatedbptt"`, reference
+  `_fit_tbptt`, graph.py:976-1067): a batch whose longest 3-D feature
+  outruns `tbptt_fwd_length` trains one step per chunk of that many time
+  steps. A 3-D `[b, t, f]` array is a sequence; a 2-D `[b, t]` one only
+  if it is a mask or integer class ids (a static 2-D float input passes
+  through whole). Each output's divisor comes from its full-sequence
+  labels and mask, the recurrent h and c carry across chunks detached and
+  are dropped after the last one, declared state (running statistics) is
+  kept, the train key splits once a chunk, and the iteration and the
+  listeners advance once a sequence. Under loss scaling each chunk is its
+  own step with its own skip decision. A graph whose attention keeps a
+  decode cache refuses it (ValueError), as the reference does.
+
 What `fit` does not run yet raises NotImplementedError naming its ROADMAP
-item: solvers, truncated BPTT, superstep, frozen layers.
+item: solvers, superstep, frozen layers.
 """
 
 from __future__ import annotations
@@ -92,6 +105,14 @@ def _as_mds(data, labels=None) -> MultiDataSet:
     if isinstance(data, DataSet):
         return MultiDataSet.from_dataset(data)
     return MultiDataSet(features=[data], labels=[labels])
+
+
+def _is_int(a) -> bool:
+    """Integer class ids (numpy or torch; bool is no integer here)."""
+    if isinstance(a, torch.Tensor):
+        return not (a.is_floating_point() or a.is_complex()
+                    or a.dtype == torch.bool)
+    return np.issubdtype(np.asarray(a).dtype, np.integer)
 
 
 def _as_mask_list(masks):
@@ -237,14 +258,15 @@ class ComputationGraph(NetworkEngine):
     # ------------------------------------------------------------------ loss
 
     def _loss_from_outputs(self, params, outs, labels, lmasks, omasks,
-                           aux):
+                           aux, ebs=None):
         """Score of the raw outputs (reference `_loss_from_outputs`): each
         output layer's loss in the loss dtype, summed over entries and
         divided by the minibatch (a center-loss output's center term over
         the same divisor), the MoE vertices' `aux_loss` undivided, plus
         the l1/l2 penalty over the first divisor; and the state the step
         moves (the centers). A sequence output with no labels mask takes
-        its features mask as the loss mask."""
+        its features mask as the loss mask. `ebs` overrides the divisors
+        (a truncated-BPTT chunk divides by its whole sequence's rows)."""
         total, extra = 0.0, {}
         for i, name in enumerate(self.conf.network_outputs):
             v = self.layer_vertices.get(name)
@@ -255,7 +277,8 @@ class ComputationGraph(NetworkEngine):
             lmask = lmasks[i] if lmasks is not None else None
             if lmask is None and omasks[i] is not None and outs[i].dim() == 3:
                 lmask = omasks[i]
-            eb = losses_mod.effective_batch_size(labels[i], lmask)
+            eb = (ebs[i] if ebs is not None
+                  else losses_mod.effective_batch_size(labels[i], lmask))
             if i == 0:
                 eb0 = eb
             total = total + losses_mod.score(
@@ -309,11 +332,6 @@ class ComputationGraph(NetworkEngine):
 
     # ------------------------------------------------------------------- fit
 
-    def _check_trainable(self) -> None:
-        super()._check_trainable(
-            (str(self.conf.backprop_type).lower() == "truncatedbptt",
-             "truncated BPTT on ComputationGraph", 18))
-
     def fit(self, data, labels=None) -> "ComputationGraph":
         """Train on a DataSet, a MultiDataSet or an iterable of those, or
         on `features, labels` arrays (reference `ComputationGraph.fit`)."""
@@ -328,26 +346,35 @@ class ComputationGraph(NetworkEngine):
         for listener in self.listeners:
             listener.on_epoch_start(self)
         tdt = self.dtype_policy.transfer_dtype
+        tbptt = str(self.conf.backprop_type).lower() == "truncatedbptt"
         for item in items:
             mds = transfer_cast(_as_mds(item), tdt)
             for _ in range(max(1, int(self.conf.global_conf.iterations))):
-                self._fit_one(mds)
+                if tbptt and any(
+                        f.ndim == 3 and f.shape[1] > self.conf.tbptt_fwd_length
+                        for f in mds.features):
+                    self._fit_tbptt(mds)
+                else:
+                    self._fit_one(mds)
+                    self._iteration_done()
         self.epoch += 1
         for listener in self.listeners:
             listener.on_epoch_end(self)
         return self
 
-    def _fit_one(self, mds: MultiDataSet) -> None:
+    def _fit_one(self, mds: MultiDataSet, carry_rnn: bool = False,
+                 ebs=None) -> None:
         """One step in three parts (each a method, so a profiler can wrap
-        them on the instance): forward + loss, backward, update."""
-        loss, new_state = self._train_forward(mds)
+        them on the instance): forward + loss, backward, update. With
+        `carry_rnn` (a truncated-BPTT chunk) the recurrent h and c are kept
+        as state, detached: a chunk's gradient ends at its edge."""
+        loss, new_state = self._train_forward(mds, carry_rnn, ebs)
         grads, finite = self._train_backward(loss)
         self._train_update(grads, finite)
-        self._keep_state(new_state, finite)
+        self._keep_state(new_state, finite, detach=carry_rnn)
         self._score = loss.detach()
-        self._iteration_done()
 
-    def _train_forward(self, mds):
+    def _train_forward(self, mds, carry_rnn=False, ebs=None):
         """The loss, recorded by autograd from the stored leaves through
         their compute-dtype cast, and the new layer state (BatchNorm running
         statistics, moved on detached batch statistics)."""
@@ -355,15 +382,66 @@ class ComputationGraph(NetworkEngine):
             params = self._prep(self.params_tree)
             aux = {}
             outs, new_state, omasks = self._forward(
-                params, self.state, mds.features, keep_rnn_state=False,
+                params, self.state, mds.features, keep_rnn_state=carry_rnn,
                 train=True, fmasks=_as_mask_list(mds.features_masks),
                 key=self._next_rng(), aux=aux)
             loss, extra = self._loss_from_outputs(
                 self.params_tree, outs, self._device_arrays(mds.labels),
-                self._device_arrays(mds.labels_masks), omasks, aux)
+                self._device_arrays(mds.labels_masks), omasks, aux, ebs)
         for name, s in extra.items():
             new_state.setdefault(name, {}).update(s)
         return loss, new_state
+
+    def _fit_tbptt(self, mds: MultiDataSet) -> None:
+        """Truncated BPTT over one batch of sequences (see the module
+        docstring; reference `_fit_tbptt`, graph.py:976)."""
+        rnn_mod.refuse_tbptt_with_cache(
+            v.layer for v in self.layer_vertices.values())
+        fwd = int(self.conf.tbptt_fwd_length)
+        t = max(f.shape[1] for f in mds.features if f.ndim == 3)
+        for lab in mds.labels:
+            if lab.ndim != 3 and not (lab.ndim == 2 and _is_int(lab)):
+                raise ValueError(
+                    "Truncated BPTT requires per-timestep labels: [b, t, c] "
+                    "one-hot or [b, t] integer class ids")
+        # Each output's divisor from its FULL-sequence labels and mask: a
+        # row masked out of one chunk still counts.
+        labels = self._device_arrays(mds.labels)
+        lmasks = self._device_arrays(mds.labels_masks)
+        ebs = [losses_mod.effective_batch_size(
+            lab, None if lmasks is None else lmasks[i])
+            for i, lab in enumerate(labels)]
+
+        def time_slice(a, sl, is_mask=False):
+            if a is None:
+                return None
+            if a.ndim == 3 and a.shape[1] == t:
+                return a[:, sl]
+            if a.ndim == 2 and a.shape[1] == t and (is_mask or _is_int(a)):
+                return a[:, sl]
+            return a
+
+        def sliced(arrays, sl, is_mask=False):
+            return None if arrays is None else [
+                time_slice(a, sl, is_mask) for a in arrays]
+
+        saved_state = dict(self.state)  # the chunks add h and c
+        for start in range(0, t, fwd):
+            sl = slice(start, min(start + fwd, t))
+            self._fit_one(MultiDataSet(
+                features=sliced(mds.features, sl),
+                labels=sliced(mds.labels, sl),
+                features_masks=sliced(mds.features_masks, sl, True),
+                labels_masks=sliced(mds.labels_masks, sl, True)),
+                carry_rnn=True, ebs=ebs)
+        # Drop the carried h and c; keep declared state (running stats).
+        declared = self._declared_state()
+        kept = {n: {k: v for k, v in s.items() if k in declared.get(n, ())}
+                for n, s in self.state.items()}
+        self.state = {n: s for n, s in kept.items() if s}
+        for n, s in saved_state.items():
+            self.state.setdefault(n, s)
+        self._iteration_done()
 
     # ------------------------------------------------------------- params io
 

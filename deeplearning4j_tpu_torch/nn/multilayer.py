@@ -317,12 +317,7 @@ class MultiLayerNetwork(NetworkEngine):
     def _fit_tbptt(self, ds: DataSet) -> None:
         """Truncated BPTT over one batch of sequences (see the module
         docstring; reference `_fit_tbptt`, :1096)."""
-        if rnn_mod.decode_capacity(self.layers) is not None:
-            raise ValueError(
-                "truncated BPTT carries undeclared layer state across "
-                "chunks, which would thread attention KV caches into "
-                "training; unset decode_cache_length (it is an inference "
-                "feature) or use standard backprop")
+        rnn_mod.refuse_tbptt_with_cache(self.layers)
         x, y, fmask, lmask = self._batch(ds)
         if y is None or not (y.dim() == 3 or (
                 y.dim() == 2 and not y.is_floating_point())):

@@ -34,6 +34,18 @@ def decode_capacity(layers) -> Optional[int]:
     return min(caps) if caps else None
 
 
+def refuse_tbptt_with_cache(layers) -> None:
+    """Truncated BPTT carries undeclared layer state across chunks; with an
+    attention KV cache that state would thread into training, so both
+    engines refuse it, as the reference's do."""
+    if decode_capacity(layers) is not None:
+        raise ValueError(
+            "truncated BPTT carries undeclared layer state across "
+            "chunks, which would thread attention KV caches into "
+            "training; unset decode_cache_length (it is an inference "
+            "feature) or use standard backprop")
+
+
 def check_decode_budget(pos: int, t: int, capacity: Optional[int]) -> int:
     """Refuse a stateful step past the cache capacity; returns the new
     position."""

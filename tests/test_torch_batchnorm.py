@@ -234,3 +234,28 @@ def test_kernel_wrapper_passes_the_c_entry_its_signature(monkeypatch):
         norm_act._batchnorm_forward(torch.zeros(4, 12, dtype=torch.bfloat16),
                                     torch.zeros(12), torch.ones(12), 1.0, 0.0,
                                     1e-5, "relu")
+
+
+def test_kernel_wrapper_keeps_f16_statistics_in_f32(monkeypatch):
+    # f16 x: the wrapper hands the C entry f16's code and the four vectors
+    # in f32 (never rounded to f16), whatever dtype they came in.
+    from deeplearning4j_tpu_torch.kernels import _build
+
+    calls, vecs = [], []
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, *args: calls.append(args))
+    monkeypatch.setattr(kernels, "placement", lambda *ts: "cuda")
+    monkeypatch.setattr(torch.cuda, "device", lambda d: torch.no_grad())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 0})())
+    real_vec = norm_act._vec
+    monkeypatch.setattr(norm_act, "_vec", lambda *a: vecs.append(
+        real_vec(*a)) or vecs[-1])
+    x = torch.zeros(2, 3, 3, 16, dtype=torch.float16)
+    mean = torch.full((16,), 1.0 / 3.0)  # no f16 value
+    norm_act._batchnorm_forward(x, mean, torch.ones(16, dtype=torch.float16),
+                                1.0, 0.0, 1e-5, "relu")
+    (args,) = calls
+    assert args[10] == norm_act.DTYPE_CODES[torch.float16] == 3
+    assert [v.dtype for v in vecs] == [torch.float32] * 4
+    assert torch.equal(vecs[0], mean)

@@ -53,6 +53,8 @@ def test_every_resnet50_block_takes_the_tensor_cores_in_bf16(image):
     for _, cin, f1, _, _ in shapes:
         assert bb.bottleneck_variant(torch.bfloat16, torch.bfloat16, cin, f1,
                                      4 * f1) == "wgmma"
+        assert bb.bottleneck_variant(torch.float16, torch.float16, cin, f1,
+                                     4 * f1) == "wgmma"
         assert bb.bottleneck_variant(torch.float32, torch.float32, cin, f1,
                                      4 * f1) == "cuda_cores"
         assert bb.bottleneck_variant(torch.bfloat16, torch.int8, cin, f1,
@@ -68,6 +70,11 @@ def test_every_resnet50_block_takes_the_tensor_cores_in_bf16(image):
     (torch.bfloat16, torch.bfloat16, 96, 64, 256),
     (torch.bfloat16, torch.bfloat16, 256, 32, 128),
     (torch.bfloat16, torch.bfloat16, 64, 64, 96),
+    (torch.float16, torch.int8, 256, 64, 256),     # int8 served under f16
+    (torch.float16, torch.float32, 256, 64, 256),
+    (torch.float16, torch.bfloat16, 256, 64, 256),
+    (torch.bfloat16, torch.float16, 256, 64, 256),
+    (torch.float16, torch.float16, 256, 32, 128),
 ])
 def test_other_dtypes_and_widths_keep_the_cuda_cores(x_dtype, w_dtype, cin,
                                                      f1, f3):
@@ -114,6 +121,7 @@ def recorded(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
+                                           (torch.float16, "wgmma"),
                                            (torch.float32, "cuda_cores")])
 @pytest.mark.parametrize("train,project", [(True, True), (False, False)])
 def test_each_conv_is_handed_the_form_of_the_rule(recorded, dtype, variant,

@@ -240,14 +240,24 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fa.flash_attention(q, q, q)
     with pytest.raises(TypeError):
         fa.flash_attention(q.double(), q.double(), q.double())
-    # f16 reaches rows 1, 3, 5, 6 and 9; the other kernels refuse it,
-    # naming the ROADMAP item that waits.
-    xh = torch.zeros(2, 8, 8, 16, device=cuda, dtype=torch.float16)
-    with pytest.raises(TypeError, match="A.7"):
-        norm_act.batchnorm_norm_act(xh, 0.0, 1.0, 1.0, 0.0, 1e-5, "relu")
-    qh = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
-    with pytest.raises(TypeError, match="A.7"):
-        fa.flash_attention_stream(qh, qh, qh)
+    # f16 reaches every kernel now: rows 2 and 4 take it as their plain
+    # versions do (the rest: the f16 section at the end of this file).
+    rng = np.random.RandomState(2)
+    xh = _t(rng.randn(2, 8, 8, 16), torch.float16, cuda)
+    m, v = (_t(a, torch.float32, cuda) for a in (rng.randn(16) * 0.1,
+                                                 rng.rand(16) + 0.5))
+    got = norm_act.batchnorm_norm_act(xh, m, v, 1.0, 0.0, 1e-5, "relu")
+    assert got.dtype == torch.float16
+    _close(got, norm_act.batchnorm_plain(xh.float(), m, v, 1.0, 0.0, 1e-5,
+                                         "relu"), torch.float16,
+           {torch.float16: 1e-2})
+    qh = _t(rng.randn(1, 64, 2, 64), torch.float16, cuda)
+    o, _ = fa.flash_attention_stream(qh, qh, qh)
+    _close(o, fa.flash_stream_fwd_plain(qh, qh, qh, True, 0.125)[0],
+           torch.float16, {torch.float16: 1e-2})
+    with pytest.raises(TypeError):
+        norm_act.batchnorm_norm_act(xh.double(), m, v, 1.0, 0.0, 1e-5,
+                                    "relu")
 
 
 TRAIN_SHAPES = [
@@ -1081,10 +1091,19 @@ def test_lstm_cell_wrapper_refuses(cuda):
 
     xw, h, c, rw, pw, m = _cell_inputs(np.random.RandomState(11), 2, 8, True,
                                        False, torch.float32, cuda)
+    # Hard-sigmoid gates and a softsign cell launch now, each held to its
+    # plain version; softmax (not elementwise) is still refused.
+    for gate, act in (("hardsigmoid", "tanh"), ("sigmoid", "softsign")):
+        before = kernels.launches["lstm_cell"].value
+        got = lc.lstm_cell(xw, h, c, rw, pw, m, gate, act)
+        assert kernels.launches["lstm_cell"].value == before + 1
+        for g, w in zip(got, lc.lstm_cell_plain(xw, h, c, rw, pw, m, gate,
+                                                act)):
+            _close(g, w, torch.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP A.19"):
-        lc.lstm_cell(xw, h, c, rw, pw, m, "hardsigmoid", "tanh")
+        lc.lstm_cell(xw, h, c, rw, pw, m, "softmax", "tanh")
     with pytest.raises(NotImplementedError, match="ROADMAP A.19"):
-        lc.lstm_cell(xw, h, c, rw, pw, m, "sigmoid", "softsign")
+        lc.lstm_cell(xw, h, c, rw, pw, m, "sigmoid", "softmax")
     with pytest.raises(ValueError, match="RW"):
         lc.lstm_cell(xw, h, c, rw[:, :8], pw, m)
     with pytest.raises(RuntimeError, match="no gradient"):
@@ -2289,3 +2308,231 @@ def test_quantized_bottleneck_graph_on_the_card_matches_the_cpu(cuda,
                                                       "cuda_cores": 16}
     assert counts["plain_calls"]["bottleneck_infer"] == 0
     np.testing.assert_allclose(got, cpu.output(x)[0], atol=4e-2)
+
+
+# ------------------- f16 through rows 2, 4, 7, 8, 10, 11, 12; row 10's acts
+#
+# Each f16 form against its plain version run in f32 on the same inputs
+# (f16 values are exact in f32), rtol = atol = 1e-2 elementwise, as rows 1,
+# 3, 5 and 6 in f16; the streamed rows row by row too (1e-2), as in bf16.
+
+F16_TOL = {torch.float16: 1e-2, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("rows,chans", [(32 * 32 * 32, 64), (2 * 7 * 7, 256),
+                                        (3, 8)])
+@pytest.mark.parametrize("stats", ["f16_batch", "f32_running"])
+def test_batchnorm_kernel_in_f16_matches_plain(cuda, rows, chans, stats):
+    # In training the layer hands the kernel f16 batch statistics and f16
+    # gamma and beta, in inference f32 running statistics: the kernel reads
+    # every vector in f32 either way (8 channels a 16-byte x vector).
+    rng = np.random.RandomState(20)
+    sdt = torch.float16 if stats == "f16_batch" else torch.float32
+    x = _t(rng.randn(rows, chans) * 2 + 0.5, torch.float16, cuda)
+    m, g, b = (_t(rng.randn(chans), sdt, cuda) for _ in range(3))
+    v = _t(rng.rand(chans) + 0.2, sdt, cuda)
+    before = kernels.launches["batchnorm_norm_act"].value
+    got = norm_act.batchnorm_norm_act(x, m, v, g, b, 1e-5, "relu")
+    assert kernels.launches["batchnorm_norm_act"].value == before + 1
+    assert got.dtype == torch.float16
+    want = norm_act.batchnorm_plain(x.float(), m.float(), v.float(),
+                                    g.float(), b.float(), 1e-5, "relu")
+    _close(got, want, torch.float16, F16_TOL)
+
+
+@pytest.mark.parametrize("shape,causal,unit_tiles,pairs", STREAM_CASES)
+def test_stream_kernels_in_f16_match_plain(cuda, monkeypatch, shape, causal,
+                                           unit_tiles, pairs):
+    monkeypatch.setattr(fa, "_UNIT_TILES", unit_tiles)
+    dt = torch.float16
+    q, k, v, do = _stream_case(np.random.RandomState(21), shape, dt, cuda)
+    scale = shape[-1] ** -0.5
+    kernels.reset_counts()
+    o, lse = fa.flash_attention_stream(q, k, v, causal, pairs=pairs)
+    drow = fa._drow(o, do)
+    dq = fa.flash_attention_bwd_dq_stream(q, k, v, do, lse, drow, causal,
+                                          scale, pairs=pairs)
+    dk, dv = fa.flash_attention_bwd_dkv_stream(q, k, v, do, lse, drow,
+                                               causal, scale, pairs=pairs)
+    form = fa.flash_variant(dt, shape[-1])
+    counts = kernels.counts()
+    for name in STREAM_NAMES:
+        assert counts["launches"][name] == 1
+        assert counts["variants"][name][form] == 1
+    assert not any(counts["plain_calls"].values())
+    f32 = [a.float() for a in (q, k, v, do)]
+    want_o, want_lse = fa.flash_stream_fwd_plain(*f32[:3], causal, scale)
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == dt
+    _close(o, want_o, dt, F16_TOL)
+    _close_rows(o, want_o, dt, F16_TOL)
+    _close(lse, want_lse, torch.float32, F16_TOL)
+    want_dq = fa.flash_stream_bwd_dq_plain(*f32, lse, drow, causal, scale)
+    want_dk, want_dv = fa.flash_stream_bwd_dkv_plain(*f32, lse, drow, causal,
+                                                     scale)
+    rows = slice(1 if causal else 0, None)
+    for got, want in ((dq[:, rows], want_dq[:, rows]), (dk, want_dk),
+                      (dv, want_dv)):
+        _close_rows(got, want, dt, F16_TOL, ROW_FLOOR)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        _close(got, want, dt, F16_TOL)
+
+
+@pytest.mark.parametrize("unit_tiles", [64, 8])
+def test_f16_stream_backward_keeps_a_scaled_ds_in_range(cuda, monkeypatch,
+                                                        unit_tiles):
+    # A loss-scaled dO (2^13) over the list schedule, in units of the
+    # slice's 64 tiles and of 8 (partials summed): each dS row held at a
+    # power of two, taken out before the f32 workspace.
+    monkeypatch.setattr(fa, "_UNIT_TILES", unit_tiles)
+    rng = np.random.RandomState(22)
+    shape = (1, 4096, 2, 64)
+    q, k, v = (_t(rng.randn(*shape), torch.float16, cuda) for _ in range(3))
+    do = _t(rng.randn(*shape) * 2.0 ** 13, torch.float16, cuda)
+    scale = 0.125
+    o, lse = fa.flash_attention_stream(q, k, v, True)
+    drow = fa._drow(o, do)
+    dq = fa.flash_attention_bwd_dq_stream(q, k, v, do, lse, drow, True,
+                                          scale)
+    dk, dv = fa.flash_attention_bwd_dkv_stream(q, k, v, do, lse, drow, True,
+                                               scale)
+    f32 = [a.float() for a in (q, k, v, do)]
+    wdq = fa.flash_stream_bwd_dq_plain(*f32, lse, drow, True, scale)
+    wdk, wdv = fa.flash_stream_bwd_dkv_plain(*f32, lse, drow, True, scale)
+    for got, w in ((dq, wdq), (dk, wdk), (dv, wdv)):
+        assert bool(torch.isfinite(got).all())
+        assert float(w.abs().max()) < 65504
+    for got, w in ((dq[:, 1:], wdq[:, 1:]), (dk, wdk), (dv, wdv)):
+        _close_rows(got, w, torch.float16, F16_TOL, ROW_FLOOR)
+
+
+@pytest.mark.parametrize("pos", [[0, 0, 0, 0], [65, 1, 64, 63],
+                                 [1023, 40, 0, 700], [1023] * 4])
+def test_paged_decode_in_f16_matches_plain(cuda, pos):
+    args = _paged_case(np.random.RandomState(sum(pos) + 1), torch.float16,
+                       cuda, pos)
+    for causal in (True, False):
+        before = kernels.launches["paged_decode_attention"].value
+        got = fa.paged_decode_attention(*args, causal)
+        assert kernels.launches["paged_decode_attention"].value == before + 1
+        assert got.dtype == torch.float16
+        want = fa.paged_gather_dense(args[0].float(), args[1].float(),
+                                     args[2].float(), *args[3:], causal)
+        _close(got, want, torch.float16, F16_TOL)
+
+
+@pytest.mark.parametrize("d", [8, 64, 128])
+@pytest.mark.parametrize("t", [1, 4, 8])
+def test_paged_decode_in_f16_query_widths_and_head_dims(cuda, d, t):
+    args = _paged_case(np.random.RandomState(10 * t + d + 1), torch.float16,
+                       cuda, [122, 17, 0], b=3, h=2, d=d, page=16, n_pages=8,
+                       t=t, free=(2,))
+    for causal in (True, False):
+        got = fa.paged_decode_attention(*args, causal)
+        want = fa.paged_gather_dense(args[0].float(), args[1].float(),
+                                     args[2].float(), *args[3:], causal)
+        _close(got, want, torch.float16, F16_TOL)
+
+
+LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-2, torch.float16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("role", ["gate", "cell"])
+@pytest.mark.parametrize("name", [
+    "identity", "relu", "tanh", "sigmoid", "leakyrelu", "elu", "cube",
+    "softplus", "softsign", "rationaltanh", "rectifiedtanh", "hardsigmoid",
+    "hardtanh", "selu", "gelu", "swish"])
+def test_lstm_cell_kernel_every_elementwise_activation(cuda, name, role,
+                                                       dtype):
+    # Each of the 16 names as the gate activation (cell tanh) and as the
+    # cell activation (sigmoid gates), peepholes and a mask, against the
+    # plain version in f32 on the same inputs.
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    # The f32 result is rounded to the working dtype first: under cube
+    # gates |h| passes f16's 65,504 on these inputs, and reads inf in both.
+    gate, act = (name, "tanh") if role == "gate" else ("sigmoid", name)
+    args = _cell_inputs(np.random.RandomState(23), 5, 40, True, True, dtype,
+                        cuda)
+    before = kernels.launches["lstm_cell"].value
+    got = lc.lstm_cell(*args, gate, act)
+    assert kernels.launches["lstm_cell"].value == before + 1
+    want = lc.lstm_cell_plain(*_f32(args), gate, act)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        w = w.to(dtype)
+        big = torch.isinf(w)
+        assert torch.equal(torch.isinf(g), big)
+        assert torch.equal(g[big], w[big])
+        _close(g[~big], w[~big], dtype, LSTM_TOL)
+
+
+@pytest.mark.parametrize("peephole,masked", [(True, False), (False, True)])
+@pytest.mark.parametrize("b,n", [(32, 256), (1, 256), (32, 200), (3, 7)])
+def test_lstm_cell_kernel_in_f16_matches_plain(cuda, peephole, masked, b, n):
+    # R1's training and sampling shapes and the odd widths, in f16: z in
+    # f32, h, c and out stored in f16.
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    args = _cell_inputs(np.random.RandomState(b + n + 1), b, n, peephole,
+                        masked, torch.float16, cuda)
+    got = lc.lstm_cell(*args, "sigmoid", "tanh")
+    want = lc.lstm_cell_plain(*_f32(args), "sigmoid", "tanh")
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16 and g.shape == (b, n)
+        _close(g, w, torch.float16, LSTM_TOL)
+
+
+def _f16_block(x, params, state, stride, project, train, form):
+    """The block with f16 x on the form `form` (counted), and its plain
+    version run in f32 on the same inputs (int8 weights dequantized)."""
+    name = "bottleneck_train" if train else "bottleneck_infer"
+    kernels.reset_counts()
+    y, stats = bb.bottleneck_forward(x, params, state, stride=stride,
+                                     project=project, eps=1e-5,
+                                     activation="relu", train=train)
+    counts = kernels.counts()
+    assert counts["launches"][name] == 1
+    assert counts["variants"][name] == {k: int(k == form)
+                                        for k in ("wgmma", "cuda_cores")}
+    assert not any(counts["plain_calls"].values())
+    deq = {k: (bb._dequant(a, params[k + "__scale"], torch.float32)
+               if a.dtype == torch.int8 else a.float())
+           for k, a in params.items() if not k.endswith("__scale")}
+    want_y, want_stats = _plain_block(x.float(), deq, state, stride, project,
+                                      train)
+    assert y.dtype == torch.float16 and y.shape == want_y.shape
+    _close(y, want_y, torch.float16, F16_TOL)
+    if train:
+        for k in stats:
+            assert stats[k].dtype == torch.float32
+            _close(stats[k], want_stats[k], torch.float16, F16_TOL)
+
+
+@pytest.mark.parametrize("image,train", [(224, False), (64, True)])
+@pytest.mark.parametrize("index", range(8))
+def test_bottleneck_wgmma_in_f16_at_every_resnet50_shape(cuda, image, train,
+                                                         index):
+    # I1's 8 block shapes (inference at 224) and T2's (training at 64), B=2,
+    # f16 x and f16 weights: the f16 tensor-core form.
+    h, cin, f1, s, project = _resnet50_block_shapes(image)[index]
+    x, params, state = _block(np.random.RandomState(60 + index), 2, h, cin,
+                              f1, project, torch.float16, cuda)
+    _f16_block(x, params, state, (s, s), project, train, "wgmma")
+
+
+@pytest.mark.parametrize("case", ["int8", "f32_weights", "narrow"])
+def test_bottleneck_cuda_cores_in_f16(cuda, case):
+    # f16 x on the CUDA-core form: int8 weights (an int8 checkpoint served
+    # under mixed_float16), f32 weights, and f16 at widths no multiple of
+    # 64.
+    cin, f1 = (64, 16) if case == "narrow" else (256, 64)
+    x, params, state = _block(np.random.RandomState(61), 2, 8, cin, f1, True,
+                              torch.float16, cuda, int8=case == "int8")
+    if case == "f32_weights":
+        params = {k: a.float() if k.startswith("W_") else a
+                  for k, a in params.items()}
+    for train in ([False] if case == "int8" else [True, False]):
+        _f16_block(x, params, state, (2, 2), True, train, "cuda_cores")
+

@@ -8,6 +8,9 @@ on the CPU, and the activations the recurrent confs name.
   cell activation. Tolerances rtol = atol: f32 1e-5 (the same ops; the
   matmul sums in another order); bf16 4e-2, as the JAX package's own
   parity matrix (the Pallas cell keeps z in f32 where XLA rounds it).
+- Every elementwise activation (16 names) as gate and as cell activation,
+  f32, bf16 and f16, against `xla_cell` (`ROUNDOFF`: f32 2e-4, bf16 and
+  f16 8 units of their roundoff).
 - `LSTMCellFn`'s gradients (the plain forward and the VJP of the plain ops)
   against `jax.vjp` of `xla_cell`, f32, rtol = atol = 1e-5.
 - The wrapper takes the plain version only for CPU tensors; for CUDA
@@ -97,6 +100,40 @@ def test_plain_cell_activations_match_xla_cell(act, gate):
         *_jax_args(d, "float32"))
     got = lc.lstm_cell(*_port_args(d, "float32"), gate, act)
     _check(got, want, "float32")
+
+
+# The cell's ops between the shared inputs and an output (the product's
+# rounding, the peephole adds, three gates, two products, the sum, the
+# activation, the mask blend) each round to bf16 or f16 in the port, while
+# XLA keeps f32 inside a fused chain: up to a few units of roundoff u apart
+# (measured: 4u for cube in bf16). 8u a value, relative to |value| + 1.
+ROUNDOFF = {"float32": dict(rtol=2e-4, atol=2e-4),
+            "bfloat16": dict(rtol=8 * 2.0 ** -8, atol=8 * 2.0 ** -8),
+            "float16": dict(rtol=8 * 2.0 ** -11, atol=8 * 2.0 ** -11)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("role", ["gate", "cell"])
+@pytest.mark.parametrize("name", list(lc.ACT_CODES))
+def test_every_elementwise_activation_matches_xla_cell(name, role, dtype):
+    # Each of the kernel's 16 names as the gate activation (cell tanh) and
+    # as the cell activation (sigmoid gates), peepholes and a mask.
+    gate, act = (name, "tanh") if role == "gate" else ("sigmoid", name)
+    d = _inputs(3, 8, True, True, seed=5)
+    want = jax_cell.xla_cell(jax_activations.resolve(gate),
+                             jax_activations.resolve(act), True)(
+        *_jax_args(d, dtype))
+    got = lc.lstm_cell_plain(*_port_args(d, dtype), gate, act)
+    for g, w in zip(got, want):
+        assert g.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32),
+                                   **ROUNDOFF[dtype])
+
+
+def test_the_kernel_codes_cover_every_elementwise_activation():
+    assert set(lc.ACT_CODES) == set(activations._REGISTRY) - {"softmax"}
+    assert sorted(lc.ACT_CODES.values()) == list(range(16))
 
 
 @pytest.fixture
@@ -202,19 +239,32 @@ def test_kernel_wrapper_passes_the_c_entry_its_signature(monkeypatch):
     # Without a mask out is h, as in the plain version: no out pointer.
     assert out[2] is out[0] and args[8] is None
     params = lc._CellParams.from_address(args[9])
-    assert (params.xw_stride, params.b, params.n, params.act,
-            params.dtype) == (t * 4 * n, b, n, lc.CELL_ACT_CODES["relu"],
+    assert (params.xw_stride, params.b, params.n, params.act, params.gate,
+            params.dtype) == (t * 4 * n, b, n, lc.ACT_CODES["relu"],
+                              lc.ACT_CODES["sigmoid"],
                               lc.DTYPE_CODES[torch.float32])
     masked = lc.lstm_cell(xw, h, c, rw, None, torch.ones(b), "sigmoid",
                           "tanh")
     assert calls[1][4] is None and calls[1][5] is not None
     assert masked[2] is not masked[0] and calls[1][8] is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP A.19"):
-        lc.lstm_cell(xw, h, c, rw, pw, None, "hardsigmoid", "tanh")
+    # A Keras import's hard-sigmoid gates launch, with their gate code;
+    # softmax (not elementwise) is refused as a gate or cell activation.
+    lc.lstm_cell(xw, h, c, rw, pw, None, "hardsigmoid", "tanh")
+    params = lc._CellParams.from_address(calls[2][9])
+    assert (params.gate, params.act) == (lc.ACT_CODES["hardsigmoid"],
+                                         lc.ACT_CODES["tanh"])
+    for gate, act in (("softmax", "tanh"), ("sigmoid", "softmax")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.19"):
+            lc.lstm_cell(xw, h, c, rw, pw, None, gate, act)
+    with pytest.raises(ValueError, match="Unknown activation"):
+        lc.lstm_cell(xw, h, c, rw, pw, None, "sigmoid", "nope")
     with pytest.raises(ValueError, match="pW"):
         lc.lstm_cell(xw, h, c, rw, pw[:n], None)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         lc.lstm_cell(*(a.double() for a in (xw, h, c, rw, pw)), None)
+    lc.lstm_cell(*(a.half() for a in (xw, h, c, rw, pw)), None)
+    params = lc._CellParams.from_address(calls[3][9])
+    assert params.dtype == lc.DTYPE_CODES[torch.float16] == 3
 
 
 @pytest.mark.cuda

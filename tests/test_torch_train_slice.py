@@ -168,8 +168,10 @@ def test_bf16_fit_scores_match_jax_and_refresh_the_compute_copy():
 
 
 def test_fit_refuses_what_it_does_not_run():
-    # Dropout trains now (one step, one key advanced); solvers and graph
-    # truncated BPTT are still refused, and a refused fit takes no step.
+    # Dropout trains now (one step, one key advanced); solvers are still
+    # refused, and a refused fit takes no step. Graph truncated BPTT trains
+    # (one iteration a sequence, one key a chunk; held to the JAX package
+    # in tests/test_torch_graph_tbptt.py), except with a decode cache.
     conf = zoo.transformer_lm(V, t=16, d_model=D, n_heads=H, n_blocks=1)
     conf.vertices["ff1_0"].layer.dropout = 0.5
     net = ComputationGraph(conf, device="cpu").init()
@@ -185,9 +187,21 @@ def test_fit_refuses_what_it_does_not_run():
         net.fit(x, y)
     conf.global_conf.optimization_algo = "stochastic_gradient_descent"
     conf.backprop_type = "truncatedbptt"
-    with pytest.raises(NotImplementedError, match="truncated BPTT"):
-        net.fit(x, y)
-    assert net.iteration == 1
+    conf.tbptt_fwd_length = 4
+    key = net._train_rng.copy()
+    net.fit(x, y)
+    assert net.iteration == 2 and np.isfinite(net.score_value)
+    for _ in range(4):
+        key = prng.split(key)[0]
+    np.testing.assert_array_equal(net._train_rng, key)
+    cached = zoo.transformer_lm(V, t=16, d_model=D, n_heads=H, n_blocks=1,
+                                decode_cache_length=16)
+    cached.backprop_type = "truncatedbptt"
+    cached.tbptt_fwd_length = 4
+    lm = ComputationGraph(cached, device="cpu").init()
+    with pytest.raises(ValueError, match="decode_cache_length"):
+        lm.fit(x, y)
+    assert lm.iteration == 0
 
 
 def test_port_zoo_trains_and_scores():
