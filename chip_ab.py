@@ -21,7 +21,15 @@ The paths, at `chip_smoke.py`'s shapes and seeds:
   step;
 - lenet_fit: `MultiLayerNetwork.fit` of `zoo.lenet_mnist()` on one
   B=128 batch of the synthetic MNIST images (host numpy, copied inside
-  `fit`), synchronized wall per step; left out for a tree without it.
+  `fit`), synchronized wall per step; left out for a tree without it;
+- resnet_i2: `ComputationGraph.output` of ResNet-50's per-layer graph
+  (`models/resnet.py` `resnet50(1000, image=224, dtype="bfloat16",
+  fused_blocks=False)`, seeded random weights) at B=32 (53 BatchNorm
+  launches a call; `output` ends in a host copy), wall per call;
+- resnet_t1: one `fit` step of that graph at B=256 (T1: Nesterovs, one-hot
+  labels over 10 of the 1000 classes), synchronized wall per step.
+
+`--paths a,b` runs only those paths (all by default).
 
 `--against DIR` runs 2 x `--pairs` processes, this tree and DIR in turn
 (this, DIR, DIR, this, ...), each one of the runs above, and prints every
@@ -46,10 +54,11 @@ SLOTS, PAGE = 4, 64
 DEPTHS = (1000, 700, 300, 40)
 RNN_V, RNN_H, RNN_B, RNN_T, RNN_CHUNK = 77, 256, 32, 100, 50
 TRAIN_B, MNIST_B = 16, 128
+RN_CLASSES, RN_IMAGE, RN_I2_B, RN_T1_B = 1000, 224, 32, 256
 REPS = {"decode_step": 20, "rnn_fit": 5, "rnn_char": 100, "lm_train": 10,
-        "lenet_fit": 50}
+        "lenet_fit": 50, "resnet_i2": 10, "resnet_t1": 5}
 WARMUP = {"decode_step": 3, "rnn_fit": 2, "rnn_char": 5, "lm_train": 3,
-          "lenet_fit": 20}
+          "lenet_fit": 20, "resnet_i2": 3, "resnet_t1": 2}
 
 
 def card_line() -> str:
@@ -75,7 +84,7 @@ def timed(torch, fn, warmup, reps):
     return out
 
 
-def run_tree() -> dict:
+def run_tree(paths) -> dict:
     import torch
 
     from deeplearning4j_tpu_torch.datasets.dataset import DataSet
@@ -93,55 +102,79 @@ def run_tree() -> dict:
     rng = np.random.RandomState(5)
     out = {}
 
-    conf = zoo.transformer_lm(VOCAB, t=CACHE, d_model=D_MODEL,
-                              n_heads=HEADS, n_blocks=BLOCKS,
-                              dtype="bfloat16", decode_cache_length=CACHE)
-    cg = ComputationGraph(conf, device=dev).init()
-    ladder = prompt_bucket_ladder(CACHE)
-    st = PagedDecodeStepper(cg, SLOTS, page_size=PAGE)
-    for slot, n in enumerate(DEPTHS):
-        _, state, length = st.prefill(rng.randint(0, VOCAB, n).tolist(),
-                                      pad_to=next(b for b in ladder
-                                                  if b >= n))
-        st.install(slot, state, length)
-    out["decode_step"] = timed(torch, lambda: st.step([1] * SLOTS),
-                               WARMUP["decode_step"], REPS["decode_step"])
-    del st, cg
-
-    net = MultiLayerNetwork(zoo.char_rnn(vocab_size=RNN_V, hidden=RNN_H,
-                                         tbptt_length=RNN_CHUNK),
-                            device=dev).init()
-    eye = torch.eye(RNN_V, device=dev)
-    ids = torch.as_tensor(rng.randint(0, RNN_V, (RNN_B, RNN_T + 1)),
-                          device=dev)
-    batch = DataSet(eye[ids[:, :-1]], eye[ids[:, 1:]])
-    out["rnn_fit"] = timed(torch, lambda: net.fit(batch), WARMUP["rnn_fit"],
-                           REPS["rnn_fit"])
-    net.rnn_clear_previous_state()
-    char = np.eye(RNN_V, dtype=np.float32)[[3]]
-    out["rnn_char"] = timed(torch, lambda: net.rnn_time_step(char),
-                            WARMUP["rnn_char"], REPS["rnn_char"])
-    del net, batch
-
     from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
 
-    lm = ComputationGraph(zoo.transformer_lm(
-        VOCAB, t=CACHE, d_model=D_MODEL, n_heads=HEADS, n_blocks=BLOCKS,
-        dtype="bfloat16"), device=dev).init()
-    ids = torch.as_tensor(rng.randint(0, VOCAB, (TRAIN_B, CACHE + 1)),
-                          device=dev)
-    mds = MultiDataSet([ids[:, :-1, None]], [ids[:, 1:].to(torch.int32)])
-    out["lm_train"] = timed(torch, lambda: lm.fit(mds), WARMUP["lm_train"],
-                            REPS["lm_train"])
-    del lm, mds
+    if "decode_step" in paths:
+        conf = zoo.transformer_lm(VOCAB, t=CACHE, d_model=D_MODEL,
+                                  n_heads=HEADS, n_blocks=BLOCKS,
+                                  dtype="bfloat16", decode_cache_length=CACHE)
+        cg = ComputationGraph(conf, device=dev).init()
+        ladder = prompt_bucket_ladder(CACHE)
+        st = PagedDecodeStepper(cg, SLOTS, page_size=PAGE)
+        for slot, n in enumerate(DEPTHS):
+            _, state, length = st.prefill(
+                rng.randint(0, VOCAB, n).tolist(),
+                pad_to=next(b for b in ladder if b >= n))
+            st.install(slot, state, length)
+        out["decode_step"] = timed(torch, lambda: st.step([1] * SLOTS),
+                                   WARMUP["decode_step"],
+                                   REPS["decode_step"])
+        del st, cg
 
-    if hasattr(zoo, "lenet_mnist"):
+    if {"rnn_fit", "rnn_char"} & paths:
+        net = MultiLayerNetwork(zoo.char_rnn(vocab_size=RNN_V, hidden=RNN_H,
+                                             tbptt_length=RNN_CHUNK),
+                                device=dev).init()
+        eye = torch.eye(RNN_V, device=dev)
+        ids = torch.as_tensor(rng.randint(0, RNN_V, (RNN_B, RNN_T + 1)),
+                              device=dev)
+        batch = DataSet(eye[ids[:, :-1]], eye[ids[:, 1:]])
+        out["rnn_fit"] = timed(torch, lambda: net.fit(batch),
+                               WARMUP["rnn_fit"], REPS["rnn_fit"])
+        net.rnn_clear_previous_state()
+        char = np.eye(RNN_V, dtype=np.float32)[[3]]
+        out["rnn_char"] = timed(torch, lambda: net.rnn_time_step(char),
+                                WARMUP["rnn_char"], REPS["rnn_char"])
+        del net, batch
+
+    if "lm_train" in paths:
+        lm = ComputationGraph(zoo.transformer_lm(
+            VOCAB, t=CACHE, d_model=D_MODEL, n_heads=HEADS, n_blocks=BLOCKS,
+            dtype="bfloat16"), device=dev).init()
+        ids = torch.as_tensor(rng.randint(0, VOCAB, (TRAIN_B, CACHE + 1)),
+                              device=dev)
+        mds = MultiDataSet([ids[:, :-1, None]], [ids[:, 1:].to(torch.int32)])
+        out["lm_train"] = timed(torch, lambda: lm.fit(mds),
+                                WARMUP["lm_train"], REPS["lm_train"])
+        del lm, mds
+
+    if "lenet_fit" in paths and hasattr(zoo, "lenet_mnist"):
         from deeplearning4j_tpu_torch.datasets.builtin import load_mnist
 
         lenet = MultiLayerNetwork(zoo.lenet_mnist(), device=dev).init()
         ds = load_mnist(train=True, num_examples=MNIST_B)
         out["lenet_fit"] = timed(torch, lambda: lenet.fit(ds),
                                  WARMUP["lenet_fit"], REPS["lenet_fit"])
+
+    if {"resnet_i2", "resnet_t1"} & paths:
+        from deeplearning4j_tpu_torch.models import resnet
+
+        rn = ComputationGraph(resnet.resnet50(
+            n_classes=RN_CLASSES, image=RN_IMAGE, dtype="bfloat16",
+            fused_blocks=False), device=dev).init()
+        g = torch.Generator(device=dev).manual_seed(71)
+        x = torch.randn(RN_T1_B, RN_IMAGE, RN_IMAGE, 3, generator=g,
+                        device=dev)
+        pick = torch.randint(0, 10, (RN_T1_B,), generator=g, device=dev)
+        y = torch.eye(RN_CLASSES, device=dev)[pick]
+        if "resnet_i2" in paths:
+            x32 = x[:RN_I2_B].contiguous()
+            out["resnet_i2"] = timed(torch, lambda: rn.output(x32),
+                                     WARMUP["resnet_i2"], REPS["resnet_i2"])
+        if "resnet_t1" in paths:
+            mds = MultiDataSet([x], [y])
+            out["resnet_t1"] = timed(torch, lambda: rn.fit(mds),
+                                     WARMUP["resnet_t1"], REPS["resnet_t1"])
     return out
 
 
@@ -151,7 +184,11 @@ def main() -> int:
         os.path.abspath(__file__)))
     ap.add_argument("--against")
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--paths", default=",".join(REPS))
     args = ap.parse_args()
+    paths = set(args.paths.split(","))
+    if not paths <= set(REPS):
+        ap.error(f"--paths: unknown {sorted(paths - set(REPS))}")
     import torch
 
     if not torch.cuda.is_available():
@@ -162,7 +199,7 @@ def main() -> int:
     if args.against is None:
         sys.path.insert(0, os.path.abspath(args.tree))
         try:
-            res = run_tree()
+            res = run_tree(paths)
         except ImportError as e:
             print(f"chip_ab: no port in {args.tree} ({e})", file=sys.stderr)
             return 1
@@ -174,7 +211,8 @@ def main() -> int:
     runs = {t: [] for t in trees}
     for tree in order:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--tree", tree],
+            [sys.executable, os.path.abspath(__file__), "--tree", tree,
+             "--paths", args.paths],
             capture_output=True, text=True, timeout=900)
         if proc.returncode:
             print(proc.stderr[-4000:], file=sys.stderr)

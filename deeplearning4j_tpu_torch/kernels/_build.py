@@ -56,8 +56,10 @@ _SIGNATURES = {
     # skip, stream.
     "dl4j_fused_update": [_I, _I, _I] + [_P] * 5 + [_I, _P, _P],
     "dl4j_fused_update_capacity": [],
-    "dl4j_batchnorm_norm_act": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
-                                _P],
+    # x, mean, var, gamma, beta, y, rows, feats, eps, act, dtype, kinds |
+    # the four vectors' values (by value where their kind says so), stream.
+    "dl4j_batchnorm_norm_act": [_P] * 6 + [_L, _I, _F, _I, _I, _I]
+    + [_F] * 4 + [_P],
     # ... | out, psum, psq, variant (0 CUDA cores, 1 tensor cores), stream.
     "dl4j_bottleneck_conv": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P, _P, _P, _P, _I, _F, _P, _I, _P, _I, _P, _P,

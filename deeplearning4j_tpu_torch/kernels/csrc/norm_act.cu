@@ -1,5 +1,6 @@
-// LayerNorm + affine + activation, one warp per row; BatchNorm apply +
-// affine + activation, elementwise with per-channel vectors.
+// LayerNorm + affine + activation, one warp per row (one block per row past
+// a warp's reach); BatchNorm apply + affine + activation over [rows, C] with
+// per-channel vectors.
 //
 // Replaces the TPU kernel `_ln_kernel` (deeplearning4j_tpu/kernels/norm_act.py:101,
 // reached through `layernorm_norm_act` :164): per-row mean and variance, then
@@ -19,63 +20,117 @@
 // The output is rounded to the input dtype once, at the store. f16 (the
 // mixed_float16 and float16 policies) is the same template at `__half`, 8
 // values a vector as bf16; its statistics stay in f32, so f16's narrow range
-// matters only at the store.
+// matters only at the store. Any F: where F or an address is no multiple of
+// the 16-byte vector, a warp takes the row in single elements (F <= 256,
+// `c < F` masking the tail); a row past a warp's 8 loads a lane (F > 2048 in
+// bf16 / f16, > 1024 in f32, or a ragged F > 256) takes a block of 256
+// threads, staged once in shared memory (read from device memory again only
+// where it does not fit), with the same two-pass variance in f32.
 //
 // BatchNorm apply replaces the TPU kernel `_bn_kernel`
 // (deeplearning4j_tpu/kernels/norm_act.py:96, reached through
 // `batchnorm_norm_act` :140): act(gamma * (x - mean) / sqrt(var + eps) + beta)
-// over [rows, C] with the statistics given. Bound: bytes, as LayerNorm's: ~6
-// flops per element against 4 bytes per bf16 element read and written. At
-// ResNet-50's widest BatchNorm in training (B=256, 112x112x64: 205 M
-// elements) the least time is 0.82 GB over 3.35 TB/s = 0.245 ms. Design: one
-// 16-byte vector of x per thread step (8 bf16 / 4 f32 channels of one row, C
-// a multiple of the vector), a grid-stride loop over the flat tensor; the
-// four [C] vectors are 16-byte loads that stay in L1/L2 (4*C elements
-// against rows*C). The math runs in f32 in the reference's order ((x - mean)
-// / sqrt(var + eps), then gamma * . + beta) and rounds once at the store;
-// the Pallas body computes at x's dtype, so in bf16 the two differ by bf16
-// rounding. f16 x (the mixed_float16 and float16 policies; the JAX package
-// sends them to XLA, norm_act.py:38-44) is the same template at `__half`, 8
-// channels a vector, with the four vectors in f32 (two 16-byte loads each):
-// the statistics and the affine never round to f16, only y does.
+// over [rows, C] with the statistics given. Bound: bytes. Per element it
+// reads and writes one value of x's dtype (4 bytes a bf16 element) against a
+// subtraction, a division, an FMA and the activation; the [C] vectors are
+// 4*C values against rows*C. At ResNet-50's widest BatchNorms in training
+// (B=256: 112x112x64 and 56x56x256, 205 M elements) the least time is 0.82
+// GB over 3.35 TB/s = 0.245 ms in bf16 / f16, 0.49 ms in f32.
+//
+// Design, so that the threads move x and y and do little else:
+// - Per-channel work once per block. A block covers whole rows of one tile
+//   of channels: it reads mean, var, gamma and beta for the tile once, at
+//   their own dtypes (f32, bf16 or f16, a 0-d tensor, or a float passed by
+//   value: the `lock_gamma_beta` constants), rounds them as the Pallas
+//   path's `_vec` does (to bf16 for a bf16 x; f32 and f16 x keep them in
+//   f32), and keeps m, s = sqrt(v + eps), g and b in f32 in shared memory;
+//   each thread then holds its fixed V channels' four values in registers.
+//   No modulo per element, no vector reload, no sqrt per element, and no
+//   cast kernel before the launch: one launch a call.
+// - Bytes in flight: each thread issues 6 independent 16-byte row loads
+//   before it uses the first, at 3 blocks of 256 an SM (the register cap
+//   that allows), one group of rows a block: the grid walks the rows in
+//   order, each block's loads close to its neighbours'. On the card that
+//   beat a persistent grid of one wave (whose blocks drift apart over the
+//   tensor), 4 loads at 3 blocks and 8 loads at 2 (`chip_smoke.py`'s
+//   resnet_kernels rows give this form's times).
+// - Any C: V is the widest load (16 bytes down to one element) that C and
+//   x's and y's addresses allow, so a channel count such as 3, 10 or 1000 in
+//   bf16 takes narrower loads instead of a refusal; rows past the end and
+//   channels past C (C/V > 256 takes several tiles) are masked.
+// - The arithmetic is the earlier kernel's, operation for operation: a true
+//   division (x - m) / sqrt(v + eps) (`__fdiv_rn`, `__fsqrt_rn`), then
+//   `__fmaf_rn(g, xhat, b)` and the activation, in f32, y rounded once at
+//   the store. So y is bit for bit what the kernel that recomputed all of
+//   it per element gave (the Pallas body computes at x's dtype, so in bf16
+//   the two differ by bf16 rounding). The division is most of a bf16
+//   element's arithmetic, and what keeps the bf16 form a few per cent
+//   further from its bound than the f32 form.
 
 #include "common.cuh"
+
+#include <cstdint>
 
 namespace {
 
 using dl4j::activate;
 
-constexpr int kRowsPerBlock = 8;  // 8 warps, 256 threads
+// V consecutive elements of T as one aligned load or store of 16, 8, 4 or 2
+// bytes.
+template <int BYTES>
+struct RawOf;
+template <>
+struct RawOf<16> { using type = uint4; };
+template <>
+struct RawOf<8> { using type = uint2; };
+template <>
+struct RawOf<4> { using type = unsigned; };
+template <>
+struct RawOf<2> { using type = unsigned short; };
+template <typename T, int V>
+using Raw = typename RawOf<V * static_cast<int>(sizeof(T))>::type;
 
-// NV 16-byte vectors per lane: F <= 32 * NV * (16 / sizeof(T)).
-template <typename T, int NV>
+// The widest load, in elements (at most 16 bytes), that a row of `feats`
+// and every address in `addr` (or-ed) allow.
+template <typename T>
+int load_width(long long feats, uintptr_t addr) {
+  int v = 16 / sizeof(T);
+  while (v > 1 && (feats % v || addr % (v * sizeof(T)))) v /= 2;
+  return v;
+}
+
+constexpr int kRowsPerBlock = 8;  // 8 warps, 256 threads
+constexpr int kMaxVectors = 8;    // loads a lane, one warp a row
+
+// NV loads of V elements per lane: F <= 32 * NV * V.
+template <typename T, int V, int NV>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
 layernorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
                  const T* __restrict__ beta, T* __restrict__ y, int rows,
                  int feats, float eps, int act) {
-  constexpr int VEC = 16 / sizeof(T);
+  using R = Raw<T, V>;
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const T* xr = x + static_cast<size_t>(row) * feats;
   T* yr = y + static_cast<size_t>(row) * feats;
 
-  float v[NV][VEC];
+  float v[NV][V];
   float sum = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const int c = (i * 32 + lane) * VEC;
+    const int c = (i * 32 + lane) * V;
     if (c < feats) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(xr + c);
+      const R raw = *reinterpret_cast<const R*>(xr + c);
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
+      for (int j = 0; j < V; ++j) {
         v[i][j] = dl4j::to_f32(e[j]);
         sum += v[i][j];
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) v[i][j] = 0.f;
+      for (int j = 0; j < V; ++j) v[i][j] = 0.f;
     }
   }
   const float mu = dl4j::warp_sum(sum) / feats;
@@ -83,9 +138,9 @@ layernorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
   float sq = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    if ((i * 32 + lane) * VEC < feats) {
+    if ((i * 32 + lane) * V < feats) {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
+      for (int j = 0; j < V; ++j) {
         const float d = v[i][j] - mu;
         sq += d * d;
       }
@@ -95,119 +150,414 @@ layernorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
 
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    const int c = (i * 32 + lane) * VEC;
+    const int c = (i * 32 + lane) * V;
     if (c < feats) {
-      const uint4 graw = *reinterpret_cast<const uint4*>(gamma + c);
-      const uint4 braw = *reinterpret_cast<const uint4*>(beta + c);
+      const R graw = *reinterpret_cast<const R*>(gamma + c);
+      const R braw = *reinterpret_cast<const R*>(beta + c);
       const T* g = reinterpret_cast<const T*>(&graw);
       const T* b = reinterpret_cast<const T*>(&braw);
-      uint4 out;
+      R out;
       T* o = reinterpret_cast<T*>(&out);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
+      for (int j = 0; j < V; ++j) {
         const float n = (v[i][j] - mu) * inv;
         o[j] = dl4j::from_f32<T>(
             activate(n * dl4j::to_f32(g[j]) + dl4j::to_f32(b[j]), act));
       }
-      *reinterpret_cast<uint4*>(yr + c) = out;
+      *reinterpret_cast<R*>(yr + c) = out;
     }
   }
+}
+
+template <typename T, int V>
+int launch_warp(const T* x, const T* g, const T* b, T* y, int rows, int feats,
+                float eps, int act, cudaStream_t stream) {
+  const int nv = (feats + 32 * V - 1) / (32 * V);
+  const dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+  const dim3 block(32 * kRowsPerBlock);
+  if (nv <= 1)
+    layernorm_kernel<T, V, 1><<<grid, block, 0, stream>>>(x, g, b, y, rows, feats, eps, act);
+  else if (nv <= 2)
+    layernorm_kernel<T, V, 2><<<grid, block, 0, stream>>>(x, g, b, y, rows, feats, eps, act);
+  else if (nv <= 4)
+    layernorm_kernel<T, V, 4><<<grid, block, 0, stream>>>(x, g, b, y, rows, feats, eps, act);
+  else if (nv <= kMaxVectors)
+    layernorm_kernel<T, V, kMaxVectors><<<grid, block, 0, stream>>>(x, g, b, y, rows, feats, eps, act);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kRowThreads = 256;
+
+// The sum of `v` over the block, the same value in every thread (each sums
+// the warps' partials in one order).
+__device__ __forceinline__ float block_sum(float v, float* part) {
+  v = dl4j::warp_sum(v);
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kRowThreads / 32; ++w) t += part[w];
+  __syncthreads();  // `part` is written again by the next sum
+  return t;
+}
+
+// One block a row of any width: the row (F / V loads of V elements) is read
+// once from device memory into shared memory (`stage`; else read again from
+// device memory), then the two-pass statistics in f32 and the output.
+template <typename T, int V>
+__global__ void __launch_bounds__(kRowThreads)
+layernorm_row_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                     const T* __restrict__ beta, T* __restrict__ y, int feats,
+                     float eps, int act, int stage) {
+  using R = Raw<T, V>;
+  extern __shared__ __align__(16) unsigned char staged[];
+  __shared__ float part[kRowThreads / 32];
+  const T* xr = x + static_cast<size_t>(blockIdx.x) * feats;
+  T* yr = y + static_cast<size_t>(blockIdx.x) * feats;
+  const R* src = stage ? reinterpret_cast<const R*>(staged)
+                       : reinterpret_cast<const R*>(xr);
+  const int n = feats / V;
+
+  float sum = 0.f;
+  for (int i = threadIdx.x; i < n; i += kRowThreads) {
+    const R raw = reinterpret_cast<const R*>(xr)[i];
+    if (stage) reinterpret_cast<R*>(staged)[i] = raw;  // read back by this thread only
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < V; ++j) sum += dl4j::to_f32(e[j]);
+  }
+  const float mu = block_sum(sum, part) / feats;
+
+  float sq = 0.f;
+  for (int i = threadIdx.x; i < n; i += kRowThreads) {
+    const R raw = src[i];
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float d = dl4j::to_f32(e[j]) - mu;
+      sq += d * d;
+    }
+  }
+  const float inv = rsqrtf(block_sum(sq, part) / feats + eps);
+
+  for (int i = threadIdx.x; i < n; i += kRowThreads) {
+    const R raw = src[i];
+    const R graw = reinterpret_cast<const R*>(gamma)[i];
+    const R braw = reinterpret_cast<const R*>(beta)[i];
+    const T* e = reinterpret_cast<const T*>(&raw);
+    const T* g = reinterpret_cast<const T*>(&graw);
+    const T* b = reinterpret_cast<const T*>(&braw);
+    R out;
+    T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float nrm = (dl4j::to_f32(e[j]) - mu) * inv;
+      o[j] = dl4j::from_f32<T>(
+          activate(nrm * dl4j::to_f32(g[j]) + dl4j::to_f32(b[j]), act));
+    }
+    reinterpret_cast<R*>(yr)[i] = out;
+  }
+}
+
+template <typename T, int V>
+int launch_row(const T* x, const T* g, const T* b, T* y, int rows, int feats,
+               float eps, int act, cudaStream_t stream) {
+  const auto kernel = layernorm_row_kernel<T, V>;
+  const size_t bytes = static_cast<size_t>(feats) * sizeof(T);
+  int stage = bytes <= 48 * 1024;
+  if (!stage) {
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    // The static partials take a few bytes of the same budget.
+    stage = bytes + 1024 <= static_cast<size_t>(optin);
+    if (stage) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(bytes));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  kernel<<<rows, kRowThreads, stage ? bytes : 0, stream>>>(x, g, b, y, feats,
+                                                           eps, act, stage);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* x, const void* g, const void* b, void* y, int rows,
            int feats, float eps, int act, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
-  const int nv = (feats + 32 * VEC - 1) / (32 * VEC);
-  const dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  const dim3 block(32 * kRowsPerBlock);
   const T* xp = static_cast<const T*>(x);
   const T* gp = static_cast<const T*>(g);
   const T* bp = static_cast<const T*>(b);
   T* yp = static_cast<T*>(y);
-  if (nv <= 1)
-    layernorm_kernel<T, 1><<<grid, block, 0, stream>>>(xp, gp, bp, yp, rows, feats, eps, act);
-  else if (nv <= 2)
-    layernorm_kernel<T, 2><<<grid, block, 0, stream>>>(xp, gp, bp, yp, rows, feats, eps, act);
-  else if (nv <= 4)
-    layernorm_kernel<T, 4><<<grid, block, 0, stream>>>(xp, gp, bp, yp, rows, feats, eps, act);
-  else if (nv <= 8)
-    layernorm_kernel<T, 8><<<grid, block, 0, stream>>>(xp, gp, bp, yp, rows, feats, eps, act);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  const int v = load_width<T>(
+      feats, reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
+                 reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(y));
+  if (v == VEC && feats <= 32 * kMaxVectors * VEC)
+    return launch_warp<T, VEC>(xp, gp, bp, yp, rows, feats, eps, act, stream);
+  if (v < VEC && feats <= 32 * kMaxVectors)
+    return launch_warp<T, 1>(xp, gp, bp, yp, rows, feats, eps, act, stream);
+  if (v == VEC)
+    return launch_row<T, VEC>(xp, gp, bp, yp, rows, feats, eps, act, stream);
+  if constexpr (VEC == 8) {
+    if (v == 4)
+      return launch_row<T, 4>(xp, gp, bp, yp, rows, feats, eps, act, stream);
+  }
+  if (v == 2)
+    return launch_row<T, 2>(xp, gp, bp, yp, rows, feats, eps, act, stream);
+  return launch_row<T, 1>(xp, gp, bp, yp, rows, feats, eps, act, stream);
 }
+
+// ---------------------------------------------------------------- BatchNorm
 
 constexpr int kBnThreads = 256;
 
-// N consecutive values of a [C] vector of S as floats, 16 bytes a load.
-template <typename S, int N>
-__device__ __forceinline__ void load_vec(const S* p, float (&f)[N]) {
-  constexpr int kPer = 16 / sizeof(S);
-#pragma unroll
-  for (int q = 0; q < N / kPer; ++q) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p + q * kPer);
-    const S* v = reinterpret_cast<const S*>(&r);
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) f[q * kPer + j] = dl4j::to_f32(v[j]);
-  }
+// Row loads a thread has in flight (96 bytes of x), at 3 blocks an SM
+// (`__launch_bounds__`: at most 85 registers a thread).
+constexpr int kBnLoads = 6;
+constexpr int kBnBlocksPerSm = 3;
+
+// How each of mean, var, gamma and beta comes (4 bits each in `kinds`,
+// kernels/norm_act.py `_vector_arg`): a [C] tensor of dtype code 0 (f32),
+// 1 (bf16) or 3 (f16); that code + kBroadcast for a 0-d tensor; kByValue
+// for a float passed by value (its pointer then is any valid address).
+constexpr int kBroadcast = 4;
+constexpr int kByValue = 8;
+
+struct BnVectors {
+  const void* ptr[4];  // mean, var, gamma, beta
+  float value[4];
+  int kinds;
+};
+
+// A vector value as the kernel uses it beside an x of T: rounded to bf16
+// for a bf16 x (the Pallas path's `_vec`), kept in f32 for f32 and f16 x.
+template <typename T>
+__device__ __forceinline__ float as_vector_of(float v) { return v; }
+template <>
+__device__ __forceinline__ float as_vector_of<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
-// x and y of T; mean, var, gamma and beta of S (T itself, or f32 for f16 x).
-template <typename T, typename S>
-__global__ void __launch_bounds__(kBnThreads)
-batchnorm_kernel(const T* __restrict__ x, const S* __restrict__ mean,
-                 const S* __restrict__ var, const S* __restrict__ gamma,
-                 const S* __restrict__ beta, T* __restrict__ y,
-                 size_t n_vec, int feats, float eps, int act) {
-  constexpr int VEC = 16 / sizeof(T);
-  for (size_t i = static_cast<size_t>(blockIdx.x) * kBnThreads + threadIdx.x;
-       i < n_vec; i += static_cast<size_t>(gridDim.x) * kBnThreads) {
-    const size_t e = i * VEC;
-    const int c = static_cast<int>(e % feats);
-    float xv[VEC], mv[VEC], vv[VEC], gv[VEC], bv[VEC];
-    load_vec<T, VEC>(x + e, xv);
-    load_vec<S, VEC>(mean + c, mv);
-    load_vec<S, VEC>(var + c, vv);
-    load_vec<S, VEC>(gamma + c, gv);
-    load_vec<S, VEC>(beta + c, bv);
-    uint4 out;
-    T* o = reinterpret_cast<T*>(&out);
+// One vector value from its two 16-bit halves (an f32's low and high half;
+// a bf16 or f16 value and itself again), as f32.
+__device__ __forceinline__ float decode(unsigned short lo, unsigned short hi,
+                                        int kind, float value) {
+  const unsigned bits = (kind & 3) == dl4j::kFloat32
+                            ? (static_cast<unsigned>(hi) << 16) | lo
+                            : static_cast<unsigned>(lo) << 16;  // bf16
+  const float v = (kind & 3) == dl4j::kFloat16
+                      ? __half2float(__ushort_as_half(lo))
+                      : __uint_as_float(bits);
+  return kind == kByValue ? value : v;
+}
+
+// y's value from x's, the channel's m, s = sqrt(v + eps), g and b.
+template <int ACT>
+__device__ __forceinline__ float bn_apply(float x, float m, float s, float g,
+                                          float b) {
+  return activate(__fmaf_rn(g, __fdiv_rn(x - m, s), b), ACT);
+}
+
+// The two 16-bit values of a 32-bit word as f32, and two f32 rounded to
+// nearest into one word, for T = bf16 or f16 (one conversion a pair, no
+// 16-bit registers: the 16-byte forms fit 3 blocks an SM without spills).
+template <typename T>
+struct Pairs;
+template <>
+struct Pairs<__nv_bfloat16> {
+  static __device__ __forceinline__ float lo(unsigned w) {
+    return __uint_as_float(w << 16);
+  }
+  static __device__ __forceinline__ float hi(unsigned w) {
+    return __uint_as_float(w & 0xffff0000u);
+  }
+  static __device__ __forceinline__ unsigned pack(float a, float b) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const unsigned*>(&p);
+  }
+};
+template <>
+struct Pairs<__half> {
+  static __device__ __forceinline__ float lo(unsigned w) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(w)));
+  }
+  static __device__ __forceinline__ float hi(unsigned w) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16)));
+  }
+  static __device__ __forceinline__ unsigned pack(float a, float b) {
+    const __half2 p = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const unsigned*>(&p);
+  }
+};
+
+// x, y: [rows, chunks * V]. Block (bx, by) takes chunk tile by (chunks
+// by * tx_n .. + tx_n) over the bx-th group of ty_n * kBnLoads rows. Its
+// threads first read the tile's mean, var, gamma and beta into shared
+// memory once, as m, sqrt(v + eps), g and b in f32 (the four vectors'
+// loads in flight together, whatever their dtypes: no branch on a kind);
+// then thread (ty, tx) keeps chunk tx's V channels in registers and issues
+// its kBnLoads rows' loads (rows ty, ty + ty_n, ...) before it uses the
+// first.
+template <typename T, int V, int ACT>
+__global__ void __launch_bounds__(kBnThreads, kBnBlocksPerSm)
+batchnorm_kernel(const T* __restrict__ x, T* __restrict__ y, BnVectors vecs,
+                 long long rows, int chunks, int tx_n, float eps) {
+  using R = Raw<T, V>;
+  __shared__ float per_channel[4][kBnThreads * V];  // m, s, g, b
+  const int first = blockIdx.y * tx_n;  // the tile's first chunk
+  const int tile = min(tx_n, chunks - first) * V;  // its channels
+  {
+    const unsigned short* p[4];
+    long long step[4];  // 16-bit halves from one channel to the next
+    int hi[4], kind[4];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const float xhat = (xv[j] - mv[j]) / sqrtf(vv[j] + eps);
-      o[j] = dl4j::from_f32<T>(activate(gv[j] * xhat + bv[j], act));
+    for (int w = 0; w < 4; ++w) {
+      kind[w] = (vecs.kinds >> (4 * w)) & 15;
+      p[w] = static_cast<const unsigned short*>(vecs.ptr[w]);
+      const int halves =
+          (kind[w] & 3) == dl4j::kFloat32 && kind[w] != kByValue ? 2 : 1;
+      step[w] = kind[w] & (kBroadcast | kByValue) ? 0 : halves;
+      hi[w] = halves - 1;
     }
-    *reinterpret_cast<uint4*>(y + e) = out;
+    const long long c0 = static_cast<long long>(first) * V;
+#pragma unroll 2
+    for (int c = threadIdx.x; c < tile; c += kBnThreads) {
+      unsigned short lo[4], up[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const unsigned short* q = p[w] + (c0 + c) * step[w];
+        lo[w] = q[0];
+        up[w] = q[hi[w]];
+      }
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float v = as_vector_of<T>(decode(lo[w], up[w], kind[w],
+                                               vecs.value[w]));
+        per_channel[w][c] = w == 1 ? __fsqrt_rn(v + eps) : v;
+      }
+    }
+  }
+  __syncthreads();
+
+  const int ty_n = kBnThreads / tx_n;
+  const int ty = threadIdx.x / tx_n;
+  const int tx = threadIdx.x - ty * tx_n;
+  if (ty >= ty_n || tx * V >= tile) return;
+  float m[V], s[V], g[V], b[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    m[j] = per_channel[0][tx * V + j];
+    s[j] = per_channel[1][tx * V + j];
+    g[j] = per_channel[2][tx * V + j];
+    b[j] = per_channel[3][tx * V + j];
+  }
+  const long long feats = static_cast<long long>(chunks) * V;
+  const long long row_step = feats * ty_n;  // elements between a thread's rows
+  const long long r0 =
+      static_cast<long long>(blockIdx.x) * ty_n * kBnLoads + ty;
+  const T* xp = x + r0 * feats + static_cast<long long>(first + tx) * V;
+  T* yp = y + (xp - x);
+  R in[kBnLoads];
+#pragma unroll
+  for (int k = 0; k < kBnLoads; ++k)
+    if (r0 + k * ty_n < rows)
+      in[k] = *reinterpret_cast<const R*>(xp + k * row_step);
+#pragma unroll
+  for (int k = 0; k < kBnLoads; ++k) {
+    if (r0 + k * ty_n < rows) {
+      R out;
+      if constexpr (sizeof(T) == 2 && V % 2 == 0) {
+        const unsigned* wi = reinterpret_cast<const unsigned*>(&in[k]);
+        unsigned* wo = reinterpret_cast<unsigned*>(&out);
+#pragma unroll
+        for (int j = 0; j < V / 2; ++j) {
+          const int c = 2 * j;
+          wo[j] = Pairs<T>::pack(
+              bn_apply<ACT>(Pairs<T>::lo(wi[j]), m[c], s[c], g[c], b[c]),
+              bn_apply<ACT>(Pairs<T>::hi(wi[j]), m[c + 1], s[c + 1],
+                            g[c + 1], b[c + 1]));
+        }
+      } else {
+        const T* e = reinterpret_cast<const T*>(&in[k]);
+        T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          o[j] = dl4j::from_f32<T>(
+              bn_apply<ACT>(dl4j::to_f32(e[j]), m[j], s[j], g[j], b[j]));
+      }
+      *reinterpret_cast<R*>(yp + k * row_step) = out;
+    }
   }
 }
 
-template <typename T, typename S = T>
-int launch_bn(const void* x, const void* m, const void* v, const void* g,
-              const void* b, void* y, int rows, int feats, float eps, int act,
-              cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  const size_t n_vec = static_cast<size_t>(rows) * feats / VEC;
-  // Enough blocks to fill the card several times over; the loop strides.
-  const size_t want = (n_vec + kBnThreads - 1) / kBnThreads;
-  const int grid = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  batchnorm_kernel<T, S><<<grid, kBnThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const S*>(m),
-      static_cast<const S*>(v), static_cast<const S*>(g),
-      static_cast<const S*>(b), static_cast<T*>(y), n_vec, feats, eps, act);
+template <typename T, int V, int ACT>
+int launch_bn_v(const T* x, T* y, const BnVectors& vecs, long long rows,
+                int feats, float eps, cudaStream_t stream) {
+  const int chunks = feats / V;
+  const int tx_n = chunks < kBnThreads ? chunks : kBnThreads;
+  const int tiles = (chunks + tx_n - 1) / tx_n;
+  const long long group_rows =
+      static_cast<long long>(kBnThreads / tx_n) * kBnLoads;
+  const long long groups = (rows + group_rows - 1) / group_rows;
+  if (tiles > 65535 || groups > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  batchnorm_kernel<T, V, ACT>
+      <<<dim3(static_cast<unsigned>(groups), tiles), kBnThreads, 0, stream>>>(
+          x, y, vecs, rows, chunks, tx_n, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int launch_bn_act(const T* x, T* y, const BnVectors& vecs, long long rows,
+                  int feats, float eps, int act, cudaStream_t stream) {
+  switch (act) {
+    case dl4j::kIdentity:
+      return launch_bn_v<T, V, dl4j::kIdentity>(x, y, vecs, rows, feats, eps, stream);
+    case dl4j::kRelu:
+      return launch_bn_v<T, V, dl4j::kRelu>(x, y, vecs, rows, feats, eps, stream);
+    case dl4j::kTanh:
+      return launch_bn_v<T, V, dl4j::kTanh>(x, y, vecs, rows, feats, eps, stream);
+    case dl4j::kSigmoid:
+      return launch_bn_v<T, V, dl4j::kSigmoid>(x, y, vecs, rows, feats, eps, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int launch_bn(const void* x, void* y, const BnVectors& vecs, long long rows,
+              int feats, float eps, int act, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  const int v = load_width<T>(
+      feats, reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y));
+  if (v == VEC)
+    return launch_bn_act<T, VEC>(xp, yp, vecs, rows, feats, eps, act, stream);
+  if constexpr (VEC == 8) {
+    if (v == 4)
+      return launch_bn_act<T, 4>(xp, yp, vecs, rows, feats, eps, act, stream);
+  }
+  if (v == 2)
+    return launch_bn_act<T, 2>(xp, yp, vecs, rows, feats, eps, act, stream);
+  return launch_bn_act<T, 1>(xp, yp, vecs, rows, feats, eps, act, stream);
 }
 
 }  // namespace
 
-// x, y: [rows, feats] contiguous; gamma, beta: [feats]; all of `dtype`, all
-// 16-byte aligned, feats a multiple of 16 / sizeof(dtype) and at most
-// 256 * 16 / sizeof(dtype) (checked by the Python wrapper).
+// x, y: [rows, feats] contiguous; gamma, beta: [feats] contiguous; all of
+// `dtype` (checked by the Python wrapper). Any feats >= 1 and any address
+// aligned to the element.
 extern "C" int dl4j_layernorm_norm_act(const void* x, const void* gamma,
                                        const void* beta, void* y, int rows,
                                        int feats, float eps, int act,
                                        int dtype, void* stream) {
-  if (rows <= 0) return 0;
+  if (rows <= 0 || feats <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dl4j::kFloat32)
     return launch<float>(x, gamma, beta, y, rows, feats, eps, act, s);
@@ -218,24 +568,28 @@ extern "C" int dl4j_layernorm_norm_act(const void* x, const void* gamma,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x, y: [rows, feats] contiguous of `dtype`; mean, var, gamma, beta: [feats]
-// of `dtype`, or f32 when `dtype` is f16; all 16-byte aligned, feats a
-// multiple of 16 / sizeof(dtype) (checked by the Python wrapper).
-extern "C" int dl4j_batchnorm_norm_act(const void* x, const void* mean,
-                                       const void* var, const void* gamma,
-                                       const void* beta, void* y, int rows,
-                                       int feats, float eps, int act,
-                                       int dtype, void* stream) {
-  if (rows <= 0) return 0;
+// x, y: [rows, feats] contiguous of `dtype` (f32, bf16 or f16), any feats
+// >= 1 and any address aligned to the element. mean, var, gamma, beta: each
+// a pointer and a 4-bit kind in `kinds` (bits 4i..4i+3 for the i-th; see
+// kBroadcast, kByValue), or the float beside it where the kind is kByValue.
+// One kernel launch, nothing allocated.
+extern "C" int dl4j_batchnorm_norm_act(
+    const void* x, const void* mean, const void* var, const void* gamma,
+    const void* beta, void* y, long long rows, int feats, float eps, int act,
+    int dtype, int kinds, float mean_value, float var_value,
+    float gamma_value, float beta_value, void* stream) {
+  if (rows <= 0 || feats <= 0) return 0;
+  BnVectors vecs{{mean, var, gamma, beta},
+                 {mean_value, var_value, gamma_value, beta_value},
+                 kinds};
+  for (int w = 0; w < 4; ++w)  // read, never used: any valid address
+    if (((kinds >> (4 * w)) & 15) == kByValue) vecs.ptr[w] = x;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dl4j::kFloat32)
-    return launch_bn<float>(x, mean, var, gamma, beta, y, rows, feats, eps,
-                            act, s);
+    return launch_bn<float>(x, y, vecs, rows, feats, eps, act, s);
   if (dtype == dl4j::kBFloat16)
-    return launch_bn<__nv_bfloat16>(x, mean, var, gamma, beta, y, rows, feats,
-                                    eps, act, s);
+    return launch_bn<__nv_bfloat16>(x, y, vecs, rows, feats, eps, act, s);
   if (dtype == dl4j::kFloat16)
-    return launch_bn<__half, float>(x, mean, var, gamma, beta, y, rows, feats,
-                                    eps, act, s);
+    return launch_bn<__half>(x, y, vecs, rows, feats, eps, act, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

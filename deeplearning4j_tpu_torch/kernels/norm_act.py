@@ -9,7 +9,8 @@ The kernel keeps the statistics in f32 and rounds once at the store, where
 the plain version (like JAX) rounds mu and var to the input dtype first, so
 the two agree to bf16 (f16) rounding in bf16 (f16) and to f32 roundoff in
 f32. The kernel takes f32, bf16 and f16 (the JAX package sends f16 to XLA,
-whose ops the plain version copies).
+whose ops the plain version copies), at any width F, as the JAX package
+does.
 
 With autograd recording, `layernorm_norm_act` runs through `LayerNormFn`:
 the forward is the kernel (the plain version on the CPU) and the backward
@@ -20,19 +21,23 @@ JAX package pairs its Pallas forward with the reference VJP
 `batchnorm_norm_act` is BatchNorm's seam (norm_act.py:140): normalize with
 given statistics, affine, activation. For a CUDA tensor it launches the
 kernel of `csrc/norm_act.cu` that replaces `_bn_kernel` (norm_act.py:96),
-with mean, var, gamma and beta cast to x's dtype as the Pallas path's
-`_vec` makes them (norm_act.py:126-129, :158-160), or, for an f16 x (which
-the JAX package sends to XLA, :38-44), kept in f32: an f16 BatchNorm rounds
-only y; for a CPU tensor it
-calls `batchnorm_plain`, `batchnorm_xla` (norm_act.py:75-80) op for op,
-where torch promotes as JAX does (a bf16 x with f32 running stats computes
-in f32). With autograd recording it runs through `BatchNormFn`, whose
-backward is the VJP of the plain ops for all five tensor inputs: the batch
-statistics are computed from x inside the differentiated function
-(`nn/layers/normalization.py`), so the gradient flows through them too.
+at any channel count, in one launch that takes mean, var, gamma and beta
+as they come (f32, bf16 or f16 tensors, or floats) and rounds them to x's
+dtype in registers as the Pallas path's `_vec` makes them
+(norm_act.py:126-129, :158-160), or, for an f16 x (which the JAX package
+sends to XLA, :38-44), keeps them in f32: an f16 BatchNorm rounds only y;
+for a CPU tensor it calls `batchnorm_plain`, `batchnorm_xla`
+(norm_act.py:75-80) op for op, where torch promotes as JAX does (a bf16 x
+with f32 running stats computes in f32). With autograd recording it runs
+through `BatchNormFn`, whose backward is the VJP of the plain ops for all
+five tensor inputs: the batch statistics are computed from x inside the
+differentiated function (`nn/layers/normalization.py`), so the gradient
+flows through them too.
 """
 
 from __future__ import annotations
+
+import numbers
 
 import torch
 
@@ -43,13 +48,10 @@ from deeplearning4j_tpu_torch.nn import activations
 _ACT_CODES = {"identity": 0, "relu": 1, "tanh": 2, "sigmoid": 3}
 # csrc/common.cuh's dtype codes (2 is int8, the bottleneck's weights).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
-_MAX_VECTORS = 8  # 16-byte loads per lane (csrc/norm_act.cu dispatch)
 _ACT_BY_KEY = {}  # activation as callers pass it -> its code
-# LayerNorm per dtype: (code, elements per 16-byte vector, widest F).
-_LN_DTYPES = {dt: (code, 16 // torch.tensor([], dtype=dt).element_size(),
-                   32 * (16 // torch.tensor([], dtype=dt).element_size())
-                   * _MAX_VECTORS)
-              for dt, code in DTYPE_CODES.items()}
+# How a BatchNorm vector reaches the C entry besides its dtype code
+# (csrc/norm_act.cu `kBroadcast`, `kByValue`).
+_BROADCAST, _BY_VALUE = 4, 8
 
 
 def _batchnorm_ops(x, mean, var, gamma, beta, eps, activation):
@@ -71,13 +73,21 @@ def batchnorm_norm_act(x, mean, var, gamma, beta, eps, activation):
     (NHWC channels, or features). x: [..., C]; mean, var, gamma, beta: [C]
     tensors (gamma and beta may be floats). Differentiable through
     `BatchNormFn` in all five."""
-    if _diff.needs_grad(*_tensors(x, mean, var, gamma, beta)):
+    if torch.is_grad_enabled() and _any_requires_grad(x, mean, var, gamma,
+                                                      beta):
         return BatchNormFn.apply(x, mean, var, gamma, beta, eps, activation)
     return _batchnorm_forward(x, mean, var, gamma, beta, eps, activation)
 
 
 def _tensors(*args):
     return [a for a in args if isinstance(a, torch.Tensor)]
+
+
+def _any_requires_grad(*args):
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.requires_grad:
+            return True
+    return False
 
 
 class BatchNormFn(torch.autograd.Function):
@@ -114,38 +124,69 @@ class BatchNormFn(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def _vec(v, feats, like, dtype):
-    """mean/var/gamma/beta as a contiguous [feats] vector at `dtype`
-    (`_vec`, norm_act.py:126): floats are broadcast."""
-    return torch.as_tensor(v, device=like.device).to(dtype).broadcast_to(
-        (feats,)).contiguous()
+def _vector_arg(a, feats, idx, name):
+    """(pointer, kind, value) of one of mean, var, gamma and beta as the C
+    entry takes it (csrc/norm_act.cu `BnVectors`): a contiguous [feats]
+    tensor on card `idx` by its own pointer and dtype code, a 0-d tensor
+    there by its pointer and code + 4 (read at every channel), a real
+    number by value (kind 8). Nothing is copied or cast."""
+    if isinstance(a, torch.Tensor):
+        code = DTYPE_CODES.get(a.dtype)
+        if code is None:
+            raise TypeError(f"batchnorm_norm_act: {name} must be float32, "
+                            f"bfloat16 or float16 on the card, not {a.dtype}")
+        if a.get_device() != idx:
+            raise ValueError(f"tensors on different devices: x on cuda:"
+                             f"{idx} and {name} on {a.device}")
+        if a.dim() == 0:
+            return a.data_ptr(), code | _BROADCAST, 0.0
+        if a.shape != (feats,) or not a.is_contiguous():
+            raise ValueError(f"batchnorm_norm_act: {name} must be a "
+                             f"contiguous [{feats}] tensor, a 0-d tensor or "
+                             f"a float; got {tuple(a.shape)}")
+        return a.data_ptr(), code, 0.0
+    if isinstance(a, numbers.Real) and not isinstance(a, bool):
+        return 0, _BY_VALUE, float(a)
+    raise TypeError(f"batchnorm_norm_act: {name} must be a tensor or a "
+                    f"float, not {type(a).__name__}")
 
 
 def _batchnorm_forward(x, mean, var, gamma, beta, eps, activation):
-    if kernels.placement(*_tensors(x, mean, var, gamma, beta)) == "cpu":
-        return batchnorm_plain(x, mean, var, gamma, beta, eps, activation)
-    _diff.refuse_grad("batchnorm_norm_act",
-                      *_tensors(x, mean, var, gamma, beta))
-    feats = x.shape[-1]
-    act = _act_code(activation)
-    if x.dtype not in DTYPE_CODES:
+    """The kernel for CUDA tensors, the plain version for CPU ones. One
+    launch a call and no other work on the card: the four vectors go to
+    the kernel as they are (`_vector_arg`), and the kernel rounds them in
+    registers as the Pallas path's `_vec` does (norm_act.py:126-129). The
+    launch path is kept short (ResNet-50's per-layer graph makes 53 of
+    these calls a forward): the checks in one pass, the device switched
+    only when it is not current, the raw stream handle."""
+    if not x.is_cuda:
+        if kernels.placement(*_tensors(x, mean, var, gamma, beta)) == "cpu":
+            return batchnorm_plain(x, mean, var, gamma, beta, eps,
+                                   activation)  # else placement raised
+    if torch.is_grad_enabled() and _any_requires_grad(x, mean, var, gamma,
+                                                      beta):
+        _diff.refuse_grad("batchnorm_norm_act",
+                          *_tensors(x, mean, var, gamma, beta))
+    code = DTYPE_CODES.get(x.dtype)
+    if code is None:
         raise TypeError(f"batchnorm_norm_act takes float32, bfloat16 or "
                         f"float16 on the card, not {x.dtype}")
-    vec = 16 // x.element_size()
-    if feats % vec:
-        raise ValueError(f"the kernel takes a channel count that is a "
-                         f"multiple of {vec}; got {feats}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("x must be contiguous and 16-byte aligned")
-    sdt = torch.float32 if x.dtype == torch.float16 else x.dtype
-    m, v, g, b = (_vec(a, feats, x, sdt) for a in (mean, var, gamma, beta))
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    idx = x.get_device()
+    feats = x.shape[-1]
+    act = _act_code(activation)
+    pm, km, vm = _vector_arg(mean, feats, idx, "mean")
+    pv, kv, vv = _vector_arg(var, feats, idx, "var")
+    pg, kg, vg = _vector_arg(gamma, feats, idx, "gamma")
+    pb, kb, vb = _vector_arg(beta, feats, idx, "beta")
     y = torch.empty_like(x)
-    rows = x.numel() // feats
-    with torch.cuda.device(x.device):
-        _build.launch("dl4j_batchnorm_norm_act", x.data_ptr(), m.data_ptr(),
-                      v.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
-                      rows, feats, float(eps), act, DTYPE_CODES[x.dtype],
-                      torch.cuda.current_stream(x.device).cuda_stream)
+    with _build.on_device(idx):
+        _build.launch("dl4j_batchnorm_norm_act", x.data_ptr(), pm, pv, pg,
+                      pb, y.data_ptr(), x.numel() // feats if feats else 0,
+                      feats, float(eps), act, code,
+                      km | kv << 4 | kg << 8 | kb << 12, vm, vv, vg, vb,
+                      _build.current_stream(idx))
     kernels.launches["batchnorm_norm_act"].add()
     return y
 
@@ -214,7 +255,8 @@ def _layernorm_forward(x, gamma, beta, eps, activation):
     """The kernel for CUDA tensors, the plain version for CPU ones. The
     launch path is kept short, since a decode step makes 9 of these calls
     on [slots, F]: device, gradient and shape checks in one pass, the
-    device switched only when it is not current, the raw stream handle."""
+    device switched only when it is not current, the raw stream handle.
+    Any width F: the C entry picks the form (csrc/norm_act.cu `launch`)."""
     idx = x.get_device()
     if not (x.is_cuda and gamma.get_device() == idx
             and beta.get_device() == idx):
@@ -225,29 +267,23 @@ def _layernorm_forward(x, gamma, beta, eps, activation):
         _diff.refuse_grad("layernorm_norm_act", x, gamma, beta)
     act = _act_code(activation)
     dt = x.dtype
-    if dt not in _LN_DTYPES:
+    code = DTYPE_CODES.get(dt)
+    if code is None:
         raise TypeError(f"layernorm_norm_act takes float32, bfloat16 or "
                         f"float16, not {dt}")
-    code, vec, widest = _LN_DTYPES[dt]
     if gamma.dtype != dt or beta.dtype != dt:
         raise TypeError("gamma and beta must have x's dtype")
     feats = x.shape[-1]
     if gamma.shape != (feats,) or beta.shape != (feats,):
         raise ValueError(f"gamma/beta must be [{feats}]")
-    if feats % vec or feats > widest:
-        raise ValueError(f"the kernel takes a feature width that is a "
-                         f"multiple of {vec} and at most {widest}; got "
-                         f"{feats}")
+    if not (x.is_contiguous() and gamma.is_contiguous()
+            and beta.is_contiguous()):
+        raise ValueError("x, gamma and beta must be contiguous")
     xp, gp, bp = x.data_ptr(), gamma.data_ptr(), beta.data_ptr()
-    if ((xp | gp | bp) % 16 or not (x.is_contiguous()
-                                    and gamma.is_contiguous()
-                                    and beta.is_contiguous())):
-        raise ValueError("x, gamma and beta must be contiguous and "
-                         "16-byte aligned")
     y = torch.empty_like(x)
     with _build.on_device(idx):
         _build.launch("dl4j_layernorm_norm_act", xp, gp, bp, y.data_ptr(),
-                      x.numel() // feats, feats, float(eps), act, code,
-                      _build.current_stream(idx))
+                      x.numel() // feats if feats else 0, feats,
+                      float(eps), act, code, _build.current_stream(idx))
     kernels.launches["layernorm_norm_act"].add()
     return y

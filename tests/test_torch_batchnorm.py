@@ -7,7 +7,10 @@ layer `batchnorm_apply`) against the JAX package, on the CPU.
 - the layer in training (single-pass batch statistics, EMA of the running
   statistics) and in inference (running statistics, where a bf16 x with f32
   statistics computes in f32 on both sides), forward and gradients against
-  `jax.vjp`, the gradient through the batch statistics included.
+  `jax.vjp`, the gradient through the batch statistics included;
+- without a card, the kernel wrapper's arguments to its C entry: the
+  inputs' own pointers and dtype codes (no copy, no cast), floats by
+  value, any channel count, and the vectors it refuses.
 
 Inputs come from one numpy RandomState and go to both packages.
 Tolerances: f32 1e-5 (the JAX parity matrix's); bf16 4e-2 forward; f32
@@ -67,7 +70,9 @@ def _both(arrs, dtype, stat_dtype=None):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("act", ["identity", "relu", "tanh", "sigmoid"])
-@pytest.mark.parametrize("shape", [(2, 5, 5, 16), (7, 24), (3, 4, 8)])
+@pytest.mark.parametrize("shape", [(2, 5, 5, 16), (7, 24), (3, 4, 8),
+                                   # channel counts the kernel used to refuse
+                                   (2, 4, 4, 3), (5, 10), (3, 2, 12)])
 def test_plain_matches_batchnorm_xla(dtype, act, shape):
     jd, td = _both(_inputs(shape), dtype)
     want = jax_norm_act.batchnorm_xla(jd["x"], jd["mean"], jd["var"],
@@ -204,9 +209,10 @@ def test_batchnorm_cpu_takes_the_plain_version_and_refuses_other_devices():
                                     1e-5, "relu")
 
 
-def test_kernel_wrapper_passes_the_c_entry_its_signature(monkeypatch):
-    # Without a card: the arguments the wrapper would hand the C entry
-    # against its ctypes signature, stats cast to x's dtype (`_vec`).
+def _fake_card(monkeypatch):
+    """The wrapper's launch path without a card: CPU tensors pass for CUDA
+    ones, and each C-entry call is checked against its ctypes signature
+    and recorded (its arguments) instead of launched."""
     from deeplearning4j_tpu_torch.kernels import _build
 
     calls = []
@@ -219,43 +225,70 @@ def test_kernel_wrapper_passes_the_c_entry_its_signature(monkeypatch):
         calls.append(args)
 
     monkeypatch.setattr(_build, "launch", fake_launch)
-    monkeypatch.setattr(kernels, "placement", lambda *ts: "cuda")
-    monkeypatch.setattr(torch.cuda, "device", lambda d: torch.no_grad())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    monkeypatch.setattr(_build, "on_device", lambda i: torch.no_grad())
+    monkeypatch.setattr(_build, "current_stream", lambda i: 0)
+    return calls
+
+
+def test_kernel_wrapper_passes_the_c_entry_its_signature(monkeypatch):
+    # Without a card: the arguments the wrapper hands the C entry against
+    # its ctypes signature. The vectors go as they are: their own pointers
+    # and dtype codes (no copy, no cast), a float by value (kind 8).
+    calls = _fake_card(monkeypatch)
     x = torch.zeros(2, 3, 3, 16, dtype=torch.bfloat16)
+    mean, var = torch.zeros(16), torch.ones(16, dtype=torch.float16)
     before = kernels.launches["batchnorm_norm_act"].value
-    norm_act._batchnorm_forward(x, torch.zeros(16), torch.ones(16), 1.0, 0.0,
-                                1e-5, "relu")
+    norm_act._batchnorm_forward(x, mean, var, 1.5, 0.0, 1e-5, "relu")
     assert kernels.launches["batchnorm_norm_act"].value == before + 1
     (args,) = calls
-    assert args[6:11] == (18, 16, 1e-5, 1, norm_act.DTYPE_CODES[x.dtype])
-    with pytest.raises(ValueError, match="multiple of 8"):
-        norm_act._batchnorm_forward(torch.zeros(4, 12, dtype=torch.bfloat16),
-                                    torch.zeros(12), torch.ones(12), 1.0, 0.0,
-                                    1e-5, "relu")
+    assert args[0] == x.data_ptr()
+    assert args[1:5] == (mean.data_ptr(), var.data_ptr(), 0, 0)
+    assert args[6:12] == (18, 16, 1e-5, 1, norm_act.DTYPE_CODES[x.dtype],
+                          0 | 3 << 4 | 8 << 8 | 8 << 12)
+    assert args[12:16] == (0.0, 0.0, 1.5, 0.0)
+    # Any channel count: C = 12 in bf16 (no multiple of 8) is taken.
+    x12, m12 = torch.zeros(4, 12, dtype=torch.bfloat16), torch.zeros(12)
+    norm_act._batchnorm_forward(x12, m12, torch.ones(12), 1.0, 0.0, 1e-5,
+                                "relu")
+    assert calls[-1][0] == x12.data_ptr() and calls[-1][6:8] == (4, 12)
+    assert kernels.launches["batchnorm_norm_act"].value == before + 2
 
 
 def test_kernel_wrapper_keeps_f16_statistics_in_f32(monkeypatch):
-    # f16 x: the wrapper hands the C entry f16's code and the four vectors
-    # in f32 (never rounded to f16), whatever dtype they came in.
-    from deeplearning4j_tpu_torch.kernels import _build
-
-    calls, vecs = [], []
-    monkeypatch.setattr(_build, "launch",
-                        lambda name, *args: calls.append(args))
-    monkeypatch.setattr(kernels, "placement", lambda *ts: "cuda")
-    monkeypatch.setattr(torch.cuda, "device", lambda d: torch.no_grad())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d: type("S", (), {"cuda_stream": 0})())
-    real_vec = norm_act._vec
-    monkeypatch.setattr(norm_act, "_vec", lambda *a: vecs.append(
-        real_vec(*a)) or vecs[-1])
+    # f16 x: the wrapper hands the C entry f16's code and the f32 vectors
+    # as they are (never rounded to f16: the kernel reads them in f32), the
+    # f16 ones as f16 (widened exactly), a 0-d tensor with the broadcast
+    # kind.
+    calls = _fake_card(monkeypatch)
     x = torch.zeros(2, 3, 3, 16, dtype=torch.float16)
     mean = torch.full((16,), 1.0 / 3.0)  # no f16 value
-    norm_act._batchnorm_forward(x, mean, torch.ones(16, dtype=torch.float16),
-                                1.0, 0.0, 1e-5, "relu")
+    var = torch.ones(16, dtype=torch.float16)
+    gamma = torch.tensor(2.0)
+    norm_act._batchnorm_forward(x, mean, var, gamma, 0.25, 1e-5, "relu")
     (args,) = calls
     assert args[10] == norm_act.DTYPE_CODES[torch.float16] == 3
-    assert [v.dtype for v in vecs] == [torch.float32] * 4
-    assert torch.equal(vecs[0], mean)
+    assert args[1:4] == (mean.data_ptr(), var.data_ptr(), gamma.data_ptr())
+    assert args[11] == 0 | 3 << 4 | (0 | 4) << 8 | 8 << 12
+    assert args[15] == 0.25
+    assert mean.dtype == torch.float32 and torch.equal(
+        mean, torch.full((16,), 1.0 / 3.0))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (torch.zeros(8), "contiguous \\[16\\] tensor"),
+    (torch.zeros(16, 2)[:, 0], "contiguous \\[16\\] tensor"),
+    (torch.zeros(1), "contiguous \\[16\\] tensor"),
+    (torch.zeros(16, dtype=torch.float64), "float32, bfloat16 or float16"),
+    ("1.0", "a tensor or a float"),
+])
+def test_kernel_wrapper_refuses_a_vector_it_cannot_take(monkeypatch, bad,
+                                                        match):
+    calls = _fake_card(monkeypatch)
+    x = torch.zeros(4, 16, dtype=torch.bfloat16)
+    before = kernels.launches["batchnorm_norm_act"].value
+    with pytest.raises((ValueError, TypeError), match=match):
+        norm_act._batchnorm_forward(x, torch.zeros(16), bad, 1.0, 0.0, 1e-5,
+                                    "relu")
+    assert not calls
+    assert kernels.launches["batchnorm_norm_act"].value == before

@@ -231,10 +231,15 @@ def test_paged_wrapper_never_syncs_the_host(cuda):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    x = torch.zeros(4, 10, device=cuda)  # 10 % 4 != 0: no 16-byte rows
+    # F = 10 in f32 (no 16-byte rows) is taken, in single elements; a
+    # non-contiguous x is not.
+    x = _t(np.random.RandomState(1).randn(4, 10), torch.float32, cuda)
     g = torch.ones(10, device=cuda)
+    _close(norm_act.layernorm_norm_act(x, g, g, 1e-5, "identity"),
+           norm_act.layernorm_plain(x, g, g, 1e-5, "identity"), torch.float32)
     with pytest.raises(ValueError):
-        norm_act.layernorm_norm_act(x, g, g, 1e-5, "identity")
+        norm_act.layernorm_norm_act(x.t().contiguous().t(), g, g, 1e-5,
+                                    "identity")
     q = torch.zeros(1, 8, 2, 160, device=cuda)  # D > 128
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
@@ -685,8 +690,10 @@ def test_launch_counts_from_two_threads_add_up(cuda):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,chans", [(2 * 112 * 112, 64), (7, 2048),
-                                        (3, 8), (64, 256)])
+@pytest.mark.parametrize("rows,chans", [
+    (2 * 112 * 112, 64), (7, 2048), (3, 8), (64, 256),
+    # channel counts no multiple of the 16-byte vector, or several tiles
+    *((r, c) for c in (3, 12, 72, 1000) for r in (1, 5))])
 @pytest.mark.parametrize("act", ["identity", "relu", "tanh", "sigmoid"])
 def test_batchnorm_kernel_matches_plain(cuda, dtype, rows, chans, act):
     rng = np.random.RandomState(10)
@@ -714,6 +721,87 @@ def test_batchnorm_kernel_casts_running_stats_and_constants(cuda):
     want = norm_act.batchnorm_plain(x, m, v, 1.0, 0.0, 1e-5, "relu")
     assert want.dtype == torch.float32
     _close(got, want, torch.bfloat16, RESNET_TOL)
+
+
+# How the layers hand BatchNorm its vectors, by (mean, var, gamma, beta):
+# batch statistics at x's dtype, f32 running statistics, f16 ones, floats
+# (lock_gamma_beta) and 0-d tensors, mixed.
+BN_MIXES = [("f32",) * 4, ("bf16",) * 4, ("f16",) * 4,
+            ("f32", "f32", "bf16", "bf16"), ("f32", "f32", "f16", "f16"),
+            ("f16", "bf16", "f32", "0d"), ("f32", "f32", "float", "float"),
+            ("0d", "0d", "float", "f16")]
+BN_VEC_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                 "f16": torch.float16}
+
+
+def _bn_vectors(rng, chans, mix, dev):
+    """mean, var, gamma, beta of the kinds in `mix`, and the same values
+    as the kernel's own dtype used to be handed them (the Pallas path's
+    `_vec`: each a [chans] tensor cast to `like`'s dtype, or f32 for an
+    f16 x)."""
+    vals = [rng.randn(chans) * 0.3, rng.rand(chans) + 0.2,
+            rng.rand(chans) + 0.5, rng.randn(chans)]
+    out = []
+    for v, kind in zip(vals, mix):
+        if kind == "float":
+            out.append(float(v[0]))
+        elif kind == "0d":
+            out.append(torch.tensor(float(v[0]), device=dev))
+        else:
+            out.append(_t(v, BN_VEC_DTYPES[kind], dev))
+    return out
+
+
+def _as_vec(v, chans, dtype, dev):
+    sdt = torch.float32 if dtype == torch.float16 else dtype
+    return torch.as_tensor(v, device=dev).to(sdt).broadcast_to(
+        (chans,)).contiguous()
+
+
+@pytest.mark.parametrize("dtype", DTYPES + [torch.float16])
+@pytest.mark.parametrize("mix", BN_MIXES, ids="-".join)
+@pytest.mark.parametrize("rows,chans", [(37, 72), (5, 10)])
+def test_batchnorm_kernel_takes_vectors_of_any_dtype_bit_for_bit(
+        cuda, dtype, mix, rows, chans):
+    # The kernel rounds each vector in registers as `_vec` rounded it
+    # before the launch (to x's dtype; f32 for an f16 x): y equals, bit for
+    # bit, the call on the vectors cast beforehand.
+    rng = np.random.RandomState(13)
+    x = _t(rng.randn(rows, chans) * 2 + 0.5, dtype, cuda)
+    vecs = _bn_vectors(rng, chans, mix, cuda)
+    cast = [_as_vec(v, chans, dtype, cuda) for v in vecs]
+    got = norm_act.batchnorm_norm_act(x, *vecs, 1e-5, "relu")
+    want = norm_act.batchnorm_norm_act(x, *cast, 1e-5, "relu")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES + [torch.float16])
+@pytest.mark.parametrize("mix", BN_MIXES, ids="-".join)
+def test_batchnorm_makes_one_cuda_kernel_a_call(cuda, dtype, mix):
+    # No cast or copy kernel beside it, whatever the vectors' dtypes.
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(14)
+    x = _t(rng.randn(4 * 56 * 56, 256), dtype, cuda)
+    vecs = _bn_vectors(rng, 256, mix, cuda)
+    norm_act.batchnorm_norm_act(x, *vecs, 1e-5, "identity")
+    torch.cuda.synchronize()
+    calls = 5
+    # The profiler can drop a kernel from its window, never add one: a
+    # window short of `calls` kernels is taken again (a cast or copy kernel
+    # would show in every window as one too many).
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                norm_act.batchnorm_norm_act(x, *vecs, 1e-5, "identity")
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) >= calls:
+            break
+    assert len(names) == calls, names
+    assert all("batchnorm_kernel" in n for n in names), names
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -2124,6 +2212,37 @@ def test_layernorm_kernel_in_f16_matches_plain(cuda, rows, feats):
     assert got.dtype == torch.float16
     _close(got, norm_act.layernorm_plain(x, g, b, 1e-5, "identity"),
            torch.float16, {torch.float16: 1e-2})
+
+
+@pytest.mark.parametrize("dtype", DTYPES + [torch.float16])
+@pytest.mark.parametrize("rows,feats", [(9, 100), (9, 520), (5, 4096),
+                                        (3, 8192), (2, 4100), (3, 3)])
+def test_layernorm_kernel_takes_any_width(cuda, dtype, rows, feats):
+    # Ragged widths (single-element loads or a block a row), and widths
+    # past a warp's reach (a block a row, staged in shared memory).
+    rng = np.random.RandomState(2)
+    x = _t(rng.randn(rows, feats) * 2 + 0.5, dtype, cuda)
+    g = _t(rng.rand(feats) + 0.5, dtype, cuda)
+    b = _t(rng.randn(feats), dtype, cuda)
+    before = kernels.launches["layernorm_norm_act"].value
+    got = norm_act.layernorm_norm_act(x, g, b, 1e-5, "relu")
+    assert kernels.launches["layernorm_norm_act"].value == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, norm_act.layernorm_plain(x, g, b, 1e-5, "relu"), dtype,
+           {**TOL, torch.float16: 1e-2})
+
+
+def test_layernorm_kernel_takes_a_misaligned_row(cuda):
+    # A view one element into its storage: narrower loads, the same
+    # values as the aligned copy.
+    rng = np.random.RandomState(3)
+    base = _t(rng.randn(4 * 512 + 1), torch.bfloat16, cuda)
+    x = base[1:].view(4, 512)
+    g = _t(rng.rand(512) + 0.5, torch.bfloat16, cuda)
+    b = _t(rng.randn(512), torch.bfloat16, cuda)
+    got = norm_act.layernorm_norm_act(x, g, b, 1e-5, "identity")
+    _close(got, norm_act.layernorm_plain(x, g, b, 1e-5, "identity"),
+           torch.bfloat16)
 
 
 def _row_rel(got, want, floor=0.1):

@@ -1,5 +1,7 @@
 """Port `layernorm_norm_act` (CPU: its plain version) against the JAX
-package's `layernorm_norm_act` running its Pallas kernel in interpret mode.
+package's `layernorm_norm_act` running its Pallas kernel in interpret mode,
+at any width; and, without a card, the kernel wrapper handing every width
+to its C entry.
 
 Inputs come from one numpy RandomState and go to both packages. Tolerances
 as the JAX package's own parity matrix (tests/test_kernels.py): f32 1e-5,
@@ -72,3 +74,48 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="different devices"):
         norm_act.layernorm_norm_act(torch.zeros(3, 8), x[0], x[0], 1e-5,
                                     "identity")
+
+
+WIDE = [100, 520, 4096, 8192]  # widths past the warp's reach, or ragged
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("feats", WIDE)
+def test_layernorm_matches_jax_kernel_at_any_width(monkeypatch, dtype,
+                                                   feats):
+    got, want = _pair(monkeypatch, (3, feats), dtype, "relu", seed=7)
+    np.testing.assert_allclose(got.float().numpy(), want, **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("feats", WIDE)
+def test_kernel_wrapper_hands_any_width_to_the_c_entry(monkeypatch, dtype,
+                                                       feats):
+    # Without a card: the wrapper refuses no width (the C entry picks the
+    # kernel's form) and hands it the inputs' own pointers.
+    from deeplearning4j_tpu_torch.kernels import _build
+
+    calls = []
+
+    def fake_launch(name, *args):
+        sig = _build._SIGNATURES[name]
+        assert len(args) == len(sig)
+        for a, t in zip(args, sig):
+            assert isinstance(a, float if t is _build._F else int), (name, a)
+        calls.append((name, args))
+
+    monkeypatch.setattr(_build, "launch", fake_launch)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    monkeypatch.setattr(_build, "on_device", lambda i: torch.no_grad())
+    monkeypatch.setattr(_build, "current_stream", lambda i: 0)
+    x = torch.zeros(5, feats, dtype=dtype)
+    g, b = torch.ones(feats, dtype=dtype), torch.zeros(feats, dtype=dtype)
+    before = kernels.launches["layernorm_norm_act"].value
+    norm_act.layernorm_norm_act(x, g, b, 1e-5, "tanh")
+    assert kernels.launches["layernorm_norm_act"].value == before + 1
+    ((name, args),) = calls
+    assert name == "dl4j_layernorm_norm_act"
+    assert args[:3] == (x.data_ptr(), g.data_ptr(), b.data_ptr())
+    assert args[4:6] == (5, feats)
+    assert args[7:9] == (2, norm_act.DTYPE_CODES[dtype])
