@@ -539,6 +539,44 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               op on the host (no pass over deltas; its one launch per
               update is held by the phases' launch counts).
 
+Run before trace, the training tooling (slice 15):
+39. f64_kernels - the float64 forms of rows 1, 2 and 10 (row 1 at
+              [16384, 512], row 2 at T1's s0, row 10 at B=32 n=256 with
+              peepholes) against their plain versions at 1e-12 relative,
+              beside F.layer_norm and F.batch_norm in float64.
+40. lstm_softmax - row 10 with softmax gates (the "z out" launch and the
+              row kernel `lstm_cell_rows`) at B=32 n=256 in f32, bf16,
+              f16 and f64, with and without peepholes and mask, each by
+              its worst row's relative error, below a limit that its
+              planted faults read above (SOFTMAX_TOL); a
+              registered gate activation (the user's function after the
+              "z out" launch); the char-RNN with softmax gates, one tBPTT
+              call card against CPU.
+41. superstep - K steps captured as one CUDA graph and replayed, each run
+              bit for bit its per-batch card run: LeNet (B=512, K=8, 16
+              batches in a DeviceCacheDataSetIterator, 2 epochs), an MLP
+              with dropout, BatchNorm and Adam on a step schedule (K=4, 11
+              batches through an AsyncDataSetIterator: a tail of 3, 2
+              epochs), the LM at full width on ComputationGraph (K=4, 8
+              steps, 2 epochs); each signature captured once; a replay
+              counts K steps' launches, and a profiled replay runs K x
+              the port kernels of a profiled step; ms a step both ways
+              over the last epoch; then
+              row 9's device-scalar form at the LM's 66 tensors, bit for
+              bit its host form, beside `torch._fused_adam_`.
+42. solvers - L-BFGS, conjugate gradient and line gradient descent on the
+              MNIST MLP (B=128, 5 iterations a call), a graph under
+              L-BFGS, the char-RNN under L-BFGS: the first objective and
+              gradient against the CPU, scores that never rise.
+43. train_stats - LeNet, 3 steps under a stats listener: the stats against
+              the CPU's, the params bit for bit a plain run's.
+44. gradcheck_f64 - `check_gradients` on the card on the reference
+              suite's BatchNorm, GravesLSTM (masked too), LayerNorm and
+              softmax-gate LSTM nets, through rows 1, 2 and 10 in float64.
+45. eval    - LeNet's card outputs through ROCMultiClass,
+              EvaluationBinary and RegressionEvaluation, equal to the same
+              evaluations of the outputs on the CPU.
+
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
 rnn_sample, lenet_train, mlp_train, dsl, ckpt, serving, long_serve,
@@ -547,8 +585,12 @@ unmasked_step, moe_train, moe_output, moe_decode, pretrain_vae,
 pretrain_ae_rbm, pretrain_lenet_center_loss, pretrain_mlp_loss_layer,
 f16_train, f16_output, bf16_train, int8_output, int8_predict,
 graph_tbptt, graph_sample, lstm_acts_train, f16_rnn_train, f16_t2, f16_i1,
-f16_int8, f16_serve, f16_long_train, f16_long_output; the f16 form of
-rows 1-8 and 10-12 under `f16`, row 10's 16 activations under
+f16_int8, f16_serve, f16_long_train, f16_long_output, lstm_softmax_rnn,
+superstep_lenet, superstep_mlp_dropout_adam, superstep_lm, the five
+solver runs, train_stats and the five gradcheck nets; rows 1, 2 and 10's
+float64 forms under `f64`, row 9's device-scalar form under
+`device_scalars`, `lstm_cell_rows` in four dtypes under `forms`; the f16
+form of rows 1-8 and 10-12 under `f16`, row 10's 16 activations under
 `activations`, row 9's skip flag and low-precision mode under
 `precision_modes`;
 row 8's, row 12's and row 2's serving shapes under
@@ -583,6 +625,10 @@ TOL = {"bfloat16": 4e-2, "float16": 1e-2, "float32": 1e-4}
 BELOW_BOUND_REPS = 200
 # Profiler windows taken, at most, until one sees every kernel of its calls.
 PROFILER_WINDOWS = 3
+# Windows a profiled superstep replay, or the step it is held to, may take
+# (`port_kernels_run`).
+REPLAY_WINDOWS = 6
+PAD_KERNELS = 16
 # Copies of the input that row 1's timed calls at the LM step's shape
 # take in turn, so that none is still in the L2 (50 MB) at its next read.
 L2_COPIES = 8
@@ -619,6 +665,9 @@ KERNEL_INFO = {
                                       FA + "551"),
     "flash_attention_bwd_dkv_stream": (ROOT + "flash_attention_stream.cu",
                                        FA + "595"),
+    # Row 10's softmax gate math (the second launch of a softmax cell).
+    "lstm_cell_rows": (ROOT + "lstm_cell.cu",
+                       "deeplearning4j_tpu/kernels/lstm_cell.py:119"),
 }
 SERVING_KERNELS = ("layernorm_norm_act", "flash_attention",
                    "paged_decode_attention")
@@ -7240,6 +7289,970 @@ def phase_f16_rnn(card, torch, kernels, dev):
     return ok, rows, {"f16_rnn_train": counts["launches"]}
 
 
+# ----------------------------------------------- training tooling (slice 15)
+# Superstep training as a captured CUDA graph, the solvers, the training
+# statistics, the evaluations, float64 gradient checks through the float64
+# forms of rows 1, 2 and 10, and softmax / callable LSTM cells.
+
+SUPER_LENET = dict(b=512, k=8, batches=16, epochs=2)
+SUPER_MLP = dict(b=128, k=4, batches=11, epochs=2)
+SUPER_LM = dict(b=TRAIN_B, k=4, steps=8, epochs=2)
+SOLVER_ALGOS = ("lbfgs", "conjugate_gradient", "line_gradient_descent")
+SOLVER_B, SOLVER_ITERS, SOLVER_CALLS = 128, 5, 3
+# The first objective and its flat gradient, card against CPU (f32 sums in
+# another order; TF32 off): relative to the largest gradient entry.
+SOLVER_TOL = 1e-4
+STATS_STEPS, STATS_B = 3, 64
+STATS_TOL = 1e-4       # stats card vs CPU, relative, f32
+F64_REL_TOL = 1e-12    # the float64 forms against their plain versions
+# Row 10's softmax forms against their plain version, by `row_rel_err`:
+# over n = 256 units a softmax gate is about 1/n, so h and c are small and
+# a limit on the absolute error would pass a cell that wrote h = 0. The
+# kernels compute in f32 (f64) and round each output once, so a sound
+# cell reads at most half an ulp of the dtype relative to the row's
+# largest value (2^-8 in bf16, 2^-11 in f16) plus the f32 sums' order;
+# each limit lies above that and below what the planted faults of
+# `softmax_faults` read. The phase prints both readings on the card;
+# tests/test_torch_lstm_softmax.py holds both on the CPU. Not seen: the
+# o gate's peephole term at these operands is as small as bf16's rounding,
+# so bf16 is not held to catch its loss (the f32, f16 and f64 forms, the
+# same kernel code, are).
+SOFTMAX_TOL = {"float32": 1e-5, "bfloat16": 5e-3, "float16": 1e-3,
+               "float64": 1e-12}
+SOFTMAX_BLIND = {"bfloat16": ("o peephole dropped",)}
+PEAK_OPS_S["float64"] = 34e12  # H100 SXM, f64 on the CUDA cores
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want| (0 for an all-zero want)."""
+    scale = float(want.double().abs().max()) or 1.0
+    return float((got.double() - want.double()).abs().max()) / scale
+
+
+def row_rel_err(got, want):
+    """The worst row of any of `got`'s tensors: its largest |got - want|
+    over its largest |want| (over 1 for a row of zeros), each tensor's
+    rows along its last dimension."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.double(), w.double()
+        scale = w.abs().amax(-1)
+        scale = scale.where(scale > 0, scale.new_ones(()))
+        worst = max(worst, float(((g - w).abs().amax(-1) / scale).max()))
+    return worst
+
+
+def softmax_faults(torch, lc, ref, gate, act, dtype):
+    """What a softmax cell with a planted fault would return on the cell
+    operands `ref` (f32 for bf16 and f16, else in `dtype`), rounded to
+    `dtype` as a kernel's outputs are: {fault: (h, c, out)}. The faults:
+    h (and out) zeroed; softmax over each half of a gate's units (a
+    reduction that stops at a block's edge); the o gate's peephole dropped
+    (with peepholes); the mask ignored (with a mask)."""
+    dt = getattr(torch, dtype)
+    ref = tuple(ref)
+    n = ref[1].shape[-1]
+
+    def half(t):
+        return torch.softmax(t.unflatten(-1, (2, n // 2)), -1).flatten(-2)
+
+    def cell(args, g=gate, a=act):
+        return tuple(t.to(dt) for t in lc.lstm_cell_plain(*args, g, a))
+    want = cell(ref)
+    out = {"h zeroed": (want[0] * 0, want[1], want[2] * 0),
+           "softmax over half the units": cell(
+               ref, half if gate == "softmax" else gate,
+               half if act == "softmax" else act)}
+    if ref[4] is not None:
+        pw = ref[4].clone()
+        pw[2 * n:] = 0
+        out["o peephole dropped"] = cell(ref[:4] + (pw, ref[5]))
+    if ref[5] is not None:
+        out["mask ignored"] = cell(ref[:5] + (None,))
+    return out
+
+
+def _form_row(card, torch, phase, name, dtype, shape, kern, plain, err, ok,
+              nbytes, ops, lib=None, **extra):
+    """A kernel form's row: timed beside its plain version, its bound and
+    its library call (None where none computes the same function)."""
+    bound_ms, bound_by = bound(nbytes, ops, dtype)
+    lib_ms, lib_dev_ms, lib_error = _safe_lib_ms(torch, lib)
+    dev_ms, _, dev_note = device_reading(torch, kern, bound_ms)
+    extra["device_ms_below_bound"] = dev_note
+    row = {"name": name, "dtype": dtype, "shape": shape, "max_abs_err": err,
+           "ok": ok, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+           "library_error": lib_error, "library_device_ms": lib_dev_ms,
+           "host_ms": host_ms(kern), "device_ms": dev_ms,
+           "bound_share_by_device": bound_share(bound_ms, dev_ms), **extra}
+    emit(card, phase=phase, **row)
+    return row
+
+
+def phase_f64_kernels(card, torch, dev):
+    """The float64 forms of rows 1, 2 and 10 at their widest shapes here
+    (row 1 at the LM step's [16384, 512]; row 2 at T1's s0 BatchNorm, [256 *
+    56 * 56, 256]; row 10 at the char-RNN's B=32, n=256 with peepholes),
+    each against its plain version at 1e-12 relative (max |err| over max
+    |want|); libraries: F.layer_norm (the row's activation is identity)
+    and F.batch_norm with the running statistics (without the row's
+    relu), in float64."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+    from deeplearning4j_tpu_torch.kernels import norm_act
+
+    f64 = torch.float64
+    g = torch.Generator(device=dev).manual_seed(64)
+    rows = []
+    x = torch.randn(16384, D_MODEL, generator=g, device=dev, dtype=f64)
+    gam = torch.rand(D_MODEL, generator=g, device=dev, dtype=f64) + 0.5
+    bet = torch.randn(D_MODEL, generator=g, device=dev, dtype=f64)
+    kern = lambda: norm_act.layernorm_norm_act(x, gam, bet, 1e-5,  # noqa
+                                               "identity")
+    plain = lambda: norm_act.layernorm_plain(x, gam, bet, 1e-5,  # noqa
+                                             "identity")
+    err = _rel_err(kern(), plain())
+    rows.append(_form_row(
+        card, torch, "f64_kernels", "layernorm_norm_act", "float64",
+        f"[16384,{D_MODEL}]", kern, plain, err, err <= F64_REL_TOL,
+        2 * x.numel() * 8 + 2 * D_MODEL * 8, 8 * x.numel(),
+        lambda: F.layer_norm(x, (D_MODEL,), gam, bet, 1e-5),
+        tolerance=f"relative {F64_REL_TOL}"))
+    del x
+    rows_bn, ch = RN_PATHS["t1"][2] * 56 * 56, 256
+    x = torch.randn(rows_bn, ch, generator=g, device=dev, dtype=f64)
+    m = torch.randn(ch, generator=g, device=dev, dtype=f64) * 0.1
+    v = torch.rand(ch, generator=g, device=dev, dtype=f64) + 0.5
+    gam = torch.rand(ch, generator=g, device=dev, dtype=f64) + 0.5
+    bet = torch.randn(ch, generator=g, device=dev, dtype=f64)
+    kern = lambda: norm_act.batchnorm_norm_act(x, m, v, gam, bet,  # noqa
+                                               1e-5, "relu")
+    plain = lambda: norm_act.batchnorm_plain(x, m, v, gam, bet, 1e-5,  # noqa
+                                             "relu")
+    err = _rel_err(kern(), plain())
+    rows.append(_form_row(
+        card, torch, "f64_kernels", "batchnorm_norm_act", "float64",
+        f"s0 c_bn [{RN_PATHS['t1'][2]}*56*56,{ch}]", kern, plain, err,
+        err <= F64_REL_TOL, 2 * x.numel() * 8 + 4 * ch * 8, 5 * x.numel(),
+        lambda: F.batch_norm(x, m, v, gam, bet, False, 0.0, 1e-5),
+        tolerance=f"relative {F64_REL_TOL}",
+        library_covers="F.batch_norm without the relu (one call)"))
+    del x
+    torch.cuda.empty_cache()
+    b, n = RNN_B, RNN_H
+    xw = torch.randn(b, RNN_CHUNK, 4 * n, generator=g, device=dev,
+                     dtype=f64).unbind(1)[7]
+    h = torch.randn(b, n, generator=g, device=dev, dtype=f64) * 0.5
+    c = torch.randn(b, n, generator=g, device=dev, dtype=f64)
+    rw = torch.randn(n, 4 * n, generator=g, device=dev, dtype=f64) * n ** -.5
+    pw = torch.randn(3 * n, generator=g, device=dev, dtype=f64) * 0.3
+    args = (xw, h, c, rw, pw, None)
+    kern = lambda: lc.lstm_cell(*args, "sigmoid", "tanh")  # noqa
+    plain = lambda: lc.lstm_cell_plain(*args, "sigmoid", "tanh")  # noqa
+    err = max(_rel_err(a, w) for a, w in zip(kern(), plain()))
+    rows.append(_form_row(
+        card, torch, "f64_kernels", "lstm_cell", "float64",
+        f"B={b} n={n} peephole", kern, plain, err, err <= F64_REL_TOL,
+        (b * 4 * n + 2 * b * n + 4 * n * n + 3 * n + 2 * b * n) * 8,
+        2 * b * n * 4 * n + 25 * b * n, None,
+        tolerance=f"relative {F64_REL_TOL}"))
+    return rows
+
+
+def _softmax_case(torch, dev, dtype, peep, masked, seed):
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, n = RNN_B, RNN_H
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev,
+                            dtype=torch.float64) * scale).to(dt)
+    xw = rnd(b, RNN_CHUNK, 4 * n).unbind(1)[7]
+    args = (xw, rnd(b, n, scale=0.5), rnd(b, n), rnd(n, 4 * n, scale=n ** -.5),
+            rnd(3 * n, scale=0.3) if peep else None,
+            (torch.rand(b, generator=g, device=dev) < 0.7).to(dt)
+            if masked else None)
+    ref = tuple(None if a is None else a.float() for a in args) \
+        if dtype in ("bfloat16", "float16") else args
+    es = torch.tensor([], dtype=dt).element_size()
+    nbytes = (b * 4 * n + 2 * b * n + 4 * n * n + (3 * n if peep else 0)
+              + (b if masked else 0) + 3 * b * n) * es
+    return (lambda: lc.lstm_cell(*args, "softmax", "tanh"),
+            lambda: lc.lstm_cell_plain(*args, "softmax", "tanh"),
+            ref, nbytes, 2 * b * n * 4 * n + 30 * b * n)
+
+
+def phase_lstm_softmax(card, torch, kernels, dev):
+    """Row 10 with softmax gates (the "z out" launch, then the row kernel
+    `lstm_cell_rows`) at B=32, n=256, with and without peepholes and mask,
+    in f32, bf16, f16 and f64, each held to its plain version (bf16 and
+    f16 to the plain version in f32 on the same inputs) by `row_rel_err`
+    within SOFTMAX_TOL, and each planted fault of `softmax_faults` read
+    above that limit (but those of SOFTMAX_BLIND); a registered
+    activation's cell (the "z out" launch and the user's function) held
+    to the plain version; and the char-RNN with softmax gates, one tBPTT
+    `fit` call card against CPU (`rnn_fit_parity`), its launches counted
+    from 0. Returns (ok, rows, path launches)."""
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+    from deeplearning4j_tpu_torch.nn import activations
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    rows, ok = [], True
+    for dtype in ("float32", "bfloat16", "float16", "float64"):
+        for peep, masked in ((True, False), (False, True)):
+            kern, plain, ref, nbytes, ops = _softmax_case(
+                torch, dev, dtype, peep, masked, 7 + peep)
+            got = kern()
+            want = lc.lstm_cell_plain(*ref, "softmax", "tanh")
+            torch.cuda.synchronize()
+            rel = row_rel_err(got, want)
+            abs_err = max(float((g.double() - w.double()).abs().max())
+                          for g, w in zip(got, want))
+            faults = {f: row_rel_err(o, want) for f, o in softmax_faults(
+                torch, lc, ref, "softmax", "tanh", dtype).items()}
+            good = rel <= SOFTMAX_TOL[dtype] and all(
+                e > SOFTMAX_TOL[dtype] for f, e in faults.items()
+                if f not in SOFTMAX_BLIND.get(dtype, ()))
+            ok &= good
+            rows.append(_form_row(
+                card, torch, "lstm_softmax", "lstm_cell_rows", dtype,
+                f"B={RNN_B} n={RNN_H} softmax gates"
+                + (" peephole" if peep else "") + (" masked" if masked
+                                                   else ""),
+                kern, plain, abs_err, good, nbytes, ops, None,
+                covers="the whole softmax cell: the z-out launch of "
+                       "lstm_cell and the lstm_cell_rows launch",
+                row_rel_err=rel, limit=SOFTMAX_TOL[dtype],
+                planted_faults=faults))
+    activations.register("chip_halfsig", lambda t: 0.5 * torch.sigmoid(t))
+    g = torch.Generator(device=dev).manual_seed(9)
+    b, n = RNN_B, RNN_H
+    cargs = (torch.randn(b, 4 * n, generator=g, device=dev),
+             torch.randn(b, n, generator=g, device=dev),
+             torch.randn(b, n, generator=g, device=dev),
+             torch.randn(n, 4 * n, generator=g, device=dev) * n ** -0.5,
+             torch.randn(3 * n, generator=g, device=dev) * 0.3, None)
+    kernels.reset_counts()
+    got = lc.lstm_cell(*cargs, "chip_halfsig", "tanh")
+    torch.cuda.synchronize()
+    callable_counts = kernels.counts()
+    err, good = compare(got, lc.lstm_cell_plain(*cargs, "chip_halfsig",
+                                                "tanh"), "float32")
+    good &= (callable_counts["variants"]["lstm_cell"]["callable"] == 1
+             and callable_counts["launches"]["lstm_cell"] == 1)
+    ok &= good
+    emit(card, phase="lstm_softmax", case="registered gate activation",
+         max_abs_err=err, ok=good, counts=callable_counts["variants"][
+             "lstm_cell"])
+
+    def conf_fn():
+        conf = _rnn_conf()
+        for layer in conf.layers:
+            if hasattr(layer, "gate_activation"):
+                layer.gate_activation = "softmax"
+        return conf
+    kernels.reset_counts()
+    errors, report = rnn_fit_parity(torch, dev, MultiLayerNetwork, conf_fn,
+                                    RNN_PARITY_B, RNN_T)
+    torch.cuda.synchronize()
+    path = kernels.counts()["launches"]
+    if path["lstm_cell_rows"] == 0:
+        errors.append("the softmax char-RNN launched no lstm_cell_rows")
+    ok &= not errors
+    emit(card, phase="lstm_softmax", case="char-RNN softmax gates, one "
+         "tBPTT call card vs CPU", ok=not errors, errors=errors,
+         launches=path, **report)
+    return ok, rows, {"lstm_softmax_rnn": path}
+
+
+def _superstep_pair(torch, kernels, dev, make_net, data_fn, epochs=1):
+    """The same net fit per batch (K = 0) and by superstep on the card,
+    each from its conf's seed over `data_fn()` (a fresh iterator), with a
+    score-collecting listener: (per-batch net, superstep net, per-batch ms
+    a step, superstep ms a step (both over the last epoch), the superstep
+    run's launches from 0, the per-batch run's)."""
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener,
+    )
+
+    out = []
+    for k in (0, None):
+        net = make_net(k)
+        net.set_listeners(CollectScoresIterationListener())
+        data = data_fn()
+        kernels.reset_counts()
+        for e in range(epochs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps0 = net.iteration
+            net.fit(data)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / max(1, net.iteration
+                                                        - steps0)
+        out.append((net, ms, kernels.counts()))
+    (plain, plain_ms, plain_c), (sup, sup_ms, sup_c) = out
+    return plain, sup, plain_ms, sup_ms, sup_c, plain_c
+
+
+def _bitwise_errors(torch, a, b):
+    errors = []
+    if not np.array_equal(a.params(), b.params()):
+        errors.append("params differ")
+    if not np.array_equal(a.updater_state_flat(), b.updater_state_flat()):
+        errors.append("updater state differs")
+    for lk, s in a.state.items():
+        for key, t in s.items():
+            if not torch.equal(t, b.state[lk][key]):
+                errors.append(f"state {lk}/{key} differs")
+    if a.listeners[0].scores != b.listeners[0].scores:
+        errors.append("scores differ")
+    if a.iteration != b.iteration:
+        errors.append(f"iterations {a.iteration} vs {b.iteration}")
+    return errors
+
+
+def port_kernel_symbols():
+    """The names of the port's CUDA kernels (`__global__` functions of its
+    sources)."""
+    pat = re.compile(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)"
+                     r"\s+)?(?:void\s+)?(\w+)\s*\(")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), ROOT)
+    return sorted({name for f in sorted(os.listdir(src)) if f.endswith(".cu")
+                   for name in pat.findall(open(os.path.join(src, f)).read())})
+
+
+def port_kernels_run(torch, fn, enough):
+    """The port's CUDA kernels the card ran in one call of `fn` (after one
+    call unprofiled), by the profiler: {kernel: executions}, or None when
+    the profiler saw no kernel at all. The profiler drops kernels and
+    never adds one; in a long run it loses the first few of a window (a
+    row 2 window of 20 calls read 17 kernels, and a profiled step or
+    replay missed its first `batchnorm_kernel`s). So each window opens
+    with PAD_KERNELS small kernels of its own, and each kernel's count is
+    the most any window saw, over up to REPLAY_WINDOWS windows, until
+    `enough(counts)` holds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    syms = port_kernel_symbols()
+    pad = torch.zeros(1, device="cuda")
+    seen = None
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(REPLAY_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD_KERNELS):
+                pad.add_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        ev = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not ev:
+            continue
+        window = {}
+        for name in ev:
+            for sym in syms:
+                if re.search(r"\b" + sym + r"\b", name):
+                    window[sym] = window.get(sym, 0) + 1
+        seen = {k: max(window.get(k, 0), (seen or {}).get(k, 0))
+                for k in {*window, *(seen or {})}}
+        if enough(seen):
+            break
+    return seen
+
+
+def _replay_errors(torch, kernels, net, per_step, k, per_step_seen):
+    """Each captured block's replay counts K x the per-batch run's
+    launches a step, was captured once, and ran the device-scalar form;
+    and a profiled replay of it ran K x the port kernels that the profiler
+    saw one per-batch step run (`per_step_seen`), so the replay counts
+    rest on what the card ran, not on the capture alone."""
+    from deeplearning4j_tpu_torch.nn import superstep
+
+    errors, report = [], []
+    for blk in superstep.captured(net):
+        kk = blk.k
+        got = {n: v for n, v in blk.delta["launches"].items() if v}
+        want = {n: kk * v for n, v in per_step.items() if v}
+        want_seen = (None if per_step_seen is None else
+                     {n: kk * v for n, v in per_step_seen.items()})
+        seen = None if blk.graph is None else port_kernels_run(
+            torch, blk.graph.replay, lambda got: got == want_seen)
+        report.append({"k": kk, "captures": blk.captures,
+                       "replays": blk.replays, "launches_per_replay": got,
+                       "device_scalars_per_replay": blk.delta["variants"][
+                           "fused_update"]["device_scalars"],
+                       "port_kernels_seen_in_a_replay": seen})
+        if got != want:
+            errors.append(f"a replay of {kk} steps launches {got}, "
+                          f"K x per step is {want}")
+        if blk.captures != 1:
+            errors.append(f"the {kk}-step graph was captured "
+                          f"{blk.captures} times")
+        if blk.delta["variants"]["fused_update"]["device_scalars"] == 0:
+            errors.append("no device-scalar update in the graph")
+        if seen is None or per_step_seen is None:
+            errors.append("the profiler saw no kernel of a replay or a step")
+        elif seen != want_seen:
+            errors.append(f"a profiled replay of {kk} steps ran {seen}, K x "
+                          f"a profiled step is {per_step_seen}")
+    if not report:
+        errors.append("nothing was captured")
+    return errors, report
+
+
+def phase_superstep(card, torch, kernels, dev):
+    """Superstep training on the card, each run against the same net fit
+    per batch on the card, bit for bit (params, updater state, layer
+    state, every score):
+    - LeNet at `bench.py:372-404`'s configuration: f32, B=512, K=8,
+      Nesterovs, 16 seeded batches in a `DeviceCacheDataSetIterator`, 2
+      epochs (4 replays of one captured graph);
+    - an MLP of `mlp_mnist`'s widths with dropout on the hidden layer,
+      BatchNorm and Adam under a step lr schedule, K=4 over 11 batches
+      through an `AsyncDataSetIterator` (two blocks and a captured tail of
+      3), 2 epochs: the run that baked scalars or frozen draws would fail;
+    - the LM at full width (V=8192, T=1024, d=512, 8 heads, 4 blocks,
+      bf16, Adam, B=16) on ComputationGraph, K=4, 8 steps, 2 epochs.
+    Each signature is captured once over both epochs. Each captured
+    block's replay must count K x the per-batch launches a step, and a
+    profiled replay must run K x the port kernels a profiled per-batch
+    step runs. ms a step both ways, over the last epoch (no capture in
+    it). Returns (ok, path launches, rows)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet,
+        MultiDataSet,
+    )
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        AsyncDataSetIterator,
+        DeviceCacheDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    # Bit for bit needs cuDNN's deterministic convolution algorithms in
+    # both runs (LeNet's weight gradients otherwise sum in any order).
+    torch.backends.cudnn.deterministic = True
+    ok, paths, rows = True, {}, []
+    rng = np.random.RandomState(5)
+    cfg = SUPER_LENET
+    lenet_data = [DataSet(rng.rand(cfg["b"], 28, 28, 1).astype(np.float32),
+                          np.eye(10, dtype=np.float32)[
+                              rng.randint(0, 10, cfg["b"])])
+                  for _ in range(cfg["batches"])]
+
+    def lenet(k):
+        conf = zoo.lenet_mnist()
+        conf.global_conf.superstep_k = SUPER_LENET["k"] if k is None else k
+        return MultiLayerNetwork(conf, device=dev).init()
+
+    runs = [("lenet", lenet,
+             lambda: DeviceCacheDataSetIterator(lenet_data, device=dev),
+             cfg["epochs"], cfg["k"], lenet_data[0])]
+    cfg = SUPER_MLP
+    mlp_data = [DataSet(rng.rand(cfg["b"], 784).astype(np.float32),
+                        np.eye(10, dtype=np.float32)[
+                            rng.randint(0, 10, cfg["b"])])
+                for _ in range(cfg["batches"])]
+
+    def mlp(k):
+        # mlp_mnist's widths and init (dense 1000 relu, softmax 10, l2
+        # 1e-4, xavier, seed 123), with dropout (retain 0.8) on the dense
+        # layer's input, a BatchNormalization after it, and Adam under a
+        # step schedule (lr halved every 3 iterations).
+        conf = (NeuralNetConfiguration.builder().seed(123).updater("adam")
+                .learning_rate(1e-3).learning_rate_decay_policy("step")
+                .lr_policy_decay_rate(0.5).lr_policy_steps(3)
+                .weight_init("xavier").l2(1e-4)
+                .superstep_k(SUPER_MLP["k"] if k is None else k).list()
+                .layer(L.DenseLayer(n_out=1000, activation="relu",
+                                    dropout=0.8))
+                .layer(L.BatchNormalization())
+                .layer(L.OutputLayer(n_out=10, activation="softmax",
+                                     loss_function="negativeloglikelihood"))
+                .set_input_type(InputType.feed_forward(784)).build())
+        return MultiLayerNetwork(conf, device=dev).init()
+
+    runs.append(("mlp_dropout_adam", mlp,
+                 lambda: AsyncDataSetIterator(mlp_data, device=dev),
+                 cfg["epochs"], cfg["k"], mlp_data[0]))
+    cfg = SUPER_LM
+    lm_data = lm_batches(17, cfg["b"], CACHE, cfg["steps"])
+
+    def lm(k):
+        conf = zoo.transformer_lm(VOCAB, t=CACHE, d_model=D_MODEL,
+                                  n_heads=HEADS, n_blocks=BLOCKS,
+                                  dtype="bfloat16")
+        conf.global_conf.superstep_k = SUPER_LM["k"] if k is None else k
+        return ComputationGraph(conf, device=dev).init()
+
+    lm_sets = [MultiDataSet([torch.as_tensor(x, device=dev)],
+                            [torch.as_tensor(y, device=dev)])
+               for x, y in lm_data]
+    runs.append(("lm", lm, lambda: lm_sets, cfg["epochs"], cfg["k"],
+                 lm_sets[0]))
+    for label, make, data_fn, epochs, k, first in runs:
+        t0 = time.perf_counter()
+        plain, sup, plain_ms, sup_ms, sup_c, plain_c = _superstep_pair(
+            torch, kernels, dev, make, data_fn, epochs)
+        errors = _bitwise_errors(torch, plain, sup)
+        steps = plain.iteration
+        per_step = {n: v // steps for n, v in plain_c["launches"].items()
+                    if v}
+        if any(sup_c["plain_calls"].values()):
+            errors.append(f"plain versions ran: {sup_c['plain_calls']}")
+        # After the comparisons: one more per-batch step and replays,
+        # profiled.
+        step_seen = port_kernels_run(
+            torch, lambda: plain.fit(first),
+            lambda got: sum(got.values()) >= sum(per_step.values()))
+        rerr, replays = _replay_errors(torch, kernels, sup, per_step, k,
+                                       step_seen)
+        errors += rerr
+        ok &= not errors
+        paths[f"superstep_{label}"] = sup_c["launches"]
+        row = {"case": label, "k": k, "epochs": epochs, "steps": steps,
+               "ok": not errors, "errors": errors,
+               "per_batch_ms_per_step": plain_ms,
+               "superstep_ms_per_step": sup_ms,
+               "ms_over": f"epoch {epochs} of {epochs}",
+               "per_batch_launches_per_step": per_step,
+               "port_kernels_seen_in_a_step": step_seen, "blocks": replays,
+               "bit_equal": not [e for e in errors if "differ" in e],
+               "seconds": time.perf_counter() - t0}
+        rows.append(row)
+        emit(card, phase="superstep", **row)
+        del plain, sup
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return ok, paths, rows
+
+
+def device_scalar_row(card, torch, dev, conf):
+    """Row 9's device-scalar form at the LM's 66 tensors (Adam, f32),
+    against its host-scalar form bit for bit, timed beside both, its bound
+    (28 bytes an element) and `torch._fused_adam_` with capturable=True
+    (device step and lr, the library's graph-safe form)."""
+    from deeplearning4j_tpu_torch.kernels import fused_update as fu
+
+    by_vertex = lm_update_shapes(conf)
+    shapes = [s for p in by_vertex.values() for s in p.values()]
+    g = torch.Generator(device=dev).manual_seed(66)
+
+    def tree():
+        return [{"p": torch.randn(s, generator=g, device=dev),
+                 "g": torch.randn(s, generator=g, device=dev),
+                 "m": torch.randn(s, generator=g, device=dev) * 0.1,
+                 "v": torch.rand(s, generator=g, device=dev) * 0.01}
+                for s in shapes]
+    a = tree()
+    b = [{k: t.clone() for k, t in d.items()} for d in a]
+    hyper = (0.9, 0.999, 1e-8)
+    sched = lambda s: 1e-3  # noqa: E731
+
+    def items(ts):
+        return [fu.UpdateItem({"w": d["p"]}, {"m": {"w": d["m"]},
+                                              "v": {"w": d["v"]}},
+                              {"w": d["g"]}, 1e-3, None, None, sched)
+                for d in ts]
+    slots = fu.ScalarSlots(8 + len(shapes), dev)
+    tables_a, tables_b = {}, {}
+
+    def kern():
+        slots.used, slots.slots = 0, []
+        fu.apply_step("adam", hyper, items(a), 3, 1.0, tables_a,
+                      slots=slots)
+
+    def host():
+        fu.apply_step("adam", hyper, items(b), 3, 1.0, tables_b)
+    kern()
+    host()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x[k], y[k]) for x, y in zip(a, b)
+               for k in ("p", "m", "v"))
+    params = [d["p"] for d in b]
+    grads = [d["g"] for d in b]
+    ms_, vs_ = [d["m"] for d in b], [d["v"] for d in b]
+    steps = [torch.tensor(4.0, device=dev) for _ in b]
+    lr_t = torch.tensor(1e-3, device=dev)
+
+    def lib():
+        torch._fused_adam_(params, grads, ms_, vs_, [], steps, lr=lr_t,
+                           beta1=0.9, beta2=0.999, weight_decay=0.0,
+                           eps=1e-8, amsgrad=False, maximize=False)
+    n = sum(int(np.prod(s)) for s in shapes)
+    return _form_row(card, torch, "superstep", "fused_update", "float32",
+                     lm_update_label(by_vertex) + " device scalars", kern,
+                     host,
+                     0.0 if same else float("inf"), same, 28 * n, 15 * n,
+                     lib, held_to="the host-scalar form, bit for bit",
+                     library_covers="torch._fused_adam_ (capturable: step "
+                                    "and lr as device tensors)")
+
+
+def phase_solvers(card, torch, kernels, dev):
+    """Each solver (L-BFGS, conjugate gradient, line gradient descent) on
+    `mlp_mnist` at B=128, `iterations=5`, f32, on the card: the first
+    objective and its flat gradient held to the CPU port's from the same
+    params (SOLVER_TOL, relative), then SOLVER_CALLS `fit` calls on one
+    batch whose scores must not rise (the line search's Armijo test); one
+    ComputationGraph (the same MLP as a graph) under L-BFGS; and the
+    char-RNN at its configuration (V=77, 2 x 256, B=32, T=100) under
+    L-BFGS through row 10. Launches counted from 0 per run."""
+    from deeplearning4j_tpu_torch.datasets.dataset import (
+        DataSet,
+        MultiDataSet,
+    )
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import solvers
+
+    ok, paths = True, {}
+    rng = np.random.RandomState(11)
+    x = rng.rand(SOLVER_B, 784).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, SOLVER_B)]
+    (rnn_ds,), _ = rnn_batches(torch, "cpu", RNN_B, RNN_T, 1, 31)
+
+    def mlp_conf(algo):
+        conf = zoo.mlp_mnist()
+        conf.global_conf.optimization_algo = algo
+        conf.global_conf.iterations = SOLVER_ITERS
+        return conf
+
+    def rnn_conf(algo):
+        conf = _rnn_conf()
+        conf.global_conf.optimization_algo = algo
+        conf.global_conf.iterations = SOLVER_ITERS
+        return conf
+
+    def graph_conf(algo):
+        from deeplearning4j_tpu_torch.nn.conf import layers as L
+        from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+        from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+            NeuralNetConfiguration,
+        )
+
+        gb = (NeuralNetConfiguration.builder().seed(123)
+              .optimization_algo(algo).iterations(SOLVER_ITERS)
+              .weight_init("xavier").graph_builder().add_inputs("in")
+              .add_layer("d", L.DenseLayer(n_out=1000, activation="relu"),
+                         "in")
+              .add_layer("out", L.OutputLayer(
+                  n_out=10, activation="softmax",
+                  loss_function="negativeloglikelihood"), "d")
+              .set_outputs("out"))
+        gb.set_input_types(InputType.feed_forward(784))
+        return gb.build()
+
+    cases = [(f"mlp {a}", MultiLayerNetwork, mlp_conf, a, (x, y))
+             for a in SOLVER_ALGOS]
+    cases.append(("graph lbfgs", ComputationGraph, graph_conf, "lbfgs",
+                  (x, y)))
+    cases.append(("char-rnn lbfgs", MultiLayerNetwork, rnn_conf, "lbfgs",
+                  (rnn_ds.features.numpy(), rnn_ds.labels.numpy())))
+    for label, engine, conf_fn, algo, (fx, fy) in cases:
+        t0 = time.perf_counter()
+        cpu = engine(conf_fn(algo), device="cpu").init()
+        start = {k: {n: a.detach().clone() for n, a in p.items()}
+                 for k, p in cpu.params_tree.items()}
+        net = engine(conf_fn(algo), device=dev).init(params=start)
+        ds = DataSet(fx, fy)
+        item_cpu = (ds if engine is MultiLayerNetwork
+                    else MultiDataSet.from_dataset(ds))
+
+        def first(n):
+            keys = n._flat_keys()
+            w0 = torch.cat([n.params_tree[v][k].detach().reshape(-1)
+                            for v, k in keys])
+            sizes = [n.params_tree[v][k].numel() for v, k in keys]
+
+            def fn(w):
+                parts = torch.split(w, sizes)
+                tree = {}
+                for (v, k), part in zip(keys, parts):
+                    tree.setdefault(v, {})[k] = part.reshape(
+                        n.params_tree[v][k].shape)
+                return n._objective(tree, item_cpu)
+            return solvers.value_and_grad(fn, w0)
+        l_cpu, g_cpu = first(cpu)
+        l_card, g_card = first(net)
+        loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        grad_rel = _rel_err(g_card.cpu(), g_cpu)
+        errors = []
+        if loss_rel > SOLVER_TOL or grad_rel > SOLVER_TOL:
+            errors.append(f"first objective {loss_rel} / gradient "
+                          f"{grad_rel} off the CPU's")
+        kernels.reset_counts()
+        scores = [float(l_card)]
+        for _ in range(SOLVER_CALLS):
+            net.fit(ds)
+            scores.append(net.score_value)
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        if any(b > a for a, b in zip(scores, scores[1:])):
+            errors.append(f"scores rose: {scores}")
+        if not np.isfinite(scores).all():
+            errors.append("a score is not finite")
+        if net.iteration != SOLVER_CALLS * SOLVER_ITERS:
+            errors.append(f"iteration {net.iteration}")
+        if any(counts["plain_calls"].values()):
+            errors.append(f"plain versions ran: {counts['plain_calls']}")
+        if label.startswith("char-rnn") and not counts["launches"][
+                "lstm_cell"]:
+            errors.append("the char-RNN under L-BFGS launched no row 10")
+        ok &= not errors
+        paths[f"solver_{label.replace(' ', '_')}"] = counts["launches"]
+        emit(card, phase="solvers", case=label, algo=algo, ok=not errors,
+             errors=errors, first_loss_rel_err=loss_rel,
+             first_grad_rel_err=grad_rel, tolerance=SOLVER_TOL,
+             scores=scores, iterations=net.iteration,
+             launches={k: v for k, v in counts["launches"].items() if v},
+             seconds=time.perf_counter() - t0)
+        del cpu, net
+    return ok, paths
+
+
+class _StatsProbe:
+    """A listener that asks for the training statistics and keeps each
+    step's, read back to the host."""
+
+    requires_training_stats = True
+
+    def __init__(self):
+        self.seen = []
+
+    def on_epoch_start(self, model):
+        pass
+
+    def on_epoch_end(self, model):
+        pass
+
+    def iteration_done(self, model, iteration):
+        self.seen.append({lk: {k: {s: float(v) for s, v in d.items()}
+                               for k, d in p.items()}
+                          for lk, p in model.last_training_stats.items()})
+
+
+def phase_train_stats(card, torch, kernels, dev):
+    """LeNet, STATS_STEPS steps at B=STATS_B with a listener that sets
+    `requires_training_stats`: the stats (means of |gradient|, |update|,
+    |param| per param) held to a CPU run from the same params within
+    STATS_TOL relative, and the params equal, bit for bit, a card run
+    without the listener. Launches counted from 0 (the stats step updates
+    per layer through row 9's deltas mode)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    rng = np.random.RandomState(21)
+    data = [DataSet(rng.rand(STATS_B, 28, 28, 1).astype(np.float32),
+                    np.eye(10, dtype=np.float32)[rng.randint(0, 10,
+                                                             STATS_B)])
+            for _ in range(STATS_STEPS)]
+    cpu = MultiLayerNetwork(zoo.lenet_mnist(), device="cpu").init()
+    start = {k: {n: a.detach().clone() for n, a in p.items()}
+             for k, p in cpu.params_tree.items()}
+    nets = {"cpu": cpu,
+            "card": MultiLayerNetwork(zoo.lenet_mnist(), device=dev).init(
+                params=start),
+            "card_plain": MultiLayerNetwork(zoo.lenet_mnist(),
+                                            device=dev).init(params=start)}
+    probes = {k: _StatsProbe() for k in ("cpu", "card")}
+    for k, p in probes.items():
+        nets[k].set_listeners(p)
+    launches = None
+    torch.backends.cudnn.deterministic = True  # the two card runs' bits
+    for k, net in nets.items():
+        if k == "card":
+            kernels.reset_counts()
+        net.fit(data)
+        if k == "card":
+            torch.cuda.synchronize()
+            launches = kernels.counts()
+    torch.backends.cudnn.deterministic = False
+    errors = []
+    worst = 0.0
+    for a, b in zip(probes["card"].seen, probes["cpu"].seen):
+        for lk in b:
+            for pk in b[lk]:
+                for s in ("grad_mm", "update_mm", "param_mm"):
+                    w = b[lk][pk][s]
+                    worst = max(worst, abs(a[lk][pk][s] - w) / max(abs(w),
+                                                                   1e-30))
+    if worst > STATS_TOL:
+        errors.append(f"stats off the CPU's by {worst}")
+    if len(probes["card"].seen) != STATS_STEPS:
+        errors.append("a step left no stats")
+    if not np.array_equal(nets["card"].params(), nets["card_plain"].params()):
+        errors.append("params after the stats steps differ from a plain "
+                      "run's")
+    if any(launches["plain_calls"].values()):
+        errors.append(f"plain versions ran: {launches['plain_calls']}")
+    emit(card, phase="train_stats", ok=not errors, errors=errors,
+         stats_rel_err=worst, tolerance=STATS_TOL, steps=STATS_STEPS,
+         batch=STATS_B, layers=sorted(probes["card"].seen[-1]),
+         launches={k: v for k, v in launches["launches"].items() if v})
+    return not errors, {"train_stats": launches["launches"]}
+
+
+def _gradcheck_confs():
+    """The reference suite's float64 gradient-check nets that pass rows 1,
+    2 and 10 (tests/test_gradientcheck.py's sizes): (label, conf, data)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+        NeuralNetConfiguration,
+    )
+
+    rng = np.random.RandomState(12345)
+
+    def base():
+        return (NeuralNetConfiguration.builder().seed(12345)
+                .learning_rate(0.1).updater("sgd").weight_init("xavier")
+                .dtype("float64"))
+
+    def net(b, inp, *layers):
+        lb = b.list()
+        for layer in layers:
+            lb = lb.layer(layer)
+        return lb.set_input_type(inp).build()
+
+    mask = np.array([[1, 1, 1, 1, 1], [1, 1, 1, 0, 0], [1, 1, 0, 0, 0]],
+                    dtype="float64")
+    x8, y8 = rng.randn(8, 4), np.eye(3)[rng.randint(0, 3, 8)]
+    x6, y6 = rng.randn(6, 4), np.eye(3)[rng.randint(0, 3, 6)]
+    xr, yr = rng.randn(3, 5, 4), np.eye(3)[rng.randint(0, 3, (3, 5))]
+    ff, rec = InputType.feed_forward(4), InputType.recurrent(4)
+    return [
+        ("batchnorm", net(base().activation("identity"), ff,
+                          L.DenseLayer(n_out=5, activation="tanh"),
+                          L.BatchNormalization(),
+                          L.OutputLayer(n_out=3, activation="softmax")),
+         DataSet(x8, y8)),
+        ("graves_lstm", net(base(), rec,
+                            L.GravesLSTM(n_out=4, activation="tanh"),
+                            L.RnnOutputLayer(n_out=3, activation="softmax",
+                                             loss_function="mcxent")),
+         DataSet(xr, yr)),
+        ("graves_lstm_masked", net(base(), rec,
+                                   L.GravesLSTM(n_out=4, activation="tanh"),
+                                   L.RnnOutputLayer(n_out=3,
+                                                    activation="softmax")),
+         DataSet(xr, yr, mask, mask)),
+        ("layernorm", net(base(), ff,
+                          L.DenseLayer(n_out=5, activation="tanh"),
+                          L.LayerNormalization(),
+                          L.OutputLayer(n_out=3, activation="softmax",
+                                        loss_function="mcxent")),
+         DataSet(x6, y6)),
+        ("softmax_gate_lstm", net(base(), rec,
+                                  L.GravesLSTM(n_out=4, activation="tanh",
+                                               gate_activation="softmax"),
+                                  L.RnnOutputLayer(n_out=3,
+                                                   activation="softmax")),
+         DataSet(xr, yr)),
+    ]
+
+
+def phase_gradcheck_f64(card, torch, kernels, dev):
+    """`check_gradients` on the card (epsilon 1e-6, max relative error
+    1e-5, as the reference suite runs it) on its BatchNorm, GravesLSTM
+    (masked too), LayerNorm and softmax-gate LSTM nets in float64: all
+    must pass, with rows 1, 2 and 10 launched in their float64 forms
+    (counted from 0 per net) and no plain version."""
+    from deeplearning4j_tpu_torch.gradientcheck import check_gradients
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    ok, paths = True, {}
+    want_form = {"batchnorm": "batchnorm_norm_act",
+                 "layernorm": "layernorm_norm_act"}
+    for label, conf, ds in _gradcheck_confs():
+        net = MultiLayerNetwork(conf, device=dev).init()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        passed = check_gradients(net, ds, epsilon=1e-6, max_rel_error=1e-5)
+        torch.cuda.synchronize()
+        c = kernels.counts()
+        form = want_form.get(label, "lstm_cell")
+        f64 = c["variants"][form]["f64"]
+        errors = [] if passed else ["check_gradients failed"]
+        if not f64 or f64 != c["launches"][form]:
+            errors.append(f"{form}: {c['launches'][form]} launches, "
+                          f"{f64} in float64")
+        if label == "softmax_gate_lstm" and not c["launches"][
+                "lstm_cell_rows"]:
+            errors.append("no lstm_cell_rows launch")
+        if any(c["plain_calls"].values()):
+            errors.append(f"plain versions ran: {c['plain_calls']}")
+        ok &= not errors
+        paths[f"gradcheck_{label}"] = c["launches"]
+        emit(card, phase="gradcheck_f64", case=label, ok=not errors,
+             errors=errors, passed=passed, f64_launches={
+                 n: v.get("f64") for n, v in c["variants"].items()
+                 if v.get("f64")},
+             seconds=time.perf_counter() - t0)
+    return ok, paths
+
+
+def phase_eval(card, torch, dev):
+    """LeNet's card outputs (seeded weights, 512 seeded images) through
+    `ROCMultiClass`, `EvaluationBinary` and `RegressionEvaluation`, each
+    equal to the same evaluation of the same outputs moved to the CPU."""
+    from deeplearning4j_tpu_torch.eval.regression import RegressionEvaluation
+    from deeplearning4j_tpu_torch.eval.roc import (
+        EvaluationBinary,
+        ROCMultiClass,
+    )
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    rng = np.random.RandomState(41)
+    x = torch.as_tensor(rng.rand(512, 28, 28, 1).astype(np.float32),
+                        device=dev)
+    labels = torch.as_tensor(np.eye(10, dtype=np.float32)[
+        rng.randint(0, 10, 512)], device=dev)
+    net = MultiLayerNetwork(zoo.lenet_mnist(), device=dev).init()
+    with torch.inference_mode():
+        out, _, _ = net._forward(net._compute_copy(), net.state, x, None,
+                                 keep_rnn_state=False)
+        probs = net._finish(out)
+    mask = torch.as_tensor((rng.rand(512) < 0.8).astype(np.float32),
+                           device=dev)
+    results = {}
+    for where, (p, y, m) in (("card", (probs, labels, mask)),
+                             ("cpu", (probs.cpu(), labels.cpu(),
+                                      mask.cpu()))):
+        roc = ROCMultiClass(threshold_steps=50)
+        roc.eval(y, p)
+        binary = EvaluationBinary()
+        binary.eval(y, p, mask=m)
+        reg = RegressionEvaluation()
+        reg.eval(y, p)
+        results[where] = {
+            "auc": [roc.calculate_auc(c) for c in range(10)],
+            "binary_f1": [binary.f1(c) for c in range(10)],
+            "binary_counts": binary.tp.tolist() + binary.fn.tolist(),
+            "mse": [reg.mean_squared_error(c) for c in range(10)],
+            "r2": [reg.r_squared(c) for c in range(10)]}
+    same = results["card"] == results["cpu"]
+    emit(card, phase="eval", ok=same, equal=same,
+         average_auc=float(np.mean(results["card"]["auc"])),
+         binary_f1=results["card"]["binary_f1"],
+         mse=results["card"]["mse"])
+    return same
+
+
 def main() -> int:
     import torch
 
@@ -7434,6 +8447,37 @@ def main() -> int:
         failed.append("f16_long")
     f16_rows += rows_f16
     path_launches.update(f16_launches)
+    f64_rows = phase_f64_kernels(card, torch, dev)
+    if not all(r["ok"] for r in f64_rows):
+        failed.append("f64_kernels")
+    torch.cuda.empty_cache()
+    ok, softmax_rows, softmax_launches = phase_lstm_softmax(
+        card, torch, kernels, dev)
+    if not ok:
+        failed.append("lstm_softmax")
+    rows += softmax_rows
+    path_launches.update(softmax_launches)
+    ok, super_launches, _ = phase_superstep(card, torch, kernels, dev)
+    if not ok:
+        failed.append("superstep")
+    path_launches.update(super_launches)
+    scalar_row = device_scalar_row(card, torch, dev, train_conf)
+    if not scalar_row["ok"]:
+        failed.append("device_scalars")
+    ok, solver_launches = phase_solvers(card, torch, kernels, dev)
+    if not ok:
+        failed.append("solvers")
+    path_launches.update(solver_launches)
+    ok, stats_launches = phase_train_stats(card, torch, kernels, dev)
+    if not ok:
+        failed.append("train_stats")
+    path_launches.update(stats_launches)
+    ok, gradcheck_launches = phase_gradcheck_f64(card, torch, kernels, dev)
+    if not ok:
+        failed.append("gradcheck_f64")
+    path_launches.update(gradcheck_launches)
+    if not phase_eval(card, torch, dev):
+        failed.append("eval")
     trace, ok = phase_trace(card, torch, cg, train_net, batches[0], nets,
                             rn_batch, rnn_net, rnn_data[0], long_net,
                             long_batches[0], mnist)
@@ -7467,10 +8511,12 @@ def main() -> int:
         "bottleneck_infer": f"B={INFER_B} H=14 Cin=1024 F1=256 s=1 "
                             "identity",
         "lstm_cell": f"B={RNN_B} n={RNN_H} peephole",
+        "lstm_cell_rows": f"B={RNN_B} n={RNN_H} softmax gates peephole",
         **{name: f"[1,{LONG_T},{HEADS},{D_MODEL // HEADS}] causal"
            for name in LONG_LAUNCHES if name.endswith("_stream")}}
     main_shape["fused_update"] = lm_update_label(lm_update_shapes(train_conf))
-    main_dtype = {"fused_update": "float32", "lstm_cell": "float32"}
+    main_dtype = {"fused_update": "float32", "lstm_cell": "float32",
+                  "lstm_cell_rows": "float32"}
     attn = trace["long_attention"]
     sdpa_ms = {k: v["device_ms_per_call"] for k, v in attn.items()
                if isinstance(v, dict) and "device_ms_per_call" in v}
@@ -7482,8 +8528,8 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(c[name] for c in path_launches.values()),
-            "launches_by_path": {path: c[name]
+            "launches": sum(c.get(name, 0) for c in path_launches.values()),
+            "launches_by_path": {path: c.get(name, 0)
                                  for path, c in path_launches.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -7491,6 +8537,11 @@ def main() -> int:
             "device_ms": r["device_ms"], "host_ms": r.get("host_ms"),
             "dtype": dtype,
             "shape": r["shape"], "card": card})
+        if any(c.get(name) for path, c in path_launches.items()
+               if path.startswith("superstep_")):
+            entries[-1]["superstep_launches_are"] = (
+                "each graph's capture counts once a replay, held to a "
+                "profiled replay (superstep phase)")
         if name in STREAM_UNITS or name in RESIDENT_ROWS:
             entries[-1]["variant"] = r["variant"]
         if name in RESIDENT_ROWS:
@@ -7585,6 +8636,25 @@ def main() -> int:
                                    "bound_ms", "bound_by", "library_ms",
                                    "device_ms")}
                 for p in prec_rows if p.get("mode")]
+        form_keys = ("shape", "max_abs_err", "ok", "ms", "plain_ms",
+                     "bound_ms", "bound_by", "library_ms",
+                     "library_device_ms", "device_ms", "host_ms",
+                     "bound_share_by_device")
+        f64 = next((p for p in f64_rows if p["name"] == name), None)
+        if f64 is not None:
+            # The float64 form (the gradient checks' path).
+            entries[-1]["f64"] = {k: f64[k] for k in form_keys}
+        if name == "fused_update":
+            # The device-scalar form (the captured superstep's launches).
+            entries[-1]["device_scalars"] = {
+                k: scalar_row[k] for k in form_keys}
+        if name == "lstm_cell_rows":
+            # Held by row_rel_err, each limit between a sound cell's
+            # reading and the planted faults' (`softmax_faults`).
+            entries[-1]["forms"] = [
+                {k: p[k] for k in ("dtype", *form_keys, "row_rel_err",
+                                   "limit", "planted_faults")}
+                for p in softmax_rows]
         if name == "lstm_cell":
             # The 16 elementwise activations as gate and as cell (R3).
             entries[-1]["activations"] = {

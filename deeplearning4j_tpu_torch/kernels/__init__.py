@@ -27,7 +27,8 @@ tensor launches the kernel, or the wrapper raises. No fallback, no switch.
   the CUDA cores, by `bottleneck_variant`, each form counted in
   `variant_launches`)
 - `lstm_cell.lstm_cell`                     (csrc/lstm_cell.cu: one LSTM
-  time step of one layer)
+  time step of one layer; with a softmax gate or cell activation, its
+  "z out" form, then `lstm_cell_rows`, the gate math a row at a time)
 - `flash_attention.flash_attention_stream`  (csrc/flash_attention_stream.cu:
   the streamed forward past the resident K/V limit, with or without lse;
   bf16 at D = 64 or 128 on the tensor cores, else on the CUDA cores, by
@@ -56,7 +57,7 @@ KERNELS = ("layernorm_norm_act", "flash_attention", "paged_decode_attention",
            "flash_attention_bwd_dkv", "fused_update", "batchnorm_norm_act",
            "bottleneck_train", "bottleneck_infer", "lstm_cell",
            "flash_attention_stream", "flash_attention_bwd_dq_stream",
-           "flash_attention_bwd_dkv_stream")
+           "flash_attention_bwd_dkv_stream", "lstm_cell_rows")
 
 
 class Count:
@@ -85,6 +86,13 @@ class Count:
         with self._lock:
             self._c, self._reads = itertools.count(), 0
 
+    def shift(self, n: int) -> None:
+        """Add `n` (negative: take away): a captured CUDA graph's launches
+        leave the counts they made at capture, which launched nothing, and
+        come back with every replay (`nn/superstep.py`)."""
+        with self._lock:
+            self._reads -= int(n)
+
 
 # Kernel launches, counted where each wrapper launches its kernel and
 # nowhere else; plain-version calls, counted in the plain versions.
@@ -101,6 +109,19 @@ variant_launches: Dict[str, Dict[str, Count]] = {
                  "flash_attention_stream", "flash_attention_bwd_dq_stream",
                  "flash_attention_bwd_dkv_stream", "bottleneck_train",
                  "bottleneck_infer")}
+# Forms of rows 1, 2, 9 and 10 besides their first, each also counted in
+# `launches`: the float64 forms of the norm kernels and the LSTM cell; the
+# cell's "z out" form (the first of the two launches of a softmax cell, or
+# the only launch of a cell whose activation is the user's callable, whose
+# gate math then runs as torch ops, counted in `callable`); row 9's
+# device-scalar form (a captured superstep's launches).
+variant_launches.update({
+    "layernorm_norm_act": {"f64": Count()},
+    "batchnorm_norm_act": {"f64": Count()},
+    "lstm_cell": {"f64": Count(), "zout": Count(), "callable": Count()},
+    "lstm_cell_rows": {"f64": Count()},
+    "fused_update": {"device_scalars": Count()},
+})
 
 
 def reset_counts() -> None:
@@ -114,6 +135,27 @@ def counts() -> Dict[str, Dict[str, int]]:
             "plain_calls": {n: c.value for n, c in plain_calls.items()},
             "variants": {n: {k: c.value for k, c in v.items()}
                          for n, v in variant_launches.items()}}
+
+
+def shift_counts(delta: Dict[str, Dict[str, int]], times: int = 1) -> None:
+    """Add `times` x `delta` (as `counts()` gives it, launches and
+    variants) to the launch counts."""
+    for n, v in delta.get("launches", {}).items():
+        if v:
+            launches[n].shift(v * times)
+    for n, forms in delta.get("variants", {}).items():
+        for k, v in forms.items():
+            if v:
+                variant_launches[n][k].shift(v * times)
+
+
+def count_delta(before, after) -> Dict[str, Dict]:
+    """`after - before` of two `counts()`."""
+    return {"launches": {n: after["launches"][n] - before["launches"][n]
+                         for n in after["launches"]},
+            "variants": {n: {k: after["variants"][n][k]
+                             - before["variants"][n][k] for k in v}
+                         for n, v in after["variants"].items()}}
 
 
 def placement(*tensors) -> str:

@@ -37,6 +37,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SCHED = [_P, _P, _P, _I, _P, _I]  # a visit list cut into units
 _SIGNATURES = {
     "dl4j_layernorm_norm_act": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
@@ -53,13 +54,17 @@ _SIGNATURES = {
     "dl4j_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _F, _I, _I, _P],
     # kind, mode, count | ptrs, sizes, lrs, factors, scalars | lp_dtype |
-    # skip, stream.
-    "dl4j_fused_update": [_I, _I, _I] + [_P] * 5 + [_I, _P, _P],
+    # skip, device scalars, stream.
+    "dl4j_fused_update": [_I, _I, _I] + [_P] * 5 + [_I, _P, _P, _P],
     "dl4j_fused_update_capacity": [],
     # x, mean, var, gamma, beta, y, rows, feats, eps, act, dtype, kinds |
     # the four vectors' values (by value where their kind says so), stream.
     "dl4j_batchnorm_norm_act": [_P] * 6 + [_L, _I, _F, _I, _I, _I]
     + [_F] * 4 + [_P],
+    # The float64 forms: eps (and the vectors by value) as doubles.
+    "dl4j_layernorm_norm_act_f64": [_P, _P, _P, _P, _I, _I, _D, _I, _P],
+    "dl4j_batchnorm_norm_act_f64": [_P] * 6 + [_L, _I, _D, _I, _I]
+    + [_D] * 4 + [_P],
     # ... | out, psum, psq, variant (0 CUDA cores, 1 tensor cores), stream.
     "dl4j_bottleneck_conv": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P, _P, _P, _P, _I, _F, _P, _I, _P, _I, _P, _P,
@@ -70,6 +75,8 @@ _SIGNATURES = {
     # xw, h, c, rw, pw, m, h_out, c_out, out, params (xw_stride, b, n,
     # act, dtype: `lstm_cell._CellParams`), stream.
     "dl4j_lstm_cell": [_P] * 11,
+    # ws, h, c, pw, m, h_out, c_out, out, params, stream.
+    "dl4j_lstm_cell_rows": [_P] * 10,
     # q, k, v, o, lse | pair_i, pair_j, units, n_units, merges, n_merges |
     # partials | n_slots, batch, seq, heads, dim, causal | scale, dtype,
     # variant, stream.

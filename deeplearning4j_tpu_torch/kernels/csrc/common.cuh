@@ -16,6 +16,7 @@ constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 constexpr int kInt8 = 2;  // quantized weights (bottleneck_block.cu)
 constexpr int kFloat16 = 3;
+constexpr int kFloat64 = 4;  // the float64 forms (norm_act.cu, lstm_cell.cu)
 
 // The JAX package's finite mask value (kernels/flash_attention.py `_NEG`).
 constexpr float kNeg = -1e30f;

@@ -46,6 +46,13 @@
 //   `copy_` and XLA's convert make).
 // With no flag and LP = 0 the arithmetic and the stores are what they were.
 //
+// A third addition serves a captured CUDA graph (nn/superstep.py), whose
+// launches keep the parameters they were captured with: the device-scalar
+// form (template DEV) reads the 8 shared floats and each tensor's lr from a
+// device buffer (`dsc`: c[0..7], then lr[i] at 8 + i) that the host fills
+// before each replay, instead of from the table. The values, and so the
+// arithmetic, are the host form's.
+//
 // Bound on the H100: bytes. Adam reads p, g, m, v and writes p, m, v: 28
 // bytes per f32 element for ~15 flops. At the transformer_lm training step
 // (21,529,600 params in 66 tensors) that is 602.8 MB, 0.1800 ms at 3.35
@@ -110,6 +117,7 @@ struct Table {
   int first_chunk[kMaxTensors + 1];
   int count;
   const int* skip;             // the skip flag, or null
+  const float* dsc;            // the device scalars (DEV), or null
   // c[0] bc1, c[1] bc2, then the kind's constants:
   //   adam      c[2..6] = beta1, 1 - beta1, beta2, 1 - beta2, eps
   //   nesterovs c[2..3] = momentum, 1 + momentum
@@ -180,12 +188,18 @@ __device__ __forceinline__ uint32_t lp_bits(float x) {
   else return __half_as_ushort(__float2half_rn(x));
 }
 
-template <int KIND, int MODE, int LP>
+template <int KIND, int MODE, int LP, bool DEV>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 fused_update_kernel(const __grid_constant__ Table t) {
   constexpr bool kTwo = KIND == kAdam;  // a second state tensor
   constexpr bool kReadOut = MODE != kDeltas;
   if (t.skip != nullptr && *t.skip != 0) return;  // a skipped step
+  float dc[8];  // the device scalars (DEV)
+  if constexpr (DEV) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dc[k] = t.dsc[k];
+  }
+  const float* c = DEV ? dc : t.c;
   const int chunks = t.first_chunk[t.count];
   for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
     int lo = 0, hi = t.count - 1;  // the last i with first_chunk[i] <= chunk
@@ -201,7 +215,7 @@ fused_update_kernel(const __grid_constant__ Table t) {
     float* s0 = t.s0[i] + start;
     float* s1 = kTwo ? t.s1[i] + start : nullptr;
     uint16_t* lp = LP != kLpNone ? t.lp[i] + start : nullptr;
-    const float lr = t.lr[i];
+    const float lr = DEV ? t.dsc[8 + i] : t.lr[i];
     const float factor = t.factor[i];
     const uintptr_t bits = reinterpret_cast<uintptr_t>(out) |
                            reinterpret_cast<uintptr_t>(g) |
@@ -231,7 +245,7 @@ fused_update_kernel(const __grid_constant__ Table t) {
         for (int u = 0; u < kUnroll; ++u) {
           const int j = base + u * kThreads;
           if (j < nv) {
-            update4<KIND, MODE>(gv[u], av[u], bv[u], pv[u], lr, factor, t.c);
+            update4<KIND, MODE>(gv[u], av[u], bv[u], pv[u], lr, factor, c);
             a4[j] = av[u];
             if (kTwo) b4[j] = bv[u];
             out4[j] = pv[u];
@@ -248,7 +262,7 @@ fused_update_kernel(const __grid_constant__ Table t) {
       float a = s0[j];
       float b = kTwo ? s1[j] : 0.f;
       const float p = kReadOut ? out[j] : 0.f;
-      const float r = update<KIND, MODE>(g[j], a, b, p, lr, factor, t.c);
+      const float r = update<KIND, MODE>(g[j], a, b, p, lr, factor, c);
       s0[j] = a;
       if (kTwo) s1[j] = b;
       out[j] = r;
@@ -257,26 +271,33 @@ fused_update_kernel(const __grid_constant__ Table t) {
   }
 }
 
-template <int KIND, int MODE>
+template <int KIND, int MODE, bool DEV>
 void launch_lp(int lp, int blocks, const Table& t, cudaStream_t s) {
   if (lp == kLpBf16)
-    fused_update_kernel<KIND, MODE, kLpBf16><<<blocks, kThreads, 0, s>>>(t);
+    fused_update_kernel<KIND, MODE, kLpBf16, DEV><<<blocks, kThreads, 0, s>>>(t);
   else if (lp == kLpF16)
-    fused_update_kernel<KIND, MODE, kLpF16><<<blocks, kThreads, 0, s>>>(t);
+    fused_update_kernel<KIND, MODE, kLpF16, DEV><<<blocks, kThreads, 0, s>>>(t);
   else
-    fused_update_kernel<KIND, MODE, kLpNone><<<blocks, kThreads, 0, s>>>(t);
+    fused_update_kernel<KIND, MODE, kLpNone, DEV><<<blocks, kThreads, 0, s>>>(t);
 }
 
-template <int KIND>
+template <int KIND, bool DEV>
 cudaError_t launch_kind(int mode, int lp, int blocks, const Table& t,
                         cudaStream_t s) {
   if (mode == kDeltas)
-    fused_update_kernel<KIND, kDeltas, kLpNone><<<blocks, kThreads, 0, s>>>(t);
+    fused_update_kernel<KIND, kDeltas, kLpNone, DEV><<<blocks, kThreads, 0, s>>>(t);
   else if (mode == kSub)
-    launch_lp<KIND, kSub>(lp, blocks, t, s);
+    launch_lp<KIND, kSub, DEV>(lp, blocks, t, s);
   else
-    launch_lp<KIND, kAdd>(lp, blocks, t, s);
+    launch_lp<KIND, kAdd, DEV>(lp, blocks, t, s);
   return cudaGetLastError();
+}
+
+template <int KIND>
+cudaError_t launch_form(int mode, int lp, int blocks, const Table& t,
+                        cudaStream_t s) {
+  if (t.dsc != nullptr) return launch_kind<KIND, true>(mode, lp, blocks, t, s);
+  return launch_kind<KIND, false>(mode, lp, blocks, t, s);
 }
 
 int sm_count() {
@@ -302,11 +323,15 @@ extern "C" int dl4j_fused_update_capacity() { return kMaxTensors; }
 // `scalars` 8 floats, Table::c. `mode`: 0 deltas, 1 p -= d, 2 p += d.
 // `lp_dtype`: 0 none, else the dtype code of the stored copies (apply
 // modes only). `skip`: a device int (nonzero: write nothing), or null.
+// `dev_scalars`: null, or the device buffer of the device-scalar form (8
+// floats as `scalars`, then `count` lrs), read in place of `scalars` and
+// `lrs`.
 extern "C" int dl4j_fused_update(int kind, int mode, int count,
                                  const void* ptrs, const void* sizes,
                                  const void* lrs, const void* factors,
                                  const void* scalars, int lp_dtype,
-                                 const void* skip, void* stream) {
+                                 const void* skip, const void* dev_scalars,
+                                 void* stream) {
   if (count <= 0) return 0;
   if (count > kMaxTensors || kind < kAdam || kind > kRmsprop ||
       mode < kDeltas || mode > kAdd ||
@@ -338,6 +363,7 @@ extern "C" int dl4j_fused_update(int kind, int mode, int count,
   }
   t.first_chunk[count] = static_cast<int>(chunks);
   t.skip = static_cast<const int*>(skip);
+  t.dsc = static_cast<const float*>(dev_scalars);
   const float* c = static_cast<const float*>(scalars);
   for (int i = 0; i < 8; ++i) t.c[i] = c[i];
   const int blocks = static_cast<int>(
@@ -345,9 +371,9 @@ extern "C" int dl4j_fused_update(int kind, int mode, int count,
           ? chunks : static_cast<int64_t>(sm_count()) * kBlocksPerSm);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == kAdam)
-    return static_cast<int>(launch_kind<kAdam>(mode, lp_dtype, blocks, t, s));
+    return static_cast<int>(launch_form<kAdam>(mode, lp_dtype, blocks, t, s));
   if (kind == kNesterovs)
     return static_cast<int>(
-        launch_kind<kNesterovs>(mode, lp_dtype, blocks, t, s));
-  return static_cast<int>(launch_kind<kRmsprop>(mode, lp_dtype, blocks, t, s));
+        launch_form<kNesterovs>(mode, lp_dtype, blocks, t, s));
+  return static_cast<int>(launch_form<kRmsprop>(mode, lp_dtype, blocks, t, s));
 }

@@ -67,6 +67,18 @@
 //   element's arithmetic, and what keeps the bf16 form a few per cent
 //   further from its bound than the f32 form.
 
+//
+// The float64 forms (`dl4j_layernorm_norm_act_f64`, `dl4j_batchnorm_norm_act_f64`)
+// compute in double from end to end, for the gradient checks of float64 nets:
+// the LayerNorm one warp a row (rows of up to 512 values held in registers,
+// two doubles a 16-byte load), one block a row past that (the row read from
+// device memory in each pass); the BatchNorm one thread per pair of channels
+// (or one channel where C or an address is odd), which keeps its channels'
+// m, sqrt(v + eps), g and b in registers and walks the rows, with the plain
+// version's roundings (a true division and square root, then g * xhat and
+// + b rounded apart, never one FMA). eps arrives as a double. The f32, bf16
+// and f16 forms above are untouched by them.
+
 #include "common.cuh"
 
 #include <cstdint>
@@ -548,7 +560,269 @@ int launch_bn(const void* x, void* y, const BnVectors& vecs, long long rows,
   return launch_bn_act<T, 1>(xp, yp, vecs, rows, feats, eps, act, stream);
 }
 
+// ----------------------------------------------------------------- float64
+
+__device__ __forceinline__ double activate_f64(double v, int act) {
+  switch (act) {
+    case dl4j::kRelu: return fmax(v, 0.0);
+    case dl4j::kTanh: return tanh(v);
+    case dl4j::kSigmoid: return 1.0 / (1.0 + exp(-v));
+    default: return v;
+  }
+}
+
+__device__ __forceinline__ double warp_sum_f64(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// (x - mu) * rsqrt(var + eps), then * gamma + beta, then the activation: the
+// plain version's order, each step rounded apart.
+__device__ __forceinline__ double ln_out_f64(double x, double mu, double inv,
+                                             double g, double b, int act) {
+  return activate_f64(__dadd_rn(__dmul_rn(__dmul_rn(x - mu, inv), g), b), act);
+}
+
+template <int V, int NV>
+__global__ void __launch_bounds__(32 * kRowsPerBlock)
+layernorm_f64_kernel(const double* __restrict__ x,
+                     const double* __restrict__ gamma,
+                     const double* __restrict__ beta, double* __restrict__ y,
+                     int rows, int feats, double eps, int act) {
+  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const double* xr = x + static_cast<size_t>(row) * feats;
+  double* yr = y + static_cast<size_t>(row) * feats;
+  double v[NV][V];
+  double sum = 0.0;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = (i * 32 + lane) * V;
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[i][j] = 0.0;
+    if (c < feats) {
+      if constexpr (V == 2) {
+        const double2 d = *reinterpret_cast<const double2*>(xr + c);
+        v[i][0] = d.x;
+        v[i][1] = d.y;
+      } else {
+        v[i][0] = xr[c];
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) sum += v[i][j];
+    }
+  }
+  const double mu = warp_sum_f64(sum) / feats;
+  double sq = 0.0;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if ((i * 32 + lane) * V < feats) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const double d = v[i][j] - mu;
+        sq += d * d;
+      }
+    }
+  }
+  const double inv = 1.0 / sqrt(warp_sum_f64(sq) / feats + eps);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = (i * 32 + lane) * V;
+    if (c < feats) {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        yr[c + j] = ln_out_f64(v[i][j], mu, inv, gamma[c + j], beta[c + j], act);
+    }
+  }
+}
+
+__device__ __forceinline__ double block_sum_f64(double v, double* part) {
+  v = warp_sum_f64(v);
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = v;
+  __syncthreads();
+  double t = 0.0;
+#pragma unroll
+  for (int w = 0; w < kRowThreads / 32; ++w) t += part[w];
+  __syncthreads();
+  return t;
+}
+
+__global__ void __launch_bounds__(kRowThreads)
+layernorm_f64_row_kernel(const double* __restrict__ x,
+                         const double* __restrict__ gamma,
+                         const double* __restrict__ beta,
+                         double* __restrict__ y, int feats, double eps,
+                         int act) {
+  __shared__ double part[kRowThreads / 32];
+  const double* xr = x + static_cast<size_t>(blockIdx.x) * feats;
+  double* yr = y + static_cast<size_t>(blockIdx.x) * feats;
+  double sum = 0.0;
+  for (int i = threadIdx.x; i < feats; i += kRowThreads) sum += xr[i];
+  const double mu = block_sum_f64(sum, part) / feats;
+  double sq = 0.0;
+  for (int i = threadIdx.x; i < feats; i += kRowThreads) {
+    const double d = xr[i] - mu;
+    sq += d * d;
+  }
+  const double inv = 1.0 / sqrt(block_sum_f64(sq, part) / feats + eps);
+  for (int i = threadIdx.x; i < feats; i += kRowThreads)
+    yr[i] = ln_out_f64(xr[i], mu, inv, gamma[i], beta[i], act);
+}
+
+template <int V>
+int launch_ln_f64_warp(const double* x, const double* g, const double* b,
+                       double* y, int rows, int feats, double eps, int act,
+                       cudaStream_t stream) {
+  const int nv = (feats + 32 * V - 1) / (32 * V);
+  const dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+  const dim3 block(32 * kRowsPerBlock);
+  if (nv <= 1)
+    layernorm_f64_kernel<V, 1><<<grid, block, 0, stream>>>(x, g, b, y, rows, feats, eps, act);
+  else if (nv <= 2)
+    layernorm_f64_kernel<V, 2><<<grid, block, 0, stream>>>(x, g, b, y, rows, feats, eps, act);
+  else if (nv <= 4)
+    layernorm_f64_kernel<V, 4><<<grid, block, 0, stream>>>(x, g, b, y, rows, feats, eps, act);
+  else
+    layernorm_f64_kernel<V, kMaxVectors><<<grid, block, 0, stream>>>(x, g, b, y, rows, feats, eps, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+struct BnF64 {
+  const double* ptr[4];  // mean, var, gamma, beta
+  double value[4];
+  int kinds;             // 4 bits each: 0 a [C] tensor, kBroadcast, kByValue
+};
+
+__device__ __forceinline__ double bn_vec_f64(const BnF64& v, int w, int c) {
+  const int kind = (v.kinds >> (4 * w)) & 15;
+  if (kind == kByValue) return v.value[w];
+  return v.ptr[w][kind == kBroadcast ? 0 : c];
+}
+
+template <int ACT, int V>
+__global__ void __launch_bounds__(kBnThreads)
+batchnorm_f64_kernel(const double* __restrict__ x, double* __restrict__ y,
+                     BnF64 vecs, long long rows, int feats, int tx_n,
+                     double eps) {
+  const int ty_n = kBnThreads / tx_n;
+  const int ty = threadIdx.x / tx_n, tx = threadIdx.x - ty * tx_n;
+  const int c0 = (blockIdx.y * tx_n + tx) * V;
+  if (ty >= ty_n || c0 >= feats) return;
+  double m[V], s[V], g[V], b[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    m[j] = bn_vec_f64(vecs, 0, c0 + j);
+    s[j] = __dsqrt_rn(bn_vec_f64(vecs, 1, c0 + j) + eps);
+    g[j] = bn_vec_f64(vecs, 2, c0 + j);
+    b[j] = bn_vec_f64(vecs, 3, c0 + j);
+  }
+  const long long step = static_cast<long long>(gridDim.x) * ty_n;
+  for (long long r = static_cast<long long>(blockIdx.x) * ty_n + ty; r < rows;
+       r += step) {
+    const double* xp = x + r * feats + c0;
+    double* yp = y + r * feats + c0;
+    double in[V], out[V];
+    if constexpr (V == 2) {
+      const double2 d = *reinterpret_cast<const double2*>(xp);
+      in[0] = d.x;
+      in[1] = d.y;
+    } else {
+      in[0] = xp[0];
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      out[j] = activate_f64(
+          __dadd_rn(__dmul_rn(g[j], __ddiv_rn(in[j] - m[j], s[j])), b[j]), ACT);
+    if constexpr (V == 2)
+      *reinterpret_cast<double2*>(yp) = make_double2(out[0], out[1]);
+    else
+      yp[0] = out[0];
+  }
+}
+
+template <int V>
+int launch_bn_f64_v(const double* x, double* y, const BnF64& vecs,
+                    long long rows, int feats, double eps, int act,
+                    cudaStream_t stream) {
+  const int chunks = feats / V;
+  const int tx_n = chunks < kBnThreads ? chunks : kBnThreads;
+  const int tiles = (chunks + tx_n - 1) / tx_n;
+  const int ty_n = kBnThreads / tx_n;
+  long long groups = (rows + ty_n - 1) / ty_n;
+  const long long cap = 132LL * 16;  // a few waves; the rows are walked
+  if (groups > cap) groups = cap;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(groups), tiles);
+  switch (act) {
+    case dl4j::kIdentity:
+      batchnorm_f64_kernel<dl4j::kIdentity, V><<<grid, kBnThreads, 0, stream>>>(x, y, vecs, rows, feats, tx_n, eps);
+      break;
+    case dl4j::kRelu:
+      batchnorm_f64_kernel<dl4j::kRelu, V><<<grid, kBnThreads, 0, stream>>>(x, y, vecs, rows, feats, tx_n, eps);
+      break;
+    case dl4j::kTanh:
+      batchnorm_f64_kernel<dl4j::kTanh, V><<<grid, kBnThreads, 0, stream>>>(x, y, vecs, rows, feats, tx_n, eps);
+      break;
+    case dl4j::kSigmoid:
+      batchnorm_f64_kernel<dl4j::kSigmoid, V><<<grid, kBnThreads, 0, stream>>>(x, y, vecs, rows, feats, tx_n, eps);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The float64 LayerNorm: x, y: [rows, feats] contiguous, gamma, beta:
+// [feats] contiguous, all double; eps a double.
+extern "C" int dl4j_layernorm_norm_act_f64(const void* x, const void* gamma,
+                                           const void* beta, void* y,
+                                           int rows, int feats, double eps,
+                                           int act, void* stream) {
+  if (rows <= 0 || feats <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const double* xp = static_cast<const double*>(x);
+  const double* gp = static_cast<const double*>(gamma);
+  const double* bp = static_cast<const double*>(beta);
+  double* yp = static_cast<double*>(y);
+  const int v = load_width<double>(
+      feats, reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y));
+  if (v == 2 && feats <= 32 * kMaxVectors * 2)
+    return launch_ln_f64_warp<2>(xp, gp, bp, yp, rows, feats, eps, act, s);
+  if (feats <= 32 * kMaxVectors)
+    return launch_ln_f64_warp<1>(xp, gp, bp, yp, rows, feats, eps, act, s);
+  layernorm_f64_row_kernel<<<rows, kRowThreads, 0, s>>>(xp, gp, bp, yp, feats,
+                                                         eps, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 BatchNorm apply: x, y: [rows, feats] contiguous double; mean,
+// var, gamma, beta: each a [feats] double tensor (kind 0), a 0-d double
+// tensor (kBroadcast) or a double by value (kByValue), 4 bits each in
+// `kinds`.
+extern "C" int dl4j_batchnorm_norm_act_f64(
+    const void* x, const void* mean, const void* var, const void* gamma,
+    const void* beta, void* y, long long rows, int feats, double eps, int act,
+    int kinds, double mean_value, double var_value, double gamma_value,
+    double beta_value, void* stream) {
+  if (rows <= 0 || feats <= 0) return 0;
+  BnF64 vecs{{static_cast<const double*>(mean), static_cast<const double*>(var),
+              static_cast<const double*>(gamma),
+              static_cast<const double*>(beta)},
+             {mean_value, var_value, gamma_value, beta_value},
+             kinds};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const double* xp = static_cast<const double*>(x);
+  double* yp = static_cast<double*>(y);
+  const int v = load_width<double>(
+      feats, reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y));
+  if (v == 2)
+    return launch_bn_f64_v<2>(xp, yp, vecs, rows, feats, eps, act, s);
+  return launch_bn_f64_v<1>(xp, yp, vecs, rows, feats, eps, act, s);
+}
 
 // x, y: [rows, feats] contiguous; gamma, beta: [feats] contiguous; all of
 // `dtype` (checked by the Python wrapper). Any feats >= 1 and any address

@@ -39,6 +39,18 @@ For the precision policies `apply_step` takes two more things:
   round-to-nearest-even cast in the same launch, the plain version copies
   the updated master into them.
 
+For a captured CUDA graph (`nn/superstep.py`) the launch has a third
+form, the device-scalar form: the 8 shared floats and the per-tensor lrs,
+baked into a launch's parameters otherwise, are read from a device buffer
+that the host refills before each replay. An `apply_step` given a
+`ScalarSlots` (`slots=`) takes a slot of it for each launch and records
+what fills it: the kind, hyperparameters, step and
+each tensor's schedule (`UpdateItem.lr_of`); `ScalarSlots.fill(shift)`
+computes, for the step `shift` iterations later, the values the host form
+computes (the same f32 arithmetic, rounded once), and moves them all with
+one copy. Those launches count in `kernels.variant_launches
+["fused_update"]["device_scalars"]` too.
+
 On the card the apply mode equals the deltas mode followed by `d * factor`
 and `p.sub_(d)` bit for bit (the kernel's note says how). Both take lr,
 bc1 = 1 - beta1^t and bc2 = 1 - beta2^t as f32 values, computed on the
@@ -52,7 +64,7 @@ from __future__ import annotations
 
 import array
 import operator
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -81,6 +93,7 @@ class UpdateItem(NamedTuple):
     lr: float
     factors: Optional[Dict[str, float]] = None
     lowp: Optional[Dict[str, torch.Tensor]] = None
+    lr_of: Optional[Callable[[int], float]] = None
 
 
 def scalars(lr, step, kind, hyper):
@@ -204,7 +217,8 @@ class _Table:
     the grads, lrs and factors (`_regrad`)."""
 
     __slots__ = ("idx", "kept", "addrs", "numels", "live", "outs", "s0s",
-                 "s1s", "lps", "lp_code", "sizes", "gs", "lrs", "facs")
+                 "s1s", "lps", "lp_code", "sizes", "gs", "lrs", "facs",
+                 "lr_ofs")
 
     def _select(self, per_entry):
         live = self.live
@@ -219,7 +233,7 @@ def _pack(mode, entries) -> _Table:
     t = _Table()
     t.idx = idx = entries[0][1].get_device()
     lp0 = entries[0][7]
-    for out, g, s0, s1, lr, factor, k, lp in entries:
+    for out, g, s0, s1, lr, factor, k, lp, *_ in entries:
         if (lp is None) != (lp0 is None) or (lp is not None and (
                 lp.dtype != lp0.dtype or lp.dtype not in _LP_CODES
                 or lp.get_device() != idx
@@ -262,6 +276,7 @@ def _pack(mode, entries) -> _Table:
     t.gs = t._select([_ptr(e[1]) for e in entries])
     t.lrs = t._select([e[4] for e in entries])
     t.facs = t._select([e[5] for e in entries])
+    t.lr_ofs = t._select([e[8] if len(e) > 8 else None for e in entries])
     return t
 
 
@@ -285,16 +300,75 @@ def _regrad(t, kind, items) -> bool:
             _refuse(_SUB, k, (None, g), n, t.idx)
     t.gs = t._select(list(map(_ptr, grads)))
     t.lrs = t._select([it.lr for it in items for _ in it.grads])
+    t.lr_ofs = t._select([it.lr_of for it in items for _ in it.grads])
     t.facs = t._select([it.factors.get(k, 1.0) if it.factors else 1.0
                         for it in items for k in it.grads])
     return True
 
 
-def _run(kind, hyper, step, mode, table, skip=None) -> None:
+class ScalarSlots:
+    """A device buffer of launch scalars for the device-scalar form (see
+    the module docstring): each launch given it takes the next slot, 8 shared floats then one lr per tensor, and the slot
+    remembers how to compute them for any step. `capacity` floats, on card
+    `device`."""
+
+    def __init__(self, capacity: int, device):
+        self.device = torch.device(device)
+        self.buf = torch.zeros(capacity, dtype=torch.float32,
+                               device=self.device)
+        self.host = torch.zeros(capacity, dtype=torch.float32,
+                                pin_memory=True)
+        self.used = 0
+        self.slots = []  # (offset, kind, hyper, step, lr_ofs)
+        self._copied = None  # the event after the last copy from `host`
+
+    def take(self, kind, hyper, step, lrs, lr_ofs) -> int:
+        """A slot for one launch of `len(lrs)` tensors at `step`, filled
+        with the values of that step; returns its device address."""
+        n = 8 + len(lrs)
+        if self.used + n > self.buf.numel():
+            raise RuntimeError("fused_update: the scalar slots are full")
+        if any(f is None for f in lr_ofs):
+            raise ValueError("fused_update: a device-scalar launch needs "
+                             "every tensor's schedule (UpdateItem.lr_of)")
+        off = self.used
+        self.used += n
+        self.slots.append((off, kind, hyper, step, list(lr_ofs)))
+        self._write(off, kind, hyper, step, lrs)
+        if not torch.cuda.is_current_stream_capturing():
+            # An eager launch reads the slot now; under capture `fill`
+            # writes it before each replay.
+            self.buf[off:off + n].copy_(self.host[off:off + n],
+                                        non_blocking=True)
+        return self.buf.data_ptr() + 4 * off
+
+    def _write(self, off, kind, hyper, step, lrs):
+        vals = array.array("f", _kernel_scalars(kind, step, hyper))
+        vals.extend(array.array("f", lrs))
+        self.host[off:off + len(vals)] = torch.frombuffer(
+            vals, dtype=torch.float32)
+
+    def fill(self, shift: int = 0) -> None:
+        """Every slot's values for its step + `shift`, in one copy to the
+        device on the current stream (which the next replay reads)."""
+        if self._copied is not None:
+            self._copied.synchronize()  # the last copy has read `host`
+        for off, kind, hyper, step, lr_ofs in self.slots:
+            s = step + shift
+            self._write(off, kind, hyper, s, [f(s) for f in lr_ofs])
+        self.buf[:self.used].copy_(self.host[:self.used], non_blocking=True)
+        self._copied = torch.cuda.Event()
+        self._copied.record()
+
+
+
+def _run(kind, hyper, step, mode, table, skip=None, slots=None) -> None:
     """Launch the kernel over `table`'s entries in slices of
     `_MAX_TENSORS` and bump the version counter of every tensor it wrote.
     The lrs and factors are rounded to f32 by the arrays, as `np.float32`
-    rounds them. `skip`: the device int32 flag, or None."""
+    rounds them. `skip`: the device int32 flag, or None. `slots`: a
+    `ScalarSlots` each launch takes its scalars from (the device-scalar
+    form), or None."""
     t = table
     if t.sizes:
         sc = _kernel_scalars(kind, step, hyper)
@@ -308,14 +382,26 @@ def _run(kind, hyper, step, mode, table, skip=None) -> None:
                 size = array.array("q", t.sizes[i:j])
                 lr = array.array("f", t.lrs[i:j])
                 fac = array.array("f", t.facs[i:j])
+                dev = (None if slots is None else
+                       slots.take(kind, hyper, step, t.lrs[i:j],
+                                  t.lr_ofs[i:j]))
                 _build.launch("dl4j_fused_update", code, mode, len(size),
                               ptrs.buffer_info()[0], size.buffer_info()[0],
                               lr.buffer_info()[0], fac.buffer_info()[0],
                               sc.buffer_info()[0], t.lp_code,
                               None if skip is None else skip.data_ptr(),
-                              stream)
+                              dev, stream)
                 kernels.launches["fused_update"].add()
+                if dev is not None:
+                    kernels.variant_launches["fused_update"][
+                        "device_scalars"].add()
     torch.autograd.graph.increment_version(t.kept)
+
+
+def launch_scalars_floats(table) -> int:
+    """Floats a `ScalarSlots` holds for one `_run` over `table`."""
+    n = len(table.sizes)
+    return n + 8 * (-(-n // _MAX_TENSORS))
 
 
 def _item_tensors(kind, it):
@@ -339,7 +425,8 @@ def _check_skip(skip, idx) -> None:
 
 
 def apply_step(kind, hyper, items: List[UpdateItem], step, sign,
-               tables: Optional[dict] = None, skip=None) -> list:
+               tables: Optional[dict] = None, skip=None,
+               slots: Optional[ScalarSlots] = None) -> list:
     """Update state and params of every item in place (see the module
     docstring); `hyper` is the kind's positional hyperparameter tuple,
     `step` the host iteration count, `sign` +1 to minimize, -1 to
@@ -347,6 +434,8 @@ def apply_step(kind, hyper, items: List[UpdateItem], step, sign,
     engine keeps one per network), holds the packed kernel arguments of
     each (kind, hyper) group between steps (`_Table`): a step whose params
     and state are the packed tensors then checks and packs only its grads.
+    `slots`, a `ScalarSlots`, gives the card's launches the device-scalar
+    form (the plain versions compute with host values either way).
     Returns each item's new state: on the card the same tensors, on the
     CPU the plain versions' new ones (the old ones, selected back, where
     `skip` is set). Tensors on more than one device raise, whichever item
@@ -391,12 +480,13 @@ def apply_step(kind, hyper, items: List[UpdateItem], step, sign,
                 entries.append((it.params[k], g, s0[k],
                                 None if s1 is None else s1[k], it.lr,
                                 factors.get(k, 1.0), k,
-                                None if it.lowp is None else it.lowp[k]))
+                                None if it.lowp is None else it.lowp[k],
+                                it.lr_of))
         table = _pack(mode, entries)
         if tables is not None:
             tables[key] = table
     _check_skip(skip, table.idx)
-    _run(kind, hyper, step, mode, table, skip)
+    _run(kind, hyper, step, mode, table, skip, slots)
     return [it.state for it in items]
 
 

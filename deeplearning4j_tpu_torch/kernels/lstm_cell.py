@@ -12,12 +12,26 @@ step mask at x's dtype or None.
   kernel's own (accumulated in f32, as `preferred_element_type` does), the
   gates run in registers, and h, c and out are stored in the operand dtype
   (without a mask out is h itself, as in the plain version). It takes
-  f32, bf16 and f16, and every elementwise activation of
+  f32, bf16, f16 and f64 (the f64 form sums and activates in double: the
+  gradient checks run it), and every elementwise activation of
   `nn/activations.py` (16 names, `ACT_CODES`) as the gate activation and
   as the cell activation, where the TPU kernel takes sigmoid gates and
   four cell activations (`_CELL_ACTS` :37) and sends the rest to XLA.
-  Softmax, which reduces across the hidden units the kernel spreads over
-  its blocks, raises (ROADMAP A.19).
+- Softmax, which reduces across the hidden units that the kernel spreads
+  over its blocks, takes two launches: the kernel in its "z out" form
+  (the product and the input-side peepholes, written to a [b, 4n] f32
+  workspace, f64 for f64), then `lstm_cell_rows`, a kernel that takes a
+  row a block and does the gate math with each softmax over its gate's n
+  units, as `xla_cell` applies it after `jnp.split(z, 4)`. The first
+  counts in `launches["lstm_cell"]` and `variant_launches["lstm_cell"]
+  ["zout"]`, the second in `launches["lstm_cell_rows"]`.
+- A gate or cell activation that is the user's (a callable, or a name
+  given to `activations.register`) cannot run in a hand-written kernel:
+  such a cell runs the "z out" launch on the card and its gate math as
+  torch ops that call the user's function on the card tensors, counted in
+  `variant_launches["lstm_cell"]["callable"]`. That tail is the user's
+  code, not a plain version standing in for a kernel; a built-in name
+  never takes it. An unknown name raises ValueError, as `resolve` does.
 - A CPU tensor calls `lstm_cell_plain`, `xla_cell` (:86) transcribed op for
   op, with `_lstm_scan`'s split of pW (recurrent.py:48). In bf16 it rounds
   z = xw_t + h_prev @ RW to bf16, as XLA does, where the kernel keeps z in
@@ -41,7 +55,9 @@ from deeplearning4j_tpu_torch import kernels
 from deeplearning4j_tpu_torch.kernels import _build, _diff
 from deeplearning4j_tpu_torch.nn import activations
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3,
+               torch.float64: 4}
+SOFTMAX_CODE = 16  # csrc/lstm_cell.cu `kSoftmax`, `lstm_rows_kernel` only
 # The kernel's activation codes (csrc/lstm_cell.cu `cell_act`): every
 # elementwise name of nn/activations.py, as a gate and as the cell
 # activation.
@@ -54,21 +70,28 @@ ACT_CODES = {name: i for i, name in enumerate((
 def _cell_ops(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation,
               activation):
     """`xla_cell`'s ops, in its order (`_lstm_scan` splits pW)."""
-    gate_act = activations.resolve(gate_activation)
-    cell_act = activations.resolve(activation)
     n = h_prev.shape[-1]
     z = xw_t + h_prev @ RW
     zi, zf, zo, zg = torch.split(z, n, dim=-1)
     if pW is not None:
-        p_i, p_f, p_o = pW[:n], pW[n:2 * n], pW[2 * n:]
-        zi = zi + c_prev * p_i
-        zf = zf + c_prev * p_f
+        zi = zi + c_prev * pW[:n]
+        zf = zf + c_prev * pW[n:2 * n]
+    return _cell_tail(zi, zf, zo, zg, h_prev, c_prev, pW, m_t,
+                      gate_activation, activation)
+
+
+def _cell_tail(zi, zf, zo, zg, h_prev, c_prev, pW, m_t, gate_activation,
+               activation):
+    """`xla_cell`'s gate math from z (input-side peepholes added)."""
+    gate_act = activations.resolve(gate_activation)
+    cell_act = activations.resolve(activation)
+    n = h_prev.shape[-1]
     i = gate_act(zi)
     f = gate_act(zf)
     g = cell_act(zg)
     c = f * c_prev + i * g
     if pW is not None:
-        zo = zo + c * p_o
+        zo = zo + c * pW[2 * n:]
     o = gate_act(zo)
     h = o * cell_act(c)
     if m_t is not None:
@@ -156,7 +179,8 @@ class _CellParams(ctypes.Structure):
     """The kernel's scalars (csrc/lstm_cell.cu `CellParams`), built once
     per shape and handed over by address."""
     _fields_ = [("xw_stride", ctypes.c_longlong)] + [
-        (name, ctypes.c_int) for name in ("b", "n", "act", "gate", "dtype")]
+        (name, ctypes.c_int) for name in ("b", "n", "act", "gate", "dtype",
+                                          "zout")]
 
 
 # (shapes, dtypes, xw_t's row stride, activations, device index) of a call
@@ -191,53 +215,103 @@ def _cell_run(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation,
     if setup is None:
         setup = _launches[key] = _setup(xw_t, h_prev, c_prev, RW, pW, m_t,
                                         gate_activation, activation)
-    _, params = setup
     if not (h_prev.is_contiguous() and c_prev.is_contiguous()
             and RW.is_contiguous() and xw_t.stride(1) == 1
             and (pW is None or pW.is_contiguous())):
         _refuse(xw_t, h_prev, c_prev, RW, pW, m_t)
-    h, c = torch.empty_like(h_prev), torch.empty_like(h_prev)
-    out = h if m_t is None else torch.empty_like(h_prev)  # as the plain ops
+    route, params, rows_params = setup[0], setup[2], setup[4]
+    f64 = xw_t.dtype == torch.float64
+    stream = _build.current_stream(idx)
+    pw_ptr = None if pW is None else pW.data_ptr()
+    if route == "cell":
+        h, c = torch.empty_like(h_prev), torch.empty_like(h_prev)
+        out = h if m_t is None else torch.empty_like(h_prev)  # as plain ops
+        with _build.on_device(idx):
+            _build.launch(
+                "dl4j_lstm_cell", xw_t.data_ptr(), h_prev.data_ptr(),
+                c_prev.data_ptr(), RW.data_ptr(), pw_ptr,
+                None if m_t is None else m_t.data_ptr(), h.data_ptr(),
+                c.data_ptr(), None if m_t is None else out.data_ptr(), params,
+                stream)
+        _count("lstm_cell", f64)
+        return h, c, out
+    b, n = h_prev.shape
+    ws = torch.empty(b, 4 * n, device=h_prev.device,
+                     dtype=torch.float64 if f64 else torch.float32)
     with _build.on_device(idx):
-        _build.launch(
-            "dl4j_lstm_cell", xw_t.data_ptr(), h_prev.data_ptr(),
-            c_prev.data_ptr(), RW.data_ptr(),
-            None if pW is None else pW.data_ptr(),
-            None if m_t is None else m_t.data_ptr(), h.data_ptr(),
-            c.data_ptr(), None if m_t is None else out.data_ptr(), params,
-            _build.current_stream(idx))
-    kernels.launches["lstm_cell"].add()
+        _build.launch("dl4j_lstm_cell", xw_t.data_ptr(), h_prev.data_ptr(),
+                      c_prev.data_ptr(), RW.data_ptr(), pw_ptr, None, None,
+                      None, ws.data_ptr(), params, stream)
+    _count("lstm_cell", f64)
+    kernels.variant_launches["lstm_cell"]["zout"].add()
+    if route == "callable":
+        kernels.variant_launches["lstm_cell"]["callable"].add()
+        acc = ws.dtype
+        h, c, out = _cell_tail(
+            *torch.split(ws, n, dim=-1), h_prev.to(acc), c_prev.to(acc),
+            None if pW is None else pW.to(acc),
+            None if m_t is None else m_t.to(acc), gate_activation,
+            activation)
+        dt = h_prev.dtype
+        h, c = h.to(dt), c.to(dt)
+        return h, c, (h if m_t is None else out.to(dt))
+    h, c = torch.empty_like(h_prev), torch.empty_like(h_prev)
+    out = h if m_t is None else torch.empty_like(h_prev)
+    with _build.on_device(idx):
+        _build.launch("dl4j_lstm_cell_rows", ws.data_ptr(), h_prev.data_ptr(),
+                      c_prev.data_ptr(), pw_ptr,
+                      None if m_t is None else m_t.data_ptr(), h.data_ptr(),
+                      c.data_ptr(), None if m_t is None else out.data_ptr(),
+                      rows_params, stream)
+    _count("lstm_cell_rows", f64)
     return h, c, out
+
+
+def _count(name, f64) -> None:
+    kernels.launches[name].add()
+    if f64:
+        kernels.variant_launches[name]["f64"].add()
 
 
 def _setup(xw_t, h_prev, c_prev, RW, pW, m_t, gate_activation, activation):
     """The checks that depend on shapes, dtypes and activations alone
-    (raising as the kernel cannot take them), then the launch's scalars."""
-    gate = _act_code(gate_activation, "gate")
-    act = _act_code(activation, "cell")
+    (raising as the kernel cannot take them), then the route ("cell": one
+    launch; "rows": the "z out" launch and the row kernel; "callable": the
+    "z out" launch and the user's function) and the launches' scalars:
+    `(route, params, address, row params, address)`."""
+    gate = _act_code(gate_activation)
+    act = _act_code(activation)
     dt = xw_t.dtype
     code = DTYPE_CODES.get(dt)
     if code is None:
-        raise TypeError(f"lstm_cell takes float32, bfloat16 or float16 on "
-                        f"the card, not {dt}")
+        raise TypeError(f"lstm_cell takes float32, bfloat16, float16 or "
+                        f"float64 on the card, not {dt}")
     b, n = h_prev.shape
     _refuse(xw_t, h_prev, c_prev, RW, pW, m_t, layout=False)
-    params = _CellParams(xw_t.stride(0), b, n, act, gate, code)
-    return params, ctypes.addressof(params)
+    if gate is None or act is None:
+        route = "callable"
+    elif SOFTMAX_CODE in (gate, act):
+        route = "rows"
+    else:
+        route = "cell"
+    zout = route != "cell"
+    params = _CellParams(xw_t.stride(0), b, n, 0 if zout else act,
+                         0 if zout else gate, code, int(zout))
+    rows = _CellParams(0, b, n, act or 0, gate or 0, code, 0)
+    return (route, params, ctypes.addressof(params), rows,
+            ctypes.addressof(rows))
 
 
-def _act_code(activation, role):
-    """The kernel's code for a gate or cell activation (None = identity);
-    softmax, which is not elementwise, raises."""
-    name = str(activation or "identity").lower()
-    if name not in ACT_CODES:
-        activations.resolve(name)  # an unknown name raises ValueError
-        raise NotImplementedError(
-            f"lstm_cell: the CUDA kernel takes the elementwise activations "
-            f"{sorted(ACT_CODES)} as {role} activation, not "
-            f"{activation!r}: it reduces across the hidden units "
-            f"(ROADMAP A.19)")
-    return ACT_CODES[name]
+def _act_code(activation):
+    """The kernels' code for a gate or cell activation (None = identity):
+    a built-in elementwise one's (`ACT_CODES`), softmax's
+    (`SOFTMAX_CODE`), or None for the user's function (a callable, a
+    registered name); an unknown name raises ValueError."""
+    activations.resolve(activation)  # an unknown name raises ValueError
+    name = activations.builtin(activation)
+    if name == "softmax":
+        return SOFTMAX_CODE
+    return None if name is None else ACT_CODES[name]
 
 
 def _refuse(xw_t, h_prev, c_prev, RW, pW, m_t, layout=True):

@@ -33,6 +33,12 @@ through `BatchNormFn`, whose backward is the VJP of the plain ops for all
 five tensor inputs: the batch statistics are computed from x inside the
 differentiated function (`nn/layers/normalization.py`), so the gradient
 flows through them too.
+
+Both take float64 on the card too, in forms of their own that compute in
+double (`dl4j_layernorm_norm_act_f64`, `dl4j_batchnorm_norm_act_f64`:
+the gradient checks of float64 nets run them), each launch counted also in
+`kernels.variant_launches[name]["f64"]`. A float64 BatchNorm takes its
+four vectors as float64 tensors ([C] or 0-d) or floats.
 """
 
 from __future__ import annotations
@@ -167,10 +173,12 @@ def _batchnorm_forward(x, mean, var, gamma, beta, eps, activation):
                                                       beta):
         _diff.refuse_grad("batchnorm_norm_act",
                           *_tensors(x, mean, var, gamma, beta))
+    if x.dtype == torch.float64:
+        return _batchnorm_f64(x, mean, var, gamma, beta, eps, activation)
     code = DTYPE_CODES.get(x.dtype)
     if code is None:
-        raise TypeError(f"batchnorm_norm_act takes float32, bfloat16 or "
-                        f"float16 on the card, not {x.dtype}")
+        raise TypeError(f"batchnorm_norm_act takes float32, bfloat16, "
+                        f"float16 or float64 on the card, not {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     idx = x.get_device()
@@ -188,6 +196,53 @@ def _batchnorm_forward(x, mean, var, gamma, beta, eps, activation):
                       km | kv << 4 | kg << 8 | kb << 12, vm, vv, vg, vb,
                       _build.current_stream(idx))
     kernels.launches["batchnorm_norm_act"].add()
+    return y
+
+
+def _f64_vector(a, feats, idx, name):
+    """(pointer, kind, value) of a float64 BatchNorm vector: a [feats] or
+    0-d float64 tensor on card `idx`, or a real number by value."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype != torch.float64:
+            raise TypeError(f"batchnorm_norm_act: a float64 x takes float64 "
+                            f"vectors; {name} is {a.dtype}")
+        if a.get_device() != idx:
+            raise ValueError(f"tensors on different devices: x on cuda:"
+                             f"{idx} and {name} on {a.device}")
+        if a.dim() == 0:
+            return a.data_ptr(), _BROADCAST, 0.0
+        if a.shape != (feats,) or not a.is_contiguous():
+            raise ValueError(f"batchnorm_norm_act: {name} must be a "
+                             f"contiguous [{feats}] tensor, a 0-d tensor or "
+                             f"a float; got {tuple(a.shape)}")
+        return a.data_ptr(), 0, 0.0
+    if isinstance(a, numbers.Real) and not isinstance(a, bool):
+        return None, _BY_VALUE, float(a)
+    raise TypeError(f"batchnorm_norm_act: {name} must be a tensor or a "
+                    f"float, not {type(a).__name__}")
+
+
+def _batchnorm_f64(x, mean, var, gamma, beta, eps, activation):
+    """The float64 form: one launch, eps as a double."""
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    idx = x.get_device()
+    feats = x.shape[-1]
+    act = _act_code(activation)
+    vecs = [_f64_vector(a, feats, idx, n) for a, n in (
+        (mean, "mean"), (var, "var"), (gamma, "gamma"), (beta, "beta"))]
+    y = torch.empty_like(x)
+    kinds = 0
+    for i, (_, kind, _) in enumerate(vecs):
+        kinds |= kind << (4 * i)
+    with _build.on_device(idx):
+        _build.launch("dl4j_batchnorm_norm_act_f64", x.data_ptr(),
+                      *(p for p, _, _ in vecs), y.data_ptr(),
+                      x.numel() // feats if feats else 0, feats, float(eps),
+                      act, kinds, *(v for _, _, v in vecs),
+                      _build.current_stream(idx))
+    kernels.launches["batchnorm_norm_act"].add()
+    kernels.variant_launches["batchnorm_norm_act"]["f64"].add()
     return y
 
 
@@ -268,9 +323,9 @@ def _layernorm_forward(x, gamma, beta, eps, activation):
     act = _act_code(activation)
     dt = x.dtype
     code = DTYPE_CODES.get(dt)
-    if code is None:
-        raise TypeError(f"layernorm_norm_act takes float32, bfloat16 or "
-                        f"float16, not {dt}")
+    if code is None and dt != torch.float64:
+        raise TypeError(f"layernorm_norm_act takes float32, bfloat16, "
+                        f"float16 or float64, not {dt}")
     if gamma.dtype != dt or beta.dtype != dt:
         raise TypeError("gamma and beta must have x's dtype")
     feats = x.shape[-1]
@@ -281,9 +336,16 @@ def _layernorm_forward(x, gamma, beta, eps, activation):
         raise ValueError("x, gamma and beta must be contiguous")
     xp, gp, bp = x.data_ptr(), gamma.data_ptr(), beta.data_ptr()
     y = torch.empty_like(x)
+    rows = x.numel() // feats if feats else 0
     with _build.on_device(idx):
-        _build.launch("dl4j_layernorm_norm_act", xp, gp, bp, y.data_ptr(),
-                      x.numel() // feats if feats else 0, feats,
-                      float(eps), act, code, _build.current_stream(idx))
+        if code is None:  # float64
+            _build.launch("dl4j_layernorm_norm_act_f64", xp, gp, bp,
+                          y.data_ptr(), rows, feats, float(eps), act,
+                          _build.current_stream(idx))
+            kernels.variant_launches["layernorm_norm_act"]["f64"].add()
+        else:
+            _build.launch("dl4j_layernorm_norm_act", xp, gp, bp,
+                          y.data_ptr(), rows, feats, float(eps), act, code,
+                          _build.current_stream(idx))
     kernels.launches["layernorm_norm_act"].add()
     return y

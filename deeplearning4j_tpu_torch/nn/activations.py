@@ -1,7 +1,14 @@
 """Activation functions (counterpart of
 `deeplearning4j_tpu/nn/activations.py`): the reference's whole set, by the
 same names and with the same formulas (gelu is JAX's default tanh
-approximation)."""
+approximation), and the reference's two ways past it: a callable passes
+through `resolve` as it is, and `register(name, fn)` adds a name (any case)
+that a conf then names like a built-in one, so the name, not the function,
+travels in the conf's JSON. `builtin(activation)` says whether a spec is
+one of the built-in functions under its own name: the kernels that take an
+activation by code (`kernels/lstm_cell.py`) run only those, and a name
+registered over a built-in one is the user's function, not the built-in's.
+"""
 
 from __future__ import annotations
 
@@ -42,10 +49,33 @@ _REGISTRY: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
+_BUILTIN = dict(_REGISTRY)
+
+
 def resolve(activation) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Name (any case; None = identity) -> function on tensors."""
+    """Name (any case; None = identity) or callable -> function on
+    tensors (reference `resolve`, activations.py:54-64)."""
+    if callable(activation) and not isinstance(activation, str):
+        return activation
     key = "identity" if activation is None else str(activation).lower()
     if key not in _REGISTRY:
         raise ValueError(f"Unknown activation: {activation!r}. Known in the "
                          f"port: {sorted(_REGISTRY)}")
     return _REGISTRY[key]
+
+
+def register(name: str, fn: Callable[[torch.Tensor], torch.Tensor]) -> None:
+    """Add (or replace) the activation `name`, any case (reference
+    `register`, activations.py:67-69)."""
+    _REGISTRY[str(name).lower()] = fn
+
+
+def builtin(activation):
+    """The built-in name of `activation` (None = identity) when the
+    registry still maps it to the built-in function, else None (a
+    callable, a registered name, or a built-in name registered over)."""
+    if callable(activation) and not isinstance(activation, str):
+        return None
+    key = "identity" if activation is None else str(activation).lower()
+    fn = _REGISTRY.get(key)
+    return key if fn is not None and fn is _BUILTIN.get(key) else None

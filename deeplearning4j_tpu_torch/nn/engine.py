@@ -52,7 +52,33 @@ to its conf, in the engine's update order.
 - Listeners (`set_listeners`) get `on_epoch_start(net)`, then
   `iteration_done(net, iteration)` after every iteration, then
   `on_epoch_end(net)` (`optimize/listeners.py`); both engines call them
-  where the reference's do.
+  where the reference's do. A listener with `requires_training_stats`
+  turns on the stats step (reference graph.py:1201-1205): each step then
+  fills `last_training_stats`, `{layer: {param: {grad_mm, update_mm,
+  param_mm}}}`, the means of |normalized gradient|, |applied delta, bias
+  factor included| and |new param| (reference multilayer.py:759-770),
+  device scalars until read. The stats step updates every layer through
+  its updater's per-layer seam (on the card row 9's deltas mode, then
+  `d * factor` and `p -= d`, which the kernel's apply mode equals bit for
+  bit), so its params are the plain step's.
+- Solvers (`optimization_algo` LBFGS, conjugate gradient, line gradient
+  descent; `_fit_solver`, reference multilayer.py:969-995): each batch is
+  minimized over the flat params in the reference's flat order (layer
+  keys sorted, then param names sorted) for `iterations` solver
+  iterations by `optimize/solvers.py`, on the engine's deterministic
+  objective (`_objective`: no dropout, BatchNorm's running statistics,
+  the forward the gradient checks use too); the iteration advances by
+  `iterations`, the listeners hear once a batch, the stats are cleared.
+  Masters and loss scaling refuse, as in the reference.
+- Superstep (`superstep_k`, or `DL4J_TPU_SUPERSTEP_K`, which sets K and
+  picks no implementation; `_superstep_k`, reference multilayer.py:886-
+  907): `fit` over an iterator stacks K batches of one signature into a
+  block (`datasets/iterators.py` `SuperbatchIterator`, cached on the base
+  iterator) and trains it as K steps at once (`_fit_superstep`): on the
+  card K train steps captured as one CUDA graph and replayed
+  (`nn/superstep.py`), on the CPU the K steps in a loop; then the K
+  scores fan out to the listeners, one iteration each. K is 0 (per batch)
+  under a stats listener, `iterations > 1`, truncated BPTT and solvers.
 - `_train_rng` is the reference's train-time RNG continuation, a
   `uint32[2]` threefry key that `init` sets to its `PRNGKey(seed ^
   0x5EED)` (`nn/prng.py`). `_next_rng` advances it where the reference's
@@ -68,21 +94,26 @@ to its conf, in the engine's update order.
 from __future__ import annotations
 
 import copy
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch._device import resolve_device
+from deeplearning4j_tpu_torch.datasets import iterators as iterators_mod
 from deeplearning4j_tpu_torch.kernels import fused_update
 from deeplearning4j_tpu_torch.nn import params as params_mod
+from deeplearning4j_tpu_torch.nn import superstep as superstep_mod
 from deeplearning4j_tpu_torch.nn.conf.dtype_policy import resolve_policy
+from deeplearning4j_tpu_torch.nn.conf.enums import OptimizationAlgorithm
 from deeplearning4j_tpu_torch.nn.conf.layers import is_bias_param
 from deeplearning4j_tpu_torch.nn.layers import check_supported
 from deeplearning4j_tpu_torch.nn.prng import prng_key, split
 from deeplearning4j_tpu_torch.ops import grad_norm as grad_norm_mod
 from deeplearning4j_tpu_torch.ops import schedules as schedules_mod
 from deeplearning4j_tpu_torch.ops import updaters as updaters_mod
+from deeplearning4j_tpu_torch.optimize import solvers as solvers_mod
 
 # `opt_state` keys that are no vertex: the f32 masters and the loss-scale
 # pair (reference `multilayer.py:107`).
@@ -138,6 +169,11 @@ def center_loss(layer, feats, centers, labels, lmask, eb, loss_dtype):
 class NetworkEngine:
     """Base of the engines (see module docstring)."""
 
+    # The context of the superstep steps being warmed up or captured
+    # (`nn/superstep.py`): `_next_rng` has it wrap each step key, and the
+    # fused update takes its scalar slots. None otherwise.
+    _step_ctx = None
+
     def __init__(self, global_conf, layer_confs, device):
         for name, layer in layer_confs.items():
             check_supported(name, layer)
@@ -159,6 +195,8 @@ class NetworkEngine:
         self._rnn_state: Dict[str, Dict] = {}
         self._rnn_pos = 0
         self.listeners: List = []
+        self._collect_stats = False
+        self.last_training_stats: Dict[str, Dict] = {}
         # The fused update's packed kernel arguments per (kind, hyper)
         # group, reused while the params and state stay the same tensors
         # (`fused_update.apply_step`); emptied where they are replaced.
@@ -240,6 +278,9 @@ class NetworkEngine:
 
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
+        self._collect_stats = any(
+            getattr(lst, "requires_training_stats", False)
+            for lst in listeners)
         return self
 
     def _iteration_done(self) -> None:
@@ -327,13 +368,7 @@ class NetworkEngine:
         """Raise NotImplementedError, naming the ROADMAP item, for what
         `fit` does not run yet; `refused` adds engine-specific
         `(condition, what, item)` triples."""
-        g = self._global
-        checks = [
-            (str(g.optimization_algo).lower()
-             != "stochastic_gradient_descent",
-             f"optimization_algo {g.optimization_algo!r} (solvers)", 10),
-            (int(g.superstep_k or 0) > 1, "superstep training", 10),
-            *refused]
+        checks = list(refused)
         if self.params_tree is not None and params_mod.is_quantized(
                 self.params_tree):
             raise ValueError(
@@ -363,7 +398,8 @@ class NetworkEngine:
         """Advance the train key, `key, sub = split(key)`; the subkey seeds
         one train-mode forward's draws."""
         self._train_rng, sub = split(self._train_rng)
-        return sub
+        ctx = self._step_ctx
+        return sub if ctx is None else ctx.step_key(sub)
 
     def _train_backward(self, loss):
         """`{key: {name: grad}}` of every leaf that requires grad (zeros
@@ -456,6 +492,8 @@ class NetworkEngine:
         # and the stored params take their cast.
         base = self.opt_state["_master"] if lowp else self.params_tree
         skip = None if fin is None else (~fin).to(torch.int32)
+        collect = self._collect_stats
+        stats: Dict[str, Dict] = {}
         groups: Dict[tuple, list] = {}
         for name, layer in self._layer_confs.items():
             lgrads = grads.get(name)
@@ -476,17 +514,28 @@ class NetworkEngine:
                 factor = bias_lr / base_lr
                 factors = {k: factor for k in lgrads if is_bias_param(k)}
             updater = self._updaters[name]
-            if updater.fused is not None:
+            if updater.fused is not None and not collect:
                 groups.setdefault(updater.fused, []).append(
                     (name, fused_update.UpdateItem(
                         base[name], self.opt_state[name], lgrads, lr,
-                        factors, self.params_tree[name] if lowp else None)))
+                        factors, self.params_tree[name] if lowp else None,
+                        self._schedules[name])))
                 continue
             old = self.opt_state[name]
-            st, deltas = updater.update(old, lgrads, lr, step)
+            if updater.fused is not None and fin is not None:
+                # The seam updates the state in place on the card; a
+                # skipped step selects these copies back.
+                old = {f: {k: t.clone() for k, t in fs.items()}
+                       for f, fs in old.items()}
+            st, deltas = updater.update(self.opt_state[name], lgrads, lr,
+                                        step)
             params = base[name]
             before = ({k: p.clone() for k, p in params.items()}
                       if fin is not None else None)
+            if collect:
+                deltas = {k: d * factors[k] if factors and k in factors
+                          else d for k, d in deltas.items()}
+                factors = None
             fused_update.apply_deltas(params, deltas, factors, sign)
             if fin is not None:
                 for k, p in params.items():
@@ -497,13 +546,142 @@ class NetworkEngine:
                 for k, p in params.items():
                     self.params_tree[name][k].copy_(p)
             self.opt_state[name] = st
+            if collect:
+                stats[name] = {k: {"grad_mm": g_.abs().mean(),
+                                   "update_mm": deltas[k].abs().mean(),
+                                   "param_mm": params[k].abs().mean()}
+                               for k, g_ in lgrads.items()}
+        if collect:
+            self.last_training_stats = stats
+        extra = {} if skip is None else {"skip": skip}
+        if self._step_ctx is not None:
+            extra["slots"] = self._step_ctx.slots
         for (kind, hyper), members in groups.items():
             states = fused_update.apply_step(
                 kind, hyper, [item for _, item in members], step, sign,
-                self._update_tables,
-                **({} if skip is None else {"skip": skip}))
+                self._update_tables, **extra)
             for (name, _), st in zip(members, states):
                 self.opt_state[name] = st
+
+    # ---------------------------------------------------- solver, superstep
+
+    def _objective(self, params, item):
+        """The deterministic loss of `item` at `params` (a `{key: {name:
+        tensor}}` tree at the param dtype): no dropout, BatchNorm's running
+        statistics, the state as it is (reference `solver_step`,
+        `gradientcheck._score_fn_*`). Differentiable in `params`."""
+        raise NotImplementedError
+
+    def _sgd_step(self, item) -> None:
+        """One SGD train step on one batch (no iteration, no listener)."""
+        raise NotImplementedError
+
+    def _flat_keys(self):
+        """The params' `(key, name)` in the reference's flat order
+        (`ravel_pytree`, `tree_flatten`: keys sorted at each level)."""
+        return [(v, k) for v in sorted(self.params_tree)
+                for k in sorted(self.params_tree[v])]
+
+    def _fit_solver(self, item, algo) -> None:
+        """Minimize one batch's objective over the flat params for
+        `iterations` solver iterations (see the module docstring)."""
+        self._check_sgd_only_policy(
+            "solver optimizers (LBFGS/CG/line search)")
+        g = self._global
+        keys = self._flat_keys()
+        leaves = [self.params_tree[v][k] for v, k in keys]
+        sizes = [t.numel() for t in leaves]
+        w0 = torch.cat([t.detach().reshape(-1) for t in leaves])
+
+        def unflat(w):
+            tree: Dict[str, Dict[str, torch.Tensor]] = {}
+            for (v, k), t, part in zip(keys, leaves, torch.split(w, sizes)):
+                tree.setdefault(v, {})[k] = part.reshape(t.shape)
+            return tree
+
+        iters = max(1, int(g.iterations))
+        w, loss = solvers_mod.minimize(
+            algo, lambda w: self._objective(unflat(w), item), w0,
+            iterations=iters,
+            max_line_search=max(1, int(g.max_num_line_search_iterations)))
+        with torch.no_grad():
+            for t, part in zip(leaves, torch.split(w, sizes)):
+                t.copy_(part.reshape(t.shape))
+        self._compute_params = None
+        self._score = loss
+        self.iteration += iters
+        # The stats are the SGD step's; a solver leaves none (reference
+        # multilayer.py:989).
+        self.last_training_stats = {}
+        for listener in self.listeners:
+            listener.iteration_done(self, self.iteration)
+
+    def _solver_algo(self):
+        """The conf's solver, or None for SGD."""
+        algo = OptimizationAlgorithm.of(self._global.optimization_algo)
+        return (None if algo == OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT
+                else algo)
+
+    def _tbptt(self) -> bool:
+        return str(self.conf.backprop_type).lower() == "truncatedbptt"
+
+    def _superstep_k(self) -> int:
+        """K for this engine: `DL4J_TPU_SUPERSTEP_K`, else the conf's
+        `superstep_k`; 0 (per batch) under a stats listener, `iterations
+        > 1`, truncated BPTT or a solver (reference multilayer.py:886)."""
+        env = os.environ.get("DL4J_TPU_SUPERSTEP_K")
+        g = self._global
+        try:
+            k = int(env) if env else int(getattr(g, "superstep_k", 0) or 0)
+        except ValueError:
+            return 0
+        if (k < 2 or self._collect_stats or max(1, int(g.iterations)) != 1
+                or self._tbptt() or self._solver_algo() is not None):
+            return 0
+        return k
+
+    def _superstep_wrap(self, iterator, k: int, transform=None):
+        """`iterator` as a `SuperbatchIterator` of K-blocks, the wrapper
+        cached on the base iterator so a device-cached epoch stacks once
+        (reference multilayer.py:918-938)."""
+        sbi = iterators_mod.SuperbatchIterator
+        tdt = self.dtype_policy.transfer_dtype
+        if isinstance(iterator, sbi):
+            return iterator
+        wrapper = getattr(iterator, "_superbatch_wrapper", None)
+        if (isinstance(wrapper, sbi) and wrapper.base is iterator
+                and wrapper.k == k and wrapper.transfer_dtype == tdt):
+            wrapper.net = self
+            return wrapper
+        wrapper = sbi(iterator, k, transform=transform, transfer_dtype=tdt,
+                      net=self)
+        try:
+            iterator._superbatch_wrapper = wrapper
+        except (AttributeError, TypeError):
+            pass  # a list or a tuple: wrapped again at each fit
+        return wrapper
+
+    def _fit_superstep(self, sb) -> None:
+        """K train steps over a stacked block (see the module docstring),
+        then the K scores to the listeners, one iteration each (reference
+        multilayer.py:940-967)."""
+        k = int(sb.k)
+        base = self.iteration
+        losses = None
+        if self.device.type == "cuda" and k > 1:
+            losses = superstep_mod.run(self, sb)
+        if losses is None:
+            losses = []
+            for j in range(k):
+                self.iteration = base + j
+                self._sgd_step(sb.batch(j))
+                losses.append(self._score)
+            self.iteration = base
+        for loss in losses:
+            self._score = loss
+            self.iteration += 1
+            for listener in self.listeners:
+                listener.iteration_done(self, self.iteration)
 
     # ------------------------------------------------------------ flat views
 

@@ -58,8 +58,13 @@ engines' shared machinery (`engine.py`).
   own step with its own skip decision. A graph whose attention keeps a
   decode cache refuses it (ValueError), as the reference does.
 
+- Solvers, superstep training (K-blocks as `MultiSuperbatch`) and the
+  training statistics are the engines' (`engine.py`); `fit` dispatches as
+  the reference's does (graph.py:770-771, 840-855), and on the card a
+  multi-batch epoch streams through a `DeviceStager`.
+
 What `fit` does not run yet raises NotImplementedError naming its ROADMAP
-item: solvers, superstep, frozen layers.
+item: frozen layers (A.12).
 """
 
 from __future__ import annotations
@@ -69,8 +74,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.datasets import staging
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.datasets.iterators import maybe_reset
+from deeplearning4j_tpu_torch.datasets.iterators import (
+    MultiSuperbatch,
+    Superbatch,
+    maybe_reset,
+)
 from deeplearning4j_tpu_torch.datasets.staging import transfer_cast
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import activations
@@ -345,22 +355,64 @@ class ComputationGraph(NetworkEngine):
         maybe_reset(items)
         for listener in self.listeners:
             listener.on_epoch_start(self)
-        tdt = self.dtype_policy.transfer_dtype
-        tbptt = str(self.conf.backprop_type).lower() == "truncatedbptt"
-        for item in items:
-            mds = transfer_cast(_as_mds(item), tdt)
-            for _ in range(max(1, int(self.conf.global_conf.iterations))):
-                if tbptt and any(
-                        f.ndim == 3 and f.shape[1] > self.conf.tbptt_fwd_length
-                        for f in mds.features):
-                    self._fit_tbptt(mds)
-                else:
-                    self._fit_one(mds)
-                    self._iteration_done()
+        k = self._superstep_k()
+        src = self._superstep_wrap(items, k, _as_mds) if k > 1 else items
+        if self.device.type == "cuda":
+            src = staging.maybe_stage(
+                src, net=self, transfer_dtype=self.dtype_policy.transfer_dtype)
+        src_it = iter(src)
+        try:
+            for item in src_it:
+                self._fit_dispatch(item)
+        finally:  # an abandoned epoch leaves nothing staged
+            staging.close_stager(src_it)
+            staging.close_stager(src)
         self.epoch += 1
         for listener in self.listeners:
             listener.on_epoch_end(self)
         return self
+
+    def _fit_dispatch(self, item) -> None:
+        """A stacked block to the superstep, a solver conf's batch to the
+        solver, truncated BPTT for a sequence longer than a chunk, else
+        `iterations` steps (reference `_fit_dispatch_inner`)."""
+        staging.ready(item)
+        if isinstance(item, Superbatch):
+            item = MultiSuperbatch(
+                [item.features], [item.labels],
+                None if item.features_mask is None else [item.features_mask],
+                None if item.labels_mask is None else [item.labels_mask],
+                k=item.k)
+        if isinstance(item, MultiSuperbatch):
+            self._fit_superstep(item)
+            return
+        mds = transfer_cast(_as_mds(item), self.dtype_policy.transfer_dtype)
+        algo = self._solver_algo()
+        if algo is not None:
+            self._fit_solver(mds, algo)
+            return
+        tbptt = self._tbptt()
+        for _ in range(max(1, int(self.conf.global_conf.iterations))):
+            if tbptt and any(
+                    f.ndim == 3 and f.shape[1] > self.conf.tbptt_fwd_length
+                    for f in mds.features):
+                self._fit_tbptt(mds)
+            else:
+                self._fit_one(mds)
+                self._iteration_done()
+
+    def _sgd_step(self, mds: MultiDataSet) -> None:
+        self._fit_one(mds)
+
+    def _objective(self, params, mds: MultiDataSet):
+        aux = {}
+        outs, _, omasks = self._forward(
+            self._prep(params), self.state, mds.features,
+            keep_rnn_state=False, fmasks=_as_mask_list(mds.features_masks),
+            aux=aux)
+        return self._loss_from_outputs(
+            params, outs, self._device_arrays(mds.labels),
+            self._device_arrays(mds.labels_masks), omasks, aux)[0]
 
     def _fit_one(self, mds: MultiDataSet, carry_rnn: bool = False,
                  ebs=None) -> None:

@@ -15,10 +15,15 @@ router's jitter), `draw_normal` (the VAE's epsilon, `fold_in(key, s)`) and
 `fold_in(key, 2k + 1)`, and the AutoEncoder's corruption). Each makes a
 `torch.Generator` on the tensor's device, seeded on the host from the
 key's words, so a draw needs no host sync and a card tensor's draw is made
-on the card. The draws differ from JAX's (threefry's own stream is not
-sought); a test or a card check that needs the reference's draws swaps the
-function. The JAX package has no kernel for any of them: they are plain
-PyTorch on both devices.
+on the card. A step key may carry a draw route (`draws`, set by
+`nn/superstep.py` on the keys of the steps it captures): the route then
+gives the generator, one registered with the CUDA graph and seeded anew
+from the step's key before each replay, so the draw is the same; and a
+key derived on the host from such a key (`key_words`) is reported to it,
+since no replay could seed that draw. The draws differ from JAX's
+(threefry's own stream is not sought); a test or a card check that needs
+the reference's draws swaps the function. The JAX package has no kernel
+for any of them: they are plain PyTorch on both devices.
 """
 
 from __future__ import annotations
@@ -29,14 +34,32 @@ import numpy as np
 import torch
 
 
-def key_words(key) -> np.ndarray:
-    """A key's uint32[2] words: a `LayerKey`'s, or a raw key's (the
-    pretraining step's subkey, and what `fold_in` makes of it)."""
+def _words(key) -> np.ndarray:
     return key.words if hasattr(key, "words") else np.asarray(key, np.uint32)
 
 
+def _route(key):
+    """The draw route the key's step key carries, or None."""
+    return getattr(getattr(key, "step_key", key), "draws", None)
+
+
+def key_words(key) -> np.ndarray:
+    """A key's uint32[2] words: a `LayerKey`'s, or a raw key's (the
+    pretraining step's subkey, and what `fold_in` makes of it), for a key
+    derived from them on the host."""
+    route = _route(key)
+    if route is not None:
+        route.derived(key)
+    return _words(key)
+
+
 def _generator(key, device) -> torch.Generator:
-    w0, w1 = (int(w) for w in key_words(key))
+    route = _route(key)
+    if route is not None:
+        gen = route.generator(key, device)
+        if gen is not None:
+            return gen
+    w0, w1 = (int(w) for w in _words(key))
     gen = torch.Generator(device=device)
     gen.manual_seed((w0 << 32) | w1)
     return gen

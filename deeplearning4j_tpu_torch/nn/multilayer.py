@@ -55,8 +55,16 @@ engines' shared params, updaters and in-place update (`engine.py`).
   chunk keeps the h and c it started from. A policy's `transfer_dtype`
   casts a batch on the host first (`datasets/staging.py`).
 
+- Solvers, superstep training and the training statistics are the
+  engines' (`engine.py`): `fit` dispatches a stacked block to
+  `_fit_superstep`, then a solver conf's batch to `_fit_solver`, then
+  truncated BPTT or the SGD step (reference `_fit_dispatch_inner`,
+  :868-884). On the card a multi-batch epoch streams through a
+  `DeviceStager` (`datasets/staging.py` `maybe_stage`), as the
+  reference's fit does; the CPU takes its batches as they come.
+
 What `fit` does not run yet raises NotImplementedError naming its ROADMAP
-item: solvers and superstep (A.10) and frozen layers (A.12).
+item: frozen layers (A.12).
 """
 
 from __future__ import annotations
@@ -66,8 +74,9 @@ from typing import List
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.datasets import staging
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
-from deeplearning4j_tpu_torch.datasets.iterators import maybe_reset
+from deeplearning4j_tpu_torch.datasets.iterators import Superbatch, maybe_reset
 from deeplearning4j_tpu_torch.datasets.staging import transfer_cast
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.kernels import fused_update
@@ -265,18 +274,38 @@ class MultiLayerNetwork(NetworkEngine):
         for listener in self.listeners:
             listener.on_epoch_start(self)
         if self.conf.backprop:
-            tdt = self.dtype_policy.transfer_dtype
-            for ds in items:
-                self._fit_dispatch(transfer_cast(_as_dataset(ds), tdt))
+            k = self._superstep_k()
+            src = self._superstep_wrap(items, k) if k > 1 else items
+            if self.device.type == "cuda":
+                src = staging.maybe_stage(
+                    src, net=self,
+                    transfer_dtype=self.dtype_policy.transfer_dtype)
+            src_it = iter(src)
+            try:
+                for ds in src_it:
+                    self._fit_dispatch(ds)
+            finally:  # an abandoned epoch leaves nothing staged
+                staging.close_stager(src_it)
+                staging.close_stager(src)
         self.epoch += 1
         for listener in self.listeners:
             listener.on_epoch_end(self)
         return self
 
-    def _fit_dispatch(self, ds: DataSet) -> None:
-        """Truncated BPTT for a sequence longer than a chunk, else one step
-        (reference `_fit_dispatch_inner`, :868)."""
-        tbptt = str(self.conf.backprop_type).lower() == "truncatedbptt"
+    def _fit_dispatch(self, ds) -> None:
+        """A stacked block to the superstep, a solver conf's batch to the
+        solver, truncated BPTT for a sequence longer than a chunk, else one
+        step (reference `_fit_dispatch_inner`, :868)."""
+        staging.ready(ds)
+        if isinstance(ds, Superbatch):
+            self._fit_superstep(ds)
+            return
+        ds = transfer_cast(_as_dataset(ds), self.dtype_policy.transfer_dtype)
+        algo = self._solver_algo()
+        if algo is not None:
+            self._fit_solver(ds, algo)
+            return
+        tbptt = self._tbptt()
         for _ in range(max(1, int(self.conf.global_conf.iterations))):
             if (tbptt and ds.features.ndim == 3
                     and ds.features.shape[1] > self.conf.tbptt_fwd_length):
@@ -285,6 +314,17 @@ class MultiLayerNetwork(NetworkEngine):
                 x, y, fmask, lmask = self._batch(ds)
                 self._train_step(x, y, fmask, lmask, carry_rnn=False)
                 self._iteration_done()
+
+    def _sgd_step(self, ds: DataSet) -> None:
+        x, y, fmask, lmask = self._batch(ds)
+        self._train_step(x, y, fmask, lmask, carry_rnn=False)
+
+    def _objective(self, params, ds: DataSet):
+        x, y, fmask, lmask = self._batch(ds)
+        aux = {}
+        preout, _, _ = self._forward(self._prep(params), self.state, x, fmask,
+                                     keep_rnn_state=False, aux=aux)
+        return self._loss(params, preout, y, lmask, aux)[0]
 
     def _train_step(self, x, y, fmask, lmask, carry_rnn: bool,
                     eb=None) -> None:

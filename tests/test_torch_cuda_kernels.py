@@ -31,6 +31,19 @@ RESNET_TOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
 DTYPES = [torch.float32, torch.bfloat16]
 
 
+def _chip_smoke():
+    """chip_smoke.py, loaded from the repo's root (its softmax-cell limits
+    and planted faults)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -1180,18 +1193,19 @@ def test_lstm_cell_wrapper_refuses(cuda):
     xw, h, c, rw, pw, m = _cell_inputs(np.random.RandomState(11), 2, 8, True,
                                        False, torch.float32, cuda)
     # Hard-sigmoid gates and a softsign cell launch now, each held to its
-    # plain version; softmax (not elementwise) is still refused.
-    for gate, act in (("hardsigmoid", "tanh"), ("sigmoid", "softsign")):
+    # plain version; so does softmax (the "z out" launch and the row
+    # kernel), as a gate and as the cell activation.
+    for gate, act in (("hardsigmoid", "tanh"), ("sigmoid", "softsign"),
+                      ("softmax", "tanh"), ("sigmoid", "softmax")):
         before = kernels.launches["lstm_cell"].value
+        rows = kernels.launches["lstm_cell_rows"].value
         got = lc.lstm_cell(xw, h, c, rw, pw, m, gate, act)
         assert kernels.launches["lstm_cell"].value == before + 1
+        assert kernels.launches["lstm_cell_rows"].value == rows + (
+            "softmax" in (gate, act))
         for g, w in zip(got, lc.lstm_cell_plain(xw, h, c, rw, pw, m, gate,
                                                 act)):
             _close(g, w, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.19"):
-        lc.lstm_cell(xw, h, c, rw, pw, m, "softmax", "tanh")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.19"):
-        lc.lstm_cell(xw, h, c, rw, pw, m, "sigmoid", "softmax")
     with pytest.raises(ValueError, match="RW"):
         lc.lstm_cell(xw, h, c, rw[:, :8], pw, m)
     with pytest.raises(RuntimeError, match="no gradient"):
@@ -2655,3 +2669,271 @@ def test_bottleneck_cuda_cores_in_f16(cuda, case):
     for train in ([False] if case == "int8" else [True, False]):
         _f16_block(x, params, state, (2, 2), True, train, "cuda_cores")
 
+
+
+# ------------------------------------------------------ the float64 forms
+# Held to the plain versions at 1e-12 relative: an f32 product under an
+# f64 API would pass at 1e-6 and fail every gradient check.
+
+F64_RTOL = 1e-12
+
+
+def _close_f64(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float64
+    scale = float(want.abs().max()) or 1.0
+    err = float((got - want).abs().max())
+    assert err <= F64_RTOL * scale, (err, scale)
+
+
+@pytest.mark.parametrize("rows,feats", [(7, 5), (16, 512), (3, 1030),
+                                        (16384, 512)])
+@pytest.mark.parametrize("act", ["identity", "tanh"])
+def test_layernorm_f64_form_matches_plain(cuda, rows, feats, act):
+    rng = np.random.RandomState(rows + feats)
+    x = torch.tensor(rng.randn(rows, feats) * 2 + 0.5, device=cuda)
+    g = torch.tensor(rng.rand(feats) + 0.5, device=cuda)
+    b = torch.tensor(rng.randn(feats), device=cuda)
+    before = kernels.variant_launches["layernorm_norm_act"]["f64"].value
+    got = norm_act.layernorm_norm_act(x, g, b, 1e-5, act)
+    assert kernels.variant_launches["layernorm_norm_act"]["f64"].value == \
+        before + 1
+    _close_f64(got, norm_act.layernorm_plain(x, g, b, 1e-5, act))
+
+
+@pytest.mark.parametrize("rows,chans", [(8, 5), (6272, 64), (9, 7)])
+@pytest.mark.parametrize("consts", [False, True])
+def test_batchnorm_f64_form_matches_plain(cuda, rows, chans, consts):
+    rng = np.random.RandomState(rows)
+    x = torch.tensor(rng.randn(rows, chans), device=cuda)
+    m = torch.tensor(rng.randn(chans) * 0.1, device=cuda)
+    v = torch.tensor(rng.rand(chans) + 0.5, device=cuda)
+    g, b = ((1.5, 0.25) if consts else
+            (torch.tensor(rng.rand(chans) + 0.5, device=cuda),
+             torch.tensor(rng.randn(chans), device=cuda)))
+    before = kernels.variant_launches["batchnorm_norm_act"]["f64"].value
+    got = norm_act.batchnorm_norm_act(x, m, v, g, b, 1e-5, "relu")
+    assert kernels.variant_launches["batchnorm_norm_act"]["f64"].value == \
+        before + 1
+    _close_f64(got, norm_act.batchnorm_plain(x, m, v, g, b, 1e-5, "relu"))
+
+
+@pytest.mark.parametrize("peephole,masked", [(True, True), (False, False),
+                                             (True, False)])
+@pytest.mark.parametrize("gate,act", [("sigmoid", "tanh"),
+                                      ("softmax", "tanh"),
+                                      ("sigmoid", "softmax")])
+@pytest.mark.parametrize("b,n", [(32, 256), (3, 5)])
+def test_lstm_cell_f64_form_matches_plain(cuda, peephole, masked, gate, act,
+                                          b, n):
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    args = _cell_inputs(np.random.RandomState(b * n), b, n, peephole, masked,
+                        torch.float64, cuda)
+    args = [None if a is None else a.double() for a in args]
+    before = kernels.variant_launches["lstm_cell"]["f64"].value
+    got = lc.lstm_cell(*args, gate, act)
+    assert kernels.variant_launches["lstm_cell"]["f64"].value == before + 1
+    for g, w in zip(got, lc.lstm_cell_plain(*args, gate, act)):
+        _close_f64(g, w)
+
+
+# ------------------------------------------- softmax and callable cells
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("peephole,masked", [(True, True), (False, False)])
+@pytest.mark.parametrize("gate,act", [("softmax", "tanh"),
+                                      ("sigmoid", "softmax"),
+                                      ("softmax", "softmax")])
+def test_lstm_cell_softmax_matches_plain(cuda, dtype, peephole, masked,
+                                         gate, act):
+    # bf16 and f16: against the plain version run in f32 on the same inputs
+    # (the kernels keep z and the gates in f32). Held as chip_smoke.py holds
+    # the softmax cell: by the worst row's relative error (h and c are
+    # small under a softmax gate), each limit below what its planted faults
+    # read here.
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+
+    smoke = _chip_smoke()
+    args = _cell_inputs(np.random.RandomState(5), 32, 256, peephole, masked,
+                        dtype, cuda)
+    kernels.reset_counts()
+    got = lc.lstm_cell(*args, gate, act)
+    c = kernels.counts()
+    assert c["launches"]["lstm_cell"] == c["launches"]["lstm_cell_rows"] == 1
+    assert c["variants"]["lstm_cell"]["zout"] == 1
+    ref = _f32(args)
+    want = lc.lstm_cell_plain(*ref, gate, act)
+    assert all(g.dtype == dtype for g in got)
+    name = str(dtype).split(".")[1]
+    tol = smoke.SOFTMAX_TOL[name]
+    assert smoke.row_rel_err(got, want) <= tol
+    for fault, out in smoke.softmax_faults(torch, lc, ref, gate, act,
+                                           name).items():
+        if fault not in smoke.SOFTMAX_BLIND.get(name, ()):
+            assert smoke.row_rel_err(out, want) > tol, fault
+
+
+def test_lstm_cell_callable_runs_the_users_function(cuda, monkeypatch):
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
+    from deeplearning4j_tpu_torch.nn import activations
+
+    monkeypatch.setitem(activations._REGISTRY, "halfsig",
+                        lambda x: 0.5 * torch.sigmoid(x))
+    args = _cell_inputs(np.random.RandomState(6), 32, 256, True, True,
+                        torch.float32, cuda)
+    for gate, act in (("halfsig", "tanh"), ("sigmoid",
+                                            lambda x: torch.tanh(2 * x))):
+        kernels.reset_counts()
+        got = lc.lstm_cell(*args, gate, act)
+        c = kernels.counts()
+        assert c["launches"]["lstm_cell"] == 1
+        assert c["launches"]["lstm_cell_rows"] == 0
+        assert c["variants"]["lstm_cell"]["callable"] == 1
+        assert not any(c["plain_calls"].values())
+        for g, w in zip(got, lc.lstm_cell_plain(*args, gate, act)):
+            _close(g, w, torch.float32)
+
+
+# ------------------------------------------- row 9's device-scalar form
+
+@pytest.mark.parametrize("kind", ["adam", "nesterovs", "rmsprop"])
+@pytest.mark.parametrize("skip", [None, 0, 1])
+@pytest.mark.parametrize("lowp", [None, torch.bfloat16, torch.float16])
+def test_fused_update_device_scalars_equal_host_scalars(cuda, kind, skip,
+                                                        lowp):
+    sizes = {"b": 3, "g": 1025, "W": 256 * 1024}
+    layers = _update_layers(np.random.RandomState(12), kind, cuda, sizes)
+    ref = _clone_tree(layers)
+    lows = [None if lowp is None else {k: p.to(lowp) for k, p in l[0].items()}
+            for l in layers]
+    ref_lows = _clone_tree(lows) if lowp is not None else lows
+    flag = None if skip is None else torch.tensor(skip, dtype=torch.int32,
+                                                  device=cuda)
+    scheds = (lambda s: 3e-3 * 0.9 ** s, lambda s: 7e-4)
+    factors = (None, {"b": 2.5})
+    for step in range(3):
+        items = [fused_update.UpdateItem(p, st, g, f(step), fac, lw, f)
+                 for (p, st, g), f, fac, lw in zip(layers, scheds, factors,
+                                                   lows)]
+        slots = fused_update.ScalarSlots(64, cuda)
+        before = kernels.variant_launches["fused_update"][
+            "device_scalars"].value
+        fused_update.apply_step(kind, UPDATE_HYPER[kind], items, step, 1.0,
+                                skip=flag, slots=slots)
+        assert kernels.variant_launches["fused_update"][
+            "device_scalars"].value == before + 1
+        slots.fill(0)
+        ref_items = [fused_update.UpdateItem(p, st, g, f(step), fac, lw)
+                     for (p, st, g), f, fac, lw in zip(ref, scheds, factors,
+                                                       ref_lows)]
+        fused_update.apply_step(kind, UPDATE_HYPER[kind], ref_items, step,
+                                1.0, **({} if flag is None
+                                        else {"skip": flag}))
+        torch.cuda.synchronize()
+        for (p, st, _), (rp, rst, _) in zip(layers, ref):
+            for k in sizes:
+                assert torch.equal(p[k], rp[k]), (step, k)
+                for f in st:
+                    assert torch.equal(st[f][k], rst[f][k]), (step, f, k)
+        if lowp is not None:
+            for lw, rlw in zip(lows, ref_lows):
+                for k in sizes:
+                    assert torch.equal(lw[k], rlw[k])
+
+
+def test_fused_update_captured_and_replayed_equals_eager_steps(cuda):
+    # Adam over 5 steps, its lr on a schedule: one step captured in a CUDA
+    # graph with device scalars, replayed 5 times with the slots refilled
+    # for each step, against 5 eager steps, bit for bit.
+    sizes = {"b": 3, "W": 512 * 1024}
+    layers = _update_layers(np.random.RandomState(13), "adam", cuda, sizes)
+    ref = _clone_tree(layers)
+    sched = lambda s: 1e-3 * 0.8 ** s  # noqa: E731
+    (p, st, g), (rp, rst, rg) = layers[0], ref[0]
+    hyper = UPDATE_HYPER["adam"]
+    slots = fused_update.ScalarSlots(64, cuda)
+    tables = {}
+    item = fused_update.UpdateItem(p, st, g, sched(0), None, None, sched)
+    p0 = _clone_tree((p, st))  # the warm-up step is undone below
+    fused_update.apply_step("adam", hyper, [item], 0, 1.0, tables)  # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fused_update.apply_step("adam", hyper, [item], 0, 1.0, tables,
+                                slots=slots)
+    with torch.no_grad():
+        for k in sizes:
+            p[k].copy_(p0[0][k])
+            for f in st:
+                st[f][k].copy_(p0[1][f][k])
+    for step in range(5):
+        slots.fill(step)
+        graph.replay()
+        fused_update.apply_step("adam", hyper, [fused_update.UpdateItem(
+            rp, rst, rg, sched(step))], step, 1.0)
+    torch.cuda.synchronize()
+    for k in sizes:
+        assert torch.equal(p[k], rp[k]), k
+        for f in st:
+            assert torch.equal(st[f][k], rst[f][k]), (f, k)
+
+
+# --------------------------------------------------- the captured superstep
+
+def _superstep_mlp(k, seed=3):
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+        NeuralNetConfiguration,
+    )
+
+    return (NeuralNetConfiguration.builder().seed(seed).updater("adam")
+            .learning_rate(1e-2).learning_rate_decay_policy("step")
+            .lr_policy_decay_rate(0.5)
+            .lr_policy_steps(3).superstep_k(k).list()
+            .layer(L.DenseLayer(n_out=64, activation="relu", dropout=0.8))
+            .layer(L.BatchNormalization())
+            .layer(L.OutputLayer(n_out=10, activation="softmax",
+                                 loss_function="mcxent"))
+            .set_input_type(InputType.feed_forward(32)).build())
+
+
+def test_superstep_graph_equals_the_per_batch_card_run(cuda):
+    # Dropout, BatchNorm, Adam on a step schedule; K = 4 over 11 batches:
+    # two captured blocks and a tail of 3, two epochs, each graph captured
+    # once. Params, state, updater state and every score equal the
+    # per-batch run's bit for bit, and a replay counts the launches of K
+    # steps.
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn import superstep
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener,
+    )
+
+    rng = np.random.RandomState(0)
+    batches = [DataSet(rng.randn(16, 32).astype(np.float32),
+                       np.eye(10, dtype=np.float32)[rng.randint(0, 10, 16)])
+               for _ in range(11)]
+    nets = []
+    for k in (0, 4):
+        net = MultiLayerNetwork(_superstep_mlp(k), device=cuda).init()
+        net.set_listeners(CollectScoresIterationListener())
+        for _ in range(2):
+            net.fit(batches)
+        nets.append(net)
+    torch.cuda.synchronize()
+    plain, sup = nets
+    blocks = superstep.captured(sup)
+    assert [(b.k, b.captures, b.replays) for b in blocks] == [(4, 1, 4),
+                                                              (3, 1, 2)]
+    assert np.array_equal(plain.params(), sup.params())
+    assert np.array_equal(plain.updater_state_flat(),
+                          sup.updater_state_flat())
+    for lk, s in plain.state.items():
+        for key, t in s.items():
+            assert torch.equal(t, sup.state[lk][key]), (lk, key)
+    assert plain.listeners[0].scores == sup.listeners[0].scores
+    assert plain.iteration == sup.iteration == 22

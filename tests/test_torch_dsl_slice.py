@@ -968,10 +968,12 @@ def test_dtype_policy_round_trips_and_refuses_what_the_port_lacks():
     conf.global_conf.dtype_policy = dtype_policy.DtypePolicy("mixed_bfloat16")
     assert MultiLayerNetwork(conf, device="cpu").dtype_policy.compute_dtype \
         == torch.bfloat16
+    # Superstep training is in: K comes from the conf, gated to per-batch
+    # steps under truncated BPTT, as in the reference.
     conf.global_conf.superstep_k = 4
-    with pytest.raises(NotImplementedError, match="A.10"):
-        MultiLayerNetwork(conf, device="cpu").init().fit(
-            np.zeros((2, 4), np.float32), np.eye(3, dtype=np.float32)[:2])
+    assert MultiLayerNetwork(conf, device="cpu")._superstep_k() == 4
+    conf.backprop_type = "truncatedbptt"
+    assert MultiLayerNetwork(conf, device="cpu")._superstep_k() == 0
 
 
 def test_enums_read_any_case_as_plain_strings():

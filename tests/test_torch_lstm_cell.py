@@ -132,7 +132,7 @@ def test_every_elementwise_activation_matches_xla_cell(name, role, dtype):
 
 
 def test_the_kernel_codes_cover_every_elementwise_activation():
-    assert set(lc.ACT_CODES) == set(activations._REGISTRY) - {"softmax"}
+    assert set(lc.ACT_CODES) == set(activations._BUILTIN) - {"softmax"}
     assert sorted(lc.ACT_CODES.values()) == list(range(16))
 
 
@@ -248,22 +248,35 @@ def test_kernel_wrapper_passes_the_c_entry_its_signature(monkeypatch):
     assert calls[1][4] is None and calls[1][5] is not None
     assert masked[2] is not masked[0] and calls[1][8] is not None
     # A Keras import's hard-sigmoid gates launch, with their gate code;
-    # softmax (not elementwise) is refused as a gate or cell activation.
+    # softmax (not elementwise) takes the "z out" launch, whose workspace
+    # comes as `out`, then the row kernel with softmax's code.
     lc.lstm_cell(xw, h, c, rw, pw, None, "hardsigmoid", "tanh")
     params = lc._CellParams.from_address(calls[2][9])
     assert (params.gate, params.act) == (lc.ACT_CODES["hardsigmoid"],
                                          lc.ACT_CODES["tanh"])
     for gate, act in (("softmax", "tanh"), ("sigmoid", "softmax")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.19"):
-            lc.lstm_cell(xw, h, c, rw, pw, None, gate, act)
+        del calls[3:]
+        lc.lstm_cell(xw, h, c, rw, pw, None, gate, act)
+        zout, rows = calls[3], calls[4]
+        assert lc._CellParams.from_address(zout[9]).zout == 1
+        assert zout[6] is None and zout[8] is not None
+        prm = lc._CellParams.from_address(rows[8])
+        assert (prm.gate, prm.act) == tuple(
+            lc.SOFTMAX_CODE if a == "softmax" else lc.ACT_CODES[a]
+            for a in (gate, act))
+    del calls[3:]
     with pytest.raises(ValueError, match="Unknown activation"):
         lc.lstm_cell(xw, h, c, rw, pw, None, "sigmoid", "nope")
     with pytest.raises(ValueError, match="pW"):
         lc.lstm_cell(xw, h, c, rw, pw[:n], None)
-    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
-        lc.lstm_cell(*(a.double() for a in (xw, h, c, rw, pw)), None)
+    # float64 launches the kernel's f64 form.
+    lc.lstm_cell(*(a.double() for a in (xw, h, c, rw, pw)), None)
+    assert lc._CellParams.from_address(calls[3][9]).dtype == 4
+    with pytest.raises(TypeError, match="float32, bfloat16, float16 or"):
+        lc.lstm_cell(*(a.to(torch.complex64) for a in (xw, h, c, rw, pw)),
+                     None)
     lc.lstm_cell(*(a.half() for a in (xw, h, c, rw, pw)), None)
-    params = lc._CellParams.from_address(calls[3][9])
+    params = lc._CellParams.from_address(calls[4][9])
     assert params.dtype == lc.DTYPE_CODES[torch.float16] == 3
 
 

@@ -421,8 +421,9 @@ def test_fit_refuses_what_the_port_lacks(monkeypatch):
     x, y = _batch(8)
     conf = zoo.char_rnn(vocab_size=V, hidden=8)
     conf.global_conf.optimization_algo = "lbfgs"
-    with pytest.raises(NotImplementedError, match="solvers.*A.10"):
-        MultiLayerNetwork(conf, device="cpu").fit(DataSet(x, y))
+    solved = MultiLayerNetwork(conf, device="cpu").init()
+    solved.fit(DataSet(x, y))  # a solver trains now (one call, one batch)
+    assert solved.iteration == 1 and np.isfinite(solved.score_value)
     # Layerwise pretraining is in: a char-RNN has no pretrainable layer,
     # so with `pretrain` set its fit is the plain fit.
     plain = MultiLayerNetwork(zoo.char_rnn(vocab_size=V, hidden=8),

@@ -168,8 +168,10 @@ def test_bf16_fit_scores_match_jax_and_refresh_the_compute_copy():
 
 
 def test_fit_refuses_what_it_does_not_run():
-    # Dropout trains now (one step, one key advanced); solvers are still
-    # refused, and a refused fit takes no step. Graph truncated BPTT trains
+    # Dropout trains now (one step, one key advanced); so does a solver
+    # (its deterministic objective draws no key; the iteration advances by
+    # `iterations`; held to the JAX package in
+    # tests/test_torch_solvers.py). Graph truncated BPTT trains
     # (one iteration a sequence, one key a chunk; held to the JAX package
     # in tests/test_torch_graph_tbptt.py), except with a decode cache.
     conf = zoo.transformer_lm(V, t=16, d_model=D, n_heads=H, n_blocks=1)
@@ -183,14 +185,16 @@ def test_fit_refuses_what_it_does_not_run():
     np.testing.assert_array_equal(net._train_rng, prng.split(key)[0])
     conf.vertices["ff1_0"].layer.dropout = 0.0
     conf.global_conf.optimization_algo = "lbfgs"
-    with pytest.raises(NotImplementedError, match="solvers"):
-        net.fit(x, y)
+    key = net._train_rng.copy()
+    net.fit(x, y)
+    assert net.iteration == 2 and np.isfinite(net.score_value)
+    np.testing.assert_array_equal(net._train_rng, key)
     conf.global_conf.optimization_algo = "stochastic_gradient_descent"
     conf.backprop_type = "truncatedbptt"
     conf.tbptt_fwd_length = 4
     key = net._train_rng.copy()
     net.fit(x, y)
-    assert net.iteration == 2 and np.isfinite(net.score_value)
+    assert net.iteration == 3 and np.isfinite(net.score_value)
     for _ in range(4):
         key = prng.split(key)[0]
     np.testing.assert_array_equal(net._train_rng, key)
