@@ -540,10 +540,29 @@ limit (as `nvidia-smi --query-gpu=name,power.limit` reports them):
               update is held by the phases' launch counts).
 
 Run before trace, the training tooling (slice 15):
-39. f64_kernels - the float64 forms of rows 1, 2 and 10 (row 1 at
-              [16384, 512], row 2 at T1's s0, row 10 at B=32 n=256 with
-              peepholes) against their plain versions at 1e-12 relative,
-              beside F.layer_norm and F.batch_norm in float64.
+39. f64_kernels - the float64 forms of every row against their plain
+              versions at 1e-12 (row 1 at [16384, 512], row 2 at T1's
+              s0, row 10 at B=32 n=256 with peepholes; then rows 3, 5,
+              6 at [16, 1024, 8, 64] causal, rows 4, 7 at [1, 8192, 8,
+              64], row 8 at the LM's decode, row 9 over the LM's, LeNet's
+              and the char-RNN's tensors, rows 11, 12 at T2's and I1's
+              blocks; gradients against their sums of |terms|), beside
+              F.layer_norm, F.batch_norm, SDPA and torch._fused_adam_ /
+              _fused_sgd_ in float64.
+              Then (slice 16) records - MNIST as a CSV (native parser
+              bit for bit the Python reader's) into the MLP, accuracy >=
+              0.95; examples/csv_graph_multi_io.py against the CPU; the
+              UCI synthetic-control sequences into a GravesLSTM, 40
+              epochs, above chance; CIFAR-10 through DeviceStager into
+              ResNet-50, finite scores. f64_lm - the LM in float64 at
+              T = 1,024: 3 steps, `output`, a B=1 step against the CPU's
+              float64 step, 4 prompts decoded behind the paged server
+              equal to uncached generate_lm. f64_long - T = 8,192
+              (streamed in float64), a step and `output` against the
+              plain versions on the card. f64_resnet - T2 in float64, 3
+              steps and `output`, the first step's gradients against the
+              plain versions on the card. f64_lenet - LeNet in float64,
+              3 steps against the CPU's.
 40. lstm_softmax - row 10 with softmax gates (the "z out" launch and the
               row kernel `lstm_cell_rows`) at B=32 n=256 in f32, bf16,
               f16 and f64, with and without peepholes and mask, each by
@@ -572,7 +591,9 @@ Run before trace, the training tooling (slice 15):
               the CPU's, the params bit for bit a plain run's.
 44. gradcheck_f64 - `check_gradients` on the card on the reference
               suite's BatchNorm, GravesLSTM (masked too), LayerNorm and
-              softmax-gate LSTM nets, through rows 1, 2 and 10 in float64.
+              softmax-gate LSTM nets, through rows 1, 2 and 10 in float64;
+              a causal self-attention net (rows 3, 5, 6, 1) and two
+              fused-bottleneck nets (rows 2, 12) in float64.
 45. eval    - LeNet's card outputs through ROCMultiClass,
               EvaluationBinary and RegressionEvaluation, equal to the same
               evaluations of the outputs on the CPU.
@@ -587,8 +608,12 @@ f16_train, f16_output, bf16_train, int8_output, int8_predict,
 graph_tbptt, graph_sample, lstm_acts_train, f16_rnn_train, f16_t2, f16_i1,
 f16_int8, f16_serve, f16_long_train, f16_long_output, lstm_softmax_rnn,
 superstep_lenet, superstep_mlp_dropout_adam, superstep_lm, the five
-solver runs, train_stats and the five gradcheck nets; rows 1, 2 and 10's
-float64 forms under `f64`, row 9's device-scalar form under
+solver runs, train_stats, the eight gradcheck nets, the four records
+paths, f64_lm_train, f64_lm_output, f64_lm_decode, f64_long_train,
+f64_long_output, f64_resnet_train, f64_resnet_output and
+f64_lenet_train; every row's
+float64 form under `f64` (its launches on the float64 paths, its other
+shapes under `f64_shapes`), row 9's device-scalar form under
 `device_scalars`, `lstm_cell_rows` in four dtypes under `forms`; the f16
 form of rows 1-8 and 10-12 under `f16`, row 10's 16 activations under
 `activations`, row 9's skip flag and low-precision mode under
@@ -626,9 +651,11 @@ BELOW_BOUND_REPS = 200
 # Profiler windows taken, at most, until one sees every kernel of its calls.
 PROFILER_WINDOWS = 3
 # Windows a profiled superstep replay, or the step it is held to, may take
-# (`port_kernels_run`).
+# (`port_kernels_run`), and the small kernels each window opens with: 16
+# did not always keep the profiler from losing a step's one
+# `batchnorm_kernel` in all six windows (the superstep MLP, on an H100).
 REPLAY_WINDOWS = 6
-PAD_KERNELS = 16
+PAD_KERNELS = 128
 # Copies of the input that row 1's timed calls at the LM step's shape
 # take in turn, so that none is still in the L2 (50 MB) at its next read.
 L2_COPIES = 8
@@ -950,18 +977,24 @@ def host_ms(fn, calls=50) -> float:
 def device_kernels(torch, fn, reps):
     """Kernel executions on the card while `fn` runs `reps` times, from
     torch.profiler (CUPTI): [(name, start_us, end_us)], or None when the
-    profiler reports no device activity."""
+    profiler reports no device activity. The window opens with
+    PAD_KERNELS spin kernels (`torch.cuda._sleep`), left out of the list:
+    the profiler loses the first kernels of a window (`port_kernels_run`)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PAD_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     out = [(e.name, e.time_range.start, e.time_range.end)
            for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "spin_kernel" not in e.name]
     return out or None
 
 
@@ -978,16 +1011,30 @@ def device_reading(torch, fn, bound_ms, reps=20, launches_per_call=None):
     that lost kernels): then the first reading is kept in the note and the
     time is taken again once over BELOW_BOUND_REPS calls. A window that
     saw no kernel, or fewer than the CUDA launches a call is known to make
-    (the profiler drops kernels, and never adds one), is taken again, up
-    to PROFILER_WINDOWS windows in all. (ms, kernels_per_call, note or
-    None)."""
+    (the profiler drops kernels, and never adds one), is taken again over
+    a quarter of its calls (at least 2), up to PROFILER_WINDOWS windows in
+    all. Where every window was short no time is read: (None, the fullest
+    window's kernels a call, {"short_window": ...}). (ms,
+    kernels_per_call, note or None)."""
+    fullest = None  # (kernels a call, calls) of the fullest short window
+    calls = reps
     for _ in range(PROFILER_WINDOWS):
-        ev = device_kernels(torch, fn, reps)
+        ev = device_kernels(torch, fn, calls)
         if ev is not None and (launches_per_call is None
-                               or len(ev) >= launches_per_call * reps):
+                               or len(ev) >= launches_per_call * calls):
             break
+        if ev is not None and (fullest is None
+                               or len(ev) / calls > fullest[0]):
+            fullest = (len(ev) / calls, calls)
+        ev, calls = None, max(2, calls // 4)
     if ev is None:
-        return None, None, None
+        if fullest is None:
+            return None, None, None
+        return None, fullest[0], {"short_window": {
+            "kernels_per_call_seen": fullest[0],
+            "kernels_per_call_made": launches_per_call,
+            "window_calls": fullest[1], "windows": PROFILER_WINDOWS}}
+    reps = calls
     ms = sum(e - s for _, s, e in ev) / reps / 1e3
     per_call = len(ev) / reps
     if bound_ms is None or ms >= bound_ms:
@@ -1777,7 +1824,7 @@ def phase_train_parity(card, torch, dev):
         forms[short] = {n: kernels.counts()["variants"][n]
                         for n in TRAIN_FLASH}
         form = "wgmma" if short == "bf16" else "cuda_cores"
-        want = {"wgmma": 0, "cuda_cores": 0, form: BLOCKS}
+        want = {"wgmma": 0, "cuda_cores": 0, "f64": 0, form: BLOCKS}
         if any(f != want for f in forms[short].values()):
             errors.append(f"{short} card step launches by form "
                           f"{forms[short]}, want {want} each")
@@ -3318,7 +3365,8 @@ def rn_block_shapes(image):
     return out
 
 
-def rn_block_case(torch, dev, dtype_name, b, shape, train, seed, int8=False):
+def rn_block_case(torch, dev, dtype_name, b, shape, train, seed, int8=False,
+                  state_dtype=None):
     """(label, kernel fn, plain fn, plain-in-f32 fn, bytes, ops, extra)
     for one bottleneck block. The plain-in-f32 fn runs the plain version on
     the same inputs widened to f32 (bf16 values are exact in f32): the
@@ -3362,6 +3410,9 @@ def rn_block_case(torch, dev, dtype_name, b, shape, train, seed, int8=False):
         params[f"beta_{n}"] = rnd(f, scale=0.1)
         state[f"mean_{n}"] = torch.randn(f, generator=g, device=dev) * 0.1
         state[f"var_{n}"] = torch.rand(f, generator=g, device=dev) + 0.5
+    if state_dtype is not None:  # a float64 net keeps its statistics f64
+        state = {k: a.to(getattr(torch, state_dtype))
+                 for k, a in state.items()}
     plain_params = params
     if int8:
         plain_params = {k: (bb._dequant(a, params[k + "__scale"], dt)
@@ -3593,7 +3644,7 @@ def phase_resnet_kernels(card, torch, dev, t1_batch,
                         "statistics or tail): a reference point, not this "
                         "row's library column"))
                 if forms != {k: int(k == expected)
-                             for k in ("wgmma", "cuda_cores")}:
+                             for k in ("wgmma", "cuda_cores", "f64")}:
                     rows[-1]["ok"] = False
                     rows[-1]["form_error"] = (f"block launches by form "
                                               f"{forms}, expected one "
@@ -4058,7 +4109,7 @@ def _variant_errors(counts, launches):
     the tensor-core form."""
     errors = []
     for name, n in launches.items():
-        want = {"wgmma": n, "cuda_cores": 0}
+        want = {"wgmma": n, "cuda_cores": 0, "f64": 0}
         got = counts["variants"][name]
         if got != want:
             errors.append(f"{name} launches by form {got} != expected "
@@ -6229,7 +6280,7 @@ def _precision_int8(card, torch, kernels, dev):
     e, want = _launch_errors(counts, Q1_LAUNCHES, calls)
     errors += e
     forms = counts["variants"]["bottleneck_infer"]
-    if forms != {"wgmma": 0, "cuda_cores": 16 * calls}:
+    if forms != {"wgmma": 0, "cuda_cores": 16 * calls, "f64": 0}:
         errors.append(f"row 12 forms {forms}: the int8 form is the CUDA-core "
                       "one")
     launches["int8_output"] = counts["launches"]
@@ -7076,7 +7127,7 @@ def phase_f16_resnet(card, torch, kernels, dev):
     qcpu = store.restore_checkpoint(qpath, device="cpu")
     errors, report, launches["f16_int8"] = _f16_rn_output(
         torch, kernels, qnet, qcpu, x, Q1_LAUNCHES, "Q1 int8 under f16")
-    if report["forms"] != {"wgmma": 0,
+    if report["forms"] != {"wgmma": 0, "f64": 0,
                            "cuda_cores": 16 * (RN_WARMUP + RN_TIMED)}:
         errors.append(f"int8 blocks by form {report['forms']}")
     if qnet.dtype_policy.compute_dtype != torch.float16:
@@ -7320,7 +7371,10 @@ F64_REL_TOL = 1e-12    # the float64 forms against their plain versions
 SOFTMAX_TOL = {"float32": 1e-5, "bfloat16": 5e-3, "float16": 1e-3,
                "float64": 1e-12}
 SOFTMAX_BLIND = {"bfloat16": ("o peephole dropped",)}
-PEAK_OPS_S["float64"] = 34e12  # H100 SXM, f64 on the CUDA cores
+# H100 SXM float64: 67 TFLOP/s on the FP64 tensor cores (34 on the CUDA
+# cores, where the port's f64 forms run): the least time the card could
+# take for f64 work is bound by the former.
+PEAK_OPS_S["float64"] = 67e12
 
 
 def _rel_err(got, want):
@@ -7373,15 +7427,23 @@ def softmax_faults(torch, lc, ref, gate, act, dtype):
 
 
 def _form_row(card, torch, phase, name, dtype, shape, kern, plain, err, ok,
-              nbytes, ops, lib=None, **extra):
+              nbytes, ops, lib=None, launches_per_call=None, reps=None,
+              **extra):
     """A kernel form's row: timed beside its plain version, its bound and
-    its library call (None where none computes the same function)."""
+    its library call (None where none computes the same function);
+    `launches_per_call`, where known, makes the profiler window that saw
+    fewer kernels be taken again (`device_reading`); `reps`, the event
+    timings' reps and warm-up calls for long calls (LONG_REPS)."""
+    reps = reps or {}
     bound_ms, bound_by = bound(nbytes, ops, dtype)
-    lib_ms, lib_dev_ms, lib_error = _safe_lib_ms(torch, lib)
-    dev_ms, _, dev_note = device_reading(torch, kern, bound_ms)
+    lib_ms, lib_dev_ms, lib_error = _safe_lib_ms(torch, lib, **reps)
+    dev_ms, _, dev_note = device_reading(torch, kern, bound_ms,
+                                         reps=reps.get("reps", 20),
+                                         launches_per_call=launches_per_call)
     extra["device_ms_below_bound"] = dev_note
     row = {"name": name, "dtype": dtype, "shape": shape, "max_abs_err": err,
-           "ok": ok, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+           "ok": ok, "ms": time_ms(kern, **reps),
+           "plain_ms": time_ms(plain, **reps),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
            "library_error": lib_error, "library_device_ms": lib_dev_ms,
            "host_ms": host_ms(kern), "device_ms": dev_ms,
@@ -7391,13 +7453,15 @@ def _form_row(card, torch, phase, name, dtype, shape, kern, plain, err, ok,
 
 
 def phase_f64_kernels(card, torch, dev):
-    """The float64 forms of rows 1, 2 and 10 at their widest shapes here
-    (row 1 at the LM step's [16384, 512]; row 2 at T1's s0 BatchNorm, [256 *
-    56 * 56, 256]; row 10 at the char-RNN's B=32, n=256 with peepholes),
-    each against its plain version at 1e-12 relative (max |err| over max
-    |want|); libraries: F.layer_norm (the row's activation is identity)
-    and F.batch_norm with the running statistics (without the row's
-    relu), in float64."""
+    """The float64 forms of every row but 13 (whose form is row 4's). Rows
+    1, 2 and 10 at their widest shapes here (row 1 at the LM step's
+    [16384, 512]; row 2 at T1's s0 BatchNorm, [256 * 56 * 56, 256]; row 10
+    at the char-RNN's B=32, n=256 with peepholes), each against its plain
+    version at 1e-12 relative (max |err| over max |want|); libraries:
+    F.layer_norm (the row's activation is identity) and F.batch_norm with
+    the running statistics (without the row's relu), in float64. Then
+    rows 3 to 8 (`f64_attention_rows`), row 9 (`f64_update_rows`) and rows
+    11 and 12 (`f64_block_rows`) at the shapes of their float64 paths."""
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import lstm_cell as lc
     from deeplearning4j_tpu_torch.kernels import norm_act
@@ -7457,6 +7521,11 @@ def phase_f64_kernels(card, torch, dev):
         (b * 4 * n + 2 * b * n + 4 * n * n + 3 * n + 2 * b * n) * 8,
         2 * b * n * 4 * n + 25 * b * n, None,
         tolerance=f"relative {F64_REL_TOL}"))
+    del xw, h, c, rw, pw, args
+    torch.cuda.empty_cache()
+    rows += f64_attention_rows(card, torch, dev)
+    rows += f64_update_rows(card, torch, dev, _lm64_conf())
+    rows += f64_block_rows(card, torch, dev)
     return rows
 
 
@@ -8107,7 +8176,11 @@ def phase_train_stats(card, torch, kernels, dev):
 
 def _gradcheck_confs():
     """The reference suite's float64 gradient-check nets that pass rows 1,
-    2 and 10 (tests/test_gradientcheck.py's sizes): (label, conf, data)."""
+    2 and 10 (tests/test_gradientcheck.py's sizes), a causal self-attention
+    net with a LayerNorm (rows 3, 5, 6, 1) and one fused bottleneck block,
+    identity and projecting, behind a BatchNormalization (rows 2 and 12:
+    the objective normalizes with the running statistics): (label, conf,
+    data)."""
     from deeplearning4j_tpu_torch.datasets.dataset import DataSet
     from deeplearning4j_tpu_torch.nn.conf import layers as L
     from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
@@ -8162,21 +8235,60 @@ def _gradcheck_confs():
                                   L.RnnOutputLayer(n_out=3,
                                                    activation="softmax")),
          DataSet(xr, yr)),
+        ("self_attention", net(base(), InputType.recurrent(4, 6),
+                               L.SelfAttentionLayer(n_out=8, n_heads=2,
+                                                    causal=True),
+                               L.LayerNormalization(),
+                               L.RnnOutputLayer(n_out=3,
+                                                activation="softmax",
+                                                loss_function="mcxent")),
+         DataSet(*GRADCHECK_ATTN_DATA)),
+        *[(f"bottleneck_{kind}",
+           net(base().weight_init("relu"), InputType.convolutional(4, 4, 16),
+               L.BatchNormalization(),
+               L.BottleneckBlock(filters=4 if kind == "identity" else 8,
+                                 project=kind == "projecting",
+                                 stride=(1, 1) if kind == "identity"
+                                 else (2, 2)),
+               L.GlobalPoolingLayer(pooling_type="avg"),
+               L.OutputLayer(n_out=3, activation="softmax")),
+           DataSet(*GRADCHECK_BLOCK_DATA))
+          for kind in ("identity", "projecting")],
     ]
+
+
+# The float64 gradient checks' data for the attention net ([2, 6, 4] ->
+# 3 classes a step) and the bottleneck nets ([2, 4, 4, 16] -> 3 classes;
+# the kernel takes channel counts that are multiples of 4).
+_gc_rng = np.random.RandomState(777)
+GRADCHECK_ATTN_DATA = (_gc_rng.randn(2, 6, 4),
+                       np.eye(3)[_gc_rng.randint(0, 3, (2, 6))])
+GRADCHECK_BLOCK_DATA = (_gc_rng.randn(2, 4, 4, 16),
+                        np.eye(3)[_gc_rng.randint(0, 3, 2)])
+del _gc_rng
 
 
 def phase_gradcheck_f64(card, torch, kernels, dev):
     """`check_gradients` on the card (epsilon 1e-6, max relative error
     1e-5, as the reference suite runs it) on its BatchNorm, GravesLSTM
-    (masked too), LayerNorm and softmax-gate LSTM nets in float64: all
-    must pass, with rows 1, 2 and 10 launched in their float64 forms
-    (counted from 0 per net) and no plain version."""
+    (masked too), LayerNorm and softmax-gate LSTM nets and on the causal
+    self-attention and fused-bottleneck nets in float64: all must pass,
+    every kernel of a net launched only in its float64 form (counted from
+    0 per net: rows 1, 2, 10; 3, 5, 6, 1; 2, 12) and no plain version."""
     from deeplearning4j_tpu_torch.gradientcheck import check_gradients
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
     ok, paths = True, {}
-    want_form = {"batchnorm": "batchnorm_norm_act",
-                 "layernorm": "layernorm_norm_act"}
+    want_forms = {
+        "batchnorm": ("batchnorm_norm_act",),
+        "layernorm": ("layernorm_norm_act",),
+        "self_attention": ("flash_attention", "flash_attention_fwd_lse",
+                           "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv", "layernorm_norm_act"),
+        # The objective runs BatchNorm on its running statistics (the
+        # reference's), so the block takes its inference form, row 12.
+        "bottleneck_identity": ("batchnorm_norm_act", "bottleneck_infer"),
+        "bottleneck_projecting": ("batchnorm_norm_act", "bottleneck_infer")}
     for label, conf, ds in _gradcheck_confs():
         net = MultiLayerNetwork(conf, device=dev).init()
         kernels.reset_counts()
@@ -8184,12 +8296,12 @@ def phase_gradcheck_f64(card, torch, kernels, dev):
         passed = check_gradients(net, ds, epsilon=1e-6, max_rel_error=1e-5)
         torch.cuda.synchronize()
         c = kernels.counts()
-        form = want_form.get(label, "lstm_cell")
-        f64 = c["variants"][form]["f64"]
         errors = [] if passed else ["check_gradients failed"]
-        if not f64 or f64 != c["launches"][form]:
-            errors.append(f"{form}: {c['launches'][form]} launches, "
-                          f"{f64} in float64")
+        launched = [n for n, v in c["launches"].items() if v]
+        forms = want_forms.get(label, ("lstm_cell",))
+        if not all(c["launches"][n] for n in forms):
+            errors.append(f"not all of {forms} launched: {c['launches']}")
+        errors += _f64_form_errors(c, launched)
         if label == "softmax_gate_lstm" and not c["launches"][
                 "lstm_cell_rows"]:
             errors.append("no lstm_cell_rows launch")
@@ -8251,6 +8363,1158 @@ def phase_eval(card, torch, dev):
          binary_f1=results["card"]["binary_f1"],
          mse=results["card"]["mse"])
     return same
+
+
+# ------------------------------------- records and float64 (slice 16)
+# The record readers and the native CSV parser feeding the nets from files
+# (`records`), and float64 on the card through rows 3 to 9, 11 and 12
+# (`f64_kernels`, `f64_lm`, `f64_long`, `f64_resnet`, `gradcheck_f64`).
+
+REC_DIR = os.path.join("build", "records")
+# MNIST as a CSV (label, then 784 pixels rounded to 2 decimals): one epoch
+# of the MLP at B=128 over 10,000 rows, `evaluate` on 2,000 more.
+REC_MNIST_N, REC_MNIST_TEST_N, REC_MNIST_B = 10000, 2000, 128
+# examples/csv_graph_multi_io.py: 64 rows, B=16, 20 epochs; its first
+# epoch's score card vs CPU, relative (f32, TF32 off).
+REC_GRAPH_EPOCHS, REC_GRAPH_TOL = 20, 1e-5
+# dl4j-examples UCISequenceClassificationExample: 600 series of 60 steps
+# (100 a class), 450 to train and 150 to test, B=10, 40 epochs, trained
+# UCI_K steps at once (`superstep_k`): one fit call a step took 190 ms on
+# an H100 (60 cells' launches and their backward, host-bound), 342 s for
+# the 40 epochs.
+UCI_N, UCI_T, UCI_TRAIN, UCI_B, UCI_EPOCHS, UCI_K = 600, 60, 450, 10, 40, 15
+UCI_H, UCI_CLASSES = 10, 6
+# CIFAR-10 (the synthetic set): one epoch of 10,000 at B=128, ResNet-50 at
+# 32 px, fused blocks, mixed_bfloat16, 10 classes, lr 0.001. At the zoo's
+# 0.1, and at 0.01, this net diverges to NaN within 10-20 steps under
+# mixed_bfloat16, on the card (kernels or plain versions) and on the CPU
+# alike, while in f32 at 0.01 it stays finite; at 0.001 its first 20
+# steps fall from 3.9 to 0.6 (20 steps of each setting on an H100 and on
+# the CPU).
+CIFAR_N, CIFAR_B, CIFAR_LR = 10000, 128, 0.001
+CIFAR_LAUNCHES = {"bottleneck_train": 16, "batchnorm_norm_act": 1,
+                  "fused_update": 1}
+# The float64 LM (the LM cell's widths at T = 1,024): 3 steps at B=16, one
+# `output`; one step at B=1, T=F64_CPU_T held to the CPU's float64 step;
+# 4 prompts decoded 16 tokens each behind the paged scheduler.
+F64_T, F64_B, F64_STEPS, F64_CPU_T = 1024, 16, 3, 128
+F64_PARITY_TOL = 1e-10
+F64_PROMPTS, F64_DECODE = (984, 684, 314, 24), 16
+F64_LONG_T = 8192          # past the f64 resident limit (T > 6,144)
+F64_RN_B, F64_RN_STEPS, F64_RN_OUT_B = 32, 3, 8
+F64_LENET_B, F64_LENET_STEPS = 128, 3
+F64_GRAD_TOL = 1e-9        # T2's first-step gradients, kernels vs plain
+F64_PAGED_POS = [1000, 700, 330, 40]
+
+
+def _f64_form_errors(counts, names):
+    """Errors unless every launch of each kernel in `names` took its
+    float64 form."""
+    return [f"{n}: {counts['launches'][n]} launches, "
+            f"{counts['variants'][n]['f64']} in float64" for n in names
+            if counts["launches"][n] != counts["variants"][n]["f64"]]
+
+
+def _params_f64(net):
+    return sorted({str(a.dtype) for p in net.params_tree.values()
+                   for a in p.values()})
+
+
+@contextlib.contextmanager
+def card_plain():
+    """Every kernel wrapper on the LM's, ResNet's and the update's paths
+    taking its plain version on the card while the block runs (references
+    only; restored after): the wrappers that pick by `kernels.placement`
+    (the flash rows, the bottleneck, the fused update) are told that their
+    tensors lie on the CPU; LayerNorm, BatchNorm and the paged decode,
+    which check the device themselves, are swapped at their call sites."""
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import norm_act
+    from deeplearning4j_tpu_torch.nn.layers import normalization
+
+    saved = (kernels.placement, normalization.layernorm_norm_act,
+             normalization.batchnorm_norm_act, fa.paged_decode_attention)
+    kernels.placement = lambda *ts: "cpu"
+    normalization.layernorm_norm_act = norm_act.layernorm_plain
+    normalization.batchnorm_norm_act = norm_act.batchnorm_plain
+    fa.paged_decode_attention = fa.paged_gather_dense
+    try:
+        yield
+    finally:
+        (kernels.placement, normalization.layernorm_norm_act,
+         normalization.batchnorm_norm_act, fa.paged_decode_attention) = saved
+
+
+def _clone_tree(tree, device=None):
+    return {v: {k: a.detach().clone() if device is None
+                else a.detach().to(device, copy=True) for k, a in p.items()}
+            for v, p in tree.items()}
+
+
+def _tree_rel(got, want):
+    """{name: max |got - want| over max |want|} of two param trees."""
+    out = {}
+    for v, p in want.items():
+        for k, a in p.items():
+            out[f"{v}/{k}"] = _rel_err(got[v][k].detach().cpu(),
+                                       a.detach().cpu())
+    return out
+
+
+# ------------------------------------------------------------- records
+
+def _write_mnist_csv(path, ds):
+    """label, then the 784 pixels rounded to 2 decimals and written as
+    short as they go ("0", "0.07", "1"): the layout of the MNIST CSVs."""
+    table = np.array(["%g" % (k / 100) for k in range(101)])
+    pix = np.rint(ds.features.reshape(len(ds.features), -1) * 100)
+    labels = ds.labels.argmax(1)
+    with open(path, "w") as f:
+        for lab, row in zip(labels, pix.astype(np.int64)):
+            f.write(f"{lab}," + ",".join(table[row]) + "\n")
+
+
+def _records_mnist(card, torch, kernels, dev):
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datasets import builtin, records
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    t0 = time.perf_counter()
+    paths = {}
+    for split, n in (("train", REC_MNIST_N), ("test", REC_MNIST_TEST_N)):
+        paths[split] = os.path.join(REC_DIR, f"mnist_{split}.csv")
+        _write_mnist_csv(paths[split], builtin.load_mnist(
+            train=split == "train", num_examples=n, flat=True))
+    write_s = time.perf_counter() - t0
+    mb = os.path.getsize(paths["train"]) / 1e6
+    t0 = time.perf_counter()
+    native.load("fastcsv")  # the g++ build, at first use, outside the timing
+    build_s = time.perf_counter() - t0
+    native.reset_counts()
+    reader = records.CSVRecordReader().initialize(paths["train"])
+    t0 = time.perf_counter()
+    mat = reader.numeric_matrix()
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = np.asarray([[float(v) for v in row] for row in
+                     records._read_csv_rows(paths["train"], ",", 0)],
+                    np.float32)
+    python_s = time.perf_counter() - t0
+    errors = []
+    same = (mat.shape == py.shape == (REC_MNIST_N, 785)
+            and np.array_equal(mat.view(np.uint32), py.view(np.uint32)))
+    if not same:
+        errors.append(f"native matrix {mat.shape} differs from the Python "
+                      f"reader's {py.shape}")
+    if native.file_paths != {"native": 1, "python": 0}:
+        errors.append(f"parser paths {native.file_paths}")
+    net = MultiLayerNetwork(zoo.mlp_mnist(), device=dev).init()
+    it = records.RecordReaderDataSetIterator(reader, REC_MNIST_B,
+                                             label_index=0, num_classes=10)
+    steps = -(-REC_MNIST_N // REC_MNIST_B)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    net.fit(it)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = kernels.counts()
+    e, want = _launch_errors(counts, MNIST_LAUNCHES, steps)
+    errors += e
+    if net.iteration != steps:
+        errors.append(f"{net.iteration} steps, not {steps}")
+    ev = net.evaluate(records.RecordReaderDataSetIterator(
+        records.CSVRecordReader().initialize(paths["test"]), 256,
+        label_index=0, num_classes=10))
+    if int(ev.confusion.matrix.sum()) != REC_MNIST_TEST_N:
+        errors.append(f"{int(ev.confusion.matrix.sum())} test rows counted")
+    if not ev.accuracy() >= MNIST_ACCURACY:
+        errors.append(f"accuracy {ev.accuracy()} < {MNIST_ACCURACY}")
+    emit(card, phase="records", path="mnist_csv", ok=not errors,
+         errors=errors, rows=REC_MNIST_N, csv_mb=mb, write_s=write_s,
+         parser_build_s=build_s, native_s=native_s, native_mb_per_s=mb / native_s,
+         python_s=python_s, python_mb_per_s=mb / python_s,
+         native_equals_python_bitwise=same, parser_paths=native.file_paths,
+         model="mlp_mnist (Nesterovs 0.9, lr 0.006)", batch=REC_MNIST_B,
+         steps=steps, fit_s=fit_s, score=net.score_value,
+         accuracy=ev.accuracy(), launches=counts["launches"],
+         expected_launches=want)
+    return errors, counts["launches"]
+
+
+def _csv_graph_files():
+    """examples/csv_graph_multi_io.py's two CSVs, written as it writes
+    them (same seed, same rows)."""
+    rng = np.random.RandomState(0)
+    pa, pb = os.path.join(REC_DIR, "a.csv"), os.path.join(REC_DIR, "b.csv")
+    with open(pa, "w") as f:   # 4 features + class id
+        for _ in range(64):
+            row = rng.rand(4).round(3)
+            f.write(",".join(map(str, row)) + f",{rng.randint(3)}\n")
+    with open(pb, "w") as f:   # 3 features + 2 regression targets
+        for _ in range(64):
+            row = rng.rand(5).round(3)
+            f.write(",".join(map(str, row)) + "\n")
+    return pa, pb
+
+
+def _csv_graph_conf():
+    """examples/csv_graph_multi_io.py's graph in the port's DSL."""
+    from deeplearning4j_tpu_torch.nn.conf.graph import MergeVertex
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+        NeuralNetConfiguration,
+    )
+
+    gb = (NeuralNetConfiguration.builder()
+          .seed(7).learning_rate(0.05).updater("adam")
+          .graph_builder()
+          .add_inputs("ina", "inb")
+          .add_layer("da", DenseLayer(n_out=16, activation="relu"), "ina")
+          .add_layer("db", DenseLayer(n_out=16, activation="relu"), "inb")
+          .add_vertex("m", MergeVertex(), "da", "db")
+          .add_layer("cls", OutputLayer(n_out=3, activation="softmax",
+                                        loss_function="mcxent"), "m")
+          .add_layer("reg", OutputLayer(n_out=2, activation="identity",
+                                        loss_function="mse"), "m")
+          .set_outputs("cls", "reg"))
+    gb.set_input_types(InputType.feed_forward(4), InputType.feed_forward(3))
+    return gb.build()
+
+
+def _records_csv_graph(card, torch, kernels, dev):
+    from deeplearning4j_tpu_torch.datasets import records
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    pa, pb = _csv_graph_files()
+
+    def make_iter():
+        return (records.RecordReaderMultiDataSetIterator.builder(16)
+                .add_reader("a", records.CSVRecordReader().initialize(pa))
+                .add_reader("b", records.CSVRecordReader().initialize(pb))
+                .add_input("a", 0, 3)
+                .add_input("b", 0, 2)
+                .add_output_one_hot("a", 4, num_classes=3)
+                .add_output("b", 3, 4)
+                .build())
+
+    conf = _csv_graph_conf()
+    card_net = ComputationGraph(conf, device=dev).init()
+    cpu_net = ComputationGraph(conf, device="cpu").init(
+        params=_clone_tree(card_net.params_tree, "cpu"))
+    scores = {"card": [], "cpu": []}
+    kernels.reset_counts()
+    for _ in range(REC_GRAPH_EPOCHS):
+        card_net.fit(make_iter())
+        scores["card"].append(card_net.score_value)
+    counts = kernels.counts()
+    for _ in range(REC_GRAPH_EPOCHS):
+        cpu_net.fit(make_iter())
+        scores["cpu"].append(cpu_net.score_value)
+    steps = REC_GRAPH_EPOCHS * 4
+    errors, want = _launch_errors(counts, {"fused_update": 1}, steps)
+    first = abs(scores["card"][0] - scores["cpu"][0]) / abs(scores["cpu"][0])
+    if not first <= REC_GRAPH_TOL:
+        errors.append(f"first epoch's score {scores['card'][0]} (card) vs "
+                      f"{scores['cpu'][0]} (CPU)")
+    final = scores["card"][-1]
+    if not (np.isfinite(final) and final < scores["card"][0]):
+        errors.append(f"final score {final}, first {scores['card'][0]}")
+    emit(card, phase="records", path="csv_graph_multi_io", ok=not errors,
+         errors=errors, example="examples/csv_graph_multi_io.py",
+         epochs=REC_GRAPH_EPOCHS, steps=steps, scores_card=scores["card"],
+         scores_cpu=scores["cpu"], first_epoch_rel_diff=first,
+         launches=counts["launches"], expected_launches=want)
+    return errors, counts["launches"]
+
+
+def uci_series(seed=5):
+    """The UCI synthetic control charts (Alcock and Manolopoulos, 1999): 100
+    series of UCI_T steps for each of the six classes, y(t) = 30 + 2 r(t)
+    with r in U(-3, 3), plus: nothing (normal); a sin(2 pi t / T) with a,
+    T in U(10, 15) (cyclic); +/- g t with g in U(0.2, 0.5) (increasing,
+    decreasing trend); +/- x after t3 with x in U(7.5, 20), t3 in U(T/3,
+    2T/3) (upward, downward shift). Shuffled: (series [N, T], classes)."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(1, UCI_T + 1, dtype=np.float64)
+    ys, cls = [], []
+    for c in range(UCI_CLASSES):
+        for _ in range(UCI_N // UCI_CLASSES):
+            y = 30 + 2 * rng.uniform(-3, 3, UCI_T)
+            if c == 1:
+                y += rng.uniform(10, 15) * np.sin(
+                    2 * np.pi * t / rng.uniform(10, 15))
+            elif c in (2, 3):
+                y += (1 if c == 2 else -1) * rng.uniform(0.2, 0.5) * t
+            elif c in (4, 5):
+                t3 = rng.uniform(UCI_T / 3, 2 * UCI_T / 3)
+                y += ((1 if c == 4 else -1) * rng.uniform(7.5, 20)
+                      * (t >= t3))
+            ys.append(y)
+            cls.append(c)
+    order = rng.permutation(len(ys))
+    return np.asarray(ys)[order], np.asarray(cls)[order]
+
+
+def _write_uci(root):
+    """One features CSV (a value a line) and one labels CSV (the class a
+    line) per series, train and test, the values standardized with the
+    training set's mean and deviation (the example's NormalizerStandardize
+    fitted on the training data)."""
+    ys, cls = uci_series()
+    mu, sd = ys[:UCI_TRAIN].mean(), ys[:UCI_TRAIN].std()
+    dirs = {}
+    for split, sl in (("train", slice(0, UCI_TRAIN)),
+                      ("test", slice(UCI_TRAIN, UCI_N))):
+        for kind in ("features", "labels"):
+            d = dirs[split, kind] = os.path.join(root, split, kind)
+            os.makedirs(d, exist_ok=True)
+        for i, (y, c) in enumerate(zip(ys[sl], cls[sl])):
+            with open(os.path.join(dirs[split, "features"], f"{i:03d}.csv"),
+                      "w") as f:
+                f.write("\n".join("%.6f" % v for v in (y - mu) / sd) + "\n")
+            with open(os.path.join(dirs[split, "labels"], f"{i:03d}.csv"),
+                      "w") as f:
+                f.write(f"{c}\n" * UCI_T)
+    return dirs
+
+
+def _uci_conf(k=UCI_K):
+    """The example's net, its steps captured `k` at a time (0: per
+    batch)."""
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        GravesLSTM,
+        RnnOutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.neural_net import (
+        NeuralNetConfiguration,
+    )
+
+    return (NeuralNetConfiguration.builder()
+            .seed(123).updater("nesterovs").learning_rate(0.005)
+            .momentum(0.9).weight_init("xavier")
+            .gradient_normalization("clipelementwiseabsolutevalue")
+            .gradient_normalization_threshold(0.5).superstep_k(k)
+            .list()
+            .layer(GravesLSTM(n_out=UCI_H, activation="tanh"))
+            .layer(RnnOutputLayer(n_out=UCI_CLASSES, activation="softmax",
+                                  loss_function="mcxent"))
+            .set_input_type(InputType.recurrent(1)).build())
+
+
+def _records_uci(card, torch, kernels, dev):
+    from deeplearning4j_tpu_torch.datasets import records
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    dirs = _write_uci(os.path.join(REC_DIR, "uci"))
+
+    def iterator(split):
+        return records.SequenceRecordReaderDataSetIterator(
+            records.CSVSequenceRecordReader().initialize(
+                dirs[split, "features"]),
+            records.CSVSequenceRecordReader().initialize(
+                dirs[split, "labels"]), UCI_B, num_classes=UCI_CLASSES)
+
+    def epoch(net):
+        t0 = time.perf_counter()
+        net.fit(iterator("train"))
+        torch.cuda.synchronize()
+        return net.score_value, time.perf_counter() - t0
+
+    net = MultiLayerNetwork(_uci_conf(), device=dev).init()
+    kernels.reset_counts()
+    scores, epoch_s = zip(*(epoch(net) for _ in range(UCI_EPOCHS)))
+    fit_s = sum(epoch_s)
+    counts = kernels.counts()
+    per_epoch = -(-UCI_TRAIN // UCI_B)
+    calls = UCI_EPOCHS * per_epoch
+    # A captured block's launches come back with every replay; the step
+    # that warms a graph up (undone) launches once more.
+    warm = counts["launches"]["fused_update"] - calls
+    errors, want = _launch_errors(counts, {"lstm_cell": UCI_T,
+                                           "fused_update": 1},
+                                  calls + max(warm, 0))
+    if warm not in (0, 1):
+        errors.append(f"{counts['launches']['fused_update']} update "
+                      f"launches for {calls} steps")
+    errors += _falling(scores)
+    ev = net.evaluate(iterator("test"))
+    acc = ev.accuracy()
+    if not acc > 1 / UCI_CLASSES:
+        errors.append(f"test accuracy {acc} is not above chance")
+    # What capturing UCI_K steps at a time is for: the same net per batch
+    # (superstep_k 0), the second of two epochs against the captured
+    # run's last (outside the path's counts).
+    per_batch = MultiLayerNetwork(_uci_conf(0), device=dev).init()
+    per_batch_s = [epoch(per_batch)[1] for _ in range(2)]
+    emit(card, phase="records", path="uci_sequences", ok=not errors,
+         errors=errors, example="dl4j-examples UCISequenceClassification"
+         "Example", series=UCI_N, steps_per_series=UCI_T, train=UCI_TRAIN,
+         model=f"GravesLSTM({UCI_H}, tanh) + RnnOutputLayer({UCI_CLASSES}) "
+               "Nesterovs lr 0.005", batch=UCI_B, epochs=UCI_EPOCHS,
+         superstep_k=UCI_K, steps=calls, warm_up_steps=warm, fit_s=fit_s,
+         ms_per_step=fit_s * 1e3 / calls,
+         ms_per_step_last_epoch=epoch_s[-1] * 1e3 / per_epoch,
+         ms_per_step_per_batch=per_batch_s[-1] * 1e3 / per_epoch,
+         per_batch_epoch_s=per_batch_s,
+         scores=list(scores), test_accuracy=acc, chance=1 / UCI_CLASSES,
+         launches=counts["launches"], expected_launches=want)
+    return errors, counts["launches"]
+
+
+def _records_cifar(card, torch, kernels, dev):
+    from deeplearning4j_tpu_torch.datasets import records
+    from deeplearning4j_tpu_torch.datasets.staging import DeviceStager
+    from deeplearning4j_tpu_torch.models import resnet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.optimize import listeners as ls
+
+    conf = resnet.resnet50(10, image=32, fused_blocks=True, lr=CIFAR_LR)
+    net = ComputationGraph(conf, device=dev).init()
+    it = records.Cifar10DataSetIterator(CIFAR_B, num_examples=CIFAR_N)
+    steps = -(-CIFAR_N // CIFAR_B)
+    collect = ls.CollectScoresIterationListener(1)
+    net.set_listeners(collect)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    net.fit(DeviceStager(it, net=net))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    scores = [sc for _, sc in collect.scores]
+    counts = kernels.counts()
+    errors, want = _launch_errors(counts, CIFAR_LAUNCHES, steps)
+    errors += _variant_errors(counts, {"bottleneck_train": 16 * steps})
+    if len(scores) != steps or not all(np.isfinite(scores)):
+        errors.append(f"{len(scores)} scores, finite: "
+                      f"{all(np.isfinite(scores))}")
+    emit(card, phase="records", path="cifar10", ok=not errors,
+         errors=errors, data="Cifar10DataSetIterator (the synthetic set)",
+         model=f"resnet50 classes=10 image=32 fused_blocks mixed_bfloat16 "
+               f"Nesterovs lr {CIFAR_LR}",
+         batch=CIFAR_B, steps=steps, fit_s=fit_s,
+         samples_per_s=CIFAR_N / fit_s, first_score=scores[:1],
+         last_score=scores[-1:], launches=counts["launches"],
+         expected_launches=want)
+    return errors, counts["launches"]
+
+
+def phase_records(card, torch, kernels, dev):
+    """The record readers feeding the nets from files written under
+    build/records: MNIST as a CSV into the MLP (one epoch, accuracy >=
+    0.95; the native parser's matrix equal bit for bit to the Python
+    reader's, with its seconds and MB/s); examples/csv_graph_multi_io.py
+    on the card (its first epoch's score within 1e-5 of the CPU's, the
+    last finite and lower); the UCI synthetic-control sequences into a
+    GravesLSTM (40 epochs, test accuracy above chance); CIFAR-10 through
+    DeviceStager into ResNet-50 (one epoch, finite scores). Each path's
+    launches counted from 0."""
+    os.makedirs(REC_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    errors, launches = [], {}
+    for name, fn in (("records_mnist_csv", _records_mnist),
+                     ("records_csv_graph", _records_csv_graph),
+                     ("records_uci", _records_uci),
+                     ("records_cifar10", _records_cifar)):
+        e, launches[name] = fn(card, torch, kernels, dev)
+        errors += [f"{name}: {x}" for x in e]
+        torch.cuda.empty_cache()
+    emit(card, phase="records", ok=not errors, errors=errors,
+         phase_s=time.perf_counter() - t0)
+    return not errors, launches
+
+
+# -------------------------------------------------------- float64 forms
+
+def _grad_mags(torch, q, k, v, do, lse, drow, causal, scale, chunk=1024):
+    """The sums of |terms| behind each element of dq, dk and dv ([B, T, H,
+    D] each), a chunk of query rows at a time. A gradient row can cancel
+    to zero in exact arithmetic (dq of the first causal query: p = 1 and
+    dp = D), where its largest |want| is rounding noise; a gradient's error
+    is held against these sums instead (`_grad_rel_err`)."""
+    qh, kh, vh, doh = (a.transpose(1, 2) for a in (q, k, v, do))
+    t = qh.shape[2]
+    mq = torch.empty_like(qh)
+    mk, mv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for r0 in range(0, t, chunk):
+        r1 = min(r0 + chunk, t)
+        s = torch.einsum("bhqd,bhkd->bhqk", qh[:, :, r0:r1], kh) * scale
+        if causal:
+            qpos = torch.arange(r0, r1, device=s.device)[:, None]
+            kpos = torch.arange(t, device=s.device)[None, :]
+            s = s.masked_fill(kpos > qpos, -1e30)
+        p = torch.exp(s - lse[:, :, r0:r1, None])
+        dp = torch.einsum("bhqd,bhkd->bhqk", doh[:, :, r0:r1].abs(),
+                          vh.abs())
+        ds = p * (dp + drow[:, :, r0:r1, None].abs())
+        mq[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", ds,
+                                       kh.abs()) * scale
+        mk += torch.einsum("bhqk,bhqd->bhkd", ds, qh[:, :, r0:r1].abs()) \
+            * scale
+        mv += torch.einsum("bhqk,bhqd->bhkd", p, doh[:, :, r0:r1].abs())
+        del s, p, dp, ds
+    return [m.transpose(1, 2) for m in (mq, mk, mv)]
+
+
+def _grad_rel_err(got, want, mags):
+    """The worst row of any gradient: its largest |got - want| over its
+    largest sum of |terms| (`_grad_mags`)."""
+    worst = 0.0
+    for g, w, m in zip(got, want, mags):
+        scale = m.double().amax(-1)
+        scale = scale.where(scale > 0, scale.new_ones(()))
+        worst = max(worst, float(((g.double() - w.double()).abs().amax(-1)
+                                  / scale).max()))
+    return worst
+
+
+def f64_attention_rows(card, torch, dev):
+    """Rows 3, 5, 6 at [16, 1024, 8, 64] causal and rows 4, 7 at [1, 8192,
+    8, 64] causal, float64, each against its plain version on the card:
+    o and lse by `row_rel_err`, dq, dk, dv by `_grad_rel_err`, at 1e-12;
+    libraries: SDPA in float64 (its backward as forward + backward less
+    the forward)."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+
+    f64, dh = torch.float64, D_MODEL // HEADS
+    rows = []
+    for b, t, resident in ((F64_B, F64_T, True), (1, F64_LONG_T, False)):
+        g = torch.Generator(device=dev).manual_seed(t)
+        q, k, v, do = (torch.randn(b, t, HEADS, dh, generator=g, device=dev,
+                                   dtype=f64) for _ in range(4))
+        if fa.streamed(q) == resident:
+            raise AssertionError(f"T={t} f64 streamed: {fa.streamed(q)}")
+        scale = dh ** -0.5
+        shape = f"[{b},{t},{HEADS},{dh}] causal"
+        n, nrows = b * t * HEADS * dh, b * HEADS * t
+        pairs = b * HEADS * t * (t + 1) // 2
+        qh, kh, vh, doh = (a.transpose(1, 2).contiguous()
+                           for a in (q, k, v, do))
+        qg, kg, vg = (a.detach().requires_grad_(True) for a in (qh, kh, vh))
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), doh)
+
+        if resident:
+            o, lse = fa.flash_attention_fwd_lse(q, k, v, True, scale)
+            want_o, want_lse = fa.dense_attention_lse(q, k, v, True, scale)
+            fwd_cases = [
+                ("flash_attention", lambda: fa.flash_attention(
+                    q, k, v, True, scale), lambda: fa.dense_attention(
+                    q, k, v, True, scale), [fa.flash_attention(
+                        q, k, v, True, scale)], [want_o]),
+                ("flash_attention_fwd_lse", lambda: fa.flash_attention_fwd_lse(
+                    q, k, v, True, scale), lambda: fa.dense_attention_lse(
+                    q, k, v, True, scale), [o, lse], [want_o, want_lse])]
+            dq_fn = fa.flash_attention_bwd_dq
+            dkv_fn = fa.flash_attention_bwd_dkv
+            dq_plain, dkv_plain = fa.flash_bwd_dq_plain, fa.flash_bwd_dkv_plain
+            names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+        else:
+            o, lse = fa.flash_attention_stream(q, k, v, True, scale)
+            want_o, want_lse = fa.flash_stream_fwd_plain(q, k, v, True, scale)
+            fwd_cases = [
+                ("flash_attention_stream", lambda: fa.flash_attention_stream(
+                    q, k, v, True, scale), lambda: fa.flash_stream_fwd_plain(
+                    q, k, v, True, scale), [o, lse], [want_o, want_lse])]
+            dq_fn = fa.flash_attention_bwd_dq_stream
+            dkv_fn = fa.flash_attention_bwd_dkv_stream
+            dq_plain = fa.flash_stream_bwd_dq_plain
+            dkv_plain = fa.flash_stream_bwd_dkv_plain
+            names = ("flash_attention_bwd_dq_stream",
+                     "flash_attention_bwd_dkv_stream")
+        # CUDA kernels a call: the streamed rows' unit kernel and their
+        # merge or sums (T = 8,192 has runs of two units), else one.
+        per_call = {"flash_attention_stream": 2,
+                    "flash_attention_bwd_dq_stream": 2,
+                    "flash_attention_bwd_dkv_stream": 3}
+        for name, kern, plain, got, want in fwd_cases:
+            err = row_rel_err(got, want)
+            rows.append(_form_row(
+                card, torch, "f64_kernels", name, "float64", shape, kern,
+                plain, err, err <= F64_REL_TOL, 4 * n * 8 + 8 * nrows,
+                4 * dh * pairs,
+                lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       is_causal=True),
+                launches_per_call=per_call.get(name, 1),
+                reps=None if resident else LONG_REPS,
+                tolerance=f"row_rel_err {F64_REL_TOL}",
+                variant=fa.flash_variant(f64, dh)))
+        del got, want
+        drow = fa._drow(o, do)
+        bwd = (q, k, v, do, lse, drow, True, scale)
+        mags = _grad_mags(torch, *bwd)
+        got = [dq_fn(*bwd), *dkv_fn(*bwd)]
+        want = [dq_plain(*bwd), *dkv_plain(*bwd)]
+        errs = (_grad_rel_err(got[:1], want[:1], mags[:1]),
+                _grad_rel_err(got[1:], want[1:], mags[1:]))
+        del got, want, mags
+        for name, fn, plain, err, nbytes, ops in (
+                (names[0], lambda: dq_fn(*bwd), lambda: dq_plain(*bwd),
+                 errs[0], 5 * n * 8 + 16 * nrows, 6 * dh * pairs),
+                (names[1], lambda: dkv_fn(*bwd), lambda: dkv_plain(*bwd),
+                 errs[1], 6 * n * 8 + 16 * nrows, 8 * dh * pairs)):
+            rows.append(_form_row(
+                card, torch, "f64_kernels", name, "float64", shape, fn,
+                plain, err, err <= F64_REL_TOL, nbytes, ops,
+                (sdpa_fwd_bwd, sdpa_fwd),
+                launches_per_call=per_call.get(name, 1),
+                reps=None if resident else LONG_REPS,
+                tolerance=f"worst row's |err| over its sum of |terms|, "
+                          f"{F64_REL_TOL}",
+                variant=fa.flash_variant(f64, dh)))
+        del q, k, v, do, o, lse, drow, bwd, qh, kh, vh, doh, qg, kg, vg
+        torch.cuda.empty_cache()
+    # Row 8: the f64 LM's decode shape, the cursors at 1000 / 700 / 330 /
+    # 40 (the decode's last steps).
+    case = paged_case(torch, dev, f64, 1, CACHE // PAGE, F64_PAGED_POS, 8)
+    name, shape, kern, plain, lib, nbytes, ops = case
+    err = row_rel_err([kern()], [plain()])
+    rows.append(_form_row(card, torch, "f64_kernels", name, "float64",
+                          shape, kern, plain, err, err <= F64_REL_TOL,
+                          nbytes, ops, lib,
+                          tolerance=f"row_rel_err {F64_REL_TOL}"))
+    return rows
+
+
+def f64_update_case(torch, dev, kind, hyper, shapes, lr, step, label):
+    """Row 9 in float64 over `shapes` ({vertex: {param: shape}}): one
+    `apply_step` as `fit` runs it beside its plain version (per item the
+    kind's plain body and `apply_deltas`), and where one computes the same
+    kind of update, `torch._fused_adam_` / `_fused_sgd_` (Nesterov) over
+    the same lists in float64. (name, label, kern, plain, lib, bytes, ops,
+    first call's row_rel_err)."""
+    from deeplearning4j_tpu_torch.kernels import fused_update as fu
+
+    rng = np.random.RandomState(len(shapes))
+    fields = fu.FIELDS[kind]
+
+    def tree(scale, pos=False):
+        return {v: {k: torch.tensor(np.abs(rng.randn(*s)) * scale if pos
+                                    else rng.randn(*s) * scale,
+                                    dtype=torch.float64, device=dev)
+                    for k, s in p.items()} for v, p in shapes.items()}
+
+    params0, grads = tree(0.05), tree(0.01)
+    state0 = {f: tree(1e-4, pos=f in ("v", "g2") and kind != "nesterovs")
+              for f in fields}
+
+    def copy(t):
+        return {v: {k: a.clone() for k, a in p.items()} for v, p in t.items()}
+
+    kp, pp = copy(params0), copy(params0)
+    kst = {v: {f: copy(state0[f])[v] for f in fields} for v in shapes}
+    pst = {v: {f: copy(state0[f])[v] for f in fields} for v in shapes}
+    tables = {}
+
+    def kern():
+        states = fu.apply_step(kind, hyper, [
+            fu.UpdateItem(kp[v], kst[v], grads[v], lr) for v in shapes],
+            step, 1.0, tables)
+        kst.update(zip(shapes, states))
+        return [a for v in shapes for a in (
+            *kp[v].values(), *(t for f in fields for t in kst[v][f].values()))]
+
+    def plain():
+        out = []
+        for v in shapes:
+            pst[v], d = fu._PLAIN[kind](pst[v], grads[v], lr, step, *hyper)
+            fu.apply_deltas(pp[v], d, None, 1.0)
+            out += [*pp[v].values(),
+                    *(t for f in fields for t in pst[v][f].values())]
+        return out
+
+    err = row_rel_err(kern(), plain())
+    lp, lg = ([a for p in t.values() for a in p.values()]
+              for t in (copy(params0), grads))
+    lst = {f: [a for p in copy(state0[f]).values() for a in p.values()]
+           for f in fields}
+    lib = None
+    if kind == "adam" and hasattr(torch, "_fused_adam_"):
+        steps_t = [torch.tensor(float(step), device=dev) for _ in lp]
+        mx = [torch.zeros_like(a) for a in lp]
+
+        def lib():
+            torch._fused_adam_(lp, lg, lst["m"], lst["v"], mx, steps_t,
+                               lr=lr, beta1=hyper[0], beta2=hyper[1],
+                               weight_decay=0.0, eps=hyper[2], amsgrad=False,
+                               maximize=False)
+    elif kind == "nesterovs" and hasattr(torch, "_fused_sgd_"):
+        def lib():
+            torch._fused_sgd_(lp, lg, lst["v"], weight_decay=0.0,
+                              momentum=hyper[0], lr=lr, dampening=0.0,
+                              nesterov=True, maximize=False,
+                              is_first_step=False)
+    elems = sum(a.numel() for a in lg)
+    per = {"adam": 56, "nesterovs": 40, "rmsprop": 40}[kind]
+    n_tensors = sum(len(p) for p in shapes.values())
+    return ("fused_update", f"{kind} apply_step over {label} ({n_tensors} "
+            f"tensors), {elems} f64 params", kern, plain, lib, per * elems,
+            {"adam": 15, "nesterovs": 7, "rmsprop": 10}[kind] * elems, err)
+
+
+def f64_update_rows(card, torch, dev, lm_conf):
+    from deeplearning4j_tpu_torch.models import zoo
+
+    lenet = {f"layer_{i}": layer.param_shapes()
+             for i, layer in enumerate(zoo.lenet_mnist().layers)
+             if layer.param_shapes()}
+    rnn = {f"layer_{i}": layer.param_shapes()
+           for i, layer in enumerate(_rnn_conf().layers)
+           if layer.param_shapes()}
+    rows = []
+    for kind, hyper, shapes, lr, label in (
+            ("adam", (0.9, 0.999, 1e-8), lm_update_shapes(lm_conf), 3e-3,
+             "the LM's layer vertices"),
+            ("nesterovs", (0.9,), lenet, 0.01, "LeNet's layers"),
+            ("rmsprop", (0.95, 1e-8), rnn, 0.1, "the char-RNN's layers")):
+        name, shape, kern, plain, lib, nbytes, ops, err = f64_update_case(
+            torch, dev, kind, hyper, shapes, lr, 5, label)
+        rows.append(_form_row(card, torch, "f64_kernels", name, "float64",
+                              shape, kern, plain, err, err <= F64_REL_TOL,
+                              nbytes, ops, lib,
+                              tolerance=f"row_rel_err {F64_REL_TOL}"))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def f64_block_rows(card, torch, dev):
+    """Rows 11 and 12 in float64 at T2's main block (B=32, 4x4, Cin 1024,
+    F1 256, identity; batch statistics) and I1's (B=32, 14x14; running
+    statistics, float64 as a float64 net keeps them: the plain version
+    takes sqrt(var + eps) at the statistics' dtype), each against its
+    plain version on the card by
+    `row_rel_err` over y and the statistics at 1e-12. No library call
+    computes the block; cuDNN's float64 convolutions of the same block,
+    alone, are timed as a reference point."""
+    import torch.nn.functional as F
+
+    rows = []
+    for name, b, shape, train in (
+            ("bottleneck_train", RN_PATHS["t2"][2], (4, 1024, 256, 1, False),
+             True),
+            ("bottleneck_infer", INFER_B, (14, 1024, 256, 1, False), False)):
+        label, kern, plain, _, nbytes, ops, extra = rn_block_case(
+            torch, dev, "float64", b, shape, train, 64,
+            state_dtype="float64")
+        err = row_rel_err(kern(), plain())
+        kern_ms = time_ms(kern)
+        h, cin, f1, stride, project = shape
+        g = torch.Generator(device=dev).manual_seed(3)
+        xc = torch.randn(b, cin, h, h, generator=g, device=dev,
+                         dtype=torch.float64)
+        wa, wb, wc = (torch.randn(o, i, k, k, generator=g, device=dev,
+                                  dtype=torch.float64) * 0.05
+                      for o, i, k in ((f1, cin, 1), (f1, f1, 3),
+                                      (4 * f1, f1, 1)))
+
+        def cudnn():
+            return F.conv2d(F.conv2d(F.conv2d(xc, wa), wb, padding=1), wc)
+
+        rows.append(_form_row(
+            card, torch, "f64_kernels", name, "float64", label, kern, plain,
+            err, err <= F64_REL_TOL, nbytes, ops, None,
+            tolerance=f"row_rel_err {F64_REL_TOL}",
+            cudnn_convs_alone_ms=time_ms(cudnn),
+            conv_tflop_s=extra["conv_ops"] / (kern_ms * 1e9) if kern_ms
+            else None,
+            variant="f64"))
+        del xc, wa, wb, wc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _lm64_conf(t=None, **kw):
+    from deeplearning4j_tpu_torch.models import zoo
+
+    return zoo.transformer_lm(VOCAB, t=F64_T if t is None else t,
+                              d_model=D_MODEL, n_heads=HEADS,
+                              n_blocks=BLOCKS, dtype="float64", **kw)
+
+
+def _lm64_batches(torch, dev, seed, b, t, n):
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+
+    return [MultiDataSet([torch.as_tensor(x, device=dev)],
+                         [torch.as_tensor(y, device=dev)])
+            for x, y in lm_batches(seed, b, t, n)]
+
+
+def _f64_decode(torch, kernels, dev, params):
+    """4 prompts (lengths F64_PROMPTS) decoded F64_DECODE tokens greedily,
+    at once, behind the paged InferenceServer (4 slots, pages of 64), the
+    output projection x SERVE_LOGIT_SCALE; each equal to the port's own
+    uncached `generate_lm` on the same weights. (errors, report)."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    params = _clone_tree(params)
+    params["out"]["W"].mul_(SERVE_LOGIT_SCALE)
+    net = ComputationGraph(_lm64_conf(decode_cache_length=CACHE),
+                           device=dev).init(params=params)
+    rng = np.random.RandomState(29)
+    prompts = [rng.randint(0, VOCAB, n).tolist() for n in F64_PROMPTS]
+    server = InferenceServer(net, device=dev, kv_cache="paged",
+                             kv_page_size=PAGE, decode_slots=SLOTS).start()
+    results, errors = {}, []
+    try:
+        server.wait_ready()
+        sched = server.get(None).scheduler
+        kernels.reset_counts()
+
+        def send(i):
+            try:
+                results[i] = server.generate(prompts[i], F64_DECODE,
+                                             temperature=0.0)
+            except Exception as e:  # reported below, the phase fails
+                errors.append(f"request {i}: {e!r}")
+
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=SERVE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        stats = dict(sched.stats)
+        pages = {str(s["k_pages"].dtype) for s in
+                 sched.stepper._state.values() if "k_pages" in s}
+    finally:
+        server.stop()
+    want = _lm_expected(stats)
+    e, _ = _launch_errors(counts, want, 1)
+    errors += e + _f64_form_errors(counts, want)
+    if pages != {"torch.float64"}:
+        errors.append(f"KV pages {pages}")
+    del net
+    uncached = ComputationGraph(_lm64_conf(t=CACHE), device=dev).init(
+        params=params)
+    same = []
+    for i, p in enumerate(prompts):
+        ref = zoo.generate_lm(uncached, p, F64_DECODE, window=CACHE,
+                              temperature=0.0)
+        same.append(results.get(i) == ref)
+    if not all(same):
+        errors.append(f"paged greedy ids differ from generate_lm: {same}")
+    del uncached
+    torch.cuda.empty_cache()
+    return errors, dict(prompts=list(F64_PROMPTS), new_tokens=F64_DECODE,
+                        wall_s=wall, stats=stats, kv_page_dtype=sorted(pages),
+                        launches=counts["launches"], expected_launches=want,
+                        equal_to_uncached=same), counts["launches"]
+
+
+def phase_f64_lm(card, torch, kernels, dev):
+    """The LM cell's transformer_lm in float64 (T = 1,024): 3 `fit` steps
+    at B=16, Adam lr 3e-3 (rows 1, 5, 6, 9 in float64), one `output`
+    (rows 1, 3); one step at B=1, T=F64_CPU_T from the trained params held
+    to the CPU's float64 step (score within 1e-10 relative, every param
+    within 1e-10 of the net's largest |p|: Adam's first step divides each
+    gradient by its own size, so a near-zero gradient's last bits move
+    its param by up to lr x their share, and a tensor's own largest |p|
+    can be small); the paged decode (`_f64_decode`, row 8 in float64)."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    t_phase = time.perf_counter()
+    errors, launches, out = [], {}, {}
+    conf = _lm64_conf()
+    net = ComputationGraph(conf, device=dev).init()
+    if _params_f64(net) != ["torch.float64"]:
+        errors.append(f"param dtypes {_params_f64(net)}")
+    batches = _lm64_batches(torch, dev, 61, F64_B, F64_T, 2)
+    kernels.reset_counts()
+    scores, wall, _ = _fit_calls(torch, net, batches, F64_STEPS)
+    counts = kernels.counts()
+    e, want = _launch_errors(counts, TRAIN_LAUNCHES, F64_STEPS)
+    errors += e + _f64_form_errors(counts, TRAIN_LAUNCHES)
+    if not all(np.isfinite(scores)):
+        errors.append(f"non-finite score {scores}")
+    launches["f64_lm_train"] = counts["launches"]
+    out["train"] = dict(steps=F64_STEPS, batch=F64_B, scores=scores,
+                        ms_per_step_all=wall, launches=counts["launches"],
+                        expected_launches=want)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    probs = net.output(batches[0].features[0])[0]
+    out["output_ms"] = (time.perf_counter() - t0) * 1e3
+    counts = kernels.counts()
+    per = {"layernorm_norm_act": 2 * BLOCKS + 1, "flash_attention": BLOCKS}
+    e, _ = _launch_errors(counts, per, 1)
+    errors += e + _f64_form_errors(counts, per)
+    if (probs.shape != (F64_B, F64_T, VOCAB) or probs.dtype != np.float64
+            or not np.isfinite(probs).all()
+            or np.abs(probs.sum(-1) - 1).max() > 1e-9):
+        errors.append(f"output {probs.shape} {probs.dtype}")
+    launches["f64_lm_output"] = counts["launches"]
+    del probs
+    params = _clone_tree(net.params_tree)
+    del net, batches
+    torch.cuda.empty_cache()
+    # One step at B=1, T=F64_CPU_T on the card and on the CPU from the
+    # same params (the same conf: its positional table is T=F64_T's).
+    batch, = lm_batches(62, 1, F64_CPU_T, 1)
+    nets = {"card": ComputationGraph(conf, device=dev).init(
+                params=_clone_tree(params)),
+            "cpu": ComputationGraph(conf, device="cpu").init(
+                params=_clone_tree(params, "cpu"))}
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    for where, n in nets.items():
+        n.fit(MultiDataSet([batch[0]], [batch[1]]))
+    sc = {k: n.score_value for k, n in nets.items()}
+    score_rel = abs(sc["card"] - sc["cpu"]) / abs(sc["cpu"])
+    p_max = max(float(a.detach().abs().max())
+                for p in nets["cpu"].params_tree.values() for a in p.values())
+    p_err = max(float((nets["card"].params_tree[v][k].detach().cpu()
+                       - a.detach()).abs().max())
+                for v, p in nets["cpu"].params_tree.items()
+                for k, a in p.items())
+    per_tensor = max(_tree_rel(nets["card"].params_tree,
+                               nets["cpu"].params_tree).values())
+    if not (score_rel <= F64_PARITY_TOL and p_err <= F64_PARITY_TOL * p_max):
+        errors.append(f"card vs CPU step: score {score_rel}, params "
+                      f"{p_err / p_max} of the largest |p|")
+    out["cpu_step"] = dict(batch=1, seq_len=F64_CPU_T, scores=sc,
+                           score_rel_diff=score_rel,
+                           param_err_over_largest_p=p_err / p_max,
+                           worst_param_rel_by_tensor=per_tensor,
+                           tolerance=F64_PARITY_TOL)
+    del nets
+    torch.cuda.empty_cache()
+    e, out["decode"], launches["f64_lm_decode"] = _f64_decode(
+        torch, kernels, dev, params)
+    errors += e
+    emit(card, phase="f64_lm", ok=not errors, errors=errors,
+         model=f"transformer_lm V={VOCAB} T={F64_T} d={D_MODEL} "
+               f"heads={HEADS} blocks={BLOCKS} float64 Adam lr 3e-3",
+         phase_s=time.perf_counter() - t_phase, **out)
+    return not errors, launches
+
+
+def phase_f64_long(card, torch, kernels, dev):
+    """The same LM at T = 8,192, B = 1, float64 (past its resident limit):
+    one `fit` step (rows 4, 7, 1, 9 in float64) and one `output` (rows 4,
+    1), then the same step and `output` from the same params with every
+    wrapper on its plain version on the card (`card_plain`): score and
+    output within 1e-10 relative, each gradient tensor within 1e-9 of its
+    largest |g| (F64_GRAD_TOL; the params after Adam's first step are
+    reported: it divides each gradient by its own size, so a near-zero
+    gradient's last bits move its param by up to lr x their share)."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    t_phase = time.perf_counter()
+    conf = _lm64_conf(t=F64_LONG_T)
+    params = _clone_tree(ComputationGraph(conf, device=dev).init()
+                         .params_tree)
+    batch, = _lm64_batches(torch, dev, 63, 1, F64_LONG_T, 1)
+    runs, grads = {}, {}
+    for mode in ("kernels", "plain"):
+        net = ComputationGraph(conf, device=dev).init(
+            params=_clone_tree(params))
+        real = net._train_update
+
+        def update(g, finite, real=real, mode=mode):
+            grads[mode] = _clone_tree(g)
+            return real(g, finite)
+
+        net._train_update = update
+        ctx = card_plain() if mode == "plain" else contextlib.nullcontext()
+        with ctx:
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            net.fit(batch)
+            score = net.score_value
+            fit_ms = (time.perf_counter() - t0) * 1e3
+            c_fit = kernels.counts()
+            kernels.reset_counts()
+            probs = net.output(batch.features[0])[0]
+            c_out = kernels.counts()
+        runs[mode] = dict(net=net, score=score, probs=probs, fit=c_fit,
+                          out=c_out, fit_ms=fit_ms)
+    errors = []
+    k, p = runs["kernels"], runs["plain"]
+    long_step = dict(LONG_LAUNCHES)
+    e, want = _launch_errors(k["fit"], long_step, 1)
+    errors += e + _f64_form_errors(k["fit"], long_step)
+    per_out = {"layernorm_norm_act": 2 * BLOCKS + 1,
+               "flash_attention_stream": BLOCKS}
+    e, _ = _launch_errors(k["out"], per_out, 1)
+    errors += e + _f64_form_errors(k["out"], per_out)
+    if any(p["fit"]["launches"].values()) or any(p["out"]["launches"]
+                                                 .values()):
+        errors.append("the plain run launched kernels")
+    score_rel = abs(k["score"] - p["score"]) / abs(p["score"])
+    out_rel = _rel_err(torch.as_tensor(k["probs"]),
+                       torch.as_tensor(p["probs"]))
+    p_rel = _tree_rel(k["net"].params_tree, p["net"].params_tree)
+    worst = max(p_rel.values())
+    g_worst = max(_tree_rel(grads["kernels"], grads["plain"]).values())
+    for what, v, tol in (("score", score_rel, F64_PARITY_TOL),
+                         ("output", out_rel, F64_PARITY_TOL),
+                         ("gradients", g_worst, F64_GRAD_TOL)):
+        if not v <= tol:
+            errors.append(f"{what} kernels vs plain: {v}")
+    if not np.isfinite(k["score"]):
+        errors.append(f"score {k['score']}")
+    emit(card, phase="f64_long", ok=not errors, errors=errors,
+         model=f"transformer_lm V={VOCAB} T={F64_LONG_T} d={D_MODEL} "
+               f"heads={HEADS} blocks={BLOCKS} float64 Adam", batch=1,
+         score=k["score"], score_rel_diff=score_rel, output_rel_diff=out_rel,
+         worst_grad_rel=g_worst, grad_tolerance=F64_GRAD_TOL,
+         worst_param_rel_after_adam=worst, tolerance=F64_PARITY_TOL,
+         fit_ms={m: r["fit_ms"] for m, r in runs.items()},
+         launches=k["fit"]["launches"], expected_launches=want,
+         output_launches=k["out"]["launches"],
+         phase_s=time.perf_counter() - t_phase)
+    launches = {"f64_long_train": k["fit"]["launches"],
+                "f64_long_output": k["out"]["launches"]}
+    del runs, k, p, grads
+    torch.cuda.empty_cache()
+    return not errors, launches
+
+
+def phase_f64_lenet(card, torch, kernels, dev):
+    """LeNet in float64 (`lenet_mnist(dtype="float64")`, Nesterovs, B=128):
+    F64_LENET_STEPS `fit` steps on the card and on the CPU from the same
+    params and batches: one update launch a step in its float64 form, the
+    scores within 1e-10 relative and every param within 1e-10 of the
+    net's largest |p| (cuDNN deterministic)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = zoo.lenet_mnist(dtype="float64")
+    card_net = MultiLayerNetwork(conf, device=dev).init()
+    cpu_net = MultiLayerNetwork(conf, device="cpu").init(
+        params=_clone_tree(card_net.params_tree, "cpu"))
+    rng = np.random.RandomState(64)
+    batches = [DataSet(rng.rand(F64_LENET_B, 28, 28, 1),
+                       np.eye(10)[rng.randint(0, 10, F64_LENET_B)])
+               for _ in range(F64_LENET_STEPS)]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernels.reset_counts()
+        scores = {"card": [], "cpu": []}
+        for b in batches:
+            card_net.fit(b)
+            scores["card"].append(card_net.score_value)
+        counts = kernels.counts()
+        for b in batches:
+            cpu_net.fit(b)
+            scores["cpu"].append(cpu_net.score_value)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    errors, want = _launch_errors(counts, MNIST_LAUNCHES, F64_LENET_STEPS)
+    errors += _f64_form_errors(counts, MNIST_LAUNCHES)
+    if _params_f64(card_net) != ["torch.float64"]:
+        errors.append(f"param dtypes {_params_f64(card_net)}")
+    score_rel = max(abs(a - b) / abs(b)
+                    for a, b in zip(scores["card"], scores["cpu"]))
+    p_max = max(float(a.detach().abs().max())
+                for p in cpu_net.params_tree.values() for a in p.values())
+    p_err = max(float((card_net.params_tree[v][k].detach().cpu()
+                       - a.detach()).abs().max())
+                for v, p in cpu_net.params_tree.items() for k, a in p.items())
+    if not (score_rel <= F64_PARITY_TOL and p_err <= F64_PARITY_TOL * p_max):
+        errors.append(f"card vs CPU: scores {score_rel}, params "
+                      f"{p_err / p_max} of the largest |p|")
+    emit(card, phase="f64_lenet", ok=not errors, errors=errors,
+         model="lenet_mnist float64 Nesterovs 0.9 lr 0.01",
+         batch=F64_LENET_B, steps=F64_LENET_STEPS, scores=scores,
+         score_rel_diff=score_rel, param_err_over_largest_p=p_err / p_max,
+         tolerance=F64_PARITY_TOL, launches=counts["launches"],
+         expected_launches=want)
+    return not errors, {"f64_lenet_train": counts["launches"]}
+
+
+def phase_f64_resnet(card, torch, kernels, dev):
+    """T2 in float64: `resnet50(1000, image=64, fused_blocks=True,
+    dtype="float64")`, B=32, Nesterovs, 3 `fit` steps (rows 11, 2, 9 in
+    float64), then `output` at B=8 (rows 12, 2). The first step's
+    gradients against the same step through the plain versions on the
+    card (`card_plain`, same params and batch): each tensor within 1e-9 of
+    its largest |g|. cuDNN deterministic for both runs."""
+    from deeplearning4j_tpu_torch.models import resnet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    t_phase = time.perf_counter()
+    conf = resnet.resnet50(RN_CLASSES, image=RN_PATHS["t2"][0],
+                           fused_blocks=True, dtype="float64")
+    net = ComputationGraph(conf, device=dev).init()
+    errors = []
+    if _params_f64(net) != ["torch.float64"]:
+        errors.append(f"param dtypes {_params_f64(net)}")
+    params, state = _clone_tree(net.params_tree), _clone_tree(net.state)
+    batches = rn_batches(torch, dev, RN_PATHS["t2"][0], F64_RN_B, 2, 73)
+    batches = [type(b)([f.double() for f in b.features], b.labels,
+                       b.features_masks, b.labels_masks) for b in batches]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    grads = {}
+    try:
+        for mode in ("kernels", "plain"):
+            n = ComputationGraph(conf, device=dev).init(
+                params=_clone_tree(params), state=_clone_tree(state))
+            real = n._train_update
+
+            def update(g, finite, real=real, mode=mode):
+                grads[mode] = _clone_tree(g)
+                return real(g, finite)
+
+            n._train_update = update
+            ctx = card_plain() if mode == "plain" else \
+                contextlib.nullcontext()
+            with ctx:
+                n.fit(batches[0])
+            del n
+        kernels.reset_counts()
+        scores, wall, _ = _fit_calls(torch, net, batches, F64_RN_STEPS)
+        counts = kernels.counts()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    g_rel = _tree_rel(grads["kernels"], grads["plain"])
+    worst = max(g_rel.values())
+    if not worst <= F64_GRAD_TOL:
+        errors.append(f"first-step gradients kernels vs plain: {worst}")
+    e, want = _launch_errors(counts, RN_LAUNCHES["t2"], F64_RN_STEPS)
+    errors += e + _f64_form_errors(counts, RN_LAUNCHES["t2"])
+    if not all(np.isfinite(scores)):
+        errors.append(f"non-finite score {scores}")
+    x = batches[0].features[0][:F64_RN_OUT_B]
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    probs = net.output(x)[0]
+    out_ms = (time.perf_counter() - t0) * 1e3
+    c_out = kernels.counts()
+    per = {"bottleneck_infer": 16, "batchnorm_norm_act": 1}
+    e, _ = _launch_errors(c_out, per, 1)
+    errors += e + _f64_form_errors(c_out, per)
+    if probs.shape != (F64_RN_OUT_B, RN_CLASSES) or not np.isfinite(
+            probs).all():
+        errors.append(f"output {probs.shape}")
+    emit(card, phase="f64_resnet", ok=not errors, errors=errors,
+         model=f"resnet50 classes={RN_CLASSES} image={RN_PATHS['t2'][0]} "
+               "fused_blocks float64 Nesterovs lr 0.1", batch=F64_RN_B,
+         steps=F64_RN_STEPS, scores=scores, ms_per_step_all=wall,
+         worst_grad_rel=worst, grad_tolerance=F64_GRAD_TOL,
+         launches=counts["launches"], expected_launches=want,
+         output_batch=F64_RN_OUT_B, output_ms=out_ms,
+         output_launches=c_out["launches"],
+         phase_s=time.perf_counter() - t_phase)
+    del net, batches, grads
+    torch.cuda.empty_cache()
+    return not errors, {"f64_resnet_train": counts["launches"],
+                        "f64_resnet_output": c_out["launches"]}
 
 
 def main() -> int:
@@ -8451,6 +9715,15 @@ def main() -> int:
     if not all(r["ok"] for r in f64_rows):
         failed.append("f64_kernels")
     torch.cuda.empty_cache()
+    for name, fn in (("records", phase_records), ("f64_lm", phase_f64_lm),
+                     ("f64_long", phase_f64_long),
+                     ("f64_resnet", phase_f64_resnet),
+                     ("f64_lenet", phase_f64_lenet)):
+        ok, new_launches = fn(card, torch, kernels, dev)
+        if not ok:
+            failed.append(name)
+        path_launches.update(new_launches)
+        torch.cuda.empty_cache()
     ok, softmax_rows, softmax_launches = phase_lstm_softmax(
         card, torch, kernels, dev)
     if not ok:
@@ -8640,10 +9913,20 @@ def main() -> int:
                      "bound_ms", "bound_by", "library_ms",
                      "library_device_ms", "device_ms", "host_ms",
                      "bound_share_by_device")
-        f64 = next((p for p in f64_rows if p["name"] == name), None)
-        if f64 is not None:
-            # The float64 form (the gradient checks' path).
-            entries[-1]["f64"] = {k: f64[k] for k in form_keys}
+        f64 = [p for p in f64_rows if p["name"] == name]
+        if f64:
+            # The float64 form (the float64 paths' and the gradient
+            # checks'): at its main float64 shape, and every shape held.
+            # `device_ms_below_bound` says where the profiler's reading
+            # was retaken or, every window short, not read (None).
+            f64_keys = (*form_keys, "device_ms_below_bound")
+            entries[-1]["f64"] = {k: f64[0][k] for k in f64_keys}
+            entries[-1]["f64"]["launches"] = sum(
+                c.get(name, 0) for path, c in path_launches.items()
+                if path.startswith(("f64_", "gradcheck_")))
+            if len(f64) > 1:
+                entries[-1]["f64_shapes"] = [
+                    {k: p[k] for k in f64_keys} for p in f64[1:]]
         if name == "fused_update":
             # The device-scalar form (the captured superstep's launches).
             entries[-1]["device_scalars"] = {

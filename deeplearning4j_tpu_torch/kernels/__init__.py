@@ -14,8 +14,8 @@ tensor launches the kernel, or the wrapper raises. No fallback, no switch.
   two kernels, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`)
   These four run bf16 at D = 64 or 128 on the tensor cores (the tile
   kernels of csrc/flash_attention_stream.cu over one block per whole row
-  of tiles), all else on the CUDA cores, by `flash_variant`, each form
-  counted in `variant_launches`.
+  of tiles), all else on the CUDA cores (float64 in double, its own
+  form), by `flash_variant`, each form counted in `variant_launches`.
 - `fused_update.apply_step`                 (csrc/fused_update.cu: the
   training step's update, params and state in place, one launch per step;
   `fused_update.dispatch`, the per-layer seam that returns deltas, is the
@@ -24,8 +24,8 @@ tensor launches the kernel, or the wrapper raises. No fallback, no switch.
   `bottleneck_train`, batch statistics, and `bottleneck_infer`, running
   statistics; each counts one per wrapper call, of several CUDA launches;
   bf16 at widths that are multiples of 64 on the tensor cores, all else on
-  the CUDA cores, by `bottleneck_variant`, each form counted in
-  `variant_launches`)
+  the CUDA cores, float64 in double on entries of its own, by
+  `bottleneck_variant`, each form counted in `variant_launches`)
 - `lstm_cell.lstm_cell`                     (csrc/lstm_cell.cu: one LSTM
   time step of one layer; with a softmax gate or cell activation, its
   "z out" form, then `lstm_cell_rows`, the gate math a row at a time)
@@ -100,27 +100,30 @@ launches: Dict[str, Count] = {name: Count() for name in KERNELS}
 plain_calls: Dict[str, Count] = {name: Count() for name in KERNELS}
 # Launches of a kernel that has more than one form on the card, by form
 # (`flash_attention.flash_variant`, `bottleneck_block.bottleneck_variant`):
-# the flash rows 3-7 and the bottleneck rows 11-12. Each also counts once
-# in `launches`.
+# the flash rows 3-7 and the bottleneck rows 11-12, each with a float64
+# form beside its tensor-core and CUDA-core ones. Each also counts once in
+# `launches`.
 variant_launches: Dict[str, Dict[str, Count]] = {
-    name: {"wgmma": Count(), "cuda_cores": Count()}
+    name: {"wgmma": Count(), "cuda_cores": Count(), "f64": Count()}
     for name in ("flash_attention", "flash_attention_fwd_lse",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                  "flash_attention_stream", "flash_attention_bwd_dq_stream",
                  "flash_attention_bwd_dkv_stream", "bottleneck_train",
                  "bottleneck_infer")}
-# Forms of rows 1, 2, 9 and 10 besides their first, each also counted in
-# `launches`: the float64 forms of the norm kernels and the LSTM cell; the
-# cell's "z out" form (the first of the two launches of a softmax cell, or
-# the only launch of a cell whose activation is the user's callable, whose
-# gate math then runs as torch ops, counted in `callable`); row 9's
-# device-scalar form (a captured superstep's launches).
+# Forms of rows 1, 2, 8, 9 and 10 besides their first, each also counted in
+# `launches`: the float64 forms of the norm kernels, the paged decode, the
+# fused update and the LSTM cell; the cell's "z out" form (the first of the
+# two launches of a softmax cell, or the only launch of a cell whose
+# activation is the user's callable, whose gate math then runs as torch
+# ops, counted in `callable`); row 9's device-scalar form (a captured
+# superstep's launches).
 variant_launches.update({
     "layernorm_norm_act": {"f64": Count()},
     "batchnorm_norm_act": {"f64": Count()},
     "lstm_cell": {"f64": Count(), "zout": Count(), "callable": Count()},
     "lstm_cell_rows": {"f64": Count()},
-    "fused_update": {"device_scalars": Count()},
+    "paged_decode_attention": {"f64": Count()},
+    "fused_update": {"device_scalars": Count(), "f64": Count()},
 })
 
 

@@ -41,21 +41,24 @@ _D = ctypes.c_double
 _SCHED = [_P, _P, _P, _I, _P, _I]  # a visit list cut into units
 _SIGNATURES = {
     "dl4j_layernorm_norm_act": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
-    # ... | dtype, variant (0 CUDA cores, 1 tensor cores), stream.
-    "dl4j_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+    # ... | dtype, variant (0 CUDA cores, 1 tensor cores), stream. Every
+    # flash entry takes its scale as a double (the f64 forms' own; the
+    # others round it to f32).
+    "dl4j_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I,
                                  _I, _P],
     # q, k, v, table, pos, o, partials, counters, params (the shape, plan,
     # mask, dtype and scale: `flash_attention._PagedParams`), stream.
     "dl4j_paged_decode_attention": [_P] * 10,
     "dl4j_flash_attention_fwd_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _F, _I, _I, _P],
+                                     _D, _I, _I, _P],
     "dl4j_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _F, _I, _I, _P],
+                                    _I, _I, _D, _I, _I, _P],
     "dl4j_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _I, _I, _F, _I, _I, _P],
-    # kind, mode, count | ptrs, sizes, lrs, factors, scalars | lp_dtype |
-    # skip, device scalars, stream.
-    "dl4j_fused_update": [_I, _I, _I] + [_P] * 5 + [_I, _P, _P, _P],
+                                     _I, _I, _I, _D, _I, _I, _P],
+    # kind, mode, count | ptrs, sizes, lrs, factors, scalars | dtype (f32
+    # or f64: the lrs, factors and scalars are of it), lp_dtype | skip,
+    # device scalars, stream.
+    "dl4j_fused_update": [_I, _I, _I] + [_P] * 5 + [_I, _I, _P, _P, _P],
     "dl4j_fused_update_capacity": [],
     # x, mean, var, gamma, beta, y, rows, feats, eps, act, dtype, kinds |
     # the four vectors' values (by value where their kind says so), stream.
@@ -66,12 +69,14 @@ _SIGNATURES = {
     "dl4j_batchnorm_norm_act_f64": [_P] * 6 + [_L, _I, _D, _I, _I]
     + [_D] * 4 + [_P],
     # ... | out, psum, psq, variant (0 CUDA cores, 1 tensor cores), stream.
+    # The block's entries take eps as a double (the float64 form's own; the
+    # others round it to f32) and f64 (code 4) beside the other dtypes.
     "dl4j_bottleneck_conv": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _P, _P, _P, _P, _I, _F, _P, _I, _P, _I, _P, _P,
+                             _P, _P, _P, _P, _I, _D, _P, _I, _P, _I, _P, _P,
                              _P, _I, _P],
-    "dl4j_bottleneck_stats": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "dl4j_bottleneck_stats": [_P, _P, _I, _I, _I, _P, _P, _I, _P],
     "dl4j_bottleneck_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _F, _I, _P, _P],
+                             _I, _I, _D, _I, _P, _P],
     # xw, h, c, rw, pw, m, h_out, c_out, out, params (xw_stride, b, n,
     # act, dtype: `lstm_cell._CellParams`), stream.
     "dl4j_lstm_cell": [_P] * 11,
@@ -81,11 +86,11 @@ _SIGNATURES = {
     # partials | n_slots, batch, seq, heads, dim, causal | scale, dtype,
     # variant, stream.
     "dl4j_flash_attention_stream_fwd": [_P] * 5 + _SCHED + [_P] * 2
-    + [_I] * 6 + [_F, _I, _I, _P],
+    + [_I] * 6 + [_D, _I, _I, _P],
     "dl4j_flash_attention_stream_bwd_dq": [_P] * 7 + _SCHED + [_P]
-    + [_I] * 6 + [_F, _I, _I, _P],
+    + [_I] * 6 + [_D, _I, _I, _P],
     "dl4j_flash_attention_stream_bwd_dkv": [_P] * 8 + _SCHED + [_P] * 2
-    + [_I] * 6 + [_F, _I, _I, _P],
+    + [_I] * 6 + [_D, _I, _I, _P],
 }
 
 _lock = threading.Lock()

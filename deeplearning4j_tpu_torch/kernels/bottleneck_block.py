@@ -24,6 +24,12 @@ rate. A launch of either form
 that fails raises, and an operand that is not contiguous and 16-byte
 aligned is refused before any launch.
 
+float64 x (a float64 policy) takes the block's float64 form, its third:
+the same three C entries and CUDA-core kernels at dtype code 4, which
+instantiate them in double, the raw conv outputs, partial sums, mean and
+var included, with float64 weights, or int8 ones dequantized at the load as
+`q * scale` in double (the reference dequantizes at the compute dtype).
+
 For CPU tensors it calls `bottleneck_train_plain` or
 `bottleneck_infer_plain`, `xla_train` and `xla_infer` (:128-176) op for op:
 `F.conv2d` for the convolutions, the single-pass batch statistics, and
@@ -73,7 +79,11 @@ _BRANCHES = ("a", "b", "c")
 _STAT_KEYS = ("mean_a", "var_a", "mean_b", "var_b", "mean_c", "var_c")
 _STAT_KEYS_PROJ = _STAT_KEYS + ("mean_proj", "var_proj")
 _W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
-            torch.float16: 3}
+            torch.float16: 3, torch.float64: 4}
+# The weights each x dtype takes (a float64 block: float64 or int8 ones).
+_W_TAKEN = {torch.float64: (torch.float64, torch.int8)}
+_W_TAKEN_LOW = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
+_X_CODES = {**DTYPE_CODES, torch.float64: 4}
 _BM = 64  # output rows per conv block (csrc/bottleneck_block.cu kBM)
 
 
@@ -162,6 +172,10 @@ def _f32(v):
     return v.detach().to(torch.float32).contiguous()
 
 
+def _f64(v):
+    return v.detach().to(torch.float64).contiguous()
+
+
 def _f32_all(vs):
     """`_f32` of each of `vs` (1-D), in one cast where any is not f32: a
     bf16 block's 6 or 8 gamma and beta vectors cost one concatenation and
@@ -186,70 +200,79 @@ def _aligned(*ts):
 def _launch_conv(stream, inp, w, wscale, ks, stride, pad, pro, eps, act,
                  with_stats, variant):
     """One implicit-GEMM conv of `inp` (NHWC) with w ([ks*ks*Cin, F] as
-    HWIO lies), raw f32 out [B, Ho, Wo, F], in the form `variant`; `pro`
-    the previous branch's (mean, var, gamma, beta) f32 or None; returns
-    (out, psum, psq), the partial sums when `with_stats`."""
+    HWIO lies), raw out [B, Ho, Wo, F] (f32; f64 in the float64 form), in
+    the form `variant`; `pro` the previous branch's (mean, var, gamma,
+    beta) at the out's dtype, or None; returns (out, psum, psq), the
+    partial sums when `with_stats`."""
     b, h, wd, c = inp.shape
     n_out = w.shape[-1]
     ho, wo = -(-h // stride[0]), -(-wd // stride[1])
     m = b * ho * wo
-    out = torch.empty((m, n_out), dtype=torch.float32, device=inp.device)
+    acc = torch.float64 if variant == "f64" else torch.float32
+    out = torch.empty((m, n_out), dtype=acc, device=inp.device)
     psum = psq = None
     if with_stats:
-        psum = torch.empty((-(-m // _BM), n_out), dtype=torch.float32,
+        psum = torch.empty((-(-m // _BM), n_out), dtype=acc,
                            device=inp.device)
         psq = torch.empty_like(psum)
     pro = pro if pro is not None else (None,) * 4
     _aligned(inp, w, wscale, *pro)
-    _build.launch(
-        "dl4j_bottleneck_conv", inp.data_ptr(), DTYPE_CODES[inp.dtype], b, h,
-        wd, c, ho, wo, ks, stride[0], stride[1], pad, *map(_ptr, pro), act,
-        float(eps), w.data_ptr(), _W_CODES[w.dtype], _ptr(wscale), n_out,
-        out.data_ptr(), _ptr(psum), _ptr(psq), _VARIANTS[variant], stream)
+    _build.launch("dl4j_bottleneck_conv", inp.data_ptr(),
+                  _X_CODES[inp.dtype], b, h, wd, c, ho, wo, ks, stride[0],
+                  stride[1], pad, *map(_ptr, pro), act, float(eps),
+                  w.data_ptr(), _W_CODES[w.dtype], _ptr(wscale), n_out,
+                  out.data_ptr(), _ptr(psum), _ptr(psq), _VARIANTS[variant],
+                  stream)
     return out.view(b, ho, wo, n_out), psum, psq
 
 
 def _launch_stats(stream, psum, psq, rows):
     n = psum.shape[1]
-    mean = torch.empty(n, dtype=torch.float32, device=psum.device)
+    mean = torch.empty(n, dtype=psum.dtype, device=psum.device)
     var = torch.empty_like(mean)
     _build.launch("dl4j_bottleneck_stats", psum.data_ptr(), psq.data_ptr(),
                   psum.shape[0], n, rows, mean.data_ptr(), var.data_ptr(),
-                  stream)
+                  _X_CODES[psum.dtype], stream)
     return mean, var
 
 
 def _check(x, ws, stride, project):
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise TypeError(f"bottleneck_block takes float32, bfloat16 or "
-                        f"float16 activations on the card, not {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16,
+                       torch.float64):
+        raise TypeError(f"bottleneck_block takes float32, bfloat16, float16 "
+                        f"or float64 activations on the card, not {x.dtype}")
     if x.dim() != 4:
         raise ValueError(f"bottleneck_block takes NHWC x, got {x.shape}")
     cin, f1, f3 = x.shape[3], ws["a"].shape[-1], ws["c"].shape[-1]
     if cin % 4 or f1 % 4 or f3 % 4:
         raise ValueError(f"the kernel takes channel counts that are "
                          f"multiples of 4; got Cin={cin}, F1={f1}, F3={f3}")
+    taken = _W_TAKEN.get(x.dtype, _W_TAKEN_LOW)
     for n, w in ws.items():
-        if w.dtype not in _W_CODES:
-            raise TypeError(f"W_{n}: the kernel takes float32, bfloat16, "
-                            f"float16 or int8 weights, not {w.dtype}")
+        if w.dtype not in taken:
+            raise TypeError(f"W_{n}: a {x.dtype} block takes weights of "
+                            f"{', '.join(map(str, taken))}, not {w.dtype}")
     if not project and (tuple(stride) != (1, 1) or cin != f3):
         raise ValueError("the identity shortcut needs stride 1 and "
                          f"Cin == 4 * filters; got {stride}, Cin={cin}, "
                          f"F3={f3}")
 
 
-# The two forms of the block's convolutions and their codes in the C entry.
-_VARIANTS = {"cuda_cores": 0, "wgmma": 1}
+# The three forms of the block's convolutions and their codes in the C
+# entry: the float64 form is the CUDA-core one, in double.
+_VARIANTS = {"cuda_cores": 0, "wgmma": 1, "f64": 0}
 
 
 def bottleneck_variant(x_dtype, w_dtype, cin: int, f1: int, f3: int) -> str:
-    """Which form of its convolutions a block launches: "wgmma" (bf16 or
-    f16 products on the tensor cores) when x and every W share bf16 or f16
+    """Which form of its convolutions a block launches: "f64" (the
+    CUDA-core kernels in double) for float64 x, "wgmma" (bf16 or f16
+    products on the tensor cores) when x and every W share bf16 or f16
     (`w_dtype` the dtype the W share; None when they differ) and Cin, F1
     and F3 are multiples of 64, else "cuda_cores" (f32 products; f32, int8
     weights, mixed dtypes, other widths). A dispatch by dtype and width, not
     a fallback."""
+    if x_dtype == torch.float64:
+        return "f64"
     wide = cin % 64 == 0 and f1 % 64 == 0 and f3 % 64 == 0
     return ("wgmma" if x_dtype in (torch.bfloat16, torch.float16)
             and w_dtype == x_dtype and wide else "cuda_cores")
@@ -269,13 +292,16 @@ def _kernel_block(x, flat, scales, running, stride, eps, act, train):
     variant = bottleneck_variant(
         x.dtype, w_dtypes.pop() if len(w_dtypes) == 1 else None, x.shape[3],
         ws["a"].shape[-1], ws["c"].shape[-1])
+    # The f32 (f64) vectors the conv prologues and the tail read.
+    vec = _f64 if variant == "f64" else _f32
     stats = []
-    affine = _f32_all([flat[3 * i + j] for i in range(len(names))
-                       for j in (1, 2)])
+    affine = [flat[3 * i + j] for i in range(len(names)) for j in (1, 2)]
+    affine = (list(map(vec, affine)) if variant == "f64"
+              else _f32_all(affine))
 
     def branch(i, inp, ks, strd, pad, pro):
         """Conv i of the block; returns its raw output and its BatchNorm's
-        f32 (mean, var, gamma, beta), the statistics batch or running."""
+        (mean, var, gamma, beta) in f32 (f64), batch or running."""
         n = names[i]
         scale = None if scales is None else _f32(scales[n])
         out, psum, psq = _launch_conv(stream, inp, ws[n], scale, ks, strd,
@@ -286,7 +312,7 @@ def _kernel_block(x, flat, scales, running, stride, eps, act, train):
                                       out.numel() // out.shape[-1])
             stats.extend((mean, var))
         else:
-            mean, var = _f32(running[f"mean_{n}"]), _f32(running[f"var_{n}"])
+            mean, var = vec(running[f"mean_{n}"]), vec(running[f"var_{n}"])
         return out, (mean, var, affine[2 * i], affine[2 * i + 1])
 
     with torch.cuda.device(x.device):
@@ -298,14 +324,16 @@ def _kernel_block(x, flat, scales, running, stride, eps, act, train):
                   else (None, (None,) * 4))
         y = torch.empty(c.shape, dtype=x.dtype, device=x.device)
         _aligned(*nc, *npj)
-        _build.launch("dl4j_bottleneck_tail", c.data_ptr(), *map(_ptr, nc),
-                      _ptr(p), *map(_ptr, npj), x.data_ptr(),
-                      DTYPE_CODES[x.dtype], c.numel() // c.shape[-1],
-                      c.shape[-1], float(eps), act_code, y.data_ptr(), stream)
+        vectors = (c.data_ptr(), *map(_ptr, nc), _ptr(p), *map(_ptr, npj),
+                   x.data_ptr())
+        _build.launch("dl4j_bottleneck_tail", *vectors, _X_CODES[x.dtype],
+                      c.numel() // c.shape[-1], c.shape[-1], float(eps),
+                      act_code, y.data_ptr(), stream)
     name = "bottleneck_train" if train else "bottleneck_infer"
     kernels.launches[name].add()
     kernels.variant_launches[name][variant].add()
     return y, (tuple(stats) if train else None)
+
 
 
 # ---------------------------------------------------------- autograd

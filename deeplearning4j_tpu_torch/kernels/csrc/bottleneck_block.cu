@@ -68,9 +68,23 @@
 //   ceiling is the 67 TFLOP/s f32 rate. Tiles: 64x64 outputs per block of
 //   256 threads, each thread 4x4, K in steps of 16 through shared memory.
 //
-// Batch statistics (train) are single-pass in f32, mean(v) and mean(v^2) -
-// mean^2 with no clamp (:223-226), reduced in two stages with no atomics:
-// each conv block writes the column sums and sums of squares of its 64 rows
+// - The float64 form (a float64 policy's block; f64 x through the same
+//   three entries): `conv_gemm_kernel`, `stats_kernel` and `tail_kernel`
+//   instantiated with double as their accumulation type (`dl4j::acc_t`), so
+//   every value is double, the intermediates that the f32 forms keep in f32
+//   (the raw conv outputs, the partial sums, mean and var) included, and
+//   the block is held to its plain version at 1e-12. The conv keeps its
+//   tiling (64x64 outputs a block, 4x4 a thread, K in steps of 16; 33 KB of
+//   static shared memory in double) on the CUDA cores, with double or int8
+//   weights (int8 dequantized at the load as q * scale in double, as the
+//   reference dequantizes at the compute dtype). Bound: T2's 16 blocks at
+//   f64 are 19.5 GFLOP, 0.29 ms at the 67 TFLOP/s FP64 tensor-core peak,
+//   against ~200 MB (0.06 ms): operations. FP64 tensor-core products are
+//   later work.
+//
+// Batch statistics (train) are single-pass in f32 (double in the float64
+// form), mean(v) and mean(v^2) - mean^2 with no clamp (:223-226), reduced
+// in two stages with no atomics: each conv block writes the column sums and sums of squares of its 64 rows
 // into its own slot of a [row blocks, F] scratch, then `stats_kernel` sums
 // the slots of each column in order. Repeated runs are bitwise equal.
 
@@ -109,11 +123,24 @@ __device__ __forceinline__ void load4(const __half* p, float (&v)[4]) {
   for (int j = 0; j < 4; ++j) v[j] = __half2float(e[j]);
 }
 
-__device__ __forceinline__ void load4(const int8_t* p, float (&v)[4]) {
+template <typename A>
+__device__ __forceinline__ void load4(const int8_t* p, A (&v)[4]) {
   const int r = *reinterpret_cast<const int*>(p);
   const int8_t* e = reinterpret_cast<const int8_t*>(&r);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = static_cast<float>(e[j]);
+  for (int j = 0; j < 4; ++j) v[j] = static_cast<A>(e[j]);
+}
+
+// The float64 form's loads: its own values, and the f32 int8 scale widened.
+__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+__device__ __forceinline__ void load4(const float* p, double (&v)[4]) {
+  const float4 r = *reinterpret_cast<const float4*>(p);
+  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
 }
 
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
@@ -136,46 +163,64 @@ __device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = r;
 }
 
+__device__ __forceinline__ void store4(double* p, const double (&v)[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
 // The TPU body's `_in_kernel_norm`: (v - mean) / sqrt(var + eps), then
-// gamma * . + beta, then the activation; all f32.
-__device__ __forceinline__ void norm4(float (&v)[4], const float* mean,
-                                      const float* var, const float* gamma,
-                                      const float* beta, float eps, int act) {
-  float m[4], s[4], g[4], b[4];
+// gamma * . + beta, then the activation; all in A (f32, or double in the
+// float64 form).
+template <typename A>
+__device__ __forceinline__ void norm4(A (&v)[4], const A* mean, const A* var,
+                                      const A* gamma, const A* beta, A eps,
+                                      int act) {
+  A m[4], s[4], g[4], b[4];
   load4(mean, m);
   load4(var, s);
   load4(gamma, g);
   load4(beta, b);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    v[j] = dl4j::activate(g[j] * ((v[j] - m[j]) / sqrtf(s[j] + eps)) + b[j],
-                          act);
+    v[j] = dl4j::activate(
+        g[j] * ((v[j] - m[j]) / dl4j::root(s[j] + eps)) + b[j], act);
 }
 
-struct ConvParams {
+// One conv's operands; A is the type of its raw output, partial sums and
+// BatchNorm vectors: f32, or double in the float64 form.
+template <typename A>
+struct ConvT {
   const void* in;  // NHWC [B, H, W, C]
   int B, H, W, C, Ho, Wo, ks, sh, sw, pad;
   // Prologue: the previous branch's BatchNorm + act on each loaded input
-  // channel (f32 [C] vectors; pm == nullptr: none).
-  const float* pm;
-  const float* pv;
-  const float* pg;
-  const float* pb;
+  // channel ([C] vectors; pm == nullptr: none).
+  const A* pm;
+  const A* pv;
+  const A* pg;
+  const A* pb;
   int pact;
-  float eps;
+  A eps;
   const void* w;        // [K, N], K = ks * ks * C
   const float* wscale;  // [N] int8 dequant scale, or nullptr
   int N, M, K;
-  float* out;   // [M, N]
-  float* psum;  // [ceil(M / kBM), N] column sums per row block, or nullptr
-  float* psq;   // the same for the squares
+  A* out;   // [M, N]
+  A* psum;  // [ceil(M / kBM), N] column sums per row block, or nullptr
+  A* psq;   // the same for the squares
 };
+using ConvParams = ConvT<float>;
 
+// The CUDA-core conv, accumulating in A = acc_t<TIn>: f32 for f32, bf16
+// and f16 x, double for double x (the float64 form, whose shared tiles are
+// then 33 KB). Each tile row is padded by 16 bytes (kPad elements): the
+// 4 k-rows a warp stores to at once then fall on 2 bank groups, not 1.
 template <typename TIn, typename TW>
-__global__ void __launch_bounds__(kThreads) conv_gemm_kernel(const ConvParams p) {
-  __shared__ __align__(16) float As[kBK][kBM + 4];  // A transposed: [k][m]
-  __shared__ __align__(16) float Bs[kBK][kBN + 4];
-  __shared__ float red[2][kThreads / 16][kBN];
+__global__ void __launch_bounds__(kThreads)
+conv_gemm_kernel(const ConvT<dl4j::acc_t<TIn>> p) {
+  using A = dl4j::acc_t<TIn>;
+  constexpr int kPad = 16 / static_cast<int>(sizeof(A));
+  __shared__ __align__(16) A As[kBK][kBM + kPad];  // A transposed: [k][m]
+  __shared__ __align__(16) A Bs[kBK][kBN + kPad];
+  __shared__ A red[2][kThreads / 16][kBN];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -198,14 +243,14 @@ __global__ void __launch_bounds__(kThreads) conv_gemm_kernel(const ConvParams p)
   const int b_k = tid / 16, b_n = (tid % 16) * 4;
   const int bn = n0 + b_n;
 
-  float acc[4][4];
+  A acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = A(0);
 
   for (int k0 = 0; k0 < p.K; k0 += kBK) {
-    float av[4] = {0.f, 0.f, 0.f, 0.f};
+    A av[4] = {A(0), A(0), A(0), A(0)};
     const int k = k0 + a_k;
     if (a_ok && k < p.K) {
       // C % 4 == 0, so a 4-channel group never straddles two taps.
@@ -219,12 +264,12 @@ __global__ void __launch_bounds__(kThreads) conv_gemm_kernel(const ConvParams p)
           norm4(av, p.pm + ci, p.pv + ci, p.pg + ci, p.pb + ci, p.eps, p.pact);
       }  // else: the SAME zero padding of the normalized activation
     }
-    float bv[4] = {0.f, 0.f, 0.f, 0.f};
+    A bv[4] = {A(0), A(0), A(0), A(0)};
     const int kb = k0 + b_k;
     if (kb < p.K && bn < p.N) {
       load4(w + static_cast<size_t>(kb) * p.N + bn, bv);
       if (p.wscale != nullptr) {
-        float s[4];
+        A s[4];
         load4(p.wscale + bn, s);
 #pragma unroll
         for (int j = 0; j < 4; ++j) bv[j] *= s[j];
@@ -237,18 +282,19 @@ __global__ void __launch_bounds__(kThreads) conv_gemm_kernel(const ConvParams p)
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], b[4];
+      A a[4], b[4];
       load4(&As[kk][ty * 4], a);
       load4(&Bs[kk][tx * 4], b);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = dl4j::fmadd(a[i], b[j], acc[i][j]);
     }
   }
 
   const int n = n0 + tx * 4;
-  float cs[4] = {0.f, 0.f, 0.f, 0.f}, cq[4] = {0.f, 0.f, 0.f, 0.f};
+  A cs[4] = {A(0), A(0), A(0), A(0)}, cq[4] = {A(0), A(0), A(0), A(0)};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
@@ -269,7 +315,7 @@ __global__ void __launch_bounds__(kThreads) conv_gemm_kernel(const ConvParams p)
     }
     __syncthreads();
     if (tid < kBN && n0 + tid < p.N) {
-      float s = 0.f, q = 0.f;
+      A s = A(0), q = A(0);
 #pragma unroll
       for (int t = 0; t < kThreads / 16; ++t) {  // in order: deterministic
         s += red[0][t][tid];
@@ -562,50 +608,55 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tw, const ConvParams p) {
 }
 
 // Second stage of the batch statistics: one thread per channel sums its
-// row-block slots in order; mean = sum / M, var = sumsq / M - mean^2.
-__global__ void stats_kernel(const float* __restrict__ psum,
-                             const float* __restrict__ psq, int rblocks,
-                             int n_ch, int rows, float* __restrict__ mean,
-                             float* __restrict__ var) {
+// row-block slots in order; mean = sum / M, var = sumsq / M - mean^2; in A.
+template <typename A>
+__global__ void stats_kernel(const A* __restrict__ psum,
+                             const A* __restrict__ psq, int rblocks,
+                             int n_ch, int rows, A* __restrict__ mean,
+                             A* __restrict__ var) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= n_ch) return;
-  float s = 0.f, q = 0.f;
+  A s = A(0), q = A(0);
   for (int r = 0; r < rblocks; ++r) {
     s += psum[static_cast<size_t>(r) * n_ch + n];
     q += psq[static_cast<size_t>(r) * n_ch + n];
   }
-  const float mu = s / static_cast<float>(rows);
+  const A mu = s / static_cast<A>(rows);
   mean[n] = mu;
-  var[n] = q / static_cast<float>(rows) - mu * mu;
+  var[n] = q / static_cast<A>(rows) - mu * mu;
 }
 
-struct TailParams {
-  const float* c;  // [M, N] raw conv c
-  const float* mc;
-  const float* vc;
-  const float* gc;
-  const float* bc;
-  const float* p;  // [M, N] raw projection conv, or nullptr: x is the shortcut
-  const float* mp;
-  const float* vp;
-  const float* gp;
-  const float* bp;
+template <typename A>
+struct TailT {
+  const A* c;  // [M, N] raw conv c
+  const A* mc;
+  const A* vc;
+  const A* gc;
+  const A* bc;
+  const A* p;  // [M, N] raw projection conv, or nullptr: x is the shortcut
+  const A* mp;
+  const A* vp;
+  const A* gp;
+  const A* bp;
   const void* x;  // [M, N] at TX (identity shortcut)
   void* y;        // [M, N] at TX
   size_t n_vec;   // M * N / 4
   int N;
-  float eps;
+  A eps;
   int act;
 };
 
-// y = act(BN_c(c) + shortcut), shortcut = x or BN_proj(p); BN without act.
+// y = act(BN_c(c) + shortcut), shortcut = x or BN_proj(p); BN without act;
+// in A = acc_t<TX>.
 template <typename TX>
-__global__ void __launch_bounds__(kThreads) tail_kernel(const TailParams t) {
+__global__ void __launch_bounds__(kThreads)
+tail_kernel(const TailT<dl4j::acc_t<TX>> t) {
+  using A = dl4j::acc_t<TX>;
   for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < t.n_vec; i += static_cast<size_t>(gridDim.x) * kThreads) {
     const size_t e = i * 4;
     const int n = static_cast<int>(e % t.N);
-    float c[4], s[4];
+    A c[4], s[4];
     load4(t.c + e, c);
     norm4(c, t.mc + n, t.vc + n, t.gc + n, t.bc + n, t.eps, dl4j::kIdentity);
     if (t.p != nullptr) {
@@ -621,19 +672,94 @@ __global__ void __launch_bounds__(kThreads) tail_kernel(const TailParams t) {
 }
 
 template <typename TIn, typename TW>
-int run_conv(const ConvParams& p, cudaStream_t stream) {
+int run_conv(const ConvT<dl4j::acc_t<TIn>>& p, cudaStream_t stream) {
   const dim3 grid((p.M + kBM - 1) / kBM, (p.N + kBN - 1) / kBN);
   conv_gemm_kernel<TIn, TW><<<grid, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The CUDA-core form's weights: f32, bf16, f16 or int8 under f32, bf16 or
+// f16 x; f64 or int8 under f64 x.
 template <typename TIn>
-int run_conv_w(const ConvParams& p, int w_dtype, cudaStream_t stream) {
-  if (w_dtype == dl4j::kFloat32) return run_conv<TIn, float>(p, stream);
-  if (w_dtype == dl4j::kBFloat16) return run_conv<TIn, __nv_bfloat16>(p, stream);
-  if (w_dtype == dl4j::kFloat16) return run_conv<TIn, __half>(p, stream);
+int run_conv_w(const ConvT<dl4j::acc_t<TIn>>& p, int w_dtype,
+               cudaStream_t stream) {
+  if constexpr (std::is_same<TIn, double>::value) {
+    if (w_dtype == dl4j::kFloat64) return run_conv<TIn, double>(p, stream);
+  } else {
+    if (w_dtype == dl4j::kFloat32) return run_conv<TIn, float>(p, stream);
+    if (w_dtype == dl4j::kBFloat16)
+      return run_conv<TIn, __nv_bfloat16>(p, stream);
+    if (w_dtype == dl4j::kFloat16) return run_conv<TIn, __half>(p, stream);
+  }
   if (w_dtype == dl4j::kInt8) return run_conv<TIn, int8_t>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename A>
+ConvT<A> conv_params(const void* in, int B, int H, int W, int C, int Ho,
+                     int Wo, int ks, int sh, int sw, int pad,
+                     const void* pro_mean, const void* pro_var,
+                     const void* pro_gamma, const void* pro_beta, int pro_act,
+                     double eps, const void* w, const void* wscale, int N,
+                     void* out, void* psum, void* psq) {
+  ConvT<A> p;
+  p.in = in;
+  p.B = B; p.H = H; p.W = W; p.C = C; p.Ho = Ho; p.Wo = Wo;
+  p.ks = ks; p.sh = sh; p.sw = sw; p.pad = pad;
+  p.pm = static_cast<const A*>(pro_mean);
+  p.pv = static_cast<const A*>(pro_var);
+  p.pg = static_cast<const A*>(pro_gamma);
+  p.pb = static_cast<const A*>(pro_beta);
+  p.pact = pro_act;
+  p.eps = static_cast<A>(eps);
+  p.w = w;
+  p.wscale = static_cast<const float*>(wscale);
+  p.N = N;
+  p.M = B * Ho * Wo;
+  p.K = ks * ks * C;
+  p.out = static_cast<A*>(out);
+  p.psum = static_cast<A*>(psum);
+  p.psq = static_cast<A*>(psq);
+  return p;
+}
+
+template <typename A>
+int run_stats(const void* psum, const void* psq, int rblocks, int n_ch,
+              int rows, void* mean, void* var, cudaStream_t stream) {
+  stats_kernel<A><<<(n_ch + 255) / 256, 256, 0, stream>>>(
+      static_cast<const A*>(psum), static_cast<const A*>(psq), rblocks, n_ch,
+      rows, static_cast<A*>(mean), static_cast<A*>(var));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TX>
+int run_tail(const void* c, const void* mc, const void* vc, const void* gc,
+             const void* bc, const void* p, const void* mp, const void* vp,
+             const void* gp, const void* bp, const void* x, int M, int N,
+             double eps, int act, void* y, cudaStream_t stream) {
+  using A = dl4j::acc_t<TX>;
+  TailT<A> t;
+  t.c = static_cast<const A*>(c);
+  t.mc = static_cast<const A*>(mc);
+  t.vc = static_cast<const A*>(vc);
+  t.gc = static_cast<const A*>(gc);
+  t.bc = static_cast<const A*>(bc);
+  t.p = static_cast<const A*>(p);
+  t.mp = static_cast<const A*>(mp);
+  t.vp = static_cast<const A*>(vp);
+  t.gp = static_cast<const A*>(gp);
+  t.bp = static_cast<const A*>(bp);
+  t.x = x;
+  t.y = y;
+  t.n_vec = static_cast<size_t>(M) * N / 4;
+  t.N = N;
+  t.eps = static_cast<A>(eps);
+  t.act = act;
+  if (t.n_vec == 0) return 0;
+  const size_t want = (t.n_vec + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  tail_kernel<TX><<<grid, kThreads, 0, stream>>>(t);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // A 2-D map over W [K, N] in E (bf16 or f16; row pitch N * 2 bytes): boxes
@@ -744,38 +870,32 @@ int run_wgmma(const ConvParams& p, int in_dtype, int w_dtype,
 }  // namespace
 
 // One implicit-GEMM convolution of the block (see the header). `in`: NHWC
-// [B, H, W, C] of `in_dtype` (f32, bf16 or f16); `w`: [ks*ks*C, N] of
-// `w_dtype` (f32, bf16, f16, or int8 with `wscale` [N] f32); `out`: [B*Ho*Wo, N] f32;
-// pro_*: f32 [C] or all null; psum/psq: f32 [ceil(M/64), N] or null. C and N
-// multiples of 4, every pointer 16-byte aligned (checked by the wrapper).
-// `variant` 1: the tensor-core form (`run_wgmma` says what it takes); 0: the
-// CUDA-core form; anything else is refused.
+// [B, H, W, C] of `in_dtype` (f32, bf16, f16 or f64); `w`: [ks*ks*C, N] of
+// `w_dtype` (f32, bf16, f16, or int8 with `wscale` [N] f32; under f64 x,
+// f64 or int8); `out`: [B*Ho*Wo, N], pro_*: [C] or all null, psum/psq:
+// [ceil(M/64), N] or null, all f32 (f64 under f64 x). C and N multiples of
+// 4, every pointer 16-byte aligned (checked by the wrapper). `variant` 1:
+// the tensor-core form (`run_wgmma` says what it takes); 0: the CUDA-core
+// form, the only one for f64 x; anything else is refused.
 extern "C" int dl4j_bottleneck_conv(
     const void* in, int in_dtype, int B, int H, int W, int C, int Ho, int Wo,
     int ks, int sh, int sw, int pad, const void* pro_mean, const void* pro_var,
-    const void* pro_gamma, const void* pro_beta, int pro_act, float eps,
+    const void* pro_gamma, const void* pro_beta, int pro_act, double eps,
     const void* w, int w_dtype, const void* wscale, int N, void* out,
     void* psum, void* psq, int variant, void* stream) {
-  ConvParams p;
-  p.in = in;
-  p.B = B; p.H = H; p.W = W; p.C = C; p.Ho = Ho; p.Wo = Wo;
-  p.ks = ks; p.sh = sh; p.sw = sw; p.pad = pad;
-  p.pm = static_cast<const float*>(pro_mean);
-  p.pv = static_cast<const float*>(pro_var);
-  p.pg = static_cast<const float*>(pro_gamma);
-  p.pb = static_cast<const float*>(pro_beta);
-  p.pact = pro_act;
-  p.eps = eps;
-  p.w = w;
-  p.wscale = static_cast<const float*>(wscale);
-  p.N = N;
-  p.M = B * Ho * Wo;
-  p.K = ks * ks * C;
-  p.out = static_cast<float*>(out);
-  p.psum = static_cast<float*>(psum);
-  p.psq = static_cast<float*>(psq);
-  if (p.M <= 0 || N <= 0) return 0;
+  if (B * Ho * Wo <= 0 || N <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == dl4j::kFloat64) {
+    if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return run_conv_w<double>(
+        conv_params<double>(in, B, H, W, C, Ho, Wo, ks, sh, sw, pad, pro_mean,
+                            pro_var, pro_gamma, pro_beta, pro_act, eps, w,
+                            wscale, N, out, psum, psq),
+        w_dtype, s);
+  }
+  const ConvParams p = conv_params<float>(
+      in, B, H, W, C, Ho, Wo, ks, sh, sw, pad, pro_mean, pro_var, pro_gamma,
+      pro_beta, pro_act, eps, w, wscale, N, out, psum, psq);
   if (variant == 1) return run_wgmma(p, in_dtype, w_dtype, s);
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (in_dtype == dl4j::kFloat32) return run_conv_w<float>(p, w_dtype, s);
@@ -785,53 +905,41 @@ extern "C" int dl4j_bottleneck_conv(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// psum, psq: f32 [rblocks, n_ch] from dl4j_bottleneck_conv; mean, var: f32
-// [n_ch].
+// psum, psq: [rblocks, n_ch] from dl4j_bottleneck_conv; mean, var: [n_ch];
+// all of `dtype`, f32 or f64.
 extern "C" int dl4j_bottleneck_stats(const void* psum, const void* psq,
                                      int rblocks, int n_ch, int rows,
-                                     void* mean, void* var, void* stream) {
+                                     void* mean, void* var, int dtype,
+                                     void* stream) {
   if (n_ch <= 0) return 0;
-  stats_kernel<<<(n_ch + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(psum), static_cast<const float*>(psq), rblocks,
-      n_ch, rows, static_cast<float*>(mean), static_cast<float*>(var));
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == dl4j::kFloat32)
+    return run_stats<float>(psum, psq, rblocks, n_ch, rows, mean, var, s);
+  if (dtype == dl4j::kFloat64)
+    return run_stats<double>(psum, psq, rblocks, n_ch, rows, mean, var, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// c, p: f32 [M, N] (p null: the identity shortcut x, [M, N] of x_dtype); the
-// eight BatchNorm vectors f32 [N]; y: [M, N] of x_dtype. N a multiple of 4.
+// c, p: [M, N] (p null: the identity shortcut x, [M, N] of x_dtype); the
+// eight BatchNorm vectors [N]; y: [M, N] of x_dtype; c, p and the vectors
+// f32, or f64 when x is. N a multiple of 4.
 extern "C" int dl4j_bottleneck_tail(
     const void* c, const void* mc, const void* vc, const void* gc,
     const void* bc, const void* p, const void* mp, const void* vp,
     const void* gp, const void* bp, const void* x, int x_dtype, int M, int N,
-    float eps, int act, void* y, void* stream) {
-  TailParams t;
-  t.c = static_cast<const float*>(c);
-  t.mc = static_cast<const float*>(mc);
-  t.vc = static_cast<const float*>(vc);
-  t.gc = static_cast<const float*>(gc);
-  t.bc = static_cast<const float*>(bc);
-  t.p = static_cast<const float*>(p);
-  t.mp = static_cast<const float*>(mp);
-  t.vp = static_cast<const float*>(vp);
-  t.gp = static_cast<const float*>(gp);
-  t.bp = static_cast<const float*>(bp);
-  t.x = x;
-  t.y = y;
-  t.n_vec = static_cast<size_t>(M) * N / 4;
-  t.N = N;
-  t.eps = eps;
-  t.act = act;
-  if (t.n_vec == 0) return 0;
-  const size_t want = (t.n_vec + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+    double eps, int act, void* y, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == dl4j::kFloat32)
-    tail_kernel<float><<<grid, kThreads, 0, s>>>(t);
-  else if (x_dtype == dl4j::kBFloat16)
-    tail_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(t);
-  else if (x_dtype == dl4j::kFloat16)
-    tail_kernel<__half><<<grid, kThreads, 0, s>>>(t);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return run_tail<float>(c, mc, vc, gc, bc, p, mp, vp, gp, bp, x, M, N, eps,
+                           act, y, s);
+  if (x_dtype == dl4j::kBFloat16)
+    return run_tail<__nv_bfloat16>(c, mc, vc, gc, bc, p, mp, vp, gp, bp, x, M,
+                                   N, eps, act, y, s);
+  if (x_dtype == dl4j::kFloat16)
+    return run_tail<__half>(c, mc, vc, gc, bc, p, mp, vp, gp, bp, x, M, N,
+                            eps, act, y, s);
+  if (x_dtype == dl4j::kFloat64)
+    return run_tail<double>(c, mc, vc, gc, bc, p, mp, vp, gp, bp, x, M, N,
+                            eps, act, y, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

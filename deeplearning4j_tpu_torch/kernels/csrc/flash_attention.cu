@@ -25,6 +25,17 @@
 // `.f32.f16.f16` products of the same m64nNk16 shapes, p in [0, 1] rounded
 // to f16), the CUDA-core kernel at `__half`.
 //
+// f64 (the float64 policy and the gradient checks) is the CUDA-core kernel
+// instantiated at double: its accumulation type (`dl4j::acc_t`) is double,
+// so the K/V tiles in shared memory, q, the softmax statistics, exp and log,
+// the accumulator and the lse are all double, and the scale arrives as a
+// double. Its tiles take 64 KB (D = 64) or 128 KB (D = 128) of dynamic
+// shared memory. Bound at the f64 LM's training step ([16, 1024, 8, 64],
+// causal): ~1.7e10 FLOP over the 67 TFLOP/s FP64 tensor-core peak is
+// 0.26 ms, against 67 MB of q, k, v, o (0.02 ms): operations. The CUDA
+// cores' f64 rate is half that peak; FP64 tensor-core products (mma.sync
+// m8n8k4) are later work.
+//
 // Design: two forms of the same math, picked by the wrapper by dtype and
 // head width alone (kernels/flash_attention.py `resident_variant`):
 // - bf16 at D = 64 or 128, every main path's case: row 4's tensor-core
@@ -71,12 +82,13 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kBQ * G)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int seq, int heads, int dim,
-                 int causal, float scale) {
+                 dl4j::acc_t<T>* __restrict__ lse, int seq, int heads,
+                 int dim, int causal, dl4j::acc_t<T> scale) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;  // padded head width in shared memory
-  extern __shared__ float smem[];
-  float* ks = smem;             // [kBK][DP]
-  float* vs = smem + kBK * DP;  // [kBK][DP]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  A* ks = reinterpret_cast<A*>(smem_raw);  // [kBK][DP]
+  A* vs = ks + kBK * DP;                   // [kBK][DP]
 
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y % heads;
@@ -88,16 +100,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = static_cast<size_t>(b) * seq * stride +
                       static_cast<size_t>(h) * dim;
 
-  float qr[kDPT], acc[kDPT];
+  A qr[kDPT], acc[kDPT];
 #pragma unroll
   for (int i = 0; i < kDPT; ++i) {
     const int d = g + G * i;
     qr[i] = (qpos < seq && d < dim)
-                ? dl4j::to_f32(q[base + qpos * stride + d]) * scale
-                : 0.f;
-    acc[i] = 0.f;
+                ? dl4j::to_acc(q[base + qpos * stride + d]) * scale
+                : A(0);
+    acc[i] = A(0);
   }
-  float m = dl4j::kNeg, l = 0.f;
+  A m = dl4j::neg<A>(), l = A(0);
 
   const int q_last = min(q0 + kBQ, seq) - 1;
   const int k_end = causal ? q_last + 1 : seq;  // keys [0, k_end) matter
@@ -106,11 +118,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBK * DP; e += kBQ * G) {
       const int j = e / DP, d = e % DP;
       const int kp = k0 + j;
-      float kv = 0.f, vv = 0.f;
+      A kv = A(0), vv = A(0);
       if (kp < seq && d < dim) {
         const size_t off = base + kp * stride + d;
-        kv = dl4j::to_f32(k[off]);
-        vv = dl4j::to_f32(v[off]);
+        kv = dl4j::to_acc(k[off]);
+        vv = dl4j::to_acc(v[off]);
       }
       ks[e] = kv;
       vs[e] = vv;
@@ -118,31 +130,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const int jn = min(kBK, k_end - k0);
     for (int c = 0; c < jn; c += kChunk) {
-      float s[kChunk];
-      float mx = dl4j::kNeg;
+      A s[kChunk];
+      A mx = dl4j::neg<A>();
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) {
-        const float* kr = ks + (c + jj) * DP + g;
-        float part = 0.f;
+        const A* kr = ks + (c + jj) * DP + g;
+        A part = A(0);
 #pragma unroll
         for (int i = 0; i < kDPT; ++i) part += qr[i] * kr[G * i];
 #pragma unroll
         for (int off = G / 2; off > 0; off >>= 1)
           part += __shfl_xor_sync(0xffffffffu, part, off);
         const int kp = k0 + c + jj;
-        if (kp >= seq || (causal && kp > qpos)) part = dl4j::kNeg;
+        if (kp >= seq || (causal && kp > qpos)) part = dl4j::neg<A>();
         s[jj] = part;
-        mx = fmaxf(mx, part);
+        mx = dl4j::fmx(mx, part);
       }
-      const float m_new = fmaxf(m, mx);
-      const float corr = expf(m - m_new);
+      const A m_new = dl4j::fmx(m, mx);
+      const A corr = dl4j::ex(m - m_new);
       l *= corr;
 #pragma unroll
       for (int i = 0; i < kDPT; ++i) acc[i] *= corr;
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) {
-        const float p = expf(s[jj] - m_new);
-        const float* vr = vs + (c + jj) * DP + g;
+        const A p = dl4j::ex(s[jj] - m_new);
+        const A* vr = vs + (c + jj) * DP + g;
         l += p;
 #pragma unroll
         for (int i = 0; i < kDPT; ++i) acc[i] += p * vr[G * i];
@@ -152,24 +164,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (qpos < seq) {
-    const float lc = fmaxf(l, 1e-30f);
+    const A lc = dl4j::fmx(l, dl4j::tiny<A>());
 #pragma unroll
     for (int i = 0; i < kDPT; ++i) {
       const int d = g + G * i;
-      if (d < dim) o[base + qpos * stride + d] = dl4j::from_f32<T>(acc[i] / lc);
+      if (d < dim)
+        o[base + qpos * stride + d] = dl4j::from_acc<T>(acc[i] / lc);
     }
     // lse rows are [B*H, T]: blockIdx.y is b * heads + h.
     if (lse != nullptr && g == 0)
-      lse[static_cast<size_t>(blockIdx.y) * seq + qpos] = m + logf(lc);
+      lse[static_cast<size_t>(blockIdx.y) * seq + qpos] = m + dl4j::lg(lc);
   }
 }
 
 template <typename T, int G>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int batch, int seq, int heads, int dim, int causal, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int batch, int seq, int heads, int dim, int causal, double scale,
            cudaStream_t stream) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
-  const int smem = 2 * kBK * DP * static_cast<int>(sizeof(float));
+  const int smem = 2 * kBK * DP * static_cast<int>(sizeof(A));
   auto kernel = flash_fwd_kernel<T, G>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -179,14 +193,14 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((seq + kBQ - 1) / kBQ, batch * heads);
   kernel<<<grid, kBQ * G, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, seq, heads, dim,
-      causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<A*>(lse),
+      seq, heads, dim, causal, static_cast<A>(scale));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-             int batch, int seq, int heads, int dim, int causal, float scale,
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
+             int batch, int seq, int heads, int dim, int causal, double scale,
              cudaStream_t s) {
   if (dim <= 16) return launch<T, 1>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
   if (dim <= 32) return launch<T, 2>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
@@ -195,13 +209,15 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int run(const void* q, const void* k, const void* v, void* o, float* lse,
-        int batch, int seq, int heads, int dim, int causal, float scale,
+int run(const void* q, const void* k, const void* v, void* o, void* lse,
+        int batch, int seq, int heads, int dim, int causal, double scale,
         int dtype, int variant, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
   if (variant == 1)
-    return dl4j::flash::rows_fwd_wgmma(q, k, v, o, lse, batch, seq, heads,
-                                       dim, causal, scale, dtype, stream);
+    return dl4j::flash::rows_fwd_wgmma(q, k, v, o, static_cast<float*>(lse),
+                                       batch, seq, heads, dim, causal,
+                                       static_cast<float>(scale), dtype,
+                                       stream);
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dl4j::kFloat32)
@@ -210,6 +226,8 @@ int run(const void* q, const void* k, const void* v, void* o, float* lse,
     return dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
   if (dtype == dl4j::kFloat16)
     return dispatch<__half>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
+  if (dtype == dl4j::kFloat64)
+    return dispatch<double>(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -218,24 +236,26 @@ int run(const void* q, const void* k, const void* v, void* o, float* lse,
 // q, k, v, o: [batch, seq, heads, dim] contiguous, all of `dtype`; dim <= 128.
 // `variant`: 1 launches the tensor-core form (bf16 or f16, dim 64 or 128,
 // q/k/v 16-byte aligned; any other input is refused, never rerouted), 0 the
-// CUDA-core kernel (f32, bf16, f16).
+// CUDA-core kernel (f32, bf16, f16, and f64 in double throughout). `scale`
+// is a double, rounded to f32 for every form but the f64 one.
 extern "C" int dl4j_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, int batch,
                                         int seq, int heads, int dim,
-                                        int causal, float scale, int dtype,
+                                        int causal, double scale, int dtype,
                                         int variant, void* stream) {
   return run(q, k, v, o, nullptr, batch, seq, heads, dim, causal, scale,
              dtype, variant, stream);
 }
 
-// As above, plus lse: [batch, heads, seq] float32, m + log(l) of each row's
-// scaled scores (the softmax normalizer the backward recomputes p from).
+// As above, plus lse: [batch, heads, seq], m + log(l) of each row's scaled
+// scores (the softmax normalizer the backward recomputes p from): float32,
+// float64 for the f64 form.
 extern "C" int dl4j_flash_attention_fwd_lse(const void* q, const void* k,
                                             const void* v, void* o, void* lse,
                                             int batch, int seq, int heads,
-                                            int dim, int causal, float scale,
+                                            int dim, int causal, double scale,
                                             int dtype, int variant,
                                             void* stream) {
-  return run(q, k, v, o, static_cast<float*>(lse), batch, seq, heads, dim,
-             causal, scale, dtype, variant, stream);
+  return run(q, k, v, o, lse, batch, seq, heads, dim, causal, scale, dtype,
+             variant, stream);
 }

@@ -61,6 +61,14 @@
 // largest, where bf16's tiles keep 8 at any magnitude; dS staying in f32 on
 // the CUDA cores instead would give up the tensor cores for the ds products.
 //
+// f64 runs the CUDA-core kernels instantiated at double: the staged tiles,
+// the registers, lse and D (float64 [B, H, T], as the f64 forward writes
+// lse) and the scale are double (`dl4j::acc_t`), so the recomputed p and
+// every sum carry double rounding only. The dk/dv tiles then take 66.5 KB
+// of dynamic shared memory at D = 64. Bound at [16, 1024, 8, 64] causal:
+// dq and dk/dv do 7 products of T^2 * D over the causal half, ~6e10 FLOP,
+// 0.9 ms at the 67 TFLOP/s FP64 tensor-core peak: operations.
+//
 // In both, each output element is owned by one thread and written once: no
 // atomics, so runs are deterministic. Sums are f32; dq, dk and dv are
 // rounded to the input dtype once, at the store. Any T is taken (the ragged
@@ -75,8 +83,8 @@ constexpr int kBR = 64;     // rows (queries or keys) per block
 constexpr int kBT = 64;     // rows per streamed shared-memory tile
 constexpr int kDPT = 16;    // head dims per thread
 
-template <int G>
-__device__ __forceinline__ float row_sum(float part) {
+template <int G, typename A>
+__device__ __forceinline__ A row_sum(A part) {
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1)
     part += __shfl_xor_sync(0xffffffffu, part, off);
@@ -86,59 +94,64 @@ __device__ __forceinline__ float row_sum(float part) {
 template <typename T, int G>
 __device__ __forceinline__ void load_row(const T* __restrict__ src, size_t off,
                                          bool valid, int g, int dim,
-                                         float (&r)[kDPT]) {
+                                         dl4j::acc_t<T> (&r)[kDPT]) {
+  using A = dl4j::acc_t<T>;
 #pragma unroll
   for (int i = 0; i < kDPT; ++i) {
     const int d = g + G * i;
-    r[i] = (valid && d < dim) ? dl4j::to_f32(src[off + d]) : 0.f;
+    r[i] = (valid && d < dim) ? dl4j::to_acc(src[off + d]) : A(0);
   }
 }
 
 template <typename T, int G>
 __device__ __forceinline__ void store_row(T* __restrict__ dst, size_t off,
-                                          int g, int dim, float mul,
-                                          const float (&r)[kDPT]) {
+                                          int g, int dim, dl4j::acc_t<T> mul,
+                                          const dl4j::acc_t<T> (&r)[kDPT]) {
 #pragma unroll
   for (int i = 0; i < kDPT; ++i) {
     const int d = g + G * i;
-    if (d < dim) dst[off + d] = dl4j::from_f32<T>(r[i] * mul);
+    if (d < dim) dst[off + d] = dl4j::from_acc<T>(r[i] * mul);
   }
 }
 
-// Stage rows [r0, r0 + kBT) of two [B, T, H, D] tensors into shared memory
-// as f32 ([kBT][DP] each), zero past `seq` and past `dim`.
 template <typename T, int G>
 __device__ __forceinline__ void stage_tile(const T* __restrict__ a,
                                            const T* __restrict__ b,
-                                           float* as, float* bs, size_t base,
+                                           dl4j::acc_t<T>* as,
+                                           dl4j::acc_t<T>* bs, size_t base,
                                            size_t stride, int r0, int seq,
                                            int dim) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
   for (int e = threadIdx.x; e < kBT * DP; e += kBR * G) {
     const int j = e / DP, d = e % DP;
     const int r = r0 + j;
-    float av = 0.f, bv = 0.f;
+    A av = A(0), bv = A(0);
     if (r < seq && d < dim) {
       const size_t off = base + r * stride + d;
-      av = dl4j::to_f32(a[off]);
-      bv = dl4j::to_f32(b[off]);
+      av = dl4j::to_acc(a[off]);
+      bv = dl4j::to_acc(b[off]);
     }
     as[e] = av;
     bs[e] = bv;
   }
 }
 
+// Both kernels: A = dl4j::acc_t<T> (f32, double for the f64 form) for the
+// staged tiles, the registers, lse, D and the scale.
 template <typename T, int G>
 __global__ void __launch_bounds__(kBR * G)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ drow, T* __restrict__ dq,
-                    int seq, int heads, int dim, int causal, float scale) {
+                    const dl4j::acc_t<T>* __restrict__ lse,
+                    const dl4j::acc_t<T>* __restrict__ drow,
+                    T* __restrict__ dq, int seq, int heads, int dim,
+                    int causal, dl4j::acc_t<T> scale) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
-  extern __shared__ float smem[];
-  float* ks = smem;             // [kBT][DP]
-  float* vs = smem + kBT * DP;  // [kBT][DP]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  A* ks = reinterpret_cast<A*>(smem_raw);  // [kBT][DP]
+  A* vs = ks + kBT * DP;                   // [kBT][DP]
 
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y % heads;
@@ -151,14 +164,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       static_cast<size_t>(h) * dim;
   const size_t row = base + static_cast<size_t>(qpos) * stride;
 
-  float qr[kDPT], dor[kDPT], acc[kDPT];
+  A qr[kDPT], dor[kDPT], acc[kDPT];
   load_row<T, G>(q, row, valid, g, dim, qr);
   load_row<T, G>(dout, row, valid, g, dim, dor);
 #pragma unroll
-  for (int i = 0; i < kDPT; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDPT; ++i) acc[i] = A(0);
   const size_t srow = static_cast<size_t>(blockIdx.y) * seq + qpos;
-  const float l = valid ? lse[srow] : 0.f;
-  const float dr = valid ? drow[srow] : 0.f;
+  const A l = valid ? lse[srow] : A(0);
+  const A dr = valid ? drow[srow] : A(0);
 
   const int q_last = min(q0 + kBR, seq) - 1;
   const int k_end = causal ? q_last + 1 : seq;
@@ -168,9 +181,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const int jn = min(kBT, k_end - k0);
     for (int j = 0; j < jn; ++j) {
-      const float* kr = ks + j * DP + g;
-      const float* vr = vs + j * DP + g;
-      float s = 0.f, dp = 0.f;
+      const A* kr = ks + j * DP + g;
+      const A* vr = vs + j * DP + g;
+      A s = A(0), dp = A(0);
 #pragma unroll
       for (int i = 0; i < kDPT; ++i) {
         s += qr[i] * kr[G * i];
@@ -180,8 +193,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dp = row_sum<G>(dp);
       const int kp = k0 + j;
       const bool live = valid && kp < seq && !(causal && kp > qpos);
-      const float p = live ? expf(s * scale - l) : 0.f;
-      const float ds = p * (dp - dr);
+      const A p = live ? dl4j::ex(s * scale - l) : A(0);
+      const A ds = p * (dp - dr);
 #pragma unroll
       for (int i = 0; i < kDPT; ++i) acc[i] += ds * kr[G * i];
     }
@@ -193,16 +206,17 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kBR * G)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ drow, T* __restrict__ dk,
-                     T* __restrict__ dv, int seq, int heads, int dim,
-                     int causal, float scale) {
+                     const dl4j::acc_t<T>* __restrict__ lse,
+                     const dl4j::acc_t<T>* __restrict__ drow,
+                     T* __restrict__ dk, T* __restrict__ dv, int seq,
+                     int heads, int dim, int causal, dl4j::acc_t<T> scale) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
-  extern __shared__ float smem[];
-  float* qs = smem;                   // [kBT][DP]
-  float* ds_ = smem + kBT * DP;       // [kBT][DP] (do)
-  float* ls = smem + 2 * kBT * DP;    // [kBT] lse
-  float* dsr = ls + kBT;              // [kBT] D
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  A* qs = reinterpret_cast<A*>(smem_raw);  // [kBT][DP]
+  A* ds_ = qs + kBT * DP;                  // [kBT][DP] (do)
+  A* ls = qs + 2 * kBT * DP;               // [kBT] lse
+  A* dsr = ls + kBT;                       // [kBT] D
 
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y % heads;
@@ -216,11 +230,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t row = base + static_cast<size_t>(kpos) * stride;
   const size_t srow0 = static_cast<size_t>(blockIdx.y) * seq;
 
-  float kr[kDPT], vr[kDPT], dka[kDPT], dva[kDPT];
+  A kr[kDPT], vr[kDPT], dka[kDPT], dva[kDPT];
   load_row<T, G>(k, row, valid, g, dim, kr);
   load_row<T, G>(v, row, valid, g, dim, vr);
 #pragma unroll
-  for (int i = 0; i < kDPT; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < kDPT; ++i) dka[i] = dva[i] = A(0);
 
   // Causal: queries before this tile's first key see none of its keys.
   const int i_begin = causal ? k0 : 0;
@@ -229,15 +243,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage_tile<T, G>(q, dout, qs, ds_, base, stride, r0, seq, dim);
     for (int e = threadIdx.x; e < kBT; e += kBR * G) {
       const int r = r0 + e;
-      ls[e] = r < seq ? lse[srow0 + r] : 0.f;
-      dsr[e] = r < seq ? drow[srow0 + r] : 0.f;
+      ls[e] = r < seq ? lse[srow0 + r] : A(0);
+      dsr[e] = r < seq ? drow[srow0 + r] : A(0);
     }
     __syncthreads();
     const int jn = min(kBT, seq - r0);
     for (int j = 0; j < jn; ++j) {
-      const float* qr = qs + j * DP + g;
-      const float* dor = ds_ + j * DP + g;
-      float s = 0.f, dp = 0.f;
+      const A* qr = qs + j * DP + g;
+      const A* dor = ds_ + j * DP + g;
+      A s = A(0), dp = A(0);
 #pragma unroll
       for (int i = 0; i < kDPT; ++i) {
         s += qr[G * i] * kr[i];
@@ -247,8 +261,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dp = row_sum<G>(dp);
       const int qp = r0 + j;
       const bool live = valid && !(causal && kpos > qp);
-      const float p = live ? expf(s * scale - ls[j]) : 0.f;
-      const float dsv = p * (dp - dsr[j]);
+      const A p = live ? dl4j::ex(s * scale - ls[j]) : A(0);
+      const A dsv = p * (dp - dsr[j]);
 #pragma unroll
       for (int i = 0; i < kDPT; ++i) {
         dva[i] += p * dor[G * i];
@@ -258,7 +272,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (valid) {
     store_row<T, G>(dk, row, g, dim, scale, dka);
-    store_row<T, G>(dv, row, g, dim, 1.f, dva);
+    store_row<T, G>(dv, row, g, dim, A(1), dva);
   }
 }
 
@@ -274,43 +288,47 @@ int prepare(Kernel kernel, int smem) {
 
 template <typename T, int G>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* drow, void* dq, int batch,
-              int seq, int heads, int dim, int causal, float scale,
+              const void* lse, const void* drow, void* dq, int batch,
+              int seq, int heads, int dim, int causal, double scale,
               cudaStream_t stream) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
-  const int smem = 2 * kBT * DP * static_cast<int>(sizeof(float));
+  const int smem = 2 * kBT * DP * static_cast<int>(sizeof(A));
   auto kernel = flash_bwd_dq_kernel<T, G>;
   if (const int e = prepare(kernel, smem)) return e;
   const dim3 grid((seq + kBR - 1) / kBR, batch * heads);
   kernel<<<grid, kBR * G, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, drow,
-      static_cast<T*>(dq), seq, heads, dim, causal, scale);
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const A*>(lse), static_cast<const A*>(drow),
+      static_cast<T*>(dq), seq, heads, dim, causal, static_cast<A>(scale));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int G>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* drow, void* dk, void* dv,
-               int batch, int seq, int heads, int dim, int causal, float scale,
-               cudaStream_t stream) {
+               const void* lse, const void* drow, void* dk, void* dv,
+               int batch, int seq, int heads, int dim, int causal,
+               double scale, cudaStream_t stream) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
-  const int smem = (2 * kBT * DP + 2 * kBT) * static_cast<int>(sizeof(float));
+  const int smem = (2 * kBT * DP + 2 * kBT) * static_cast<int>(sizeof(A));
   auto kernel = flash_bwd_dkv_kernel<T, G>;
   if (const int e = prepare(kernel, smem)) return e;
   const dim3 grid((seq + kBR - 1) / kBR, batch * heads);
   kernel<<<grid, kBR * G, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, drow,
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const A*>(lse), static_cast<const A*>(drow),
       static_cast<T*>(dk), static_cast<T*>(dv), seq, heads, dim, causal,
-      scale);
+      static_cast<A>(scale));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
-                const float* l, const float* d, void* dq, int b, int t, int h,
-                int dim, int c, float sc, cudaStream_t s) {
+                const void* l, const void* d, void* dq, int b, int t, int h,
+                int dim, int c, double sc, cudaStream_t s) {
   if (dim <= 16) return launch_dq<T, 1>(q, k, v, o, l, d, dq, b, t, h, dim, c, sc, s);
   if (dim <= 32) return launch_dq<T, 2>(q, k, v, o, l, d, dq, b, t, h, dim, c, sc, s);
   if (dim <= 64) return launch_dq<T, 4>(q, k, v, o, l, d, dq, b, t, h, dim, c, sc, s);
@@ -320,8 +338,8 @@ int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
 
 template <typename T>
 int dispatch_dkv(const void* q, const void* k, const void* v, const void* o,
-                 const float* l, const float* d, void* dk, void* dv, int b,
-                 int t, int h, int dim, int c, float sc, cudaStream_t s) {
+                 const void* l, const void* d, void* dk, void* dv, int b,
+                 int t, int h, int dim, int c, double sc, cudaStream_t s) {
   if (dim <= 16) return launch_dkv<T, 1>(q, k, v, o, l, d, dk, dv, b, t, h, dim, c, sc, s);
   if (dim <= 32) return launch_dkv<T, 2>(q, k, v, o, l, d, dk, dv, b, t, h, dim, c, sc, s);
   if (dim <= 64) return launch_dkv<T, 4>(q, k, v, o, l, d, dk, dv, b, t, h, dim, c, sc, s);
@@ -331,60 +349,61 @@ int dispatch_dkv(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// q, k, v, dout, dq: [batch, seq, heads, dim] contiguous, all of `dtype`;
-// lse, drow: [batch, heads, seq] float32; dim <= 128. `variant`: 1 launches
-// the tensor-core form (bf16 or f16, dim 64 or 128, q/k/v/dout 16-byte
-// aligned; any other input is refused, never rerouted), 0 the CUDA-core
-// kernel (f32, bf16, f16).
+// lse, drow: [batch, heads, seq], float32 (float64 for the f64 form);
+// `scale` a double, rounded to f32 for every form but the f64 one.
 extern "C" int dl4j_flash_attention_bwd_dq(const void* q, const void* k,
                                            const void* v, const void* dout,
                                            const void* lse, const void* drow,
                                            void* dq, int batch, int seq,
                                            int heads, int dim, int causal,
-                                           float scale, int dtype,
+                                           double scale, int dtype,
                                            int variant, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-  const float* l = static_cast<const float*>(lse);
-  const float* d = static_cast<const float*>(drow);
   if (variant == 1) {
-    return dl4j::flash::rows_dq_wgmma(q, k, v, dout, l, d, dq, batch, seq,
-                                      heads, dim, causal, scale, dtype,
-                                      stream);
+    return dl4j::flash::rows_dq_wgmma(
+        q, k, v, dout, static_cast<const float*>(lse),
+        static_cast<const float*>(drow), dq, batch, seq, heads, dim, causal,
+        static_cast<float>(scale), dtype, stream);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void *l = lse, *d = drow;
   if (dtype == dl4j::kFloat32)
     return dispatch_dq<float>(q, k, v, dout, l, d, dq, batch, seq, heads, dim, causal, scale, s);
   if (dtype == dl4j::kBFloat16)
     return dispatch_dq<__nv_bfloat16>(q, k, v, dout, l, d, dq, batch, seq, heads, dim, causal, scale, s);
   if (dtype == dl4j::kFloat16)
     return dispatch_dq<__half>(q, k, v, dout, l, d, dq, batch, seq, heads, dim, causal, scale, s);
+  if (dtype == dl4j::kFloat64)
+    return dispatch_dq<double>(q, k, v, dout, l, d, dq, batch, seq, heads, dim, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As above; writes dk and dv ([batch, seq, heads, dim], of `dtype`).
 extern "C" int dl4j_flash_attention_bwd_dkv(const void* q, const void* k,
                                             const void* v, const void* dout,
                                             const void* lse, const void* drow,
                                             void* dk, void* dv, int batch,
                                             int seq, int heads, int dim,
-                                            int causal, float scale, int dtype,
-                                            int variant, void* stream) {
+                                            int causal, double scale,
+                                            int dtype, int variant,
+                                            void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-  const float* l = static_cast<const float*>(lse);
-  const float* d = static_cast<const float*>(drow);
   if (variant == 1) {
-    return dl4j::flash::rows_dkv_wgmma(q, k, v, dout, l, d, dk, dv, batch,
-                                       seq, heads, dim, causal, scale, dtype,
-                                       stream);
+    return dl4j::flash::rows_dkv_wgmma(
+        q, k, v, dout, static_cast<const float*>(lse),
+        static_cast<const float*>(drow), dk, dv, batch, seq, heads, dim,
+        causal, static_cast<float>(scale), dtype, stream);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void *l = lse, *d = drow;
   if (dtype == dl4j::kFloat32)
     return dispatch_dkv<float>(q, k, v, dout, l, d, dk, dv, batch, seq, heads, dim, causal, scale, s);
   if (dtype == dl4j::kBFloat16)
     return dispatch_dkv<__nv_bfloat16>(q, k, v, dout, l, d, dk, dv, batch, seq, heads, dim, causal, scale, s);
   if (dtype == dl4j::kFloat16)
     return dispatch_dkv<__half>(q, k, v, dout, l, d, dk, dv, batch, seq, heads, dim, causal, scale, s);
+  if (dtype == dl4j::kFloat64)
+    return dispatch_dkv<double>(q, k, v, dout, l, d, dk, dv, batch, seq, heads, dim, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

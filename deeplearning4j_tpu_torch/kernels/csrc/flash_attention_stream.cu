@@ -58,6 +58,16 @@
 // merge and sum kernels combine. Any T is taken: rows and keys past T are
 // masked.
 //
+// f64 (a float64 net past the resident limit: 2·T·D·8 bytes > 6 MiB, so
+// T > 6,144 at D = 64) runs the CUDA-core unit kernels and the merge and sum
+// kernels instantiated at double: their accumulation type (`dl4j::acc_t`)
+// makes the staged tiles, the registers, exp and log, lse, D, the scale and
+// the partial workspaces double. A double tile of 64 rows takes 32 KB at
+// D = 64, so the forward and dq stage 64 KB and dk/dv 65 KB of dynamic
+// shared memory. Bound at the f64 long slice ([1, 8192, 8, 64], causal):
+// the forward ~6.9e10 FLOP, 1.0 ms at the 67 TFLOP/s FP64 tensor-core
+// peak; dq ~1.0e11 and dk/dv ~1.4e11: operations.
+//
 // The three tensor-core kernels also run the resident rows 3, 5 and 6
 // (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu, through
 // flash_wgmma.cuh) in bf16 at D = 64 or 128: the same tile loops over a
@@ -149,42 +159,48 @@ __device__ __forceinline__ int step_tile(const int* __restrict__ streamed_of,
     return streamed_of[w.first + i];
 }
 
-template <int G>
-__device__ __forceinline__ float row_sum(float part) {
+template <int G, typename A>
+__device__ __forceinline__ A row_sum(A part) {
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1)
     part += __shfl_xor_sync(0xffffffffu, part, off);
   return part;
 }
 
+// The CUDA-core kernels compute in A = dl4j::acc_t<T>: f32, and double for
+// the f64 forms (tiles, registers, lse, D, partials and scale in double).
 template <typename T, int G>
 __device__ __forceinline__ void load_row(const T* __restrict__ src, size_t off,
                                          bool valid, int g, int dim,
-                                         float mul, float (&r)[kDPT]) {
+                                         dl4j::acc_t<T> mul,
+                                         dl4j::acc_t<T> (&r)[kDPT]) {
+  using A = dl4j::acc_t<T>;
 #pragma unroll
   for (int i = 0; i < kDPT; ++i) {
     const int d = g + G * i;
-    r[i] = (valid && d < dim) ? dl4j::to_f32(src[off + d]) * mul : 0.f;
+    r[i] = (valid && d < dim) ? dl4j::to_acc(src[off + d]) * mul : A(0);
   }
 }
 
-// Rows [r0, r0 + kTile) of two [B, T, H, D] tensors into shared memory as f32
+// Rows [r0, r0 + kTile) of two [B, T, H, D] tensors into shared memory as A
 // ([kTile][DP] each), zero past `seq` and past `dim`.
 template <typename T, int G>
 __device__ __forceinline__ void stage_tile(const T* __restrict__ a,
-                                           const T* __restrict__ b, float* as,
-                                           float* bs, size_t base,
+                                           const T* __restrict__ b,
+                                           dl4j::acc_t<T>* as,
+                                           dl4j::acc_t<T>* bs, size_t base,
                                            size_t stride, int r0, int seq,
                                            int dim) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
   for (int e = threadIdx.x; e < kTile * DP; e += kTile * G) {
     const int j = e / DP, d = e % DP;
     const int r = r0 + j;
-    float av = 0.f, bv = 0.f;
+    A av = A(0), bv = A(0);
     if (r < seq && d < dim) {
       const size_t off = base + r * stride + d;
-      av = dl4j::to_f32(a[off]);
-      bv = dl4j::to_f32(b[off]);
+      av = dl4j::to_acc(a[off]);
+      bv = dl4j::to_acc(b[off]);
     }
     as[e] = av;
     bs[e] = bv;
@@ -198,10 +214,10 @@ __device__ __forceinline__ size_t part_row(int bh, int n_slots, int slot,
   return ((static_cast<size_t>(bh) * n_slots + slot) * kTile + r) * dim;
 }
 
-template <int G>
-__device__ __forceinline__ void store_part(float* __restrict__ part,
-                                           size_t off, int g, int dim,
-                                           const float (&r)[kDPT]) {
+template <int G, typename A>
+__device__ __forceinline__ void store_part(A* __restrict__ part, size_t off,
+                                           int g, int dim,
+                                           const A (&r)[kDPT]) {
 #pragma unroll
   for (int i = 0; i < kDPT; ++i) {
     const int d = g + G * i;
@@ -211,12 +227,12 @@ __device__ __forceinline__ void store_part(float* __restrict__ part,
 
 template <typename T, int G>
 __device__ __forceinline__ void store_row(T* __restrict__ dst, size_t off,
-                                          int g, int dim, float mul,
-                                          const float (&r)[kDPT]) {
+                                          int g, int dim, dl4j::acc_t<T> mul,
+                                          const dl4j::acc_t<T> (&r)[kDPT]) {
 #pragma unroll
   for (int i = 0; i < kDPT; ++i) {
     const int d = g + G * i;
-    if (d < dim) dst[off + d] = dl4j::from_f32<T>(r[i] * mul);
+    if (d < dim) dst[off + d] = dl4j::from_acc<T>(r[i] * mul);
   }
 }
 
@@ -226,15 +242,18 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kTile * G)
 stream_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o,
-                  float* __restrict__ lse, const int* __restrict__ pair_i,
+                  dl4j::acc_t<T>* __restrict__ lse,
+                  const int* __restrict__ pair_i,
                   const int* __restrict__ pair_j,
-                  const int* __restrict__ units, float* __restrict__ part_acc,
-                  float* __restrict__ part_ml, int n_slots, int seq,
-                  int heads, int dim, int causal, float scale) {
+                  const int* __restrict__ units,
+                  dl4j::acc_t<T>* __restrict__ part_acc,
+                  dl4j::acc_t<T>* __restrict__ part_ml, int n_slots, int seq,
+                  int heads, int dim, int causal, dl4j::acc_t<T> scale) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
-  extern __shared__ float smem[];
-  float* ks = smem;               // [kTile][DP]
-  float* vs = smem + kTile * DP;  // [kTile][DP]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  A* ks = reinterpret_cast<A*>(smem_raw);  // [kTile][DP]
+  A* vs = ks + kTile * DP;                 // [kTile][DP]
 
   const Unit u = load_unit(units);
   const int bh = blockIdx.y;
@@ -245,12 +264,12 @@ stream_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = static_cast<size_t>(b) * seq * stride +
                       static_cast<size_t>(h) * dim;
 
-  float qr[kDPT], acc[kDPT];
+  A qr[kDPT], acc[kDPT];
   load_row<T, G>(q, base + static_cast<size_t>(qpos) * stride, qpos < seq, g,
                  dim, scale, qr);
 #pragma unroll
-  for (int i = 0; i < kDPT; ++i) acc[i] = 0.f;
-  float m = dl4j::kNeg, l = 0.f;
+  for (int i = 0; i < kDPT; ++i) acc[i] = A(0);
+  A m = dl4j::neg<A>(), l = A(0);
 
   for (int p = u.first; p < u.first + u.count; ++p) {
     const int k0 = pair_j[p] * kTile;
@@ -259,29 +278,29 @@ stream_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const int jn = min(kTile, seq - k0);
     for (int c = 0; c < jn; c += kChunk) {
-      float s[kChunk];
-      float mx = dl4j::kNeg;
+      A s[kChunk];
+      A mx = dl4j::neg<A>();
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) {
-        const float* kr = ks + (c + jj) * DP + g;
-        float part = 0.f;
+        const A* kr = ks + (c + jj) * DP + g;
+        A part = A(0);
 #pragma unroll
         for (int i = 0; i < kDPT; ++i) part += qr[i] * kr[G * i];
         part = row_sum<G>(part);
         const int kp = k0 + c + jj;
-        if (kp >= seq || (causal && kp > qpos)) part = dl4j::kNeg;
+        if (kp >= seq || (causal && kp > qpos)) part = dl4j::neg<A>();
         s[jj] = part;
-        mx = fmaxf(mx, part);
+        mx = dl4j::fmx(mx, part);
       }
-      const float m_new = fmaxf(m, mx);
-      const float corr = expf(m - m_new);
+      const A m_new = dl4j::fmx(m, mx);
+      const A corr = dl4j::ex(m - m_new);
       l *= corr;
 #pragma unroll
       for (int i = 0; i < kDPT; ++i) acc[i] *= corr;
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) {
-        const float pw = expf(s[jj] - m_new);
-        const float* vr = vs + (c + jj) * DP + g;
+        const A pw = dl4j::ex(s[jj] - m_new);
+        const A* vr = vs + (c + jj) * DP + g;
         l += pw;
 #pragma unroll
         for (int i = 0; i < kDPT; ++i) acc[i] += pw * vr[G * i];
@@ -292,17 +311,17 @@ stream_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qpos >= seq) return;
   if (u.slot < 0) {
-    const float lc = fmaxf(l, 1e-30f);
+    const A lc = dl4j::fmx(l, dl4j::tiny<A>());
     store_row<T, G>(o, base + static_cast<size_t>(qpos) * stride, g, dim,
-                    1.f / lc, acc);
+                    A(1) / lc, acc);
     if (lse != nullptr && g == 0)
-      lse[static_cast<size_t>(bh) * seq + qpos] = m + logf(lc);
+      lse[static_cast<size_t>(bh) * seq + qpos] = m + dl4j::lg(lc);
     return;
   }
   store_part<G>(part_acc, part_row(bh, n_slots, u.slot, r, dim), g, dim, acc);
   if (g == 0) {
-    float* ml = part_ml + (static_cast<size_t>(bh) * n_slots + u.slot) * 2 *
-                              kTile;
+    A* ml = part_ml + (static_cast<size_t>(bh) * n_slots + u.slot) * 2 *
+                          kTile;
     ml[r] = m;
     ml[kTile + r] = l;
   }
@@ -310,14 +329,15 @@ stream_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // One block per run of several units (merges[3 * x] = q tile, first slot,
 // slots): o = sum_u w_u acc_u / sum_u w_u l_u with w_u = exp(m_u - max m),
-// lse = max m + log(sum_u w_u l_u).
+// lse = max m + log(sum_u w_u l_u). In A, as the unit kernel's partials.
 template <typename T, int G>
 __global__ void __launch_bounds__(kTile * G)
-stream_merge_kernel(T* __restrict__ o, float* __restrict__ lse,
+stream_merge_kernel(T* __restrict__ o, dl4j::acc_t<T>* __restrict__ lse,
                     const int* __restrict__ merges,
-                    const float* __restrict__ part_acc,
-                    const float* __restrict__ part_ml, int n_slots, int seq,
-                    int heads, int dim) {
+                    const dl4j::acc_t<T>* __restrict__ part_acc,
+                    const dl4j::acc_t<T>* __restrict__ part_ml, int n_slots,
+                    int seq, int heads, int dim) {
+  using A = dl4j::acc_t<T>;
   const int* mg = merges + 3 * blockIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / heads, h = bh % heads;
@@ -325,31 +345,31 @@ stream_merge_kernel(T* __restrict__ o, float* __restrict__ lse,
   const int qpos = mg[0] * kTile + r;
   if (qpos >= seq) return;
   const int slot0 = mg[1], n = mg[2];
-  const float* ml = part_ml + (static_cast<size_t>(bh) * n_slots + slot0) *
-                                  2 * kTile;
-  float mx = dl4j::kNeg;
-  for (int s = 0; s < n; ++s) mx = fmaxf(mx, ml[s * 2 * kTile + r]);
-  float acc[kDPT], l = 0.f;
+  const A* ml = part_ml + (static_cast<size_t>(bh) * n_slots + slot0) *
+                              2 * kTile;
+  A mx = dl4j::neg<A>();
+  for (int s = 0; s < n; ++s) mx = dl4j::fmx(mx, ml[s * 2 * kTile + r]);
+  A acc[kDPT], l = A(0);
 #pragma unroll
-  for (int i = 0; i < kDPT; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDPT; ++i) acc[i] = A(0);
   for (int s = 0; s < n; ++s) {
-    const float w = expf(ml[s * 2 * kTile + r] - mx);
+    const A w = dl4j::ex(ml[s * 2 * kTile + r] - mx);
     l += w * ml[s * 2 * kTile + kTile + r];
-    const float* pa = part_acc + part_row(bh, n_slots, slot0 + s, r, dim);
+    const A* pa = part_acc + part_row(bh, n_slots, slot0 + s, r, dim);
 #pragma unroll
     for (int i = 0; i < kDPT; ++i) {
       const int d = g + G * i;
       if (d < dim) acc[i] += w * pa[d];
     }
   }
-  const float lc = fmaxf(l, 1e-30f);
+  const A lc = dl4j::fmx(l, dl4j::tiny<A>());
   const size_t stride = static_cast<size_t>(heads) * dim;
   store_row<T, G>(o, static_cast<size_t>(b) * seq * stride +
                          static_cast<size_t>(qpos) * stride +
                          static_cast<size_t>(h) * dim,
-                  g, dim, 1.f / lc, acc);
+                  g, dim, A(1) / lc, acc);
   if (lse != nullptr && g == 0)
-    lse[static_cast<size_t>(bh) * seq + qpos] = mx + logf(lc);
+    lse[static_cast<size_t>(bh) * seq + qpos] = mx + dl4j::lg(lc);
 }
 
 // ------------------------------------------------ forward on tensor cores
@@ -703,17 +723,18 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kTile * G)
 stream_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ drow, T* __restrict__ dq,
+                 const dl4j::acc_t<T>* __restrict__ lse,
+                 const dl4j::acc_t<T>* __restrict__ drow, T* __restrict__ dq,
                  const int* __restrict__ pair_i,
                  const int* __restrict__ pair_j,
-                 const int* __restrict__ units, float* __restrict__ part,
-                 int n_slots, int seq, int heads, int dim, int causal,
-                 float scale) {
+                 const int* __restrict__ units,
+                 dl4j::acc_t<T>* __restrict__ part, int n_slots, int seq,
+                 int heads, int dim, int causal, dl4j::acc_t<T> scale) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
-  extern __shared__ float smem[];
-  float* ks = smem;               // [kTile][DP]
-  float* vs = smem + kTile * DP;  // [kTile][DP]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  A* ks = reinterpret_cast<A*>(smem_raw);  // [kTile][DP]
+  A* vs = ks + kTile * DP;                 // [kTile][DP]
 
   const Unit u = load_unit(units);
   const int bh = blockIdx.y;
@@ -726,14 +747,14 @@ stream_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       static_cast<size_t>(h) * dim;
   const size_t row = base + static_cast<size_t>(qpos) * stride;
 
-  float qr[kDPT], dor[kDPT], acc[kDPT];
-  load_row<T, G>(q, row, valid, g, dim, 1.f, qr);
-  load_row<T, G>(dout, row, valid, g, dim, 1.f, dor);
+  A qr[kDPT], dor[kDPT], acc[kDPT];
+  load_row<T, G>(q, row, valid, g, dim, A(1), qr);
+  load_row<T, G>(dout, row, valid, g, dim, A(1), dor);
 #pragma unroll
-  for (int i = 0; i < kDPT; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDPT; ++i) acc[i] = A(0);
   const size_t srow = static_cast<size_t>(bh) * seq + qpos;
-  const float lr = valid ? lse[srow] : 0.f;
-  const float dr = valid ? drow[srow] : 0.f;
+  const A lr = valid ? lse[srow] : A(0);
+  const A dr = valid ? drow[srow] : A(0);
 
   for (int p = u.first; p < u.first + u.count; ++p) {
     const int k0 = pair_j[p] * kTile;
@@ -742,9 +763,9 @@ stream_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const int jn = min(kTile, seq - k0);
     for (int j = 0; j < jn; ++j) {
-      const float* kr = ks + j * DP + g;
-      const float* vr = vs + j * DP + g;
-      float s = 0.f, dp = 0.f;
+      const A* kr = ks + j * DP + g;
+      const A* vr = vs + j * DP + g;
+      A s = A(0), dp = A(0);
 #pragma unroll
       for (int i = 0; i < kDPT; ++i) {
         s += qr[i] * kr[G * i];
@@ -753,8 +774,8 @@ stream_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       s = row_sum<G>(s);
       dp = row_sum<G>(dp);
       const bool live = valid && !(causal && k0 + j > qpos);
-      const float pw = live ? expf(s * scale - lr) : 0.f;
-      const float ds = pw * (dp - dr);
+      const A pw = live ? dl4j::ex(s * scale - lr) : A(0);
+      const A ds = pw * (dp - dr);
 #pragma unroll
       for (int i = 0; i < kDPT; ++i) acc[i] += ds * kr[G * i];
     }
@@ -773,20 +794,21 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kTile * G)
 stream_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ drow, T* __restrict__ dk,
+                  const dl4j::acc_t<T>* __restrict__ lse,
+                  const dl4j::acc_t<T>* __restrict__ drow, T* __restrict__ dk,
                   T* __restrict__ dv, const int* __restrict__ pair_i,
                   const int* __restrict__ pair_j,
                   const int* __restrict__ units,
-                  float* __restrict__ part_dk, float* __restrict__ part_dv,
-                  int n_slots, int seq, int heads, int dim, int causal,
-                  float scale) {
+                  dl4j::acc_t<T>* __restrict__ part_dk,
+                  dl4j::acc_t<T>* __restrict__ part_dv, int n_slots, int seq,
+                  int heads, int dim, int causal, dl4j::acc_t<T> scale) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
-  extern __shared__ float smem[];
-  float* qs = smem;                    // [kTile][DP]
-  float* dos = smem + kTile * DP;      // [kTile][DP]
-  float* ls = smem + 2 * kTile * DP;   // [kTile] lse
-  float* dsr = ls + kTile;             // [kTile] D
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  A* qs = reinterpret_cast<A*>(smem_raw);  // [kTile][DP]
+  A* dos = qs + kTile * DP;                // [kTile][DP]
+  A* ls = qs + 2 * kTile * DP;             // [kTile] lse
+  A* dsr = ls + kTile;                     // [kTile] D
 
   const Unit u = load_unit(units);
   const int bh = blockIdx.y;
@@ -800,11 +822,11 @@ stream_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t row = base + static_cast<size_t>(kpos) * stride;
   const size_t srow0 = static_cast<size_t>(bh) * seq;
 
-  float kr[kDPT], vr[kDPT], dka[kDPT], dva[kDPT];
-  load_row<T, G>(k, row, valid, g, dim, 1.f, kr);
-  load_row<T, G>(v, row, valid, g, dim, 1.f, vr);
+  A kr[kDPT], vr[kDPT], dka[kDPT], dva[kDPT];
+  load_row<T, G>(k, row, valid, g, dim, A(1), kr);
+  load_row<T, G>(v, row, valid, g, dim, A(1), vr);
 #pragma unroll
-  for (int i = 0; i < kDPT; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < kDPT; ++i) dka[i] = dva[i] = A(0);
 
   for (int p = u.first; p < u.first + u.count; ++p) {
     const int r0 = pair_i[p] * kTile;
@@ -812,15 +834,15 @@ stream_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage_tile<T, G>(q, dout, qs, dos, base, stride, r0, seq, dim);
     for (int e = threadIdx.x; e < kTile; e += kTile * G) {
       const int rr = r0 + e;
-      ls[e] = rr < seq ? lse[srow0 + rr] : 0.f;
-      dsr[e] = rr < seq ? drow[srow0 + rr] : 0.f;
+      ls[e] = rr < seq ? lse[srow0 + rr] : A(0);
+      dsr[e] = rr < seq ? drow[srow0 + rr] : A(0);
     }
     __syncthreads();
     const int jn = min(kTile, seq - r0);
     for (int j = 0; j < jn; ++j) {
-      const float* qrow = qs + j * DP + g;
-      const float* dorow = dos + j * DP + g;
-      float s = 0.f, dp = 0.f;
+      const A* qrow = qs + j * DP + g;
+      const A* dorow = dos + j * DP + g;
+      A s = A(0), dp = A(0);
 #pragma unroll
       for (int i = 0; i < kDPT; ++i) {
         s += qrow[G * i] * kr[i];
@@ -829,8 +851,8 @@ stream_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       s = row_sum<G>(s);
       dp = row_sum<G>(dp);
       const bool live = valid && !(causal && kpos > r0 + j);
-      const float pw = live ? expf(s * scale - ls[j]) : 0.f;
-      const float ds = pw * (dp - dsr[j]);
+      const A pw = live ? dl4j::ex(s * scale - ls[j]) : A(0);
+      const A ds = pw * (dp - dsr[j]);
 #pragma unroll
       for (int i = 0; i < kDPT; ++i) {
         dva[i] += pw * dorow[G * i];
@@ -841,7 +863,7 @@ stream_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (!valid) return;
   if (u.slot < 0) {
     store_row<T, G>(dk, row, g, dim, scale, dka);
-    store_row<T, G>(dv, row, g, dim, 1.f, dva);
+    store_row<T, G>(dv, row, g, dim, A(1), dva);
   } else {
     store_part<G>(part_dk, part_row(bh, n_slots, u.slot, r, dim), g, dim, dka);
     store_part<G>(part_dv, part_row(bh, n_slots, u.slot, r, dim), g, dim, dva);
@@ -853,19 +875,20 @@ stream_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int G>
 __global__ void __launch_bounds__(kTile * G)
 stream_sum_kernel(T* __restrict__ out, const int* __restrict__ merges,
-                  const float* __restrict__ part, int n_slots, int seq,
-                  int heads, int dim, float mul) {
+                  const dl4j::acc_t<T>* __restrict__ part, int n_slots,
+                  int seq, int heads, int dim, dl4j::acc_t<T> mul) {
+  using A = dl4j::acc_t<T>;
   const int* mg = merges + 3 * blockIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / heads, h = bh % heads;
   const int r = threadIdx.x / G, g = threadIdx.x % G;
   const int pos = mg[0] * kTile + r;
   if (pos >= seq) return;
-  float acc[kDPT];
+  A acc[kDPT];
 #pragma unroll
-  for (int i = 0; i < kDPT; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDPT; ++i) acc[i] = A(0);
   for (int s = 0; s < mg[2]; ++s) {
-    const float* pa = part + part_row(bh, n_slots, mg[1] + s, r, dim);
+    const A* pa = part + part_row(bh, n_slots, mg[1] + s, r, dim);
 #pragma unroll
     for (int i = 0; i < kDPT; ++i) {
       const int d = g + G * i;
@@ -1292,7 +1315,7 @@ struct Args {
   const int* merges;
   int n_merges;
   int n_slots, batch, seq, heads, dim, causal;
-  float scale;
+  double scale;  // rounded to f32 by every form but the f64 one
   cudaStream_t stream;
 };
 
@@ -1307,29 +1330,33 @@ int prepare(Kernel kernel, int smem) {
 }
 
 template <typename T, int G>
-int launch_merge(void* o, float* lse, float* part_acc, float* part_ml,
+int launch_merge(void* o, void* lse, void* part_acc, void* part_ml,
                  const Args& a) {
+  using A = dl4j::acc_t<T>;
   if (a.n_merges > 0)
     stream_merge_kernel<T, G><<<dim3(a.n_merges, a.batch * a.heads),
                                 kTile * G, 0, a.stream>>>(
-        static_cast<T*>(o), lse, a.merges, part_acc, part_ml, a.n_slots,
-        a.seq, a.heads, a.dim);
+        static_cast<T*>(o), static_cast<A*>(lse), a.merges,
+        static_cast<const A*>(part_acc), static_cast<const A*>(part_ml),
+        a.n_slots, a.seq, a.heads, a.dim);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int G>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, float* part_acc, float* part_ml, const Args& a) {
+               void* lse, void* part_acc, void* part_ml, const Args& a) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
-  const int smem = 2 * kTile * DP * static_cast<int>(sizeof(float));
+  const int smem = 2 * kTile * DP * static_cast<int>(sizeof(A));
   auto kernel = stream_fwd_kernel<T, G>;
   if (const int e = prepare(kernel, smem)) return e;
   const int bh = a.batch * a.heads;
   kernel<<<dim3(a.n_units, bh), kTile * G, smem, a.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, a.pair_i, a.pair_j,
-      a.units, part_acc, part_ml, a.n_slots, a.seq, a.heads, a.dim, a.causal,
-      a.scale);
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<A*>(lse),
+      a.pair_i, a.pair_j, a.units, static_cast<A*>(part_acc),
+      static_cast<A*>(part_ml), a.n_slots, a.seq, a.heads, a.dim, a.causal,
+      static_cast<A>(a.scale));
   if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   return launch_merge<T, G>(o, lse, part_acc, part_ml, a);
 }
@@ -1397,55 +1424,61 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
   kernel<<<wg_grid<kRows>(a), kWgThreads, smem,
            a.stream>>>(tq, tk, tv, static_cast<E*>(o), lse,
                        a.pair_i, a.pair_j, a.units, part_acc, part_ml,
-                       a.n_slots, a.seq, a.heads, a.causal, a.scale);
+                       a.n_slots, a.seq, a.heads, a.causal,
+                       static_cast<float>(a.scale));
   if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   return launch_merge<E, D / 16>(o, lse, part_acc, part_ml, a);
 }
 
 template <typename T, int G>
-int launch_sum(void* out, const float* part, float mul, const Args& a) {
+int launch_sum(void* out, const void* part, double mul, const Args& a) {
+  using A = dl4j::acc_t<T>;
   if (a.n_merges > 0)
     stream_sum_kernel<T, G><<<dim3(a.n_merges, a.batch * a.heads), kTile * G,
                               0, a.stream>>>(
-        static_cast<T*>(out), a.merges, part, a.n_slots, a.seq, a.heads,
-        a.dim, mul);
+        static_cast<T*>(out), a.merges, static_cast<const A*>(part),
+        a.n_slots, a.seq, a.heads, a.dim, static_cast<A>(mul));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int G>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* drow, void* dq, float* part,
+              const void* lse, const void* drow, void* dq, void* part,
               const Args& a) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
-  const int smem = 2 * kTile * DP * static_cast<int>(sizeof(float));
+  const int smem = 2 * kTile * DP * static_cast<int>(sizeof(A));
   auto kernel = stream_dq_kernel<T, G>;
   if (const int e = prepare(kernel, smem)) return e;
   kernel<<<dim3(a.n_units, a.batch * a.heads), kTile * G, smem, a.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, drow,
-      static_cast<T*>(dq), a.pair_i, a.pair_j, a.units, part, a.n_slots,
-      a.seq, a.heads, a.dim, a.causal, a.scale);
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const A*>(lse), static_cast<const A*>(drow),
+      static_cast<T*>(dq), a.pair_i, a.pair_j, a.units, static_cast<A*>(part),
+      a.n_slots, a.seq, a.heads, a.dim, a.causal, static_cast<A>(a.scale));
   if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   return launch_sum<T, G>(dq, part, a.scale, a);
 }
 
 template <typename T, int G>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* drow, void* dk, void* dv,
-               float* part_dk, float* part_dv, const Args& a) {
+               const void* lse, const void* drow, void* dk, void* dv,
+               void* part_dk, void* part_dv, const Args& a) {
+  using A = dl4j::acc_t<T>;
   constexpr int DP = G * kDPT;
-  const int smem =
-      (2 * kTile * DP + 2 * kTile) * static_cast<int>(sizeof(float));
+  const int smem = (2 * kTile * DP + 2 * kTile) * static_cast<int>(sizeof(A));
   auto kernel = stream_dkv_kernel<T, G>;
   if (const int e = prepare(kernel, smem)) return e;
   kernel<<<dim3(a.n_units, a.batch * a.heads), kTile * G, smem, a.stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, drow,
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const A*>(lse), static_cast<const A*>(drow),
       static_cast<T*>(dk), static_cast<T*>(dv), a.pair_i, a.pair_j, a.units,
-      part_dk, part_dv, a.n_slots, a.seq, a.heads, a.dim, a.causal, a.scale);
+      static_cast<A*>(part_dk), static_cast<A*>(part_dv), a.n_slots, a.seq,
+      a.heads, a.dim, a.causal, static_cast<A>(a.scale));
   if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   if (const int e = launch_sum<T, G>(dk, part_dk, a.scale, a)) return e;
-  return launch_sum<T, G>(dv, part_dv, 1.f, a);
+  return launch_sum<T, G>(dv, part_dv, 1.0, a);
 }
 
 // The tensor-core unit kernels of the backward (bf16, D = 64 or 128), each
@@ -1495,7 +1528,7 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                        a.heads, a.causal, a.scale);
   if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   if (const int e = launch_sum<E, D / 16>(dk, part_dk, a.scale, a)) return e;
-  return launch_sum<E, D / 16>(dv, part_dv, 1.f, a);
+  return launch_sum<E, D / 16>(dv, part_dv, 1.0, a);
 }
 
 // Calls `f.template run<T, G>()` for the dtype code and head width.
@@ -1516,6 +1549,11 @@ int dispatch(int dtype, int dim, const F& f) {
     if (dim <= 32) return f.template run<__half, 2>();
     if (dim <= 64) return f.template run<__half, 4>();
     if (dim <= 128) return f.template run<__half, 8>();
+  } else if (dtype == dl4j::kFloat64) {
+    if (dim <= 16) return f.template run<double, 1>();
+    if (dim <= 32) return f.template run<double, 2>();
+    if (dim <= 64) return f.template run<double, 4>();
+    if (dim <= 128) return f.template run<double, 8>();
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1523,7 +1561,7 @@ int dispatch(int dtype, int dim, const F& f) {
 struct Fwd {
   const void *q, *k, *v;
   void* o;
-  float *lse, *part_acc, *part_ml;
+  void *lse, *part_acc, *part_ml;
   const Args& a;
   template <typename T, int G>
   int run() const {
@@ -1533,9 +1571,9 @@ struct Fwd {
 
 struct Dq {
   const void *q, *k, *v, *dout;
-  const float *lse, *drow;
+  const void *lse, *drow;
   void* dq;
-  float* part;
+  void* part;
   const Args& a;
   template <typename T, int G>
   int run() const {
@@ -1545,9 +1583,9 @@ struct Dq {
 
 struct Dkv {
   const void *q, *k, *v, *dout;
-  const float *lse, *drow;
+  const void *lse, *drow;
   void *dk, *dv;
-  float *part_dk, *part_dv;
+  void *part_dk, *part_dv;
   const Args& a;
   template <typename T, int G>
   int run() const {
@@ -1559,7 +1597,7 @@ struct Dkv {
 Args make_args(const void* pair_i, const void* pair_j, const void* units,
                int n_units, const void* merges, int n_merges, int n_slots,
                int batch, int seq, int heads, int dim, int causal,
-               float scale, void* stream) {
+               double scale, void* stream) {
   return {static_cast<const int*>(pair_i), static_cast<const int*>(pair_j),
           static_cast<const int*>(units),  n_units,
           static_cast<const int*>(merges), n_merges,
@@ -1706,19 +1744,20 @@ int rows_dkv_wgmma(const void* q, const void* k, const void* v,
 }  // namespace dl4j
 
 // q, k, v, o: [batch, seq, heads, dim] contiguous, all of `dtype`; dim <= 128.
-// lse: [batch, heads, seq] float32, or null (the no-grad forward). The visit
+// lse: [batch, heads, seq], or null (the no-grad forward). The visit
 // list: pair_i, pair_j (q tile, k tile of each visit); units [n_units, 3];
 // merges [n_merges, 3]. part_acc [batch*heads, n_slots, 64, dim] and part_ml
-// [batch*heads, n_slots, 2, 64], float32 scratch. `variant`: 1 launches the
-// tensor-core unit kernel (bf16 or f16, dim 64 or 128, q/k/v 16-byte
-// aligned; any other input is refused, never rerouted), 0 the CUDA-core one
-// (f32, bf16 or f16, dim <= 128).
+// [batch*heads, n_slots, 2, 64] scratch. lse and the scratch are float32,
+// float64 for the f64 form; `scale` a double, rounded to f32 for every form
+// but the f64 one. `variant`: 1 launches the tensor-core unit kernel (bf16
+// or f16, dim 64 or 128, q/k/v 16-byte aligned; any other input is refused,
+// never rerouted), 0 the CUDA-core one (f32, bf16, f16 or f64, dim <= 128).
 extern "C" int dl4j_flash_attention_stream_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* pair_i, const void* pair_j, const void* units, int n_units,
     const void* merges, int n_merges, void* part_acc, void* part_ml,
     int n_slots, int batch, int seq, int heads, int dim, int causal,
-    float scale, int dtype, int variant, void* stream) {
+    double scale, int dtype, int variant, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || n_units <= 0) return 0;
   const Args a = make_args(pair_i, pair_j, units, n_units, merges, n_merges,
                            n_slots, batch, seq, heads, dim, causal, scale,
@@ -1729,56 +1768,57 @@ extern "C" int dl4j_flash_attention_stream_fwd(
                                  static_cast<float*>(part_acc),
                                  static_cast<float*>(part_ml), a});
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(dtype, dim,
-                  Fwd{q, k, v, o, static_cast<float*>(lse),
-                      static_cast<float*>(part_acc),
-                      static_cast<float*>(part_ml), a});
+  return dispatch(dtype, dim, Fwd{q, k, v, o, lse, part_acc, part_ml, a});
 }
 
-// q, k, v, dout, dq as the forward's q; lse, drow: [batch, heads, seq]
-// float32; the row-major visit list; part [batch*heads, n_slots, 64, dim]
-// float32 scratch. `variant` as the forward's: 1 launches the tensor-core
-// unit kernel (bf16 or f16, dim 64 or 128, q/k/v/dout 16-byte aligned; any
-// other input is refused, never rerouted), 0 the CUDA-core one.
+// q, k, v, dout, dq as the forward's q; lse, drow: [batch, heads, seq]; the
+// row-major visit list; part [batch*heads, n_slots, 64, dim] scratch (lse,
+// drow and part float32, float64 for the f64 form). `variant` as the
+// forward's: 1 launches the tensor-core unit kernel (bf16 or f16, dim 64 or
+// 128, q/k/v/dout 16-byte aligned; any other input is refused, never
+// rerouted), 0 the CUDA-core one.
 extern "C" int dl4j_flash_attention_stream_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* drow, void* dq, const void* pair_i,
     const void* pair_j, const void* units, int n_units, const void* merges,
     int n_merges, void* part, int n_slots, int batch, int seq, int heads,
-    int dim, int causal, float scale, int dtype, int variant, void* stream) {
+    int dim, int causal, double scale, int dtype, int variant,
+    void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || n_units <= 0) return 0;
   const Args a = make_args(pair_i, pair_j, units, n_units, merges, n_merges,
                            n_slots, batch, seq, heads, dim, causal, scale,
                            stream);
-  const float *l = static_cast<const float*>(lse),
-              *dr = static_cast<const float*>(drow);
-  float* pt = static_cast<float*>(part);
   if (variant == 1)
-    return rows_dispatch(dtype, dim,
-                         ListDq{q, k, v, dout, l, dr, dq, pt, a});
+    return rows_dispatch(
+        dtype, dim,
+        ListDq{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(drow), dq, static_cast<float*>(part),
+               a});
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(dtype, dim, Dq{q, k, v, dout, l, dr, dq, pt, a});
+  return dispatch(dtype, dim, Dq{q, k, v, dout, lse, drow, dq, part, a});
 }
 
 // As the dq entry, over the column-major visit list; writes dk and dv, with
-// part_dk, part_dv [batch*heads, n_slots, 64, dim] float32 scratch.
+// part_dk, part_dv [batch*heads, n_slots, 64, dim] scratch.
 extern "C" int dl4j_flash_attention_stream_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* drow, void* dk, void* dv,
     const void* pair_i, const void* pair_j, const void* units, int n_units,
     const void* merges, int n_merges, void* part_dk, void* part_dv,
     int n_slots, int batch, int seq, int heads, int dim, int causal,
-    float scale, int dtype, int variant, void* stream) {
+    double scale, int dtype, int variant, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || n_units <= 0) return 0;
   const Args a = make_args(pair_i, pair_j, units, n_units, merges, n_merges,
                            n_slots, batch, seq, heads, dim, causal, scale,
                            stream);
-  const float *l = static_cast<const float*>(lse),
-              *dr = static_cast<const float*>(drow);
-  float *pk = static_cast<float*>(part_dk), *pv = static_cast<float*>(part_dv);
   if (variant == 1)
-    return rows_dispatch(dtype, dim,
-                         ListDkv{q, k, v, dout, l, dr, dk, dv, pk, pv, a});
+    return rows_dispatch(
+        dtype, dim,
+        ListDkv{q, k, v, dout, static_cast<const float*>(lse),
+                static_cast<const float*>(drow), dk, dv,
+                static_cast<float*>(part_dk), static_cast<float*>(part_dv),
+                a});
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(dtype, dim, Dkv{q, k, v, dout, l, dr, dk, dv, pk, pv, a});
+  return dispatch(dtype, dim,
+                  Dkv{q, k, v, dout, lse, drow, dk, dv, part_dk, part_dv, a});
 }

@@ -43,7 +43,14 @@
 //
 // f32, bf16 and f16 pools (the f16 one a mixed_float16 LM's KV cache) are
 // instantiations of one template: the pages are read at their type and
-// widened at the load, and the softmax and the merge stay in f32.
+// widened at the load, and the softmax and the merge stay in f32. The f64
+// pools of a float64 LM are the same template at double, whose accumulation
+// type (`dl4j::acc_t`) is double: q, the scores, the softmax, the merge,
+// the workspace and the scale are double, 16-byte copies carry two values,
+// and a tile holds 16 rows at D = 64 (`paged_tile_rows`), 38 KB of shared
+// memory at one query; past 48 KB (D = 128) the launch opts into dynamic
+// shared memory. Bound at the f64 decode (4 slots, 8 heads, 1,024 keys,
+// D = 64): 33.6 MB of K and V, 10 us at 3.35 TB/s: bytes, as in f32.
 
 #include <cstdint>
 
@@ -57,16 +64,27 @@ constexpr int kMaxQ = 8;      // query positions per slot (T); speculative verif
 constexpr int kMaxDim = 128;
 constexpr int kMaxTile = 64;  // key rows per tile
 constexpr int kOuts = kMaxQ * kMaxDim / kThreads;  // (query, dim) outputs a thread
-constexpr int kMaxSmem = 48 * 1024;
+constexpr int kMaxSmem = 227 * 1024;  // the most a block can take on an H100
 
-// Shared memory: q [nq][dr] f32 (scaled, zero past D), the tile's scores
+// Shared memory: q [nq][dr] in the accumulation type (scaled, zero past
+// D), the tile's scores
 // then probabilities [kMaxQ][kMaxTile], the running max, sum and the tile's
 // correction [kMaxQ] each, the merge flag (padded to 16 bytes); then two
 // stages of K and V tiles [tile][dr + one 16-byte pad] in the operand dtype.
-// dr (D rounded up to 16 bytes) is a multiple of 4, so every part starts at
+// dr (D rounded up to 16 bytes) spans a multiple of 16 bytes in either
+// accumulation type, so every part starts at
 // a multiple of 16 bytes.
+template <typename A>
 __host__ __device__ constexpr int header_bytes(int nq, int dr) {
-  return (nq * dr + kMaxQ * kMaxTile + 3 * kMaxQ + 4) * 4;
+  return (nq * dr + kMaxQ * kMaxTile + 3 * kMaxQ) *
+             static_cast<int>(sizeof(A)) + 16;
+}
+
+__device__ __forceinline__ float fmadd(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fmadd(double a, double b, double c) {
+  return fma(a, b, c);
 }
 
 __device__ __forceinline__ void load_chunk(const float* p, float (&f)[4]) {
@@ -75,6 +93,12 @@ __device__ __forceinline__ void load_chunk(const float* p, float (&f)[4]) {
   f[1] = v.y;
   f[2] = v.z;
   f[3] = v.w;
+}
+
+__device__ __forceinline__ void load_chunk(const double* p, double (&f)[2]) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
 }
 
 __device__ __forceinline__ void load_chunk(const __half* p, float (&f)[8]) {
@@ -105,9 +129,11 @@ __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                    const T* __restrict__ vpool, const int* __restrict__ table,
                    const int* __restrict__ pos, T* __restrict__ o,
-                   float* __restrict__ part, int* __restrict__ counter, int nq,
-                   int heads, int dim, int page, int n_pages, int split_keys,
-                   int n_splits, int tile, int causal, int vec, float scale) {
+                   dl4j::acc_t<T>* __restrict__ part,
+                   int* __restrict__ counter, int nq, int heads, int dim,
+                   int page, int n_pages, int split_keys, int n_splits,
+                   int tile, int causal, int vec, dl4j::acc_t<T> scale) {
+  using A = dl4j::acc_t<T>;
   constexpr int kChunk = 16 / sizeof(T);  // elements in 16 bytes
   extern __shared__ __align__(16) unsigned char smem[];
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -126,13 +152,13 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   const int stride = dr + kChunk;
   const int cpr = dr / kChunk;  // 16-byte chunks a row
 
-  float* qs = reinterpret_cast<float*>(smem);
-  float* ss = qs + nq * dr;
-  float* m_run = ss + kMaxQ * kMaxTile;
-  float* l_run = m_run + kMaxQ;
-  float* corr = l_run + kMaxQ;
+  A* qs = reinterpret_cast<A*>(smem);
+  A* ss = qs + nq * dr;
+  A* m_run = ss + kMaxQ * kMaxTile;
+  A* l_run = m_run + kMaxQ;
+  A* corr = l_run + kMaxQ;
   int* flag = reinterpret_cast<int*>(corr + kMaxQ);
-  T* kv = reinterpret_cast<T*>(smem + header_bytes(nq, dr));
+  T* kv = reinterpret_cast<T*>(smem + header_bytes<A>(nq, dr));
 
   // One tile's K and V rows [key0, key0 + rows) into `stage`, one commit.
   // A thread keeps one 16-byte column of the rows (lc) and steps rows by
@@ -156,8 +182,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 #pragma unroll
         for (int i = 0; i < kChunk; ++i) {
           const bool in = lc * kChunk + i < dim;
-          kdst[r * stride + i] = in ? kpool[off + i] : dl4j::from_f32<T>(0.f);
-          vdst[r * stride + i] = in ? vpool[off + i] : dl4j::from_f32<T>(0.f);
+          kdst[r * stride + i] = in ? kpool[off + i] : dl4j::from_acc<T>(A(0));
+          vdst[r * stride + i] = in ? vpool[off + i] : dl4j::from_acc<T>(A(0));
         }
       }
     }
@@ -175,17 +201,17 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 
   for (int e = tid; e < nq * dr; e += kThreads) {
     const int t = e / dr, d = e - t * dr;
-    qs[e] = d < dim ? dl4j::to_f32(q[((static_cast<size_t>(b) * nq + t) *
+    qs[e] = d < dim ? dl4j::to_acc(q[((static_cast<size_t>(b) * nq + t) *
                                           heads + h) * dim + d]) * scale
-                    : 0.f;
+                    : A(0);
   }
   if (tid < kMaxQ) {
-    m_run[tid] = dl4j::kNeg;
-    l_run[tid] = 0.f;
+    m_run[tid] = dl4j::neg<A>();
+    l_run[tid] = A(0);
   }
-  float acc[kOuts];
+  A acc[kOuts];
 #pragma unroll
-  for (int i = 0; i < kOuts; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kOuts; ++i) acc[i] = A(0);
 
   const int groups = kThreads / tile;
   const int w = tid / 32, lane = tid % 32;
@@ -200,18 +226,24 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       if (r < rows) {
         const T* krow = ks + r * stride;
         for (int t = g; t < nq; t += groups) {
-          const float* qt = qs + t * dr;
-          float s = 0.f;
+          const A* qt = qs + t * dr;
+          A s = A(0);
           for (int c = 0; c < dr; c += kChunk) {
-            float kf[kChunk];
+            A kf[kChunk];
             load_chunk(krow + c, kf);
+            if constexpr (sizeof(A) == 4) {
 #pragma unroll
-            for (int i = 0; i < kChunk; i += 4) {
-              const float4 qv = *reinterpret_cast<const float4*>(qt + c + i);
-              s = fmaf(qv.x, kf[i], s);
-              s = fmaf(qv.y, kf[i + 1], s);
-              s = fmaf(qv.z, kf[i + 2], s);
-              s = fmaf(qv.w, kf[i + 3], s);
+              for (int i = 0; i < kChunk; i += 4) {
+                const float4 qv = *reinterpret_cast<const float4*>(qt + c + i);
+                s = fmaf(qv.x, kf[i], s);
+                s = fmaf(qv.y, kf[i + 1], s);
+                s = fmaf(qv.z, kf[i + 2], s);
+                s = fmaf(qv.w, kf[i + 3], s);
+              }
+            } else {
+              const double2 qv = *reinterpret_cast<const double2*>(qt + c);
+              s = fma(qv.x, kf[0], s);
+              s = fma(qv.y, kf[1], s);
             }
           }
           ss[t * kMaxTile + r] = s;
@@ -224,20 +256,20 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     for (int t = w; t < nq; t += kWarps) {
       const int limit = causal ? p0 + 1 + t : p0 + nq;
       const int vis = min(rows, limit - key0);
-      float* st = ss + t * kMaxTile;
-      const float m_old = m_run[t];
-      float mx = dl4j::kNeg;
-      for (int r = lane; r < vis; r += 32) mx = fmaxf(mx, st[r]);
-      const float m_new = fmaxf(m_old, dl4j::warp_max(mx));
-      float sum = 0.f;
+      A* st = ss + t * kMaxTile;
+      const A m_old = m_run[t];
+      A mx = dl4j::neg<A>();
+      for (int r = lane; r < vis; r += 32) mx = dl4j::fmx(mx, st[r]);
+      const A m_new = dl4j::fmx(m_old, dl4j::warp_max(mx));
+      A sum = A(0);
       for (int r = lane; r < rows; r += 32) {
-        const float p = r < vis ? expf(st[r] - m_new) : 0.f;
+        const A p = r < vis ? dl4j::ex(st[r] - m_new) : A(0);
         st[r] = p;
         sum += p;
       }
       sum = dl4j::warp_sum(sum);
       if (lane == 0) {
-        const float cr = expf(m_old - m_new);
+        const A cr = dl4j::ex(m_old - m_new);
         corr[t] = cr;
         l_run[t] = l_run[t] * cr + sum;
         m_run[t] = m_new;
@@ -249,11 +281,11 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       const int e = tid + i * kThreads;
       if (e < nq * dim) {
         const int t = e / dim, d = e - t * dim;
-        const float* pt = ss + t * kMaxTile;
-        float a = acc[i] * corr[t];
+        const A* pt = ss + t * kMaxTile;
+        A a = acc[i] * corr[t];
 #pragma unroll 8
         for (int r = 0; r < rows; ++r)
-          a = fmaf(pt[r], dl4j::to_f32(vs[r * stride + d]), a);
+          a = fmadd(pt[r], dl4j::to_acc(vs[r * stride + d]), a);
         acc[i] = a;
       }
     }
@@ -272,7 +304,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       if (e < nq * dim) {
         const int t = e / dim, d = e - t * dim;
         o[((out_row + t) * heads + h) * dim + d] =
-            dl4j::from_f32<T>(acc[i] / fmaxf(l_run[t], 1e-30f));
+            dl4j::from_acc<T>(acc[i] / dl4j::fmx(l_run[t], dl4j::tiny<A>()));
       }
     }
     return;
@@ -280,9 +312,9 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 
   // Partials: per split m [nq], l [nq], acc [nq][dim].
   const int ps = nq * (dim + 2);
-  float* row_part =
+  A* row_part =
       part + (static_cast<size_t>(b) * heads + h) * n_splits * ps;
-  float* mine = row_part + static_cast<size_t>(split) * ps;
+  A* mine = row_part + static_cast<size_t>(split) * ps;
 #pragma unroll
   for (int i = 0; i < kOuts; ++i) {
     const int e = tid + i * kThreads;
@@ -309,20 +341,20 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     const int e = tid + i * kThreads;
     if (e < nq * dim) {
       const int t = e / dim, d = e - t * dim;
-      float mx = dl4j::kNeg, l = 0.f, a = 0.f;
+      A mx = dl4j::neg<A>(), l = A(0), a = A(0);
 #pragma unroll 4
       for (int s = 0; s < n_active; ++s) {
-        const float* sp = row_part + static_cast<size_t>(s) * ps;
-        const float ms = __ldcg(sp + t), ls = __ldcg(sp + nq + t);
-        const float as = __ldcg(sp + 2 * nq + e);
-        const float m_new = fmaxf(mx, ms);
-        const float c_old = expf(mx - m_new), c_s = expf(ms - m_new);
+        const A* sp = row_part + static_cast<size_t>(s) * ps;
+        const A ms = __ldcg(sp + t), ls = __ldcg(sp + nq + t);
+        const A as = __ldcg(sp + 2 * nq + e);
+        const A m_new = dl4j::fmx(mx, ms);
+        const A c_old = dl4j::ex(mx - m_new), c_s = dl4j::ex(ms - m_new);
         l = l * c_old + ls * c_s;
         a = a * c_old + as * c_s;
         mx = m_new;
       }
       o[((out_row + t) * heads + h) * dim + d] =
-          dl4j::from_f32<T>(a / fmaxf(l, 1e-30f));
+          dl4j::from_acc<T>(a / dl4j::fmx(l, dl4j::tiny<A>()));
     }
   }
 }
@@ -332,27 +364,35 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
 struct PagedParams {
   int batch, nq, heads, dim, page, n_pages, pages_per_split, n_splits, tile,
       causal, dtype;
-  float scale;
+  double scale;  // rounded to f32 for every form but the f64 one
 };
 
 template <typename T>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const int* table, const int* pos, void* o, float* part, int* cnt,
+           const int* table, const int* pos, void* o, void* part, int* cnt,
            const PagedParams& p, cudaStream_t stream) {
+  using A = dl4j::acc_t<T>;
   constexpr int kChunk = 16 / sizeof(T);
   const int dr = (p.dim + kChunk - 1) / kChunk * kChunk;
-  const int smem = header_bytes(p.nq, dr) +
+  const int smem = header_bytes<A>(p.nq, dr) +
                    4 * p.tile * (dr + kChunk) * static_cast<int>(sizeof(T));
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const int vec = p.dim % kChunk == 0 &&
                   reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
   const dim3 grid(p.n_splits, p.heads, p.batch);
   paged_split_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), table, pos, static_cast<T*>(o), part,
-      cnt, p.nq, p.heads, p.dim, p.page, p.n_pages,
-      p.pages_per_split * p.page, p.n_splits, p.tile, p.causal, vec, p.scale);
+      static_cast<const T*>(v_pages), table, pos, static_cast<T*>(o),
+      static_cast<A*>(part), cnt, p.nq, p.heads, p.dim, p.page, p.n_pages,
+      p.pages_per_split * p.page, p.n_splits, p.tile, p.causal, vec,
+      static_cast<A>(p.scale));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -374,13 +414,13 @@ extern "C" int dl4j_paged_decode_attention(
   if (p.nq > kMaxQ || p.dim <= 0 || p.dim > kMaxDim || p.page <= 0 ||
       p.n_pages <= 0 || p.pages_per_split <= 0 ||
       p.n_splits != (p.n_pages + p.pages_per_split - 1) / p.pages_per_split ||
-      (p.tile != 16 && p.tile != 32 && p.tile != kMaxTile) ||
+      (p.tile != 8 && p.tile != 16 && p.tile != 32 && p.tile != kMaxTile) ||
       p.heads > 65535 || p.batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tp = static_cast<const int*>(table);
   const int* pp = static_cast<const int*>(pos);
-  float* part = static_cast<float*>(partials);
+  void* part = partials;
   int* cnt = static_cast<int*>(counters);
   if (p.dtype == dl4j::kFloat32)
     return launch<float>(q, k_pages, v_pages, tp, pp, o, part, cnt, p, s);
@@ -389,6 +429,8 @@ extern "C" int dl4j_paged_decode_attention(
                                  p, s);
   if (p.dtype == dl4j::kFloat16)
     return launch<__half>(q, k_pages, v_pages, tp, pp, o, part, cnt, p, s);
+  if (p.dtype == dl4j::kFloat64)
+    return launch<double>(q, k_pages, v_pages, tp, pp, o, part, cnt, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

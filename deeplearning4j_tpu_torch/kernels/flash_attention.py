@@ -30,10 +30,14 @@ Training (the custom_vjp `_flash_attention_pallas`, flash_attention.py:271):
 - `FlashAttentionFn` ties them together; `flash_attention` goes through it
   whenever autograd records and an input requires grad.
 
-Every flash row has two forms on the card, picked by dtype and head width
-alone (`flash_variant`) and counted by form in `kernels.variant_launches`:
-bf16 or f16 at D = 64 or 128 on the tensor cores (wgmma, the streamed
-tiles by TMA), f32 and every other D on the CUDA cores. Every row takes
+Every flash row has three forms on the card, picked by dtype and head
+width alone (`flash_variant`) and counted by form in
+`kernels.variant_launches`: bf16 or f16 at D = 64 or 128 on the tensor
+cores (wgmma, the streamed tiles by TMA), f32 and every other D on the
+CUDA cores, and f64, the CUDA-core kernels instantiated at double (their
+sums, softmax, lse, D and partials in double: lse, D and the workspaces
+are float64 beside a float64 q, `stat_dtype`), held to the plain versions
+at 1e-12. Row 8 reads f64 pages the same way. Every row takes
 f16 (the mixed_float16 and float16 policies; the JAX package sends f16 to
 XLA): the dS tiles of the f16 backward, resident or streamed, are held at
 a power of two per row so f16's range does not cut them
@@ -45,8 +49,9 @@ kernels over a schedule of one block per whole row or column of tiles
 
 Long context (csrc/flash_attention_stream.cu). Where the K/V of one
 (batch, head) outgrow `_RESIDENT_KV_LIMIT` (`streamed`: 2·T·D·itemsize >
-6 MiB, the JAX package's rule at :196, so T > 24,576 in bf16 and T >
-12,288 in f32 at D = 64), all three places the JAX package decides
+6 MiB, the JAX package's rule at :196, so T > 24,576 in bf16, T > 12,288
+in f32 and T > 6,144 in f64 at D = 64), all three places the JAX package
+decides
 (`_flash_fwd_bhtd` :244, the custom_vjp's `_fwd` :314 and `_bwd` :333)
 take the streamed kernels instead, here as there, by shape and dtype alone:
 - `flash_attention_stream` (row 4, `_flash_stream_kernel` :137): (o, lse),
@@ -91,6 +96,18 @@ def _acc_dtype(dtype):
     return torch.promote_types(dtype, torch.float32)
 
 
+# The dtype codes of the flash and paged C entries: the norm kernels' and
+# float64's (csrc/common.cuh kFloat64).
+_CODES = {**DTYPE_CODES, torch.float64: 4}
+
+
+def stat_dtype(dtype):
+    """The dtype of lse, D = rowsum(do * o) and the partial sums beside
+    tensors of `dtype`: float64 for float64 (the f64 forms compute in
+    double end to end), float32 for every other."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _default_scale(q, scale):
     return scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
 
@@ -133,13 +150,14 @@ def dense(q, k, v, causal: bool = True, scale: Optional[float] = None):
 def dense_attention_lse(q, k, v, causal: bool = True,
                         scale: Optional[float] = None):
     """Plain version of `flash_attention_fwd_lse`: (o [B, T, H, D],
-    lse [B, H, T] f32), lse = logsumexp of each row's scaled scores."""
+    lse [B, H, T] at `stat_dtype`), lse = logsumexp of each row's scaled
+    scores."""
     kernels.plain_calls["flash_attention_fwd_lse"].add()
     q_, k_, v_ = _bhtd(q, k, v)
     s = _masked_scores(q_, k_, causal, _default_scale(q, scale))
     lse = torch.logsumexp(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", torch.exp(s - lse[..., None]), v_)
-    return o.transpose(1, 2).to(q.dtype), lse.float()
+    return o.transpose(1, 2).to(q.dtype), lse.to(stat_dtype(q.dtype))
 
 
 def _bwd_terms(q, k, v, do, lse, drow, causal, scale):
@@ -168,9 +186,9 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, drow, causal, scale):
 
 
 def _check_cuda(name, ts, dtype):
-    if dtype not in DTYPE_CODES:
-        raise TypeError(f"{name} takes float32, bfloat16 or float16, not "
-                        f"{dtype}")
+    if dtype not in _CODES:
+        raise TypeError(f"{name} takes float32, bfloat16, float16 or "
+                        f"float64, not {dtype}")
     for t in ts:
         if t.dtype != dtype:
             raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
@@ -207,17 +225,19 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# The two forms of every flash row's kernel and their codes in the C entries.
-_VARIANTS = {"cuda_cores": 0, "wgmma": 1}
+# The forms of every flash row's kernel and their codes in the C entries:
+# the f64 form is the CUDA-core kernel at double (its dtype code says so).
+_VARIANTS = {"cuda_cores": 0, "wgmma": 1, "f64": 0}
 
 
 def flash_variant(dtype, d: int) -> str:
     """Which form of its kernel a flash row launches, by dtype and head
     width alone: "wgmma" (every product on the tensor cores, the streamed
-    tiles by TMA) for bf16 or f16 at D = 64 or 128, "cuda_cores" for f32
-    and every other D. One rule for the resident rows 3, 5 and 6 and the
-    streamed rows 4 and 7 (whose tile kernels the resident rows' form
-    shares). A
+    tiles by TMA) for bf16 or f16 at D = 64 or 128, "f64" (the CUDA-core
+    kernel instantiated at double, every sum, lse and D in double) for
+    float64, "cuda_cores" for f32 and every other D. One rule for the
+    resident rows 3, 5 and 6 and the streamed rows 4 and 7 (whose tile
+    kernels the resident rows' form shares). A
     dispatch by shape, not a fallback: a wgmma launch that fails raises.
 
     The tensor-core form reads q, k, v (and do) by TMA, from contiguous
@@ -228,6 +248,8 @@ def flash_variant(dtype, d: int) -> str:
     caching allocator's blocks are 512-byte aligned) when, and only when,
     do.data_ptr() % 16 != 0. q, k and v are the forward's inputs, which
     its own tensor-core form already took."""
+    if dtype == torch.float64:
+        return "f64"
     return "wgmma" if dtype in (torch.bfloat16, torch.float16) \
         and d in (64, 128) else "cuda_cores"
 
@@ -269,7 +291,7 @@ def flash_attention(q, k, v, causal: bool = True,
     with torch.cuda.device(q.device):
         _build.launch("dl4j_flash_attention_fwd", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), o.data_ptr(), b, t, h, d, int(causal),
-                      float(scale), DTYPE_CODES[q.dtype], _VARIANTS[variant],
+                      float(scale), _CODES[q.dtype], _VARIANTS[variant],
                       _stream(q))
     _counted("flash_attention", variant)
     return o
@@ -277,8 +299,8 @@ def flash_attention(q, k, v, causal: bool = True,
 
 def flash_attention_fwd_lse(q, k, v, causal: bool = True,
                             scale: Optional[float] = None):
-    """Training forward: (o [B, T, H, D], lse [B, H, T] f32). One launch,
-    in the form `flash_variant` picks."""
+    """Training forward: (o [B, T, H, D], lse [B, H, T] at `stat_dtype`).
+    One launch, in the form `flash_variant` picks."""
     scale = _default_scale(q, scale)
     if kernels.placement(q, k, v) == "cpu":
         return dense_attention_lse(q, k, v, causal, scale)
@@ -286,12 +308,12 @@ def flash_attention_fwd_lse(q, k, v, causal: bool = True,
     b, t, h, d = _check_qkv(name, q, k, v)
     variant = _variant(name, d, q, k, v)
     o = torch.empty_like(q)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, t), dtype=stat_dtype(q.dtype), device=q.device)
     with torch.cuda.device(q.device):
         _build.launch("dl4j_flash_attention_fwd_lse", q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       lse.data_ptr(), b, t, h, d, int(causal), float(scale),
-                      DTYPE_CODES[q.dtype], _VARIANTS[variant], _stream(q))
+                      _CODES[q.dtype], _VARIANTS[variant], _stream(q))
     _counted(name, variant)
     return o, lse
 
@@ -301,10 +323,11 @@ def _check_bwd(name, q, k, v, do, lse, drow):
     _check_cuda(name, (do,), q.dtype)
     if do.shape != q.shape:
         raise ValueError(f"do must be {tuple(q.shape)}, got {tuple(do.shape)}")
+    sd = stat_dtype(q.dtype)
     for what, a in (("lse", lse), ("drow", drow)):
-        if (a.dtype != torch.float32 or tuple(a.shape) != (b, h, t)
+        if (a.dtype != sd or tuple(a.shape) != (b, h, t)
                 or not a.is_contiguous()):
-            raise ValueError(f"{what} must be a contiguous float32 "
+            raise ValueError(f"{what} must be a contiguous {sd} "
                              f"[{b}, {h}, {t}]")
     return b, t, h, d
 
@@ -316,7 +339,7 @@ def _bwd_args(q, k, v, do, lse, drow):
 
 def flash_attention_bwd_dq(q, k, v, do, lse, drow, causal, scale):
     """dq from the recompute-from-lse formulas; drow = rowsum(do * o),
-    [B, H, T] f32 like lse. One launch, in the form `flash_variant`
+    [B, H, T] at `stat_dtype` like lse. One launch, in the form `flash_variant`
     picks."""
     if kernels.placement(q, k, v, do, lse, drow) == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, drow, causal, scale)
@@ -327,7 +350,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, drow, causal, scale):
     with torch.cuda.device(q.device):
         _build.launch("dl4j_flash_attention_bwd_dq",
                       *_bwd_args(q, k, v, do, lse, drow), dq.data_ptr(), b, t,
-                      h, d, int(causal), float(scale), DTYPE_CODES[q.dtype],
+                      h, d, int(causal), float(scale), _CODES[q.dtype],
                       _VARIANTS[variant], _stream(q))
     _counted(name, variant)
     return dq
@@ -345,17 +368,18 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, drow, causal, scale):
         _build.launch("dl4j_flash_attention_bwd_dkv",
                       *_bwd_args(q, k, v, do, lse, drow), dk.data_ptr(),
                       dv.data_ptr(), b, t, h, d, int(causal), float(scale),
-                      DTYPE_CODES[q.dtype], _VARIANTS[variant], _stream(q))
+                      _CODES[q.dtype], _VARIANTS[variant], _stream(q))
     _counted(name, variant)
     return dk, dv
 
 
 def _drow(o, do):
-    """D = rowsum(do * o) in f32 as [B, H, T], as the JAX package computes it
-    in XLA (flash_attention.py:502, :648)."""
+    """D = rowsum(do * o) as [B, H, T] in f32 (f64 for float64), as the JAX
+    package computes it in XLA (flash_attention.py:502, :648)."""
     if o.shape != do.shape:
         raise ValueError(f"o must be {tuple(do.shape)}, got {tuple(o.shape)}")
-    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    sd = stat_dtype(o.dtype)
+    return (do.to(sd) * o.to(sd)).sum(-1).transpose(1, 2).contiguous()
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
@@ -566,7 +590,8 @@ def _spans(t, triangle, order):
 def flash_stream_fwd_plain(q, k, v, causal, scale, pairs=None):
     """Plain version of row 4: a q tile at a time, an exact softmax over
     the keys of the tiles its row of the list visits (masked keys weigh
-    exp(-1e30 - lse) = 0). Returns (o [B, T, H, D], lse [B, H, T] f32)."""
+    exp(-1e30 - lse) = 0). Returns (o [B, T, H, D], lse [B, H, T] at
+    `stat_dtype`)."""
     kernels.plain_calls["flash_attention_stream"].add()
     triangle = _list_is_triangle(causal, pairs)
     q_, k_, v_ = _bhtd(q, k, v)
@@ -580,7 +605,7 @@ def flash_stream_fwd_plain(q, k, v, causal, scale, pairs=None):
         o[:, :, r0:r1] = torch.einsum(
             "bhqk,bhkd->bhqd", torch.exp(s - lse[:, :, r0:r1, None]),
             v_[:, :, c0:c1])
-    return o.transpose(1, 2).to(q.dtype), lse.float()
+    return o.transpose(1, 2).to(q.dtype), lse.to(stat_dtype(q.dtype))
 
 
 def _stream_bwd_terms(q_, k_, v_, do_, lse, drow, r0, r1, c0, c1, causal,
@@ -636,8 +661,8 @@ def _sched_args(sch_t):
             len(sch.units), merges.data_ptr(), len(sch.merges))
 
 
-def _partials(b, h, n_slots, *tail, device):
-    return torch.empty((b * h, n_slots, *tail), dtype=torch.float32,
+def _partials(b, h, n_slots, *tail, device, dtype):
+    return torch.empty((b * h, n_slots, *tail), dtype=stat_dtype(dtype),
                        device=device)
 
 
@@ -667,17 +692,17 @@ def flash_attention_stream(q, k, v, causal: bool = True,
                        _UNIT_TILES)
     n_slots = sch[3].n_slots
     o = torch.empty_like(q)
-    lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((b, h, t), dtype=stat_dtype(q.dtype), device=q.device)
            if with_lse else None)
-    acc = _partials(b, h, n_slots, _TILE, d, device=q.device)
-    ml = _partials(b, h, n_slots, 2, _TILE, device=q.device)
+    acc = _partials(b, h, n_slots, _TILE, d, device=q.device, dtype=q.dtype)
+    ml = _partials(b, h, n_slots, 2, _TILE, device=q.device, dtype=q.dtype)
     with torch.cuda.device(q.device):
         _build.launch("dl4j_flash_attention_stream_fwd", q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       None if lse is None else lse.data_ptr(),
                       *_sched_args(sch), acc.data_ptr(), ml.data_ptr(),
                       n_slots, b, t, h, d, int(causal), float(scale),
-                      DTYPE_CODES[q.dtype], _VARIANTS[variant], _stream(q))
+                      _CODES[q.dtype], _VARIANTS[variant], _stream(q))
     _counted("flash_attention_stream", variant)
     return (o, lse) if with_lse else o
 
@@ -697,13 +722,14 @@ def flash_attention_bwd_dq_stream(q, k, v, do, lse, drow, causal, scale, *,
     sch = _schedule_on(q.device, t, _list_is_triangle(causal, pairs), "row",
                        _UNIT_TILES)
     dq = torch.empty_like(q)
-    part = _partials(b, h, sch[3].n_slots, _TILE, d, device=q.device)
+    part = _partials(b, h, sch[3].n_slots, _TILE, d, device=q.device,
+                     dtype=q.dtype)
     with torch.cuda.device(q.device):
         _build.launch("dl4j_flash_attention_stream_bwd_dq",
                       *_bwd_args(q, k, v, do, lse, drow), dq.data_ptr(),
                       *_sched_args(sch), part.data_ptr(), sch[3].n_slots, b,
                       t, h, d, int(causal), float(scale),
-                      DTYPE_CODES[q.dtype], _VARIANTS[variant], _stream(q))
+                      _CODES[q.dtype], _VARIANTS[variant], _stream(q))
     _counted(name, variant)
     return dq
 
@@ -722,13 +748,14 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, drow, causal, scale, *,
                        _UNIT_TILES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     part_dk, part_dv = (_partials(b, h, sch[3].n_slots, _TILE, d,
-                                  device=q.device) for _ in range(2))
+                                  device=q.device, dtype=q.dtype)
+                        for _ in range(2))
     with torch.cuda.device(q.device):
         _build.launch("dl4j_flash_attention_stream_bwd_dkv",
                       *_bwd_args(q, k, v, do, lse, drow), dk.data_ptr(),
                       dv.data_ptr(), *_sched_args(sch), part_dk.data_ptr(),
                       part_dv.data_ptr(), sch[3].n_slots, b, t, h, d,
-                      int(causal), float(scale), DTYPE_CODES[q.dtype],
+                      int(causal), float(scale), _CODES[q.dtype],
                       _VARIANTS[variant], _stream(q))
     _counted(name, variant)
     return dk, dv
@@ -737,7 +764,7 @@ def flash_attention_bwd_dkv_stream(q, k, v, do, lse, drow, causal, scale, *,
 def flash_attention_bwd_stream(q, k, v, o, lse, do, causal: bool = True,
                                scale: Optional[float] = None):
     """Row 7: (dq, dk, dv) of the streamed forward, D = rowsum(do * o) in
-    f32 first (flash_attention.py:648)."""
+    f32 (f64 for float64) first (flash_attention.py:648)."""
     scale = _default_scale(q, scale)
     drow = _drow(o, do)
     dq = flash_attention_bwd_dq_stream(q, k, v, do, lse, drow, causal, scale)
@@ -805,11 +832,13 @@ _PAGED_MIN_SPLIT_KEYS = 32
 
 def paged_tile_rows(d: int, itemsize: int) -> int:
     """Key rows of one tile of csrc/paged_attention.cu: 64 where a head
-    row (D rounded up to 16 bytes) takes at most 128 bytes, 32 to 256, else
-    16, so that two stages of K and V stay under 37 KB of shared memory."""
+    row (D rounded up to 16 bytes) takes at most 128 bytes, 32 to 256, 16
+    to 512 (f64 at D = 64), else 8, so that two stages of K and V stay
+    under 37 KB of shared memory (f64 at D = 128: 33 KB)."""
     chunk = 16 // itemsize
     row = -(-d // chunk) * chunk * itemsize
-    return 64 if row <= 128 else 32 if row <= 256 else 16
+    return (64 if row <= 128 else 32 if row <= 256 else 16 if row <= 512
+            else 8)
 
 
 @functools.lru_cache(maxsize=256)
@@ -834,7 +863,7 @@ class _PagedParams(ctypes.Structure):
     of twelve ctypes conversions a call."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "batch", "nq", "heads", "dim", "page", "n_pages", "pages_per_split",
-        "n_splits", "tile", "causal", "dtype")] + [("scale", ctypes.c_float)]
+        "n_splits", "tile", "causal", "dtype")] + [("scale", ctypes.c_double)]
 
 
 _sm_counts = {}
@@ -854,7 +883,8 @@ def _sm_count(idx: int) -> int:
 def _paged_setup(q, k_pages, v_pages, page_table, pos, causal, idx):
     """The checks that depend on shapes and dtypes alone (raising as the
     kernel cannot take them), then the launch's scalars and its workspace:
-    f32 partials (m, l, acc) for every split, and one int32 counter a
+    partials (m, l, acc) for every split at `stat_dtype`, and one int32
+    counter a
     (slot, head), zeroed here once and left at 0 by every launch. A
     workspace serves one (shape, stream): launches on one stream run in
     turn, so they never share it at once."""
@@ -882,9 +912,9 @@ def _paged_setup(q, k_pages, v_pages, page_table, pos, causal, idx):
                             _sm_count(idx))
     params = _PagedParams(b, t, h, d, page, n_pages, plan.pages_per_split,
                           plan.n_splits, plan.tile, int(causal),
-                          DTYPE_CODES[q.dtype], d ** -0.5)
+                          _CODES[q.dtype], d ** -0.5)
     part = torch.empty(b * h * plan.n_splits * t * (d + 2),
-                       dtype=torch.float32, device=q.device)
+                       dtype=stat_dtype(q.dtype), device=q.device)
     cnt = torch.zeros(b * h, dtype=torch.int32, device=q.device)
     return (params, part, cnt, ctypes.addressof(params), part.data_ptr(),
             cnt.data_ptr())
@@ -929,4 +959,6 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, causal):
                       page_table.data_ptr(), pos.data_ptr(), o.data_ptr(),
                       part, cnt, params, stream)
     kernels.launches["paged_decode_attention"].add()
+    if q.dtype == torch.float64:
+        kernels.variant_launches["paged_decode_attention"]["f64"].add()
     return o

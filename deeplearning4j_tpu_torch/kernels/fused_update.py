@@ -51,6 +51,17 @@ computes (the same f32 arithmetic, rounded once), and moves them all with
 one copy. Those launches count in `kernels.variant_launches
 ["fused_update"]["device_scalars"]` too.
 
+float64 (a float64 policy's step, and its gradient checks): params, state
+and grads of one dtype, f32 or f64, per (kind, hyper) group. An f64 group
+launches the kernel's float64 form (the same entry at dtype code 4, the
+kernel over doubles; counted also in
+`kernels.variant_launches["fused_update"]["f64"]`), whose scalars go
+over as doubles in both the host and the device-scalar form: each tensor's
+lr and bc1, bc2 as the f32 values `scalars` computes (what the plain
+version multiplies by, widened exactly), the kind's constants (1 - beta1,
+...) and the factors in double, as the plain version's Python floats are.
+It has no low-precision copies (a float64 policy stores f64 params).
+
 On the card the apply mode equals the deltas mode followed by `d * factor`
 and `p.sub_(d)` bit for bit (the kernel's note says how). Both take lr,
 bc1 = 1 - beta1^t and bc2 = 1 - beta2^t as f32 values, computed on the
@@ -153,10 +164,11 @@ def apply_deltas(params, deltas, factors, sign) -> None:
             p.sub_(d) if sign > 0 else p.add_(d)
 
 
-def _kernel_scalars(kind, step, hyper):
-    """The kernel's 8 shared floats: bc1, bc2, then the kind's constants
-    with each (1 - x) computed in double and rounded once, as the
-    reference's Python-float constants are."""
+def _kernel_scalars(kind, step, hyper, wide: bool = False):
+    """The kernel's 8 shared scalars: bc1, bc2, then the kind's constants
+    with each (1 - x) computed in double and rounded once to f32, as the
+    reference's Python-float constants are; with `wide`, the float64
+    form's 8 doubles, the constants unrounded."""
     _, bc1, bc2 = scalars(0.0, step, kind, hyper)
     if kind == "adam":
         b1, b2, eps = hyper
@@ -168,22 +180,34 @@ def _kernel_scalars(kind, step, hyper):
         decay, eps = hyper
         rest = (decay, 1 - decay, eps)
     vals = [float(bc1), float(bc2), *rest]
-    return array.array("f", vals + [0.0] * (8 - len(vals)))
+    return array.array("d" if wide else "f", vals + [0.0] * (8 - len(vals)))
 
 
-def _refuse(mode, k, tensors, n, idx):
-    """Raise for the first of an entry's tensors the kernel cannot take."""
+# The group dtypes the kernel takes, and their codes (csrc/common.cuh).
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 4}
+_DTYPES = tuple(_DTYPE_CODES)
+
+
+def _refuse(mode, k, tensors, n, idx, dtype=torch.float32):
+    """Raise for the first of an entry's tensors the kernel cannot take;
+    `dtype` is the group's (its first grad's), f32 or f64."""
     for what, t in zip(("param" if mode else "delta", "grad", "state",
                         "state", "stored param"), tensors):
         if t is None:
             continue
         if what == "stored param":
-            if t.dtype not in _LP_CODES:
+            if t.dtype not in _LP_CODES or dtype != torch.float32:
                 raise TypeError(f"fused_update writes bfloat16 or float16 "
-                                f"stored params; {k!r} has {t.dtype}")
-        elif t.dtype != torch.float32:
-            raise TypeError(f"fused_update takes float32 params, state and "
-                            f"grads; {what} of {k!r} has {t.dtype}")
+                                f"stored params beside float32 masters; "
+                                f"{k!r} has {t.dtype}")
+        elif t.dtype not in _DTYPES:
+            raise TypeError(f"fused_update takes float32 or float64 params, "
+                            f"state and grads; {what} of {k!r} has "
+                            f"{t.dtype}")
+        elif t.dtype != dtype:
+            raise TypeError(f"fused_update takes one dtype per group: "
+                            f"{what} of {k!r} has {t.dtype}, the group "
+                            f"{dtype}")
         if t.get_device() != idx:
             raise ValueError(f"fused_update: {what} of {k!r} lies on "
                              f"{t.device}, not on cuda:{idx}")
@@ -196,10 +220,11 @@ _ptr, _numel = torch.Tensor.data_ptr, torch.Tensor.numel
 _device, _contiguous = torch.Tensor.get_device, torch.Tensor.is_contiguous
 
 
-def _grads_ok(grads, sizes, idx) -> bool:
-    """Whether every grad is f32 on card `idx`, contiguous, of its size."""
+def _grads_ok(grads, sizes, idx, dtype) -> bool:
+    """Whether every grad is of `dtype` on card `idx`, contiguous, of its
+    size."""
     return (list(map(_numel, grads)) == sizes
-            and {g.dtype for g in grads} == {torch.float32}
+            and {g.dtype for g in grads} == {dtype}
             and set(map(_device, grads)) == {idx}
             and all(map(_contiguous, grads)))
 
@@ -211,14 +236,15 @@ class _Table:
     their addresses; the element count per entry; then, over the entries
     with elements (`live`: their indices, None when that is all), the
     addresses of out, s0, s1, lp (0 for none) and grad, the size, lr and
-    factor; `lp_code`, the stored params' dtype code (0: none).
+    factor; `lp_code`, the stored params' dtype code (0: none); `dtype`,
+    the group's, f32 or f64 (`wide`: the float64 form).
     `apply_step` reuses a group's table from step to step while its params
     and state are the kept tensors at the kept addresses, and renews only
     the grads, lrs and factors (`_regrad`)."""
 
     __slots__ = ("idx", "kept", "addrs", "numels", "live", "outs", "s0s",
                  "s1s", "lps", "lp_code", "sizes", "gs", "lrs", "facs",
-                 "lr_ofs")
+                 "lr_ofs", "dtype", "wide")
 
     def _select(self, per_entry):
         live = self.live
@@ -229,9 +255,12 @@ def _pack(mode, entries) -> _Table:
     """Check every entry, `(out, grad, s0, s1 or None, lr, factor, name,
     the stored low-precision param or None)`, and pack it into a `_Table`
     (on the grads' card)."""
-    f32 = torch.float32
     t = _Table()
     t.idx = idx = entries[0][1].get_device()
+    f32 = t.dtype = entries[0][1].dtype  # the group's dtype
+    t.wide = f32 == torch.float64
+    if f32 not in _DTYPES:
+        _refuse(mode, entries[0][6], (None, entries[0][1]), 0, idx)
     lp0 = entries[0][7]
     for out, g, s0, s1, lr, factor, k, lp, *_ in entries:
         if (lp is None) != (lp0 is None) or (lp is not None and (
@@ -240,13 +269,13 @@ def _pack(mode, entries) -> _Table:
                 or not lp.is_contiguous() or lp.numel() != g.numel())):
             if lp is not None:
                 _refuse(mode, k, (None, None, None, None, lp), g.numel(),
-                        idx)
+                        idx, f32)
             raise ValueError(f"fused_update: the stored params of {k!r} "
                              "must match the group's (one dtype, on the "
                              "grads' card, contiguous, the grad's size)")
         # What the kernel's pointers need, in one condition (the cheap
-        # path; `_refuse` names the tensor at fault): f32 on the grads'
-        # card, contiguous, the grad's element count.
+        # path; `_refuse` names the tensor at fault): the group's dtype on
+        # the grads' card, contiguous, the grad's element count.
         n = g.numel()
         if not ((s1 is None or (s1.dtype is f32 and s1.get_device() == idx
                                 and s1.is_contiguous() and s1.numel() == n))
@@ -255,7 +284,10 @@ def _pack(mode, entries) -> _Table:
                 and s0.get_device() == idx and out.is_contiguous()
                 and g.is_contiguous() and s0.is_contiguous()
                 and out.numel() == n and s0.numel() == n):
-            _refuse(mode, k, (out, g, s0, s1), n, idx)
+            _refuse(mode, k, (out, g, s0, s1), n, idx, f32)
+    if lp0 is not None and t.wide:
+        _refuse(mode, entries[0][6], (None, None, None, None, lp0), 0, idx,
+                f32)
     t.lp_code = 0 if lp0 is None else _LP_CODES[lp0.dtype]
     t.numels = [e[1].numel() for e in entries]
     t.live = (None if all(t.numels) else
@@ -294,10 +326,10 @@ def _regrad(t, kind, items) -> bool:
             or list(map(_ptr, now)) != t.addrs):
         return False
     grads = [g for it in items for g in it.grads.values()]
-    if not _grads_ok(grads, t.numels, t.idx):
+    if not _grads_ok(grads, t.numels, t.idx, t.dtype):
         names = [k for it in items for k in it.grads]
         for g, n, k in zip(grads, t.numels, names):
-            _refuse(_SUB, k, (None, g), n, t.idx)
+            _refuse(_SUB, k, (None, g), n, t.idx, t.dtype)
     t.gs = t._select(list(map(_ptr, grads)))
     t.lrs = t._select([it.lr for it in items for _ in it.grads])
     t.lr_ofs = t._select([it.lr_of for it in items for _ in it.grads])
@@ -308,9 +340,11 @@ def _regrad(t, kind, items) -> bool:
 
 class ScalarSlots:
     """A device buffer of launch scalars for the device-scalar form (see
-    the module docstring): each launch given it takes the next slot, 8 shared floats then one lr per tensor, and the slot
-    remembers how to compute them for any step. `capacity` floats, on card
-    `device`."""
+    the module docstring): each launch given it takes the next slot, 8
+    shared scalars then one lr per tensor, and the slot remembers how to
+    compute them for any step. A float64 launch's slot holds doubles, two
+    floats each, from an even offset. `capacity` floats (4-byte units), on
+    card `device`."""
 
     def __init__(self, capacity: int, device):
         self.device = torch.device(device)
@@ -322,10 +356,13 @@ class ScalarSlots:
         self.slots = []  # (offset, kind, hyper, step, lr_ofs)
         self._copied = None  # the event after the last copy from `host`
 
-    def take(self, kind, hyper, step, lrs, lr_ofs) -> int:
+    def take(self, kind, hyper, step, lrs, lr_ofs, wide=False) -> int:
         """A slot for one launch of `len(lrs)` tensors at `step`, filled
-        with the values of that step; returns its device address."""
-        n = 8 + len(lrs)
+        with the values of that step (doubles with `wide`); returns its
+        device address."""
+        if wide:
+            self.used += self.used % 2  # 8-byte aligned
+        n = (8 + len(lrs)) * (2 if wide else 1)
         if self.used + n > self.buf.numel():
             raise RuntimeError("fused_update: the scalar slots are full")
         if any(f is None for f in lr_ofs):
@@ -333,8 +370,8 @@ class ScalarSlots:
                              "every tensor's schedule (UpdateItem.lr_of)")
         off = self.used
         self.used += n
-        self.slots.append((off, kind, hyper, step, list(lr_ofs)))
-        self._write(off, kind, hyper, step, lrs)
+        self.slots.append((off, kind, hyper, step, list(lr_ofs), wide))
+        self._write(off, kind, hyper, step, lrs, wide)
         if not torch.cuda.is_current_stream_capturing():
             # An eager launch reads the slot now; under capture `fill`
             # writes it before each replay.
@@ -342,20 +379,23 @@ class ScalarSlots:
                                         non_blocking=True)
         return self.buf.data_ptr() + 4 * off
 
-    def _write(self, off, kind, hyper, step, lrs):
-        vals = array.array("f", _kernel_scalars(kind, step, hyper))
-        vals.extend(array.array("f", lrs))
-        self.host[off:off + len(vals)] = torch.frombuffer(
-            vals, dtype=torch.float32)
+    def _write(self, off, kind, hyper, step, lrs, wide=False):
+        vals = _kernel_scalars(kind, step, hyper, wide)
+        if wide:  # the lrs as the f32 values the plain version uses
+            vals.extend(float(np.float32(lr)) for lr in lrs)
+        else:
+            vals.extend(array.array("f", lrs))
+        raw = torch.frombuffer(vals, dtype=torch.uint8).view(torch.float32)
+        self.host[off:off + raw.numel()] = raw
 
     def fill(self, shift: int = 0) -> None:
         """Every slot's values for its step + `shift`, in one copy to the
         device on the current stream (which the next replay reads)."""
         if self._copied is not None:
             self._copied.synchronize()  # the last copy has read `host`
-        for off, kind, hyper, step, lr_ofs in self.slots:
+        for off, kind, hyper, step, lr_ofs, wide in self.slots:
             s = step + shift
-            self._write(off, kind, hyper, s, [f(s) for f in lr_ofs])
+            self._write(off, kind, hyper, s, [f(s) for f in lr_ofs], wide)
         self.buf[:self.used].copy_(self.host[:self.used], non_blocking=True)
         self._copied = torch.cuda.Event()
         self._copied.record()
@@ -366,12 +406,14 @@ def _run(kind, hyper, step, mode, table, skip=None, slots=None) -> None:
     """Launch the kernel over `table`'s entries in slices of
     `_MAX_TENSORS` and bump the version counter of every tensor it wrote.
     The lrs and factors are rounded to f32 by the arrays, as `np.float32`
-    rounds them. `skip`: the device int32 flag, or None. `slots`: a
-    `ScalarSlots` each launch takes its scalars from (the device-scalar
-    form), or None."""
+    rounds them; a float64 table's go over as doubles (the lrs as their
+    f32 values, widened), to the kernel's float64 form. `skip`: the device
+    int32 flag, or None. `slots`: a `ScalarSlots` each launch takes its
+    scalars from (the device-scalar form), or None."""
     t = table
     if t.sizes:
-        sc = _kernel_scalars(kind, step, hyper)
+        wide = t.wide
+        sc = _kernel_scalars(kind, step, hyper, wide)
         code = _KIND_CODES[kind]
         stream = _build.current_stream(t.idx)
         with _build.on_device(t.idx):
@@ -380,17 +422,22 @@ def _run(kind, hyper, step, mode, table, skip=None, slots=None) -> None:
                 ptrs = array.array("Q", t.outs[i:j] + t.gs[i:j] + t.s0s[i:j]
                                    + t.s1s[i:j] + t.lps[i:j])
                 size = array.array("q", t.sizes[i:j])
-                lr = array.array("f", t.lrs[i:j])
-                fac = array.array("f", t.facs[i:j])
+                lr = (array.array("d", (float(np.float32(x))
+                                        for x in t.lrs[i:j])) if wide
+                      else array.array("f", t.lrs[i:j]))
+                fac = array.array("d" if wide else "f", t.facs[i:j])
                 dev = (None if slots is None else
                        slots.take(kind, hyper, step, t.lrs[i:j],
-                                  t.lr_ofs[i:j]))
+                                  t.lr_ofs[i:j], wide))
                 _build.launch("dl4j_fused_update", code, mode, len(size),
                               ptrs.buffer_info()[0], size.buffer_info()[0],
                               lr.buffer_info()[0], fac.buffer_info()[0],
-                              sc.buffer_info()[0], t.lp_code,
+                              sc.buffer_info()[0], _DTYPE_CODES[t.dtype],
+                              t.lp_code,
                               None if skip is None else skip.data_ptr(),
                               dev, stream)
+                if wide:
+                    kernels.variant_launches["fused_update"]["f64"].add()
                 kernels.launches["fused_update"].add()
                 if dev is not None:
                     kernels.variant_launches["fused_update"][
@@ -399,9 +446,14 @@ def _run(kind, hyper, step, mode, table, skip=None, slots=None) -> None:
 
 
 def launch_scalars_floats(table) -> int:
-    """Floats a `ScalarSlots` holds for one `_run` over `table`."""
+    """Floats (4-byte units) a `ScalarSlots` holds for one `_run` over
+    `table`: a float64 table's doubles take two each, and one more a
+    launch for the alignment."""
     n = len(table.sizes)
-    return n + 8 * (-(-n // _MAX_TENSORS))
+    launches = -(-n // _MAX_TENSORS)
+    if table.wide:
+        return 2 * (n + 8 * launches) + launches
+    return n + 8 * launches
 
 
 def _item_tensors(kind, it):

@@ -247,7 +247,7 @@ def test_kernel_sequence_passes_each_c_entry_its_signature(monkeypatch, train,
         for a, t in zip(args, sig):
             if t is _build._I:
                 assert isinstance(a, int), (name, a)
-            elif t is _build._F:
+            elif t in (_build._F, _build._D):
                 assert isinstance(a, float), (name, a)
             else:
                 assert a is None or isinstance(a, int), (name, a)

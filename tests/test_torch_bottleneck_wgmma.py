@@ -139,7 +139,7 @@ def test_each_conv_is_handed_the_form_of_the_rule(recorded, dtype, variant,
     assert counts["launches"][name] == 1
     assert counts["variants"][name] == {
         "wgmma": int(variant == "wgmma"),
-        "cuda_cores": int(variant == "cuda_cores")}
+        "cuda_cores": int(variant == "cuda_cores"), "f64": 0}
 
 
 def test_a_misaligned_operand_is_refused_before_any_launch(recorded):
@@ -153,7 +153,7 @@ def test_a_misaligned_operand_is_refused_before_any_launch(recorded):
                          False)
     assert recorded == []
     assert kernels.counts()["variants"]["bottleneck_infer"] == {
-        "wgmma": 0, "cuda_cores": 0}
+        "wgmma": 0, "cuda_cores": 0, "f64": 0}
 
 
 # ------------------------------------------------ the rounding, emulated

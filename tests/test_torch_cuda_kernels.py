@@ -256,8 +256,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 160, device=cuda)  # D > 128
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+    # float64 is taken (the f64 forms); a dtype no form takes is refused.
     with pytest.raises(TypeError):
-        fa.flash_attention(q.double(), q.double(), q.double())
+        fa.flash_attention(*(q[..., :64].to(torch.int32),) * 3)
     # f16 reaches every kernel now: rows 2 and 4 take it as their plain
     # versions do (the rest: the f16 section at the end of this file).
     rng = np.random.RandomState(2)
@@ -980,7 +981,7 @@ def _wgmma_block(x, params, state, stride, project, train,
                                      activation=activation, train=train)
     counts = kernels.counts()
     assert counts["launches"][name] == 1
-    assert counts["variants"][name] == {"wgmma": 1, "cuda_cores": 0}
+    assert counts["variants"][name] == {"wgmma": 1, "cuda_cores": 0, "f64": 0}
     names = ("a", "b", "c") + (("proj",) if project else ())
     flat = [params[f"{k}_{n}"].float() for n in names
             for k in ("W", "gamma", "beta")]
@@ -1012,6 +1013,19 @@ def test_bottleneck_wgmma_matches_plain_in_f32_at_every_resnet50_shape(
     # I1's 8 block shapes (inference at 224) and T2's (training at 64), B=2.
     h, cin, f1, s, project = _resnet50_block_shapes(image)[index]
     x, params, state = _block(np.random.RandomState(40 + index), 2, h, cin,
+                              f1, project, torch.bfloat16, cuda)
+    _close_block(*_wgmma_block(x, params, state, (s, s), project, train))
+
+
+@pytest.mark.parametrize("b", [16, 128])
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("index", range(8))
+def test_bottleneck_wgmma_matches_plain_at_the_cifar_shapes(cuda, b, train,
+                                                           index):
+    # ResNet-50's 8 block shapes at 32 px (the records phase's CIFAR-10:
+    # 8x8 down to 1x1), at B=128 and at the epoch's last batch of 16.
+    h, cin, f1, s, project = _resnet50_block_shapes(32)[index]
+    x, params, state = _block(np.random.RandomState(80 + index), b, h, cin,
                               f1, project, torch.bfloat16, cuda)
     _close_block(*_wgmma_block(x, params, state, (s, s), project, train))
 
@@ -1081,7 +1095,7 @@ def test_bottleneck_variant_launches_count_each_form(cuda, dtype, int8, cin,
         counts = kernels.counts()
         assert counts["launches"][name] == 1
         assert counts["variants"][name] == {
-            k: int(k == want) for k in ("wgmma", "cuda_cores")}
+            k: int(k == want) for k in ("wgmma", "cuda_cores", "f64")}
         assert not any(counts["plain_calls"].values())
 
 
@@ -1100,8 +1114,8 @@ def test_bottleneck_wgmma_refuses_what_it_cannot_take(cuda):
                               train=False)
     counts = kernels.counts()
     assert not any(counts["launches"].values())
-    assert counts["variants"]["bottleneck_infer"] == {"wgmma": 0,
-                                                      "cuda_cores": 0}
+    assert counts["variants"]["bottleneck_infer"] == {
+        "wgmma": 0, "cuda_cores": 0, "f64": 0}
     # The C entry's tensor-core form refuses an operand it cannot read (f32
     # x with no prologue, int8 weights): an error, not the other form.
     stream = torch.cuda.current_stream().cuda_stream
@@ -1479,14 +1493,14 @@ def test_stream_kernels_are_deterministic(cuda, monkeypatch):
     # bf16 at D = 64: every unit kernel in its tensor-core form.
     monkeypatch.setattr(fa, "_UNIT_TILES", 3)
     forms = _repeat_is_equal(cuda, (1, 1000, 2, 64))
-    assert all(forms[n] == {"wgmma": 2, "cuda_cores": 0}
+    assert all(forms[n] == {"wgmma": 2, "cuda_cores": 0, "f64": 0}
                for n in STREAM_NAMES)
 
 
 def test_stream_kernels_are_deterministic_at_d128(cuda, monkeypatch):
     monkeypatch.setattr(fa, "_UNIT_TILES", 3)
     forms = _repeat_is_equal(cuda, (2, 700, 2, 128))
-    assert all(forms[n] == {"wgmma": 2, "cuda_cores": 0}
+    assert all(forms[n] == {"wgmma": 2, "cuda_cores": 0, "f64": 0}
                for n in STREAM_NAMES)
 
 
@@ -1547,8 +1561,8 @@ def test_stream_wgmma_refuses_what_tma_cannot_take(cuda):
         fa.flash_attention_stream(ok, strided, ok)
     c = kernels.counts()
     assert c["launches"]["flash_attention_stream"] == 0
-    assert c["variants"]["flash_attention_stream"] == {"wgmma": 0,
-                                                       "cuda_cores": 0}
+    assert c["variants"]["flash_attention_stream"] == {
+        "wgmma": 0, "cuda_cores": 0, "f64": 0}
 
 
 def test_stream_bwd_wgmma_refuses_what_tma_cannot_take(cuda):
@@ -1572,7 +1586,7 @@ def test_stream_bwd_wgmma_refuses_what_tma_cannot_take(cuda):
     c = kernels.counts()
     for name in STREAM_NAMES[1:]:
         assert c["launches"][name] == 0
-        assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0}
+        assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0, "f64": 0}
 
 
 def test_flash_attention_fn_copies_a_misaligned_do_on_the_card(
@@ -1593,7 +1607,7 @@ def test_flash_attention_fn_copies_a_misaligned_do_on_the_card(
                                g.clone())
     c = kernels.counts()
     for name in STREAM_NAMES[1:]:
-        assert c["variants"][name] == {"wgmma": 2, "cuda_cores": 0}
+        assert c["variants"][name] == {"wgmma": 2, "cuda_cores": 0, "f64": 0}
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -1642,7 +1656,7 @@ RESIDENT_NAMES = ("flash_attention", "flash_attention_fwd_lse",
 # hit), one tile, one row into a second, and the training step's T less 24
 # and whole; B = 16 is the training step's batch.
 RESIDENT_T = [1, 40, 64, 65, 1000, 1024]
-WGMMA_ONCE = {"wgmma": 1, "cuda_cores": 0}
+WGMMA_ONCE = {"wgmma": 1, "cuda_cores": 0, "f64": 0}
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -1713,7 +1727,7 @@ def test_resident_wgmma_kernels_are_deterministic(cuda, d):
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     forms = kernels.counts()["variants"]
-    assert all(forms[n] == {"wgmma": 2, "cuda_cores": 0}
+    assert all(forms[n] == {"wgmma": 2, "cuda_cores": 0, "f64": 0}
                for n in RESIDENT_NAMES)
 
 
@@ -1745,7 +1759,7 @@ def test_resident_wgmma_refuses_what_tma_cannot_take(cuda):
     c = kernels.counts()
     for name in RESIDENT_NAMES:
         assert c["launches"][name] == 0
-        assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0}
+        assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0, "f64": 0}
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -1789,7 +1803,7 @@ def test_flash_attention_fn_copies_a_misaligned_do_when_resident(cuda):
                                g.clone())
     c = kernels.counts()
     for name in RESIDENT_NAMES[2:]:
-        assert c["variants"][name] == {"wgmma": 2, "cuda_cores": 0}
+        assert c["variants"][name] == {"wgmma": 2, "cuda_cores": 0, "f64": 0}
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -2437,8 +2451,8 @@ def test_quantized_bottleneck_graph_on_the_card_matches_the_cpu(cuda,
     got = card.output(x)[0]
     counts = kernels.counts()
     assert counts["launches"]["bottleneck_infer"] == 16
-    assert counts["variants"]["bottleneck_infer"] == {"wgmma": 0,
-                                                      "cuda_cores": 16}
+    assert counts["variants"]["bottleneck_infer"] == {
+        "wgmma": 0, "cuda_cores": 16, "f64": 0}
     assert counts["plain_calls"]["bottleneck_infer"] == 0
     np.testing.assert_allclose(got, cpu.output(x)[0], atol=4e-2)
 
@@ -2627,8 +2641,8 @@ def _f16_block(x, params, state, stride, project, train, form):
                                      activation="relu", train=train)
     counts = kernels.counts()
     assert counts["launches"][name] == 1
-    assert counts["variants"][name] == {k: int(k == form)
-                                        for k in ("wgmma", "cuda_cores")}
+    assert counts["variants"][name] == {
+        k: int(k == form) for k in ("wgmma", "cuda_cores", "f64")}
     assert not any(counts["plain_calls"].values())
     deq = {k: (bb._dequant(a, params[k + "__scale"], torch.float32)
                if a.dtype == torch.int8 else a.float())
@@ -2736,6 +2750,255 @@ def test_lstm_cell_f64_form_matches_plain(cuda, peephole, masked, gate, act,
     assert kernels.variant_launches["lstm_cell"]["f64"].value == before + 1
     for g, w in zip(got, lc.lstm_cell_plain(*args, gate, act)):
         _close_f64(g, w)
+
+
+def _row_close_f64(got, want):
+    """chip_smoke.py's `row_rel_err` at 1e-12: the worst row's largest
+    |err| over its largest |want| (1 for a row of zeros), rows along the
+    last dim."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float64
+    scale = want.abs().amax(-1)
+    scale = scale.where(scale > 0, scale.new_ones(()))
+    err = float(((got - want).abs().amax(-1) / scale).max())
+    assert err <= F64_RTOL, err
+
+
+def _f64_qkv(rng, b, t, h, d, dev):
+    return [torch.tensor(rng.randn(b, t, h, d), device=dev) for _ in range(3)]
+
+
+def _grad_magnitudes(q, k, v, do, lse, drow, causal, scale):
+    """The sums of |terms| behind each element of dq, dk and dv (the plain
+    formulas with every factor in absolute value), [B, T, H, D] each. A
+    gradient row can cancel to zero in exact arithmetic (dq of the first
+    causal query: p = 1 and dp = D), where its largest |want| is rounding
+    noise; its error is then held against these sums instead."""
+    q_, k_, v_, do_ = (a.transpose(1, 2) for a in (q, k, v, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", q_, k_) * scale
+    if causal:
+        t = s.shape[-1]
+        s = s.masked_fill(torch.triu(torch.ones(t, t, dtype=torch.bool,
+                                                device=s.device), 1), -1e30)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do_.abs(), v_.abs())
+    ds = p * (dp + drow.abs()[..., None])
+    mags = (torch.einsum("bhqk,bhkd->bhqd", ds, k_.abs()) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", ds, q_.abs()) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", p, do_.abs()))
+    return [m.transpose(1, 2) for m in mags]
+
+
+def _grad_close_f64(got, want, mag):
+    """|got - want| of the worst row over its largest sum of |terms|, at
+    1e-12 (see `_grad_magnitudes`)."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float64
+    scale = mag.amax(-1)
+    scale = scale.where(scale > 0, scale.new_ones(()))
+    err = float(((got - want).abs().amax(-1) / scale).max())
+    assert err <= F64_RTOL, err
+
+
+F64_FLASH = ["flash_attention", "flash_attention_fwd_lse",
+             "flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
+
+
+@pytest.mark.parametrize("t", [1, 65, 200])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_resident_flash_f64_forms_match_plain(cuda, t, d, causal):
+    # Rows 3, 5 and 6 in double: o, lse (f64), dq, dk, dv.
+    rng = np.random.RandomState(t + d)
+    q, k, v = _f64_qkv(rng, 2, t, 2, d, cuda)
+    do = torch.tensor(rng.randn(2, t, 2, d), device=cuda)
+    kernels.reset_counts()
+    o = fa.flash_attention(q, k, v, causal)
+    o2, lse = fa.flash_attention_fwd_lse(q, k, v, causal)
+    assert lse.dtype == torch.float64
+    drow = fa._drow(o2, do)
+    scale = d ** -0.5
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, drow, causal, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, drow, causal,
+                                        scale)
+    c = kernels.counts()
+    for name in F64_FLASH:
+        assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0, "f64": 1}
+    assert not any(c["plain_calls"].values())
+    want_o, want_lse = fa.dense_attention_lse(q, k, v, causal)
+    _row_close_f64(o, want_o)
+    _row_close_f64(o2, want_o)
+    _row_close_f64(lse, want_lse)
+    mags = _grad_magnitudes(q, k, v, do, lse, drow, causal, scale)
+    wants = (fa.flash_bwd_dq_plain(q, k, v, do, lse, drow, causal, scale),
+             *fa.flash_bwd_dkv_plain(q, k, v, do, lse, drow, causal, scale))
+    for g, w, m in zip((dq, dk, dv), wants, mags):
+        _grad_close_f64(g, w, m)
+
+
+@pytest.mark.parametrize("t,unit", [(300, 2), (700, 64), (129, 1)])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("pairs", ["triangle", "rectangle"])
+def test_streamed_flash_f64_forms_match_plain(cuda, monkeypatch, t, unit, d,
+                                              pairs):
+    # Rows 4 and 7 in double, with runs of several units (merge and sums)
+    # at small unit sizes.
+    monkeypatch.setattr(fa, "_UNIT_TILES", unit)
+    rng = np.random.RandomState(t + d + unit)
+    q, k, v = _f64_qkv(rng, 1, t, 2, d, cuda)
+    do = torch.tensor(rng.randn(1, t, 2, d), device=cuda)
+    kernels.reset_counts()
+    o, lse = fa.flash_attention_stream(q, k, v, True, pairs=pairs)
+    drow = fa._drow(o, do)
+    scale = d ** -0.5
+    dq = fa.flash_attention_bwd_dq_stream(q, k, v, do, lse, drow, True,
+                                          scale, pairs=pairs)
+    dk, dv = fa.flash_attention_bwd_dkv_stream(q, k, v, do, lse, drow, True,
+                                               scale, pairs=pairs)
+    c = kernels.counts()
+    for name in ("flash_attention_stream", "flash_attention_bwd_dq_stream",
+                 "flash_attention_bwd_dkv_stream"):
+        assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0, "f64": 1}
+    assert not any(c["plain_calls"].values())
+    want_o, want_lse = fa.flash_stream_fwd_plain(q, k, v, True, scale, pairs)
+    _row_close_f64(o, want_o)
+    _row_close_f64(lse, want_lse)
+    mags = _grad_magnitudes(q, k, v, do, lse, drow, True, scale)
+    wants = (fa.flash_stream_bwd_dq_plain(q, k, v, do, lse, drow, True,
+                                          scale, pairs),
+             *fa.flash_stream_bwd_dkv_plain(q, k, v, do, lse, drow, True,
+                                            scale, pairs))
+    for g, w, m in zip((dq, dk, dv), wants, mags):
+        _grad_close_f64(g, w, m)
+
+
+def test_streamed_rule_moves_with_itemsize():
+    # 2 T D itemsize > 6 MiB: at D = 64, f32 streams past T = 12,288 and
+    # f64 past T = 6,144.
+    for t, dtype, want in ((6144, torch.float64, False),
+                           (6145, torch.float64, True),
+                           (8192, torch.float32, False),
+                           (8192, torch.float64, True)):
+        assert fa.streamed(torch.empty((1, t, 1, 64), dtype=dtype)) == want
+
+
+@pytest.mark.parametrize("pos", [[1000, 700, 330, 40], [0, 63, 64, 65]])
+@pytest.mark.parametrize("d,t", [(64, 1), (64, 4), (128, 1), (24, 2)])
+def test_paged_decode_f64_form_matches_plain(cuda, pos, d, t):
+    # Row 8 in double: the LM's decode shape (4 slots, 8 heads, pages of 64)
+    # and other widths; tiles of 32 key rows at D = 24, 16 at D = 64, 8 at
+    # D = 128.
+    rng = np.random.RandomState(sum(pos) + d + t)
+    args = _paged_case(rng, torch.float64, cuda, pos, d=d, t=t, free=())
+    args = (args[0].double(), args[1].double(), args[2].double(), *args[3:])
+    assert fa.paged_tile_rows(d, 8) == {24: 32, 64: 16, 128: 8}[d]
+    for causal in (True, False):
+        kernels.reset_counts()
+        got = fa.paged_decode_attention(*args, causal)
+        c = kernels.counts()
+        assert c["launches"]["paged_decode_attention"] == 1
+        assert c["variants"]["paged_decode_attention"] == {"f64": 1}
+        _row_close_f64(got, fa.paged_gather_dense(*args, causal))
+
+
+@pytest.mark.parametrize("kind,hyper", [("adam", (0.9, 0.999, 1e-8)),
+                                        ("nesterovs", (0.9,)),
+                                        ("rmsprop", (0.95, 1e-8))])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("slots", [False, True])
+def test_fused_update_f64_form_matches_plain(cuda, kind, hyper, sign, slots):
+    # Row 9 in double, both entries (apply and deltas), step 7 (Adam's bias
+    # corrections), a bias-rate factor, the device-scalar form.
+    rng = np.random.RandomState(len(kind))
+    shapes = [(33,), (64, 17), (5, 5, 3), (1,)]
+    fields = fused_update.FIELDS[kind]
+
+    def tensors():
+        r = np.random.RandomState(1)
+        params = {f"p{i}": torch.tensor(r.randn(*s), device=cuda)
+                  for i, s in enumerate(shapes)}
+        state = {f: {k: torch.tensor(r.rand(*t.shape) * 0.1, device=cuda)
+                     for k, t in params.items()} for f in fields}
+        return params, state
+
+    grads = {f"p{i}": torch.tensor(rng.randn(*s), device=cuda)
+             for i, s in enumerate(shapes)}
+    p_k, s_k = tensors()
+    p_w, s_w = tensors()
+    factors = {"p1": 2.0}
+    item = fused_update.UpdateItem(p_k, s_k, grads, 0.0123, factors,
+                                   lr_of=lambda step: 0.0123)
+    buf = fused_update.ScalarSlots(64, cuda) if slots else None
+    kernels.reset_counts()
+    fused_update.apply_step(kind, hyper, [item], 7, sign, slots=buf)
+    c = kernels.counts()
+    assert c["variants"]["fused_update"]["f64"] == 1
+    assert c["variants"]["fused_update"]["device_scalars"] == int(slots)
+    st, deltas = fused_update._PLAIN[kind](s_w, grads, 0.0123, 7, *hyper)
+    fused_update.apply_deltas(p_w, deltas, factors, sign)
+    for k in p_k:
+        _row_close_f64(p_k[k], p_w[k])
+        for f in fields:
+            _row_close_f64(s_k[f][k], st[f][k])
+    # The per-layer seam (deltas mode).
+    _, s_d = tensors()
+    _, got = fused_update.dispatch(kind, s_d, grads, 0.0123, 7, hyper)
+    _, s_p = tensors()
+    _, want = fused_update._PLAIN[kind](s_p, grads, 0.0123, 7, *hyper)
+    for k in got:
+        _row_close_f64(got[k], want[k])
+
+
+def _block_f64(rng, b, h, cin, f1, project, dev, int8=False):
+    x, params, state = _block(rng, b, h, cin, f1, project, torch.float64,
+                              dev, int8=int8)
+    params = {k: a if a.dtype in (torch.int8,) or k.endswith("__scale")
+              else a.double() for k, a in params.items()}
+    state = {k: a.double() for k, a in state.items()}
+    return x.double(), params, state
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 64, 16, 1, True),
+                                   (2, 8, 64, 16, 1, False),
+                                   (2, 9, 32, 8, 2, True),
+                                   (2, 16, 256, 64, 2, True)])
+@pytest.mark.parametrize("train", [True, False])
+def test_bottleneck_f64_form_matches_plain(cuda, shape, train):
+    # Rows 11 and 12 in double: y and the batch statistics.
+    b, h, cin, f1, s, project = shape
+    if not project:
+        cin = 4 * f1
+    x, params, state = _block_f64(np.random.RandomState(h + cin), b, h, cin,
+                                  f1, project, cuda)
+    name = "bottleneck_train" if train else "bottleneck_infer"
+    kernels.reset_counts()
+    y, stats = bb.bottleneck_forward(x, params, state, stride=(s, s),
+                                     project=project, eps=1e-5,
+                                     activation="relu", train=train)
+    c = kernels.counts()
+    assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0, "f64": 1}
+    assert not any(c["plain_calls"].values())
+    want_y, want_stats = _plain_block(x, params, state, (s, s), project,
+                                      train)
+    _row_close_f64(y, want_y)
+    if train:
+        for k in stats:
+            _row_close_f64(stats[k][None], want_stats[k][None])
+
+
+def test_bottleneck_f64_form_takes_int8_weights(cuda):
+    # An int8 checkpoint under a float64 policy: dequantized at the load in
+    # double, as the reference dequantizes at the compute dtype.
+    x, params, state = _block_f64(np.random.RandomState(3), 2, 8, 64, 16,
+                                  True, cuda, int8=True)
+    y, _ = bb.bottleneck_forward(x, params, state, stride=(2, 2),
+                                 project=True, eps=1e-5, activation="relu",
+                                 train=False)
+    deq = {k: (bb._dequant(a, params[k + "__scale"], torch.float64)
+               if a.dtype == torch.int8 else a)
+           for k, a in params.items() if not k.endswith("__scale")}
+    want, _ = _plain_block(x, deq, state, (2, 2), True, False)
+    _row_close_f64(y, want)
 
 
 # ------------------------------------------- softmax and callable cells

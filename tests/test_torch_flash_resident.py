@@ -29,7 +29,8 @@ def _inputs(b, t, h, d, seed, n=4):
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     *[(torch.float32, d, "cuda_cores") for d in (16, 24, 32, 64, 96, 128)],
-    *[(torch.bfloat16, d, "cuda_cores") for d in (8, 16, 24, 32, 96)]])
+    *[(torch.bfloat16, d, "cuda_cores") for d in (8, 16, 24, 32, 96)],
+    *[(torch.float64, d, "f64") for d in (16, 64, 128)]])
 def test_resident_variant_by_dtype_and_width(dtype, d, want):
     assert fa.resident_variant(dtype, d) == want
     # One rule for every flash row: the streamed rows' too.
@@ -42,8 +43,9 @@ def test_every_flash_row_counts_its_forms():
     for name in (*RESIDENT, "flash_attention_stream",
                  "flash_attention_bwd_dq_stream",
                  "flash_attention_bwd_dkv_stream"):
-        assert set(forms[name]) == {"wgmma", "cuda_cores"}
-    assert "paged_decode_attention" not in forms
+        assert set(forms[name]) == {"wgmma", "cuda_cores", "f64"}
+    # The paged decode has one form besides its first: float64.
+    assert set(forms["paged_decode_attention"]) == {"f64"}
 
 
 @pytest.mark.parametrize("t", [1, 40, 64, 65])
@@ -59,7 +61,7 @@ def test_cpu_tensors_take_no_variant_of_the_resident_kernels(t):
     assert [c["plain_calls"][n] for n in RESIDENT] == [1, 1, 1, 1]
     assert not any(c["launches"].values())
     for name in RESIDENT:
-        assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0}
+        assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0, "f64": 0}
     assert dq.shape == dk.shape == dv.shape == q.shape
 
 

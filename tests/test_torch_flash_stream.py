@@ -239,8 +239,8 @@ def test_cpu_tensors_take_no_variant_of_the_kernel():
     c = kernels.counts()
     assert c["plain_calls"]["flash_attention_stream"] == 1
     assert c["launches"]["flash_attention_stream"] == 0
-    assert c["variants"]["flash_attention_stream"] == {"wgmma": 0,
-                                                       "cuda_cores": 0}
+    assert c["variants"]["flash_attention_stream"] == {
+        "wgmma": 0, "cuda_cores": 0, "f64": 0}
 
 
 @pytest.mark.parametrize("dtype,d,want", [
@@ -261,7 +261,7 @@ def test_cpu_tensors_take_no_variant_of_the_backward_kernels():
     assert [c["plain_calls"][n] for n in STREAM] == [0, 1, 1]
     assert not any(c["launches"].values())
     for name in STREAM[1:]:
-        assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0}
+        assert c["variants"][name] == {"wgmma": 0, "cuda_cores": 0, "f64": 0}
 
 
 def bf16_operand_row_errors(t=4096, h=2, d=64, seed=11, b=1):

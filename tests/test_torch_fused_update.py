@@ -9,7 +9,9 @@
   policy, `ops/grad_norm` for every mode, `nn/losses.score` for sparse and
   dense labels;
 - LayerNorm gradients (`LayerNormFn`) against `jax.grad` through
-  `layernorm_norm_act` with its Pallas forward forced.
+  `layernorm_norm_act` with its Pallas forward forced;
+- the scalars `apply_step` hands the kernel's C entry (the launch faked),
+  f32 for the f32 form and doubles for the float64 form.
 
 Inputs come from numpy RandomStates and go to both packages. Tolerances:
 updates rtol 1e-5, atol 1e-6 (tests/test_kernels.py's; an FMA or a pow may
@@ -218,3 +220,58 @@ def test_layernorm_gradients_match_jax(monkeypatch, dtype, act):
         np.testing.assert_allclose(gt.float().numpy(),
                                    np.asarray(jnp.asarray(wt, jnp.float32)),
                                    err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("kind", sorted(HYPER))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_the_launch_scalars_by_dtype(monkeypatch, kind, dtype):
+    # What `apply_step` hands the C entry, read back from its arrays (the
+    # launch itself faked): the f32 form gets floats, the float64 form
+    # doubles with bc1 and bc2 the f32 values `scalars` computes and the
+    # kind's constants unrounded, through the same entry at dtype code 4;
+    # both the same lrs.
+    import ctypes
+
+    seen = {}
+
+    def launch(name, *args):
+        n = args[2]
+        ct = ctypes.c_double if args[8] == 4 else ctypes.c_float
+        read = lambda p, k: list(ctypes.cast(p, ctypes.POINTER(ct))[:k])  # noqa
+        seen.update(name=name, n=n, code=args[8], lrs=read(args[5], n),
+                    factors=read(args[6], n), scalars=read(args[7], 8))
+
+    monkeypatch.setattr(fused_update._build, "launch", launch)
+    monkeypatch.setattr(fused_update._build, "current_stream", lambda i: 0)
+    monkeypatch.setattr(fused_update._build, "on_device",
+                        lambda i: __import__("contextlib").nullcontext())
+    rng = np.random.RandomState(1)
+    grads = {k: torch.tensor(a, dtype=dtype) for k, a in _tree(rng).items()}
+    params = {k: torch.zeros_like(g) for k, g in grads.items()}
+    state = {f: {k: torch.zeros_like(g) for k, g in grads.items()}
+             for f in fused_update.FIELDS[kind]}
+    f0 = fused_update.FIELDS[kind][0]
+    table = fused_update._pack(fused_update._SUB, [
+        (params[k], g, state[f0][k], state["v"][k] if kind == "adam"
+         else None, 0.0123, 2.0 if k == "b" else 1.0, k, None)
+        for k, g in grads.items()])
+    fused_update._run(kind, HYPER[kind], 6, fused_update._SUB, table)
+    wide = dtype == torch.float64
+    assert seen["name"] == "dl4j_fused_update"
+    assert seen["code"] == (4 if wide else 0)
+    assert seen["n"] == len(SHAPES)
+    assert seen["lrs"] == [float(np.float32(0.0123))] * len(SHAPES)
+    assert sorted(seen["factors"]) == [1.0, 1.0, 2.0]
+    _, bc1, bc2 = fused_update.scalars(0.0, 6, kind, HYPER[kind])
+    want = [float(bc1), float(bc2)]
+    if kind == "adam":
+        b1, b2, eps = HYPER[kind]
+        want += [b1, 1 - b1, b2, 1 - b2, eps]
+    elif kind == "nesterovs":
+        want += [HYPER[kind][0], 1.0 + HYPER[kind][0]]
+    else:
+        want += [HYPER[kind][0], 1 - HYPER[kind][0], HYPER[kind][1]]
+    want += [0.0] * (8 - len(want))
+    if not wide:
+        want = [float(np.float32(x)) for x in want]
+    assert seen["scalars"] == want

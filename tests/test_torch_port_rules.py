@@ -105,7 +105,9 @@ def test_every_port_module_imports_without_jax():
             "deeplearning4j_tpu_torch.nn.layers.common",
             "deeplearning4j_tpu_torch.nn.prng",
             "deeplearning4j_tpu_torch.checkpoint.quantize",
-            "deeplearning4j_tpu_torch.datasets.staging"} <= set(mods)
+            "deeplearning4j_tpu_torch.datasets.staging",
+            "deeplearning4j_tpu_torch.datasets.records",
+            "deeplearning4j_tpu_torch.native"} <= set(mods)
     code = (
         "import sys\n"
         "for blocked in ('jax', 'jaxlib', 'ml_dtypes', "
@@ -165,11 +167,40 @@ def test_no_jax_import_in_source(path):
 
 
 def test_importing_the_port_builds_nothing():
-    # Kernels build at first launch, never at import.
+    # Kernels build at first launch, never at import; the native CSV
+    # parser at its first parse.
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datasets import records  # noqa: F401
     from deeplearning4j_tpu_torch.kernels import _build
 
     assert _build._lib is None
+    assert native._libs == {}
     assert deeplearning4j_tpu_torch.__doc__
+
+
+def _package_files():
+    return {p: p.stat().st_mtime_ns for p in PORT.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_native_build_writes_nothing_under_the_package(tmp_path,
+                                                       monkeypatch):
+    # The parser builds into build/native/ at the repository's root (the
+    # reference writes its .so beside its source); a fresh build directory
+    # forces a compile here.
+    from deeplearning4j_tpu_torch import native
+
+    assert PORT not in native.BUILD_DIR.parents
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build" / "native")
+    monkeypatch.setattr(native, "_libs", {})
+    before = _package_files()
+    csv = tmp_path / "m.csv"
+    csv.write_text("1,2\n3,4\n")
+    m = native.parse_numeric_csv(str(csv))
+    assert m.tolist() == [[1.0, 2.0], [3.0, 4.0]]
+    assert native.library_path("fastcsv").is_file()
+    assert _package_files() == before
 
 
 def test_entry_points_default_to_the_card():
