@@ -597,6 +597,60 @@ Run before trace, the training tooling (slice 15):
 45. eval    - LeNet's card outputs through ROCMultiClass,
               EvaluationBinary and RegressionEvaluation, equal to the same
               evaluations of the outputs on the CPU.
+46. lora_lm - fine-tuning (run after serving): the train phase's LM
+              through `TransferLearning(lm).add_lora(rank=8, alpha=16)`
+              (54 factor tensors on 15 layers, the 9 LayerNorms' 18
+              tensors trainable: 72 tensors, 455,680 params), 3 warm-up
+              and 10 timed steps at B=16 on a new permutation task. Scores
+              finite and falling, per step the train phase's launches (9
+              row 1, 4 row 5, 4 + 4 row 6 on the tensor cores, 1 row 9)
+              with row 9's table over exactly 72 tensors, 0 plain calls,
+              every frozen tensor bit for bit; the step time and the
+              updater-state bytes beside the train phase's full
+              fine-tune. One B=2 step of the trained adapter held to the
+              CPU as train_parity holds the LM (scores 4e-2; Adam's m per
+              factor 4e-2 in f32, the bf16 rule in bf16); the same net as
+              a K=4 superstep over 8 batches, 2 epochs, bit for bit
+              (every leaf, the factors too) its per-batch run, ms a step
+              both ways over the second epoch.
+47. qlora_lm - the same LM through `checkpoint/quantize.quantize_net`
+              (int8 per channel), LoRA on top, 3 steps: the train phase's
+              launches a step, row 9 over the 72 tensors, the int8 leaves
+              and their scales bit for bit; the first step held to the CPU
+              as lora_lm's.
+48. transfer_resnet - T2's ResNet-50 (64x64, B=32) through
+              `freeze_up_to` its last bottleneck vertex, 13 steps: per
+              step 16 row 11 (the frozen blocks' training forward, no
+              backward), 1 row 2, 1 row 9 over the head's 2 tensors; the
+              trunk's params bit for bit, every running statistic moved
+              (frozen layers run in training mode, as the reference's);
+              the step time and updater-state bytes beside T2's full step
+              (a copy of T2 stepped in this phase); one f32 step at B=16
+              card against CPU: running statistics 1e-3, score 1e-3, the
+              head's Nesterovs v 4e-2.
+49. adapter_serving - the serve phase's LM (output x 10) behind a paged
+              server (64-token pages, 4 slots, prefix cache, warmup) with
+              two tenants saved by `save_adapter` (seeded factors) and
+              loaded by `load_adapter(path=...)`; an adapter onto a base
+              of another seed is refused. Warmup through the base and the
+              tenants' trees (launches counted); eight concurrent greedy
+              `/generate` calls over the base and both tenants, each equal
+              to the same request sent alone afterwards; one prompt under
+              both tenants shares no prefix; row 8 = 4 x the scheduler's
+              decode dispatches (one per adapter group a round), 0 plain
+              calls; `/predict` per tenant, outputs apart from each other
+              and from the base; an unknown adapter a 400 on both routes;
+              `/v1/models` adapter bytes at most 10% of `hbm_bytes`; one
+              decode round's ms with 0, 1 and 2 adapter groups.
+50. host_budget - one server hosting the serve phase's LM (a manager
+              root), ResNet-50 I1 from T2's weights (a sharded step) and
+              LeNet (a zip) under `hbm_budget_bytes` one byte below their
+              estimated sum: two round-robin passes, each request forcing
+              an eviction and a reload, every answer bit for bit the one
+              before any eviction, `memory_allocated` falling by at least
+              the evicted model's `hbm_bytes` at each eviction, every
+              reloaded tensor on the card, `dl4j_serving_evictions_total`
+              counting them; the reload seconds.
 
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
@@ -610,8 +664,9 @@ f16_int8, f16_serve, f16_long_train, f16_long_output, lstm_softmax_rnn,
 superstep_lenet, superstep_mlp_dropout_adam, superstep_lm, the five
 solver runs, train_stats, the eight gradcheck nets, the four records
 paths, f64_lm_train, f64_lm_output, f64_lm_decode, f64_long_train,
-f64_long_output, f64_resnet_train, f64_resnet_output and
-f64_lenet_train; every row's
+f64_long_output, f64_resnet_train, f64_resnet_output,
+f64_lenet_train, lora_lm, superstep_lora_lm, qlora_lm, transfer_resnet,
+adapter_serving and host_budget; every row's
 float64 form under `f64` (its launches on the float64 paths, its other
 shapes under `f64_shapes`), row 9's device-scalar form under
 `device_scalars`, `lstm_cell_rows` in four dtypes under `forms`; the f16
@@ -626,6 +681,7 @@ any phase fails, it exits non-zero and prints no result.
 """
 
 import contextlib
+import copy
 import itertools
 import json
 import os
@@ -926,6 +982,23 @@ LONG_LAUNCHES = {"layernorm_norm_act": 2 * BLOCKS + 1,
                  "flash_attention_bwd_dq_stream": BLOCKS,
                  "flash_attention_bwd_dkv_stream": BLOCKS,
                  "fused_update": 1}
+
+
+# Fine-tuning (the lora_lm, qlora_lm, transfer_resnet, adapter_serving and
+# host_budget phases): rank-8 adapters at alpha 16 on every eligible layer
+# of the LM (15 layers, 54 factor tensors) beside its 9 LayerNorms, which
+# stay trainable: 72 tensors, 455,680 of its 21,529,600 params. The
+# superstep run: K=4 over 8 batches. Each adapter server tenant's factors
+# are seeded draws (B ~ N(0, ADAPTER_B_STD^2)), so that tenants answer
+# apart from each other and from the base.
+LORA_RANK, LORA_ALPHA = 8, 16
+LORA_TENSORS, LORA_PARAMS = 72, 455_680
+LORA_WARMUP, LORA_TIMED, QLORA_STEPS = 3, 10, 3
+LORA_SUPER = dict(k=4, steps=8)
+ADAPTER_B_STD = 0.5
+TENANTS = ("tenant-a", "tenant-b")
+ADAPTER_DIR = os.path.join("build", "adapters")
+HOST_DIR = os.path.join("build", "host")
 
 
 def card_line() -> str:
@@ -9517,6 +9590,758 @@ def phase_f64_resnet(card, torch, kernels, dev):
                         "f64_resnet_output": c_out["launches"]}
 
 
+# ------------------------------------------------------------ fine-tuning
+
+
+def _frozen_copy(net):
+    """Copies of every frozen leaf of a net (`nn/transfer.py` spec)."""
+    spec = net._frozen_spec
+    return {(v, k): t.detach().clone() for v, p in net.params_tree.items()
+            for k, t in p.items() if k in spec.get(v, ())}
+
+
+def _frozen_errors(torch, net, before, what="frozen"):
+    moved = [f"{v}/{k}" for (v, k), t in before.items()
+             if not torch.equal(t, net.params_tree[v][k])]
+    return ([f"{len(moved)} {what} tensors moved: {moved[:6]}"]
+            if moved else [])
+
+
+def _tree_errors_bitwise(torch, a, b):
+    """Every params leaf of `a` against `b`'s, bit for bit (the flat
+    `params()` view leaves the LoRA factors out)."""
+    bad = [f"{v}/{k}" for v, p in a.params_tree.items()
+           for k, t in p.items() if not torch.equal(t, b.params_tree[v][k])]
+    return [f"params differ: {bad[:6]}"] if bad else []
+
+
+def _table_tensors(net):
+    """The tensors row 9's packed tables hold (one table per group)."""
+    return sum(len(t.numels) for t in net._update_tables.values())
+
+
+def _opt_bytes(net):
+    return sum(t.numel() * t.element_size() for t in net._updater_leaves())
+
+
+def _lora_m_errors(got, want):
+    """Per LoRA factor: max |m_got - m_want| over max |m_want| of that
+    factor (0 where both are 0: A's m after the first step from B = 0)."""
+    out = {}
+    for name, st in want.opt_state.items():
+        if not isinstance(st, dict) or "m" not in st:
+            continue
+        for k, a in st["m"].items():
+            if not k.endswith(("__lora_a", "__lora_b")):
+                continue
+            ref = float(a.abs().max())
+            err = float((got.opt_state[name]["m"][k].cpu() - a.cpu())
+                        .abs().max())
+            out[f"{name}/{k}"] = (err / ref if ref
+                                  else 0.0 if err == 0 else float("inf"))
+    return out
+
+
+def _lora_parity(torch, dev, make):
+    """One `fit` step at B=2 of `make(dtype, device)`'s net on the card
+    and on the CPU (plain versions), in bf16 compute and in f32, as
+    `phase_train_parity` holds the LM: scores within 4e-2 relative; per
+    LoRA factor, Adam's m within 4e-2 of the CPU's largest |m| there in
+    f32, and in bf16 the card's m no further from the CPU's f32 m than
+    max(4e-2, twice the CPU bf16 step's own distance). (errors, report)"""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+
+    (x, y), = lm_batches(23, 2, CACHE, 1)
+    t0 = time.perf_counter()
+    nets, errors = {}, []
+    for dtype, short in (("bfloat16", "bf16"), ("float32", "f32")):
+        for where, d in (("card", dev), ("cpu", "cpu")):
+            net = make(dtype, d)
+            net.fit(MultiDataSet([x], [y]))
+            nets[f"{where}_{short}"] = net
+    score = {k: n.score_value for k, n in nets.items()}
+
+    def rel(a, b):
+        return abs(score[a] - score[b]) / abs(score[b])
+
+    m_f32 = _lora_m_errors(nets["card_f32"], nets["cpu_f32"])
+    card_vs_f32 = _lora_m_errors(nets["card_bf16"], nets["cpu_f32"])
+    cpu_vs_f32 = _lora_m_errors(nets["cpu_bf16"], nets["cpu_f32"])
+    if not (rel("card_f32", "cpu_f32") <= 4e-2
+            and rel("card_bf16", "cpu_bf16") <= 4e-2):
+        errors.append(f"scores differ: {score}")
+    if max(m_f32.values()) > 4e-2:
+        errors.append(f"f32 m differs: {max(m_f32.values())} at "
+                      f"{max(m_f32, key=m_f32.get)}")
+    over = {v: e for v, e in card_vs_f32.items()
+            if e > max(4e-2, 2 * cpu_vs_f32[v])}
+    if over:
+        errors.append(f"bf16 m of the card further from f32 than allowed: "
+                      f"{over}")
+    report = {"batch": 2, "tolerance": 4e-2, "scores": score,
+              "score_rel_diff": {"f32": rel("card_f32", "cpu_f32"),
+                                 "bf16": rel("card_bf16", "cpu_bf16")},
+              "factors": len(m_f32),
+              "m_err_over_max_f32_card_vs_cpu_worst": max(m_f32.values()),
+              "m_err_over_max_card_bf16_vs_cpu_f32_worst":
+                  max(card_vs_f32.values()),
+              "m_err_over_max_cpu_bf16_vs_cpu_f32_worst":
+                  max(cpu_vs_f32.values()),
+              "seconds": time.perf_counter() - t0}
+    return errors, report
+
+
+def _lora_steps(torch, kernels, net, batches, steps):
+    """`steps` fit calls over `batches` in turn, each read back: (scores,
+    wall ms each, the launches from 0)."""
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    scores, wall = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        net.fit(batches[i % len(batches)])
+        scores.append(net.score_value)  # syncs the step
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return scores, wall, kernels.counts()
+
+
+def _lora_step_errors(net, counts, steps, scores, falling=True):
+    errors, want = _launch_errors(counts, TRAIN_LAUNCHES, steps)
+    errors += _variant_errors(counts, {name: BLOCKS * steps
+                                       for name in TRAIN_FLASH})
+    if _table_tensors(net) != LORA_TENSORS:
+        errors.append(f"row 9's table holds {_table_tensors(net)} tensors, "
+                      f"want {LORA_TENSORS}")
+    if not all(np.isfinite(scores)):
+        errors.append(f"non-finite score: {scores}")
+    elif falling and not float(np.mean(scores[-3:])) < scores[0]:
+        errors.append(f"scores did not fall: {scores}")
+    return errors, want
+
+
+def phase_lora_lm(card, torch, kernels, dev, train_net, train_ms):
+    """LoRA fine-tuning of the train phase's LM (see the docstring, phase
+    lora_lm). Returns (ok, path launches, the LoRA net)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.transfer import TransferLearning
+
+    t_phase = time.perf_counter()
+    paths = {}
+    net = TransferLearning(train_net).add_lora(
+        rank=LORA_RANK, alpha=LORA_ALPHA).build()
+    trainable = [t for p in net.params_tree.values() for t in p.values()
+                 if t.requires_grad]
+    errors = []
+    if (len(trainable), sum(t.numel() for t in trainable)) != (
+            LORA_TENSORS, LORA_PARAMS):
+        errors.append(f"trainable: {len(trainable)} tensors, "
+                      f"{sum(t.numel() for t in trainable)} params")
+    frozen = _frozen_copy(net)
+    # A new task for the trained LM: another permutation rule.
+    batches = [MultiDataSet([torch.as_tensor(x, device=dev)],
+                            [torch.as_tensor(y, device=dev)])
+               for x, y in lm_batches(29, TRAIN_B, CACHE, 2)]
+    steps = LORA_WARMUP + LORA_TIMED
+    scores, wall, counts = _lora_steps(torch, kernels, net, batches, steps)
+    errs, want = _lora_step_errors(net, counts, steps, scores)
+    errors += errs + _frozen_errors(torch, net, frozen)
+    paths["lora_lm"] = counts["launches"]
+    timed = wall[LORA_WARMUP:]
+    ms = statistics.median(timed)
+
+    # The trained adapter's params: one step of them held to the CPU.
+    trained = {v: {k: t.detach().cpu() for k, t in p.items()}
+               for v, p in net.params_tree.items()}
+
+    def make(dtype, d):
+        conf = copy.deepcopy(net.conf)
+        conf.global_conf.dtype = dtype
+        return ComputationGraph(conf, device=d).init(params=trained)
+
+    perr, parity = _lora_parity(torch, dev, make)
+    errors += [f"parity: {e}" for e in perr]
+
+    # The same net as a K=4 superstep, bit for bit its per-batch run.
+    cfg = LORA_SUPER
+    sets = [MultiDataSet([torch.as_tensor(x, device=dev)],
+                         [torch.as_tensor(y, device=dev)])
+            for x, y in lm_batches(31, TRAIN_B, CACHE, cfg["steps"])]
+
+    def lm(k):
+        conf = copy.deepcopy(net.conf)
+        conf.global_conf.superstep_k = cfg["k"] if k is None else k
+        return ComputationGraph(conf, device=dev).init(params=trained)
+
+    t0 = time.perf_counter()
+    plain, sup, plain_ms, sup_ms, sup_c, _ = _superstep_pair(
+        torch, kernels, dev, lm, lambda: sets, epochs=2)
+    serr = (_bitwise_errors(torch, plain, sup)
+            + _tree_errors_bitwise(torch, plain, sup))
+    from deeplearning4j_tpu_torch.nn import superstep as superstep_mod
+    blocks = superstep_mod.captured(sup)
+    if not blocks or not all(b.replays for b in blocks):
+        serr.append("no captured block was replayed")
+    if any(sup_c["plain_calls"].values()):
+        serr.append(f"plain versions ran: {sup_c['plain_calls']}")
+    if _table_tensors(sup) != LORA_TENSORS:
+        serr.append(f"the superstep's row 9 table holds "
+                    f"{_table_tensors(sup)} tensors")
+    errors += [f"superstep: {e}" for e in serr]
+    paths["superstep_lora_lm"] = sup_c["launches"]
+    super_row = {"k": cfg["k"], "steps": plain.iteration,
+                 "bit_equal": not serr, "per_batch_ms_per_step": plain_ms,
+                 "superstep_ms_per_step": sup_ms, "ms_over": "epoch 2 of 2",
+                 "launches": sup_c["launches"],
+                 "seconds": time.perf_counter() - t0}
+    del plain, sup
+    torch.cuda.empty_cache()
+    emit(card, phase="lora_lm", ok=not errors, errors=errors,
+         model=f"transformer_lm V={VOCAB} T={CACHE} d={D_MODEL} "
+               f"heads={HEADS} blocks={BLOCKS} mixed_bfloat16 Adam, "
+               f"TransferLearning.add_lora(rank={LORA_RANK}, "
+               f"alpha={LORA_ALPHA}) over the train phase's net",
+         batch=TRAIN_B, steps=steps, scores=scores,
+         trainable_tensors=len(trainable),
+         trainable_params=sum(t.numel() for t in trainable),
+         params=train_net.num_params(), frozen_tensors=len(frozen),
+         update_table_tensors=_table_tensors(net),
+         ms_per_step=ms, ms_per_step_all=wall,
+         full_finetune_ms_per_step=train_ms,
+         updater_state_bytes=_opt_bytes(net),
+         full_finetune_updater_state_bytes=_opt_bytes(train_net),
+         launches=counts["launches"], expected_launches=want,
+         variants={k: counts["variants"][k] for k in TRAIN_FLASH},
+         plain_calls=counts["plain_calls"], parity=parity,
+         superstep=super_row, seconds=time.perf_counter() - t_phase)
+    return not errors, paths, net
+
+
+def phase_qlora_lm(card, torch, kernels, dev, train_net):
+    """LoRA over the LM quantized to int8 (see the docstring, phase
+    qlora_lm)."""
+    from deeplearning4j_tpu_torch.checkpoint import quantize
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.transfer import TransferLearning
+
+    t_phase = time.perf_counter()
+    base = ComputationGraph(train_net.conf, device=dev).init(params={
+        v: {k: t.detach() for k, t in p.items()}
+        for v, p in train_net.params_tree.items()})
+    quantize.quantize_net(base)
+    net = TransferLearning(base).add_lora(rank=LORA_RANK,
+                                          alpha=LORA_ALPHA).build()
+    del base
+    int8 = {(v, k): t.detach().clone() for v, p in net.params_tree.items()
+            for k, t in p.items()
+            if t.dtype == torch.int8 or (k.endswith("__scale")
+                                         and not k.endswith("lora_scale"))}
+    errors = []
+    if sum(t.dtype == torch.int8 for t in int8.values()) == 0:
+        errors.append("no int8 leaf in the quantized net")
+    start = {v: {k: t.detach().cpu() for k, t in p.items()}
+             for v, p in net.params_tree.items()}
+    batches = [MultiDataSet([torch.as_tensor(x, device=dev)],
+                            [torch.as_tensor(y, device=dev)])
+               for x, y in lm_batches(29, TRAIN_B, CACHE, 2)]
+    scores, wall, counts = _lora_steps(torch, kernels, net, batches,
+                                       QLORA_STEPS)
+    errs, want = _lora_step_errors(net, counts, QLORA_STEPS, scores,
+                                   falling=False)
+    errors += errs + _frozen_errors(torch, net, int8, "int8 or scale")
+
+    def make(dtype, d):
+        conf = copy.deepcopy(net.conf)
+        conf.global_conf.dtype = dtype
+        return ComputationGraph(conf, device=d).init(params=start)
+
+    perr, parity = _lora_parity(torch, dev, make)
+    errors += [f"first step parity: {e}" for e in perr]
+    emit(card, phase="qlora_lm", ok=not errors, errors=errors,
+         model="the lora_lm phase's LM through checkpoint/quantize."
+               "quantize_net (int8 per-channel), then add_lora(rank="
+               f"{LORA_RANK}, alpha={LORA_ALPHA})",
+         int8_tensors=sum(t.dtype == torch.int8 for t in int8.values()),
+         batch=TRAIN_B, steps=QLORA_STEPS, scores=scores,
+         ms_per_step_all=wall, update_table_tensors=_table_tensors(net),
+         launches=counts["launches"], expected_launches=want,
+         plain_calls=counts["plain_calls"], first_step_parity=parity,
+         seconds=time.perf_counter() - t_phase)
+    return not errors, {"qlora_lm": counts["launches"]}
+
+
+def _head_v_errors(got, want, names):
+    out = {}
+    for v in names:
+        for k, a in want.opt_state[v]["v"].items():
+            ref = float(a.abs().max())
+            err = float((got.opt_state[v]["v"][k].cpu() - a.cpu())
+                        .abs().max())
+            out[f"{v}/{k}"] = err / ref if ref else float(err != 0)
+    return out
+
+
+def phase_transfer_resnet(card, torch, kernels, dev, t2_net, t2_batches):
+    """T2's ResNet-50 with its trunk frozen (see the docstring, phase
+    transfer_resnet)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models import resnet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.transfer import (
+        TransferLearning,
+        _layer_items,
+    )
+
+    t_phase = time.perf_counter()
+    last = [k for k, conf in _layer_items(t2_net)
+            if type(conf).__name__ == "BottleneckBlock"][-1]
+    # T2's full step in this run, on a copy of the net (T2 goes on to later
+    # phases as it is).
+    full = t2_net.clone()
+    _, full_wall, _ = _lora_steps(torch, kernels, full, t2_batches,
+                                  RN_WARMUP + 3)
+    full_opt_bytes = _opt_bytes(full)
+    del full
+    torch.cuda.empty_cache()
+    net = TransferLearning(t2_net).freeze_up_to(last).build()
+    head = sorted(v for v, s in net.opt_state.items() if s != ()
+                  and any(s.values()))
+    frozen = _frozen_copy(net)
+    state0 = {(v, k): t.clone() for v, s in net.state.items()
+              for k, t in s.items()}
+    errors = []
+    steps = RN_WARMUP + RN_TIMED
+    scores, wall, counts = _lora_steps(torch, kernels, net, t2_batches,
+                                       steps)
+    errors, want = _launch_errors(counts, RN_LAUNCHES["t2"], steps)
+    errors += _variant_errors(counts, {"bottleneck_train": 16 * steps})
+    if _table_tensors(net) != 2 or head != ["fc"]:
+        errors.append(f"row 9 over {_table_tensors(net)} tensors of "
+                      f"{head}, want the head's 2")
+    if not all(np.isfinite(scores)):
+        errors.append(f"non-finite score: {scores}")
+    errors += _frozen_errors(torch, net, frozen)
+    still = [f"{v}/{k}" for (v, k), t in state0.items()
+             if torch.equal(t, net.state[v][k])]
+    if still:
+        errors.append(f"running statistics that did not move: {still[:6]}")
+    # One f32 step at B=16 on the card and on the CPU from the same params
+    # and state: the frozen trunk's running statistics (rtol = atol =
+    # 1e-3, as resnet_parity), the score (1e-3) and the head's Nesterovs
+    # v (4e-2 of its largest |v|).
+    rng = np.random.RandomState(83)
+    b = RN_PARITY_B
+    x = rng.randn(b, 64, 64, 3).astype(np.float32)
+    y = np.eye(RN_CLASSES, dtype=np.float32)[rng.randint(0, RN_CLASSES, b)]
+    params = {v: {k: t.detach().float().cpu() for k, t in p.items()}
+              for v, p in net.params_tree.items()}
+    state = {v: {k: t.float().cpu() for k, t in s.items()}
+             for v, s in net.state.items()}
+    pnets = {}
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        base = ComputationGraph(resnet.resnet50(
+            n_classes=RN_CLASSES, image=64, dtype="float32",
+            fused_blocks=True), device=d).init(params=params, state=state)
+        pnets[where] = TransferLearning(base).freeze_up_to(last).build()
+        pnets[where].fit(MultiDataSet([x], [y]))
+    c, p = pnets["card"], pnets["cpu"]
+    stat_excess = max(
+        float(((c.state[v][k].cpu() - a).abs() - (1e-3 + 1e-3 * a.abs()))
+              .max()) for v, s in p.state.items() for k, a in s.items())
+    score_rel = abs(c.score_value - p.score_value) / abs(p.score_value)
+    v_err = _head_v_errors(c, p, head)
+    if stat_excess > 0:
+        errors.append(f"parity: running stats beyond 1e-3 by {stat_excess}")
+    if score_rel > 1e-3:
+        errors.append(f"parity: scores {c.score_value} vs {p.score_value}")
+    if max(v_err.values()) > 4e-2:
+        errors.append(f"parity: head v differs: {v_err}")
+    emit(card, phase="transfer_resnet", ok=not errors, errors=errors,
+         model=f"resnet50 image=64 fused_blocks mixed_bfloat16 Nesterovs, "
+               f"TransferLearning.freeze_up_to({last!r}) over the T2 "
+               "phase's net",
+         batch=int(t2_batches[0].features[0].shape[0]), steps=steps,
+         scores=scores,
+         trained_vertices=head, update_table_tensors=_table_tensors(net),
+         frozen_tensors=len(frozen), running_stats_moved=len(state0) - len(
+             still), ms_per_step=statistics.median(wall[RN_WARMUP:]),
+         ms_per_step_all=wall,
+         full_t2_ms_per_step=statistics.median(full_wall[RN_WARMUP:]),
+         full_t2_ms_per_step_all=full_wall,
+         updater_state_bytes=_opt_bytes(net),
+         full_t2_updater_state_bytes=full_opt_bytes,
+         launches=counts["launches"], expected_launches=want,
+         plain_calls=counts["plain_calls"],
+         parity={"batch": b, "score_rel_diff": score_rel,
+                 "running_stat_excess_over_tol": stat_excess,
+                 "head_v_err_over_max": v_err},
+         seconds=time.perf_counter() - t_phase)
+    del pnets, net
+    torch.cuda.empty_cache()
+    return not errors, {"transfer_resnet": counts["launches"]}
+
+
+def _tenant(torch, base, seed):
+    """A LoRA tenant of `base` (TransferLearning, every eligible layer) with
+    seeded factors: A as drawn, B ~ N(0, ADAPTER_B_STD^2)."""
+    from deeplearning4j_tpu_torch.nn.transfer import TransferLearning
+
+    tuned = TransferLearning(base).add_lora(rank=LORA_RANK,
+                                            alpha=LORA_ALPHA).build()
+    g = torch.Generator(device=base.device).manual_seed(seed)
+    with torch.no_grad():
+        for p in tuned.params_tree.values():
+            for k, t in p.items():
+                if k.endswith("__lora_b"):
+                    t.normal_(0.0, ADAPTER_B_STD, generator=g)
+    return tuned
+
+
+def _adapter_traffic(seed):
+    """Eight greedy /generate bodies over the base and the two tenants,
+    one prompt sent under both tenants (which must share no prefix)."""
+    rng = np.random.RandomState(seed)
+    shared = rng.randint(0, VOCAB, 120).tolist()
+    bodies = []
+    for i, (n, k, a) in enumerate(((60, 16, None), (200, 20, TENANTS[0]),
+                                   (350, 18, TENANTS[1]), (70, 24, None),
+                                   (500, 16, TENANTS[0]),
+                                   (90, 20, TENANTS[1]))):
+        bodies.append({"prompt_ids": rng.randint(0, VOCAB, n).tolist(),
+                       "n_steps": k, "temperature": 0, "adapter": a})
+    bodies += [{"prompt_ids": shared, "n_steps": 20, "temperature": 0,
+                "adapter": a} for a in TENANTS]
+    return bodies
+
+
+def _decode_round_ms(torch, net, trees):
+    """ms of one decode round of SLOTS slots through `trees` (one dispatch
+    each, then the rewind a mixed round makes), the slots at 300 tokens."""
+    from deeplearning4j_tpu_torch.models.zoo import PagedDecodeStepper
+
+    st = PagedDecodeStepper(net, SLOTS, page_size=PAGE)
+    prompt = np.random.RandomState(5).randint(0, VOCAB, 300).tolist()
+    _, state, n = st.prefill(prompt, pad_to=512)
+    for s in range(SLOTS):
+        st.install(s, state, n)
+    tokens = [1] * SLOTS
+
+    def one_round():
+        for tree in trees:
+            st.set_params(tree)
+            st.step(tokens)
+            st.rewind_all([n] * SLOTS)
+
+    return time_ms(one_round, reps=10, warmup=3)
+
+
+def phase_adapter_serving(card, torch, kernels, dev, cg):
+    """LoRA tenants on the paged server (see the docstring, phase
+    adapter_serving)."""
+    from deeplearning4j_tpu_torch.checkpoint import adapters
+    from deeplearning4j_tpu_torch.checkpoint.array_store import (
+        CheckpointError,
+    )
+    from deeplearning4j_tpu_torch.nn import lora
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    t_phase = time.perf_counter()
+    errors, out = [], {}
+    shutil.rmtree(ADAPTER_DIR, ignore_errors=True)
+    os.makedirs(ADAPTER_DIR)
+    params = {v: {k: a.detach().clone() for k, a in p.items()}
+              for v, p in cg.params_tree.items()}
+    params["out"]["W"].mul_(SERVE_LOGIT_SCALE)
+    base = ComputationGraph(cg.conf, device=dev).init(params=params)
+    del params
+    paths = {}
+    for i, name in enumerate(TENANTS):
+        tuned = _tenant(torch, base, 41 + i)
+        paths[name] = adapters.save_adapter(
+            tuned, os.path.join(ADAPTER_DIR, name), name=name)
+        del tuned
+    other_conf = copy.deepcopy(cg.conf)
+    other_conf.global_conf.seed = int(cg.conf.global_conf.seed) + 1
+    other = ComputationGraph(other_conf, device=dev).init()
+    try:
+        adapters.load_adapter(paths[TENANTS[0]], base_net=other)
+        errors.append("an adapter loaded onto another seed's base")
+    except CheckpointError as e:
+        out["other_base_refused"] = str(e)[:160]
+    del other
+    server = InferenceServer(base, device=dev, warmup=True,
+                             kv_cache="paged", kv_page_size=PAGE,
+                             decode_slots=SLOTS, max_batch_size=4,
+                             default_model="lm")
+    for name in TENANTS:
+        server.load_adapter(name, path=paths[name])
+    total = {}
+    try:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        server.start()
+        server.wait_ready(timeout=SERVE_TIMEOUT_S)
+        out["warmup_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        _add_counts(total, counts)
+        lm = server.get(None)
+        sched = lm.scheduler
+        nb, np_ = len(lm.batcher.buckets), len(sched.prompt_buckets)
+        # The batch buckets through the base and each tenant; the prompt
+        # buckets and one step through the base and the first tenant.
+        want = {"layernorm_norm_act": (2 * BLOCKS + 1) * (
+                    3 * nb + 2 * np_ + 2),
+                "flash_attention": BLOCKS * (3 * nb + 2 * np_),
+                "paged_decode_attention": BLOCKS * 2}
+        errors += [f"warmup: {e}" for e in _check_window(counts, want)]
+        out["warmup_launches"] = counts["launches"]
+
+        # Eight concurrent greedy /generate calls, then each alone.
+        bodies = _adapter_traffic(37)
+        before = dict(sched.stats)
+        kernels.reset_counts()
+        results, errs = {}, []
+
+        def send(i):
+            code, _, doc = _http(server.url, "/generate", bodies[i])
+            if code == 200:
+                results[i] = doc["ids"]
+            else:
+                errs.append(f"request {i}: HTTP {code} {doc}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=SERVE_TIMEOUT_S)
+        out["concurrent_s"] = time.perf_counter() - t0
+        errors += errs
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        _add_counts(total, counts)
+        d = {k: sched.stats[k] - before[k] for k in (
+            "prefills", "prefix_hits", "decode_steps", "decode_dispatches")}
+        want = {"layernorm_norm_act": (2 * BLOCKS + 1) * (
+                    d["prefills"] + d["decode_dispatches"]),
+                "flash_attention": BLOCKS * d["prefills"],
+                "paged_decode_attention": BLOCKS * d["decode_dispatches"]}
+        errors += [f"traffic: {e}" for e in _check_window(counts, want)]
+        if d["prefix_hits"] or d["prefills"] != len(bodies):
+            errors.append(f"prefix hits across tenants: {d}")
+        if not d["decode_dispatches"] > d["decode_steps"]:
+            errors.append(f"no mixed round: {d}")
+        out["traffic"] = {**d, "launches": counts["launches"]}
+        seq, same = {}, []
+        for i, b in enumerate(bodies):
+            code, _, doc = _http(server.url, "/generate", b)
+            seq[i] = doc.get("ids") if code == 200 else None
+            same.append(seq[i] == results.get(i))
+        if not all(same):
+            errors.append(f"concurrent ids differ from sequential ones: "
+                          f"{[i for i, s in enumerate(same) if not s]}")
+        if results.get(6) == results.get(7):
+            errors.append("the shared prompt gave both tenants one answer")
+        out["ids_equal_sequential"] = same
+
+        # /predict per tenant; unknown adapters; /v1/models.
+        x = np.random.RandomState(43).randint(0, VOCAB, (2, 64)).tolist()
+        preds = {}
+        for a in (None,) + TENANTS:
+            code, _, doc = _http(server.url, "/predict", dict(
+                {"data": x}, **({"adapter": a} if a else {})))
+            preds[a] = np.asarray(doc["predictions"]) if code == 200 else None
+        diffs = {f"{a}-{b}": float(np.abs(preds[a] - preds[b]).max())
+                 for a, b in ((TENANTS[0], TENANTS[1]), (TENANTS[0], None),
+                              (TENANTS[1], None))
+                 if preds[a] is not None and preds[b] is not None}
+        if len(diffs) != 3 or min(diffs.values()) < 1e-3:
+            errors.append(f"tenant predictions do not differ: {diffs}")
+        bad = [(route, _http(server.url, route, dict(body, adapter="nope"))[0])
+               for route, body in (("/predict", {"data": x}),
+                                   ("/generate", {"prompt_ids": [1],
+                                                  "n_steps": 1}))]
+        if any(code != 400 for _, code in bad):
+            errors.append(f"unknown adapter: {bad}")
+        row = _http(server.url, "/v1/models")[2]["models"][0]
+        share = sum(a["bytes"] for a in row["adapters"]) / row["hbm_bytes"]
+        if share > 0.10 or len(row["adapters"]) != 2:
+            errors.append(f"adapter bytes {share} of hbm_bytes: {row}")
+        out.update(predict_max_abs_diff=diffs, unknown_adapter=bad,
+                   adapter_rows=row["adapters"], hbm_bytes=row["hbm_bytes"],
+                   adapter_share_of_hbm=share)
+        counts = kernels.counts()
+        _add_counts(total, counts)
+    finally:
+        server.stop()
+    # Decode rounds with 0, 1 and 2 adapter groups (no server running).
+    trees = {name: lora.merge_adapter(base.params_tree, adapters.load_adapter(
+        paths[name], base_net=base)) for name in TENANTS}
+    with torch.inference_mode():
+        out["decode_round_ms"] = {
+            "base": _decode_round_ms(torch, base, [None]),
+            "one_adapter": _decode_round_ms(torch, base, [trees[TENANTS[0]]]),
+            "two_adapters": _decode_round_ms(torch, base, [
+                trees[TENANTS[0]], trees[TENANTS[1]]])}
+    emit(card, phase="adapter_serving", ok=not errors, errors=errors,
+         model=f"the serve phase's LM (V={VOCAB}, d={D_MODEL}, {BLOCKS} "
+               f"blocks, bf16) with 2 rank-{LORA_RANK} tenants, paged KV "
+               f"({PAGE}-token pages, {SLOTS} slots, prefix cache)",
+         **out, launches=total, seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(ADAPTER_DIR, ignore_errors=True)
+    del trees, base
+    torch.cuda.empty_cache()
+    return not errors, {"adapter_serving": total}
+
+
+def _evictions(url):
+    doc = _http(url, "/metrics?format=json&names="
+                "dl4j_serving_evictions_total")[2]
+    fam = doc.get("dl4j_serving_evictions_total", {"series": []})
+    return {r["labels"]["model"]: r["value"] for r in fam["series"]}
+
+
+def phase_host_budget(card, torch, kernels, dev, cg, t2_net, lenet_net):
+    """Three models from disk under a budget below their sum (see the
+    docstring, phase host_budget)."""
+    from deeplearning4j_tpu_torch.checkpoint import store
+    from deeplearning4j_tpu_torch.checkpoint.manager import CheckpointManager
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    from deeplearning4j_tpu_torch.serving.host import estimate_hbm_bytes
+    from deeplearning4j_tpu_torch.util import model_serializer
+
+    t_phase = time.perf_counter()
+    errors, out = [], {}
+    shutil.rmtree(HOST_DIR, ignore_errors=True)
+    os.makedirs(HOST_DIR)
+    paths = {"lm": os.path.join(HOST_DIR, "lm"),
+             "resnet": os.path.join(HOST_DIR, "resnet"),
+             "lenet": os.path.join(HOST_DIR, "lenet.zip")}
+    est = {}
+    lm_net = ComputationGraph(cg.conf, device=dev).init(params={
+        v: {k: a.detach() for k, a in p.items()}
+        for v, p in cg.params_tree.items()})
+    CheckpointManager(paths["lm"], async_save=False, device=dev).save(lm_net)
+    est["lm"] = estimate_hbm_bytes(lm_net)
+    del lm_net
+    i1 = _rn_net(torch, dev, "i1", params={
+        v: {k: a.detach() for k, a in p.items()}
+        for v, p in t2_net.params_tree.items()}, state=t2_net.state)
+    store.save_checkpoint(i1, paths["resnet"])
+    est["resnet"] = estimate_hbm_bytes(i1)
+    del i1
+    model_serializer.save_model(lenet_net, paths["lenet"])
+    est["lenet"] = estimate_hbm_bytes(lenet_net)
+    budget = sum(est.values()) - 1
+    server = InferenceServer(device=dev, kv_cache="paged", kv_page_size=PAGE,
+                             decode_slots=SLOTS, max_batch_size=4,
+                             default_model="lm")
+    host = server.models
+    falls, reloads, evicted = [], [], []
+    real_evict, real_stop, real_reload = (host._evict, host._stop_runtimes,
+                                          host._reload)
+
+    def evict(model):
+        evicted.append((model.name, model.hbm_bytes))
+        return real_evict(model)
+
+    def stop(stoppables):
+        if not stoppables:
+            return real_stop(stoppables)
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated(dev)
+        real_stop(stoppables)
+        torch.cuda.synchronize()
+        falls.append(m0 - torch.cuda.memory_allocated(dev))
+
+    def reload(model):
+        t0 = time.perf_counter()
+        real_reload(model)
+        reloads.append((model.name, time.perf_counter() - t0))
+        net = model.net
+        off = [f"{v}/{k}" for tree in (net.params_tree, net.state)
+               for v, p in tree.items() for k, t in p.items()
+               if t.device != dev]
+        if off:
+            errors.append(f"{model.name} reloaded tensors off {dev}: "
+                          f"{off[:4]}")
+
+    host._evict, host._stop_runtimes, host._reload = evict, stop, reload
+    rng = np.random.RandomState(47)
+    requests = {
+        "lm": ("/generate", {"prompt_ids": rng.randint(0, VOCAB, 100).tolist(),
+                             "n_steps": 8, "temperature": 0}),
+        "resnet": ("/predict", {"data": rng.randn(
+            1, RN_PATHS["i1"][0], RN_PATHS["i1"][0], 3).astype(
+                np.float32).tolist()}),
+        "lenet": ("/predict", {"data": rng.rand(4, 28, 28, 1).astype(
+            np.float32).tolist()})}
+
+    def ask(name):
+        route, body = requests[name]
+        code, _, doc = _http(server.url, route, dict(body, model=name))
+        if code != 200:
+            errors.append(f"{name}: HTTP {code} {doc}")
+            return None
+        return doc.get("ids", doc.get("predictions"))
+
+    try:
+        t0 = time.perf_counter()
+        for name in ("lm", "resnet", "lenet"):
+            server.add_model(name, path=paths[name])
+        out["load_s"] = time.perf_counter() - t0
+        server.start()
+        kernels.reset_counts()
+        answers = {name: ask(name) for name in requests}
+        ev0 = _evictions(server.url)
+        torch.cuda.synchronize()
+        host.set_budget(budget)  # the least recently used one goes
+        order = []
+        for name in ("lm", "resnet", "lenet") * 2:
+            got = ask(name)
+            order.append([r["name"] for r in server.snapshot()
+                          if r["resident"]])
+            if got != answers[name]:
+                errors.append(f"{name}'s answer after a reload differs")
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        ev = _evictions(server.url)
+        counted = sum(ev.get(n, 0) - ev0.get(n, 0) for n in requests)
+        if counted != len(evicted) or len(evicted) < 6:
+            errors.append(f"evictions: {len(evicted)} made, {counted} "
+                          f"counted")
+        short = [(n, b, f) for (n, b), f in zip(evicted, falls) if f < b]
+        if len(falls) != len(evicted) or short:
+            errors.append(f"memory_allocated fell less than hbm_bytes at "
+                          f"{short} ({len(falls)} falls)")
+        if any(counts["plain_calls"].values()):
+            errors.append(f"plain versions ran: {counts['plain_calls']}")
+        out.update(budget_bytes=budget, estimated_bytes=est,
+                   evictions=evicted, memory_falls=falls, reloads=reloads,
+                   resident_after_each_request=order,
+                   evictions_counted=counted, launches=counts["launches"],
+                   plain_calls=counts["plain_calls"])
+    finally:
+        host._evict, host._stop_runtimes, host._reload = (
+            real_evict, real_stop, real_reload)
+        server.stop()
+        shutil.rmtree(HOST_DIR, ignore_errors=True)
+    reload_s = {}
+    for name, s in reloads:
+        reload_s.setdefault(name, []).append(s)
+    emit(card, phase="host_budget", ok=not errors, errors=errors,
+         models="the serve phase's LM (manager root), ResNet-50 I1 from T2's "
+                "weights (sharded step), LeNet (zip)",
+         reload_s=reload_s, **out, seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return not errors, {"host_budget": out.get("launches", {})}
+
+
 def main() -> int:
     import torch
 
@@ -9635,6 +10460,25 @@ def main() -> int:
         card, torch, kernels, dev, cg, nets["t2"], mnist["lenet"][0])
     if not ok:
         failed.append("serving")
+    ok, new_launches, lora_net = phase_lora_lm(card, torch, kernels, dev,
+                                               train_net, train_ms)
+    if not ok:
+        failed.append("lora_lm")
+    path_launches.update(new_launches)
+    del lora_net
+    torch.cuda.empty_cache()
+    for name, fn, args in (
+            ("qlora_lm", phase_qlora_lm, (train_net,)),
+            ("transfer_resnet", phase_transfer_resnet,
+             (nets["t2"], rn_batch["t2"])),
+            ("adapter_serving", phase_adapter_serving, (cg,)),
+            ("host_budget", phase_host_budget,
+             (cg, nets["t2"], mnist["lenet"][0]))):
+        ok, new_launches = fn(card, torch, kernels, dev, *args)
+        if not ok:
+            failed.append(name)
+        path_launches.update(new_launches)
+        torch.cuda.empty_cache()
     ok, path_launches["long_serve"] = phase_long_serve(card, torch, kernels,
                                                        dev)
     if not ok:

@@ -12,10 +12,18 @@ in three layers:
 `legacy.load_any` opens this format or a model zip; `legacy.migrate_zip`
 converts a zip; `quantize` writes the int8 serving checkpoint of a
 committed one (`python -m deeplearning4j_tpu_torch.checkpoint.quantize
-<src> <dst>`). The reference's `adapters` (LoRA deltas, ROADMAP A.12) are
-not in the port yet.
+<src> <dst>`); `adapters` saves a net's LoRA deltas as a small committed
+snapshot pinned to its base's fingerprint, and loads them back
+(`save_adapter`, `load_adapter`, `base_fingerprint`).
 """
 
+from deeplearning4j_tpu_torch.checkpoint.adapters import (
+    adapter_meta,
+    base_fingerprint,
+    is_adapter_checkpoint,
+    load_adapter,
+    save_adapter,
+)
 from deeplearning4j_tpu_torch.checkpoint.array_store import (
     CheckpointCorruptError,
     CheckpointError,
@@ -30,6 +38,11 @@ from deeplearning4j_tpu_torch.checkpoint.store import (
 )
 
 __all__ = [
+    "adapter_meta",
+    "base_fingerprint",
+    "is_adapter_checkpoint",
+    "load_adapter",
+    "save_adapter",
     "CheckpointCorruptError",
     "CheckpointError",
     "CheckpointManager",

@@ -67,10 +67,12 @@ from deeplearning4j_tpu_torch.checkpoint.array_store import (
     to_tensor,
     write_leaf,
 )
+from deeplearning4j_tpu_torch.nn import params as params_mod
 from deeplearning4j_tpu_torch.nn.conf.dtype_policy import (
     DtypePolicy,
     conf_policy,
 )
+from deeplearning4j_tpu_torch.nn.lora import LORA_SCALE
 
 COMMIT = "COMMIT"
 META = "meta.json"
@@ -284,7 +286,8 @@ def _restore_tree(tree, prefix: str, index: dict, base: str) -> None:
 
 def _build_net(meta: dict, index: dict, base: str, device):
     """A fresh engine from the checkpoint's conf on `device`, its params
-    read from the checkpoint (mirrors `model_serializer.load_model`)."""
+    read from the checkpoint (mirrors `model_serializer.load_model`), a
+    LoRA layer's adapter leaves among them (`__lora_scale` at f32)."""
     from deeplearning4j_tpu_torch.util.model_serializer import engine_classes
 
     engines = engine_classes()
@@ -295,8 +298,10 @@ def _build_net(meta: dict, index: dict, base: str, device):
     net = net_cls(conf_cls.from_json(meta["conf_json"]), device=device)
     target = dtype_name(net.dtype_policy.param_dtype)
     params = {name: {k: _read_leaf(base, index, f"{_PARAMS}/{name}/{k}",
-                                   shape, target)
-                     for k, shape in layer.param_shapes().items()}
+                                   shape, "float32" if k.endswith(
+                                       LORA_SCALE) else target)
+                     for k, shape in params_mod.layer_param_shapes(
+                         layer).items()}
               for name, layer in net._layer_confs.items()}
     return net.init(params=params)
 

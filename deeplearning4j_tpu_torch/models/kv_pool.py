@@ -241,10 +241,12 @@ class PrefixCache:
     def __len__(self) -> int:
         return len(self._entries)
 
-    def get(self, prompt: Sequence[int]):
+    def get(self, prompt: Sequence[int], namespace=None):
         """`(pages, length, probs)` for an exact prompt match (LRU
-        refresh), else None."""
-        key = tuple(int(i) for i in prompt)
+        refresh), else None. `namespace` partitions the keys: the same
+        prompt prefilled through two params trees (two adapters) has
+        different KV, so a hit never crosses them."""
+        key = (namespace,) + tuple(int(i) for i in prompt)
         ent = self._entries.get(key)
         if ent is None:
             self.misses += 1
@@ -254,10 +256,11 @@ class PrefixCache:
         return ent
 
     def admit(self, prompt: Sequence[int], pages: Sequence[int],
-              length: int, probs) -> None:
+              length: int, probs, namespace=None) -> None:
         """Cache a freshly-prefilled prompt: +1 ref on its pages, LRU-evict
-        beyond `max_entries`."""
-        key = tuple(int(i) for i in prompt)
+        beyond `max_entries`; `namespace` is the one its `get` missed
+        under."""
+        key = (namespace,) + tuple(int(i) for i in prompt)
         if key in self._entries or not pages:
             return
         self.pool.ref(pages)

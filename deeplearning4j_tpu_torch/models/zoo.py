@@ -404,7 +404,12 @@ class DecodeStepper:
       speculative verify shape), [slots, T, V] out;
     - `rewind_all(lengths)`: set every slot's cursors at once (the
       truncation after a verify);
-    - `clear(slot)`: retire a sequence.
+    - `clear(slot)`: retire a sequence;
+    - `set_params(tree)`: run the next prefills and steps through `tree`
+      (an adapter-merged serving tree, `serving/host.py`) in place of the
+      graph's own params; None goes back to them. Each dispatch prepares
+      the tree anew (`engine._params_for`: a LoRA weight's W + s * (A @ B)
+      at the compute dtype, formed for that forward and dropped after).
     """
 
     def __init__(self, cg, slots: int):
@@ -415,6 +420,12 @@ class DecodeStepper:
         self.capacity = decode_cache_capacity(cg)
         self._declared = cg._declared_state()
         self._state: Optional[Dict[str, Dict]] = None
+        self.params_override = None
+
+    def set_params(self, params_tree) -> None:
+        """Route the next prefill and step dispatches through
+        `params_tree` (None: the graph's own params)."""
+        self.params_override = params_tree
 
     @torch.inference_mode()
     def prefill(self, ids, pad_to: Optional[int] = None):
@@ -435,7 +446,8 @@ class DecodeStepper:
         x = np.zeros((1, pad_to, 1), np.int64)
         x[0, :n, 0] = ids
         outs, new_state = self.cg.forward_state(
-            self.cg.state, [torch.as_tensor(x, device=self.cg.device)])
+            self.cg.state, [torch.as_tensor(x, device=self.cg.device)],
+            params=self.params_override)
         rnn = rnn_mod.split_rnn_state(new_state, self._declared)
         # Rewind every scalar cursor from pad_to to the real length.
         rnn = {layer: {k: (n if isinstance(v, int) else v)
@@ -489,7 +501,8 @@ class DecodeStepper:
 
     def _dispatch(self, x):
         state = rnn_mod.merge_rnn_state(self.cg.state, self._state)
-        outs, new_state = self.cg.forward_state(state, [x])
+        outs, new_state = self.cg.forward_state(state, [x],
+                                                params=self.params_override)
         self._state = rnn_mod.split_rnn_state(new_state, self._declared)
         out = to_numpy(outs[0])
         return out if out.ndim == 3 else out[:, None, :]

@@ -96,8 +96,9 @@ class Layer:
     epsilon: Optional[float] = None
     gradient_normalization: Any = None
     gradient_normalization_threshold: Optional[float] = None
-    # Transfer learning and LoRA (ROADMAP A.12): carried, refused by the
-    # engines.
+    # Transfer learning and LoRA (`nn/transfer.py`, `nn/lora.py`): a
+    # frozen layer's params do not train; `lora_rank` adds adapter leaves
+    # beside every 2-D weight, whose base then freezes.
     frozen: Optional[bool] = None
     lora_rank: Optional[int] = None
     lora_alpha: Optional[float] = None

@@ -41,10 +41,25 @@ to its conf, in the engine's update order.
   `set_updater_state_flat()` are the flat updater view in the reference's
   leaf order (its `tree_leaves`: every dict's keys sorted, at every
   level). The model zip stores both.
-- Construction refuses a base conf with no forward pass and a LoRA
-  adapter (`nn/layers/__init__.py` `check_supported`), the adapter naming
-  its ROADMAP item. Post-training int8 params (`checkpoint/quantize.py`:
-  a weight with a `__scale` companion) serve only: `fit` refuses them.
+- Fine-tuning (`nn/transfer.py`, `nn/lora.py`; reference graph.py:204-215,
+  606-741). `init` builds the frozen spec from the layer confs (`frozen`,
+  `lora_rank`): frozen leaves are stored with `requires_grad=False`, so
+  the backward takes no gradient of them and row 9 never sees them; the
+  updater state covers the trainable leaves only (a fully frozen layer's
+  entry is `()`); under low-precision params the masters of frozen leaves
+  stay beside the trained ones, unchanged. Frozen layers still run in
+  training mode, so BatchNorm's running statistics move as the
+  reference's do. A LoRA layer's weights reach the forward as `W + scale
+  * (A @ B)` (`params.prep_layer_params`), so the factors train through
+  the same backward.
+- Post-training int8 params (`checkpoint/quantize.py`: a weight with a
+  `__scale` companion) serve, and train only frozen (LoRA over an int8
+  base): `fit` refuses an int8 leaf that would be trained.
+- `output(..., params=tree)` and the decode steppers' overrides run a
+  tree of the same structure in place of the net's own (an adapter-merged
+  serving tree, `serving/host.py`): `_params_for` prepares it for that
+  call only, from the inference copy where its leaves are the net's, and
+  never reads or fills the cache.
 - The objective's extra terms are shared: an MoE layer's `_aux_loss`
   state entry leaves the state and joins the loss (`take_aux_loss`), and
   a `CenterLossOutputLayer` adds its center term and moves its class
@@ -103,8 +118,10 @@ import torch
 from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.datasets import iterators as iterators_mod
 from deeplearning4j_tpu_torch.kernels import fused_update
+from deeplearning4j_tpu_torch.nn import lora as lora_mod
 from deeplearning4j_tpu_torch.nn import params as params_mod
 from deeplearning4j_tpu_torch.nn import superstep as superstep_mod
+from deeplearning4j_tpu_torch.nn import transfer as transfer_mod
 from deeplearning4j_tpu_torch.nn.conf.dtype_policy import resolve_policy
 from deeplearning4j_tpu_torch.nn.conf.enums import OptimizationAlgorithm
 from deeplearning4j_tpu_torch.nn.conf.layers import is_bias_param
@@ -186,6 +203,7 @@ class NetworkEngine:
                             if self.dtype_policy.param_dtype == torch.float64
                             else torch.float32)
         self.params_tree: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self._frozen_spec: Dict[str, frozenset] = {}
         self._compute_params = None
         self.state: Dict[str, Dict] = {}
         self.opt_state: Optional[Dict[str, Dict]] = None
@@ -221,16 +239,22 @@ class NetworkEngine:
         layers = self._layer_confs
         if params is None:
             gen = torch.Generator().manual_seed(int(g.seed))
-            params = {name: params_mod.init_layer_params(layers[name], gen)
-                      for name in draw_order}
+            # The adapter leaves draw from a stream of their own.
+            lora_gen = torch.Generator().manual_seed(int(g.seed) ^ 0x10A)
+            params = {name: params_mod.init_layer_params(
+                layers[name], gen, lora_generator=lora_gen)
+                for name in draw_order}
         params_mod.check_params(layers, params)
+        # What does not train (`nn/transfer.py`): {} for an ordinary net.
+        self._frozen_spec = transfer_mod.frozen_spec(
+            ((n, layers[n]) for n in draw_order), params)
         # Low-precision params keep f32 masters: the given (or drawn)
         # values at f32, the stored params their cast (reference init).
         master = (params_mod.as_leaves(params, self.device, torch.float32,
                                        grad=False)
                   if pol.low_precision_params else None)
-        self.params_tree = params_mod.as_leaves(params, self.device,
-                                                pol.param_dtype)
+        self.params_tree = params_mod.as_leaves(
+            params, self.device, pol.param_dtype, frozen=self._frozen_spec)
         self._update_tables.clear()
         self._compute_params = None
         self._compute_copy()
@@ -261,9 +285,13 @@ class NetworkEngine:
                 g.lr_policy_decay_rate, g.lr_policy_power, g.lr_policy_steps,
                 g.max_num_iterations, g.lr_schedule)
         base = self.params_tree if master is None else master
+        spec = self._frozen_spec
+        trainable = transfer_mod.split_tree(base, spec)[0] if spec else base
         with torch.no_grad():
-            self.opt_state = {name: self._updaters[name].init(base[name])
-                              for name in layers}
+            self.opt_state = {
+                name: (() if name in spec and not trainable[name]
+                       else self._updaters[name].init(trainable[name]))
+                for name in layers}
         # The reserved keys (never vertex names, reference graph.py:218).
         if master is not None:
             self.opt_state["_master"] = master
@@ -291,7 +319,8 @@ class NetworkEngine:
     def set_updater_state(self, updater_state) -> None:
         """Resume from `{"opt_state": {key: {field: {name: tensor}}},
         "iteration": n}` (`interop.updater_state_from_numpy`): the tree
-        must match this engine's updaters field for field."""
+        must match this engine's updaters field for field (a fully frozen
+        layer's `()` an empty entry)."""
         tree = updater_state["opt_state"]
         sdt = self.dtype_policy.state_dtype
         for name in RESERVED_OPT_KEYS:
@@ -301,6 +330,11 @@ class NetworkEngine:
             if name in RESERVED_OPT_KEYS:
                 continue
             got = tree.get(name, {})
+            if isinstance(own, tuple):  # a fully frozen layer: no state
+                if got:
+                    raise ValueError(f"updater state of frozen {name!r}: "
+                                     f"want none, got {sorted(got)}")
+                continue
             want = {f: {k: tuple(t.shape) for k, t in s.items()}
                     for f, s in own.items()}
             have = {f: {k: tuple(t.shape) for k, t in s.items()}
@@ -348,6 +382,32 @@ class NetworkEngine:
         return params_mod.prep_params(params, self.dtype_policy.compute_dtype,
                                       self._layer_confs)
 
+    def _params_for(self, params=None):
+        """The compute-dtype tree a forward reads for `params`, a tree of
+        the params' structure (an adapter-merged serving tree): None gives
+        the cached inference copy. A layer whose leaves are all the net's
+        own takes the inference copy's; a layer that adds adapter leaves
+        over a base without them is its inference copy plus each delta
+        (the same values as preparing it whole); any other layer is
+        prepared whole. Nothing is cached: an adapter's dense W_eff lives
+        for one forward."""
+        base = self._compute_copy()
+        if params is None:
+            return base
+        cdt = self.dtype_policy.compute_dtype
+        out = {}
+        for v, p in params.items():
+            own = self.params_tree.get(v, {})
+            shared = all(p.get(k) is t for k, t in own.items())
+            if shared and len(p) == len(own):
+                out[v] = base[v]
+                continue
+            plain = shared and not any(map(lora_mod.is_lora_leaf, own))
+            out[v] = params_mod.prep_layer_params(
+                p, cdt, self._layer_confs.get(v),
+                cast=base.get(v) if plain else None)
+        return out
+
     def _l1_l2_penalty(self, params):
         total = 0.0
         for name, layer in self._layer_confs.items():
@@ -364,24 +424,18 @@ class NetworkEngine:
                     total = total + l1 * w.abs().sum()
         return total
 
-    def _check_trainable(self, *refused) -> None:
-        """Raise NotImplementedError, naming the ROADMAP item, for what
-        `fit` does not run yet; `refused` adds engine-specific
-        `(condition, what, item)` triples."""
-        checks = list(refused)
-        if self.params_tree is not None and params_mod.is_quantized(
-                self.params_tree):
+    def _check_trainable(self) -> None:
+        """Raise ValueError for a post-training int8 leaf that `fit` would
+        train (frozen, under LoRA, it rides along as data)."""
+        spec = self._frozen_spec
+        if self.params_tree is not None and any(
+                k not in spec.get(v, ()) for v, k in
+                params_mod.quantized_leaves(self.params_tree)):
             raise ValueError(
                 "fit: these params are post-training-quantized int8 "
                 "(checkpoint/quantize.py), a serving artifact; train the "
-                "float checkpoint they came from")
-        for name, layer in self._layer_confs.items():
-            checks.append((bool(layer.frozen),
-                           f"frozen layer {name!r} (transfer learning)", 12))
-        for cond, what, item in checks:
-            if cond:
-                raise NotImplementedError(
-                    f"fit: {what} is not in the port yet (ROADMAP A.{item})")
+                "float checkpoint they came from, or freeze the int8 base "
+                "and train LoRA adapters over it (nn/transfer.py)")
 
     def _check_sgd_only_policy(self, what: str) -> None:
         """The reference's refusal (`multilayer.py:909-915`): masters and
@@ -543,8 +597,8 @@ class NetworkEngine:
                 st = {f: {k: torch.where(fin, t, old[f][k])
                           for k, t in fs.items()} for f, fs in st.items()}
             if lowp:
-                for k, p in params.items():
-                    self.params_tree[name][k].copy_(p)
+                for k in deltas:  # frozen leaves keep their stored bits
+                    self.params_tree[name][k].copy_(params[k])
             self.opt_state[name] = st
             if collect:
                 stats[name] = {k: {"grad_mm": g_.abs().mean(),

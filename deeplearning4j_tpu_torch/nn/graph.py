@@ -63,8 +63,11 @@ engines' shared machinery (`engine.py`).
   the reference's does (graph.py:770-771, 840-855), and on the card a
   multi-batch epoch streams through a `DeviceStager`.
 
-What `fit` does not run yet raises NotImplementedError naming its ROADMAP
-item: frozen layers (A.12).
+- Frozen layers and LoRA adapters train under the engines' frozen spec
+  (`engine.py`, `nn/transfer.py`), in the per-batch step, truncated BPTT
+  and the superstep alike; `output(..., params=tree)` runs an
+  adapter-merged tree in place of the net's own (reference graph.py:
+  1111-1120).
 """
 
 from __future__ import annotations
@@ -240,22 +243,26 @@ class ComputationGraph(NetworkEngine):
             final.append(o)
         return final
 
-    def forward_state(self, state, inputs):
+    def forward_state(self, state, inputs, params=None):
         """One stateful forward for the decode steppers: `inputs` are device
-        tensors, `state` the merged layer state; returns (outputs, new
+        tensors, `state` the merged layer state, `params` a tree to run in
+        place of the net's own (None: the net's); returns (outputs, new
         state) on the device."""
         with torch.inference_mode():
-            outs, new_state, _ = self._forward(self._compute_copy(), state,
-                                               inputs, keep_rnn_state=True)
+            outs, new_state, _ = self._forward(self._params_for(params),
+                                               state, inputs,
+                                               keep_rnn_state=True)
             return self._finish(outs), new_state
 
-    def output(self, *inputs, train: bool = False,
-               features_masks=None) -> List[np.ndarray]:
+    def output(self, *inputs, train: bool = False, features_masks=None,
+               params=None) -> List[np.ndarray]:
         """Forward (reference `output`, graph.py:1110); `train=True` runs
-        the layers in training mode, dropout drawn from a new key."""
+        the layers in training mode, dropout drawn from a new key. `params`
+        substitutes a tree of the params' structure (an adapter-merged
+        serving tree, `nn/lora.py`) for the net's own, for this call."""
         key = self._next_rng() if train else None
         with torch.inference_mode():
-            outs, _, _ = self._forward(self._compute_copy(), self.state,
+            outs, _, _ = self._forward(self._params_for(params), self.state,
                                        inputs, keep_rnn_state=False,
                                        train=train,
                                        fmasks=_as_mask_list(features_masks),

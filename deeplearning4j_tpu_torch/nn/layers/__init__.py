@@ -15,8 +15,10 @@ through.
 AutoEncoder, RBM; `MultiLayerNetwork.pretrain`).
 
 `check_supported` is what an engine asks of each layer when it is
-constructed: a base conf with no forward pass, or a LoRA adapter, raises
-NotImplementedError, the adapter naming its ROADMAP item."""
+constructed: a base conf with no forward pass raises NotImplementedError.
+A LoRA adapter (`lora_rank`) runs through every layer unchanged: its
+leaves are resolved into the weight before the forward reads it
+(`nn/params.py` `prep_layer_params`)."""
 
 from __future__ import annotations
 
@@ -78,18 +80,13 @@ MASK_CONSUMERS = {"GlobalPoolingLayer"}
 
 
 def check_supported(key: str, conf) -> None:
-    """Raise NotImplementedError for a layer the port cannot run (a LoRA
-    adapter naming its ROADMAP item)."""
+    """Raise NotImplementedError for a layer the port cannot run."""
     kind = type(conf).__name__
     if kind not in LAYER_IMPLS:
         # BaseOutputLayer, BaseRecurrentLayer: bases that no engine of
         # either package runs.
         raise NotImplementedError(
             f"layer {key!r} ({kind}) is a base conf with no forward pass")
-    if getattr(conf, "lora_rank", None):
-        raise NotImplementedError(
-            f"layer {key!r}: LoRA adapters (lora_rank={conf.lora_rank}) are "
-            "not in the port yet (ROADMAP A.12)")
 
 
 def get_impl(conf):

@@ -63,8 +63,11 @@ engines' shared params, updaters and in-place update (`engine.py`).
   `DeviceStager` (`datasets/staging.py` `maybe_stage`), as the
   reference's fit does; the CPU takes its batches as they come.
 
-What `fit` does not run yet raises NotImplementedError naming its ROADMAP
-item: frozen layers (A.12).
+- Frozen layers and LoRA adapters train under the engines' frozen spec
+  (`engine.py`, `nn/transfer.py`), in the per-batch step, truncated BPTT
+  and the superstep alike; `output(..., params=tree)` runs an
+  adapter-merged tree in place of the net's own (reference
+  multilayer.py:1195-1200).
 """
 
 from __future__ import annotations
@@ -179,13 +182,15 @@ class MultiLayerNetwork(NetworkEngine):
             out = activations.resolve(last.activation)(out)
         return out
 
-    def output(self, x, train: bool = False,
-               features_mask=None) -> np.ndarray:
+    def output(self, x, train: bool = False, features_mask=None,
+               params=None) -> np.ndarray:
         """Forward (reference `output`, :1193); `train=True` runs the
-        layers in training mode, dropout drawn from a new key."""
+        layers in training mode, dropout drawn from a new key. `params`
+        substitutes a tree of the params' structure (an adapter-merged
+        serving tree, `nn/lora.py`) for the net's own, for this call."""
         key = self._next_rng() if train else None
         with torch.inference_mode():
-            out, _, _ = self._forward(self._compute_copy(), self.state, x,
+            out, _, _ = self._forward(self._params_for(params), self.state, x,
                                       features_mask, keep_rnn_state=False,
                                       train=train, key=key)
             return to_numpy(self._finish(out))

@@ -8,15 +8,23 @@ grad (`as_leaves`). Which of them l1/l2 reach is the layer conf's
 `weight_param_keys()`. Declared layer state (the BatchNorm running stats)
 starts from `init_layer_state`. `flatten_params` / `unflatten_params` are
 MultiLayerNetwork's flat `params()` view: layer order, then each layer's
-`param_shapes()` order, C order within a param."""
+`param_shapes()` order, C order within a param.
+
+A layer conf with `lora_rank` also holds its adapter leaves (`nn/lora.py`:
+`W__lora_a`, `W__lora_b`, `W__lora_scale` beside each 2-D weight), drawn by
+`init_layer_params` from a generator of their own, checked by
+`check_params` and resolved to `W + scale * (A @ B)` by
+`prep_layer_params`; the flat view leaves them out, as the reference's
+does."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nn import lora as lora_mod
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     LSTM,
     BatchNormalization,
@@ -59,13 +67,17 @@ def _fans(conf, name, shape):
 
 
 def init_layer_params(conf, generator: torch.Generator,
-                      dtype=torch.float32) -> Dict[str, torch.Tensor]:
+                      dtype=torch.float32,
+                      lora_generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, torch.Tensor]:
     """One layer's params from its conf (reference `init_layer_params`):
     BatchNorm gamma/beta at the conf's constants, LayerNorm gamma=1/beta=0,
     the bottleneck's gamma_* at ones, biases (beta_* included) at
     `bias_init` with an LSTM's forget block [n, 2n) at
     `forget_gate_bias_init`, peepholes at zero, weights by the layer's
-    own `weight_init` (its `dist` for "distribution") and `_fans`."""
+    own `weight_init` (its `dist` for "distribution") and `_fans`; with
+    `lora_rank`, the adapter leaves from `lora_generator` (a stream of
+    their own, so adding adapters moves no base draw)."""
     params: Dict[str, torch.Tensor] = {}
     bias_init = float(conf.bias_init or 0.0)
     for name, shape in conf.param_shapes().items():
@@ -90,6 +102,10 @@ def init_layer_params(conf, generator: torch.Generator,
                                         *_fans(conf, name, shape),
                                         scheme=conf.weight_init or "xavier",
                                         distribution=conf.dist, dtype=dtype)
+    if getattr(conf, "lora_rank", None):
+        if lora_generator is None:
+            raise ValueError("a layer with lora_rank needs a lora_generator")
+        params.update(lora_mod.init_lora_params(conf, lora_generator, dtype))
     return params
 
 
@@ -102,15 +118,24 @@ def init_layer_state(conf, dtype=torch.float32) -> Dict[str, torch.Tensor]:
             for name, shape in conf.state_shapes().items()}
 
 
-def as_leaves(tree, device, dtype, grad: bool = True):
+def as_leaves(tree, device, dtype, grad: bool = True, frozen=None):
     """A `{vertex: {name: tensor}}` tree as the graph's own params: copies
     on `device`, floating ones at `dtype` as leaf tensors that require grad
     (the training step updates them in place, under no_grad) unless `grad`
-    is False (the f32 masters)."""
-    return {v: {k: (a.detach().to(device, dtype, copy=True)
-                    .requires_grad_(grad) if a.is_floating_point()
-                    else a.detach().to(device, copy=True))
-                for k, a in p.items()}
+    is False (the f32 masters) or the name is frozen (`frozen`, a
+    `{vertex: names}` spec, `nn/transfer.py`). An adapter's
+    `__lora_scale` stays f32 (the reference keeps it so under every
+    policy)."""
+    frozen = frozen or {}
+
+    def leaf(v, k, a):
+        if not a.is_floating_point():
+            return a.detach().to(device, copy=True)
+        dt = torch.float32 if k.endswith(lora_mod.LORA_SCALE) else dtype
+        return a.detach().to(device, dt, copy=True).requires_grad_(
+            grad and k not in frozen.get(v, ()))
+
+    return {v: {k: leaf(v, k, a) for k, a in p.items()}
             for v, p in tree.items()}
 
 
@@ -125,29 +150,47 @@ def cast_floating(tree, dtype):
 SCALE_SUFFIX = "__scale"
 
 
-def prep_layer_params(lparams, compute_dtype, layer=None):
+def prep_layer_params(lparams, compute_dtype, layer=None, cast=None):
     """One layer's params as its forward reads them (reference
-    `prep_layer_params`, less LoRA): floating leaves cast to the compute
-    dtype; an integer leaf with a `<name>__scale` companion (post-training
-    int8, `checkpoint/quantize.py`) dequantized as `q * scale` at the
-    compute dtype, the companion consumed. A `BottleneckBlock` keeps its
-    int8 weights and their scales as they are: row 12's kernel
-    dequantizes them at the load (`kernels/bottleneck_block.py`)."""
+    `prep_layer_params`): floating leaves cast to the compute dtype; an
+    integer leaf with a `<name>__scale` companion (post-training int8,
+    `checkpoint/quantize.py`) dequantized as `q * scale` at the compute
+    dtype, the companion consumed. A weight with `__lora_a` / `__lora_b`
+    siblings becomes `base + (A @ B) * scale`, each factor at the compute
+    dtype, in the reference's order; the siblings are consumed
+    (`__lora_scale` by the `__scale` rule). `cast`, where given, holds
+    base leaves already at the compute dtype (an engine's inference copy
+    of the same base), used in place of casting them again. A
+    `BottleneckBlock` keeps its int8 weights and their scales as they
+    are: row 12's kernel dequantizes them at the load
+    (`kernels/bottleneck_block.py`)."""
     if isinstance(layer, BottleneckBlock):
         return {k: (a.to(compute_dtype) if a.is_floating_point()
                     and not k.endswith(SCALE_SUFFIX) else a)
                 for k, a in lparams.items()}
     out = {}
     for k, a in lparams.items():
-        if k.endswith(SCALE_SUFFIX):
+        if k.endswith((SCALE_SUFFIX, lora_mod.LORA_A, lora_mod.LORA_B)):
             continue
         scale = lparams.get(k + SCALE_SUFFIX)
-        if scale is not None and not a.is_floating_point():
-            out[k] = a.to(compute_dtype) * scale.to(compute_dtype)
+        if cast is not None and k in cast:
+            base = cast[k]
+        elif scale is not None and not a.is_floating_point():
+            base = a.to(compute_dtype) * scale.to(compute_dtype)
         elif a.is_floating_point():
-            out[k] = a.to(compute_dtype)
+            base = a.to(compute_dtype)
         else:
             out[k] = a
+            continue
+        la = lparams.get(k + lora_mod.LORA_A)
+        lb = lparams.get(k + lora_mod.LORA_B)
+        if la is not None and lb is not None:
+            delta = la.to(compute_dtype) @ lb.to(compute_dtype)
+            ls = lparams.get(k + lora_mod.LORA_SCALE)
+            if ls is not None:
+                delta = delta * ls.to(compute_dtype)
+            base = base + delta
+        out[k] = base
     return out
 
 
@@ -158,25 +201,41 @@ def prep_params(tree, compute_dtype, layers):
             for v, p in tree.items()}
 
 
-def is_quantized(tree) -> bool:
-    """Whether a params tree holds post-training int8 weights (a leaf with
-    a `__scale` companion)."""
-    return any(k.endswith(SCALE_SUFFIX) for p in tree.values() for k in p)
+def is_int8_scale(name: str) -> bool:
+    """A post-training int8 weight's `__scale` companion (an adapter's
+    `__lora_scale` is none)."""
+    return (name.endswith(SCALE_SUFFIX)
+            and not name.endswith(lora_mod.LORA_SCALE))
+
+
+def quantized_leaves(tree):
+    """`(vertex, name)` of every post-training int8 weight of a params
+    tree (a leaf with a `__scale` companion)."""
+    return [(v, k[:-len(SCALE_SUFFIX)]) for v, p in tree.items()
+            for k in p if is_int8_scale(k)]
+
+
+def layer_param_shapes(conf) -> Dict[str, tuple]:
+    """Every leaf a layer's params hold: `param_shapes()`, then the
+    adapter leaves under `lora_rank`."""
+    return {**{k: tuple(s) for k, s in conf.param_shapes().items()},
+            **lora_mod.lora_param_shapes(conf)}
 
 
 def check_params(layers: Mapping[str, object], params: Mapping) -> None:
     """Raise unless `params` holds exactly each layer's declared names and
-    shapes, and beside an integer (post-training int8) weight at most its
-    `<name>__scale` companion of one value per output channel."""
+    shapes (with `lora_rank`, its adapter leaves too), and beside an
+    integer (post-training int8) weight at most its `<name>__scale`
+    companion of one value per output channel."""
     for vname, conf in layers.items():
-        want = {k: tuple(s) for k, s in conf.param_shapes().items()}
+        want = layer_param_shapes(conf)
         tree = params.get(vname, {})
         got = {k: tuple(a.shape) for k, a in tree.items()
-               if not k.endswith(SCALE_SUFFIX)}
+               if not is_int8_scale(k)}
         for k, a in tree.items():
-            base = tree.get(k[:-len(SCALE_SUFFIX)]) if k.endswith(
-                SCALE_SUFFIX) else None
-            if k.endswith(SCALE_SUFFIX) and (
+            base = tree.get(k[:-len(SCALE_SUFFIX)]) if is_int8_scale(
+                k) else None
+            if is_int8_scale(k) and (
                     base is None or base.is_floating_point()
                     or tuple(a.shape) != tuple(base.shape[-1:])):
                 raise ValueError(f"params of vertex {vname!r}: {k!r} is no "

@@ -136,8 +136,16 @@ def _shallow(tree):
             for k, v in tree.items()}
 
 
+def _trained(net):
+    """The params a step writes: its frozen leaves (`nn/transfer.py`)
+    it never touches, so the warm-up neither copies nor restores them."""
+    spec = net._frozen_spec
+    return {v: {k: t for k, t in p.items() if k not in spec.get(v, ())}
+            for v, p in net.params_tree.items()}
+
+
 def _snapshot(net):
-    values = [t for tree in (net.params_tree, net.state, net.opt_state)
+    values = [t for tree in (_trained(net), net.state, net.opt_state)
               for _, t in _leaves(tree)]
     with torch.no_grad():
         return (_shallow(net.state), _shallow(net.opt_state),
@@ -156,10 +164,12 @@ def _restore(net, snap) -> None:
 
 
 def _capturable(net) -> bool:
-    """Every layer that trains has the fused update (whose scalars the
-    replay refills); another updater's step arithmetic is host floats the
+    """Every layer that trains (one with a trainable leaf: frozen leaves
+    never reach the update) has the fused update, whose scalars the
+    replay refills; another updater's step arithmetic is host floats the
     graph would bake in."""
-    return all(not net.params_tree.get(name)
+    trained = _trained(net)
+    return all(not trained.get(name)
                or net._updaters[name].fused is not None
                for name in net._layer_confs)
 

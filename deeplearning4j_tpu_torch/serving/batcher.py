@@ -20,8 +20,13 @@ declared structure (the wire policy of `nn/conf/preprocessors.py`, the
 engines' `_uint8_policy` / `_uint8_policies`). Ids models get int32
 features and a 400 on fractional floats; value models get float32.
 
+LoRA adapters (`serving/host.py`): a request may carry an adapter name
+and its merged params tree; a batch runs one sub-batch per (shape,
+adapter), each through `net.output(x, params=tree)`, and `warm()` drives
+every bucket through each adapter's tree too (`param_variants`).
+
 Still to come: the tracer spans, ledger records and crash bundles of the
-batch loop (ROADMAP A.14), and grouping by LoRA adapter (A.12).
+batch loop (ROADMAP A.14).
 """
 
 from __future__ import annotations
@@ -152,10 +157,16 @@ def serving_feature_spec(net, warmup_shape=None):
 
 class _Pending:
     __slots__ = ("array", "event", "result", "error", "deadline",
-                 "cancelled")
+                 "cancelled", "adapter", "params")
 
-    def __init__(self, array: np.ndarray, deadline: Optional[float] = None):
+    def __init__(self, array: np.ndarray, deadline: Optional[float] = None,
+                 adapter: Optional[str] = None, params=None):
         self.array = array
+        # The adapter is part of the batch key: requests on different
+        # trees cannot share one forward. `params` is the merged tree to
+        # run (None: the model's own).
+        self.adapter = adapter
+        self.params = params
         self.event = threading.Event()
         self.result: Optional[np.ndarray] = None
         self.error: Optional[str] = None
@@ -187,6 +198,9 @@ class ShapeBucketBatcher:
         self._queue: "queue.Queue[Optional[_Pending]]" = queue.Queue(
             maxsize=int(queue_depth))
         self._thread: Optional[threading.Thread] = None
+        # A callable giving `{adapter: merged tree}`, the trees `warm()`
+        # drives beside the base (set by the server).
+        self.param_variants = None
         self.stats = {"batches": 0, "rows": 0, "padded_rows": 0,
                       "dropped": 0}
         _m.MODEL_QUEUE_DEPTH.labels(
@@ -217,11 +231,12 @@ class ShapeBucketBatcher:
 
     # ---------------------------------------------------------- admission
 
-    def submit(self, arr: np.ndarray,
-               deadline: Optional[float] = None) -> _Pending:
-        """Enqueue one request's rows; sheds (503 + Retry-After) when the
+    def submit(self, arr: np.ndarray, deadline: Optional[float] = None,
+               adapter: Optional[str] = None, params=None) -> _Pending:
+        """Enqueue one request's rows (through adapter `adapter`'s merged
+        tree `params`, if given); sheds (503 + Retry-After) when the
         bounded queue is full."""
-        p = _Pending(arr, deadline)
+        p = _Pending(arr, deadline, adapter=adapter, params=params)
         try:
             self._queue.put_nowait(p)
         except queue.Full:
@@ -234,19 +249,23 @@ class ShapeBucketBatcher:
 
     def warm(self) -> None:
         """One forward per bucket on zeros of the served shape (the
-        reference's path for an engine without a compile step)."""
+        reference's path for an engine without a compile step), through
+        the base and each adapter's merged tree."""
         shape, dtype = serving_feature_spec(self.net, self.warmup_shape)
         if shape is None:
             raise ValueError(
                 "cannot infer the model's input shape; pass "
                 "warmup_shape=(...) to InferenceServer")
-        for b in self.buckets:
-            self._forward(np.zeros((b,) + tuple(shape), dtype))
+        variants = self.param_variants() if self.param_variants else {}
+        for params in [None, *variants.values()]:
+            for b in self.buckets:
+                self._forward(np.zeros((b,) + tuple(shape), dtype), params)
 
     # ------------------------------------------------------------ batching
 
-    def _forward(self, x: np.ndarray) -> np.ndarray:
-        out = self.net.output(x)
+    def _forward(self, x: np.ndarray, params=None) -> np.ndarray:
+        out = (self.net.output(x) if params is None
+               else self.net.output(x, params=params))
         if isinstance(out, list):  # ComputationGraph returns [out, ...]
             out = out[0]
         return np.asarray(out)
@@ -272,11 +291,12 @@ class ShapeBucketBatcher:
                 p.event.set()
                 continue
             live.append(p)
-        # Requests of different per-example shapes cannot share one padded
-        # batch: one sub-batch per shape.
+        # Requests of different per-example shapes, or on different
+        # adapters, cannot share one padded batch: one sub-batch per
+        # (shape, adapter).
         groups: dict = {}
         for p in live:
-            groups.setdefault(p.array.shape[1:], []).append(p)
+            groups.setdefault((p.array.shape[1:], p.adapter), []).append(p)
         for group in groups.values():
             self._run_group(group)
 
@@ -290,7 +310,7 @@ class ShapeBucketBatcher:
             if n < bucket:
                 pad = np.zeros((bucket - n,) + x.shape[1:], x.dtype)
                 x = np.concatenate([x, pad], axis=0)
-            preds = self._forward(x)[:n]
+            preds = self._forward(x, live[0].params)[:n]
             self.stats["batches"] += 1
             self.stats["rows"] += n
             self.stats["padded_rows"] += bucket

@@ -7,12 +7,15 @@
 - `GET  /metrics`    Prometheus scrape (`?format=json` for the snapshot,
                      `?names=a,b` to narrow it to those families)
 - `GET  /v1/models`  one row per hosted model
-- `POST /predict`    `{"data": [[...]], "model"?, "timeout_ms"?}` ->
-                     `{"predictions": [...]}`
+- `POST /predict`    `{"data": [[...]], "model"?, "adapter"?,
+                       "timeout_ms"?}` -> `{"predictions": [...]}`
 - `POST /generate`   `{"prompt_ids": [...], "n_steps": N, "temperature"?,
                        "top_k"?, "top_p"?, "seed"?, "eos_id"?, "model"?,
-                       "timeout_ms"?}` -> `{"ids": [...]}`, the prompt
-                       included (the reference's schema)
+                       "adapter"?, "timeout_ms"?}` -> `{"ids": [...]}`,
+                       the prompt included (the reference's schema)
+
+`"adapter"` names a LoRA adapter loaded beside the model
+(`InferenceServer.load_adapter`); an unknown one is a 400.
 
 While the server or the model is warming, `/predict` and `/generate`
 answer 503 with `Retry-After: 1`; a model whose warmup failed answers 503
@@ -125,7 +128,8 @@ def make_handler(server):
                 payload = self._payload()
                 name = payload.get("model")
                 preds = server.predict(payload["data"], model=name,
-                                       timeout_s=self._timeout_s(payload))
+                                       timeout_s=self._timeout_s(payload),
+                                       adapter=payload.get("adapter"))
             except Exception as e:  # the HTTP boundary answers every failure
                 return self._error(e)
             self._json({"predictions": preds.tolist()})
@@ -140,6 +144,7 @@ def make_handler(server):
                 ids = server.generate(payload["prompt_ids"],
                                       int(payload["n_steps"]), model=name,
                                       timeout_s=self._timeout_s(payload),
+                                      adapter=payload.get("adapter"),
                                       **sampling)
             except Exception as e:  # the HTTP boundary answers every failure
                 return self._error(e)

@@ -9,11 +9,14 @@ label names in its order).
 - The SLO families are labeled per model and route.
 - The paged-decode families: KV pages, prefix-cache hits and misses,
   speculative proposals.
+- The hosting and adapter families (`HOSTING_FAMILIES`): a model's HBM
+  bytes, the models resident, evictions, the adapters resident and the
+  requests through each adapter. They appear in a scrape once a server
+  has hosted, evicted or served through an adapter.
 
-Families still to come: HBM bytes and residency, evictions and the
-adapter families with A.12 (multi-model hosting, LoRA); the sharding
-gauge and the fleet and router families with A.13; dispatch seconds and
-the per-tenant families with A.14 (the request ledger).
+Families still to come: the sharding gauge and the fleet and router
+families with A.13; dispatch seconds and the per-tenant families with
+A.14 (the request ledger).
 """
 
 from __future__ import annotations
@@ -69,6 +72,11 @@ MODEL_QUEUE_DEPTH = _obs.metrics.gauge(
     "dl4j_serving_model_queue_depth",
     "Queued requests per model and route (scrape-time)",
     label_names=("model", "route"))
+MODEL_HBM_BYTES = _obs.metrics.gauge(
+    "dl4j_serving_model_hbm_bytes",
+    "Estimated device-resident bytes per hosted model (params + state; "
+    "checkpoint manifest size before load)",
+    label_names=("model",))
 MODEL_DTYPE = _obs.metrics.gauge(
     "dl4j_serving_model_dtype",
     "Info gauge (value 1): the serving dtype of each hosted model — "
@@ -76,6 +84,13 @@ MODEL_DTYPE = _obs.metrics.gauge(
     "(float32/bfloat16/...). Join on {model} with "
     "dl4j_serving_model_hbm_bytes to attribute HBM by precision",
     label_names=("model", "dtype"))
+MODELS_RESIDENT = _obs.metrics.gauge(
+    "dl4j_serving_models_resident",
+    "Hosted models currently resident (loaded) in this process")
+EVICTIONS = _obs.metrics.counter(
+    "dl4j_serving_evictions_total",
+    "LRU evictions of cold models from the multi-model host",
+    label_names=("model",))
 DECODE_SLOTS_BUSY = _obs.metrics.gauge(
     "dl4j_serving_decode_slots_busy",
     "Generation scheduler slots currently holding an active sequence",
@@ -106,9 +121,32 @@ SPECULATIVE_TOKENS = _obs.metrics.counter(
     "measured accept rate alpha in PERF.md §23",
     label_names=("model", "outcome"))
 
-# The families above, by name (what a scrape of this tier carries).
+# ----------------------------------------------------------- multi-tenant
+# LoRA adapter serving (nn/lora.py, checkpoint/adapters.py): rank-r deltas
+# resident next to one base model, selected per request.
+ADAPTERS_RESIDENT = _obs.metrics.gauge(
+    "dl4j_adapters_resident",
+    "LoRA adapters loaded next to each hosted base model (each is a "
+    "rank-r delta, typically <1% of the base's HBM — see /v1/models for "
+    "per-adapter bytes)",
+    label_names=("model",))
+ADAPTER_REQUESTS = _obs.metrics.counter(
+    "dl4j_adapter_requests_total",
+    "Requests served through a named LoRA adapter over a shared base, by "
+    "outcome (ok / timeout / shed / failed) — per-tenant error rates "
+    "without joining the ledger (adapter='' rows would be the base "
+    "itself; those count only under dl4j_requests_total)",
+    label_names=("model", "adapter", "outcome"))
+
+# The families above but the hosting ones, by name (what a scrape of any
+# serving tier carries).
 FAMILIES = tuple(f.name for f in (
     REQUESTS_LEGACY, REQ_LATENCY, BATCH_SIZE, QUEUE_DEPTH, REQUESTS,
     REQUEST_SECONDS, TTFT_SECONDS, DECODE_STEP_SECONDS, ITL_SECONDS,
     GENERATED_TOKENS, MODEL_QUEUE_DEPTH, MODEL_DTYPE, DECODE_SLOTS_BUSY,
     KV_PAGES, PREFIX_CACHE_HITS, PREFIX_CACHE_MISSES, SPECULATIVE_TOKENS))
+# The hosting and adapter families (children once a server hosts, evicts
+# or serves through an adapter).
+HOSTING_FAMILIES = tuple(f.name for f in (
+    MODEL_HBM_BYTES, MODELS_RESIDENT, EVICTIONS, ADAPTERS_RESIDENT,
+    ADAPTER_REQUESTS))

@@ -23,11 +23,23 @@ verify's attention is the paged kernel with `spec_k + 1` query rows, so
 width once before traffic, and leaves slot 0, the pool and the prefix
 cache as it found them.
 
+LoRA adapters (`serving/host.py`): a request may name an adapter, whose
+merged params tree it carries from admission (an unknown name is a 400
+there). Its prefill runs through that tree, and its prefix-cache entries
+are kept under the adapter's name, so the same prompt under two adapters
+never shares pages. A decode round whose slots all share one adapter is
+one dispatch; a mixed round dispatches once per adapter group over the
+whole slot bank, then rewinds: slots whose group has run stay one token
+on, slots still waiting go back to their length, so each slot's KV row
+and distribution come from its own group's dispatch (reference
+`_decode_round`). A model with a draft refuses adapters, as the
+reference's does.
+
 Threads: the decode loop runs on its own thread and is the only thread
 that touches device tensors once traffic flows; callers hand it host-side
 requests through a bounded queue and wait on an event. The request ledger
-and the tracer spans come with ROADMAP A.14, adapters with A.12, the
-group abort of sharded replicas with A.13.
+and the tracer spans come with ROADMAP A.14, the group abort of sharded
+replicas with A.13.
 """
 
 from __future__ import annotations
@@ -80,10 +92,12 @@ def prompt_bucket_ladder(capacity: int,
 class GenerationRequest:
     __slots__ = ("prompt", "n_steps", "temperature", "top_k", "top_p",
                  "seed", "eos_id", "ids", "error", "deadline", "cancelled",
-                 "event", "t_submit", "rng", "_last_tok_ns")
+                 "event", "t_submit", "rng", "adapter", "params",
+                 "_last_tok_ns")
 
     def __init__(self, prompt, n_steps, *, temperature=1.0, top_k=0,
-                 top_p=0.0, seed=0, eos_id=None, deadline=None):
+                 top_p=0.0, seed=0, eos_id=None, deadline=None,
+                 adapter=None):
         self.prompt = [int(t) for t in prompt]
         self.n_steps = int(n_steps)
         self.temperature = float(temperature)
@@ -98,6 +112,10 @@ class GenerationRequest:
         self.event = threading.Event()
         self.t_submit = time.monotonic()
         self.rng = np.random.RandomState(self.seed)
+        # The LoRA adapter this request decodes through, and its merged
+        # params tree (resolved at admission; None: the base).
+        self.adapter = None if adapter is None else str(adapter)
+        self.params = None
         self._last_tok_ns: Optional[int] = None  # inter-token anchor
 
     @property
@@ -113,10 +131,12 @@ class GenerationScheduler:
     """One LM's continuous-batching decode loop (see module docstring).
 
     `stats` counts what the loop did: target prefills, prefix hits, decode
-    forwards of the target (a step or a verify) and their wall seconds,
-    tokens sampled from them, the draft's prefills and steps, and the
-    speculative tokens accepted and rejected. `ttft_s` keeps recent
-    time-to-first-token samples. The decode thread alone writes both."""
+    rounds of the target (a step or a verify) and their wall seconds, the
+    target's decode dispatches (one a round, one per adapter group in a
+    mixed round), tokens sampled from them, the draft's prefills and
+    steps, and the speculative tokens accepted and rejected. `ttft_s`
+    keeps recent time-to-first-token samples. The decode thread alone
+    writes both."""
 
     def __init__(self, cg, model_name: str = "default", slots: int = 4,
                  prompt_buckets: Optional[Sequence[int]] = None,
@@ -168,7 +188,12 @@ class GenerationScheduler:
         self._queue: "queue.Queue[Optional[GenerationRequest]]" = \
             queue.Queue(maxsize=int(queue_depth))
         self._thread: Optional[threading.Thread] = None
+        # Adapter hooks (set by the server): name -> merged params tree,
+        # and the names loaded (warmup drives the first).
+        self.adapter_params = None
+        self.adapter_names = None
         self.stats = {"prefills": 0, "prefix_hits": 0, "decode_steps": 0,
+                      "decode_dispatches": 0,
                       "decode_seconds": 0.0, "decode_tokens": 0,
                       "draft_prefills": 0, "draft_steps": 0,
                       "spec_accepted": 0, "spec_rejected": 0}
@@ -222,10 +247,12 @@ class GenerationScheduler:
         copy and, with a draft, every verify width (k shrinks from spec_k
         to 0 near capacity) and the draft's own prefills and step, before
         traffic: on the card the first launch of each shape builds its
-        setup. Slot 0 is cleared, every cursor rewound to 0, and the pool's
-        free list restored to its order, so a request after warmup runs as
-        on a server never warmed (the pool raises if a page leaked). The
-        prefix cache is not touched."""
+        setup. With adapters loaded, every prompt bucket and the step run
+        again through the first adapter's merged tree (every adapter's
+        tree has the same shapes). Slot 0 is cleared, every cursor rewound
+        to 0, and the pool's free list restored to its order, so a request
+        after warmup runs as on a server never warmed (the pool raises if
+        a page leaked). The prefix cache is not touched."""
         pool = getattr(self.stepper, "pool", None)
         with (contextlib.nullcontext() if pool is None
               else pool.free_list_kept()):
@@ -248,6 +275,19 @@ class GenerationScheduler:
                 self._draft_stepper.clear(0)
             self.stepper.rewind_all(idle)
             self.stepper.clear(0)
+            names = (self.adapter_names() if callable(self.adapter_names)
+                     else ())
+            if names and self.adapter_params is not None:
+                self.stepper.set_params(self.adapter_params(names[0]))
+                try:
+                    for b in self.prompt_buckets:
+                        _, astate, an = self.stepper.prefill([0], pad_to=b)
+                    self.stepper.install(0, astate, an)
+                    self.stepper.step([0] * self.slots)
+                finally:
+                    self.stepper.set_params(None)
+                self.stepper.rewind_all(idle)
+                self.stepper.clear(0)
 
     # ---------------------------------------------------------- admission
 
@@ -260,6 +300,23 @@ class GenerationScheduler:
             raise InputValidationError(
                 f"prompt ({len(req.prompt)}) + n_steps ({req.n_steps}) "
                 f"exceeds the decode cache capacity {self.capacity}")
+        if req.adapter is not None:
+            if self._draft_stepper is not None:
+                raise InputValidationError(
+                    "adapter selection is not supported with a draft "
+                    "(speculative) model configured — the draft has no "
+                    "per-tenant delta to propose with")
+            if self.adapter_params is None:
+                raise InputValidationError(
+                    f"model {self.model_name!r} hosts no adapters "
+                    f"(requested {req.adapter!r})")
+            try:
+                # Resolved here, so an unknown name is a 400 and the loop
+                # only ever sees a merged tree.
+                req.params = self.adapter_params(req.adapter)
+            except KeyError as e:
+                raise InputValidationError(str(e.args[0]) if e.args
+                                           else str(e))
         try:
             self._queue.put_nowait(req)
         except queue.Full:
@@ -269,14 +326,14 @@ class GenerationScheduler:
         return req
 
     def generate(self, prompt_ids, n_steps: int, *,
-                 timeout_s: Optional[float] = None,
+                 timeout_s: Optional[float] = None, adapter=None,
                  **sampling) -> List[int]:
         """Blocking helper: submit + wait; cancels the request (recycled at
         the next step boundary) when the caller's timeout expires."""
         deadline = (None if timeout_s is None
                     else time.monotonic() + timeout_s)
         req = GenerationRequest(prompt_ids, n_steps, deadline=deadline,
-                                **sampling)
+                                adapter=adapter, **sampling)
         self.submit(req)
         req.event.wait(timeout=timeout_s)
         if not req.event.is_set():
@@ -317,16 +374,19 @@ class GenerationScheduler:
         """Get `slot` holding the prompt's KV; return the first-token
         distribution. A prefix-cache hit points the slot at resident pages
         and replays the stored distribution (no target forward); a miss
-        prefills, installs and admits the fresh pages. The draft always
-        prefills (its dense cache has no pages to share)."""
+        prefills, installs and admits the fresh pages. Entries are kept
+        under the request's adapter. The draft always prefills (its dense
+        cache has no pages to share)."""
         cache = self.prefix_cache
-        hit = cache.get(req.prompt) if cache is not None else None
+        hit = (cache.get(req.prompt, namespace=req.adapter)
+               if cache is not None else None)
         if hit is not None:
             pages, n, probs = hit
             self.stepper.install_shared(slot, pages, n)
             self.stats["prefix_hits"] += 1
             _m.PREFIX_CACHE_HITS.labels(model=self.model_name).inc()
         else:
+            self.stepper.set_params(req.params)
             probs, slot_state, n = self.stepper.prefill(req.prompt,
                                                         pad_to=pad_to)
             self.stepper.install(slot, slot_state, n)
@@ -334,7 +394,7 @@ class GenerationScheduler:
             if cache is not None:
                 _m.PREFIX_CACHE_MISSES.labels(model=self.model_name).inc()
                 cache.admit(req.prompt, self.stepper.pool.pages_of(slot), n,
-                            probs)
+                            probs, namespace=req.adapter)
         if self._draft_stepper is not None:
             _, dstate, dn = self._draft_stepper.prefill(req.prompt,
                                                         pad_to=pad_to)
@@ -420,10 +480,8 @@ class GenerationScheduler:
             if self._draft_stepper is not None:
                 self._spec_round(active, free)
                 continue
-            tokens = [active[s].ids[-1] if s in active else 0
-                      for s in range(self.slots)]
             t0 = time.perf_counter()
-            probs = self.stepper.step(tokens)
+            probs = self._decode_round(active)
             self._stepped(time.perf_counter() - t0, len(active))
             now = time.monotonic()
             for slot, req in list(active.items()):
@@ -438,6 +496,36 @@ class GenerationScheduler:
                     self._retire(slot, req)
                     del active[slot]
                     free.append(slot)
+
+    def _decode_round(self, active: Dict[int, GenerationRequest]):
+        """One decode step of every active slot, grouped by adapter (see
+        the module docstring; reference `_decode_round`). Returns `{slot:
+        next-token distribution}`."""
+        tokens = [active[s].ids[-1] if s in active else 0
+                  for s in range(self.slots)]
+        groups: Dict[Optional[str], List[int]] = {}
+        for s in sorted(active):
+            groups.setdefault(active[s].adapter, []).append(s)
+        if len(groups) == 1:
+            self.stepper.set_params(active[min(active)].params)
+            probs = self.stepper.step(tokens)
+            self.stats["decode_dispatches"] += 1
+            return {s: probs[s] for s in active}
+        lengths = [len(active[s].ids) - 1 if s in active else 0
+                   for s in range(self.slots)]
+        rows: Dict[int, np.ndarray] = {}
+        done: set = set()
+        for gslots in groups.values():
+            self.stepper.set_params(active[gslots[0]].params)
+            probs = self.stepper.step(tokens)
+            self.stats["decode_dispatches"] += 1
+            done.update(gslots)
+            for s in gslots:
+                rows[s] = probs[s]
+            self.stepper.rewind_all([lengths[s] + 1 if s in done
+                                     else lengths[s]
+                                     for s in range(self.slots)])
+        return rows
 
     def _stepped(self, seconds: float, tokens: int) -> None:
         self.stats["decode_seconds"] += seconds

@@ -19,16 +19,28 @@ KV-cached decode path, a continuous-batching `GenerationScheduler`
   card such a failure is a kernel that did not build or launch, which the
   first request would meet too).
 
+- The models live in a `ModelHost` (`serving/host.py`, `self.models`):
+  under `hbm_budget_bytes` a model loaded from a path is evicted when the
+  least recently used one must go, and reloaded onto the server's device
+  by the next request for it (503 `Retry-After` to other callers while
+  that load runs); a live net with no path is pinned.
+- LoRA adapters: `load_adapter(name, path=... | net=...)` hosts a delta
+  beside a resident base (a checkpoint is refused unless its base
+  fingerprint is the base's, `checkpoint/adapters.py`), and `adapter=` on
+  `predict` and `generate` (the `"adapter"` field over HTTP) runs the
+  request through the merged tree: the batcher groups by (shape,
+  adapter), the scheduler decodes one dispatch per adapter group a round
+  and keeps prefix entries per adapter. An unknown adapter is a 400; an
+  adapter on a model with a draft is refused as in the reference.
+
 The server runs on the card (`device="cuda"`, the default) unless the
 caller asks for the CPU; every hosted net must live on the server's
 device. On the card, `start()` builds the kernel library before it opens
 the port, so no request pays for `nvcc`.
 
-Still to come: multi-model hosting under a memory budget
-(`hbm_budget_bytes`, `serving/host.py`) and LoRA adapters (ROADMAP A.12);
-tensor-parallel serving (`model_parallel`), fleets and the router (A.13);
-the request ledger, tenants, `/api/trace` and `/admin/*` (A.14). The knobs
-that name them raise NotImplementedError.
+Still to come: tensor-parallel serving (`model_parallel`), fleets and the
+router (ROADMAP A.13); the request ledger, tenants, `/api/trace` and
+`/admin/*` (A.14). The knobs that name them raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,11 +48,12 @@ from __future__ import annotations
 import threading
 import time
 from http.server import ThreadingHTTPServer
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from deeplearning4j_tpu_torch._device import resolve_device
+from deeplearning4j_tpu_torch.nn import lora as lora_mod
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     EmbeddingLayer,
     SelfAttentionLayer,
@@ -52,11 +65,11 @@ from deeplearning4j_tpu_torch.serving.batcher import (
 )
 from deeplearning4j_tpu_torch.serving.errors import (
     InputValidationError,
-    ModelNotFoundError,
     ModelNotReadyError,
     RequestTimeoutError,
     ServerOverloadedError,
 )
+from deeplearning4j_tpu_torch.serving.host import ModelHost, ServedModel
 from deeplearning4j_tpu_torch.serving.scheduler import GenerationScheduler
 
 _UNSET = object()
@@ -76,65 +89,16 @@ def serves_generation(net) -> bool:
                for v in vertices.values())
 
 
-def model_dtype(net) -> str:
-    """The serving dtype: "int8" when a param has a `__scale` companion,
-    else the first floating param's dtype (reference `host.model_dtype`)."""
-    first = None
-    for lp in (getattr(net, "params_tree", None) or {}).values():
-        for k, a in lp.items():
-            if not a.is_floating_point():
-                if k + "__scale" in lp:
-                    return "int8"
-            elif first is None:
-                first = str(a.dtype).replace("torch.", "")
-    return first or "float32"
-
-
-class ServedModel:
-    """One hosted model: its net, batcher, optional scheduler and status
-    ("ready", "warming" or "failed", with the warmup's error)."""
-
-    def __init__(self, name: str, net, batcher: ShapeBucketBatcher,
-                 scheduler: Optional[GenerationScheduler],
-                 path: Optional[str] = None):
-        self.name = name
-        self.net = net
-        self.batcher = batcher
-        self.scheduler = scheduler
-        self.path = path
-        self.status = "ready"
-        self.error: Optional[BaseException] = None
-        self.dtype = model_dtype(net)
-        self.vocab = None
-        if scheduler is not None:
-            # Prompt ids are checked against the ids embedding's table on
-            # the host: an out-of-range index on the card is a device-side
-            # assert that takes the process's CUDA context down with it.
-            ins = set(net.conf.network_inputs)
-            tables = [v.layer.n_in for n, v in net.layer_vertices.items()
-                      if isinstance(v.layer, EmbeddingLayer)
-                      and ins & set(net.conf.vertex_inputs[n])]
-            self.vocab = min(tables) if tables else None
-
-    def stop(self) -> None:
-        self.batcher.stop()
-        if self.scheduler is not None:
-            self.scheduler.stop()
-
-    def row(self) -> dict:
-        row = {"name": self.name, "status": self.status,
-               "lm": self.scheduler is not None,
-               "device": str(getattr(self.net, "device", "cpu")),
-               "dtype": self.dtype, "path": self.path,
-               "batch_buckets": list(self.batcher.buckets)}
-        s = self.scheduler
-        if s is not None:
-            row.update(kv_cache=s.kv, decode_slots=s.slots,
-                       capacity=s.capacity, scheduler_mode=s.mode,
-                       speculative=s._draft_stepper is not None)
-        if self.error is not None:
-            row["error"] = f"{type(self.error).__name__}: {self.error}"
-        return row
+def _prompt_vocab(net):
+    """The size of the table the prompt ids index (the ids embedding fed
+    by a network input): checked on the host, since an out-of-range index
+    on the card is a device-side assert that takes the process's CUDA
+    context down with it."""
+    ins = set(net.conf.network_inputs)
+    tables = [v.layer.n_in for n, v in net.layer_vertices.items()
+              if isinstance(v.layer, EmbeddingLayer)
+              and ins & set(net.conf.vertex_inputs[n])]
+    return min(tables) if tables else None
 
 
 class InferenceServer:
@@ -148,7 +112,8 @@ class InferenceServer:
     and `queue_depth` the batcher's bound. The decode knobs
     (`decode_slots`, `prompt_buckets`, `generate_queue_depth`,
     `scheduler_mode`, `kv_cache`, `kv_page_size`, `kv_pages`,
-    `prefix_cache`, `draft`, `spec_k`) go to each LM's scheduler."""
+    `prefix_cache`, `draft`, `spec_k`) go to each LM's scheduler.
+    `hbm_budget_bytes` is the host's budget (`serving/host.py`)."""
 
     def __init__(self, net=None, port: int = 0, host: str = "127.0.0.1", *,
                  device="cuda",
@@ -170,9 +135,6 @@ class InferenceServer:
                  draft=None, spec_k: int = 4,
                  model_parallel: int = 1,
                  default_model: str = "default"):
-        if hbm_budget_bytes is not None:
-            raise _not_yet("hosting under hbm_budget_bytes (model eviction, "
-                           "serving/host.py)", 12)
         if int(model_parallel) > 1:
             raise _not_yet(f"model_parallel={model_parallel} "
                            "(tensor-parallel serving)", 13)
@@ -194,8 +156,8 @@ class InferenceServer:
             kv_pages=kv_pages, prefix_cache=prefix_cache, draft=draft,
             spec_k=int(spec_k))
         self.default_model = default_model
-        self.models: Dict[str, ServedModel] = {}
-        self._lock = threading.Lock()
+        self.models = ModelHost(hbm_budget_bytes=hbm_budget_bytes,
+                                on_load=self._attach, device=self.device)
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._serve_thread: Optional[threading.Thread] = None
         self._warmup_thread: Optional[threading.Thread] = None
@@ -243,9 +205,10 @@ class InferenceServer:
         decode loop). `lm="auto"` serves generation when the graph has a
         KV-cached attention layer (`serves_generation`); True requires it,
         False never. Models added before `start()` are warmed by it when
-        the server has `warmup=True`."""
-        if hbm_budget_bytes is not None:
-            raise _not_yet("hosting under hbm_budget_bytes", 12)
+        the server has `warmup=True`. A model with a path can be evicted
+        and reloaded under the host's budget (a live net with no path is
+        pinned); `hbm_budget_bytes` sets that budget, for every hosted
+        model, before this one is added."""
         if model_parallel is not None and int(model_parallel) > 1:
             raise _not_yet(f"model_parallel={model_parallel}", 13)
         if net is None:
@@ -276,51 +239,110 @@ class InferenceServer:
                          ("prefix_cache", prefix_cache), ("draft", draft)):
             if val is not _UNSET:
                 opts[key] = val
+        opts["lm"] = lm
+        if hbm_budget_bytes is not None:
+            self.models.hbm_budget_bytes = int(hbm_budget_bytes)
+        return self.models.add(name, net, path=path, **opts)
+
+    def _attach(self, served: ServedModel) -> None:
+        """The host's load hook: build and start the model's batcher (and,
+        for an LM, its scheduler), at its addition and after each reload;
+        the adapter hooks read the model's registry, so adapters loaded
+        later are served too."""
+        net, o, name = served.net, served.options, served.name
         scheduler = None
-        if lm is True or (lm == "auto" and serves_generation(net)):
-            d = opts["draft"]
+        if o["lm"] is True or (o["lm"] == "auto" and serves_generation(net)):
+            d = o["draft"]
             if d is not None and d.device != self.device:
                 raise ValueError(f"the draft of {name!r} lives on "
                                  f"{d.device}; this server runs on "
                                  f"{self.device}")
             scheduler = GenerationScheduler(
-                net, model_name=name, slots=opts["slots"],
-                prompt_buckets=opts["prompt_buckets"],
-                queue_depth=opts["generate_queue_depth"], mode=opts["mode"],
-                kv=opts["kv"], page_size=opts["page_size"],
-                kv_pages=opts["kv_pages"], prefix_cache=opts["prefix_cache"],
-                draft=d, spec_k=opts["spec_k"])
+                net, model_name=name, slots=o["slots"],
+                prompt_buckets=o["prompt_buckets"],
+                queue_depth=o["generate_queue_depth"], mode=o["mode"],
+                kv=o["kv"], page_size=o["page_size"],
+                kv_pages=o["kv_pages"], prefix_cache=o["prefix_cache"],
+                draft=d, spec_k=o["spec_k"])
+            scheduler.adapter_params = served.adapter_params
+            scheduler.adapter_names = lambda: sorted(served.adapters)
+            served.vocab = _prompt_vocab(net)
         batcher = ShapeBucketBatcher(
-            net, model_name=name, max_batch_size=opts["max_batch_size"],
-            buckets=opts["batch_buckets"], max_delay_s=opts["max_delay_s"],
-            queue_depth=opts["queue_depth"],
-            warmup_shape=opts["warmup_shape"])
-        served = ServedModel(name, net, batcher, scheduler,
-                             None if path is None else str(path))
-        _m.MODEL_DTYPE.labels(model=name, dtype=served.dtype).set(1)
-        with self._lock:
-            old = self.models.get(name)
-            self.models[name] = served
-        if old is not None:
-            old.stop()
+            net, model_name=name, max_batch_size=o["max_batch_size"],
+            buckets=o["batch_buckets"], max_delay_s=o["max_delay_s"],
+            queue_depth=o["queue_depth"], warmup_shape=o["warmup_shape"])
+        batcher.param_variants = served.adapter_trees
+        served.batcher, served.scheduler = batcher, scheduler
+        served.status, served.error = "ready", None
         batcher.start()
         if scheduler is not None:
             scheduler.start()
-        return served
 
     def get(self, name: Optional[str]) -> ServedModel:
-        name = self.default_model if name is None else name
-        with self._lock:
-            served = self.models.get(name)
-        if served is None:
-            raise ModelNotFoundError(f"no model named {name!r}")
-        return served
+        """The hosted model `name` (None: the default one), reloaded
+        first if it was evicted."""
+        return self.models.get(self.default_model if name is None else name)
 
     def snapshot(self) -> list:
         """`GET /v1/models` payload."""
-        with self._lock:
-            models = list(self.models.values())
-        return [m.row() for m in models]
+        return self.models.snapshot()
+
+    # ------------------------------------------------------------- adapters
+
+    def load_adapter(self, name: str, path=None, net=None,
+                     model: Optional[str] = None):
+        """Host LoRA adapter `name` beside a resident base model: `path`
+        reads an adapter checkpoint onto the server's device (refused
+        unless its base fingerprint is the base's), `net` takes the delta
+        of a live fine-tuned engine. Requests then select it with
+        `adapter=name`; the base stays resident once and each adapter adds
+        its delta's bytes."""
+        served = self.get(model)
+        if (path is None) == (net is None):
+            raise ValueError("load_adapter needs exactly one of path/net")
+        if path is not None:
+            from deeplearning4j_tpu_torch.checkpoint import adapters
+
+            tree = adapters.load_adapter(path, base_net=served.net,
+                                         device=self.device)
+        else:
+            tree = {lk: {k: t.detach().to(self.device)
+                         for k, t in leaves.items()}
+                    for lk, leaves in lora_mod.extract_adapter(
+                        net.params_tree).items()}
+            if not tree:
+                raise ValueError("net has no LoRA adapter leaves to extract")
+        return served.add_adapter(name, tree)
+
+    @staticmethod
+    def _resolve_adapter(served: ServedModel, adapter: Optional[str]):
+        """An adapter's merged params tree (None passes through); an
+        unknown name is InputValidationError, a 400."""
+        if adapter is None:
+            return None
+        try:
+            return served.adapter_params(str(adapter))
+        except KeyError as e:
+            raise InputValidationError(str(e.args[0]) if e.args else str(e))
+
+    @staticmethod
+    def _count_adapter(model: str, adapter: Optional[str],
+                       outcome: str) -> None:
+        """`dl4j_adapter_requests_total{model,adapter,outcome}`; requests
+        to the base count only under `dl4j_requests_total`."""
+        if adapter is not None:
+            _m.ADAPTER_REQUESTS.labels(model=model, adapter=str(adapter),
+                                       outcome=outcome).inc()
+
+    @staticmethod
+    def _adapter_outcome(e: Exception) -> str:
+        """The adapter counter's outcome of a failed request: shed,
+        timeout, or failed (an invalid request among them)."""
+        if isinstance(e, ServerOverloadedError):
+            return "shed"
+        if isinstance(e, (RequestTimeoutError, TimeoutError)):
+            return "timeout"
+        return "failed"
 
     # -------------------------------------------------------------- warmup
 
@@ -330,9 +352,8 @@ class InferenceServer:
         "failed" if a model's warmup failed, else "ready"."""
         if not self._ready.is_set():
             return "warming"
-        with self._lock:
-            models = list(self.models.values())
-        return ("failed" if any(m.status == "failed" for m in models)
+        return ("failed" if any(m.status == "failed"
+                                for m in self.models.models())
                 else "ready")
 
     def wait_ready(self, timeout: Optional[float] = None) -> bool:
@@ -341,8 +362,7 @@ class InferenceServer:
         Raises the error of a model whose warmup failed."""
         if not self._ready.wait(timeout):
             return False
-        with self._lock:
-            failed = [m for m in self.models.values() if m.status == "failed"]
+        failed = [m for m in self.models.models() if m.status == "failed"]
         if failed:
             raise failed[0].error
         return True
@@ -362,10 +382,13 @@ class InferenceServer:
 
     def _warmup_run(self, models) -> None:
         """Drive each model's batch buckets, and an LM's prompt buckets,
-        decode step and verify widths, once. A failure stays with its
-        model ("failed", and `wait_ready` raises it); nothing falls back."""
+        decode step and verify widths, once, then the same again through
+        each adapter's merged tree. A failure stays with its model
+        ("failed", and `wait_ready` raises it); nothing falls back."""
         try:
             for model in models:
+                if model.batcher is None:  # evicted meanwhile
+                    continue
                 try:
                     model.batcher.warm()
                     if model.scheduler is not None:
@@ -384,9 +407,8 @@ class InferenceServer:
                 adapter: Optional[str] = None) -> np.ndarray:
         """Batched inference through the model's bucket batcher (the HTTP
         handler calls this too). A request larger than the largest bucket
-        splits into chunks of it."""
-        if adapter is not None:
-            raise _not_yet("adapter= (LoRA adapter serving)", 12)
+        splits into chunks of it. `adapter` runs it through a loaded LoRA
+        delta over the same resident base."""
         name = self.default_model if model is None else model
         timeout = (self.predict_timeout_s if timeout_s is _UNSET
                    else timeout_s)
@@ -394,15 +416,19 @@ class InferenceServer:
         try:
             served = self.get(name)
             self._check_ready(served)
+            params = self._resolve_adapter(served, adapter)
             arr = canonicalize_features(served.net, data)
-            result = self._predict_rows(served, arr, timeout)
+            result = self._predict_rows(served, arr, timeout,
+                                        adapter=adapter, params=params)
         except Exception as e:
             _m.REQUESTS_LEGACY.labels(outcome="error").inc()
             _m.REQUESTS.labels(model=name, route="predict",
                                outcome=self._outcome(e)).inc()
+            self._count_adapter(name, adapter, self._adapter_outcome(e))
             raise
         _m.REQUESTS_LEGACY.labels(outcome="ok").inc()
         _m.REQUESTS.labels(model=name, route="predict", outcome="ok").inc()
+        self._count_adapter(name, adapter, "ok")
         dt = time.perf_counter() - t0
         _m.REQ_LATENCY.observe(dt)
         _m.REQUEST_SECONDS.labels(model=name, route="predict").observe(dt)
@@ -419,14 +445,17 @@ class InferenceServer:
         return "error"
 
     def _predict_rows(self, served: ServedModel, arr: np.ndarray,
-                      timeout: Optional[float]) -> np.ndarray:
+                      timeout: Optional[float],
+                      adapter: Optional[str] = None,
+                      params=None) -> np.ndarray:
         deadline = None if timeout is None else time.monotonic() + timeout
         size = served.batcher.max_batch_size
         # All chunks are queued up front so that they coalesce into
         # consecutive batches.
         chunks = ([arr[i:i + size] for i in range(0, arr.shape[0], size)]
                   or [arr])
-        pendings = [served.batcher.submit(c, deadline) for c in chunks]
+        pendings = [served.batcher.submit(c, deadline, adapter=adapter,
+                                          params=params) for c in chunks]
         results = []
         for p in pendings:
             remaining = (None if deadline is None
@@ -459,9 +488,9 @@ class InferenceServer:
                  adapter: Optional[str] = None, **sampling):
         """Continuously batched generation: returns prompt + generated
         ids, equal to `generate_lm(use_cache=True)` for the same seed and
-        sampling knobs."""
-        if adapter is not None:
-            raise _not_yet("adapter= (LoRA adapter serving)", 12)
+        sampling knobs. `adapter` decodes through a loaded LoRA delta;
+        slots on different adapters share the decode loop (one dispatch
+        per adapter group a round)."""
         name = self.default_model if model is None else model
         timeout = (self.predict_timeout_s if timeout_s is _UNSET
                    else timeout_s)
@@ -483,12 +512,15 @@ class InferenceServer:
                 raise InputValidationError(
                     f"prompt_ids must lie in [0, {served.vocab})")
             ids = served.scheduler.generate(prompt_ids, n_steps,
-                                            timeout_s=timeout, **sampling)
+                                            timeout_s=timeout,
+                                            adapter=adapter, **sampling)
         except Exception as e:
             _m.REQUESTS.labels(model=name, route="generate",
                                outcome=self._outcome(e)).inc()
+            self._count_adapter(name, adapter, self._adapter_outcome(e))
             raise
         _m.REQUESTS.labels(model=name, route="generate", outcome="ok").inc()
+        self._count_adapter(name, adapter, "ok")
         _m.REQUEST_SECONDS.labels(model=name, route="generate").observe(
             time.perf_counter() - t0)
         return ids
@@ -505,8 +537,7 @@ class InferenceServer:
 
             _build.load()
         _m.QUEUE_DEPTH.set_function(self._total_queue_depth)
-        with self._lock:
-            models = list(self.models.values())
+        models = self.models.models()
         if self.warmup:
             for m in models:
                 m.status = "warming"
@@ -527,9 +558,8 @@ class InferenceServer:
         return self
 
     def _total_queue_depth(self) -> int:
-        with self._lock:
-            models = list(self.models.values())
-        return sum(m.batcher.qsize() for m in models)
+        return sum(m.batcher.qsize() for m in self.models.models()
+                   if m.batcher is not None)
 
     @property
     def url(self) -> str:
@@ -548,7 +578,4 @@ class InferenceServer:
         if self._serve_thread is not None:
             self._serve_thread.join(timeout=10.0)
             self._serve_thread = None
-        with self._lock:
-            models = list(self.models.values())
-        for m in models:
-            m.stop()
+        self.models.stop()

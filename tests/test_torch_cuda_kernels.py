@@ -3200,3 +3200,206 @@ def test_superstep_graph_equals_the_per_batch_card_run(cuda):
             assert torch.equal(t, sup.state[lk][key]), (lk, key)
     assert plain.listeners[0].scores == sup.listeners[0].scores
     assert plain.iteration == sup.iteration == 22
+
+
+# ---------------------------------------------------------- fine-tuning
+
+
+def _small_lm(dtype="float32", cache=None, seed=123):
+    from deeplearning4j_tpu_torch.models import zoo
+
+    return zoo.transformer_lm(64, t=64, d_model=64, n_heads=4, n_blocks=2,
+                              dtype=dtype, decode_cache_length=cache,
+                              seed=seed)
+
+
+def _lm_batch(b=2, t=64, seed=0):
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, 64, (b, t + 1))
+    return MultiDataSet([ids[:, :-1, None]], [ids[:, 1:].astype(np.int32)])
+
+
+def test_lora_fit_on_the_card_matches_the_cpu(cuda):
+    # f32 LoRA over a small LM: one `fit` step on the card and the CPU from
+    # the same params; the card's step is the LM's kernels with row 9 over
+    # the trainable tensors only (the factors and the LayerNorms), frozen
+    # tensors bit for bit, scores within 1e-4 relative, the factors
+    # within rtol 1e-3, atol 1e-6.
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.transfer import TransferLearning
+
+    base = ComputationGraph(_small_lm(), device="cpu").init()
+    cpu = TransferLearning(base).add_lora(rank=4, alpha=8).build()
+    card = ComputationGraph(cpu.conf, device=cuda).init(params={
+        v: {k: t.detach() for k, t in p.items()}
+        for v, p in cpu.params_tree.items()})
+    frozen = {(v, k): t.detach().clone()
+              for v, p in card.params_tree.items() for k, t in p.items()
+              if not t.requires_grad}
+    ds = _lm_batch()
+    for _ in range(2):
+        kernels.reset_counts()
+        card.fit(ds)
+        torch.cuda.synchronize()
+        c = kernels.counts()  # the card's step alone
+        assert c["launches"]["fused_update"] == 1
+        assert not any(c["plain_calls"].values())
+        cpu.fit(ds)
+        assert abs(card.score_value - cpu.score_value) <= 1e-4 * abs(
+            cpu.score_value)
+    trainable = sum(t.requires_grad for p in card.params_tree.values()
+                    for t in p.values())
+    assert sum(len(t.numels) for t in card._update_tables.values()) == \
+        trainable
+    for (v, k), t in frozen.items():
+        assert torch.equal(t, card.params_tree[v][k]), (v, k)
+    for v, p in cpu.params_tree.items():
+        for k, t in p.items():
+            np.testing.assert_allclose(card.params_tree[v][k].detach().cpu(),
+                                       t.detach(), rtol=1e-3, atol=1e-6)
+
+
+def test_lora_over_int8_and_a_frozen_trunk_on_the_card(cuda):
+    # LoRA over an int8 base, every other layer (the LayerNorms) frozen:
+    # the int8 leaves and their scales keep their bits, and
+    # `output(params=...)` of the merged adapter over the base equals the
+    # tuned net's own output bit for bit.
+    from deeplearning4j_tpu_torch.checkpoint import quantize
+    from deeplearning4j_tpu_torch.nn import lora
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.transfer import (
+        TransferLearning,
+        _layer_items,
+    )
+
+    base = quantize.quantize_net(ComputationGraph(_small_lm("bfloat16"),
+                                                  device=cuda).init())
+    rest = [k for k, conf in _layer_items(base)
+            if not lora.lora_target_names(conf)]
+    tuned = (TransferLearning(base).freeze(*rest)
+             .add_lora(rank=4, alpha=8).build())
+    assert all(not t.requires_grad or lora.is_lora_leaf(k)
+               for p in tuned.params_tree.values() for k, t in p.items())
+    kept = {(v, k): t.clone() for v, p in tuned.params_tree.items()
+            for k, t in p.items() if not t.requires_grad}
+    ds = _lm_batch()
+    for _ in range(2):
+        tuned.fit(ds)
+    assert np.isfinite(tuned.score_value)
+    for (v, k), t in kept.items():
+        assert torch.equal(t, tuned.params_tree[v][k]), (v, k)
+    merged = lora.merge_adapter(base.params_tree,
+                                lora.extract_adapter(tuned.params_tree))
+    x = ds.features[0]
+    np.testing.assert_array_equal(base.output(x, params=merged)[0],
+                                  tuned.output(x)[0])
+
+
+def test_mixed_adapter_decode_on_the_card_equals_sequential(cuda):
+    # Paged decode with two adapters and the base in one slot bank, pages
+    # of 4 (every slot crosses page boundaries while other groups
+    # dispatch): greedy ids equal each request decoded alone, row 8 runs
+    # once a block per dispatch, the free pages return to their start.
+    from deeplearning4j_tpu_torch.nn import lora
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.transfer import TransferLearning
+    from deeplearning4j_tpu_torch.serving.scheduler import (
+        GenerationRequest,
+        GenerationScheduler,
+    )
+
+    base = ComputationGraph(_small_lm("bfloat16", cache=64),
+                            device=cuda).init()
+    trees = {}
+    for i, name in enumerate(("a", "b")):
+        tuned = TransferLearning(base).add_lora(rank=4, alpha=8).build()
+        g = torch.Generator(device=cuda).manual_seed(i)
+        with torch.no_grad():
+            for p in tuned.params_tree.values():
+                for k, t in p.items():
+                    if k.endswith("__lora_b"):
+                        t.normal_(0.0, 0.5, generator=g)
+        trees[name] = lora.merge_adapter(
+            base.params_tree, lora.extract_adapter(tuned.params_tree))
+    prompts = [([1, 2, 3], None), ([4, 5, 6, 7], "a"), ([2, 3, 4, 5, 6], "b"),
+               ([7, 8, 1, 2, 3, 4, 5, 6], "a")]
+
+    def scheduler():
+        s = GenerationScheduler(base, slots=4, kv="paged", page_size=4,
+                                prefix_cache=False)
+        s.adapter_params = trees.__getitem__
+        s.adapter_names = lambda: sorted(trees)
+        return s
+
+    sched = scheduler()
+    free0 = sched.stepper.pool.counts()["free"]
+    reqs = [GenerationRequest(p, 9, temperature=0.0, adapter=a)
+            for p, a in prompts]
+    for r in reqs:
+        sched.submit(r)
+    kernels.reset_counts()
+    sched.start()
+    try:
+        for r in reqs:
+            assert r.event.wait(120) and r.error is None
+    finally:
+        sched.stop()
+    c = kernels.counts()
+    assert c["launches"]["paged_decode_attention"] == 2 * sched.stats[
+        "decode_dispatches"]
+    assert not any(c["plain_calls"].values())
+    assert sched.stepper.pool.counts()["free"] == free0
+    for (p, a), r in zip(prompts, reqs):
+        alone = scheduler().start()
+        try:
+            assert r.ids == alone.generate(p, 9, temperature=0.0, adapter=a,
+                                           timeout_s=120)
+        finally:
+            alone.stop()
+
+
+def test_eviction_frees_the_card_and_reloads_onto_it(cuda, tmp_path):
+    # Two LMs from disk, then a budget that holds one: the eviction frees
+    # at least the evicted model's bytes, a reload lands every tensor on
+    # the card, and its answer is bit for bit the one before.
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    from deeplearning4j_tpu_torch.util import model_serializer
+
+    paths = []
+    for seed in (1, 2):
+        net = ComputationGraph(_small_lm(cache=64, seed=seed),
+                               device=cuda).init()
+        paths.append(str(tmp_path / f"lm{seed}.zip"))
+        model_serializer.save_model(net, paths[-1])
+        del net
+    server = InferenceServer(device=cuda, kv_cache="paged", kv_page_size=8)
+    try:
+        x = np.array([[1, 2, 3, 4]])
+        want = {}
+        for name, path in zip(("one", "two"), paths):
+            server.add_model(name, path=path)
+            want[name] = server.predict(x, model=name)
+        one = server.get("one")
+        nbytes = one.hbm_bytes
+        server.predict(x, model="two")  # "one" is used longest ago
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        server.models.set_budget(server.get("two").hbm_bytes)
+        torch.cuda.synchronize()
+        assert not one.resident
+        assert before - torch.cuda.memory_allocated() >= nbytes
+        np.testing.assert_array_equal(server.predict(x, model="one"),
+                                      want["one"])
+        assert {r["name"]: r["resident"] for r in server.snapshot()} == {
+            "one": True, "two": False}
+        net = one.net
+        assert all(t.device.type == "cuda" for tree in (net.params_tree,
+                                                          net.state)
+                   for p in tree.values() for t in p.values())
+        np.testing.assert_array_equal(server.predict(x, model="two"),
+                                      want["two"])
+    finally:
+        server.stop()

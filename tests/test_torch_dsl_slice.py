@@ -703,7 +703,7 @@ def test_unknown_keys_raise_and_none_is_dropped():
     (lambda m: m.AutoEncoder(n_out=4), None),
     (lambda m: m.CenterLossOutputLayer(n_out=3), None),
     (lambda m: m.LossLayer(), None),
-    (lambda m: m.DenseLayer(n_out=8, lora_rank=2), "A.12"),
+    (lambda m: m.DenseLayer(n_out=8, lora_rank=2, lora_alpha=4.0), None),
 ], ids=["dropout", "lrn", "moe", "vae", "rbm", "ae", "center_loss",
         "loss_layer", "lora"])
 def test_construction_refuses_a_conf_only_layer(layer, item, monkeypatch):
@@ -713,8 +713,8 @@ def test_construction_refuses_a_conf_only_layer(layer, item, monkeypatch):
     # jitter. DropoutLayer and LRN (A.4's) after a convolution; MoE, VAE,
     # RBM, AutoEncoder (A.9's) between dense layers, CenterLossOutputLayer
     # and LossLayer (A.9's) as the output, each also taking one `fit` step
-    # (score, params, updater state, the centers). A LoRA adapter still
-    # raises, naming its ROADMAP item.
+    # (score, params, updater state, the centers). A LoRA adapter (A.12's)
+    # builds and steps likewise: its factors train, its base stays.
     if item is None:
         monkeypatch.setattr(common, "draw_keep", jax_draw)
         monkeypatch.setattr(common, "draw_uniform", jax_uniform)
@@ -816,6 +816,12 @@ def _a9_layer_runs_as_the_reference(layer):
             jnet.fit(JaxDataSet(x, y))
             pnet.fit(DataSet(x, y))
         _assert_step(pnet, jnet)
+        for name, lp in jnet.params_tree.items():  # adapter leaves too
+            assert sorted(pnet.params_tree[name]) == sorted(lp)
+            for k, a in lp.items():
+                np.testing.assert_allclose(
+                    pnet.params_tree[name][k].detach().numpy(),
+                    np.asarray(a), **F32)
         for name, st in pnet.state.items():
             for k, a in st.items():
                 np.testing.assert_allclose(

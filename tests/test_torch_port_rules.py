@@ -107,7 +107,11 @@ def test_every_port_module_imports_without_jax():
             "deeplearning4j_tpu_torch.checkpoint.quantize",
             "deeplearning4j_tpu_torch.datasets.staging",
             "deeplearning4j_tpu_torch.datasets.records",
-            "deeplearning4j_tpu_torch.native"} <= set(mods)
+            "deeplearning4j_tpu_torch.native",
+            "deeplearning4j_tpu_torch.nn.lora",
+            "deeplearning4j_tpu_torch.nn.transfer",
+            "deeplearning4j_tpu_torch.checkpoint.adapters",
+            "deeplearning4j_tpu_torch.serving.host"} <= set(mods)
     code = (
         "import sys\n"
         "for blocked in ('jax', 'jaxlib', 'ml_dtypes', "

@@ -39,6 +39,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -63,6 +64,7 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.transfer import TransferLearning
 from deeplearning4j_tpu_torch.serving import (
     InferenceServer,
     InputValidationError,
@@ -697,9 +699,62 @@ def test_twin_draft_accepts_tokens(lms):
 @pytest.mark.parametrize("case", ["spec_k_0", "spec_k_past_kernel", "mode",
                                   "kv", "dense_prefix_cache", "hbm_budget",
                                   "model_parallel", "adapter"])
-def test_knob_refusals(lms, case):
+def test_knob_refusals(lms, case, tmp_path):
     _, pnet, twin = lms[:3]
     err, match = ValueError, None
+    if case == "hbm_budget":
+        # The budget holds (no refusal since A.12): under a budget below
+        # one model, adding a second model from disk evicts the first, a
+        # request for the first reloads it and evicts the second, and both
+        # answer as the net they were saved from.
+        path = str(tmp_path / "lm.zip")
+        model_serializer.save_model(pnet, path)
+        server = InferenceServer(device="cpu", kv_cache="paged",
+                                 kv_page_size=PAGE, hbm_budget_bytes=1)
+        try:
+            server.add_model("a", path=path)
+            server.add_model("b", path=path)
+            rows = {r["name"]: r for r in server.snapshot()}
+            assert (rows["a"]["status"], rows["b"]["resident"]) == (
+                "evicted", True)
+            got = server.generate([1, 2, 3], 5, model="a", temperature=0)
+            rows = {r["name"]: r for r in server.snapshot()}
+            assert rows["a"]["resident"] and not rows["b"]["resident"]
+            assert got == server.generate([1, 2, 3], 5, model="b",
+                                          temperature=0)
+            assert got == zoo.generate_lm(pnet.clone(), [1, 2, 3], 5, window=T,
+                                          temperature=0, use_cache=True)
+        finally:
+            server.stop()
+        return
+    if case == "adapter":
+        # `adapter=` serves (no refusal since A.12): a LoRA delta beside
+        # the resident base answers as the fine-tuned net; an unknown name
+        # is a 400, and a model with a draft refuses adapters.
+        tuned = TransferLearning(pnet).add_lora(rank=2, alpha=4).build()
+        for lp in tuned.params_tree.values():
+            for k, t in lp.items():
+                if k.endswith("__lora_b"):
+                    t.data.normal_(0.0, 0.5,
+                                   generator=torch.Generator().manual_seed(3))
+        tuned.set_params(tuned.params())  # drops the stale inference copy
+        server = InferenceServer(pnet, device="cpu", kv_cache="paged",
+                                 kv_page_size=PAGE)
+        server.add_model("spec", twin, draft=lms[4], spec_k=2)
+        try:
+            server.load_adapter("tenant", net=tuned)
+            server.load_adapter("tenant", net=tuned, model="spec")
+            x = np.array([[1, 2, 3, 4]])
+            np.testing.assert_allclose(
+                server.predict(x, adapter="tenant"),
+                tuned.output(x[..., None])[0], **ROWS)
+            with pytest.raises(InputValidationError, match="no adapter"):
+                server.predict(x, adapter="nope")
+            with pytest.raises(InputValidationError, match="draft"):
+                server.generate([1, 2], 3, model="spec", adapter="tenant")
+        finally:
+            server.stop()
+        return
     if case == "spec_k_0":
         def call():
             GenerationScheduler(pnet, kv="paged", draft=twin, spec_k=0)
@@ -718,22 +773,11 @@ def test_knob_refusals(lms, case):
     elif case == "dense_prefix_cache":
         def call():
             GenerationScheduler(pnet, kv="dense", prefix_cache=True)
-    elif case in ("hbm_budget", "model_parallel"):
-        err, match = NotImplementedError, (
-            "A.12" if case == "hbm_budget" else "A.13")
-        kw = ({"hbm_budget_bytes": 1} if case == "hbm_budget"
-              else {"model_parallel": 2})
-
-        def call():
-            InferenceServer(device="cpu", **kw)
     else:
-        err, match = NotImplementedError, "A.12"
-        server = InferenceServer(pnet, device="cpu", kv_cache="paged",
-                                 kv_page_size=PAGE)
-        server.stop()
+        err, match = NotImplementedError, "A.13"
 
         def call():
-            server.predict([[1, 2]], adapter="tenant")
+            InferenceServer(device="cpu", model_parallel=2)
     with pytest.raises(err, match=match):
         call()
 
