@@ -644,13 +644,58 @@ Run before trace, the training tooling (slice 15):
               decode round's ms with 0, 1 and 2 adapter groups.
 50. host_budget - one server hosting the serve phase's LM (a manager
               root), ResNet-50 I1 from T2's weights (a sharded step) and
-              LeNet (a zip) under `hbm_budget_bytes` one byte below their
-              estimated sum: two round-robin passes, each request forcing
+              LeNet (a zip) under `hbm_budget_bytes` one byte below the
+              sum of their `hbm_bytes` as the server reports them
+              (estimates: this server is not warmed, so nothing of theirs
+              has dispatched on the card): two round-robin passes, each
+              request forcing
               an eviction and a reload, every answer bit for bit the one
               before any eviction, `memory_allocated` falling by at least
               the evicted model's `hbm_bytes` at each eviction, every
               reloaded tensor on the card, `dl4j_serving_evictions_total`
               counting them; the reload seconds.
+51. obs_train - observability on the train phase's LM (B=16, T=1024,
+              bf16, Adam): 3 warm-up and 10 timed steps under
+              `StepProfiler`, then the same steps from the same seed with
+              the instruments off (registry, tracer, flight recorder,
+              ledger). Each run: the train phase's launches a step (9 row
+              1, 4 row 5, 4 + 4 row 6 on the tensor cores, 1 row 9), 0
+              plain calls; the synchronizing calls under
+              `set_sync_debug_mode("warn")` as many on as off; scores
+              (kept as device tensors), params and updater state bit for
+              bit. The profiler's summary (step counts, FLOPs a step by
+              `FlopCounterMode`, the median step by CUDA events, MFU
+              against 989e12), `dl4j_program_hbm_bytes` of
+              `graph.train_step`, a flight bundle whose losses equal the
+              scores bit for bit and whose `trace.json` loads; step ms
+              both ways over OBS_PAIRS alternating pairs (bit for bit
+              after them); OBS_TRACE_STEPS steps under a traced profiler
+              (`window_short`). Then the K=4 superstep over 8 batches the
+              same way: the launches of 8 steps and the capture's warm-up
+              step, one capture and one replay counted, the bundle's two
+              records holding the 8 losses bit for bit. Last, a batch
+              whose labels are half as long raises its own error and
+              leaves a `crash:graph.dispatch` bundle naming it.
+52. obs_serving - the adapter_serving LM (two tenants loaded from disk)
+              and ResNet-50 I1 (T2's weights) behind one warmed server:
+              `/v1/models` reads "measured" for both, at or above the
+              estimate, and `live_buffer_report` attributes each hosted
+              net's storages exactly. Six concurrent `/generate` and four
+              `/predict` (one a batch), each with its own `X-DL4J-Trace`:
+              launches as the scheduler's and the batcher's counts say
+              (rows 1, 3, 8; 16 row 12 and 1 row 2 a batch), 0 plain
+              calls; in `/api/trace` each request's `replica.<route>` is
+              the header's child and a `serving.prefill` or
+              `serving.batch` is the replica span's; `/v1/tenants` counts
+              every request and token; the tenants' device-seconds add up
+              to `dl4j_serving_dispatch_seconds_total` per model within
+              1e-9 relative; `/admin/flight-dump` writes a bundle with
+              `ledger.jsonl` and a second inside the rate limit returns
+              `"path": null`; `BurnRateEngine` over the scrapes before
+              and after the traffic pages on a TTFT objective below the
+              measured TTFTs (1 ms) and not on one above them (600 s); a
+              decode round's ms with the instruments on and off,
+              OBS_DECODE_PAIRS alternating pairs of 4 requests each.
 
 Then the card line, the `{"kernels": [...]}` line (each kernel with its
 launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
@@ -666,7 +711,8 @@ solver runs, train_stats, the eight gradcheck nets, the four records
 paths, f64_lm_train, f64_lm_output, f64_lm_decode, f64_long_train,
 f64_long_output, f64_resnet_train, f64_resnet_output,
 f64_lenet_train, lora_lm, superstep_lora_lm, qlora_lm, transfer_resnet,
-adapter_serving and host_budget; every row's
+adapter_serving, host_budget, obs_train, obs_superstep and obs_serving;
+every row's
 float64 form under `f64` (its launches on the float64 paths, its other
 shapes under `f64_shapes`), row 9's device-scalar form under
 `device_scalars`, `lstm_cell_rows` in four dtypes under `forms`; the f16
@@ -690,6 +736,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -4369,12 +4416,13 @@ def phase_long_parity(card, torch, kernels, dev):
     return not errors
 
 
-def _http(url, route, body=None, timeout=SERVE_TIMEOUT_S):
+def _http(url, route, body=None, timeout=SERVE_TIMEOUT_S, headers=None):
     """(status, headers, parsed JSON or text) of a GET, or of a POST of
-    `body`; an HTTP error status is returned, not raised."""
+    `body` (with `headers` added); an HTTP error status is returned, not
+    raised."""
     data = None if body is None else json.dumps(body).encode()
-    req = urllib.request.Request(url + route, data=data,
-                                 headers={"Content-Type": "application/json"})
+    req = urllib.request.Request(url + route, data=data, headers=dict(
+        {"Content-Type": "application/json"}, **(headers or {})))
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             code, headers, raw = r.status, r.headers, r.read()
@@ -10237,7 +10285,6 @@ def phase_host_budget(card, torch, kernels, dev, cg, t2_net, lenet_net):
     del i1
     model_serializer.save_model(lenet_net, paths["lenet"])
     est["lenet"] = estimate_hbm_bytes(lenet_net)
-    budget = sum(est.values()) - 1
     server = InferenceServer(device=dev, kv_cache="paged", kv_page_size=PAGE,
                              decode_slots=SLOTS, max_batch_size=4,
                              default_model="lm")
@@ -10295,6 +10342,11 @@ def phase_host_budget(card, torch, kernels, dev, cg, t2_net, lenet_net):
         for name in ("lm", "resnet", "lenet"):
             server.add_model(name, path=paths[name])
         out["load_s"] = time.perf_counter() - t0
+        # One byte below the footprints the server reports (measured once
+        # a model has dispatched on the card, else estimated).
+        reported = {r["name"]: r["hbm_bytes"] for r in server.snapshot()}
+        budget = sum(reported.values()) - 1
+        out["reported_bytes"] = reported
         server.start()
         kernels.reset_counts()
         answers = {name: ask(name) for name in requests}
@@ -10340,6 +10392,567 @@ def phase_host_budget(card, torch, kernels, dev, cg, t2_net, lenet_net):
          reload_s=reload_s, **out, seconds=time.perf_counter() - t_phase)
     torch.cuda.empty_cache()
     return not errors, {"host_budget": out.get("launches", {})}
+
+
+# Observability (the obs_train and obs_serving phases): the train phase's
+# LM under StepProfiler, 3 warm-up and 10 timed steps, with the instruments
+# on and then off; OBS_PAIRS alternating timed pairs; OBS_TRACE_STEPS steps
+# under a traced profiler; the K=4 superstep over 8 batches. Then the
+# adapter_serving LM (two tenants) and I1 behind one warmed server.
+OBS_WARMUP, OBS_TIMED, OBS_PAIRS, OBS_TRACE_STEPS = 3, 10, 10, 3
+OBS_SUPER = dict(k=4, steps=8)
+OBS_DECODE_PAIRS, OBS_DECODE_PROMPT, OBS_DECODE_NEW = 3, 64, 32
+OBS_ADAPTER_DIR = os.path.join("build", "obs_adapters")
+
+
+def _obs_switch(on):
+    """The instruments on or off together: the registry, the tracer, the
+    flight recorder and the request ledger."""
+    from deeplearning4j_tpu_torch import observability as obs
+
+    (obs.enable if on else obs.disable)()
+    obs.flight.enabled = bool(on)
+    obs.request_ledger.enabled = bool(on)
+
+
+def _sync_calls(torch, fn):
+    """Run `fn()` under `torch.cuda.set_sync_debug_mode("warn")`: the
+    synchronizing calls it made, one warning each ("called a
+    synchronizing CUDA operation")."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # PyTorch's per-call warning; its one notice that the mode is a
+    # prototype is not a sync.
+    return [str(w.message)[:160] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def _bundle_steps(bundle):
+    with open(os.path.join(bundle, "steps.jsonl")) as f:
+        return [r for r in (json.loads(x) for x in f if x.strip())
+                if r.get("type") == "step"]
+
+
+def _obs_bitwise(torch, a, b, keep_a, keep_b):
+    """Errors unless two runs' params, updater state and every score are
+    bit for bit equal."""
+    errors = []
+    if not np.array_equal(a.params(), b.params()):
+        errors.append("params differ")
+    if not np.array_equal(a.updater_state_flat(), b.updater_state_flat()):
+        errors.append("updater state differs")
+    sa, sb = torch.stack(keep_a.scores), torch.stack(keep_b.scores)
+    if sa.shape != sb.shape or not torch.equal(sa, sb):
+        errors.append("scores differ")
+    return errors
+
+
+def _jit_counts(obs):
+    out = {}
+    for name in ("dl4j_jit_cache_hits_total", "dl4j_jit_cache_misses_total"):
+        fam = obs.metrics.get_family(name)
+        out[name] = fam.labels(engine="graph").get()
+    return out
+
+
+def phase_obs_train(card, torch, kernels, dev, train_conf):
+    """The LM's training step under the instruments (see the docstring,
+    phase obs_train). Returns (ok, path launches)."""
+    from deeplearning4j_tpu_torch import observability as obs
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.observability import memory as obsmem
+    from deeplearning4j_tpu_torch.optimize.listeners import IterationListener
+
+    class KeepScores(IterationListener):
+        """Each step's loss as the device tensor (reading it would sync)."""
+
+        def __init__(self):
+            self.scores = []
+
+        def iteration_done(self, model, iteration):
+            self.scores.append(model._score)
+
+    def make(k=0):
+        conf = copy.deepcopy(train_conf)
+        conf.global_conf.superstep_k = k
+        net = ComputationGraph(conf, device=dev).init()
+        keep = KeepScores()
+        net.set_listeners(keep)
+        return net, keep
+
+    t_phase = time.perf_counter()
+    errors, out, paths = [], {}, {}
+    rec = obs.flight
+    saved = (rec.dump_dir, rec.min_interval_s)
+    tmp = tempfile.mkdtemp(prefix="dl4j-obs-")
+    rec.dump_dir, rec.min_interval_s = tmp, 0.0
+    batches = [MultiDataSet([torch.as_tensor(x, device=dev)],
+                            [torch.as_tensor(y, device=dev)])
+               for x, y in lm_batches(17, TRAIN_B, CACHE, 2)]
+    steps = OBS_WARMUP + OBS_TIMED
+    try:
+        runs = {}
+        for on in (True, False):
+            _obs_switch(on)
+            rec.clear()
+            net, keep = make()
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            prof = obs.StepProfiler(net) if on else None
+            if prof is not None:
+                prof.__enter__()
+            try:
+                syncs = _sync_calls(torch, lambda: [
+                    net.fit(batches[i % 2]) for i in range(steps)])
+            finally:
+                if prof is not None:
+                    prof.stop()
+            torch.cuda.synchronize()
+            counts = kernels.counts()
+            e, _ = _launch_errors(counts, TRAIN_LAUNCHES, steps)
+            e += _variant_errors(counts, {n: BLOCKS * steps
+                                          for n in TRAIN_FLASH})
+            errors += [f"{'on' if on else 'off'}: {x}" for x in e]
+            bundle = rec.dump(reason="obs_train") if on else None
+            runs[on] = (net, keep, syncs, counts, prof, bundle)
+        _obs_switch(True)
+        net_on, keep_on, syncs_on, counts_on, prof, bundle = runs[True]
+        net_off, keep_off, syncs_off = runs[False][:3]
+        paths["obs_train"] = counts_on["launches"]
+        if len(syncs_on) != len(syncs_off):
+            errors.append(f"syncs with the instruments on {len(syncs_on)} "
+                          f"!= off {len(syncs_off)}: {syncs_on[:3]}")
+        errors += [f"on vs off: {x}" for x in _obs_bitwise(
+            torch, net_on, net_off, keep_on, keep_off)]
+        summary = prof.summary()
+        if (summary["steps"], summary["first_call_steps"]) != (steps, 1):
+            errors.append(f"profiler steps {summary['steps']} first "
+                          f"{summary['first_call_steps']}")
+        flops = summary.get("flops_per_step")
+        med = summary.get("execute_seconds_median")
+        if not flops or not med:
+            errors.append(f"no FLOPs or step time: {summary}")
+        program = obsmem.program_memory_snapshot().get("graph.train_step")
+        if not program or program["temp"] + program["output"] <= 0:
+            errors.append(f"no train-step memory recorded: {program}")
+        # The flight bundle: one record a step, the losses bit for bit.
+        recs = _bundle_steps(bundle)
+        want = [float(s) for s in keep_on.scores]
+        if [r["iteration"] for r in recs] != list(range(1, steps + 1)):
+            errors.append(f"bundle iterations {[r['iteration'] for r in recs]}")
+        if [r["loss"] for r in recs] != want:
+            errors.append("bundle losses differ from the scores")
+        with open(os.path.join(bundle, "trace.json")) as f:
+            trace_doc = json.load(f)
+        n_steps = sum(e["name"] == "graph.step"
+                      for e in trace_doc["traceEvents"])
+        if n_steps != steps:
+            errors.append(f"trace.json holds {n_steps} steps")
+        out.update(
+            steps=steps, syncs_per_run={"on": len(syncs_on),
+                                        "off": len(syncs_off)},
+            profiler=summary, flops_per_step=flops,
+            mfu_at_989e12=(flops / med / 989e12) if flops and med else None,
+            chip_peak_flops=obs.chip_peak_flops(),
+            program_hbm_bytes=program, bundle_files=sorted(os.listdir(bundle)),
+            bundle_steps=len(recs), trace_events=len(trace_doc["traceEvents"]))
+
+        # Step ms both ways, alternating pairs (each synchronized).
+        pairs = []
+        for i in range(OBS_PAIRS):
+            pair = {}
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                _obs_switch(on)
+                net = net_on if on else net_off
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net.fit(batches[i % 2])
+                torch.cuda.synchronize()
+                pair["on" if on else "off"] = (time.perf_counter() - t0) * 1e3
+            pairs.append(pair)
+        _obs_switch(True)
+        errors += [f"after the pairs: {x}" for x in _obs_bitwise(
+            torch, net_on, net_off, keep_on, keep_off)]
+        out["step_ms_pairs"] = pairs
+        out["step_ms_median"] = {k: statistics.median(p[k] for p in pairs)
+                                 for k in ("on", "off")}
+        # A traced window: does the profiler hold every launch?
+        with obs.StepProfiler(net_on, trace=True) as tp:
+            for i in range(OBS_TRACE_STEPS):
+                net_on.fit(batches[i % 2])
+        ts = tp.summary()
+        if ts["window_short"] is None:
+            errors.append("the traced window was not read")
+        out["traced_window"] = {k: ts.get(k) for k in (
+            "window_short", "traced_kernels", "counted_launches", "steps")}
+        del net_off, keep_off, runs
+
+        # The K=4 superstep over 8 batches, on and off.
+        sdata = [MultiDataSet([torch.as_tensor(x, device=dev)],
+                              [torch.as_tensor(y, device=dev)])
+                 for x, y in lm_batches(23, TRAIN_B, CACHE,
+                                        OBS_SUPER["steps"])]
+        sruns = {}
+        for on in (True, False):
+            _obs_switch(on)
+            rec.clear()
+            net, keep = make(OBS_SUPER["k"])
+            jit0 = _jit_counts(obs)
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            syncs = _sync_calls(torch, lambda: net.fit(sdata))
+            torch.cuda.synchronize()
+            counts = kernels.counts()
+            # The K steps of each block, and the capture's warm-up step.
+            e, _ = _launch_errors(counts, TRAIN_LAUNCHES,
+                                  OBS_SUPER["steps"] + 1)
+            errors += [f"superstep {'on' if on else 'off'}: {x}" for x in e]
+            jit = {k: v - jit0[k] for k, v in _jit_counts(obs).items()}
+            bundle = rec.dump(reason="obs_superstep") if on else None
+            sruns[on] = (net, keep, syncs, counts, jit, bundle)
+        _obs_switch(True)
+        snet, skeep, ssync, scounts, sjit, sbundle = sruns[True]
+        paths["obs_superstep"] = scounts["launches"]
+        if len(ssync) != len(sruns[False][2]):
+            errors.append(f"superstep syncs on {len(ssync)} != off "
+                          f"{len(sruns[False][2])}")
+        errors += [f"superstep on vs off: {x}" for x in _obs_bitwise(
+            torch, snet, sruns[False][0], skeep, sruns[False][1])]
+        if sjit != {"dl4j_jit_cache_hits_total": 1,
+                    "dl4j_jit_cache_misses_total": 1}:
+            errors.append(f"capture counts {sjit}")
+        srecs = _bundle_steps(sbundle)
+        losses = [v for r in srecs for v in r.get("losses", [])]
+        swant = [float(s) for s in skeep.scores]
+        if [(r["k"], r["iteration"]) for r in srecs] != [
+                (4, 4), (4, 8)]:
+            errors.append(f"superstep records {srecs}")
+        if losses != swant or len(set(losses)) != OBS_SUPER["steps"]:
+            errors.append(f"superstep bundle losses {losses} != {swant}")
+        out["superstep"] = {"syncs": len(ssync), "capture_counts": sjit,
+                            "records": [(r["k"], r["iteration"])
+                                        for r in srecs],
+                            "losses": losses}
+        del sruns, snet
+
+        # A malformed batch: its own exception, and a bundle.
+        bad = MultiDataSet([batches[0].features[0]],
+                           [batches[0].labels[0][:, :CACHE // 2]])
+        n0 = len(rec.status()["dumps"])
+        raised = None
+        try:
+            net_on.fit(bad)
+            errors.append("a malformed batch trained")
+        except Exception as e:  # the batch's own error, re-raised
+            raised = e
+        new = rec.status()["dumps"][n0:]
+        if raised is not None:
+            if len(new) != 1:
+                errors.append(f"bundles after the crash: {new}")
+            else:
+                with open(os.path.join(new[0], "MANIFEST.json")) as f:
+                    man = json.load(f)
+                exc = man.get("exception") or {}
+                if (man.get("reason") != "crash:graph.dispatch"
+                        or exc.get("type") != type(raised).__name__):
+                    errors.append(f"crash bundle {man.get('reason')} "
+                                  f"{exc.get('type')}")
+            out["malformed_batch"] = f"{type(raised).__name__}: {raised}"[
+                :200]
+        torch.cuda.synchronize()
+    finally:
+        _obs_switch(True)
+        rec.dump_dir, rec.min_interval_s = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(card, phase="obs_train", ok=not errors, errors=errors,
+         model=f"transformer_lm V={VOCAB} T={CACHE} d={D_MODEL} "
+               f"heads={HEADS} blocks={BLOCKS} mixed_bfloat16 Adam, "
+               f"B={TRAIN_B}", **out,
+         launches=paths, seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return not errors, paths
+
+
+def _storage_bytes(net):
+    """The net's trees' storages, each once (the attribution's rule,
+    counted here on its own)."""
+    seen, total = set(), 0
+
+    def walk(t):
+        nonlocal total
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif hasattr(t, "untyped_storage"):
+            st = t.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+
+    for tree in (net.params_tree, net.state, net.opt_state):
+        walk(tree or {})
+    return total
+
+
+def _dispatch_seconds(url):
+    doc = _http(url, "/metrics?format=json&names="
+                "dl4j_serving_dispatch_seconds_total")[2]
+    fam = doc.get("dl4j_serving_dispatch_seconds_total", {"series": []})
+    out = {}
+    for r in fam["series"]:
+        m = r["labels"]["model"]
+        out[m] = out.get(m, 0.0) + r["value"]
+    return out
+
+
+def phase_obs_serving(card, torch, kernels, dev, cg, t2_net):
+    """The serving tier under the instruments (see the docstring, phase
+    obs_serving). Returns (ok, path launches)."""
+    from deeplearning4j_tpu_torch import observability as obs
+    from deeplearning4j_tpu_torch.checkpoint import adapters
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.observability import memory as obsmem
+    from deeplearning4j_tpu_torch.observability import propagate, slo
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    from deeplearning4j_tpu_torch.serving.host import estimate_hbm_bytes
+
+    t_phase = time.perf_counter()
+    errors, out, total = [], {}, {}
+    rec = obs.flight
+    saved = (rec.dump_dir, rec.min_interval_s)
+    tmp = tempfile.mkdtemp(prefix="dl4j-obs-serving-")
+    rec.dump_dir, rec.min_interval_s = tmp, 60.0
+    rec._last_dump_at.pop("obs_serving", None)
+    shutil.rmtree(OBS_ADAPTER_DIR, ignore_errors=True)
+    os.makedirs(OBS_ADAPTER_DIR)
+    params = {v: {k: a.detach().clone() for k, a in p.items()}
+              for v, p in cg.params_tree.items()}
+    params["out"]["W"].mul_(SERVE_LOGIT_SCALE)
+    base = ComputationGraph(cg.conf, device=dev).init(params=params)
+    del params
+    paths = {}
+    for i, name in enumerate(TENANTS):
+        tuned = _tenant(torch, base, 41 + i)
+        paths[name] = adapters.save_adapter(
+            tuned, os.path.join(OBS_ADAPTER_DIR, name), name=name)
+        del tuned
+    i1 = _rn_net(torch, dev, "i1", params={
+        v: {k: a.detach() for k, a in p.items()}
+        for v, p in t2_net.params_tree.items()}, state=t2_net.state)
+    server = InferenceServer(base, device=dev, warmup=True,
+                             kv_cache="paged", kv_page_size=PAGE,
+                             decode_slots=SLOTS, max_batch_size=4,
+                             default_model="lm")
+    for name in TENANTS:
+        server.load_adapter(name, path=paths[name])
+    server.add_model("resnet", i1)
+    del i1
+    try:
+        server.start()
+        server.wait_ready(timeout=SERVE_TIMEOUT_S)
+        url = server.url
+        lm, rn = server.get("lm"), server.get("resnet")
+        sched = lm.scheduler
+        # Measured footprints, and the attribution of the hosted nets.
+        rows = {r["name"]: r for r in _http(url, "/v1/models")[2]["models"]}
+        report = obsmem.live_buffer_report()
+        foot = {}
+        for name, served in (("lm", lm), ("resnet", rn)):
+            row = rows[name]
+            est = estimate_hbm_bytes(served.net)
+            leaves = _storage_bytes(served.net)
+            got = report["models"].get(name, {}).get("bytes")
+            foot[name] = {"hbm_source": row["hbm_source"],
+                          "hbm_bytes": row["hbm_bytes"], "estimate": est,
+                          "leaf_bytes": leaves, "attributed": got,
+                          "transient": served.transient_bytes}
+            if row["hbm_source"] != "measured" or row["hbm_bytes"] < est:
+                errors.append(f"{name}: footprint {foot[name]}")
+            if got != leaves:
+                errors.append(f"{name}: attributed {got} != leaves {leaves}")
+        out["footprints"] = foot
+        out["unattributed_bytes"] = report["unattributed_bytes"]
+
+        # Traffic with trace headers: the generates at once, the predicts
+        # one a batch.
+        scrape0 = _http(url, "/metrics")[2]
+        obs.request_ledger.clear()
+        obs.tracer.clear()
+        d0 = _dispatch_seconds(url)
+        stats0, batches0 = dict(sched.stats), rn.batcher.stats["batches"]
+        kernels.reset_counts()
+        gens = _adapter_traffic(53)[:6]
+        image = RN_PATHS["i1"][0]
+        rng = np.random.RandomState(59)
+        preds = [{"data": rng.randn(n, image, image, 3).astype(
+            np.float32).tolist(), "model": "resnet"} for n in (1, 2, 1, 2)]
+        ctxs = [propagate.mint() for _ in range(len(gens) + len(preds))]
+        codes, errs = {}, []
+
+        def send(i, route, body):
+            code, _, doc = _http(url, route, body,
+                                 headers=propagate.trace_headers(ctx=ctxs[i]))
+            codes[i] = code
+            if code != 200:
+                errs.append(f"{route} {i}: HTTP {code} {doc}")
+
+        threads = [threading.Thread(target=send, args=(i, "/generate", b))
+                   for i, b in enumerate(gens)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=SERVE_TIMEOUT_S)
+        for j, b in enumerate(preds):
+            send(len(gens) + j, "/predict", b)
+        errors += errs
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        _add_counts(total, counts)
+        d = {k: sched.stats[k] - stats0[k] for k in (
+            "prefills", "prefix_hits", "decode_steps", "decode_dispatches")}
+        nb = rn.batcher.stats["batches"] - batches0
+        want = {"layernorm_norm_act": (2 * BLOCKS + 1) * (
+                    d["prefills"] + d["decode_dispatches"]),
+                "flash_attention": BLOCKS * d["prefills"],
+                "paged_decode_attention": BLOCKS * d["decode_dispatches"],
+                "bottleneck_infer": 16 * nb, "batchnorm_norm_act": nb}
+        errors += [f"traffic: {e}" for e in _check_window(counts, want)]
+        if nb != len(preds):
+            errors.append(f"{nb} resnet batches for {len(preds)} requests")
+        out["traffic"] = {**d, "resnet_batches": nb,
+                          "launches": counts["launches"]}
+
+        # The ledger: every request, every token; the device-seconds add
+        # up to the dispatch seconds, model by model.
+        tenants = _http(url, "/v1/tenants")[2]["tenants"]
+        d1 = _dispatch_seconds(url)
+        spent = {}
+        for r in tenants:
+            spent[r["model"]] = spent.get(r["model"], 0.0) + r[
+                "device_seconds"]
+        n_req = sum(r["requests"] for r in tenants)
+        tok = sum(r["tokens_out"] for r in tenants if r["model"] == "lm")
+        if n_req != len(gens) + len(preds):
+            errors.append(f"/v1/tenants counts {n_req} requests")
+        if tok != sum(b["n_steps"] for b in gens):
+            errors.append(f"/v1/tenants counts {tok} tokens out")
+        recon = {}
+        for m in ("lm", "resnet"):
+            disp = d1.get(m, 0.0) - d0.get(m, 0.0)
+            recon[m] = {"dispatch_s": disp, "tenants_s": spent.get(m, 0.0)}
+            if not disp > 0 or abs(spent.get(m, 0.0) - disp) > 1e-9 * disp:
+                errors.append(f"{m}: tenants {spent.get(m)} != dispatch "
+                              f"{disp}")
+        out.update(tenants=tenants, reconcile=recon)
+
+        # The trace: each request's replica span under its header, the
+        # prefill and batch spans its children.
+        events = _http(url, "/api/trace")[2]["traceEvents"]
+        trace_errors = []
+        for i, ctx in enumerate(ctxs):
+            mine = [e for e in events
+                    if e["args"].get("trace_id") == ctx.trace_id]
+            route = "generate" if i < len(gens) else "predict"
+            rep = [e for e in mine if e["name"] == f"replica.{route}"]
+            if len(rep) != 1 or rep[0]["args"].get(
+                    "parent_span_id") != ctx.span_id:
+                trace_errors.append(f"{route} {i}: replica spans {rep}")
+                continue
+            child = "serving.prefill" if route == "generate" else \
+                "serving.batch"
+            if not any(e["name"] == child and e["args"].get(
+                    "parent_span_id") == rep[0]["args"]["span_id"]
+                    for e in mine):
+                trace_errors.append(f"{route} {i}: no {child} child")
+        errors += trace_errors
+        out["trace_events"] = len(events)
+
+        # Flight dumps on demand, the second inside the rate limit.
+        first = _http(url, "/admin/flight-dump", {"reason": "obs_serving"})
+        second = _http(url, "/admin/flight-dump", {"reason": "obs_serving"})
+        p1, p2 = first[2].get("path"), second[2].get("path")
+        files = sorted(os.listdir(p1)) if p1 else []
+        if not p1 or "ledger.jsonl" not in files or p2 is not None:
+            errors.append(f"flight dumps {first[2]} {second[2]} {files}")
+        out["flight_dump_files"] = files
+
+        # Burn rates over the two scrapes: a TTFT objective below the
+        # measured TTFTs pages, one above them stays quiet.
+        scrape1 = _http(url, "/metrics")[2]
+        objectives = [
+            slo.Objective("ttft_below", "latency",
+                          "dl4j_serving_ttft_seconds", target=0.99,
+                          threshold_s=0.001, labels={"model": "lm"}),
+            slo.Objective("ttft_above", "latency",
+                          "dl4j_serving_ttft_seconds", target=0.99,
+                          threshold_s=600.0, labels={"model": "lm"})]
+        paged = []
+        eng = slo.BurnRateEngine(objectives, window_scale=1 / 300,
+                                 on_page=lambda n, w: paged.append(n))
+        eng.ingest(scrape0, now=0.0)
+        doc = eng.report(scrape1, now=1.0)
+        sev = {o["name"]: o["severity"] for o in doc["objectives"]}
+        if paged != ["ttft_below"] or sev != {"ttft_below": "page",
+                                              "ttft_above": "ok"}:
+            errors.append(f"burn-rate pages {paged} {sev}")
+        out["slo"] = {"pages": paged, "severity": sev,
+                      "ttft_s": sorted(sched.ttft_s)[-len(gens):]}
+
+        # A decode round's ms with the ledger and tracer on and off.
+        rng = np.random.RandomState(61)
+        rounds = []
+        for i in range(OBS_DECODE_PAIRS):
+            pair = {}
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                _obs_switch(on)
+                s0 = dict(sched.stats)
+                prompts = [rng.randint(0, VOCAB, OBS_DECODE_PROMPT).tolist()
+                           for _ in range(SLOTS)]
+                ths = [threading.Thread(target=server.generate, args=(
+                    p, OBS_DECODE_NEW), kwargs={"temperature": 0})
+                       for p in prompts]
+                for th in ths:
+                    th.start()
+                for th in ths:
+                    th.join(timeout=SERVE_TIMEOUT_S)
+                n = sched.stats["decode_steps"] - s0["decode_steps"]
+                pair["on" if on else "off"] = (
+                    (sched.stats["decode_seconds"] - s0["decode_seconds"])
+                    / max(1, n) * 1e3)
+            rounds.append(pair)
+        _obs_switch(True)
+        out["decode_round_ms"] = rounds
+        out["decode_round_ms_median"] = {
+            k: statistics.median(p[k] for p in rounds) for k in ("on", "off")}
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        _add_counts(total, counts)
+    finally:
+        _obs_switch(True)
+        server.stop()
+        rec.dump_dir, rec.min_interval_s = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(OBS_ADAPTER_DIR, ignore_errors=True)
+    emit(card, phase="obs_serving", ok=not errors, errors=errors,
+         model=f"the serve phase's LM (V={VOCAB}, d={D_MODEL}, {BLOCKS} "
+               f"blocks, bf16) with 2 rank-{LORA_RANK} tenants, paged KV "
+               f"({PAGE}-token pages, {SLOTS} slots), and ResNet-50 I1, "
+               f"one warmed server", **out, launches=total,
+         seconds=time.perf_counter() - t_phase)
+    del base
+    torch.cuda.empty_cache()
+    return not errors, {"obs_serving": total}
 
 
 def main() -> int:
@@ -10473,7 +11086,9 @@ def main() -> int:
              (nets["t2"], rn_batch["t2"])),
             ("adapter_serving", phase_adapter_serving, (cg,)),
             ("host_budget", phase_host_budget,
-             (cg, nets["t2"], mnist["lenet"][0]))):
+             (cg, nets["t2"], mnist["lenet"][0])),
+            ("obs_train", phase_obs_train, (train_conf,)),
+            ("obs_serving", phase_obs_serving, (cg, nets["t2"]))):
         ok, new_launches = fn(card, torch, kernels, dev, *args)
         if not ok:
             failed.append(name)

@@ -12,3 +12,5 @@ The port serves `models.zoo.transformer_lm` over HTTP with paged-KV
 continuous batching (`serving.InferenceServer`) and trains it with
 `nn.graph.ComputationGraph.fit`.
 """
+
+__version__ = "0.1.0"

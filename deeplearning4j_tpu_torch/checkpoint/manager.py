@@ -18,23 +18,30 @@ retention and saves written off the training thread.
   through a `BackgroundWrite`: one write in flight at most; `flush` waits
   for it and raises its error, if it had one. `util/checkpoint.py`'s
   listener writes through the same class.
-- `stats` holds the reference's counters under their names
-  (`dl4j_checkpoint_*`, and `restore_fallback` for its elastic event) as
-  plain counts, and `timings` the seconds of the last `checkpoint.snapshot`,
-  `checkpoint.write` and `checkpoint.restore` (the reference's span
-  names): the port has no metrics registry or tracer yet (ROADMAP A.14).
+- Observability (reference :45-55, 139, 149, 248): the process-global
+  `dl4j_checkpoint_saves_total`, `_restores_total`, `_bytes_written_total`,
+  `_bytes_read_total` and `dl4j_checkpoint_queue_depth`, and the
+  `checkpoint.snapshot` (caller's thread), `checkpoint.write` (the
+  writer's) and `checkpoint.restore` spans. `stats` is a read-only view of
+  this manager's share of those counters under their names (and
+  `restore_fallback`, the reference's elastic event, as a count);
+  `timings` a read-only view of the seconds of this manager's last span
+  of each name.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import shutil
 import threading
 import time
 import warnings
+from types import MappingProxyType
 from typing import Callable, List, Optional
 
+from deeplearning4j_tpu_torch import observability as _obs
 from deeplearning4j_tpu_torch.checkpoint import store
 from deeplearning4j_tpu_torch.checkpoint.array_store import (
     CheckpointCorruptError,
@@ -48,6 +55,22 @@ COUNTERS = ("dl4j_checkpoint_saves_total", "dl4j_checkpoint_restores_total",
             "dl4j_checkpoint_bytes_written_total",
             "dl4j_checkpoint_bytes_read_total", "dl4j_checkpoint_queue_depth",
             "restore_fallback")
+
+_FAMILIES = {
+    "dl4j_checkpoint_saves_total": _obs.metrics.counter(
+        "dl4j_checkpoint_saves_total", "Committed checkpoint saves"),
+    "dl4j_checkpoint_restores_total": _obs.metrics.counter(
+        "dl4j_checkpoint_restores_total", "Checkpoint restores"),
+    "dl4j_checkpoint_bytes_written_total": _obs.metrics.counter(
+        "dl4j_checkpoint_bytes_written_total",
+        "Array bytes captured into committed checkpoints"),
+    "dl4j_checkpoint_bytes_read_total": _obs.metrics.counter(
+        "dl4j_checkpoint_bytes_read_total",
+        "Committed checkpoint bytes read by restores (manifest sizes)"),
+}
+_M_QUEUE = _obs.metrics.gauge(
+    "dl4j_checkpoint_queue_depth",
+    "In-flight async checkpoint writes (bounded to 1 by design)")
 
 
 class BackgroundWrite:
@@ -107,8 +130,30 @@ class CheckpointManager:
         self.device = device
         os.makedirs(self.directory, exist_ok=True)
         self._writes = BackgroundWrite()
-        self.stats = {name: 0 for name in COUNTERS}
-        self.timings = {}
+        self._counts = {name: 0 for name in COUNTERS}
+        self._timings = {}
+        self.stats = MappingProxyType(self._counts)
+        self.timings = MappingProxyType(self._timings)
+
+    def _count(self, name: str, n=1) -> None:
+        """Add `n` to this manager's count and to the registry's family."""
+        self._counts[name] += n
+        fam = _FAMILIES.get(name)
+        if fam is not None:
+            fam.inc(n)
+
+    def _queue(self, depth: int) -> None:
+        self._counts["dl4j_checkpoint_queue_depth"] = depth
+        _M_QUEUE.set(depth)
+
+    @contextlib.contextmanager
+    def _span(self, name: str, **args):
+        """The tracer's span `name`; a block that ends normally keeps its
+        seconds in `timings`."""
+        with _obs.tracer.span(name, cat="checkpoint", **args):
+            t0 = time.perf_counter()
+            yield
+            self._timings[name] = time.perf_counter() - t0
 
     # ----------------------------------------------------------- discovery
 
@@ -158,32 +203,30 @@ class CheckpointManager:
         path."""
         self.flush()  # one write in flight; surface an earlier error
         step = int(net.iteration if step is None else step)
-        t0 = time.perf_counter()
-        snap = store.snapshot_net(net)
-        self.timings["checkpoint.snapshot"] = time.perf_counter() - t0
+        with self._span("checkpoint.snapshot", step=step):
+            snap = store.snapshot_net(net)
         nbytes = store.snapshot_nbytes(snap)
         path = self.step_path(step)
 
         def write_committed():
             # A transient storage error must not end training: retried
             # with backoff (`write_snapshot` clears its stale `.tmp`).
-            t0 = time.perf_counter()
-            with_retries(lambda: store.write_snapshot(snap, path),
-                         retry_on=(OSError,),
-                         describe=f"checkpoint write step {step}")
-            self.timings["checkpoint.write"] = time.perf_counter() - t0
-            self.stats["dl4j_checkpoint_bytes_written_total"] += nbytes
-            self.stats["dl4j_checkpoint_saves_total"] += 1
+            with self._span("checkpoint.write", step=step, bytes=nbytes):
+                with_retries(lambda: store.write_snapshot(snap, path),
+                             retry_on=(OSError,),
+                             describe=f"checkpoint write step {step}")
+            self._count("dl4j_checkpoint_bytes_written_total", nbytes)
+            self._count("dl4j_checkpoint_saves_total")
             self._apply_retention()
 
         def work():
             try:
                 write_committed()
             finally:
-                self.stats["dl4j_checkpoint_queue_depth"] = 0
+                self._queue(0)
 
         if self.async_save:
-            self.stats["dl4j_checkpoint_queue_depth"] = 1
+            self._queue(1)
             self._writes.start(snap, work)
         else:
             write_committed()
@@ -238,7 +281,7 @@ class CheckpointManager:
                     f"checkpoint step {cand} failed corruption checks "
                     f"({e}); falling back to previous committed step",
                     RuntimeWarning, stacklevel=2)
-                self.stats["restore_fallback"] += 1
+                self._count("restore_fallback")
         raise CheckpointCorruptError(
             f"all {len(candidates)} checkpoint steps under "
             f"{self.directory} failed corruption checks") from last_err
@@ -248,12 +291,11 @@ class CheckpointManager:
         # Verify first: a truncated chunk must surface as the clean error
         # the fallback walk routes around, before any tensor is written.
         manifest = store.verify_checkpoint(path)
-        t0 = time.perf_counter()
-        result = store.restore_checkpoint(path, net=net,
-                                          load_updater=load_updater,
-                                          device=self.device)
-        self.timings["checkpoint.restore"] = time.perf_counter() - t0
-        self.stats["dl4j_checkpoint_bytes_read_total"] += sum(
-            manifest["files"].values())
-        self.stats["dl4j_checkpoint_restores_total"] += 1
+        with self._span("checkpoint.restore", step=int(step)):
+            result = store.restore_checkpoint(path, net=net,
+                                              load_updater=load_updater,
+                                              device=self.device)
+        self._count("dl4j_checkpoint_bytes_read_total",
+                    sum(manifest["files"].values()))
+        self._count("dl4j_checkpoint_restores_total")
         return result

@@ -13,20 +13,26 @@ axis), `batch_signature`, `batch_nbytes`, `stack_superbatch` and
 
 Batches are host numpy arrays or tensors; a staged batch holds tensors on
 its device. The device is an argument (`device`, default the card, as the
-engines'), or the net's where an iterator is given one. The reference's
-observability series (input waits, cache bytes) wait for ROADMAP A.14;
-the counts they would read are plain attributes here.
+engines'), or the net's where an iterator is given one.
+
+Observability (reference :42-46): `dl4j_device_cache_bytes` (the bytes of
+every `DeviceCacheDataSetIterator`'s cache, also its `cache_bytes`) and
+`dl4j_input_wait_seconds{source="superstep"}` (a `SuperbatchIterator`
+blocked on its base's next: with K batches a dispatch, the waits the
+engine's own loop can no longer see).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import observability as _obs
 from deeplearning4j_tpu_torch.datasets import staging as _staging
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.staging import (
@@ -38,6 +44,16 @@ from deeplearning4j_tpu_torch.datasets.staging import (
 )
 
 _log = logging.getLogger(__name__)
+
+_M_CACHE_BYTES = _obs.metrics.gauge(
+    "dl4j_device_cache_bytes",
+    "Bytes of training batches resident in HBM across "
+    "DeviceCacheDataSetIterator caches")
+_M_INPUT_WAIT = _obs.metrics.histogram(
+    "dl4j_input_wait_seconds",
+    "Host seconds blocked in iterator-next waiting for the next batch "
+    "(input starvation; the device is idle while this accrues)",
+    label_names=("source",)).labels(source="superstep")
 
 
 def maybe_reset(iterator) -> bool:
@@ -213,6 +229,7 @@ class DeviceCacheDataSetIterator(DataSetIterator):
                 raise
             self._cache = staged
             self.cache_bytes = total
+            _M_CACHE_BYTES.inc(total)
         return iter(self._cache)
 
     def reset(self):
@@ -221,6 +238,7 @@ class DeviceCacheDataSetIterator(DataSetIterator):
     def invalidate(self):
         """Drop the device cache (the data underneath changed)."""
         self._cache = None
+        _M_CACHE_BYTES.inc(-self.cache_bytes)
         self.cache_bytes = 0
 
     def total_examples(self):
@@ -495,7 +513,16 @@ class SuperbatchIterator(DataSetIterator):
                 return buf[0]
             return stack_superbatch(buf, stage=stage, device=self.device)
 
-        for item in self.base:
+        base_it = iter(self.base)
+        while True:
+            # The base's next timed apart: K batches make one dispatch, so
+            # these waits are starvation the engine's loop cannot see.
+            t_wait = time.perf_counter()
+            try:
+                item = next(base_it)
+            except StopIteration:
+                break
+            _M_INPUT_WAIT.observe(time.perf_counter() - t_wait)
             _staging.ready(item)  # a staged batch's copies, before stacking
             if self.transform is not None:
                 item = self.transform(item)

@@ -20,7 +20,9 @@
 - `DeviceStager` stages a batch stream on a worker thread: the next batch
   crosses to the device while the current one trains. Its in-flight window
   is a byte budget (`staging_budget_bytes`: `DL4J_TPU_STAGE_BYTES`, else
-  half the free device memory `torch.cuda.mem_get_info` reports, else 256
+  half the free device memory `torch.cuda.mem_get_info` reports less the
+  net's measured transient (`observability.memory.measured_model_bytes`
+  beyond its leaves, which are already out of the free memory), else 256
   MiB); one batch larger than the budget is still admitted when the window
   is empty. A worker's exception is raised to the consumer; `close()`
   stops the worker and drops what it staged. `maybe_stage` wraps an
@@ -28,8 +30,15 @@
   it. `DL4J_TPU_STAGING=0` turns staging off, `DL4J_TPU_STAGE_DEPTH` sets
   the queue depth (2).
 
-The reference's observability series wait for ROADMAP A.14: a stager
-keeps its counts as plain attributes (`staged_bytes`, `put_seconds`,
+Observability (reference :54-84): `dl4j_staging_inflight_bytes` and
+`dl4j_staging_depth` (the windows and queues of every live stager),
+`dl4j_staging_wait_seconds` (a stager thread blocked on its base's next),
+`dl4j_staging_bytes_total` and `dl4j_staging_put_seconds_total{mode}`
+(copy-issue seconds on a stager thread, "overlapped", or on the caller's,
+"synchronous"); a stager given an `engine` adds its bytes to that
+engine's `dl4j_host_to_device_bytes_total` (the engines time their own
+iterator-next waits, `dl4j_input_wait_seconds`). A stager also
+keeps its own counts (`staged_bytes`, `put_seconds`,
 `max_inflight_bytes`, `last_wait`).
 """
 
@@ -44,7 +53,48 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import observability as _obs
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+
+# Series resolved once at import.
+_M_INFLIGHT = _obs.metrics.gauge(
+    "dl4j_staging_inflight_bytes",
+    "Bytes admitted to DeviceStager in-flight windows and not yet handed "
+    "to a consumer (bounded by the staging byte budget)")
+_M_DEPTH = _obs.metrics.gauge(
+    "dl4j_staging_depth",
+    "Batches currently staged ahead across DeviceStager queues")
+_M_STAGE_WAIT = _obs.metrics.histogram(
+    "dl4j_staging_wait_seconds",
+    "Stager-thread seconds blocked waiting on the base iterator's next "
+    "(producer-side stall, the dual of dl4j_input_wait_seconds)")
+_M_STAGED_BYTES = _obs.metrics.counter(
+    "dl4j_staging_bytes_total",
+    "Host bytes shipped to device by background DeviceStager threads "
+    "(the overlapped share of host->device traffic)")
+_M_PUT_SECONDS = _obs.metrics.counter(
+    "dl4j_staging_put_seconds_total",
+    "Host seconds spent issuing device_put, split by whether the put ran "
+    "on a DeviceStager thread (overlapped with compute) or on the caller "
+    "thread (synchronous)",
+    label_names=("mode",))
+_M_PUT_OVERLAPPED = _M_PUT_SECONDS.labels(mode="overlapped")
+_M_PUT_SYNC = _M_PUT_SECONDS.labels(mode="synchronous")
+# The engines' family (registering again returns it).
+_H2D_FAMILY = _obs.metrics.counter(
+    "dl4j_host_to_device_bytes_total",
+    "Host-resident bytes staged to device with training batches",
+    label_names=("engine",))
+
+
+# Copies issued from a stager thread overlap with compute; the rest are
+# synchronous, on the caller's thread.
+_TLS = threading.local()
+
+
+def _put_seconds_child():
+    return (_M_PUT_OVERLAPPED if getattr(_TLS, "overlapped", False)
+            else _M_PUT_SYNC)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -144,6 +194,7 @@ def stage_item(item, device="cuda"):
     every host part on `device`, the container's type kept; device parts
     pass as they are (reference :233). On the card the copies run on a
     side stream and the new item carries their event (see `ready`)."""
+    t0 = time.perf_counter()
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -171,6 +222,7 @@ def stage_item(item, device="cuda"):
         ev = torch.cuda.Event()
         ev.record(stream)
         out._staged = (ev, stream)
+    _put_seconds_child().inc(time.perf_counter() - t0)
     return out
 
 
@@ -248,8 +300,8 @@ def staging_depth() -> int:
 def staging_budget_bytes(net=None, device=None) -> int:
     """A stager's in-flight byte budget (reference :347):
     `DL4J_TPU_STAGE_BYTES`, else half the free memory of the card
-    (`torch.cuda.mem_get_info`, of `net`'s device or `device`) and at least
-    16 MiB, else 256 MiB."""
+    (`torch.cuda.mem_get_info`, of `net`'s device or `device`) less the
+    net's measured transient, and at least 16 MiB, else 256 MiB."""
     env = os.environ.get("DL4J_TPU_STAGE_BYTES")
     if env:
         try:
@@ -259,7 +311,15 @@ def staging_budget_bytes(net=None, device=None) -> int:
     dev = torch.device(getattr(net, "device", None) or device or "cpu")
     if dev.type == "cuda" and torch.cuda.is_available():
         free, _ = torch.cuda.mem_get_info(dev)
-        if free:
+        if net is not None:
+            from deeplearning4j_tpu_torch.observability import memory as _mem
+
+            # The measured footprint's leaves are already allocated (out
+            # of `free`); its transient is what a step will still take.
+            measured = _mem.measured_model_bytes(net)
+            if measured:
+                free -= max(0, measured - _mem.leaf_bytes(net, "cuda"))
+        if free > 0:
             return max(_MIN_BUDGET, int(free) // 2)
     return _DEFAULT_BUDGET
 
@@ -274,14 +334,16 @@ class DeviceStager:
     `device_stage=False` only prefetches on the host), handed over in
     order through a queue of `depth`; the bytes in flight are admitted
     against `max_bytes` before each copy. A worker's exception is raised
-    on the consumer's side. `close()` is idempotent."""
+    on the consumer's side. `close()` is idempotent. `engine` names the
+    engine whose host->device bytes the staged bytes are."""
 
     stages_to_device = True
 
     def __init__(self, base: Iterable, *, stage_fn: Optional[Callable] = None,
                  transform: Optional[Callable] = None, transfer_dtype=None,
                  device_stage: bool = True, depth: Optional[int] = None,
-                 max_bytes: Optional[int] = None, net=None, device=None):
+                 max_bytes: Optional[int] = None, net=None, device=None,
+                 engine: Optional[str] = None):
         self.base = base
         self.device = (getattr(net, "device", None) if device is None
                        else device) or "cuda"
@@ -294,6 +356,8 @@ class DeviceStager:
         if max_bytes is None and self._device_stage:
             max_bytes = staging_budget_bytes(net, self.device)
         self.max_bytes = max_bytes
+        self._h2d = (_H2D_FAMILY.labels(engine=engine)
+                     if engine and self._device_stage else None)
         self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         self._can_admit = threading.Condition(threading.Lock())
         self._inflight = 0
@@ -321,12 +385,14 @@ class DeviceStager:
             self._inflight += nb
             self.max_inflight_bytes = max(self.max_inflight_bytes,
                                           self._inflight)
+        _M_INFLIGHT.inc(nb)
         return True
 
     def _retire(self, nb: int, item=None, drop: bool = False) -> None:
         with self._can_admit:
             self._inflight -= nb
             self._can_admit.notify_all()
+        _M_INFLIGHT.inc(-nb)
         if drop and item is not None:
             drop_item(item)
 
@@ -340,13 +406,16 @@ class DeviceStager:
         return False
 
     def _worker(self) -> None:
+        _TLS.overlapped = True
         try:
             base_it = iter(self.base)
             while not self._stop.is_set():
+                t0 = time.perf_counter()
                 try:
                     item = next(base_it)
                 except StopIteration:
                     break
+                _M_STAGE_WAIT.observe(time.perf_counter() - t0)
                 if self._transform is not None:
                     item = self._transform(item)
                 if self._transfer_dtype is not None:
@@ -363,15 +432,20 @@ class DeviceStager:
                         raise
                     self.put_seconds += time.perf_counter() - t0
                     self.staged_bytes += nb
+                    _M_STAGED_BYTES.inc(nb)
+                    if self._h2d is not None:
+                        self._h2d.inc(nb)
                 else:
                     staged = item
                 if not self._offer((staged, nb)):
                     self._retire(nb, staged, drop=self._device_stage)
                     return
+                _M_DEPTH.inc(1)
         except BaseException as e:  # raised on the consumer's side
             self._error = e
         finally:
             self._offer(_END)
+            _TLS.overlapped = False
 
     def __iter__(self):
         return self
@@ -387,6 +461,7 @@ class DeviceStager:
             self._thread.join(timeout=5)
             self._finish()
         item, nb = payload
+        _M_DEPTH.inc(-1)
         self._retire(nb)
         return item
 
@@ -418,6 +493,7 @@ class DeviceStager:
             if payload is _END:
                 continue
             item, nb = payload
+            _M_DEPTH.inc(-1)
             self._retire(nb, item, drop=self._device_stage)
 
     def __del__(self):  # pragma: no cover - a safety net at collection
@@ -428,7 +504,8 @@ class DeviceStager:
 
 
 def maybe_stage(src, *, net=None, transfer_dtype=None,
-                depth: Optional[int] = None, device=None):
+                depth: Optional[int] = None, device=None,
+                engine: Optional[str] = None):
     """`src` wrapped in a `DeviceStager` (reference :574), unless staging
     is off, `src` stages itself (`stages_to_device`), or it is a list or
     tuple of at most one batch."""
@@ -439,7 +516,8 @@ def maybe_stage(src, *, net=None, transfer_dtype=None,
     if isinstance(src, (list, tuple)) and len(src) <= 1:
         return src
     return DeviceStager(src, net=net, device=device,
-                        transfer_dtype=transfer_dtype, depth=depth)
+                        transfer_dtype=transfer_dtype, depth=depth,
+                        engine=engine)
 
 
 def close_stager(src) -> None:

@@ -23,7 +23,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -101,6 +101,10 @@ _NO_GUARD = contextlib.nullcontext()
 # What the last build did: command lines, seconds, ptxas resource lines by
 # kernel.
 last_build: Dict[str, object] = {}
+# Called as `fn(source, seconds)` after each load of the library: source
+# "trace" for an nvcc build, "persistent" for a cached build taken from
+# BUILD_DIR (`observability.install_compile_hook` adds one).
+build_listeners: List[Callable[[str, float], None]] = []
 
 
 def _nvcc() -> str:
@@ -191,7 +195,9 @@ def load(force: bool = False) -> ctypes.CDLL:
         return lib
     with _lock:
         if _lib is None or force:
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(_compile(force)))
+            seconds = time.perf_counter() - t0
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -200,6 +206,9 @@ def load(force: bool = False) -> ctypes.CDLL:
             lib.dl4j_error_string.restype = ctypes.c_char_p
             _fns.clear()
             _lib = lib
+            source = "persistent" if last_build.get("cached") else "trace"
+            for fn in list(build_listeners):
+                fn(source, seconds)
         return _lib
 
 

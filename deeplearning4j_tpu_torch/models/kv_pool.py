@@ -66,6 +66,7 @@ class KVPagePool:
         self._ref = np.zeros(self.num_pages, np.int64)
         self._seq: Dict[int, List[int]] = {}   # slot -> physical pages
         self._len: Dict[int, int] = {}         # slot -> token length
+        self._cow: Dict[int, int] = {}         # slot -> CoW copies since install
         self.table = np.zeros((self.slots, self.pages_per_seq), np.int32)
         # Called when the free list runs dry; returns True if it freed a
         # page (the scheduler wires PrefixCache.evict_one here).
@@ -106,6 +107,11 @@ class KVPagePool:
 
     def pages_of(self, slot: int) -> Tuple[int, ...]:
         return tuple(self._seq.get(slot, ()))
+
+    def cow_count(self, slot: int) -> int:
+        """Copy-on-write page copies this slot has forced since its
+        install (the request ledger's per-request CoW field)."""
+        return self._cow.get(slot, 0)
 
     def _alloc_one(self) -> int:
         while not self._free:
@@ -170,6 +176,7 @@ class KVPagePool:
         """Retire a slot: unref its pages and zero its table row."""
         pages = self._seq.pop(slot, None)
         self._len.pop(slot, None)
+        self._cow.pop(slot, None)
         self.table[slot, :] = 0
         if pages:
             self.unref(pages)
@@ -216,6 +223,7 @@ class KVPagePool:
                 new = self._alloc_one()
                 if pi < len(pages):
                     copies.append((pages[pi], new))   # CoW: shared page
+                    self._cow[slot] = self._cow.get(slot, 0) + 1
                     self.unref([pages[pi]])
                     pages[pi] = new
                 else:

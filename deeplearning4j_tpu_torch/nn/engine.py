@@ -104,19 +104,36 @@ to its conf, in the engine's update order.
   checkpoint's `rng` means the same in both packages, and a run resumed
   from one draws the masks of the uninterrupted run; the masks themselves
   are not JAX's.
+- Observability (reference graph.py:57-92, 769, 813-835): each engine
+  module resolves its families once at import (`EngineMetrics`: the
+  iteration, epoch, dispatch-seconds, host->device-bytes, capture-cache
+  and input-wait series under its `engine` label). `fit` runs in a
+  `graph.fit` / `mln.fit` span and times each iterator-next
+  (`_fit_items`); each dispatch (`_observed_dispatch`) runs under
+  `observability.iteration_span`, counts its host bytes, observes its
+  host seconds, records a flight-ring step (a superstep's with its `k` and
+  K losses), and on an exception records a crash bundle and re-raises.
+  The first dispatch of a batch signature on the card records the
+  program's device memory (`memory.program_memory`). None of it reads a
+  device value, and none of it runs inside a captured graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import observability as _obs
 from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.datasets import iterators as iterators_mod
+from deeplearning4j_tpu_torch.datasets import staging
+from deeplearning4j_tpu_torch.observability import memory as _mem
 from deeplearning4j_tpu_torch.kernels import fused_update
 from deeplearning4j_tpu_torch.nn import lora as lora_mod
 from deeplearning4j_tpu_torch.nn import params as params_mod
@@ -135,6 +152,79 @@ from deeplearning4j_tpu_torch.optimize import solvers as solvers_mod
 # `opt_state` keys that are no vertex: the f32 masters and the loss-scale
 # pair (reference `multilayer.py:107`).
 RESERVED_OPT_KEYS = ("_master", "_ls")
+
+
+class EngineMetrics:
+    """One engine's series (reference graph.py:57-92), its children
+    resolved once: `engine` is "graph" or "mln"."""
+
+    def __init__(self, engine: str):
+        reg = _obs.metrics
+        self.engine = engine
+        self.iters = reg.counter(
+            "dl4j_train_iterations_total", "Completed training iterations",
+            label_names=("engine",)).labels(engine=engine)
+        self.epochs = reg.counter(
+            "dl4j_train_epochs_total", "Completed fit() epochs",
+            label_names=("engine",)).labels(engine=engine)
+        self._dispatch = reg.histogram(
+            "dl4j_step_dispatch_seconds",
+            "Host time to dispatch one staged batch (async — completion "
+            "is NOT awaited; see dl4j_step_latency_seconds from "
+            "StepProfiler for settled latency); `k` = train iterations "
+            "fused into the dispatch (superstep)",
+            label_names=("engine", "k"))
+        self._dispatch_k = {1: self._dispatch.labels(engine=engine, k="1")}
+        self.h2d = reg.counter(
+            "dl4j_host_to_device_bytes_total",
+            "Host-resident bytes staged to device with training batches",
+            label_names=("engine",)).labels(engine=engine)
+        self.jit_hit = reg.counter(
+            "dl4j_jit_cache_hits_total", "Engine jit-program cache hits",
+            label_names=("engine",)).labels(engine=engine)
+        self.jit_miss = reg.counter(
+            "dl4j_jit_cache_misses_total",
+            "Engine jit-program cache misses (a new program will "
+            "trace+compile)",
+            label_names=("engine",)).labels(engine=engine)
+        self.input_wait = reg.histogram(
+            "dl4j_input_wait_seconds",
+            "Host seconds blocked in iterator-next waiting for the next "
+            "batch (input starvation; the device is idle while this "
+            "accrues)",
+            label_names=("source",)).labels(source=engine)
+
+    def dispatch_observe(self, k: int, seconds: float) -> None:
+        child = self._dispatch_k.get(k)
+        if child is None:  # few distinct k a process: children cached
+            child = self._dispatch.labels(engine=self.engine, k=str(k))
+            self._dispatch_k[k] = child
+        child.observe(seconds)
+
+
+_BATCH_PARTS = ("features", "labels", "features_mask", "labels_mask",
+                "features_masks", "labels_masks")
+
+
+def batch_host_nbytes(item, device) -> int:
+    """The bytes of a batch container's host-resident parts: what its
+    dispatch copies to `device` (`observability.host_nbytes`)."""
+    return _obs.host_nbytes(*(getattr(item, n, None) for n in _BATCH_PARTS),
+                            device=device)
+
+
+def dispatch_signature(item) -> tuple:
+    """The container type, K and the parts' shapes and dtypes of one
+    dispatched batch: a new signature is a new program (its first
+    dispatch builds plans or captures a graph)."""
+    def sig(a):
+        if a is None:
+            return None
+        if isinstance(a, (list, tuple)):
+            return tuple(sig(x) for x in a)
+        return (tuple(a.shape), str(a.dtype))
+    return (type(item).__name__, int(getattr(item, "k", 1)),
+            *(sig(getattr(item, n, None)) for n in _BATCH_PARTS))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -190,6 +280,8 @@ class NetworkEngine:
     # (`nn/superstep.py`): `_next_rng` has it wrap each step key, and the
     # fused update takes its scalar slots. None otherwise.
     _step_ctx = None
+    # The engine's series (`EngineMetrics`), set by each engine class.
+    _metrics: EngineMetrics = None
 
     def __init__(self, global_conf, layer_confs, device):
         for name, layer in layer_confs.items():
@@ -219,6 +311,11 @@ class NetworkEngine:
         # group, reused while the params and state stay the same tensors
         # (`fused_update.apply_step`); emptied where they are replaced.
         self._update_tables: Dict[tuple, object] = {}
+        # Observability: the last iterator-next wait, the K losses of the
+        # last superstep dispatch, the batch signatures dispatched so far.
+        self._last_input_wait: Optional[float] = None
+        self._superstep_losses = None
+        self._programs_seen: set = set()
 
     @property
     def score_value(self) -> float:
@@ -679,6 +776,68 @@ class NetworkEngine:
     def _tbptt(self) -> bool:
         return str(self.conf.backprop_type).lower() == "truncatedbptt"
 
+    # -------------------------------------------------------- observability
+
+    def _fit_items(self, src) -> None:
+        """Dispatch every item of `src` (an epoch's source, perhaps a
+        stager), each iterator-next timed apart: with staged input that
+        wait is the device starving. An abandoned epoch leaves nothing
+        staged."""
+        src_it = iter(src)
+        try:
+            while True:
+                t_wait = time.perf_counter()
+                try:
+                    item = next(src_it)
+                except StopIteration:
+                    break
+                self._last_input_wait = time.perf_counter() - t_wait
+                self._metrics.input_wait.observe(self._last_input_wait)
+                self._fit_dispatch(item)
+        finally:
+            staging.close_stager(src_it)
+            staging.close_stager(src)
+
+    def _observed_dispatch(self, item, run) -> None:
+        """`run(item)` (the dispatch of one prepared batch) inside the
+        observability of the module docstring."""
+        m = self._metrics
+        h2d = batch_host_nbytes(item, self.device)
+        m.h2d.inc(h2d)
+        k = int(getattr(item, "k", 1))
+        it0 = self.iteration
+        self._superstep_losses = None
+        t0 = time.perf_counter()
+        with _obs.iteration_span(m.engine, it0 + 1):
+            try:
+                with self._program_memory(item):
+                    run(item)
+            except Exception as e:
+                # The bundle is written before the exception unwinds fit.
+                _obs.flight.on_crash(f"{m.engine}.dispatch", e)
+                raise
+            finally:
+                dt = time.perf_counter() - t0
+                m.dispatch_observe(k, dt)
+                m.iters.inc(max(0, self.iteration - it0))
+                _obs.flight.record_step(
+                    m.engine, self.iteration, loss=self._score, seconds=dt,
+                    k=k, h2d_bytes=h2d, input_wait=self._last_input_wait,
+                    jit_hits=m.jit_hit.get(), jit_misses=m.jit_miss.get(),
+                    losses=self._superstep_losses)
+
+    def _program_memory(self, item):
+        """On the card, the first dispatch of a batch signature records
+        its device memory as `<engine>.train_step`; otherwise nothing."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        sig = dispatch_signature(item)
+        if sig in self._programs_seen:
+            return contextlib.nullcontext()
+        self._programs_seen.add(sig)
+        return _mem.program_memory(f"{self._metrics.engine}.train_step",
+                                   net=self)
+
     def _superstep_k(self) -> int:
         """K for this engine: `DL4J_TPU_SUPERSTEP_K`, else the conf's
         `superstep_k`; 0 (per batch) under a stats listener, `iterations
@@ -723,7 +882,9 @@ class NetworkEngine:
         base = self.iteration
         losses = None
         if self.device.type == "cuda" and k > 1:
-            losses = superstep_mod.run(self, sb)
+            losses = superstep_mod.run(
+                self, sb, hit=self._metrics.jit_hit,
+                miss=self._metrics.jit_miss)
         if losses is None:
             losses = []
             for j in range(k):
@@ -731,6 +892,7 @@ class NetworkEngine:
                 self._sgd_step(sb.batch(j))
                 losses.append(self._score)
             self.iteration = base
+        self._superstep_losses = losses
         for loss in losses:
             self._score = loss
             self.iteration += 1

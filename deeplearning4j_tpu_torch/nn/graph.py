@@ -77,6 +77,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import observability as _obs
 from deeplearning4j_tpu_torch.datasets import staging
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterators import (
@@ -99,6 +100,7 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net import (
     ComputationGraphConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.engine import (
+    EngineMetrics,
     NetworkEngine,
     center_loss,
     take_aux_loss,
@@ -138,6 +140,8 @@ def _as_mask_list(masks):
 
 class ComputationGraph(NetworkEngine):
     """DAG network engine (see module docstring)."""
+
+    _metrics = EngineMetrics("graph")
 
     def __init__(self, conf: ComputationGraphConfiguration,
                  device="cuda"):
@@ -362,27 +366,26 @@ class ComputationGraph(NetworkEngine):
         maybe_reset(items)
         for listener in self.listeners:
             listener.on_epoch_start(self)
-        k = self._superstep_k()
-        src = self._superstep_wrap(items, k, _as_mds) if k > 1 else items
-        if self.device.type == "cuda":
-            src = staging.maybe_stage(
-                src, net=self, transfer_dtype=self.dtype_policy.transfer_dtype)
-        src_it = iter(src)
-        try:
-            for item in src_it:
-                self._fit_dispatch(item)
-        finally:  # an abandoned epoch leaves nothing staged
-            staging.close_stager(src_it)
-            staging.close_stager(src)
+        with _obs.tracer.span("graph.fit", cat="train", epoch=self.epoch):
+            k = self._superstep_k()
+            src = self._superstep_wrap(items, k, _as_mds) if k > 1 else items
+            if self.device.type == "cuda":
+                src = staging.maybe_stage(
+                    src, net=self, engine="graph",
+                    transfer_dtype=self.dtype_policy.transfer_dtype)
+            self._fit_items(src)
         self.epoch += 1
+        self._metrics.epochs.inc()
         for listener in self.listeners:
             listener.on_epoch_end(self)
         return self
 
     def _fit_dispatch(self, item) -> None:
-        """A stacked block to the superstep, a solver conf's batch to the
-        solver, truncated BPTT for a sequence longer than a chunk, else
-        `iterations` steps (reference `_fit_dispatch_inner`)."""
+        """One dispatched batch (reference `_fit_dispatch`): a block as a
+        `MultiSuperbatch`, anything else as a cast `MultiDataSet`, run by
+        `_fit_dispatch_inner` under the engines' observability
+        (`_observed_dispatch`). `StepProfiler` patches this method on the
+        instance."""
         staging.ready(item)
         if isinstance(item, Superbatch):
             item = MultiSuperbatch(
@@ -390,10 +393,18 @@ class ComputationGraph(NetworkEngine):
                 None if item.features_mask is None else [item.features_mask],
                 None if item.labels_mask is None else [item.labels_mask],
                 k=item.k)
-        if isinstance(item, MultiSuperbatch):
-            self._fit_superstep(item)
+        if not isinstance(item, MultiSuperbatch):
+            item = transfer_cast(_as_mds(item),
+                                 self.dtype_policy.transfer_dtype)
+        self._observed_dispatch(item, self._fit_dispatch_inner)
+
+    def _fit_dispatch_inner(self, mds) -> None:
+        """A stacked block to the superstep, a solver conf's batch to the
+        solver, truncated BPTT for a sequence longer than a chunk, else
+        `iterations` steps (reference `_fit_dispatch_inner`)."""
+        if isinstance(mds, MultiSuperbatch):
+            self._fit_superstep(mds)
             return
-        mds = transfer_cast(_as_mds(item), self.dtype_policy.transfer_dtype)
         algo = self._solver_algo()
         if algo is not None:
             self._fit_solver(mds, algo)

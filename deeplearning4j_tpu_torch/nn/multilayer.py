@@ -77,6 +77,7 @@ from typing import List
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import observability as _obs
 from deeplearning4j_tpu_torch.datasets import staging
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterators import Superbatch, maybe_reset
@@ -89,6 +90,7 @@ from deeplearning4j_tpu_torch.nn import rnn_state as rnn_mod
 from deeplearning4j_tpu_torch.nn.conf import preprocessors as pre_mod
 from deeplearning4j_tpu_torch.nn.conf.neural_net import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.engine import (
+    EngineMetrics,
     NetworkEngine,
     center_loss,
     take_aux_loss,
@@ -113,6 +115,8 @@ def _as_dataset(data, labels=None) -> DataSet:
 
 class MultiLayerNetwork(NetworkEngine):
     """Sequential network engine (see module docstring)."""
+
+    _metrics = EngineMetrics("mln")
 
     def __init__(self, conf: MultiLayerConfiguration, device="cuda"):
         self.conf = conf
@@ -278,34 +282,40 @@ class MultiLayerNetwork(NetworkEngine):
             maybe_reset(items)
         for listener in self.listeners:
             listener.on_epoch_start(self)
-        if self.conf.backprop:
-            k = self._superstep_k()
-            src = self._superstep_wrap(items, k) if k > 1 else items
-            if self.device.type == "cuda":
-                src = staging.maybe_stage(
-                    src, net=self,
-                    transfer_dtype=self.dtype_policy.transfer_dtype)
-            src_it = iter(src)
-            try:
-                for ds in src_it:
-                    self._fit_dispatch(ds)
-            finally:  # an abandoned epoch leaves nothing staged
-                staging.close_stager(src_it)
-                staging.close_stager(src)
+        with _obs.tracer.span("mln.fit", cat="train", epoch=self.epoch):
+            if self.conf.backprop:
+                k = self._superstep_k()
+                src = self._superstep_wrap(items, k) if k > 1 else items
+                if self.device.type == "cuda":
+                    src = staging.maybe_stage(
+                        src, net=self, engine="mln",
+                        transfer_dtype=self.dtype_policy.transfer_dtype)
+                self._fit_items(src)
         self.epoch += 1
+        self._metrics.epochs.inc()
         for listener in self.listeners:
             listener.on_epoch_end(self)
         return self
 
     def _fit_dispatch(self, ds) -> None:
+        """One dispatched batch (reference `_fit_dispatch`, :845): a block
+        as it is, anything else as a cast `DataSet`, run by
+        `_fit_dispatch_inner` under the engines' observability
+        (`_observed_dispatch`). `StepProfiler` patches this method on the
+        instance."""
+        staging.ready(ds)
+        if not isinstance(ds, Superbatch):
+            ds = transfer_cast(_as_dataset(ds),
+                               self.dtype_policy.transfer_dtype)
+        self._observed_dispatch(ds, self._fit_dispatch_inner)
+
+    def _fit_dispatch_inner(self, ds) -> None:
         """A stacked block to the superstep, a solver conf's batch to the
         solver, truncated BPTT for a sequence longer than a chunk, else one
         step (reference `_fit_dispatch_inner`, :868)."""
-        staging.ready(ds)
         if isinstance(ds, Superbatch):
             self._fit_superstep(ds)
             return
-        ds = transfer_cast(_as_dataset(ds), self.dtype_policy.transfer_dtype)
         algo = self._solver_algo()
         if algo is not None:
             self._fit_solver(ds, algo)

@@ -244,19 +244,25 @@ class _Block:
         self.draws = self.slots = None
 
 
-def run(net, sb) -> Optional[List[torch.Tensor]]:
+def run(net, sb, hit=None, miss=None) -> Optional[List[torch.Tensor]]:
     """Train block `sb` on the card (see the module docstring); returns its
     K losses, or None when the net cannot be captured (the caller then
-    runs the steps one by one). The iteration is left where it was."""
+    runs the steps one by one). The iteration is left where it was.
+    `miss` and `hit` (counters: the engine's `dl4j_jit_cache_*_total`)
+    count a capture and a replay of a kept graph."""
     blocks = net.__dict__.setdefault("_superstep_blocks", {})
     sig = _signature(sb)
     if sig in blocks:
         blk = blocks.pop(sig)
+        if blk is not None and hit is not None:
+            hit.inc()
     else:
         while len(blocks) >= KEEP:
             old = next(iter(blocks))
             _retire(net, old, blocks.pop(old))
         blk = _capture(net, sb)
+        if blk is not None and miss is not None:
+            miss.inc()
     blocks[sig] = blk  # the last one used, last
     return None if blk is None else _replay(net, blk, sb)
 

@@ -3,8 +3,9 @@
 plain `threading.RLock` where the reference takes a traced lock).
 
 - Callers resolve `.labels(...)` children once; `inc()` / `observe()` on a
-  child is one lock and one float operation. (The reference's switch that
-  turns every mutator into a no-op is not ported: nothing here turns it.)
+  child is one bool check, one lock and one float operation. `disable()`
+  (`DL4J_TPU_OBS=0` for the process-global registry) leaves every mutator
+  a bool check that returns.
 - Exposition is the Prometheus text format 0.0.4 (label escaping,
   cumulative `_bucket` / `_sum` / `_count` for histograms), or a JSON
   snapshot.
@@ -76,10 +77,14 @@ class _Child:
 
     # counter / gauge
     def inc(self, v: float = 1.0) -> None:
+        if not self._reg._enabled:
+            return
         with self._reg._lock:
             self._value += v
 
     def set(self, v: float) -> None:
+        if not self._reg._enabled:
+            return
         with self._reg._lock:
             self._value = float(v)
 
@@ -98,6 +103,8 @@ class _Child:
 
     # histogram
     def observe(self, v: float) -> None:
+        if not self._reg._enabled:
+            return
         with self._reg._lock:
             self._bucket_counts[bisect.bisect_left(self._buckets, v)] += 1
             self._sum += v
@@ -202,10 +209,32 @@ class MetricsRegistry:
     """See module docstring. `deeplearning4j_tpu_torch.observability
     .metrics` is the process-global one; tests may build their own."""
 
-    def __init__(self):
+    def __init__(self, enabled: bool = True):
+        self._enabled = bool(enabled)
         self._lock = threading.RLock()
         self._families: Dict[str, _Family] = {}
         self._collectors: List[Callable[["MetricsRegistry"], None]] = []
+
+    @property
+    def enabled(self) -> bool:
+        return self._enabled
+
+    def enable(self) -> None:
+        self._enabled = True
+
+    def disable(self) -> None:
+        self._enabled = False
+
+    def reset(self) -> None:
+        """Zero every recorded value (families and collectors stay)."""
+        with self._lock:
+            for fam in self._families.values():
+                for child in fam._children.values():
+                    child._value = 0.0
+                    if child._buckets is not None:
+                        child._bucket_counts = [0] * (len(child._buckets) + 1)
+                        child._sum = 0.0
+                        child._count = 0
 
     def _family(self, name, help_, kind, label_names, buckets=None):
         if not _NAME_RE.match(name):

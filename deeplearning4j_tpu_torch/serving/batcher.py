@@ -25,8 +25,17 @@ and its merged params tree; a batch runs one sub-batch per (shape,
 adapter), each through `net.output(x, params=tree)`, and `warm()` drives
 every bucket through each adapter's tree too (`param_variants`).
 
-Still to come: the tracer spans, ledger records and crash bundles of the
-batch loop (ROADMAP A.14).
+Observability (reference :151, 303-355): a `_Pending` carries its
+caller's trace context (`propagate.current()`), its submit time and its
+ledger record. A batch runs in a `serving.batch` span (parented to the
+first traced request's context: the loop thread has no span of its own
+to inherit); each traced request gets a `serving.queue_wait` and a
+`serving.device_dispatch` span under its own context. The dispatch's
+wall time (the forward up to its host result) adds to
+`dl4j_serving_dispatch_seconds_total{phase="forward"}` and splits
+across the batch's requests by their share of its real rows, into each
+record's device-seconds. A failing batch, or a dying loop, leaves a
+flight bundle (`flight.on_crash`).
 """
 
 from __future__ import annotations
@@ -39,7 +48,9 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import observability as _obs
 from deeplearning4j_tpu_torch.nn.conf import preprocessors as _pre
+from deeplearning4j_tpu_torch.observability import propagate as _prop
 from deeplearning4j_tpu_torch.serving import metrics as _m
 from deeplearning4j_tpu_torch.serving.errors import (
     InputValidationError,
@@ -157,10 +168,12 @@ def serving_feature_spec(net, warmup_shape=None):
 
 class _Pending:
     __slots__ = ("array", "event", "result", "error", "deadline",
-                 "cancelled", "adapter", "params")
+                 "cancelled", "adapter", "params", "ctx", "t_submit_ns",
+                 "ledger_rec")
 
     def __init__(self, array: np.ndarray, deadline: Optional[float] = None,
-                 adapter: Optional[str] = None, params=None):
+                 adapter: Optional[str] = None, params=None,
+                 ledger_rec=None):
         self.array = array
         # The adapter is part of the batch key: requests on different
         # trees cannot share one forward. `params` is the merged tree to
@@ -172,6 +185,13 @@ class _Pending:
         self.error: Optional[str] = None
         self.deadline = deadline          # time.monotonic() instant or None
         self.cancelled = False            # set by an abandoning caller
+        # The trace context rides the item: the loop thread does not see
+        # the submitter's thread-local binding.
+        self.ctx = _prop.current()
+        self.t_submit_ns = time.perf_counter_ns()
+        # The request's ledger record (the server opens and closes it; the
+        # loop credits queue wait and device-seconds).
+        self.ledger_rec = ledger_rec
 
 
 class ShapeBucketBatcher:
@@ -205,6 +225,8 @@ class ShapeBucketBatcher:
                       "dropped": 0}
         _m.MODEL_QUEUE_DEPTH.labels(
             model=model_name, route="predict").set_function(self._queue.qsize)
+        self._dispatch_seconds = _m.DISPATCH_SECONDS.labels(
+            model=model_name, phase="forward")
 
     # ------------------------------------------------------------ control
 
@@ -232,11 +254,13 @@ class ShapeBucketBatcher:
     # ---------------------------------------------------------- admission
 
     def submit(self, arr: np.ndarray, deadline: Optional[float] = None,
-               adapter: Optional[str] = None, params=None) -> _Pending:
+               adapter: Optional[str] = None, params=None,
+               ledger_rec=None) -> _Pending:
         """Enqueue one request's rows (through adapter `adapter`'s merged
         tree `params`, if given); sheds (503 + Retry-After) when the
         bounded queue is full."""
-        p = _Pending(arr, deadline, adapter=adapter, params=params)
+        p = _Pending(arr, deadline, adapter=adapter, params=params,
+                     ledger_rec=ledger_rec)
         try:
             self._queue.put_nowait(p)
         except queue.Full:
@@ -302,6 +326,15 @@ class ShapeBucketBatcher:
 
     def _run_group(self, live: List[_Pending]) -> None:
         counts = [p.array.shape[0] for p in live]
+        # Traced requests get a queue-wait span (submit -> batch build) and
+        # a dispatch span under their own context; untraced ones neither.
+        traced = [p for p in live if p.ctx is not None]
+        now_ns = time.perf_counter_ns()
+        for p in traced:
+            _obs.tracer.complete(
+                "serving.queue_wait", p.t_submit_ns,
+                now_ns - p.t_submit_ns, cat="serving",
+                parent_ctx=p.ctx, model=self.model_name)
         try:
             x = np.concatenate([p.array for p in live], axis=0)
             n = x.shape[0]
@@ -310,7 +343,30 @@ class ShapeBucketBatcher:
             if n < bucket:
                 pad = np.zeros((bucket - n,) + x.shape[1:], x.dtype)
                 x = np.concatenate([x, pad], axis=0)
-            preds = self._forward(x, live[0].params)[:n]
+            t_fwd = time.perf_counter_ns()
+            with _obs.tracer.span(
+                    "serving.batch", cat="serving",
+                    parent_ctx=traced[0].ctx if traced else None,
+                    model=self.model_name, requests=len(live), rows=n,
+                    padded_to=bucket):
+                preds = self._forward(x, live[0].params)[:n]
+            dur_fwd = time.perf_counter_ns() - t_fwd
+            for p in traced:
+                _obs.tracer.complete(
+                    "serving.device_dispatch", t_fwd, dur_fwd,
+                    cat="serving", parent_ctx=p.ctx,
+                    model=self.model_name, rows=n, padded_to=bucket)
+            # The one dispatch's wall time, split across its requests by
+            # their real (unpadded) rows: the tenants' device-seconds add
+            # up to the dispatch seconds.
+            dispatch_s = dur_fwd / 1e9
+            self._dispatch_seconds.inc(dispatch_s)
+            for p, c in zip(live, counts):
+                rec = p.ledger_rec
+                if rec is not None:
+                    rec.set_queue_wait((t_fwd - p.t_submit_ns) / 1e9)
+                    rec.mark("queue_done")
+                    rec.add_device_seconds(dispatch_s * (c / n))
             self.stats["batches"] += 1
             self.stats["rows"] += n
             self.stats["padded_rows"] += bucket
@@ -321,13 +377,20 @@ class ShapeBucketBatcher:
         except Exception as e:  # every caller gets the failure; the loop
             for p in live:      # thread survives a bad batch
                 p.error = f"{type(e).__name__}: {e}"
+            _obs.flight.on_crash("serving.batch", e)
         for p in live:
             p.event.set()
 
     def _batch_loop(self) -> None:
         # inference_mode is per thread: the loop's forwards run under it.
-        with torch.inference_mode():
-            self._batch_loop_inner()
+        try:
+            with torch.inference_mode():
+                self._batch_loop_inner()
+        except Exception as e:
+            # The thread is about to die with requests queued: the bundle
+            # is written before the stack unwinds.
+            _obs.flight.on_crash("serving.batch_loop", e)
+            raise
 
     def _batch_loop_inner(self) -> None:
         holdover: Optional[_Pending] = None

@@ -1,10 +1,17 @@
 """Multi-model hosting under a memory budget, with LoRA adapters
 (counterpart of `deeplearning4j_tpu/serving/host.py`).
 
-One server hosts several models (`ModelHost`). Each model's footprint is
-an estimate: the bytes of its params and layer state once loaded, or the
-sizes in its checkpoint's COMMIT manifest (a zip's size) before the first
-load. When the resident footprints sum past `hbm_budget_bytes`, the host
+One server hosts several models (`ModelHost`). A model's footprint
+(`hbm_bytes`) is measured once the model has dispatched on the card
+(`_measure_hbm`, reference :158-176): the bytes of its leaves on the card
+plus the largest transient its warmup recorded (`observability/memory.py`
+`measured_model_bytes`; `hbm_source` "measured"), kept through evictions,
+so a reload of a measured model is measured again at once. Before that it
+is an estimate (`hbm_source` "estimated"): the bytes of its params and
+layer state once loaded, or the sizes in its checkpoint's COMMIT manifest
+(a zip's size) before the first load. Every hosted net is registered for
+`memory.live_buffer_report` under its model's name. When the resident
+footprints sum past `hbm_budget_bytes`, the host
 evicts the least recently used model that is not pinned: its batcher and
 scheduler are detached under the lock and stopped off it, its merged
 adapter trees are dropped with its net, and the card's memory is freed;
@@ -13,11 +20,6 @@ onto the server's device (`checkpoint.legacy.load_any`, retried on
 `OSError` by `util/retry.py`), while other callers of that model get 503
 `Retry-After` until the load is published. A model added as a live net
 with no path is pinned: there is nothing to reload it from.
-
-The reference firms the estimate up to measured device bytes
-(`_measure_hbm`, `observability/memory.py`); that module comes to the
-port with ROADMAP A.14, and until then every footprint here is the
-estimate (`hbm_source` "estimated").
 
 A model's `adapters` hold LoRA deltas (`nn/lora.py`) beside its one
 resident base: each entry keeps the small delta tree and, built on first
@@ -35,6 +37,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from deeplearning4j_tpu_torch.nn import lora as lora_mod
+from deeplearning4j_tpu_torch.observability import memory as _obsmem
 from deeplearning4j_tpu_torch.serving import metrics as _m
 from deeplearning4j_tpu_torch.serving.errors import (
     ModelNotFoundError,
@@ -76,6 +79,25 @@ def estimate_checkpoint_bytes(path) -> int:
         return 0
 
 
+def _measure_hbm(model: "ServedModel") -> None:
+    """Register the model's net for live-buffer attribution, and firm its
+    footprint up to measured device bytes when it has dispatched on the
+    card (its leaves there plus the largest transient recorded for it, or
+    for an earlier load of it); else keep the estimate."""
+    net = model.net
+    _obsmem.register_tree(model.name, net)
+    transient = _obsmem.largest_transient(net)
+    if transient is not None:
+        model.transient_bytes = transient
+    measured = _obsmem.measured_model_bytes(net, model.transient_bytes)
+    if measured:
+        model.hbm_bytes = int(measured)
+        model.hbm_source = "measured"
+    else:
+        model.hbm_bytes = estimate_hbm_bytes(net)
+        model.hbm_source = "estimated"
+
+
 def model_dtype(net) -> str:
     """The serving dtype: "int8" when a param has a `__scale` companion,
     else the first floating param's dtype."""
@@ -111,6 +133,9 @@ class ServedModel:
         self.last_used = time.monotonic()
         self.hbm_source = "estimated"
         self.hbm_bytes = estimate_hbm_bytes(net)
+        # The largest transient measured for this model (None until it
+        # dispatched on the card), kept through evictions.
+        self.transient_bytes: Optional[int] = None
         self.dtype = model_dtype(net)
         # name -> {"tree": delta, "rank", "bytes", "pinned",
         #          "merged": the full serving tree or None (built lazily)}
@@ -215,6 +240,7 @@ class ModelHost:
         with self._lock:
             old = self._models.get(name)
             self._models[name] = model
+            _measure_hbm(model)
             _m.MODEL_HBM_BYTES.labels(model=name).set(model.hbm_bytes)
             _m.MODEL_DTYPE.labels(model=name, dtype=model.dtype).set(1)
             if self.on_load is not None:
@@ -277,8 +303,7 @@ class ModelHost:
             with self._lock:
                 try:
                     model.net = net
-                    model.hbm_bytes = estimate_hbm_bytes(net)
-                    model.hbm_source = "estimated"
+                    _measure_hbm(model)
                     model.dtype = model_dtype(net)
                     _m.MODEL_HBM_BYTES.labels(model=model.name).set(
                         model.hbm_bytes)
@@ -296,6 +321,14 @@ class ModelHost:
                     model.loading = False
         finally:
             self._stop_runtimes(stoppables)
+
+    def publish_footprint(self, model: ServedModel) -> None:
+        """Publish a model's (re)measured footprint and enforce the budget
+        with it."""
+        with self._lock:
+            _m.MODEL_HBM_BYTES.labels(model=model.name).set(model.hbm_bytes)
+            stoppables = self._enforce_budget(keep=model)
+        self._stop_runtimes(stoppables)
 
     def set_budget(self, hbm_budget_bytes: Optional[int]) -> None:
         """A new budget, enforced at once."""
@@ -334,6 +367,7 @@ class ModelHost:
         for entry in model.adapters.values():
             entry["merged"] = None
         model.net = None
+        _obsmem.unregister_tree(model.name)
         _m.MODEL_HBM_BYTES.labels(model=model.name).set(0)
         _m.EVICTIONS.labels(model=model.name).inc()
         model.hbm_source = "estimated"

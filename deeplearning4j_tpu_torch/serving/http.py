@@ -6,7 +6,14 @@
                      "failed", "models": {name: status}}`
 - `GET  /metrics`    Prometheus scrape (`?format=json` for the snapshot,
                      `?names=a,b` to narrow it to those families)
+- `GET  /api/trace`  the tracer's ring as a Chrome trace (`?since=SEQ`:
+                     only the events after an earlier export's `seq`);
+                     save it and open it in ui.perfetto.dev
 - `GET  /v1/models`  one row per hosted model
+- `GET  /v1/tenants` the request ledger's per-(model, adapter) rows
+- `POST /admin/flight-dump`  `{"reason"?}` -> `{"path": bundle or null}`:
+                     a flight bundle, rate-limited per reason (a second
+                     dump within the limit answers `"path": null`)
 - `POST /predict`    `{"data": [[...]], "model"?, "adapter"?,
                        "timeout_ms"?}` -> `{"predictions": [...]}`
 - `POST /generate`   `{"prompt_ids": [...], "n_steps": N, "temperature"?,
@@ -23,9 +30,12 @@ without it (the server's ModelNotReadyError, which in-process callers get
 too). Handler threads only parse, validate and wait: the batcher's and
 the scheduler's threads run the forwards. Failures map by the typed
 errors of `serving/errors.py`; plain `TimeoutError` is a 504, malformed
-payloads a 400. `/v1/tenants` and `/admin/flight-dump` come with the
-request ledger and the flight recorder (ROADMAP A.14), `/api/trace` with
-the tracer (A.14), `/admin/drain` and `/admin/reload` with fleets (A.13).
+payloads a 400. `/predict` and `/generate` run in a `replica.<route>`
+span, the child of the context an inbound `X-DL4J-Trace` header carries
+(`observability/propagate.py`), which the handler binds to its thread,
+so the request's queue item, ledger record and serving spans carry its
+trace id. `/admin/drain` and `/admin/reload` come with fleets (ROADMAP
+A.13).
 """
 
 from __future__ import annotations
@@ -35,10 +45,11 @@ from http.server import BaseHTTPRequestHandler
 from urllib.parse import parse_qs, urlparse
 
 from deeplearning4j_tpu_torch import observability as _obs
+from deeplearning4j_tpu_torch.observability import propagate as _prop
 from deeplearning4j_tpu_torch.serving.errors import ServingError
 
-ROUTES = ["/health", "/healthz", "/metrics", "/v1/models", "/predict",
-          "/generate"]
+ROUTES = ["/health", "/healthz", "/metrics", "/api/trace", "/v1/models",
+          "/v1/tenants", "/predict", "/generate", "/admin/flight-dump"]
 
 
 def make_handler(server):
@@ -101,8 +112,20 @@ def make_handler(server):
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
+            elif url.path == "/api/trace":
+                q = parse_qs(url.query)
+                try:
+                    since = int(q["since"][0]) if q.get("since") else None
+                except ValueError as e:
+                    return self._error(e)
+                self._json(_obs.tracer.export_chrome(since=since))
             elif url.path == "/v1/models":
                 self._json({"models": server.snapshot()})
+            elif url.path == "/v1/tenants":
+                try:
+                    self._json({"tenants": server.tenant_snapshot()})
+                except Exception as e:  # the boundary answers every failure
+                    self._error(e)
             else:
                 self._json({"error": "not found", "routes": ROUTES}, 404)
 
@@ -121,33 +144,58 @@ def make_handler(server):
                 return self._post_predict()
             if self.path == "/generate":
                 return self._post_generate()
+            if self.path == "/admin/flight-dump":
+                return self._post_flight_dump()
             return self._json({"error": "not found", "routes": ROUTES}, 404)
 
+        def _trace_span(self, route: str):
+            """The request's `replica.<route>` span, the child of the
+            context of an inbound `X-DL4J-Trace` header."""
+            rctx = _prop.parse(self.headers.get(_prop.TRACE_HEADER))
+            return _obs.tracer.span(f"replica.{route}", cat="serving",
+                                    parent_ctx=rctx, route=route)
+
         def _post_predict(self):
-            try:
-                payload = self._payload()
-                name = payload.get("model")
-                preds = server.predict(payload["data"], model=name,
-                                       timeout_s=self._timeout_s(payload),
-                                       adapter=payload.get("adapter"))
-            except Exception as e:  # the HTTP boundary answers every failure
-                return self._error(e)
-            self._json({"predictions": preds.tolist()})
+            with self._trace_span("predict") as sp, _prop.bound(sp.ctx()):
+                try:
+                    payload = self._payload()
+                    name = payload.get("model")
+                    preds = server.predict(
+                        payload["data"], model=name,
+                        timeout_s=self._timeout_s(payload),
+                        adapter=payload.get("adapter"))
+                except Exception as e:  # the boundary answers every failure
+                    return self._error(e)
+                self._json({"predictions": preds.tolist()})
 
         def _post_generate(self):
+            with self._trace_span("generate") as sp, _prop.bound(sp.ctx()):
+                try:
+                    payload = self._payload()
+                    name = payload.get("model")
+                    sampling = {k: payload[k] for k in
+                                ("temperature", "top_k", "top_p", "seed",
+                                 "eos_id") if k in payload}
+                    ids = server.generate(
+                        payload["prompt_ids"], int(payload["n_steps"]),
+                        model=name, timeout_s=self._timeout_s(payload),
+                        adapter=payload.get("adapter"), **sampling)
+                except Exception as e:  # the boundary answers every failure
+                    return self._error(e)
+                self._json({"ids": [int(t) for t in ids]})
+
+        def _post_flight_dump(self):
+            """A flight bundle on demand (an SLO page's evidence hook). It
+            rides the recorder's per-reason rate limit: a second dump
+            within it answers `"path": null`."""
             try:
-                payload = self._payload()
-                name = payload.get("model")
-                sampling = {k: payload[k] for k in
-                            ("temperature", "top_k", "top_p", "seed",
-                             "eos_id") if k in payload}
-                ids = server.generate(payload["prompt_ids"],
-                                      int(payload["n_steps"]), model=name,
-                                      timeout_s=self._timeout_s(payload),
-                                      adapter=payload.get("adapter"),
-                                      **sampling)
-            except Exception as e:  # the HTTP boundary answers every failure
+                length = int(self.headers.get("Content-Length", 0))
+                payload = (json.loads(self.rfile.read(length))
+                           if length else {})
+                reason = str(payload.get("reason") or "admin")
+                path = _obs.flight.dump(reason=reason, force=False)
+            except Exception as e:  # the boundary answers every failure
                 return self._error(e)
-            self._json({"ids": [int(t) for t in ids]})
+            self._json({"path": None if path is None else str(path)})
 
     return Handler

@@ -13,10 +13,12 @@ label names in its order).
   bytes, the models resident, evictions, the adapters resident and the
   requests through each adapter. They appear in a scrape once a server
   has hosted, evicted or served through an adapter.
+- The accounting families (`ACCOUNTING_FAMILIES`, reference :122-147):
+  the dispatch seconds measured at the two dispatch points, and their
+  split by tenant with the tenants' tokens (`observability/ledger.py`).
 
 Families still to come: the sharding gauge and the fleet and router
-families with A.13; dispatch seconds and the per-tenant families with
-A.14 (the request ledger).
+families with A.13.
 """
 
 from __future__ import annotations
@@ -138,6 +140,33 @@ ADAPTER_REQUESTS = _obs.metrics.counter(
     "itself; those count only under dl4j_requests_total)",
     label_names=("model", "adapter", "outcome"))
 
+# ------------------------------------------------------------- accounting
+# Per-tenant cost attribution (observability/ledger.py): each batched
+# dispatch's wall time is split across the requests it served at the two
+# dispatch points (batcher._run_group, the scheduler's decode rounds) and
+# summed by (model, adapter). adapter='' is the base model's traffic.
+DISPATCH_SECONDS = _obs.metrics.counter(
+    "dl4j_serving_dispatch_seconds_total",
+    "Total measured dispatch wall seconds at the serving choke points, "
+    "UNSPLIT (phase: forward = batcher sub-batch, prefill = prompt "
+    "install, decode = one decode/speculative round). The per-tenant "
+    "split of the same durations lands in "
+    "dl4j_tenant_device_seconds_total; across tenants the two must "
+    "reconcile",
+    label_names=("model", "phase"))
+TENANT_DEVICE_SECONDS = _obs.metrics.counter(
+    "dl4j_tenant_device_seconds_total",
+    "Attributed device-seconds per tenant: each dispatch's wall time "
+    "split across co-batched requests (by row share in the batcher, "
+    "evenly across active slots in the decode loop). Sums to total "
+    "measured dispatch seconds across tenants",
+    label_names=("model", "adapter"))
+TENANT_TOKENS = _obs.metrics.counter(
+    "dl4j_tenant_tokens_total",
+    "Tokens in/out per tenant (direction: in = prompt tokens admitted, "
+    "out = tokens sampled). Predict rows count as 'in' per input row",
+    label_names=("model", "adapter", "direction"))
+
 # The families above but the hosting ones, by name (what a scrape of any
 # serving tier carries).
 FAMILIES = tuple(f.name for f in (
@@ -150,3 +179,7 @@ FAMILIES = tuple(f.name for f in (
 HOSTING_FAMILIES = tuple(f.name for f in (
     MODEL_HBM_BYTES, MODELS_RESIDENT, EVICTIONS, ADAPTERS_RESIDENT,
     ADAPTER_REQUESTS))
+# The accounting families (children once a model dispatches; the tenant
+# ones once a request closes in the ledger).
+ACCOUNTING_FAMILIES = tuple(f.name for f in (
+    DISPATCH_SECONDS, TENANT_DEVICE_SECONDS, TENANT_TOKENS))

@@ -37,9 +37,22 @@ reference's does.
 
 Threads: the decode loop runs on its own thread and is the only thread
 that touches device tensors once traffic flows; callers hand it host-side
-requests through a bounded queue and wait on an event. The request ledger
-and the tracer spans come with ROADMAP A.14, the group abort of sharded
-replicas with A.13.
+requests through a bounded queue and wait on an event. The group abort
+of sharded replicas comes with ROADMAP A.13.
+
+Observability (reference :92, 384-646): a request carries its caller's
+trace context and its ledger record (`NOOP_RECORD` for a direct caller).
+A prefill runs in a `serving.prefill` span under the request's context;
+an admission and every round a request rides get `serving.admission_wait`
+and `serving.decode_step` spans. A prefill's wall time is the request's
+own (`dl4j_serving_dispatch_seconds_total{phase="prefill"}`); a round's
+(every adapter group's dispatch of a mixed round, or a speculative
+round's draft steps and verify) adds to `{phase="decode"}` and splits
+evenly across the round's active slots, since every slot rides every
+dispatch of the round. The record gets its marks (admitted, prefill or
+prefix hit, first token), tokens out, speculative accepts and rejects,
+and its slot's copy-on-write page copies at retirement. A dying loop
+leaves a flight bundle (`flight.on_crash`) and fails its callers.
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import observability as _obs
 from deeplearning4j_tpu_torch.kernels import flash_attention as _fa
 from deeplearning4j_tpu_torch.models.kv_pool import PrefixCache
 from deeplearning4j_tpu_torch.models.zoo import (
@@ -61,6 +75,8 @@ from deeplearning4j_tpu_torch.models.zoo import (
     PagedDecodeStepper,
     _sample_token,
 )
+from deeplearning4j_tpu_torch.observability import propagate as _prop
+from deeplearning4j_tpu_torch.observability.ledger import NOOP_RECORD
 from deeplearning4j_tpu_torch.serving import metrics as _m
 from deeplearning4j_tpu_torch.serving.errors import (
     InputValidationError,
@@ -93,11 +109,11 @@ class GenerationRequest:
     __slots__ = ("prompt", "n_steps", "temperature", "top_k", "top_p",
                  "seed", "eos_id", "ids", "error", "deadline", "cancelled",
                  "event", "t_submit", "rng", "adapter", "params",
-                 "_last_tok_ns")
+                 "_last_tok_ns", "ctx", "t_submit_ns", "ledger_rec")
 
     def __init__(self, prompt, n_steps, *, temperature=1.0, top_k=0,
                  top_p=0.0, seed=0, eos_id=None, deadline=None,
-                 adapter=None):
+                 adapter=None, ledger_rec=None):
         self.prompt = [int(t) for t in prompt]
         self.n_steps = int(n_steps)
         self.temperature = float(temperature)
@@ -117,6 +133,11 @@ class GenerationRequest:
         self.adapter = None if adapter is None else str(adapter)
         self.params = None
         self._last_tok_ns: Optional[int] = None  # inter-token anchor
+        # The trace context rides the request into the loop's thread; the
+        # ledger record is the server's (it opens and closes it).
+        self.ctx = _prop.current()
+        self.t_submit_ns = time.perf_counter_ns()
+        self.ledger_rec = NOOP_RECORD if ledger_rec is None else ledger_rec
 
     @property
     def done(self) -> bool:
@@ -210,6 +231,10 @@ class GenerationScheduler:
         self._spec = {o: _m.SPECULATIVE_TOKENS.labels(model=model_name,
                                                       outcome=o)
                       for o in ("accepted", "rejected")}
+        self._disp_prefill = _m.DISPATCH_SECONDS.labels(model=model_name,
+                                                        phase="prefill")
+        self._disp_decode = _m.DISPATCH_SECONDS.labels(model=model_name,
+                                                       phase="decode")
         if kv == "paged":
             pool = self.stepper.pool
             for st in ("free", "used", "shared"):
@@ -327,13 +352,14 @@ class GenerationScheduler:
 
     def generate(self, prompt_ids, n_steps: int, *,
                  timeout_s: Optional[float] = None, adapter=None,
-                 **sampling) -> List[int]:
+                 ledger_rec=None, **sampling) -> List[int]:
         """Blocking helper: submit + wait; cancels the request (recycled at
         the next step boundary) when the caller's timeout expires."""
         deadline = (None if timeout_s is None
                     else time.monotonic() + timeout_s)
         req = GenerationRequest(prompt_ids, n_steps, deadline=deadline,
-                                adapter=adapter, **sampling)
+                                adapter=adapter, ledger_rec=ledger_rec,
+                                **sampling)
         self.submit(req)
         req.event.wait(timeout=timeout_s)
         if not req.event.is_set():
@@ -359,6 +385,7 @@ class GenerationScheduler:
         if req._last_tok_ns is not None:
             self._itl_hist.observe((now_ns - req._last_tok_ns) / 1e9)
         req._last_tok_ns = now_ns
+        req.ledger_rec.add_tokens_out(1)
         self._tokens.inc()
         return tok
 
@@ -385,14 +412,28 @@ class GenerationScheduler:
             self.stepper.install_shared(slot, pages, n)
             self.stats["prefix_hits"] += 1
             _m.PREFIX_CACHE_HITS.labels(model=self.model_name).inc()
+            req.ledger_rec.set_prefix_hit(True)
+            req.ledger_rec.mark("prefix_hit")
         else:
-            self.stepper.set_params(req.params)
-            probs, slot_state, n = self.stepper.prefill(req.prompt,
-                                                        pad_to=pad_to)
-            self.stepper.install(slot, slot_state, n)
+            # parent_ctx is explicit: the loop's thread has no enclosing
+            # span to inherit from.
+            t_pf = time.perf_counter_ns()
+            with _obs.tracer.span("serving.prefill", cat="serving",
+                                  parent_ctx=req.ctx,
+                                  model=self.model_name, pad_to=pad_to):
+                self.stepper.set_params(req.params)
+                probs, slot_state, n = self.stepper.prefill(req.prompt,
+                                                            pad_to=pad_to)
+                self.stepper.install(slot, slot_state, n)
+            # One request's dispatch: its wall time is all its own.
+            prefill_s = (time.perf_counter_ns() - t_pf) / 1e9
+            self._disp_prefill.inc(prefill_s)
+            req.ledger_rec.add_device_seconds(prefill_s)
+            req.ledger_rec.mark("prefill")
             self.stats["prefills"] += 1
             if cache is not None:
                 _m.PREFIX_CACHE_MISSES.labels(model=self.model_name).inc()
+                req.ledger_rec.set_prefix_hit(False)
                 cache.admit(req.prompt, self.stepper.pool.pages_of(slot), n,
                             probs, namespace=req.adapter)
         if self._draft_stepper is not None:
@@ -407,6 +448,15 @@ class GenerationScheduler:
         active in `slot`."""
         pad_to = next(b for b in self.prompt_buckets
                       if len(req.prompt) <= b)
+        if req.ctx is not None:
+            # The admission wait, submit -> this step boundary.
+            _obs.tracer.complete(
+                "serving.admission_wait", req.t_submit_ns,
+                time.perf_counter_ns() - req.t_submit_ns, cat="serving",
+                parent_ctx=req.ctx, model=self.model_name)
+        req.ledger_rec.set_queue_wait(
+            (time.perf_counter_ns() - req.t_submit_ns) / 1e9)
+        req.ledger_rec.mark("admitted")
         try:
             probs = self._install_prompt(slot, req, pad_to)
         except Exception as e:  # fail this request, keep the loop alive
@@ -417,6 +467,7 @@ class GenerationScheduler:
         self._ttft.observe(ttft)
         self.ttft_s.append(ttft)
         self._sample(req, probs)
+        req.ledger_rec.mark("first_token")
         if req.done:
             self._clear_slot(slot)
             req.event.set()
@@ -430,6 +481,8 @@ class GenerationScheduler:
 
     def _retire(self, slot: int, req: GenerationRequest,
                 timed_out: bool = False) -> None:
+        if self.kv == "paged":
+            req.ledger_rec.add_cow_copies(self.stepper.pool.cow_count(slot))
         self._clear_slot(slot)
         if timed_out:
             self._finish_timeout(req)
@@ -443,8 +496,10 @@ class GenerationScheduler:
             with torch.inference_mode():
                 self._loop_inner(active)
         except Exception as e:
-            # Decode-loop death strands every active sequence: fail the
-            # callers, then let the thread die with the traceback.
+            # Decode-loop death strands every active sequence: a flight
+            # bundle, the callers failed, then the thread dies with the
+            # traceback.
+            _obs.flight.on_crash("serving.decode_loop", e)
             for req in active.values():
                 req.error = f"{type(e).__name__}: {e}"
                 req.event.set()
@@ -480,9 +535,9 @@ class GenerationScheduler:
             if self._draft_stepper is not None:
                 self._spec_round(active, free)
                 continue
-            t0 = time.perf_counter()
+            t0_ns = time.perf_counter_ns()
             probs = self._decode_round(active)
-            self._stepped(time.perf_counter() - t0, len(active))
+            self._stepped(t0_ns, active)
             now = time.monotonic()
             for slot, req in list(active.items()):
                 if req.cancelled or (req.deadline is not None
@@ -527,11 +582,26 @@ class GenerationScheduler:
                                      for s in range(self.slots)])
         return rows
 
-    def _stepped(self, seconds: float, tokens: int) -> None:
+    def _stepped(self, t0_ns: int,
+                 active: Dict[int, GenerationRequest]) -> None:
+        """Account one round that began at `t0_ns`: its wall time to the
+        stats and histograms, to the decode dispatch seconds, and evenly
+        to the active slots' records (every slot rides every dispatch of
+        the round)."""
+        dur_ns = time.perf_counter_ns() - t0_ns
+        seconds = dur_ns / 1e9
         self.stats["decode_seconds"] += seconds
         self.stats["decode_steps"] += 1
-        self.stats["decode_tokens"] += tokens
+        self.stats["decode_tokens"] += len(active)
         self._step_hist.observe(seconds)
+        self._disp_decode.inc(seconds)
+        share = seconds / len(active)
+        for req in active.values():
+            req.ledger_rec.add_device_seconds(share)
+            if req.ctx is not None:
+                _obs.tracer.complete(
+                    "serving.decode_step", t0_ns, dur_ns, cat="serving",
+                    parent_ctx=req.ctx, model=self.model_name)
 
     def _spec_round(self, active: Dict[int, GenerationRequest],
                     free: List[int]) -> None:
@@ -555,7 +625,7 @@ class GenerationScheduler:
         tok = np.zeros((self.slots, k + 1), np.int64)
         tok[:, 0] = [active[s].ids[-1] if s in active else 0
                      for s in range(self.slots)]
-        t0 = time.perf_counter()
+        t0_ns = time.perf_counter_ns()
         for j in range(k):
             tok[:, j + 1] = draft.step(tok[:, j]).argmax(axis=-1)
         if k:
@@ -564,7 +634,7 @@ class GenerationScheduler:
             draft.step(tok[:, k])
         self.stats["draft_steps"] += k + (1 if k else 0)
         probs = self.stepper.step_k(tok)
-        self._stepped(time.perf_counter() - t0, len(active))
+        self._stepped(t0_ns, active)
         now = time.monotonic()
         for slot, req in list(active.items()):
             if req.cancelled or (req.deadline is not None
@@ -586,6 +656,7 @@ class GenerationScheduler:
                 self._spec["rejected"].inc(k - accepted)
                 self.stats["spec_accepted"] += accepted
                 self.stats["spec_rejected"] += k - accepted
+                req.ledger_rec.add_speculative(accepted, k - accepted)
             if req.done:
                 self._retire(slot, req)
                 del active[slot]

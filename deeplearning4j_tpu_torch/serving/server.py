@@ -2,8 +2,9 @@
 `InferenceServer` hosts one or more models, each behind its own
 `ShapeBucketBatcher` (`POST /predict`) and, for a `transformer_lm` with a
 KV-cached decode path, a continuous-batching `GenerationScheduler`
-(`POST /generate`), and answers `/health`, `/healthz`, `/metrics` and
-`/v1/models` over HTTP.
+(`POST /generate`), and answers `/health`, `/healthz`, `/metrics`,
+`/api/trace`, `/v1/models`, `/v1/tenants` and `POST /admin/flight-dump`
+over HTTP.
 
 - Models come as live nets or from disk: `from_checkpoint(path)` and
   `add_model(name, path=...)` load a sharded checkpoint, a
@@ -38,9 +39,19 @@ caller asks for the CPU; every hosted net must live on the server's
 device. On the card, `start()` builds the kernel library before it opens
 the port, so no request pays for `nvcc`.
 
+- Accounting (reference :391-411, 495-529): `predict` and `generate`
+  each open a request-ledger record (route, model, adapter; predict rows
+  or prompt tokens in) and close it with their outcome (ok, shed,
+  timeout, invalid, failed); the batcher and the scheduler credit it on
+  the way. `tenant_snapshot()` (`GET /v1/tenants`) is the ledger's
+  per-(model, adapter) rows with each adapter's bytes and its share of
+  its base's. The warmup records each model's `output` and `decode_step`
+  device memory (`observability.memory`) on its own thread before
+  traffic, and the host then budgets with the measured footprint.
+
 Still to come: tensor-parallel serving (`model_parallel`), fleets and the
-router (ROADMAP A.13); the request ledger, tenants, `/api/trace` and
-`/admin/*` (A.14). The knobs that name them raise NotImplementedError.
+router, `/admin/drain` and `/admin/reload` (ROADMAP A.13). The knobs that
+name them raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -53,6 +64,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from deeplearning4j_tpu_torch._device import resolve_device
+from deeplearning4j_tpu_torch.observability import memory as _obsmem
+from deeplearning4j_tpu_torch.observability.ledger import ledger as _ledger
 from deeplearning4j_tpu_torch.nn import lora as lora_mod
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     EmbeddingLayer,
@@ -69,7 +82,11 @@ from deeplearning4j_tpu_torch.serving.errors import (
     RequestTimeoutError,
     ServerOverloadedError,
 )
-from deeplearning4j_tpu_torch.serving.host import ModelHost, ServedModel
+from deeplearning4j_tpu_torch.serving.host import (
+    ModelHost,
+    ServedModel,
+    _measure_hbm,
+)
 from deeplearning4j_tpu_torch.serving.scheduler import GenerationScheduler
 
 _UNSET = object()
@@ -344,6 +361,18 @@ class InferenceServer:
             return "timeout"
         return "failed"
 
+    @staticmethod
+    def _ledger_outcome(e: Exception) -> str:
+        """The ledger's outcome of a failed request: shed, timeout,
+        invalid, or failed."""
+        if isinstance(e, ServerOverloadedError):
+            return "shed"
+        if isinstance(e, (RequestTimeoutError, TimeoutError)):
+            return "timeout"
+        if isinstance(e, (InputValidationError, ModelNotReadyError)):
+            return "invalid"
+        return "failed"
+
     # -------------------------------------------------------------- warmup
 
     @property
@@ -390,9 +419,19 @@ class InferenceServer:
                 if model.batcher is None:  # evicted meanwhile
                     continue
                 try:
-                    model.batcher.warm()
+                    # The serving loops take no traffic yet: what the
+                    # allocator sees here is this model's.
+                    net = model.net
+                    with _obsmem.program_memory(_obsmem.program_label(
+                            "output", {"model": model.name}), net=net):
+                        model.batcher.warm()
                     if model.scheduler is not None:
-                        model.scheduler.warmup()
+                        with _obsmem.program_memory(_obsmem.program_label(
+                                "decode_step", {"model": model.name}),
+                                net=net):
+                            model.scheduler.warmup()
+                    _measure_hbm(model)
+                    self.models.publish_footprint(model)
                     model.status = "ready"
                 except Exception as e:
                     model.error = e
@@ -413,22 +452,28 @@ class InferenceServer:
         timeout = (self.predict_timeout_s if timeout_s is _UNSET
                    else timeout_s)
         t0 = time.perf_counter()
+        rec = _ledger.open(route="predict", model=name,
+                           adapter="" if adapter is None else str(adapter))
         try:
             served = self.get(name)
             self._check_ready(served)
             params = self._resolve_adapter(served, adapter)
             arr = canonicalize_features(served.net, data)
+            rec.add_tokens_in(int(arr.shape[0]))  # predict: rows in
             result = self._predict_rows(served, arr, timeout,
-                                        adapter=adapter, params=params)
+                                        adapter=adapter, params=params,
+                                        ledger_rec=rec)
         except Exception as e:
             _m.REQUESTS_LEGACY.labels(outcome="error").inc()
             _m.REQUESTS.labels(model=name, route="predict",
                                outcome=self._outcome(e)).inc()
             self._count_adapter(name, adapter, self._adapter_outcome(e))
+            _ledger.close(rec, outcome=self._ledger_outcome(e))
             raise
         _m.REQUESTS_LEGACY.labels(outcome="ok").inc()
         _m.REQUESTS.labels(model=name, route="predict", outcome="ok").inc()
         self._count_adapter(name, adapter, "ok")
+        _ledger.close(rec, outcome="ok")
         dt = time.perf_counter() - t0
         _m.REQ_LATENCY.observe(dt)
         _m.REQUEST_SECONDS.labels(model=name, route="predict").observe(dt)
@@ -447,7 +492,7 @@ class InferenceServer:
     def _predict_rows(self, served: ServedModel, arr: np.ndarray,
                       timeout: Optional[float],
                       adapter: Optional[str] = None,
-                      params=None) -> np.ndarray:
+                      params=None, ledger_rec=None) -> np.ndarray:
         deadline = None if timeout is None else time.monotonic() + timeout
         size = served.batcher.max_batch_size
         # All chunks are queued up front so that they coalesce into
@@ -455,7 +500,9 @@ class InferenceServer:
         chunks = ([arr[i:i + size] for i in range(0, arr.shape[0], size)]
                   or [arr])
         pendings = [served.batcher.submit(c, deadline, adapter=adapter,
-                                          params=params) for c in chunks]
+                                          params=params,
+                                          ledger_rec=ledger_rec)
+                    for c in chunks]
         results = []
         for p in pendings:
             remaining = (None if deadline is None
@@ -495,6 +542,11 @@ class InferenceServer:
         timeout = (self.predict_timeout_s if timeout_s is _UNSET
                    else timeout_s)
         t0 = time.perf_counter()
+        rec = _ledger.open(
+            route="generate", model=name,
+            adapter="" if adapter is None else str(adapter),
+            tokens_in=len(prompt_ids) if isinstance(
+                prompt_ids, (list, tuple)) else 0)
         try:
             if not isinstance(prompt_ids, (list, tuple)) or not all(
                     isinstance(i, int) and not isinstance(i, bool)
@@ -513,17 +565,42 @@ class InferenceServer:
                     f"prompt_ids must lie in [0, {served.vocab})")
             ids = served.scheduler.generate(prompt_ids, n_steps,
                                             timeout_s=timeout,
-                                            adapter=adapter, **sampling)
+                                            adapter=adapter, ledger_rec=rec,
+                                            **sampling)
         except Exception as e:
             _m.REQUESTS.labels(model=name, route="generate",
                                outcome=self._outcome(e)).inc()
             self._count_adapter(name, adapter, self._adapter_outcome(e))
+            _ledger.close(rec, outcome=self._ledger_outcome(e))
             raise
         _m.REQUESTS.labels(model=name, route="generate", outcome="ok").inc()
         self._count_adapter(name, adapter, "ok")
+        _ledger.close(rec, outcome="ok")
         _m.REQUEST_SECONDS.labels(model=name, route="generate").observe(
             time.perf_counter() - t0)
         return ids
+
+    # -------------------------------------------------------------- tenants
+
+    def tenant_snapshot(self) -> list:
+        """`GET /v1/tenants`: the ledger's per-(model, adapter) rows
+        (requests, tokens in and out, attributed device-seconds, queue
+        wait, outcomes) with each adapter's bytes and its share of its
+        base model's footprint."""
+        rows = _ledger.tenants()
+        for row in rows:
+            row["hbm_bytes"] = None
+            row["hbm_share"] = None
+            served = self.models._models.get(row["model"])
+            if served is None:
+                continue
+            info = served.adapters.get(row["adapter"])
+            if info is not None:
+                row["hbm_bytes"] = int(info.get("bytes") or 0)
+                base = served.hbm_bytes or 0
+                if base:
+                    row["hbm_share"] = row["hbm_bytes"] / float(base)
+        return rows
 
     # ---------------------------------------------------------------- http
 

@@ -423,8 +423,8 @@ def test_health_and_warming_to_ready(convs):
             _get(server.url, "/nope")
         assert e.value.code == 404
         assert json.loads(e.value.read())["routes"] == [
-            "/health", "/healthz", "/metrics", "/v1/models", "/predict",
-            "/generate"]
+            "/health", "/healthz", "/metrics", "/api/trace", "/v1/models",
+            "/v1/tenants", "/predict", "/generate", "/admin/flight-dump"]
     finally:
         server.stop()
 
