@@ -696,9 +696,59 @@ Run before trace, the training tooling (slice 15):
               measured TTFTs (1 ms) and not on one above them (600 s); a
               decode round's ms with the instruments on and off,
               OBS_DECODE_PAIRS alternating pairs of 4 requests each.
+53. w2v     - Word2Vec HS skip-gram (`nlp/word2vec.py`; no TPU kernel on
+              this path: `ops/skipgram.py`'s PyTorch ops on the card) at
+              `bench.py:894-930`'s configuration: a Zipf corpus over V =
+              10,000, 2,000,000 words in sentences of 1,000 from
+              RandomState(0), layer_size=100, window_size=5, sample=1e-3,
+              negative=0, seed=1, batch_size=16384. A warm-up fit (each
+              flush's span on the stream by CUDA events), then a timed fit
+              with nothing wrapped: words/s, the flushes, the fit's ms a
+              flush, the uploads; the tables finite; the warm-up's first
+              K = 8 flushes (one queue) held to
+              the CPU run of the same batches: each flush, replayed on the
+              CPU from the card's tables before it, within 1e-5 (max|d| /
+              max|ref|), and the CPU run's distance after the 8 within
+              1e-5 where its order floor (the CPU run against itself with
+              every scatter-add summed in reverse) is under 1e-6, else
+              printed beside the floor; the synchronizing calls of
+              the full fit under `set_sync_debug_mode("warn")` equal to
+              those of the 200,000-word prefix fit (none a flush); the
+              vocab built natively (`native.corpus_paths`) every fit.
+54. w2v_modes - the four modes (HS or NS at negative=5, skip-gram or
+              CBOW) on that 200,000-word prefix, each fit's syn0 and syn1 /
+              syn1neg held to the port's CPU fit of the same batches: every
+              flush replayed on the CPU from the card's tables before it
+              within 1e-5; the CPU run's distance to the card printed by
+              flushes; the whole fit within 1e-4 where the order floor is
+              under 1e-5 (the CBOW modes; the skip-gram modes' floors,
+              ~1e-3 HS and ~8e-5 NS on the CPU, put no bound between a
+              fault and another order of the same sums, so their whole-fit
+              distance is printed beside the floor, not gated); then
+              `examples/word2vec_text.py`'s corpus and settings on the card,
+              `words_nearest("cat", top=4)` printed and within the pet
+              topic; last, that model's full-model zip written under the
+              ignored build/nlp, reloaded on the card and on the CPU (syn0
+              bit for bit), both trained further on 300 more sentences
+              (the resume path) and held within 1e-4.
+55. embeddings - GloVe on the three-topic corpus at 6,000 sentences, D=100,
+              5 epochs: `error_per_epoch` falls every epoch and equals the
+              CPU run's within 1e-4 relative (syn0 too); ParagraphVectors,
+              DBOW and DM, on 300 labelled documents of those topics: at
+              least 90% of the documents nearer (mean cosine) their own
+              topic's documents than the others', `infer_vector` of a pet
+              text with at least 8 of its 10 nearest labels pet documents
+              and syn1 bit for bit as it was; DeepWalk on a
+              planted-partition graph of 10,000 vertices in 10
+              communities (mean degree about 10, nine in ten edges inside),
+              vector_size=100, walk_length=40: at least 90% of 2,000
+              sampled vertices nearer their own community, and the first 8
+              flushes held to the CPU as w2v's first queue is. Each phase
+              prints its seconds (`phase_s`).
 
-Then the card line, the `{"kernels": [...]}` line (each kernel with its
-launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
+Phases 53-55 launch none of the kernels below (no TPU kernel lies on the
+NLP path). Then the card line, the `{"kernels": [...]}` line (each kernel
+with its launches on each main path: serve, LM train, T1, T2, I1, I2, rnn_train,
 rnn_sample, lenet_train, mlp_train, dsl, ckpt, serving, long_serve,
 long_train, long_output, alexnet_train, vgg16_train, masked_train,
 unmasked_step, moe_train, moe_output, moe_decode, pretrain_vae,
@@ -10955,6 +11005,489 @@ def phase_obs_serving(card, torch, kernels, dev, cg, t2_net):
     return not errors, {"obs_serving": total}
 
 
+# ------------------------------------------------ NLP and graph embeddings
+
+# bench.py:894-930's Word2Vec configuration: a Zipf corpus over V = 10,000
+# words, 2,000,000 words in sentences of 1,000, from RandomState(0).
+W2V_V, W2V_WORDS, W2V_SENT = 10_000, 2_000_000, 1000
+W2V_PREFIX = 200_000          # the prefix fits (sync count, the four modes)
+W2V_KW = dict(layer_size=100, window_size=5, min_word_frequency=1,
+              sample=1e-3, negative=0, seed=1, batch_size=16384)
+W2V_MODES_NEG = 5
+EMB_OP_TOL = 1e-5    # one op, or the first 8 flushes: max|d| / max|ref|
+EMB_FIT_TOL = 1e-4   # a whole fit, card against the port's CPU run
+NLP_DIR = os.path.join("build", "nlp")
+EMB_TOPICS = [["cat", "dog", "pet", "fur", "paw"],
+              ["car", "road", "wheel", "drive", "engine"],
+              ["sun", "moon", "star", "sky", "orbit"]]
+GLOVE_SENTENCES, GLOVE_D, GLOVE_EPOCHS = 6000, 100, 5
+PV_DOCS = 300                  # labelled documents, 100 a topic
+PV_KW = dict(layer_size=100, window_size=3, epochs=10, seed=5,
+             learning_rate=0.05)
+DW_V, DW_COMMUNITIES, DW_DEGREE = 10_000, 10, 10
+DW_KW = dict(vector_size=100, seed=3)
+DW_WALK = 40
+EMB_FIRST_FLUSHES = 8
+
+
+def w2v_corpus(n_words):
+    """`bench.py:894-930`'s corpus, its first `n_words` words."""
+    rng = np.random.RandomState(0)
+    p = 1.0 / np.arange(1, W2V_V + 1)
+    p /= p.sum()
+    words = [f"w{i}" for i in range(W2V_V)]
+    idx = rng.choice(W2V_V, size=W2V_WORDS, p=p)[:n_words]
+    return [[words[j] for j in idx[i:i + W2V_SENT]]
+            for i in range(0, n_words, W2V_SENT)]
+
+
+def topic_sentences(n, seed=0, length=12):
+    """`examples/word2vec_text.py`'s three-topic corpus, n sentences."""
+    rng = np.random.RandomState(seed)
+    return [[t[i] for i in rng.randint(0, 5, length)]
+            for t in (EMB_TOPICS[rng.randint(3)] for _ in range(n))]
+
+
+def _emb_rel(got, want):
+    """max|got - want| / max|want| over a table (tensors or arrays)."""
+    g = got.detach().cpu().double().numpy() if hasattr(got, "detach") \
+        else np.asarray(got, np.float64)
+    w = want.detach().cpu().double().numpy() if hasattr(want, "detach") \
+        else np.asarray(want, np.float64)
+    return float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+
+
+class _Dispatches:
+    """Wraps `ops.skipgram` step functions for one fit (a scan calls its
+    steps through the module, so each flush is one call): counts the
+    flushes, times each on the stream (CUDA events before and after it,
+    read once after the fit), and for the first `first` flushes (all with
+    None) keeps device copies of their inputs and of the tables before the
+    first and after each, for `held_to_cpu`. Restores the functions on
+    exit."""
+
+    def __init__(self, torch, names, first=EMB_FIRST_FLUSHES):
+        from deeplearning4j_tpu_torch.ops import skipgram
+
+        self.torch, self.mod, self.names, self.first = (torch, skipgram,
+                                                        names, first)
+        self.calls, self.events, self.inputs, self.posts = [], [], [], []
+        self.before = None
+        self._real = {}
+
+    def __enter__(self):
+        torch = self.torch
+        for name in self.names:
+            real = self._real[name] = getattr(self.mod, name)
+
+            def wrapped(*a, _real=real, _name=name):
+                n = len(self.calls)
+                keep = self.first is None or n < self.first
+                if n == 0:
+                    self.before = [x.clone() for x in a[:2]]
+                if keep:
+                    self.inputs.append((_name, [
+                        x.clone() if isinstance(x, torch.Tensor) else x
+                        for x in a[2:]]))
+                ev = None
+                if a[0].is_cuda:
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                out = _real(*a)
+                if ev is not None:
+                    ev[1].record()
+                    self.events.append(ev)
+                self.calls.append(_name)
+                if keep:
+                    self.posts.append([x.clone() for x in a[:2]])
+                return out
+            setattr(self.mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._real.items():
+            setattr(self.mod, name, real)
+
+    def stream_ms(self):
+        """Summed event spans of the flushes (one read, after the fit)."""
+        if not self.events:
+            return None
+        self.events[-1][1].synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+    def _replay(self, from_card, reverse=False, stop=None):
+        """The recorded flushes on CPU copies of the tables, each from the
+        card's tables before it or, in turn, from the CPU's own (with
+        `reverse`, every scatter-add summed in the reverse order: the same
+        sums). Returns the CPU tables after each flush; with `stop(i,
+        tables)` true, no more flushes."""
+        def cpu(args):
+            return [x.cpu() if hasattr(x, "cpu") else x for x in args]
+
+        real = self.mod._segment_sum
+        if reverse:
+            self.mod._segment_sum = lambda src, idx, n: real(
+                src.flip(0), idx.flip(0), n)
+        try:
+            own = [x.to("cpu", copy=True) for x in self.before]
+            states = []
+            for i, (name, args) in enumerate(self.inputs):
+                if from_card:
+                    pre = self.before if i == 0 else self.posts[i - 1]
+                    own = [x.to("cpu", copy=True) for x in pre]
+                self._real[name](*own, *cpu(args))
+                states.append(own if from_card else [x.clone() for x in own])
+                if stop is not None and stop(i, own):
+                    break
+        finally:
+            self.mod._segment_sum = real
+        return states
+
+    def held_to_cpu(self, tol, what, cpu_run=None, run_tol=None):
+        """The recorded flushes held to the port's CPU run of the same
+        batches (`cpu_run`: the CPU fit's `_Dispatches`, or a replay).
+        Each flush, replayed from the card's tables before it, is held
+        within `tol` (a fault in any flush shows there). The CPU run's
+        distance to the card grows with the flushes, because the card's
+        `index_add_` sums in another order; its order floor is the CPU run
+        against itself with every scatter-add summed in reverse. The run's
+        distance after the last flush is held within `run_tol` (default
+        `tol`) where that floor stays under a tenth of it (the reversed run
+        stops at the first flush past that); where it does not, no bound
+        on it tells a fault from another order of the same sums, and it is
+        reported. Returns (report, errors)."""
+        run_tol = run_tol or tol
+
+        def rel(x, y):
+            return [_emb_rel(a, b) for a, b in zip(x, y)]
+
+        one = [rel(self.posts[i], t)
+               for i, t in enumerate(self._replay(True))]
+        run_states = (cpu_run.posts if cpu_run is not None
+                      else self._replay(False))
+        run = [rel(self.posts[i], t) for i, t in enumerate(run_states)]
+        floor = []
+        self._replay(False, reverse=True, stop=lambda i, t: (
+            floor.append((i + 1, rel(t, run_states[i]))),
+            max(floor[-1][1]) >= run_tol / 10)[1])
+        gated = (len(floor) == len(run)
+                 and max(floor[-1][1]) < run_tol / 10)
+        worst = max(range(len(one)), key=lambda i: max(one[i]))
+        errors = []
+        if max(one[worst]) > tol:
+            errors.append(f"{what}: flush {worst + 1} of {len(one)} "
+                          f"replayed from the card's tables: rel "
+                          f"{one[worst]} > {tol}")
+        if gated and max(run[-1]) > run_tol:
+            errors.append(f"{what}: the CPU run of the same {len(run)} "
+                          f"flushes: rel {run[-1]} > {run_tol} (order "
+                          f"floor {floor[-1][1]})")
+        marks = sorted({*range(7, len(run), 8), len(run) - 1})
+        return dict(flushes_held=len(one), max_one_flush_rel=one[worst],
+                    worst_flush=worst + 1,
+                    cpu_run_rel_by_flushes={str(i + 1): run[i]
+                                            for i in marks},
+                    order_floor_rel=floor[-1][1],
+                    order_floor_at_flush=floor[-1][0],
+                    cpu_run_rel_gated=gated), errors
+
+
+def phase_w2v(card, torch, kernels, dev):
+    """Word2Vec HS skip-gram on the card at bench.py:894-930's
+    configuration: a warm-up fit of the 2M-word corpus (its synchronizing
+    calls counted; each flush's span on the stream; its first K = 8
+    flushes, one queue, held to the CPU run of the same batches by
+    `_Dispatches.held_to_cpu`), a timed fit with nothing wrapped (words/s,
+    the flushes), and the 200,000-word prefix fit, whose synchronizing
+    calls must equal the full fit's."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.nlp.word2vec import K_SCAN, Word2Vec
+    from deeplearning4j_tpu_torch.ops import skipgram
+
+    t_phase = time.perf_counter()
+    errors, out = [], {}
+    sents = w2v_corpus(W2V_WORDS)
+    native.reset_counts()
+    scans = []
+    real_scan = skipgram.hs_skipgram_scan_tbl
+    skipgram.hs_skipgram_scan_tbl = lambda *a: (scans.append(a[2].shape[0]),
+                                                real_scan(*a))[1]
+    try:
+        with _Dispatches(torch, ("hs_skipgram_step_tbl",)) as disp:
+            warm = Word2Vec(device=dev, **W2V_KW)
+            syncs_full = _sync_calls(torch, lambda: warm.fit(sents))
+    finally:
+        skipgram.hs_skipgram_scan_tbl = real_scan
+    stream_ms = disp.stream_ms()
+    if not scans or scans[0] != K_SCAN or len(disp.calls) != warm.flushes:
+        errors.append(f"dispatches {scans[:3]}..., {len(disp.calls)} steps "
+                      f"for {warm.flushes} flushes: the first queue is no "
+                      f"K = {K_SCAN} scan")
+    first, errs = disp.held_to_cpu(EMB_OP_TOL, "w2v first queue")
+    errors += errs
+    del warm, disp
+    torch.cuda.synchronize()
+    w2v = Word2Vec(device=dev, **W2V_KW)
+    t0 = time.perf_counter()
+    w2v.fit(sents)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    syncs_prefix = _sync_calls(
+        torch, lambda: Word2Vec(device=dev, **W2V_KW).fit(
+            sents[:W2V_PREFIX // W2V_SENT]))
+    if len(syncs_full) != len(syncs_prefix):
+        errors.append(f"synchronizing calls: {len(syncs_full)} in the full "
+                      f"fit, {len(syncs_prefix)} in the prefix fit")
+    finite = bool(np.isfinite(w2v.syn0).all()
+                  and torch.isfinite(w2v.syn1).all())
+    if not finite:
+        errors.append("non-finite tables")
+    if native.corpus_paths["native"] != 3:
+        errors.append(f"vocab paths {native.corpus_paths}: not 3 native")
+    out.update(
+        config=dict(W2V_KW, corpus=f"Zipf over V={W2V_V}, {W2V_WORDS} words "
+                    f"in sentences of {W2V_SENT}, RandomState(0) "
+                    "(bench.py:894-930)"),
+        vocab=w2v.vocab.num_words(), syn1_rows=int(w2v.syn1.shape[0]),
+        huffman_max_code=max(len(w.codes) for w in w2v.vocab._by_index),
+        fit_s=fit_s, words_per_s=W2V_WORDS / fit_s, flushes=w2v.flushes,
+        scans=len(scans), single_steps=w2v.flushes - K_SCAN * len(scans),
+        fit_ms_per_flush=fit_s * 1e3 / max(w2v.flushes, 1),
+        warmup_stream_ms_per_flush=(None if stream_ms is None
+                                    else stream_ms / max(w2v.flushes, 1)),
+        uploads=w2v.uploader.uploads, upload_bytes=w2v.uploader.bytes,
+        sync_calls_full=len(syncs_full), sync_calls_prefix=len(syncs_prefix),
+        sync_call_samples=syncs_full[:4], first_queue=first,
+        finite=finite, vocab_paths=dict(native.corpus_paths))
+    emit(card, phase="w2v", ok=not errors, errors=errors, **out,
+         phase_s=time.perf_counter() - t_phase)
+    del w2v
+    torch.cuda.empty_cache()
+    return not errors
+
+
+W2V_STEPS = {"hs_skipgram": "hs_skipgram_step_tbl",
+             "ns_skipgram": "ns_skipgram_step",
+             "hs_cbow": "hs_cbow_step_tbl", "ns_cbow": "ns_cbow_step"}
+
+
+def _w2v_mode(torch, dev, name, kw, sents):
+    """One mode on the card, held to the port's CPU fit of the same batches
+    (`_Dispatches.held_to_cpu`): every flush within EMB_OP_TOL, the whole
+    fit within EMB_FIT_TOL where the order floor allows. Returns (report,
+    errors)."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+
+    t0 = time.perf_counter()
+    with _Dispatches(torch, (W2V_STEPS[name],), first=None) as disp:
+        card_m = Word2Vec(device=dev, **kw).fit(sents)
+    with _Dispatches(torch, (W2V_STEPS[name],), first=None) as cpu_run:
+        Word2Vec(device="cpu", **kw).fit(sents)
+    errors = [] if all(torch.equal(a, b.cpu()) for a, b in zip(
+        cpu_run.before, disp.before)) else [
+            f"{name}: the card and CPU fits start from other tables"]
+    rep, errs = disp.held_to_cpu(EMB_OP_TOL, name, cpu_run,
+                                 run_tol=EMB_FIT_TOL)
+    errors += errs
+    if not card_m.flushes == len(disp.calls) == len(cpu_run.calls):
+        errors.append(f"{name}: {card_m.flushes} flushes, "
+                      f"{len(disp.calls)} steps on the card and "
+                      f"{len(cpu_run.calls)} on the CPU")
+    return dict(rep, flushes=card_m.flushes,
+                seconds=time.perf_counter() - t0), errors
+
+
+def phase_w2v_modes(card, torch, kernels, dev):
+    """The four modes (HS or NS at negative=5, skip-gram or CBOW) on the
+    corpus' 200,000-word prefix, each fit's syn0 and syn1 / syn1neg held
+    to the port's CPU fit (`_w2v_mode`: flush by flush, and whole where the
+    order floor allows); examples/word2vec_text.py's corpus and settings
+    on the card (`words_nearest("cat", top=4)` within the pet topic); a
+    full-model zip written on the card, reloaded and trained further, on
+    the card and on the CPU."""
+    from deeplearning4j_tpu_torch.nlp import serializer
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+
+    t_phase = time.perf_counter()
+    errors, modes = [], {}
+    sents = w2v_corpus(W2V_PREFIX)
+    for name, neg, cbow in (("hs_skipgram", 0, False),
+                            ("ns_skipgram", W2V_MODES_NEG, False),
+                            ("hs_cbow", 0, True),
+                            ("ns_cbow", W2V_MODES_NEG, True)):
+        kw = dict(W2V_KW, negative=neg, cbow=cbow)
+        modes[name], errs = _w2v_mode(torch, dev, name, kw, sents)
+        errors += errs
+    example = topic_sentences(600)
+    ex_kw = dict(layer_size=32, window_size=3, min_word_frequency=5,
+                 negative=5, seed=1)
+    w2v = Word2Vec(device=dev, **ex_kw).fit(example)
+    nearest = w2v.words_nearest("cat", top=4)
+    if not set(nearest) <= set(EMB_TOPICS[0]):
+        errors.append(f"words_nearest('cat') = {nearest}, not the pet topic")
+    os.makedirs(NLP_DIR, exist_ok=True)
+    path = os.path.join(NLP_DIR, "w2v_example.zip")
+    serializer.write_full_model(w2v, path)
+    more = topic_sentences(300, seed=1)
+    resumed = {}
+    for where in (dev, "cpu"):
+        m = serializer.load_full_model(path, device=where)
+        if not np.array_equal(m.syn0, w2v.syn0):
+            errors.append(f"zip reload on {where}: syn0 differs")
+        resumed[str(where)] = m.fit(more)
+    zip_rel = [_emb_rel(resumed[str(dev)].syn0, resumed["cpu"].syn0),
+               _emb_rel(resumed[str(dev)].syn1neg, resumed["cpu"].syn1neg)]
+    moved = float(np.abs(resumed[str(dev)].syn0 - w2v.syn0).max())
+    if max(zip_rel) > EMB_FIT_TOL or not moved > 0:
+        errors.append(f"resumed zip: card vs CPU rel {zip_rel}, moved "
+                      f"{moved}")
+    shutil.rmtree(NLP_DIR, ignore_errors=True)
+    emit(card, phase="w2v_modes", ok=not errors, errors=errors,
+         prefix_words=W2V_PREFIX, modes=modes, example_nearest_cat=nearest,
+         example_similarity_cat_dog=w2v.similarity("cat", "dog"),
+         example_similarity_cat_engine=w2v.similarity("cat", "engine"),
+         zip_resume_rel=zip_rel, zip_resume_moved=moved,
+         phase_s=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return not errors
+
+
+def _topic_margin(unit, topic_of):
+    """Per item: the mean cosine to the other items of its topic less the
+    mean to the items of the other topics."""
+    sims = unit @ unit.T
+    same = topic_of[:, None] == topic_of[None, :]
+    np.fill_diagonal(same, False)
+    other = topic_of[:, None] != topic_of[None, :]
+    return ((sims * same).sum(1) / same.sum(1)
+            - (sims * other).sum(1) / other.sum(1))
+
+
+def planted_partition_edges(n, k, degree, seed):
+    """A planted-partition graph's edges: n vertices in k equal
+    communities, about `degree` neighbours a vertex, nine in ten of them
+    inside its community."""
+    rng = np.random.RandomState(seed)
+    size = n // k
+    per = degree // 2                      # each edge adds 2 to the degrees
+    src = np.repeat(np.arange(n), per)
+    inside = rng.rand(len(src)) < 0.9
+    dst = np.where(inside, (src // size) * size + rng.randint(0, size,
+                                                              len(src)),
+                   rng.randint(0, n, len(src)))
+    keep = dst != src
+    return src[keep], dst[keep]
+
+
+def phase_embeddings(card, torch, kernels, dev):
+    """GloVe (the three-topic corpus at 6,000 sentences, D=100, 5 epochs:
+    error_per_epoch falls and equals the CPU run's), ParagraphVectors
+    (DBOW and DM on labelled documents of those topics: each document
+    nearer its own topic's; infer_vector near its topic) and DeepWalk (a
+    planted-partition graph of 10,000 vertices in 10 communities, mean
+    degree about 10, vector_size=100, walk_length=40: vertices within a
+    community more similar than across; the first 8 flushes held to the
+    CPU) on the card."""
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Graph
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import (
+        ParagraphVectors,
+    )
+    from deeplearning4j_tpu_torch.nlp.sentence_iterator import (
+        LabelledDocument,
+    )
+
+    t_phase = time.perf_counter()
+    errors, out = [], {}
+
+    # GloVe, card and CPU.
+    t0 = time.perf_counter()
+    sents = topic_sentences(GLOVE_SENTENCES)
+    gk = dict(layer_size=GLOVE_D, epochs=GLOVE_EPOCHS)
+    g_card = Glove(sents, device=dev, **gk).fit()
+    g_cpu = Glove(sents, device="cpu", **gk).fit()
+    err_rel = [abs(a - b) / abs(b) for a, b in zip(g_card.error_per_epoch,
+                                                    g_cpu.error_per_epoch)]
+    syn_rel = _emb_rel(g_card.syn0, g_cpu.syn0)
+    falls = all(b < a for a, b in zip(g_card.error_per_epoch,
+                                      g_card.error_per_epoch[1:]))
+    if not falls or max(err_rel) > EMB_FIT_TOL or syn_rel > EMB_FIT_TOL:
+        errors.append(f"glove: error_per_epoch {g_card.error_per_epoch} "
+                      f"(falls {falls}), rel to the CPU {err_rel}, syn0 "
+                      f"rel {syn_rel}")
+    out["glove"] = dict(error_per_epoch=g_card.error_per_epoch,
+                        error_rel_to_cpu=err_rel, syn0_rel=syn_rel,
+                        vocab=g_card.vocab.num_words(),
+                        seconds=time.perf_counter() - t0)
+
+    # ParagraphVectors, DBOW and DM.
+    rng = np.random.RandomState(4)
+    docs, topic_of = [], []
+    for i in range(PV_DOCS):
+        k = i % 3
+        words = [EMB_TOPICS[k][j] for j in rng.randint(0, 5,
+                                                         rng.randint(12, 30))]
+        docs.append(LabelledDocument(" ".join(words), [f"T{k}_{i}"]))
+        topic_of.append(k)
+    probe = "cat dog paw fur pet dog cat"
+    for dm in (False, True):
+        t0 = time.perf_counter()
+        pv = ParagraphVectors(
+            [LabelledDocument(d.content, list(d.labels)) for d in docs],
+            dm=dm, device=dev, **PV_KW).fit()
+        topics = np.asarray([int(l[1]) for l in pv.labels])
+        margin = _topic_margin(pv._doc_unit, topics)
+        syn1 = pv.syn1.clone()
+        vec = pv.infer_vector(probe)
+        near = pv.nearest_labels(vec, top=10)
+        pet_share = sum(l.startswith("T0_") for l in near) / len(near)
+        kept = bool(torch.equal(syn1, pv.syn1))
+        name = "pv_dm" if dm else "pv_dbow"
+        out[name] = dict(mean_topic_margin=float(margin.mean()),
+                         docs_nearer_own_topic=float((margin > 0).mean()),
+                         infer_nearest_pet_share=pet_share,
+                         infer_left_syn1=kept,
+                         seconds=time.perf_counter() - t0)
+        if (margin > 0).mean() < 0.9 or pet_share < 0.8 or not kept:
+            errors.append(f"{name}: {out[name]}")
+
+    # DeepWalk on a planted-partition graph.
+    t0 = time.perf_counter()
+    src, dst = planted_partition_edges(DW_V, DW_COMMUNITIES, DW_DEGREE, 6)
+    graph = Graph(DW_V)
+    for a, b in zip(src.tolist(), dst.tolist()):
+        graph.add_edge(a, b)
+    build_s = time.perf_counter() - t0
+    dw = DeepWalk(device=dev, **DW_KW)
+    with _Dispatches(torch, ("hs_skipgram_step",)) as disp:
+        t1 = time.perf_counter()
+        dw.fit(graph, walk_length=DW_WALK)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t1
+    first, errs = disp.held_to_cpu(EMB_OP_TOL, "deepwalk first flushes")
+    errors += errs
+    comm = np.arange(DW_V) // (DW_V // DW_COMMUNITIES)
+    pick = np.random.RandomState(7).choice(DW_V, 2000, replace=False)
+    margin = _topic_margin(dw._unit[pick], comm[pick])
+    out["deepwalk"] = dict(
+        vertices=DW_V, communities=DW_COMMUNITIES,
+        mean_degree=float(graph.degrees().mean()),
+        flushes=len(disp.calls), fit_s=fit_s, graph_build_s=build_s,
+        stream_ms_per_flush=(disp.stream_ms() or 0.0) / max(len(disp.calls),
+                                                            1),
+        first_flushes=first,
+        mean_community_margin=float(margin.mean()),
+        vertices_nearer_own_community=float((margin > 0).mean()),
+        seconds=time.perf_counter() - t0)
+    if not (margin > 0).mean() >= 0.9:
+        errors.append(f"deepwalk: {out['deepwalk']}")
+    emit(card, phase="embeddings", ok=not errors, errors=errors, **out,
+         phase_s=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return not errors
+
+
 def main() -> int:
     import torch
 
@@ -11210,6 +11743,11 @@ def main() -> int:
     path_launches.update(gradcheck_launches)
     if not phase_eval(card, torch, dev):
         failed.append("eval")
+    for name, fn in (("w2v", phase_w2v), ("w2v_modes", phase_w2v_modes),
+                     ("embeddings", phase_embeddings)):
+        if not fn(card, torch, kernels, dev):
+            failed.append(name)
+        torch.cuda.empty_cache()
     trace, ok = phase_trace(card, torch, cg, train_net, batches[0], nets,
                             rn_batch, rnn_net, rnn_data[0], long_net,
                             long_batches[0], mnist)

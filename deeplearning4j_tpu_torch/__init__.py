@@ -10,7 +10,9 @@ PyTorch version runs instead.
 
 The port serves `models.zoo.transformer_lm` over HTTP with paged-KV
 continuous batching (`serving.InferenceServer`) and trains it with
-`nn.graph.ComputationGraph.fit`.
+`nn.graph.ComputationGraph.fit`; it trains word, document and vertex
+embeddings (`nlp/`, `graph/`) with PyTorch ops on the card, where the JAX
+package has no Pallas kernel.
 """
 
 __version__ = "0.1.0"

@@ -8,6 +8,8 @@
   wrote.
 - Entry points run on the card unless the caller asks for the CPU: given
   no device on a machine without a GPU they raise, never falling back.
+- The native components build outside the package; `Word2Vec(mesh=...)`
+  (several cards) is refused, naming ROADMAP A.13.
 """
 
 import ast
@@ -21,8 +23,12 @@ import pytest
 import torch
 
 import deeplearning4j_tpu_torch
+from deeplearning4j_tpu_torch.graph import DeepWalk
 from deeplearning4j_tpu_torch.models import resnet, zoo
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nlp.glove import Glove
+from deeplearning4j_tpu_torch.nlp.paragraph_vectors import ParagraphVectors
+from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.serving import InferenceServer
 from deeplearning4j_tpu_torch.util.model_serializer import load_model
@@ -111,7 +117,23 @@ def test_every_port_module_imports_without_jax():
             "deeplearning4j_tpu_torch.nn.lora",
             "deeplearning4j_tpu_torch.nn.transfer",
             "deeplearning4j_tpu_torch.checkpoint.adapters",
-            "deeplearning4j_tpu_torch.serving.host"} <= set(mods)
+            "deeplearning4j_tpu_torch.serving.host",
+            "deeplearning4j_tpu_torch.util.huffman",
+            "deeplearning4j_tpu_torch.nlp.tokenization",
+            "deeplearning4j_tpu_torch.nlp.vocab",
+            "deeplearning4j_tpu_torch.ops.skipgram",
+            "deeplearning4j_tpu_torch.ops.glove",
+            "deeplearning4j_tpu_torch.nlp.word2vec",
+            "deeplearning4j_tpu_torch.nlp.serializer",
+            "deeplearning4j_tpu_torch.nlp.sentence_iterator",
+            "deeplearning4j_tpu_torch.nlp.glove",
+            "deeplearning4j_tpu_torch.nlp.paragraph_vectors",
+            "deeplearning4j_tpu_torch.nlp.vectorizer",
+            "deeplearning4j_tpu_torch.nlp.distributed_corpus",
+            "deeplearning4j_tpu_torch.graph.api",
+            "deeplearning4j_tpu_torch.graph.data",
+            "deeplearning4j_tpu_torch.graph.iterators",
+            "deeplearning4j_tpu_torch.graph.deepwalk"} <= set(mods)
     code = (
         "import sys\n"
         "for blocked in ('jax', 'jaxlib', 'ml_dtypes', "
@@ -189,9 +211,9 @@ def _package_files():
 
 def test_native_build_writes_nothing_under_the_package(tmp_path,
                                                        monkeypatch):
-    # The parser builds into build/native/ at the repository's root (the
-    # reference writes its .so beside its source); a fresh build directory
-    # forces a compile here.
+    # The CSV parser and the vocab builder build into build/native/ at the
+    # repository's root (the reference writes its .so beside its source); a
+    # fresh build directory forces a compile here.
     from deeplearning4j_tpu_torch import native
 
     assert PORT not in native.BUILD_DIR.parents
@@ -204,6 +226,10 @@ def test_native_build_writes_nothing_under_the_package(tmp_path,
     m = native.parse_numeric_csv(str(csv))
     assert m.tolist() == [[1.0, 2.0], [3.0, 4.0]]
     assert native.library_path("fastcsv").is_file()
+    words, counts, seqs = native.build_vocab_corpus(["b a b", "c b"])
+    assert words == ["b", "a", "c"] and counts.tolist() == [3.0, 1.0, 1.0]
+    assert [s.tolist() for s in seqs] == [[0, 1, 0], [2, 0]]
+    assert native.library_path("fastvocab").is_file()
     assert _package_files() == before
 
 
@@ -225,5 +251,21 @@ def test_entry_points_default_to_the_card():
         MultiLayerNetwork(zoo.lenet_mnist())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_model(ROOT / "tests" / "fixtures" / "golden_model_v1.zip")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Word2Vec([["a", "b"]])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParagraphVectors(["a b"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Glove([["a", "b"]])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeepWalk()
     with pytest.raises(ValueError, match="not supported"):
         ComputationGraph(conf, device="meta")
+
+
+def test_word2vec_mesh_is_refused_naming_a13():
+    # Data parallelism over several cards is not in the port yet.
+    with pytest.raises(ValueError, match="A.13"):
+        Word2Vec(mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="A.13"):
+        Word2Vec(mesh=object())  # refused before the device is resolved
